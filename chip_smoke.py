@@ -4,16 +4,26 @@
 
 Phases, each fatal on failure:
   1. build     nvcc builds every kernel under small_vision_tpu_torch/csrc/.
-  2. kernels   each kernel against its plain PyTorch version on the card, at
-               the shapes of the UMD-B/4@64 sampler at batch 64, with its
-               time, the plain version's, one library call's and the bound.
-  3. model     the model forward at full width (depth cut to 2 + 1) on the
-               card (kernels) against the CPU (plain versions), same weights
-               and inputs.
-  4. serve     the port's HTTP sampling server at full UMD-B/4@64 size from
+  2. kernels   each kernel against its plain PyTorch version on the card,
+               with its time, the plain version's, one library call's and
+               the bound: the forwards K1 and K3 at the shapes of the
+               UMD-B/4@64 sampler at batch 64, the backwards K2 and K4 at
+               the training shapes (per-branch batch 128, L = 68, 164, 257),
+               each launched twice to show equal bits.
+  3. model     at full width (depth cut to 2 + 1), on the card (kernels)
+               against the CPU (plain versions), same weights and inputs:
+               the sampler's forward, and one training step's loss and
+               gradients at batch 8 with injected draws.
+  4. train     the full UMD-B/4@64 training step at batch 256 on synthetic
+               data through `train_and_evaluate` (what the CLI runs), from
+               `init_train_params` weights: 1 warm-up and 10 timed steps;
+               finite losses, changed parameters, and exactly the kernel
+               launches per step the model says.
+  5. serve     the port's HTTP sampling server at full UMD-B/4@64 size from
                seeded random weights: three concurrent requests (16, 16, 32
                images) coalesce into one 125-step DDIM call of batch 64; the
-               kernel launch counts of that call must be what the model says.
+               kernel launch counts of that call must be what the model says
+               (and no backward kernel).
 Then it prints the card's name and power limit, one JSON line of the
 kernels, and as its last line {"ok": true, "device": {...}}. Without a CUDA
 device it exits non-zero and prints no result.
@@ -39,6 +49,13 @@ WIDTH, HEADS = 768, 12
 SEQ_ENC, SEQ_DEC = 260, 257   # 256 patches + 4 cls; 256 patches + 1 rep
 SAMPLER_FORWARDS = 126        # 125 DDIM steps + the final t=0 step
 BLOCKS = 12 + 4               # encoder + decoder blocks of UMD-B/4
+TRAIN_BATCH = 256             # per card; each branch gets half
+TRAIN_SEQS = (68, 164, 257)   # MAE encoder, diffusion encoder, decoders
+TRAIN_STEPS = 11              # 1 warm-up + 10 timed
+# Per training step at the default two applies: 16 blocks per branch, two
+# LNs and one attention in each.
+TRAIN_LAUNCHES = {"ln_modulate_fwd": 64, "ln_modulate_bwd": 64,
+                  "attention_packed_fwd": 32, "attention_packed_bwd": 32}
 
 
 def fail(msg):
@@ -73,6 +90,14 @@ def phase_build(build):
   libs = build.build_all()
   print(f"[build] {len(libs)} kernel libraries ({', '.join(sorted(libs))}) "
         f"built in {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _bound(bytes_moved, ops, peak):
+  """(least ms, "bytes" or "operations"): the larger of the bytes over the
+  memory rate and the operations over the peak rate of their type."""
+  bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+  ops_ms = ops / peak * 1e3
+  return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def check_ln(ln, card):
@@ -114,18 +139,16 @@ def check_ln(ln, card):
                              + shift[:, None]))
   n = BATCH * SEQ_ENC * WIDTH
   bytes_moved = 2 * n * 2 + 2 * WIDTH * 4 + 2 * BATCH * WIDTH * 2
-  bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-  ops_ms = 9 * n / F32_FLOPS * 1e3
+  bound_ms, bound_by = _bound(bytes_moved, 9 * n, F32_FLOPS)
   print(f"[kernels] ln_modulate_fwd B={BATCH} L={SEQ_ENC} D={WIDTH} "
         f"modulated: kernel {timing['ms']:.4f} ms, plain "
         f"{timing['plain_ms']:.4f} ms, layer_norm+modulate "
-        f"{timing['library_ms']:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} "
+        f"{timing['library_ms']:.4f} ms, bound {bound_ms:.4f} "
         f"ms ({bytes_moved} bytes) on {card}", flush=True)
   return dict(name=ln.NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/ln_modulate.cu",
               replaces="small_vision_tpu/ops/layernorm.py:58",
-              max_abs_err=max_err, bound_ms=max(bytes_ms, ops_ms),
-              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+              max_abs_err=max_err, bound_ms=bound_ms, bound_by=bound_by,
               **timing)
 
 
@@ -164,28 +187,173 @@ def check_attention(attn, card):
                   split(q), split(k), split(v))))
   bytes_moved = 4 * BATCH * SEQ_ENC * WIDTH * 2
   flops = 4 * BATCH * HEADS * SEQ_ENC * SEQ_ENC * head_dim
-  bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-  ops_ms = flops / BF16_FLOPS * 1e3
+  bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
   print(f"[kernels] attention_packed_fwd B={BATCH} L={SEQ_ENC} H={HEADS} "
         f"D={head_dim}: kernel {timing['ms']:.4f} ms, plain "
         f"{timing['plain_ms']:.4f} ms, sdpa {timing['library_ms']:.4f} ms, "
-        f"bound {max(bytes_ms, ops_ms):.4f} ms ({bytes_moved} bytes, "
+        f"bound {bound_ms:.4f} ms ({bytes_moved} bytes, "
         f"{flops} flops) on {card}", flush=True)
   return dict(name=attn.NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/attention_packed.cu",
               replaces="small_vision_tpu/ops/attention.py:258",
-              max_abs_err=max_err, bound_ms=max(bytes_ms, ops_ms),
-              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+              max_abs_err=max_err, bound_ms=bound_ms, bound_by=bound_by,
               **timing)
 
 
-def phase_model():
-  """Full-width model at depth 2 + 1: card (kernels) against CPU (plain)."""
+def check_ln_bwd(ln, card):
+  """K2 against its plain version at the training shapes."""
+  gen = torch.Generator(device="cuda").manual_seed(2)
+  randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+  b = TRAIN_BATCH // 2
+  gamma = 1.0 + 0.1 * randn(WIDTH)
+  beta = 0.1 * randn(WIDTH)
+  mods = (0.5 * randn(b, 6 * WIDTH)).to(torch.bfloat16)
+  shift, scale = mods.chunk(6, dim=-1)[:2]
+  max_err, by_len = 0.0, {}
+  for seq in TRAIN_SEQS:
+    x = (2.0 * randn(b, seq, WIDTH) + 0.5).to(torch.bfloat16)
+    dy = randn(b, seq, WIDTH).to(torch.bfloat16)
+    mean = torch.empty(b, seq, device="cuda")
+    rstd = torch.empty_like(mean)
+    ln.ln_modulate_fwd(x, gamma, beta, shift, scale, mean=mean, rstd=rstd)
+    for sc in (scale, None):
+      args = (x, dy, mean, rstd, gamma, beta, sc)
+      got = ln.ln_modulate_bwd(*args)
+      again = ln.ln_modulate_bwd(*args)
+      want = ln.ln_modulate_bwd_plain(*args)
+      torch.cuda.synchronize()
+      if not all(torch.equal(g, a) for g, a in zip(got, again)
+                 if g is not None):
+        fail(f"ln_modulate_bwd L={seq}: two launches differ")
+      dx, dx_want = got[0].float(), want[0].float()
+      err = (dx - dx_want).abs()
+      # dx: one bf16 ulp (rounding either way) plus f32 noise; the sums:
+      # f32 sums of 128*L O(1) terms in another order, relative to the
+      # largest.
+      bad = int((err > 2.0**-7 * dx_want.abs() + 1e-3).sum())
+      worst = err.max().item()
+      for g, w in zip(got[1:], want[1:]):
+        if w is not None:
+          e = (g - w).abs().max().item()
+          worst = max(worst, e)
+          bad += int(e > 1e-4 * w.abs().max().item())
+      max_err = max(max_err, worst)
+      print(f"[kernels] ln_modulate_bwd B={b} L={seq} modulate="
+            f"{sc is not None}: max abs err {worst:.3e}, {bad} over "
+            "tolerance, two launches equal", flush=True)
+      if bad:
+        fail(f"ln_modulate_bwd disagrees with its plain version ({bad})")
+    args = (x, dy, mean, rstd, gamma, beta, scale)
+    # The library yardstick: autograd of F.layer_norm + modulate, on a
+    # retained graph.
+    xg = x.clone().requires_grad_()
+    g16 = gamma.to(torch.bfloat16).requires_grad_()
+    b16 = beta.to(torch.bfloat16).requires_grad_()
+    sh, scl = (t.clone().requires_grad_() for t in (shift, scale))
+    y = (torch.nn.functional.layer_norm(xg, (WIDTH,), g16, b16, 1e-6)
+         * (1 + scl[:, None]) + sh[:, None])
+    n = b * seq * WIDTH
+    bound_ms, bound_by = _bound(
+        3 * n * 2 + 2 * b * seq * 4 + 4 * WIDTH * 4 + b * WIDTH * 2
+        + 2 * b * WIDTH * 4, 14 * n, F32_FLOPS)
+    by_len[seq] = dict(
+        ms=time_ms(lambda: ln.ln_modulate_bwd(*args)),
+        plain_ms=time_ms(lambda: ln.ln_modulate_bwd_plain(*args), iters=10),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            y, (xg, g16, b16, sh, scl), dy, retain_graph=True)),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] ln_modulate_bwd B={b} L={seq} D={WIDTH} modulated: "
+          + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in by_len[seq].items()) + f" on {card}",
+          flush=True)
+  return dict(name=ln.BWD_NAME, route="cuda",
+              source="small_vision_tpu_torch/csrc/ln_modulate_bwd.cu",
+              replaces="small_vision_tpu/ops/layernorm.py:130",
+              max_abs_err=max_err, **by_len[TRAIN_SEQS[-1]],
+              by_len=by_len)
+
+
+def check_attention_bwd(attn, card):
+  """K4 against its plain version at the training shapes."""
+  gen = torch.Generator(device="cuda").manual_seed(3)
+  b = TRAIN_BATCH // 2
+  head_dim = WIDTH // HEADS
+  max_err, by_len = 0.0, {}
+  for seq in TRAIN_SEQS:
+    q, k, v, do = (torch.randn(b, seq, WIDTH, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    got = attn.attention_packed_bwd(q, k, v, do, HEADS)
+    again = attn.attention_packed_bwd(q, k, v, do, HEADS)
+    want = attn.attention_packed_bwd_plain(q, k, v, do, HEADS)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+      fail(f"attention_packed_bwd L={seq}: two launches differ")
+    worst, bad = 0.0, 0
+    for g, w in zip(got, want):
+      # bf16 outputs of f32 sums over L; a sum in another order may flip
+      # the bf16 rounding of an e, dO*r or dS input of a product: a few
+      # bf16 ulps of the largest output.
+      e = (g.float() - w.float()).abs().max().item()
+      worst = max(worst, e)
+      bad += int(e > 2.0**-6 * w.float().abs().max().item())
+    max_err = max(max_err, worst)
+    print(f"[kernels] attention_packed_bwd B={b} L={seq}: max abs err "
+          f"{worst:.3e}, {bad} outputs over tolerance, two launches equal",
+          flush=True)
+    if bad:
+      fail(f"attention_packed_bwd disagrees with its plain version ({bad})")
+    split = lambda t: t.view(b, seq, HEADS, head_dim).transpose(1, 2)
+    qs, ks, vs = (split(t).detach().requires_grad_() for t in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+    dos = split(do)
+    bound_ms, bound_by = _bound(7 * b * seq * WIDTH * 2,
+                                5 * 2 * b * HEADS * seq * seq * head_dim,
+                                BF16_FLOPS)
+    by_len[seq] = dict(
+        ms=time_ms(lambda: attn.attention_packed_bwd(q, k, v, do, HEADS)),
+        plain_ms=time_ms(lambda: attn.attention_packed_bwd_plain(
+            q, k, v, do, HEADS), iters=5),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), dos, retain_graph=True)),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] attention_packed_bwd B={b} L={seq} H={HEADS} "
+          f"D={head_dim}: " + ", ".join(
+              f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+              for k, v in by_len[seq].items()) + f" on {card}", flush=True)
+  return dict(name=attn.BWD_NAME, route="cuda",
+              source="small_vision_tpu_torch/csrc/attention_packed_bwd.cu",
+              replaces="small_vision_tpu/ops/attention.py:343",
+              max_abs_err=max_err, **by_len[TRAIN_SEQS[-1]],
+              by_len=by_len)
+
+
+def _train_step_grads(config, params, images, draws, dev):
+  """(loss, [(flax name, f32 gradient on the CPU)]) of one training step's
+  forward and backward on `dev`, from `params` with injected draws."""
+  from small_vision_tpu_torch import convert
+  from small_vision_tpu_torch.train import train_ae
+
+  model = train_ae.build_model(config, device=dev, trainable=True)
+  model.load_state_dict(convert.params_from_jax(params, model))
+  names = [n for n, _ in train_ae.named_params(model)]
+  opt = train_ae.make_optimizer(config, names, total_steps=10, warmup_steps=1)
+  state = train_ae.init_train_state(model, opt, config, device=dev)
+  step = train_ae.make_update_fn(model, opt, config, device_pp=None)
+  loss, grads = step.loss_and_grads(
+      state, {"image": torch.from_numpy(images)},
+      {k: torch.from_numpy(v) for k, v in draws.items()})
+  return float(loss), [(n, g.float().cpu()) for n, g in zip(names, grads)]
+
+
+def phase_model(build, card):
+  """Full-width model at depth 2 + 1: card (kernels) against CPU (plain),
+  the sampler's forward and one training step's loss and gradients."""
   from small_vision_tpu_torch import convert
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.train import train_ae
 
-  config = ae_i1k.get_config()
+  config = ae_i1k.get_config("batch_size=8")
   config["model"].update(depth=2, dec_depth=1)
   params = convert.init_params(config, seed=1)
   rng = np.random.default_rng(2)
@@ -207,6 +375,93 @@ def phase_model():
   # roundings (2^-8 relative each) through three blocks and the head.
   if not err <= 3e-2 * scale:
     fail(f"model forward on the card differs from the CPU by {err:.3e}")
+
+  # One training step at batch 8 (4 + 4), with draws made here.
+  n = 8 // 2
+  draws = {"t": rng.integers(0, 1000, (n,)),
+           "noise": rng.standard_normal((n, 64, 64, 3), dtype=np.float32),
+           "mae_noise": rng.random((n, 256), dtype=np.float32),
+           "dit_noise": rng.random((n, 256), dtype=np.float32)}
+  images = rng.uniform(-1, 1, (8, 64, 64, 3)).astype(np.float32)
+  loss_cpu, grads_cpu = _train_step_grads(config, params, images, draws,
+                                          "cpu")
+  build.reset_launches()
+  loss_gpu, grads_gpu = _train_step_grads(config, params, images, draws,
+                                          "cuda")
+  launches = dict(build.LAUNCHES)
+  # Two branches of 2 + 1 blocks: two LNs and one attention a block.
+  want = {"ln_modulate_fwd": 12, "ln_modulate_bwd": 12,
+          "attention_packed_fwd": 6, "attention_packed_bwd": 6}
+  if launches != want:
+    fail(f"training step launches {launches} != {want}")
+  # Each leaf's gradient relative to its largest element, with a floor of
+  # 1e-3 of the largest gradient of any leaf for the leaves whose gradient
+  # is 0 analytically and round-off in practice (the key biases: a shift of
+  # all of a query's scores does not change its softmax). bf16 activations
+  # and bf16 K2/K4 outputs, rounded at ties that the two sides' summation
+  # orders split differently: a few bf16 roundings (2^-8 each) per leaf.
+  top = max(g.abs().max().item() for _, g in grads_cpu)
+  worst, worst_name = 0.0, None
+  for (name, gc), (_, gg) in zip(grads_cpu, grads_gpu):
+    rel = ((gg - gc).abs().max().item()
+           / max(gc.abs().max().item(), 1e-3 * top))
+    if rel > worst:
+      worst, worst_name = rel, name
+  loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+  print(f"[model] training step (8, 64, 64, 3) at width {WIDTH}, depth 2+1: "
+        f"loss card {loss_gpu:.6f}, cpu {loss_cpu:.6f} (rel {loss_rel:.2e}); "
+        f"{len(grads_cpu)} gradient leaves, worst leaf-relative err "
+        f"{worst:.3e} ({worst_name}); launches {launches} on {card}",
+        flush=True)
+  # The loss is an f32 mean over bf16 predictions (see the forward above).
+  if not loss_rel <= 1e-2:
+    fail(f"training loss on the card differs from the CPU by {loss_rel:.2e}")
+  if not worst <= 5e-2:
+    fail(f"training gradients on the card differ from the CPU: {worst:.3e} "
+         f"of leaf max at {worst_name}")
+
+
+def phase_train(build, card):
+  """The full UMD-B/4@64 training step at batch 256 through
+  `train_and_evaluate`, on synthetic data from `init_train_params`."""
+  from small_vision_tpu_torch.configs import ae_i1k
+  from small_vision_tpu_torch.train import train_ae
+
+  config = ae_i1k.get_config(
+      f"variant=B/4,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
+      f"total_steps={TRAIN_STEPS},log_steps=1")
+  build.reset_launches()
+  train_state, history = train_ae.train_and_evaluate(
+      config, device="cuda", log=lambda s: print(f"[train] {s}", flush=True))
+  launches = dict(build.LAUNCHES)
+  n_params = sum(p.numel() for p in train_state["params"])
+  del train_state
+  torch.cuda.empty_cache()
+
+  timed = history[1:]
+  ms = sum(h["ms"] for h in timed) / len(timed)
+  print(f"[train] UMD-B/4@64, {n_params} parameters, batch {TRAIN_BATCH}: "
+        f"{len(timed)} timed steps, mean {ms:.2f} ms/step (min "
+        f"{min(h['ms'] for h in timed):.2f}, max "
+        f"{max(h['ms'] for h in timed):.2f}) = {TRAIN_BATCH / ms * 1e3:.2f} "
+        f"img/s on {card}", flush=True)
+  if len(history) != TRAIN_STEPS:
+    fail(f"{len(history)} steps ran, not {TRAIN_STEPS}")
+  losses = [h["training_loss"] for h in history]
+  if not all(np.isfinite(losses)):
+    fail(f"non-finite training loss: {losses}")
+  # Step 1 runs at learning rate 0 (warm-up starts at 0), so its parameter
+  # norm is the initial one; the last step's must differ from it.
+  if not (history[-1]["l2_params"] != history[0]["l2_params"]
+          and history[-1]["l2_updates"] > 0):
+    fail("the parameters did not change")
+  want = {k: TRAIN_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
+  print(f"[train] kernel launches in {TRAIN_STEPS} steps: {launches}, model "
+        f"says {want}", flush=True)
+  if launches != want:
+    fail(f"launch counts {launches} != {want}")
+  return {"img_per_s": TRAIN_BATCH / ms * 1e3, "ms": ms,
+          "launches": launches}
 
 
 def phase_serve(build, ln, attn, card):
@@ -256,7 +511,7 @@ def phase_serve(build, ln, attn, card):
     for c in clients:
       c.join(timeout=900)
     wall = time.perf_counter() - t0
-    launches = {name: build.LAUNCHES[name] for name in (ln.NAME, attn.NAME)}
+    launches = dict(build.LAUNCHES)
     stats = server.stats_snapshot()
   finally:
     httpd.shutdown()
@@ -281,8 +536,8 @@ def phase_serve(build, ln, attn, card):
   want = {ln.NAME: 2 * BLOCKS * SAMPLER_FORWARDS,
           attn.NAME: BLOCKS * SAMPLER_FORWARDS}
   print(f"[serve] kernel launches in the call: {launches}, model says "
-        f"{want}", flush=True)
-  if launches != want:
+        f"{want} and no backward", flush=True)
+  if launches != want:  # K2 and K4 (the backwards) must not appear
     fail(f"launch counts {launches} != {want}")
   return launches
 
@@ -305,11 +560,18 @@ def main():
         f"{torch.version.cuda}; {card}", flush=True)
 
   phase_build(build)
-  kernels = [check_ln(ln, card), check_attention(attn, card)]
-  phase_model()
+  kernels = [check_ln(ln, card), check_attention(attn, card),
+             check_ln_bwd(ln, card), check_attention_bwd(attn, card)]
+  phase_model(build, card)
+  train = phase_train(build, card)
   launches = phase_serve(build, ln, attn, card)
   for k in kernels:
-    k["launches"] = launches[k["name"]]
+    # The forwards: launches per sampler call; the backwards: launches in
+    # the training run (the sampler launches none).
+    k["launches"] = launches.get(k["name"]) or train["launches"][k["name"]]
+    k["launches_per_train_step"] = train["launches"][k["name"]] / TRAIN_STEPS
+  print(f"[train] {train['img_per_s']:.2f} img/s, {train['ms']:.2f} ms/step "
+        f"at batch {TRAIN_BATCH}; [serve] see above; on {card}", flush=True)
 
   print(card, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,17 @@ shapes agree, and raises on any name left over or missing.
 Every leaf is drawn, including the ones flax zero-initialises (the AdaLN
 `Dense_0`, `final_modulation`, `cls`, `head_bias`): with AdaLN-zero weights
 every gate is 0, each attention and MLP output is multiplied by zero, and a
-broken kernel would still give the "right" samples.
+broken kernel would still give the "right" samples. The tests and the
+smoke use it.
+
+`init_train_params` draws the tree training starts from: each leaf from
+the distribution its JAX module declares (the AdaLN-zero init included,
+which the JAX package's training relies on). It matches the
+distributions, not the bits.
+
+`opt_state_from_jax` carries a JAX run's optimizer state (optax's
+ScaleByAdamState: count, bf16 mu, f32 nu) and EMA params, as numpy trees,
+into the port's `optim.AdamW` state, so the run can continue in the port.
 """
 
 from typing import Mapping
@@ -32,7 +42,10 @@ def _flat(params) -> dict:
 def _as_tensor(leaf) -> torch.Tensor:
   if isinstance(leaf, torch.Tensor):
     return leaf
-  return torch.from_numpy(np.array(leaf))  # np.array: an owned, writable copy
+  a = np.array(leaf)  # an owned, writable copy
+  if a.dtype.name == "bfloat16":  # ml_dtypes' bf16, as JAX hands it over
+    return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+  return torch.from_numpy(a)
 
 
 def params_from_jax(params, model: torch.nn.Module) -> dict:
@@ -97,3 +110,97 @@ def init_params(config: dict, seed: int) -> dict:
     a = rng.standard_normal(shapes[name], dtype=np.float32)
     values.append(a * np.float32(std) + np.float32(mean))
   return recover_tree(names, values)
+
+
+_TRUNC_STD = 0.87962566103423978  # std of a normal truncated to ±2
+
+
+def _truncated_normal(rng, shape):
+  """Standard normal truncated to ±2, as jax.random.truncated_normal."""
+  a = rng.standard_normal(shape)
+  while True:
+    bad = np.abs(a) > 2.0
+    if not bad.any():
+      return a
+    a[bad] = rng.standard_normal(int(bad.sum()))
+
+
+def _train_init(name: str, shape, rng) -> np.ndarray:
+  """One leaf as the JAX module initialises it (models/ae.py, vit.py,
+  embeddings.py and flax's defaults)."""
+  parts = name.split("/")
+  leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
+  grand = parts[-3] if len(parts) > 2 else ""
+  normal = lambda std: rng.standard_normal(shape) * std
+  zeros = lambda: np.zeros(shape)
+
+  def xavier(fan_in, fan_out):
+    limit = np.sqrt(6.0 / (fan_in + fan_out))
+    return rng.uniform(-limit, limit, shape)
+
+  def lecun(fan_in):
+    return _truncated_normal(rng, shape) * (np.sqrt(1.0 / fan_in) /
+                                            _TRUNC_STD)
+
+  if leaf == "scale":                       # LayerNorms
+    return np.ones(shape)
+  if name in ("cls", "head_bias") or parent == "final_modulation":
+    return zeros()
+  if parent == "Dense_0" and grand.startswith("blocks_"):  # AdaLN-zero
+    return zeros()
+  if leaf in ("pos_embedding", "dec_pos_embedding"):
+    return normal(1.0 / np.sqrt(shape[1]))
+  if name == "mask_token" or parent == "head":
+    return normal(0.02)
+  if parent in ("query", "key", "value", "out"):
+    if leaf == "bias":
+      return zeros()
+    # xavier_uniform on the 2-D (d, H*hd) / (H*hd, d) view.
+    fan_in = shape[0] if parent != "out" else shape[0] * shape[1]
+    return xavier(fan_in, int(np.prod(shape)) // fan_in)
+  if grand.startswith("MlpBlock"):
+    return xavier(*shape) if leaf == "kernel" else normal(1e-6)
+  if leaf == "bias":
+    return zeros()
+  if leaf == "embedding":  # nn.Embed: variance_scaling(1, fan_in, normal)
+    return lecun(shape[1])
+  if leaf == "kernel":     # nn.Dense / nn.Conv: lecun_normal
+    return lecun(int(np.prod(shape[:-1])))
+  raise KeyError(f"no initialiser for {name}")
+
+
+def init_train_params(config: dict, seed: int) -> dict:
+  """Nested flax-named tree of float32 numpy arrays that training starts
+  from, drawn from `np.random.default_rng(seed)` in sorted-name order."""
+  from small_vision_tpu_torch.train.train_ae import build_model
+  shapes = {k.replace(".", "/"): tuple(v.shape) for k, v in
+            build_model(config, device="meta").state_dict().items()}
+  names = sorted(shapes)
+  rng = np.random.default_rng(seed)
+  values = [_train_init(n, shapes[n], rng).astype(np.float32) for n in names]
+  return recover_tree(names, values)
+
+
+def opt_state_from_jax(names, *, count, mu, nu, ema_params=None,
+                       device="cpu"):
+  """(AdamW state, EMA list or None) for the parameters `names` (flax
+  names, in the port's order) from a JAX run's ScaleByAdamState fields
+  and EMA params, given as nested or flat flax-named numpy trees."""
+  def as_list(tree, dtype):
+    flat = _flat(tree)
+    if set(flat) != set(names):
+      raise KeyError(f"names differ: missing {sorted(set(names) - set(flat))[:8]}"
+                     f", left over {sorted(set(flat) - set(names))[:8]}")
+    out = []
+    for n in names:
+      t = _as_tensor(flat[n])
+      if t.dtype != dtype:
+        raise ValueError(f"{n}: dtype {t.dtype}, want {dtype}")
+      out.append(t.to(device))
+    return out
+
+  state = {"count": int(np.asarray(count)),
+           "mu": as_list(mu, torch.bfloat16),
+           "nu": as_list(nu, torch.float32)}
+  ema = None if ema_params is None else as_list(ema_params, torch.float32)
+  return state, ema

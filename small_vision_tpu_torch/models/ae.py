@@ -1,11 +1,19 @@
-"""The unified masked-diffusion auto-encoder (UMD), inference forward.
+"""The unified masked-diffusion auto-encoder (UMD).
 
-Counterpart of small_vision_tpu/models/ae.py::_ViTAE with mask=0: patchify,
-timestep (and label) conditioning, the encoder with 4 averaged class tokens,
-the decoder with the representation token, the AdaLN final modulation, the
-Dense unpatchify to [x0 ‖ eps] with a per-channel bias, and the classifier-
-free-guidance double batch. MAE masking (mask > 0) and `dual_forward` come
-with the training slice. Parameter names follow the flax tree.
+Counterpart of small_vision_tpu/models/ae.py::_ViTAE: patchify, timestep
+(and label) conditioning, MAE random masking in the encoder, the encoder
+with 4 averaged class tokens, the mask-token restore and the decoder with
+the representation token, the AdaLN final modulation, the Dense unpatchify
+to [x0 ‖ eps] with a per-channel bias, the classifier-free-guidance double
+batch, and `dual_forward`, the training forward that shares one decoder
+pass between the MAE and diffusion branches. Parameter names follow the
+flax tree.
+
+The draws the JAX module takes from its rng streams are arguments here:
+`mask_noise` ((B, L) uniforms for `random_masking`, the "mae_noise"
+stream) and `label_drop` ((B,) bool, the "cfg" stream, used with
+`train=True`). Dropout is 0 in every config and is not ported; a nonzero
+`dropout` raises.
 
 The patchify conv (VALID, stride = patch) is computed as a reshape and a
 matmul on the (p·p·C, D) view of its HWIO kernel: the same function, with
@@ -21,6 +29,9 @@ from small_vision_tpu_torch.models.common import DTYPES, Dense, dense
 from small_vision_tpu_torch.models.embeddings import (CondTrunk, LabelEmbed,
                                                       TimestepEmbed)
 from small_vision_tpu_torch.models.vit import Encoder
+from small_vision_tpu_torch.ops.masking import (random_masking,
+                                                restore_masked,
+                                                sequence_mask_to_image_mask)
 
 
 class PatchEmbed(nn.Module):
@@ -49,13 +60,19 @@ class _ViTAE(nn.Module):
                width: int = 768, depth: int = 12, dec_depth: int = 4,
                mlp_dim: Optional[int] = None, num_heads: int = 12,
                dtype_mm: str = "bfloat16", adaln: bool = False,
-               num_cls: int = 4):
+               num_cls: int = 4, dropout: float = 0.0,
+               cfg_dropout_rate: float = 0.1):
     super().__init__()
+    if dropout:
+      raise ValueError(f"dropout {dropout}: the port has no dropout (it is "
+                       "0 in every config)")
     p = patch_size[0]
     dtype = DTYPES[dtype_mm]
     self.num_classes = num_classes
+    self.cfg_dropout_rate = cfg_dropout_rate  # the train step's label drop
     self.channels = channels
     self.patch = p
+    self.img_size = img_size
     self.grid = img_size // p
     self.width = width
     self.dtype = dtype
@@ -82,8 +99,9 @@ class _ViTAE(nn.Module):
     self.head = Dense(width, p * p * channels * 2, dtype, use_bias=False)
     self.head_bias = nn.Parameter(torch.empty(2 * channels))
 
-  def embed(self, image, t=None, y=None):
-    """Patchify + the conditioning vector from (t, y)."""
+  def embed(self, image, t=None, y=None, label_drop=None):
+    """Patchify + the conditioning vector from (t, y); `label_drop` drops
+    labels to the null class (training)."""
     x = self.embedding(image.to(self.dtype))
     n = x.shape[0]
     if t is None:
@@ -93,7 +111,7 @@ class _ViTAE(nn.Module):
       if y is None:
         y = torch.full((n,), self.num_classes, dtype=torch.long,
                        device=x.device)
-      y_cond = self.label_trunk(self.label_embed(y))
+      y_cond = self.label_trunk(self.label_embed(y, label_drop))
     else:
       if y is not None:
         raise ValueError("y given but model has num_classes=None")
@@ -104,18 +122,32 @@ class _ViTAE(nn.Module):
       cond = nn.functional.silu(cond)
     return x, cond.to(self.dtype)
 
-  def encode(self, x, cond):
+  def encode(self, x, cond, mask=0.0, mask_noise=None):
+    """Encoder; with `mask` > 0 only the tokens `mask_noise` keeps."""
     n = x.shape[0]
     x = x + self.pos_embedding.to(x.dtype)
+    out = {"mask": None}
+    ids_restore = None
+    if mask > 0.0:
+      if mask_noise is None:
+        raise ValueError("mask > 0 needs the (B, L) mask_noise draws")
+      x, seq_mask, ids_restore = random_masking(x, mask, mask_noise)
+      out["mask"] = sequence_mask_to_image_mask(seq_mask, self.patch,
+                                                self.img_size)
     x = torch.cat([self.cls.to(x.dtype).expand(n, -1, -1), x], dim=1)
     x = self.Encoder(x, cond)
     rep = x[:, :self.num_cls].mean(dim=1)  # averaged class tokens
-    return rep, x[:, self.num_cls:], {"mask": None, "pre_logits": rep}
+    out["pre_logits"] = rep
+    return rep, x[:, self.num_cls:], ids_restore, out
 
-  def decode(self, rep, x, cond):
-    # The encoder's final LN emits f32. (Mask-token restore goes here with
-    # the training slice.)
-    return self._decode_restored(rep, x.to(self.dtype), cond)
+  def _unmask(self, x, ids_restore):
+    x = x.to(self.dtype)  # The encoder's final LN emits f32.
+    if ids_restore is not None:
+      x = restore_masked(x, self.mask_token, ids_restore)
+    return x
+
+  def decode(self, rep, x, cond, ids_restore=None):
+    return self._decode_restored(rep, self._unmask(x, ids_restore), cond)
 
   def _decode_restored(self, rep, x, cond):
     """Decoder + final modulation + head on an already-unmasked sequence."""
@@ -133,15 +165,25 @@ class _ViTAE(nn.Module):
     out = out.reshape(n, g * p, g * p, -1).float()
     return out + self.head_bias  # per-channel, ConvTranspose-bias semantics
 
-  def forward(self, image, *, t=None, y=None, cfg_scale=None, mask=0.0):
-    """Returns (pred, out) with pred = [x0_hat ‖ eps_hat], NHWC f32.
+  def _label_drop(self, train, label_drop):
+    if label_drop is not None and not train:
+      raise ValueError("label_drop is a training draw; pass train=True")
+    return label_drop
+
+  def forward(self, image, *, t=None, y=None, cfg_scale=None, mask=0.0,
+              train=False, mask_noise=None, label_drop=None):
+    """Returns (pred, out) with pred = [x0_hat ‖ eps_hat], NHWC f32, and
+    out["mask"] the (B, H, W, 1) pixel mask (None at mask 0).
 
     `cfg_scale`: classifier-free guidance; the batch is doubled with null
     labels and the prediction extrapolated from uncond towards cond.
+    `mask_noise`: (B, L) uniforms, needed when `mask` > 0. `label_drop`:
+    (B,) bool, with `train`, drops labels to the null class.
     """
-    if mask > 0.0:
-      raise NotImplementedError("MAE masking comes with the training slice")
+    label_drop = self._label_drop(train, label_drop)
     if cfg_scale is not None:
+      if train:
+        raise ValueError("cfg_scale is inference-only")
       if y is None or self.num_classes is None:
         raise ValueError("cfg_scale needs labels and num_classes")
       n = image.shape[0]
@@ -151,14 +193,52 @@ class _ViTAE(nn.Module):
                           device=y.device)
       y = torch.cat([y, null_y], dim=0)
 
-    x, cond = self.embed(image, t=t, y=y)
-    rep, encoded, out = self.encode(x, cond)
-    pred = self.decode(rep, encoded, cond)
+    x, cond = self.embed(image, t=t, y=y, label_drop=label_drop)
+    rep, encoded, ids_restore, out = self.encode(x, cond, mask, mask_noise)
+    pred = self.decode(rep, encoded, cond, ids_restore)
 
     if cfg_scale is not None:
       conditional, unconditional = pred.chunk(2, dim=0)
       pred = unconditional + cfg_scale * (conditional - unconditional)
     return pred, out
+
+  def dual_forward(self, img_a, img_b, *, t_a=None, t_b=None, y_a=None,
+                   y_b=None, mask_a=0.0, mask_b=0.0, train=False,
+                   noise_a=None, noise_b=None, label_drop=None):
+    """Two-branch training forward sharing one embed/decoder/head pass.
+
+    The branches (clean MAE and noised diffusion) are concatenated wherever
+    their shapes agree; only the encoders (different keep-lengths) run per
+    branch. `noise_a`/`noise_b` are each branch's mask draws and
+    `label_drop` the (n_a + n_b,) label-drop mask of the concatenated
+    batch. Returns (pred, out_a, out_b) with pred ordered [a ‖ b].
+    """
+    label_drop = self._label_drop(train, label_drop)
+    n_a = img_a.shape[0]
+    image = torch.cat([img_a.to(self.dtype), img_b.to(self.dtype)], dim=0)
+    n = image.shape[0]
+    dev = image.device
+    zeros = lambda m: torch.zeros((m,), dtype=torch.long, device=dev)
+    t = torch.cat([t_a if t_a is not None else zeros(n_a),
+                   t_b if t_b is not None else zeros(n - n_a)], dim=0)
+    y = None
+    if self.num_classes is not None:
+      null = lambda m: torch.full((m,), self.num_classes, dtype=torch.long,
+                                  device=dev)
+      y = torch.cat([y_a if y_a is not None else null(n_a),
+                     y_b if y_b is not None else null(n - n_a)], dim=0)
+    elif y_a is not None or y_b is not None:
+      raise ValueError("labels given but model has num_classes=None")
+
+    x, cond = self.embed(image, t=t, y=y, label_drop=label_drop)
+    rep_a, enc_a, ids_a, out_a = self.encode(x[:n_a], cond[:n_a], mask_a,
+                                             noise_a)
+    rep_b, enc_b, ids_b, out_b = self.encode(x[n_a:], cond[n_a:], mask_b,
+                                             noise_b)
+    full = torch.cat([self._unmask(enc_a, ids_a), self._unmask(enc_b, ids_b)],
+                     dim=0)
+    rep = torch.cat([rep_a, rep_b], dim=0)
+    return self._decode_restored(rep, full, cond), out_a, out_b
 
 
 def decode_variant(variant):

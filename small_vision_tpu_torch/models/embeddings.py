@@ -1,7 +1,9 @@
 """Conditioning embedders: timestep, class label, and the 2-layer trunk.
 
-Counterpart of small_vision_tpu/models/embeddings.py, inference only (no CFG
-label dropout, no time-CFG dropout). Parameter names follow the flax ones.
+Counterpart of small_vision_tpu/models/embeddings.py. The training-time
+label drop to the null class (classifier-free guidance) takes its
+Bernoulli mask from the caller; the timestep dropout is left out, as its
+probability is 0 in every config. Parameter names follow the flax ones.
 """
 
 import math
@@ -49,13 +51,20 @@ class _Embed(nn.Module):
 
 
 class LabelEmbed(nn.Module):
-  """Class-label table with a trailing null class (index num_classes)."""
+  """Class-label table with a trailing null class (index num_classes).
+
+  `drop`: a (B,) bool mask, drawn Bernoulli(0.1) by the train step; where
+  it is set, the label becomes the null class.
+  """
 
   def __init__(self, width: int, num_classes: int):
     super().__init__()
+    self.num_classes = num_classes
     self.embedding = _Embed(num_classes + 1, width)
 
-  def forward(self, labels):
+  def forward(self, labels, drop=None):
+    if drop is not None:
+      labels = torch.where(drop, self.num_classes, labels)
     return self.embedding(labels)
 
 

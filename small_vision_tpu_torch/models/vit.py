@@ -1,8 +1,9 @@
 """ViT encoder blocks with AdaLN-zero or in-context conditioning.
 
-Counterpart of small_vision_tpu/models/vit.py for the path the sampler runs:
-`_FusedLN`, the unfused `MlpBlock`, the packed q/k/v/out projections, the
-packed `MultiHeadAttention`, `Block` and the unrolled `Encoder`. Module and
+Counterpart of small_vision_tpu/models/vit.py for the path the sampler and
+the train step run (`attn_impl="pallas"`, `scan=False`, no remat, dropout
+0): `_FusedLN`, the unfused `MlpBlock`, the packed q/k/v/out projections,
+the packed `MultiHeadAttention`, `Block` and the unrolled `Encoder`. Module and
 parameter names follow the flax ones (`blocks_00/LayerNorm_0/scale`, ...).
 Activations stay packed (B, L, H*D); matmuls run in `dtype_mm` with f32
 parameters cast per call, as flax does.
@@ -21,8 +22,9 @@ from small_vision_tpu_torch.ops.layernorm import ln_modulate
 class FusedLN(nn.Module):
   """LayerNorm(+AdaLN modulate) with flax LayerNorm params (scale, bias).
 
-  Runs `ops.layernorm.ln_modulate`: the CUDA kernel on the GPU, its plain
-  version on the CPU. Statistics in f32; output in x's dtype.
+  Runs `ops.layernorm.ln_modulate`: the CUDA kernels on the GPU (K1, and
+  K2 for the gradient), their plain versions on the CPU. Statistics in
+  f32; output in x's dtype.
   """
 
   def __init__(self, width: int):
@@ -79,7 +81,8 @@ class PackedOutProj(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-  """Self-attention through `ops.attention.attention_packed`."""
+  """Self-attention through `ops.attention.attention_packed` (K3, and K4
+  for the gradient)."""
 
   def __init__(self, width: int, num_heads: int, dtype):
     super().__init__()

@@ -1,12 +1,16 @@
-"""Bidirectional attention on packed (B, L, H*D) tensors, forward.
+"""Bidirectional attention on packed (B, L, H*D) tensors, forward and
+backward.
 
-Counterpart of small_vision_tpu/ops/attention.py::attention_packed (forward
-only; the backward comes with the training slice). The softmax is the TPU
-kernel's: exp2 of the log2e-scaled scores clamped to ±80 (no max shift), the
-row sum over the unrounded f32 e, and e rounded to the input dtype before
-the PV product. `attention_packed` runs the plain version for a tensor on
-the CPU and the kernel (`csrc/attention_packed.cu`) for a CUDA tensor, and
-raises for a CUDA tensor the kernel does not take.
+Counterpart of small_vision_tpu/ops/attention.py::attention_packed and
+fused_attention_packed. The softmax is the TPU kernel's: exp2 of the
+log2e-scaled scores clamped to ±80 (no max shift), the row sum over the
+unrounded f32 e, and e rounded to the input dtype before the PV product.
+The forward is K3 (`csrc/attention_packed.cu`), the backward K4
+(`csrc/attention_packed_bwd.cu`), which recomputes e from q and k.
+`attention_packed` runs the plain versions for tensors on the CPU and the
+kernels for CUDA tensors, and raises for a CUDA tensor a kernel does not
+take. Without gradients (the sampler) it is K3 alone; with gradients it
+goes through `AttentionPacked`.
 """
 
 import ctypes
@@ -18,7 +22,8 @@ import torch
 from small_vision_tpu_torch.ops import _build
 
 NAME = "attention_packed_fwd"
-HEAD_DIM = 64  # The only head dim the kernel takes.
+BWD_NAME = "attention_packed_bwd"
+HEAD_DIM = 64  # The only head dim the kernels take.
 CLAMP = 80.0   # Softmax stability clamp, in log2 units.
 
 
@@ -28,16 +33,60 @@ def scale_log2(head_dim: int) -> float:
       (1.0 / np.sqrt(head_dim)) * np.float64(np.float32(np.log2(np.e)))))
 
 
+def _split(t, num_heads):
+  """(B, L, H*D) → (B, H, L, D) in f32 (f64 for an f64 tensor, so that
+  the plain versions can be checked with gradcheck)."""
+  b, l, hd = t.shape
+  t = t.reshape(b, l, num_heads, hd // num_heads).transpose(1, 2)
+  return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _merge(t, dtype):
+  """(B, H, L, D) → (B, L, H*D) in `dtype`."""
+  b, h, l, d = t.shape
+  return t.to(dtype).transpose(1, 2).reshape(b, l, h * d)
+
+
+def _e(q, k, d):
+  """exp2 of the clamped log2-scaled scores, (B, H, L, L) f32."""
+  scores = torch.matmul(q, k.transpose(-1, -2)) * scale_log2(d)
+  return torch.exp2(torch.clamp(scores, -CLAMP, CLAMP))
+
+
 def attention_packed_plain(q, k, v, num_heads):
   """Plain PyTorch version of `_attn_kernel_packed`'s math."""
-  b, l, hd = q.shape
-  d = hd // num_heads
-  split = lambda t: t.reshape(b, l, num_heads, d).transpose(1, 2).float()
-  scores = torch.matmul(split(q), split(k).transpose(-1, -2)) * scale_log2(d)
-  e = torch.exp2(torch.clamp(scores, -CLAMP, CLAMP))
+  d = q.shape[-1] // num_heads
+  e = _e(_split(q, num_heads), _split(k, num_heads), d)
   s = e.sum(-1, keepdim=True)
-  o = torch.matmul(e.to(q.dtype).float(), split(v)) / s
-  return o.to(q.dtype).transpose(1, 2).reshape(b, l, hd)
+  vs = _split(v, num_heads)
+  o = torch.matmul(e.to(q.dtype).to(vs.dtype), vs) / s
+  return _merge(o, q.dtype)
+
+
+def attention_packed_bwd_plain(q, k, v, do, num_heads):
+  """Plain version of K4; mirrors `_attn_bwd_kernel_packed` formula by
+  formula, with its rounding points (e, dO·r, dS and Q·r·scale rounded to
+  the input dtype before their products; f32 sums).
+
+  Not autograd of the forward: the JAX backward treats the ±80 clamp as
+  the identity (dS uses the clamped e, nothing is zeroed), and rounds at
+  other places than autograd of `attention_packed_plain` would.
+  Returns (dq, dk, dv) in q's dtype.
+  """
+  dt = q.dtype
+  d = q.shape[-1] // num_heads
+  scale = 1.0 / np.sqrt(d)
+  qs, ks, vs, dos = (_split(t, num_heads) for t in (q, k, v, do))
+  e = _e(qs, ks, d)
+  r = 1.0 / e.sum(-1, keepdim=True)                          # (B, H, L, 1)
+  rounded = lambda t: t.to(dt).to(t.dtype)
+  dv = torch.matmul(rounded(e).transpose(-1, -2), rounded(dos * r))
+  dp = torch.matmul(dos, vs.transpose(-1, -2))
+  c = (dp * e).sum(-1, keepdim=True) * r
+  ds = rounded(e * (dp - c))
+  dq = torch.matmul(ds, ks) * (r * scale)
+  dk = torch.matmul(ds.transpose(-1, -2), rounded(qs * (r * scale)))
+  return _merge(dq, dt), _merge(dk, dt), _merge(dv, dt)
 
 
 @functools.cache
@@ -52,24 +101,46 @@ def _lib():
   return fn, lib.attention_packed_max_len()
 
 
-def _require(cond, msg):
+@functools.cache
+def _bwd_lib():
+  lib = _build.library("attention_packed_bwd")
+  fn = lib.attention_packed_bwd
+  p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+  fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, f, p]
+  fn.restype = i
+  lib.attention_packed_bwd_max_len.argtypes = []
+  lib.attention_packed_bwd_max_len.restype = i
+  return fn, lib.attention_packed_bwd_max_len()
+
+
+def _require(cond, msg, name=NAME):
   if not cond:
-    raise ValueError(f"{NAME}: {msg}")
+    raise ValueError(f"{name}: {msg}")
+
+
+def _check(name, num_heads, **tensors):
+  """Checks the (B, L, H*64) bf16 inputs of a kernel; returns B, L."""
+  first = next(iter(tensors.values()))
+  _require(first.is_cuda, f"{next(iter(tensors))} must be a CUDA tensor",
+           name)
+  _require(first.dim() == 3,
+           f"inputs must be (B, L, H*D), got {tuple(first.shape)}", name)
+  b, l, hd = first.shape
+  _require(hd == num_heads * HEAD_DIM,
+           f"width {hd} != num_heads {num_heads} * head dim {HEAD_DIM}",
+           name)
+  for n, t in tensors.items():
+    _require(t.device == first.device and t.dtype == torch.bfloat16
+             and t.shape == first.shape and t.is_contiguous()
+             and t.data_ptr() % 16 == 0,
+             f"{n} must be a contiguous, 16-byte aligned bfloat16 "
+             f"{tuple(first.shape)} on {first.device}", name)
+  return b, l
 
 
 def attention_packed_fwd(q, k, v, num_heads):
-  """Launches the CUDA kernel on (B, L, H*64) bf16 contiguous q, k, v."""
-  _require(q.is_cuda, "q must be a CUDA tensor")
-  _require(q.dim() == 3, f"q must be (B, L, H*D), got {tuple(q.shape)}")
-  b, l, hd = q.shape
-  _require(hd == num_heads * HEAD_DIM,
-           f"width {hd} != num_heads {num_heads} * head dim {HEAD_DIM}")
-  for name, t in (("q", q), ("k", k), ("v", v)):
-    _require(t.device == q.device and t.dtype == torch.bfloat16
-             and t.shape == q.shape and t.is_contiguous()
-             and t.data_ptr() % 16 == 0,
-             f"{name} must be a contiguous, 16-byte aligned bfloat16 "
-             f"{tuple(q.shape)} on {q.device}")
+  """Launches K3 on (B, L, H*64) bf16 contiguous q, k, v."""
+  b, l = _check(NAME, num_heads, q=q, k=k, v=v)
   fn, max_len = _lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}")
 
@@ -84,8 +155,57 @@ def attention_packed_fwd(q, k, v, num_heads):
   return o
 
 
+def attention_packed_bwd(q, k, v, do, num_heads):
+  """Launches K4 on (B, L, H*64) bf16 contiguous q, k, v, do; returns
+  (dq, dk, dv). Each output element is summed by one thread in a fixed
+  order (no atomics), so two launches give the same bits."""
+  b, l = _check(BWD_NAME, num_heads, q=q, k=k, v=v, do=do)
+  fn, max_len = _bwd_lib()
+  _require(l <= max_len, f"sequence length {l} > {max_len}", BWD_NAME)
+
+  dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+  if q.numel() == 0:
+    return dq, dk, dv
+  f32 = dict(dtype=torch.float32, device=q.device)
+  r = torch.empty(b, num_heads, l, **f32)  # 1 / row sum of e
+  c = torch.empty(b, num_heads, l, **f32)  # row sum of dP∘e, times r
+  status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), r.data_ptr(),
+              c.data_ptr(), b, l, num_heads, scale_log2(HEAD_DIM),
+              float(np.float32(1.0 / np.sqrt(HEAD_DIM))),
+              torch.cuda.current_stream(q.device).cuda_stream)
+  _build.check(status, BWD_NAME)
+  _build.LAUNCHES[BWD_NAME] += 1
+  return dq, dk, dv
+
+
+class AttentionPacked(torch.autograd.Function):
+  """Differentiable `attention_packed`: K3 forward and K4 backward on CUDA
+  tensors, the plain versions on CPU tensors. Saves q, k, v, as the JAX
+  custom VJP does; the backward recomputes e."""
+
+  @staticmethod
+  def forward(ctx, q, k, v, num_heads):
+    ctx.num_heads = num_heads
+    ctx.save_for_backward(q, k, v)
+    if q.device.type == "cpu":
+      return attention_packed_plain(q, k, v, num_heads)
+    return attention_packed_fwd(q, k, v, num_heads)
+
+  @staticmethod
+  def backward(ctx, do):
+    q, k, v = ctx.saved_tensors
+    do = do.contiguous()
+    bwd = (attention_packed_bwd_plain if q.device.type == "cpu"
+           else attention_packed_bwd)
+    return (*bwd(q, k, v, do, ctx.num_heads), None)
+
+
 def attention_packed(q, k, v, num_heads):
-  """The plain version on CPU tensors, the CUDA kernel on CUDA tensors."""
+  """The plain versions on CPU tensors, the CUDA kernels on CUDA tensors;
+  differentiable through `AttentionPacked` when a gradient is wanted."""
+  if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    return AttentionPacked.apply(q, k, v, num_heads)
   if q.device.type == "cpu":
     return attention_packed_plain(q, k, v, num_heads)
   return attention_packed_fwd(q, k, v, num_heads)

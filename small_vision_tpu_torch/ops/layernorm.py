@@ -1,12 +1,15 @@
-"""LayerNorm(+AdaLN modulate) forward: CUDA kernel and its plain version.
+"""LayerNorm(+AdaLN modulate), forward and backward: CUDA kernels and their
+plain versions.
 
-Counterpart of small_vision_tpu/ops/layernorm.py (forward only; the
-backward comes with the training slice). Computes
+Counterpart of small_vision_tpu/ops/layernorm.py. Computes
     y = (LN(x) * gamma + beta) * (1 + scale) + shift
 with statistics in f32 and eps 1e-6; shift = scale = None gives a plain
-LayerNorm. `ln_modulate` runs the plain version for a tensor on the CPU and
-the kernel (`csrc/ln_modulate.cu`) for a CUDA tensor, and raises for a CUDA
-tensor the kernel does not take.
+LayerNorm. The forward is K1 (`csrc/ln_modulate.cu`), the backward K2
+(`csrc/ln_modulate_bwd.cu`). `ln_modulate` runs the plain versions for a
+tensor on the CPU and the kernels for a CUDA tensor, and raises for a CUDA
+tensor a kernel does not take. Without gradients (the sampler) it is K1
+alone, writing no statistics; with gradients it goes through `LNModulate`,
+whose forward is K1 with its mean/rstd buffers and whose backward is K2.
 """
 
 import ctypes
@@ -18,20 +21,62 @@ import torch
 from small_vision_tpu_torch.ops import _build
 
 NAME = "ln_modulate_fwd"
+BWD_NAME = "ln_modulate_bwd"
 SUPPORTED_WIDTHS = (768, 1024)  # UMD-B and UMD-L
+
+
+def _acc(t):
+  """t in its accumulation dtype: f32, or f64 for an f64 tensor (so that
+  the plain versions can be checked with gradcheck)."""
+  return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _ln_plain(x, gamma, beta, shift, scale, eps):
+  """(y, mean, rstd) of the plain version; mean/rstd are (B, L) f32."""
+  xf = _acc(x)
+  mean = xf.mean(-1, keepdim=True)
+  var = torch.square(xf - mean).mean(-1, keepdim=True)
+  rstd = torch.rsqrt(var + eps)
+  y = (xf - mean) * rstd
+  y = y * _acc(gamma) + _acc(beta)
+  if shift is not None:
+    y = y * (1.0 + _acc(scale[:, None, :])) + _acc(shift[:, None, :])
+  return y.to(x.dtype), mean[..., 0], rstd[..., 0]
 
 
 def ln_modulate_plain(x, gamma, beta, shift=None, scale=None, eps=1e-6):
   """Plain PyTorch version; mirrors `ln_modulate_reference` of the JAX ops."""
-  xf = x.float()
-  mean = xf.mean(-1, keepdim=True)
-  var = torch.square(xf - mean).mean(-1, keepdim=True)
-  y = (xf - mean) * torch.rsqrt(var + eps)
-  y = y * gamma.float() + beta.float()
-  if shift is not None:
-    y = (y * (1.0 + scale[:, None, :].float())
-         + shift[:, None, :].float())
-  return y.to(x.dtype)
+  return _ln_plain(x, gamma, beta, shift, scale, eps)[0]
+
+
+def ln_modulate_bwd_plain(x, dy, mean, rstd, gamma, beta, scale=None):
+  """Plain version of K2; mirrors `_ln_bwd_kernel` formula by formula.
+
+  Not autograd of the forward: the JAX backward recomputes x̂ from the
+  saved statistics and sums in f32 in its own order, and so does this.
+  Returns (dx in x's dtype, dgamma, dbeta (D,) f32, dshift, dscale (B, D)
+  f32, or None for both without modulation).
+  """
+  xf = _acc(x)
+  dyf = _acc(dy)
+  xhat = (xf - mean[..., None]) * rstd[..., None]
+  g = _acc(gamma)
+  dshift = dscale = None
+  if scale is not None:
+    d_ln = dyf * (1.0 + _acc(scale[:, None, :]))
+    ln_out = xhat * g + _acc(beta)
+    dscale = (dyf * ln_out).sum(1)
+    dshift = dyf.sum(1)
+  else:
+    d_ln = dyf
+  d = x.shape[-1]
+  dgamma = (d_ln * xhat).reshape(-1, d).sum(0)
+  dbeta = d_ln.reshape(-1, d).sum(0)
+  dxhat = d_ln * g
+  m1 = dxhat.mean(-1, keepdim=True)
+  m2 = (dxhat * xhat).mean(-1, keepdim=True)
+  dx = rstd[..., None] * (dxhat - m1 - xhat * m2)
+  return dx.to(x.dtype), dgamma, dbeta, dshift, dscale
 
 
 @functools.cache
@@ -44,48 +89,84 @@ def _lib():
   return fn
 
 
-def _require(cond, msg):
+@functools.cache
+def _bwd_lib():
+  lib = _build.library("ln_modulate_bwd")
+  fn = lib.ln_modulate_bwd
+  p, i = ctypes.c_void_p, ctypes.c_int
+  fn.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, p, p, i, i, i, p]
+  fn.restype = i
+  lib.ln_modulate_bwd_partials.argtypes = [i, i]
+  lib.ln_modulate_bwd_partials.restype = i
+  return fn, lib.ln_modulate_bwd_partials
+
+
+def _require(cond, msg, name=NAME):
   if not cond:
-    raise ValueError(f"{NAME}: {msg}")
+    raise ValueError(f"{name}: {msg}")
+
+
+def _check_modulation(x, shift, scale, name):
+  """Checks shift/scale as the kernels read them; returns their row
+  stride (0 without modulation)."""
+  b, _, d = x.shape
+  if shift is None and scale is None:
+    return 0
+  _require(shift is not None and scale is not None,
+           "shift and scale must be given together", name)
+  stride = scale.stride(0)
+  for n, t in (("shift", shift), ("scale", scale)):
+    _require(t.device == x.device and t.dtype == torch.bfloat16
+             and tuple(t.shape) == (b, d) and t.stride(1) == 1
+             and t.stride(0) == stride and stride % 8 == 0
+             and t.data_ptr() % 16 == 0,
+             f"{n} must be a ({b}, {d}) bfloat16 on {x.device} with "
+             "unit column stride and 16-byte aligned rows", name)
+  return stride
+
+
+def _check_x(x, name, what="x"):
+  _require(x.is_cuda, f"{what} must be a CUDA tensor", name)
+  _require(x.dtype == torch.bfloat16,
+           f"{what} must be bfloat16, got {x.dtype}", name)
+  _require(x.dim() == 3 and x.is_contiguous() and x.data_ptr() % 16 == 0,
+           f"{what} must be a contiguous, 16-byte aligned (B, L, D) tensor, "
+           f"got {tuple(x.shape)}", name)
+  _require(x.shape[-1] in SUPPORTED_WIDTHS,
+           f"width {x.shape[-1]} not in {SUPPORTED_WIDTHS}", name)
+
+
+def _check_vectors(x, name, **vectors):
+  d = x.shape[-1]
+  for n, t in vectors.items():
+    _require(t.device == x.device and t.dtype == torch.float32
+             and tuple(t.shape) == (d,) and t.is_contiguous(),
+             f"{n} must be a contiguous ({d},) float32 on {x.device}", name)
+
+
+def _check_stats(x, name, **stats):
+  b, l, _ = x.shape
+  for n, t in stats.items():
+    _require(t.device == x.device and t.dtype == torch.float32
+             and tuple(t.shape) == (b, l) and t.is_contiguous(),
+             f"{n} must be a contiguous ({b}, {l}) float32", name)
 
 
 def ln_modulate_fwd(x, gamma, beta, shift=None, scale=None, eps=1e-6, *,
                     mean: Optional[torch.Tensor] = None,
                     rstd: Optional[torch.Tensor] = None):
-  """Launches the CUDA kernel. x: (B, L, D) bf16 contiguous, D in
-  SUPPORTED_WIDTHS; gamma/beta: (D,) f32; shift/scale: (B, D) bf16 with unit
-  column stride, or both None; mean/rstd: (B, L) f32 buffers the kernel
-  fills, or both None. Returns y (B, L, D) bf16."""
-  _require(x.is_cuda, "x must be a CUDA tensor")
-  _require(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
-  _require(x.dim() == 3 and x.is_contiguous(),
-           f"x must be a contiguous (B, L, D) tensor, got {tuple(x.shape)}")
+  """Launches K1. x: (B, L, D) bf16 contiguous, D in SUPPORTED_WIDTHS;
+  gamma/beta: (D,) f32; shift/scale: (B, D) bf16 with unit column stride,
+  or both None; mean/rstd: (B, L) f32 buffers the kernel fills, or both
+  None. Returns y (B, L, D) bf16."""
+  _check_x(x, NAME)
   b, l, d = x.shape
-  _require(d in SUPPORTED_WIDTHS, f"width {d} not in {SUPPORTED_WIDTHS}")
-  for name, t in (("gamma", gamma), ("beta", beta)):
-    _require(t.device == x.device and t.dtype == torch.float32
-             and tuple(t.shape) == (d,) and t.is_contiguous(),
-             f"{name} must be a contiguous ({d},) float32 on {x.device}")
-  _require((shift is None) == (scale is None),
-           "shift and scale must be given together")
-  mod_stride = 0
-  if shift is not None:
-    mod_stride = shift.stride(0)
-    for name, t in (("shift", shift), ("scale", scale)):
-      _require(t.device == x.device and t.dtype == torch.bfloat16
-               and tuple(t.shape) == (b, d) and t.stride(1) == 1
-               and t.stride(0) == mod_stride and mod_stride % 8 == 0
-               and t.data_ptr() % 16 == 0,
-               f"{name} must be a ({b}, {d}) bfloat16 on {x.device} with "
-               "unit column stride and 16-byte aligned rows")
+  _check_vectors(x, NAME, gamma=gamma, beta=beta)
+  mod_stride = _check_modulation(x, shift, scale, NAME)
   _require((mean is None) == (rstd is None),
            "mean and rstd must be given together")
   if mean is not None:
-    for name, t in (("mean", mean), ("rstd", rstd)):
-      _require(t.device == x.device and t.dtype == torch.float32
-               and tuple(t.shape) == (b, l) and t.is_contiguous(),
-               f"{name} must be a contiguous ({b}, {l}) float32")
-  _require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+    _check_stats(x, NAME, mean=mean, rstd=rstd)
 
   y = torch.empty_like(x)
   if x.numel() == 0:
@@ -100,8 +181,91 @@ def ln_modulate_fwd(x, gamma, beta, shift=None, scale=None, eps=1e-6, *,
   return y
 
 
+def ln_modulate_bwd(x, dy, mean, rstd, gamma, beta, scale=None):
+  """Launches K2: the arguments and results of `ln_modulate_bwd_plain`.
+  x, dy: (B, L, D) bf16 contiguous; mean, rstd: (B, L) f32 from K1;
+  gamma, beta: (D,) f32; scale: (B, D) bf16 as K1 reads it, or None.
+  dgamma/dbeta are summed over the batch in a fixed order (no atomics),
+  so two launches on the same inputs give the same bits."""
+  _check_x(x, BWD_NAME)
+  _check_x(dy, BWD_NAME, "dy")
+  _require(dy.shape == x.shape and dy.device == x.device,
+           f"dy must match x {tuple(x.shape)}", BWD_NAME)
+  b, l, d = x.shape
+  _check_stats(x, BWD_NAME, mean=mean, rstd=rstd)
+  _check_vectors(x, BWD_NAME, gamma=gamma, beta=beta)
+  mod_stride = _check_modulation(x, scale, scale, BWD_NAME)
+
+  fn, partials = _bwd_lib()
+  dx = torch.empty_like(x)
+  f32 = dict(dtype=torch.float32, device=x.device)
+  dgamma, dbeta = torch.empty(d, **f32), torch.empty(d, **f32)
+  dshift = dscale = None
+  if scale is not None:
+    dshift, dscale = torch.empty(b, d, **f32), torch.empty(b, d, **f32)
+  if x.numel() == 0:
+    for t in (dgamma, dbeta, dshift, dscale):
+      if t is not None:
+        t.zero_()
+    return dx, dgamma, dbeta, dshift, dscale
+  work = torch.empty(partials(b, l) * 2 * d, **f32)
+  ptr = lambda t: None if t is None else t.data_ptr()
+  status = fn(
+      x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+      gamma.data_ptr(), beta.data_ptr(), ptr(scale), mod_stride,
+      dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), ptr(dshift),
+      ptr(dscale), work.data_ptr(), b, l, d,
+      torch.cuda.current_stream(x.device).cuda_stream)
+  _build.check(status, BWD_NAME)
+  _build.LAUNCHES[BWD_NAME] += 1
+  return dx, dgamma, dbeta, dshift, dscale
+
+
+class LNModulate(torch.autograd.Function):
+  """Differentiable `ln_modulate`: K1 with statistics forward, K2 backward
+  on CUDA tensors; the plain versions on CPU tensors.
+
+  As in the JAX custom VJP, dgamma/dbeta stay f32 (the parameter dtype)
+  and dshift/dscale are rounded to the dtype of shift/scale before autograd
+  assembles them into the gradient of the AdaLN output.
+  """
+
+  @staticmethod
+  def forward(ctx, x, gamma, beta, shift, scale, eps):
+    if x.device.type == "cpu":
+      y, mean, rstd = _ln_plain(x, gamma, beta, shift, scale, eps)
+    else:
+      b, l, _ = x.shape
+      mean = torch.empty(b, l, dtype=torch.float32, device=x.device)
+      rstd = torch.empty_like(mean)
+      y = ln_modulate_fwd(x, gamma, beta, shift, scale, eps, mean=mean,
+                          rstd=rstd)
+    ctx.save_for_backward(x, mean, rstd, gamma, beta, scale)
+    ctx.modulate = shift is not None
+    return y
+
+  @staticmethod
+  def backward(ctx, dy):
+    x, mean, rstd, gamma, beta, scale = ctx.saved_tensors
+    dy = dy.contiguous()
+    bwd = ln_modulate_bwd_plain if x.device.type == "cpu" else ln_modulate_bwd
+    dx, dgamma, dbeta, dshift, dscale = bwd(
+        x, dy, mean, rstd, gamma, beta, scale if ctx.modulate else None)
+    if ctx.modulate:
+      dshift, dscale = dshift.to(scale.dtype), dscale.to(scale.dtype)
+    return dx, dgamma, dbeta, dshift, dscale, None
+
+
+def _needs_grad(*tensors):
+  return torch.is_grad_enabled() and any(
+      t is not None and t.requires_grad for t in tensors)
+
+
 def ln_modulate(x, gamma, beta, shift=None, scale=None, eps=1e-6):
-  """The plain version on a CPU tensor, the CUDA kernel on a CUDA tensor."""
+  """The plain versions on a CPU tensor, the CUDA kernels on a CUDA tensor;
+  differentiable through `LNModulate` when a gradient is wanted."""
+  if _needs_grad(x, gamma, beta, shift, scale):
+    return LNModulate.apply(x, gamma, beta, shift, scale, eps)
   if x.device.type == "cpu":
     return ln_modulate_plain(x, gamma, beta, shift, scale, eps)
   return ln_modulate_fwd(x, gamma, beta, shift, scale, eps)

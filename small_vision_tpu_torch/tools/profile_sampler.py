@@ -52,7 +52,8 @@ def busy_us(intervals) -> float:
   return total
 
 
-def kernel_events(prof):
+def trace_events(prof) -> list:
+  """Every event of the profiler's Chrome-trace export."""
   fd, path = tempfile.mkstemp(suffix=".json")
   os.close(fd)
   try:
@@ -61,8 +62,19 @@ def kernel_events(prof):
       trace = json.load(f)
   finally:
     os.remove(path)
-  return [e for e in trace.get("traceEvents", [])
+  return trace.get("traceEvents", [])
+
+
+def kernel_events(prof, events=None):
+  return [e for e in (trace_events(prof) if events is None else events)
           if e.get("cat") == "kernel" and "dur" in e]
+
+
+def card_line() -> str:
+  """The card's name and power limit, as nvidia-smi gives them."""
+  return subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+      capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None):
@@ -77,9 +89,7 @@ def main(argv=None):
   from small_vision_tpu_torch.configs import parse_config
   from small_vision_tpu_torch.tools import export_sampler
 
-  card = subprocess.run(
-      ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-      capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+  card = card_line()
   config = parse_config(args.config)
   sample = export_sampler.build_sample_callable(
       config, convert.init_params(config, seed=0), batch_size=args.batch,

@@ -6,8 +6,13 @@ installed: on a machine with a GPU and nvcc,
   python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 (`--noconftest` skips tests/conftest.py, which sets up JAX). The tests
-marked `cuda` skip where there is no CUDA device. The others check, on the
-CPU, that the wrappers refuse what the kernels do not take.
+marked `cuda` skip where there is no CUDA device: K1 and K3 (the forwards)
+and K2 and K4 (the backwards) against their plain versions at the
+training and sampler lengths, two launches of each backward giving the
+same bits, the wrappers refusing what the kernels do not take, and the
+sampler's no-grad path writing no statistics and launching no backward.
+The others check, on the CPU, that the wrappers refuse CPU tensors and
+that CPU tensors take the plain versions.
 """
 
 import numpy as np
@@ -52,6 +57,16 @@ def test_wrappers_refuse_cpu_tensors():
     attn.attention_packed_fwd(q, q, q, 2)
 
 
+def test_backward_wrappers_refuse_cpu_tensors():
+  x, gamma, beta, _, scale = _ln_args("cpu", 4, True, b=2, d=768)
+  stats = torch.zeros(2, 4)
+  with pytest.raises(ValueError, match="CUDA tensor"):
+    ln.ln_modulate_bwd(x, x, stats, stats, gamma, beta, scale)
+  q = torch.zeros(1, 4, 128, dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="CUDA tensor"):
+    attn.attention_packed_bwd(q, q, q, q, 2)
+
+
 def test_cpu_tensors_take_the_plain_versions():
   before = dict(_build.LAUNCHES)
   args = _ln_args("cpu", 20, True, b=2, d=256)
@@ -61,6 +76,18 @@ def test_cpu_tensors_take_the_plain_versions():
   torch.testing.assert_close(attn.attention_packed(q, q, q, 2),
                              attn.attention_packed_plain(q, q, q, 2),
                              rtol=0, atol=0)
+  assert dict(_build.LAUNCHES) == before  # no kernel counted
+
+
+def test_cpu_gradients_take_the_plain_backwards():
+  before = dict(_build.LAUNCHES)
+  x, gamma, beta, shift, scale = (
+      None if t is None else t.requires_grad_()
+      for t in _ln_args("cpu", 6, True, b=2, d=256))
+  ln.ln_modulate(x, gamma, beta, shift, scale).float().sum().backward()
+  q = _randn((2, 6, 128), 5, "cpu", torch.bfloat16).requires_grad_()
+  attn.attention_packed(q, q, q, 2).float().sum().backward()
+  assert x.grad is not None and q.grad is not None
   assert dict(_build.LAUNCHES) == before  # no kernel counted
 
 
@@ -127,3 +154,151 @@ def test_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
   long = torch.zeros(1, 4096, 64, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_packed_fwd(long, long, long, 1)
+
+
+def _ln_bwd_args(device, l, modulate, b=8, d=768, seed=0):
+  """K2's inputs: K1's with its statistics, and an upstream gradient."""
+  x, gamma, beta, shift, scale = _ln_args(device, l, modulate, b, d, seed)
+  xf = x.float()
+  mean = xf.mean(-1)
+  rstd = torch.rsqrt((xf - mean[..., None]).square().mean(-1) + 1e-6)
+  dy = _randn((b, l, d), seed + 4, device, torch.bfloat16)
+  return x, dy, mean, rstd, gamma, beta, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [68, 164, 257])
+@pytest.mark.parametrize("modulate", [False, True])
+def test_ln_bwd_kernel_matches_plain(cuda, l, modulate):
+  args = _ln_bwd_args(cuda, l, modulate)
+  before = _build.LAUNCHES[ln.BWD_NAME]
+  got = ln.ln_modulate_bwd(*args)
+  assert _build.LAUNCHES[ln.BWD_NAME] == before + 1
+  want = ln.ln_modulate_bwd_plain(*args)
+  dx, dx_want = got[0].float(), want[0].float()
+  # dx is stored in bf16 from O(1) f32 values summed in another order:
+  # one bf16 ulp (2^-8 relative, rounding either way) plus f32 noise.
+  assert torch.all((dx - dx_want).abs() <= 2.0**-7 * dx_want.abs() + 1e-3)
+  for g, w in zip(got[1:], want[1:]):
+    if w is None:
+      assert g is None
+      continue
+    # f32 sums of up to B*L = 2,056 O(1) terms in another order (and, for
+    # dscale, with gamma and beta factored out): relative to the largest.
+    assert g.dtype == torch.float32 and g.shape == w.shape
+    torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * w.abs().max())
+
+
+@pytest.mark.cuda
+def test_ln_bwd_kernel_is_deterministic(cuda):
+  args = _ln_bwd_args(cuda, 257, True, b=16)
+  first = ln.ln_modulate_bwd(*args)
+  second = ln.ln_modulate_bwd(*args)
+  for a, b in zip(first, second):
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ln_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+  x, dy, mean, rstd, gamma, beta, scale = _ln_bwd_args(cuda, 4, True, b=2)
+  with pytest.raises(ValueError, match="bfloat16"):
+    ln.ln_modulate_bwd(x, dy.float(), mean, rstd, gamma, beta, scale)
+  with pytest.raises(ValueError, match="contiguous"):
+    ln.ln_modulate_bwd(x, dy.transpose(0, 1), mean, rstd, gamma, beta,
+                       scale)
+  with pytest.raises(ValueError, match="float32"):
+    ln.ln_modulate_bwd(x, dy, mean.half(), rstd, gamma, beta, scale)
+  with pytest.raises(ValueError, match="width"):
+    small = x[..., :256].contiguous()
+    ln.ln_modulate_bwd(small, small, mean, rstd, gamma[:256], beta[:256])
+
+
+def _qkv_do(device, l, b=4, h=2, seed=0, scale=1.0):
+  return [_randn((b, l, h * 64), seed + i, device, torch.bfloat16,
+                 scale if i < 2 else 1.0) for i in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [20, 68, 164, 257])
+def test_attention_bwd_kernel_matches_plain(cuda, l):
+  q, k, v, do = _qkv_do(cuda, l)
+  before = _build.LAUNCHES[attn.BWD_NAME]
+  got = attn.attention_packed_bwd(q, k, v, do, 2)
+  assert _build.LAUNCHES[attn.BWD_NAME] == before + 1
+  want = attn.attention_packed_bwd_plain(q, k, v, do, 2)
+  for g, w in zip(got, want):
+    g, w = g.float(), w.float()
+    # bf16 outputs of f32 sums over L terms; the kernel sums in another
+    # order, which may flip the bf16 rounding of an e, dO*r or dS product
+    # input: a few bf16 ulps of the largest output.
+    err = (g - w).abs().max().item()
+    assert err <= 2.0**-6 * w.abs().max().item(), (err, w.abs().max())
+
+
+@pytest.mark.cuda
+def test_attention_bwd_kernel_clamps_as_the_plain_version(cuda):
+  """Past the ±80 clamp both treat it as the identity: finite gradients
+  that agree."""
+  q, k, v, do = _qkv_do(cuda, 20, scale=40.0)
+  got = attn.attention_packed_bwd(q, k, v, do, 2)
+  want = attn.attention_packed_bwd_plain(q, k, v, do, 2)
+  for g, w in zip(got, want):
+    g, w = g.float(), w.float()
+    assert torch.all(torch.isfinite(g))
+    assert (g - w).abs().max().item() <= 2.0**-6 * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_attention_bwd_kernel_is_deterministic(cuda):
+  q, k, v, do = _qkv_do(cuda, 257, b=8)
+  first = attn.attention_packed_bwd(q, k, v, do, 2)
+  second = attn.attention_packed_bwd(q, k, v, do, 2)
+  for a, b in zip(first, second):
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_attention_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+  q = torch.zeros(1, 8, 2 * 32, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="head dim"):
+    attn.attention_packed_bwd(q, q, q, q, 2)
+  long = torch.zeros(1, 4096, 64, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="sequence length"):
+    attn.attention_packed_bwd(long, long, long, long, 1)
+  q = torch.zeros(1, 8, 128, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="contiguous"):
+    attn.attention_packed_bwd(q, q, q, q.float(), 2)
+
+
+@pytest.mark.cuda
+def test_autograd_functions_launch_the_kernels(cuda):
+  x, gamma, beta, shift, scale = (
+      t.requires_grad_() for t in _ln_args(cuda, 20, True, b=2))
+  q, k, v = (t.requires_grad_() for t in _qkv_do(cuda, 20)[:3])
+  _build.reset_launches()
+  y = ln.ln_modulate(x, gamma, beta, shift, scale)
+  o = attn.attention_packed(q, k, v, 2)
+  (y.float().sum() + o.float().sum()).backward()
+  assert dict(_build.LAUNCHES) == {ln.NAME: 1, ln.BWD_NAME: 1,
+                                   attn.NAME: 1, attn.BWD_NAME: 1}
+  assert shift.grad.dtype == torch.bfloat16 and gamma.grad.dtype == \
+      torch.float32
+
+
+@pytest.mark.cuda
+def test_no_grad_path_writes_no_stats_and_launches_no_backward(cuda):
+  """The sampler's path: K1 without its statistics, K3, and nothing else,
+  even on tensors that require grad."""
+  x, gamma, beta, shift, scale = (
+      t.requires_grad_() for t in _ln_args(cuda, 20, True, b=2))
+  q = _qkv_do(cuda, 20)[0].requires_grad_()
+  _build.reset_launches()
+  with torch.inference_mode():
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = ln.ln_modulate(x, gamma, beta, shift, scale)
+    # Only y is allocated: no (B, L) mean/rstd buffers.
+    assert torch.cuda.max_memory_allocated() - base <= \
+        y.numel() * y.element_size() + 512
+    attn.attention_packed(q, q, q, 2)
+  assert dict(_build.LAUNCHES) == {ln.NAME: 1, attn.NAME: 1}

@@ -146,10 +146,16 @@ def test_cfg_needs_labels():
 
 
 def test_masking_waits_for_training_slice():
+  """Masking came with the training slice: it takes its (B, L) uniform
+  draws as an argument and refuses to run without them."""
   config = small_config()
   model = torch_model(config, convert.init_params(config, seed=0))
-  with pytest.raises(NotImplementedError):
+  with pytest.raises(ValueError, match="mask_noise"):
     model(torch.zeros(1, 16, 16, 3), mask=0.75)
+  pred, out = model(torch.zeros(1, 16, 16, 3), mask=0.75,
+                    mask_noise=torch.rand(1, 16))
+  assert pred.shape == (1, 16, 16, 6) and out["mask"].shape == (1, 16, 16, 1)
+  assert out["mask"].sum().item() == 12 * 4 * 4  # 12 of 16 patches of 4x4
 
 
 def _timestep_embeds(jdt, tdt):
