@@ -6,24 +6,34 @@ Phases, each fatal on failure:
   1. build     nvcc builds every kernel under small_vision_tpu_torch/csrc/.
   2. kernels   each kernel against its plain PyTorch version on the card,
                with its time, the plain version's, one library call's and
-               the bound: the forwards K1 and K3 at the shapes of the
-               UMD-B/4@64 sampler at batch 64, the backwards K2 and K4 at
-               the training shapes (per-branch batch 128, L = 68, 164, 257),
-               each launched twice to show equal bits.
+               the bound: the forwards K1, K3, K7 at the shapes of the
+               UMD-B/4@64 sampler at batch 64 (L = 260 and 257; K7 also at
+               the shape of phase 6), the backwards K2, K4, K8 at the
+               training shapes (per-branch batch 128, L = 68, 164, 257),
+               each launched twice to show equal bits, and the fused MLP
+               and MHA (K5, K6) at both.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
-               against the CPU (plain versions), same weights and inputs:
-               the sampler's forward, and one training step's loss and
-               gradients at batch 8 with injected draws.
+               against the CPU (plain versions), same weights and inputs,
+               under attn_impl "pallas" and "pallas_fused": the sampler's
+               forward, and one training step's loss and gradients at
+               batch 8 with injected draws.
   4. train     the full UMD-B/4@64 training step at batch 256 on synthetic
                data through `train_and_evaluate` (what the CLI runs), from
-               `init_train_params` weights: 1 warm-up and 10 timed steps;
-               finite losses, changed parameters, and exactly the kernel
-               launches per step the model says.
+               `init_train_params` weights, under both settings: 1 warm-up
+               and 5 timed steps; finite, falling losses, changed
+               parameters, and exactly the kernel launches per step the
+               model says.
   5. serve     the port's HTTP sampling server at full UMD-B/4@64 size from
                seeded random weights: three concurrent requests (16, 16, 32
                images) coalesce into one 125-step DDIM call of batch 64; the
                kernel launch counts of that call must be what the model says
-               (and no backward kernel).
+               (and no backward kernel). Then one such call under
+               "pallas_fused" through `build_sample_callable`, counted the
+               same way.
+  6. unpacked  `ops.attention.fused_attention`, the [B, L, H, D] entry
+               point that no module of the model calls, forward and
+               backward through autograd at the decoder's training shape:
+               one K7 and one K8 launch, against the CPU.
 Then it prints the card's name and power limit, one JSON line of the
 kernels, and as its last line {"ok": true, "device": {...}}. Without a CUDA
 device it exits non-zero and prints no result.
@@ -51,11 +61,30 @@ SAMPLER_FORWARDS = 126        # 125 DDIM steps + the final t=0 step
 BLOCKS = 12 + 4               # encoder + decoder blocks of UMD-B/4
 TRAIN_BATCH = 256             # per card; each branch gets half
 TRAIN_SEQS = (68, 164, 257)   # MAE encoder, diffusion encoder, decoders
-TRAIN_STEPS = 11              # 1 warm-up + 10 timed
-# Per training step at the default two applies: 16 blocks per branch, two
-# LNs and one attention in each.
-TRAIN_LAUNCHES = {"ln_modulate_fwd": 64, "ln_modulate_bwd": 64,
-                  "attention_packed_fwd": 32, "attention_packed_bwd": 32}
+MLP_DIM = 3072
+TRAIN_STEPS = 6               # 1 warm-up + 5 timed
+ATTN_IMPLS = ("pallas", "pallas_fused")
+# Kernel launches of one block applied once, with gradients (training) and
+# without (the sampler). Under "pallas_fused" the fused forwards replace
+# the packed attention's, which then runs in the backward only: FusedMHA
+# recomputes its reference composition there (K3) and differentiates it
+# (K4).
+BLOCK_TRAIN_LAUNCHES = {
+    "pallas": {"ln_modulate_fwd": 2, "ln_modulate_bwd": 2,
+               "attention_packed_fwd": 1, "attention_packed_bwd": 1},
+    "pallas_fused": {"ln_modulate_fwd": 2, "ln_modulate_bwd": 2,
+                     "fused_mha_fwd": 1, "fused_mlp_fwd": 1,
+                     "attention_packed_fwd": 1, "attention_packed_bwd": 1},
+}
+BLOCK_SAMPLE_LAUNCHES = {
+    "pallas": {"ln_modulate_fwd": 2, "attention_packed_fwd": 1},
+    "pallas_fused": {"ln_modulate_fwd": 2, "fused_mha_fwd": 1,
+                     "fused_mlp_fwd": 1},
+}
+
+
+def _times(per_block, n):
+  return {k: n * v for k, v in per_block.items()}
 
 
 def fail(msg):
@@ -328,6 +357,235 @@ def check_attention_bwd(attn, card):
               by_len=by_len)
 
 
+def _fmt(entry):
+  return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                   for k, v in entry.items())
+
+
+def _close_to_max(got, want, ulps):
+  """(max abs err, ok): within `ulps` bf16 ulps of the largest value of
+  `want`, an ulp taken as 2^-7 of it (the spacing of bf16 values lies
+  between 2^-8 and 2^-7 of their magnitude)."""
+  got, want = got.float(), want.float()
+  err = (got - want).abs().max().item()
+  return err, err <= ulps * 2.0**-7 * want.abs().max().item()
+
+
+# (batch, length) of the fused kernels' calls: the sampler's encoder and
+# decoder, and the three training shapes.
+FUSED_SHAPES = ((BATCH, SEQ_ENC), (BATCH, SEQ_DEC)) + tuple(
+    (TRAIN_BATCH // 2, l) for l in TRAIN_SEQS)
+
+
+def check_fused_mlp(fb, card):
+  """K5 against its plain version at the sampler's and training shapes."""
+  gen = torch.Generator(device="cuda").manual_seed(4)
+  randn = lambda *s, std=1.0: (torch.randn(*s, generator=gen, device="cuda")
+                               * std).to(torch.bfloat16)
+  w1, b1 = randn(WIDTH, MLP_DIM, std=WIDTH**-0.5), randn(MLP_DIM, std=0.1)
+  w2, b2 = randn(MLP_DIM, WIDTH, std=MLP_DIM**-0.5), randn(WIDTH, std=0.1)
+  lin = torch.nn.functional.linear
+  w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+  max_err, by_shape = 0.0, {}
+  for b, seq in FUSED_SHAPES:
+    x = randn(b, seq, WIDTH)
+    args = (x, w1, b1, w2, b2)
+    got = fb.fused_mlp_fwd(*args)
+    want = fb.fused_mlp_plain(*args)
+    torch.cuda.synchronize()
+    # bf16 hidden activations and outputs on both sides; f32 sums over 768
+    # and 3,072 terms in another order may flip the rounding of a hidden
+    # value, which moves an output by about one bf16 ulp: allow two ulps of
+    # the largest output.
+    err, ok = _close_to_max(got, want, 2)
+    max_err = max(max_err, err)
+    print(f"[kernels] fused_mlp_fwd B={b} L={seq}: max abs err {err:.3e} of "
+          f"max {want.float().abs().max().item():.3e} (tolerance 2 bf16 "
+          "ulps of the max)", flush=True)
+    if not ok:
+      fail(f"fused_mlp_fwd disagrees with its plain version ({err:.3e})")
+    rows = b * seq
+    bytes_moved = (2 * rows * WIDTH + 2 * WIDTH * MLP_DIM + MLP_DIM
+                   + WIDTH) * 2
+    flops = 4 * rows * WIDTH * MLP_DIM
+    bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
+    by_shape[f"{b}x{seq}"] = dict(
+        ms=time_ms(lambda: fb.fused_mlp_fwd(*args), iters=20),
+        plain_ms=time_ms(lambda: fb.fused_mlp_plain(*args), iters=3,
+                         warmup=1),
+        library_ms=time_ms(lambda: lin(torch.nn.functional.gelu(
+            lin(x, w1t, b1), approximate="tanh"), w2t, b2), iters=20),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] fused_mlp_fwd B={b} L={seq} D={WIDTH} hidden="
+          f"{MLP_DIM}: {_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} bytes, "
+          f"{flops} flops) on {card}", flush=True)
+  return dict(name=fb.MLP_NAME, route="cuda",
+              source="small_vision_tpu_torch/csrc/fused_mlp.cu",
+              replaces="small_vision_tpu/ops/fused_block.py:185",
+              max_abs_err=max_err, **by_shape[f"{BATCH}x{SEQ_ENC}"],
+              by_shape=by_shape)
+
+
+def check_fused_mha(fb, card):
+  """K6 against its plain version at the sampler's and training shapes;
+  two launches must give equal bits."""
+  gen = torch.Generator(device="cuda").manual_seed(5)
+  randn = lambda *s, std=1.0: (torch.randn(*s, generator=gen, device="cuda")
+                               * std).to(torch.bfloat16)
+  params = []
+  for _ in range(4):
+    params += [randn(WIDTH, WIDTH, std=WIDTH**-0.5), randn(WIDTH, std=0.1)]
+  wq, bq, wk, bk, wv, bv, wo, bo = params
+  lin = torch.nn.functional.linear
+  wts = [w.t().contiguous() for w in (wq, wk, wv, wo)]
+  head_dim = WIDTH // HEADS
+  max_err, by_shape = 0.0, {}
+  for b, seq in FUSED_SHAPES:
+    x = randn(b, seq, WIDTH)
+    args = (x, *params, HEADS)
+    got = fb.fused_mha_fwd(*args)
+    again = fb.fused_mha_fwd(*args)
+    want = fb.fused_mha_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+      fail(f"fused_mha_fwd B={b} L={seq}: two launches differ")
+    # q, k, v, the probabilities, the head outputs and the output round to
+    # bf16 on both sides; sums in another order may flip an inner rounding,
+    # which moves an output by about one bf16 ulp: allow two ulps of the
+    # largest output.
+    err, ok = _close_to_max(got, want, 2)
+    max_err = max(max_err, err)
+    print(f"[kernels] fused_mha_fwd B={b} L={seq}: max abs err {err:.3e} of "
+          f"max {want.float().abs().max().item():.3e} (tolerance 2 bf16 "
+          "ulps of the max), two launches equal", flush=True)
+    if not ok:
+      fail(f"fused_mha_fwd disagrees with its plain version ({err:.3e})")
+
+    def library():
+      split = lambda t: t.view(b, seq, HEADS, head_dim).transpose(1, 2)
+      q, k, v = (split(lin(x, w, bias)) for w, bias in
+                 zip(wts[:3], (bq, bk, bv)))
+      o = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+      return lin(o.transpose(1, 2).reshape(b, seq, WIDTH), wts[3], bo)
+
+    bytes_moved = (2 * b * seq * WIDTH + 4 * WIDTH * WIDTH + 4 * WIDTH) * 2
+    flops = (8 * b * seq * WIDTH * WIDTH
+             + 4 * b * HEADS * seq * seq * head_dim)
+    bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
+    by_shape[f"{b}x{seq}"] = dict(
+        ms=time_ms(lambda: fb.fused_mha_fwd(*args), iters=20),
+        plain_ms=time_ms(lambda: fb.fused_mha_plain(*args), iters=3,
+                         warmup=1),
+        library_ms=time_ms(library, iters=20),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={WIDTH} H={HEADS}: "
+          f"{_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} bytes, {flops} "
+          f"flops) on {card}", flush=True)
+  return dict(name=fb.MHA_NAME, route="cuda",
+              source="small_vision_tpu_torch/csrc/fused_mha.cu",
+              replaces="small_vision_tpu/ops/fused_block.py:68",
+              max_abs_err=max_err, **by_shape[f"{BATCH}x{SEQ_ENC}"],
+              by_shape=by_shape)
+
+
+def check_attention_unpacked(attn, card):
+  """K7 against its plain version at the sampler's shapes and at the shape
+  phase `unpacked` launches it at; timed at the first."""
+  gen = torch.Generator(device="cuda").manual_seed(6)
+  head_dim = WIDTH // HEADS
+  max_err, timing = 0.0, None
+  for b, seq in ((BATCH, SEQ_ENC), (BATCH, SEQ_DEC),
+                 (TRAIN_BATCH // 2, TRAIN_SEQS[-1])):
+    q, k, v = (torch.randn(b, seq, HEADS, head_dim, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    o = attn.attention_unpacked_fwd(q, k, v).float()
+    ref = attn.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    err = (o - ref).abs()
+    # Two bf16 ulps at unit magnitude (outputs are convex mixes of N(0,1)
+    # values): the f32 score sums run in another order, which may round a
+    # probability to the neighbouring bf16 value, and o itself is bf16.
+    bad = (err > 1e-2 + 1e-2 * ref.abs()).sum().item()
+    max_err = max(max_err, err.max().item())
+    print(f"[kernels] attention_unpacked_fwd B={b} L={seq}: max abs err "
+          f"{err.max().item():.3e}, {bad} elements over tolerance",
+          flush=True)
+    if bad:
+      fail(f"attention_unpacked_fwd disagrees with its plain version ({bad})")
+    if timing is None:
+      heads_first = lambda t: t.transpose(1, 2)
+      timing = dict(
+          ms=time_ms(lambda: attn.attention_unpacked_fwd(q, k, v)),
+          plain_ms=time_ms(lambda: attn.attention_plain(q, k, v), iters=10),
+          library_ms=time_ms(
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  heads_first(q), heads_first(k), heads_first(v))))
+  bytes_moved = 4 * BATCH * SEQ_ENC * WIDTH * 2
+  flops = 4 * BATCH * HEADS * SEQ_ENC * SEQ_ENC * head_dim
+  bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
+  print(f"[kernels] attention_unpacked_fwd B={BATCH} L={SEQ_ENC} H={HEADS} "
+        f"D={head_dim}: {_fmt(timing)}, bound {bound_ms:.4f} ms "
+        f"({bytes_moved} bytes, {flops} flops) on {card}", flush=True)
+  return dict(name=attn.UNPACKED_NAME, route="cuda",
+              source="small_vision_tpu_torch/csrc/attention_unpacked.cu",
+              replaces="small_vision_tpu/ops/attention.py:79",
+              max_abs_err=max_err, bound_ms=bound_ms, bound_by=bound_by,
+              **timing)
+
+
+def check_attention_unpacked_bwd(attn, card):
+  """K8 against its plain version at the training shapes."""
+  gen = torch.Generator(device="cuda").manual_seed(7)
+  b = TRAIN_BATCH // 2
+  head_dim = WIDTH // HEADS
+  max_err, by_len = 0.0, {}
+  for seq in TRAIN_SEQS:
+    q, k, v, do = (torch.randn(b, seq, HEADS, head_dim, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    got = attn.attention_unpacked_bwd(q, k, v, do)
+    again = attn.attention_unpacked_bwd(q, k, v, do)
+    want = attn.attention_bwd_plain(q, k, v, do)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+      fail(f"attention_unpacked_bwd L={seq}: two launches differ")
+    worst, bad = 0.0, 0
+    for g, w in zip(got, want):
+      # bf16 outputs of f32 sums over L; a sum in another order may flip
+      # the bf16 rounding of a P or dS input of a product: a few bf16 ulps
+      # of the largest output.
+      e = (g.float() - w.float()).abs().max().item()
+      worst = max(worst, e)
+      bad += int(e > 2.0**-6 * w.float().abs().max().item())
+    max_err = max(max_err, worst)
+    print(f"[kernels] attention_unpacked_bwd B={b} L={seq}: max abs err "
+          f"{worst:.3e}, {bad} outputs over tolerance, two launches equal",
+          flush=True)
+    if bad:
+      fail(f"attention_unpacked_bwd disagrees with its plain version ({bad})")
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+    dos = do.transpose(1, 2)
+    bound_ms, bound_by = _bound(7 * b * seq * WIDTH * 2,
+                                5 * 2 * b * HEADS * seq * seq * head_dim,
+                                BF16_FLOPS)
+    by_len[seq] = dict(
+        ms=time_ms(lambda: attn.attention_unpacked_bwd(q, k, v, do)),
+        plain_ms=time_ms(lambda: attn.attention_bwd_plain(q, k, v, do),
+                         iters=5),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), dos, retain_graph=True)),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] attention_unpacked_bwd B={b} L={seq} H={HEADS} "
+          f"D={head_dim}: {_fmt(by_len[seq])} on {card}", flush=True)
+  return dict(name=attn.UNPACKED_BWD_NAME, route="cuda",
+              source="small_vision_tpu_torch/csrc/attention_unpacked_bwd.cu",
+              replaces="small_vision_tpu/ops/attention.py:162",
+              max_abs_err=max_err, **by_len[TRAIN_SEQS[-1]], by_len=by_len)
+
+
 def _train_step_grads(config, params, images, draws, dev):
   """(loss, [(flax name, f32 gradient on the CPU)]) of one training step's
   forward and backward on `dev`, from `params` with injected draws."""
@@ -346,14 +604,15 @@ def _train_step_grads(config, params, images, draws, dev):
   return float(loss), [(n, g.float().cpu()) for n, g in zip(names, grads)]
 
 
-def phase_model(build, card):
-  """Full-width model at depth 2 + 1: card (kernels) against CPU (plain),
-  the sampler's forward and one training step's loss and gradients."""
+def phase_model(build, card, attn_impl):
+  """Full-width model at depth 2 + 1 under `attn_impl`: card (kernels)
+  against CPU (plain), the sampler's forward and one training step's loss
+  and gradients."""
   from small_vision_tpu_torch import convert
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.train import train_ae
 
-  config = ae_i1k.get_config("batch_size=8")
+  config = ae_i1k.get_config(f"batch_size=8,attn_impl={attn_impl}")
   config["model"].update(depth=2, dec_depth=1)
   params = convert.init_params(config, seed=1)
   rng = np.random.default_rng(2)
@@ -368,8 +627,8 @@ def phase_model(build, card):
                          t=torch.from_numpy(t).to(dev))[0].cpu()
   err = (preds["cuda"] - preds["cpu"]).abs().max().item()
   scale = preds["cpu"].abs().max().item()
-  print(f"[model] forward (3, 64, 64, 3) at width {WIDTH}, depth 2+1, "
-        f"t = {t.tolist()}: max abs err {err:.3e} of max |pred| "
+  print(f"[model] {attn_impl}: forward (3, 64, 64, 3) at width {WIDTH}, "
+        f"depth 2+1, t = {t.tolist()}: max abs err {err:.3e} of max |pred| "
         f"{scale:.3e}", flush=True)
   # bf16 matmuls summed in another order on the two devices: a few bf16
   # roundings (2^-8 relative each) through three blocks and the head.
@@ -389,9 +648,8 @@ def phase_model(build, card):
   loss_gpu, grads_gpu = _train_step_grads(config, params, images, draws,
                                           "cuda")
   launches = dict(build.LAUNCHES)
-  # Two branches of 2 + 1 blocks: two LNs and one attention a block.
-  want = {"ln_modulate_fwd": 12, "ln_modulate_bwd": 12,
-          "attention_packed_fwd": 6, "attention_packed_bwd": 6}
+  # Two branches of 2 + 1 blocks.
+  want = _times(BLOCK_TRAIN_LAUNCHES[attn_impl], 6)
   if launches != want:
     fail(f"training step launches {launches} != {want}")
   # Each leaf's gradient relative to its largest element, with a floor of
@@ -408,8 +666,9 @@ def phase_model(build, card):
     if rel > worst:
       worst, worst_name = rel, name
   loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-  print(f"[model] training step (8, 64, 64, 3) at width {WIDTH}, depth 2+1: "
-        f"loss card {loss_gpu:.6f}, cpu {loss_cpu:.6f} (rel {loss_rel:.2e}); "
+  print(f"[model] {attn_impl}: training step (8, 64, 64, 3) at width "
+        f"{WIDTH}, depth 2+1: loss card {loss_gpu:.6f}, cpu {loss_cpu:.6f} "
+        f"(rel {loss_rel:.2e}); "
         f"{len(grads_cpu)} gradient leaves, worst leaf-relative err "
         f"{worst:.3e} ({worst_name}); launches {launches} on {card}",
         flush=True)
@@ -421,18 +680,20 @@ def phase_model(build, card):
          f"of leaf max at {worst_name}")
 
 
-def phase_train(build, card):
+def phase_train(build, card, attn_impl):
   """The full UMD-B/4@64 training step at batch 256 through
-  `train_and_evaluate`, on synthetic data from `init_train_params`."""
+  `train_and_evaluate`, on synthetic data from `init_train_params`, under
+  `attn_impl`."""
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.train import train_ae
 
   config = ae_i1k.get_config(
       f"variant=B/4,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
-      f"total_steps={TRAIN_STEPS},log_steps=1")
+      f"total_steps={TRAIN_STEPS},log_steps=1,attn_impl={attn_impl}")
   build.reset_launches()
   train_state, history = train_ae.train_and_evaluate(
-      config, device="cuda", log=lambda s: print(f"[train] {s}", flush=True))
+      config, device="cuda",
+      log=lambda s: print(f"[train] {attn_impl}: {s}", flush=True))
   launches = dict(build.LAUNCHES)
   n_params = sum(p.numel() for p in train_state["params"])
   del train_state
@@ -440,8 +701,8 @@ def phase_train(build, card):
 
   timed = history[1:]
   ms = sum(h["ms"] for h in timed) / len(timed)
-  print(f"[train] UMD-B/4@64, {n_params} parameters, batch {TRAIN_BATCH}: "
-        f"{len(timed)} timed steps, mean {ms:.2f} ms/step (min "
+  print(f"[train] {attn_impl}: UMD-B/4@64, {n_params} parameters, batch "
+        f"{TRAIN_BATCH}: {len(timed)} timed steps, mean {ms:.2f} ms/step (min "
         f"{min(h['ms'] for h in timed):.2f}, max "
         f"{max(h['ms'] for h in timed):.2f}) = {TRAIN_BATCH / ms * 1e3:.2f} "
         f"img/s on {card}", flush=True)
@@ -450,21 +711,99 @@ def phase_train(build, card):
   losses = [h["training_loss"] for h in history]
   if not all(np.isfinite(losses)):
     fail(f"non-finite training loss: {losses}")
+  if not losses[-1] < losses[0]:
+    fail(f"the training loss did not fall: {losses}")
   # Step 1 runs at learning rate 0 (warm-up starts at 0), so its parameter
   # norm is the initial one; the last step's must differ from it.
   if not (history[-1]["l2_params"] != history[0]["l2_params"]
           and history[-1]["l2_updates"] > 0):
     fail("the parameters did not change")
-  want = {k: TRAIN_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
-  print(f"[train] kernel launches in {TRAIN_STEPS} steps: {launches}, model "
-        f"says {want}", flush=True)
+  # Two branches of 12 + 4 blocks a step.
+  want = _times(BLOCK_TRAIN_LAUNCHES[attn_impl], 2 * BLOCKS * TRAIN_STEPS)
+  print(f"[train] {attn_impl}: kernel launches in {TRAIN_STEPS} steps: "
+        f"{launches}, model says {want}", flush=True)
   if launches != want:
     fail(f"launch counts {launches} != {want}")
   return {"img_per_s": TRAIN_BATCH / ms * 1e3, "ms": ms,
           "launches": launches}
 
 
-def phase_serve(build, ln, attn, card):
+def _check_images(images, n):
+  if images.shape != (n, 64, 64, 3) or images.dtype != np.uint8:
+    fail(f"bad images {images.shape} {images.dtype} for n={n}")
+  flat = images.reshape(n, -1)
+  if np.any(flat.max(axis=1) == flat.min(axis=1)):
+    fail("a constant image came back")
+
+
+def phase_serve_fused(build, card):
+  """One 125-step sampler call at batch 64 under attn_impl="pallas_fused",
+  through `build_sample_callable` (what the server calls)."""
+  from small_vision_tpu_torch import convert
+  from small_vision_tpu_torch.configs import ae_i1k
+  from small_vision_tpu_torch.tools import export_sampler
+
+  config = ae_i1k.get_config(f"variant=B/4,size=64,samples_per_call={BATCH},"
+                             "attn_impl=pallas_fused")
+  sample = export_sampler.build_sample_callable(
+      config, convert.init_params(config, seed=0), fn="uncond_eps",
+      batch_size=BATCH, device="cuda")
+  sample(12345)  # warm-up call
+  build.reset_launches()
+  t0 = time.perf_counter()
+  images = sample(1)  # returns numpy: ends in a device-to-host copy
+  sampler_s = time.perf_counter() - t0
+  launches = dict(build.LAUNCHES)
+  print(f"[serve] pallas_fused: one sampler call {sampler_s:.3f} s = "
+        f"{BATCH / sampler_s:.2f} img/s at batch {BATCH} on {card}",
+        flush=True)
+  _check_images(images, BATCH)
+  want = _times(BLOCK_SAMPLE_LAUNCHES["pallas_fused"],
+                BLOCKS * SAMPLER_FORWARDS)
+  print(f"[serve] pallas_fused: kernel launches in the call: {launches}, "
+        f"model says {want} and no other kernel", flush=True)
+  if launches != want:  # no K3, K2, K4, K7, K8
+    fail(f"launch counts {launches} != {want}")
+  return {"launches": launches, "img_per_s": BATCH / sampler_s,
+          "s": sampler_s}
+
+
+def phase_unpacked(build, attn, card):
+  """`fused_attention` on [B, L, H, D], which no module of the model calls:
+  forward and backward through autograd at the decoder's training shape,
+  against the plain versions on the CPU."""
+  gen = torch.Generator().manual_seed(8)
+  b, seq, head_dim = TRAIN_BATCH // 2, TRAIN_SEQS[-1], WIDTH // HEADS
+  q, k, v, do = (torch.randn(b, seq, HEADS, head_dim, generator=gen)
+                 .to(torch.bfloat16) for _ in range(4))
+  results = {}
+  for dev in ("cpu", "cuda"):
+    args = [t.to(dev).clone().requires_grad_() for t in (q, k, v)]
+    if dev == "cuda":
+      build.reset_launches()
+    out = attn.fused_attention(*args)
+    out.backward(do.to(dev))
+    if dev == "cuda":
+      torch.cuda.synchronize()
+      launches = dict(build.LAUNCHES)
+    results[dev] = [out.detach().float().cpu()] + [a.grad.float().cpu()
+                                                   for a in args]
+  want = {attn.UNPACKED_NAME: 1, attn.UNPACKED_BWD_NAME: 1}
+  worst = 0.0
+  for c, g in zip(results["cpu"], results["cuda"]):
+    # As in the kernels phase: a few bf16 ulps of the largest value.
+    worst = max(worst, (c - g).abs().max().item() / c.abs().max().item())
+  print(f"[unpacked] fused_attention ({b}, {seq}, {HEADS}, {head_dim}) "
+        f"forward and backward: worst error {worst:.3e} of each tensor's "
+        f"max against the CPU; launches {launches} on {card}", flush=True)
+  if launches != want:
+    fail(f"fused_attention launches {launches} != {want}")
+  if not worst <= 2.0**-6:
+    fail(f"fused_attention on the card differs from the CPU by {worst:.3e}")
+  return launches
+
+
+def phase_serve(build, card):
   """The main path: HTTP server, three requests, one 125-step call."""
   from small_vision_tpu_torch import convert
   from small_vision_tpu_torch.configs import ae_i1k
@@ -521,25 +860,21 @@ def phase_serve(build, ln, attn, card):
   if errors or any(c.is_alive() for c in clients):
     fail(f"requests did not complete: {errors}")
   sampler_s = stats["sampler_ms_last"] / 1e3
-  print(f"[serve] {len(sizes)} requests {sizes} in {stats['batches']} "
+  print(f"[serve] pallas: {len(sizes)} requests {sizes} in {stats['batches']} "
         f"sampler call(s): {wall:.3f} s wall, sampler call {sampler_s:.3f} s "
         f"= {BATCH / sampler_s:.2f} img/s at batch {BATCH} on {card}",
         flush=True)
   if stats["batches"] != 1:
     fail(f"requests coalesced into {stats['batches']} calls, not 1")
   for n, images in zip(sizes, results):
-    if images.shape != (n, 64, 64, 3) or images.dtype != np.uint8:
-      fail(f"bad images {images.shape} {images.dtype} for n={n}")
-    flat = images.reshape(n, -1)
-    if np.any(flat.max(axis=1) == flat.min(axis=1)):
-      fail("a constant image came back")
-  want = {ln.NAME: 2 * BLOCKS * SAMPLER_FORWARDS,
-          attn.NAME: BLOCKS * SAMPLER_FORWARDS}
-  print(f"[serve] kernel launches in the call: {launches}, model says "
-        f"{want} and no backward", flush=True)
-  if launches != want:  # K2 and K4 (the backwards) must not appear
+    _check_images(images, n)
+  want = _times(BLOCK_SAMPLE_LAUNCHES["pallas"], BLOCKS * SAMPLER_FORWARDS)
+  print(f"[serve] pallas: kernel launches in the call: {launches}, model "
+        f"says {want} and no other kernel", flush=True)
+  if launches != want:  # no backward and no fused kernel
     fail(f"launch counts {launches} != {want}")
-  return launches
+  return {"launches": launches, "img_per_s": BATCH / sampler_s,
+          "s": sampler_s}
 
 
 def main():
@@ -549,6 +884,7 @@ def main():
     return 1
   from small_vision_tpu_torch.ops import _build as build
   from small_vision_tpu_torch.ops import attention as attn
+  from small_vision_tpu_torch.ops import fused_block as fb
   from small_vision_tpu_torch.ops import layernorm as ln
 
   # f32 comparisons on the card stay in full f32.
@@ -561,17 +897,37 @@ def main():
 
   phase_build(build)
   kernels = [check_ln(ln, card), check_attention(attn, card),
-             check_ln_bwd(ln, card), check_attention_bwd(attn, card)]
-  phase_model(build, card)
-  train = phase_train(build, card)
-  launches = phase_serve(build, ln, attn, card)
+             check_ln_bwd(ln, card), check_attention_bwd(attn, card),
+             check_fused_mlp(fb, card), check_fused_mha(fb, card),
+             check_attention_unpacked(attn, card),
+             check_attention_unpacked_bwd(attn, card)]
+  for attn_impl in ATTN_IMPLS:
+    phase_model(build, card, attn_impl)
+  train = {a: phase_train(build, card, a) for a in ATTN_IMPLS}
+  serve = {"pallas": phase_serve(build, card),
+           "pallas_fused": phase_serve_fused(build, card)}
+  unpacked = phase_unpacked(build, attn, card)
   for k in kernels:
-    # The forwards: launches per sampler call; the backwards: launches in
-    # the training run (the sampler launches none).
-    k["launches"] = launches.get(k["name"]) or train["launches"][k["name"]]
-    k["launches_per_train_step"] = train["launches"][k["name"]] / TRAIN_STEPS
-  print(f"[train] {train['img_per_s']:.2f} img/s, {train['ms']:.2f} ms/step "
-        f"at batch {TRAIN_BATCH}; [serve] see above; on {card}", flush=True)
+    # Launches on the paths driven above, each counted from 0: the sampler
+    # call and the training run under "pallas", the same two under
+    # "pallas_fused", and `fused_attention` for the two kernels that no
+    # module of the model calls. `launches` is the largest of them: the
+    # count on the path that runs the kernel most.
+    name = k["name"]
+    k["launches_by_path"] = {
+        **{f"serve_{a}": serve[a]["launches"].get(name, 0)
+           for a in ATTN_IMPLS},
+        **{f"train_{a}_{TRAIN_STEPS}_steps": train[a]["launches"].get(name, 0)
+           for a in ATTN_IMPLS},
+        "fused_attention": unpacked.get(name, 0)}
+    k["launches"] = max(k["launches_by_path"].values())
+    if not k["launches"]:
+      fail(f"{name} was launched on no path")
+  for a in ATTN_IMPLS:
+    print(f"[result] {a}: training {train[a]['img_per_s']:.2f} img/s, "
+          f"{train[a]['ms']:.2f} ms/step at batch {TRAIN_BATCH}; sampler "
+          f"{serve[a]['img_per_s']:.2f} img/s, {serve[a]['s']:.3f} s a call "
+          f"at batch {BATCH}; on {card}", flush=True)
 
   print(card, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)

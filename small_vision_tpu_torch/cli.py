@@ -6,6 +6,8 @@ comes with its slice):
   python -m small_vision_tpu_torch.cli \\
       --config ae_i1k.py:data=synthetic,batch_size=256,total_steps=20
 
+(`attn_impl=pallas_fused` in the config string trains with the fused MLP
+and MHA kernels.)
 Trains on the GPU unless `--device cpu` is given; there is no fallback to
 the CPU when no GPU is present.
 """

@@ -12,6 +12,7 @@ the repository).
   --config ae_i1k.py:use_labels=True          # class-conditional, CFG, EMA
   --config ae_i1k.py:batch_size=256,total_steps=20
   --config ae_i1k.py:runlocal                 # width 64, depth 2: CPU tests
+  --config ae_i1k.py:attn_impl=pallas_fused   # fused MLP and MHA kernels
 """
 
 from small_vision_tpu_torch.configs import common as cc
@@ -23,7 +24,7 @@ def get_config(arg=None) -> dict:
       samples_per_call=0, runlocal=False, batch_size=1024, mask_ratio=0.375,
       no_noise_prob=0.5, mask_ratio_no_noise=0.75, lr=15e-5, wd=5e-2,
       beta2=0.95, epochs=800, data="synthetic", total_steps=0, log_steps=0,
-      fused_branches=False)
+      fused_branches=False, attn_impl="pallas")
   if arg["data"] != "synthetic":
     raise ValueError(f"data={arg['data']!r}: the port has the synthetic "
                      "source only (ImageNet comes with the data slice)")
@@ -69,7 +70,7 @@ def get_config(arg=None) -> dict:
   model = dict(
       num_classes=config["num_classes"], variant=arg["variant"],
       adaln=arg["adaln"], channels=3, img_size=arg["size"],
-      dtype_mm="bfloat16")
+      dtype_mm="bfloat16", attn_impl=arg["attn_impl"])
   if arg["runlocal"]:
     model.update(width=64, depth=2, dec_depth=1, num_heads=4)
     config["input"]["batch_size"] = config["batch_size"] = 32

@@ -13,7 +13,9 @@ The draws the JAX module takes from its rng streams are arguments here:
 `mask_noise` ((B, L) uniforms for `random_masking`, the "mae_noise"
 stream) and `label_drop` ((B,) bool, the "cfg" stream, used with
 `train=True`). Dropout is 0 in every config and is not ported; a nonzero
-`dropout` raises.
+`dropout` raises. `attn_impl` ("pallas" or "pallas_fused") picks the
+blocks' kernel configuration (see `models.vit`); the parameters are the
+same under both.
 
 The patchify conv (VALID, stride = patch) is computed as a reshape and a
 matmul on the (p·p·C, D) view of its HWIO kernel: the same function, with
@@ -61,7 +63,7 @@ class _ViTAE(nn.Module):
                mlp_dim: Optional[int] = None, num_heads: int = 12,
                dtype_mm: str = "bfloat16", adaln: bool = False,
                num_cls: int = 4, dropout: float = 0.0,
-               cfg_dropout_rate: float = 0.1):
+               cfg_dropout_rate: float = 0.1, attn_impl: str = "pallas"):
     super().__init__()
     if dropout:
       raise ValueError(f"dropout {dropout}: the port has no dropout (it is "
@@ -91,7 +93,7 @@ class _ViTAE(nn.Module):
     self.dec_pos_embedding = nn.Parameter(torch.empty(1, num_patches, width))
     self.mask_token = nn.Parameter(torch.empty(1, 1, width))
     kw = dict(width=width, mlp_dim=mlp_dim, num_heads=num_heads, adaln=adaln,
-              dtype=dtype)
+              dtype=dtype, attn_impl=attn_impl)
     self.Encoder = Encoder(depth=depth, **kw)
     self.Decoder = Encoder(depth=dec_depth, **kw)
     if adaln:

@@ -1,12 +1,20 @@
 """ViT encoder blocks with AdaLN-zero or in-context conditioning.
 
-Counterpart of small_vision_tpu/models/vit.py for the path the sampler and
-the train step run (`attn_impl="pallas"`, `scan=False`, no remat, dropout
-0): `_FusedLN`, the unfused `MlpBlock`, the packed q/k/v/out projections,
-the packed `MultiHeadAttention`, `Block` and the unrolled `Encoder`. Module and
+Counterpart of small_vision_tpu/models/vit.py for the paths the sampler and
+the train step run (`scan=False`, no remat, dropout 0): `_FusedLN`,
+`MlpBlock`, the packed q/k/v/out projections, the packed
+`MultiHeadAttention`, `Block` and the unrolled `Encoder`. Module and
 parameter names follow the flax ones (`blocks_00/LayerNorm_0/scale`, ...).
 Activations stay packed (B, L, H*D); matmuls run in `dtype_mm` with f32
 parameters cast per call, as flax does.
+
+`attn_impl` picks one of the JAX package's two kernel configurations:
+  "pallas"        unfused Dense layers around the packed attention (K3, K4);
+  "pallas_fused"  the whole attention sub-block in `ops.fused_block.fused_mha`
+                  (K6) and the whole MLP in `fused_mlp` (K5).
+The parameter tree is the same under both, and `FusedLN` runs K1/K2 under
+both. The JAX package's other settings ("xla", "flax") are not ported and
+raise.
 """
 
 from typing import Optional
@@ -14,9 +22,20 @@ from typing import Optional
 import torch
 from torch import nn
 
-from small_vision_tpu_torch.models.common import Dense, LayerNorm, dense
+from small_vision_tpu_torch.models.common import (Dense, LayerNorm,
+                                                  compute_dtype, dense)
 from small_vision_tpu_torch.ops.attention import attention_packed
+from small_vision_tpu_torch.ops.fused_block import fused_mha, fused_mlp
 from small_vision_tpu_torch.ops.layernorm import ln_modulate
+
+ATTN_IMPLS = ("pallas", "pallas_fused")
+
+
+def check_attn_impl(attn_impl: str) -> str:
+  if attn_impl not in ATTN_IMPLS:
+    raise ValueError(f"attn_impl={attn_impl!r}: the port has "
+                     f"{' and '.join(map(repr, ATTN_IMPLS))} only")
+  return attn_impl
 
 
 class FusedLN(nn.Module):
@@ -37,15 +56,24 @@ class FusedLN(nn.Module):
 
 
 class MlpBlock(nn.Module):
-  """Dense → gelu (tanh approximation, flax's default) → Dense."""
+  """Dense → gelu (tanh approximation, flax's default) → Dense; under
+  `attn_impl="pallas_fused"` as one `fused_mlp` on the same parameters."""
 
-  def __init__(self, width: int, mlp_dim: Optional[int], dtype):
+  def __init__(self, width: int, mlp_dim: Optional[int], dtype,
+               attn_impl: str = "pallas"):
     super().__init__()
     hidden = mlp_dim or 4 * width
+    self.dtype = dtype
+    self.fused = check_attn_impl(attn_impl) == "pallas_fused"
     self.Dense_0 = Dense(width, hidden, dtype)
     self.Dense_1 = Dense(hidden, width, dtype)
 
   def forward(self, x):
+    if self.fused:
+      dt = compute_dtype(x, self.dtype)
+      return fused_mlp(x.to(dt), *(p.to(dt) for p in (
+          self.Dense_0.kernel, self.Dense_0.bias,
+          self.Dense_1.kernel, self.Dense_1.bias)))
     h = nn.functional.gelu(self.Dense_0(x), approximate="tanh")
     return self.Dense_1(h)
 
@@ -59,6 +87,12 @@ class PackedProj(nn.Module):
     self.dtype = dtype
     self.kernel = nn.Parameter(torch.empty(width, num_heads, head_dim))
     self.bias = nn.Parameter(torch.empty(num_heads, head_dim))
+
+  def params_2d(self, dtype):
+    """The (d, H*hd) kernel and (H*hd,) bias in `dtype`, for a fused
+    kernel."""
+    return (self.kernel.reshape(self.kernel.shape[0], -1).to(dtype),
+            self.bias.reshape(-1).to(dtype))
 
   def forward(self, x):
     d_in = self.kernel.shape[0]
@@ -75,6 +109,11 @@ class PackedOutProj(nn.Module):
     self.kernel = nn.Parameter(torch.empty(num_heads, head_dim, width))
     self.bias = nn.Parameter(torch.empty(width))
 
+  def params_2d(self, dtype):
+    """The (H*hd, d) kernel and (d,) bias in `dtype`, for a fused kernel."""
+    return (self.kernel.reshape(-1, self.kernel.shape[-1]).to(dtype),
+            self.bias.to(dtype))
+
   def forward(self, o):
     return dense(o, self.kernel.reshape(-1, self.kernel.shape[-1]),
                  self.bias, self.dtype)
@@ -82,20 +121,29 @@ class PackedOutProj(nn.Module):
 
 class MultiHeadAttention(nn.Module):
   """Self-attention through `ops.attention.attention_packed` (K3, and K4
-  for the gradient)."""
+  for the gradient); under `attn_impl="pallas_fused"` the projections and
+  the attention as one `fused_mha` (K6) on the same parameters."""
 
-  def __init__(self, width: int, num_heads: int, dtype):
+  def __init__(self, width: int, num_heads: int, dtype,
+               attn_impl: str = "pallas"):
     super().__init__()
     if width % num_heads:
       raise ValueError(f"width {width} not divisible by {num_heads} heads")
     head_dim = width // num_heads
     self.num_heads = num_heads
+    self.dtype = dtype
+    self.fused = check_attn_impl(attn_impl) == "pallas_fused"
     self.query = PackedProj(width, num_heads, head_dim, dtype)
     self.key = PackedProj(width, num_heads, head_dim, dtype)
     self.value = PackedProj(width, num_heads, head_dim, dtype)
     self.out = PackedOutProj(num_heads, head_dim, width, dtype)
 
   def forward(self, x):
+    if self.fused:
+      dt = compute_dtype(x, self.dtype)
+      return fused_mha(x.to(dt), *self.query.params_2d(dt),
+                       *self.key.params_2d(dt), *self.value.params_2d(dt),
+                       *self.out.params_2d(dt), self.num_heads)
     o = attention_packed(self.query(x), self.key(x), self.value(x),
                          self.num_heads)
     return self.out(o)
@@ -111,16 +159,17 @@ class Block(nn.Module):
   """
 
   def __init__(self, width: int, mlp_dim: Optional[int], num_heads: int,
-               adaln: bool, dtype):
+               adaln: bool, dtype, attn_impl: str = "pallas"):
     super().__init__()
     self.adaln = adaln
     self.dtype = dtype
     if adaln:
       self.Dense_0 = Dense(width, 6 * width, dtype)
     self.LayerNorm_0 = FusedLN(width)
-    self.MultiHeadAttention_0 = MultiHeadAttention(width, num_heads, dtype)
+    self.MultiHeadAttention_0 = MultiHeadAttention(width, num_heads, dtype,
+                                                   attn_impl)
     self.LayerNorm_1 = FusedLN(width)
-    self.MlpBlock_0 = MlpBlock(width, mlp_dim, dtype)
+    self.MlpBlock_0 = MlpBlock(width, mlp_dim, dtype, attn_impl)
 
   def forward(self, x, cond=None):
     use_adaln = cond is not None and self.adaln
@@ -153,12 +202,14 @@ class Encoder(nn.Module):
   (`encoder_norm`), whose output is f32."""
 
   def __init__(self, depth: int, width: int, mlp_dim: Optional[int],
-               num_heads: int, adaln: bool, dtype):
+               num_heads: int, adaln: bool, dtype,
+               attn_impl: str = "pallas"):
     super().__init__()
     self.depth = depth
     for i in range(depth):
-      self.add_module(f"blocks_{i:02d}",
-                      Block(width, mlp_dim, num_heads, adaln, dtype))
+      self.add_module(
+          f"blocks_{i:02d}",
+          Block(width, mlp_dim, num_heads, adaln, dtype, attn_impl))
     self.encoder_norm = LayerNorm(width)
 
   def forward(self, x, cond=None):

@@ -1,10 +1,13 @@
 """Builds the CUDA kernels under `csrc/` with nvcc and loads them by ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface and becomes its own shared
-library `_build/<name>-<hash>.so`; the hash covers the source and the flags,
-so an edited source is rebuilt and a built one is reused. The first call
-starts one nvcc per source, all at once, and waits for them. Nothing is
-built or loaded at import time, so CPU-only machines import every module.
+library `_build/<name>-<hash>.so`; the hash covers the source, every shared
+header `csrc/*.cuh` and the flags, so an edited source or header is rebuilt
+and a built one is reused. The first call starts one nvcc per source, all at
+once, and waits for them; what nvcc and ptxas said (registers, spills and
+shared memory of each kernel) is kept beside each library as
+`_build/<name>-<hash>.log`. Nothing is built or loaded at import time, so
+CPU-only machines import every module.
 
 Launch counters live here too: each kernel wrapper adds one to its name's
 count where it launches, so a run can show that it went through the kernels.
@@ -22,7 +25,7 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches by kernel name; `reset_launches()` zeroes them.
 LAUNCHES = collections.Counter()
@@ -45,7 +48,10 @@ def _nvcc() -> str:
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
-  h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+  h = hashlib.sha256(src.read_bytes())
+  for header in sorted(CSRC.glob("*.cuh")):
+    h.update(header.name.encode() + header.read_bytes())
+  h.update(" ".join(NVCC_FLAGS).encode())
   return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -62,7 +68,7 @@ def build_all() -> dict:
   procs = []
   for src, out in todo.items():
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
     procs.append((src, out, tmp, subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
   errors = []
@@ -71,6 +77,7 @@ def build_all() -> dict:
     if proc.returncode != 0:
       errors.append(f"nvcc failed on {src.name}:\n{log}")
       continue
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
   if errors:
     raise RuntimeError("\n".join(errors))

@@ -1,5 +1,6 @@
-"""Bidirectional attention on packed (B, L, H*D) tensors, forward and
-backward.
+"""Bidirectional attention, forward and backward: on packed (B, L, H*D)
+tensors with the clamped exp2 softmax (what the model runs), and on
+[B, L, H, D] tensors with the max-shift softmax.
 
 Counterpart of small_vision_tpu/ops/attention.py::attention_packed and
 fused_attention_packed. The softmax is the TPU kernel's: exp2 of the
@@ -11,6 +12,16 @@ The forward is K3 (`csrc/attention_packed.cu`), the backward K4
 kernels for CUDA tensors, and raises for a CUDA tensor a kernel does not
 take. Without gradients (the sampler) it is K3 alone; with gradients it
 goes through `AttentionPacked`.
+
+`fused_attention` is the counterpart of the JAX package's older
+`fused_attention` / `pallas_attention` on [B, L, H, D]: scores times
+head_dim**-0.5, the row max subtracted, exp, the probabilities divided by
+their sum in f32 and rounded to the input dtype before the PV product. Its
+forward is K7 (`csrc/attention_unpacked.cu`), its backward K8
+(`csrc/attention_unpacked_bwd.cu`). A contiguous [B, L, H, D] tensor is
+the packed (B, L, H*D) one in memory, so the kernels read heads in place
+and the JAX wrapper's transposes and pads have no counterpart. No module
+of the model calls it; `ops.fused_block.fused_mha` shares its core.
 """
 
 import ctypes
@@ -23,6 +34,8 @@ from small_vision_tpu_torch.ops import _build
 
 NAME = "attention_packed_fwd"
 BWD_NAME = "attention_packed_bwd"
+UNPACKED_NAME = "attention_unpacked_fwd"
+UNPACKED_BWD_NAME = "attention_unpacked_bwd"
 HEAD_DIM = 64  # The only head dim the kernels take.
 CLAMP = 80.0   # Softmax stability clamp, in log2 units.
 
@@ -209,3 +222,163 @@ def attention_packed(q, k, v, num_heads):
   if q.device.type == "cpu":
     return attention_packed_plain(q, k, v, num_heads)
   return attention_packed_fwd(q, k, v, num_heads)
+
+
+# ---------------------------------------------------------------------------
+# [B, L, H, D] tensors, max-shift softmax (K7, K8).
+# ---------------------------------------------------------------------------
+
+
+def _heads_first(t):
+  """[B, L, H, D] → (B, H, L, D) in f32 (f64 for an f64 tensor)."""
+  return t.transpose(1, 2).to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _probs(q, k):
+  """softmax((q k^T) * D**-0.5) with the row max subtracted, (B, H, L, L)
+  f32, from heads-first q and k."""
+  scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / np.sqrt(q.shape[-1]))
+  e = torch.exp(scores - scores.amax(-1, keepdim=True))
+  return e / e.sum(-1, keepdim=True)
+
+
+def attention_plain(q, k, v):
+  """Plain PyTorch version of `_attn_kernel`'s math on [B, L, H, D]."""
+  p = _probs(_heads_first(q), _heads_first(k))
+  vs = _heads_first(v)
+  o = torch.matmul(p.to(q.dtype).to(vs.dtype), vs)
+  return o.to(q.dtype).transpose(1, 2)
+
+
+def attention_bwd_plain(q, k, v, do):
+  """Plain version of K8; mirrors `_attn_bwd_kernel` formula by formula,
+  with its rounding points (P rounded to the input dtype for dV only, dS
+  rounded before its products, the scale applied to the f32 dQ and dK).
+  Returns (dq, dk, dv), [B, L, H, D] in q's dtype."""
+  dt = q.dtype
+  scale = 1.0 / np.sqrt(q.shape[-1])
+  qs, ks, vs, dos = (_heads_first(t) for t in (q, k, v, do))
+  rounded = lambda t: t.to(dt).to(t.dtype)
+  p = _probs(qs, ks)
+  dv = torch.matmul(rounded(p).transpose(-1, -2), dos)
+  dp = torch.matmul(dos, vs.transpose(-1, -2))
+  ds = rounded(p * (dp - (dp * p).sum(-1, keepdim=True)))
+  dq = torch.matmul(ds, ks) * scale
+  dk = torch.matmul(ds.transpose(-1, -2), qs) * scale
+  return tuple(t.to(dt).transpose(1, 2) for t in (dq, dk, dv))
+
+
+@functools.cache
+def _unpacked_lib():
+  lib = _build.library("attention_unpacked")
+  fn = lib.attention_unpacked_fwd
+  p, i = ctypes.c_void_p, ctypes.c_int
+  fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
+  fn.restype = i
+  lib.attention_unpacked_max_len.argtypes = []
+  lib.attention_unpacked_max_len.restype = i
+  return fn, lib.attention_unpacked_max_len()
+
+
+@functools.cache
+def _unpacked_bwd_lib():
+  lib = _build.library("attention_unpacked_bwd")
+  fn = lib.attention_unpacked_bwd
+  p, i = ctypes.c_void_p, ctypes.c_int
+  fn.argtypes = [p] * 10 + [i, i, i, ctypes.c_float, p]
+  fn.restype = i
+  lib.attention_unpacked_bwd_max_len.argtypes = []
+  lib.attention_unpacked_bwd_max_len.restype = i
+  return fn, lib.attention_unpacked_bwd_max_len()
+
+
+def _check_unpacked(name, **tensors):
+  """Checks the [B, L, H, 64] bf16 inputs of a kernel; returns B, L, H."""
+  first = next(iter(tensors.values()))
+  _require(first.is_cuda, f"{next(iter(tensors))} must be a CUDA tensor",
+           name)
+  _require(first.dim() == 4,
+           f"inputs must be [B, L, H, D], got {tuple(first.shape)}", name)
+  b, l, h, d = first.shape
+  _require(d == HEAD_DIM, f"head dim {d} != {HEAD_DIM}", name)
+  for n, t in tensors.items():
+    _require(t.device == first.device and t.dtype == torch.bfloat16
+             and t.shape == first.shape and t.is_contiguous()
+             and t.data_ptr() % 16 == 0,
+             f"{n} must be a contiguous, 16-byte aligned bfloat16 "
+             f"{tuple(first.shape)} on {first.device}", name)
+  return b, l, h
+
+
+def _scale_f32() -> float:
+  return float(np.float32(1.0 / np.sqrt(HEAD_DIM)))
+
+
+def attention_unpacked_fwd(q, k, v):
+  """Launches K7 on [B, L, H, 64] bf16 contiguous q, k, v."""
+  b, l, h = _check_unpacked(UNPACKED_NAME, q=q, k=k, v=v)
+  fn, max_len = _unpacked_lib()
+  _require(l <= max_len, f"sequence length {l} > {max_len}", UNPACKED_NAME)
+  o = torch.empty_like(q)
+  if q.numel() == 0:
+    return o
+  status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l,
+              h, _scale_f32(), torch.cuda.current_stream(q.device).cuda_stream)
+  _build.check(status, UNPACKED_NAME)
+  _build.LAUNCHES[UNPACKED_NAME] += 1
+  return o
+
+
+def attention_unpacked_bwd(q, k, v, do):
+  """Launches K8 on [B, L, H, 64] bf16 contiguous q, k, v, do; returns
+  (dq, dk, dv). Each output element is summed by one thread in a fixed
+  order (no atomics), so two launches give the same bits."""
+  b, l, h = _check_unpacked(UNPACKED_BWD_NAME, q=q, k=k, v=v, do=do)
+  fn, max_len = _unpacked_bwd_lib()
+  _require(l <= max_len, f"sequence length {l} > {max_len}",
+           UNPACKED_BWD_NAME)
+  dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+  if q.numel() == 0:
+    return dq, dk, dv
+  # Row max, 1 / row sum and row sum of dP∘P of every query, (B, H, L) f32.
+  m, r, c = (torch.empty(b, h, l, dtype=torch.float32, device=q.device)
+             for _ in range(3))
+  status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), m.data_ptr(),
+              r.data_ptr(), c.data_ptr(), b, l, h, _scale_f32(),
+              torch.cuda.current_stream(q.device).cuda_stream)
+  _build.check(status, UNPACKED_BWD_NAME)
+  _build.LAUNCHES[UNPACKED_BWD_NAME] += 1
+  return dq, dk, dv
+
+
+class FusedAttention(torch.autograd.Function):
+  """Differentiable [B, L, H, D] attention: K7 forward and K8 backward on
+  CUDA tensors, the plain versions on CPU tensors. Saves q, k, v, as the
+  JAX custom VJP does; the backward recomputes the probabilities."""
+
+  @staticmethod
+  def forward(ctx, q, k, v):
+    ctx.save_for_backward(q, k, v)
+    if q.device.type == "cpu":
+      return attention_plain(q, k, v)
+    return attention_unpacked_fwd(q, k, v)
+
+  @staticmethod
+  def backward(ctx, do):
+    q, k, v = ctx.saved_tensors
+    do = do.contiguous()
+    bwd = (attention_bwd_plain if q.device.type == "cpu"
+           else attention_unpacked_bwd)
+    return bwd(q, k, v, do)
+
+
+def fused_attention(q, k, v):
+  """Attention on [B, L, H, D] with the max-shift softmax: the plain
+  versions on CPU tensors, K7 and K8 on CUDA tensors; differentiable
+  through `FusedAttention` when a gradient is wanted."""
+  if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    return FusedAttention.apply(q, k, v)
+  if q.device.type == "cpu":
+    return attention_plain(q, k, v)
+  return attention_unpacked_fwd(q, k, v)

@@ -1,0 +1,249 @@
+"""Module-granular fused kernels: the MLP and multi-head attention with its
+projections, on packed (B, L, D) tensors.
+
+Counterpart of small_vision_tpu/ops/fused_block.py, which the model runs
+under `attn_impl="pallas_fused"`:
+
+  fused_mlp:  y = bf16(f32(bf16(gelu_tanh(f32(x W1) + b1)) W2) + b2)
+              K5 (`csrc/fused_mlp.cu`): the (B, L, hidden) activations
+              never reach device memory.
+  fused_mha:  q, k, v = bf16(f32(x W) + b); per head the max-shift softmax
+              attention of `ops.attention.attention_plain`; then
+              o = bf16(f32(attn Wo) + bo)
+              K6 (`csrc/fused_mha.cu`): q, k, v, the scores and the
+              probabilities never reach device memory.
+
+Sums are f32 and each result is rounded once, where the unfused modules
+round the product and the bias add separately. `fused_mlp` and `fused_mha`
+run the plain versions for tensors on the CPU and the kernels for CUDA
+tensors, and raise for a CUDA tensor a kernel does not take.
+
+Neither backward is a kernel, as in the JAX package: `FusedMLP` and
+`FusedMHA` save their inputs and differentiate a reference composition
+recomputed in the backward. The MLP's is the unfused Dense, gelu, Dense.
+The attention's is three dense projections, `attention_packed` (so K3
+recomputes the forward and K4 runs the backward: the clamped exp2 softmax,
+not the max-shift one the forward used) and the out-projection. The
+matmuls of these references lie outside any kernel and go to
+`torch.matmul`.
+"""
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from small_vision_tpu_torch.ops import _build
+from small_vision_tpu_torch.ops import attention as attn_lib
+
+MLP_NAME = "fused_mlp_fwd"
+MHA_NAME = "fused_mha_fwd"
+
+
+def _f32(t):
+  return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def fused_mlp_plain(x, w1, b1, w2, b2):
+  """Plain PyTorch version of `_mlp_kernel`'s math."""
+  h = torch.matmul(_f32(x), _f32(w1)) + _f32(b1)
+  h = torch.nn.functional.gelu(h, approximate="tanh").to(x.dtype)
+  return (torch.matmul(_f32(h), _f32(w2)) + _f32(b2)).to(x.dtype)
+
+
+def fused_mha_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """Plain PyTorch version of `_mha_kernel`'s math."""
+  b, l, hd = x.shape
+  xf = _f32(x)
+  proj = lambda w, bias: (torch.matmul(xf, _f32(w)) + _f32(bias)).to(
+      x.dtype).reshape(b, l, num_heads, hd // num_heads)
+  a = attn_lib.attention_plain(proj(wq, bq), proj(wk, bk), proj(wv, bv))
+  a = a.reshape(b, l, hd)
+  return (torch.matmul(_f32(a), _f32(wo)) + _f32(bo)).to(x.dtype)
+
+
+def mlp_reference(x, w1, b1, w2, b2):
+  """`_mlp_reference`: the unfused module, whose gradient `FusedMLP`
+  takes. The first product is rounded before the bias add."""
+  h = (torch.matmul(x, w1) + b1).to(torch.promote_types(x.dtype,
+                                                        torch.float32))
+  h = torch.nn.functional.gelu(h, approximate="tanh").to(x.dtype)
+  return torch.matmul(h, w2) + b2
+
+
+def mha_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """`_mha_reference` through the packed attention, whose gradient
+  `FusedMHA` takes."""
+  q = torch.matmul(x, wq) + bq
+  k = torch.matmul(x, wk) + bk
+  v = torch.matmul(x, wv) + bv
+  o = attn_lib.attention_packed(q, k, v, num_heads)
+  return torch.matmul(o, wo) + bo
+
+
+def _require(cond, msg, name):
+  if not cond:
+    raise ValueError(f"{name}: {msg}")
+
+
+def _check_bf16(name, device, **tensors):
+  for n, (t, shape) in tensors.items():
+    _require(t.device == device and t.dtype == torch.bfloat16
+             and tuple(t.shape) == shape and t.is_contiguous()
+             and t.data_ptr() % 16 == 0,
+             f"{n} must be a contiguous, 16-byte aligned bfloat16 {shape} "
+             f"on {device}, got {t.dtype} {tuple(t.shape)}", name)
+
+
+@functools.cache
+def _mlp_lib():
+  lib = _build.library("fused_mlp")
+  fn = lib.fused_mlp_fwd
+  p, i = ctypes.c_void_p, ctypes.c_int
+  fn.argtypes = [p, p, p, p, p, p, i, i, p]
+  fn.restype = i
+  for f in (lib.fused_mlp_width, lib.fused_mlp_hidden_multiple):
+    f.argtypes, f.restype = [], i
+  return fn, lib.fused_mlp_width(), lib.fused_mlp_hidden_multiple()
+
+
+@functools.cache
+def _mha_lib():
+  lib = _build.library("fused_mha")
+  fn = lib.fused_mha_fwd
+  p, i = ctypes.c_void_p, ctypes.c_int
+  fn.argtypes = [p] * 11 + [i, i, i, ctypes.c_float, p]
+  fn.restype = i
+  lib.fused_mha_max_len.argtypes = []
+  lib.fused_mha_max_len.restype = i
+  return fn, lib.fused_mha_max_len()
+
+
+def fused_mlp_fwd(x, w1, b1, w2, b2):
+  """Launches K5 on bf16 contiguous x (..., 768), w1 (768, hidden), b1
+  (hidden,), w2 (hidden, 768), b2 (768,)."""
+  _require(x.is_cuda, "x must be a CUDA tensor", MLP_NAME)
+  fn, width, multiple = _mlp_lib()
+  d, hidden = x.shape[-1], w1.shape[-1]
+  _require(d == width, f"width {d} != {width}, the width the kernel is "
+           "built for", MLP_NAME)
+  _require(hidden > 0 and hidden % multiple == 0,
+           f"hidden width {hidden} is not a multiple of {multiple}", MLP_NAME)
+  _check_bf16(MLP_NAME, x.device, x=(x, tuple(x.shape)), w1=(w1, (d, hidden)),
+              b1=(b1, (hidden,)), w2=(w2, (hidden, d)), b2=(b2, (d,)))
+  y = torch.empty_like(x)
+  if x.numel() == 0:
+    return y
+  status = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+              b2.data_ptr(), y.data_ptr(), x.numel() // d, hidden,
+              torch.cuda.current_stream(x.device).cuda_stream)
+  _build.check(status, MLP_NAME)
+  _build.LAUNCHES[MLP_NAME] += 1
+  return y
+
+
+def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """Launches K6 on bf16 contiguous x (B, L, H*64), four (H*64, H*64)
+  weights and four (H*64,) biases. Sums run in a fixed order (no atomics),
+  so two launches give the same bits."""
+  _require(x.is_cuda, "x must be a CUDA tensor", MHA_NAME)
+  _require(x.dim() == 3, f"x must be (B, L, H*D), got {tuple(x.shape)}",
+           MHA_NAME)
+  b, l, hd = x.shape
+  _require(hd == num_heads * attn_lib.HEAD_DIM,
+           f"width {hd} != num_heads {num_heads} * head dim "
+           f"{attn_lib.HEAD_DIM}", MHA_NAME)
+  fn, max_len = _mha_lib()
+  _require(l <= max_len, f"sequence length {l} > {max_len}", MHA_NAME)
+  mats = {n: (t, (hd, hd)) for n, t in
+          (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo))}
+  vecs = {n: (t, (hd,)) for n, t in
+          (("bq", bq), ("bk", bk), ("bv", bv), ("bo", bo))}
+  _check_bf16(MHA_NAME, x.device, x=(x, (b, l, hd)), **mats, **vecs)
+  o = torch.empty_like(x)
+  if x.numel() == 0:
+    return o
+  heads_out = torch.empty_like(x)  # the head outputs, between the kernels
+  status = fn(*(t.data_ptr() for t in (x, wq, bq, wk, bk, wv, bv, wo, bo,
+                                       heads_out, o)),
+              b, l, num_heads,
+              float(np.float32(1.0 / np.sqrt(attn_lib.HEAD_DIM))),
+              torch.cuda.current_stream(x.device).cuda_stream)
+  _build.check(status, MHA_NAME)
+  _build.LAUNCHES[MHA_NAME] += 1
+  return o
+
+
+def _reference_grads(ctx, reference, g, *static):
+  """Gradients of `reference(*saved, *static)` for the saved inputs that
+  need one, recomputed with gradients enabled."""
+  needs = ctx.needs_input_grad[:len(ctx.saved_tensors)]
+  with torch.enable_grad():
+    args = [t.detach().requires_grad_(n)
+            for t, n in zip(ctx.saved_tensors, needs)]
+    out = reference(*args, *static)
+    grads = iter(torch.autograd.grad(
+        out, [a for a, n in zip(args, needs) if n], g))
+  return tuple(next(grads) if n else None for n in needs)
+
+
+class FusedMLP(torch.autograd.Function):
+  """Differentiable `fused_mlp`: K5 (the plain version on CPU tensors)
+  forward; the backward is the gradient of `mlp_reference`."""
+
+  @staticmethod
+  def forward(ctx, x, w1, b1, w2, b2):
+    ctx.save_for_backward(x, w1, b1, w2, b2)
+    if x.device.type == "cpu":
+      return fused_mlp_plain(x, w1, b1, w2, b2)
+    return fused_mlp_fwd(x, w1, b1, w2, b2)
+
+  @staticmethod
+  def backward(ctx, g):
+    return _reference_grads(ctx, mlp_reference, g)
+
+
+class FusedMHA(torch.autograd.Function):
+  """Differentiable `fused_mha`: K6 (the plain version on CPU tensors)
+  forward; the backward is the gradient of `mha_reference`, which runs the
+  packed attention's forward (K3) and backward (K4)."""
+
+  @staticmethod
+  def forward(ctx, x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+    ctx.num_heads = num_heads
+    ctx.save_for_backward(x, wq, bq, wk, bk, wv, bv, wo, bo)
+    if x.device.type == "cpu":
+      return fused_mha_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
+    return fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
+
+  @staticmethod
+  def backward(ctx, g):
+    return (*_reference_grads(ctx, mha_reference, g, ctx.num_heads), None)
+
+
+def _wants_grad(tensors):
+  return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def fused_mlp(x, w1, b1, w2, b2):
+  """Dense, tanh-gelu, Dense on (..., D): the plain version on CPU tensors,
+  K5 on CUDA tensors; differentiable through `FusedMLP`."""
+  args = (x, w1, b1, w2, b2)
+  if _wants_grad(args):
+    return FusedMLP.apply(*args)
+  if x.device.type == "cpu":
+    return fused_mlp_plain(*args)
+  return fused_mlp_fwd(*args)
+
+
+def fused_mha(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """Self-attention with its four projections on packed (B, L, H*D): the
+  plain version on CPU tensors, K6 on CUDA tensors; differentiable through
+  `FusedMHA`."""
+  args = (x, wq, bq, wk, bk, wv, bv, wo, bo)
+  if _wants_grad(args):
+    return FusedMHA.apply(*args, num_heads)
+  if x.device.type == "cpu":
+    return fused_mha_plain(*args, num_heads)
+  return fused_mha_fwd(*args, num_heads)

@@ -1,6 +1,7 @@
 """Where the time of one sampler call goes on the GPU.
 
   python -m small_vision_tpu_torch.tools.profile_sampler [--batch 64]
+      [--config ae_i1k.py:attn_impl=pallas_fused]
 
 Builds the UMD-B/4@64 `uncond_eps` sampler from weights drawn with seed 0
 (as chip_smoke.py does), makes one warm-up call, then traces one call with
@@ -8,7 +9,8 @@ torch.profiler and prints, with the card's name and power limit:
   - the wall time and img/s of one call without the profiler;
   - the device-busy time of the traced call (the union of kernel
     intervals), and its share of the untraced call's wall time;
-  - device time by class: the port's two kernels, matmuls, the rest;
+  - device time by class: the port's forward kernels (K1, K3, or K1, K5,
+    K6 under attn_impl=pallas_fused), matmuls, the rest;
   - the ten kernels that take the most device time.
 The trace is parsed from the profiler's Chrome-trace export, written to a
 temporary file and deleted.
@@ -28,6 +30,8 @@ import torch
 CLASSES = (
     ("ln_modulate_fwd", re.compile(r"ln_modulate_fwd_kernel")),
     ("attention_packed_fwd", re.compile(r"attention_packed_fwd_kernel")),
+    ("fused_mlp_fwd", re.compile(r"fused_mlp_kernel")),
+    ("fused_mha_fwd", re.compile(r"fused_mha_heads|fused_mha_out_proj")),
     ("matmul", re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)),
 )
 
@@ -121,7 +125,8 @@ def main(argv=None):
   busy = busy_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e6
   kernel_s = sum(by_class.values()) / 1e6
   summary = {
-      "card": card, "batch": args.batch, "wall_s": plain_wall_s,
+      "card": card, "config": args.config, "batch": args.batch,
+      "wall_s": plain_wall_s,
       "img_per_s": args.batch / plain_wall_s, "profiled_wall_s": wall_s,
       "kernels": len(events), "device_busy_s": busy,
       "device_busy_share": busy / plain_wall_s,
@@ -131,7 +136,8 @@ def main(argv=None):
       "top": [{"name": n[:120], "s": t / 1e6}
               for n, t in by_name.most_common(10)],
   }
-  print(f"[profile] {card}: one sampler call at batch {args.batch}: "
+  print(f"[profile] {card}: {args.config}: one sampler call at batch "
+        f"{args.batch}: "
         f"{plain_wall_s:.3f} s wall ({args.batch / plain_wall_s:.2f} img/s; "
         f"{wall_s:.3f} s under the profiler), {len(events)} kernels, device "
         f"busy {busy:.3f} s ({busy / plain_wall_s:.1%} of the unprofiled "

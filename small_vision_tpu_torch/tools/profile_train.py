@@ -1,6 +1,7 @@
 """Where the time of one training step goes on the GPU.
 
   python -m small_vision_tpu_torch.tools.profile_train [--batch 256]
+      [--config ae_i1k.py:attn_impl=pallas_fused]
 
 Sets up the UMD-B/4@64 training run as `train_and_evaluate` does
 (synthetic data, `init_train_params` weights, AdamW, device pp), takes two
@@ -9,7 +10,7 @@ step with torch.profiler and prints, with the card's name and power limit:
   - the mean wall time of a step and img/s without the profiler;
   - the device-busy time of the traced step (the union of kernel
     intervals), and its share of the untraced step's wall time;
-  - device time by class: matmuls, the port's kernels K1-K4, the
+  - device time by class: matmuls, the port's kernels K1-K6, the
     optimizer (every kernel launched inside the step's "optimizer" range:
     the clip, AdamW and EMA), and the other elementwise kernels;
   - the ten kernels that take the most device time.
@@ -32,6 +33,8 @@ CLASSES = (
     ("K2 ln_modulate_bwd", re.compile(r"ln_bwd_rows|ln_bwd_finish")),
     ("K3 attention_packed_fwd", re.compile(r"attention_packed_fwd_kernel")),
     ("K4 attention_packed_bwd", re.compile(r"attn_bwd_dq|attn_bwd_dkdv")),
+    ("K5 fused_mlp_fwd", re.compile(r"fused_mlp_kernel")),
+    ("K6 fused_mha_fwd", re.compile(r"fused_mha_heads|fused_mha_out_proj")),
     ("matmul", re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)),
 )
 
@@ -63,7 +66,8 @@ def main(argv=None):
   parser = argparse.ArgumentParser()
   parser.add_argument("--batch", type=int, default=256)
   parser.add_argument("--steps", type=int, default=5)
-  parser.add_argument("--config", default="ae_i1k.py:variant=B/4,size=64")
+  parser.add_argument("--config", default="ae_i1k.py:variant=B/4,size=64",
+                      help="add attn_impl=pallas_fused for the fused kernels")
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
     raise SystemExit("profile_train: needs a CUDA device")
@@ -115,7 +119,8 @@ def main(argv=None):
   busy = busy_us((e["ts"], e["ts"] + e["dur"]) for e in kernels) / 1e6
   kernel_s = sum(by_class.values()) / 1e6
   summary = {
-      "card": card, "batch": args.batch, "step_s": step_s,
+      "card": card, "config": args.config, "batch": args.batch,
+      "step_s": step_s,
       "img_per_s": args.batch / step_s, "profiled_wall_s": wall_s,
       "kernels": len(kernels), "device_busy_s": busy,
       "device_busy_share": busy / step_s,
@@ -125,7 +130,8 @@ def main(argv=None):
       "top": [{"name": n[:120], "s": t / 1e6}
               for n, t in by_name.most_common(10)],
   }
-  print(f"[profile] {card}: one training step at batch {args.batch}: "
+  print(f"[profile] {card}: {args.config}: one training step at batch "
+        f"{args.batch}: "
         f"{step_s * 1e3:.2f} ms wall ({args.batch / step_s:.2f} img/s; "
         f"{wall_s * 1e3:.2f} ms under the profiler), {len(kernels)} kernels, "
         f"device busy {busy * 1e3:.2f} ms ({busy / step_s:.1%} of the "

@@ -18,6 +18,8 @@ Run with the EMA weights as a flat .npz (the JAX package's
   python -m small_vision_tpu_torch.tools.serve \\
       --config ae_i1k.py:variant=B/4 --weights ema.npz \\
       --fn uncond_eps --batch_size 64 --port 8777
+(`--config ae_i1k.py:variant=B/4,attn_impl=pallas_fused` serves with the
+fused MLP and MHA kernels; the weights are the same.)
 """
 
 import argparse

@@ -10,7 +10,9 @@ marked `cuda` skip where there is no CUDA device: K1 and K3 (the forwards)
 and K2 and K4 (the backwards) against their plain versions at the
 training and sampler lengths, two launches of each backward giving the
 same bits, the wrappers refusing what the kernels do not take, and the
-sampler's no-grad path writing no statistics and launching no backward.
+sampler's no-grad path writing no statistics and launching no backward;
+then the fused MLP (K5), the fused MHA (K6) and the [B, L, H, D] attention
+with the max-shift softmax (K7, K8) in the same way.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -21,6 +23,7 @@ import torch
 
 from small_vision_tpu_torch.ops import _build
 from small_vision_tpu_torch.ops import attention as attn
+from small_vision_tpu_torch.ops import fused_block as fb
 from small_vision_tpu_torch.ops import layernorm as ln
 
 
@@ -302,3 +305,210 @@ def test_no_grad_path_writes_no_stats_and_launches_no_backward(cuda):
         y.numel() * y.element_size() + 512
     attn.attention_packed(q, q, q, 2)
   assert dict(_build.LAUNCHES) == {ln.NAME: 1, attn.NAME: 1}
+
+
+# ---------------------------------------------------------------------------
+# K5-K8: the fused MLP, the fused MHA and the [B, L, H, D] attention.
+# ---------------------------------------------------------------------------
+
+
+def _mlp_args(device, rows_shape, d=768, hidden=3072, seed=0):
+  x = _randn((*rows_shape, d), seed, device, torch.bfloat16)
+  w1 = _randn((d, hidden), seed + 1, device, torch.bfloat16, d**-0.5)
+  b1 = _randn((hidden,), seed + 2, device, torch.bfloat16, 0.1)
+  w2 = _randn((hidden, d), seed + 3, device, torch.bfloat16, hidden**-0.5)
+  b2 = _randn((d,), seed + 4, device, torch.bfloat16, 0.1)
+  return x, w1, b1, w2, b2
+
+
+def _mha_args(device, b, l, heads, seed=0):
+  d = heads * 64
+  args = [_randn((b, l, d), seed, device, torch.bfloat16)]
+  for i in range(4):
+    args += [_randn((d, d), seed + 2 * i + 1, device, torch.bfloat16, d**-0.5),
+             _randn((d,), seed + 2 * i + 2, device, torch.bfloat16, 0.1)]
+  return args
+
+
+def _assert_close_to_max(got, want, ulps):
+  """Within `ulps` bf16 ulps of the largest value, an ulp taken as 2^-7 of
+  it (the spacing of bf16 values lies between 2^-8 and 2^-7 of their
+  magnitude)."""
+  got, want = got.float(), want.float()
+  err = (got - want).abs().max().item()
+  assert err <= ulps * 2.0**-7 * want.abs().max().item(), (err,
+                                                          want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_shape", [(3, 20), (8, 260), (1, 64), (130,)])
+def test_fused_mlp_kernel_matches_plain(cuda, rows_shape):
+  args = _mlp_args(cuda, rows_shape)
+  before = _build.LAUNCHES[fb.MLP_NAME]
+  got = fb.fused_mlp_fwd(*args)
+  assert _build.LAUNCHES[fb.MLP_NAME] == before + 1
+  assert got.shape == args[0].shape and got.dtype == torch.bfloat16
+  # bf16 hidden activations and outputs on both sides; the f32 sums over
+  # 768 and 3,072 terms run in another order, which may flip the rounding
+  # of a hidden value and moves an output by about an ulp: allow two.
+  _assert_close_to_max(got, fb.fused_mlp_plain(*args), 2)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_dispatch_and_refusals(cuda):
+  x, w1, b1, w2, b2 = _mlp_args(cuda, (2, 20))
+  _build.reset_launches()
+  fb.fused_mlp(x, w1, b1, w2, b2)
+  assert dict(_build.LAUNCHES) == {fb.MLP_NAME: 1}
+  with pytest.raises(ValueError, match="bfloat16"):
+    fb.fused_mlp_fwd(x.float(), w1, b1, w2, b2)
+  with pytest.raises(ValueError, match="width"):
+    fb.fused_mlp_fwd(x[..., :256].contiguous(), w1[:256].contiguous(), b1,
+                     w2[:, :256].contiguous(), b2[:256].contiguous())
+  with pytest.raises(ValueError, match="multiple"):
+    fb.fused_mlp_fwd(x, w1[:, :100].contiguous(), b1[:100].contiguous(),
+                     w2[:100].contiguous(), b2)
+  with pytest.raises(ValueError, match="contiguous"):
+    fb.fused_mlp_fwd(x.transpose(0, 1), w1, b1, w2, b2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,heads", [(3, 20, 12), (2, 37, 3), (4, 260, 12),
+                                       (4, 257, 12), (2, 272, 2)])
+def test_fused_mha_kernel_matches_plain(cuda, b, l, heads):
+  args = _mha_args(cuda, b, l, heads)
+  before = _build.LAUNCHES[fb.MHA_NAME]
+  got = fb.fused_mha_fwd(*args, heads)
+  assert _build.LAUNCHES[fb.MHA_NAME] == before + 1
+  # q, k, v, the probabilities, the head outputs and the output round to
+  # bf16 on both sides; sums in another order may flip an inner rounding:
+  # two bf16 ulps of the largest output.
+  _assert_close_to_max(got, fb.fused_mha_plain(*args, heads), 2)
+  assert torch.equal(got, fb.fused_mha_fwd(*args, heads))  # no atomics
+
+
+@pytest.mark.cuda
+def test_fused_mha_refuses_what_the_kernel_does_not_take(cuda):
+  args = _mha_args(cuda, 1, 8, 2)
+  with pytest.raises(ValueError, match="head dim"):
+    fb.fused_mha_fwd(*args, 4)
+  with pytest.raises(ValueError, match="bfloat16"):
+    fb.fused_mha_fwd(args[0].float(), *args[1:], 2)
+  long = _mha_args(cuda, 1, 1024, 1)
+  with pytest.raises(ValueError, match="sequence length"):
+    fb.fused_mha_fwd(*long, 1)
+
+
+@pytest.mark.cuda
+def test_fused_block_autograd_launches_the_kernels(cuda):
+  """Forward K5 / K6; the MHA's backward recomputes through the packed
+  attention (K3) and differentiates it (K4). CPU and card agree."""
+  margs = _mha_args(cuda, 2, 37, 2)
+  largs = _mlp_args(cuda, (2, 37))
+  grads = {}
+  for dev in ("cpu", "cuda"):
+    m = [t.to(dev).requires_grad_() for t in margs]
+    p = [t.to(dev).requires_grad_() for t in largs]
+    _build.reset_launches()
+    out = fb.fused_mha(*m, 2).float().sum() + fb.fused_mlp(*p).float().sum()
+    out.backward()
+    if dev == "cuda":
+      assert dict(_build.LAUNCHES) == {
+          fb.MHA_NAME: 1, fb.MLP_NAME: 1, attn.NAME: 1, attn.BWD_NAME: 1}
+    else:
+      assert not _build.LAUNCHES
+    grads[dev] = [t.grad.float().cpu() for t in m + p]
+  for c, g in zip(grads["cpu"], grads["cuda"]):
+    # bf16 gradients through bf16 activations, summed in another order.
+    err = (c - g).abs().max().item()
+    assert err <= 2.0**-5 * max(c.abs().max().item(), 1e-3), err
+
+
+def _qkv_do_4d(device, l, b=4, h=2, seed=0, scale=1.0):
+  return [_randn((b, l, h, 64), seed + i, device, torch.bfloat16,
+                 scale if i < 2 else 1.0) for i in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,h", [(20, 2), (37, 3), (257, 12), (260, 12)])
+def test_unpacked_attention_kernel_matches_plain(cuda, l, h):
+  q, k, v, _ = _qkv_do_4d(cuda, l, h=h)
+  before = _build.LAUNCHES[attn.UNPACKED_NAME]
+  got = attn.fused_attention(q, k, v)
+  assert _build.LAUNCHES[attn.UNPACKED_NAME] == before + 1
+  # Convex mixes of N(0,1) values rounded to bf16; a score sum in another
+  # order may flip the rounding of a probability: two ulps.
+  torch.testing.assert_close(got.float(),
+                             attn.attention_plain(q, k, v).float(),
+                             rtol=2**-7, atol=2**-7)
+
+
+@pytest.mark.cuda
+def test_unpacked_attention_kernel_takes_large_logits(cuda):
+  """The max shift: logits of several hundred neither overflow nor lose
+  the softmax."""
+  q, k, v, do = _qkv_do_4d(cuda, 37, scale=8.0)
+  got = attn.attention_unpacked_fwd(q, k, v)
+  assert torch.isfinite(got.float()).all()
+  torch.testing.assert_close(got.float(),
+                             attn.attention_plain(q, k, v).float(),
+                             rtol=2**-6, atol=2**-6)
+  for g, w in zip(attn.attention_unpacked_bwd(q, k, v, do),
+                  attn.attention_bwd_plain(q, k, v, do)):
+    assert torch.isfinite(g.float()).all()
+    assert (g.float() - w.float()).abs().max().item() <= \
+        2.0**-5 * w.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,h", [(20, 2), (37, 3), (68, 12), (164, 12),
+                                 (257, 12)])
+def test_unpacked_attention_bwd_kernel_matches_plain(cuda, l, h):
+  q, k, v, do = _qkv_do_4d(cuda, l, h=h)
+  before = _build.LAUNCHES[attn.UNPACKED_BWD_NAME]
+  got = attn.attention_unpacked_bwd(q, k, v, do)
+  assert _build.LAUNCHES[attn.UNPACKED_BWD_NAME] == before + 1
+  again = attn.attention_unpacked_bwd(q, k, v, do)
+  for g, a, w in zip(got, again, attn.attention_bwd_plain(q, k, v, do)):
+    assert torch.equal(g, a)  # fixed-order sums: equal bits
+    # bf16 outputs of f32 sums over L terms; another order may flip the
+    # bf16 rounding of a P or dS input of a product: a few bf16 ulps of
+    # the largest output.
+    err = (g.float() - w.float()).abs().max().item()
+    assert err <= 2.0**-6 * w.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_unpacked_attention_autograd_and_refusals(cuda):
+  q, k, v, do = _qkv_do_4d(cuda, 20)
+  q, k, v = (t.requires_grad_() for t in (q, k, v))
+  _build.reset_launches()
+  attn.fused_attention(q, k, v).backward(do)
+  assert dict(_build.LAUNCHES) == {attn.UNPACKED_NAME: 1,
+                                   attn.UNPACKED_BWD_NAME: 1}
+  bad = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="head dim"):
+    attn.attention_unpacked_fwd(bad, bad, bad)
+  long = torch.zeros(1, 4096, 1, 64, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="sequence length"):
+    attn.attention_unpacked_bwd(long, long, long, long)
+  q = q.detach()
+  with pytest.raises(ValueError, match="contiguous"):
+    attn.attention_unpacked_fwd(q, q, q.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_impl", ["pallas", "pallas_fused"])
+def test_block_on_the_card_matches_the_cpu(cuda, attn_impl):
+  from small_vision_tpu_torch.models import vit
+  block = vit.Block(768, None, 12, True, torch.bfloat16, attn_impl)
+  gen = torch.Generator().manual_seed(0)
+  for name, p in block.named_parameters():
+    std = 0.1 if name.endswith("bias") else p.shape[0] ** -0.5
+    p.data = torch.randn(p.shape, generator=gen) * std
+  block.requires_grad_(False)
+  x = _randn((2, 37, 768), 1, "cpu", torch.bfloat16)
+  cond = _randn((2, 768), 2, "cpu", torch.bfloat16)
+  want = block(x, cond).float()
+  got = block.to(cuda)(x.to(cuda), cond.to(cuda)).float().cpu()
+  assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()

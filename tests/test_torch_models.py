@@ -36,7 +36,10 @@ def small_config(adaln=True, labels=False, dtype="float32"):
 
 
 def jax_model(config):
-  return jae.Model(**config["model"], attn_impl="pallas_interpret",
+  # The port's "pallas" / "pallas_fused" are the JAX package's
+  # "*_interpret" settings on the CPU.
+  kw = dict(config["model"])
+  return jae.Model(**{**kw, "attn_impl": kw["attn_impl"] + "_interpret"},
                    scan=False)
 
 

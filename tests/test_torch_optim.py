@@ -163,7 +163,7 @@ def test_train_init_matches_the_jax_distributions():
   mean and spread (statistics of the leaves, not their bits)."""
   config = ae_i1k.get_config("runlocal,size=16,use_labels=True")
   config["model"].update(width=128, num_heads=2)
-  model = jae.Model(**config["model"], attn_impl="pallas_interpret",
+  model = jae.Model(**{**config["model"], "attn_impl": "pallas_interpret"},
                     scan=False)
   want = _flat(model.init(
       {"params": jax.random.PRNGKey(0), "mae_noise": jax.random.PRNGKey(1)},

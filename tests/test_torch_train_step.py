@@ -43,9 +43,11 @@ OPT = dict(peak_lr=0.05, wd=0.05, betas=(0.9, 0.95), clip_norm=1.0,
            total_steps=10, warmup_steps=1)
 
 
-def small_config(dtype="float32", labels=False, fused=False):
+def small_config(dtype="float32", labels=False, fused=False,
+                 attn_impl="pallas"):
   config = ae_i1k.get_config(
-      f"runlocal,size={SIZE},use_labels={labels},fused_branches={fused}")
+      f"runlocal,size={SIZE},use_labels={labels},fused_branches={fused},"
+      f"attn_impl={attn_impl}")
   config["model"].update(width=128, num_heads=2, dtype_mm=dtype)
   config["input"]["batch_size"] = B
   config["diffusion_space"] = (SIZE, SIZE, 3)
@@ -99,7 +101,8 @@ def captured(monkeypatch):
 
 
 def jax_side(config, params):
-  model = jae.Model(**config["model"], attn_impl="pallas_interpret",
+  kw = dict(config["model"])
+  model = jae.Model(**{**kw, "attn_impl": kw["attn_impl"] + "_interpret"},
                     scan=False)
   tx, _ = joptim.adamw_trainer_tx(
       peak_lr=OPT["peak_lr"], batch_size=B, total_steps=OPT["total_steps"],
@@ -212,9 +215,9 @@ def check_step1_grads(names, step1, rel):
     assert err <= rel * max(np.max(np.abs(g_want)), floor), (name, err)
 
 
-def check_three_steps_f32(cap, labels, fused):
+def check_three_steps_f32(cap, labels, fused, attn_impl="pallas"):
   """3 f32 steps of the port against the JAX step, with stated bounds."""
-  config = small_config(labels=labels, fused=fused)
+  config = small_config(labels=labels, fused=fused, attn_impl=attn_impl)
   names, jstate, tstate, history = run_both(config, cap, N_STEPS)
   lr = OPT["peak_lr"] * B / 256.0
 
