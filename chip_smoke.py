@@ -10,8 +10,9 @@ Phases, each fatal on failure:
                UMD-B/4@64 sampler at batch 64 (L = 260 and 257; K7 also at
                the shape of phase 6), the backwards K2, K4, K8 at the
                training shapes (per-branch batch 128, L = 68, 164, 257),
-               each launched twice to show equal bits, and the fused MLP
-               and MHA (K5, K6) at both.
+               each launched twice to show equal bits, the fused MLP
+               and MHA (K5, K6) at both, and the seven arms of the ablation
+               kernel (K9) at the tool's two shapes.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
@@ -34,6 +35,19 @@ Phases, each fatal on failure:
                point that no module of the model calls, forward and
                backward through autograd at the decoder's training shape:
                one K7 and one K8 launch, against the CPU.
+  7. ablate    the attention-ablation tool
+               (`tools/ablate_attention_kernel.py::main`) at its two shapes:
+               the seven arms of K9, 21 launches each, beside K3 and SDPA.
+  8. resume    full-width UMD-B/4@64 at batch 256 through
+               `train_and_evaluate` with a workdir: run A trains 6 steps
+               with a checkpoint every 3 and the `val` and `mae_val`
+               evaluators (2 batches each) at step 6; run B stops after
+               step 3's checkpoint and a fresh call on its workdir resumes
+               at step 4. The two step-6 states must be equal bit for bit,
+               the metrics file complete and finite, and a planted
+               half-written checkpoint directory ignored and removed. Also
+               times one `save` (the loop's blocking part and the
+               background write).
 Then it prints the card's name and power limit, one JSON line of the
 kernels, and as its last line {"ok": true, "device": {...}}. Without a CUDA
 device it exits non-zero and prints no result.
@@ -41,8 +55,11 @@ device it exits non-zero and prints no result.
 
 import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -586,6 +603,72 @@ def check_attention_unpacked_bwd(attn, card):
               max_abs_err=max_err, **by_len[TRAIN_SEQS[-1]], by_len=by_len)
 
 
+ABLATE_SHAPES = ((128, 257), (128, 164))  # the ablation tool's (B, L)
+# Tolerance of each arm of K9 in bf16 ulps of the largest output (an ulp
+# taken as 2^-7 of it). The softmax arms and nosoftmax round p to bf16 on
+# both sides from f32 scores summed in another order, which may flip a p
+# to its neighbour, and the output is bf16: two ulps. nomm has no sum whose
+# order could differ (e = exp(0) = 1, the row sum is L, one exact product):
+# half an ulp, one rounding. bf16exp rounds the shifted score to bf16
+# before exp, so a flipped rounding moves that e by up to 2^-8 |S - m|, a
+# few per cent for the far keys: four ulps.
+ABLATE_ULPS = {"prod": 2, "nosoftmax": 2, "nomm": 0.5, "bf16exp": 4,
+               "exp2": 2, "mulmask": 2, "nomax": 2}
+
+
+def check_attention_ablate(attn, card):
+  """K9, all seven arms at the tool's two shapes, against its plain version;
+  returns its kernels-line entry (times of `prod` at L = 257 on top, every
+  arm's under `by_shape`)."""
+  gen = torch.Generator(device="cuda").manual_seed(9)
+  head_dim = WIDTH // HEADS
+  max_err, by_shape = 0.0, {}
+  for b, seq in ABLATE_SHAPES:
+    q, k, v = (torch.randn(b, seq, WIDTH, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    split = lambda t: t.view(b, seq, HEADS, head_dim).transpose(1, 2)
+    bytes_moved = 4 * b * seq * WIDTH * 2
+    flops = 4 * b * HEADS * seq * seq * head_dim
+    bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
+    library_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            split(q), split(k), split(v)), iters=20)
+    arms = {}
+    for arm in attn.ABLATE_VARIANTS:
+      got = attn.attention_ablate_fwd(q, k, v, HEADS, arm)
+      want = attn.attention_ablate_plain(q, k, v, HEADS, arm)
+      torch.cuda.synchronize()
+      err, ok = _close_to_max(got, want, ABLATE_ULPS[arm])
+      max_err = max(max_err, err)
+      arms[arm] = dict(
+          ms=time_ms(lambda: attn.attention_ablate_fwd(q, k, v, HEADS, arm),
+                     iters=20),
+          plain_ms=time_ms(lambda: attn.attention_ablate_plain(
+              q, k, v, HEADS, arm), iters=3, warmup=1),
+          max_abs_err=err)
+      print(f"[kernels] attention_ablate {arm} B={b} L={seq}: max abs err "
+            f"{err:.3e} of max {want.float().abs().max().item():.3e} "
+            f"(tolerance {ABLATE_ULPS[arm]} bf16 ulps of the max); "
+            f"{_fmt(arms[arm])}", flush=True)
+      if not ok:
+        fail(f"attention_ablate {arm} L={seq} disagrees with its plain "
+             f"version ({err:.3e})")
+    by_shape[f"{b}x{seq}"] = dict(arms=arms, library_ms=library_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] attention_ablate B={b} L={seq} H={HEADS} D={head_dim}: "
+          f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bytes_moved} "
+          f"bytes, {flops} flops) on {card}", flush=True)
+  top = by_shape["128x257"]
+  return dict(name=attn.ABLATE_NAME, route="cuda",
+              source="small_vision_tpu_torch/csrc/attention_ablate.cu",
+              replaces="scripts/ablate_attention_kernel.py:46",
+              max_abs_err=max_err, ms=top["arms"]["prod"]["ms"],
+              plain_ms=top["arms"]["prod"]["plain_ms"],
+              library_ms=top["library_ms"], bound_ms=top["bound_ms"],
+              bound_by=top["bound_by"], by_shape=by_shape)
+
+
 def _train_step_grads(config, params, images, draws, dev):
   """(loss, [(flax name, f32 gradient on the CPU)]) of one training step's
   forward and backward on `dev`, from `params` with injected draws."""
@@ -689,7 +772,8 @@ def phase_train(build, card, attn_impl):
 
   config = ae_i1k.get_config(
       f"variant=B/4,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
-      f"total_steps={TRAIN_STEPS},log_steps=1,attn_impl={attn_impl}")
+      f"total_steps={TRAIN_STEPS},log_steps=1,eval_steps=-1,"
+      f"attn_impl={attn_impl}")
   build.reset_launches()
   train_state, history = train_ae.train_and_evaluate(
       config, device="cuda",
@@ -803,6 +887,174 @@ def phase_unpacked(build, attn, card):
   return launches
 
 
+def phase_ablate(build, attn, card):
+  """The ablation tool's `main` on the card: seven arms of K9 at two shapes,
+  a warm-up and 20 timed launches each, and K3 beside them."""
+  from small_vision_tpu_torch.tools import ablate_attention_kernel as tool
+
+  build.reset_launches()
+  results = tool.main([])
+  launches = dict(build.LAUNCHES)
+  per_timing = tool.N + 1
+  want = {attn.ABLATE_NAME: len(attn.ABLATE_VARIANTS) * len(tool.SHAPES)
+          * per_timing, attn.NAME: len(tool.SHAPES) * per_timing}
+  print(f"[ablate] kernel launches of the tool: {launches}, expected {want} "
+        f"on {card}", flush=True)
+  if launches != want:
+    fail(f"ablation tool launches {launches} != {want}")
+  if not all(np.isfinite(t) and t > 0 for t in results.values()):
+    fail(f"ablation tool times not positive and finite: {results}")
+  return launches
+
+
+def _stop_after_checkpoint(step):
+  """A `log` callback that ends a run when step `step + 1` reports, as a
+  crash would, once the checkpoint of step `step` has landed."""
+  from small_vision_tpu_torch.utils import checkpoint as ckpt_lib
+
+  class Stopped(Exception):
+    pass
+
+  def log(line):
+    if line.startswith(f"step {step + 1}/"):
+      for t in threading.enumerate():
+        if t.name == ckpt_lib.WRITER_THREAD:
+          t.join()
+      raise Stopped
+  return log, Stopped
+
+
+def phase_resume(build, card, no_ckpt_img_per_s):
+  """Checkpoint, evaluators and resume at full width; see the module's
+  docstring."""
+  from small_vision_tpu_torch.configs import ae_i1k
+  from small_vision_tpu_torch.train import train_ae
+  from small_vision_tpu_torch.utils import checkpoint as ckpt_lib
+  from small_vision_tpu_torch.utils.chrono import Chrono
+
+  steps, every = TRAIN_STEPS, 3
+
+  def make_config():
+    config = ae_i1k.get_config(
+        f"variant=B/4,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
+        f"total_steps={steps},log_steps=1,ckpt_steps={every},"
+        f"eval_steps={steps}")
+    for ev in config["evals"].values():
+      ev["num_batches"] = 2
+    return config
+
+  root = tempfile.mkdtemp(prefix="sv_resume_")
+  try:
+    dir_a, dir_b = os.path.join(root, "a"), os.path.join(root, "b")
+    # A save that never completed: a directory that was not renamed.
+    planted = os.path.join(dir_a, "checkpoints", "2.tmp")
+    os.makedirs(planted)
+    with open(os.path.join(planted, "params.npz"), "wb") as f:
+      f.write(b"half-written")
+
+    say = lambda tag: lambda s: print(f"[resume] {tag}: {s}", flush=True)
+    build.reset_launches()
+    state_a, hist_a = train_ae.train_and_evaluate(make_config(), dir_a,
+                                                  device="cuda", log=say("A"))
+    launches = dict(build.LAUNCHES)
+    # 6 training steps, and 2 evaluators x 2 batches of one forward without
+    # gradients each.
+    want = _times(BLOCK_TRAIN_LAUNCHES["pallas"], 2 * BLOCKS * steps)
+    for k, v in _times(BLOCK_SAMPLE_LAUNCHES["pallas"], BLOCKS * 4).items():
+      want[k] += v
+    if launches != want:
+      fail(f"run A launches {launches} != {want}")
+    left = sorted(os.listdir(os.path.join(dir_a, "checkpoints")))
+    if left != [str(steps)]:
+      fail(f"run A left checkpoints {left}, not the newest alone: the planted "
+           "directory was not removed, or the rolling one was kept")
+    # 1.7 GB each: keep the temporary directory small.
+    shutil.rmtree(os.path.join(dir_a, "checkpoints"))
+
+    stop_log, stopped = _stop_after_checkpoint(every)
+    try:
+      train_ae.train_and_evaluate(make_config(), dir_b, device="cuda",
+                                  log=stop_log)
+      fail("run B did not stop")
+    except stopped:
+      pass
+    torch.cuda.empty_cache()
+    notes = []
+
+    def log_b(line):
+      notes.append(line)
+      say("B")(line)
+    state_b, hist_b = train_ae.train_and_evaluate(make_config(), dir_b,
+                                                  device="cuda", log=log_b)
+    if not any(f"Resumed from step {every}" in n for n in notes):
+      fail(f"run B did not resume from step {every}: {notes[:4]}")
+    if [h["step"] for h in hist_b] != list(range(every + 1, steps + 1)):
+      fail(f"run B ran steps {[h['step'] for h in hist_b]}")
+    shutil.rmtree(dir_b)
+    for what, a, b in (("params", state_a["params"], state_b["params"]),
+                       ("mu", state_a["opt"]["mu"], state_b["opt"]["mu"]),
+                       ("nu", state_a["opt"]["nu"], state_b["opt"]["nu"])):
+      differing = sum(not torch.equal(x, y) for x, y in zip(a, b))
+      if differing:
+        fail(f"resume: {differing} of {len(a)} {what} tensors differ between "
+             "the straight and the resumed run")
+    print(f"[resume] step-{steps} parameters, mu and nu of the resumed run "
+          f"equal the straight run's bit for bit ({len(state_a['params'])} "
+          "tensors each)", flush=True)
+
+    rows = [json.loads(l) for l in
+            open(os.path.join(dir_a, "sv_tpu_metrics.txt"))]
+    merged = {}
+    for r in rows:
+      merged.update(r)
+    for key in ("training_loss", "z/img_per_sec", "val/loss",
+                "mae_val/masked_mse"):
+      values = [r[key] for r in rows if key in r]
+      if not values or not all(np.isfinite(values)):
+        fail(f"metrics file: {key} missing or not finite ({values})")
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
+      fail(f"metrics file rows {[r['step'] for r in rows]}")
+    print(f"[resume] metrics at step {steps}: training_loss "
+          f"{merged['training_loss']:.6f}, val/loss {merged['val/loss']:.6f}, "
+          f"mae_val/masked_mse {merged['mae_val/masked_mse']:.6f}, "
+          f"z/img_per_sec {merged['z/img_per_sec']:.2f}", flush=True)
+
+    # One save, timed: the loop's part and the writer's.
+    config = make_config()
+    names = [n for n, _ in train_ae.named_params(
+        train_ae.build_model(config, device="meta"))]
+    ckpt = train_ae.checkpoint_state(state_a, names, Chrono(device="cuda"))
+    n_bytes = sum(t.numel() * t.element_size() for entry in ckpt.values()
+                  for t in entry.values() if isinstance(t, torch.Tensor))
+    mngr = ckpt_lib.make_manager(os.path.join(root, "timing"))
+    timing = []
+    for i in (1, 2):  # the first save also pins its host buffers
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      ckpt_lib.save(mngr, ckpt, i)
+      torch.cuda.synchronize()
+      copied_s = time.perf_counter() - t0
+      ckpt_lib.wait_until_finished(mngr)
+      timing.append(dict(blocking_s=mngr.last_blocking_s, copied_s=copied_s,
+                         write_s=mngr.last_write_s))
+      print(f"[resume] save {i} of {n_bytes / 1e9:.3f} GB: the loop blocked "
+            f"{mngr.last_blocking_s * 1e3:.1f} ms, the host copies done "
+            f"after {copied_s * 1e3:.1f} ms, the background write "
+            f"{mngr.last_write_s:.3f} s on {card}", flush=True)
+    timed = hist_a[1:]
+    ms = sum(h["ms"] for h in timed) / len(timed)
+    print(f"[resume] run A, a checkpoint every {every} steps: "
+          f"{TRAIN_BATCH / ms * 1e3:.2f} img/s by the steps' own clock "
+          f"(the step after a save, {hist_a[every]['ms']:.2f} ms, waits for "
+          f"its copies), {merged['z/img_per_sec']:.2f} by Chrono at step "
+          f"{steps}; without checkpoints (phase train) "
+          f"{no_ckpt_img_per_s:.2f} img/s on {card}", flush=True)
+    return {"launches": launches, "save": timing,
+            "img_per_s": TRAIN_BATCH / ms * 1e3}
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_serve(build, card):
   """The main path: HTTP server, three requests, one 125-step call."""
   from small_vision_tpu_torch import convert
@@ -900,26 +1152,32 @@ def main():
              check_ln_bwd(ln, card), check_attention_bwd(attn, card),
              check_fused_mlp(fb, card), check_fused_mha(fb, card),
              check_attention_unpacked(attn, card),
-             check_attention_unpacked_bwd(attn, card)]
+             check_attention_unpacked_bwd(attn, card),
+             check_attention_ablate(attn, card)]
   for attn_impl in ATTN_IMPLS:
     phase_model(build, card, attn_impl)
   train = {a: phase_train(build, card, a) for a in ATTN_IMPLS}
   serve = {"pallas": phase_serve(build, card),
            "pallas_fused": phase_serve_fused(build, card)}
   unpacked = phase_unpacked(build, attn, card)
+  ablate = phase_ablate(build, attn, card)
+  resume = phase_resume(build, card, train["pallas"]["img_per_s"])
   for k in kernels:
     # Launches on the paths driven above, each counted from 0: the sampler
     # call and the training run under "pallas", the same two under
-    # "pallas_fused", and `fused_attention` for the two kernels that no
-    # module of the model calls. `launches` is the largest of them: the
-    # count on the path that runs the kernel most.
+    # "pallas_fused", `fused_attention` for the two kernels that no module
+    # of the model calls, the ablation tool, and run A of the resume phase
+    # (6 training steps and the two evaluators). `launches` is the largest
+    # of them: the count on the path that runs the kernel most.
     name = k["name"]
     k["launches_by_path"] = {
         **{f"serve_{a}": serve[a]["launches"].get(name, 0)
            for a in ATTN_IMPLS},
         **{f"train_{a}_{TRAIN_STEPS}_steps": train[a]["launches"].get(name, 0)
            for a in ATTN_IMPLS},
-        "fused_attention": unpacked.get(name, 0)}
+        "fused_attention": unpacked.get(name, 0),
+        "ablate": ablate.get(name, 0),
+        "resume": resume["launches"].get(name, 0)}
     k["launches"] = max(k["launches_by_path"].values())
     if not k["launches"]:
       fail(f"{name} was launched on no path")

@@ -4,15 +4,19 @@ Counterpart of small_vision_tpu/configs/ae_i1k.py, for the fields the port
 runs: the model, the diffusion schedule, the sampler's samples per call and
 labels, and the training step (batch size, mask ratios, the MAE/diffusion
 split, AdamW, the schedule's durations, EMA, the input with its pp string,
-`fused_branches`). The evaluator entries and the ImageNet input wait for
-their slices; `data` is `synthetic` (the default here, as no dataset is in
-the repository).
+`fused_branches`), the checkpoint cadence and the evaluator entries `val`,
+`mae_val` and, with labels, the three sampling evaluators. The few-shot
+probe's entry waits for the evaluators slice and the ImageNet input for the
+data slice; `data` is `synthetic` (the default here, as no dataset is in the
+repository).
 
   --config ae_i1k.py:variant=B/4,size=64
   --config ae_i1k.py:use_labels=True          # class-conditional, CFG, EMA
   --config ae_i1k.py:batch_size=256,total_steps=20
   --config ae_i1k.py:runlocal                 # width 64, depth 2: CPU tests
   --config ae_i1k.py:attn_impl=pallas_fused   # fused MLP and MHA kernels
+  --config ae_i1k.py:ckpt_steps=500,eval_steps=1000   # with --workdir
+  --config ae_i1k.py:eval_steps=-1            # no evaluators
 """
 
 from small_vision_tpu_torch.configs import common as cc
@@ -24,7 +28,12 @@ def get_config(arg=None) -> dict:
       samples_per_call=0, runlocal=False, batch_size=1024, mask_ratio=0.375,
       no_noise_prob=0.5, mask_ratio_no_noise=0.75, lr=15e-5, wd=5e-2,
       beta2=0.95, epochs=800, data="synthetic", total_steps=0, log_steps=0,
-      fused_branches=False, attn_impl="pallas")
+      fused_branches=False, attn_impl="pallas", finetune=False,
+      save_ckpt=True,
+      ckpt_steps=0,  # 0 = keep the default (5000; runlocal 8)
+      keep_ckpt_steps=0,  # > 0: checkpoints at its multiples stay for ever
+      eval_steps=0,  # 0 = per-evaluator defaults (25k), -1 = no evaluators
+      total_samples=0)  # 0 = 10k samples per sampling evaluator
   if arg["data"] != "synthetic":
     raise ValueError(f"data={arg['data']!r}: the port has the synthetic "
                      "source only (ImageNet comes with the data slice)")
@@ -52,7 +61,12 @@ def get_config(arg=None) -> dict:
       "wd": arg["wd"],
       "betas": (0.9, arg["beta2"]),
       "log_training_steps": arg["log_steps"] or 100,
+      "ckpt_steps": arg["ckpt_steps"] or 5000,
+      "save_ckpt": arg["save_ckpt"],
+      "finetune": arg["finetune"],
   }
+  if arg["keep_ckpt_steps"]:
+    config["keep_ckpt_steps"] = arg["keep_ckpt_steps"]
   if arg["total_steps"]:
     config["total_steps"] = arg["total_steps"]
   else:
@@ -67,6 +81,39 @@ def get_config(arg=None) -> dict:
       "batch_size": arg["batch_size"],
   }
 
+  # Evaluators, on the source's validation split. The synthetic source's
+  # images are decoded and of the right size: the eval pp is the device
+  # stage alone.
+  pp_eval = 'value_range(-1, 1)|keep("image", "label")'
+  eval_data = dict(config["input"]["data"], split="validation")
+
+  def get_eval(eval_type, pred):
+    return dict(type=eval_type, data=dict(eval_data), pp_fn=pp_eval,
+                log_steps=25_000, pred=pred, cache_final=True)
+
+  def get_sample_eval(pred):
+    return dict(type="diffusion_sampling", pred=pred,
+                total_samples=arg["total_samples"] or 10_000,
+                log_steps=25_000)
+
+  evals = {}
+  if arg["no_noise_prob"] < 1.0:
+    evals["val"] = get_eval("diffusion_loss", "loss")
+  if arg["mask_ratio"] > 0.0 or arg["no_noise_prob"] > 0.0:
+    evals["mae_val"] = get_eval("mae_reconstruction", "patch")
+  # The JAX config's `fewshot` entry (evaluators/fewshot_lsr.py) is left out
+  # until the evaluators slice ports the probe.
+  if arg["no_noise_prob"] < 1.0 and arg["use_labels"]:
+    evals["sample_cond"] = get_sample_eval("cond_eps")
+    evals["sample_cfg_1_5"] = get_sample_eval("cfg_eps_2.0")
+    evals["sample_cfg_4"] = get_sample_eval("cfg_eps_4.0")
+  if arg["eval_steps"] < 0:  # -1 = no evaluators (pure-throughput runs).
+    evals = {}
+  elif arg["eval_steps"]:  # One knob over every evaluator's cadence.
+    for ev in evals.values():
+      ev["log_steps"] = arg["eval_steps"]
+  config["evals"] = evals
+
   model = dict(
       num_classes=config["num_classes"], variant=arg["variant"],
       adaln=arg["adaln"], channels=3, img_size=arg["size"],
@@ -76,5 +123,7 @@ def get_config(arg=None) -> dict:
     config["input"]["batch_size"] = config["batch_size"] = 32
     config["input"]["data"]["num_examples"] = 512
     config["log_training_steps"] = arg["log_steps"] or 4
+    config["ckpt_steps"] = arg["ckpt_steps"] or 8
+    config["evals"] = {}
   config["model"] = model
   return config

@@ -20,7 +20,9 @@ distributions, not the bits.
 
 `opt_state_from_jax` carries a JAX run's optimizer state (optax's
 ScaleByAdamState: count, bf16 mu, f32 nu) and EMA params, as numpy trees,
-into the port's `optim.AdamW` state, so the run can continue in the port.
+into the port's `optim.AdamW` state, so the run can continue in the port;
+`train_state_from_jax` / `train_state_to_jax` do so for the whole of a
+train state that crosses (parameters, EMA, optimizer).
 """
 
 from typing import Mapping
@@ -204,3 +206,47 @@ def opt_state_from_jax(names, *, count, mu, nu, ema_params=None,
            "nu": as_list(nu, torch.float32)}
   ema = None if ema_params is None else as_list(ema_params, torch.float32)
   return state, ema
+
+
+def train_state_from_jax(state, names, device="cpu") -> dict:
+  """The port's {"params", "opt"[, "ema_params"]} (lists in `names` order,
+  the port's parameter order) from a JAX train state dumped as numpy:
+  {"params": tree, "opt": {"count", "mu", "nu"} (the fields of optax's
+  ScaleByAdamState: `mu` bf16, `nu` f32)[, "ema_params": tree]}, trees
+  nested or flat, flax-named. The lists line up with a live train state's
+  (`train_ae.init_train_state`), into whose tensors they are copied.
+
+  The random state is not carried: a JAX PRNG key and a `torch.Generator`
+  are different generators, so a run that crosses draws other noise from
+  there on (its `rng` and `gd` entries are ignored; the port rebuilds the
+  diffusion tables from the config).
+  """
+  flat = _flat(state["params"])
+  if set(flat) != set(names):
+    raise KeyError(f"names differ: missing {sorted(set(names) - set(flat))[:8]}"
+                   f", left over {sorted(set(flat) - set(names))[:8]}")
+  opt = state["opt"]
+  opt_state, ema = opt_state_from_jax(
+      names, count=opt["count"], mu=opt["mu"], nu=opt["nu"],
+      ema_params=state.get("ema_params"), device=device)
+  out = {"params": [_as_tensor(flat[n]).to(device) for n in names],
+         "opt": opt_state}
+  if ema is not None:
+    out["ema_params"] = ema
+  return out
+
+
+def train_state_to_jax(train_state, names) -> dict:
+  """The reverse of `train_state_from_jax`: nested flax-named numpy trees
+  {"params", "opt": {"count", "mu", "nu"}[, "ema_params"]} of a port train
+  state. numpy has no bfloat16, so `mu` comes as float32 holding the bf16
+  values exactly; cast it to bfloat16 on the JAX side."""
+  tree = lambda tensors: recover_tree(
+      names, [t.detach().float().cpu().numpy() for t in tensors])
+  opt = train_state["opt"]
+  out = {"params": tree(train_state["params"]),
+         "opt": {"count": np.asarray(opt["count"], np.int32),
+                 "mu": tree(opt["mu"]), "nu": tree(opt["nu"])}}
+  if "ema_params" in train_state:
+    out["ema_params"] = tree(train_state["ema_params"])
+  return out

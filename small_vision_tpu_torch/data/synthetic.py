@@ -7,7 +7,9 @@ per-epoch shuffle from `np.random.default_rng((seed, epoch))`. The port
 runs in one process, so the process's shard is every example.
 
 `batches` is the plain batch iterator of the train loop: uint8 images and
-int64 labels as numpy arrays, epochs back to back, gathered in bulk.
+int64 labels as numpy arrays, epochs back to back, gathered in bulk; with
+`start_step` it continues the stream where a run of that many steps left
+off.
 """
 
 from typing import Iterator
@@ -34,6 +36,15 @@ class DataSource:
   def total_examples(self) -> int:
     return self._total
 
+  @property
+  def num_examples_per_process(self) -> int:
+    """The one process's share: every example."""
+    return self._total
+
+  def peek(self) -> dict:
+    """Example 0, raw: the template of an evaluation batch's padding."""
+    return next(self.examples(ordered=True))
+
   def epoch_index(self, ordered: bool = False, seed: int = 0,
                   epoch: int = 0) -> np.ndarray:
     """Example indices of one epoch, shuffled unless `ordered`."""
@@ -56,11 +67,13 @@ class DataSource:
 
 
 def batches(source: DataSource, batch_size: int, *, seed: int = 0,
-            start_epoch: int = 0) -> Iterator[dict]:
+            start_step: int = 0) -> Iterator[dict]:
   """Endless {"image": (B, H, W, C) uint8, "label": (B,) int64} batches:
-  the shuffled epochs back to back, a batch may span two epochs."""
-  epoch = start_epoch
-  pending = np.zeros((0,), np.int64)
+  the shuffled epochs back to back, a batch may span two epochs. The first
+  batch is the one that step `start_step + 1` of a run from scratch takes."""
+  epoch, skip = divmod(start_step * batch_size, source.total_examples)
+  pending = source.epoch_index(seed=seed, epoch=epoch)[skip:]
+  epoch += 1
   while True:
     while pending.size < batch_size:
       pending = np.concatenate(

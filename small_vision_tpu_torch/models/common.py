@@ -1,4 +1,6 @@
-"""flax-compatible building blocks: Dense and LayerNorm with flax numerics.
+"""flax-compatible building blocks: Dense and LayerNorm with flax numerics,
+and `merge_params`, which reconciles a loaded parameter tree with a freshly
+initialised one.
 
 Parameters carry flax's names and shapes (`kernel` (in, out), `bias`,
 `scale`), so a flax param tree loads by name (see `convert.py`). Parameters
@@ -6,10 +8,14 @@ are created uninitialised: weights come from a checkpoint or from
 `convert.init_params`.
 """
 
-from typing import Optional
+import re
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from small_vision_tpu_torch.utils.trees import (recover_tree,
+                                                tree_flatten_with_names)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -59,3 +65,43 @@ class LayerNorm(nn.Module):
     var = torch.clamp(mean2 - torch.square(mean), min=0.0)
     mul = torch.rsqrt(var + self.eps) * self.scale
     return (xf - mean) * mul + self.bias
+
+
+def merge_params(loaded, inited, dont_load: Sequence[str] = ()):
+  """Merges a restored tree into an init tree (nested or flat dicts keyed by
+  slash paths); returns a nested dict.
+
+  Rules:
+    - names matching any `dont_load` regex keep their fresh init value;
+    - names present in both must agree in shape and take the loaded value;
+    - names only in `inited` keep init if matched by dont_load, else error;
+    - names only in `loaded` are dropped if matched by dont_load, else error.
+  """
+  patterns = [re.compile(p) for p in dont_load]
+  skip = lambda name: any(p.fullmatch(name) for p in patterns)
+  loaded_flat = dict(tree_flatten_with_names(loaded))
+  inited_flat = dict(tree_flatten_with_names(inited)) if inited else {}
+
+  merged = {}
+  for name, init_val in inited_flat.items():
+    if skip(name) or name not in loaded_flat:
+      if name not in loaded_flat and not skip(name):
+        raise ValueError(
+            f"Param {name} not found in checkpoint and not in dont_load.")
+      merged[name] = init_val
+    else:
+      load_val = loaded_flat[name]
+      if tuple(load_val.shape) != tuple(init_val.shape):
+        raise ValueError(
+            f"Shape mismatch for {name}: ckpt {tuple(load_val.shape)} vs "
+            f"init {tuple(init_val.shape)}")
+      merged[name] = load_val
+
+  for name, load_val in loaded_flat.items():
+    if name not in merged:
+      if not skip(name) and inited_flat:
+        raise ValueError(
+            f"Checkpoint param {name} has no target and isn't in dont_load.")
+      if not inited_flat:
+        merged[name] = load_val
+  return recover_tree(*zip(*merged.items())) if merged else {}

@@ -22,6 +22,11 @@ forward is K7 (`csrc/attention_unpacked.cu`), its backward K8
 the packed (B, L, H*D) one in memory, so the kernels read heads in place
 and the JAX wrapper's transposes and pads have no counterpart. No module
 of the model calls it; `ops.fused_block.fused_mha` shares its core.
+
+`attention_ablate` is the counterpart of
+scripts/ablate_attention_kernel.py::run_variant: packed attention under one
+of seven softmax / matmul arms (K9, `csrc/attention_ablate.cu`), forward
+only, the yardsticks that tell where an attention kernel's time goes.
 """
 
 import ctypes
@@ -36,6 +41,10 @@ NAME = "attention_packed_fwd"
 BWD_NAME = "attention_packed_bwd"
 UNPACKED_NAME = "attention_unpacked_fwd"
 UNPACKED_BWD_NAME = "attention_unpacked_bwd"
+ABLATE_NAME = "attention_ablate"
+# The arms of K9, in the order of the kernel's `variant` argument.
+ABLATE_VARIANTS = ("prod", "nosoftmax", "nomm", "bf16exp", "exp2", "mulmask",
+                   "nomax")
 HEAD_DIM = 64  # The only head dim the kernels take.
 CLAMP = 80.0   # Softmax stability clamp, in log2 units.
 
@@ -382,3 +391,106 @@ def fused_attention(q, k, v):
   if q.device.type == "cpu":
     return attention_plain(q, k, v)
   return attention_unpacked_fwd(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# Packed tensors under one of seven softmax / matmul arms (K9).
+# ---------------------------------------------------------------------------
+
+
+def attention_ablate_plain(q, k, v, num_heads, variant):
+  """Plain PyTorch version of `_kernel_variant`'s math on (B, L, H*D), arm
+  by arm and step by step.
+
+  The TPU body works on a tile padded to lp = L rounded up to 16 whose rows
+  past L are zero. Nothing is padded here: a zero key scores exactly 0 and a
+  zero value adds nothing, so the one place the padding shows is `mulmask`,
+  whose row max runs over all lp columns and so includes a 0 whenever L is
+  not a multiple of 16.
+  """
+  if variant not in ABLATE_VARIANTS:
+    raise ValueError(f"{ABLATE_NAME}: unknown variant {variant!r}, one of "
+                     f"{ABLATE_VARIANTS}")
+  b, l, hd = q.shape
+  d = hd // num_heads
+  dt = q.dtype
+  scale = float(np.float32(1.0 / np.sqrt(d)))
+  qs, ks, vs = (_split(t, num_heads) for t in (q, k, v))
+  if variant == "nomm":
+    # No QK product: every score of row i is bf16(q[i, 0] * scale).
+    scores = (qs[..., :1] * scale).to(dt).to(qs.dtype).expand(
+        b, num_heads, l, l)
+  else:
+    scores = torch.matmul(qs, ks.transpose(-1, -2)) * scale
+
+  if variant == "nosoftmax":
+    probs = (scores * 0.001).to(dt)
+  elif variant == "bf16exp":
+    m = scores.amax(-1, keepdim=True)
+    e = torch.exp((scores - m).to(torch.bfloat16))  # exp in bf16
+    s = e.to(scores.dtype).sum(-1, keepdim=True)
+    probs = (e.to(scores.dtype) / s).to(dt)
+  elif variant == "exp2":
+    scores = scores * float(np.float32(np.log2(np.e)))
+    e = torch.exp2(scores - scores.amax(-1, keepdim=True))
+    probs = (e / e.sum(-1, keepdim=True)).to(dt)
+  elif variant == "mulmask":
+    m = scores.amax(-1, keepdim=True)
+    if l % 16:
+      m = m.clamp_min(0.0)  # the padded keys' scores, exactly 0
+    e = torch.exp(scores - m)
+    probs = (e / e.sum(-1, keepdim=True)).to(dt)
+  elif variant == "nomax":
+    e = torch.exp(scores)
+    probs = (e / e.sum(-1, keepdim=True)).to(dt)
+  else:  # prod, and nomm's softmax
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    probs = (e / e.sum(-1, keepdim=True)).to(dt)
+
+  if variant == "nomm":
+    # Row i's probability of key 0 times row i's own v[i, 0], a product in
+    # the input dtype, on every column of the head.
+    vd = vs.to(dt)
+    o = (probs[..., :1] * vd[..., :1]).expand(b, num_heads, l, d)
+  else:
+    o = torch.matmul(probs.to(vs.dtype), vs)
+  return _merge(o, dt)
+
+
+@functools.cache
+def _ablate_lib():
+  lib = _build.library("attention_ablate")
+  fn = lib.attention_ablate_fwd
+  p, i = ctypes.c_void_p, ctypes.c_int
+  fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, p]
+  fn.restype = i
+  lib.attention_ablate_max_len.argtypes = []
+  lib.attention_ablate_max_len.restype = i
+  return fn, lib.attention_ablate_max_len()
+
+
+def attention_ablate_fwd(q, k, v, num_heads, variant):
+  """Launches K9's arm `variant` on (B, L, H*64) bf16 contiguous q, k, v."""
+  _require(variant in ABLATE_VARIANTS,
+           f"unknown variant {variant!r}, one of {ABLATE_VARIANTS}",
+           ABLATE_NAME)
+  b, l = _check(ABLATE_NAME, num_heads, q=q, k=k, v=v)
+  fn, max_len = _ablate_lib()
+  _require(l <= max_len, f"sequence length {l} > {max_len}", ABLATE_NAME)
+  o = torch.empty_like(q)
+  if q.numel() == 0:
+    return o
+  status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l,
+              num_heads, _scale_f32(), ABLATE_VARIANTS.index(variant),
+              torch.cuda.current_stream(q.device).cuda_stream)
+  _build.check(status, ABLATE_NAME)
+  _build.LAUNCHES[ABLATE_NAME] += 1
+  return o
+
+
+def attention_ablate(q, k, v, num_heads, variant):
+  """Packed attention under one arm: the plain version on CPU tensors, K9
+  on CUDA tensors. Forward only, as the TPU tool."""
+  if q.device.type == "cpu":
+    return attention_ablate_plain(q, k, v, num_heads, variant)
+  return attention_ablate_fwd(q, k, v, num_heads, variant)

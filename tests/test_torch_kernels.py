@@ -12,7 +12,9 @@ training and sampler lengths, two launches of each backward giving the
 same bits, the wrappers refusing what the kernels do not take, and the
 sampler's no-grad path writing no statistics and launching no backward;
 then the fused MLP (K5), the fused MHA (K6) and the [B, L, H, D] attention
-with the max-shift softmax (K7, K8) in the same way.
+with the max-shift softmax (K7, K8) in the same way, and the seven arms of
+the ablation kernel (K9) at two small shapes whose length is not a multiple
+of 16.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -512,3 +514,38 @@ def test_block_on_the_card_matches_the_cpu(cuda, attn_impl):
   want = block(x, cond).float()
   got = block.to(cuda)(x.to(cuda), cond.to(cuda)).float().cpu()
   assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
+
+
+# K9: the tolerance of each arm in bf16 ulps of the largest output (an ulp
+# taken as 2^-7 of it): two where p is rounded from f32 scores summed in
+# another order, four for bf16exp (the shifted score is rounded to bf16
+# before exp), half an ulp for nomm (nothing is summed in another order).
+ABLATE_ULPS = {"prod": 2, "nosoftmax": 2, "nomm": 0.5, "bf16exp": 4,
+               "exp2": 2, "mulmask": 2, "nomax": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h", [(2, 21, 2), (3, 37, 3)])
+@pytest.mark.parametrize("variant", attn.ABLATE_VARIANTS)
+def test_attention_ablate_kernel_matches_plain(cuda, variant, b, l, h):
+  q, k, v = (_randn((b, l, h * 64), s, cuda, torch.bfloat16)
+             for s in (50, 51, 52))
+  _build.reset_launches()
+  got = attn.attention_ablate(q, k, v, h, variant)
+  assert _build.LAUNCHES == {attn.ABLATE_NAME: 1}
+  want = attn.attention_ablate_plain(q, k, v, h, variant)
+  assert got.dtype == torch.bfloat16 and got.shape == q.shape
+  err = (got.float() - want.float()).abs().max().item()
+  top = want.float().abs().max().item()
+  assert err <= ABLATE_ULPS[variant] * 2.0**-7 * top, (err, top)
+
+
+@pytest.mark.cuda
+def test_attention_ablate_refuses_what_the_kernel_does_not_take(cuda):
+  q = torch.zeros(1, 20, 128, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="unknown variant"):
+    attn.attention_ablate(q, q, q, 2, "fast")
+  with pytest.raises(ValueError, match="bfloat16"):
+    attn.attention_ablate(q.float(), q.float(), q.float(), 2, "prod")
+  with pytest.raises(ValueError, match="width 128 != num_heads"):
+    attn.attention_ablate(q, q, q, 4, "prod")
