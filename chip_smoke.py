@@ -10,7 +10,8 @@ Phases, each fatal on failure:
                UMD-B/4@64 sampler at batch 64 (L = 260 and 257; K7 also at
                the shape of phase 6), the backwards K2, K4, K8 at the
                training shapes (per-branch batch 128, L = 68, 164, 257),
-               each launched twice to show equal bits, the fused MLP
+               each launched twice to show equal bits (K3 also at the
+               training shapes, launched twice too), the fused MLP
                and MHA (K5, K6) at both, and the seven arms of the ablation
                kernel (K9) at the tool's two shapes.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
@@ -199,51 +200,80 @@ def check_ln(ln, card):
 
 
 def check_attention(attn, card):
-  """K3 against its plain version; returns its kernels-line entry."""
+  """K3 against its plain version at the sampler's shapes (batch 64, L =
+  260 and 257) and the training shapes (batch 128, L = 68, 164, 257), two
+  launches giving equal bits at each; returns its kernels-line entry (times
+  at the sampler's encoder shape on top, the training shapes' under
+  `by_len`)."""
   gen = torch.Generator(device="cuda").manual_seed(1)
-  max_err, timing = 0.0, None
   head_dim = WIDTH // HEADS
-  for seq in (SEQ_ENC, SEQ_DEC):
-    q, k, v = (torch.randn(BATCH, seq, WIDTH, generator=gen,
+  max_err, timing, by_len = 0.0, None, {}
+  shapes = [(BATCH, SEQ_ENC), (BATCH, SEQ_DEC)] + [
+      (TRAIN_BATCH // 2, l) for l in TRAIN_SEQS]
+  for b, seq in shapes:
+    q, k, v = (torch.randn(b, seq, WIDTH, generator=gen,
                            device="cuda").to(torch.bfloat16)
                for _ in range(3))
-    o = attn.attention_packed_fwd(q, k, v, HEADS).float()
+    got = attn.attention_packed_fwd(q, k, v, HEADS)
+    again = attn.attention_packed_fwd(q, k, v, HEADS)
     ref = attn.attention_packed_plain(q, k, v, HEADS).float()
     torch.cuda.synchronize()
-    err = (o - ref).abs()
+    if not torch.equal(got, again):
+      fail(f"attention_packed_fwd B={b} L={seq}: two launches differ")
+    err = (got.float() - ref).abs()
     # Two bf16 ulps at unit magnitude (outputs are convex mixes of N(0,1)
     # values): the f32 score sums run in another order, which may round a
     # weight e to the neighbouring bf16 value, and o itself is bf16.
     bad = (err > 1e-2 + 1e-2 * ref.abs()).sum().item()
     max_err = max(max_err, err.max().item())
-    print(f"[kernels] attention_packed_fwd L={seq}: max abs err "
-          f"{err.max().item():.3e}, {bad} elements over tolerance",
-          flush=True)
+    print(f"[kernels] attention_packed_fwd B={b} L={seq}: max abs err "
+          f"{err.max().item():.3e}, {bad} elements over tolerance, two "
+          "launches equal", flush=True)
     if bad:
       fail(f"attention_packed_fwd disagrees with its plain version ({bad})")
-    if seq == SEQ_ENC:
-      split = lambda t: t.view(BATCH, seq, HEADS, head_dim).transpose(1, 2)
-      timing = dict(
-          ms=time_ms(lambda: attn.attention_packed_fwd(q, k, v, HEADS)),
-          plain_ms=time_ms(lambda: attn.attention_packed_plain(q, k, v,
-                                                               HEADS),
-                           iters=10),
-          library_ms=time_ms(
-              lambda: torch.nn.functional.scaled_dot_product_attention(
-                  split(q), split(k), split(v))))
-  bytes_moved = 4 * BATCH * SEQ_ENC * WIDTH * 2
-  flops = 4 * BATCH * HEADS * SEQ_ENC * SEQ_ENC * head_dim
-  bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
-  print(f"[kernels] attention_packed_fwd B={BATCH} L={SEQ_ENC} H={HEADS} "
-        f"D={head_dim}: kernel {timing['ms']:.4f} ms, plain "
-        f"{timing['plain_ms']:.4f} ms, sdpa {timing['library_ms']:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bytes_moved} bytes, "
-        f"{flops} flops) on {card}", flush=True)
+    if seq == SEQ_DEC and b == BATCH:
+      continue  # the decoder's sampler shape is checked, not timed
+    split = lambda t: t.view(b, seq, HEADS, head_dim).transpose(1, 2)
+    bound_ms, bound_by = _bound(4 * b * seq * WIDTH * 2,
+                                4 * b * HEADS * seq * seq * head_dim,
+                                BF16_FLOPS)
+    # 200 launches: at L=68 a launch takes 0.05 ms, and 50 of them read
+    # two clock states apart from call to call.
+    entry = dict(
+        ms=time_ms(lambda: attn.attention_packed_fwd(q, k, v, HEADS),
+                   iters=200),
+        plain_ms=time_ms(lambda: attn.attention_packed_plain(q, k, v, HEADS),
+                         iters=10),
+        library_ms=time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                split(q), split(k), split(v)), iters=200),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] attention_packed_fwd B={b} L={seq} H={HEADS} "
+          f"D={head_dim}: {_fmt(entry)} (sdpa as library) on {card}",
+          flush=True)
+    if b == BATCH:
+      timing = entry
+    else:
+      by_len[seq] = entry
+  # Host time of one call at a shape the card finishes at once (one batch
+  # element, 64 tokens): the wrapper's checks, the encoding of the three
+  # tensor maps and the launch, best of 5 runs of 500 calls.
+  small = [t[:1, :64].contiguous() for t in (q, k, v)]
+  runs = []
+  for _ in range(5):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(500):
+      attn.attention_packed_fwd(*small, HEADS)
+    runs.append((time.perf_counter() - t0) / 500 * 1e6)
+  torch.cuda.synchronize()
+  print(f"[kernels] attention_packed_fwd host time a call (1, 64, {WIDTH}): "
+        f"{min(runs):.2f} us", flush=True)
   return dict(name=attn.NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/attention_packed.cu",
               replaces="small_vision_tpu/ops/attention.py:258",
-              max_abs_err=max_err, bound_ms=bound_ms, bound_by=bound_by,
-              **timing)
+              max_abs_err=max_err, **timing, by_len=by_len,
+              host_us=min(runs))
 
 
 def check_ln_bwd(ln, card):

@@ -16,233 +16,255 @@
 // the floor is memory; the exp2 of every score (B*H*L^2 ~ 52 M) is the
 // next limit.
 //
-// Design: the (L, L) scores never leave the SM. One block takes 64 query
-// rows of one (batch, head) and stages that head's whole K (row-major) and
-// V (transposed) in shared memory: with the query tile and the row padding
-// 84 KB at L = 272, above the 48 KB default, so the entry point raises the
-// block's dynamic shared memory limit (227 KB holds L up to 816). Four warps each own 16 query rows and run bf16 mma.sync tiles
-// (m16n8k16, f32 accumulate): 16 keys at a time, S for those keys, then
-// e, then e times V into the 16x64 output held in registers. Because the
-// clamp replaces the max shift, e of one key block never needs rescaling
-// when a later block arrives, so no online-softmax bookkeeping is needed.
-// The score accumulators of a key block are exactly the A fragment of the
-// PV product, so e goes from registers to the tensor cores without shared
-// memory. Shared-memory rows are padded by 8 bf16 so the fragment loads of
-// one warp hit 32 distinct banks. Inputs are read in place in the packed
-// layout (no transpose or pad passes in device memory). Not yet used:
-// wgmma and TMA (a later change).
+// Design: the (L, L) scores never leave the SM. One CTA takes one (batch,
+// head) and reads its K and V once: its first thread starts TMA copies of
+// them in 64-key blocks (a 3-D tensor map over (H*64, L, B), box (64, 64,
+// 1), the 128-byte swizzle; rows past L arrive as zeros), each block on its
+// own mbarrier, and they stay resident (80 KB at L=260; 13 blocks, L <= 832,
+// fit the 227 KB a block can use). Its warpgroups (two, or one for short
+// heads; see the grid below) walk the head's 64-row query tiles
+// (warpgroup w of two takes tiles w, w + 2, ...), each from its own Q
+// buffer, which its first thread refills by TMA once the tile's products
+// are done, during the tile's epilogue. For a key block j a warpgroup runs
+// S = Q K_j^T on wgmma (m64n64k16, both operands K-major from shared
+// memory) as soon as block j has landed, the clamped exp2 and the mask,
+// adds the unrounded f32 e to its row sums, packs e to bf16 (the
+// accumulator's layout is wgmma's A-register layout) and runs O += e V_j on
+// wgmma with V_j row-major through the transpose-B bit. The clamp replaces
+// the max shift, so no online rescaling is needed and block j + 1's S
+// product is issued together with block j's PV product, one commit and one
+// wait for both. No warp is set aside as a producer: the copies are issued
+// once (K, V) or once a tile (Q), and a ninth warp would cost the
+// consumers registers (see below).
+//
+// What this does about the old kernel's costs: V is no longer staged
+// transposed with 2-byte stores (8-way bank conflicts), and K and V are
+// read once per head, not once per query tile (5 times at L=260). The first
+// S product starts when Q and the first key block have landed, not after a
+// synchronous prologue over the whole head. Shared memory at L=272 is
+// 5 x 16 KB of K and V plus two 8 KB Q tiles (97 KB), so two CTAs (four
+// warpgroups) share an SM.
+//
+// Registers: two 256-thread CTAs or four 128-thread CTAs an SM put four
+// warps on each of the SM's four register files, 128 registers a thread. A warpgroup holds the S and
+// O accumulators (64), e as the A operand (16), row sums and addresses;
+// ptxas reports 108 and no spills. A second S accumulator (FA3's overlap of
+// block j + 1's S with block j's exp2) would not fit; a producer warp would
+// leave five warps on a register file and 96 registers a thread, under
+// which ptxas serialises the wgmmas.
+//
+// The grid is B*H CTAs: 768 at B=64 (the sampler), 1,536 at B=128 (the
+// training shapes). Long heads (4 or more 64-row tiles) take two
+// warpgroups a CTA, two CTAs an SM: 2.9 and 5.8 waves; at L=260 (5 tiles)
+// one warpgroup does 3 tiles and the other 2, and the ragged last tile (4
+// rows at L=260, 1 at L=257) costs a whole tile's products. Short heads (at
+// most 3 tiles: L=68 and L=164) take one warpgroup a CTA that walks all
+// tiles, four CTAs an SM (42 and 58 KB): their time goes to the copies'
+// latency more than to products, and four heads in flight on an SM hide it
+// better than two heads with two warpgroups each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kHeadDim = 64;
-constexpr int kQTile = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowStride = kHeadDim + 8;  // bf16 per K / Q shared row
+constexpr int kTile = sm90::kTileRows;
+constexpr int kTileBytes = sm90::kTileBytes;
+// Warpgroups a CTA: two, or one for heads of at most kShortTiles tiles.
+constexpr int kShortTiles = 3;
 constexpr float kClamp = 80.f;
+constexpr int kSmemLimit = 232448;
 
-__host__ __device__ constexpr int vt_stride(int lk_pad) { return lk_pad + 8; }
-
-__host__ __device__ constexpr size_t smem_bytes(int lk_pad) {
-  return sizeof(__nv_bfloat16) *
-         (static_cast<size_t>(lk_pad) * kRowStride +
-          static_cast<size_t>(kHeadDim) * vt_stride(lk_pad) +
-          static_cast<size_t>(kQTile) * kRowStride);
+// 1 KB to align the tiles; nkb K and nkb V blocks; one Q tile a warpgroup;
+// barriers: one a key block, one a Q tile.
+__host__ __device__ constexpr size_t smem_bytes(int nkb, int groups) {
+  return 1024 + static_cast<size_t>(2 * nkb + groups) * kTileBytes +
+         8 * static_cast<size_t>(nkb + groups);
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__global__ void __launch_bounds__(kThreads)
-attention_packed_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
+// 128 registers a thread either way: two CTAs of two warpgroups, or four of
+// one, an SM.
+template <int kGroups>
+__global__ void __launch_bounds__(128 * kGroups, 4 / kGroups)
+attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
                             __nv_bfloat16* __restrict__ o, int seq_len,
-                            int num_heads, int lk_pad, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vt_s = k_s + lk_pad * kRowStride;           // [64][vts]
-  const int vts = vt_stride(lk_pad);
-  __nv_bfloat16* q_s = vt_s + kHeadDim * vts;                // [64][72]
+                            int num_heads, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align_tiles(smem_raw);
+  const int nkb = (seq_len + kTile - 1) / kTile;
+  const int nqt = nkb;
+  uint8_t* k_s = smem;                            // block j at j * 8 KB
+  uint8_t* v_s = k_s + nkb * kTileBytes;
+  uint8_t* q_s = v_s + nkb * kTileBytes;          // warpgroup w's at w * 8 KB
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kTileBytes);
+  uint64_t* q_full = kv_full + nkb;
 
-  const int q0 = blockIdx.x * kQTile;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int tok_stride = num_heads * kHeadDim;
-  const size_t base = static_cast<size_t>(batch) * seq_len * tok_stride +
-                      static_cast<size_t>(head) * kHeadDim;
+  const int head = blockIdx.x;
+  const int batch = blockIdx.y;
   const int tid = threadIdx.x;
-  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
 
-  // Stage this head's K (row-major) and V (transposed); keys past L are 0.
-  for (int idx = tid; idx < lk_pad * 8; idx += kThreads) {
-    const int j = idx >> 3;
-    const int c = (idx & 7) * 8;
-    uint4 kv = zero4, vv = zero4;
-    if (j < seq_len) {
-      const size_t off = base + static_cast<size_t>(j) * tok_stride + c;
-      kv = *reinterpret_cast<const uint4*>(k + off);
-      vv = *reinterpret_cast<const uint4*>(v + off);
+  const int col0 = head * kHeadDim;
+  if (tid == 0) {
+    for (int j = 0; j < nkb; ++j) sm90::mbar_init(&kv_full[j], 1);
+    for (int w = 0; w < kGroups; ++w) sm90::mbar_init(&q_full[w], 1);
+    sm90::fence_barrier_init();
+    // The first Q tiles, then the key blocks in order.
+    for (int w = 0; w < kGroups && w < nqt; ++w) {
+      sm90::mbar_arrive_expect_tx(&q_full[w], kTileBytes);
+      sm90::tma_load_3d(q_s + w * kTileBytes, &tm_q, &q_full[w], col0,
+                        w * kTile, batch);
     }
-    *reinterpret_cast<uint4*>(k_s + j * kRowStride + c) = kv;
-    const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) vt_s[(c + e) * vts + j] = ve[e];
-  }
-  // Stage the query tile; rows past L are 0.
-  for (int idx = tid; idx < kQTile * 8; idx += kThreads) {
-    const int r = idx >> 3;
-    const int c = (idx & 7) * 8;
-    uint4 qv = zero4;
-    if (q0 + r < seq_len) {
-      qv = *reinterpret_cast<const uint4*>(
-          q + base + static_cast<size_t>(q0 + r) * tok_stride + c);
+    for (int j = 0; j < nkb; ++j) {
+      sm90::mbar_arrive_expect_tx(&kv_full[j], 2 * kTileBytes);
+      sm90::tma_load_3d(k_s + j * kTileBytes, &tm_k, &kv_full[j], col0,
+                        j * kTile, batch);
+      sm90::tma_load_3d(v_s + j * kTileBytes, &tm_v, &kv_full[j], col0,
+                        j * kTile, batch);
     }
-    *reinterpret_cast<uint4*>(q_s + r * kRowStride + c) = qv;
   }
   __syncthreads();
 
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // fragment row group
-  const int t4 = lane & 3;   // thread in group
-  const int r0 = warp * 16;  // this warp's rows within the tile
-  if (q0 + r0 >= seq_len) return;  // whole warp past L (no barrier follows)
+  const int wg = warp / 4;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int tok_stride = num_heads * kHeadDim;
+  __nv_bfloat16* out = o + static_cast<size_t>(batch) * seq_len * tok_stride +
+                       col0;
+  uint8_t* my_q = q_s + wg * kTileBytes;
+  const uint64_t d_q = sm90::desc_k_major(my_q);
 
-  // A fragments of Q for the four 16-wide steps over the head dim.
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const __nv_bfloat16* p0 = q_s + (r0 + g) * kRowStride + ks * 16 + t4 * 2;
-    const __nv_bfloat16* p1 = p0 + 8 * kRowStride;
-    qa[ks][0] = ld32(p0);
-    qa[ks][1] = ld32(p1);
-    qa[ks][2] = ld32(p0 + 8);
-    qa[ks][3] = ld32(p1 + 8);
-  }
+  // Once a tile's products are done, the warpgroup's first thread starts
+  // the copy of its next tile into the same buffer.
+  auto refill_q = [&](int t) {
+    if (t + kGroups >= nqt) return;
+    if (wg == 0) {
+      sm90::named_barrier<1>(128);
+    } else {
+      sm90::named_barrier<2>(128);
+    }
+    if (tid % 128 == 0) {
+      sm90::mbar_arrive_expect_tx(&q_full[wg], kTileBytes);
+      sm90::tma_load_3d(my_q, &tm_q, &q_full[wg], col0,
+                        (t + kGroups) * kTile, batch);
+    }
+  };
 
-  float acc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
-  }
-  float rsum_lo = 0.f, rsum_hi = 0.f;  // rows g and g + 8, this lane's keys
+  for (int t = wg, use = 0; t < nqt; t += kGroups, ++use) {
+    sm90::mbar_wait(&q_full[wg], use & 1);
+    float sacc[32], oacc[32];
+    uint32_t pa[16];
+    float sum_lo = 0.f, sum_hi = 0.f;  // rows g and g + 8, this lane's keys
 
-  for (int kb = 0; kb < lk_pad; kb += 16) {
-    float s[2][4];
+    sm90::mbar_wait(&kv_full[0], 0);
+    sm90::wgmma_fence();
+    sm90::gemm_nt(sacc, d_q, sm90::desc_k_major(k_s));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence(sacc);
+
+    for (int j = 0; j < nkb; ++j) {
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
+      for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-      const __nv_bfloat16* kr = k_s + (kb + nt * 8 + g) * kRowStride + t4 * 2;
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        mma_bf16_16816(s[nt], qa[ks], ld32(kr + ks * 16),
-                       ld32(kr + ks * 16 + 8));
+        for (int i = 0; i < 4; ++i) {
+          const int key = j * kTile + nt * 8 + 2 * t4 + (i & 1);
+          const float x =
+              fminf(fmaxf(sacc[4 * nt + i] * scale_log2, -kClamp), kClamp);
+          const float e = key < seq_len ? exp2f(x) : 0.f;
+          if (i < 2) {
+            sum_lo += e;
+          } else {
+            sum_hi += e;
+          }
+          sacc[4 * nt + i] = e;
+        }
       }
-    }
-    // e for this key block; its C fragments are the A fragment of e V.
-    uint32_t pa[4];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      float e[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = kb + nt * 8 + t4 * 2 + (i & 1);
-        const float x =
-            fminf(fmaxf(s[nt][i] * scale_log2, -kClamp), kClamp);
-        e[i] = key < seq_len ? exp2f(x) : 0.f;
+      sm90::pack_a(pa, sacc);
+      sm90::wgmma_fence();
+      sm90::gemm_rn(oacc, pa, sm90::desc_mn_major(v_s + j * kTileBytes),
+                    j > 0);
+      if (j + 1 < nkb) {
+        sm90::mbar_wait(&kv_full[j + 1], 0);
+        sm90::gemm_nt(sacc, d_q,
+                      sm90::desc_k_major(k_s + (j + 1) * kTileBytes));
       }
-      rsum_lo += e[0] + e[1];
-      rsum_hi += e[2] + e[3];
-      pa[nt * 2 + 0] = pack_bf16(e[0], e[1]);
-      pa[nt * 2 + 1] = pack_bf16(e[2], e[3]);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence(oacc);
+      sm90::fence(sacc);
     }
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      const __nv_bfloat16* vr = vt_s + (dt * 8 + g) * vts + kb + t4 * 2;
-      mma_bf16_16816(acc[dt], pa, ld32(vr), ld32(vr + 8));
-    }
-  }
 
-  // The four lanes of a group hold disjoint keys of the same rows.
-  rsum_lo += __shfl_xor_sync(0xffffffffu, rsum_lo, 1);
-  rsum_lo += __shfl_xor_sync(0xffffffffu, rsum_lo, 2);
-  rsum_hi += __shfl_xor_sync(0xffffffffu, rsum_hi, 1);
-  rsum_hi += __shfl_xor_sync(0xffffffffu, rsum_hi, 2);
+    refill_q(t);
 
-  const int row_lo = q0 + r0 + g;
-  const int row_hi = row_lo + 8;
-  __nv_bfloat16* o_lo = o + base + static_cast<size_t>(row_lo) * tok_stride;
-  __nv_bfloat16* o_hi = o_lo + 8 * static_cast<size_t>(tok_stride);
+    // The four lanes of a group hold disjoint keys of the same rows.
+    sum_lo = sm90::quad_sum(sum_lo);
+    sum_hi = sm90::quad_sum(sum_hi);
+    const int row_lo = t * kTile + (warp % 4) * 16 + g;
+    const int row_hi = row_lo + 8;
+    __nv_bfloat16* o_lo = out + static_cast<size_t>(row_lo) * tok_stride +
+                          2 * t4;
+    __nv_bfloat16* o_hi = o_lo + 8 * static_cast<size_t>(tok_stride);
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int col = dt * 8 + t4 * 2;
-    if (row_lo < seq_len) {
-      *reinterpret_cast<uint32_t*>(o_lo + col) =
-          pack_bf16(acc[dt][0] / rsum_lo, acc[dt][1] / rsum_lo);
-    }
-    if (row_hi < seq_len) {
-      *reinterpret_cast<uint32_t*>(o_hi + col) =
-          pack_bf16(acc[dt][2] / rsum_hi, acc[dt][3] / rsum_hi);
+    for (int nt = 0; nt < 8; ++nt) {
+      if (row_lo < seq_len) {
+        *reinterpret_cast<uint32_t*>(o_lo + 8 * nt) = sm90::pack_bf16(
+            oacc[4 * nt] / sum_lo, oacc[4 * nt + 1] / sum_lo);
+      }
+      if (row_hi < seq_len) {
+        *reinterpret_cast<uint32_t*>(o_hi + 8 * nt) = sm90::pack_bf16(
+            oacc[4 * nt + 2] / sum_hi, oacc[4 * nt + 3] / sum_hi);
+      }
     }
   }
 }
 
 }  // namespace
 
-// Largest sequence length the kernel takes (its K and V must fit in the
-// 227 KB of shared memory a block can use).
+// Largest sequence length the kernel takes (its K and V stay resident in
+// the 227 KB of shared memory a block can use).
 extern "C" int attention_packed_max_len() {
-  int lk = 16;
-  while (smem_bytes(lk + 16) <= 232448) lk += 16;
-  return lk;
+  int nkb = 1;
+  while (smem_bytes(nkb + 1, 2) <= kSmemLimit) ++nkb;
+  return nkb * kTile;
 }
 
 // q, k, v, o: (B, L, H*64) bf16, contiguous, 16-byte aligned.
-// scale_log2 = head_dim**-0.5 * log2(e) in f32. Returns cudaGetLastError().
+// scale_log2 = head_dim**-0.5 * log2(e) in f32. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a length past the limit or a tensor map the
+// driver refuses.
 extern "C" int attention_packed_fwd(const void* q, const void* k,
                                     const void* v, void* o, int batch,
                                     int seq_len, int num_heads,
                                     float scale_log2, void* stream) {
-  const int lk_pad = (seq_len + 15) / 16 * 16;
-  const size_t smem = smem_bytes(lk_pad);
-  if (lk_pad > attention_packed_max_len()) {
+  if (seq_len > attention_packed_max_len()) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  CUtensorMap tq, tk, tv;
+  if (!sm90_host::packed_head_map(&tq, q, batch, seq_len, num_heads) ||
+      !sm90_host::packed_head_map(&tk, k, batch, seq_len, num_heads) ||
+      !sm90_host::packed_head_map(&tv, v, batch, seq_len, num_heads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nkb = (seq_len + kTile - 1) / kTile;
+  const int groups = nkb <= kShortTiles ? 1 : 2;
+  const auto kernel = groups == 1 ? attention_packed_fwd_kernel<1>
+                                  : attention_packed_fwd_kernel<2>;
+  const size_t smem = smem_bytes(nkb, groups);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_packed_fwd_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq_len + kQTile - 1) / kQTile, num_heads, batch);
-  attention_packed_fwd_kernel<<<grid, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(o), seq_len, num_heads, lk_pad,
+  const dim3 grid(num_heads, batch);
+  kernel<<<grid, 128 * groups, smem, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), seq_len, num_heads,
       scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -161,7 +161,9 @@ def _check(name, num_heads, **tensors):
 
 
 def attention_packed_fwd(q, k, v, num_heads):
-  """Launches K3 on (B, L, H*64) bf16 contiguous q, k, v."""
+  """Launches K3 on (B, L, H*64) bf16 contiguous q, k, v. L up to the
+  kernel's `attention_packed_max_len()`, 832: a head's K and V stay in
+  shared memory (the limit was 816 before K3 moved to wgmma and TMA)."""
   b, l = _check(NAME, num_heads, q=q, k=k, v=v)
   fn, max_len = _lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}")
@@ -179,8 +181,12 @@ def attention_packed_fwd(q, k, v, num_heads):
 
 def attention_packed_bwd(q, k, v, do, num_heads):
   """Launches K4 on (B, L, H*64) bf16 contiguous q, k, v, do; returns
-  (dq, dk, dv). Each output element is summed by one thread in a fixed
-  order (no atomics), so two launches give the same bits."""
+  (dq, dk, dv). Each output element is summed by one warpgroup's
+  accumulator in a fixed order (no atomics), so two launches give the same
+  bits. L up to the kernel's `attention_packed_bwd_max_len()`, 4096: its
+  shared memory does not grow with L (the limit was 384 before K4 moved to
+  wgmma and streamed tiles), and 4096 is the longest length the card's
+  tests hold it at."""
   b, l = _check(BWD_NAME, num_heads, q=q, k=k, v=v, do=do)
   fn, max_len = _bwd_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}", BWD_NAME)

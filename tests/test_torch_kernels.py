@@ -8,8 +8,11 @@ installed: on a machine with a GPU and nvcc,
 (`--noconftest` skips tests/conftest.py, which sets up JAX). The tests
 marked `cuda` skip where there is no CUDA device: K1 and K3 (the forwards)
 and K2 and K4 (the backwards) against their plain versions at the
-training and sampler lengths, two launches of each backward giving the
-same bits, the wrappers refusing what the kernels do not take, and the
+training and sampler lengths (K3 and K4 also at the edges of their tiles
+and rings and at their own length limits, with 1, 3 and 12 heads and batch
+1 and 5), two launches of each backward and of K3 giving the same bits,
+K3 and K4 past the ±80 clamp, the wrappers refusing what the kernels do
+not take (a length 16 past a kernel's limit among them), and the
 sampler's no-grad path writing no statistics and launching no backward;
 then the fused MLP (K5), the fused MHA (K6) and the [B, L, H, D] attention
 with the max-shift softmax (K7, K8) in the same way, and the seven arms of
@@ -151,12 +154,56 @@ def test_attention_kernel_matches_plain(cuda, l):
   torch.testing.assert_close(got, want, rtol=2**-7, atol=2**-7)
 
 
+# The edges of K3's and K4's 64-row tiles and of their rings of key or
+# query blocks; "max" is the kernel's own limit.
+EDGE_LENS = (1, 16, 17, 63, 64, 65, 272, "max")
+
+
+def _edge_len(l, max_len):
+  return max_len if l == "max" else l
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("heads", [1, 3, 12])
+@pytest.mark.parametrize("l", EDGE_LENS)
+def test_attention_kernel_matches_plain_at_the_edges(cuda, l, heads, b):
+  l = _edge_len(l, attn._lib()[1])
+  q, k, v = (_randn((b, l, heads * 64), s, cuda, torch.bfloat16)
+             for s in range(3))
+  got = attn.attention_packed_fwd(q, k, v, heads).float()
+  want = attn.attention_packed_plain(q, k, v, heads).float()
+  # As in test_attention_kernel_matches_plain: two bf16 ulps at unit
+  # magnitude.
+  torch.testing.assert_close(got, want, rtol=2**-7, atol=2**-7)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_clamps_as_the_plain_version(cuda):
+  """Scores far past the ±80 clamp: finite outputs that agree."""
+  q, k, v = (_randn((2, 20, 2 * 64), s, cuda, torch.bfloat16,
+                    40.0 if s < 2 else 1.0) for s in range(3))
+  got = attn.attention_packed_fwd(q, k, v, 2).float()
+  want = attn.attention_packed_plain(q, k, v, 2).float()
+  assert torch.all(torch.isfinite(got))
+  torch.testing.assert_close(got, want, rtol=2**-7, atol=2**-7)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_is_deterministic(cuda):
+  q, k, v = (_randn((8, 257, 2 * 64), s, cuda, torch.bfloat16)
+             for s in range(3))
+  assert torch.equal(attn.attention_packed_fwd(q, k, v, 2),
+                     attn.attention_packed_fwd(q, k, v, 2))
+
+
 @pytest.mark.cuda
 def test_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
   q = torch.zeros(1, 8, 2 * 32, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="head dim"):
     attn.attention_packed_fwd(q, q, q, 2)
-  long = torch.zeros(1, 4096, 64, dtype=torch.bfloat16, device=cuda)
+  long = torch.zeros(1, attn._lib()[1] + 16, 64, dtype=torch.bfloat16,
+                     device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_packed_fwd(long, long, long, 1)
 
@@ -241,6 +288,27 @@ def test_attention_bwd_kernel_matches_plain(cuda, l):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("heads", [1, 3, 12])
+@pytest.mark.parametrize("l", EDGE_LENS)
+def test_attention_bwd_kernel_matches_plain_at_the_edges(cuda, l, heads, b):
+  l = _edge_len(l, attn._bwd_lib()[1])
+  q, k, v, do = _qkv_do(cuda, l, b=b, h=heads)
+  got = attn.attention_packed_bwd(q, k, v, do, heads)
+  want = attn.attention_packed_bwd_plain(q, k, v, do, heads)
+  # As in test_attention_bwd_kernel_matches_plain: a few bf16 ulps of the
+  # largest output. At L = 1 dq and dk vanish analytically (one key: dS =
+  # e (dP - dP)) and both sides hold f32 round-off of about 1e-7, so each
+  # output's scale is floored at 1e-3 of the largest of the three.
+  top = max(w.float().abs().max().item() for w in want)
+  for g, w in zip(got, want):
+    g, w = g.float(), w.float()
+    err = (g - w).abs().max().item()
+    scale = max(w.abs().max().item(), 1e-3 * top)
+    assert err <= 2.0**-6 * scale, (err, scale)
+
+
+@pytest.mark.cuda
 def test_attention_bwd_kernel_clamps_as_the_plain_version(cuda):
   """Past the ±80 clamp both treat it as the identity: finite gradients
   that agree."""
@@ -267,7 +335,8 @@ def test_attention_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
   q = torch.zeros(1, 8, 2 * 32, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="head dim"):
     attn.attention_packed_bwd(q, q, q, q, 2)
-  long = torch.zeros(1, 4096, 64, dtype=torch.bfloat16, device=cuda)
+  long = torch.zeros(1, attn._bwd_lib()[1] + 16, 64, dtype=torch.bfloat16,
+                     device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_packed_bwd(long, long, long, long, 1)
   q = torch.zeros(1, 8, 128, dtype=torch.bfloat16, device=cuda)
