@@ -452,7 +452,7 @@ def setup_training(config: dict, device="cuda", log=print) -> dict:
   train_state = init_train_state(model, opt, config, device)
   device_pp = DevicePP(in_cfg.get("pp", ""))
   batches_from = lambda step: synthetic.batches(
-      source, batch_size, seed=int(config.get("seed", 0)), start_step=step)
+      source, batch_size, seed=int(in_cfg.get("seed", 0)), start_step=step)
   return {
       "model": model, "opt": opt, "train_state": train_state, "names": names,
       "update_fn": make_update_fn(model, opt, config, device_pp),

@@ -22,8 +22,8 @@ state (`params.npz`, `ema_params.npz`, `opt.npz`, `generator.npz`,
   - Atomic: written to `<step>.tmp`, renamed to `<step>` when complete. A
     directory that was never renamed is no checkpoint: it is ignored, and
     removed when the next manager starts on that workdir.
-  - `keep_period`: steps that are a multiple of it stay for ever; of the
-    others the newest `max_to_keep` stay.
+  - Retention, as orbax's: the newest `max_to_keep` steps stay, and of the
+    older ones those that are a multiple of `keep_period` stay for ever.
 """
 
 import os
@@ -168,10 +168,12 @@ class Manager:
       self._error = e
 
   def _prune(self):
-    rolling = [s for s in self.all_steps()
-               if not (self.keep_period and s % self.keep_period == 0)]
-    for s in rolling[:-self.max_to_keep] if self.max_to_keep else rolling:
-      shutil.rmtree(os.path.join(self.directory, str(s)), ignore_errors=True)
+    """Keeps what orbax keeps: the newest `max_to_keep` steps, and of the
+    older ones the multiples of `keep_period`."""
+    steps = self.all_steps()
+    for s in steps[:max(len(steps) - self.max_to_keep, 0)]:
+      if not (self.keep_period and s % self.keep_period == 0):
+        shutil.rmtree(os.path.join(self.directory, str(s)), ignore_errors=True)
 
   def wait_until_finished(self):
     if self._thread is not None:

@@ -160,6 +160,30 @@ def test_keep_period_stays_and_the_rest_rolls(tmp_path):
   assert rolling.all_steps() == [2, 3]
 
 
+@pytest.mark.parametrize("keep_period,max_to_keep,saves", [
+    (4, 1, (3, 4)),
+    (4, 2, (1, 2, 3, 4, 5)),
+    (4, 1, (2, 4, 6, 8, 9, 10)),
+    (None, 2, (1, 2, 3)),
+])
+def test_retention_matches_the_jax_manager(tmp_path, keep_period, max_to_keep,
+                                           saves):
+  """Orbax keeps the newest `max_to_keep` steps and, of the older ones, the
+  multiples of `keep_period`: the port keeps the same steps."""
+  port = ckpt.make_manager(str(tmp_path / "port"), keep_period=keep_period,
+                           max_to_keep=max_to_keep)
+  ref = jckpt.make_manager(str(tmp_path / "jax"), keep_period=keep_period,
+                           max_to_keep=max_to_keep)
+  for step in saves:
+    ckpt.save(port, _state(step), step)
+    jckpt.save(ref, {"count": np.asarray(step, np.int32)}, step)
+    ref.wait_until_finished()
+  ckpt.wait_until_finished(port)
+  want = sorted(ref.all_steps())
+  ref.close()
+  assert port.all_steps() == want
+
+
 def test_save_copies_before_it_returns_and_writes_in_a_thread(tmp_path,
                                                               monkeypatch):
   """What is saved is the state at the call: the loop may change its

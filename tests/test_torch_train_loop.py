@@ -9,6 +9,7 @@ import math
 import os
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -106,6 +107,42 @@ def test_cli_does_not_fall_back_to_the_cpu(monkeypatch):
 def test_config_refuses_other_data():
   with pytest.raises(ValueError, match="synthetic"):
     ae_i1k.get_config("data=imagenet2012")
+
+
+def test_batch_order_follows_the_input_seed(monkeypatch):
+  """The stream's example ids come from `input.seed`, as the JAX pipeline's
+  do (`data/pipeline.py`); `seed` seeds the parameters only."""
+  from small_vision_tpu.data import synthetic as jsynthetic
+  from small_vision_tpu_torch.data import synthetic
+  taken = []
+  real_take = synthetic.DataSource.take
+  monkeypatch.setattr(synthetic.DataSource, "take", lambda self, idx: (
+      taken.append(np.asarray(idx).copy()), real_take(self, idx))[1])
+
+  def first_ids(seed, input_seed):
+    config = _runlocal()
+    config["seed"] = seed
+    config["input"]["seed"] = input_seed
+    taken.clear()
+    stream = train_ae.setup_training(config, device="cpu",
+                                     log=lambda _: None)["batches_from"](0)
+    next(stream), next(stream)
+    return np.concatenate(taken), config
+
+  ids, config = first_ids(0, 0)
+  data_cfg = dict(config["input"]["data"])
+  data_cfg.pop("name")
+  jax_source = jsynthetic.DataSource(**data_cfg)
+
+  def jax_ids(input_seed):
+    stream = jax_source.examples_from(seed=input_seed, epoch=0, start=0)
+    return np.asarray([int(next(stream)["_id"]) for _ in range(ids.size)])
+
+  np.testing.assert_array_equal(ids, jax_ids(0))
+  np.testing.assert_array_equal(first_ids(1, 0)[0], ids)
+  other = first_ids(0, 1)[0]
+  assert not np.array_equal(other, ids)
+  np.testing.assert_array_equal(other, jax_ids(1))
 
 
 def test_log_cadence_is_the_jax_predicate():
