@@ -12,7 +12,8 @@ Phases, each fatal on failure:
                training shapes (per-branch batch 128, L = 68, 164, 257),
                each launched twice to show equal bits (K3 also at the
                training shapes, launched twice too), the fused MLP
-               and MHA (K5, K6) at both, and the seven arms of the ablation
+               and MHA (K5, K6) at both (K6 also with the time of each of
+               its three launches), and the seven arms of the ablation
                kernel (K9) at the tool's two shapes.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
@@ -405,8 +406,9 @@ def check_attention_bwd(attn, card):
 
 
 def _fmt(entry):
-  return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                   for k, v in entry.items())
+  show = lambda v: (f"{v:.4f}" if isinstance(v, float) else
+                    f"({_fmt(v)})" if isinstance(v, dict) else f"{v}")
+  return ", ".join(f"{k} {show(v)}" for k, v in entry.items())
 
 
 def _close_to_max(got, want, ulps):
@@ -525,6 +527,10 @@ def check_fused_mha(fb, card):
                          warmup=1),
         library_ms=time_ms(library, iters=20),
         bound_ms=bound_ms, bound_by=bound_by)
+    # The three launches of one call, each timed alone.
+    stages = fb.fused_mha_stages(*args)
+    by_shape[f"{b}x{seq}"]["stage_ms"] = {
+        name: time_ms(launch, iters=20) for name, launch in stages.items()}
     print(f"[kernels] fused_mha_fwd B={b} L={seq} D={WIDTH} H={HEADS}: "
           f"{_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} bytes, {flops} "
           f"flops) on {card}", flush=True)

@@ -5,9 +5,9 @@
 // Replaces: small_vision_tpu/ops/fused_block.py::_mha_kernel (reached via
 // _mha_pallas / fused_mha). Per batch row:
 //   q, k, v = bf16(f32(x W) + b)                             (three W, b)
-//   per head: S = (q k^T) * scale; p = bf16(softmax(S)) with the row max
-//             subtracted and the division before the rounding;
-//             a = bf16(f32(p v))
+//   per head: S = (q k^T) * scale, keys past L masked to -inf;
+//             p = bf16(exp(S - rowmax) / rowsum), the division before the
+//             rounding;  a = bf16(f32(p v))
 //   o = bf16(f32(a Wo) + bo)
 // the TPU kernel's rounding points.
 //
@@ -16,307 +16,539 @@
 // GFLOP, 0.093 ms at 989 TFLOP/s, against 55.8 MB of x, o and weights
 // (0.017 ms at 3.35 TB/s): the floor is the tensor cores.
 //
-// Design. The TPU kernel holds a batch row's q, k, v (1.25 MB at L = 272)
-// and all weights in VMEM; a block here has 227 KB. Two kernels in one
-// launch of the wrapper:
-//  (1) fused_mha_heads: one block of 8 warps per (batch row, head). It
-//      projects its (L, 64) parts of q, k and v, one after the other, by
-//      streaming x[b, :, 64-column piece] and W[piece, head's 64 columns]
-//      through shared memory (double-buffered with cp.async), adds the bias
-//      in f32, rounds, and keeps the three parts in shared memory. Then
-//      each warp runs the max-shift attention core of
-//      attention_maxshift.cuh on 16 query rows at a time and writes the
-//      rounded head output to its 64 columns of an (B, L, width) scratch.
-//      q, k, v, the scores and the probabilities never reach device
-//      memory.
-//  (2) fused_mha_out_proj: the out-projection sums over heads, that is
-//      over blocks of (1), so it is a second kernel: a tiled product of the
-//      scratch with Wo (128 x 64 output tiles, 64-deep stages,
-//      double-buffered), f32 sums in a fixed order, bias added in f32, one
-//      rounding. No atomics, so two launches give the same bits.
-// What leaves the chip between the two: the bf16 head outputs (B, L,
-// width), written once and read once (25.6 MB each way at the sampler's
-// shape). Each head's block reads the batch row's x three times (once per
-// projection) from the L2. Products are bf16 mma.sync m16n8k16 with f32
-// accumulation; weights are read row-major as they lie, B fragments
-// through ldmatrix.trans. Not yet used: wgmma, TMA, a cluster that shares
-// x between the heads of a batch row (a later change).
+// Design. The TPU kernel keeps a batch row's q, k, v in VMEM; here they
+// make one round trip through device memory as bf16, which the TPU kernel
+// rounds them to as well: 2 x 76.7 MB at the sampler's shape, 0.046 ms,
+// still below the operations. Three launches of two kernels, no atomics
+// and no split-K, so two calls give the same bits:
+//  (a) fused_mha_proj_kernel, C = bf16(f32(A W) + bias) on wgmma. A is
+//      (M, K) and W (K, N) row-major, as the weights lie. A persistent CTA
+//      a SM walks 128 x 128 output tiles (row block outermost, so the CTAs
+//      in flight share their A rows in L2); its producer warp keeps a ring
+//      of kStages 64-deep stages full by TMA (A: one 128 x 64 box; W: two
+//      64 x 64 boxes, read MN-major through the transpose-B bit), each
+//      with a "full" and an "empty" mbarrier; two consumer warpgroups take
+//      64 rows each of every tile with m64n128k16 products and keep one
+//      stage's products in flight while the next stage's are issued. The
+//      bias is added in f32 on the accumulator, the tile written as bf16
+//      into swizzled shared boxes and stored by TMA, which runs on while
+//      the next tile's products do. Launched for q, k, v at once (one
+//      tensor map per weight and per output, chosen by the tile's column
+//      block; the outputs are the three column blocks of one (B, L,
+//      3 H*64) scratch) and for the out-projection of the head outputs.
+//      Stored from the accumulator's registers (4 bytes a thread, eight
+//      rows a warp), the tiles took longer than the products (0.14 of
+//      0.16 ms at the sampler's shape on the H100).
+//  (b) fused_mha_attn_kernel, per (head, batch row): K3's structure
+//      (attention_packed.cu) with the exact max-shift softmax. The head's K
+//      and V blocks come by TMA through 3-D tensor maps of the scratch,
+//      bounded at L (rows past it arrive as zeros) and stay resident; each
+//      warpgroup walks its query tiles, each from its own Q buffer. Pass 1
+//      over the key blocks keeps a running max and a rescaled sum in base
+//      2, computing block j + 1's S while it reads block j's; pass 2
+//      recomputes S (the same products, the same bits), forms p with the
+//      final max and sum, rounds it and feeds it from registers to the
+//      P V product, issued with the next block's S. Column offsets of q,
+//      k, v and the output's row stride are arguments, so the kernel
+//      serves any packed layout. Q stays in shared memory (wgmma's A from
+//      registers would cost 16 registers a thread, and at 128 a thread
+//      ptxas spilled and serialised the products).
 
-#include "attention_maxshift.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+#include "sm90_gemm.cuh"
 
 namespace {
 
-using namespace tiles;
-
 constexpr int kHeadDim = 64;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxMT = 3;  // m-tiles of 16 rows a warp owns: L <= 8 * 16 * 3
-constexpr int kKC = 64;    // depth of one projection stage
+constexpr int kTile = sm90::kTileRows;
+constexpr int kTileBytes = sm90::kTileBytes;
+constexpr int kSmemLimit = 232448;
 
-// (1): q, k, v [lp][72]; two stages of x piece [lp][72] and W piece
-// [64][72].
-__host__ __device__ constexpr size_t heads_smem_bytes(int lp) {
-  return sizeof(__nv_bfloat16) * kRowStride *
-         (3 * static_cast<size_t>(lp) + 2 * (static_cast<size_t>(lp) + kKC));
+// ---- (a) the projection GEMM ---------------------------------------------
+
+constexpr int kBM = 128;
+constexpr int kBN = 128;
+constexpr int kBK = 64;
+constexpr int kStages = 5;
+constexpr int kABytes = kBM * kBK * 2;                // 16 KB
+constexpr int kStageBytes = kABytes + kBK * kBN * 2;  // and W: 16 KB
+// A warpgroup's 64 x kBN output tile, as kBN / 64 swizzled 64 x 64 boxes.
+constexpr int kOutBytes = 64 * kBN * 2;
+constexpr int kConsumers = 256;                // two warpgroups
+constexpr int kGemmThreads = kConsumers + 32;  // and one producer warp
+constexpr size_t kGemmSmem =
+    1024 + kStages * kStageBytes + 2 * kOutBytes + 16 * kStages;
+
+// Barrier over the 128 threads of warpgroup `wg` (0 or 1).
+__device__ __forceinline__ void wg_barrier(int wg) {
+  if (wg == 0) {
+    sm90::named_barrier<1>(128);
+  } else {
+    sm90::named_barrier<2>(128);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-fused_mha_heads(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ wq,
-                const __nv_bfloat16* __restrict__ bq,
-                const __nv_bfloat16* __restrict__ wk,
-                const __nv_bfloat16* __restrict__ bk,
-                const __nv_bfloat16* __restrict__ wv,
-                const __nv_bfloat16* __restrict__ bv,
-                __nv_bfloat16* __restrict__ attn, int seq_len, int num_heads,
-                int lp, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qkv_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* buf = qkv_s + 3 * lp * kRowStride;
-  const int stage_elems = (lp + kKC) * kRowStride;
+// C_w = bf16(f32(A W_w) + b_w) for w < num_w: A (m, k), W_w (k, n) and
+// C_w (m, n) through their maps; k and n are multiples of 64.
+__global__ void __launch_bounds__(kGemmThreads, 1)
+fused_mha_proj_kernel(const __grid_constant__ CUtensorMap tm_a,
+                      const __grid_constant__ CUtensorMap tm_w0,
+                      const __grid_constant__ CUtensorMap tm_w1,
+                      const __grid_constant__ CUtensorMap tm_w2,
+                      const __grid_constant__ CUtensorMap tm_c0,
+                      const __grid_constant__ CUtensorMap tm_c1,
+                      const __grid_constant__ CUtensorMap tm_c2,
+                      const __nv_bfloat16* __restrict__ b0,
+                      const __nv_bfloat16* __restrict__ b1,
+                      const __nv_bfloat16* __restrict__ b2, int m, int n,
+                      int k, int num_w) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align_tiles(smem_raw);
+  uint8_t* out_s = smem + kStages * kStageBytes;  // warpgroup w's at w * 16 KB
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_s + 2 * kOutBytes);
+  uint64_t* empty = full + kStages;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n_per_w = (n + kBN - 1) / kBN;
+  const int n_tiles = num_w * n_per_w;
+  const int tiles = (m + kBM - 1) / kBM * n_tiles;
+  const int k_steps = k / kBK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers / 32);  // a warp's lane 0
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int mt = t / n_tiles;
+        const int nt = t - mt * n_tiles;
+        const int w = nt / n_per_w;
+        const int col0 = (nt - w * n_per_w) * kBN;
+        const CUtensorMap* tw = w == 0 ? &tm_w0 : (w == 1 ? &tm_w1 : &tm_w2);
+        for (int kb = 0; kb < k_steps; ++kb) {
+          // A fresh barrier counts its preceding phase as complete.
+          sm90::mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* a_s = smem + stage * kStageBytes;
+          uint8_t* w_s = a_s + kABytes;
+          sm90::mbar_arrive_expect_tx(&full[stage], kStageBytes);
+          sm90::tma_load_2d(a_s, &tm_a, &full[stage], kb * kBK, mt * kBM);
+          for (int i = 0; i < kBN / 64; ++i) {
+            sm90::tma_load_2d(w_s + i * kTileBytes, tw, &full[stage],
+                              col0 + 64 * i, kb * kBK);
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  uint8_t* my_out = out_s + wg * kOutBytes;
+  int stage = 0;
+  uint32_t phase = 0;
+  float acc[kBN / 2];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int mt = t / n_tiles;
+    const int nt = t - mt * n_tiles;
+    const int w = nt / n_per_w;
+    const int col0 = (nt - w * n_per_w) * kBN;
+    int prev = 0;
+    for (int kb = 0; kb < k_steps; ++kb) {
+      sm90::mbar_wait(&full[stage], phase);
+      const uint8_t* a_s = smem + stage * kStageBytes;
+      const uint64_t da = sm90::desc_k_major(a_s + wg * kTileBytes);
+      const uint64_t db = sm90::desc_mn_major_n128(a_s + kABytes);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        sm90::wgmma_ss_n128(acc, da + ks * sm90::kKMajorStep,
+                            db + ks * sm90::kMNMajorStep, kb > 0 || ks > 0);
+      }
+      sm90::wgmma_commit();
+      if (kb > 0) {  // the stage before is read: hand it back
+        sm90::wgmma_wait<1>();
+        if (lane == 0) sm90::mbar_arrive(&empty[prev]);
+      }
+      prev = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence(acc);
+    if (lane == 0) sm90::mbar_arrive(&empty[prev]);
+
+    // Bias in f32, one rounding, into the warpgroup's swizzled output
+    // boxes once TMA has read the tile before out of them; then TMA stores
+    // them (rows past m and columns past n are not written) while the next
+    // tile's products run.
+    const __nv_bfloat16* bias = w == 0 ? b0 : (w == 1 ? b1 : b2);
+    const CUtensorMap* tc = w == 0 ? &tm_c0 : (w == 1 ? &tm_c1 : &tm_c2);
+    if (tid % 128 == 0) sm90::bulk_wait_read<0>();
+    wg_barrier(wg);
+    const int r = (warp & 3) * 16 + g;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = col0 + 8 * j + 2 * t4;
+      const float bx = col < n ? __bfloat162float(bias[col]) : 0.f;
+      const float by = col < n ? __bfloat162float(bias[col + 1]) : 0.f;
+      uint8_t* box = my_out + (j / 8) * kTileBytes;
+      const int c = (8 * j + 2 * t4) % 64;
+      sm90::st_swizzled(box, r, c, acc[4 * j] + bx, acc[4 * j + 1] + by);
+      sm90::st_swizzled(box, r + 8, c, acc[4 * j + 2] + bx,
+                        acc[4 * j + 3] + by);
+    }
+    sm90::fence_proxy_async();
+    wg_barrier(wg);
+    if (tid % 128 == 0) {
+      for (int i = 0; i < kBN / 64 && col0 + 64 * i < n; ++i) {
+        sm90::tma_store_2d(tc, my_out + i * kTileBytes, col0 + 64 * i,
+                           mt * kBM + wg * 64);
+      }
+      sm90::bulk_commit();
+    }
+  }
+  if (tid % 128 == 0) sm90::bulk_wait<0>();
+}
+
+// ---- (b) the attention core ----------------------------------------------
+
+// Warpgroups a CTA: two, or one for heads of at most kShortTiles tiles
+// (as K3).
+constexpr int kShortTiles = 3;
+
+// 1 KB to align the tiles; nkb K and nkb V blocks; one Q tile a warpgroup;
+// barriers: one a K block, one a V block, one a Q tile.
+__host__ __device__ constexpr size_t attn_smem_bytes(int nkb, int groups) {
+  return 1024 + static_cast<size_t>(2 * nkb + groups) * kTileBytes +
+         8 * static_cast<size_t>(2 * nkb + groups);
+}
+
+// Three maps over (cols, L, B) row layouts (rows_map); head h's q, k, v
+// are the 64 columns at q_col + 64 h, k_col + 64 h, v_col + 64 h of their
+// maps, and its output the 64 columns at 64 h of o, o_ld elements a row.
+template <int kGroups>
+__global__ void __launch_bounds__(128 * kGroups, 4 / kGroups)
+fused_mha_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, int q_col,
+                      int k_col, int v_col, __nv_bfloat16* __restrict__ o,
+                      int o_ld, int seq_len, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align_tiles(smem_raw);
+  const int nkb = (seq_len + kTile - 1) / kTile;
+  const int nqt = nkb;
+  uint8_t* k_s = smem;  // block j at j * 8 KB
+  uint8_t* v_s = k_s + nkb * kTileBytes;
+  uint8_t* q_s = v_s + nkb * kTileBytes;  // warpgroup w's at w * 8 KB
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kTileBytes);
+  uint64_t* v_full = k_full + nkb;
+  uint64_t* q_full = v_full + nkb;
 
   const int head = blockIdx.x;
   const int batch = blockIdx.y;
-  const int hd = num_heads * kHeadDim;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int hcol = head * kHeadDim;
+
+  if (tid == 0) {
+    for (int j = 0; j < 2 * nkb + kGroups; ++j) sm90::mbar_init(&k_full[j], 1);
+    sm90::fence_barrier_init();
+    // The first Q tiles, the K blocks (pass 1 needs them first), then V.
+    for (int w = 0; w < kGroups && w < nqt; ++w) {
+      sm90::mbar_arrive_expect_tx(&q_full[w], kTileBytes);
+      sm90::tma_load_3d(q_s + w * kTileBytes, &tm_q, &q_full[w], q_col + hcol,
+                        w * kTile, batch);
+    }
+    for (int j = 0; j < nkb; ++j) {
+      sm90::mbar_arrive_expect_tx(&k_full[j], kTileBytes);
+      sm90::tma_load_3d(k_s + j * kTileBytes, &tm_k, &k_full[j], k_col + hcol,
+                        j * kTile, batch);
+    }
+    for (int j = 0; j < nkb; ++j) {
+      sm90::mbar_arrive_expect_tx(&v_full[j], kTileBytes);
+      sm90::tma_load_3d(v_s + j * kTileBytes, &tm_v, &v_full[j], v_col + hcol,
+                        j * kTile, batch);
+    }
+  }
+  __syncthreads();
+
+  const int wg = warp / 4;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const __nv_bfloat16* x_b = x + static_cast<size_t>(batch) * seq_len * hd;
-  const int n_chunks = hd / kKC;
-  const int n_stages = 3 * n_chunks;
-
-  auto load_stage = [&](int s) {
-    __nv_bfloat16* xs = buf + (s & 1) * stage_elems;
-    __nv_bfloat16* ws = xs + lp * kRowStride;
-    const int proj = s / n_chunks;
-    const int kc = s - proj * n_chunks;
-    const __nv_bfloat16* w = proj == 0 ? wq : (proj == 1 ? wk : wv);
-    // Rows past L are zero-filled, so their q, k, v are the bias: finite.
-    cp_async_tile(xs, kRowStride, x_b + kc * kKC, hd, lp, kKC, seq_len, tid,
-                  kThreads);
-    cp_async_tile(ws, kRowStride,
-                  w + static_cast<size_t>(kc) * kKC * hd + head * kHeadDim, hd,
-                  kKC, kHeadDim, kKC, tid, kThreads);
-    cp_async_commit();
+  __nv_bfloat16* out =
+      o + static_cast<size_t>(batch) * seq_len * o_ld + hcol;
+  uint8_t* my_q = q_s + wg * kTileBytes;
+  const uint64_t d_q = sm90::desc_k_major(my_q);
+  auto issue_s = [&](float (&s)[32], int j) {
+    sm90::mbar_wait(&k_full[j], 0);
+    sm90::wgmma_fence();
+    sm90::gemm_nt(s, d_q, sm90::desc_k_major(k_s + j * kTileBytes));
+    sm90::wgmma_commit();
   };
 
-  load_stage(0);
-  float acc[kMaxMT][8][4];
-#pragma unroll
-  for (int mi = 0; mi < kMaxMT; ++mi) zero_acc(acc[mi]);
+  for (int t = wg, use = 0; t < nqt; t += kGroups, ++use) {
+    sm90::mbar_wait(&q_full[wg], use & 1);
 
-  for (int s = 0; s < n_stages; ++s) {
-    if (s + 1 < n_stages) {
-      load_stage(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* xs = buf + (s & 1) * stage_elems;
-    const __nv_bfloat16* ws = xs + lp * kRowStride;
-    const int proj = s / n_chunks;
-    const int kc = s - proj * n_chunks;
+    // Pass 1: this lane's running max and rescaled sum of rows g and
+    // g + 8 over its 16 keys of each block, in base 2 (S pre-scaled by
+    // scale * log2(e)). Block j + 1's S is computed while block j's is
+    // read.
+    float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.f, l_hi = 0.f;
+    auto update = [&](float (&s)[32], int j) {
+      float b_lo = -CUDART_INF_F, b_hi = -CUDART_INF_F;
 #pragma unroll
-    for (int mi = 0; mi < kMaxMT; ++mi) {
-      const int r0 = (warp + mi * kWarps) * 16;
-      if (r0 < lp) {
+      for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-        for (int ks = 0; ks < kKC / 16; ++ks) {
-          uint32_t a[4];
-          load_a(a, xs, kRowStride, r0, ks * 16, lane);
-          acc_rows(acc[mi], a, ws, ks * 16, lane);
-        }
-      }
-    }
-    if (kc == n_chunks - 1) {
-      // Bias in f32, one rounding, into this projection's shared part.
-      const __nv_bfloat16* bias =
-          (proj == 0 ? bq : (proj == 1 ? bk : bv)) + head * kHeadDim;
-      __nv_bfloat16* dst = qkv_s + proj * lp * kRowStride;
-#pragma unroll
-      for (int mi = 0; mi < kMaxMT; ++mi) {
-        const int r0 = (warp + mi * kWarps) * 16;
-        if (r0 < lp) {
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            const int col = nt * 8 + t4 * 2;
-            const float b0 = __bfloat162float(bias[col]);
-            const float b1 = __bfloat162float(bias[col + 1]);
-            __nv_bfloat16* lo = dst + (r0 + g) * kRowStride + col;
-            *reinterpret_cast<uint32_t*>(lo) =
-                pack_bf16(acc[mi][nt][0] + b0, acc[mi][nt][1] + b1);
-            *reinterpret_cast<uint32_t*>(lo + 8 * kRowStride) =
-                pack_bf16(acc[mi][nt][2] + b0, acc[mi][nt][3] + b1);
+        for (int i = 0; i < 4; ++i) {
+          const int key = j * kTile + nt * 8 + 2 * t4 + (i & 1);
+          const float x = key < seq_len ? s[4 * nt + i] * scale_log2
+                                        : -CUDART_INF_F;
+          s[4 * nt + i] = x;
+          if (i < 2) {
+            b_lo = fmaxf(b_lo, x);
+          } else {
+            b_hi = fmaxf(b_hi, x);
           }
-          zero_acc(acc[mi]);
+        }
+      }
+      const float n_lo = fmaxf(m_lo, b_lo);
+      const float n_hi = fmaxf(m_hi, b_hi);
+      if (n_lo > -CUDART_INF_F) {  // else every key so far is masked
+        float e = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          e += sm90::exp2_ftz(s[4 * nt] - n_lo) +
+               sm90::exp2_ftz(s[4 * nt + 1] - n_lo);
+        }
+        l_lo = l_lo * sm90::exp2_ftz(m_lo - n_lo) + e;
+        m_lo = n_lo;
+      }
+      if (n_hi > -CUDART_INF_F) {
+        float e = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          e += sm90::exp2_ftz(s[4 * nt + 2] - n_hi) +
+               sm90::exp2_ftz(s[4 * nt + 3] - n_hi);
+        }
+        l_hi = l_hi * sm90::exp2_ftz(m_hi - n_hi) + e;
+        m_hi = n_hi;
+      }
+    };
+    {
+      float s0[32], s1[32];
+      issue_s(s0, 0);
+      for (int j = 0; j < nkb; j += 2) {
+        if (j + 1 < nkb) {
+          issue_s(s1, j + 1);
+          sm90::wgmma_wait<1>();
+        } else {
+          sm90::wgmma_wait<0>();
+        }
+        sm90::fence(s0);
+        update(s0, j);
+        if (j + 1 < nkb) {
+          if (j + 2 < nkb) {
+            issue_s(s0, j + 2);
+            sm90::wgmma_wait<1>();
+          } else {
+            sm90::wgmma_wait<0>();
+          }
+          sm90::fence(s1);
+          update(s1, j + 1);
         }
       }
     }
-    __syncthreads();  // the stage's buffer may be written again
-  }
+    // Merge the four lanes of a row (a lane that saw no key has l = 0).
+    const float row_m_lo = sm90::quad_max(m_lo);
+    const float row_m_hi = sm90::quad_max(m_hi);
+    const float inv_lo =
+        1.f / sm90::quad_sum(l_lo * sm90::exp2_ftz(m_lo - row_m_lo));
+    const float inv_hi =
+        1.f / sm90::quad_sum(l_hi * sm90::exp2_ftz(m_hi - row_m_hi));
 
-  // Attention on the three shared parts; a warp takes 16 query rows at a
-  // time and writes its head's 64 columns of the scratch.
-  const __nv_bfloat16* q_s = qkv_s;
-  const __nv_bfloat16* k_s = qkv_s + lp * kRowStride;
-  const __nv_bfloat16* v_s = k_s + lp * kRowStride;
-  __nv_bfloat16* out = attn + static_cast<size_t>(batch) * seq_len * hd +
-                       head * kHeadDim;
-  for (int r0 = warp * 16; r0 < seq_len; r0 += kWarps * 16) {
-    float o[8][4];
-    attn_maxshift_rows(o, q_s, r0, k_s, v_s, lp, seq_len, scale, lane);
-    store_rows(out, hd, r0 + g, seq_len, o, 1.f, 1.f, lane);
+    // Pass 2: S again, p rounded, O += p V; block j + 1's S is issued with
+    // block j's P V product.
+    float sacc[32], oacc[32];
+    uint32_t pa[16];
+    issue_s(sacc, 0);
+    sm90::wgmma_wait<0>();
+    sm90::fence(sacc);
+    for (int j = 0; j < nkb; ++j) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = j * kTile + nt * 8 + 2 * t4 + (i & 1);
+          const float rm = i < 2 ? row_m_lo : row_m_hi;
+          const float inv = i < 2 ? inv_lo : inv_hi;
+          sacc[4 * nt + i] =
+              key < seq_len
+                  ? sm90::exp2_ftz(sacc[4 * nt + i] * scale_log2 - rm) * inv
+                  : 0.f;
+        }
+      }
+      sm90::pack_a(pa, sacc);
+      sm90::mbar_wait(&v_full[j], 0);
+      sm90::wgmma_fence();
+      sm90::gemm_rn(oacc, pa, sm90::desc_mn_major(v_s + j * kTileBytes),
+                    j > 0);
+      if (j + 1 < nkb) {
+        sm90::mbar_wait(&k_full[j + 1], 0);
+        sm90::gemm_nt(sacc, d_q,
+                      sm90::desc_k_major(k_s + (j + 1) * kTileBytes));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence(oacc);
+      sm90::fence(sacc);
+    }
+
+    // The tile's products are done: its Q buffer takes the warpgroup's
+    // next tile while this one is stored.
+    if (t + kGroups < nqt) {
+      wg_barrier(wg);
+      if (tid % 128 == 0) {
+        sm90::mbar_arrive_expect_tx(&q_full[wg], kTileBytes);
+        sm90::tma_load_3d(my_q, &tm_q, &q_full[wg], q_col + hcol,
+                          (t + kGroups) * kTile, batch);
+      }
+    }
+    sm90::store_acc(out, o_ld, t * kTile + (warp % 4) * 16 + g, seq_len,
+                    oacc, 1.f, 1.f, t4);
   }
 }
 
-// (2) C = bf16(f32(A W) + bias): A (m, k), W (k, n), C (m, n) bf16
-// row-major, k and n multiples of 64. 128 x 64 tiles; warp (w % 4, w / 4)
-// owns rows 32 (w % 4) and columns 32 (w / 4) of the tile.
-constexpr int kBM = 128;
-constexpr int kBN = 64;
-constexpr int kGemmStage = (kBM + kKC) * kRowStride;
-
-__global__ void __launch_bounds__(kThreads)
-fused_mha_out_proj(const __nv_bfloat16* __restrict__ a,
-          const __nv_bfloat16* __restrict__ w,
-          const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ c,
-          int m, int n, int k) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* buf = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-  const int wr = (warp & 3) * 32;
-  const int wc = (warp >> 2) * 32;
-  const int n_stages = k / kKC;
-
-  auto load_stage = [&](int s) {
-    __nv_bfloat16* as = buf + (s & 1) * kGemmStage;
-    __nv_bfloat16* ws = as + kBM * kRowStride;
-    cp_async_tile(as, kRowStride, a + static_cast<size_t>(row0) * k + s * kKC,
-                  k, kBM, kKC, m - row0, tid, kThreads);
-    cp_async_tile(ws, kRowStride,
-                  w + static_cast<size_t>(s) * kKC * n + col0, n, kKC, kBN,
-                  kKC, tid, kThreads);
-    cp_async_commit();
-  };
-
-  load_stage(0);
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    }
-  }
-  for (int s = 0; s < n_stages; ++s) {
-    if (s + 1 < n_stages) {
-      load_stage(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* as = buf + (s & 1) * kGemmStage;
-    const __nv_bfloat16* ws = as + kBM * kRowStride;
-#pragma unroll
-    for (int ks = 0; ks < kKC / 16; ++ks) {
-      uint32_t b[2][4];
-      load_b_pair_trans(b[0], ws, kRowStride, ks * 16, wc, lane);
-      load_b_pair_trans(b[1], ws, kRowStride, ks * 16, wc + 16, lane);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        uint32_t af[4];
-        load_a(af, as, kRowStride, wr + mi * 16, ks * 16, lane);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          mma_bf16_16816(acc[mi][np * 2], af, b[np][0], b[np][1]);
-          mma_bf16_16816(acc[mi][np * 2 + 1], af, b[np][2], b[np][3]);
-        }
-      }
-    }
-    __syncthreads();  // the stage's buffer may be written again
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int row_lo = row0 + wr + mi * 16 + g;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = col0 + wc + nt * 8 + t4 * 2;
-      const float b0 = __bfloat162float(bias[col]);
-      const float b1 = __bfloat162float(bias[col + 1]);
-      if (row_lo < m) {
-        *reinterpret_cast<uint32_t*>(c + static_cast<size_t>(row_lo) * n +
-                                     col) =
-            pack_bf16(acc[mi][nt][0] + b0, acc[mi][nt][1] + b1);
-      }
-      if (row_lo + 8 < m) {
-        *reinterpret_cast<uint32_t*>(c + static_cast<size_t>(row_lo + 8) * n +
-                                     col) =
-            pack_bf16(acc[mi][nt][2] + b0, acc[mi][nt][3] + b1);
-      }
-    }
-  }
+int sm_count() {
+  static const int count = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return count;
 }
 
 }  // namespace
 
-// Largest sequence length the kernels take: a head's q, k, v and the two
-// projection stages must fit in the 227 KB of shared memory a block can
-// use, and a warp owns at most kMaxMT tiles of 16 rows.
+// Largest sequence length the attention takes (a head's K and V stay
+// resident in the 227 KB of shared memory a block can use).
 extern "C" int fused_mha_max_len() {
-  int lp = 16;
-  while (heads_smem_bytes(lp + 16) <= 232448 &&
-         lp + 16 <= kWarps * 16 * kMaxMT) {
-    lp += 16;
-  }
-  return lp;
+  int nkb = 1;
+  while (attn_smem_bytes(nkb + 1, 2) <= kSmemLimit) ++nkb;
+  return nkb * kTile;
 }
 
-// x, attn (scratch), o: (B, L, H*64) bf16; wq, wk, wv, wo: (H*64, H*64)
-// bf16 row-major (in, out); bq, bk, bv, bo: (H*64,) bf16; all contiguous
-// and 16-byte aligned. scale = 64**-0.5 in f32. Returns cudaGetLastError().
+// (a): c (m, num_w * n) = [bf16(f32(a w_i) + b_i) for i < num_w] side by
+// side; a (m, n), each w_i (n, n), b_i (n,); bf16, contiguous, 16-byte
+// aligned; n a multiple of 64, num_w 1 to 3 (unused w_i, b_i are
+// ignored). Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// shape it does not take or a tensor map the driver refuses.
+extern "C" int fused_mha_proj(const void* a, const void* w0, const void* w1,
+                              const void* w2, const void* b0, const void* b1,
+                              const void* b2, void* c, int m, int n,
+                              int num_w, void* stream) {
+  if (m <= 0 || n <= 0 || n % 64 != 0 || num_w < 1 || num_w > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* ws[3] = {w0, w1, w2};
+  CUtensorMap ta, tw[3], tc[3];
+  if (!sm90_host::matrix_map(&ta, a, m, n, n, kBM)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int i = 0; i < 3; ++i) {
+    const int src = i < num_w ? i : 0;
+    __nv_bfloat16* ci = static_cast<__nv_bfloat16*>(c) +
+                        static_cast<size_t>(src) * n;
+    if (!sm90_host::matrix_map(&tw[i], ws[src], n, n, n, kBK) ||
+        !sm90_host::matrix_map(&tc[i], ci, m, n, num_w * n, 64)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mha_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kGemmSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (m + kBM - 1) / kBM * num_w * ((n + kBN - 1) / kBN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  auto bf = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
+  fused_mha_proj_kernel<<<grid, kGemmThreads, kGemmSmem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      ta, tw[0], tw[1], tw[2], tc[0], tc[1], tc[2], bf(b0),
+      bf(num_w > 1 ? b1 : b0), bf(num_w > 2 ? b2 : b0), m, n, n, num_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (b): qkv (B, L, 3 H*64) bf16, q, k, v side by side; heads (B, L, H*64)
+// bf16 out; scale = 64**-0.5 in f32. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a length past the limit or a tensor map the
+// driver refuses.
+extern "C" int fused_mha_attention(const void* qkv, void* heads, int batch,
+                                   int seq_len, int num_heads, float scale,
+                                   void* stream) {
+  if (seq_len > fused_mha_max_len()) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hd = num_heads * kHeadDim;
+  CUtensorMap tm;
+  if (!sm90_host::rows_map(&tm, qkv, batch, seq_len, 3 * hd, 3 * hd)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nkb = (seq_len + kTile - 1) / kTile;
+  const int groups = nkb <= kShortTiles ? 1 : 2;
+  const auto kernel =
+      groups == 1 ? fused_mha_attn_kernel<1> : fused_mha_attn_kernel<2>;
+  const size_t smem = attn_smem_bytes(nkb, groups);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(num_heads, batch), 128 * groups, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      tm, tm, tm, 0, hd, 2 * hd, static_cast<__nv_bfloat16*>(heads), hd,
+      seq_len, scale * 1.44269504088896341f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, heads (scratch), o: (B, L, H*64) bf16; qkv (scratch): (B, L, 3 H*64)
+// bf16; wq, wk, wv, wo: (H*64, H*64) bf16 row-major (in, out); bq, bk, bv,
+// bo: (H*64,) bf16; all contiguous and 16-byte aligned. scale = 64**-0.5
+// in f32. The three launches: (a) q, k, v; (b) the heads; (a) the
+// out-projection. Returns the first non-zero status.
 extern "C" int fused_mha_fwd(const void* x, const void* wq, const void* bq,
                              const void* wk, const void* bk, const void* wv,
                              const void* bv, const void* wo, const void* bo,
-                             void* attn, void* o, int batch, int seq_len,
-                             int num_heads, float scale, void* stream) {
-  const int lp = (seq_len + 15) / 16 * 16;
-  if (lp > fused_mha_max_len()) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = heads_smem_bytes(lp);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mha_heads, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto bf = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
-  fused_mha_heads<<<dim3(num_heads, batch), kThreads, smem, s>>>(
-      bf(x), bf(wq), bf(bq), bf(wk), bf(bk), bf(wv), bf(bv),
-      static_cast<__nv_bfloat16*>(attn), seq_len, num_heads, lp, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Two stages of the product: 54 KB, above the 48 KB default.
-  const size_t gemm_smem = sizeof(__nv_bfloat16) * 2 * kGemmStage;
-  err = cudaFuncSetAttribute(fused_mha_out_proj,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(gemm_smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+                             void* qkv, void* heads, void* o, int batch,
+                             int seq_len, int num_heads, float scale,
+                             void* stream) {
   const int hd = num_heads * kHeadDim;
   const int m = batch * seq_len;
-  fused_mha_out_proj<<<dim3(hd / kBN, (m + kBM - 1) / kBM), kThreads,
-                       gemm_smem, s>>>(
-      bf(attn), bf(wo), bf(bo), static_cast<__nv_bfloat16*>(o), m, hd, hd);
-  return static_cast<int>(cudaGetLastError());
+  int status = fused_mha_proj(x, wq, wk, wv, bq, bk, bv, qkv, m, hd, 3,
+                              stream);
+  if (status != 0) return status;
+  status = fused_mha_attention(qkv, heads, batch, seq_len, num_heads, scale,
+                               stream);
+  if (status != 0) return status;
+  return fused_mha_proj(heads, wo, wo, wo, bo, bo, bo, o, m, hd, 1, stream);
 }

@@ -245,6 +245,12 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return v;
+}
+
 // The A operand of a following product (16 registers, bf16 pairs) from a
 // 64 x 64 f32 accumulator: contraction step j takes n-tiles 2 j and 2 j + 1.
 __device__ __forceinline__ void pack_a(uint32_t (&p)[16],

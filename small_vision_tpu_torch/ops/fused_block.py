@@ -10,7 +10,9 @@ under `attn_impl="pallas_fused"`:
   fused_mha:  q, k, v = bf16(f32(x W) + b); per head the max-shift softmax
               attention of `ops.attention.attention_plain`; then
               o = bf16(f32(attn Wo) + bo)
-              K6 (`csrc/fused_mha.cu`): q, k, v, the scores and the
+              K6 (`csrc/fused_mha.cu`): a wgmma GEMM with a bias
+              epilogue for q, k, v, a wgmma max-shift attention core,
+              the same GEMM for the out-projection; the scores and the
               probabilities never reach device memory.
 
 Sums are f32 and each result is rounded once, where the unfused modules
@@ -111,13 +113,15 @@ def _mlp_lib():
 @functools.cache
 def _mha_lib():
   lib = _build.library("fused_mha")
-  fn = lib.fused_mha_fwd
-  p, i = ctypes.c_void_p, ctypes.c_int
-  fn.argtypes = [p] * 11 + [i, i, i, ctypes.c_float, p]
-  fn.restype = i
+  p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+  lib.fused_mha_fwd.argtypes = [p] * 12 + [i, i, i, f, p]
+  lib.fused_mha_proj.argtypes = [p] * 8 + [i, i, i, p]
+  lib.fused_mha_attention.argtypes = [p, p, i, i, i, f, p]
+  for fn in (lib.fused_mha_fwd, lib.fused_mha_proj, lib.fused_mha_attention,
+             lib.fused_mha_max_len):
+    fn.restype = i
   lib.fused_mha_max_len.argtypes = []
-  lib.fused_mha_max_len.restype = i
-  return fn, lib.fused_mha_max_len()
+  return lib, lib.fused_mha_max_len()
 
 
 def fused_mlp_fwd(x, w1, b1, w2, b2):
@@ -143,10 +147,8 @@ def fused_mlp_fwd(x, w1, b1, w2, b2):
   return y
 
 
-def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
-  """Launches K6 on bf16 contiguous x (B, L, H*64), four (H*64, H*64)
-  weights and four (H*64,) biases. Sums run in a fixed order (no atomics),
-  so two launches give the same bits."""
+def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """(library, (b, l, hd)) once the arguments are what K6 takes."""
   _require(x.is_cuda, "x must be a CUDA tensor", MHA_NAME)
   _require(x.dim() == 3, f"x must be (B, L, H*D), got {tuple(x.shape)}",
            MHA_NAME)
@@ -154,25 +156,70 @@ def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   _require(hd == num_heads * attn_lib.HEAD_DIM,
            f"width {hd} != num_heads {num_heads} * head dim "
            f"{attn_lib.HEAD_DIM}", MHA_NAME)
-  fn, max_len = _mha_lib()
+  lib, max_len = _mha_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}", MHA_NAME)
   mats = {n: (t, (hd, hd)) for n, t in
           (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo))}
   vecs = {n: (t, (hd,)) for n, t in
           (("bq", bq), ("bk", bk), ("bv", bv), ("bo", bo))}
   _check_bf16(MHA_NAME, x.device, x=(x, (b, l, hd)), **mats, **vecs)
+  return lib, (b, l, hd)
+
+
+def fused_mha_max_len() -> int:
+  """The longest sequence K6 takes (builds the kernels)."""
+  return _mha_lib()[1]
+
+
+def _mha_scale():
+  return float(np.float32(1.0 / np.sqrt(attn_lib.HEAD_DIM)))
+
+
+def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """Launches K6 on bf16 contiguous x (B, L, H*64), four (H*64, H*64)
+  weights and four (H*64,) biases: the q, k, v projection, the attention
+  and the out-projection, three kernel launches through q, k, v and head
+  outputs in device memory. Sums run in a fixed order (no atomics), so two
+  launches give the same bits."""
+  lib, (b, l, hd) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
+                                 num_heads)
   o = torch.empty_like(x)
   if x.numel() == 0:
     return o
-  heads_out = torch.empty_like(x)  # the head outputs, between the kernels
-  status = fn(*(t.data_ptr() for t in (x, wq, bq, wk, bk, wv, bv, wo, bo,
-                                       heads_out, o)),
-              b, l, num_heads,
-              float(np.float32(1.0 / np.sqrt(attn_lib.HEAD_DIM))),
-              torch.cuda.current_stream(x.device).cuda_stream)
+  qkv = torch.empty(b, l, 3 * hd, dtype=x.dtype, device=x.device)
+  heads_out = torch.empty_like(x)
+  status = lib.fused_mha_fwd(
+      *(t.data_ptr() for t in (x, wq, bq, wk, bk, wv, bv, wo, bo, qkv,
+                               heads_out, o)),
+      b, l, num_heads, _mha_scale(),
+      torch.cuda.current_stream(x.device).cuda_stream)
   _build.check(status, MHA_NAME)
   _build.LAUNCHES[MHA_NAME] += 1
   return o
+
+
+def fused_mha_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """K6's three launches one by one, to time each: {"qkv_proj",
+  "attention", "out_proj": a function that launches that kernel}, on
+  buffers made here (the attention reads the q, k, v the first one
+  wrote). For measurement only: they count no launch."""
+  lib, (b, l, hd) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
+                                 num_heads)
+  qkv = torch.empty(b, l, 3 * hd, dtype=x.dtype, device=x.device)
+  heads_out, o = torch.empty_like(x), torch.empty_like(x)
+  stream = torch.cuda.current_stream(x.device).cuda_stream
+  ptr = lambda *ts: [t.data_ptr() for t in ts]
+  return {
+      "qkv_proj": lambda: _build.check(lib.fused_mha_proj(
+          *ptr(x, wq, wk, wv, bq, bk, bv, qkv), b * l, hd, 3, stream),
+          MHA_NAME),
+      "attention": lambda: _build.check(lib.fused_mha_attention(
+          qkv.data_ptr(), heads_out.data_ptr(), b, l, num_heads,
+          _mha_scale(), stream), MHA_NAME),
+      "out_proj": lambda: _build.check(lib.fused_mha_proj(
+          *ptr(heads_out, wo, wo, wo, bo, bo, bo, o), b * l, hd, 1, stream),
+          MHA_NAME),
+  }
 
 
 def _reference_grads(ctx, reference, g, *static):

@@ -14,10 +14,11 @@ and rings and at their own length limits, with 1, 3 and 12 heads and batch
 K3 and K4 past the ±80 clamp, the wrappers refusing what the kernels do
 not take (a length 16 past a kernel's limit among them), and the
 sampler's no-grad path writing no statistics and launching no backward;
-then the fused MLP (K5), the fused MHA (K6) and the [B, L, H, D] attention
-with the max-shift softmax (K7, K8) in the same way, and the seven arms of
-the ablation kernel (K9) at two small shapes whose length is not a multiple
-of 16.
+then the fused MLP (K5), the fused MHA (K6: also at the training shapes,
+at ragged lengths, at width 1,024 and at its own length limit) and the
+[B, L, H, D] attention with the max-shift softmax (K7, K8) in the same
+way, and the seven arms of the ablation kernel (K9) at two small shapes
+whose length is not a multiple of 16.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -443,10 +444,19 @@ def test_fused_mlp_dispatch_and_refusals(cuda):
     fb.fused_mlp_fwd(x.transpose(0, 1), w1, b1, w2, b2)
 
 
+MAX_LEN = -1  # stands for fb.fused_mha_max_len(), known once built
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,heads", [(3, 20, 12), (2, 37, 3), (4, 260, 12),
-                                       (4, 257, 12), (2, 272, 2)])
+@pytest.mark.parametrize("b,l,heads", [
+    (3, 20, 12), (2, 37, 3), (4, 260, 12), (4, 257, 12), (2, 272, 2),
+    (128, 68, 12), (128, 164, 12), (128, 257, 12),  # the training shapes
+    (3, 65, 12), (3, 200, 12),  # ragged: not a multiple of 16 or 64
+    (4, 260, 16),  # width 1,024
+    (2, MAX_LEN, 2)])
 def test_fused_mha_kernel_matches_plain(cuda, b, l, heads):
+  if l == MAX_LEN:
+    l = fb.fused_mha_max_len()
   args = _mha_args(cuda, b, l, heads)
   before = _build.LAUNCHES[fb.MHA_NAME]
   got = fb.fused_mha_fwd(*args, heads)
