@@ -12,9 +12,11 @@ Phases, each fatal on failure:
                training shapes (per-branch batch 128, L = 68, 164, 257),
                each launched twice to show equal bits (K3 also at the
                training shapes, launched twice too), the fused MLP
-               and MHA (K5, K6) at both (K6 also with the time of each of
-               its three launches), and the seven arms of the ablation
-               kernel (K9) at the tool's two shapes.
+               and MHA (K5, K6) at both, each launched twice to show equal
+               bits and with the time of each of its kernels (K5's two,
+               K6's three), K5 also at width 1,024 with hidden 4,096, and
+               the seven arms of the ablation kernel (K9) at the tool's
+               two shapes.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
@@ -424,39 +426,62 @@ def _close_to_max(got, want, ulps):
 # decoder, and the three training shapes.
 FUSED_SHAPES = ((BATCH, SEQ_ENC), (BATCH, SEQ_DEC)) + tuple(
     (TRAIN_BATCH // 2, l) for l in TRAIN_SEQS)
+# K5's (batch, length, width): those at width 768, and one at UMD-L/2's
+# width 1,024.
+FUSED_SHAPES_MLP = tuple((b, l, WIDTH) for b, l in FUSED_SHAPES) + (
+    (BATCH, SEQ_DEC, 1024),)
 
 
 def check_fused_mlp(fb, card):
-  """K5 against its plain version at the sampler's and training shapes."""
+  """K5 against its plain version at the sampler's and training shapes, two
+  launches giving equal bits, with the time of each of its two launches;
+  and once at width 1,024 with hidden 4,096 (UMD-L/2's MLP)."""
   gen = torch.Generator(device="cuda").manual_seed(4)
   randn = lambda *s, std=1.0: (torch.randn(*s, generator=gen, device="cuda")
                                * std).to(torch.bfloat16)
-  w1, b1 = randn(WIDTH, MLP_DIM, std=WIDTH**-0.5), randn(MLP_DIM, std=0.1)
-  w2, b2 = randn(MLP_DIM, WIDTH, std=MLP_DIM**-0.5), randn(WIDTH, std=0.1)
   lin = torch.nn.functional.linear
-  w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+
+  def weights(width, hidden):
+    return (randn(width, hidden, std=width**-0.5), randn(hidden, std=0.1),
+            randn(hidden, width, std=hidden**-0.5), randn(width, std=0.1))
+
+  params = {WIDTH: weights(WIDTH, MLP_DIM)}
   max_err, by_shape = 0.0, {}
-  for b, seq in FUSED_SHAPES:
-    x = randn(b, seq, WIDTH)
+  for b, seq, width in FUSED_SHAPES_MLP:
+    if width not in params:
+      params[width] = weights(width, 4 * width)
+    w1, b1, w2, b2 = params[width]
+    hidden = w1.shape[1]
+    x = randn(b, seq, width)
     args = (x, w1, b1, w2, b2)
     got = fb.fused_mlp_fwd(*args)
+    again = fb.fused_mlp_fwd(*args)
     want = fb.fused_mlp_plain(*args)
     torch.cuda.synchronize()
-    # bf16 hidden activations and outputs on both sides; f32 sums over 768
-    # and 3,072 terms in another order may flip the rounding of a hidden
-    # value, which moves an output by about one bf16 ulp: allow two ulps of
-    # the largest output.
+    if not torch.equal(got, again):
+      fail(f"fused_mlp_fwd B={b} L={seq} D={width}: two launches differ")
+    # bf16 hidden activations and outputs on both sides; f32 sums over the
+    # width and the hidden width in another order may flip the rounding of
+    # a hidden value, which moves an output by about one bf16 ulp: allow
+    # two ulps of the largest output.
     err, ok = _close_to_max(got, want, 2)
     max_err = max(max_err, err)
-    print(f"[kernels] fused_mlp_fwd B={b} L={seq}: max abs err {err:.3e} of "
-          f"max {want.float().abs().max().item():.3e} (tolerance 2 bf16 "
-          "ulps of the max)", flush=True)
+    print(f"[kernels] fused_mlp_fwd B={b} L={seq} D={width}: max abs err "
+          f"{err:.3e} of max {want.float().abs().max().item():.3e} (tolerance "
+          "2 bf16 ulps of the max), two launches equal", flush=True)
     if not ok:
       fail(f"fused_mlp_fwd disagrees with its plain version ({err:.3e})")
+    if width != WIDTH:
+      print(f"[kernels] fused_mlp_fwd B={b} L={seq} D={width} hidden="
+            f"{hidden}: kernel "
+            f"{time_ms(lambda: fb.fused_mlp_fwd(*args), iters=20):.4f} ms on "
+            f"{card}", flush=True)
+      continue
     rows = b * seq
-    bytes_moved = (2 * rows * WIDTH + 2 * WIDTH * MLP_DIM + MLP_DIM
-                   + WIDTH) * 2
-    flops = 4 * rows * WIDTH * MLP_DIM
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    bytes_moved = (2 * rows * width + 2 * width * hidden + hidden
+                   + width) * 2
+    flops = 4 * rows * width * hidden
     bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
     by_shape[f"{b}x{seq}"] = dict(
         ms=time_ms(lambda: fb.fused_mlp_fwd(*args), iters=20),
@@ -465,8 +490,12 @@ def check_fused_mlp(fb, card):
         library_ms=time_ms(lambda: lin(torch.nn.functional.gelu(
             lin(x, w1t, b1), approximate="tanh"), w2t, b2), iters=20),
         bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] fused_mlp_fwd B={b} L={seq} D={WIDTH} hidden="
-          f"{MLP_DIM}: {_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} bytes, "
+    # The two launches of one call, each timed alone.
+    stages = fb.fused_mlp_stages(*args)
+    by_shape[f"{b}x{seq}"]["stage_ms"] = {
+        name: time_ms(launch, iters=20) for name, launch in stages.items()}
+    print(f"[kernels] fused_mlp_fwd B={b} L={seq} D={width} hidden="
+          f"{hidden}: {_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} bytes, "
           f"{flops} flops) on {card}", flush=True)
   return dict(name=fb.MLP_NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/fused_mlp.cu",

@@ -21,24 +21,13 @@
 // rounds them to as well: 2 x 76.7 MB at the sampler's shape, 0.046 ms,
 // still below the operations. Three launches of two kernels, no atomics
 // and no split-K, so two calls give the same bits:
-//  (a) fused_mha_proj_kernel, C = bf16(f32(A W) + bias) on wgmma. A is
-//      (M, K) and W (K, N) row-major, as the weights lie. A persistent CTA
-//      a SM walks 128 x 128 output tiles (row block outermost, so the CTAs
-//      in flight share their A rows in L2); its producer warp keeps a ring
-//      of kStages 64-deep stages full by TMA (A: one 128 x 64 box; W: two
-//      64 x 64 boxes, read MN-major through the transpose-B bit), each
-//      with a "full" and an "empty" mbarrier; two consumer warpgroups take
-//      64 rows each of every tile with m64n128k16 products and keep one
-//      stage's products in flight while the next stage's are issued. The
-//      bias is added in f32 on the accumulator, the tile written as bf16
-//      into swizzled shared boxes and stored by TMA, which runs on while
-//      the next tile's products do. Launched for q, k, v at once (one
-//      tensor map per weight and per output, chosen by the tile's column
-//      block; the outputs are the three column blocks of one (B, L,
-//      3 H*64) scratch) and for the out-projection of the head outputs.
-//      Stored from the accumulator's registers (4 bytes a thread, eight
-//      rows a warp), the tiles took longer than the products (0.14 of
-//      0.16 ms at the sampler's shape on the H100).
+//  (a) fused_mha_proj_kernel, C = bf16(f32(A W) + bias): the persistent
+//      wgmma GEMM of sm90_gemm.cuh (`gemm_bias_tiles`, its design there)
+//      with 128 x 128 tiles and a 5-stage ring. Launched for q, k, v at
+//      once (one tensor map per weight and per output, chosen by the
+//      tile's column block; the outputs are the three column blocks of one
+//      (B, L, 3 H*64) scratch) and for the out-projection of the head
+//      outputs.
 //  (b) fused_mha_attn_kernel, per (head, batch row): K3's structure
 //      (attention_packed.cu) with the exact max-shift softmax. The head's K
 //      and V blocks come by TMA through 3-D tensor maps of the scratch,
@@ -67,34 +56,15 @@ constexpr int kHeadDim = 64;
 constexpr int kTile = sm90::kTileRows;
 constexpr int kTileBytes = sm90::kTileBytes;
 constexpr int kSmemLimit = 232448;
+using sm90::wg_barrier;
 
 // ---- (a) the projection GEMM ---------------------------------------------
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 64;
-constexpr int kStages = 5;
-constexpr int kABytes = kBM * kBK * 2;                // 16 KB
-constexpr int kStageBytes = kABytes + kBK * kBN * 2;  // and W: 16 KB
-// A warpgroup's 64 x kBN output tile, as kBN / 64 swizzled 64 x 64 boxes.
-constexpr int kOutBytes = 64 * kBN * 2;
-constexpr int kConsumers = 256;                // two warpgroups
-constexpr int kGemmThreads = kConsumers + 32;  // and one producer warp
-constexpr size_t kGemmSmem =
-    1024 + kStages * kStageBytes + 2 * kOutBytes + 16 * kStages;
-
-// Barrier over the 128 threads of warpgroup `wg` (0 or 1).
-__device__ __forceinline__ void wg_barrier(int wg) {
-  if (wg == 0) {
-    sm90::named_barrier<1>(128);
-  } else {
-    sm90::named_barrier<2>(128);
-  }
-}
+using ProjTiles = sm90::GemmTiles<128, 5>;
 
 // C_w = bf16(f32(A W_w) + b_w) for w < num_w: A (m, k), W_w (k, n) and
 // C_w (m, n) through their maps; k and n are multiples of 64.
-__global__ void __launch_bounds__(kGemmThreads, 1)
+__global__ void __launch_bounds__(sm90::kGemmThreads, 1)
 fused_mha_proj_kernel(const __grid_constant__ CUtensorMap tm_a,
                       const __grid_constant__ CUtensorMap tm_w0,
                       const __grid_constant__ CUtensorMap tm_w1,
@@ -107,128 +77,9 @@ fused_mha_proj_kernel(const __grid_constant__ CUtensorMap tm_a,
                       const __nv_bfloat16* __restrict__ b2, int m, int n,
                       int k, int num_w) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = sm90::align_tiles(smem_raw);
-  uint8_t* out_s = smem + kStages * kStageBytes;  // warpgroup w's at w * 16 KB
-  uint64_t* full = reinterpret_cast<uint64_t*>(out_s + 2 * kOutBytes);
-  uint64_t* empty = full + kStages;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int n_per_w = (n + kBN - 1) / kBN;
-  const int n_tiles = num_w * n_per_w;
-  const int tiles = (m + kBM - 1) / kBM * n_tiles;
-  const int k_steps = k / kBK;
-
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], kConsumers / 32);  // a warp's lane 0
-    }
-    sm90::fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (warp == kConsumers / 32) {  // the producer
-    if (lane == 0) {
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int mt = t / n_tiles;
-        const int nt = t - mt * n_tiles;
-        const int w = nt / n_per_w;
-        const int col0 = (nt - w * n_per_w) * kBN;
-        const CUtensorMap* tw = w == 0 ? &tm_w0 : (w == 1 ? &tm_w1 : &tm_w2);
-        for (int kb = 0; kb < k_steps; ++kb) {
-          // A fresh barrier counts its preceding phase as complete.
-          sm90::mbar_wait(&empty[stage], phase ^ 1);
-          uint8_t* a_s = smem + stage * kStageBytes;
-          uint8_t* w_s = a_s + kABytes;
-          sm90::mbar_arrive_expect_tx(&full[stage], kStageBytes);
-          sm90::tma_load_2d(a_s, &tm_a, &full[stage], kb * kBK, mt * kBM);
-          for (int i = 0; i < kBN / 64; ++i) {
-            sm90::tma_load_2d(w_s + i * kTileBytes, tw, &full[stage],
-                              col0 + 64 * i, kb * kBK);
-          }
-          if (++stage == kStages) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
-    return;
-  }
-
-  const int wg = warp >> 2;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  uint8_t* my_out = out_s + wg * kOutBytes;
-  int stage = 0;
-  uint32_t phase = 0;
-  float acc[kBN / 2];
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int mt = t / n_tiles;
-    const int nt = t - mt * n_tiles;
-    const int w = nt / n_per_w;
-    const int col0 = (nt - w * n_per_w) * kBN;
-    int prev = 0;
-    for (int kb = 0; kb < k_steps; ++kb) {
-      sm90::mbar_wait(&full[stage], phase);
-      const uint8_t* a_s = smem + stage * kStageBytes;
-      const uint64_t da = sm90::desc_k_major(a_s + wg * kTileBytes);
-      const uint64_t db = sm90::desc_mn_major_n128(a_s + kABytes);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) {
-        sm90::wgmma_ss_n128(acc, da + ks * sm90::kKMajorStep,
-                            db + ks * sm90::kMNMajorStep, kb > 0 || ks > 0);
-      }
-      sm90::wgmma_commit();
-      if (kb > 0) {  // the stage before is read: hand it back
-        sm90::wgmma_wait<1>();
-        if (lane == 0) sm90::mbar_arrive(&empty[prev]);
-      }
-      prev = stage;
-      if (++stage == kStages) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-    sm90::wgmma_wait<0>();
-    sm90::fence(acc);
-    if (lane == 0) sm90::mbar_arrive(&empty[prev]);
-
-    // Bias in f32, one rounding, into the warpgroup's swizzled output
-    // boxes once TMA has read the tile before out of them; then TMA stores
-    // them (rows past m and columns past n are not written) while the next
-    // tile's products run.
-    const __nv_bfloat16* bias = w == 0 ? b0 : (w == 1 ? b1 : b2);
-    const CUtensorMap* tc = w == 0 ? &tm_c0 : (w == 1 ? &tm_c1 : &tm_c2);
-    if (tid % 128 == 0) sm90::bulk_wait_read<0>();
-    wg_barrier(wg);
-    const int r = (warp & 3) * 16 + g;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      const int col = col0 + 8 * j + 2 * t4;
-      const float bx = col < n ? __bfloat162float(bias[col]) : 0.f;
-      const float by = col < n ? __bfloat162float(bias[col + 1]) : 0.f;
-      uint8_t* box = my_out + (j / 8) * kTileBytes;
-      const int c = (8 * j + 2 * t4) % 64;
-      sm90::st_swizzled(box, r, c, acc[4 * j] + bx, acc[4 * j + 1] + by);
-      sm90::st_swizzled(box, r + 8, c, acc[4 * j + 2] + bx,
-                        acc[4 * j + 3] + by);
-    }
-    sm90::fence_proxy_async();
-    wg_barrier(wg);
-    if (tid % 128 == 0) {
-      for (int i = 0; i < kBN / 64 && col0 + 64 * i < n; ++i) {
-        sm90::tma_store_2d(tc, my_out + i * kTileBytes, col0 + 64 * i,
-                           mt * kBM + wg * 64);
-      }
-      sm90::bulk_commit();
-    }
-  }
-  if (tid % 128 == 0) sm90::bulk_wait<0>();
+  sm90::gemm_bias_tiles<sm90::BiasOnly, ProjTiles>(
+      smem_raw, &tm_a, &tm_w0, &tm_w1, &tm_w2, &tm_c0, &tm_c1, &tm_c2, b0, b1,
+      b2, m, n, k, num_w);
 }
 
 // ---- (b) the attention core ----------------------------------------------
@@ -440,16 +291,6 @@ fused_mha_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-int sm_count() {
-  static const int count = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n > 0 ? n : 1;
-  }();
-  return count;
-}
-
 }  // namespace
 
 // Largest sequence length the attention takes (a head's K and V stay
@@ -474,26 +315,28 @@ extern "C" int fused_mha_proj(const void* a, const void* w0, const void* w1,
   }
   const void* ws[3] = {w0, w1, w2};
   CUtensorMap ta, tw[3], tc[3];
-  if (!sm90_host::matrix_map(&ta, a, m, n, n, kBM)) {
+  if (!sm90_host::matrix_map(&ta, a, m, n, n, ProjTiles::kBM)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int i = 0; i < 3; ++i) {
     const int src = i < num_w ? i : 0;
     __nv_bfloat16* ci = static_cast<__nv_bfloat16*>(c) +
                         static_cast<size_t>(src) * n;
-    if (!sm90_host::matrix_map(&tw[i], ws[src], n, n, n, kBK) ||
+    if (!sm90_host::matrix_map(&tw[i], ws[src], n, n, n, ProjTiles::kBK) ||
         !sm90_host::matrix_map(&tc[i], ci, m, n, num_w * n, 64)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   cudaError_t err = cudaFuncSetAttribute(
       fused_mha_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kGemmSmem));
+      static_cast<int>(ProjTiles::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (m + kBM - 1) / kBM * num_w * ((n + kBN - 1) / kBN);
-  const int grid = tiles < sm_count() ? tiles : sm_count();
+  const int tiles = (m + ProjTiles::kBM - 1) / ProjTiles::kBM * num_w *
+                    ((n + ProjTiles::kBN - 1) / ProjTiles::kBN);
+  const int sms = sm90_host::sm_count();
+  const int grid = tiles < sms ? tiles : sms;
   auto bf = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
-  fused_mha_proj_kernel<<<grid, kGemmThreads, kGemmSmem,
+  fused_mha_proj_kernel<<<grid, sm90::kGemmThreads, ProjTiles::kSmem,
                           static_cast<cudaStream_t>(stream)>>>(
       ta, tw[0], tw[1], tw[2], tc[0], tc[1], tc[2], bf(b0),
       bf(num_w > 1 ? b1 : b0), bf(num_w > 2 ? b2 : b0), m, n, n, num_w);

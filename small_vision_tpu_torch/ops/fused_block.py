@@ -5,8 +5,10 @@ Counterpart of small_vision_tpu/ops/fused_block.py, which the model runs
 under `attn_impl="pallas_fused"`:
 
   fused_mlp:  y = bf16(f32(bf16(gelu_tanh(f32(x W1) + b1)) W2) + b2)
-              K5 (`csrc/fused_mlp.cu`): the (B, L, hidden) activations
-              never reach device memory.
+              K5 (`csrc/fused_mlp.cu`): two launches of a wgmma GEMM, the
+              up-projection with the bias and gelu on its accumulator, the
+              down-projection with the bias; the bf16 (B, L, hidden)
+              activations make one round trip through device memory.
   fused_mha:  q, k, v = bf16(f32(x W) + b); per head the max-shift softmax
               attention of `ops.attention.attention_plain`; then
               o = bf16(f32(attn Wo) + bo)
@@ -98,16 +100,21 @@ def _check_bf16(name, device, **tensors):
              f"on {device}, got {t.dtype} {tuple(t.shape)}", name)
 
 
+# K5 takes widths and hidden widths that are multiples of this (its tiles
+# are 64 columns wide and 64 deep).
+MLP_MULTIPLE = 64
+
+
 @functools.cache
 def _mlp_lib():
   lib = _build.library("fused_mlp")
-  fn = lib.fused_mlp_fwd
   p, i = ctypes.c_void_p, ctypes.c_int
-  fn.argtypes = [p, p, p, p, p, p, i, i, p]
-  fn.restype = i
-  for f in (lib.fused_mlp_width, lib.fused_mlp_hidden_multiple):
-    f.argtypes, f.restype = [], i
-  return fn, lib.fused_mlp_width(), lib.fused_mlp_hidden_multiple()
+  lib.fused_mlp_fwd.argtypes = [p] * 7 + [i, i, i, p]
+  lib.fused_mlp_up.argtypes = [p] * 4 + [i, i, i, p]
+  lib.fused_mlp_down.argtypes = [p] * 4 + [i, i, i, p]
+  for fn in (lib.fused_mlp_fwd, lib.fused_mlp_up, lib.fused_mlp_down):
+    fn.restype = i
+  return lib
 
 
 @functools.cache
@@ -124,27 +131,55 @@ def _mha_lib():
   return lib, lib.fused_mha_max_len()
 
 
-def fused_mlp_fwd(x, w1, b1, w2, b2):
-  """Launches K5 on bf16 contiguous x (..., 768), w1 (768, hidden), b1
-  (hidden,), w2 (hidden, 768), b2 (768,)."""
+def _mlp_checked(x, w1, b1, w2, b2):
+  """(library, rows, width, hidden) once the arguments are what K5 takes."""
   _require(x.is_cuda, "x must be a CUDA tensor", MLP_NAME)
-  fn, width, multiple = _mlp_lib()
   d, hidden = x.shape[-1], w1.shape[-1]
-  _require(d == width, f"width {d} != {width}, the width the kernel is "
-           "built for", MLP_NAME)
-  _require(hidden > 0 and hidden % multiple == 0,
-           f"hidden width {hidden} is not a multiple of {multiple}", MLP_NAME)
+  _require(d > 0 and d % MLP_MULTIPLE == 0,
+           f"width {d} is not a multiple of {MLP_MULTIPLE}", MLP_NAME)
+  _require(hidden > 0 and hidden % MLP_MULTIPLE == 0,
+           f"hidden width {hidden} is not a multiple of {MLP_MULTIPLE}",
+           MLP_NAME)
   _check_bf16(MLP_NAME, x.device, x=(x, tuple(x.shape)), w1=(w1, (d, hidden)),
               b1=(b1, (hidden,)), w2=(w2, (hidden, d)), b2=(b2, (d,)))
+  return _mlp_lib(), x.numel() // d, d, hidden
+
+
+def fused_mlp_fwd(x, w1, b1, w2, b2):
+  """Launches K5 on bf16 contiguous x (..., D), w1 (D, hidden), b1
+  (hidden,), w2 (hidden, D), b2 (D,), D and hidden multiples of 64: the
+  up-projection with gelu into a (rows, hidden) scratch, then the
+  down-projection, two kernel launches. Sums run in a fixed order (no
+  atomics), so two launches give the same bits."""
+  lib, rows, d, hidden = _mlp_checked(x, w1, b1, w2, b2)
   y = torch.empty_like(x)
-  if x.numel() == 0:
+  if rows == 0:
     return y
-  status = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-              b2.data_ptr(), y.data_ptr(), x.numel() // d, hidden,
-              torch.cuda.current_stream(x.device).cuda_stream)
+  h = torch.empty(rows, hidden, dtype=x.dtype, device=x.device)
+  status = lib.fused_mlp_fwd(
+      *(t.data_ptr() for t in (x, w1, b1, w2, b2, h, y)), rows, d, hidden,
+      torch.cuda.current_stream(x.device).cuda_stream)
   _build.check(status, MLP_NAME)
   _build.LAUNCHES[MLP_NAME] += 1
   return y
+
+
+def fused_mlp_stages(x, w1, b1, w2, b2):
+  """K5's two launches one by one, to time each: {"up", "down": a function
+  that launches that kernel}, on buffers made here (the down-projection
+  reads the h the first one wrote). For measurement only: they count no
+  launch."""
+  lib, rows, d, hidden = _mlp_checked(x, w1, b1, w2, b2)
+  h = torch.empty(rows, hidden, dtype=x.dtype, device=x.device)
+  y = torch.empty_like(x)
+  stream = torch.cuda.current_stream(x.device).cuda_stream
+  ptr = lambda *ts: [t.data_ptr() for t in ts]
+  return {
+      "up": lambda: _build.check(lib.fused_mlp_up(
+          *ptr(x, w1, b1, h), rows, d, hidden, stream), MLP_NAME),
+      "down": lambda: _build.check(lib.fused_mlp_down(
+          *ptr(h, w2, b2, y), rows, d, hidden, stream), MLP_NAME),
+  }
 
 
 def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):

@@ -30,7 +30,7 @@ import torch
 CLASSES = (
     ("ln_modulate_fwd", re.compile(r"ln_modulate_fwd_kernel")),
     ("attention_packed_fwd", re.compile(r"attention_packed_fwd_kernel")),
-    ("fused_mlp_fwd", re.compile(r"fused_mlp_kernel")),
+    ("fused_mlp_fwd", re.compile(r"fused_mlp_(up|down)_kernel")),
     ("fused_mha_fwd", re.compile(r"fused_mha_(proj|attn)_kernel")),
     ("matmul", re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)),
 )

@@ -42,7 +42,7 @@ CLASSES = (
     ("K2 ln_modulate_bwd", re.compile(r"ln_bwd_rows|ln_bwd_finish")),
     ("K3 attention_packed_fwd", re.compile(r"attention_packed_fwd_kernel")),
     ("K4 attention_packed_bwd", re.compile(r"attn_bwd_dq|attn_bwd_dkdv")),
-    ("K5 fused_mlp_fwd", re.compile(r"fused_mlp_kernel")),
+    ("K5 fused_mlp_fwd", re.compile(r"fused_mlp_(up|down)_kernel")),
     ("K6 fused_mha_fwd", re.compile(r"fused_mha_(proj|attn)_kernel")),
     ("matmul", re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)),
 )

@@ -33,10 +33,10 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _mlp_args(l, seed=0, d=D, dh=DH):
+def _mlp_args(l, seed=0, d=D, dh=DH, b=B):
   rng = np.random.default_rng(seed)
   n = lambda *s: rng.standard_normal(s).astype(np.float32)
-  return (n(B, l, d), n(d, dh) * 0.08, n(dh) * 0.02, n(dh, d) * 0.08,
+  return (n(b, l, d), n(d, dh) * 0.08, n(dh) * 0.02, n(dh, d) * 0.08,
           n(d) * 0.02)
 
 
@@ -88,6 +88,42 @@ def test_fused_mlp_matches_jax_bf16(l):
   want = jfb.fused_mlp(*_jax(args, jnp.bfloat16), True)
   got = tfb.fused_mlp(*_torch(args, torch.bfloat16))
   assert got.dtype == torch.bfloat16
+  _assert_bf16_close(_np(got), _np(want))
+
+
+def test_fused_mlp_matches_jax_bf16_at_the_model_width():
+  """UMD-B's MLP (width 768, hidden 3,072) against the JAX kernel in
+  interpret mode, at L=16: the JAX kernel keeps both weights (9.4 MB) in
+  its 11 MiB VMEM budget (`_pick_bb`), which leaves room for the rows of
+  L=16 and of no length past 48."""
+  args = _mlp_args(16, seed=5, d=768, dh=3072, b=2)
+  want = jfb.fused_mlp(*_jax(args, jnp.bfloat16), True)
+  got = tfb.fused_mlp(*_torch(args, torch.bfloat16))
+  _assert_bf16_close(_np(got), _np(want))
+
+
+def _mlp_kernel_math(x, w1, b1, w2, b2):
+  """The body of the JAX `_mlp_kernel`, in jnp outside Pallas."""
+  h = jnp.dot(x, w1, preferred_element_type=jnp.float32) + b1
+  h = jax.nn.gelu(h).astype(x.dtype)
+  return (jnp.dot(h, w2, preferred_element_type=jnp.float32)
+          + b2).astype(x.dtype)
+
+
+@pytest.mark.parametrize("l,d,dh", [(68, 768, 3072), (16, 1024, 4096)])
+def test_fused_mlp_matches_the_jax_kernel_math_where_the_kernel_refuses(
+    l, d, dh):
+  """The main path's MLP shapes that the JAX kernel refuses: its VMEM
+  budget (`_pick_bb`, 11 MiB) holds the weights and the rows of width 768
+  only up to L=48 (the MAE encoder runs at L=68), and not the weights of
+  width 1,024 (UMD-L/2) at all. The port computes the same function
+  there; it is held against the kernel's own arithmetic."""
+  args = _mlp_args(l, seed=6, d=d, dh=dh, b=2)
+  jargs = _jax(args, jnp.bfloat16)
+  with pytest.raises(ValueError, match="cannot fit in VMEM"):
+    jfb.fused_mlp(*jargs, True)
+  want = _mlp_kernel_math(*jargs)
+  got = tfb.fused_mlp(*_torch(args, torch.bfloat16))
   _assert_bf16_close(_np(got), _np(want))
 
 

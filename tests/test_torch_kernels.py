@@ -14,7 +14,9 @@ and rings and at their own length limits, with 1, 3 and 12 heads and batch
 K3 and K4 past the ±80 clamp, the wrappers refusing what the kernels do
 not take (a length 16 past a kernel's limit among them), and the
 sampler's no-grad path writing no statistics and launching no backward;
-then the fused MLP (K5), the fused MHA (K6: also at the training shapes,
+then the fused MLP (K5: also at the training shapes, at a ragged row
+count, at width 1,024 and at a hidden width that is not a multiple of 128;
+its stage timer), the fused MHA (K6: also at the training shapes,
 at ragged lengths, at width 1,024 and at its own length limit) and the
 [B, L, H, D] attention with the max-shift softmax (K7, K8) in the same
 way, and the seven arms of the ablation kernel (K9) at two small shapes
@@ -413,17 +415,26 @@ def _assert_close_to_max(got, want, ulps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows_shape", [(3, 20), (8, 260), (1, 64), (130,)])
-def test_fused_mlp_kernel_matches_plain(cuda, rows_shape):
-  args = _mlp_args(cuda, rows_shape)
+@pytest.mark.parametrize("rows_shape,d,hidden", [
+    ((3, 20), 768, 3072), ((8, 260), 768, 3072), ((1, 64), 768, 3072),
+    ((130,), 768, 3072),
+    ((128, 68), 768, 3072), ((128, 164), 768, 3072),  # the training shapes
+    ((128, 257), 768, 3072),
+    ((3, 65), 768, 3072),  # ragged: not a multiple of 64 or 128 rows
+    ((4, 257), 1024, 4096),  # width 1,024
+    ((3, 20), 768, 1088)])  # hidden a multiple of 64, not of 128
+def test_fused_mlp_kernel_matches_plain(cuda, rows_shape, d, hidden):
+  args = _mlp_args(cuda, rows_shape, d, hidden)
   before = _build.LAUNCHES[fb.MLP_NAME]
   got = fb.fused_mlp_fwd(*args)
   assert _build.LAUNCHES[fb.MLP_NAME] == before + 1
   assert got.shape == args[0].shape and got.dtype == torch.bfloat16
   # bf16 hidden activations and outputs on both sides; the f32 sums over
-  # 768 and 3,072 terms run in another order, which may flip the rounding
-  # of a hidden value and moves an output by about an ulp: allow two.
+  # the width and the hidden width run in another order, which may flip
+  # the rounding of a hidden value and moves an output by about an ulp:
+  # allow two.
   _assert_close_to_max(got, fb.fused_mlp_plain(*args), 2)
+  assert torch.equal(got, fb.fused_mlp_fwd(*args))  # no atomics
 
 
 @pytest.mark.cuda
@@ -434,14 +445,33 @@ def test_fused_mlp_dispatch_and_refusals(cuda):
   assert dict(_build.LAUNCHES) == {fb.MLP_NAME: 1}
   with pytest.raises(ValueError, match="bfloat16"):
     fb.fused_mlp_fwd(x.float(), w1, b1, w2, b2)
-  with pytest.raises(ValueError, match="width"):
-    fb.fused_mlp_fwd(x[..., :256].contiguous(), w1[:256].contiguous(), b1,
-                     w2[:, :256].contiguous(), b2[:256].contiguous())
-  with pytest.raises(ValueError, match="multiple"):
+  narrow = _mlp_args(cuda, (2, 20), d=256, hidden=1024)
+  _assert_close_to_max(fb.fused_mlp_fwd(*narrow), fb.fused_mlp_plain(*narrow),
+                       2)
+  with pytest.raises(ValueError, match="width 96 is not a multiple of 64"):
+    fb.fused_mlp_fwd(*_mlp_args(cuda, (2, 20), d=96, hidden=384))
+  with pytest.raises(ValueError,
+                     match="hidden width 100 is not a multiple of 64"):
     fb.fused_mlp_fwd(x, w1[:, :100].contiguous(), b1[:100].contiguous(),
                      w2[:100].contiguous(), b2)
   with pytest.raises(ValueError, match="contiguous"):
     fb.fused_mlp_fwd(x.transpose(0, 1), w1, b1, w2, b2)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_stages_launch_both_kernels_and_count_nothing(cuda):
+  args = _mlp_args(cuda, (2, 65))
+  stages = fb.fused_mlp_stages(*args)
+  assert set(stages) == {"up", "down"}
+  _build.reset_launches()
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    stages["up"]()
+    stages["down"]()
+    torch.cuda.synchronize()
+  assert not _build.LAUNCHES
+  names = " ".join(e.name for e in prof.events())
+  assert "fused_mlp_up_kernel" in names and "fused_mlp_down_kernel" in names
 
 
 MAX_LEN = -1  # stands for fb.fused_mha_max_len(), known once built
