@@ -471,19 +471,15 @@ def check_fused_mlp(fb, card):
           "2 bf16 ulps of the max), two launches equal", flush=True)
     if not ok:
       fail(f"fused_mlp_fwd disagrees with its plain version ({err:.3e})")
-    if width != WIDTH:
-      print(f"[kernels] fused_mlp_fwd B={b} L={seq} D={width} hidden="
-            f"{hidden}: kernel "
-            f"{time_ms(lambda: fb.fused_mlp_fwd(*args), iters=20):.4f} ms on "
-            f"{card}", flush=True)
-      continue
     rows = b * seq
     w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     bytes_moved = (2 * rows * width + 2 * width * hidden + hidden
                    + width) * 2
     flops = 4 * rows * width * hidden
     bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
-    by_shape[f"{b}x{seq}"] = dict(
+    # The model width's shapes by (batch, length), UMD-L/2's by its width.
+    key = f"{b}x{seq}" if width == WIDTH else f"{b}x{seq}_D{width}"
+    by_shape[key] = dict(
         ms=time_ms(lambda: fb.fused_mlp_fwd(*args), iters=20),
         plain_ms=time_ms(lambda: fb.fused_mlp_plain(*args), iters=3,
                          warmup=1),
@@ -492,10 +488,10 @@ def check_fused_mlp(fb, card):
         bound_ms=bound_ms, bound_by=bound_by)
     # The two launches of one call, each timed alone.
     stages = fb.fused_mlp_stages(*args)
-    by_shape[f"{b}x{seq}"]["stage_ms"] = {
+    by_shape[key]["stage_ms"] = {
         name: time_ms(launch, iters=20) for name, launch in stages.items()}
     print(f"[kernels] fused_mlp_fwd B={b} L={seq} D={width} hidden="
-          f"{hidden}: {_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} bytes, "
+          f"{hidden}: {_fmt(by_shape[key])} ({bytes_moved} bytes, "
           f"{flops} flops) on {card}", flush=True)
   return dict(name=fb.MLP_NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/fused_mlp.cu",

@@ -60,7 +60,7 @@ using sm90::wg_barrier;
 
 // ---- (a) the projection GEMM ---------------------------------------------
 
-using ProjTiles = sm90::GemmTiles<128, 5>;
+using ProjTiles = sm90::GemmTiles<>;
 
 // C_w = bf16(f32(A W_w) + b_w) for w < num_w: A (m, k), W_w (k, n) and
 // C_w (m, n) through their maps; k and n are multiples of 64.

@@ -32,15 +32,12 @@
 //
 // Tiles: 128 x 128, a ring of 5 stages 64 deep, one CTA a SM, for both.
 // The up-projection runs the ping-pong schedule: its K is the width (12
-// stages a tile at 768), so the epilogue (two SFU operations a value, 51 M values
-// at the sampler's shape) would stall the tensor cores for a large share
-// of every tile if both warpgroups shared it; each warpgroup taking whole
-// tiles in turn hides it (0.137 against 0.153 ms at the sampler's shape on
-// the H100). The down-projection, 48 stages a tile and a bias alone in its
-// epilogue, gains nothing from it and stays cooperative. The choices are
-// the macros FUSED_MLP_{UP,DOWN}_{BN,STAGES,CTAS,PINGPONG}, which a build
-// may set with -D; `small_vision_tpu_torch/tools/tune_fused_mlp.py` times
-// them.
+// stages a tile at 768), so the epilogue (two SFU operations a value, 51 M
+// values at the sampler's shape) would stall the tensor cores for a large
+// share of every tile if both warpgroups shared it; each warpgroup taking
+// whole tiles in turn hides it (0.137 against 0.153 ms at the sampler's
+// shape on the H100). The down-projection, 48 stages a tile and a bias
+// alone in its epilogue, gains nothing from it and stays cooperative.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,40 +45,13 @@
 
 #include "sm90_gemm.cuh"
 
-#ifndef FUSED_MLP_UP_BN
-#define FUSED_MLP_UP_BN 128
-#endif
-#ifndef FUSED_MLP_UP_STAGES
-#define FUSED_MLP_UP_STAGES 5
-#endif
-#ifndef FUSED_MLP_UP_CTAS
-#define FUSED_MLP_UP_CTAS 1
-#endif
-#ifndef FUSED_MLP_UP_PINGPONG
-#define FUSED_MLP_UP_PINGPONG 1
-#endif
-#ifndef FUSED_MLP_DOWN_BN
-#define FUSED_MLP_DOWN_BN 128
-#endif
-#ifndef FUSED_MLP_DOWN_STAGES
-#define FUSED_MLP_DOWN_STAGES 5
-#endif
-#ifndef FUSED_MLP_DOWN_CTAS
-#define FUSED_MLP_DOWN_CTAS 1
-#endif
-#ifndef FUSED_MLP_DOWN_PINGPONG
-#define FUSED_MLP_DOWN_PINGPONG 0
-#endif
-
 namespace {
 
-using UpTiles = sm90::GemmTiles<FUSED_MLP_UP_BN, FUSED_MLP_UP_STAGES,
-                                FUSED_MLP_UP_PINGPONG != 0>;
-using DownTiles = sm90::GemmTiles<FUSED_MLP_DOWN_BN, FUSED_MLP_DOWN_STAGES,
-                                  FUSED_MLP_DOWN_PINGPONG != 0>;
+using UpTiles = sm90::GemmTiles<true>;     // ping-pong
+using DownTiles = sm90::GemmTiles<false>;  // cooperative
 
 // h (rows, hidden) = bf16(gelu_tanh(f32(x W1) + b1)).
-__global__ void __launch_bounds__(sm90::kGemmThreads, FUSED_MLP_UP_CTAS)
+__global__ void __launch_bounds__(sm90::kGemmThreads, 1)
 fused_mlp_up_kernel(const __grid_constant__ CUtensorMap tm_x,
                     const __grid_constant__ CUtensorMap tm_w1,
                     const __grid_constant__ CUtensorMap tm_h,
@@ -94,7 +64,7 @@ fused_mlp_up_kernel(const __grid_constant__ CUtensorMap tm_x,
 }
 
 // y (rows, width) = bf16(f32(h W2) + b2).
-__global__ void __launch_bounds__(sm90::kGemmThreads, FUSED_MLP_DOWN_CTAS)
+__global__ void __launch_bounds__(sm90::kGemmThreads, 1)
 fused_mlp_down_kernel(const __grid_constant__ CUtensorMap tm_h,
                       const __grid_constant__ CUtensorMap tm_w2,
                       const __grid_constant__ CUtensorMap tm_y,
@@ -109,8 +79,8 @@ fused_mlp_down_kernel(const __grid_constant__ CUtensorMap tm_h,
 // c (m, n) = kernel's bf16(Epi(f32(a w) + b)): a (m, k), w (k, n), b (n,),
 // row-major bf16; k and n multiples of 64.
 template <class T, class Kernel>
-int launch(Kernel kernel, int ctas_per_sm, const void* a, const void* w,
-           const void* b, void* c, int m, int n, int k, void* stream) {
+int launch(Kernel kernel, const void* a, const void* w, const void* b,
+           void* c, int m, int n, int k, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || n % 64 != 0 || k % 64 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -125,8 +95,8 @@ int launch(Kernel kernel, int ctas_per_sm, const void* a, const void* w,
       static_cast<int>(T::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (m + T::kBM - 1) / T::kBM * ((n + T::kBN - 1) / T::kBN);
-  const int slots = sm90_host::sm_count() * ctas_per_sm;
-  kernel<<<tiles < slots ? tiles : slots, sm90::kGemmThreads, T::kSmem,
+  const int sms = sm90_host::sm_count();
+  kernel<<<tiles < sms ? tiles : sms, sm90::kGemmThreads, T::kSmem,
            static_cast<cudaStream_t>(stream)>>>(
       ta, tw, tc, static_cast<const __nv_bfloat16*>(b), m, n, k);
   return static_cast<int>(cudaGetLastError());
@@ -142,8 +112,8 @@ int launch(Kernel kernel, int ctas_per_sm, const void* a, const void* w,
 extern "C" int fused_mlp_up(const void* x, const void* w1, const void* b1,
                             void* h, int rows, int width, int hidden,
                             void* stream) {
-  return launch<UpTiles>(fused_mlp_up_kernel, FUSED_MLP_UP_CTAS, x, w1, b1, h,
-                         rows, hidden, width, stream);
+  return launch<UpTiles>(fused_mlp_up_kernel, x, w1, b1, h, rows, hidden,
+                         width, stream);
 }
 
 // (b): y (rows, width) = bf16(f32(h w2) + b2); h (rows, hidden), w2
@@ -151,8 +121,8 @@ extern "C" int fused_mlp_up(const void* x, const void* w1, const void* b1,
 extern "C" int fused_mlp_down(const void* h, const void* w2, const void* b2,
                               void* y, int rows, int width, int hidden,
                               void* stream) {
-  return launch<DownTiles>(fused_mlp_down_kernel, FUSED_MLP_DOWN_CTAS, h, w2,
-                           b2, y, rows, width, hidden, stream);
+  return launch<DownTiles>(fused_mlp_down_kernel, h, w2, b2, y, rows, width,
+                           hidden, stream);
 }
 
 // x, y: (rows, width); w1: (width, hidden), b1: (hidden,), w2: (hidden,

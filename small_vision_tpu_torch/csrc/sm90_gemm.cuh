@@ -1,6 +1,6 @@
 // Hopper (sm_90a) pieces beside sm90.cuh: 2-D TMA copies both ways (stores
-// from swizzled tiles), the m64n64k16 and m64n128k16 products whose MN-major
-// B is a row-major weight tile, ex2 and a reciprocal without the denormal
+// from swizzled tiles), the m64n128k16 product whose MN-major B spans two
+// 64-column swizzle atoms, ex2 and a reciprocal without the denormal
 // handling, the host's 2-D and strided 3-D tensor maps, and the persistent
 // bias GEMM that K6's projections and K5's two products run on.
 //
@@ -98,24 +98,6 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D (64 x 64, f32) = [D +] A B, A K-major and B MN-major (transpose-B),
-// both from shared memory; the accumulator's layout is wgmma_ss's.
-__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t da,
-                                                uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : SM90G_D8(0), SM90G_D8(8), SM90G_D8(16), SM90G_D8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 #undef SM90G_D8
 
 // 2^x by the SFU alone (denormal results flush to zero).
@@ -150,10 +132,10 @@ __device__ __forceinline__ void wg_barrier(int wg) {
 // past m as zeros, and the stores leave out rows past m and columns past
 // n). Epi maps the f32 sum before its one rounding.
 //
-// Design. A persistent CTA (or more) a SM walks 128 x kBN output tiles,
+// Design. One persistent CTA a SM walks 128 x 128 output tiles,
 // row block outermost, so the CTAs in flight share their A rows in L2. Its
 // producer warp keeps a ring of kStages 64-deep stages full by TMA, in the
-// order of its tiles (A: one 128 x 64 box; W: kBN / 64 boxes of 64 x 64,
+// order of its tiles (A: one 128 x 64 box; W: two boxes of 64 x 64,
 // read MN-major through the transpose-B bit), each stage with a "full" and
 // an "empty" mbarrier. Two consumer warpgroups take the tiles, in one of
 // two schedules:
@@ -163,7 +145,7 @@ __device__ __forceinline__ void wg_barrier(int wg) {
 //    other's products do. A warpgroup starts its next tile only after
 //    the other has waited out every stage of the tile before (a "turn"
 //    mbarrier each), so no stage it waits for can be two phases ahead.
-// A warpgroup keeps one stage's m64nkBNk16 products in flight while it
+// A warpgroup keeps one stage's m64n128k16 products in flight while it
 // issues the next stage's. The epilogue runs in f32 on the accumulator;
 // the tile goes as bf16 into the warpgroup's swizzled shared boxes and out
 // by TMA stores, which run on while the next tile's products do. Each
@@ -186,12 +168,12 @@ struct BiasGeluTanh {
   }
 };
 
-template <int kBN_, int kStages_, bool kPingPong_ = false>
+template <bool kPingPong_ = false>
 struct GemmTiles {
   static constexpr int kBM = 128;
-  static constexpr int kBN = kBN_;  // 64 or 128
+  static constexpr int kBN = 128;
   static constexpr int kBK = 64;
-  static constexpr int kStages = kStages_;
+  static constexpr int kStages = 5;
   static constexpr bool kPingPong = kPingPong_;
   // Rows of a tile one warpgroup computes.
   static constexpr int kWgRows = kPingPong ? kBM : kBM / 2;
@@ -205,17 +187,6 @@ struct GemmTiles {
 
 constexpr int kGemmConsumers = 256;                 // two warpgroups
 constexpr int kGemmThreads = kGemmConsumers + 32;  // and one producer warp
-
-// D (64 x kBN) [+]= A B on one stage's 16-deep slice.
-template <int kBN>
-__device__ __forceinline__ void wgmma_mn(float (&d)[kBN / 2], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  if constexpr (kBN == 128) {
-    wgmma_ss_n128(d, da, db, accumulate);
-  } else {
-    wgmma_ss_n64_mn(d, da, db, accumulate);
-  }
-}
 
 // The body of a GEMM kernel of kGemmThreads threads and T::kSmem bytes of
 // dynamic shared memory (`smem_raw`); the maps are the kernel's
@@ -324,8 +295,7 @@ __device__ __forceinline__ void gemm_bias_tiles(
       mbar_wait(&full[stage], phase);
       const uint8_t* a_s = smem + stage * kStageBytes;
       const uint8_t* w_s = a_s + T::kABytes;
-      const uint64_t db =
-          kBN == 128 ? desc_mn_major_n128(w_s) : desc_mn_major(w_s);
+      const uint64_t db = desc_mn_major_n128(w_s);
       wgmma_fence();
 #pragma unroll
       for (int mb = 0; mb < kMB; ++mb) {
@@ -333,7 +303,7 @@ __device__ __forceinline__ void gemm_bias_tiles(
             a_s + (T::kPingPong ? mb : wg) * kTileBytes);
 #pragma unroll
         for (int ks = 0; ks < kBK / 16; ++ks) {
-          wgmma_mn<kBN>(acc[mb], da + ks * kKMajorStep,
+          wgmma_ss_n128(acc[mb], da + ks * kKMajorStep,
                         db + ks * kMNMajorStep, kb > 0 || ks > 0);
         }
       }
