@@ -8,15 +8,16 @@ Phases, each fatal on failure:
                with its time, the plain version's, one library call's and
                the bound: the forwards K1, K3, K7 at the shapes of the
                UMD-B/4@64 sampler at batch 64 (L = 260 and 257; K7 also at
-               the shape of phase 6), the backwards K2, K4, K8 at the
-               training shapes (per-branch batch 128, L = 68, 164, 257),
-               each launched twice to show equal bits (K3 also at the
-               training shapes, launched twice too), the fused MLP
-               and MHA (K5, K6) at both, each launched twice to show equal
-               bits and with the time of each of its kernels (K5's two,
-               K6's three), K5 also at width 1,024 with hidden 4,096, and
-               the seven arms of the ablation kernel (K9) at the tool's
-               two shapes.
+               the shape of phase 6, and timed there too), the backwards
+               K2, K4, K8 at the training shapes (per-branch batch 128,
+               L = 68, 164, 257), each launched twice to show equal bits
+               (K3 also at the training shapes, and K7, launched twice
+               too), the fused MLP and MHA (K5, K6) at both, each launched
+               twice to show equal bits and with the time of each of its
+               kernels (K5's two, K6's three), K5 also at width 1,024 with
+               hidden 4,096, and the seven arms of the ablation kernel (K9)
+               at the tool's two shapes, each launched twice to show equal
+               bits.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
@@ -568,48 +569,55 @@ def check_fused_mha(fb, card):
 
 def check_attention_unpacked(attn, card):
   """K7 against its plain version at the sampler's shapes and at the shape
-  phase `unpacked` launches it at; timed at the first."""
+  phase `unpacked` launches it at, two launches giving equal bits; timed
+  at the first and the last (the ablation tool's L = 257, where K9's arms
+  are timed too)."""
   gen = torch.Generator(device="cuda").manual_seed(6)
   head_dim = WIDTH // HEADS
-  max_err, timing = 0.0, None
+  max_err, by_shape = 0.0, {}
   for b, seq in ((BATCH, SEQ_ENC), (BATCH, SEQ_DEC),
                  (TRAIN_BATCH // 2, TRAIN_SEQS[-1])):
     q, k, v = (torch.randn(b, seq, HEADS, head_dim, generator=gen,
                            device="cuda").to(torch.bfloat16)
                for _ in range(3))
-    o = attn.attention_unpacked_fwd(q, k, v).float()
+    got = attn.attention_unpacked_fwd(q, k, v)
+    again = attn.attention_unpacked_fwd(q, k, v)
     ref = attn.attention_plain(q, k, v).float()
     torch.cuda.synchronize()
-    err = (o - ref).abs()
+    if not torch.equal(got, again):
+      fail(f"attention_unpacked_fwd B={b} L={seq}: two launches differ")
+    err = (got.float() - ref).abs()
     # Two bf16 ulps at unit magnitude (outputs are convex mixes of N(0,1)
     # values): the f32 score sums run in another order, which may round a
     # probability to the neighbouring bf16 value, and o itself is bf16.
     bad = (err > 1e-2 + 1e-2 * ref.abs()).sum().item()
     max_err = max(max_err, err.max().item())
     print(f"[kernels] attention_unpacked_fwd B={b} L={seq}: max abs err "
-          f"{err.max().item():.3e}, {bad} elements over tolerance",
-          flush=True)
+          f"{err.max().item():.3e}, {bad} elements over tolerance, two "
+          "launches equal", flush=True)
     if bad:
       fail(f"attention_unpacked_fwd disagrees with its plain version ({bad})")
-    if timing is None:
-      heads_first = lambda t: t.transpose(1, 2)
-      timing = dict(
-          ms=time_ms(lambda: attn.attention_unpacked_fwd(q, k, v)),
-          plain_ms=time_ms(lambda: attn.attention_plain(q, k, v), iters=10),
-          library_ms=time_ms(
-              lambda: torch.nn.functional.scaled_dot_product_attention(
-                  heads_first(q), heads_first(k), heads_first(v))))
-  bytes_moved = 4 * BATCH * SEQ_ENC * WIDTH * 2
-  flops = 4 * BATCH * HEADS * SEQ_ENC * SEQ_ENC * head_dim
-  bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
-  print(f"[kernels] attention_unpacked_fwd B={BATCH} L={SEQ_ENC} H={HEADS} "
-        f"D={head_dim}: {_fmt(timing)}, bound {bound_ms:.4f} ms "
-        f"({bytes_moved} bytes, {flops} flops) on {card}", flush=True)
+    if seq == SEQ_DEC and b == BATCH:
+      continue
+    heads_first = lambda t: t.transpose(1, 2)
+    bytes_moved = 4 * b * seq * WIDTH * 2
+    flops = 4 * b * HEADS * seq * seq * head_dim
+    bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
+    by_shape[f"{b}x{seq}"] = dict(
+        ms=time_ms(lambda: attn.attention_unpacked_fwd(q, k, v)),
+        plain_ms=time_ms(lambda: attn.attention_plain(q, k, v), iters=10),
+        library_ms=time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                heads_first(q), heads_first(k), heads_first(v))),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] attention_unpacked_fwd B={b} L={seq} H={HEADS} "
+          f"D={head_dim}: {_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} "
+          f"bytes, {flops} flops) on {card}", flush=True)
   return dict(name=attn.UNPACKED_NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/attention_unpacked.cu",
               replaces="small_vision_tpu/ops/attention.py:79",
-              max_abs_err=max_err, bound_ms=bound_ms, bound_by=bound_by,
-              **timing)
+              max_abs_err=max_err, **by_shape[f"{BATCH}x{SEQ_ENC}"],
+              by_shape=by_shape)
 
 
 def check_attention_unpacked_bwd(attn, card):
@@ -678,8 +686,8 @@ ABLATE_ULPS = {"prod": 2, "nosoftmax": 2, "nomm": 0.5, "bf16exp": 4,
 
 
 def check_attention_ablate(attn, card):
-  """K9, all seven arms at the tool's two shapes, against its plain version;
-  returns its kernels-line entry (times of `prod` at L = 257 on top, every
+  """K9, all seven arms at the tool's two shapes, against its plain version,
+  two launches of each giving equal bits; returns its kernels-line entry (times of `prod` at L = 257 on top, every
   arm's under `by_shape`)."""
   gen = torch.Generator(device="cuda").manual_seed(9)
   head_dim = WIDTH // HEADS
@@ -698,8 +706,11 @@ def check_attention_ablate(attn, card):
     arms = {}
     for arm in attn.ABLATE_VARIANTS:
       got = attn.attention_ablate_fwd(q, k, v, HEADS, arm)
+      again = attn.attention_ablate_fwd(q, k, v, HEADS, arm)
       want = attn.attention_ablate_plain(q, k, v, HEADS, arm)
       torch.cuda.synchronize()
+      if not torch.equal(got, again):
+        fail(f"attention_ablate {arm} L={seq}: two launches differ")
       err, ok = _close_to_max(got, want, ABLATE_ULPS[arm])
       max_err = max(max_err, err)
       arms[arm] = dict(
@@ -710,8 +721,8 @@ def check_attention_ablate(attn, card):
           max_abs_err=err)
       print(f"[kernels] attention_ablate {arm} B={b} L={seq}: max abs err "
             f"{err:.3e} of max {want.float().abs().max().item():.3e} "
-            f"(tolerance {ABLATE_ULPS[arm]} bf16 ulps of the max); "
-            f"{_fmt(arms[arm])}", flush=True)
+            f"(tolerance {ABLATE_ULPS[arm]} bf16 ulps of the max), two "
+            f"launches equal; {_fmt(arms[arm])}", flush=True)
       if not ok:
         fail(f"attention_ablate {arm} L={seq} disagrees with its plain "
              f"version ({err:.3e})")

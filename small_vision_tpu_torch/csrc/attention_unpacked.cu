@@ -17,100 +17,56 @@
 // exp of every score (one in each pass) are the next limit.
 //
 // Design: a contiguous [B, L, H, 64] tensor is the packed (B, L, H*64)
-// one, so the kernel reads heads in place; the TPU wrapper's transposes
-// and pads have no counterpart. One block takes 64 query rows of one
-// (batch, head) and stages that head's K and V row-major in shared memory
-// (83 KB with the query tile at L = 272, above the 48 KB default, so the
-// entry point raises the limit). Four warps own 16 query rows each and run
-// the shared two-pass core of attention_maxshift.cuh.
+// one, so the kernel reads heads in place through three tensor maps (one
+// each over q, k and v, H*64 columns of L rows bounded at L, B) at column
+// offset 0 and writes o with row stride H*64; the TPU wrapper's transposes
+// and pads have no counterpart. It runs the max-shift attention core of
+// sm90_attention.cuh (wgmma products, K and V resident in TMA tiles) under
+// its production softmax, the one K6's attention stage runs: exp becomes
+// exp2 of the log2(e)-scaled score, the same function within two bf16
+// ulps of the output.
 
-#include "attention_maxshift.cuh"
+#include "sm90_attention.cuh"
 
 namespace {
 
-using namespace tiles;
-
 constexpr int kHeadDim = 64;
-constexpr int kQTile = 64;
-constexpr int kThreads = 128;
 
-__host__ __device__ constexpr size_t smem_bytes(int lk_pad) {
-  return sizeof(__nv_bfloat16) * kRowStride *
-         (2 * static_cast<size_t>(lk_pad) + kQTile);
-}
-
-__global__ void __launch_bounds__(kThreads)
-attention_unpacked_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v,
-                              __nv_bfloat16* __restrict__ o, int seq_len,
-                              int num_heads, int lk_pad, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + lk_pad * kRowStride;
-  __nv_bfloat16* q_s = v_s + lk_pad * kRowStride;
-
-  const int q0 = blockIdx.x * kQTile;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const size_t ld = static_cast<size_t>(num_heads) * kHeadDim;
-  const size_t base = static_cast<size_t>(batch) * seq_len * ld +
-                      static_cast<size_t>(head) * kHeadDim;
-  const int tid = threadIdx.x;
-
-  // Rows past L are zero-filled: finite scores that the key mask drops.
-  cp_async_tile(k_s, kRowStride, k + base, ld, lk_pad, kHeadDim, seq_len, tid,
-                kThreads);
-  cp_async_tile(v_s, kRowStride, v + base, ld, lk_pad, kHeadDim, seq_len, tid,
-                kThreads);
-  cp_async_tile(q_s, kRowStride, q + base + q0 * ld, ld, kQTile, kHeadDim,
-                seq_len - q0, tid, kThreads);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int r0 = warp * 16;
-  if (q0 + r0 >= seq_len) return;  // whole warp past L (no barrier follows)
-
-  float acc[8][4];
-  attn_maxshift_rows(acc, q_s, r0, k_s, v_s, lk_pad, seq_len, scale, lane);
-  store_rows(o + base, ld, q0 + r0 + (lane >> 2), seq_len, acc, 1.f, 1.f,
-             lane);
+template <int kGroups>
+__global__ void __launch_bounds__(128 * kGroups, 4 / kGroups)
+attention_unpacked_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const sm90::AttnArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  sm90::attention_heads<sm90::SoftmaxExp2, kGroups>(smem_raw, &tm_q, &tm_k,
+                                                    &tm_v, a);
 }
 
 }  // namespace
 
-// Largest sequence length the kernel takes (a head's K and V must fit in
-// the 227 KB of shared memory a block can use).
-extern "C" int attention_unpacked_max_len() {
-  int lk = 16;
-  while (smem_bytes(lk + 16) <= 232448) lk += 16;
-  return lk;
-}
+// Largest sequence length the kernel takes (a head's K and V stay resident
+// in the 227 KB of shared memory a block can use).
+extern "C" int attention_unpacked_max_len() { return sm90::attn_max_len(); }
 
 // q, k, v, o: [B, L, H, 64] bf16, contiguous, 16-byte aligned.
-// scale = 64**-0.5 in f32. Returns cudaGetLastError().
+// scale = 64**-0.5 in f32. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a length past the limit or a tensor map that
+// cannot be encoded.
 extern "C" int attention_unpacked_fwd(const void* q, const void* k,
                                       const void* v, void* o, int batch,
                                       int seq_len, int num_heads, float scale,
                                       void* stream) {
-  const int lk_pad = (seq_len + 15) / 16 * 16;
-  if (lk_pad > attention_unpacked_max_len()) {
+  const int hd = num_heads * kHeadDim;
+  CUtensorMap tq, tk, tv;
+  if (!sm90_host::rows_map(&tq, q, batch, seq_len, hd, hd) ||
+      !sm90_host::rows_map(&tk, k, batch, seq_len, hd, hd) ||
+      !sm90_host::rows_map(&tv, v, batch, seq_len, hd, hd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = smem_bytes(lk_pad);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_unpacked_fwd_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq_len + kQTile - 1) / kQTile, num_heads, batch);
-  attention_unpacked_fwd_kernel<<<grid, kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      seq_len, num_heads, lk_pad, scale);
-  return static_cast<int>(cudaGetLastError());
+  const sm90::AttnArgs args{0, 0, 0, static_cast<__nv_bfloat16*>(o), hd,
+                            seq_len, scale};
+  return sm90_host::launch_attention<sm90::SoftmaxExp2>(
+      attention_unpacked_fwd_kernel<1>, attention_unpacked_fwd_kernel<2>, tq,
+      tk, tv, args, batch, num_heads, static_cast<cudaStream_t>(stream));
 }

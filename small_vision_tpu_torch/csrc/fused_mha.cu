@@ -28,35 +28,21 @@
 //      tile's column block; the outputs are the three column blocks of one
 //      (B, L, 3 H*64) scratch) and for the out-projection of the head
 //      outputs.
-//  (b) fused_mha_attn_kernel, per (head, batch row): K3's structure
-//      (attention_packed.cu) with the exact max-shift softmax. The head's K
-//      and V blocks come by TMA through 3-D tensor maps of the scratch,
-//      bounded at L (rows past it arrive as zeros) and stay resident; each
-//      warpgroup walks its query tiles, each from its own Q buffer. Pass 1
-//      over the key blocks keeps a running max and a rescaled sum in base
-//      2, computing block j + 1's S while it reads block j's; pass 2
-//      recomputes S (the same products, the same bits), forms p with the
-//      final max and sum, rounds it and feeds it from registers to the
-//      P V product, issued with the next block's S. Column offsets of q,
-//      k, v and the output's row stride are arguments, so the kernel
-//      serves any packed layout. Q stays in shared memory (wgmma's A from
-//      registers would cost 16 registers a thread, and at 128 a thread
-//      ptxas spilled and serialised the products).
+//  (b) fused_mha_attn_kernel, per (head, batch row): the max-shift
+//      attention core of sm90_attention.cuh (its design there) under its
+//      production softmax, exp2 of the log2(e)-scaled scores, reading the
+//      heads' q, k, v from the scratch at column offsets 0, H*64, 2 H*64
+//      and writing (B, L, H*64). K7 and K9 run the same core.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
-#include "sm90_gemm.cuh"
+#include "sm90_attention.cuh"
 
 namespace {
 
 constexpr int kHeadDim = 64;
-constexpr int kTile = sm90::kTileRows;
-constexpr int kTileBytes = sm90::kTileBytes;
-constexpr int kSmemLimit = 232448;
-using sm90::wg_barrier;
 
 // ---- (a) the projection GEMM ---------------------------------------------
 
@@ -82,224 +68,24 @@ fused_mha_proj_kernel(const __grid_constant__ CUtensorMap tm_a,
       b2, m, n, k, num_w);
 }
 
-// ---- (b) the attention core ----------------------------------------------
+// ---- (b) the attention core: sm90_attention.cuh's production softmax ---
 
-// Warpgroups a CTA: two, or one for heads of at most kShortTiles tiles
-// (as K3).
-constexpr int kShortTiles = 3;
-
-// 1 KB to align the tiles; nkb K and nkb V blocks; one Q tile a warpgroup;
-// barriers: one a K block, one a V block, one a Q tile.
-__host__ __device__ constexpr size_t attn_smem_bytes(int nkb, int groups) {
-  return 1024 + static_cast<size_t>(2 * nkb + groups) * kTileBytes +
-         8 * static_cast<size_t>(2 * nkb + groups);
-}
-
-// Three maps over (cols, L, B) row layouts (rows_map); head h's q, k, v
-// are the 64 columns at q_col + 64 h, k_col + 64 h, v_col + 64 h of their
-// maps, and its output the 64 columns at 64 h of o, o_ld elements a row.
 template <int kGroups>
 __global__ void __launch_bounds__(128 * kGroups, 4 / kGroups)
 fused_mha_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v, int q_col,
-                      int k_col, int v_col, __nv_bfloat16* __restrict__ o,
-                      int o_ld, int seq_len, float scale_log2) {
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const sm90::AttnArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = sm90::align_tiles(smem_raw);
-  const int nkb = (seq_len + kTile - 1) / kTile;
-  const int nqt = nkb;
-  uint8_t* k_s = smem;  // block j at j * 8 KB
-  uint8_t* v_s = k_s + nkb * kTileBytes;
-  uint8_t* q_s = v_s + nkb * kTileBytes;  // warpgroup w's at w * 8 KB
-  uint64_t* k_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kTileBytes);
-  uint64_t* v_full = k_full + nkb;
-  uint64_t* q_full = v_full + nkb;
-
-  const int head = blockIdx.x;
-  const int batch = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int hcol = head * kHeadDim;
-
-  if (tid == 0) {
-    for (int j = 0; j < 2 * nkb + kGroups; ++j) sm90::mbar_init(&k_full[j], 1);
-    sm90::fence_barrier_init();
-    // The first Q tiles, the K blocks (pass 1 needs them first), then V.
-    for (int w = 0; w < kGroups && w < nqt; ++w) {
-      sm90::mbar_arrive_expect_tx(&q_full[w], kTileBytes);
-      sm90::tma_load_3d(q_s + w * kTileBytes, &tm_q, &q_full[w], q_col + hcol,
-                        w * kTile, batch);
-    }
-    for (int j = 0; j < nkb; ++j) {
-      sm90::mbar_arrive_expect_tx(&k_full[j], kTileBytes);
-      sm90::tma_load_3d(k_s + j * kTileBytes, &tm_k, &k_full[j], k_col + hcol,
-                        j * kTile, batch);
-    }
-    for (int j = 0; j < nkb; ++j) {
-      sm90::mbar_arrive_expect_tx(&v_full[j], kTileBytes);
-      sm90::tma_load_3d(v_s + j * kTileBytes, &tm_v, &v_full[j], v_col + hcol,
-                        j * kTile, batch);
-    }
-  }
-  __syncthreads();
-
-  const int wg = warp / 4;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  __nv_bfloat16* out =
-      o + static_cast<size_t>(batch) * seq_len * o_ld + hcol;
-  uint8_t* my_q = q_s + wg * kTileBytes;
-  const uint64_t d_q = sm90::desc_k_major(my_q);
-  auto issue_s = [&](float (&s)[32], int j) {
-    sm90::mbar_wait(&k_full[j], 0);
-    sm90::wgmma_fence();
-    sm90::gemm_nt(s, d_q, sm90::desc_k_major(k_s + j * kTileBytes));
-    sm90::wgmma_commit();
-  };
-
-  for (int t = wg, use = 0; t < nqt; t += kGroups, ++use) {
-    sm90::mbar_wait(&q_full[wg], use & 1);
-
-    // Pass 1: this lane's running max and rescaled sum of rows g and
-    // g + 8 over its 16 keys of each block, in base 2 (S pre-scaled by
-    // scale * log2(e)). Block j + 1's S is computed while block j's is
-    // read.
-    float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.f, l_hi = 0.f;
-    auto update = [&](float (&s)[32], int j) {
-      float b_lo = -CUDART_INF_F, b_hi = -CUDART_INF_F;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = j * kTile + nt * 8 + 2 * t4 + (i & 1);
-          const float x = key < seq_len ? s[4 * nt + i] * scale_log2
-                                        : -CUDART_INF_F;
-          s[4 * nt + i] = x;
-          if (i < 2) {
-            b_lo = fmaxf(b_lo, x);
-          } else {
-            b_hi = fmaxf(b_hi, x);
-          }
-        }
-      }
-      const float n_lo = fmaxf(m_lo, b_lo);
-      const float n_hi = fmaxf(m_hi, b_hi);
-      if (n_lo > -CUDART_INF_F) {  // else every key so far is masked
-        float e = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          e += sm90::exp2_ftz(s[4 * nt] - n_lo) +
-               sm90::exp2_ftz(s[4 * nt + 1] - n_lo);
-        }
-        l_lo = l_lo * sm90::exp2_ftz(m_lo - n_lo) + e;
-        m_lo = n_lo;
-      }
-      if (n_hi > -CUDART_INF_F) {
-        float e = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          e += sm90::exp2_ftz(s[4 * nt + 2] - n_hi) +
-               sm90::exp2_ftz(s[4 * nt + 3] - n_hi);
-        }
-        l_hi = l_hi * sm90::exp2_ftz(m_hi - n_hi) + e;
-        m_hi = n_hi;
-      }
-    };
-    {
-      float s0[32], s1[32];
-      issue_s(s0, 0);
-      for (int j = 0; j < nkb; j += 2) {
-        if (j + 1 < nkb) {
-          issue_s(s1, j + 1);
-          sm90::wgmma_wait<1>();
-        } else {
-          sm90::wgmma_wait<0>();
-        }
-        sm90::fence(s0);
-        update(s0, j);
-        if (j + 1 < nkb) {
-          if (j + 2 < nkb) {
-            issue_s(s0, j + 2);
-            sm90::wgmma_wait<1>();
-          } else {
-            sm90::wgmma_wait<0>();
-          }
-          sm90::fence(s1);
-          update(s1, j + 1);
-        }
-      }
-    }
-    // Merge the four lanes of a row (a lane that saw no key has l = 0).
-    const float row_m_lo = sm90::quad_max(m_lo);
-    const float row_m_hi = sm90::quad_max(m_hi);
-    const float inv_lo =
-        1.f / sm90::quad_sum(l_lo * sm90::exp2_ftz(m_lo - row_m_lo));
-    const float inv_hi =
-        1.f / sm90::quad_sum(l_hi * sm90::exp2_ftz(m_hi - row_m_hi));
-
-    // Pass 2: S again, p rounded, O += p V; block j + 1's S is issued with
-    // block j's P V product.
-    float sacc[32], oacc[32];
-    uint32_t pa[16];
-    issue_s(sacc, 0);
-    sm90::wgmma_wait<0>();
-    sm90::fence(sacc);
-    for (int j = 0; j < nkb; ++j) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = j * kTile + nt * 8 + 2 * t4 + (i & 1);
-          const float rm = i < 2 ? row_m_lo : row_m_hi;
-          const float inv = i < 2 ? inv_lo : inv_hi;
-          sacc[4 * nt + i] =
-              key < seq_len
-                  ? sm90::exp2_ftz(sacc[4 * nt + i] * scale_log2 - rm) * inv
-                  : 0.f;
-        }
-      }
-      sm90::pack_a(pa, sacc);
-      sm90::mbar_wait(&v_full[j], 0);
-      sm90::wgmma_fence();
-      sm90::gemm_rn(oacc, pa, sm90::desc_mn_major(v_s + j * kTileBytes),
-                    j > 0);
-      if (j + 1 < nkb) {
-        sm90::mbar_wait(&k_full[j + 1], 0);
-        sm90::gemm_nt(sacc, d_q,
-                      sm90::desc_k_major(k_s + (j + 1) * kTileBytes));
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence(oacc);
-      sm90::fence(sacc);
-    }
-
-    // The tile's products are done: its Q buffer takes the warpgroup's
-    // next tile while this one is stored.
-    if (t + kGroups < nqt) {
-      wg_barrier(wg);
-      if (tid % 128 == 0) {
-        sm90::mbar_arrive_expect_tx(&q_full[wg], kTileBytes);
-        sm90::tma_load_3d(my_q, &tm_q, &q_full[wg], q_col + hcol,
-                          (t + kGroups) * kTile, batch);
-      }
-    }
-    sm90::store_acc(out, o_ld, t * kTile + (warp % 4) * 16 + g, seq_len,
-                    oacc, 1.f, 1.f, t4);
-  }
+  sm90::attention_heads<sm90::SoftmaxExp2, kGroups>(smem_raw, &tm_q, &tm_k,
+                                                    &tm_v, a);
 }
 
 }  // namespace
 
 // Largest sequence length the attention takes (a head's K and V stay
 // resident in the 227 KB of shared memory a block can use).
-extern "C" int fused_mha_max_len() {
-  int nkb = 1;
-  while (attn_smem_bytes(nkb + 1, 2) <= kSmemLimit) ++nkb;
-  return nkb * kTile;
-}
+extern "C" int fused_mha_max_len() { return sm90::attn_max_len(); }
 
 // (a): c (m, num_w * n) = [bf16(f32(a w_i) + b_i) for i < num_w] side by
 // side; a (m, n), each w_i (n, n), b_i (n,); bf16, contiguous, 16-byte
@@ -350,28 +136,16 @@ extern "C" int fused_mha_proj(const void* a, const void* w0, const void* w1,
 extern "C" int fused_mha_attention(const void* qkv, void* heads, int batch,
                                    int seq_len, int num_heads, float scale,
                                    void* stream) {
-  if (seq_len > fused_mha_max_len()) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const int hd = num_heads * kHeadDim;
   CUtensorMap tm;
   if (!sm90_host::rows_map(&tm, qkv, batch, seq_len, 3 * hd, 3 * hd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nkb = (seq_len + kTile - 1) / kTile;
-  const int groups = nkb <= kShortTiles ? 1 : 2;
-  const auto kernel =
-      groups == 1 ? fused_mha_attn_kernel<1> : fused_mha_attn_kernel<2>;
-  const size_t smem = attn_smem_bytes(nkb, groups);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(num_heads, batch), 128 * groups, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      tm, tm, tm, 0, hd, 2 * hd, static_cast<__nv_bfloat16*>(heads), hd,
-      seq_len, scale * 1.44269504088896341f);
-  return static_cast<int>(cudaGetLastError());
+  const sm90::AttnArgs args{0, hd, 2 * hd, static_cast<__nv_bfloat16*>(heads),
+                            hd, seq_len, scale};
+  return sm90_host::launch_attention<sm90::SoftmaxExp2>(
+      fused_mha_attn_kernel<1>, fused_mha_attn_kernel<2>, tm, tm, tm, args,
+      batch, num_heads, static_cast<cudaStream_t>(stream));
 }
 
 // x, heads (scratch), o: (B, L, H*64) bf16; qkv (scratch): (B, L, 3 H*64)

@@ -1,0 +1,513 @@
+// The Hopper (sm_90a) max-shift attention core that K6's attention stage
+// (fused_mha.cu), K7 (attention_unpacked.cu) and the seven arms of K9
+// (attention_ablate.cu) run: per (head, batch row), with S = (Q K^T) *
+// scale in f32,
+//   S masked to -inf for keys past L;  m = rowmax(S);
+//   p = bf16(exp(S - m) / rowsum(exp(S - m)));  O = bf16(f32(p V))
+// the arithmetic of small_vision_tpu/ops/fused_block.py::_mha_kernel and
+// ops/attention.py::_attn_kernel, and the arms that
+// scripts/ablate_attention_kernel.py::_kernel_variant derives from it.
+//
+// Design (K3's structure, attention_packed.cu, with the exact softmax). A
+// CTA takes one (head, batch row): the head's K and V blocks of 64 rows
+// come by TMA through 3-D tensor maps bounded at L (rows past it arrive as
+// zeros) and stay resident; one or two warpgroups walk the query tiles,
+// each from its own Q buffer. Pass 1 over the key blocks keeps a running
+// max and a rescaled sum, computing block j + 1's S while it reads block
+// j's; pass 2 recomputes S (the same products, the same bits), forms p with
+// the final max and sum, rounds it and feeds it from registers to the P V
+// product, issued with the next block's S. Column offsets of q, k, v and
+// the output's row stride are arguments, so one kernel serves any packed
+// layout. Q stays in shared memory (wgmma's A from registers would cost 16
+// registers a thread, and at 128 a thread ptxas spilled and serialised the
+// products). No atomics and no split-K: two launches give the same bits.
+//
+// A compile-time softmax policy says how S is scaled and masked, how e is
+// formed, how many passes run and whether the products run at all.
+// `SoftmaxExp2` is the production one (K6, K7, K9's exp2 arm); the others
+// are K9's arms, each one change from it, so that the ablation tool splits
+// the cost of the core the model runs.
+
+#pragma once
+
+#include <math_constants.h>
+
+#include "sm90_gemm.cuh"
+
+namespace sm90 {
+
+constexpr int kAttnShortTiles = 3;  // one warpgroup for heads this short
+constexpr int kSmemPerBlock = 232448;
+
+// 1 KB to align the tiles; nkb K and nkb V blocks; one Q tile a warpgroup;
+// barriers: one a K block, one a V block, one a Q tile.
+__host__ __device__ constexpr size_t attn_smem_bytes(int nkb, int groups) {
+  return 1024 + static_cast<size_t>(2 * nkb + groups) * kTileBytes +
+         8 * static_cast<size_t>(2 * nkb + groups);
+}
+
+// Largest sequence length the core takes: a head's K and V stay resident
+// in the 227 KB of shared memory a block can use (832).
+__host__ __device__ constexpr int attn_max_len() {
+  int nkb = 1;
+  while (attn_smem_bytes(nkb + 1, 2) <= kSmemPerBlock) ++nkb;
+  return nkb * kTileRows;
+}
+
+// A launch's scalars: head h's q, k, v are the 64 columns at q_col + 64 h,
+// k_col + 64 h, v_col + 64 h of their maps, and its output the 64 columns
+// at 64 h of o, o_ld elements a row. `scale` is the policy's (see
+// launch_attention).
+struct AttnArgs {
+  int q_col, k_col, v_col;
+  __nv_bfloat16* o;
+  int o_ld;
+  int seq_len;
+  float scale;
+};
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Element (r, c) of a 64 x 64 bf16 tile in TMA's 128-byte swizzle.
+__device__ __forceinline__ float ld_swizzled(const uint8_t* tile, int r,
+                                             int c) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+      tile + r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2));
+}
+
+// wgmma_wait<kPending> where products were issued.
+template <bool kProducts, int kPending>
+__device__ __forceinline__ void wgmma_wait_if() {
+  if constexpr (kProducts) wgmma_wait<kPending>();
+}
+
+// ---- softmax policies ----------------------------------------------------
+//
+// kPasses: the passes over the keys before the last one, which forms p.
+// kProducts: false for nomm (no QK product, no P V product). kBase2: the
+// launcher folds log2(e) into the scale. score(): S of one key from its
+// raw product, entering the max and the sum; exp(): the base's
+// exponential, which rescales the running sum; e(): one key's e given the
+// row's shift; p(): one key's probability from its raw product, the final
+// shift and 1 / sum, before its rounding to bf16.
+enum class Passes {
+  kNone,    // p from S alone
+  kOnline,  // one pass: a running max and a sum rescaled as it grows
+  kSum,     // one pass: the sum of unshifted e
+  kMaxSum,  // the max, then the sum with the final max
+};
+
+// The production softmax: S * scale * log2(e) with keys past L at -inf,
+// e = 2^(S - m) by ex2.
+struct SoftmaxExp2 {
+  static constexpr Passes kPasses = Passes::kOnline;
+  static constexpr bool kProducts = true, kBase2 = true;
+  __device__ static float score(float s, int key, int len, float scale) {
+    return key < len ? s * scale : -CUDART_INF_F;
+  }
+  __device__ static float exp(float x) { return exp2_ftz(x); }
+  __device__ static float e(float x, float m, int, int) {
+    return exp2_ftz(x - m);
+  }
+  __device__ static float p(float s, int key, int len, float scale, float m,
+                            float inv) {
+    return key < len ? exp2_ftz(s * scale - m) * inv : 0.f;
+  }
+};
+
+// prod: the same in the natural base, e = expf(S * scale - m) (the JAX
+// arm's jnp.exp).
+struct SoftmaxExp {
+  static constexpr Passes kPasses = Passes::kOnline;
+  static constexpr bool kProducts = true, kBase2 = false;
+  __device__ static float score(float s, int key, int len, float scale) {
+    return key < len ? s * scale : -CUDART_INF_F;
+  }
+  __device__ static float exp(float x) { return expf(x); }
+  __device__ static float e(float x, float m, int, int) {
+    return expf(x - m);
+  }
+  __device__ static float p(float s, int key, int len, float scale, float m,
+                            float inv) {
+    return key < len ? expf(s * scale - m) * inv : 0.f;
+  }
+};
+
+// nosoftmax: one pass, p = bf16(S * scale * 0.001), no mask (keys past L
+// are zero rows, so their p and their V rows are 0).
+struct NoSoftmax : SoftmaxExp {
+  static constexpr Passes kPasses = Passes::kNone;
+  __device__ static float p(float s, int, int, float scale, float, float) {
+    return s * scale * 0.001f;
+  }
+};
+
+// nomm: no products; every score of row i is f32(bf16(q[i][0] * scale))
+// (the kernel fills S with it, scaled already), then prod's softmax with
+// all its passes and every exp; out[i][:] = bf16(p[i][0] * v[i][0]).
+struct NoMatmul : SoftmaxExp {
+  static constexpr bool kProducts = false;
+  __device__ static float score(float s, int key, int len, float) {
+    return key < len ? s : -CUDART_INF_F;
+  }
+  __device__ static float p(float s, int key, int len, float, float m,
+                            float inv) {
+    return key < len ? expf(s - m) * inv : 0.f;
+  }
+};
+
+// bf16exp: e = bf16(expf(bf16(S - m))), summed in f32. The rounding needs
+// the final max, so the max and the sum take a pass each, and the sum is
+// the sum of the very e that are normalised.
+struct Bf16Exp : SoftmaxExp {
+  static constexpr Passes kPasses = Passes::kMaxSum;
+  __device__ static float e(float x, float m, int, int) {
+    return round_bf16(expf(round_bf16(x - m)));
+  }
+  __device__ static float p(float s, int key, int len, float scale, float m,
+                            float inv) {
+    return e(score(s, key, len, scale), m, key, len) * inv;
+  }
+};
+
+// mulmask: the max over the first lp = L rounded up to 16 columns (the TPU
+// tile's; its keys past L score exactly 0), not over the 64-row TMA tile,
+// whose further zero keys the JAX arm never sees; e = expf(S - m) [key < L],
+// the mask a multiply after exp.
+struct MulMask : SoftmaxExp {
+  __device__ static float score(float s, int key, int len, float scale) {
+    return key < ((len + 15) & ~15) ? s * scale : -CUDART_INF_F;
+  }
+  __device__ static float e(float x, float m, int key, int len) {
+    return expf(x - m) * (key < len ? 1.f : 0.f);
+  }
+  __device__ static float p(float s, int key, int len, float scale, float m,
+                            float inv) {
+    return e(score(s, key, len, scale), m, key, len) * inv;
+  }
+};
+
+// nomax: no shift, e = expf(S) [key < L] (numerically unsafe by design).
+struct NoMax : SoftmaxExp {
+  static constexpr Passes kPasses = Passes::kSum;
+  __device__ static float score(float s, int, int, float scale) {
+    return s * scale;
+  }
+  __device__ static float e(float x, float, int key, int len) {
+    return expf(x) * (key < len ? 1.f : 0.f);
+  }
+  __device__ static float p(float s, int key, int len, float scale, float,
+                            float inv) {
+    return e(s * scale, 0.f, key, len) * inv;
+  }
+};
+
+// ---- the core ------------------------------------------------------------
+
+// The body of a kernel of 128 * kGroups threads over grid (heads, batch):
+// three maps over (cols, L, B) row layouts (sm90_host::rows_map).
+template <class P, int kGroups>
+__device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
+                                                const CUtensorMap* tm_q,
+                                                const CUtensorMap* tm_k,
+                                                const CUtensorMap* tm_v,
+                                                const AttnArgs& a) {
+  uint8_t* smem = align_tiles(smem_raw);
+  const int seq_len = a.seq_len;
+  const float scale = a.scale;
+  const int nkb = (seq_len + kTileRows - 1) / kTileRows;
+  const int nqt = nkb;
+  uint8_t* k_s = smem;  // block j at j * 8 KB
+  uint8_t* v_s = k_s + nkb * kTileBytes;
+  uint8_t* q_s = v_s + nkb * kTileBytes;  // warpgroup w's at w * 8 KB
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kTileBytes);
+  uint64_t* v_full = k_full + nkb;
+  uint64_t* q_full = v_full + nkb;
+
+  const int head = blockIdx.x;
+  const int batch = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int hcol = head * 64;
+
+  if (tid == 0) {
+    for (int j = 0; j < 2 * nkb + kGroups; ++j) mbar_init(&k_full[j], 1);
+    fence_barrier_init();
+    // The first Q tiles, the K blocks (pass 1 needs them first), then V.
+    for (int w = 0; w < kGroups && w < nqt; ++w) {
+      mbar_arrive_expect_tx(&q_full[w], kTileBytes);
+      tma_load_3d(q_s + w * kTileBytes, tm_q, &q_full[w], a.q_col + hcol,
+                  w * kTileRows, batch);
+    }
+    if constexpr (P::kProducts) {
+      for (int j = 0; j < nkb; ++j) {
+        mbar_arrive_expect_tx(&k_full[j], kTileBytes);
+        tma_load_3d(k_s + j * kTileBytes, tm_k, &k_full[j], a.k_col + hcol,
+                    j * kTileRows, batch);
+      }
+    }
+    for (int j = 0; j < nkb; ++j) {
+      mbar_arrive_expect_tx(&v_full[j], kTileBytes);
+      tma_load_3d(v_s + j * kTileBytes, tm_v, &v_full[j], a.v_col + hcol,
+                  j * kTileRows, batch);
+    }
+  }
+  __syncthreads();
+
+  const int wg = warp / 4;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int row = (warp % 4) * 16 + g;  // this thread's rows: row, row + 8
+  __nv_bfloat16* out =
+      a.o + static_cast<size_t>(batch) * seq_len * a.o_ld + hcol;
+  uint8_t* my_q = q_s + wg * kTileBytes;
+  const uint64_t d_q = desc_k_major(my_q);
+
+  for (int t = wg, use = 0; t < nqt; t += kGroups, ++use) {
+    mbar_wait(&q_full[wg], use & 1);
+
+    // S of key block j into s: the QK product, or nomm's row constants.
+    float c_lo = 0.f, c_hi = 0.f;
+    if constexpr (!P::kProducts) {
+      c_lo = round_bf16(ld_swizzled(my_q, row, 0) * scale);
+      c_hi = round_bf16(ld_swizzled(my_q, row + 8, 0) * scale);
+    }
+    auto issue_s = [&](float (&s)[32], int j) {
+      if constexpr (P::kProducts) {
+        mbar_wait(&k_full[j], 0);
+        wgmma_fence();
+        gemm_nt(s, d_q, desc_k_major(k_s + j * kTileBytes));
+        wgmma_commit();
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float x = (i & 2) ? c_hi : c_lo;
+          // Opaque to the compiler, so that the softmax of every key stays
+          // although the scores of a row are all equal.
+          asm volatile("" : "+f"(x));
+          s[i] = x;
+        }
+      }
+    };
+    // Calls fn(s, j) on every key block's S in order, computing block
+    // j + 1's S while block j's is read.
+    auto walk = [&](auto&& fn) {
+      float s0[32], s1[32];
+      issue_s(s0, 0);
+      for (int j = 0; j < nkb; j += 2) {
+        if (j + 1 < nkb) {
+          issue_s(s1, j + 1);
+          wgmma_wait_if<P::kProducts, 1>();
+        } else {
+          wgmma_wait_if<P::kProducts, 0>();
+        }
+        fence(s0);
+        fn(s0, j);
+        if (j + 1 < nkb) {
+          if (j + 2 < nkb) {
+            issue_s(s0, j + 2);
+            wgmma_wait_if<P::kProducts, 1>();
+          } else {
+            wgmma_wait_if<P::kProducts, 0>();
+          }
+          fence(s1);
+          fn(s1, j + 1);
+        }
+      }
+    };
+
+    // This lane's scores of rows g and g + 8 (lo, hi) over its 16 keys of
+    // block j, in place; the block's max of each row.
+    auto scores = [&](float (&s)[32], int j, float& b_lo, float& b_hi) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = j * kTileRows + nt * 8 + 2 * t4 + (i & 1);
+          const float x = P::score(s[4 * nt + i], key, seq_len, scale);
+          s[4 * nt + i] = x;
+          if (i < 2) {
+            b_lo = fmaxf(b_lo, x);
+          } else {
+            b_hi = fmaxf(b_hi, x);
+          }
+        }
+      }
+    };
+    // The sum of e over this lane's keys of block j, row lo (i0 = 0) or
+    // hi (i0 = 2), with shift m.
+    auto block_sum = [&](const float (&s)[32], int j, int i0, float m) {
+      float e = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int key = j * kTileRows + nt * 8 + 2 * t4;
+        e += P::e(s[4 * nt + i0], m, key, seq_len) +
+             P::e(s[4 * nt + i0 + 1], m, key + 1, seq_len);
+      }
+      return e;
+    };
+
+    float row_m_lo = 0.f, row_m_hi = 0.f, inv_lo = 1.f, inv_hi = 1.f;
+    if constexpr (P::kPasses == Passes::kOnline) {
+      // Pass 1: this lane's running max and rescaled sum.
+      float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.f,
+            l_hi = 0.f;
+      walk([&](float (&s)[32], int j) {
+        float b_lo = -CUDART_INF_F, b_hi = -CUDART_INF_F;
+        scores(s, j, b_lo, b_hi);
+        const float n_lo = fmaxf(m_lo, b_lo);
+        const float n_hi = fmaxf(m_hi, b_hi);
+        if (n_lo > -CUDART_INF_F) {  // else every key so far is masked
+          l_lo = l_lo * P::exp(m_lo - n_lo) + block_sum(s, j, 0, n_lo);
+          m_lo = n_lo;
+        }
+        if (n_hi > -CUDART_INF_F) {
+          l_hi = l_hi * P::exp(m_hi - n_hi) + block_sum(s, j, 2, n_hi);
+          m_hi = n_hi;
+        }
+      });
+      // Merge the four lanes of a row (a lane that saw no key has l = 0).
+      row_m_lo = quad_max(m_lo);
+      row_m_hi = quad_max(m_hi);
+      inv_lo = 1.f / quad_sum(l_lo * P::exp(m_lo - row_m_lo));
+      inv_hi = 1.f / quad_sum(l_hi * P::exp(m_hi - row_m_hi));
+    } else if constexpr (P::kPasses == Passes::kSum) {
+      // Pass 1: the unshifted sum.
+      float l_lo = 0.f, l_hi = 0.f;
+      walk([&](float (&s)[32], int j) {
+        float b_lo = -CUDART_INF_F, b_hi = -CUDART_INF_F;
+        scores(s, j, b_lo, b_hi);
+        l_lo += block_sum(s, j, 0, 0.f);
+        l_hi += block_sum(s, j, 2, 0.f);
+      });
+      inv_lo = 1.f / quad_sum(l_lo);
+      inv_hi = 1.f / quad_sum(l_hi);
+    } else if constexpr (P::kPasses == Passes::kMaxSum) {
+      // Pass 1: the max; pass 2: the sum with it.
+      float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F;
+      walk([&](float (&s)[32], int j) { scores(s, j, m_lo, m_hi); });
+      row_m_lo = quad_max(m_lo);
+      row_m_hi = quad_max(m_hi);
+      float l_lo = 0.f, l_hi = 0.f;
+      walk([&](float (&s)[32], int j) {
+        float b_lo = -CUDART_INF_F, b_hi = -CUDART_INF_F;
+        scores(s, j, b_lo, b_hi);
+        l_lo += block_sum(s, j, 0, row_m_lo);
+        l_hi += block_sum(s, j, 2, row_m_hi);
+      });
+      inv_lo = 1.f / quad_sum(l_lo);
+      inv_hi = 1.f / quad_sum(l_hi);
+    }
+
+    // Last pass: S again, p rounded, O += p V; block j + 1's S is issued
+    // with block j's P V product.
+    float sacc[32], oacc[32];
+    uint32_t pa[16];
+    float p0_lo = 0.f, p0_hi = 0.f;  // nomm: p of key 0
+    issue_s(sacc, 0);
+    wgmma_wait_if<P::kProducts, 0>();
+    fence(sacc);
+    for (int j = 0; j < nkb; ++j) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = j * kTileRows + nt * 8 + 2 * t4 + (i & 1);
+          const float rm = i < 2 ? row_m_lo : row_m_hi;
+          const float inv = i < 2 ? inv_lo : inv_hi;
+          sacc[4 * nt + i] =
+              P::p(sacc[4 * nt + i], key, seq_len, scale, rm, inv);
+        }
+      }
+      pack_a(pa, sacc);
+      if constexpr (P::kProducts) {
+        mbar_wait(&v_full[j], 0);
+        wgmma_fence();
+        gemm_rn(oacc, pa, desc_mn_major(v_s + j * kTileBytes), j > 0);
+        if (j + 1 < nkb) {
+          mbar_wait(&k_full[j + 1], 0);
+          gemm_nt(sacc, d_q, desc_k_major(k_s + (j + 1) * kTileBytes));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence(oacc);
+        fence(sacc);
+      } else {
+        if (j == 0) {
+          p0_lo = sacc[0];
+          p0_hi = sacc[2];
+        }
+        // The rounded p stay live as they would as the product's operand.
+#pragma unroll
+        for (int i = 0; i < 16; ++i) asm volatile("" ::"r"(pa[i]));
+        if (j + 1 < nkb) issue_s(sacc, j + 1);
+      }
+    }
+    if constexpr (!P::kProducts) {
+      // bf16(p[i][0]) v[i][0], a product of two bf16 (exact in f32) that
+      // the store rounds once, on every column. Key 0 is held by the lanes
+      // with t4 = 0; row i's own v is row i of V block t.
+      const int src = lane & ~3;
+      const float pl = __shfl_sync(0xffffffffu, round_bf16(p0_lo), src);
+      const float ph = __shfl_sync(0xffffffffu, round_bf16(p0_hi), src);
+      const uint8_t* v_t = v_s + t * kTileBytes;
+      mbar_wait(&v_full[t], 0);
+      const float o_lo = pl * ld_swizzled(v_t, row, 0);
+      const float o_hi = ph * ld_swizzled(v_t, row + 8, 0);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        oacc[4 * n] = oacc[4 * n + 1] = o_lo;
+        oacc[4 * n + 2] = oacc[4 * n + 3] = o_hi;
+      }
+    }
+
+    // The tile's products are done: its Q buffer takes the warpgroup's
+    // next tile while this one is stored.
+    if (t + kGroups < nqt) {
+      wg_barrier(wg);
+      if (tid % 128 == 0) {
+        mbar_arrive_expect_tx(&q_full[wg], kTileBytes);
+        tma_load_3d(my_q, tm_q, &q_full[wg], a.q_col + hcol,
+                    (t + kGroups) * kTileRows, batch);
+      }
+    }
+    store_acc(out, a.o_ld, t * kTileRows + row, seq_len, oacc, 1.f, 1.f, t4);
+  }
+}
+
+}  // namespace sm90
+
+namespace sm90_host {
+
+// Launches kernel<1> (one_group) or kernel<2> (two_groups), each running
+// sm90::attention_heads<P, groups>, over (num_heads, batch): one warpgroup
+// for heads of at most kAttnShortTiles tiles (as K3), else two. `scale` is
+// head_dim**-0.5 in f32; for a base-2 policy log2(e) is folded in here.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a length past
+// sm90::attn_max_len().
+template <class P, class Kernel>
+inline int launch_attention(Kernel one_group, Kernel two_groups,
+                            const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                            const CUtensorMap& tm_v, sm90::AttnArgs a,
+                            int batch, int num_heads, cudaStream_t stream) {
+  if (a.seq_len > sm90::attn_max_len()) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (P::kBase2) a.scale = a.scale * 1.44269504088896341f;
+  const int nkb = (a.seq_len + sm90::kTileRows - 1) / sm90::kTileRows;
+  const int groups = nkb <= sm90::kAttnShortTiles ? 1 : 2;
+  const Kernel kernel = groups == 1 ? one_group : two_groups;
+  const size_t smem = sm90::attn_smem_bytes(nkb, groups);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(num_heads, batch), 128 * groups, smem, stream>>>(
+      tm_q, tm_k, tm_v, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90_host

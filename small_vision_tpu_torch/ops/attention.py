@@ -17,16 +17,19 @@ goes through `AttentionPacked`.
 `fused_attention` / `pallas_attention` on [B, L, H, D]: scores times
 head_dim**-0.5, the row max subtracted, exp, the probabilities divided by
 their sum in f32 and rounded to the input dtype before the PV product. Its
-forward is K7 (`csrc/attention_unpacked.cu`), its backward K8
-(`csrc/attention_unpacked_bwd.cu`). A contiguous [B, L, H, D] tensor is
-the packed (B, L, H*D) one in memory, so the kernels read heads in place
-and the JAX wrapper's transposes and pads have no counterpart. No module
-of the model calls it; `ops.fused_block.fused_mha` shares its core.
+forward is K7 (`csrc/attention_unpacked.cu`: the Hopper max-shift core of
+`csrc/sm90_attention.cuh` that K6's attention stage runs, with exp2 of the
+log2(e)-scaled scores), its backward K8 (`csrc/attention_unpacked_bwd.cu`).
+A contiguous [B, L, H, D] tensor is the packed (B, L, H*D) one in memory,
+so the kernels read heads in place and the JAX wrapper's transposes and
+pads have no counterpart. No module of the model calls it.
 
 `attention_ablate` is the counterpart of
 scripts/ablate_attention_kernel.py::run_variant: packed attention under one
 of seven softmax / matmul arms (K9, `csrc/attention_ablate.cu`), forward
-only, the yardsticks that tell where an attention kernel's time goes.
+only. Each arm is a softmax policy of the same Hopper core, one change
+from the production one (`exp2`, what K6 and K7 run), so the arms tell
+where that core's time goes.
 """
 
 import ctypes
@@ -140,6 +143,19 @@ def _require(cond, msg, name=NAME):
     raise ValueError(f"{name}: {msg}")
 
 
+def _check_each(name, first, tensors):
+  """Each of `tensors` a contiguous bf16 tensor of `first`'s shape on its
+  device, at a 16-byte aligned address: the kernels read their inputs
+  through TMA tensor maps, whose base must be so aligned."""
+  for n, t in tensors.items():
+    _require(t.device == first.device and t.dtype == torch.bfloat16
+             and t.shape == first.shape and t.is_contiguous(),
+             f"{n} must be a contiguous bfloat16 {tuple(first.shape)} on "
+             f"{first.device}", name)
+    _require(t.data_ptr() % 16 == 0,
+             f"{n} must be 16-byte aligned (a TMA tensor map's base)", name)
+
+
 def _check(name, num_heads, **tensors):
   """Checks the (B, L, H*64) bf16 inputs of a kernel; returns B, L."""
   first = next(iter(tensors.values()))
@@ -151,12 +167,7 @@ def _check(name, num_heads, **tensors):
   _require(hd == num_heads * HEAD_DIM,
            f"width {hd} != num_heads {num_heads} * head dim {HEAD_DIM}",
            name)
-  for n, t in tensors.items():
-    _require(t.device == first.device and t.dtype == torch.bfloat16
-             and t.shape == first.shape and t.is_contiguous()
-             and t.data_ptr() % 16 == 0,
-             f"{n} must be a contiguous, 16-byte aligned bfloat16 "
-             f"{tuple(first.shape)} on {first.device}", name)
+  _check_each(name, first, tensors)
   return b, l
 
 
@@ -316,12 +327,7 @@ def _check_unpacked(name, **tensors):
            f"inputs must be [B, L, H, D], got {tuple(first.shape)}", name)
   b, l, h, d = first.shape
   _require(d == HEAD_DIM, f"head dim {d} != {HEAD_DIM}", name)
-  for n, t in tensors.items():
-    _require(t.device == first.device and t.dtype == torch.bfloat16
-             and t.shape == first.shape and t.is_contiguous()
-             and t.data_ptr() % 16 == 0,
-             f"{n} must be a contiguous, 16-byte aligned bfloat16 "
-             f"{tuple(first.shape)} on {first.device}", name)
+  _check_each(name, first, tensors)
   return b, l, h
 
 
@@ -330,7 +336,10 @@ def _scale_f32() -> float:
 
 
 def attention_unpacked_fwd(q, k, v):
-  """Launches K7 on [B, L, H, 64] bf16 contiguous q, k, v."""
+  """Launches K7 on [B, L, H, 64] bf16 contiguous, 16-byte aligned q, k,
+  v. No atomics: two launches give the same bits. L up to the kernel's
+  `attention_unpacked_max_len()`, 832: a head's K and V stay resident in
+  shared memory."""
   b, l, h = _check_unpacked(UNPACKED_NAME, q=q, k=k, v=v)
   fn, max_len = _unpacked_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}", UNPACKED_NAME)
@@ -476,7 +485,9 @@ def _ablate_lib():
 
 
 def attention_ablate_fwd(q, k, v, num_heads, variant):
-  """Launches K9's arm `variant` on (B, L, H*64) bf16 contiguous q, k, v."""
+  """Launches K9's arm `variant` on (B, L, H*64) bf16 contiguous, 16-byte
+  aligned q, k, v; L up to `attention_ablate_max_len()`, 832. No atomics:
+  two launches give the same bits."""
   _require(variant in ABLATE_VARIANTS,
            f"unknown variant {variant!r}, one of {ABLATE_VARIANTS}",
            ABLATE_NAME)

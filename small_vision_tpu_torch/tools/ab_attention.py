@@ -1,0 +1,225 @@
+"""Holds this tree's max-shift attention kernels (K6, K7, K9) against
+another tree's, on the card.
+
+  python -m small_vision_tpu_torch.tools.ab_attention --other DIR
+      [--rounds 3] [--iters 50] [--out FILE]
+
+K6's attention stage, K7 and the seven arms of K9 run one shared core
+(`csrc/sm90_attention.cuh`), so a change there moves all three. This tool
+builds `fused_mha.cu`, `attention_unpacked.cu` and `attention_ablate.cu` of
+DIR (the `small_vision_tpu_torch/csrc` directory of another checkout, e.g.
+the parent commit unpacked with `git archive`) into a temporary directory
+and loads them beside this tree's libraries. Then, on inputs from a
+`torch.Generator` seeded 0:
+  - K6 (the whole fused MHA forward) at the sampler's shape (B=64, L=260)
+    and at (128, 257), 768 wide, 12 heads of 64: both sides must give the
+    same bits (`torch.equal`); the call and its attention launch alone are
+    timed. No fused MLP runs in this tool, so K6 is read away from the
+    power draw of K5.
+  - K7 on [B, L, 12, 64] at (64, 260) and (128, 257), and K9's seven arms
+    on (B, L, 768) at (128, 257) and (128, 164), each beside
+    `scaled_dot_product_attention` on the same inputs.
+Each time is the mean of `--iters` launches between two CUDA events after
+a warm-up launch, taken in turns (other, this, this, other) for `--rounds`
+rounds; the tool prints the median and the range of each, beside the
+card's name and power limit, and writes them as JSON to `--out`.
+"""
+
+import argparse
+import ctypes
+import json
+import pathlib
+import statistics
+import subprocess
+import tempfile
+
+import numpy as np
+import torch
+
+from small_vision_tpu_torch.ops import _build
+from small_vision_tpu_torch.ops import attention as attn
+from small_vision_tpu_torch.ops import fused_block as fb
+from small_vision_tpu_torch.tools.profile_sampler import card_line
+
+WIDTH, HEADS = 768, 12
+K6_SHAPES = ((64, 260), (128, 257))
+K7_SHAPES = ((64, 260), (128, 257))
+K9_SHAPES = ((128, 257), (128, 164))
+SOURCES = ("fused_mha", "attention_unpacked", "attention_ablate")
+
+
+def dev_ms(fn, iters) -> float:
+  """Mean ms of one call of `fn` over `iters` calls, by CUDA events, after
+  one warm-up call."""
+  fn()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(iters):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / iters
+
+
+def _bind(lib):
+  p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+  sigs = {"fused_mha_fwd": [p] * 12 + [i, i, i, f, p],
+          "fused_mha_attention": [p, p, i, i, i, f, p],
+          "attention_unpacked_fwd": [p] * 4 + [i, i, i, f, p],
+          "attention_ablate_fwd": [p] * 4 + [i, i, i, f, i, p]}
+  for name, args in sigs.items():
+    if hasattr(lib, name):
+      getattr(lib, name).argtypes = args
+      getattr(lib, name).restype = i
+  return lib
+
+
+def build_other(csrc: pathlib.Path, out_dir: pathlib.Path) -> dict:
+  """{source stem: its library built from `csrc`}, one nvcc each, all at
+  once, with this tree's flags."""
+  procs = {}
+  for stem in SOURCES:
+    out = out_dir / f"{stem}_other.so"
+    procs[stem] = (out, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(out),
+         str(csrc / f"{stem}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+  libs = {}
+  for stem, (out, proc) in procs.items():
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+      raise SystemExit(f"ab_attention: nvcc failed on {stem}.cu:\n{log}")
+    libs[stem] = _bind(ctypes.CDLL(str(out)))
+  return libs
+
+
+def _check(status):
+  _build.check(status, "ab_attention")
+
+
+def k6_launches(lib, x, params, b, l):
+  """{"call", "attention": a function that launches it} and the call's
+  output, on buffers made here."""
+  qkv = torch.empty(b, l, 3 * WIDTH, dtype=x.dtype, device=x.device)
+  heads, o = torch.empty_like(x), torch.empty_like(x)
+  stream = torch.cuda.current_stream().cuda_stream
+  scale = fb._mha_scale()
+  ptrs = [t.data_ptr() for t in (x, *params, qkv, heads, o)]
+  return {
+      "call": lambda: _check(lib.fused_mha_fwd(*ptrs, b, l, HEADS, scale,
+                                               stream)),
+      "attention": lambda: _check(lib.fused_mha_attention(
+          qkv.data_ptr(), heads.data_ptr(), b, l, HEADS, scale, stream)),
+  }, o
+
+
+def main(argv=None):
+  parser = argparse.ArgumentParser()
+  parser.add_argument("--other", required=True,
+                      help="another checkout's small_vision_tpu_torch/csrc")
+  parser.add_argument("--rounds", type=int, default=3)
+  parser.add_argument("--iters", type=int, default=50)
+  parser.add_argument("--out", default=None, help="JSON file of the times")
+  args = parser.parse_args(argv)
+  if not torch.cuda.is_available():
+    raise SystemExit("ab_attention: needs a CUDA device")
+  card = card_line()
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  randn = lambda *s, std=1.0: (torch.randn(*s, generator=gen, device="cuda")
+                               * std).to(torch.bfloat16)
+  stream = lambda: torch.cuda.current_stream().cuda_stream
+  scale = float(np.float32(1.0 / np.sqrt(64)))
+  this = {stem: _bind(_build.library(stem)) for stem in SOURCES}
+  # name: {"other": fn, "this": fn} to time; name: the library call's fn.
+  # The functions hold raw pointers: `keep` holds their tensors.
+  pairs, library, same_bits, keep = {}, {}, {}, []
+
+  params = []
+  for _ in range(4):
+    params += [randn(WIDTH, WIDTH, std=WIDTH**-0.5), randn(WIDTH, std=0.1)]
+  with tempfile.TemporaryDirectory() as tmp:
+    other = build_other(pathlib.Path(args.other), pathlib.Path(tmp))
+    sides = {"other": other, "this": this}
+    for b, l in K6_SHAPES:
+      x = randn(b, l, WIDTH)
+      keep.append(x)
+      runs, outs = {}, {}
+      for side, libs in sides.items():
+        runs[side], outs[side] = k6_launches(libs["fused_mha"], x, params,
+                                             b, l)
+        runs[side]["call"]()
+      torch.cuda.synchronize()
+      keep += list(outs.values())
+      same_bits[f"K6 {b}x{l}"] = torch.equal(outs["other"], outs["this"])
+      for stage in ("call", "attention"):
+        pairs[f"K6 {stage} {b}x{l}"] = {s: runs[s][stage] for s in sides}
+
+    for b, l in K7_SHAPES:
+      q, k, v = (randn(b, l, HEADS, 64) for _ in range(3))
+      o = torch.empty_like(q)
+      keep += [q, k, v, o]
+      ptrs = [t.data_ptr() for t in (q, k, v, o)]
+      pairs[f"K7 {b}x{l}"] = {
+          s: (lambda lib=libs["attention_unpacked"], p=ptrs, b=b, l=l: _check(
+              lib.attention_unpacked_fwd(*p, b, l, HEADS, scale, stream())))
+          for s, libs in sides.items()}
+      heads_first = [t.transpose(1, 2) for t in (q, k, v)]
+      library[f"K7 {b}x{l}"] = (
+          lambda hf=heads_first:
+          torch.nn.functional.scaled_dot_product_attention(*hf))
+
+    for b, l in K9_SHAPES:
+      q, k, v = (randn(b, l, WIDTH) for _ in range(3))
+      o = torch.empty_like(q)
+      keep += [q, k, v, o]
+      ptrs = [t.data_ptr() for t in (q, k, v, o)]
+      for arm_id, arm in enumerate(attn.ABLATE_VARIANTS):
+        pairs[f"K9 {arm} {b}x{l}"] = {
+            s: (lambda lib=libs["attention_ablate"], a=arm_id, p=ptrs, b=b,
+                l=l: _check(lib.attention_ablate_fwd(*p, b, l, HEADS, scale,
+                                                     a, stream())))
+            for s, libs in sides.items()}
+      split = [t.view(b, l, HEADS, 64).transpose(1, 2) for t in (q, k, v)]
+      library[f"K9 {b}x{l}"] = (
+          lambda sp=split:
+          torch.nn.functional.scaled_dot_product_attention(*sp))
+
+    times = {name: {"other": [], "this": []} for name in pairs}
+    lib_times = {name: [] for name in library}
+    for _ in range(args.rounds):
+      for name, fns in pairs.items():
+        for side in ("other", "this", "this", "other"):
+          times[name][side].append(dev_ms(fns[side], args.iters))
+      for name, fn in library.items():
+        lib_times[name].append(dev_ms(fn, args.iters))
+
+  summary = lambda v: dict(median=statistics.median(v), min=min(v),
+                           max=max(v))
+  result = {"card": card, "same_bits": same_bits,
+            "times": {name: {side: summary(v) for side, v in t.items()}
+                      for name, t in times.items()},
+            "library": {name: summary(v) for name, v in lib_times.items()}}
+  print(f"[ab_attention] K6 bit-equal to the other build: {same_bits}; on "
+        f"{card}", flush=True)
+  for name, t in result["times"].items():
+    print(f"[ab_attention] {name}: this {t['this']['median']:.4f} ms "
+          f"({t['this']['min']:.4f}-{t['this']['max']:.4f}), other "
+          f"{t['other']['median']:.4f} ({t['other']['min']:.4f}-"
+          f"{t['other']['max']:.4f}), this/other "
+          f"{t['this']['median'] / t['other']['median']:.3f}", flush=True)
+  for name, t in result["library"].items():
+    print(f"[ab_attention] {name} sdpa: {t['median']:.4f} ms "
+          f"({t['min']:.4f}-{t['max']:.4f})", flush=True)
+  if args.out:
+    pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
+  if not all(same_bits.values()):
+    raise SystemExit("ab_attention: K6 gives other bits than the other "
+                     "build")
+  return result
+
+
+if __name__ == "__main__":
+  main()

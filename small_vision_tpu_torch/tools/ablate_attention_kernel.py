@@ -6,12 +6,16 @@
 Counterpart of scripts/ablate_attention_kernel.py: times the seven arms of
 the ablation kernel (K9, `ops.attention.attention_ablate`) at the two shapes
 of the UMD-B/4 training step, (128, 257, 768) and (128, 164, 768) bf16 with
-12 heads of 64:
-  prod       the max-shift softmax, probabilities rounded before p·V
-  nosoftmax  softmax replaced by a scalar multiply (the two products alone)
-  nomm       no QK product, no p·V (the softmax alone)
-  bf16exp    exp of scores rounded to bf16
-  exp2       exp2 with log2(e) folded into the scores
+12 heads of 64. The arms ablate the Hopper max-shift attention core that
+K6's attention stage and K7 run (`csrc/sm90_attention.cuh`): each is one
+softmax policy of it, one change from the production one (`exp2`):
+  prod       exp in the natural base (expf), where the core takes ex2
+  nosoftmax  one pass, softmax replaced by a scalar multiply (the two
+             products, the loads and the stores alone)
+  nomm       no QK product, no p·V, no K loaded (the softmax alone)
+  bf16exp    exp of scores rounded to bf16 (a pass for the max, one for
+             the sum, one for p)
+  exp2       the core itself: exp2 with log2(e) folded into the scale
   mulmask    keys masked by a multiply after exp, not by -inf before the max
   nomax      no row max (numerically unsafe; the cost of the max pass)
 One line per arm: the mean of N = 20 launches between two CUDA events after

@@ -19,8 +19,12 @@ count, at width 1,024 and at a hidden width that is not a multiple of 128;
 its stage timer), the fused MHA (K6: also at the training shapes,
 at ragged lengths, at width 1,024 and at its own length limit) and the
 [B, L, H, D] attention with the max-shift softmax (K7, K8) in the same
-way, and the seven arms of the ablation kernel (K9) at two small shapes
-whose length is not a multiple of 16.
+way (K7 also at its own length limit, two launches giving the same bits),
+and the seven arms of the ablation kernel (K9) at lengths that are not a
+multiple of 16, at 80 and 144 (multiples of 16 but not of its 64-row
+tiles) and at 257, two launches of each giving the same bits, and
+`mulmask` with scores near -300, where a zero key of the tile past L would
+change the max.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -474,7 +478,7 @@ def test_fused_mlp_stages_launch_both_kernels_and_count_nothing(cuda):
   assert "fused_mlp_up_kernel" in names and "fused_mlp_down_kernel" in names
 
 
-MAX_LEN = -1  # stands for fb.fused_mha_max_len(), known once built
+MAX_LEN = -1  # stands for the kernel's own length limit, known once built
 
 
 @pytest.mark.cuda
@@ -541,8 +545,11 @@ def _qkv_do_4d(device, l, b=4, h=2, seed=0, scale=1.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,h", [(20, 2), (37, 3), (257, 12), (260, 12)])
+@pytest.mark.parametrize("l,h", [(20, 2), (37, 3), (80, 2), (144, 3),
+                                 (257, 12), (260, 12), (MAX_LEN, 1)])
 def test_unpacked_attention_kernel_matches_plain(cuda, l, h):
+  if l == MAX_LEN:
+    l = attn._unpacked_lib()[1]
   q, k, v, _ = _qkv_do_4d(cuda, l, h=h)
   before = _build.LAUNCHES[attn.UNPACKED_NAME]
   got = attn.fused_attention(q, k, v)
@@ -552,6 +559,7 @@ def test_unpacked_attention_kernel_matches_plain(cuda, l, h):
   torch.testing.assert_close(got.float(),
                              attn.attention_plain(q, k, v).float(),
                              rtol=2**-7, atol=2**-7)
+  assert torch.equal(got, attn.attention_unpacked_fwd(q, k, v))  # no atomics
 
 
 @pytest.mark.cuda
@@ -603,9 +611,20 @@ def test_unpacked_attention_autograd_and_refusals(cuda):
   long = torch.zeros(1, 4096, 1, 64, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_unpacked_bwd(long, long, long, long)
+  # K7 takes its limit (832, the shared memory that K and V fill) and
+  # refuses one more.
+  assert attn._unpacked_lib()[1] == 832
+  past = long[:, :attn._unpacked_lib()[1] + 1]
+  with pytest.raises(ValueError, match="sequence length"):
+    attn.attention_unpacked_fwd(past, past, past)
   q = q.detach()
   with pytest.raises(ValueError, match="contiguous"):
     attn.attention_unpacked_fwd(q, q, q.transpose(1, 2))
+  # Contiguous but 2 bytes off a 16-byte boundary: TMA cannot read it.
+  off = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(
+      q.shape)
+  with pytest.raises(ValueError, match="16-byte aligned"):
+    attn.attention_unpacked_fwd(off, q, q)
 
 
 @pytest.mark.cuda
@@ -634,7 +653,10 @@ ABLATE_ULPS = {"prod": 2, "nosoftmax": 2, "nomm": 0.5, "bf16exp": 4,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,h", [(2, 21, 2), (3, 37, 3)])
+@pytest.mark.parametrize("b,l,h", [
+    (2, 21, 2), (3, 37, 3),
+    (2, 80, 2), (2, 144, 3),  # multiples of 16 but not of the 64-row tile
+    (2, 257, 12)])            # five tiles, the decoder's length
 @pytest.mark.parametrize("variant", attn.ABLATE_VARIANTS)
 def test_attention_ablate_kernel_matches_plain(cuda, variant, b, l, h):
   q, k, v = (_randn((b, l, h * 64), s, cuda, torch.bfloat16)
@@ -647,6 +669,27 @@ def test_attention_ablate_kernel_matches_plain(cuda, variant, b, l, h):
   err = (got.float() - want.float()).abs().max().item()
   top = want.float().abs().max().item()
   assert err <= ABLATE_ULPS[variant] * 2.0**-7 * top, (err, top)
+  # No atomics: a second launch gives the same bits.
+  assert torch.equal(got, attn.attention_ablate(q, k, v, h, variant))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [80, 144])
+def test_attention_ablate_mulmask_ignores_the_tiles_zero_keys(cuda, l):
+  """Scores all near -300 (every row's max below -140): were the zero keys
+  that the 64-row tile holds past lp = L to join mulmask's max, every
+  exp(S - 0) would underflow to 0."""
+  b, h = 2, 2
+  q = _randn((b, l, h * 64), 53, cuda, torch.float32).abs() * 60
+  k = -_randn((b, l, h * 64), 54, cuda, torch.float32).abs()
+  v = _randn((b, l, h * 64), 55, cuda, torch.bfloat16)
+  q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+  got = attn.attention_ablate(q, k, v, h, "mulmask")
+  want = attn.attention_ablate_plain(q, k, v, h, "mulmask")
+  assert torch.isfinite(want.float()).all()
+  err = (got.float() - want.float()).abs().max().item()
+  assert err <= ABLATE_ULPS["mulmask"] * 2.0**-7 * want.float().abs().max(
+      ).item(), err
 
 
 @pytest.mark.cuda
