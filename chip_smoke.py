@@ -11,13 +11,15 @@ Phases, each fatal on failure:
                the shape of phase 6, and timed there too), the backwards
                K2, K4, K8 at the training shapes (per-branch batch 128,
                L = 68, 164, 257), each launched twice to show equal bits
-               (K3 also at the training shapes, and K7, launched twice
-               too), the fused MLP and MHA (K5, K6) at both, each launched
-               twice to show equal bits and with the time of each of its
-               kernels (K5's two, K6's three), K5 also at width 1,024 with
-               hidden 4,096, and the seven arms of the ablation kernel (K9)
-               at the tool's two shapes, each launched twice to show equal
-               bits.
+               (K2 three times in a row; K8 also at L = 65 and at (8,
+               1,024), past its old limit, and with the time of each of
+               its two kernels; K3 also at the training shapes, and K7,
+               launched twice too), the fused MLP and MHA (K5, K6) at
+               both, each launched twice to show equal bits and with the
+               time of each of its kernels (K5's two, K6's three), K5
+               also at width 1,024 with hidden 4,096, and the seven arms
+               of the ablation kernel (K9) at the tool's two shapes, each
+               launched twice to show equal bits.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
@@ -281,7 +283,9 @@ def check_attention(attn, card):
 
 
 def check_ln_bwd(ln, card):
-  """K2 against its plain version at the training shapes."""
+  """K2 against its plain version at the training shapes, three launches
+  in a row giving equal bits; timed beside its bound and its library
+  call."""
   gen = torch.Generator(device="cuda").manual_seed(2)
   randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
   b = TRAIN_BATCH // 2
@@ -298,13 +302,15 @@ def check_ln_bwd(ln, card):
     ln.ln_modulate_fwd(x, gamma, beta, shift, scale, mean=mean, rstd=rstd)
     for sc in (scale, None):
       args = (x, dy, mean, rstd, gamma, beta, sc)
+      # Three launches in a row: the sums' fixed order, and each launch
+      # leaving its ticket counters at 0 for the next.
       got = ln.ln_modulate_bwd(*args)
-      again = ln.ln_modulate_bwd(*args)
+      again = [ln.ln_modulate_bwd(*args) for _ in range(2)]
       want = ln.ln_modulate_bwd_plain(*args)
       torch.cuda.synchronize()
-      if not all(torch.equal(g, a) for g, a in zip(got, again)
-                 if g is not None):
-        fail(f"ln_modulate_bwd L={seq}: two launches differ")
+      if not all(torch.equal(g, a) for other in again
+                 for g, a in zip(got, other) if g is not None):
+        fail(f"ln_modulate_bwd L={seq}: three launches differ")
       dx, dx_want = got[0].float(), want[0].float()
       err = (dx - dx_want).abs()
       # dx: one bf16 ulp (rounding either way) plus f32 noise; the sums:
@@ -320,7 +326,7 @@ def check_ln_bwd(ln, card):
       max_err = max(max_err, worst)
       print(f"[kernels] ln_modulate_bwd B={b} L={seq} modulate="
             f"{sc is not None}: max abs err {worst:.3e}, {bad} over "
-            "tolerance, two launches equal", flush=True)
+            "tolerance, three launches equal", flush=True)
       if bad:
         fail(f"ln_modulate_bwd disagrees with its plain version ({bad})")
     args = (x, dy, mean, rstd, gamma, beta, scale)
@@ -336,8 +342,12 @@ def check_ln_bwd(ln, card):
     bound_ms, bound_by = _bound(
         3 * n * 2 + 2 * b * seq * 4 + 4 * WIDTH * 4 + b * WIDTH * 2
         + 2 * b * WIDTH * 4, 14 * n, F32_FLOPS)
+    # `ms` times calls through the wrapper, as for every other kernel. A
+    # call's checks and allocations can take as long on the host as K2 on
+    # the card, so `device_ms` also times launches into buffers made once.
     by_len[seq] = dict(
         ms=time_ms(lambda: ln.ln_modulate_bwd(*args)),
+        device_ms=time_ms(ln.ln_modulate_bwd_timer(*args)),
         plain_ms=time_ms(lambda: ln.ln_modulate_bwd_plain(*args), iters=10),
         library_ms=time_ms(lambda: torch.autograd.grad(
             y, (xg, g16, b16, sh, scl), dy, retain_graph=True)),
@@ -620,13 +630,21 @@ def check_attention_unpacked(attn, card):
               by_shape=by_shape)
 
 
+# K8's extra lengths, each checked but not timed: (batch, length). 65 is
+# one key past a 64-row tile; 1,024 is past the 704 the kernel once took.
+K8_EDGE_SHAPES = ((TRAIN_BATCH // 2, 65), (8, 1024))
+
+
 def check_attention_unpacked_bwd(attn, card):
-  """K8 against its plain version at the training shapes."""
+  """K8 against its plain version at the training shapes, at a ragged
+  length and past its old length limit, two launches giving equal bits;
+  timed at the training shapes, with the time of each of its two
+  kernels."""
   gen = torch.Generator(device="cuda").manual_seed(7)
-  b = TRAIN_BATCH // 2
   head_dim = WIDTH // HEADS
   max_err, by_len = 0.0, {}
-  for seq in TRAIN_SEQS:
+  shapes = tuple((TRAIN_BATCH // 2, l) for l in TRAIN_SEQS) + K8_EDGE_SHAPES
+  for b, seq in shapes:
     q, k, v, do = (torch.randn(b, seq, HEADS, head_dim, generator=gen,
                                device="cuda").to(torch.bfloat16)
                    for _ in range(4))
@@ -635,7 +653,7 @@ def check_attention_unpacked_bwd(attn, card):
     want = attn.attention_bwd_plain(q, k, v, do)
     torch.cuda.synchronize()
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
-      fail(f"attention_unpacked_bwd L={seq}: two launches differ")
+      fail(f"attention_unpacked_bwd B={b} L={seq}: two launches differ")
     worst, bad = 0.0, 0
     for g, w in zip(got, want):
       # bf16 outputs of f32 sums over L; a sum in another order may flip
@@ -650,6 +668,8 @@ def check_attention_unpacked_bwd(attn, card):
           flush=True)
     if bad:
       fail(f"attention_unpacked_bwd disagrees with its plain version ({bad})")
+    if (b, seq) in K8_EDGE_SHAPES:
+      continue
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
@@ -664,6 +684,11 @@ def check_attention_unpacked_bwd(attn, card):
         library_ms=time_ms(lambda: torch.autograd.grad(
             o, (qs, ks, vs), dos, retain_graph=True)),
         bound_ms=bound_ms, bound_by=bound_by)
+    # The two kernels of one call, each timed alone ("dkdv" reads the m, r,
+    # c that "dq" wrote in its warm-up).
+    stages = attn.attention_unpacked_bwd_stages(q, k, v, do)
+    by_len[seq]["stage_ms"] = {
+        name: time_ms(launch) for name, launch in stages.items()}
     print(f"[kernels] attention_unpacked_bwd B={b} L={seq} H={HEADS} "
           f"D={head_dim}: {_fmt(by_len[seq])} on {card}", flush=True)
   return dict(name=attn.UNPACKED_BWD_NAME, route="cuda",

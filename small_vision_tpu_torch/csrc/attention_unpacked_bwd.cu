@@ -4,343 +4,647 @@
 // Replaces: small_vision_tpu/ops/attention.py::_attn_bwd_kernel (reached
 // via _pallas_attention_bwd_impl, the custom VJP of fused_attention). Per
 // (batch, head), recomputing the forward's probabilities:
-//   S  = (Q K^T) * scale, keys past L masked;  P = softmax(S)      (f32)
+//   S  = (Q K^T) * scale, keys past L at -inf;  m = rowmax(S)
+//   P  = exp(S - m) / rowsum(exp(S - m))                            (f32)
 //   dV = bf16(P)^T dO
 //   dP = dO V^T                                                     (f32)
 //   dS = bf16(P * (dP - rowsum(dP * P)))
 //   dQ = (dS K) * scale;   dK = (dS^T Q) * scale
 // with f32 sums and bf16 outputs: the TPU kernel's formulas and rounding
 // points (P stays f32 inside dS, is rounded for dV; scale is applied to the
-// f32 products, where the packed backward folds it into an operand).
+// f32 products, where the packed backward folds it into an operand). The
+// exp is that of K7's production softmax (`SoftmaxExp2`,
+// sm90_attention.cuh): with S2 = (Q K^T) * scale * log2(e) and m2 =
+// rowmax(S2), P = exp2(S2 - m2) * r, r = 1 / rowsum, by ex2.
 //
 // Bound on this card: at B=128, H=12, L=257 the 7*B*L*H*64*2 bytes of q, k,
 // v, dO, dq, dk and dv (354 MB, 0.106 ms at 3.35 TB/s) outweigh the five
-// products of 2*B*H*L^2*64 flops (65 GFLOP, 0.066 ms at 989 TFLOP/s).
+// products of 2*B*H*L^2*64 flops (65 GFLOP, 0.066 ms at 989 TFLOP/s); the
+// exp2 of every score, three times, is the next limit.
 //
-// Design: the packed backward's split (attention_packed_bwd.cu), so that
-// every output element is summed by one thread in a fixed order: no
-// atomics, and two launches give the same bits.
-//  (a) attn_unpacked_bwd_dq: one block per (b, h, 64-query tile), four warps
-//      of 16 rows. It stages the head's K and V and makes two passes over
-//      the keys: the first keeps, per lane, a running max, a sum of exp and
-//      a sum of dP * exp, both rescaled when the max grows, and merges the
-//      four lanes of a row into m, r = 1 / rowsum and c = rowsum(dP * P),
-//      stored to (B, H, L) f32 buffers; the second forms dS and
-//      accumulates dS K.
-//  (b) attn_unpacked_bwd_dkdv: one block per (b, h, 64-key tile). It stages
-//      the head's Q and dO and m, r, c from (a); for each block of 16
-//      queries it recomputes P^T and dP^T, forms dS^T, and accumulates dV
-//      and dK in f32 registers.
-// Every product is a bf16 mma.sync with f32 accumulation. All operands are
-// staged row-major; the products that contract over rows read their B
-// fragments through ldmatrix.trans, so nothing is stored transposed.
+// Design: the packed backward's (attention_packed_bwd.cu), so that every
+// output element is summed by one warpgroup's accumulator in a fixed
+// order: no atomics, and two launches give the same bits. A contiguous
+// [B, L, H, 64] tensor is the packed (B, L, H*64) one, so the same 3-D TMA
+// map over (H*64, L, B), box (64, 64, 1) with the 128-byte swizzle, reads a
+// head's 64 rows in place and fills rows at or past L with zeros.
+//  (a) attn_unpacked_bwd_dq_sm90: one CTA per (64-query tile, head, batch).
+//      Its consumer warpgroup holds the tile's Q and dO; a producer warp
+//      streams the head's 64-key blocks of K and V twice through a
+//      two-stage ring. Pass 1 computes S and dP and keeps, per lane and
+//      row, a running max of S2, the sum of e = exp2(S2 - max) and of
+//      dP * e, both rescaled when the max grows; the four lanes of a row
+//      then merge into m2, r = 1 / rowsum and c = rowsum(dP * P), stored
+//      to the (B, H, L) f32 scratch. Pass 2 recomputes S and dP, forms
+//      dS = bf16(P * (dP - c)) and accumulates dQ += dS K.
+//  (b) attn_unpacked_bwd_dkdv_sm90: one CTA per (64-key tile, head, batch).
+//      Its consumer warpgroup holds the tile's K and V; the producer warp
+//      streams 64-query blocks of Q and dO with their m2, r and c. For each
+//      block it computes S^T = K Q^T and dP^T = V dO^T, forms P^T and dS^T
+//      in registers, and accumulates dV += bf16(P^T) dO and dK += dS^T Q.
+// Every product is a wgmma m64nNk16 (bf16 in, f32 accumulate) of one
+// warpgroup. The score products read both operands from shared memory,
+// K-major; the updates take A from registers (the scores' accumulator
+// layout, packed to bf16) and B from the same row-major tile through the
+// transpose-B bit. In (a)'s pass 1 and in (b), S is issued before dP as
+// its own commit group, so that the exp2 of S runs while dP is computed;
+// (a)'s pass 2 waits for both (split there, ptxas serialised the wgmmas
+// for want of registers, C7511, and (a) read 5 % slower at L=257 and 13 %
+// at L=1,024 on this card). dQ and dK are scaled in f32 at the store, rows
+// < L only.
+//
+// Masks: keys past L enter pass 1 at -inf before the max, as the TPU
+// kernel's select does, and get P = 0 in pass 2. Queries past L get r = 0
+// and m2 = c = 0 in (b), so their P is 0 whatever their (zero) scores. A
+// key row past L in (b) may overflow (0 - m2 of a very negative row): rows
+// of a product do not mix and it is not stored.
+//
+// The ragged edge: a last block of at most 16 rows (L=257: 1 row; L=68: 4)
+// is computed 16 wide (m64n16k16, one contraction step in the update), so
+// its products and exp2 cost a quarter of a full block's. Shared memory
+// does not grow with L: (a) 49 KB and 128 registers a thread, three CTAs
+// an SM; (b) 50 KB and 168 registers (four 64 x 64 f32 accumulators), two.
 
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
-#include "attention_maxshift.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
-using namespace tiles;
-
 constexpr int kHeadDim = 64;
-constexpr int kTile = 64;  // query rows (a) or key rows (b) per block
-constexpr int kThreads = 128;
+constexpr int kTile = sm90::kTileRows;
+constexpr int kTileBytes = sm90::kTileBytes;
+constexpr int kStages = 2;
+constexpr int kConsumers = 128;  // one warpgroup
+constexpr int kNarrow = 16;      // a last block this short is 16 wide
+constexpr float kLog2e = 1.44269504088896341f;
+// Longest sequence the kernels take. Shared memory does not grow with L;
+// this is the longest length the card's tests hold the kernels at.
+constexpr int kMaxLen = 4096;
 
-// (a): K, V [lp][72]; Q, dO tiles [64][72].
-__host__ __device__ constexpr size_t dq_smem_bytes(int lp) {
-  return sizeof(__nv_bfloat16) * kRowStride *
-         (2 * static_cast<size_t>(lp) + 2 * kTile);
+// (a): Q, dO; kStages x (K, V); barriers. (b): K, V; kStages x (Q, dO);
+// kStages x (m2, r, c) [64] f32; barriers. Plus 1 KB to align the
+// tiles to 1024 bytes.
+constexpr size_t kDqSmem =
+    1024 + (2 + 2 * kStages) * kTileBytes + 8 * (1 + 2 * kStages);
+constexpr size_t kDkvSmem = 1024 + (2 + 2 * kStages) * kTileBytes +
+                            kStages * 3 * kTile * 4 + 8 * (1 + 2 * kStages);
+
+
+// D (64 x 16, f32) [+]= A B^T over 16 columns, B's first 16 rows, both
+// K-major in shared memory: the m64n64 accumulator's n-tiles 0 and 1.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// (b): Q, dO [lp][72]; K, V tiles [64][72]; then m, r, c, [lp] f32 each.
-__host__ __device__ constexpr size_t dkv_smem_bytes(int lp) {
-  return dq_smem_bytes(lp) + sizeof(float) * 3 * static_cast<size_t>(lp);
-}
-
-__device__ __forceinline__ void load_a4(uint32_t (&a)[4][4],
-                                        const __nv_bfloat16* tile, int r0,
-                                        int lane) {
+// The scores of a block of kNT * 8 rows of B (kNT = 8: 64, or 2: 16):
+// d = A B^T over the head dim.
+template <int kNT>
+__device__ __forceinline__ void gemm_scores(float (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  if constexpr (kNT == 8) {
+    sm90::gemm_nt(d, da, db);
+  } else {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    load_a(a[ks], tile, kRowStride, r0, ks * 16, lane);
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_ss_n16(d, da + ks * sm90::kKMajorStep,
+                   db + ks * sm90::kKMajorStep, ks > 0);
+    }
+  }
+}
+
+// d += P B over the block's kNT * 8 rows of the tile B (MN-major).
+template <int kNT>
+__device__ __forceinline__ void gemm_update(float (&d)[32],
+                                            const uint32_t (&p)[16],
+                                            uint64_t db) {
+#pragma unroll
+  for (int ks = 0; ks < kNT / 2; ++ks) {
+    const uint32_t a[4] = {p[4 * ks], p[4 * ks + 1], p[4 * ks + 2],
+                           p[4 * ks + 3]};
+    sm90::wgmma_rs(d, a, db + ks * sm90::kMNMajorStep, 1);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-attn_unpacked_bwd_dq(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     __nv_bfloat16* __restrict__ dq, float* __restrict__ m_out,
-                     float* __restrict__ r_out, float* __restrict__ c_out,
-                     int seq_len, int num_heads, int lp, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + lp * kRowStride;
-  __nv_bfloat16* q_s = v_s + lp * kRowStride;
-  __nv_bfloat16* do_s = q_s + kTile * kRowStride;
-
-  const int q0 = blockIdx.x * kTile;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const size_t ld = static_cast<size_t>(num_heads) * kHeadDim;
-  const size_t base = static_cast<size_t>(batch) * seq_len * ld +
-                      static_cast<size_t>(head) * kHeadDim;
-  const int tid = threadIdx.x;
-
-  cp_async_tile(k_s, kRowStride, k + base, ld, lp, kHeadDim, seq_len, tid,
-                kThreads);
-  cp_async_tile(v_s, kRowStride, v + base, ld, lp, kHeadDim, seq_len, tid,
-                kThreads);
-  cp_async_tile(q_s, kRowStride, q + base + q0 * ld, ld, kTile, kHeadDim,
-                seq_len - q0, tid, kThreads);
-  cp_async_tile(do_s, kRowStride, dout + base + q0 * ld, ld, kTile, kHeadDim,
-                seq_len - q0, tid, kThreads);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int r0 = warp * 16;
-  if (q0 + r0 >= seq_len) return;  // whole warp past L (no barrier follows)
-
-  uint32_t qa[4][4], da[4][4];
-  load_a4(qa, q_s, r0, lane);
-  load_a4(da, do_s, r0, lane);
-
-  // Pass 1: per lane and row (lo = g, hi = g + 8) a running max, the sum
-  // of exp and the sum of dP * exp, rescaled when the max grows.
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l[2] = {0.f, 0.f}, pe[2] = {0.f, 0.f};
-  for (int kb = 0; kb < lp; kb += 16) {
-    float s[2][4], p[2][4];
-    dot_rows(s, qa, k_s, kb, lane);
-    dot_rows(p, da, v_s, kb, lane);
+// sm90::fence and sm90::pack_a over the first kNT n-tiles only.
+template <int kNT>
+__device__ __forceinline__ void fence_tiles(float (&d)[32]) {
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
+  for (int i = 0; i < 4 * kNT; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int kNT>
+__device__ __forceinline__ void pack_tiles(uint32_t (&p)[16],
+                                           const float (&d)[32]) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = kb + nt * 8 + t4 * 2 + (i & 1);
-        s[nt][i] = key < seq_len ? s[nt][i] * scale : -CUDART_INF_F;
-      }
-    }
+  for (int j = 0; j < kNT / 2; ++j) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {  // the row: fragment elements 2h, 2h + 1
-      const float n = fmaxf(m[h], fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]),
-                                        fmaxf(s[1][2 * h], s[1][2 * h + 1])));
-      if (n > -CUDART_INF_F) {  // else every key so far is masked
-        const float a = expf(m[h] - n);
-        float le = 0.f, pee = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float e = expf(s[nt][2 * h + j] - n);
-            le += e;
-            pee += p[nt][2 * h + j] * e;
-          }
-        }
-        l[h] = l[h] * a + le;
-        pe[h] = pe[h] * a + pee;
-        m[h] = n;
-      }
+    for (int e = 0; e < 4; ++e) {
+      p[4 * j + e] = sm90::pack_bf16(d[8 * j + 2 * e], d[8 * j + 2 * e + 1]);
     }
   }
-  float row_m[2], r[2], c[2];
+}
+
+__device__ __forceinline__ void zero(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+// S (into s) and dP (into dp) of one block; returns once S has landed.
+// kSplit: as two commit groups, dP still in flight; else one group. Either
+// way the caller reads dP only after dp_landed. (Fencing dP here in the
+// one-group case made ptxas serialise (a)'s wgmmas, C7511.)
+template <int kNT, bool kSplit>
+__device__ __forceinline__ void scores_then_dp(float (&s)[32],
+                                               float (&dp)[32], uint64_t da,
+                                               uint64_t d_da, uint64_t db,
+                                               uint64_t d_db) {
+  sm90::wgmma_fence();
+  gemm_scores<kNT>(s, da, db);
+  if constexpr (kSplit) sm90::wgmma_commit();
+  gemm_scores<kNT>(dp, d_da, d_db);
+  sm90::wgmma_commit();
+  if constexpr (kSplit) {
+    sm90::wgmma_wait<1>();
+  } else {
+    sm90::wgmma_wait<0>();
+  }
+  fence_tiles<kNT>(s);
+}
+
+template <int kNT>
+__device__ __forceinline__ void dp_landed(float (&dp)[32]) {
+  sm90::wgmma_wait<0>();
+  fence_tiles<kNT>(dp);
+}
+
+// (a)'s per-lane state of pass 1 for its rows g (h = 0) and g + 8 (h = 1):
+// the running max of S2, and the sums of e and of dP * e at that max.
+struct RowSums {
+  float m[2], l[2], pe[2];
+};
+
+// Pass 1 over one block of keys key0 .. key0 + 8 kNT - 1; kMask: the block
+// holds keys at or past L.
+template <int kNT, bool kMask>
+__device__ __forceinline__ void dq_pass1(RowSums& st, uint64_t d_q,
+                                         uint64_t d_do, const uint8_t* kv,
+                                         int key0, int seq_len,
+                                         float scale_log2, int t4) {
+  float s[32], dp[32];
+  scores_then_dp<kNT, true>(s, dp, d_q, d_do, sm90::desc_k_major(kv),
+                            sm90::desc_k_major(kv + kTileBytes));
+  float bm[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x = s[4 * nt + i] * scale_log2;
+      if (kMask && key0 + nt * 8 + 2 * t4 + (i & 1) >= seq_len) {
+        x = -CUDART_INF_F;
+      }
+      s[4 * nt + i] = x;
+      bm[i >> 1] = fmaxf(bm[i >> 1], x);
+    }
+  }
+  float shift[2], alpha[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    row_m[h] = quad_max(m[h]);
-    const float f = expf(m[h] - row_m[h]);  // 0 for a lane without keys
-    r[h] = 1.f / quad_sum(l[h] * f);
-    c[h] = quad_sum(pe[h] * f) * r[h];
+    const float n = fmaxf(st.m[h], bm[h]);
+    // No key of this lane yet (n = -inf): e = 0 and alpha = 0, no NaN.
+    shift[h] = n == -CUDART_INF_F ? 0.f : n;
+    alpha[h] = sm90::exp2_ftz(st.m[h] - shift[h]);
+    st.m[h] = n;
   }
-  const int row_lo = q0 + r0 + g;
+#pragma unroll
+  for (int i = 0; i < 4 * kNT; ++i) {
+    s[i] = sm90::exp2_ftz(s[i] - shift[(i >> 1) & 1]);
+  }
+  dp_landed<kNT>(dp);
+  float le[2] = {0.f, 0.f}, pee[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4 * kNT; ++i) {
+    le[(i >> 1) & 1] += s[i];
+    pee[(i >> 1) & 1] += dp[i] * s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    st.l[h] = st.l[h] * alpha[h] + le[h];
+    st.pe[h] = st.pe[h] * alpha[h] + pee[h];
+  }
+}
+
+// Pass 2 over one block of keys: dS, then dq += dS K.
+template <int kNT, bool kMask>
+__device__ __forceinline__ void dq_pass2(float (&dq)[32], uint64_t d_q,
+                                         uint64_t d_do, const uint8_t* kv,
+                                         int key0, int seq_len,
+                                         float scale_log2, const float (&m)[2],
+                                         const float (&r)[2],
+                                         const float (&c)[2], int t4) {
+  float s[32], dp[32];
+  scores_then_dp<kNT, false>(s, dp, d_q, d_do, sm90::desc_k_major(kv),
+                             sm90::desc_k_major(kv + kTileBytes));
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int h = i >> 1;
+      const bool masked =
+          kMask && key0 + nt * 8 + 2 * t4 + (i & 1) >= seq_len;
+      s[4 * nt + i] =
+          masked ? 0.f
+                 : sm90::exp2_ftz(s[4 * nt + i] * scale_log2 - m[h]) * r[h];
+    }
+  }
+  dp_landed<kNT>(dp);
+#pragma unroll
+  for (int i = 0; i < 4 * kNT; ++i) {
+    dp[i] = s[i] * (dp[i] - c[(i >> 1) & 1]);
+  }
+  uint32_t ds[16];
+  pack_tiles<kNT>(ds, dp);
+  sm90::wgmma_fence();
+  gemm_update<kNT>(dq, ds, sm90::desc_mn_major(kv));
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence(dq);
+}
+
+__global__ void __launch_bounds__(kConsumers + 32, 3)
+attn_unpacked_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          __nv_bfloat16* __restrict__ dq,
+                          float* __restrict__ m_out, float* __restrict__ r_out,
+                          float* __restrict__ c_out, int seq_len,
+                          int num_heads, float scale_log2, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align_tiles(smem_raw);
+  uint8_t* q_s = smem;
+  uint8_t* do_s = smem + kTileBytes;
+  uint8_t* ring = smem + 2 * kTileBytes;  // stage s: K at 2 s, V at 2 s + 1
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(ring + 2 * kStages * kTileBytes);
+  uint64_t* qdo_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int qt = blockIdx.x;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int nkb = (seq_len + kTile - 1) / kTile;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  if (tid == kConsumers) {
+    sm90::mbar_init(qdo_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // producer
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(qdo_full, 2 * kTileBytes);
+      sm90::tma_load_3d(q_s, &tm_q, qdo_full, head * kHeadDim, qt * kTile,
+                        batch);
+      sm90::tma_load_3d(do_s, &tm_do, qdo_full, head * kHeadDim, qt * kTile,
+                        batch);
+      for (int n = 0; n < 2 * nkb; ++n) {  // both passes over the keys
+        const int s = n % kStages;
+        const int kb = n < nkb ? n : n - nkb;
+        if (n >= kStages) sm90::mbar_wait(&empty[s], (n / kStages - 1) & 1);
+        uint8_t* st = ring + 2 * s * kTileBytes;
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * kTileBytes);
+        sm90::tma_load_3d(st, &tm_k, &full[s], head * kHeadDim, kb * kTile,
+                          batch);
+        sm90::tma_load_3d(st + kTileBytes, &tm_v, &full[s], head * kHeadDim,
+                          kb * kTile, batch);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int row_lo = qt * kTile + warp * 16 + g;  // and row_lo + 8
+  const uint64_t d_q = sm90::desc_k_major(q_s);
+  const uint64_t d_do = sm90::desc_k_major(do_s);
+  // The last block: 16 wide when it holds at most 16 keys.
+  const bool narrow = seq_len - (nkb - 1) * kTile <= kNarrow;
+  sm90::mbar_wait(qdo_full, 0);
+
+  RowSums st = {{-CUDART_INF_F, -CUDART_INF_F}, {0.f, 0.f}, {0.f, 0.f}};
+  int n = 0;
+  for (int kb = 0; kb < nkb; ++kb, ++n) {
+    const int s = n % kStages;
+    sm90::mbar_wait(&full[s], (n / kStages) & 1);
+    const uint8_t* kv = ring + 2 * s * kTileBytes;
+    const int key0 = kb * kTile;
+    if (kb + 1 < nkb) {
+      dq_pass1<8, false>(st, d_q, d_do, kv, key0, seq_len, scale_log2, t4);
+    } else if (narrow) {
+      dq_pass1<2, true>(st, d_q, d_do, kv, key0, seq_len, scale_log2, t4);
+    } else {
+      dq_pass1<8, true>(st, d_q, d_do, kv, key0, seq_len, scale_log2, t4);
+    }
+    sm90::mbar_arrive(&empty[s]);
+  }
+  // Merge the row's four lanes. Key 0 is in every row, so its max is
+  // finite; a lane that saw only masked keys has m = -inf and weight 0.
+  float m[2], r[2], c[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] = sm90::quad_max(st.m[h]);
+    const float f = sm90::exp2_ftz(st.m[h] - m[h]);
+    const float l = sm90::quad_sum(st.l[h] * f);
+    r[h] = row_lo + 8 * h < seq_len ? 1.f / l : 0.f;
+    c[h] = sm90::quad_sum(st.pe[h] * f) * r[h];
+  }
   if (t4 == 0) {
-    const size_t rc = (static_cast<size_t>(batch) * num_heads + head) *
-                      seq_len;
+    const size_t rc =
+        (static_cast<size_t>(batch) * num_heads + head) * seq_len;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row_lo + 8 * h;
       if (row < seq_len) {
-        m_out[rc + row] = row_m[h];
+        m_out[rc + row] = m[h];
         r_out[rc + row] = r[h];
         c_out[rc + row] = c[h];
       }
     }
   }
 
-  // Pass 2: dS for each key block, then dQ += dS K.
-  float acc[8][4];
-  zero_acc(acc);
-  for (int kb = 0; kb < lp; kb += 16) {
-    float s[2][4], p[2][4];
-    dot_rows(s, qa, k_s, kb, lane);
-    dot_rows(p, da, v_s, kb, lane);
-    uint32_t pa[4];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = kb + nt * 8 + t4 * 2 + (i & 1);
-        const int h = i >> 1;
-        const float prob =
-            key < seq_len ? expf(s[nt][i] * scale - row_m[h]) * r[h] : 0.f;
-        ds[i] = prob * (p[nt][i] - c[h]);
-      }
-      pa[nt * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      pa[nt * 2 + 1] = pack_bf16(ds[2], ds[3]);
+  float dqacc[32];
+  zero(dqacc);
+  for (int kb = 0; kb < nkb; ++kb, ++n) {
+    const int s = n % kStages;
+    sm90::mbar_wait(&full[s], (n / kStages) & 1);
+    const uint8_t* kv = ring + 2 * s * kTileBytes;
+    const int key0 = kb * kTile;
+    if (kb + 1 < nkb) {
+      dq_pass2<8, false>(dqacc, d_q, d_do, kv, key0, seq_len, scale_log2, m,
+                         r, c, t4);
+    } else if (narrow) {
+      dq_pass2<2, true>(dqacc, d_q, d_do, kv, key0, seq_len, scale_log2, m,
+                        r, c, t4);
+    } else {
+      dq_pass2<8, true>(dqacc, d_q, d_do, kv, key0, seq_len, scale_log2, m,
+                        r, c, t4);
     }
-    acc_rows(acc, pa, k_s, kb, lane);
+    sm90::mbar_arrive(&empty[s]);
   }
-  store_rows(dq + base, ld, row_lo, seq_len, acc, scale, scale, lane);
+  const int tok_stride = num_heads * kHeadDim;
+  __nv_bfloat16* out = dq + static_cast<size_t>(batch) * seq_len * tok_stride +
+                       head * kHeadDim;
+  sm90::store_acc(out, tok_stride, row_lo, seq_len, dqacc, scale, scale, t4);
 }
 
-__global__ void __launch_bounds__(kThreads)
-attn_unpacked_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ dout,
-                       __nv_bfloat16* __restrict__ dk,
-                       __nv_bfloat16* __restrict__ dv,
-                       const float* __restrict__ m_in,
-                       const float* __restrict__ r_in,
-                       const float* __restrict__ c_in, int seq_len,
-                       int num_heads, int lp, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* do_s = q_s + lp * kRowStride;
-  __nv_bfloat16* k_s = do_s + lp * kRowStride;
-  __nv_bfloat16* v_s = k_s + kTile * kRowStride;
-  float* m_s = reinterpret_cast<float*>(v_s + kTile * kRowStride);
-  float* r_s = m_s + lp;
-  float* c_s = r_s + lp;
+// One block of 8 kNT queries in (b): S^T, dP^T, then dV += bf16(P^T) dO and
+// dK += dS^T Q. mrc: the block's m2, r, c, [64] f32 each.
+template <int kNT>
+__device__ __forceinline__ void dkdv_block(float (&dk)[32], float (&dv)[32],
+                                           uint64_t d_k, uint64_t d_v,
+                                           const uint8_t* qdo,
+                                           const float* mrc,
+                                           float scale_log2, int t4) {
+  float s[32], dp[32];
+  scores_then_dp<kNT, true>(s, dp, d_k, d_v, sm90::desc_k_major(qdo),
+                            sm90::desc_k_major(qdo + kTileBytes));
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int col = nt * 8 + 2 * t4;
+    const float2 m = *reinterpret_cast<const float2*>(mrc + col);
+    const float2 r = *reinterpret_cast<const float2*>(mrc + kTile + col);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[4 * nt + i] =
+          sm90::exp2_ftz(s[4 * nt + i] * scale_log2 - (i & 1 ? m.y : m.x)) *
+          (i & 1 ? r.y : r.x);
+    }
+  }
+  dp_landed<kNT>(dp);
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const float2 c =
+        *reinterpret_cast<const float2*>(mrc + 2 * kTile + nt * 8 + 2 * t4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dp[4 * nt + i] = s[4 * nt + i] * (dp[4 * nt + i] - (i & 1 ? c.y : c.x));
+    }
+  }
+  uint32_t pa[16], dsa[16];
+  pack_tiles<kNT>(pa, s);
+  pack_tiles<kNT>(dsa, dp);
+  sm90::wgmma_fence();
+  gemm_update<kNT>(dv, pa, sm90::desc_mn_major(qdo + kTileBytes));
+  gemm_update<kNT>(dk, dsa, sm90::desc_mn_major(qdo));
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence(dv);
+  sm90::fence(dk);
+}
 
-  const int k0 = blockIdx.x * kTile;
+__global__ void __launch_bounds__(kConsumers + 32, 2)
+attn_unpacked_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv,
+                            const float* __restrict__ m_in,
+                            const float* __restrict__ r_in,
+                            const float* __restrict__ c_in, int seq_len,
+                            int num_heads, float scale_log2, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align_tiles(smem_raw);
+  uint8_t* k_s = smem;
+  uint8_t* v_s = smem + kTileBytes;
+  uint8_t* ring = smem + 2 * kTileBytes;  // stage s: Q at 2 s, dO at 2 s + 1
+  float* mrc_s = reinterpret_cast<float*>(ring + 2 * kStages * kTileBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(mrc_s + kStages * 3 * kTile);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int kt = blockIdx.x;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
-  const size_t ld = static_cast<size_t>(num_heads) * kHeadDim;
-  const size_t base = static_cast<size_t>(batch) * seq_len * ld +
-                      static_cast<size_t>(head) * kHeadDim;
-  const size_t rc = (static_cast<size_t>(batch) * num_heads + head) * seq_len;
+  const int nqb = (seq_len + kTile - 1) / kTile;
   const int tid = threadIdx.x;
-
-  cp_async_tile(q_s, kRowStride, q + base, ld, lp, kHeadDim, seq_len, tid,
-                kThreads);
-  cp_async_tile(do_s, kRowStride, dout + base, ld, lp, kHeadDim, seq_len, tid,
-                kThreads);
-  cp_async_tile(k_s, kRowStride, k + base + k0 * ld, ld, kTile, kHeadDim,
-                seq_len - k0, tid, kThreads);
-  cp_async_tile(v_s, kRowStride, v + base + k0 * ld, ld, kTile, kHeadDim,
-                seq_len - k0, tid, kThreads);
-  cp_async_commit();
-  // Queries past L get r = 0 (no probability) and finite m and c.
-  for (int j = tid; j < lp; j += kThreads) {
-    const bool ok = j < seq_len;
-    m_s[j] = ok ? m_in[rc + j] : 0.f;
-    r_s[j] = ok ? r_in[rc + j] : 0.f;
-    c_s[j] = ok ? c_in[rc + j] : 0.f;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int r0 = warp * 16;
-  if (k0 + r0 >= seq_len) return;  // whole warp past L (no barrier follows)
 
-  uint32_t ka[4][4], va[4][4];
-  load_a4(ka, k_s, r0, lane);
-  load_a4(va, v_s, r0, lane);
-
-  float acc_k[8][4], acc_v[8][4];
-  zero_acc(acc_k);
-  zero_acc(acc_v);
-  for (int qb = 0; qb < lp; qb += 16) {
-    float s[2][4], p[2][4];  // S^T = K Q^T and dP^T = V dO^T: keys x queries
-    dot_rows(s, ka, q_s, qb, lane);
-    dot_rows(p, va, do_s, qb, lane);
-    uint32_t pa[4], dsa[4];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      float pv[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = qb + nt * 8 + t4 * 2 + (i & 1);
-        // A key row past L (not stored) may overflow here; rows of a
-        // product do not mix, so it stays in that row.
-        pv[i] = expf(s[nt][i] * scale - m_s[qi]) * r_s[qi];
-        ds[i] = pv[i] * (p[nt][i] - c_s[qi]);
-      }
-      pa[nt * 2 + 0] = pack_bf16(pv[0], pv[1]);
-      pa[nt * 2 + 1] = pack_bf16(pv[2], pv[3]);
-      dsa[nt * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsa[nt * 2 + 1] = pack_bf16(ds[2], ds[3]);
+  if (tid == kConsumers) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 32);  // every producer lane writes m, r, c
+      sm90::mbar_init(&empty[s], kConsumers);
     }
-    acc_rows(acc_v, pa, do_s, qb, lane);
-    acc_rows(acc_k, dsa, q_s, qb, lane);
+    sm90::fence_barrier_init();
   }
-  const int key_lo = k0 + r0 + g;
-  store_rows(dk + base, ld, key_lo, seq_len, acc_k, scale, scale, lane);
-  store_rows(dv + base, ld, key_lo, seq_len, acc_v, 1.f, 1.f, lane);
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // producer
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(kv_full, 2 * kTileBytes);
+      sm90::tma_load_3d(k_s, &tm_k, kv_full, head * kHeadDim, kt * kTile,
+                        batch);
+      sm90::tma_load_3d(v_s, &tm_v, kv_full, head * kHeadDim, kt * kTile,
+                        batch);
+    }
+    const size_t rc =
+        (static_cast<size_t>(batch) * num_heads + head) * seq_len;
+    for (int qb = 0; qb < nqb; ++qb) {
+      const int s = qb % kStages;
+      if (qb >= kStages) sm90::mbar_wait(&empty[s], (qb / kStages - 1) & 1);
+      // m2, r, c of the block's queries; past L, 0 each (so P is 0).
+      float* mrc = mrc_s + s * 3 * kTile;
+      for (int j = lane; j < kTile; j += 32) {
+        const int qi = qb * kTile + j;
+        const bool ok = qi < seq_len;
+        mrc[j] = ok ? m_in[rc + qi] : 0.f;
+        mrc[kTile + j] = ok ? r_in[rc + qi] : 0.f;
+        mrc[2 * kTile + j] = ok ? c_in[rc + qi] : 0.f;
+      }
+      if (lane == 0) {
+        uint8_t* st = ring + 2 * s * kTileBytes;
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * kTileBytes);
+        sm90::tma_load_3d(st, &tm_q, &full[s], head * kHeadDim, qb * kTile,
+                          batch);
+        sm90::tma_load_3d(st + kTileBytes, &tm_do, &full[s],
+                          head * kHeadDim, qb * kTile, batch);
+      } else {
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int t4 = lane & 3;
+  const uint64_t d_k = sm90::desc_k_major(k_s);
+  const uint64_t d_v = sm90::desc_k_major(v_s);
+  // The last block: 16 wide when it holds at most 16 queries.
+  const bool narrow = seq_len - (nqb - 1) * kTile <= kNarrow;
+  sm90::mbar_wait(kv_full, 0);
+
+  float dkacc[32], dvacc[32];
+  zero(dkacc);
+  zero(dvacc);
+  for (int qb = 0; qb < nqb; ++qb) {
+    const int s = qb % kStages;
+    sm90::mbar_wait(&full[s], (qb / kStages) & 1);
+    const uint8_t* qdo = ring + 2 * s * kTileBytes;
+    const float* mrc = mrc_s + s * 3 * kTile;
+    if (qb + 1 < nqb || !narrow) {
+      dkdv_block<8>(dkacc, dvacc, d_k, d_v, qdo, mrc, scale_log2, t4);
+    } else {
+      dkdv_block<2>(dkacc, dvacc, d_k, d_v, qdo, mrc, scale_log2, t4);
+    }
+    sm90::mbar_arrive(&empty[s]);
+  }
+  const int tok_stride = num_heads * kHeadDim;
+  const size_t base = static_cast<size_t>(batch) * seq_len * tok_stride +
+                      head * kHeadDim;
+  const int key_lo = kt * kTile + warp * 16 + (lane >> 2);
+  sm90::store_acc(dk + base, tok_stride, key_lo, seq_len, dkacc, scale,
+                  scale, t4);
+  sm90::store_acc(dv + base, tok_stride, key_lo, seq_len, dvacc, 1.f, 1.f,
+                  t4);
+}
+
+// Launches (a) and then (b) (stage -1, the backward), or one of them alone
+// to time it (0: (a), 1: (b), which reads the m, r, c that (a) wrote).
+int launch(int stage, const void* q, const void* k, const void* v,
+           const void* dout, void* dq, void* dk, void* dv, void* m, void* r,
+           void* c, int batch, int seq_len, int num_heads, float scale,
+           void* stream) {
+  if (seq_len > kMaxLen || stage < -1 || stage > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap tq, tk, tv, tdo;
+  if (!sm90_host::packed_head_map(&tq, q, batch, seq_len, num_heads) ||
+      !sm90_host::packed_head_map(&tk, k, batch, seq_len, num_heads) ||
+      !sm90_host::packed_head_map(&tv, v, batch, seq_len, num_heads) ||
+      !sm90_host::packed_head_map(&tdo, dout, batch, seq_len, num_heads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float scale_log2 = scale * kLog2e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((seq_len + kTile - 1) / kTile, num_heads, batch);
+  auto* mf = static_cast<float*>(m);
+  auto* rf = static_cast<float*>(r);
+  auto* cf = static_cast<float*>(c);
+  cudaError_t err = cudaSuccess;
+  if (stage != 1) {
+    err = cudaFuncSetAttribute(attn_unpacked_bwd_dq_sm90,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kDqSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attn_unpacked_bwd_dq_sm90<<<grid, kConsumers + 32, kDqSmem, s>>>(
+        tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dq), mf, rf, cf,
+        seq_len, num_heads, scale_log2, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (stage != 0) {
+    err = cudaFuncSetAttribute(attn_unpacked_bwd_dkdv_sm90,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kDkvSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attn_unpacked_bwd_dkdv_sm90<<<grid, kConsumers + 32, kDkvSmem, s>>>(
+        tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), mf, rf, cf, seq_len, num_heads,
+        scale_log2, scale);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Largest sequence length the kernels take (the larger of their shared
-// memory needs must fit in the 227 KB a block can use).
-extern "C" int attention_unpacked_bwd_max_len() {
-  int lp = 16;
-  while (dkv_smem_bytes(lp + 16) <= 232448) lp += 16;
-  return lp;
-}
+extern "C" int attention_unpacked_bwd_max_len() { return kMaxLen; }
 
 // q, k, v, dout, dq, dk, dv: [B, L, H, 64] bf16, contiguous, 16-byte
-// aligned. m, r, c: (B, H, L) f32 scratch that kernel (a) fills and (b)
-// reads. scale = 64**-0.5 in f32. Returns cudaGetLastError().
+// aligned. m, r, c: (B, H, L) f32 scratch that kernel (a) fills (m2, r, c
+// of the header) and (b) reads. scale = 64**-0.5 in f32. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a length past the limit
+// or a tensor map that cannot be encoded.
 extern "C" int attention_unpacked_bwd(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       void* dq, void* dk, void* dv, void* m,
                                       void* r, void* c, int batch,
                                       int seq_len, int num_heads, float scale,
                                       void* stream) {
-  const int lp = (seq_len + 15) / 16 * 16;
-  if (lp > attention_unpacked_bwd_max_len()) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem_a = dq_smem_bytes(lp);
-  const size_t smem_b = dkv_smem_bytes(lp);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_unpacked_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_a));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_unpacked_bwd_dkdv,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_b));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((seq_len + kTile - 1) / kTile, num_heads, batch);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  const auto* db = static_cast<const __nv_bfloat16*>(dout);
-  auto* mf = static_cast<float*>(m);
-  auto* rf = static_cast<float*>(r);
-  auto* cf = static_cast<float*>(c);
-  attn_unpacked_bwd_dq<<<grid, kThreads, smem_a, s>>>(
-      qb, kb, vb, db, static_cast<__nv_bfloat16*>(dq), mf, rf, cf, seq_len,
-      num_heads, lp, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_unpacked_bwd_dkdv<<<grid, kThreads, smem_b, s>>>(
-      qb, kb, vb, db, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), mf, rf, cf, seq_len, num_heads, lp,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch(-1, q, k, v, dout, dq, dk, dv, m, r, c, batch, seq_len,
+                num_heads, scale, stream);
+}
+
+// One of the two kernels alone, to time it: `stage` 0 launches (a), 1 (b);
+// (b) reads the m, r, c that (a) wrote.
+extern "C" int attention_unpacked_bwd_stage(
+    const void* q, const void* k, const void* v, const void* dout, void* dq,
+    void* dk, void* dv, void* m, void* r, void* c, int batch, int seq_len,
+    int num_heads, float scale, int stage, void* stream) {
+  return launch(stage, q, k, v, dout, dq, dk, dv, m, r, c, batch, seq_len,
+                num_heads, scale, stream);
 }

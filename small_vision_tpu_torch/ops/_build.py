@@ -9,8 +9,13 @@ shared memory of each kernel) is kept beside each library as
 `_build/<name>-<hash>.log`. Nothing is built or loaded at import time, so
 CPU-only machines import every module.
 
-Launch counters live here too: each kernel wrapper adds one to its name's
-count where it launches, so a run can show that it went through the kernels.
+The argument types of every C entry point are declared here once, in
+`SIGNATURES`, for this tree's libraries and for another checkout's that a
+measuring tool builds beside them (`bind`). Kernel wrappers call their entry
+points through `launch`, which makes the tensors' device current for the
+call. Launch counters live here too: each kernel wrapper adds one to its
+name's count where it launches, so a run can show that it went through the
+kernels.
 """
 
 import collections
@@ -21,11 +26,50 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# {source stem: {C entry point: its argument types}}. Every entry point
+# returns an int: a cudaError_t, a length limit or a count.
+SIGNATURES = {
+    "ln_modulate": {
+        "ln_modulate_fwd": [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _I, _F, _P]},
+    "ln_modulate_bwd": {
+        "ln_modulate_bwd": [_P] * 7 + [_I] + [_P] * 6 + [_I, _I, _I, _P],
+        "ln_modulate_bwd_partials": [_I, _I]},
+    "attention_packed": {
+        "attention_packed_fwd": [_P] * 4 + [_I, _I, _I, _F, _P],
+        "attention_packed_max_len": []},
+    "attention_packed_bwd": {
+        "attention_packed_bwd": [_P] * 9 + [_I, _I, _I, _F, _F, _P],
+        "attention_packed_bwd_max_len": []},
+    "attention_unpacked": {
+        "attention_unpacked_fwd": [_P] * 4 + [_I, _I, _I, _F, _P],
+        "attention_unpacked_max_len": []},
+    "attention_unpacked_bwd": {
+        "attention_unpacked_bwd": [_P] * 10 + [_I, _I, _I, _F, _P],
+        "attention_unpacked_bwd_stage": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
+        "attention_unpacked_bwd_max_len": []},
+    "attention_ablate": {
+        "attention_ablate_fwd": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
+        "attention_ablate_max_len": []},
+    "fused_mlp": {
+        "fused_mlp_fwd": [_P] * 7 + [_I, _I, _I, _P],
+        "fused_mlp_up": [_P] * 4 + [_I, _I, _I, _P],
+        "fused_mlp_down": [_P] * 4 + [_I, _I, _I, _P]},
+    "fused_mha": {
+        "fused_mha_fwd": [_P] * 12 + [_I, _I, _I, _F, _P],
+        "fused_mha_proj": [_P] * 8 + [_I, _I, _I, _P],
+        "fused_mha_attention": [_P, _P, _I, _I, _I, _F, _P],
+        "fused_mha_max_len": []},
+}
 
 # Kernel launches by kernel name; `reset_launches()` zeroes them.
 LAUNCHES = collections.Counter()
@@ -84,13 +128,49 @@ def build_all() -> dict:
   return {s.stem: _target(s) for s in sources}
 
 
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+  """`lib`, a library built from a `<name>.cu`, with `SIGNATURES[name]` set
+  on each of those entry points that it has (another checkout's library
+  may lack some)."""
+  for entry, args in SIGNATURES[name].items():
+    if hasattr(lib, entry):
+      getattr(lib, entry).argtypes = args
+      getattr(lib, entry).restype = _I
+  return lib
+
+
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
-  """The loaded library built from `csrc/<name>.cu`."""
-  return ctypes.CDLL(str(build_all()[name]))
+  """The loaded library built from `csrc/<name>.cu`, its entry points
+  bound."""
+  return bind(ctypes.CDLL(str(build_all()[name])), name)
 
 
 def check(status: int, what: str):
   """Raises when a C entry point returned a non-zero cudaError_t."""
   if status != 0:
     raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+_THREAD = threading.local()
+
+
+def launch(what: str, device: torch.device, entry, *args):
+  """Calls the C entry point `entry(*args, stream)`, `stream` being the
+  current stream of `device`, with `device` current; raises as `check`
+  does. The calling thread's current device is the same afterwards.
+
+  A thread that has run no CUDA work yet (autograd's, when a kernel's
+  backward is the first thing it runs) has no current context, and there
+  `cuTensorMapEncodeTiled` fails. `torch.cuda.device` does not bind one
+  when the device is already the current one, as it is on such a thread;
+  `torch.cuda.set_device` does, so each thread's first launch calls it
+  (with `device` already current, so the device does not change).
+  """
+  if device.index != torch.cuda.current_device():
+    with torch.cuda.device(device):
+      return launch(what, device, entry, *args)
+  if not getattr(_THREAD, "has_context", False):
+    torch.cuda.set_device(device)
+    _THREAD.has_context = True
+  check(entry(*args, torch.cuda.current_stream(device).cuda_stream), what)

@@ -32,7 +32,6 @@ from the production one (`exp2`, what K6 and K7 run), so the arms tell
 where that core's time goes.
 """
 
-import ctypes
 import functools
 
 import numpy as np
@@ -117,25 +116,13 @@ def attention_packed_bwd_plain(q, k, v, do, num_heads):
 @functools.cache
 def _lib():
   lib = _build.library("attention_packed")
-  fn = lib.attention_packed_fwd
-  p, i = ctypes.c_void_p, ctypes.c_int
-  fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
-  fn.restype = i
-  lib.attention_packed_max_len.argtypes = []
-  lib.attention_packed_max_len.restype = i
-  return fn, lib.attention_packed_max_len()
+  return lib.attention_packed_fwd, lib.attention_packed_max_len()
 
 
 @functools.cache
 def _bwd_lib():
   lib = _build.library("attention_packed_bwd")
-  fn = lib.attention_packed_bwd
-  p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-  fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, f, p]
-  fn.restype = i
-  lib.attention_packed_bwd_max_len.argtypes = []
-  lib.attention_packed_bwd_max_len.restype = i
-  return fn, lib.attention_packed_bwd_max_len()
+  return lib.attention_packed_bwd, lib.attention_packed_bwd_max_len()
 
 
 def _require(cond, msg, name=NAME):
@@ -182,10 +169,8 @@ def attention_packed_fwd(q, k, v, num_heads):
   o = torch.empty_like(q)
   if q.numel() == 0:
     return o
-  status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l,
-              num_heads, scale_log2(HEAD_DIM),
-              torch.cuda.current_stream(q.device).cuda_stream)
-  _build.check(status, NAME)
+  _build.launch(NAME, q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                o.data_ptr(), b, l, num_heads, scale_log2(HEAD_DIM))
   _build.LAUNCHES[NAME] += 1
   return o
 
@@ -208,12 +193,11 @@ def attention_packed_bwd(q, k, v, do, num_heads):
   f32 = dict(dtype=torch.float32, device=q.device)
   r = torch.empty(b, num_heads, l, **f32)  # 1 / row sum of e
   c = torch.empty(b, num_heads, l, **f32)  # row sum of dP∘e, times r
-  status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), r.data_ptr(),
-              c.data_ptr(), b, l, num_heads, scale_log2(HEAD_DIM),
-              float(np.float32(1.0 / np.sqrt(HEAD_DIM))),
-              torch.cuda.current_stream(q.device).cuda_stream)
-  _build.check(status, BWD_NAME)
+  _build.launch(BWD_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), r.data_ptr(), c.data_ptr(), b, l, num_heads,
+                scale_log2(HEAD_DIM),
+                float(np.float32(1.0 / np.sqrt(HEAD_DIM))))
   _build.LAUNCHES[BWD_NAME] += 1
   return dq, dk, dv
 
@@ -297,25 +281,13 @@ def attention_bwd_plain(q, k, v, do):
 @functools.cache
 def _unpacked_lib():
   lib = _build.library("attention_unpacked")
-  fn = lib.attention_unpacked_fwd
-  p, i = ctypes.c_void_p, ctypes.c_int
-  fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
-  fn.restype = i
-  lib.attention_unpacked_max_len.argtypes = []
-  lib.attention_unpacked_max_len.restype = i
-  return fn, lib.attention_unpacked_max_len()
+  return lib.attention_unpacked_fwd, lib.attention_unpacked_max_len()
 
 
 @functools.cache
 def _unpacked_bwd_lib():
   lib = _build.library("attention_unpacked_bwd")
-  fn = lib.attention_unpacked_bwd
-  p, i = ctypes.c_void_p, ctypes.c_int
-  fn.argtypes = [p] * 10 + [i, i, i, ctypes.c_float, p]
-  fn.restype = i
-  lib.attention_unpacked_bwd_max_len.argtypes = []
-  lib.attention_unpacked_bwd_max_len.restype = i
-  return fn, lib.attention_unpacked_bwd_max_len()
+  return lib, lib.attention_unpacked_bwd_max_len()
 
 
 def _check_unpacked(name, **tensors):
@@ -346,34 +318,55 @@ def attention_unpacked_fwd(q, k, v):
   o = torch.empty_like(q)
   if q.numel() == 0:
     return o
-  status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l,
-              h, _scale_f32(), torch.cuda.current_stream(q.device).cuda_stream)
-  _build.check(status, UNPACKED_NAME)
+  _build.launch(UNPACKED_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), b, l, h, _scale_f32())
   _build.LAUNCHES[UNPACKED_NAME] += 1
   return o
 
 
-def attention_unpacked_bwd(q, k, v, do):
-  """Launches K8 on [B, L, H, 64] bf16 contiguous q, k, v, do; returns
-  (dq, dk, dv). Each output element is summed by one thread in a fixed
-  order (no atomics), so two launches give the same bits."""
+def _unpacked_bwd_buffers(q, k, v, do):
+  """(library, (B, L, H), and the tensors of K8's C entry points in their
+  order: q, k, v, do, the outputs dq, dk, dv and the scratch m, r, c) once
+  the inputs are what K8 takes."""
   b, l, h = _check_unpacked(UNPACKED_BWD_NAME, q=q, k=k, v=v, do=do)
-  fn, max_len = _unpacked_bwd_lib()
+  lib, max_len = _unpacked_bwd_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}",
            UNPACKED_BWD_NAME)
-  dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+  grads = [torch.empty_like(q) for _ in range(3)]
+  # Per query, (B, H, L) f32: the row max of the log2(e)-scaled scores,
+  # 1 / row sum and the row sum of dP∘P.
+  scratch = [torch.empty(b, h, l, dtype=torch.float32, device=q.device)
+             for _ in range(3)]
+  return lib, (b, l, h), [q, k, v, do, *grads, *scratch]
+
+
+def attention_unpacked_bwd(q, k, v, do):
+  """Launches K8 on [B, L, H, 64] bf16 contiguous, 16-byte aligned q, k,
+  v, do; returns (dq, dk, dv). Two kernels, dQ and then dK/dV, each output
+  element summed by one warpgroup in a fixed order (no atomics), so two
+  launches give the same bits. L up to `attention_unpacked_bwd_max_len()`,
+  4,096: keys and queries stream through shared memory in 64-row blocks,
+  so nothing there grows with L."""
+  lib, (b, l, h), bufs = _unpacked_bwd_buffers(q, k, v, do)
+  grads = tuple(bufs[4:7])
   if q.numel() == 0:
-    return dq, dk, dv
-  # Row max, 1 / row sum and row sum of dP∘P of every query, (B, H, L) f32.
-  m, r, c = (torch.empty(b, h, l, dtype=torch.float32, device=q.device)
-             for _ in range(3))
-  status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), m.data_ptr(),
-              r.data_ptr(), c.data_ptr(), b, l, h, _scale_f32(),
-              torch.cuda.current_stream(q.device).cuda_stream)
-  _build.check(status, UNPACKED_BWD_NAME)
+    return grads
+  _build.launch(UNPACKED_BWD_NAME, q.device, lib.attention_unpacked_bwd,
+                *(t.data_ptr() for t in bufs), b, l, h, _scale_f32())
   _build.LAUNCHES[UNPACKED_BWD_NAME] += 1
-  return dq, dk, dv
+  return grads
+
+
+def attention_unpacked_bwd_stages(q, k, v, do):
+  """K8's two kernels one by one, to time each: {"dq", "dkdv": a function
+  that launches that kernel}, on buffers made here ("dkdv" reads the m, r,
+  c that "dq" wrote: launch "dq" first). For measurement only: they count
+  no launch."""
+  lib, (b, l, h), bufs = _unpacked_bwd_buffers(q, k, v, do)
+  launch = lambda stage: _build.launch(
+      UNPACKED_BWD_NAME, q.device, lib.attention_unpacked_bwd_stage,
+      *(t.data_ptr() for t in bufs), b, l, h, _scale_f32(), stage)
+  return {"dq": lambda: launch(0), "dkdv": lambda: launch(1)}
 
 
 class FusedAttention(torch.autograd.Function):
@@ -475,13 +468,7 @@ def attention_ablate_plain(q, k, v, num_heads, variant):
 @functools.cache
 def _ablate_lib():
   lib = _build.library("attention_ablate")
-  fn = lib.attention_ablate_fwd
-  p, i = ctypes.c_void_p, ctypes.c_int
-  fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, p]
-  fn.restype = i
-  lib.attention_ablate_max_len.argtypes = []
-  lib.attention_ablate_max_len.restype = i
-  return fn, lib.attention_ablate_max_len()
+  return lib.attention_ablate_fwd, lib.attention_ablate_max_len()
 
 
 def attention_ablate_fwd(q, k, v, num_heads, variant):
@@ -497,10 +484,9 @@ def attention_ablate_fwd(q, k, v, num_heads, variant):
   o = torch.empty_like(q)
   if q.numel() == 0:
     return o
-  status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l,
-              num_heads, _scale_f32(), ABLATE_VARIANTS.index(variant),
-              torch.cuda.current_stream(q.device).cuda_stream)
-  _build.check(status, ABLATE_NAME)
+  _build.launch(ABLATE_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), b, l, num_heads, _scale_f32(),
+                ABLATE_VARIANTS.index(variant))
   _build.LAUNCHES[ABLATE_NAME] += 1
   return o
 

@@ -32,7 +32,6 @@ matmuls of these references lie outside any kernel and go to
 `torch.matmul`.
 """
 
-import ctypes
 import functools
 
 import numpy as np
@@ -107,27 +106,12 @@ MLP_MULTIPLE = 64
 
 @functools.cache
 def _mlp_lib():
-  lib = _build.library("fused_mlp")
-  p, i = ctypes.c_void_p, ctypes.c_int
-  lib.fused_mlp_fwd.argtypes = [p] * 7 + [i, i, i, p]
-  lib.fused_mlp_up.argtypes = [p] * 4 + [i, i, i, p]
-  lib.fused_mlp_down.argtypes = [p] * 4 + [i, i, i, p]
-  for fn in (lib.fused_mlp_fwd, lib.fused_mlp_up, lib.fused_mlp_down):
-    fn.restype = i
-  return lib
+  return _build.library("fused_mlp")
 
 
 @functools.cache
 def _mha_lib():
   lib = _build.library("fused_mha")
-  p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-  lib.fused_mha_fwd.argtypes = [p] * 12 + [i, i, i, f, p]
-  lib.fused_mha_proj.argtypes = [p] * 8 + [i, i, i, p]
-  lib.fused_mha_attention.argtypes = [p, p, i, i, i, f, p]
-  for fn in (lib.fused_mha_fwd, lib.fused_mha_proj, lib.fused_mha_attention,
-             lib.fused_mha_max_len):
-    fn.restype = i
-  lib.fused_mha_max_len.argtypes = []
   return lib, lib.fused_mha_max_len()
 
 
@@ -156,10 +140,9 @@ def fused_mlp_fwd(x, w1, b1, w2, b2):
   if rows == 0:
     return y
   h = torch.empty(rows, hidden, dtype=x.dtype, device=x.device)
-  status = lib.fused_mlp_fwd(
-      *(t.data_ptr() for t in (x, w1, b1, w2, b2, h, y)), rows, d, hidden,
-      torch.cuda.current_stream(x.device).cuda_stream)
-  _build.check(status, MLP_NAME)
+  _build.launch(MLP_NAME, x.device, lib.fused_mlp_fwd,
+                *(t.data_ptr() for t in (x, w1, b1, w2, b2, h, y)), rows, d,
+                hidden)
   _build.LAUNCHES[MLP_NAME] += 1
   return y
 
@@ -172,13 +155,12 @@ def fused_mlp_stages(x, w1, b1, w2, b2):
   lib, rows, d, hidden = _mlp_checked(x, w1, b1, w2, b2)
   h = torch.empty(rows, hidden, dtype=x.dtype, device=x.device)
   y = torch.empty_like(x)
-  stream = torch.cuda.current_stream(x.device).cuda_stream
   ptr = lambda *ts: [t.data_ptr() for t in ts]
   return {
-      "up": lambda: _build.check(lib.fused_mlp_up(
-          *ptr(x, w1, b1, h), rows, d, hidden, stream), MLP_NAME),
-      "down": lambda: _build.check(lib.fused_mlp_down(
-          *ptr(h, w2, b2, y), rows, d, hidden, stream), MLP_NAME),
+      "up": lambda: _build.launch(MLP_NAME, x.device, lib.fused_mlp_up,
+                                  *ptr(x, w1, b1, h), rows, d, hidden),
+      "down": lambda: _build.launch(MLP_NAME, x.device, lib.fused_mlp_down,
+                                    *ptr(h, w2, b2, y), rows, d, hidden),
   }
 
 
@@ -223,12 +205,10 @@ def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
     return o
   qkv = torch.empty(b, l, 3 * hd, dtype=x.dtype, device=x.device)
   heads_out = torch.empty_like(x)
-  status = lib.fused_mha_fwd(
-      *(t.data_ptr() for t in (x, wq, bq, wk, bk, wv, bv, wo, bo, qkv,
-                               heads_out, o)),
-      b, l, num_heads, _mha_scale(),
-      torch.cuda.current_stream(x.device).cuda_stream)
-  _build.check(status, MHA_NAME)
+  _build.launch(MHA_NAME, x.device, lib.fused_mha_fwd,
+                *(t.data_ptr() for t in (x, wq, bq, wk, bk, wv, bv, wo, bo,
+                                         qkv, heads_out, o)),
+                b, l, num_heads, _mha_scale())
   _build.LAUNCHES[MHA_NAME] += 1
   return o
 
@@ -242,18 +222,19 @@ def fused_mha_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
                                  num_heads)
   qkv = torch.empty(b, l, 3 * hd, dtype=x.dtype, device=x.device)
   heads_out, o = torch.empty_like(x), torch.empty_like(x)
-  stream = torch.cuda.current_stream(x.device).cuda_stream
   ptr = lambda *ts: [t.data_ptr() for t in ts]
+  launch = lambda entry, *args: _build.launch(MHA_NAME, x.device, entry,
+                                              *args)
   return {
-      "qkv_proj": lambda: _build.check(lib.fused_mha_proj(
-          *ptr(x, wq, wk, wv, bq, bk, bv, qkv), b * l, hd, 3, stream),
-          MHA_NAME),
-      "attention": lambda: _build.check(lib.fused_mha_attention(
-          qkv.data_ptr(), heads_out.data_ptr(), b, l, num_heads,
-          _mha_scale(), stream), MHA_NAME),
-      "out_proj": lambda: _build.check(lib.fused_mha_proj(
-          *ptr(heads_out, wo, wo, wo, bo, bo, bo, o), b * l, hd, 1, stream),
-          MHA_NAME),
+      "qkv_proj": lambda: launch(lib.fused_mha_proj,
+                                 *ptr(x, wq, wk, wv, bq, bk, bv, qkv),
+                                 b * l, hd, 3),
+      "attention": lambda: launch(lib.fused_mha_attention, qkv.data_ptr(),
+                                  heads_out.data_ptr(), b, l, num_heads,
+                                  _mha_scale()),
+      "out_proj": lambda: launch(lib.fused_mha_proj,
+                                 *ptr(heads_out, wo, wo, wo, bo, bo, bo, o),
+                                 b * l, hd, 1),
   }
 
 

@@ -12,7 +12,6 @@ alone, writing no statistics; with gradients it goes through `LNModulate`,
 whose forward is K1 with its mean/rstd buffers and whose backward is K2.
 """
 
-import ctypes
 import functools
 from typing import Optional
 
@@ -81,24 +80,13 @@ def ln_modulate_bwd_plain(x, dy, mean, rstd, gamma, beta, scale=None):
 
 @functools.cache
 def _lib():
-  lib = _build.library("ln_modulate")
-  fn = lib.ln_modulate_fwd
-  p, i = ctypes.c_void_p, ctypes.c_int
-  fn.argtypes = [p, p, p, p, p, i, p, p, p, i, i, i, ctypes.c_float, p]
-  fn.restype = i
-  return fn
+  return _build.library("ln_modulate").ln_modulate_fwd
 
 
 @functools.cache
 def _bwd_lib():
   lib = _build.library("ln_modulate_bwd")
-  fn = lib.ln_modulate_bwd
-  p, i = ctypes.c_void_p, ctypes.c_int
-  fn.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, p, p, i, i, i, p]
-  fn.restype = i
-  lib.ln_modulate_bwd_partials.argtypes = [i, i]
-  lib.ln_modulate_bwd_partials.restype = i
-  return fn, lib.ln_modulate_bwd_partials
+  return lib.ln_modulate_bwd, lib.ln_modulate_bwd_partials
 
 
 def _require(cond, msg, name=NAME):
@@ -172,21 +160,17 @@ def ln_modulate_fwd(x, gamma, beta, shift=None, scale=None, eps=1e-6, *,
   if x.numel() == 0:
     return y
   ptr = lambda t: None if t is None else t.data_ptr()
-  status = _lib()(
-      x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(shift),
-      ptr(scale), mod_stride, y.data_ptr(), ptr(mean), ptr(rstd), b * l, l,
-      d, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
-  _build.check(status, NAME)
+  _build.launch(NAME, x.device, _lib(), x.data_ptr(), gamma.data_ptr(),
+                beta.data_ptr(), ptr(shift), ptr(scale), mod_stride,
+                y.data_ptr(), ptr(mean), ptr(rstd), b * l, l, d, float(eps))
   _build.LAUNCHES[NAME] += 1
   return y
 
 
-def ln_modulate_bwd(x, dy, mean, rstd, gamma, beta, scale=None):
-  """Launches K2: the arguments and results of `ln_modulate_bwd_plain`.
-  x, dy: (B, L, D) bf16 contiguous; mean, rstd: (B, L) f32 from K1;
-  gamma, beta: (D,) f32; scale: (B, D) bf16 as K1 reads it, or None.
-  dgamma/dbeta are summed over the batch in a fixed order (no atomics),
-  so two launches on the same inputs give the same bits."""
+def _bwd_launch(x, dy, mean, rstd, gamma, beta, scale):
+  """(a function that launches K2, its outputs (dx, dgamma, dbeta, dshift,
+  dscale)) once the arguments are what K2 takes; the outputs and the
+  partials are made here, once."""
   _check_x(x, BWD_NAME)
   _check_x(dy, BWD_NAME, "dy")
   _require(dy.shape == x.shape and dy.device == x.device,
@@ -203,22 +187,42 @@ def ln_modulate_bwd(x, dy, mean, rstd, gamma, beta, scale=None):
   dshift = dscale = None
   if scale is not None:
     dshift, dscale = torch.empty(b, d, **f32), torch.empty(b, d, **f32)
-  if x.numel() == 0:
-    for t in (dgamma, dbeta, dshift, dscale):
-      if t is not None:
-        t.zero_()
-    return dx, dgamma, dbeta, dshift, dscale
   work = torch.empty(partials(b, l) * 2 * d, **f32)
   ptr = lambda t: None if t is None else t.data_ptr()
-  status = fn(
-      x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-      gamma.data_ptr(), beta.data_ptr(), ptr(scale), mod_stride,
-      dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), ptr(dshift),
-      ptr(dscale), work.data_ptr(), b, l, d,
-      torch.cuda.current_stream(x.device).cuda_stream)
-  _build.check(status, BWD_NAME)
+  launch = lambda: _build.launch(
+      BWD_NAME, x.device, fn, x.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+      rstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(scale),
+      mod_stride, dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+      ptr(dshift), ptr(dscale), work.data_ptr(), b, l, d)
+  return launch, (dx, dgamma, dbeta, dshift, dscale)
+
+
+def ln_modulate_bwd(x, dy, mean, rstd, gamma, beta, scale=None):
+  """Launches K2: the arguments and results of `ln_modulate_bwd_plain`.
+  x, dy: (B, L, D) bf16 contiguous; mean, rstd: (B, L) f32 from K1;
+  gamma, beta: (D,) f32; scale: (B, D) bf16 as K1 reads it, or None.
+  One kernel launch: one CTA per batch row, whose last CTA sums dgamma and
+  dbeta over the batch in a fixed order (only the tickets that find it are
+  atomic), so two launches on the same inputs give the same bits. Its
+  ticket counters are per device and reset by each launch: launches on one
+  device run one at a time, as on one stream."""
+  launch, grads = _bwd_launch(x, dy, mean, rstd, gamma, beta, scale)
+  if x.numel() == 0:
+    for t in grads[1:]:
+      if t is not None:
+        t.zero_()
+    return grads
+  launch()
   _build.LAUNCHES[BWD_NAME] += 1
-  return dx, dgamma, dbeta, dshift, dscale
+  return grads
+
+
+def ln_modulate_bwd_timer(x, dy, mean, rstd, gamma, beta, scale=None):
+  """A function that launches K2 on `ln_modulate_bwd`'s arguments into
+  buffers made once, here: without the wrapper's checks and allocations a
+  call, so that a run of calls reads K2's device time even where the host
+  is slower than the kernel. For measurement only: it counts no launch."""
+  return _bwd_launch(x, dy, mean, rstd, gamma, beta, scale)[0]
 
 
 class LNModulate(torch.autograd.Function):

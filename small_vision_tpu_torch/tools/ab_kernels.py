@@ -1,15 +1,16 @@
-"""Holds this tree's max-shift attention kernels (K6, K7, K9) against
-another tree's, on the card.
+"""Holds this tree's max-shift attention kernels (K6, K7, K8, K9) and the
+LayerNorm-modulate backward (K2) against another tree's, on the card.
 
-  python -m small_vision_tpu_torch.tools.ab_attention --other DIR
+  python -m small_vision_tpu_torch.tools.ab_kernels --other DIR
       [--rounds 3] [--iters 50] [--out FILE]
 
 K6's attention stage, K7 and the seven arms of K9 run one shared core
 (`csrc/sm90_attention.cuh`), so a change there moves all three. This tool
-builds `fused_mha.cu`, `attention_unpacked.cu` and `attention_ablate.cu` of
-DIR (the `small_vision_tpu_torch/csrc` directory of another checkout, e.g.
-the parent commit unpacked with `git archive`) into a temporary directory
-and loads them beside this tree's libraries. Then, on inputs from a
+builds `fused_mha.cu`, `attention_unpacked.cu`, `attention_ablate.cu`,
+`attention_unpacked_bwd.cu` and `ln_modulate_bwd.cu` of DIR (the
+`small_vision_tpu_torch/csrc` directory of another checkout, e.g. the
+parent commit unpacked with `git archive`) into a temporary directory and
+loads them beside this tree's libraries. Then, on inputs from a
 `torch.Generator` seeded 0:
   - K6 (the whole fused MHA forward) at the sampler's shape (B=64, L=260)
     and at (128, 257), 768 wide, 12 heads of 64: both sides must give the
@@ -19,6 +20,11 @@ and loads them beside this tree's libraries. Then, on inputs from a
   - K7 on [B, L, 12, 64] at (64, 260) and (128, 257), and K9's seven arms
     on (B, L, 768) at (128, 257) and (128, 164), each beside
     `scaled_dot_product_attention` on the same inputs.
+  - K8 on [128, L, 12, 64] and K2 on (128, L, 768) with modulation, at the
+    training lengths L = 68, 164, 257, beside SDPA's backward and the
+    autograd backward of `F.layer_norm` and the modulation. Their bits may
+    differ between the trees (their sums and exps may be regrouped), so
+    only their times are held.
 Each time is the mean of `--iters` launches between two CUDA events after
 a warm-up launch, taken in turns (other, this, this, other) for `--rounds`
 rounds; the tool prints the median and the range of each, beside the
@@ -45,7 +51,9 @@ WIDTH, HEADS = 768, 12
 K6_SHAPES = ((64, 260), (128, 257))
 K7_SHAPES = ((64, 260), (128, 257))
 K9_SHAPES = ((128, 257), (128, 164))
-SOURCES = ("fused_mha", "attention_unpacked", "attention_ablate")
+TRAIN_SHAPES = ((128, 68), (128, 164), (128, 257))  # K8 and K2
+SOURCES = ("fused_mha", "attention_unpacked", "attention_ablate",
+           "attention_unpacked_bwd", "ln_modulate_bwd")
 
 
 def dev_ms(fn, iters) -> float:
@@ -63,22 +71,9 @@ def dev_ms(fn, iters) -> float:
   return start.elapsed_time(end) / iters
 
 
-def _bind(lib):
-  p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-  sigs = {"fused_mha_fwd": [p] * 12 + [i, i, i, f, p],
-          "fused_mha_attention": [p, p, i, i, i, f, p],
-          "attention_unpacked_fwd": [p] * 4 + [i, i, i, f, p],
-          "attention_ablate_fwd": [p] * 4 + [i, i, i, f, i, p]}
-  for name, args in sigs.items():
-    if hasattr(lib, name):
-      getattr(lib, name).argtypes = args
-      getattr(lib, name).restype = i
-  return lib
-
-
 def build_other(csrc: pathlib.Path, out_dir: pathlib.Path) -> dict:
   """{source stem: its library built from `csrc`}, one nvcc each, all at
-  once, with this tree's flags."""
+  once, with this tree's flags, and bound by this tree's signatures."""
   procs = {}
   for stem in SOURCES:
     out = out_dir / f"{stem}_other.so"
@@ -90,13 +85,13 @@ def build_other(csrc: pathlib.Path, out_dir: pathlib.Path) -> dict:
   for stem, (out, proc) in procs.items():
     log, _ = proc.communicate()
     if proc.returncode != 0:
-      raise SystemExit(f"ab_attention: nvcc failed on {stem}.cu:\n{log}")
-    libs[stem] = _bind(ctypes.CDLL(str(out)))
+      raise SystemExit(f"ab_kernels: nvcc failed on {stem}.cu:\n{log}")
+    libs[stem] = _build.bind(ctypes.CDLL(str(out)), stem)
   return libs
 
 
 def _check(status):
-  _build.check(status, "ab_attention")
+  _build.check(status, "ab_kernels")
 
 
 def k6_launches(lib, x, params, b, l):
@@ -124,14 +119,14 @@ def main(argv=None):
   parser.add_argument("--out", default=None, help="JSON file of the times")
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
-    raise SystemExit("ab_attention: needs a CUDA device")
+    raise SystemExit("ab_kernels: needs a CUDA device")
   card = card_line()
   gen = torch.Generator(device="cuda").manual_seed(0)
   randn = lambda *s, std=1.0: (torch.randn(*s, generator=gen, device="cuda")
                                * std).to(torch.bfloat16)
   stream = lambda: torch.cuda.current_stream().cuda_stream
   scale = float(np.float32(1.0 / np.sqrt(64)))
-  this = {stem: _bind(_build.library(stem)) for stem in SOURCES}
+  this = {stem: _build.library(stem) for stem in SOURCES}
   # name: {"other": fn, "this": fn} to time; name: the library call's fn.
   # The functions hold raw pointers: `keep` holds their tensors.
   pairs, library, same_bits, keep = {}, {}, {}, []
@@ -186,6 +181,53 @@ def main(argv=None):
           lambda sp=split:
           torch.nn.functional.scaled_dot_product_attention(*sp))
 
+    for b, l in TRAIN_SHAPES:
+      q, k, v, do = (randn(b, l, HEADS, 64) for _ in range(4))
+      outs = [torch.empty_like(q) for _ in range(3)] + [
+          torch.empty(b, HEADS, l, device="cuda") for _ in range(3)]
+      keep += [q, k, v, do, *outs]
+      ptrs = [t.data_ptr() for t in (q, k, v, do, *outs)]
+      pairs[f"K8 {b}x{l}"] = {
+          s: (lambda lib=libs["attention_unpacked_bwd"], p=ptrs, b=b, l=l:
+              _check(lib.attention_unpacked_bwd(*p, b, l, HEADS, scale,
+                                                stream())))
+          for s, libs in sides.items()}
+      heads_first = [t.transpose(1, 2).detach().requires_grad_()
+                     for t in (q, k, v)]
+      o = torch.nn.functional.scaled_dot_product_attention(*heads_first)
+      library[f"K8 {b}x{l}"] = (
+          lambda o=o, hf=heads_first, g=do.transpose(1, 2):
+          torch.autograd.grad(o, hf, g, retain_graph=True))
+
+      x, dy = randn(b, l, WIDTH), randn(b, l, WIDTH)
+      xf = x.float()
+      mean = xf.mean(-1)
+      rstd = torch.rsqrt((xf - mean[..., None]).square().mean(-1) + 1e-6)
+      gamma = 1.0 + 0.1 * randn(WIDTH).float()
+      beta = 0.1 * randn(WIDTH).float()
+      shift, mod = randn(b, 2 * WIDTH).chunk(2, dim=-1)
+      for side, libs in sides.items():
+        lib = libs["ln_modulate_bwd"]
+        outs = [torch.empty_like(x)] + [
+            torch.empty(*shape, device="cuda")
+            for shape in ((WIDTH,), (WIDTH,), (b, WIDTH), (b, WIDTH),
+                          (lib.ln_modulate_bwd_partials(b, l) * 2 * WIDTH,))]
+        keep += outs
+        ptrs = [t.data_ptr() for t in (x, dy, mean, rstd, gamma, beta, mod)]
+        pairs.setdefault(f"K2 {b}x{l}", {})[side] = (
+            lambda lib=lib, p=ptrs + [mod.stride(0)] + [
+                t.data_ptr() for t in outs], b=b, l=l:
+            _check(lib.ln_modulate_bwd(*p, b, l, WIDTH, stream())))
+      keep += [x, dy, mean, rstd, gamma, beta, shift, mod]
+      xg = x.clone().requires_grad_()
+      g16, b16 = (t.to(torch.bfloat16).requires_grad_() for t in (gamma, beta))
+      sh, sc = (t.clone().requires_grad_() for t in (shift, mod))
+      y = (torch.nn.functional.layer_norm(xg, (WIDTH,), g16, b16, 1e-6)
+           * (1 + sc[:, None]) + sh[:, None])
+      library[f"K2 {b}x{l}"] = (
+          lambda y=y, leaves=(xg, g16, b16, sh, sc), dy=dy:
+          torch.autograd.grad(y, leaves, dy, retain_graph=True))
+
     times = {name: {"other": [], "this": []} for name in pairs}
     lib_times = {name: [] for name in library}
     for _ in range(args.rounds):
@@ -201,22 +243,22 @@ def main(argv=None):
             "times": {name: {side: summary(v) for side, v in t.items()}
                       for name, t in times.items()},
             "library": {name: summary(v) for name, v in lib_times.items()}}
-  print(f"[ab_attention] K6 bit-equal to the other build: {same_bits}; on "
+  print(f"[ab_kernels] K6 bit-equal to the other build: {same_bits}; on "
         f"{card}", flush=True)
   for name, t in result["times"].items():
-    print(f"[ab_attention] {name}: this {t['this']['median']:.4f} ms "
+    print(f"[ab_kernels] {name}: this {t['this']['median']:.4f} ms "
           f"({t['this']['min']:.4f}-{t['this']['max']:.4f}), other "
           f"{t['other']['median']:.4f} ({t['other']['min']:.4f}-"
           f"{t['other']['max']:.4f}), this/other "
           f"{t['this']['median'] / t['other']['median']:.3f}", flush=True)
   for name, t in result["library"].items():
-    print(f"[ab_attention] {name} sdpa: {t['median']:.4f} ms "
+    print(f"[ab_kernels] {name} library: {t['median']:.4f} ms "
           f"({t['min']:.4f}-{t['max']:.4f})", flush=True)
   if args.out:
     pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
   if not all(same_bits.values()):
-    raise SystemExit("ab_attention: K6 gives other bits than the other "
+    raise SystemExit("ab_kernels: K6 gives other bits than the other "
                      "build")
   return result
 

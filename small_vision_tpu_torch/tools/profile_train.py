@@ -11,7 +11,7 @@ step with torch.profiler and prints, with the card's name and power limit:
   - the mean wall time of a step and img/s without the profiler;
   - the device-busy time of the traced step (the union of kernel
     intervals), and its share of the untraced step's wall time;
-  - device time by class: matmuls, the port's kernels K1-K6, the
+  - device time by class: matmuls, the port's kernels K1-K6 (and K8), the
     optimizer (every kernel launched inside the step's "optimizer" range:
     the clip, AdamW and EMA), and the other elementwise kernels;
   - the ten kernels that take the most device time.
@@ -39,11 +39,14 @@ from small_vision_tpu_torch.tools.profile_sampler import (busy_us, card_line,
 
 CLASSES = (
     ("K1 ln_modulate_fwd", re.compile(r"ln_modulate_fwd_kernel")),
-    ("K2 ln_modulate_bwd", re.compile(r"ln_bwd_rows|ln_bwd_finish")),
+    ("K2 ln_modulate_bwd", re.compile(r"ln_modulate_bwd_kernel")),
     ("K3 attention_packed_fwd", re.compile(r"attention_packed_fwd_kernel")),
     ("K4 attention_packed_bwd", re.compile(r"attn_bwd_dq|attn_bwd_dkdv")),
     ("K5 fused_mlp_fwd", re.compile(r"fused_mlp_(up|down)_kernel")),
     ("K6 fused_mha_fwd", re.compile(r"fused_mha_(proj|attn)_kernel")),
+    # No module of the model calls K8; its names stay apart from K4's.
+    ("K8 attention_unpacked_bwd",
+     re.compile(r"attn_unpacked_bwd_(dq|dkdv)_sm90")),
     ("matmul", re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)),
 )
 

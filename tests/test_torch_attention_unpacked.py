@@ -3,7 +3,8 @@ plain versions of K7 and K8, through `fused_attention`).
 
 The same inputs, drawn with numpy, go through the JAX package's
 `pallas_attention` and `fused_attention` with their Pallas kernels in
-interpret mode and through the port on the CPU. A float64 gradcheck holds
+interpret mode and through the port on the CPU; the bf16 backward also at
+L = 720, past the length (704) that the card's K8 once took. A float64 gradcheck holds
 the plain backward against the numerical derivative of the plain forward.
 """
 
@@ -20,9 +21,9 @@ from small_vision_tpu_torch.ops import attention as tattn
 B, D = 2, 64
 
 
-def _inputs(l, heads, seed, qk_scale=1.0):
+def _inputs(l, heads, seed, qk_scale=1.0, b=B):
   rng = np.random.default_rng(seed)
-  q, k, v, do = (rng.standard_normal((B, l, heads, D)).astype(np.float32)
+  q, k, v, do = (rng.standard_normal((b, l, heads, D)).astype(np.float32)
                  for _ in range(4))
   return q * qk_scale, k * qk_scale, v, do
 
@@ -87,9 +88,16 @@ def test_backward_matches_jax_f32(l, heads):
     np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.max(np.abs(w)))
 
 
-@pytest.mark.parametrize("l,heads", CASES)
-def test_backward_matches_jax_bf16(l, heads):
-  args = _inputs(l, heads, seed=l + 3)
+# Past the card kernel's old limit of 704 too: one head of one row at 720.
+BWD_BF16_CASES = [(l, h, B) for l, h in CASES] + [(720, 1, 1)]
+
+
+@pytest.mark.parametrize(
+    "l,heads,b", BWD_BF16_CASES,
+    ids=[f"{l}-{h}" + ("" if b == B else f"-b{b}")
+         for l, h, b in BWD_BF16_CASES])
+def test_backward_matches_jax_bf16(l, heads, b):
+  args = _inputs(l, heads, seed=l + 3, b=b)
   for g, w in zip(_torch_grads(*args, torch.bfloat16),
                   _jax_grads(*args, jnp.bfloat16)):
     # Both round P (for dV) and dS to bf16 before their products, and the

@@ -10,8 +10,10 @@ marked `cuda` skip where there is no CUDA device: K1 and K3 (the forwards)
 and K2 and K4 (the backwards) against their plain versions at the
 training and sampler lengths (K3 and K4 also at the edges of their tiles
 and rings and at their own length limits, with 1, 3 and 12 heads and batch
-1 and 5), two launches of each backward and of K3 giving the same bits,
-K3 and K4 past the ±80 clamp, the wrappers refusing what the kernels do
+1 and 5), two launches of each backward and of K3 giving the same bits
+(three of K2 in a row, also at B = 1, at L = 1, over two groups of batch
+rows and at width 1,024 with and without modulation), K3 and K4 past the
+±80 clamp, the wrappers refusing what the kernels do
 not take (a length 16 past a kernel's limit among them), and the
 sampler's no-grad path writing no statistics and launching no backward;
 then the fused MLP (K5: also at the training shapes, at a ragged row
@@ -19,15 +21,21 @@ count, at width 1,024 and at a hidden width that is not a multiple of 128;
 its stage timer), the fused MHA (K6: also at the training shapes,
 at ragged lengths, at width 1,024 and at its own length limit) and the
 [B, L, H, D] attention with the max-shift softmax (K7, K8) in the same
-way (K7 also at its own length limit, two launches giving the same bits),
+way (K7 also at its own length limit, two launches giving the same bits;
+K8 also at L = 1, at 65, at 720 and 1,024 past its old limit of 704, at
+its new limit of 4,096 with batch 1, and with logits around ±1e4),
 and the seven arms of the ablation kernel (K9) at lengths that are not a
 multiple of 16, at 80 and 144 (multiples of 16 but not of its 64-row
 tiles) and at 257, two launches of each giving the same bits, and
 `mulmask` with scores near -300, where a zero key of the tile past L would
-change the max.
+change the max; and each of the nine wrappers launching its kernel from a
+thread that has run no CUDA work yet, with the same bits as from the main
+thread.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -249,12 +257,25 @@ def test_ln_bwd_kernel_matches_plain(cuda, l, modulate):
 
 
 @pytest.mark.cuda
-def test_ln_bwd_kernel_is_deterministic(cuda):
-  args = _ln_bwd_args(cuda, 257, True, b=16)
+@pytest.mark.parametrize("b,l,d,modulate", [
+    (16, 257, 768, True), (1, 68, 768, True), (8, 1, 768, True),
+    (20, 17, 768, False), (8, 164, 1024, True), (8, 164, 1024, False)])
+def test_ln_bwd_kernel_is_deterministic(cuda, b, l, d, modulate):
+  """Three launches in a row give the same bits: the sums over the batch
+  run in a fixed order, and each launch leaves its ticket counters at 0
+  for the next (B = 1, L = 1, two groups of batch rows, width 1,024)."""
+  args = _ln_bwd_args(cuda, l, modulate, b=b, d=d)
   first = ln.ln_modulate_bwd(*args)
-  second = ln.ln_modulate_bwd(*args)
-  for a, b in zip(first, second):
-    assert torch.equal(a, b)
+  for _ in range(2):
+    for a, again in zip(first, ln.ln_modulate_bwd(*args)):
+      assert (a is None and again is None) or torch.equal(a, again)
+  want = ln.ln_modulate_bwd_plain(*args)
+  dx, dx_want = first[0].float(), want[0].float()
+  # The tolerances of test_ln_bwd_kernel_matches_plain.
+  assert torch.all((dx - dx_want).abs() <= 2.0**-7 * dx_want.abs() + 1e-3)
+  for g, w in zip(first[1:], want[1:]):
+    if w is not None:
+      torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * w.abs().max())
 
 
 @pytest.mark.cuda
@@ -580,10 +601,17 @@ def test_unpacked_attention_kernel_takes_large_logits(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,h", [(20, 2), (37, 3), (68, 12), (164, 12),
-                                 (257, 12)])
+@pytest.mark.parametrize("l,h", [(1, 2), (20, 2), (37, 3), (65, 3), (68, 12),
+                                 (164, 12), (257, 12), (720, 2), (1024, 1),
+                                 (MAX_LEN, 1)])
 def test_unpacked_attention_bwd_kernel_matches_plain(cuda, l, h):
-  q, k, v, do = _qkv_do_4d(cuda, l, h=h)
+  """Also at L = 1, at 65 (one key past a 64-row tile), at 720 and 1,024,
+  past the 704 the kernel once took, and at its own limit (4,096), batch
+  1."""
+  b = 4
+  if l == MAX_LEN:
+    b, l = 1, attn._unpacked_bwd_lib()[1]
+  q, k, v, do = _qkv_do_4d(cuda, l, b=b, h=h)
   before = _build.LAUNCHES[attn.UNPACKED_BWD_NAME]
   got = attn.attention_unpacked_bwd(q, k, v, do)
   assert _build.LAUNCHES[attn.UNPACKED_BWD_NAME] == before + 1
@@ -598,6 +626,68 @@ def test_unpacked_attention_bwd_kernel_matches_plain(cuda, l, h):
 
 
 @pytest.mark.cuda
+def test_unpacked_attention_bwd_kernel_takes_huge_logits(cuda):
+  """Logits around ±1e4: every row's probabilities are one-hot after the
+  max shift, and nothing overflows. dV = P^T dO is well conditioned there;
+  dQ and dK are differences of nearly equal terms, so only finite."""
+  q, k, v, do = _qkv_do_4d(cuda, 65, h=3, scale=100.0)
+  got = attn.attention_unpacked_bwd(q, k, v, do)
+  want = attn.attention_bwd_plain(q, k, v, do)
+  for g in got:
+    assert torch.isfinite(g.float()).all()
+  assert torch.equal(got[2], attn.attention_unpacked_bwd(q, k, v, do)[2])
+  err = (got[2].float() - want[2].float()).abs().max().item()
+  assert err <= 2.0**-6 * want[2].float().abs().max().item(), err
+
+
+# Each kernel's wrapper and a function that makes its inputs on a device.
+_WRAPPER_CALLS = {
+    ln.NAME: (ln.ln_modulate_fwd, lambda d: _ln_args(d, 20, True)),
+    ln.BWD_NAME: (ln.ln_modulate_bwd, lambda d: _ln_bwd_args(d, 20, True)),
+    attn.NAME: (attn.attention_packed_fwd,
+                lambda d: (*_qkv_do(d, 20)[:3], 2)),
+    attn.BWD_NAME: (attn.attention_packed_bwd,
+                    lambda d: (*_qkv_do(d, 20), 2)),
+    fb.MLP_NAME: (fb.fused_mlp_fwd, lambda d: _mlp_args(d, (2, 20))),
+    fb.MHA_NAME: (fb.fused_mha_fwd, lambda d: (*_mha_args(d, 3, 20, 12), 12)),
+    attn.UNPACKED_NAME: (attn.attention_unpacked_fwd,
+                         lambda d: _qkv_do_4d(d, 20)[:3]),
+    attn.UNPACKED_BWD_NAME: (attn.attention_unpacked_bwd,
+                             lambda d: _qkv_do_4d(d, 20)),
+    attn.ABLATE_NAME: (attn.attention_ablate_fwd,
+                       lambda d: (*_qkv_do(d, 20)[:3], 2, "prod")),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_WRAPPER_CALLS))
+def test_kernel_launches_from_a_fresh_thread(cuda, name):
+  """A thread that has run no CUDA work has no current context (autograd's
+  thread, when a kernel's backward is the first thing it runs), and there
+  a kernel cannot encode its TMA tensor maps; `_build.launch` binds one.
+  The inputs are made here, so the thread runs the wrapper alone."""
+  wrapper, make_inputs = _WRAPPER_CALLS[name]
+  inputs = make_inputs(cuda)
+  torch.cuda.synchronize()
+  got = {}
+
+  def body():
+    device = torch.cuda.current_device()
+    got["out"] = wrapper(*inputs)
+    got["same_device"] = torch.cuda.current_device() == device
+
+  worker = threading.Thread(target=body)
+  worker.start()
+  worker.join(timeout=60)
+  assert not worker.is_alive() and "out" in got and got["same_device"]
+  torch.cuda.synchronize()
+  want = wrapper(*inputs)
+  for g, w in zip(*((t,) if torch.is_tensor(t) else t
+                    for t in (got["out"], want))):
+    assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_unpacked_attention_autograd_and_refusals(cuda):
   q, k, v, do = _qkv_do_4d(cuda, 20)
   q, k, v = (t.requires_grad_() for t in (q, k, v))
@@ -608,7 +698,10 @@ def test_unpacked_attention_autograd_and_refusals(cuda):
   bad = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="head dim"):
     attn.attention_unpacked_fwd(bad, bad, bad)
-  long = torch.zeros(1, 4096, 1, 64, dtype=torch.bfloat16, device=cuda)
+  # K8 takes its limit (4,096: shared memory does not grow with L) and
+  # refuses one more.
+  assert attn._unpacked_bwd_lib()[1] == 4096
+  long = torch.zeros(1, 4097, 1, 64, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_unpacked_bwd(long, long, long, long)
   # K7 takes its limit (832, the shared memory that K and V fill) and
