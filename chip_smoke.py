@@ -11,7 +11,10 @@ Phases, each fatal on failure:
                the shape of phase 6, and timed there too), the backwards
                K2, K4, K8 at the training shapes (per-branch batch 128,
                L = 68, 164, 257), each launched twice to show equal bits
-               (K2 three times in a row; K8 also at L = 65 and at (8,
+               (K2 three times in a row, and twice at once on two streams
+               at (128, 257) modulated and (128, 68), which must give the
+               bits of the same two launches in turn; K8 also at L = 65
+               and at (8,
                1,024), past its old limit, and with the time of each of
                its two kernels; K3 also at the training shapes, and K7,
                launched twice too), the fused MLP and MHA (K5, K6) at
@@ -45,7 +48,22 @@ Phases, each fatal on failure:
   7. ablate    the attention-ablation tool
                (`tools/ablate_attention_kernel.py::main`) at its two shapes:
                the seven arms of K9, 21 launches each, beside K3 and SDPA.
-  8. resume    full-width UMD-B/4@64 at batch 256 through
+  8. data      the input pipeline on the card: an `arrays` dataset of
+               4,096 seeded 64x64 training images and 512 validation
+               images written with `write_arrays`, and UMD-B/4@64 trained
+               on it at batch 256 through `train_and_evaluate` on
+               `ae_i1k.py:data=arrays:<dir>` under "pallas" (1 warm-up and
+               5 timed steps, `val` and `mae_val` of 2 batches at step
+               6): finite, falling losses, the launches per step the model
+               says, the first step's `_id`s the source's (seed, epoch 0)
+               permutation, the evaluators on `validation/`; its img/s
+               beside phase train's synthetic-fed reading; `TrainIterator`
+               alone over the same source (batch 256, 16 workers) in
+               img/s; and, where PIL is installed, 512 seeded 500x375
+               JPEGs (quality 90) through
+               `decode_jpeg_and_inception_crop(size=64)` on the host stage
+               with 16 workers, in img/s, with the decoder that ran.
+  9. resume    full-width UMD-B/4@64 at batch 256 through
                `train_and_evaluate` with a workdir: run A trains 6 steps
                with a checkpoint every 3 and the `val` and `mae_val`
                evaluators (2 batches each) at step 6; run B stops after
@@ -87,6 +105,13 @@ TRAIN_BATCH = 256             # per card; each branch gets half
 TRAIN_SEQS = (68, 164, 257)   # MAE encoder, diffusion encoder, decoders
 MLP_DIM = 3072
 TRAIN_STEPS = 6               # 1 warm-up + 5 timed
+DATA_TRAIN, DATA_VAL = 4096, 512   # phase data: arrays examples, 64x64x3
+DATA_WORKERS = 16             # the config's input.num_workers
+JPEGS, JPEG_HW = 512, (375, 500)   # phase data: the JPEG reading
+# K2 by launches alone (`device_ms`) at (128, L, 768) modulated, before its
+# tickets moved into the launch's scratch: PR 10's measuring call, NVIDIA
+# H100 80GB HBM3, 700.00 W.
+K2_DEVICE_MS_BEFORE = {68: 0.0198, 164: 0.0448, 257: 0.0650}
 ATTN_IMPLS = ("pallas", "pallas_fused")
 # Kernel launches of one block applied once, with gradients (training) and
 # without (the sampler). Under "pallas_fused" the fused forwards replace
@@ -284,8 +309,8 @@ def check_attention(attn, card):
 
 def check_ln_bwd(ln, card):
   """K2 against its plain version at the training shapes, three launches
-  in a row giving equal bits; timed beside its bound and its library
-  call."""
+  in a row giving equal bits, two at once on two streams giving the bits
+  of the same two in turn; timed beside its bound and its library call."""
   gen = torch.Generator(device="cuda").manual_seed(2)
   randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
   b = TRAIN_BATCH // 2
@@ -293,7 +318,7 @@ def check_ln_bwd(ln, card):
   beta = 0.1 * randn(WIDTH)
   mods = (0.5 * randn(b, 6 * WIDTH)).to(torch.bfloat16)
   shift, scale = mods.chunk(6, dim=-1)[:2]
-  max_err, by_len = 0.0, {}
+  max_err, by_len, cases = 0.0, {}, {}
   for seq in TRAIN_SEQS:
     x = (2.0 * randn(b, seq, WIDTH) + 0.5).to(torch.bfloat16)
     dy = randn(b, seq, WIDTH).to(torch.bfloat16)
@@ -302,8 +327,9 @@ def check_ln_bwd(ln, card):
     ln.ln_modulate_fwd(x, gamma, beta, shift, scale, mean=mean, rstd=rstd)
     for sc in (scale, None):
       args = (x, dy, mean, rstd, gamma, beta, sc)
+      cases[(seq, sc is not None)] = args
       # Three launches in a row: the sums' fixed order, and each launch
-      # leaving its ticket counters at 0 for the next.
+      # zeroing its own ticket counters.
       got = ln.ln_modulate_bwd(*args)
       again = [ln.ln_modulate_bwd(*args) for _ in range(2)]
       want = ln.ln_modulate_bwd_plain(*args)
@@ -354,13 +380,44 @@ def check_ln_bwd(ln, card):
         bound_ms=bound_ms, bound_by=bound_by)
     print(f"[kernels] ln_modulate_bwd B={b} L={seq} D={WIDTH} modulated: "
           + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                      for k, v in by_len[seq].items()) + f" on {card}",
+                      for k, v in by_len[seq].items())
+          + f" (device_ms before the tickets moved into the launch's "
+          f"scratch, PR 10: {K2_DEVICE_MS_BEFORE[seq]:.4f}) on {card}",
           flush=True)
+  _check_ln_bwd_two_streams(ln, [cases[(TRAIN_SEQS[-1], True)],
+                                 cases[(TRAIN_SEQS[0], False)]])
   return dict(name=ln.BWD_NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/ln_modulate_bwd.cu",
               replaces="small_vision_tpu/ops/layernorm.py:130",
               max_abs_err=max_err, **by_len[TRAIN_SEQS[-1]],
               by_len=by_len)
+
+
+def _check_ln_bwd_two_streams(ln, cases):
+  """Two K2 launches in flight at once on two streams give the bits of the
+  same two launches in turn: each launch's ticket counters are its own."""
+  in_turn = [ln.ln_modulate_bwd(*args) for args in cases]
+  start = torch.cuda.current_stream()
+  for rnd in range(5):
+    streams = [torch.cuda.Stream() for _ in cases]
+    got = []
+    for stream, args in zip(streams, cases):
+      stream.wait_stream(start)
+      with torch.cuda.stream(stream):
+        got.append(ln.ln_modulate_bwd(*args))
+    for stream in streams:
+      start.wait_stream(stream)
+    torch.cuda.synchronize()
+    for want, outs in zip(in_turn, got):
+      if not all(torch.equal(w, g) for w, g in zip(want, outs)
+                 if w is not None):
+        fail(f"ln_modulate_bwd on two streams at once (round {rnd}) differs "
+             "from the same launches in turn")
+  shapes = ", ".join(f"({a[0].shape[0]}, {a[0].shape[1]}, {a[0].shape[2]})"
+                     f"{' modulated' if a[6] is not None else ''}"
+                     for a in cases)
+  print(f"[kernels] ln_modulate_bwd on two streams at once, {shapes}: the "
+        "bits of the same launches in turn, 5 rounds", flush=True)
 
 
 def check_attention_bwd(attn, card):
@@ -886,7 +943,8 @@ def phase_train(build, card, attn_impl):
         f"{TRAIN_BATCH}: {len(timed)} timed steps, mean {ms:.2f} ms/step (min "
         f"{min(h['ms'] for h in timed):.2f}, max "
         f"{max(h['ms'] for h in timed):.2f}) = {TRAIN_BATCH / ms * 1e3:.2f} "
-        f"img/s on {card}", flush=True)
+        f"img/s; waiting for the batch {max(h['data_ms'] for h in timed):.3f} "
+        f"ms at most on {card}", flush=True)
   if len(history) != TRAIN_STEPS:
     fail(f"{len(history)} steps ran, not {TRAIN_STEPS}")
   losses = [h["training_loss"] for h in history]
@@ -905,8 +963,9 @@ def phase_train(build, card, attn_impl):
         f"{launches}, model says {want}", flush=True)
   if launches != want:
     fail(f"launch counts {launches} != {want}")
-  return {"img_per_s": TRAIN_BATCH / ms * 1e3, "ms": ms,
-          "launches": launches}
+  data_ms = sum(h["data_ms"] for h in timed) / len(timed)
+  return {"img_per_s": TRAIN_BATCH / (ms + data_ms) * 1e3, "ms": ms,
+          "data_ms": data_ms, "launches": launches}
 
 
 def _check_images(images, n):
@@ -1002,6 +1061,189 @@ def phase_ablate(build, attn, card):
   if not all(np.isfinite(t) and t > 0 for t in results.values()):
     fail(f"ablation tool times not positive and finite: {results}")
   return launches
+
+
+def _wrap(module, name, make):
+  """Replaces `module.name` by `make(original)`; returns the undo."""
+  original = getattr(module, name)
+  setattr(module, name, make(original))
+  return lambda: setattr(module, name, original)
+
+
+def phase_data(build, card, synthetic):
+  """The input pipeline on the card at full UMD-B/4@64 width; see the
+  module's docstring. `synthetic`: phase train's "pallas" reading."""
+  from small_vision_tpu_torch.configs import ae_i1k
+  from small_vision_tpu_torch.data import arrays, core, pipeline
+  from small_vision_tpu_torch.train import train_ae
+
+  root = tempfile.mkdtemp(prefix="sv_data_")
+  try:
+    rng = np.random.default_rng(11)
+    for split, n in (("train", DATA_TRAIN), ("validation", DATA_VAL)):
+      arrays.write_arrays(
+          os.path.join(root, split),
+          rng.integers(0, 256, (n, 64, 64, 3), dtype=np.uint8),
+          rng.integers(0, 1000, (n,)))
+    config = ae_i1k.get_config(
+        f"variant=B/4,size=64,data=arrays:{root},batch_size={TRAIN_BATCH},"
+        f"total_steps={TRAIN_STEPS},log_steps=1,eval_steps={TRAIN_STEPS},"
+        "attn_impl=pallas")
+    for ev in config["evals"].values():
+      ev["num_batches"] = 2
+    if config["input"]["num_workers"] != DATA_WORKERS:
+      fail(f"the config's num_workers is {config['input']['num_workers']}")
+
+    # What the loop fed its first step, and which splits the run opened.
+    first_ids, opened = [], []
+
+    def record_ids(make_update_fn):
+      def make(*args, **kw):
+        update_fn = make_update_fn(*args, **kw)
+
+        def update(state, batch, *a, **k):
+          if not first_ids:
+            first_ids.append(batch["_id"].cpu().numpy())
+          return update_fn(state, batch, *a, **k)
+        return update
+      return make
+
+    def record_splits(init):
+      def wrapped(self, **kw):
+        init(self, **kw)
+        opened.append((kw.get("split", "train"), self.root,
+                       self.total_examples))
+      return wrapped
+
+    undo = [_wrap(train_ae, "make_update_fn", record_ids),
+            _wrap(arrays.DataSource, "__init__", record_splits)]
+    try:
+      build.reset_launches()
+      state, history = train_ae.train_and_evaluate(
+          config, device="cuda",
+          log=lambda s: print(f"[data] arrays: {s}", flush=True))
+      launches = dict(build.LAUNCHES)
+    finally:
+      for u in undo:
+        u()
+    del state
+    torch.cuda.empty_cache()
+
+    losses = [h["training_loss"] for h in history]
+    if len(history) != TRAIN_STEPS or not all(np.isfinite(losses)):
+      fail(f"arrays run: {len(history)} steps, losses {losses}")
+    if not losses[-1] < losses[0]:
+      fail(f"arrays run: the training loss did not fall: {losses}")
+    want = _times(BLOCK_TRAIN_LAUNCHES["pallas"], 2 * BLOCKS * TRAIN_STEPS)
+    for k, v in _times(BLOCK_SAMPLE_LAUNCHES["pallas"], BLOCKS * 4).items():
+      want[k] += v  # val and mae_val, 2 batches each, one forward a batch
+    if launches != want:
+      fail(f"arrays run launches {launches} != {want}")
+    order = [int(ex["_id"]) for ex in core.get(f"arrays:{root}").examples(
+        seed=int(config["input"].get("seed", 0)), epoch=0)]
+    if not first_ids or first_ids[0].tolist() != order[:TRAIN_BATCH]:
+      fail("the first step's _ids are not the arrays source's (seed, "
+           "epoch 0) permutation")
+    val_dir = os.path.join(root, "validation")
+    splits = sorted((s, os.path.basename(r), n) for s, r, n in opened)
+    if splits != [("train", "train", DATA_TRAIN)] + [
+        ("validation", "validation", DATA_VAL)] * len(config["evals"]):
+      fail(f"the run opened {splits}; want train/ once and {val_dir} once "
+           "an evaluator")
+    timed = history[1:]
+    ms = sum(h["ms"] for h in timed) / len(timed)
+    data_ms = sum(h["data_ms"] for h in timed) / len(timed)
+    img_per_s = TRAIN_BATCH / (ms + data_ms) * 1e3
+    print(f"[data] arrays-fed UMD-B/4@64 at batch {TRAIN_BATCH}: "
+          f"{len(timed)} timed steps, mean {ms:.2f} ms a step + "
+          f"{data_ms:.3f} ms waiting for its batch = {img_per_s:.2f} img/s; "
+          f"synthetic-fed (phase train, this call) {synthetic['ms']:.2f} + "
+          f"{synthetic['data_ms']:.3f} ms = {synthetic['img_per_s']:.2f} "
+          f"img/s; launches {launches}; first step's _ids the (seed, epoch "
+          f"0) permutation; evaluators on {val_dir} on {card}", flush=True)
+
+    # The host pipeline alone: one epoch through TrainIterator.
+    nproc = len(os.sched_getaffinity(0))
+    it = pipeline.TrainIterator(core.get(f"arrays:{root}"),
+                                config["input"]["pp"], TRAIN_BATCH,
+                                device="cuda", num_workers=DATA_WORKERS,
+                                prefetch=config["input"]["prefetch_to_device"])
+    batches = iter(it)
+    next(batches)
+    torch.cuda.synchronize()
+    n = 2 * DATA_TRAIN // TRAIN_BATCH  # two epochs
+    t0 = time.perf_counter()
+    for _ in range(n):
+      batch = next(batches)
+    torch.cuda.synchronize()
+    host_img_per_s = n * TRAIN_BATCH / (time.perf_counter() - t0)
+    batches.close()
+    if batch["image"].shape != (TRAIN_BATCH, 64, 64, 3) or not \
+        batch["image"].is_cuda:
+      fail(f"TrainIterator gave {batch['image'].shape} on "
+           f"{batch['image'].device}")
+    print(f"[data] TrainIterator alone over arrays/train at batch "
+          f"{TRAIN_BATCH}, {DATA_WORKERS} workers, onto the card: "
+          f"{host_img_per_s:.2f} img/s ({n} batches); nproc {nproc} on "
+          f"{card}", flush=True)
+    return {"launches": launches, "img_per_s": img_per_s, "ms": ms,
+            "data_ms": data_ms, "host_img_per_s": host_img_per_s,
+            "jpeg": _jpeg_reading(card), "nproc": nproc}
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _jpeg_reading(card):
+  """`decode_jpeg_and_inception_crop(size=64)` over 512 seeded 500x375
+  JPEGs on the host stage with 16 workers: img/s and the decoder that ran;
+  None where PIL, which writes the JPEGs, is not installed."""
+  import importlib.util
+  if importlib.util.find_spec("PIL") is None:
+    print("[data] JPEG reading not taken: PIL is not installed on this "
+          "machine, and it is what writes the JPEGs (and decodes them where "
+          "the native decoder is unavailable)", flush=True)
+    return None
+  from PIL import Image
+  from small_vision_tpu_torch.data import native_jpeg, pipeline
+  from small_vision_tpu_torch.pp import builder
+
+  rng = np.random.default_rng(12)
+  h, w = JPEG_HW
+  base = rng.integers(0, 256, (JPEGS, h // 25, w // 25, 3), dtype=np.uint8)
+  raws = []
+  for i in range(JPEGS):
+    img = Image.fromarray(base[i]).resize((w, h), Image.BILINEAR)
+    noise = rng.integers(0, 32, (h, w, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(np.asarray(img) // 2 + noise).save(buf, format="JPEG",
+                                                       quality=90)
+    raws.append(buf.getvalue())
+  host_fn, _ = builder.get_preprocess_fn(
+      'decode_jpeg_and_inception_crop(size=64)|keep("image")')
+  decoder = native_jpeg.status()
+
+  def run():
+    host = pipeline._HostPipeline(
+        lambda: ({"image": r, "_id": np.int64(i)} for i, r in
+                 enumerate(raws)),
+        host_fn, TRAIN_BATCH, num_workers=DATA_WORKERS,
+        drop_remainder=False)
+    return [b["image"] for b in host]
+
+  run()  # builds the native decoder where it can
+  reps, t0 = 3, time.perf_counter()
+  for _ in range(reps):
+    out = np.concatenate(run())
+  img_per_s = reps * JPEGS / (time.perf_counter() - t0)
+  if out.shape != (JPEGS, 64, 64, 3) or out.dtype != np.uint8 or \
+      not out.any():
+    fail(f"JPEG reading gave {out.shape} {out.dtype}")
+  print(f"[data] decode_jpeg_and_inception_crop(size=64) of {JPEGS} "
+        f"{w}x{h} JPEGs (quality 90) on the host stage, "
+        f"{DATA_WORKERS} workers: {img_per_s:.2f} img/s, decoder {decoder}, "
+        f"{reps} passes; nproc {len(os.sched_getaffinity(0))} on {card}",
+        flush=True)
+  return {"img_per_s": img_per_s, "decoder": decoder}
 
 
 def _stop_after_checkpoint(step):
@@ -1256,15 +1498,17 @@ def main():
   train = {a: phase_train(build, card, a) for a in ATTN_IMPLS}
   serve = {"pallas": phase_serve(build, card),
            "pallas_fused": phase_serve_fused(build, card)}
+  data = phase_data(build, card, train["pallas"])
   unpacked = phase_unpacked(build, attn, card)
   ablate = phase_ablate(build, attn, card)
   resume = phase_resume(build, card, train["pallas"]["img_per_s"])
   for k in kernels:
     # Launches on the paths driven above, each counted from 0: the sampler
     # call and the training run under "pallas", the same two under
-    # "pallas_fused", `fused_attention` for the two kernels that no module
-    # of the model calls, the ablation tool, and run A of the resume phase
-    # (6 training steps and the two evaluators). `launches` is the largest
+    # "pallas_fused", the training run on an arrays source (phase data),
+    # `fused_attention` for the two kernels that no module of the model
+    # calls, the ablation tool, and run A of the resume phase (6 training
+    # steps and the two evaluators). `launches` is the largest
     # of them: the count on the path that runs the kernel most.
     name = k["name"]
     k["launches_by_path"] = {
@@ -1272,6 +1516,7 @@ def main():
            for a in ATTN_IMPLS},
         **{f"train_{a}_{TRAIN_STEPS}_steps": train[a]["launches"].get(name, 0)
            for a in ATTN_IMPLS},
+        "data": data["launches"].get(name, 0),
         "fused_attention": unpacked.get(name, 0),
         "ablate": ablate.get(name, 0),
         "resume": resume["launches"].get(name, 0)}
@@ -1283,6 +1528,13 @@ def main():
           f"{train[a]['ms']:.2f} ms/step at batch {TRAIN_BATCH}; sampler "
           f"{serve[a]['img_per_s']:.2f} img/s, {serve[a]['s']:.3f} s a call "
           f"at batch {BATCH}; on {card}", flush=True)
+  jpeg = data["jpeg"]
+  print(f"[result] data: arrays-fed training {data['img_per_s']:.2f} img/s "
+        f"(synthetic-fed {train['pallas']['img_per_s']:.2f}); TrainIterator "
+        f"alone {data['host_img_per_s']:.2f} img/s; JPEG decode and crop "
+        + (f"{jpeg['img_per_s']:.2f} img/s ({jpeg['decoder']})" if jpeg
+           else "not taken (no PIL)")
+        + f"; nproc {data['nproc']}; on {card}", flush=True)
 
   print(card, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,9 +6,14 @@ labels, and the training step (batch size, mask ratios, the MAE/diffusion
 split, AdamW, the schedule's durations, EMA, the input with its pp string,
 `fused_branches`), the checkpoint cadence and the evaluator entries `val`,
 `mae_val` and, with labels, the three sampling evaluators. The few-shot
-probe's entry waits for the evaluators slice and the ImageNet input for the
-data slice; `data` is `synthetic` (the default here, as no dataset is in the
-repository).
+probe's entry waits for the evaluators slice.
+
+`data` is `synthetic` (the default here, as no dataset is in the
+repository), `arrays:<root>` (decoded uint8 images in memmaps, a parent of
+`train/` and `validation/`, as `tools/ingest_arrays.py` writes them), or a
+dataset name such as `imagenet2012`, whose training pp is the JAX config's
+`decode_jpeg_and_inception_crop(size, area_min)` and whose source (TFDS)
+raises in the port, naming the arrays route.
 
   --config ae_i1k.py:variant=B/4,size=64
   --config ae_i1k.py:use_labels=True          # class-conditional, CFG, EMA
@@ -17,6 +22,7 @@ repository).
   --config ae_i1k.py:attn_impl=pallas_fused   # fused MLP and MHA kernels
   --config ae_i1k.py:ckpt_steps=500,eval_steps=1000   # with --workdir
   --config ae_i1k.py:eval_steps=-1            # no evaluators
+  --config ae_i1k.py:data=arrays:/data/i1k64  # train/ and validation/
 """
 
 from small_vision_tpu_torch.configs import common as cc
@@ -27,19 +33,18 @@ def get_config(arg=None) -> dict:
       arg, variant="B/4", size=64, use_labels=False, adaln=True,
       samples_per_call=0, runlocal=False, batch_size=1024, mask_ratio=0.375,
       no_noise_prob=0.5, mask_ratio_no_noise=0.75, lr=15e-5, wd=5e-2,
-      beta2=0.95, epochs=800, data="synthetic", total_steps=0, log_steps=0,
+      beta2=0.95, epochs=800, data="synthetic", area_min=80, total_steps=0,
+      log_steps=0,
       fused_branches=False, attn_impl="pallas", finetune=False,
       save_ckpt=True,
       ckpt_steps=0,  # 0 = keep the default (5000; runlocal 8)
       keep_ckpt_steps=0,  # > 0: checkpoints at its multiples stay for ever
       eval_steps=0,  # 0 = per-evaluator defaults (25k), -1 = no evaluators
       total_samples=0)  # 0 = 10k samples per sampling evaluator
-  if arg["data"] != "synthetic":
-    raise ValueError(f"data={arg['data']!r}: the port has the synthetic "
-                     "source only (ImageNet comes with the data slice)")
 
   config = {
       "diffusion_space": (arg["size"], arg["size"], 3),
+      "resize": int(arg["size"] * (256 / 246)),
       "seed": 0,
       "use_labels": arg["use_labels"],
       "num_classes": 1000 if arg["use_labels"] else None,
@@ -74,18 +79,34 @@ def get_config(arg=None) -> dict:
     config["warmup_epochs"] = int(0.05 * arg["epochs"])
   if arg["use_labels"]:
     config["ema_decay"] = 0.0001 * (arg["batch_size"] / 256)
+  data = arg["data"]
+  decoded = data == "synthetic" or data.startswith("arrays:")
+  if data == "synthetic":
+    data_cfg = dict(name="synthetic", img_size=arg["size"],
+                    num_examples=50_000)
+    eval_data = dict(data_cfg, split="validation")
+  else:
+    data_cfg = (dict(name="arrays", root=data[len("arrays:"):])
+                if decoded else dict(name=data, split="train[:99%]"))
+    eval_data = dict(name=data, split="validation")
+  pp_train = "|flip_lr" if decoded else (
+      f"decode_jpeg_and_inception_crop(size={arg['size']}, "
+      f"area_min={arg['area_min']})|flip_lr")
+  pp_common = '|value_range(-1, 1)|keep("image", "label")'
   config["input"] = {
-      "data": dict(name="synthetic", img_size=arg["size"],
-                   num_examples=50_000),
-      "pp": '|flip_lr|value_range(-1, 1)|keep("image", "label")',
+      "data": data_cfg,
+      "pp": pp_train + pp_common,
       "batch_size": arg["batch_size"],
+      "num_workers": 16,
+      "prefetch_to_device": 4,
   }
 
-  # Evaluators, on the source's validation split. The synthetic source's
-  # images are decoded and of the right size: the eval pp is the device
+  # Evaluators, on the source's validation split. Synthetic and arrays
+  # images are decoded and of the right size: their eval pp is the device
   # stage alone.
-  pp_eval = 'value_range(-1, 1)|keep("image", "label")'
-  eval_data = dict(config["input"]["data"], split="validation")
+  pp_eval = pp_common[1:] if decoded else (
+      f"decode|resize_small({arg['size']})|central_crop({arg['size']})"
+      + pp_common)
 
   def get_eval(eval_type, pred):
     return dict(type=eval_type, data=dict(eval_data), pp_fn=pp_eval,
@@ -121,7 +142,9 @@ def get_config(arg=None) -> dict:
   if arg["runlocal"]:
     model.update(width=64, depth=2, dec_depth=1, num_heads=4)
     config["input"]["batch_size"] = config["batch_size"] = 32
-    config["input"]["data"]["num_examples"] = 512
+    config["input"]["num_workers"] = 2
+    if data == "synthetic":
+      config["input"]["data"]["num_examples"] = 512
     config["log_training_steps"] = arg["log_steps"] or 4
     config["ckpt_steps"] = arg["ckpt_steps"] or 8
     config["evals"] = {}

@@ -38,14 +38,14 @@
 // dbeta across its sequential grid; here CTAs run in no order, and atomics
 // on the sums would make them depend on it. Instead each CTA, having
 // written its partial, takes a ticket from a counter of its group of 16
-// batch rows (atomicAdd on a __device__ int); the group's last CTA adds the
-// group's partials in the order of b into a group partial, and takes a
-// ticket from one more counter; the last group's last CTA adds the group
-// partials in group order into dgamma and dbeta. Only the tickets are
-// atomic, so every sum has a fixed order whichever CTA comes last, and two
-// launches give the same bits. Each last CTA resets its counter to 0 for
-// the next launch (no memset launch); launches of this kernel on one
-// device must therefore run one at a time, as on one stream. Two levels
+// batch rows (atomicAdd); the group's last CTA adds the group's partials in
+// the order of b into a group partial, and takes a ticket from one more
+// counter; the last group's last CTA adds the group partials in group
+// order into dgamma and dbeta. Only the tickets are atomic, so every sum
+// has a fixed order whichever CTA comes last, and two launches give the
+// same bits. The counters belong to the launch: they are the tail of its
+// `work` buffer, zeroed on its stream just before the kernel, so launches
+// in flight on several streams at once share none. Two levels
 // keep the serial tail short: one CTA summing all 128 partials would read
 // 786 KB through one SM after every other CTA has finished; a group's last
 // CTA reads 98 KB while other CTAs still run, the very last 49 KB.
@@ -63,10 +63,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 4;   // rows of a warp in its ring
 constexpr int kGroup = 16;   // batch rows of a first-level sum
 constexpr int kMaxGroups = 4096;
-
-// Tickets of each group of batch rows, then of the groups; 0 between
-// launches.
-__device__ unsigned int g_tickets[kMaxGroups + 1];
 
 __host__ __device__ constexpr int num_groups(int batch) {
   return (batch + kGroup - 1) / kGroup;
@@ -106,19 +102,17 @@ __device__ __forceinline__ void load8(const void* p, float* out) {
   }
 }
 
-// The CTA's ticket from counter `i`; true for the last of `count` takers,
-// which then sees every taker's writes and resets the counter.
-__device__ __forceinline__ bool last_to_arrive(int i, unsigned int count,
+// The CTA's ticket from `counter`; true for the last of `count` takers,
+// which then sees every taker's writes.
+__device__ __forceinline__ bool last_to_arrive(unsigned int* counter,
+                                               unsigned int count,
                                                unsigned int* ticket) {
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) *ticket = atomicAdd(&g_tickets[i], 1u);
+  if (threadIdx.x == 0) *ticket = atomicAdd(counter, 1u);
   __syncthreads();
   const bool last = *ticket == count - 1;
-  if (last) {
-    __threadfence();
-    if (threadIdx.x == 0) g_tickets[i] = 0;
-  }
+  if (last) __threadfence();
   return last;
 }
 
@@ -154,7 +148,8 @@ __device__ __forceinline__ void sum_partials(const float* base, int count,
 
 // D = NV * 256: lane `lane` owns columns (i * 32 + lane) * 8 .. + 7.
 // work: (B, 2, D) f32 partials, then (groups, 2, D) group partials; row 0
-// of each sums into dgamma, row 1 into dbeta.
+// of each sums into dgamma, row 1 into dbeta. tickets: groups + 1
+// counters, 0 when the kernel starts.
 template <int NV>
 __global__ void __launch_bounds__(kThreads, 1)
 ln_modulate_bwd_kernel(const __nv_bfloat16* __restrict__ x,
@@ -167,7 +162,9 @@ ln_modulate_bwd_kernel(const __nv_bfloat16* __restrict__ x,
                        int mod_stride, __nv_bfloat16* __restrict__ dx,
                        float* __restrict__ dgamma, float* __restrict__ dbeta,
                        float* __restrict__ dshift, float* __restrict__ dscale,
-                       float* __restrict__ work, int batch, int seq_len) {
+                       float* __restrict__ work,
+                       unsigned int* __restrict__ tickets, int batch,
+                       int seq_len) {
   constexpr int D = NV * 256;
   constexpr int kRowBytes = D * 2;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -324,7 +321,7 @@ ln_modulate_bwd_kernel(const __nv_bfloat16* __restrict__ x,
   const int group = b / kGroup;
   const int g0 = group * kGroup;
   const int in_group = min(kGroup, batch - g0);
-  if (!last_to_arrive(group, in_group, &ticket)) return;
+  if (!last_to_arrive(tickets + group, in_group, &ticket)) return;
   constexpr int kPer = 2 * D / kThreads;
   float sums[kPer];
   sum_partials<D>(work + static_cast<size_t>(g0) * 2 * D, in_group, sums);
@@ -334,7 +331,7 @@ ln_modulate_bwd_kernel(const __nv_bfloat16* __restrict__ x,
     group_part[threadIdx.x + t * kThreads] = sums[t];
   }
   const int groups = num_groups(batch);
-  if (!last_to_arrive(kMaxGroups, groups, &ticket)) return;
+  if (!last_to_arrive(tickets + groups, groups, &ticket)) return;
   sum_partials<D>(work + static_cast<size_t>(batch) * 2 * D, groups, sums);
 #pragma unroll
   for (int t = 0; t < kPer; ++t) {
@@ -355,6 +352,12 @@ cudaError_t launch(const void* x, const void* dy, const void* mean,
       ln_modulate_bwd_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  unsigned int* tickets = reinterpret_cast<unsigned int*>(
+      static_cast<float*>(work) +
+      static_cast<size_t>(batch + num_groups(batch)) * 2 * D);
+  err = cudaMemsetAsync(tickets, 0,
+                        (num_groups(batch) + 1) * sizeof(unsigned int), s);
+  if (err != cudaSuccess) return err;
   ln_modulate_bwd_kernel<NV><<<batch, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(mean),
@@ -363,25 +366,28 @@ cudaError_t launch(const void* x, const void* dy, const void* mean,
       static_cast<const __nv_bfloat16*>(scale), mod_stride,
       static_cast<__nv_bfloat16*>(dx), static_cast<float*>(dgamma),
       static_cast<float*>(dbeta), static_cast<float*>(dshift),
-      static_cast<float*>(dscale), static_cast<float*>(work), batch, seq_len);
+      static_cast<float*>(dscale), static_cast<float*>(work), tickets, batch,
+      seq_len);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Number of (2, d) f32 partials the caller allocates in `work` (times 2*d).
-extern "C" int ln_modulate_bwd_partials(int batch, int seq_len) {
+// Number of 4-byte words the caller allocates in `work`: the (2, d) f32
+// partials of the batch rows and of the groups, then the ticket counters.
+extern "C" int ln_modulate_bwd_work_words(int batch, int seq_len, int d) {
   (void)seq_len;
-  return batch + num_groups(batch);
+  return (batch + num_groups(batch)) * 2 * d + num_groups(batch) + 1;
 }
 
 // x, dy, dx: (B*L, d) bf16, contiguous, 16-byte aligned. mean, rstd: (B*L,)
 // f32. gamma, beta: (d,) f32. scale: (B, d) bf16 rows `mod_stride` elements
 // apart, or null for a plain LayerNorm (then dshift, dscale are null too).
-// dgamma, dbeta: (d,) f32; dshift, dscale: (B, d) f32. work: the partials,
-// see ln_modulate_bwd_partials. One launch; returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a width other than 768 and 1,024 or more than
-// 65,536 batch rows.
+// dgamma, dbeta: (d,) f32; dshift, dscale: (B, d) f32. work: the partials
+// and the tickets, see ln_modulate_bwd_work_words; the tickets are zeroed
+// on `stream` before the kernel. A memset and one launch; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a width other than 768
+// and 1,024 or more than 65,536 batch rows.
 extern "C" int ln_modulate_bwd(const void* x, const void* dy,
                                const void* mean, const void* rstd,
                                const void* gamma, const void* beta,

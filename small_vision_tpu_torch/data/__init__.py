@@ -1,1 +1,2 @@
-"""Data sources of the port (the synthetic source; ImageNet comes later)."""
+"""Data of the port: the sources (synthetic, arrays), the input pipeline
+and the native JPEG decoder."""

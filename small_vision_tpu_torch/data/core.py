@@ -1,23 +1,95 @@
-"""The data-source registry.
+"""The data-source API and the source registry.
 
-Counterpart of small_vision_tpu/data/core.py::get for the sources the port
-has: `synthetic`. A source offers `total_examples`,
-`num_examples_per_process`, `examples(ordered=...)`, `peek()` and, being
-random-access, `epoch_index` / `take` for gathering batches in bulk. The
-ImageNet, array and latent sources come with the data slice.
+Counterpart of small_vision_tpu/data/core.py: a `DataSource` base class of
+restartable sources of numpy example dicts, and `get(name)`. Shuffling is
+an index permutation per (seed, epoch), so a random-access source shuffles
+globally without a shuffle buffer. The port runs in one process, so the
+process's shard is every example: `even_split_range` is the JAX package's
+split taken for process 0 of 1 by default.
+
+Sources: "synthetic", "arrays" (npy memmaps), "arrays:<root>", and
+"mod:<module>" (a module with a `DataSource` class). TFDS and latent
+sources need TensorFlow, which the port does not use: their names raise
+and point at the arrays route.
 """
 
+import abc
 import importlib
+import itertools
+from typing import Iterator, Optional
 
-_KNOWN = {"synthetic": "small_vision_tpu_torch.data.synthetic"}
+INGEST_TOOL = "python -m small_vision_tpu_torch.tools.ingest_arrays"
 
 
-def get(name: str, **kw):
+def even_split_range(total: int, index: int = 0, count: int = 1):
+  """[start, stop) of process `index`'s shard of `total` examples over
+  `count` processes, the first `total % count` taking one more (the
+  semantics of tfds.even_splits)."""
+  base, rem = divmod(total, count)
+  start = index * base + min(index, rem)
+  return start, start + base + (1 if index < rem else 0)
+
+
+class DataSource(abc.ABC):
+  """A restartable source of example dicts."""
+
+  @abc.abstractmethod
+  def examples(self, *, ordered: bool = False, seed: int = 0,
+               epoch: int = 0) -> Iterator[dict]:
+    """Yields the examples, shuffled per (seed, epoch) unless ordered."""
+
+  @property
+  @abc.abstractmethod
+  def total_examples(self) -> int:
+    """The number of examples."""
+
+  @property
+  def num_examples_per_process(self) -> int:
+    """The most examples a process holds; the evaluators' step count comes
+    from it. One process: every example."""
+    return self.total_examples
+
+  @property
+  def num_local_examples(self) -> Optional[int]:
+    """This process's exact count per epoch, or None where unknown.
+
+    A random-access source knows it, and `TrainIterator.start_step` then
+    resumes mid-epoch where a run left off; with None a resume restarts
+    the data order at epoch 0.
+    """
+    return None
+
+  def examples_from(self, *, seed: int, epoch: int,
+                    start: int) -> Iterator[dict]:
+    """Epoch `epoch`'s examples from position `start`. The default skips by
+    consuming; random-access sources slice their index instead."""
+    return itertools.islice(
+        self.examples(seed=seed, epoch=epoch), start, None)
+
+  def peek(self) -> dict:
+    """One raw example of the dataset: the template of the evaluators'
+    padding batches. Default: the first ordered example."""
+    for ex in self.examples(ordered=True):
+      return ex
+    raise ValueError(f"{type(self).__name__} has no examples to peek at")
+
+
+_KNOWN = {"synthetic": "small_vision_tpu_torch.data.synthetic",
+          "arrays": "small_vision_tpu_torch.data.arrays"}
+
+
+def get(name: str, **kw) -> DataSource:
   """The source `name`, built with `kw` (e.g. `split="validation"`)."""
   if name.startswith("mod:"):
     return importlib.import_module(name[4:]).DataSource(**kw)
+  if name.startswith("arrays:"):
+    return get("arrays", root=name[len("arrays:"):], **kw)
   if name not in _KNOWN:
-    raise ValueError(f"data source {name!r}: the port has {sorted(_KNOWN)} "
-                     "(ImageNet, arrays and latents come with the data "
-                     "slice)")
+    what = {"tfds": "the TFDS source", "latents": "the latent source"}.get(
+        name, f"dataset {name!r} (a TFDS name)")
+    raise ValueError(
+        f"data source {name!r}: {what} needs TensorFlow, which the port "
+        f"does not use. Decode the images once into an arrays dataset with "
+        f"`{INGEST_TOOL} --src dir:<class tree> --out <root>/train` (and "
+        f"<root>/validation) and train on data=arrays:<root>.")
   return importlib.import_module(_KNOWN[name]).DataSource(**kw)

@@ -77,9 +77,9 @@ def from_config(config, predict_fns, device="cuda",
 
 class BatchedEvaluator:
   """An evaluator over a data source's ordered examples: the source, the
-  inference pipeline (fixed-size batches, the last zero-padded, `_mask` on
-  the real rows) and the device pp, whose random ops draw from a generator
-  seeded 0 at each run."""
+  inference pipeline (the host stage of `pp_fn` on its workers, fixed-size
+  batches, the last zero-padded, `_mask` on the real rows) and the device
+  stage, whose random ops draw from a generator seeded 0 at each run."""
 
   def __init__(self, *, device, batch_size, data, pp_fn="", num_batches=None):
     data = dict(data)
@@ -96,8 +96,7 @@ class BatchedEvaluator:
     for i, batch in enumerate(self.iterate()):
       if i >= self.n_steps:
         break
-      batch = {k: torch.from_numpy(v).to(self.device)
-               for k, v in batch.items()}
+      batch = pipeline.to_device(batch, self.device)
       n = batch["_mask"].shape[0]
       yield self.device_pp(batch, self.device_pp.draw(n, gen, self.device))
 

@@ -43,6 +43,8 @@ SIGNATURES = {
         "ln_modulate_fwd": [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _I, _F, _P]},
     "ln_modulate_bwd": {
         "ln_modulate_bwd": [_P] * 7 + [_I] + [_P] * 6 + [_I, _I, _I, _P],
+        "ln_modulate_bwd_work_words": [_I, _I, _I],
+        # An older tree's K2, whose tickets lived in the module.
         "ln_modulate_bwd_partials": [_I, _I]},
     "attention_packed": {
         "attention_packed_fwd": [_P] * 4 + [_I, _I, _I, _F, _P],

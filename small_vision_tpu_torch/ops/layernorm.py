@@ -86,7 +86,7 @@ def _lib():
 @functools.cache
 def _bwd_lib():
   lib = _build.library("ln_modulate_bwd")
-  return lib.ln_modulate_bwd, lib.ln_modulate_bwd_partials
+  return lib.ln_modulate_bwd, lib.ln_modulate_bwd_work_words
 
 
 def _require(cond, msg, name=NAME):
@@ -170,7 +170,8 @@ def ln_modulate_fwd(x, gamma, beta, shift=None, scale=None, eps=1e-6, *,
 def _bwd_launch(x, dy, mean, rstd, gamma, beta, scale):
   """(a function that launches K2, its outputs (dx, dgamma, dbeta, dshift,
   dscale)) once the arguments are what K2 takes; the outputs and the
-  partials are made here, once."""
+  launch's scratch (its partials and ticket counters, which the launch
+  zeroes on its stream) are made here, once."""
   _check_x(x, BWD_NAME)
   _check_x(dy, BWD_NAME, "dy")
   _require(dy.shape == x.shape and dy.device == x.device,
@@ -180,14 +181,14 @@ def _bwd_launch(x, dy, mean, rstd, gamma, beta, scale):
   _check_vectors(x, BWD_NAME, gamma=gamma, beta=beta)
   mod_stride = _check_modulation(x, scale, scale, BWD_NAME)
 
-  fn, partials = _bwd_lib()
+  fn, work_words = _bwd_lib()
   dx = torch.empty_like(x)
   f32 = dict(dtype=torch.float32, device=x.device)
   dgamma, dbeta = torch.empty(d, **f32), torch.empty(d, **f32)
   dshift = dscale = None
   if scale is not None:
     dshift, dscale = torch.empty(b, d, **f32), torch.empty(b, d, **f32)
-  work = torch.empty(partials(b, l) * 2 * d, **f32)
+  work = torch.empty(work_words(b, l, d), **f32)
   ptr = lambda t: None if t is None else t.data_ptr()
   launch = lambda: _build.launch(
       BWD_NAME, x.device, fn, x.data_ptr(), dy.data_ptr(), mean.data_ptr(),
@@ -203,9 +204,8 @@ def ln_modulate_bwd(x, dy, mean, rstd, gamma, beta, scale=None):
   gamma, beta: (D,) f32; scale: (B, D) bf16 as K1 reads it, or None.
   One kernel launch: one CTA per batch row, whose last CTA sums dgamma and
   dbeta over the batch in a fixed order (only the tickets that find it are
-  atomic), so two launches on the same inputs give the same bits. Its
-  ticket counters are per device and reset by each launch: launches on one
-  device run one at a time, as on one stream."""
+  atomic), so two launches on the same inputs give the same bits. The
+  ticket counters are the call's own, in its scratch."""
   launch, grads = _bwd_launch(x, dy, mean, rstd, gamma, beta, scale)
   if x.numel() == 0:
     for t in grads[1:]:
@@ -221,7 +221,8 @@ def ln_modulate_bwd_timer(x, dy, mean, rstd, gamma, beta, scale=None):
   """A function that launches K2 on `ln_modulate_bwd`'s arguments into
   buffers made once, here: without the wrapper's checks and allocations a
   call, so that a run of calls reads K2's device time even where the host
-  is slower than the kernel. For measurement only: it counts no launch."""
+  is slower than the kernel. Each call zeroes the tickets, as a wrapper's
+  launch does. For measurement only: it counts no launch."""
   return _bwd_launch(x, dy, mean, rstd, gamma, beta, scale)[0]
 
 

@@ -1,1 +1,2 @@
-"""Preprocessing of the port: the device stage of the pp string."""
+"""Preprocessing of the port: the `"fn1|fn2(…)"` pp strings, their host
+stage on numpy examples and their device stage on batches of tensors."""

@@ -56,6 +56,14 @@ SOURCES = ("fused_mha", "attention_unpacked", "attention_ablate",
            "attention_unpacked_bwd", "ln_modulate_bwd")
 
 
+def _k2_work_words(lib, b, l) -> int:
+  """Words of K2's scratch for `lib`: a tree from before K2 kept its ticket
+  counters in the module (`ln_modulate_bwd_partials`, (2, d) rows)."""
+  if hasattr(lib, "ln_modulate_bwd_work_words"):
+    return lib.ln_modulate_bwd_work_words(b, l, WIDTH)
+  return lib.ln_modulate_bwd_partials(b, l) * 2 * WIDTH
+
+
 def dev_ms(fn, iters) -> float:
   """Mean ms of one call of `fn` over `iters` calls, by CUDA events, after
   one warm-up call."""
@@ -211,7 +219,7 @@ def main(argv=None):
         outs = [torch.empty_like(x)] + [
             torch.empty(*shape, device="cuda")
             for shape in ((WIDTH,), (WIDTH,), (b, WIDTH), (b, WIDTH),
-                          (lib.ln_modulate_bwd_partials(b, l) * 2 * WIDTH,))]
+                          (_k2_work_words(lib, b, l),))]
         keep += outs
         ptrs = [t.data_ptr() for t in (x, dy, mean, rstd, gamma, beta, mod)]
         pairs.setdefault(f"K2 {b}x{l}", {})[side] = (

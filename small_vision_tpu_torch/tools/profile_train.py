@@ -5,7 +5,7 @@
       [--config ae_i1k.py:ckpt_steps=1,eval_steps=1] [--eval_batches 2]
 
 Sets up the UMD-B/4@64 training run as `train_and_evaluate` does
-(synthetic data, `init_train_params` weights, AdamW, device pp), takes two
+(its input pipeline, `init_train_params` weights, AdamW, device pp), takes two
 warm-up steps, times `--steps` steps without the profiler, then traces one
 step with torch.profiler and prints, with the card's name and power limit:
   - the mean wall time of a step and img/s without the profiler;
@@ -101,7 +101,7 @@ def main(argv=None):
                         + ("" if with_evals else ",eval_steps=-1"))
   run = train_ae.setup_training(config, device="cuda")
   update_fn, state, batches = (run["update_fn"], run["train_state"],
-                               run["batches_from"](0))
+                               iter(run["train_iter"]))
   evaluators, ckpt_dir, mngr = [], None, None
   if with_evals and config["evals"]:
     from small_vision_tpu_torch.evaluators import common as eval_common
@@ -150,6 +150,7 @@ def main(argv=None):
     if mngr is not None:
       ckpt_lib.wait_until_finished(mngr)
   finally:
+    batches.close()  # stops the input pipeline's producer thread
     if ckpt_dir:
       shutil.rmtree(ckpt_dir, ignore_errors=True)
   events = trace_events(prof)

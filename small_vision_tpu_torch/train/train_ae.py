@@ -41,8 +41,7 @@ import numpy as np
 import torch
 
 from small_vision_tpu_torch import convert, optim
-from small_vision_tpu_torch.data import core as ds_core
-from small_vision_tpu_torch.data import synthetic
+from small_vision_tpu_torch.data import pipeline
 from small_vision_tpu_torch.models.common import merge_params
 from small_vision_tpu_torch.ops import diffusion as gd_lib
 from small_vision_tpu_torch.pp.builder import DevicePP
@@ -427,16 +426,16 @@ def make_eval_fns(model, config: dict) -> dict:
 
 
 def setup_training(config: dict, device="cuda", log=print) -> dict:
-  """Everything a training run needs, from the config: the source's batches
-  (`batches_from(step)`: the stream after `step` steps), the model with
-  `init_train_params` weights, AdamW, the train state, the device pp and
-  the step. Returns a dict of those and of `names`, `total_steps`,
-  `batch_size`, `ntrain_img`, `log_steps` and `get_steps(name, default)`."""
-  in_cfg = dict(config["input"])
-  batch_size = int(in_cfg["batch_size"])
-  data_cfg = dict(in_cfg["data"])
-  source = ds_core.get(data_cfg.pop("name"), **data_cfg)
-  ntrain_img = source.total_examples
+  """Everything a training run needs, from the config: the input pipeline
+  (`train_iter`, a `data.pipeline.TrainIterator` on `device`: set its
+  `start_step` to continue the stream after that many steps), the model
+  with `init_train_params` weights, AdamW, the train state and the step,
+  which applies the iterator's device pp. Returns a dict of those and of
+  `names`, `total_steps`, `batch_size`, `ntrain_img`, `log_steps` and
+  `get_steps(name, default)`."""
+  batch_size = int(config["input"]["batch_size"])
+  train_iter, device_pp, ntrain_img = pipeline.training(config["input"],
+                                                        device)
   total_steps = steps("total", config, ntrain_img, batch_size)
   get_steps = lambda name, default=ValueError: steps(
       name, config, ntrain_img, batch_size, total_steps, default)
@@ -450,13 +449,10 @@ def setup_training(config: dict, device="cuda", log=print) -> dict:
   names = [n for n, _ in named_params(model)]
   opt = make_optimizer(config, names, total_steps, warmup_steps)
   train_state = init_train_state(model, opt, config, device)
-  device_pp = DevicePP(in_cfg.get("pp", ""))
-  batches_from = lambda step: synthetic.batches(
-      source, batch_size, seed=int(in_cfg.get("seed", 0)), start_step=step)
   return {
       "model": model, "opt": opt, "train_state": train_state, "names": names,
       "update_fn": make_update_fn(model, opt, config, device_pp),
-      "batches_from": batches_from,
+      "train_iter": train_iter,
       "total_steps": total_steps, "batch_size": batch_size,
       "ntrain_img": ntrain_img, "get_steps": get_steps,
       "log_steps": get_steps("log_training", 100),
@@ -530,8 +526,10 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
   `config["finetune"]` / `config["resume"]` take parameters (and EMA) from a
   pretrain checkpoint and keep a fresh label head and optimizer.
 
-  history has one entry per step run here, {"step", "ms"} (host clock
-  around the step, which ends in a device synchronisation), plus
+  history has one entry per step run here, {"step", "ms", "data_ms"}
+  ("ms": host clock around the step, which ends in a device
+  synchronisation; "data_ms": the wait for its batch from the input
+  pipeline before it), plus
   "training_loss", the l2 norms and "epochs" on log steps. Raises when the
   loss is not finite on a log step. With `force_eval` the evaluators run
   once and the function returns with an empty history.
@@ -648,50 +646,57 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
   ckpt_steps = get_steps("ckpt", None)
   # Deterministic data resume: the stream continues where the stopped run's
   # step count left it.
-  batches = run["batches_from"](first_step)
+  run["train_iter"].start_step = first_step
+  batches = iter(run["train_iter"])
   sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
           else lambda: None)
   history = []
-  for step in range(first_step + 1, total_steps + 1):
-    batch = next(batches)
-    mw.step_start(step)
-    log_now = itstime(step, log_steps, total_steps)
-    t0 = time.perf_counter()
-    measurements = update_fn(train_state, batch, with_l2=log_now)
-    sync()
-    entry = {"step": step, "ms": (time.perf_counter() - t0) * 1e3}
-    if log_now:
-      measurements = {k: float(v) for k, v in measurements.items()}
-      measurements["epochs"] = step * batch_size / ntrain_img
-      for name, value in measurements.items():
-        mw.measure(name, value)
-      chrono.tick(step)
-      entry.update(measurements)
-      log(f"step {step}/{total_steps}: " + ", ".join(
-          f"{k} {v:.6g}" for k, v in entry.items() if k != "step"))
-      if not math.isfinite(entry["training_loss"]):
-        raise RuntimeError(f"Loss became NaN/Inf within steps "
-                           f"[{step - log_steps}, {step}]")
-    history.append(entry)
-
-    if ckpt_mngr and config.get("save_ckpt", True) and itstime(
-        step, ckpt_steps, total_steps, first=False):
-      chrono.pause(wait_for=train_state["params"])
-      with torch.profiler.record_function("checkpoint"):
-        ckpt_lib.save(ckpt_mngr, checkpoint_state(train_state, names, chrono),
-                      step)
-      chrono.resume()
-
-    for (name, evaluator, ev_steps, prefix) in evaluators:
-      if itstime(step, ev_steps, total_steps, first=False, last=True):
-        chrono.pause(wait_for=train_state["params"])
+  try:
+    for step in range(first_step + 1, total_steps + 1):
+      t_data = time.perf_counter()
+      batch = next(batches)
+      mw.step_start(step)
+      log_now = itstime(step, log_steps, total_steps)
+      t0 = time.perf_counter()
+      measurements = update_fn(train_state, batch, with_l2=log_now)
+      sync()
+      entry = {"step": step, "ms": (time.perf_counter() - t0) * 1e3,
+               "data_ms": (t0 - t_data) * 1e3}
+      if log_now:
+        measurements = {k: float(v) for k, v in measurements.items()}
+        measurements["epochs"] = step * batch_size / ntrain_img
+        for name, value in measurements.items():
+          mw.measure(name, value)
         chrono.tick(step)
-        note(f"{name} evaluation at step {step}...")
-        with torch.profiler.record_function("evaluator"):
-          handle_eval_results(name, prefix, evaluator.run(train_state), step)
+        entry.update(measurements)
+        log(f"step {step}/{total_steps}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in entry.items() if k != "step"))
+        if not math.isfinite(entry["training_loss"]):
+          raise RuntimeError(f"Loss became NaN/Inf within steps "
+                             f"[{step - log_steps}, {step}]")
+      history.append(entry)
+
+      if ckpt_mngr and config.get("save_ckpt", True) and itstime(
+          step, ckpt_steps, total_steps, first=False):
+        chrono.pause(wait_for=train_state["params"])
+        with torch.profiler.record_function("checkpoint"):
+          ckpt_lib.save(ckpt_mngr,
+                        checkpoint_state(train_state, names, chrono), step)
         chrono.resume()
 
-    mw.step_end()
+      for (name, evaluator, ev_steps, prefix) in evaluators:
+        if itstime(step, ev_steps, total_steps, first=False, last=True):
+          chrono.pause(wait_for=train_state["params"])
+          chrono.tick(step)
+          note(f"{name} evaluation at step {step}...")
+          with torch.profiler.record_function("evaluator"):
+            handle_eval_results(name, prefix, evaluator.run(train_state),
+                                step)
+          chrono.resume()
+
+      mw.step_end()
+  finally:
+    batches.close()  # stops the input pipeline's producer thread
 
   if ckpt_mngr:
     ckpt_lib.wait_until_finished(ckpt_mngr)

@@ -405,3 +405,29 @@ assert not bad, bad
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
   assert int(out.stdout.strip()) >= 34  # every module was imported
+
+
+def test_port_imports_no_pil_or_tensorflow():
+  """Every module of the port, and chip_smoke, import without PIL and
+  TensorFlow: the arrays route runs on a machine that has neither (PIL is
+  imported by the ops that decode or augment, when they run)."""
+  code = """
+import importlib, pkgutil, sys
+import small_vision_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+  importlib.import_module(m.name)
+import chip_smoke
+from small_vision_tpu_torch.data import pipeline
+from small_vision_tpu_torch.pp import builder
+builder.get_preprocess_fn(
+    'decode_jpeg_and_inception_crop(64)|randaug|flip_lr|value_range(-1, 1)')
+for m in ("data.arrays", "data.native_jpeg", "data.imagenet",
+          "pp.autoaugment", "pp.registry", "pp.utils", "tools.ingest_arrays"):
+  assert pkg.__name__ + "." + m in sys.modules, m
+banned = ("PIL", "tensorflow", "tensorflow_datasets")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+assert not bad, bad
+"""
+  out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+  assert out.returncode == 0, out.stderr

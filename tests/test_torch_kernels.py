@@ -12,7 +12,8 @@ training and sampler lengths (K3 and K4 also at the edges of their tiles
 and rings and at their own length limits, with 1, 3 and 12 heads and batch
 1 and 5), two launches of each backward and of K3 giving the same bits
 (three of K2 in a row, also at B = 1, at L = 1, over two groups of batch
-rows and at width 1,024 with and without modulation), K3 and K4 past the
+rows and at width 1,024 with and without modulation; two K2 launches on
+two streams at once against the same two in turn), K3 and K4 past the
 ±80 clamp, the wrappers refusing what the kernels do
 not take (a length 16 past a kernel's limit among them), and the
 sampler's no-grad path writing no statistics and launching no backward;
@@ -30,7 +31,8 @@ tiles) and at 257, two launches of each giving the same bits, and
 `mulmask` with scores near -300, where a zero key of the tile past L would
 change the max; and each of the nine wrappers launching its kernel from a
 thread that has run no CUDA work yet, with the same bits as from the main
-thread.
+thread; and the input pipeline's copy onto the card giving the bytes of
+the same batches on the CPU.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -262,8 +264,8 @@ def test_ln_bwd_kernel_matches_plain(cuda, l, modulate):
     (20, 17, 768, False), (8, 164, 1024, True), (8, 164, 1024, False)])
 def test_ln_bwd_kernel_is_deterministic(cuda, b, l, d, modulate):
   """Three launches in a row give the same bits: the sums over the batch
-  run in a fixed order, and each launch leaves its ticket counters at 0
-  for the next (B = 1, L = 1, two groups of batch rows, width 1,024)."""
+  run in a fixed order, and each launch zeroes its own ticket counters
+  (B = 1, L = 1, two groups of batch rows, width 1,024)."""
   args = _ln_bwd_args(cuda, l, modulate, b=b, d=d)
   first = ln.ln_modulate_bwd(*args)
   for _ in range(2):
@@ -276,6 +278,31 @@ def test_ln_bwd_kernel_is_deterministic(cuda, b, l, d, modulate):
   for g, w in zip(first[1:], want[1:]):
     if w is not None:
       torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * w.abs().max())
+
+
+@pytest.mark.cuda
+def test_ln_bwd_kernel_on_two_streams_matches_launches_in_turn(cuda):
+  """Two launches in flight at once on two streams, at the training shapes
+  (128, 257) modulated and (128, 68) plain, give the bits of the same two
+  launches one after the other: each launch's ticket counters are its
+  own."""
+  cases = [_ln_bwd_args(cuda, 257, True, b=128),
+           _ln_bwd_args(cuda, 68, False, b=128, seed=7)]
+  in_turn = [ln.ln_modulate_bwd(*args) for args in cases]
+  for _ in range(5):
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    start = torch.cuda.current_stream(cuda)
+    got = []
+    for stream, args in zip(streams, cases):
+      stream.wait_stream(start)
+      with torch.cuda.stream(stream):
+        got.append(ln.ln_modulate_bwd(*args))
+    for stream in streams:
+      start.wait_stream(stream)
+    torch.cuda.synchronize(cuda)
+    for want, outs in zip(in_turn, got):
+      for w, g in zip(want, outs):
+        assert (w is None and g is None) or torch.equal(w, g)
 
 
 @pytest.mark.cuda
@@ -794,3 +821,28 @@ def test_attention_ablate_refuses_what_the_kernel_does_not_take(cuda):
     attn.attention_ablate(q.float(), q.float(), q.float(), 2, "prod")
   with pytest.raises(ValueError, match="width 128 != num_heads"):
     attn.attention_ablate(q, q, q, 4, "prod")
+
+
+@pytest.mark.cuda
+def test_train_iterator_onto_the_card_gives_the_cpu_bits(cuda, tmp_path):
+  """The input pipeline's copy to the card (pinned host memory,
+  `non_blocking=True`, 4 workers, 2 batches ahead) gives the bytes of the
+  same batches on the CPU, over an epoch boundary."""
+  from small_vision_tpu_torch.data import arrays, core, pipeline
+  rng = np.random.default_rng(0)
+  arrays.write_arrays(str(tmp_path), rng.integers(0, 256, (40, 48, 40, 3),
+                                                  dtype=np.uint8),
+                      rng.integers(0, 1000, (40,)))
+  pp = 'inception_crop(32)|flip_lr|value_range(-1, 1)|keep("image")'
+
+  def take(device, n=5):
+    it = pipeline.TrainIterator(core.get("arrays", root=str(tmp_path)), pp,
+                                16, device=device, seed=1, num_workers=4)
+    gen = iter(it)
+    out = [next(gen) for _ in range(n)]
+    gen.close()
+    return out
+  for card, host in zip(take(cuda), take("cpu")):
+    assert set(card) == set(host) == {"image", "label", "_id"}
+    for k in host:
+      assert card[k].is_cuda and torch.equal(card[k].cpu(), host[k])

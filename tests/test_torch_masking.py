@@ -20,6 +20,7 @@ from small_vision_tpu.ops import masking as jmask
 from small_vision_tpu.pp import ops_general as jpp_general
 from small_vision_tpu.pp import ops_image as jpp_image
 from small_vision_tpu_torch import convert
+from small_vision_tpu_torch.data import pipeline as tpipeline
 from small_vision_tpu_torch.data import synthetic as tsynthetic
 from small_vision_tpu_torch.ops import masking as tmask
 from small_vision_tpu_torch.pp.builder import DevicePP
@@ -136,19 +137,21 @@ def test_synthetic_source_matches_jax():
   jsrc = jsynthetic.DataSource(**kw)
   tsrc = tsynthetic.DataSource(**kw)
   want = list(jsrc.examples(seed=3, epoch=2))
-  idx = tsrc.epoch_index(seed=3, epoch=2)
-  assert [int(e["_id"]) for e in want] == idx.tolist()
-  got = tsrc.take(idx)
-  np.testing.assert_array_equal(got["image"],
-                                np.stack([e["image"] for e in want]))
-  np.testing.assert_array_equal(got["label"], [int(e["label"]) for e in want])
-  # The batch iterator runs the epochs back to back.
-  batches = tsynthetic.batches(tsrc, 64, seed=3)
+  got = list(tsrc.examples(seed=3, epoch=2))
+  for key in ("_id", "image", "label"):
+    np.testing.assert_array_equal(np.stack([e[key] for e in got]),
+                                  np.stack([e[key] for e in want]))
+  # The train iterator runs the epochs back to back: its second batch of
+  # 64 spans epochs 0 and 1.
+  batches = iter(tpipeline.TrainIterator(tsrc, "", 64, device="cpu", seed=3,
+                                         num_workers=1))
   first, second = next(batches), next(batches)
-  order = np.concatenate([tsrc.epoch_index(seed=3, epoch=e)
-                          for e in (0, 1)])
-  np.testing.assert_array_equal(second["label"], order[64:128] % 1000)
-  assert first["image"].dtype == np.uint8
+  batches.close()
+  order = np.concatenate([[int(e["_id"]) for e in
+                           jsrc.examples(seed=3, epoch=e)] for e in (0, 1)])
+  np.testing.assert_array_equal(second["_id"].numpy(), order[64:128])
+  np.testing.assert_array_equal(second["label"].numpy(), order[64:128] % 1000)
+  assert first["image"].dtype == torch.uint8
 
 
 def test_device_pp_matches_jax():
@@ -169,5 +172,5 @@ def test_device_pp_matches_jax():
                                 np.asarray(jbatch["image"]))
   draws = pp.draw(6, torch.Generator().manual_seed(0), "cpu")
   assert set(draws) == {"flip"} and draws["flip"].dtype == torch.bool
-  with pytest.raises(ValueError, match="not ported"):
+  with pytest.raises(ValueError, match="host op"):
     DevicePP("decode|flip_lr")

@@ -20,6 +20,7 @@ from small_vision_tpu_torch.configs import ae_i1k
 from small_vision_tpu_torch.train import train_ae
 from small_vision_tpu_torch.utils import checkpoint as ckpt_lib
 from small_vision_tpu_torch.utils import schedules
+from small_vision_tpu_torch.utils.trees import tree_flatten_with_names
 
 
 @pytest.mark.parametrize("config,args", [
@@ -105,29 +106,31 @@ def test_cli_does_not_fall_back_to_the_cpu(monkeypatch):
 
 
 def test_config_refuses_other_data():
-  with pytest.raises(ValueError, match="synthetic"):
-    ae_i1k.get_config("data=imagenet2012")
+  """A dataset name (TFDS) gets the JAX config's JPEG pp, and its source
+  raises where the run starts, naming the arrays route."""
+  config = ae_i1k.get_config("runlocal,data=imagenet2012")
+  assert config["input"]["pp"].startswith(
+      "decode_jpeg_and_inception_crop(size=64, area_min=80)|flip_lr")
+  assert config["input"]["data"] == {"name": "imagenet2012",
+                                     "split": "train[:99%]"}
+  with pytest.raises(ValueError, match="arrays:"):
+    train_ae.setup_training(config, device="cpu", log=lambda _: None)
 
 
-def test_batch_order_follows_the_input_seed(monkeypatch):
+def test_batch_order_follows_the_input_seed():
   """The stream's example ids come from `input.seed`, as the JAX pipeline's
   do (`data/pipeline.py`); `seed` seeds the parameters only."""
   from small_vision_tpu.data import synthetic as jsynthetic
-  from small_vision_tpu_torch.data import synthetic
-  taken = []
-  real_take = synthetic.DataSource.take
-  monkeypatch.setattr(synthetic.DataSource, "take", lambda self, idx: (
-      taken.append(np.asarray(idx).copy()), real_take(self, idx))[1])
 
   def first_ids(seed, input_seed):
     config = _runlocal()
     config["seed"] = seed
     config["input"]["seed"] = input_seed
-    taken.clear()
-    stream = train_ae.setup_training(config, device="cpu",
-                                     log=lambda _: None)["batches_from"](0)
-    next(stream), next(stream)
-    return np.concatenate(taken), config
+    stream = iter(train_ae.setup_training(config, device="cpu",
+                                          log=lambda _: None)["train_iter"])
+    ids = [next(stream)["_id"].numpy() for _ in range(2)]
+    stream.close()
+    return np.concatenate(ids), config
 
   ids, config = first_ids(0, 0)
   data_cfg = dict(config["input"]["data"])
@@ -245,6 +248,50 @@ def test_resume_is_bit_equal_to_a_straight_run(tmp_path):
   _, hist_c = train_ae.train_and_evaluate(
       _with_substrate(), dir_b, device="cpu", log=lambda s: None)
   assert hist_c == [] and _rows(dir_b)[-1]["step"] == 8
+
+
+def _arrays_parent(root, size=16):
+  from small_vision_tpu_torch.data import arrays
+  rng = np.random.default_rng(5)
+  for split, n in (("train", 80), ("validation", 20)):
+    arrays.write_arrays(
+        str(root / split),
+        rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
+        rng.integers(0, 1000, (n,)))
+  return str(root)
+
+
+def test_cli_trains_on_arrays_and_resumes_bit_equal(tmp_path, capsys):
+  """`data=arrays:<root>` through the CLI at the runlocal size: a run
+  stopped after step 4 (checkpoint at 3, 80 examples at batch 32, so
+  mid-epoch) and resumed by a second CLI call on its workdir computes the
+  straight run's losses and parameters, bit for bit."""
+  from small_vision_tpu_torch.configs import parse_config
+  root = _arrays_parent(tmp_path / "data")
+  spec = (f"ae_i1k.py:runlocal,size=16,data=arrays:{root},total_steps=6,"
+          "log_steps=1,ckpt_steps=3")
+  dir_a, dir_b = str(tmp_path / "a"), str(tmp_path / "b")
+  cli.main(["--config", spec, "--device", "cpu", "--workdir", dir_a])
+  with pytest.raises(_Stopped):
+    train_ae.train_and_evaluate(parse_config(spec), dir_b, device="cpu",
+                                log=_stop_at(4))
+  capsys.readouterr()
+  cli.main(["--config", spec, "--device", "cpu", "--workdir", dir_b])
+  out = capsys.readouterr().out
+  assert "NOTE: Resumed from step 3" in out and "step 6/6" in out
+  rows_a, rows_b = _rows(dir_a), _rows(dir_b)
+  assert [r["step"] for r in rows_a] == list(range(1, 7))
+  by_step = lambda rows: {r["step"]: r for r in rows}
+  for step in range(1, 7):
+    for key in ("training_loss", "l2_params", "l2_grads"):
+      assert by_step(rows_a)[step][key] == by_step(rows_b)[step][key]
+  final = [ckpt_lib.restore(ckpt_lib.make_manager(d))["params"]
+           for d in (dir_a, dir_b)]
+  flat = [dict(tree_flatten_with_names(f)) for f in final]
+  assert flat[0].keys() == flat[1].keys()
+  for name in flat[0]:
+    assert torch.equal(torch.as_tensor(flat[0][name]),
+                       torch.as_tensor(flat[1][name])), name
 
 
 def test_force_eval_returns_after_one_evaluation(tmp_path):
