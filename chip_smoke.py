@@ -73,6 +73,30 @@ Phases, each fatal on failure:
                half-written checkpoint directory ignored and removed. Also
                times one `save` (the loop's blocking part and the
                background write).
+ 10. quant     the int8 matmul (`ops/quant.py`, `torch._int_mm`) at the
+               MLP's two shapes of the training step, (128 x 257, 768) @
+               (768, 3,072) and (128 x 257, 3,072) @ (3,072, 768): the
+               quantized operands equal to the CPU's, the int32
+               accumulator bit-equal to the CPU's exact integer product,
+               the output within one bf16 ulp, timed beside bf16
+               F.linear; then the train run of phase train under
+               `quant=int8_mlp` and the sampler call under `int8_all`,
+               under both settings, each beside its bf16 reading of this
+               call, with the launches the precedence gives (the int8 MLP
+               wins over K5; the fused MHA, K6, ignores `int8_all`).
+ 11. evals     an arrays dataset of 10 colour-coded classes (2,050
+               training images, 2,560 validation images): the config's
+               `fewshot_lsr` evaluator through `from_config` on a UMD-B/4@64
+               train state of seeded weights (shots 5 and 100: both solver
+               branches), with its accuracy, time and launches;
+               `classification` on the same source (the nearest training
+               class centre on pre_logits); seeded InceptionV3 on the card
+               against the CPU; `compute_reference_stats` over the
+               validation split into an npz, and the split's FID against
+               it near 0; then a `diffusion_sampling` evaluator with
+               `inception_reference_path` set through
+               `train_and_evaluate`'s `handle_eval_results`: a finite,
+               non-negative FID and an IS in [1, 1,008] logged.
 Then it prints the card's name and power limit, one JSON line of the
 kernels, and as its last line {"ok": true, "device": {...}}. Without a CUDA
 device it exits non-zero and prints no result.
@@ -130,6 +154,15 @@ BLOCK_SAMPLE_LAUNCHES = {
     "pallas_fused": {"ln_modulate_fwd": 2, "fused_mha_fwd": 1,
                      "fused_mlp_fwd": 1},
 }
+# Under an int8 `quant` (phase quant) the int8 MLP wins over the fused one,
+# so no K5 runs; the attention core stays in bf16 (K3, K4), and under
+# "pallas_fused" the fused MHA (K6) ignores `int8_all` and runs as before.
+BLOCK_TRAIN_LAUNCHES_INT8 = {
+    a: {k: v for k, v in per.items() if k != "fused_mlp_fwd"}
+    for a, per in BLOCK_TRAIN_LAUNCHES.items()}
+BLOCK_SAMPLE_LAUNCHES_INT8 = {
+    a: {k: v for k, v in per.items() if k != "fused_mlp_fwd"}
+    for a, per in BLOCK_SAMPLE_LAUNCHES.items()}
 
 
 def _times(per_block, n):
@@ -917,21 +950,22 @@ def phase_model(build, card, attn_impl):
          f"of leaf max at {worst_name}")
 
 
-def phase_train(build, card, attn_impl):
+def phase_train(build, card, attn_impl, quant="", tag="train"):
   """The full UMD-B/4@64 training step at batch 256 through
   `train_and_evaluate`, on synthetic data from `init_train_params`, under
-  `attn_impl`."""
+  `attn_impl` (and the model's `quant`, phase quant)."""
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.train import train_ae
 
   config = ae_i1k.get_config(
       f"variant=B/4,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
       f"total_steps={TRAIN_STEPS},log_steps=1,eval_steps=-1,"
-      f"attn_impl={attn_impl}")
+      f"attn_impl={attn_impl},quant={quant}")
+  what = f"{attn_impl}{', ' + quant if quant else ''}"
   build.reset_launches()
   train_state, history = train_ae.train_and_evaluate(
       config, device="cuda",
-      log=lambda s: print(f"[train] {attn_impl}: {s}", flush=True))
+      log=lambda s: print(f"[{tag}] {what}: {s}", flush=True))
   launches = dict(build.LAUNCHES)
   n_params = sum(p.numel() for p in train_state["params"])
   del train_state
@@ -939,7 +973,7 @@ def phase_train(build, card, attn_impl):
 
   timed = history[1:]
   ms = sum(h["ms"] for h in timed) / len(timed)
-  print(f"[train] {attn_impl}: UMD-B/4@64, {n_params} parameters, batch "
+  print(f"[{tag}] {what}: UMD-B/4@64, {n_params} parameters, batch "
         f"{TRAIN_BATCH}: {len(timed)} timed steps, mean {ms:.2f} ms/step (min "
         f"{min(h['ms'] for h in timed):.2f}, max "
         f"{max(h['ms'] for h in timed):.2f}) = {TRAIN_BATCH / ms * 1e3:.2f} "
@@ -958,8 +992,10 @@ def phase_train(build, card, attn_impl):
           and history[-1]["l2_updates"] > 0):
     fail("the parameters did not change")
   # Two branches of 12 + 4 blocks a step.
-  want = _times(BLOCK_TRAIN_LAUNCHES[attn_impl], 2 * BLOCKS * TRAIN_STEPS)
-  print(f"[train] {attn_impl}: kernel launches in {TRAIN_STEPS} steps: "
+  per_block = (BLOCK_TRAIN_LAUNCHES_INT8 if quant else
+               BLOCK_TRAIN_LAUNCHES)[attn_impl]
+  want = _times(per_block, 2 * BLOCKS * TRAIN_STEPS)
+  print(f"[{tag}] {what}: kernel launches in {TRAIN_STEPS} steps: "
         f"{launches}, model says {want}", flush=True)
   if launches != want:
     fail(f"launch counts {launches} != {want}")
@@ -976,15 +1012,17 @@ def _check_images(images, n):
     fail("a constant image came back")
 
 
-def phase_serve_fused(build, card):
-  """One 125-step sampler call at batch 64 under attn_impl="pallas_fused",
-  through `build_sample_callable` (what the server calls)."""
+def phase_sample_call(build, card, attn_impl, quant="", tag="serve"):
+  """One 125-step sampler call at batch 64 under `attn_impl` (and the
+  model's `quant`, phase quant), through `build_sample_callable` (what the
+  server calls)."""
   from small_vision_tpu_torch import convert
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.tools import export_sampler
 
   config = ae_i1k.get_config(f"variant=B/4,size=64,samples_per_call={BATCH},"
-                             "attn_impl=pallas_fused")
+                             f"attn_impl={attn_impl},quant={quant}")
+  what = f"{attn_impl}{', ' + quant if quant else ''}"
   sample = export_sampler.build_sample_callable(
       config, convert.init_params(config, seed=0), fn="uncond_eps",
       batch_size=BATCH, device="cuda")
@@ -994,13 +1032,14 @@ def phase_serve_fused(build, card):
   images = sample(1)  # returns numpy: ends in a device-to-host copy
   sampler_s = time.perf_counter() - t0
   launches = dict(build.LAUNCHES)
-  print(f"[serve] pallas_fused: one sampler call {sampler_s:.3f} s = "
+  print(f"[{tag}] {what}: one sampler call {sampler_s:.3f} s = "
         f"{BATCH / sampler_s:.2f} img/s at batch {BATCH} on {card}",
         flush=True)
   _check_images(images, BATCH)
-  want = _times(BLOCK_SAMPLE_LAUNCHES["pallas_fused"],
-                BLOCKS * SAMPLER_FORWARDS)
-  print(f"[serve] pallas_fused: kernel launches in the call: {launches}, "
+  per_block = (BLOCK_SAMPLE_LAUNCHES_INT8 if quant else
+               BLOCK_SAMPLE_LAUNCHES)[attn_impl]
+  want = _times(per_block, BLOCKS * SAMPLER_FORWARDS)
+  print(f"[{tag}] {what}: kernel launches in the call: {launches}, "
         f"model says {want} and no other kernel", flush=True)
   if launches != want:  # no K3, K2, K4, K7, K8
     fail(f"launch counts {launches} != {want}")
@@ -1089,6 +1128,7 @@ def phase_data(build, card, synthetic):
         f"variant=B/4,size=64,data=arrays:{root},batch_size={TRAIN_BATCH},"
         f"total_steps={TRAIN_STEPS},log_steps=1,eval_steps={TRAIN_STEPS},"
         "attn_impl=pallas")
+    del config["evals"]["fewshot"]  # the probe has a phase of its own
     for ev in config["evals"].values():
       ev["num_batches"] = 2
     if config["input"]["num_workers"] != DATA_WORKERS:
@@ -1278,6 +1318,7 @@ def phase_resume(build, card, no_ckpt_img_per_s):
         f"variant=B/4,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
         f"total_steps={steps},log_steps=1,ckpt_steps={every},"
         f"eval_steps={steps}")
+    del config["evals"]["fewshot"]  # the probe has a phase of its own
     for ev in config["evals"].values():
       ev["num_batches"] = 2
     return config
@@ -1468,6 +1509,321 @@ def phase_serve(build, card):
           "s": sampler_s}
 
 
+# Phase quant: the MLP's two products at the training step's decoder rows
+# (per-branch batch 128 x L 257), and the settings it drives.
+QUANT_TRAIN, QUANT_SAMPLE = "int8_mlp", "int8_all"
+INT8_SHAPES = ((TRAIN_BATCH // 2 * SEQ_DEC, WIDTH, MLP_DIM),
+               (TRAIN_BATCH // 2 * SEQ_DEC, MLP_DIM, WIDTH))
+
+
+def _bf16_ulp(t):
+  """One bf16 ulp at each element's magnitude (0 where it is 0)."""
+  t = t.float()
+  _, e = torch.frexp(t)
+  return torch.where(t != 0, torch.ldexp(torch.ones_like(t), e - 8),
+                     torch.zeros_like(t))
+
+
+def check_int8_dot(card):
+  """`int8_dot` on the card at the MLP's shapes against the plain integer
+  version on the CPU, on the same operands; timed beside bf16 F.linear."""
+  from small_vision_tpu_torch.ops import quant
+
+  gen = torch.Generator(device="cuda").manual_seed(13)
+  readings = []
+  for m, k, n in INT8_SHAPES:
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(
+        torch.bfloat16)
+    ops = quant.quantized_operands(x, w)
+    plain_ops = quant.quantized_operands(x.cpu(), w.cpu())
+    for name, got, want in zip(("xq", "sx", "wq", "sw"), ops, plain_ops):
+      if not torch.equal(got.cpu(), want):
+        fail(f"int8 ({m}, {k}) @ ({k}, {n}): {name} on the card differs "
+             "from the CPU's")
+    acc = quant.int_matmul(ops[0], ops[2])
+    t0 = time.perf_counter()
+    acc_plain = quant.int_matmul(plain_ops[0], plain_ops[2])
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(acc.cpu(), acc_plain):
+      fail(f"int8 ({m}, {k}) @ ({k}, {n}): the int32 accumulator differs "
+           "from the plain integer version")
+    y = quant.int8_dot(x, w).float().cpu()
+    y_plain = ((acc_plain.float() * plain_ops[1]) * plain_ops[3]).to(
+        torch.bfloat16)
+    over = ((y - y_plain.float()).abs() > _bf16_ulp(y_plain)).sum().item()
+    if over:
+      fail(f"int8 ({m}, {k}) @ ({k}, {n}): {over} outputs more than one "
+           "bf16 ulp from the plain version")
+    wt = w.t().contiguous()  # nn.Linear's (out, in) weight
+    xq, wq = ops[0], ops[2]
+    wq_rows = wq.contiguous()  # the other layout of B, for comparison
+    reading = dict(
+        shape=(m, k, n), int8_dot_ms=time_ms(lambda: quant.int8_dot(x, w)),
+        int_mm_ms=time_ms(lambda: torch._int_mm(xq, wq)),
+        int_mm_row_major_ms=time_ms(lambda: torch._int_mm(xq, wq_rows)),
+        linear_ms=time_ms(lambda: torch.nn.functional.linear(x, wt)),
+        plain_s=plain_s, acc_max=int(acc.abs().max()))
+    ops_count = 2.0 * m * k * n
+    print(f"[quant] int8_dot ({m}, {k}) @ ({k}, {n}) bf16: int32 "
+          f"accumulator bit-equal to the CPU's int64 product ({plain_s:.1f} "
+          f"s there; |acc| up to {reading['acc_max']}), output within one "
+          f"bf16 ulp; int8_dot {reading['int8_dot_ms']:.4f} ms (quantize + "
+          f"_int_mm + rescale), _int_mm alone {reading['int_mm_ms']:.4f} ms "
+          f"= {ops_count / reading['int_mm_ms'] / 1e9:.1f} TOPS (B "
+          f"row-major instead: {reading['int_mm_row_major_ms']:.4f} ms), bf16 "
+          f"F.linear {reading['linear_ms']:.4f} ms = "
+          f"{ops_count / reading['linear_ms'] / 1e9:.1f} TFLOP/s on {card}",
+          flush=True)
+    readings.append(reading)
+  return readings
+
+
+def phase_quant(build, card, train, serve):
+  """The int8 matmul, and UMD-B/4@64 trained (`int8_mlp`) and sampled
+  (`int8_all`) under both settings; `train` and `serve` are the bf16
+  readings of this call."""
+  matmuls = check_int8_dot(card)
+  out = {"matmuls": matmuls, "train": {}, "serve": {}}
+  for a in ATTN_IMPLS:
+    q = phase_train(build, card, a, quant=QUANT_TRAIN, tag="quant")
+    print(f"[quant] {a}: training {QUANT_TRAIN} {q['img_per_s']:.2f} img/s "
+          f"({q['ms']:.2f} ms a step) against bf16 "
+          f"{train[a]['img_per_s']:.2f} img/s ({train[a]['ms']:.2f} ms, "
+          f"phase train) = {q['img_per_s'] / train[a]['img_per_s']:.3f}x on "
+          f"{card}", flush=True)
+    out["train"][a] = q
+  for a in ATTN_IMPLS:
+    q = phase_sample_call(build, card, a, quant=QUANT_SAMPLE, tag="quant")
+    print(f"[quant] {a}: sampler {QUANT_SAMPLE} {q['img_per_s']:.2f} img/s "
+          f"({q['s']:.3f} s a call) against bf16 "
+          f"{serve[a]['img_per_s']:.2f} img/s ({serve[a]['s']:.3f} s, phase "
+          f"serve) = {q['img_per_s'] / serve[a]['img_per_s']:.3f}x on {card}",
+          flush=True)
+    out["serve"][a] = q
+  return out
+
+
+# Phase evals: an arrays dataset of colour-coded classes, 205 training
+# examples a class (100 shots need 100), and a validation split of more
+# than 2,048 images (pool3's dimension: its covariance can be full rank).
+EVAL_CLASSES, EVAL_PER_CLASS, EVAL_VAL = 10, 205, 2560
+FEWSHOT_SHOTS = (5, 100)  # 50 rows < D = 769: the kernel form; 1,000: XᵀX
+FID_BATCH, FID_SAMPLES = 256, 128
+# The FID of a set against its own statistics is 0 in exact arithmetic;
+# the two computations share their batches, so their moments are equal and
+# what remains is sqrtm's error on sigma², whose smallest eigenvalues are
+# the squares of sigma's (a CPU rehearsal at 300 images: 2.9e-5 of the
+# trace).
+SELF_FID_BOUND = 1e-3  # of tr(sigma)
+# Seeded InceptionV3, card against CPU, relative to the output's largest
+# magnitude: f32 on both (TF32 off) in other summation orders through 94
+# convolutions (PR 12's dev call read 4.2e-7).
+INCEPTION_TOL = 1e-5
+
+
+def _eval_arrays(root):
+  from small_vision_tpu_torch.data import arrays
+  rng = np.random.default_rng(21)
+  colours = rng.integers(40, 216, (EVAL_CLASSES, 3))
+
+  def images(labels):
+    noise = rng.integers(-40, 41, (len(labels), 64, 64, 3))
+    return np.clip(colours[labels][:, None, None, :] + noise, 0,
+                   255).astype(np.uint8)
+  train = np.repeat(np.arange(EVAL_CLASSES), EVAL_PER_CLASS)
+  rng.shuffle(train)
+  val = rng.integers(0, EVAL_CLASSES, EVAL_VAL)
+  for split, labels in (("train", train), ("validation", val)):
+    arrays.write_arrays(os.path.join(root, split), images(labels), labels)
+
+
+def phase_evals(build, card):
+  """The few-shot probe, classification, InceptionV3 and FID/IS on the card
+  at UMD-B/4@64; see the module's docstring."""
+  from small_vision_tpu_torch import convert
+  from small_vision_tpu_torch.configs import ae_i1k
+  from small_vision_tpu_torch.data import core, pipeline
+  from small_vision_tpu_torch.evaluators import common as eval_common
+  from small_vision_tpu_torch.evaluators import fid, inception
+  from small_vision_tpu_torch.train import train_ae
+  from small_vision_tpu_torch.utils.trees import tree_flatten_with_names
+
+  root = tempfile.mkdtemp(prefix="sv_evals_")
+  try:
+    _eval_arrays(root)
+    config = ae_i1k.get_config(f"variant=B/4,size=64,data=arrays:{root},"
+                               f"batch_size={TRAIN_BATCH}")
+    probe_cfg = dict(config["evals"]["fewshot"], shots=FEWSHOT_SHOTS)
+    params = convert.init_params(config, seed=0)
+    model = train_ae.build_model(config, device="cuda", trainable=True)
+    model.load_state_dict(convert.params_from_jax(params, model))
+    names = [n for n, _ in train_ae.named_params(model)]
+    opt = train_ae.make_optimizer(config, names, 10, 1)
+    state = train_ae.init_train_state(model, opt, config, device="cuda")
+    eval_fns = train_ae.make_eval_fns(model, config)
+
+    # The few-shot probe, as the config builds it.
+    (_, probe, _, prefix), = eval_common.from_config(
+        dict(config, evals={"fewshot": probe_cfg}), eval_fns, "cuda")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    accs = dict(probe.run(state))
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    launches = {"fewshot": dict(build.LAUNCHES)}
+    seeds = probe_cfg["num_seeds"]
+    batches = seeds * (-(-EVAL_CLASSES * EVAL_PER_CLASS // TRAIN_BATCH)
+                       + -(-EVAL_VAL // TRAIN_BATCH))
+    want = _times(BLOCK_SAMPLE_LAUNCHES["pallas"], BLOCKS * batches)
+    print(f"[evals] fewshot_lsr ({seeds} seeds, shots {FEWSHOT_SHOTS}, "
+          f"{EVAL_CLASSES} classes, {EVAL_CLASSES * EVAL_PER_CLASS} training "
+          f"and {EVAL_VAL} test images, batch {TRAIN_BATCH}): "
+          + ", ".join(f"{prefix}{k} {v:.4f}" for k, v in accs.items())
+          + f"; {probe_s:.2f} s; launches {launches['fewshot']}, model says "
+          f"{want} on {card}", flush=True)
+    if launches["fewshot"] != want:
+      fail(f"few-shot launches {launches['fewshot']} != {want}")
+    if len(accs) != seeds * len(FEWSHOT_SHOTS) or not all(
+        0.0 <= v <= 1.0 for v in accs.values()):
+      fail(f"few-shot accuracies {accs}")
+    best = max(v for k, v in accs.items() if "_100shot" in k)
+    if not best > 2.0 / EVAL_CLASSES:
+      fail(f"the 100-shot probe is at chance ({best}) on colour-coded "
+           "classes")
+
+    # Classification on the same source: the nearest class centre of the
+    # training features, as a linear head on pre_logits.
+    x_tr, y_tr = probe.get_repr(state, probe._get_dataset(
+        *probe_cfg["datasets"]["imagenet"])[0])
+    centres = torch.stack([x_tr[y_tr == c].mean(0)
+                           for c in range(EVAL_CLASSES)])
+    bias = -0.5 * (centres ** 2).sum(dim=1)
+
+    def centroid_logits(train_state, batch):
+      _, out = eval_fns["predict"](train_state, batch)
+      return out["pre_logits"].float() @ centres.T + bias, out
+    cls_cfg = dict(type="classification", pred="centroids",
+                   data=dict(name=f"arrays:{root}", split="validation"),
+                   pp_fn=config["evals"]["val"]["pp_fn"], log_steps=10_000)
+    (_, cls, _, _), = eval_common.from_config(
+        dict(config, evals={"cls": cls_cfg}),
+        dict(eval_fns, centroids=centroid_logits), "cuda")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    cls_out = dict(cls.run(state))
+    cls_s = time.perf_counter() - t0
+    launches["classification"] = dict(build.LAUNCHES)
+    print(f"[evals] classification on validation/ ({EVAL_VAL} images), "
+          f"nearest training centre on pre_logits: prec@1 "
+          f"{cls_out['prec@1']:.4f}, loss {cls_out['loss']:.4f}; "
+          f"{cls_s:.2f} s on {card}", flush=True)
+    if not (0.0 <= cls_out["prec@1"] <= 1.0 and np.isfinite(cls_out["loss"])):
+      fail(f"classification gave {cls_out}")
+    del model, opt, state, eval_fns, probe, cls, x_tr, centres
+    torch.cuda.empty_cache()
+
+    # Seeded InceptionV3: the card against the CPU.
+    val_src = core.get(f"arrays:{root}", split="validation")
+    iterate, _, _ = pipeline.make_for_inference(val_src, "", FID_BATCH)
+
+    def val_chunks():
+      for b in iterate():
+        yield b["image"][b["_mask"] > 0]
+    val_images = np.concatenate(list(val_chunks()))
+    x = torch.from_numpy(val_images[:4])
+    outs = {}
+    for dev in ("cpu", "cuda"):
+      net = inception.init_params(device=dev, seed=0)
+      with fid._full_f32(), torch.inference_mode():
+        outs[dev] = [t.cpu() for t in net(fid._resize_299(x.to(dev)))]
+    errs = [(g - c).abs().max().item() / c.abs().max().item()
+            for g, c in zip(outs["cuda"], outs["cpu"])]
+    print(f"[evals] seeded InceptionV3, 4 images at 299: card against CPU, "
+          f"pool3 {errs[0]:.3e}, logits {errs[1]:.3e} of their max (bound "
+          f"{INCEPTION_TOL:g}) on {card}", flush=True)
+    if not max(errs) <= INCEPTION_TOL:
+      fail(f"InceptionV3 on the card differs from the CPU by {errs}")
+
+    # Reference statistics of the validation split, and the split against
+    # them.
+    ref_path = os.path.join(root, "fid_ref.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mu, sigma = fid.compute_reference_stats(val_chunks(), ref_path,
+                                            batch_size=FID_BATCH)
+    ref_s = time.perf_counter() - t0
+    with np.load(ref_path) as d:
+      if d["mu"].shape != (2048,) or d["sigma"].shape != (2048, 2048) or \
+          not (np.isfinite(d["mu"]).all() and np.isfinite(d["sigma"]).all()):
+        fail(f"reference statistics {d['mu'].shape} {d['sigma'].shape}")
+    t0 = time.perf_counter()
+    self_fid, self_is = fid.create_fid_score_fn(FID_BATCH, ref_path)(
+        val_images)
+    self_s = time.perf_counter() - t0
+    trace = float(np.trace(sigma))
+    print(f"[evals] compute_reference_stats over validation/ ({EVAL_VAL} "
+          f"images, batch {FID_BATCH}): {ref_s:.2f} s, tr(sigma) "
+          f"{trace:.4f}; the split against its own statistics: FID "
+          f"{self_fid:.6g} (bound {SELF_FID_BOUND:g} x tr(sigma) = "
+          f"{SELF_FID_BOUND * trace:.4f}), IS {self_is:.4f}, {self_s:.2f} s "
+          f"on {card}", flush=True)
+    if not abs(self_fid) <= SELF_FID_BOUND * trace:
+      fail(f"the FID of the reference images against their own statistics "
+           f"is {self_fid}")
+
+    # A sampling evaluator scored through the trainer's handle_eval_results.
+    scfg = ae_i1k.get_config(
+        f"variant=B/4,size=64,data=arrays:{root},use_labels=True,"
+        f"batch_size={TRAIN_BATCH},total_steps=1,samples_per_call={BATCH},"
+        f"total_samples={FID_SAMPLES},fid_stats={ref_path},"
+        f"fid_batch={FID_BATCH}")
+    scfg["evals"] = {"sample_cond": scfg["evals"]["sample_cond"]}
+    scfg["force_eval"] = True
+    scfg["model_init"] = os.path.join(root, "init.npz")
+    np.savez(scfg["model_init"], **dict(tree_flatten_with_names(
+        convert.init_params(scfg, seed=0))))
+    workdir = os.path.join(root, "run")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    train_ae.train_and_evaluate(
+        scfg, workdir, device="cuda",
+        log=lambda s: print(f"[evals] sampling: {s}", flush=True))
+    sample_s = time.perf_counter() - t0
+    launches["sampling"] = dict(build.LAUNCHES)
+    calls = FID_SAMPLES // BATCH
+    want = _times(BLOCK_SAMPLE_LAUNCHES["pallas"],
+                  BLOCKS * SAMPLER_FORWARDS * calls)
+    rows = [json.loads(l) for l in
+            open(os.path.join(workdir, "sv_tpu_metrics.txt"))]
+    merged = {k: v for r in rows for k, v in r.items()}
+    fid_key = "sample_cond/fid_samples_fid_score"
+    is_key = "sample_cond/fid_samples_inception_score"
+    if fid_key not in merged or is_key not in merged:
+      fail(f"handle_eval_results logged no FID/IS: {sorted(merged)}")
+    fid_score, is_score = merged[fid_key], merged[is_key]
+    print(f"[evals] diffusion_sampling ({FID_SAMPLES} samples in {calls} "
+          f"calls of {BATCH}) through handle_eval_results: {fid_key} "
+          f"{fid_score:.4f}, {is_key} {is_score:.4f}; {sample_s:.2f} s with "
+          f"the model's set-up; launches {launches['sampling']}, model says "
+          f"{want} on {card}", flush=True)
+    if not (np.isfinite(fid_score) and fid_score >= 0.0):
+      fail(f"FID {fid_score}")
+    if not 1.0 <= is_score <= 1008.0:
+      fail(f"IS {is_score}")
+    if launches["sampling"] != want:
+      fail(f"sampling launches {launches['sampling']} != {want}")
+    if not os.path.exists(os.path.join(workdir, "sample_cond_samples",
+                                       "samples_0.npz")):
+      fail("the samples were not saved")
+    return {"launches": launches, "fewshot": accs, "fewshot_s": probe_s,
+            "classification": cls_out, "classification_s": cls_s,
+            "ref_s": ref_s, "self_fid": self_fid, "fid": fid_score,
+            "is": is_score}
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1497,18 +1853,22 @@ def main():
     phase_model(build, card, attn_impl)
   train = {a: phase_train(build, card, a) for a in ATTN_IMPLS}
   serve = {"pallas": phase_serve(build, card),
-           "pallas_fused": phase_serve_fused(build, card)}
+           "pallas_fused": phase_sample_call(build, card, "pallas_fused")}
   data = phase_data(build, card, train["pallas"])
   unpacked = phase_unpacked(build, attn, card)
   ablate = phase_ablate(build, attn, card)
   resume = phase_resume(build, card, train["pallas"]["img_per_s"])
+  quant = phase_quant(build, card, train, serve)
+  evals = phase_evals(build, card)
   for k in kernels:
     # Launches on the paths driven above, each counted from 0: the sampler
     # call and the training run under "pallas", the same two under
     # "pallas_fused", the training run on an arrays source (phase data),
     # `fused_attention` for the two kernels that no module of the model
-    # calls, the ablation tool, and run A of the resume phase (6 training
-    # steps and the two evaluators). `launches` is the largest
+    # calls, the ablation tool, run A of the resume phase (6 training
+    # steps and the two evaluators), the int8 training runs and sampler
+    # calls (phase quant), and the few-shot probe, classification and the
+    # scored sampling evaluator (phase evals). `launches` is the largest
     # of them: the count on the path that runs the kernel most.
     name = k["name"]
     k["launches_by_path"] = {
@@ -1519,7 +1879,13 @@ def main():
         "data": data["launches"].get(name, 0),
         "fused_attention": unpacked.get(name, 0),
         "ablate": ablate.get(name, 0),
-        "resume": resume["launches"].get(name, 0)}
+        "resume": resume["launches"].get(name, 0),
+        **{f"quant_train_{a}_{QUANT_TRAIN}":
+           quant["train"][a]["launches"].get(name, 0) for a in ATTN_IMPLS},
+        **{f"quant_serve_{a}_{QUANT_SAMPLE}":
+           quant["serve"][a]["launches"].get(name, 0) for a in ATTN_IMPLS},
+        **{f"evals_{path}": n.get(name, 0)
+           for path, n in evals["launches"].items()}}
     k["launches"] = max(k["launches_by_path"].values())
     if not k["launches"]:
       fail(f"{name} was launched on no path")
@@ -1535,6 +1901,23 @@ def main():
         + (f"{jpeg['img_per_s']:.2f} img/s ({jpeg['decoder']})" if jpeg
            else "not taken (no PIL)")
         + f"; nproc {data['nproc']}; on {card}", flush=True)
+  for a in ATTN_IMPLS:
+    print(f"[result] quant {a}: training {QUANT_TRAIN} "
+          f"{quant['train'][a]['img_per_s']:.2f} img/s (bf16 "
+          f"{train[a]['img_per_s']:.2f}); sampler {QUANT_SAMPLE} "
+          f"{quant['serve'][a]['img_per_s']:.2f} img/s (bf16 "
+          f"{serve[a]['img_per_s']:.2f}); on {card}", flush=True)
+  print("[result] quant int8_dot: " + "; ".join(
+      f"{r['shape']}: {r['int8_dot_ms']:.4f} ms (_int_mm "
+      f"{r['int_mm_ms']:.4f}), bf16 F.linear {r['linear_ms']:.4f}"
+      for r in quant["matmuls"]) + f"; on {card}", flush=True)
+  print(f"[result] evals: fewshot {evals['fewshot_s']:.2f} s "
+        f"({max(evals['fewshot'].values()):.4f} best), classification "
+        f"{evals['classification_s']:.2f} s (prec@1 "
+        f"{evals['classification']['prec@1']:.4f}), reference statistics "
+        f"{evals['ref_s']:.2f} s, self-FID {evals['self_fid']:.6g}, samples' "
+        f"FID {evals['fid']:.4f}, IS {evals['is']:.4f}; on {card}",
+        flush=True)
 
   print(card, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)

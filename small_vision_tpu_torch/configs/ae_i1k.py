@@ -4,9 +4,14 @@ Counterpart of small_vision_tpu/configs/ae_i1k.py, for the fields the port
 runs: the model, the diffusion schedule, the sampler's samples per call and
 labels, and the training step (batch size, mask ratios, the MAE/diffusion
 split, AdamW, the schedule's durations, EMA, the input with its pp string,
-`fused_branches`), the checkpoint cadence and the evaluator entries `val`,
-`mae_val` and, with labels, the three sampling evaluators. The few-shot
-probe's entry waits for the evaluators slice.
+`fused_branches`), the checkpoint cadence, the model's `quant`, and the
+evaluator entries `val`, `mae_val`, the few-shot probe `fewshot` (every
+10,000 steps, on the first 100,000 training examples and the validation
+split) and, with labels, the three sampling evaluators with their FID
+inputs (`fid_stats`: the reference statistics' .npz, which
+`evaluators/fid.py::compute_reference_stats` writes; `inception_weights`:
+InceptionV3's .npz, from `scripts/convert_inception.py`; unset, the
+samples are saved unscored).
 
 `data` is `synthetic` (the default here, as no dataset is in the
 repository), `arrays:<root>` (decoded uint8 images in memmaps, a parent of
@@ -23,9 +28,12 @@ raises in the port, naming the arrays route.
   --config ae_i1k.py:ckpt_steps=500,eval_steps=1000   # with --workdir
   --config ae_i1k.py:eval_steps=-1            # no evaluators
   --config ae_i1k.py:data=arrays:/data/i1k64  # train/ and validation/
+  --config ae_i1k.py:quant=int8_mlp           # int8 MLP products
+  --config ae_i1k.py:use_labels=True,fid_stats=ref.npz,inception_weights=inc.npz
 """
 
 from small_vision_tpu_torch.configs import common as cc
+from small_vision_tpu_torch.configs.common_fewshot import get_fewshot_lsr
 
 
 def get_config(arg=None) -> dict:
@@ -39,7 +47,11 @@ def get_config(arg=None) -> dict:
       save_ckpt=True,
       ckpt_steps=0,  # 0 = keep the default (5000; runlocal 8)
       keep_ckpt_steps=0,  # > 0: checkpoints at its multiples stay for ever
-      eval_steps=0,  # 0 = per-evaluator defaults (25k), -1 = no evaluators
+      eval_steps=0,  # 0 = per-evaluator defaults (25k loss / 10k fewshot),
+      # -1 = no evaluators
+      quant="",  # "" (bf16) | "int8_mlp" | "int8_all": ops/quant.py
+      fid_stats="", inception_weights="",  # FID inputs (.npz); "" = unscored
+      fid_batch=0,  # 0 = 1024 images an InceptionV3 batch
       total_samples=0)  # 0 = 10k samples per sampling evaluator
 
   config = {
@@ -50,6 +62,7 @@ def get_config(arg=None) -> dict:
       "num_classes": 1000 if arg["use_labels"] else None,
       "num_samples": 36,
       "num_samples_per_call": arg["samples_per_call"] or 1024,
+      "fid_batch_size": arg["fid_batch"] or 1024,
       "diff_schedule": dict(eta=1.0, beta_schedule="cosine",
                             clip_denoised=True, timesteps=1000,
                             sampling_timesteps=125),
@@ -122,12 +135,17 @@ def get_config(arg=None) -> dict:
     evals["val"] = get_eval("diffusion_loss", "loss")
   if arg["mask_ratio"] > 0.0 or arg["no_noise_prob"] > 0.0:
     evals["mae_val"] = get_eval("mae_reconstruction", "patch")
-  # The JAX config's `fewshot` entry (evaluators/fewshot_lsr.py) is left out
-  # until the evaluators slice ports the probe.
+  evals["fewshot"] = get_fewshot_lsr(
+      target_resolution=arg["size"], resize_resolution=config["resize"],
+      datasets={"imagenet": (data, data, "train[:100000]", "validation")},
+      pred="predict" if arg["no_noise_prob"] > 0.0 else "noised_predict")
+  evals["fewshot"]["log_steps"] = 10_000
   if arg["no_noise_prob"] < 1.0 and arg["use_labels"]:
     evals["sample_cond"] = get_sample_eval("cond_eps")
     evals["sample_cfg_1_5"] = get_sample_eval("cfg_eps_2.0")
     evals["sample_cfg_4"] = get_sample_eval("cfg_eps_4.0")
+    config["inception_reference_path"] = arg["fid_stats"]
+    config["inception_weights"] = arg["inception_weights"]
   if arg["eval_steps"] < 0:  # -1 = no evaluators (pure-throughput runs).
     evals = {}
   elif arg["eval_steps"]:  # One knob over every evaluator's cadence.
@@ -139,6 +157,8 @@ def get_config(arg=None) -> dict:
       num_classes=config["num_classes"], variant=arg["variant"],
       adaln=arg["adaln"], channels=3, img_size=arg["size"],
       dtype_mm="bfloat16", attn_impl=arg["attn_impl"])
+  if arg["quant"]:
+    model["quant"] = arg["quant"]
   if arg["runlocal"]:
     model.update(width=64, depth=2, dec_depth=1, num_heads=4)
     config["input"]["batch_size"] = config["batch_size"] = 32

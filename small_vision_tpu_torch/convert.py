@@ -23,6 +23,13 @@ ScaleByAdamState: count, bf16 mu, f32 nu) and EMA params, as numpy trees,
 into the port's `optim.AdamW` state, so the run can continue in the port;
 `train_state_from_jax` / `train_state_to_jax` do so for the whole of a
 train state that crosses (parameters, EMA, optimizer).
+
+`inception_state_dict` bridges FID's InceptionV3 from the flax variables
+({"params", "batch_stats"}, nested) or the slash-keyed npz that
+`scripts/convert_inception.py` writes (`params/Mixed_5b/branch1x1/conv/
+kernel`, `batch_stats/.../bn/mean`): HWIO convolution kernels become
+OIHW, the (2048, 1008) head kernel its transpose, the BatchNorm leaves
+keep their names. `inception_to_jax` is its inverse.
 """
 
 from typing import Mapping
@@ -250,3 +257,59 @@ def train_state_to_jax(train_state, names) -> dict:
   if "ema_params" in train_state:
     out["ema_params"] = tree(train_state["ema_params"])
   return out
+
+
+# How an InceptionV3 leaf's layout differs between the two: a convolution
+# kernel is OIHW here and HWIO in flax, the head's kernel transposed.
+_TO_FLAX = {"conv": lambda a: a.transpose(2, 3, 1, 0), "dense": np.transpose,
+            None: lambda a: a}
+_FROM_FLAX = {"conv": lambda a: a.transpose(3, 2, 0, 1), "dense": np.transpose,
+              None: lambda a: a}
+
+
+def _inception_leaf(name: str):
+  """(flax slash name, layout kind) of an InceptionV3 state_dict entry."""
+  path, leaf = name.rsplit(".", 1)
+  flax_path = path.replace(".", "/")
+  if path == "fc":
+    return f"params/fc/{'kernel' if leaf == 'weight' else 'bias'}", (
+        "dense" if leaf == "weight" else None)
+  if leaf == "weight":
+    return f"params/{flax_path}/kernel", "conv"
+  col = "batch_stats" if leaf in ("mean", "var") else "params"
+  return f"{col}/{flax_path}/{leaf}", None
+
+
+def inception_state_dict(variables, model: torch.nn.Module) -> dict:
+  """state_dict for the port's InceptionV3 from flax variables (nested)
+  or a slash-keyed flat mapping. Raises KeyError on a leftover or missing
+  name and ValueError on a shape mismatch."""
+  got = _flat(variables)
+  want = {name: _inception_leaf(name) for name in model.state_dict()}
+  flax_names = {f for f, _ in want.values()}
+  missing, leftover = sorted(flax_names - set(got)), sorted(set(got) -
+                                                           flax_names)
+  if missing or leftover:
+    raise KeyError(f"InceptionV3 names differ: missing {missing[:8]}, left "
+                   f"over {leftover[:8]}")
+  out = {}
+  for name, ref in model.state_dict().items():
+    flax_name, kind = want[name]
+    a = _FROM_FLAX[kind](np.asarray(got[flax_name], np.float32))
+    if a.shape != tuple(ref.shape):
+      raise ValueError(f"{flax_name}: shape {a.shape} does not fit {name} "
+                       f"{tuple(ref.shape)}")
+    out[name] = torch.from_numpy(np.ascontiguousarray(a))
+  return out
+
+
+def inception_to_jax(state_dict) -> dict:
+  """Nested flax variables {"params", "batch_stats"} of float32 numpy
+  arrays from the port's InceptionV3 state_dict."""
+  names, values = [], []
+  for name, t in state_dict.items():
+    flax_name, kind = _inception_leaf(name)
+    names.append(flax_name)
+    values.append(np.ascontiguousarray(
+        _TO_FLAX[kind](t.detach().float().cpu().numpy())))
+  return recover_tree(names, values)

@@ -16,15 +16,10 @@ import torch
 from small_vision_tpu_torch.data import core as ds_core
 from small_vision_tpu_torch.data import pipeline
 
-# Evaluators of the JAX package that are not ported yet.
-_NOT_PORTED = {
-    "fewshot_lsr": "the evaluators slice (it needs the eigh solver and the "
-                   "train-split features)",
-    "classification": "the evaluators slice, with the linear probe",
-    "fid": "the evaluators slice (StreamingMoments, Fréchet, IS)",
-    "inception": "the evaluators slice (InceptionV3 weights are not in the "
-                 "repository)",
-}
+# Modules of the evaluators package that hold no Evaluator: what the
+# sampling evaluators' FID scoring uses.
+_HELPERS = {"fid": "the FID and Inception Score functions",
+            "inception": "the InceptionV3 network of FID"}
 
 
 def from_config(config, predict_fns, device="cuda",
@@ -49,10 +44,11 @@ def from_config(config, predict_fns, device="cuda",
                          or config.get("input", {}).get("batch_size")
                          or config.get("batch_size"))
 
-    if module_name in _NOT_PORTED:
-      raise NotImplementedError(
-          f"evaluator {name!r} (type={module_name!r}) is not ported: it "
-          f"comes with {_NOT_PORTED[module_name]}")
+    if module_name in _HELPERS:
+      raise ValueError(
+          f"evaluator {name!r}: type={module_name!r} is not an evaluator but "
+          f"{_HELPERS[module_name]}; a `diffusion_sampling` evaluator with "
+          "the config's `inception_reference_path` set is scored with them")
     module = importlib.import_module(
         f"small_vision_tpu_torch.evaluators.{module_name}")
     try:
@@ -75,6 +71,18 @@ def from_config(config, predict_fns, device="cuda",
   return evaluators
 
 
+def device_batches(iterate, device_pp, n_steps, device):
+  """The first `n_steps` batches of `iterate()` on `device`, after the
+  device pp, whose random ops draw from a generator seeded 0."""
+  gen = torch.Generator(device=device).manual_seed(0)
+  for i, batch in enumerate(iterate()):
+    if i >= n_steps:
+      break
+    batch = pipeline.to_device(batch, device)
+    n = batch["_mask"].shape[0]
+    yield device_pp(batch, device_pp.draw(n, gen, device))
+
+
 class BatchedEvaluator:
   """An evaluator over a data source's ordered examples: the source, the
   inference pipeline (the host stage of `pp_fn` on its workers, fixed-size
@@ -92,13 +100,8 @@ class BatchedEvaluator:
 
   def batches(self):
     """The run's batches on the device, after the device pp."""
-    gen = torch.Generator(device=self.device).manual_seed(0)
-    for i, batch in enumerate(self.iterate()):
-      if i >= self.n_steps:
-        break
-      batch = pipeline.to_device(batch, self.device)
-      n = batch["_mask"].shape[0]
-      yield self.device_pp(batch, self.device_pp.draw(n, gen, self.device))
+    return device_batches(self.iterate, self.device_pp, self.n_steps,
+                          self.device)
 
 
 def masked_mean(total: float, count: float) -> float:

@@ -15,7 +15,9 @@ stream) and `label_drop` ((B,) bool, the "cfg" stream, used with
 `train=True`). Dropout is 0 in every config and is not ported; a nonzero
 `dropout` raises. `attn_impl` ("pallas" or "pallas_fused") picks the
 blocks' kernel configuration (see `models.vit`); the parameters are the
-same under both.
+same under both. `quant` ("" or "none", "int8_mlp", "int8_all") puts the
+blocks' MLP products, or all their products but the attention core's,
+through the int8 matmul (`ops/quant.py`).
 
 The patchify conv (VALID, stride = patch) is computed as a reshape and a
 matmul on the (p·p·C, D) view of its HWIO kernel: the same function, with
@@ -34,6 +36,10 @@ from small_vision_tpu_torch.models.vit import Encoder
 from small_vision_tpu_torch.ops.masking import (random_masking,
                                                 restore_masked,
                                                 sequence_mask_to_image_mask)
+
+# The model's `quant` values and the blocks' (JAX models/ae.py).
+BLOCK_QUANT = {"int8_mlp": "int8", "int8_all": "int8_all", "none": "none",
+          "": "none"}
 
 
 class PatchEmbed(nn.Module):
@@ -63,7 +69,8 @@ class _ViTAE(nn.Module):
                mlp_dim: Optional[int] = None, num_heads: int = 12,
                dtype_mm: str = "bfloat16", adaln: bool = False,
                num_cls: int = 4, dropout: float = 0.0,
-               cfg_dropout_rate: float = 0.1, attn_impl: str = "pallas"):
+               cfg_dropout_rate: float = 0.1, attn_impl: str = "pallas",
+               quant: str = "none"):
     super().__init__()
     if dropout:
       raise ValueError(f"dropout {dropout}: the port has no dropout (it is "
@@ -92,8 +99,10 @@ class _ViTAE(nn.Module):
     self.pos_embedding = nn.Parameter(torch.empty(1, num_patches, width))
     self.dec_pos_embedding = nn.Parameter(torch.empty(1, num_patches, width))
     self.mask_token = nn.Parameter(torch.empty(1, 1, width))
+    if quant not in BLOCK_QUANT:
+      raise ValueError(f"quant={quant!r}: one of {sorted(BLOCK_QUANT)}")
     kw = dict(width=width, mlp_dim=mlp_dim, num_heads=num_heads, adaln=adaln,
-              dtype=dtype, attn_impl=attn_impl)
+              dtype=dtype, attn_impl=attn_impl, quant=BLOCK_QUANT[quant])
     self.Encoder = Encoder(depth=depth, **kw)
     self.Decoder = Encoder(depth=dec_depth, **kw)
     if adaln:

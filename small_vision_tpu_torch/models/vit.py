@@ -15,6 +15,15 @@ parameters cast per call, as flax does.
 The parameter tree is the same under both, and `FusedLN` runs K1/K2 under
 both. The JAX package's other settings ("xla", "flax") are not ported and
 raise.
+
+`quant` ("none", "int8" or "int8_all", the JAX modules' values) puts the
+MLP's two products ("int8") and also the q, k, v and out-projections
+("int8_all") through `ops.quant.int8_dot`, with the bias added after in
+the compute dtype, as the JAX modules do. The JAX precedence holds: the
+int8 MLP wins over the fused one, so `pallas_fused` with int8 runs no K5;
+the fused attention ignores `int8_all`, so `pallas_fused` runs K6 in the
+compute dtype. (On the CPU the JAX package takes the fused attention only
+in interpret mode, which is the setting the port's tests hold it to.)
 """
 
 from typing import Optional
@@ -27,8 +36,10 @@ from small_vision_tpu_torch.models.common import (Dense, LayerNorm,
 from small_vision_tpu_torch.ops.attention import attention_packed
 from small_vision_tpu_torch.ops.fused_block import fused_mha, fused_mlp
 from small_vision_tpu_torch.ops.layernorm import ln_modulate
+from small_vision_tpu_torch.ops.quant import int8_dot
 
 ATTN_IMPLS = ("pallas", "pallas_fused")
+QUANTS = ("none", "int8", "int8_all")
 
 
 def check_attn_impl(attn_impl: str) -> str:
@@ -36,6 +47,20 @@ def check_attn_impl(attn_impl: str) -> str:
     raise ValueError(f"attn_impl={attn_impl!r}: the port has "
                      f"{' and '.join(map(repr, ATTN_IMPLS))} only")
   return attn_impl
+
+
+def check_quant(quant: str) -> str:
+  if quant not in QUANTS:
+    raise ValueError(f"quant={quant!r}: one of {', '.join(map(repr, QUANTS))}")
+  return quant
+
+
+def int8_dense(x, kernel, bias, dtype):
+  """`dense` with the product through `int8_dot`: operands cast to the
+  compute dtype, the int8 product rounded to it, then the bias added in it
+  (two roundings, as the JAX modules)."""
+  dt = compute_dtype(x, dtype)
+  return int8_dot(x.to(dt), kernel.to(dt)) + bias.to(dt)
 
 
 class FusedLN(nn.Module):
@@ -57,18 +82,26 @@ class FusedLN(nn.Module):
 
 class MlpBlock(nn.Module):
   """Dense → gelu (tanh approximation, flax's default) → Dense; under
-  `attn_impl="pallas_fused"` as one `fused_mlp` on the same parameters."""
+  `attn_impl="pallas_fused"` as one `fused_mlp` on the same parameters;
+  with `quant` "int8" or "int8_all" both products through `int8_dot`,
+  which wins over the fused MLP."""
 
   def __init__(self, width: int, mlp_dim: Optional[int], dtype,
-               attn_impl: str = "pallas"):
+               attn_impl: str = "pallas", quant: str = "none"):
     super().__init__()
     hidden = mlp_dim or 4 * width
     self.dtype = dtype
     self.fused = check_attn_impl(attn_impl) == "pallas_fused"
+    self.int8 = check_quant(quant) != "none"
     self.Dense_0 = Dense(width, hidden, dtype)
     self.Dense_1 = Dense(hidden, width, dtype)
 
   def forward(self, x):
+    if self.int8:
+      h = int8_dense(x, self.Dense_0.kernel, self.Dense_0.bias, self.dtype)
+      h = nn.functional.gelu(h, approximate="tanh")
+      return int8_dense(h, self.Dense_1.kernel, self.Dense_1.bias,
+                        self.dtype)
     if self.fused:
       dt = compute_dtype(x, self.dtype)
       return fused_mlp(x.to(dt), *(p.to(dt) for p in (
@@ -80,11 +113,14 @@ class MlpBlock(nn.Module):
 
 class PackedProj(nn.Module):
   """q/k/v projection: flax DenseGeneral params (kernel (d, H, hd), bias
-  (H, hd)) applied as one (d, H*hd) matmul on packed activations."""
+  (H, hd)) applied as one (d, H*hd) matmul on packed activations, through
+  `int8_dot` with `quant="int8"`."""
 
-  def __init__(self, width: int, num_heads: int, head_dim: int, dtype):
+  def __init__(self, width: int, num_heads: int, head_dim: int, dtype,
+               quant: str = "none"):
     super().__init__()
     self.dtype = dtype
+    self.dense = int8_dense if quant == "int8" else dense
     self.kernel = nn.Parameter(torch.empty(width, num_heads, head_dim))
     self.bias = nn.Parameter(torch.empty(num_heads, head_dim))
 
@@ -96,16 +132,19 @@ class PackedProj(nn.Module):
 
   def forward(self, x):
     d_in = self.kernel.shape[0]
-    return dense(x, self.kernel.reshape(d_in, -1), self.bias.reshape(-1),
-                 self.dtype)
+    return self.dense(x, self.kernel.reshape(d_in, -1),
+                      self.bias.reshape(-1), self.dtype)
 
 
 class PackedOutProj(nn.Module):
-  """Out-projection: kernel (H, hd, d), bias (d,), on packed (B, L, H*hd)."""
+  """Out-projection: kernel (H, hd, d), bias (d,), on packed (B, L, H*hd);
+  through `int8_dot` with `quant="int8"`."""
 
-  def __init__(self, num_heads: int, head_dim: int, width: int, dtype):
+  def __init__(self, num_heads: int, head_dim: int, width: int, dtype,
+               quant: str = "none"):
     super().__init__()
     self.dtype = dtype
+    self.dense = int8_dense if quant == "int8" else dense
     self.kernel = nn.Parameter(torch.empty(num_heads, head_dim, width))
     self.bias = nn.Parameter(torch.empty(width))
 
@@ -115,17 +154,18 @@ class PackedOutProj(nn.Module):
             self.bias.to(dtype))
 
   def forward(self, o):
-    return dense(o, self.kernel.reshape(-1, self.kernel.shape[-1]),
-                 self.bias, self.dtype)
+    return self.dense(o, self.kernel.reshape(-1, self.kernel.shape[-1]),
+                      self.bias, self.dtype)
 
 
 class MultiHeadAttention(nn.Module):
   """Self-attention through `ops.attention.attention_packed` (K3, and K4
   for the gradient); under `attn_impl="pallas_fused"` the projections and
-  the attention as one `fused_mha` (K6) on the same parameters."""
+  the attention as one `fused_mha` (K6) on the same parameters, which
+  ignores `quant`; otherwise `quant="int8"` quantizes the projections."""
 
   def __init__(self, width: int, num_heads: int, dtype,
-               attn_impl: str = "pallas"):
+               attn_impl: str = "pallas", quant: str = "none"):
     super().__init__()
     if width % num_heads:
       raise ValueError(f"width {width} not divisible by {num_heads} heads")
@@ -133,10 +173,12 @@ class MultiHeadAttention(nn.Module):
     self.num_heads = num_heads
     self.dtype = dtype
     self.fused = check_attn_impl(attn_impl) == "pallas_fused"
-    self.query = PackedProj(width, num_heads, head_dim, dtype)
-    self.key = PackedProj(width, num_heads, head_dim, dtype)
-    self.value = PackedProj(width, num_heads, head_dim, dtype)
-    self.out = PackedOutProj(num_heads, head_dim, width, dtype)
+    if quant not in ("none", "int8"):
+      raise ValueError(f"attention quant={quant!r}: 'none' or 'int8'")
+    self.query = PackedProj(width, num_heads, head_dim, dtype, quant)
+    self.key = PackedProj(width, num_heads, head_dim, dtype, quant)
+    self.value = PackedProj(width, num_heads, head_dim, dtype, quant)
+    self.out = PackedOutProj(num_heads, head_dim, width, dtype, quant)
 
   def forward(self, x):
     if self.fused:
@@ -155,21 +197,25 @@ class Block(nn.Module):
   With `adaln`, `Dense_0` maps the conditioning vector to the six AdaLN
   vectors (shift/scale/gate for attention and MLP). Without it, the
   conditioning vector joins the sequence as a leading token and is
-  stripped after.
+  stripped after. `quant`: "int8" quantizes the MLP, "int8_all" the
+  attention's projections too.
   """
 
   def __init__(self, width: int, mlp_dim: Optional[int], num_heads: int,
-               adaln: bool, dtype, attn_impl: str = "pallas"):
+               adaln: bool, dtype, attn_impl: str = "pallas",
+               quant: str = "none"):
     super().__init__()
+    check_quant(quant)
     self.adaln = adaln
     self.dtype = dtype
     if adaln:
       self.Dense_0 = Dense(width, 6 * width, dtype)
     self.LayerNorm_0 = FusedLN(width)
-    self.MultiHeadAttention_0 = MultiHeadAttention(width, num_heads, dtype,
-                                                   attn_impl)
+    self.MultiHeadAttention_0 = MultiHeadAttention(
+        width, num_heads, dtype, attn_impl,
+        "int8" if quant == "int8_all" else "none")
     self.LayerNorm_1 = FusedLN(width)
-    self.MlpBlock_0 = MlpBlock(width, mlp_dim, dtype, attn_impl)
+    self.MlpBlock_0 = MlpBlock(width, mlp_dim, dtype, attn_impl, quant)
 
   def forward(self, x, cond=None):
     use_adaln = cond is not None and self.adaln
@@ -203,13 +249,13 @@ class Encoder(nn.Module):
 
   def __init__(self, depth: int, width: int, mlp_dim: Optional[int],
                num_heads: int, adaln: bool, dtype,
-               attn_impl: str = "pallas"):
+               attn_impl: str = "pallas", quant: str = "none"):
     super().__init__()
     self.depth = depth
     for i in range(depth):
       self.add_module(
           f"blocks_{i:02d}",
-          Block(width, mlp_dim, num_heads, adaln, dtype, attn_impl))
+          Block(width, mlp_dim, num_heads, adaln, dtype, attn_impl, quant))
     self.encoder_norm = LayerNorm(width)
 
   def forward(self, x, cond=None):

@@ -8,8 +8,9 @@ pp, q_sample, the two branches, the loss mix, AdamW, EMA), `make_eval_fns`
 and with `num_classes` cond_eps, cfg_eps_* and cfg_x0_*), and
 `train_and_evaluate`: the loop on one card with `Chrono`, the metric
 writer, warm start, resumable checkpoints, the finetune surgery, the
-evaluators and the NaN abort. The latent (VAE) hooks and the mesh come with
-their slices.
+evaluators (the sampling evaluators' samples scored by FID and IS where
+the config names `inception_reference_path`) and the NaN abort. The
+latent (VAE) hooks and the mesh come with their slices.
 
 The step's random draws (t, noise, the two branches' mask noise, the flip
 mask and the label-drop masks) come from the train state's
@@ -602,15 +603,21 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
                                default=None))
 
   def handle_eval_results(name, prefix, results, step):
-    """Logs an evaluator's outputs; `fid_samples` are dumped as .npz and
+    """Logs an evaluator's outputs; `fid_samples` are scored (FID and IS,
+    where the config has `inception_reference_path`) and dumped as .npz,
     image tensors as .npy grids under the workdir."""
     for key, value in results:
       if key == "fid_samples":
-        if config.get("inception_reference_path"):
-          raise NotImplementedError(
-              "inception_reference_path is set, but FID scoring "
-              "(evaluators/fid.py, inception.py) comes with the evaluators "
-              "slice; unset it to save the samples unscored")
+        ref_stats = config.get("inception_reference_path")
+        if ref_stats:
+          from small_vision_tpu_torch.evaluators.fid import create_fid_score_fn
+          fid_fn = create_fid_score_fn(config.get("fid_batch_size", 1024),
+                                       ref_stats,
+                                       config.get("inception_weights"),
+                                       device=device)
+          fid_score, is_score = fid_fn(value["samples"])
+          mw.measure(f"{prefix}{key}_fid_score", fid_score)
+          mw.measure(f"{prefix}{key}_inception_score", is_score)
         if workdir:
           out_dir = os.path.join(workdir, f"{name}_samples")
           os.makedirs(out_dir, exist_ok=True)

@@ -31,3 +31,16 @@ def recover_tree(keys: Sequence[str], values: Sequence[Any]) -> dict:
       node = node.setdefault(p, {})
     node[parts[-1]] = v
   return tree
+
+
+def tree_get(tree, name: str):
+  """The subtree or leaf at slash-path `name`."""
+  node = tree
+  for part in name.split("/"):
+    if isinstance(node, Mapping):
+      node = node[part]
+    elif isinstance(node, (list, tuple)):
+      node = node[int(part)]
+    else:
+      node = getattr(node, part)
+  return node

@@ -396,7 +396,10 @@ for m in ("tools.ablate_attention_kernel", "evaluators.common",
           "evaluators.diffusion_loss", "evaluators.mae_reconstruction",
           "evaluators.diffusion_sampling", "evaluators.mean",
           "evaluators.save", "utils.chrono", "utils.metrics", "utils.misc",
-          "utils.losses", "utils.checkpoint", "data.core", "data.pipeline"):
+          "utils.losses", "utils.checkpoint", "data.core", "data.pipeline",
+          "ops.quant", "evaluators.fewshot_lsr", "evaluators.inception",
+          "evaluators.fid", "evaluators.classification",
+          "configs.common_fewshot"):
   assert pkg.__name__ + "." + m in sys.modules, m
 print(len([m for m in sys.modules if m.startswith(pkg.__name__)]))
 assert not bad, bad

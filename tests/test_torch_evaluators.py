@@ -8,8 +8,14 @@ the noise and the timesteps are what the JAX functions make from
 uniforms are recovered as tests/test_torch_train_step.py recovers them.
 `make_for_inference` is held against the JAX pipeline on the synthetic
 source with a ragged last batch, and `diffusion_loss` / `mae_reconstruction`
-against the JAX evaluators on the same train state and draws.
+against the JAX evaluators on the same train state and draws;
+`classification` on a padded, masked split with integer and one-hot labels;
+`from_config` builds every evaluator of the config's `evals`; the trainer
+scores a sampling evaluator's samples by FID and IS where the config names
+`inception_reference_path`.
 """
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -20,13 +26,18 @@ import torch
 from small_vision_tpu import parallel
 from small_vision_tpu.data import pipeline as jpipeline
 from small_vision_tpu.data import synthetic as jsynthetic
+from small_vision_tpu.configs import ae_i1k as jconfig
+from small_vision_tpu.evaluators import classification as jclassification
 from small_vision_tpu.evaluators import diffusion_loss as jdiffusion_loss
 from small_vision_tpu.evaluators import mae_reconstruction as jmae
 from small_vision_tpu.ops import diffusion as jgd
 from small_vision_tpu.train import train_ae as jtrain
 from small_vision_tpu_torch import convert
+from small_vision_tpu_torch.configs import ae_i1k as tconfig
+from small_vision_tpu_torch.configs.common_fewshot import get_fewshot_lsr
 from small_vision_tpu_torch.data import core as tcore
 from small_vision_tpu_torch.data import pipeline as tpipeline
+from small_vision_tpu_torch.evaluators import classification as tclassification
 from small_vision_tpu_torch.evaluators import common as tcommon
 from small_vision_tpu_torch.train import train_ae
 from test_torch_models import TOL, _close, jax_model, small_config
@@ -252,13 +263,133 @@ def test_from_config_is_loud_about_a_misspelt_key():
     tcommon.from_config(bad, tfns, "cpu")
 
 
+def _classification_entry(pp_fn=PP_EVAL):
+  return dict(type="classification", pred="logits", data=dict(EVAL_DATA),
+              pp_fn=pp_fn, log_steps=4, batch_size=8)
+
+
 @pytest.mark.parametrize("eval_type", ["fewshot_lsr", "classification", "fid",
                                        "inception"])
 def test_from_config_names_the_slice_of_an_unported_evaluator(eval_type):
+  """Every evaluator of the JAX package is ported: `fewshot_lsr` and
+  `classification` build from their entries; `fid` and `inception` hold
+  no evaluator (in the JAX package neither) and the error says what they
+  are for."""
   config, _, _, tfns, _ = _sides()
-  config = dict(config, evals={"probe": dict(type=eval_type)})
-  with pytest.raises(NotImplementedError, match="evaluators slice"):
-    tcommon.from_config(config, tfns, "cpu")
+  tfns = dict(tfns, logits=lambda state, batch: (None,))
+  entries = {"fewshot_lsr": get_fewshot_lsr(datasets={}),
+             "classification": _classification_entry()}
+  config = dict(config, evals={"probe": entries.get(eval_type,
+                                                    dict(type=eval_type))})
+  if eval_type in entries:
+    (_, evaluator, _, _), = tcommon.from_config(config, tfns, "cpu")
+    assert type(evaluator).__module__.endswith(eval_type)
+  else:
+    with pytest.raises(ValueError, match="not an evaluator"):
+      tcommon.from_config(config, tfns, "cpu")
+
+
+def test_from_config_builds_every_evaluator_of_the_config():
+  """The default config with labels (val, mae_val, fewshot and the three
+  sampling evaluators) and a classification entry: each built, with the
+  JAX config's cadences."""
+  config = tconfig.get_config("data=synthetic,use_labels=True")
+  _, _, _, tfns, _ = _sides(labels=True)
+  tfns = dict(tfns, logits=lambda state, batch: (None,))
+  config["evals"]["cls"] = _classification_entry()
+  got = {name: (type(ev).__module__.rsplit(".", 1)[-1], steps, prefix)
+         for name, ev, steps, prefix in tcommon.from_config(config, tfns,
+                                                            "cpu")}
+  jevals = jconfig.get_config("data=synthetic,use_labels=True").evals
+  want = {name: (ev["type"], ev["log_steps"], f"{name}/")
+          for name, ev in jevals.items()}
+  want["cls"] = ("classification", 4, "cls/")
+  assert got == want
+  assert got["fewshot"] == ("fewshot_lsr", 10_000, "fewshot/")
+
+
+def _linear_logits(w):
+  """predict fns (JAX, port) whose logits are each image's channel means
+  through a fixed (3, classes) matrix."""
+  jfn = lambda state, batch: (jnp.mean(batch["image"], axis=(1, 2)) @ w, {})
+  wt = torch.from_numpy(w)
+  tfn = lambda state, batch: (batch["image"].mean(dim=(1, 2)) @ wt, {})
+  return jfn, tfn
+
+
+@pytest.mark.parametrize("labels", ["int", "onehot"])
+def test_classification_evaluator_matches_jax(labels):
+  """20 examples of 5 classes in batches of 8: the last batch pads 4 rows
+  with `_mask` 0, which neither count nor weigh. prec@1 exactly, the loss
+  within 1e-6 (f32 sums in another order)."""
+  w = (np.random.default_rng(0).standard_normal((3, 5)) * 20).astype(
+      np.float32)
+  jfn, tfn = _linear_logits(w)
+  data = dict(EVAL_DATA, num_classes=5)
+  pp = PP_EVAL if labels == "int" else (
+      'value_range(-1, 1)|onehot(5, key="label", key_result="label")'
+      '|keep("image", "label")')
+  want = dict(jclassification.Evaluator(
+      jfn, mesh=_mesh(), batch_size=8, data=dict(data), pp_fn=pp).run({}))
+  ev = tclassification.Evaluator(tfn, device="cpu", batch_size=8,
+                                 data=dict(data), pp_fn=pp)
+  assert ev.n_steps == 3
+  got = dict(ev.run({}))
+  assert sorted(got) == ["loss", "prec@1"]
+  assert got["prec@1"] == want["prec@1"]
+  assert 0.0 < got["prec@1"] < 1.0
+  assert got["loss"] == pytest.approx(want["loss"], rel=1e-6)
+  # A batch's padded rows would change both if they were counted.
+  one = list(ev.batches())[-1]
+  assert one["_mask"].tolist() == [1.0] * 4 + [0.0] * 4
+
+
+def test_config_quant_and_fid_keys_match_jax():
+  """`quant`, `fid_stats`, `inception_weights`, `fid_batch`,
+  `total_samples` and `samples_per_call` land where the JAX config puts
+  them."""
+  arg = ("data=synthetic,use_labels=True,quant=int8_all,fid_stats=ref.npz,"
+         "inception_weights=inc.npz,fid_batch=256,total_samples=64,"
+         "samples_per_call=32")
+  j, t = jconfig.get_config(arg), tconfig.get_config(arg)
+  assert t["model"]["quant"] == j.model["quant"] == "int8_all"
+  for key in ("inception_reference_path", "inception_weights",
+              "fid_batch_size", "num_samples_per_call"):
+    assert t[key] == j[key], key
+  assert t["evals"]["sample_cond"]["total_samples"] == j.evals[
+      "sample_cond"]["total_samples"] == 64
+  assert "quant" not in tconfig.get_config("data=synthetic")["model"]
+  assert tconfig.get_config("data=synthetic")["fid_batch_size"] == 1024
+
+
+def test_sampling_evaluator_is_scored_by_fid(tmp_path):
+  """A `diffusion_sampling` evaluator with `inception_reference_path` set
+  goes through the trainer's `handle_eval_results`: FID and IS are
+  logged (finite, FID non-negative, IS in [1, 1008]) and the samples are
+  saved as before. Seeded InceptionV3 weights, 16 px samples."""
+  from small_vision_tpu_torch.evaluators import fid as tfid
+  ref = str(tmp_path / "ref.npz")
+  tfid.compute_reference_stats(
+      iter([np.random.default_rng(0).integers(0, 256, (12, 16, 16, 3),
+                                              dtype=np.uint8)]),
+      ref, batch_size=8, device="cpu")
+  config = tconfig.get_config(
+      "runlocal,size=16,data=synthetic,use_labels=True,total_steps=1,"
+      f"samples_per_call=8,total_samples=16,fid_stats={ref},fid_batch=8")
+  config["evals"] = {"sample_cond": dict(
+      type="diffusion_sampling", pred="cond_eps", total_samples=16,
+      log_steps=1)}
+  config["diff_schedule"]["sampling_timesteps"] = 4
+  train_ae.train_and_evaluate(config, str(tmp_path), device="cpu",
+                              log=lambda s: None)
+  rows = [json.loads(l) for l in open(tmp_path / "sv_tpu_metrics.txt")]
+  row = {k: v for r in rows for k, v in r.items()}
+  fid_score = row["sample_cond/fid_samples_fid_score"]
+  is_score = row["sample_cond/fid_samples_inception_score"]
+  assert np.isfinite(fid_score) and fid_score >= 0.0
+  assert 1.0 <= is_score <= 1008.0
+  with np.load(tmp_path / "sample_cond_samples" / "samples_1.npz") as d:
+    assert d["samples"].shape == (16, 16, 16, 3)
 
 
 def test_mean_and_save_evaluators(tmp_path):

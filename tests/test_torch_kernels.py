@@ -32,7 +32,9 @@ tiles) and at 257, two launches of each giving the same bits, and
 change the max; and each of the nine wrappers launching its kernel from a
 thread that has run no CUDA work yet, with the same bits as from the main
 thread; and the input pipeline's copy onto the card giving the bytes of
-the same batches on the CPU.
+the same batches on the CPU; and the int8 matmul (`torch._int_mm`, a
+library call) against the CPU's exact integer product, and refusing the
+shapes `_int_mm` does not take.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -846,3 +848,52 @@ def test_train_iterator_onto_the_card_gives_the_cpu_bits(cuda, tmp_path):
     assert set(card) == set(host) == {"image", "label", "_id"}
     for k in host:
       assert card[k].is_cuda and torch.equal(card[k].cpu(), host[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(17, 64, 8), (300, 768, 3072),
+                                   (257, 3072, 768)])
+def test_int8_dot_on_the_card_matches_the_plain_integer_version(cuda, m, k,
+                                                                 n):
+  """`torch._int_mm` on the card against the CPU's exact int64 product:
+  the quantized operands and scales equal, the int32 accumulator equal bit
+  for bit, the bf16 output within one bf16 ulp of the largest, and the
+  straight-through gradients within two bf16 roundings (2^-7) of their
+  largest (the card's bf16 products sum in another order)."""
+  from small_vision_tpu_torch.ops import quant
+  x = _randn((m, k), 60, "cpu", torch.bfloat16)
+  w = _randn((k, n), 61, "cpu", torch.bfloat16, k ** -0.5)
+  ops = quant.quantized_operands(x, w)
+  card_ops = quant.quantized_operands(x.to(cuda), w.to(cuda))
+  for got, want in zip(card_ops, ops):
+    assert torch.equal(got.cpu(), want)
+  acc = quant.int_matmul(card_ops[0], card_ops[2])
+  assert acc.dtype == torch.int32 and acc.is_cuda
+  assert torch.equal(acc.cpu(), quant.int_matmul(ops[0], ops[2]))
+  g = _randn((m, n), 62, "cpu", torch.bfloat16)
+  outs = {}
+  for dev in ("cpu", cuda):
+    xd, wd = (t.to(dev).detach().requires_grad_() for t in (x, w))
+    y = quant.int8_dot(xd, wd)
+    y.backward(g.to(dev))
+    outs[str(dev)] = [t.float().cpu() for t in (y.detach(), xd.grad, wd.grad)]
+  (y_cpu, dx_cpu, dw_cpu), (y_gpu, dx_gpu, dw_gpu) = outs["cpu"], outs["cuda"]
+  top = y_cpu.abs().max().item()
+  assert (y_gpu - y_cpu).abs().max().item() <= 2.0**-7 * top
+  for got, want in ((dx_gpu, dx_cpu), (dw_gpu, dw_cpu)):
+    assert (got - want).abs().max().item() <= 2.0**-7 * want.abs().max(
+        ).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,what", [
+    (16, 64, 8, "more than 16 rows"), (32, 60, 8, "multiples of 8"),
+    (32, 64, 12, "multiples of 8")])
+def test_int8_dot_refuses_what_int_mm_does_not_take(cuda, m, k, n, what):
+  """No fallback: a shape `torch._int_mm` refuses raises, naming it."""
+  from small_vision_tpu_torch.ops import quant
+  x = _randn((m, k), 63, cuda, torch.bfloat16)
+  w = _randn((k, n), 64, cuda, torch.bfloat16)
+  with pytest.raises(ValueError, match=rf"\({m}, {k}\) @ \({k}, {n}\).*"
+                                       f"{what}"):
+    quant.int8_dot(x, w)

@@ -9,11 +9,17 @@ its native path (per example and per chunk). Where the native decoder is
 unavailable the op takes its PIL path with the same rng state as the JAX
 op's; PIL's crop is then resized by the bilinear resize, held to the
 tolerance of tests/test_torch_pp.py against TensorFlow.
+
+The JAX package's library is built by each test process itself, with the
+package's own g++ command, into a temporary directory of its own, and the
+imported JAX module is pointed at it for the test.
 """
 
 import io
 import logging
 import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -29,14 +35,47 @@ from small_vision_tpu_torch.pp import builder as tbuilder
 SHAPES = [(300, 200), (123, 456), (64, 64), (375, 500), (17, 9)]
 
 
+def _build_jax_library(out_dir):
+  """Builds the JAX package's `sv_dataloader.cpp` with its own g++ command
+  into `out_dir`; returns the library's path, or the reason it cannot be
+  built here (no g++, no libjpeg headers or library)."""
+  if shutil.which("g++") is None:
+    return None, "g++ is not installed"
+  src = os.path.join(jnative._SRC_DIR, "sv_dataloader.cpp")
+  so = os.path.join(out_dir, "sv_dataloader.so")
+  proc = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-pthread", src,
+                         "-o", so, "-ljpeg"], capture_output=True, text=True)
+  if proc.returncode != 0:
+    if "jpeglib.h" in proc.stderr or "-ljpeg" in proc.stderr:
+      return None, f"libjpeg is missing: {proc.stderr.strip()[-300:]}"
+    pytest.fail(f"g++ failed on the JAX package's decoder: {proc.stderr}")
+  return so, None
+
+
+@pytest.fixture(scope="session")
+def jax_library(tmp_path_factory):
+  """The JAX package's decoder, built by this process alone into its own
+  temporary directory. The package builds `_native/sv_dataloader.so` in
+  place, so test processes that start at once could load one another's
+  half-written file; a private build cannot."""
+  return _build_jax_library(str(tmp_path_factory.mktemp("jax_native")))
+
+
 @pytest.fixture
-def native():
-  """Both libraries; the JAX package's builds in place, the port's into
-  its build directory."""
+def native(jax_library, monkeypatch):
+  """Both libraries; the JAX package's from this process's own build, the
+  port's from its build directory."""
+  so, reason = jax_library
+  if so is None:
+    pytest.skip(f"the JAX package's native decoder does not build here "
+                f"({reason}), so there is nothing to hold the port's "
+                f"against")
+  monkeypatch.setattr(jnative, "_SO_PATH", so)
+  monkeypatch.setattr(jnative, "_LIB", None)
+  monkeypatch.setattr(jnative, "_TRIED", False)
   if not jnative.available():
-    pytest.skip("the JAX package's native decoder does not build here "
-                "(g++ or libjpeg missing), so there is nothing to hold the "
-                "port's against")
+    pytest.fail(f"the JAX package's decoder built into {so} but does not "
+                "load")
   assert tnative.available(), tnative.status()
   assert tnative.status().startswith("native (sv_dataloader-")
   assert str(tnative.BUILD_DIR).endswith("small_vision_tpu_torch/_build")
