@@ -7,21 +7,20 @@ Phases, each fatal on failure:
   2. kernels   each kernel against its plain PyTorch version on the card,
                with its time, the plain version's, one library call's and
                the bound: the forwards K1, K3, K7 at the shapes of the
-               UMD-B/4@64 sampler at batch 64 (L = 260 and 257; K7 also at
-               the shape of phase 6, and timed there too), the backwards
-               K2, K4, K8 at the training shapes (per-branch batch 128,
-               L = 68, 164, 257), each launched twice to show equal bits
-               (K2 three times in a row, and twice at once on two streams
-               at (128, 257) modulated and (128, 68), which must give the
-               bits of the same two launches in turn; K8 also at L = 65
-               and at (8,
+               UMD-B/4@64 sampler at batch 64 (L = 260 and 257; K1 and K3
+               also at the training shapes; K7 also at the shape of phase
+               6, and timed there too), the backwards K2, K4, K8 at the
+               training shapes (per-branch batch 128, L = 68, 164, 257),
+               each launched twice to show equal bits (K2 three times in a
+               row, and twice at once on two streams at (128, 257)
+               modulated and (128, 68), which must give the bits of the
+               same two launches in turn; K8 also at L = 65 and at (8,
                1,024), past its old limit, and with the time of each of
-               its two kernels; K3 also at the training shapes, and K7,
-               launched twice too), the fused MLP and MHA (K5, K6) at
-               both, each launched twice to show equal bits and with the
-               time of each of its kernels (K5's two, K6's three), K5
-               also at width 1,024 with hidden 4,096, and the seven arms
-               of the ablation kernel (K9) at the tool's two shapes, each
+               its two kernels), the fused MLP and MHA (K5, K6) at both,
+               each launched twice to show equal bits and with the time of
+               each of its kernels (K5's two, K6's three), K5 also at
+               width 1,024 with hidden 4,096, and the seven arms of the
+               ablation kernel (K9) at the tool's two shapes, each
                launched twice to show equal bits.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
@@ -97,6 +96,31 @@ Phases, each fatal on failure:
                `inception_reference_path` set through
                `train_and_evaluate`'s `handle_eval_results`: a finite,
                non-negative FID and an IS in [1, 1,008] logged.
+ 12. latent    UMD-L/2@256 on Stable Diffusion VAE latents (width 1,024,
+               24 + 8 blocks, 16 heads; seeded model and VAE): the SD-width
+               VAE's encode_moments and decode on two 256x256 images on the
+               card against the CPU (f32, TF32 off); one training step of
+               the model at depth 2 + 1 with the VAE encode inside, card
+               against CPU; 6 steps (1 warm-up, 5 timed) at full depth
+               through `train_and_evaluate` on
+               `ae_i1k.py:variant=L/2,size=256,latent_diffusion=True,
+               data=synthetic` at batch LATENT_BATCH (finite, falling
+               losses, the launches per step the model gives, img/s, peak
+               memory, the encode's ms a step by CUDA events); one 125-step
+               `uncond_eps` call of `make_eval_fns` at batch 64 with its
+               decode (uint8 (64, 256, 256, 3), K1 8,064 and K3 4,032
+               launches, the decode's share). Phase `kernels` also runs
+               its checks of K1-K4 and K6 at width 1,024 (16 heads): K1
+               and K3 at the sampler's (64, 260) and (64, 257), K1-K4 at
+               this phase's per-branch batch and L = 68, 164, 257, K6 at
+               the sampler's shapes.
+ 13. probe     the linear probe (`linear_ae.train_and_evaluate`,
+               `configs/ae_i1k_lp.py` with the decoded-image pp of an
+               arrays source) on phase evals' 10 classes, the backbone
+               from phase resume's step-6 checkpoint: stopped after its
+               step-3 checkpoint and resumed, then `classification` on
+               validation/; finite losses, the checkpoint, the frozen
+               forward's K1 and K3 launches.
 Then it prints the card's name and power limit, one JSON line of the
 kernels, and as its last line {"ok": true, "device": {...}}. Without a CUDA
 device it exits non-zero and prints no result.
@@ -211,111 +235,131 @@ def _bound(bytes_moved, ops, peak):
   return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def check_ln(ln, card):
-  """K1 against its plain version; returns its kernels-line entry."""
+def model_shapes(train_batch):
+  """(batch, length) of a block's calls: the sampler's encoder and decoder
+  at batch 64, and the three training shapes at the per-branch batch."""
+  return ((BATCH, SEQ_ENC), (BATCH, SEQ_DEC)) + tuple(
+      (train_batch, l) for l in TRAIN_SEQS)
+
+
+def check_ln(ln, card, width=WIDTH, train_batch=TRAIN_BATCH // 2):
+  """K1 against its plain version, modulated and not, two launches giving
+  equal bits, at `model_shapes(train_batch)`; returns its kernels-line
+  entry (times of the modulated call at the sampler's encoder shape on
+  top, the training shapes' under `by_len`)."""
   gen = torch.Generator(device="cuda").manual_seed(0)
   randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-  gamma = 1.0 + 0.1 * randn(WIDTH)
-  beta = 0.1 * randn(WIDTH)
-  # shift/scale as the block makes them: column slices of the AdaLN output.
-  mods = (0.5 * randn(BATCH, 6 * WIDTH)).to(torch.bfloat16)
-  shift, scale = mods.chunk(6, dim=-1)[:2]
-  max_err, timing = 0.0, None
-  for seq in (SEQ_ENC, SEQ_DEC):
-    x = (2.0 * randn(BATCH, seq, WIDTH) + 0.5).to(torch.bfloat16)
+  gamma = 1.0 + 0.1 * randn(width)
+  beta = 0.1 * randn(width)
+  max_err, timing, by_len = 0.0, None, {}
+  for b, seq in model_shapes(train_batch):
+    # shift/scale as the block makes them: column slices of the AdaLN output.
+    mods = (0.5 * randn(b, 6 * width)).to(torch.bfloat16)
+    shift, scale = mods.chunk(6, dim=-1)[:2]
+    x = (2.0 * randn(b, seq, width) + 0.5).to(torch.bfloat16)
     for mod in ((shift, scale), (None, None)):
       args = (x, gamma, beta, *mod)
-      y = ln.ln_modulate_fwd(*args).float()
+      got = ln.ln_modulate_fwd(*args)
+      again = ln.ln_modulate_fwd(*args)
       ref = ln.ln_modulate_plain(*args).float()
       torch.cuda.synchronize()
-      err = (y - ref).abs()
+      if not torch.equal(got, again):
+        fail(f"ln_modulate_fwd B={b} L={seq} D={width}: two launches differ")
+      err = (got.float() - ref).abs()
       # One bf16 ulp of the output (2^-7 relative), plus f32 rounding of
       # the O(1) intermediates, which may tip a value across a bf16 tie.
       bad = (err > 2.0**-7 * ref.abs() + 1e-5).sum().item()
       max_err = max(max_err, err.max().item())
-      print(f"[kernels] ln_modulate_fwd L={seq} "
+      print(f"[kernels] ln_modulate_fwd B={b} L={seq} D={width} "
             f"modulate={mod[0] is not None}: max abs err "
-            f"{err.max().item():.3e}, {bad} elements over 1 bf16 ulp",
-            flush=True)
+            f"{err.max().item():.3e}, {bad} elements over 1 bf16 ulp, two "
+            "launches equal", flush=True)
       if bad:
         fail(f"ln_modulate_fwd disagrees with its plain version ({bad})")
-    if seq == SEQ_ENC:
-      args = (x, gamma, beta, shift, scale)
-      g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
-      timing = dict(
-          ms=time_ms(lambda: ln.ln_modulate_fwd(*args)),
-          plain_ms=time_ms(lambda: ln.ln_modulate_plain(*args)),
-          library_ms=time_ms(lambda: torch.nn.functional.layer_norm(
-              x, (WIDTH,), g16, b16, 1e-6) * (1 + scale[:, None])
-                             + shift[:, None]))
-  n = BATCH * SEQ_ENC * WIDTH
-  bytes_moved = 2 * n * 2 + 2 * WIDTH * 4 + 2 * BATCH * WIDTH * 2
-  bound_ms, bound_by = _bound(bytes_moved, 9 * n, F32_FLOPS)
-  print(f"[kernels] ln_modulate_fwd B={BATCH} L={SEQ_ENC} D={WIDTH} "
-        f"modulated: kernel {timing['ms']:.4f} ms, plain "
-        f"{timing['plain_ms']:.4f} ms, layer_norm+modulate "
-        f"{timing['library_ms']:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bytes_moved} bytes) on {card}", flush=True)
+    if (b, seq) == (BATCH, SEQ_DEC):
+      continue  # the decoder's sampler shape is checked, not timed
+    args = (x, gamma, beta, shift, scale)
+    g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
+    n = b * seq * width
+    bytes_moved = 2 * n * 2 + 2 * width * 4 + 2 * b * width * 2
+    bound_ms, bound_by = _bound(bytes_moved, 9 * n, F32_FLOPS)
+    # 200 launches, as for K3 (50 read 0.023 and 0.057 ms at (128, 68,
+    # 1024) in two calls). A call's host time, 24-44 us by K3's reading
+    # below, is as long as K1's launch at these shapes: `ms` may read the
+    # host's rate of calls rather than the card's time.
+    entry = dict(
+        ms=time_ms(lambda: ln.ln_modulate_fwd(*args), iters=200),
+        plain_ms=time_ms(lambda: ln.ln_modulate_plain(*args)),
+        library_ms=time_ms(lambda: torch.nn.functional.layer_norm(
+            x, (width,), g16, b16, 1e-6) * (1 + scale[:, None])
+                           + shift[:, None], iters=200),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernels] ln_modulate_fwd B={b} L={seq} D={width} modulated: "
+          f"{_fmt(entry)} (layer_norm+modulate as library; {bytes_moved} "
+          f"bytes) on {card}", flush=True)
+    if timing is None:
+      timing = entry
+    else:
+      by_len[seq] = entry
   return dict(name=ln.NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/ln_modulate.cu",
               replaces="small_vision_tpu/ops/layernorm.py:58",
-              max_abs_err=max_err, bound_ms=bound_ms, bound_by=bound_by,
-              **timing)
+              max_abs_err=max_err, **timing, by_len=by_len)
 
 
-def check_attention(attn, card):
-  """K3 against its plain version at the sampler's shapes (batch 64, L =
-  260 and 257) and the training shapes (batch 128, L = 68, 164, 257), two
-  launches giving equal bits at each; returns its kernels-line entry (times
-  at the sampler's encoder shape on top, the training shapes' under
-  `by_len`)."""
+def check_attention(attn, card, width=WIDTH, heads=HEADS,
+                    train_batch=TRAIN_BATCH // 2):
+  """K3 against its plain version at `model_shapes(train_batch)` (the
+  sampler's shapes, batch 64, L = 260 and 257, and the training shapes, L =
+  68, 164, 257), two launches giving equal bits at each; returns its
+  kernels-line entry (times at the sampler's encoder shape on top, the
+  training shapes' under `by_len`)."""
   gen = torch.Generator(device="cuda").manual_seed(1)
-  head_dim = WIDTH // HEADS
+  head_dim = width // heads
   max_err, timing, by_len = 0.0, None, {}
-  shapes = [(BATCH, SEQ_ENC), (BATCH, SEQ_DEC)] + [
-      (TRAIN_BATCH // 2, l) for l in TRAIN_SEQS]
-  for b, seq in shapes:
-    q, k, v = (torch.randn(b, seq, WIDTH, generator=gen,
+  for b, seq in model_shapes(train_batch):
+    q, k, v = (torch.randn(b, seq, width, generator=gen,
                            device="cuda").to(torch.bfloat16)
                for _ in range(3))
-    got = attn.attention_packed_fwd(q, k, v, HEADS)
-    again = attn.attention_packed_fwd(q, k, v, HEADS)
-    ref = attn.attention_packed_plain(q, k, v, HEADS).float()
+    got = attn.attention_packed_fwd(q, k, v, heads)
+    again = attn.attention_packed_fwd(q, k, v, heads)
+    ref = attn.attention_packed_plain(q, k, v, heads).float()
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-      fail(f"attention_packed_fwd B={b} L={seq}: two launches differ")
+      fail(f"attention_packed_fwd B={b} L={seq} H={heads}: two launches "
+           "differ")
     err = (got.float() - ref).abs()
     # Two bf16 ulps at unit magnitude (outputs are convex mixes of N(0,1)
     # values): the f32 score sums run in another order, which may round a
     # weight e to the neighbouring bf16 value, and o itself is bf16.
     bad = (err > 1e-2 + 1e-2 * ref.abs()).sum().item()
     max_err = max(max_err, err.max().item())
-    print(f"[kernels] attention_packed_fwd B={b} L={seq}: max abs err "
-          f"{err.max().item():.3e}, {bad} elements over tolerance, two "
+    print(f"[kernels] attention_packed_fwd B={b} L={seq} H={heads}: max abs "
+          f"err {err.max().item():.3e}, {bad} elements over tolerance, two "
           "launches equal", flush=True)
     if bad:
       fail(f"attention_packed_fwd disagrees with its plain version ({bad})")
-    if seq == SEQ_DEC and b == BATCH:
+    if (b, seq) == (BATCH, SEQ_DEC):
       continue  # the decoder's sampler shape is checked, not timed
-    split = lambda t: t.view(b, seq, HEADS, head_dim).transpose(1, 2)
-    bound_ms, bound_by = _bound(4 * b * seq * WIDTH * 2,
-                                4 * b * HEADS * seq * seq * head_dim,
+    split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
+    bound_ms, bound_by = _bound(4 * b * seq * width * 2,
+                                4 * b * heads * seq * seq * head_dim,
                                 BF16_FLOPS)
     # 200 launches: at L=68 a launch takes 0.05 ms, and 50 of them read
     # two clock states apart from call to call.
     entry = dict(
-        ms=time_ms(lambda: attn.attention_packed_fwd(q, k, v, HEADS),
+        ms=time_ms(lambda: attn.attention_packed_fwd(q, k, v, heads),
                    iters=200),
-        plain_ms=time_ms(lambda: attn.attention_packed_plain(q, k, v, HEADS),
+        plain_ms=time_ms(lambda: attn.attention_packed_plain(q, k, v, heads),
                          iters=10),
         library_ms=time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 split(q), split(k), split(v)), iters=200),
         bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] attention_packed_fwd B={b} L={seq} H={HEADS} "
+    print(f"[kernels] attention_packed_fwd B={b} L={seq} H={heads} "
           f"D={head_dim}: {_fmt(entry)} (sdpa as library) on {card}",
           flush=True)
-    if b == BATCH:
+    if timing is None:
       timing = entry
     else:
       by_len[seq] = entry
@@ -328,10 +372,10 @@ def check_attention(attn, card):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(500):
-      attn.attention_packed_fwd(*small, HEADS)
+      attn.attention_packed_fwd(*small, heads)
     runs.append((time.perf_counter() - t0) / 500 * 1e6)
   torch.cuda.synchronize()
-  print(f"[kernels] attention_packed_fwd host time a call (1, 64, {WIDTH}): "
+  print(f"[kernels] attention_packed_fwd host time a call (1, 64, {width}): "
         f"{min(runs):.2f} us", flush=True)
   return dict(name=attn.NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/attention_packed.cu",
@@ -340,21 +384,21 @@ def check_attention(attn, card):
               host_us=min(runs))
 
 
-def check_ln_bwd(ln, card):
-  """K2 against its plain version at the training shapes, three launches
-  in a row giving equal bits, two at once on two streams giving the bits
-  of the same two in turn; timed beside its bound and its library call."""
+def check_ln_bwd(ln, card, width=WIDTH, b=TRAIN_BATCH // 2):
+  """K2 against its plain version at the training shapes (per-branch
+  batch `b`, L = 68, 164, 257), modulated and not, three launches in a
+  row giving equal bits, two at once on two streams giving the bits of the
+  same two in turn; timed beside its bound and its library call."""
   gen = torch.Generator(device="cuda").manual_seed(2)
   randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-  b = TRAIN_BATCH // 2
-  gamma = 1.0 + 0.1 * randn(WIDTH)
-  beta = 0.1 * randn(WIDTH)
-  mods = (0.5 * randn(b, 6 * WIDTH)).to(torch.bfloat16)
+  gamma = 1.0 + 0.1 * randn(width)
+  beta = 0.1 * randn(width)
+  mods = (0.5 * randn(b, 6 * width)).to(torch.bfloat16)
   shift, scale = mods.chunk(6, dim=-1)[:2]
   max_err, by_len, cases = 0.0, {}, {}
   for seq in TRAIN_SEQS:
-    x = (2.0 * randn(b, seq, WIDTH) + 0.5).to(torch.bfloat16)
-    dy = randn(b, seq, WIDTH).to(torch.bfloat16)
+    x = (2.0 * randn(b, seq, width) + 0.5).to(torch.bfloat16)
+    dy = randn(b, seq, width).to(torch.bfloat16)
     mean = torch.empty(b, seq, device="cuda")
     rstd = torch.empty_like(mean)
     ln.ln_modulate_fwd(x, gamma, beta, shift, scale, mean=mean, rstd=rstd)
@@ -369,7 +413,8 @@ def check_ln_bwd(ln, card):
       torch.cuda.synchronize()
       if not all(torch.equal(g, a) for other in again
                  for g, a in zip(got, other) if g is not None):
-        fail(f"ln_modulate_bwd L={seq}: three launches differ")
+        fail(f"ln_modulate_bwd B={b} L={seq} D={width}: three launches "
+             "differ")
       dx, dx_want = got[0].float(), want[0].float()
       err = (dx - dx_want).abs()
       # dx: one bf16 ulp (rounding either way) plus f32 noise; the sums:
@@ -383,7 +428,7 @@ def check_ln_bwd(ln, card):
           worst = max(worst, e)
           bad += int(e > 1e-4 * w.abs().max().item())
       max_err = max(max_err, worst)
-      print(f"[kernels] ln_modulate_bwd B={b} L={seq} modulate="
+      print(f"[kernels] ln_modulate_bwd B={b} L={seq} D={width} modulate="
             f"{sc is not None}: max abs err {worst:.3e}, {bad} over "
             "tolerance, three launches equal", flush=True)
       if bad:
@@ -395,12 +440,12 @@ def check_ln_bwd(ln, card):
     g16 = gamma.to(torch.bfloat16).requires_grad_()
     b16 = beta.to(torch.bfloat16).requires_grad_()
     sh, scl = (t.clone().requires_grad_() for t in (shift, scale))
-    y = (torch.nn.functional.layer_norm(xg, (WIDTH,), g16, b16, 1e-6)
+    y = (torch.nn.functional.layer_norm(xg, (width,), g16, b16, 1e-6)
          * (1 + scl[:, None]) + sh[:, None])
-    n = b * seq * WIDTH
+    n = b * seq * width
     bound_ms, bound_by = _bound(
-        3 * n * 2 + 2 * b * seq * 4 + 4 * WIDTH * 4 + b * WIDTH * 2
-        + 2 * b * WIDTH * 4, 14 * n, F32_FLOPS)
+        3 * n * 2 + 2 * b * seq * 4 + 4 * width * 4 + b * width * 2
+        + 2 * b * width * 4, 14 * n, F32_FLOPS)
     # `ms` times calls through the wrapper, as for every other kernel. A
     # call's checks and allocations can take as long on the host as K2 on
     # the card, so `device_ms` also times launches into buffers made once.
@@ -411,11 +456,12 @@ def check_ln_bwd(ln, card):
         library_ms=time_ms(lambda: torch.autograd.grad(
             y, (xg, g16, b16, sh, scl), dy, retain_graph=True)),
         bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] ln_modulate_bwd B={b} L={seq} D={WIDTH} modulated: "
+    print(f"[kernels] ln_modulate_bwd B={b} L={seq} D={width} modulated: "
           + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                       for k, v in by_len[seq].items())
-          + f" (device_ms before the tickets moved into the launch's "
-          f"scratch, PR 10: {K2_DEVICE_MS_BEFORE[seq]:.4f}) on {card}",
+          + (f" (device_ms before the tickets moved into the launch's "
+             f"scratch, PR 10: {K2_DEVICE_MS_BEFORE[seq]:.4f})"
+             if width == WIDTH else "") + f" on {card}",
           flush=True)
   _check_ln_bwd_two_streams(ln, [cases[(TRAIN_SEQS[-1], True)],
                                  cases[(TRAIN_SEQS[0], False)]])
@@ -453,22 +499,24 @@ def _check_ln_bwd_two_streams(ln, cases):
         "bits of the same launches in turn, 5 rounds", flush=True)
 
 
-def check_attention_bwd(attn, card):
-  """K4 against its plain version at the training shapes."""
+def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
+                        b=TRAIN_BATCH // 2):
+  """K4 against its plain version at the training shapes (per-branch
+  batch `b`, L = 68, 164, 257), two launches giving equal bits."""
   gen = torch.Generator(device="cuda").manual_seed(3)
-  b = TRAIN_BATCH // 2
-  head_dim = WIDTH // HEADS
+  head_dim = width // heads
   max_err, by_len = 0.0, {}
   for seq in TRAIN_SEQS:
-    q, k, v, do = (torch.randn(b, seq, WIDTH, generator=gen,
+    q, k, v, do = (torch.randn(b, seq, width, generator=gen,
                                device="cuda").to(torch.bfloat16)
                    for _ in range(4))
-    got = attn.attention_packed_bwd(q, k, v, do, HEADS)
-    again = attn.attention_packed_bwd(q, k, v, do, HEADS)
-    want = attn.attention_packed_bwd_plain(q, k, v, do, HEADS)
+    got = attn.attention_packed_bwd(q, k, v, do, heads)
+    again = attn.attention_packed_bwd(q, k, v, do, heads)
+    want = attn.attention_packed_bwd_plain(q, k, v, do, heads)
     torch.cuda.synchronize()
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
-      fail(f"attention_packed_bwd L={seq}: two launches differ")
+      fail(f"attention_packed_bwd B={b} L={seq} H={heads}: two launches "
+           "differ")
     worst, bad = 0.0, 0
     for g, w in zip(got, want):
       # bf16 outputs of f32 sums over L; a sum in another order may flip
@@ -478,26 +526,26 @@ def check_attention_bwd(attn, card):
       worst = max(worst, e)
       bad += int(e > 2.0**-6 * w.float().abs().max().item())
     max_err = max(max_err, worst)
-    print(f"[kernels] attention_packed_bwd B={b} L={seq}: max abs err "
-          f"{worst:.3e}, {bad} outputs over tolerance, two launches equal",
-          flush=True)
+    print(f"[kernels] attention_packed_bwd B={b} L={seq} H={heads}: max "
+          f"abs err {worst:.3e}, {bad} outputs over tolerance, two launches "
+          "equal", flush=True)
     if bad:
       fail(f"attention_packed_bwd disagrees with its plain version ({bad})")
-    split = lambda t: t.view(b, seq, HEADS, head_dim).transpose(1, 2)
+    split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
     qs, ks, vs = (split(t).detach().requires_grad_() for t in (q, k, v))
     o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
     dos = split(do)
-    bound_ms, bound_by = _bound(7 * b * seq * WIDTH * 2,
-                                5 * 2 * b * HEADS * seq * seq * head_dim,
+    bound_ms, bound_by = _bound(7 * b * seq * width * 2,
+                                5 * 2 * b * heads * seq * seq * head_dim,
                                 BF16_FLOPS)
     by_len[seq] = dict(
-        ms=time_ms(lambda: attn.attention_packed_bwd(q, k, v, do, HEADS)),
+        ms=time_ms(lambda: attn.attention_packed_bwd(q, k, v, do, heads)),
         plain_ms=time_ms(lambda: attn.attention_packed_bwd_plain(
-            q, k, v, do, HEADS), iters=5),
+            q, k, v, do, heads), iters=5),
         library_ms=time_ms(lambda: torch.autograd.grad(
             o, (qs, ks, vs), dos, retain_graph=True)),
         bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] attention_packed_bwd B={b} L={seq} H={HEADS} "
+    print(f"[kernels] attention_packed_bwd B={b} L={seq} H={heads} "
           f"D={head_dim}: " + ", ".join(
               f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
               for k, v in by_len[seq].items()) + f" on {card}", flush=True)
@@ -525,8 +573,7 @@ def _close_to_max(got, want, ulps):
 
 # (batch, length) of the fused kernels' calls: the sampler's encoder and
 # decoder, and the three training shapes.
-FUSED_SHAPES = ((BATCH, SEQ_ENC), (BATCH, SEQ_DEC)) + tuple(
-    (TRAIN_BATCH // 2, l) for l in TRAIN_SEQS)
+FUSED_SHAPES = model_shapes(TRAIN_BATCH // 2)
 # K5's (batch, length, width): those at width 768, and one at UMD-L/2's
 # width 1,024.
 FUSED_SHAPES_MLP = tuple((b, l, WIDTH) for b, l in FUSED_SHAPES) + (
@@ -601,51 +648,53 @@ def check_fused_mlp(fb, card):
               by_shape=by_shape)
 
 
-def check_fused_mha(fb, card):
-  """K6 against its plain version at the sampler's and training shapes;
-  two launches must give equal bits."""
+def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
+                    shapes=FUSED_SHAPES):
+  """K6 against its plain version at `shapes` (by default the sampler's
+  and training shapes); two launches must give equal bits."""
   gen = torch.Generator(device="cuda").manual_seed(5)
   randn = lambda *s, std=1.0: (torch.randn(*s, generator=gen, device="cuda")
                                * std).to(torch.bfloat16)
   params = []
   for _ in range(4):
-    params += [randn(WIDTH, WIDTH, std=WIDTH**-0.5), randn(WIDTH, std=0.1)]
+    params += [randn(width, width, std=width**-0.5), randn(width, std=0.1)]
   wq, bq, wk, bk, wv, bv, wo, bo = params
   lin = torch.nn.functional.linear
   wts = [w.t().contiguous() for w in (wq, wk, wv, wo)]
-  head_dim = WIDTH // HEADS
+  head_dim = width // heads
   max_err, by_shape = 0.0, {}
-  for b, seq in FUSED_SHAPES:
-    x = randn(b, seq, WIDTH)
-    args = (x, *params, HEADS)
+  for b, seq in shapes:
+    x = randn(b, seq, width)
+    args = (x, *params, heads)
     got = fb.fused_mha_fwd(*args)
     again = fb.fused_mha_fwd(*args)
     want = fb.fused_mha_plain(*args)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-      fail(f"fused_mha_fwd B={b} L={seq}: two launches differ")
+      fail(f"fused_mha_fwd B={b} L={seq} D={width}: two launches differ")
     # q, k, v, the probabilities, the head outputs and the output round to
     # bf16 on both sides; sums in another order may flip an inner rounding,
     # which moves an output by about one bf16 ulp: allow two ulps of the
     # largest output.
     err, ok = _close_to_max(got, want, 2)
     max_err = max(max_err, err)
-    print(f"[kernels] fused_mha_fwd B={b} L={seq}: max abs err {err:.3e} of "
-          f"max {want.float().abs().max().item():.3e} (tolerance 2 bf16 "
-          "ulps of the max), two launches equal", flush=True)
+    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={width}: max abs err "
+          f"{err:.3e} of max {want.float().abs().max().item():.3e} "
+          "(tolerance 2 bf16 ulps of the max), two launches equal",
+          flush=True)
     if not ok:
       fail(f"fused_mha_fwd disagrees with its plain version ({err:.3e})")
 
     def library():
-      split = lambda t: t.view(b, seq, HEADS, head_dim).transpose(1, 2)
+      split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
       q, k, v = (split(lin(x, w, bias)) for w, bias in
                  zip(wts[:3], (bq, bk, bv)))
       o = torch.nn.functional.scaled_dot_product_attention(q, k, v)
-      return lin(o.transpose(1, 2).reshape(b, seq, WIDTH), wts[3], bo)
+      return lin(o.transpose(1, 2).reshape(b, seq, width), wts[3], bo)
 
-    bytes_moved = (2 * b * seq * WIDTH + 4 * WIDTH * WIDTH + 4 * WIDTH) * 2
-    flops = (8 * b * seq * WIDTH * WIDTH
-             + 4 * b * HEADS * seq * seq * head_dim)
+    bytes_moved = (2 * b * seq * width + 4 * width * width + 4 * width) * 2
+    flops = (8 * b * seq * width * width
+             + 4 * b * heads * seq * seq * head_dim)
     bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
     by_shape[f"{b}x{seq}"] = dict(
         ms=time_ms(lambda: fb.fused_mha_fwd(*args), iters=20),
@@ -657,13 +706,13 @@ def check_fused_mha(fb, card):
     stages = fb.fused_mha_stages(*args)
     by_shape[f"{b}x{seq}"]["stage_ms"] = {
         name: time_ms(launch, iters=20) for name, launch in stages.items()}
-    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={WIDTH} H={HEADS}: "
+    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={width} H={heads}: "
           f"{_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} bytes, {flops} "
           f"flops) on {card}", flush=True)
   return dict(name=fb.MHA_NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/fused_mha.cu",
               replaces="small_vision_tpu/ops/fused_block.py:68",
-              max_abs_err=max_err, **by_shape[f"{BATCH}x{SEQ_ENC}"],
+              max_abs_err=max_err, **by_shape["{}x{}".format(*shapes[0])],
               by_shape=by_shape)
 
 
@@ -1303,9 +1352,10 @@ def _stop_after_checkpoint(step):
   return log, Stopped
 
 
-def phase_resume(build, card, no_ckpt_img_per_s):
+def phase_resume(build, card, no_ckpt_img_per_s, keep_dir):
   """Checkpoint, evaluators and resume at full width; see the module's
-  docstring."""
+  docstring. Run B's step-6 checkpoint moves to `keep_dir`/checkpoints,
+  the pretrain workdir of phase probe."""
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.train import train_ae
   from small_vision_tpu_torch.utils import checkpoint as ckpt_lib
@@ -1370,6 +1420,8 @@ def phase_resume(build, card, no_ckpt_img_per_s):
       fail(f"run B did not resume from step {every}: {notes[:4]}")
     if [h["step"] for h in hist_b] != list(range(every + 1, steps + 1)):
       fail(f"run B ran steps {[h['step'] for h in hist_b]}")
+    shutil.move(os.path.join(dir_b, "checkpoints"),
+                os.path.join(keep_dir, "checkpoints"))
     shutil.rmtree(dir_b)
     for what, a, b in (("params", state_a["params"], state_b["params"]),
                        ("mu", state_a["opt"]["mu"], state_b["opt"]["mu"]),
@@ -1824,6 +1876,419 @@ def phase_evals(build, card):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# UMD-L/2@256, the latent path (phase latent) and the linear probe (phase
+# probe); the width-1,024 rows of phase kernels.
+L2_WIDTH, L2_HEADS = 1024, 16
+L2_BLOCKS = 24 + 8            # encoder + decoder blocks of UMD-L/2
+# Per card. Reckoned before the first run: 611 M parameters at 14 bytes
+# each (f32 weights and gradients, Adam's bf16 mu and f32 nu) are 8.6 GB;
+# the activations kept for the backward, ~40 bytes a token and block at
+# width 1,024 over 1,844 (MAE branch) + 2,996 (diffusion branch) tokens x
+# blocks an image, ~0.2 GB an image: 256 images need ~60 GB, 512 do not
+# fit in 80 GB. The config's global 1,024 is a multi-card batch.
+LATENT_BATCH = 256
+# Its token counts are UMD-B/4@64's, TRAIN_SEQS: 32x32 latents at patch 2
+# give 256 patches, as 64 px images at patch 4 do.
+LATENT_STEPS = 6              # 1 warm-up + 5 timed
+LATENT_SIZE = 256
+# The SD VAE (channels 128-512) in f32 on the card (cuDNN, TF32 off)
+# against the CPU, relative to each output's largest magnitude: two orders
+# of summation through 30 convolutions (CPU tests at width 32: ~1e-6).
+VAE_TOL = 1e-4
+PROBE_STEPS, PROBE_CKPT = 6, 3
+
+
+def _cuda_timer():
+  """(wrap, times): `wrap(fn)` is `fn` with each call timed by CUDA events
+  into `times` (ms, read once the device is synchronised)."""
+  events = []
+
+  def wrap(fn):
+    def timed(*a, **kw):
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      out = fn(*a, **kw)
+      end.record()
+      events.append((start, end))
+      return out
+    return timed
+
+  def times():
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events]
+  return wrap, times
+
+
+def _vae_flops(model, image_size):
+  """Multiply-adds x 2 of the convolutions and the mid attentions of the
+  encoder and the decoder for one image, from their shapes."""
+  counts = {"encoder": 0, "decoder": 0}
+
+  def hook(part):
+    def count(mod, inputs, out):
+      if isinstance(mod, torch.nn.Conv2d):
+        k = mod.kernel_size[0] * mod.kernel_size[1] * mod.in_channels
+        counts[part] += 2 * out.numel() * k
+      elif isinstance(mod, torch.nn.Linear):
+        counts[part] += 2 * out.numel() * mod.in_features
+      else:  # AttnBlock: the two (hw x hw x c) products
+        _, c, h, w = inputs[0].shape
+        counts[part] += 2 * 2 * (h * w) ** 2 * c
+    return count
+  handles = []
+  for part in counts:
+    for mod in getattr(model, part).modules():
+      if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)) or \
+          type(mod).__name__ == "AttnBlock":
+        handles.append(mod.register_forward_hook(hook(part)))
+  with torch.no_grad():
+    z = model.encoder(torch.zeros(1, 3, image_size, image_size,
+                                  device="meta"))
+    model.decoder(z[:, :4])
+  for h in handles:
+    h.remove()
+  return counts
+
+
+def _hold_vae(card):
+  """The SD-width VAE on two seeded 256x256 images: encode_moments and
+  decode on the card against the CPU (f32, TF32 off)."""
+  from small_vision_tpu_torch.models import vae as vae_lib
+
+  rng = np.random.default_rng(31)
+  images = rng.uniform(-1, 1, (2, LATENT_SIZE, LATENT_SIZE, 3)).astype(
+      np.float32)
+  z = (rng.standard_normal((2, 32, 32, 4)) * 0.8).astype(np.float32)
+  with torch.device("meta"):
+    model = vae_lib.AutoencoderKL()
+  model = vae_lib.init_vae_params(
+      model.to_empty(device="cpu").requires_grad_(False), seed=0)
+  outs = {}
+  for dev in ("cpu", "cuda"):
+    model = model.to(dev)
+    with torch.no_grad():
+      mean, logvar = model.encode_moments(torch.from_numpy(images).to(dev))
+      x = model.decode(torch.from_numpy(z).to(dev))
+    outs[dev] = [t.float().cpu() for t in (mean, logvar, x)]
+  flops = _vae_flops(model.to("meta"), LATENT_SIZE)
+  del model
+  errs = [(g - c).abs().max().item() / c.abs().max().item()
+          for g, c in zip(outs["cuda"], outs["cpu"])]
+  print(f"[latent] SD VAE (128, 256, 512, 512), 2 images of "
+        f"{LATENT_SIZE}x{LATENT_SIZE}, card against CPU: mean {errs[0]:.3e},"
+        f" logvar {errs[1]:.3e}, decode {errs[2]:.3e} of their max (bound "
+        f"{VAE_TOL:g}) on {card}", flush=True)
+  if not max(errs) <= VAE_TOL:
+    fail(f"the VAE on the card differs from the CPU by {errs}")
+  print(f"[latent] SD VAE operations an image at {LATENT_SIZE} px (from the "
+        f"layers' shapes): encoder {flops['encoder'] / 1e12:.4f} TFLOP, "
+        f"decoder {flops['decoder'] / 1e12:.4f} TFLOP", flush=True)
+  return errs, flops
+
+
+def _latent_step_grads(config, params, images, draws, dev):
+  """(loss, [(name, f32 gradient on the CPU)]) of one latent training step
+  on `dev`, the seeded SD VAE encoding inside it."""
+  from small_vision_tpu_torch import convert
+  from small_vision_tpu_torch.models import vae as vae_lib
+  from small_vision_tpu_torch.train import train_ae
+
+  model = train_ae.build_model(config, device=dev, trainable=True)
+  model.load_state_dict(convert.params_from_jax(params, model))
+  names = [n for n, _ in train_ae.named_params(model)]
+  opt = train_ae.make_optimizer(config, names, total_steps=10, warmup_steps=1)
+  state = train_ae.init_train_state(model, opt, config, device=dev)
+  state["vae_params"], encode, _ = vae_lib.load_vae(device=dev)
+  step = train_ae.make_update_fn(model, opt, config, None, vae_encode=encode)
+  loss, grads = step.loss_and_grads(
+      state, {"image": torch.from_numpy(images)},
+      {k: torch.from_numpy(v) for k, v in draws.items()})
+  return float(loss), [(n, g.float().cpu()) for n, g in zip(names, grads)]
+
+
+def _hold_latent_step(build, card):
+  """UMD-L/2 at full width, depth 2 + 1, one latent training step at batch
+  4 with injected draws (the VAE's noise too): card against CPU."""
+  from small_vision_tpu_torch import convert
+  from small_vision_tpu_torch.configs import ae_i1k
+
+  config = ae_i1k.get_config(
+      "variant=L/2,size=256,latent_diffusion=True,batch_size=4")
+  config["model"].update(depth=2, dec_depth=1)
+  params = convert.init_params(config, seed=1)
+  rng = np.random.default_rng(32)
+  n = 2
+  draws = {"t": rng.integers(0, 1000, (n,)),
+           "noise": rng.standard_normal((n, 32, 32, 4), dtype=np.float32),
+           "vae_noise": rng.standard_normal((4, 32, 32, 4),
+                                            dtype=np.float32),
+           "mae_noise": rng.random((n, 256), dtype=np.float32),
+           "dit_noise": rng.random((n, 256), dtype=np.float32)}
+  images = rng.uniform(-1, 1, (4, LATENT_SIZE, LATENT_SIZE, 3)).astype(
+      np.float32)
+  loss_cpu, grads_cpu = _latent_step_grads(config, params, images, draws,
+                                           "cpu")
+  build.reset_launches()
+  loss_gpu, grads_gpu = _latent_step_grads(config, params, images, draws,
+                                           "cuda")
+  launches = dict(build.LAUNCHES)
+  want = _times(BLOCK_TRAIN_LAUNCHES["pallas"], 6)  # two branches of 2 + 1
+  if launches != want:
+    fail(f"latent training step launches {launches} != {want}")
+  # As phase model: each leaf relative to its largest element, floored at
+  # 1e-3 of the largest gradient; bf16 activations on both sides, rounded
+  # at ties that the two summation orders split differently.
+  top = max(g.abs().max().item() for _, g in grads_cpu)
+  worst, worst_name = 0.0, None
+  for (name, gc), (_, gg) in zip(grads_cpu, grads_gpu):
+    rel = ((gg - gc).abs().max().item()
+           / max(gc.abs().max().item(), 1e-3 * top))
+    if rel > worst:
+      worst, worst_name = rel, name
+  loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+  print(f"[latent] L/2 training step at width {L2_WIDTH}, depth 2+1, batch 4 "
+        f"of {LATENT_SIZE} px with the VAE encode inside: loss card "
+        f"{loss_gpu:.6f}, cpu {loss_cpu:.6f} (rel {loss_rel:.2e}); "
+        f"{len(grads_cpu)} gradient leaves, worst leaf-relative err "
+        f"{worst:.3e} ({worst_name}); launches {launches} on {card}",
+        flush=True)
+  if not loss_rel <= 1e-2:
+    fail(f"latent training loss on the card differs from the CPU by "
+         f"{loss_rel:.2e}")
+  if not worst <= 5e-2:
+    fail(f"latent training gradients on the card differ from the CPU: "
+         f"{worst:.3e} of leaf max at {worst_name}")
+
+
+def _latent_train(build, card):
+  """Full-width, full-depth UMD-L/2@256 through `train_and_evaluate`, the
+  VAE encode timed inside each step."""
+  from small_vision_tpu_torch.configs import ae_i1k
+  from small_vision_tpu_torch.models import vae as vae_lib
+  from small_vision_tpu_torch.train import train_ae
+
+  config = ae_i1k.get_config(
+      f"variant=L/2,size={LATENT_SIZE},latent_diffusion=True,data=synthetic,"
+      f"batch_size={LATENT_BATCH},total_steps={LATENT_STEPS},log_steps=1,"
+      "eval_steps=-1")
+  wrap, encode_ms = _cuda_timer()
+
+  def timed_load(load):
+    def load_vae(*a, **kw):
+      params, encode, decode = load(*a, **kw)
+      return params, wrap(encode), decode
+    return load_vae
+  undo = _wrap(vae_lib, "load_vae", timed_load)
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  build.reset_launches()
+  try:
+    train_state, history = train_ae.train_and_evaluate(
+        config, device="cuda",
+        log=lambda s: print(f"[latent] train: {s}", flush=True))
+  finally:
+    undo()
+  launches = dict(build.LAUNCHES)
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  n_params = sum(p.numel() for p in train_state["params"])
+  n_vae = sum(p.numel() for p in train_state["vae_params"].values())
+  del train_state
+  torch.cuda.empty_cache()
+  enc = encode_ms()
+  if len(history) != LATENT_STEPS or len(enc) != LATENT_STEPS:
+    fail(f"{len(history)} steps and {len(enc)} encodes ran, not "
+         f"{LATENT_STEPS}")
+  timed = history[1:]
+  ms = sum(h["ms"] for h in timed) / len(timed)
+  enc_ms = sum(enc[1:]) / len(timed)
+  print(f"[latent] train: UMD-L/2@{LATENT_SIZE} on (32, 32, 4) latents, "
+        f"{n_params} parameters (+ {n_vae} frozen VAE), batch "
+        f"{LATENT_BATCH}: {len(timed)} timed steps, mean {ms:.2f} ms/step "
+        f"(min {min(h['ms'] for h in timed):.2f}, max "
+        f"{max(h['ms'] for h in timed):.2f}) = {LATENT_BATCH / ms * 1e3:.2f} "
+        f"img/s; the VAE encode {enc_ms:.2f} ms a step by CUDA events "
+        f"({enc_ms / ms * 100:.1f} % of the step); peak memory "
+        f"{peak_gb:.2f} GB (max_memory_allocated); waiting for the batch "
+        f"{max(h['data_ms'] for h in timed):.3f} ms at most on {card}",
+        flush=True)
+  losses = [h["training_loss"] for h in history]
+  if not all(np.isfinite(losses)):
+    fail(f"non-finite latent training loss: {losses}")
+  if not losses[-1] < losses[0]:
+    fail(f"the latent training loss did not fall: {losses}")
+  if not (history[-1]["l2_params"] != history[0]["l2_params"]
+          and history[-1]["l2_updates"] > 0):
+    fail("the L/2 parameters did not change")
+  want = _times(BLOCK_TRAIN_LAUNCHES["pallas"],
+                2 * L2_BLOCKS * LATENT_STEPS)
+  per_step = _times(BLOCK_TRAIN_LAUNCHES["pallas"], 2 * L2_BLOCKS)
+  print(f"[latent] train: kernel launches in {LATENT_STEPS} steps: "
+        f"{launches}, model says {want} ({per_step} a step)", flush=True)
+  if launches != want:
+    fail(f"latent training launch counts {launches} != {want}")
+  return {"launches": launches, "ms": ms, "img_per_s": LATENT_BATCH / ms
+          * 1e3, "encode_ms": enc_ms, "peak_gb": peak_gb,
+          "losses": losses}
+
+
+def _latent_sample(build, card):
+  """One 125-step `uncond_eps` call of `make_eval_fns` at batch 64 on the
+  latent path, its VAE decode timed by CUDA events."""
+  from small_vision_tpu_torch import convert
+  from small_vision_tpu_torch.configs import ae_i1k
+  from small_vision_tpu_torch.models import vae as vae_lib
+  from small_vision_tpu_torch.ops import diffusion as gd_lib
+  from small_vision_tpu_torch.train import train_ae
+
+  config = ae_i1k.get_config(
+      f"variant=L/2,size={LATENT_SIZE},latent_diffusion=True,"
+      f"samples_per_call={BATCH}")
+  model = train_ae.build_model(config, device="cuda")
+  model.load_state_dict(convert.params_from_jax(
+      convert.init_params(config, seed=0), model))
+  vae_params, encode, decode = vae_lib.load_vae(device="cuda")
+  wrap, decode_ms = _cuda_timer()
+  state = {"gd": gd_lib.GaussianDiffusion.create("linear", 1000,
+                                                 device="cuda"),
+           "vae_params": vae_params}
+  warm = dict(config, diff_schedule=dict(config["diff_schedule"],
+                                         sampling_timesteps=2))
+  train_ae.make_eval_fns(model, warm, encode, decode)["uncond_eps"](
+      state, torch.Generator(device="cuda").manual_seed(5))
+  sample = train_ae.make_eval_fns(model, config, encode,
+                                  wrap(decode))["uncond_eps"]
+  torch.cuda.synchronize()
+  build.reset_launches()
+  t0 = time.perf_counter()
+  out = sample(state, torch.Generator(device="cuda").manual_seed(1))
+  images = out["fid_samples"].cpu().numpy()
+  sampler_s = time.perf_counter() - t0
+  launches = dict(build.LAUNCHES)
+  dec_s = sum(decode_ms()) / 1e3
+  print(f"[latent] sampler: one 125-step uncond_eps call at batch {BATCH}, "
+        f"latents decoded: {sampler_s:.3f} s = {BATCH / sampler_s:.2f} "
+        f"img/s; the VAE decode {dec_s:.3f} s by CUDA events "
+        f"({dec_s / sampler_s * 100:.1f} % of the call) on {card}",
+        flush=True)
+  if images.shape != (BATCH, LATENT_SIZE, LATENT_SIZE, 3) or \
+      images.dtype != np.uint8:
+    fail(f"latent samples {images.shape} {images.dtype}")
+  flat = images.reshape(BATCH, -1)
+  if np.any(flat.max(axis=1) == flat.min(axis=1)):
+    fail("a constant latent sample came back")
+  want = _times(BLOCK_SAMPLE_LAUNCHES["pallas"], L2_BLOCKS * SAMPLER_FORWARDS)
+  print(f"[latent] sampler: kernel launches in the call: {launches}, model "
+        f"says {want} and no other kernel", flush=True)
+  if launches != want:
+    fail(f"latent sampler launch counts {launches} != {want}")
+  del model, state, vae_params
+  torch.cuda.empty_cache()
+  return {"launches": launches, "s": sampler_s, "img_per_s":
+          BATCH / sampler_s, "decode_s": dec_s}
+
+
+def phase_latent(build, card):
+  """The latent path at UMD-L/2@256; see the module's docstring."""
+  vae_errs, flops = _hold_vae(card)
+  _hold_latent_step(build, card)
+  train = _latent_train(build, card)
+  sample = _latent_sample(build, card)
+  enc_tflops = (flops["encoder"] * LATENT_BATCH
+                / (train["encode_ms"] / 1e3) / 1e12)
+  dec_tflops = flops["decoder"] * BATCH / sample["decode_s"] / 1e12
+  print(f"[latent] the VAE in f32 (TF32 off): encode {enc_tflops:.2f} "
+        f"TFLOP/s, decode {dec_tflops:.2f} TFLOP/s, against the card's "
+        f"{F32_FLOPS / 1e12:.0f} TFLOP/s f32 peak, on {card}", flush=True)
+  return {"train": train, "sample": sample, "vae_errs": vae_errs,
+          "flops": flops, "encode_tflops": enc_tflops,
+          "decode_tflops": dec_tflops}
+
+
+def phase_probe(build, card, backbone_dir):
+  """The linear probe through `linear_ae.train_and_evaluate` on the 10
+  colour-coded classes of phase evals, the backbone from phase resume's
+  checkpoint: stopped after its step-3 checkpoint and resumed, then the
+  classification evaluator on validation/."""
+  from small_vision_tpu_torch.configs import ae_i1k_lp
+  from small_vision_tpu_torch.train import linear_ae
+
+  root = tempfile.mkdtemp(prefix="sv_probe_")
+  try:
+    _eval_arrays(root)
+    config = ae_i1k_lp.get_config(
+        f"variant=B/4,size=64,data=arrays:{root},batch_size={TRAIN_BATCH},"
+        f"pretrain_workdir={backbone_dir}")
+    # The decoded images of an arrays source: the JAX config's decode and
+    # crop stages have no work here (it has no arrays branch; ae_i1k.py's
+    # arrays branch drops them the same way).
+    config["input"]["pp"] = ('flip_lr|value_range(-1, 1)|onehot(1000, '
+                             'key="label", key_result="labels")'
+                             '|keep("image", "labels")')
+    val = dict(config["evals"]["val"],
+               pp_fn='value_range(-1, 1)|keep("image", "label")',
+               log_steps=PROBE_STEPS)
+    config["evals"] = {"val": val}
+    del config["total_epochs"]
+    config.update(total_steps=PROBE_STEPS, ckpt_steps=PROBE_CKPT,
+                  log_training_steps=1)
+    workdir = os.path.join(root, "probe_run")
+    stop_log, stopped = _stop_after_checkpoint(PROBE_CKPT)
+    say = lambda s: print(f"[probe] {s}", flush=True)
+
+    def log_a(line):
+      say(line)
+      stop_log(line.replace("probe step", "step"))
+    try:
+      linear_ae.train_and_evaluate(config, workdir, device="cuda",
+                                   log=log_a)
+      fail("the probe run did not stop")
+    except stopped:
+      pass
+    notes = []
+    build.reset_launches()
+    t0 = time.perf_counter()
+    state, history = linear_ae.train_and_evaluate(
+        config, workdir, device="cuda",
+        log=lambda s: (notes.append(s), say(s)))
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if not any(f"Probe resumed from step {PROBE_CKPT}" in n for n in notes):
+      fail(f"the probe did not resume from step {PROBE_CKPT}: {notes[:3]}")
+    if [h["step"] for h in history] != list(range(PROBE_CKPT + 1,
+                                                  PROBE_STEPS + 1)):
+      fail(f"the resumed probe ran steps {[h['step'] for h in history]}")
+    saved = sorted(os.listdir(os.path.join(workdir, "probe", "checkpoints")))
+    if saved != [str(PROBE_STEPS)]:
+      fail(f"probe checkpoints {saved}")
+    losses = [h["training_loss"] for h in history]
+    evals = history[-1].get("evals", {})
+    print(f"[probe] linear probe on the frozen UMD-B/4@64 of phase resume, "
+          f"batch {TRAIN_BATCH}, steps {PROBE_CKPT + 1}-{PROBE_STEPS} after "
+          f"the resume: losses {[round(l, 4) for l in losses]}; "
+          f"classification on validation/ ({EVAL_VAL} images) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in evals.items())
+          + f"; {probe_s:.2f} s with the set-up; launches {launches} on "
+          f"{card}", flush=True)
+    if not all(np.isfinite(losses)):
+      fail(f"non-finite probe loss {losses}")
+    if not (0.0 <= evals.get("val/prec@1", -1) <= 1.0
+            and np.isfinite(evals.get("val/loss", np.nan))):
+      fail(f"probe classification gave {evals}")
+    # The frozen forward (12 + 4 blocks, no gradients) once a step and once
+    # for each of the evaluator's batches.
+    forwards = (PROBE_STEPS - PROBE_CKPT) + -(-EVAL_VAL // TRAIN_BATCH)
+    want = _times(BLOCK_SAMPLE_LAUNCHES["pallas"], BLOCKS * forwards)
+    if launches != want:
+      fail(f"probe launches {launches} != {want}")
+    del state
+    return {"launches": launches, "s": probe_s, "evals": evals,
+            "losses": losses}
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1849,6 +2314,21 @@ def main():
              check_attention_unpacked(attn, card),
              check_attention_unpacked_bwd(attn, card),
              check_attention_ablate(attn, card)]
+  # UMD-L/2's width: K1-K4 at the latent sampler's shapes and the latent
+  # step's per-branch batch, K6 at the sampler's shapes (not on the L/2
+  # path: it waits for the latent path under "pallas_fused").
+  b_latent = LATENT_BATCH // 2
+  wide = [check_ln(ln, card, L2_WIDTH, b_latent),
+          check_attention(attn, card, L2_WIDTH, L2_HEADS, b_latent),
+          check_ln_bwd(ln, card, L2_WIDTH, b_latent),
+          check_attention_bwd(attn, card, L2_WIDTH, L2_HEADS, b_latent),
+          check_fused_mha(fb, card, L2_WIDTH, L2_HEADS, FUSED_SHAPES[:2])]
+  for k in kernels:
+    for w in wide:
+      if w["name"] == k["name"]:
+        k[f"width_{L2_WIDTH}"] = {
+            key: v for key, v in w.items()
+            if key not in ("name", "route", "source", "replaces")}
   for attn_impl in ATTN_IMPLS:
     phase_model(build, card, attn_impl)
   train = {a: phase_train(build, card, a) for a in ATTN_IMPLS}
@@ -1857,9 +2337,16 @@ def main():
   data = phase_data(build, card, train["pallas"])
   unpacked = phase_unpacked(build, attn, card)
   ablate = phase_ablate(build, attn, card)
-  resume = phase_resume(build, card, train["pallas"]["img_per_s"])
-  quant = phase_quant(build, card, train, serve)
-  evals = phase_evals(build, card)
+  backbone = tempfile.mkdtemp(prefix="sv_backbone_")
+  try:
+    resume = phase_resume(build, card, train["pallas"]["img_per_s"],
+                          backbone)
+    quant = phase_quant(build, card, train, serve)
+    evals = phase_evals(build, card)
+    latent = phase_latent(build, card)
+    probe = phase_probe(build, card, backbone)
+  finally:
+    shutil.rmtree(backbone, ignore_errors=True)
   for k in kernels:
     # Launches on the paths driven above, each counted from 0: the sampler
     # call and the training run under "pallas", the same two under
@@ -1867,9 +2354,11 @@ def main():
     # `fused_attention` for the two kernels that no module of the model
     # calls, the ablation tool, run A of the resume phase (6 training
     # steps and the two evaluators), the int8 training runs and sampler
-    # calls (phase quant), and the few-shot probe, classification and the
-    # scored sampling evaluator (phase evals). `launches` is the largest
-    # of them: the count on the path that runs the kernel most.
+    # calls (phase quant), the few-shot probe, classification and the
+    # scored sampling evaluator (phase evals), UMD-L/2@256's latent
+    # training run and sampler call (phase latent), and the linear probe's
+    # resumed run with its evaluator (phase probe). `launches` is the
+    # largest of them: the count on the path that runs the kernel most.
     name = k["name"]
     k["launches_by_path"] = {
         **{f"serve_{a}": serve[a]["launches"].get(name, 0)
@@ -1885,7 +2374,11 @@ def main():
         **{f"quant_serve_{a}_{QUANT_SAMPLE}":
            quant["serve"][a]["launches"].get(name, 0) for a in ATTN_IMPLS},
         **{f"evals_{path}": n.get(name, 0)
-           for path, n in evals["launches"].items()}}
+           for path, n in evals["launches"].items()},
+        f"latent_train_{LATENT_STEPS}_steps":
+            latent["train"]["launches"].get(name, 0),
+        "latent_sampler": latent["sample"]["launches"].get(name, 0),
+        "probe": probe["launches"].get(name, 0)}
     k["launches"] = max(k["launches_by_path"].values())
     if not k["launches"]:
       fail(f"{name} was launched on no path")
@@ -1918,6 +2411,18 @@ def main():
         f"{evals['ref_s']:.2f} s, self-FID {evals['self_fid']:.6g}, samples' "
         f"FID {evals['fid']:.4f}, IS {evals['is']:.4f}; on {card}",
         flush=True)
+
+  lt, ls = latent["train"], latent["sample"]
+  print(f"[result] latent UMD-L/2@{LATENT_SIZE}: training "
+        f"{lt['img_per_s']:.2f} img/s, {lt['ms']:.2f} ms/step at batch "
+        f"{LATENT_BATCH}, the VAE encode {lt['encode_ms']:.2f} ms "
+        f"({lt['encode_ms'] / lt['ms'] * 100:.1f} %), peak "
+        f"{lt['peak_gb']:.2f} GB; sampler {ls['s']:.3f} s a call "
+        f"({ls['img_per_s']:.2f} img/s) at batch {BATCH}, the decode "
+        f"{ls['decode_s']:.3f} s ({ls['decode_s'] / ls['s'] * 100:.1f} %); "
+        f"probe {probe['s']:.2f} s ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in probe["evals"].items())
+        + f"); on {card}", flush=True)
 
   print(card, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)

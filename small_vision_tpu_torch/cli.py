@@ -1,11 +1,14 @@
 """Command-line entry point of the port's trainer.
 
-Counterpart of small_vision_tpu/cli.py (`--main ae` only; the linear probe
-comes with its slice):
+Counterpart of small_vision_tpu/cli.py: `--main ae` trains UMD
+(`train/train_ae.py`), `--main lp_ae` the linear probe on a frozen UMD
+(`train/linear_ae.py`, with `configs/ae_i1k_lp.py`):
 
   python -m small_vision_tpu_torch.cli \\
       --config ae_i1k.py:data=synthetic,batch_size=256,total_steps=20 \\
       --workdir /tmp/run
+  python -m small_vision_tpu_torch.cli --main lp_ae \\
+      --config ae_i1k_lp.py:pretrain_workdir=/tmp/run --workdir /tmp/probe
 
 (`attn_impl=pallas_fused` in the config string trains with the fused MLP
 and MHA kernels.) With `--workdir` the run writes its metrics
@@ -43,12 +46,13 @@ def main(argv=None):
                        "CPU with the plain versions of the kernels")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-  if args.main != "ae":
-    raise SystemExit("--main lp_ae: the linear probe comes with its slice")
-  from small_vision_tpu_torch.train import train_ae
+  if args.main == "ae":
+    from small_vision_tpu_torch.train import train_ae as trainer
+  else:
+    from small_vision_tpu_torch.train import linear_ae as trainer
   config = parse_config(args.config)
-  _, history = train_ae.train_and_evaluate(config, args.workdir,
-                                           device=args.device)
+  _, history = trainer.train_and_evaluate(config, args.workdir,
+                                          device=args.device)
   timed = history[1:] or history
   if timed:  # empty after `force_eval`, or when the run was already done
     ms = sum(h["ms"] for h in timed) / len(timed)

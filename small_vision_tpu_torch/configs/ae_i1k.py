@@ -30,6 +30,15 @@ raises in the port, naming the arrays route.
   --config ae_i1k.py:data=arrays:/data/i1k64  # train/ and validation/
   --config ae_i1k.py:quant=int8_mlp           # int8 MLP products
   --config ae_i1k.py:use_labels=True,fid_stats=ref.npz,inception_weights=inc.npz
+  --config ae_i1k.py:variant=L/2,size=256,latent_diffusion=True
+                      # UMD-L/2 on SD-VAE latents (seeded VAE unless
+                      # vae_weights=<npz of scripts/convert_vae.py>)
+
+With `latent_diffusion` (size 256 only) the model works on (32, 32, 4)
+latents of the Stable Diffusion VAE: `diffusion_space` (32, 32, 4), the
+model's `channels` 4 and `img_size` 32, the linear beta schedule without
+clipping the denoised prediction; the training step encodes the pixels
+unless `use_preprocessed_latents` says the batches carry latents.
 """
 
 from small_vision_tpu_torch.configs import common as cc
@@ -52,10 +61,21 @@ def get_config(arg=None) -> dict:
       quant="",  # "" (bf16) | "int8_mlp" | "int8_all": ops/quant.py
       fid_stats="", inception_weights="",  # FID inputs (.npz); "" = unscored
       fid_batch=0,  # 0 = 1024 images an InceptionV3 batch
-      total_samples=0)  # 0 = 10k samples per sampling evaluator
+      total_samples=0,  # 0 = 10k samples per sampling evaluator
+      # The latent path (size 256 only): the model diffuses SD-VAE latents
+      # (32, 32, 4), encoded inside the training step from the pixels, or
+      # fed in by the caller with use_preprocessed_latents.
+      latent_diffusion=False, use_preprocessed_latents=False,
+      vae_weights="")  # the npz of scripts/convert_vae.py; "" = seeded
 
+  latent = arg["latent_diffusion"]
+  if latent:
+    assert arg["size"] == 256, "Latent diffusion only supports 256x256 images"
   config = {
-      "diffusion_space": (arg["size"], arg["size"], 3),
+      "size": arg["size"],
+      "latent_diffusion": latent,
+      "diffusion_space": (32, 32, 4) if latent else (arg["size"],
+                                                     arg["size"], 3),
       "resize": int(arg["size"] * (256 / 246)),
       "seed": 0,
       "use_labels": arg["use_labels"],
@@ -63,8 +83,9 @@ def get_config(arg=None) -> dict:
       "num_samples": 36,
       "num_samples_per_call": arg["samples_per_call"] or 1024,
       "fid_batch_size": arg["fid_batch"] or 1024,
-      "diff_schedule": dict(eta=1.0, beta_schedule="cosine",
-                            clip_denoised=True, timesteps=1000,
+      "diff_schedule": dict(eta=1.0,
+                            beta_schedule="linear" if latent else "cosine",
+                            clip_denoised=not latent, timesteps=1000,
                             sampling_timesteps=125),
       "model_name": "ae",
       # Training.
@@ -83,6 +104,10 @@ def get_config(arg=None) -> dict:
       "save_ckpt": arg["save_ckpt"],
       "finetune": arg["finetune"],
   }
+  if latent:
+    config["use_preprocessed_latents"] = arg["use_preprocessed_latents"]
+    if arg["vae_weights"]:
+      config["vae_weights"] = arg["vae_weights"]
   if arg["keep_ckpt_steps"]:
     config["keep_ckpt_steps"] = arg["keep_ckpt_steps"]
   if arg["total_steps"]:
@@ -155,8 +180,9 @@ def get_config(arg=None) -> dict:
 
   model = dict(
       num_classes=config["num_classes"], variant=arg["variant"],
-      adaln=arg["adaln"], channels=3, img_size=arg["size"],
-      dtype_mm="bfloat16", attn_impl=arg["attn_impl"])
+      adaln=arg["adaln"], channels=config["diffusion_space"][-1],
+      img_size=config["diffusion_space"][0], dtype_mm="bfloat16",
+      attn_impl=arg["attn_impl"])
   if arg["quant"]:
     model["quant"] = arg["quant"]
   if arg["runlocal"]:

@@ -313,3 +313,61 @@ def inception_to_jax(state_dict) -> dict:
     values.append(np.ascontiguousarray(
         _TO_FLAX[kind](t.detach().float().cpu().numpy())))
   return recover_tree(names, values)
+
+
+def _vae_leaf(name: str, ndim: int):
+  """(flax slash name, layout kind) of an AutoencoderKL state_dict entry of
+  `ndim` dimensions: a Conv2d weight (4-D) is flax's HWIO `kernel`, a
+  Linear weight (2-D) the (in, out) Dense `kernel`, a GroupNorm weight
+  (1-D) its `scale`."""
+  path, leaf = name.rsplit(".", 1)
+  flax_path = path.replace(".", "/")
+  if leaf == "bias":
+    return f"{flax_path}/bias", None
+  kind = {4: "conv", 2: "dense", 1: None}[ndim]
+  return f"{flax_path}/{'scale' if ndim == 1 else 'kernel'}", kind
+
+
+def vae_state_dict(flax_tree_or_npz, model: torch.nn.Module) -> dict:
+  """state_dict for the port's `models.vae.AutoencoderKL` from the flax
+  params (nested or slash-flat) or the path of the npz that
+  `scripts/convert_vae.py` writes (keys `params/encoder/conv_in/kernel`,
+  ...; the leading `params` level is taken off). Raises KeyError on a
+  leftover or missing name and ValueError on a shape mismatch."""
+  if isinstance(flax_tree_or_npz, (str, bytes)) or hasattr(
+      flax_tree_or_npz, "__fspath__"):
+    with np.load(flax_tree_or_npz) as data:
+      keys, values = zip(*data.items())
+    flax_tree_or_npz = recover_tree(keys, values)
+  got = _flat(flax_tree_or_npz)
+  if got and all(k.startswith("params/") for k in got):
+    got = {k[len("params/"):]: v for k, v in got.items()}
+  ref = model.state_dict()
+  want = {name: _vae_leaf(name, t.ndim) for name, t in ref.items()}
+  flax_names = {f for f, _ in want.values()}
+  missing, leftover = sorted(flax_names - set(got)), sorted(set(got) -
+                                                           flax_names)
+  if missing or leftover:
+    raise KeyError(f"VAE names differ: missing {missing[:8]}, left over "
+                   f"{leftover[:8]}")
+  out = {}
+  for name, t in ref.items():
+    flax_name, kind = want[name]
+    a = _FROM_FLAX[kind](np.array(got[flax_name], np.float32))
+    if a.shape != tuple(t.shape):
+      raise ValueError(f"{flax_name}: shape {a.shape} does not fit {name} "
+                       f"{tuple(t.shape)}")
+    out[name] = torch.from_numpy(np.ascontiguousarray(a))
+  return out
+
+
+def vae_to_jax(state_dict) -> dict:
+  """Nested flax params of float32 numpy arrays from the port's
+  AutoencoderKL state_dict (its inverse)."""
+  names, values = [], []
+  for name, t in state_dict.items():
+    flax_name, kind = _vae_leaf(name, t.ndim)
+    names.append(flax_name)
+    values.append(np.ascontiguousarray(
+        _TO_FLAX[kind](t.detach().float().cpu().numpy())))
+  return recover_tree(names, values)

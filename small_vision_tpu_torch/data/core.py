@@ -10,7 +10,8 @@ split taken for process 0 of 1 by default.
 Sources: "synthetic", "arrays" (npy memmaps), "arrays:<root>", and
 "mod:<module>" (a module with a `DataSource` class). TFDS and latent
 sources need TensorFlow, which the port does not use: their names raise
-and point at the arrays route.
+and point at the arrays route (for latents: the images with the VAE
+encode in the step, or `use_preprocessed_latents`).
 """
 
 import abc
@@ -87,9 +88,13 @@ def get(name: str, **kw) -> DataSource:
   if name not in _KNOWN:
     what = {"tfds": "the TFDS source", "latents": "the latent source"}.get(
         name, f"dataset {name!r} (a TFDS name)")
+    latent = (" For the latent path, train on the images with "
+              "latent_diffusion=True (the step encodes them), or feed "
+              "latents from your own source with use_preprocessed_latents."
+              if name == "latents" else "")
     raise ValueError(
         f"data source {name!r}: {what} needs TensorFlow, which the port "
         f"does not use. Decode the images once into an arrays dataset with "
         f"`{INGEST_TOOL} --src dir:<class tree> --out <root>/train` (and "
-        f"<root>/validation) and train on data=arrays:<root>.")
+        f"<root>/validation) and train on data=arrays:<root>.{latent}")
   return importlib.import_module(_KNOWN[name]).DataSource(**kw)

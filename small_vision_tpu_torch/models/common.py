@@ -8,6 +8,7 @@ are created uninitialised: weights come from a checkpoint or from
 `convert.init_params`.
 """
 
+import math
 import re
 from typing import Optional, Sequence
 
@@ -18,6 +19,15 @@ from small_vision_tpu_torch.utils.trees import (recover_tree,
                                                 tree_flatten_with_names)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_TRUNC_STD = 0.87962566103423978  # std of a normal truncated to ±2
+
+
+def lecun_normal(shape, fan_in: int, generator: torch.Generator):
+  """flax's lecun_normal: a normal truncated to ±2, scaled to variance
+  1/fan_in, drawn on the CPU from `generator` (not flax's draws)."""
+  w = torch.empty(shape)
+  nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=generator)
+  return w * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
 
 
 def compute_dtype(x: torch.Tensor, dtype: Optional[torch.dtype]):

@@ -145,3 +145,50 @@ class AdamW:
       metrics["l2_params"] = global_norm(params)
       metrics["l2_updates"] = global_norm(updates)
     return metrics
+
+
+class LarsProbe:
+  """The linear probe's LARS, `optax.lars(warmup_cosine_decay_schedule(0,
+  base_lr * batch_size / 256, warmup_steps, total_steps), momentum=0.9)`
+  (JAX `optim.lars_probe_tx`), over lists of f32 tensors, in optax 0.2.6's
+  order. One step, per parameter:
+    1. u = g (optax adds the decayed weights, with weight decay 0);
+    2. the trust ratio: u *= 0.001 * |p| / |u|, or 1 where |p| or |u| is
+       0 (the zero-initialised bias at step 1);
+    3. u *= -lr(count), the count taken before its increment;
+    4. the momentum trace: trace = u + 0.9 * trace (not Nesterov); p +=
+       trace.
+
+  State: {"count": updates taken, "trace": tensors like the params}.
+  """
+
+  def __init__(self, *, base_lr: float, batch_size: int, total_steps: int,
+               warmup_steps: int, momentum: float = 0.9,
+               trust_coefficient: float = 0.001):
+    self.warmup_steps = min(max(warmup_steps, 1), max(total_steps - 1, 1))
+    self.total_steps = total_steps
+    self.peak = base_lr * batch_size / 256.0
+    self.momentum = momentum
+    self.trust = trust_coefficient
+
+  def lr(self, count: int) -> float:
+    return warmup_cosine(count, peak=self.peak,
+                         warmup_steps=self.warmup_steps,
+                         decay_steps=self.total_steps)
+
+  def init(self, params) -> dict:
+    return {"count": 0, "trace": [torch.zeros_like(p) for p in params]}
+
+  def step(self, params, grads, state):
+    """Updates `params` and `state` in place from `grads`."""
+    lr = np.float32(self.lr(state["count"]))
+    for p, u, tr in zip(params, grads, state["trace"]):
+      p_norm = torch.linalg.vector_norm(p)
+      u_norm = torch.linalg.vector_norm(u)
+      ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                          torch.ones_like(p_norm),
+                          self.trust * p_norm / u_norm)
+      u = u * ratio * -lr
+      tr.mul_(self.momentum).add_(u)
+      p.add_(tr)
+    state["count"] += 1

@@ -4,7 +4,9 @@
       [--config ae_i1k.py:attn_impl=pallas_fused]
       [--config ae_i1k.py:ckpt_steps=1,eval_steps=1] [--eval_batches 2]
 
-Sets up the UMD-B/4@64 training run as `train_and_evaluate` does
+Sets up the training run of `--config` (UMD-B/4@64 by default;
+`ae_i1k.py:variant=L/2,size=256,latent_diffusion=True` for the latent
+path) as `train_and_evaluate` does
 (its input pipeline, `init_train_params` weights, AdamW, device pp), takes two
 warm-up steps, times `--steps` steps without the profiler, then traces one
 step with torch.profiler and prints, with the card's name and power limit:
@@ -13,7 +15,9 @@ step with torch.profiler and prints, with the card's name and power limit:
     intervals), and its share of the untraced step's wall time;
   - device time by class: matmuls, the port's kernels K1-K6 (and K8), the
     optimizer (every kernel launched inside the step's "optimizer" range:
-    the clip, AdamW and EMA), and the other elementwise kernels;
+    the clip, AdamW and EMA), on the latent path the VAE encode (every
+    kernel inside the step's "vae_encode" range), and the other
+    elementwise kernels;
   - the ten kernels that take the most device time.
 With `ckpt_steps=` in `--config` the traced step is followed, inside the
 trace, by one checkpoint `save` (into a temporary directory), and with a
@@ -111,7 +115,9 @@ def main(argv=None):
       else:  # a sampling evaluator: one call
         ev["total_samples"] = 1
     evaluators = eval_common.from_config(
-        config, train_ae.make_eval_fns(run["model"], config), "cuda")
+        config, train_ae.make_eval_fns(run["model"], config,
+                                       run["vae_encode"], run["vae_decode"]),
+        "cuda")
   if with_ckpt:
     from small_vision_tpu_torch.utils import checkpoint as ckpt_lib
     from small_vision_tpu_torch.utils.chrono import Chrono
@@ -158,6 +164,7 @@ def main(argv=None):
   if not kernels:
     raise SystemExit("profile_train: the trace holds no kernel events")
   in_opt = range_correlations(events, "optimizer")
+  in_vae = range_correlations(events, "vae_encode")
   in_ckpt = range_correlations(events, "checkpoint")
   in_eval = range_correlations(events, "evaluator")
   correlation = lambda e: e.get("args", {}).get("correlation")
@@ -173,6 +180,8 @@ def main(argv=None):
       cls = "checkpoint"
     elif correlation(e) in in_eval:
       cls = "evaluator"
+    elif correlation(e) in in_vae:
+      cls = "VAE encode"
     else:
       cls = classify(e["name"], correlation(e) in in_opt)
     by_class[cls] += e["dur"]

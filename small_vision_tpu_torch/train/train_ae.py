@@ -9,13 +9,18 @@ and with `num_classes` cond_eps, cfg_eps_* and cfg_x0_*), and
 `train_and_evaluate`: the loop on one card with `Chrono`, the metric
 writer, warm start, resumable checkpoints, the finetune surgery, the
 evaluators (the sampling evaluators' samples scored by FID and IS where
-the config names `inception_reference_path`) and the NaN abort. The
-latent (VAE) hooks and the mesh come with their slices.
+the config names `inception_reference_path`) and the NaN abort. With
+`latent_diffusion` the model works on Stable Diffusion VAE latents: the
+step encodes the batch's pixels inside it (unless
+`use_preprocessed_latents`), the evaluation functions encode their inputs
+and decode what they show, the sampler decodes its samples, and the VAE's
+weights ride in the train state and its checkpoints as `vae_params`
+(frozen: not in the optimizer, no EMA). The mesh comes with its slice.
 
 The step's random draws (t, noise, the two branches' mask noise, the flip
-mask and the label-drop masks) come from the train state's
-`torch.Generator`, or are injected, so that a test can drive the step with
-the JAX package's draws.
+mask, the label-drop masks and the VAE encode's noise) come from the train
+state's `torch.Generator`, or are injected, so that a test can drive the
+step with the JAX package's draws.
 
 A sampler function is `sample_fn(gd, generator, *, noise=None)`: the model
 holds its (EMA) weights, `gd` the diffusion tables, `generator` draws the
@@ -114,15 +119,19 @@ def init_train_state(model, opt: optim.AdamW, config: dict,
 
 
 def make_update_fn(model, opt: optim.AdamW, config: dict,
-                   device_pp: Optional[DevicePP]):
+                   device_pp: Optional[DevicePP], vae_encode=None):
   """The training step, `update_fn(train_state, batch, draws=None, *,
   with_l2=False) -> measurements`.
 
   `batch`: {"image": (B, H, W, C) uint8 (or f32 when `device_pp` is None),
   "label": (B,)}, on the model's device or the host. `draws`: the step's
   random draws, {"t", "noise", "mae_noise", "dit_noise", "flip",
-  "mae_drop", "dit_drop"} as far as the step uses them (see `draw`);
-  None draws them from the train state's generator. Updates the model's
+  "mae_drop", "dit_drop", "vae_noise"} as far as the step uses them (see
+  `draw`); None draws them from the train state's generator. With
+  `latent_diffusion` and without `use_preprocessed_latents`, the images
+  after the device pp go through `vae_encode(train_state["vae_params"],
+  draws["vae_noise"], images)` (`models.vae.load_vae`), without
+  gradients, and the step diffuses the latents. Updates the model's
   parameters, the optimizer state and the EMA in place; returns
   {"training_loss"} and, `with_l2`, the l2 norms of the parameters, the
   updates and the gradients (0-d tensors on the device).
@@ -133,7 +142,13 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
   use_labels = bool(config.get("use_labels", False))
   ema_decay = config.get("ema_decay", None)
   fused_branches = bool(config.get("fused_branches", False))
-  channels = int(config.get("diffusion_space", (64, 64, 3))[-1])
+  dspace = tuple(config.get("diffusion_space", (64, 64, 3)))
+  channels = int(dspace[-1])
+  encode = bool(config.get("latent_diffusion", False)) and not bool(
+      config.get("use_preprocessed_latents", False))
+  if encode and vae_encode is None:
+    raise ValueError("latent_diffusion encodes the pixels in the step: pass "
+                     "vae_encode (models.vae.load_vae)")
   num_patches = model.grid * model.grid
   device = next(model.parameters()).device
 
@@ -141,6 +156,10 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
     n_no_noise = int(b * no_noise_prob)
     n_noise = b - n_no_noise
     d = device_pp.draw(b, gen, device) if device_pp is not None else {}
+    if encode:  # the latent's draws, then the step's on the latents
+      d["vae_noise"] = torch.randn((b,) + dspace, generator=gen,
+                                   device=device)
+      image_shape = dspace
     d["t"] = torch.randint(0, int(config.get("diff_schedule", {}).get(
         "timesteps", 1000)), (n_noise,), generator=gen, device=device)
     d["noise"] = torch.randn((n_noise,) + tuple(image_shape),
@@ -167,6 +186,10 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
     if device_pp is not None:
       batch = device_pp(batch, draws)
     images = batch["image"]
+    if encode:
+      with torch.no_grad(), torch.profiler.record_function("vae_encode"):
+        images = vae_encode(train_state["vae_params"], draws["vae_noise"],
+                            images)
     n_no_noise = int(b * no_noise_prob)  # the static split
     n_noise = b - n_no_noise
     x0_noise, x0_clean = images[:n_noise], images[n_noise:]
@@ -262,11 +285,25 @@ def eval_generator(train_state) -> torch.Generator:
   return gen
 
 
-def make_eval_fns(model, config: dict) -> dict:
+def make_eval_fns(model, config: dict, vae_encode=None,
+                  vae_decode=None) -> dict:
   """The functions the evaluators and the server consume: `predict`,
-  `noised_predict`, `patch`, `loss`, and the sampler suite."""
+  `noised_predict`, `patch`, `loss`, and the sampler suite.
+
+  With `latent_diffusion` they take the VAE's functions
+  (`models.vae.load_vae`) and the train state's `vae_params`: each encodes
+  its images first (its N(0, 1) draw "vae_noise" before the others),
+  `patch` and `loss` decode what they return to pixels (`patch` resizes
+  its mask to the image's size, nearest), and the sampler decodes its
+  samples before they are clipped to uint8; a sampler function then needs
+  a train state in place of `gd`."""
   dspace = tuple(config.get("diffusion_space", (64, 64, 3)))
   channels = int(dspace[-1])
+  latent = bool(config.get("latent_diffusion", False))
+  size = int(config.get("size", dspace[0]))
+  if latent and (vae_encode is None or vae_decode is None):
+    raise ValueError("latent_diffusion: pass vae_encode and vae_decode "
+                     "(models.vae.load_vae)")
   use_labels = bool(config.get("use_labels", False))
   num_classes = config.get("num_classes", None)
   sched = config.get("diff_schedule", {})
@@ -286,11 +323,23 @@ def make_eval_fns(model, config: dict) -> dict:
       return torch.as_tensor(value).to(params[0].device)
     return make(generator)
 
+  def to_latent(train_state, images, generator, draws):
+    if not latent:
+      return images
+    noise = drawn(generator, draws, "vae_noise",
+                  lambda g: torch.randn((images.shape[0],) + dspace,
+                                        generator=g, device=images.device))
+    return vae_encode(train_state["vae_params"], noise, images)
+
+  def from_latent(vae_params, z):
+    return vae_decode(vae_params, z) if latent else z
+
   @torch.no_grad()
   def predict_fn(train_state, batch, generator=None, *, draws=None):
     """Clean forward at t=0; `out` carries pre_logits for probes."""
-    del train_state, generator, draws
-    images = batch["image"]
+    if latent:
+      generator = generator or eval_generator(train_state)
+    images = to_latent(train_state, batch["image"], generator, draws)
     _, out = model(images, t=torch.zeros(images.shape[0], dtype=torch.long,
                                          device=images.device))
     return None, out
@@ -299,7 +348,7 @@ def make_eval_fns(model, config: dict) -> dict:
     @torch.no_grad()
     def noised_predict_fn(train_state, batch, generator=None, *, draws=None):
       generator = generator or eval_generator(train_state)
-      images = batch["image"]
+      images = to_latent(train_state, batch["image"], generator, draws)
       t = torch.full((images.shape[0],), t_value, dtype=torch.long,
                      device=images.device)
       noise = drawn(generator, draws, "noise",
@@ -314,7 +363,7 @@ def make_eval_fns(model, config: dict) -> dict:
   def patch_fn(train_state, batch, generator=None, *, draws=None):
     """MAE reconstruction: masked clean forward, returns (pred_x0, mask)."""
     generator = generator or eval_generator(train_state)
-    images = batch["image"]
+    images = to_latent(train_state, batch["image"], generator, draws)
     b = images.shape[0]
     mae_noise = drawn(generator, draws, "mae_noise",
                       lambda g: torch.rand((b, num_patches), generator=g,
@@ -322,7 +371,13 @@ def make_eval_fns(model, config: dict) -> dict:
     pred, out = model(images, t=torch.zeros(b, dtype=torch.long,
                                             device=images.device),
                       mask=mask_ratio_no_noise, mask_noise=mae_noise)
-    return pred[..., :channels], out["mask"]
+    pred_x0, mask = pred[..., :channels], out["mask"]
+    if latent:
+      pred_x0 = from_latent(train_state["vae_params"], pred_x0)
+      mask = torch.nn.functional.interpolate(
+          mask.permute(0, 3, 1, 2), size=(size, size),
+          mode="nearest").permute(0, 2, 3, 1)
+    return pred_x0, mask
 
   @torch.no_grad()
   def loss_fn(train_state, batch, generator=None, *, draws=None):
@@ -330,7 +385,7 @@ def make_eval_fns(model, config: dict) -> dict:
     loss, x_t, pred_x0, pred_x0_eps). Per example, so that the evaluator can
     mask out the zero-padded rows of the final short batch."""
     generator = generator or eval_generator(train_state)
-    images = batch["image"]
+    images = to_latent(train_state, batch["image"], generator, draws)
     b = images.shape[0]
     gd = train_state["gd"]
     labels = batch.get("label") if use_labels else None
@@ -348,6 +403,10 @@ def make_eval_fns(model, config: dict) -> dict:
     loss = (torch.mean((pred_eps - noise) ** 2, dim=red)
             + torch.mean((pred_x0 - images) ** 2, dim=red)) / 2
     pred_x0_eps = gd_lib.predict_xstart_from_eps(gd, x_t, t, pred_eps)
+    if latent:
+      x_t, pred_x0, pred_x0_eps = (
+          from_latent(train_state["vae_params"], z)
+          for z in (x_t, pred_x0, pred_x0_eps))
     return loss, x_t, pred_x0, pred_x0_eps
 
   def make_apply_fn(gd, eps_pred=True):
@@ -364,7 +423,7 @@ def make_eval_fns(model, config: dict) -> dict:
                      unnormalize=True, eps_pred=True):
 
     @torch.inference_mode()
-    def sample(gd, generator, noise):
+    def sample(gd, generator, noise, vae_params=None):
       num_samples = int(config.get("num_samples_per_call", 1024))
       device = gd.betas.device
       if num_classes_arg is not None and manual_ys is None:
@@ -386,6 +445,8 @@ def make_eval_fns(model, config: dict) -> dict:
           cfg_scale=cfg_scale, sampling_steps=sampling_steps, eta=eta,
           clip_denoised=clip_denoised)
       samples = out["sample"]
+      if latent:
+        samples = from_latent(vae_params, samples)
       if unnormalize:
         samples = torch.clamp(samples, -1, 1) * 0.5 + 0.5
         samples = torch.clamp(samples * 255, 0, 255).to(torch.uint8)
@@ -400,7 +461,11 @@ def make_eval_fns(model, config: dict) -> dict:
       if isinstance(gd, dict):  # a train state: its tables, its EMA weights
         train_state = gd
         with swapped_params(params, train_state.get("ema_params", params)):
-          return sample(train_state["gd"], generator, noise)
+          return sample(train_state["gd"], generator, noise,
+                        train_state.get("vae_params"))
+      if latent:
+        raise ValueError("the latent sampler decodes with the train state's "
+                         "vae_params: pass a train state, not its tables")
       return sample(gd, generator, noise)
     return sample_fn
 
@@ -431,9 +496,12 @@ def setup_training(config: dict, device="cuda", log=print) -> dict:
   (`train_iter`, a `data.pipeline.TrainIterator` on `device`: set its
   `start_step` to continue the stream after that many steps), the model
   with `init_train_params` weights, AdamW, the train state and the step,
-  which applies the iterator's device pp. Returns a dict of those and of
-  `names`, `total_steps`, `batch_size`, `ntrain_img`, `log_steps` and
-  `get_steps(name, default)`."""
+  which applies the iterator's device pp; with `latent_diffusion` the VAE
+  (`models.vae.load_vae` of `config["vae_weights"]`, seeded without it),
+  its parameters in the train state as `vae_params`. Returns a dict of
+  those and of `names`, `vae_encode`, `vae_decode`, `total_steps`,
+  `batch_size`, `ntrain_img`, `log_steps` and `get_steps(name,
+  default)`."""
   batch_size = int(config["input"]["batch_size"])
   train_iter, device_pp, ntrain_img = pipeline.training(config["input"],
                                                         device)
@@ -450,9 +518,17 @@ def setup_training(config: dict, device="cuda", log=print) -> dict:
   names = [n for n, _ in named_params(model)]
   opt = make_optimizer(config, names, total_steps, warmup_steps)
   train_state = init_train_state(model, opt, config, device)
+  vae_encode = vae_decode = None
+  if config.get("latent_diffusion"):
+    from small_vision_tpu_torch.models import vae as vae_lib
+    train_state["vae_params"], vae_encode, vae_decode = vae_lib.load_vae(
+        config.get("vae_weights") or None,
+        image_size=int(config.get("size", 256)), device=device)
   return {
       "model": model, "opt": opt, "train_state": train_state, "names": names,
-      "update_fn": make_update_fn(model, opt, config, device_pp),
+      "update_fn": make_update_fn(model, opt, config, device_pp,
+                                  vae_encode=vae_encode),
+      "vae_encode": vae_encode, "vae_decode": vae_decode,
       "train_iter": train_iter,
       "total_steps": total_steps, "batch_size": batch_size,
       "ntrain_img": ntrain_img, "get_steps": get_steps,
@@ -467,7 +543,8 @@ def _named(names, tensors) -> dict:
 def checkpoint_state(train_state, names, chrono: Chrono) -> dict:
   """The entries a checkpoint holds, each a flat {name: leaf} tree: the
   parameters, the EMA's, the optimizer's (`mu` bf16, `nu`, count), the
-  generator's state and Chrono's accumulated time."""
+  generator's state, Chrono's accumulated time and, on the latent path,
+  the VAE's parameters (`vae_params`, by state_dict name)."""
   opt = train_state["opt"]
   state = {
       "params": _named(names, train_state["params"]),
@@ -479,6 +556,8 @@ def checkpoint_state(train_state, names, chrono: Chrono) -> dict:
   }
   if "ema_params" in train_state:
     state["ema_params"] = _named(names, train_state["ema_params"])
+  if "vae_params" in train_state:
+    state["vae_params"] = dict(train_state["vae_params"])
   return state
 
 
@@ -511,6 +590,10 @@ def load_checkpoint_state(train_state, names, restored, chrono: Chrono):
   _copy_named(names, train_state["opt"]["nu"], opt["nu"], "opt/nu")
   train_state["generator"].set_state(restored["generator"]["state"])
   chrono.load(restored["chrono"]["accum_train_time"])
+  if "vae_params" in train_state:
+    vae = train_state["vae_params"]
+    _copy_named(list(vae), list(vae.values()), restored["vae_params"],
+                "vae_params")
 
 
 def train_and_evaluate(config: dict, workdir: Optional[str] = None,
@@ -593,7 +676,8 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
         reset_ema()
         train_state["opt"] = opt.init(train_state["params"])
 
-  eval_fns = make_eval_fns(model, config)
+  eval_fns = make_eval_fns(model, config, vae_encode=run["vae_encode"],
+                           vae_decode=run["vae_decode"])
   evaluators = []
   if config.get("evals"):
     from small_vision_tpu_torch.evaluators import common as eval_common

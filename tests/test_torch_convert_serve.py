@@ -399,7 +399,8 @@ for m in ("tools.ablate_attention_kernel", "evaluators.common",
           "utils.losses", "utils.checkpoint", "data.core", "data.pipeline",
           "ops.quant", "evaluators.fewshot_lsr", "evaluators.inception",
           "evaluators.fid", "evaluators.classification",
-          "configs.common_fewshot"):
+          "configs.common_fewshot", "models.vae", "train.linear_ae",
+          "configs.ae_i1k_lp"):
   assert pkg.__name__ + "." + m in sys.modules, m
 print(len([m for m in sys.modules if m.startswith(pkg.__name__)]))
 assert not bad, bad

@@ -34,7 +34,9 @@ thread that has run no CUDA work yet, with the same bits as from the main
 thread; and the input pipeline's copy onto the card giving the bytes of
 the same batches on the CPU; and the int8 matmul (`torch._int_mm`, a
 library call) against the CPU's exact integer product, and refusing the
-shapes `_int_mm` does not take.
+shapes `_int_mm` does not take; K3 and K4 at UMD-L/2's 16 heads of 64
+(width 1,024); and the Stable Diffusion VAE (cuDNN, no kernel of the port)
+on the card against the CPU at a small shape.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -897,3 +899,60 @@ def test_int8_dot_refuses_what_int_mm_does_not_take(cuda, m, k, n, what):
   with pytest.raises(ValueError, match=rf"\({m}, {k}\) @ \({k}, {n}\).*"
                                        f"{what}"):
     quant.int8_dot(x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [68, 164, 257, 260])
+def test_attention_kernels_at_16_heads_of_umd_l(cuda, l):
+  """K3 and K4 at UMD-L/2's width (1,024: 16 heads of 64) and its lengths,
+  two launches of each giving the same bits, against the plain versions
+  with the bounds of the 2-head tests above."""
+  q, k, v, do = _qkv_do(cuda, l, b=3, h=16, seed=40)
+  got = attn.attention_packed_fwd(q, k, v, 16)
+  assert torch.equal(got, attn.attention_packed_fwd(q, k, v, 16))
+  torch.testing.assert_close(
+      got.float(), attn.attention_packed_plain(q, k, v, 16).float(),
+      rtol=2**-7, atol=2**-7)
+  grads = attn.attention_packed_bwd(q, k, v, do, 16)
+  again = attn.attention_packed_bwd(q, k, v, do, 16)
+  want = attn.attention_packed_bwd_plain(q, k, v, do, 16)
+  for g, a, w in zip(grads, again, want):
+    assert torch.equal(g, a)
+    err = (g.float() - w.float()).abs().max().item()
+    assert err <= 2.0**-6 * w.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_vae_on_the_card_matches_the_cpu(cuda):
+  """The port's AutoencoderKL (cuDNN convolutions, `F.group_norm`, the
+  mid-block attention) at channels (32, 64, 64, 64) on two 64x64 images:
+  `encode_moments` and `decode` on the card against the CPU, f32 with
+  TF32 off, within 1e-5 of each output's largest magnitude (two summation
+  orders of f32 through about 30 layers)."""
+  from small_vision_tpu_torch.models import vae
+
+  params, encode, decode = vae.load_vae(
+      device="cpu", seed=3, block_out_channels=(32, 64, 64, 64))
+  with torch.device("meta"):
+    model = vae.AutoencoderKL((32, 64, 64, 64))
+  model = model.to_empty(device="cpu").requires_grad_(False)
+  model.load_state_dict(params)
+  x = _randn((2, 64, 64, 3), 50, "cpu", torch.float32, 0.5).clamp(-1, 1)
+  z = _randn((2, 8, 8, 4), 51, "cpu", torch.float32)
+  tf32 = (torch.backends.cuda.matmul.allow_tf32,
+          torch.backends.cudnn.allow_tf32)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    outs = {}
+    for dev in ("cpu", cuda):
+      m = model.to(dev)
+      with torch.no_grad():
+        outs[str(dev)] = [t.cpu() for t in (*m.encode_moments(x.to(dev)),
+                                            m.decode(z.to(dev)))]
+  finally:
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+  for g, w in zip(outs["cuda"], outs["cpu"]):
+    err = (g - w).abs().max().item()
+    assert err <= 1e-5 * w.abs().max().item(), err

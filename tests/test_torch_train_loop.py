@@ -386,7 +386,7 @@ def test_model_init_warm_start_with_dont_load(tmp_path):
     train_ae.train_and_evaluate(config, device="cpu", log=lambda s: None)
 
 
-def test_cli_writes_a_workdir_and_resumes(tmp_path, capsys):
+def test_cli_writes_a_workdir_and_resumes(tmp_path, capsys, monkeypatch):
   spec = ("ae_i1k.py:runlocal,size=16,data=synthetic,total_steps=4,"
           "log_steps=1,ckpt_steps=2")
   workdir = str(tmp_path / "run")
@@ -401,8 +401,14 @@ def test_cli_writes_a_workdir_and_resumes(tmp_path, capsys):
   assert "Resumed from step 4" in out and "step 5/6" in out
   assert "step 4/6" not in out
   assert not os.path.exists(workdir)          # --cleanup
-  with pytest.raises(SystemExit, match="lp_ae"):
-    cli.main(["--config", spec, "--device", "cpu", "--main", "lp_ae"])
+  # `--main lp_ae` runs the linear probe's trainer on the config
+  # (tests/test_torch_linear_probe.py runs it end to end).
+  from small_vision_tpu_torch.train import linear_ae
+  calls = []
+  monkeypatch.setattr(linear_ae, "train_and_evaluate",
+                      lambda *a, **kw: calls.append((a, kw)) or (None, []))
+  cli.main(["--config", spec, "--device", "cpu", "--main", "lp_ae"])
+  assert len(calls) == 1 and calls[0][1] == {"device": "cpu"}
 
 
 def test_new_entry_points_default_to_the_gpu(monkeypatch):
