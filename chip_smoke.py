@@ -21,18 +21,40 @@ Phases, each fatal on failure:
                each of its kernels (K5's two, K6's three), K5 also at
                width 1,024 with hidden 4,096, and the seven arms of the
                ablation kernel (K9) at the tool's two shapes, each
-               launched twice to show equal bits.
+               launched twice to show equal bits. K1 and K2 also at the
+               widths of UMD-S (384) and runlocal (64), timed, and of the
+               probe's quick config (32) and ViT-G (1,664), checked; K3
+               and K4 at head dim 128 (6 heads at 768), timed beside SDPA
+               and its backward, and at 8, 16, 80 and 104, checked; each
+               at the sampler's and the training shapes, launched twice
+               (K2 three times, and twice at once on two streams).
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
                forward, and one training step's loss and gradients at
-               batch 8 with injected draws.
+               batch 8 with injected draws; then the same under the model
+               settings: `heads=6`, `scan=True` under "nothing_saveable"
+               and "save_attn_mlp", attn_impl "xla" and "flax", and
+               dropout 0.1 under "pallas_fused" with injected keep masks
+               (no K5: the fused MLP steps aside), each with its launches.
   4. train     the full UMD-B/4@64 training step at batch 256 on synthetic
                data through `train_and_evaluate` (what the CLI runs), from
                `init_train_params` weights, under both settings: 1 warm-up
                and 5 timed steps; finite, falling losses, changed
                parameters, and exactly the kernel launches per step the
                model says.
+  4b. settings the model settings through the normal entry points: (a)
+               UMD-B/4@64 under `heads=6,scan=True` (remat
+               "nothing_saveable") through `train_and_evaluate` at batch
+               256, 1 warm-up and 5 timed steps, finite, falling losses,
+               K1 128, K2 64, K3 64, K4 32 a step, the peak memory beside
+               phase train's; (b) one 125-step sampler call at batch 64
+               under `heads=6` (2,016 K3 at head dim 128); (c) UMD-S/4@64
+               at batch 256, 1 warm-up and 5 steps; (d) `cli.py` on
+               `ae_i1k.py:runlocal,total_steps=3` (width 64, head dim 16);
+               (e) UMD-L/2@256 under `scan=True` at the config's batch of
+               1,024 (512 if it runs out of memory), 1 warm-up and 2
+               steps, with its peak memory.
   5. serve     the port's HTTP sampling server at full UMD-B/4@64 size from
                seeded random weights: three concurrent requests (16, 16, 32
                images) coalesce into one 125-step DDIM call of batch 64; the
@@ -126,6 +148,7 @@ kernels, and as its last line {"ok": true, "device": {...}}. Without a CUDA
 device it exits non-zero and prints no result.
 """
 
+import gc
 import io
 import json
 import os
@@ -242,11 +265,13 @@ def model_shapes(train_batch):
       (train_batch, l) for l in TRAIN_SEQS)
 
 
-def check_ln(ln, card, width=WIDTH, train_batch=TRAIN_BATCH // 2):
+def check_ln(ln, card, width=WIDTH, train_batch=TRAIN_BATCH // 2,
+             timed=True):
   """K1 against its plain version, modulated and not, two launches giving
   equal bits, at `model_shapes(train_batch)`; returns its kernels-line
   entry (times of the modulated call at the sampler's encoder shape on
-  top, the training shapes' under `by_len`)."""
+  top, the training shapes' under `by_len`; with `timed` False, checked
+  only)."""
   gen = torch.Generator(device="cuda").manual_seed(0)
   randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
   gamma = 1.0 + 0.1 * randn(width)
@@ -276,7 +301,7 @@ def check_ln(ln, card, width=WIDTH, train_batch=TRAIN_BATCH // 2):
             "launches equal", flush=True)
       if bad:
         fail(f"ln_modulate_fwd disagrees with its plain version ({bad})")
-    if (b, seq) == (BATCH, SEQ_DEC):
+    if (b, seq) == (BATCH, SEQ_DEC) or not timed:
       continue  # the decoder's sampler shape is checked, not timed
     args = (x, gamma, beta, shift, scale)
     g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
@@ -301,14 +326,16 @@ def check_ln(ln, card, width=WIDTH, train_batch=TRAIN_BATCH // 2):
       timing = entry
     else:
       by_len[seq] = entry
+  if not timed:
+    return dict(max_abs_err=max_err)
   return dict(name=ln.NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/ln_modulate.cu",
-              replaces="small_vision_tpu/ops/layernorm.py:58",
+              replaces="small_vision_tpu/ops/layernorm.py:78",
               max_abs_err=max_err, **timing, by_len=by_len)
 
 
 def check_attention(attn, card, width=WIDTH, heads=HEADS,
-                    train_batch=TRAIN_BATCH // 2):
+                    train_batch=TRAIN_BATCH // 2, timed=True):
   """K3 against its plain version at `model_shapes(train_batch)` (the
   sampler's shapes, batch 64, L = 260 and 257, and the training shapes, L =
   68, 164, 257), two launches giving equal bits at each; returns its
@@ -339,7 +366,7 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
           "launches equal", flush=True)
     if bad:
       fail(f"attention_packed_fwd disagrees with its plain version ({bad})")
-    if (b, seq) == (BATCH, SEQ_DEC):
+    if (b, seq) == (BATCH, SEQ_DEC) or not timed:
       continue  # the decoder's sampler shape is checked, not timed
     split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
     bound_ms, bound_by = _bound(4 * b * seq * width * 2,
@@ -363,6 +390,8 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
       timing = entry
     else:
       by_len[seq] = entry
+  if not timed:
+    return dict(max_abs_err=max_err)
   # Host time of one call at a shape the card finishes at once (one batch
   # element, 64 tokens): the wrapper's checks, the encoding of the three
   # tensor maps and the launch, best of 5 runs of 500 calls.
@@ -379,12 +408,12 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
         f"{min(runs):.2f} us", flush=True)
   return dict(name=attn.NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/attention_packed.cu",
-              replaces="small_vision_tpu/ops/attention.py:258",
+              replaces="small_vision_tpu/ops/attention.py:312",
               max_abs_err=max_err, **timing, by_len=by_len,
               host_us=min(runs))
 
 
-def check_ln_bwd(ln, card, width=WIDTH, b=TRAIN_BATCH // 2):
+def check_ln_bwd(ln, card, width=WIDTH, b=TRAIN_BATCH // 2, timed=True):
   """K2 against its plain version at the training shapes (per-branch
   batch `b`, L = 68, 164, 257), modulated and not, three launches in a
   row giving equal bits, two at once on two streams giving the bits of the
@@ -433,6 +462,8 @@ def check_ln_bwd(ln, card, width=WIDTH, b=TRAIN_BATCH // 2):
             "tolerance, three launches equal", flush=True)
       if bad:
         fail(f"ln_modulate_bwd disagrees with its plain version ({bad})")
+    if not timed:
+      continue
     args = (x, dy, mean, rstd, gamma, beta, scale)
     # The library yardstick: autograd of F.layer_norm + modulate, on a
     # retained graph.
@@ -465,9 +496,11 @@ def check_ln_bwd(ln, card, width=WIDTH, b=TRAIN_BATCH // 2):
           flush=True)
   _check_ln_bwd_two_streams(ln, [cases[(TRAIN_SEQS[-1], True)],
                                  cases[(TRAIN_SEQS[0], False)]])
+  if not timed:
+    return dict(max_abs_err=max_err)
   return dict(name=ln.BWD_NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/ln_modulate_bwd.cu",
-              replaces="small_vision_tpu/ops/layernorm.py:130",
+              replaces="small_vision_tpu/ops/layernorm.py:185",
               max_abs_err=max_err, **by_len[TRAIN_SEQS[-1]],
               by_len=by_len)
 
@@ -500,7 +533,7 @@ def _check_ln_bwd_two_streams(ln, cases):
 
 
 def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
-                        b=TRAIN_BATCH // 2):
+                        b=TRAIN_BATCH // 2, timed=True):
   """K4 against its plain version at the training shapes (per-branch
   batch `b`, L = 68, 164, 257), two launches giving equal bits."""
   gen = torch.Generator(device="cuda").manual_seed(3)
@@ -531,6 +564,8 @@ def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
           "equal", flush=True)
     if bad:
       fail(f"attention_packed_bwd disagrees with its plain version ({bad})")
+    if not timed:
+      continue
     split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
     qs, ks, vs = (split(t).detach().requires_grad_() for t in (q, k, v))
     o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
@@ -549,9 +584,11 @@ def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
           f"D={head_dim}: " + ", ".join(
               f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
               for k, v in by_len[seq].items()) + f" on {card}", flush=True)
+  if not timed:
+    return dict(max_abs_err=max_err)
   return dict(name=attn.BWD_NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/attention_packed_bwd.cu",
-              replaces="small_vision_tpu/ops/attention.py:343",
+              replaces="small_vision_tpu/ops/attention.py:411",
               max_abs_err=max_err, **by_len[TRAIN_SEQS[-1]],
               by_len=by_len)
 
@@ -919,20 +956,42 @@ def _train_step_grads(config, params, images, draws, dev):
   step = train_ae.make_update_fn(model, opt, config, device_pp=None)
   loss, grads = step.loss_and_grads(
       state, {"image": torch.from_numpy(images)},
-      {k: torch.from_numpy(v) for k, v in draws.items()})
+      {k: v if k == "dropout" else torch.from_numpy(v)
+       for k, v in draws.items()})
   return float(loss), [(n, g.float().cpu()) for n, g in zip(names, grads)]
 
 
-def phase_model(build, card, attn_impl):
-  """Full-width model at depth 2 + 1 under `attn_impl`: card (kernels)
-  against CPU (plain), the sampler's forward and one training step's loss
-  and gradients."""
+def _dropout_masks(rng, config, n, rate):
+  """The keep masks of one training step's forward, in the order it takes
+  them: the MAE branch (encoder at 4 + 64 tokens, decoder at 1 + 256),
+  then the diffusion branch (encoder at 4 + 160), three a block (attention
+  branch, MLP hidden, MLP branch), as bool numpy arrays."""
+  model = config["model"]
+  width, hidden = WIDTH, MLP_DIM
+  masks = []
+  for enc_len in (68, 164):
+    for depth, seq in ((model["depth"], enc_len),
+                       (model["dec_depth"], SEQ_DEC)):
+      for _ in range(depth):
+        for d in (width, hidden, width):
+          masks.append(rng.random((n, seq, d)) >= rate)
+  return masks
+
+
+def phase_model(build, card, attn_impl, setting="", extra="", model=None,
+                per_block=None, dropout=0.0):
+  """Full-width model at depth 2 + 1 under `attn_impl` (and the config
+  string `extra`, the model's fields `model`): card (kernels) against CPU
+  (plain), the sampler's forward and one training step's loss and
+  gradients, with `per_block` the launches a block makes in the step."""
   from small_vision_tpu_torch import convert
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.train import train_ae
 
-  config = ae_i1k.get_config(f"batch_size=8,attn_impl={attn_impl}")
-  config["model"].update(depth=2, dec_depth=1)
+  config = ae_i1k.get_config(f"batch_size=8,attn_impl={attn_impl}{extra}")
+  config["model"].update(depth=2, dec_depth=1, dropout=dropout,
+                         **(model or {}))
+  label = f"{attn_impl}{' ' + setting if setting else ''}"
   params = convert.init_params(config, seed=1)
   rng = np.random.default_rng(2)
   x_t = rng.standard_normal((3, 64, 64, 3), dtype=np.float32)
@@ -946,7 +1005,7 @@ def phase_model(build, card, attn_impl):
                          t=torch.from_numpy(t).to(dev))[0].cpu()
   err = (preds["cuda"] - preds["cpu"]).abs().max().item()
   scale = preds["cpu"].abs().max().item()
-  print(f"[model] {attn_impl}: forward (3, 64, 64, 3) at width {WIDTH}, "
+  print(f"[model] {label}: forward (3, 64, 64, 3) at width {WIDTH}, "
         f"depth 2+1, t = {t.tolist()}: max abs err {err:.3e} of max |pred| "
         f"{scale:.3e}", flush=True)
   # bf16 matmuls summed in another order on the two devices: a few bf16
@@ -960,6 +1019,8 @@ def phase_model(build, card, attn_impl):
            "noise": rng.standard_normal((n, 64, 64, 3), dtype=np.float32),
            "mae_noise": rng.random((n, 256), dtype=np.float32),
            "dit_noise": rng.random((n, 256), dtype=np.float32)}
+  if dropout:
+    draws["dropout"] = _dropout_masks(rng, config, n, dropout)
   images = rng.uniform(-1, 1, (8, 64, 64, 3)).astype(np.float32)
   loss_cpu, grads_cpu = _train_step_grads(config, params, images, draws,
                                           "cpu")
@@ -968,7 +1029,7 @@ def phase_model(build, card, attn_impl):
                                           "cuda")
   launches = dict(build.LAUNCHES)
   # Two branches of 2 + 1 blocks.
-  want = _times(BLOCK_TRAIN_LAUNCHES[attn_impl], 6)
+  want = _times(per_block or BLOCK_TRAIN_LAUNCHES[attn_impl], 6)
   if launches != want:
     fail(f"training step launches {launches} != {want}")
   # Each leaf's gradient relative to its largest element, with a floor of
@@ -985,7 +1046,7 @@ def phase_model(build, card, attn_impl):
     if rel > worst:
       worst, worst_name = rel, name
   loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-  print(f"[model] {attn_impl}: training step (8, 64, 64, 3) at width "
+  print(f"[model] {label}: training step (8, 64, 64, 3) at width "
         f"{WIDTH}, depth 2+1: loss card {loss_gpu:.6f}, cpu {loss_cpu:.6f} "
         f"(rel {loss_rel:.2e}); "
         f"{len(grads_cpu)} gradient leaves, worst leaf-relative err "
@@ -999,34 +1060,43 @@ def phase_model(build, card, attn_impl):
          f"of leaf max at {worst_name}")
 
 
-def phase_train(build, card, attn_impl, quant="", tag="train"):
-  """The full UMD-B/4@64 training step at batch 256 through
+def phase_train(build, card, attn_impl, quant="", tag="train", extra="",
+                per_block=None, variant="B/4"):
+  """The full UMD-<variant>@64 training step at batch 256 through
   `train_and_evaluate`, on synthetic data from `init_train_params`, under
-  `attn_impl` (and the model's `quant`, phase quant)."""
+  `attn_impl` (and the model's `quant`, phase quant; the config string
+  `extra` and a block's launches `per_block`, phase settings); with its
+  peak memory."""
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.train import train_ae
 
   config = ae_i1k.get_config(
-      f"variant=B/4,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
+      f"variant={variant},size=64,data=synthetic,batch_size={TRAIN_BATCH},"
       f"total_steps={TRAIN_STEPS},log_steps=1,eval_steps=-1,"
-      f"attn_impl={attn_impl},quant={quant}")
-  what = f"{attn_impl}{', ' + quant if quant else ''}"
+      f"attn_impl={attn_impl},quant={quant}{extra}")
+  what = f"{attn_impl}{', ' + quant if quant else ''}{extra}"
+  if variant != "B/4":
+    what = f"UMD-{variant} {what}"
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
   build.reset_launches()
   train_state, history = train_ae.train_and_evaluate(
       config, device="cuda",
       log=lambda s: print(f"[{tag}] {what}: {s}", flush=True))
   launches = dict(build.LAUNCHES)
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
   n_params = sum(p.numel() for p in train_state["params"])
   del train_state
   torch.cuda.empty_cache()
 
   timed = history[1:]
   ms = sum(h["ms"] for h in timed) / len(timed)
-  print(f"[{tag}] {what}: UMD-B/4@64, {n_params} parameters, batch "
+  print(f"[{tag}] {what}: UMD-{variant}@64, {n_params} parameters, batch "
         f"{TRAIN_BATCH}: {len(timed)} timed steps, mean {ms:.2f} ms/step (min "
         f"{min(h['ms'] for h in timed):.2f}, max "
         f"{max(h['ms'] for h in timed):.2f}) = {TRAIN_BATCH / ms * 1e3:.2f} "
-        f"img/s; waiting for the batch {max(h['data_ms'] for h in timed):.3f} "
+        f"img/s; peak memory {peak_gb:.2f} GB (max_memory_allocated); "
+        f"waiting for the batch {max(h['data_ms'] for h in timed):.3f} "
         f"ms at most on {card}", flush=True)
   if len(history) != TRAIN_STEPS:
     fail(f"{len(history)} steps ran, not {TRAIN_STEPS}")
@@ -1041,8 +1111,8 @@ def phase_train(build, card, attn_impl, quant="", tag="train"):
           and history[-1]["l2_updates"] > 0):
     fail("the parameters did not change")
   # Two branches of 12 + 4 blocks a step.
-  per_block = (BLOCK_TRAIN_LAUNCHES_INT8 if quant else
-               BLOCK_TRAIN_LAUNCHES)[attn_impl]
+  per_block = per_block or (BLOCK_TRAIN_LAUNCHES_INT8 if quant else
+                            BLOCK_TRAIN_LAUNCHES)[attn_impl]
   want = _times(per_block, 2 * BLOCKS * TRAIN_STEPS)
   print(f"[{tag}] {what}: kernel launches in {TRAIN_STEPS} steps: "
         f"{launches}, model says {want}", flush=True)
@@ -1050,7 +1120,7 @@ def phase_train(build, card, attn_impl, quant="", tag="train"):
     fail(f"launch counts {launches} != {want}")
   data_ms = sum(h["data_ms"] for h in timed) / len(timed)
   return {"img_per_s": TRAIN_BATCH / (ms + data_ms) * 1e3, "ms": ms,
-          "data_ms": data_ms, "launches": launches}
+          "data_ms": data_ms, "launches": launches, "peak_gb": peak_gb}
 
 
 def _check_images(images, n):
@@ -1061,17 +1131,18 @@ def _check_images(images, n):
     fail("a constant image came back")
 
 
-def phase_sample_call(build, card, attn_impl, quant="", tag="serve"):
+def phase_sample_call(build, card, attn_impl, quant="", tag="serve",
+                      extra=""):
   """One 125-step sampler call at batch 64 under `attn_impl` (and the
-  model's `quant`, phase quant), through `build_sample_callable` (what the
-  server calls)."""
+  model's `quant`, phase quant; the config string `extra`, phase
+  settings), through `build_sample_callable` (what the server calls)."""
   from small_vision_tpu_torch import convert
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.tools import export_sampler
 
   config = ae_i1k.get_config(f"variant=B/4,size=64,samples_per_call={BATCH},"
-                             f"attn_impl={attn_impl},quant={quant}")
-  what = f"{attn_impl}{', ' + quant if quant else ''}"
+                             f"attn_impl={attn_impl},quant={quant}{extra}")
+  what = f"{attn_impl}{', ' + quant if quant else ''}{extra}"
   sample = export_sampler.build_sample_callable(
       config, convert.init_params(config, seed=0), fn="uncond_eps",
       batch_size=BATCH, device="cuda")
@@ -2061,17 +2132,21 @@ def _hold_latent_step(build, card):
          f"{worst:.3e} of leaf max at {worst_name}")
 
 
-def _latent_train(build, card):
+def _latent_train(build, card, batch=LATENT_BATCH, steps=LATENT_STEPS,
+                  extra="", per_block=None, tag="latent", falling=True):
   """Full-width, full-depth UMD-L/2@256 through `train_and_evaluate`, the
-  VAE encode timed inside each step."""
+  VAE encode timed inside each step (at `batch`, for `steps` steps, with
+  the config string `extra` and a block's launches `per_block`); finite
+  losses that fall over the run (with `falling`)."""
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.models import vae as vae_lib
   from small_vision_tpu_torch.train import train_ae
 
   config = ae_i1k.get_config(
       f"variant=L/2,size={LATENT_SIZE},latent_diffusion=True,data=synthetic,"
-      f"batch_size={LATENT_BATCH},total_steps={LATENT_STEPS},log_steps=1,"
-      "eval_steps=-1")
+      f"batch_size={batch},total_steps={steps},log_steps=1,"
+      f"eval_steps=-1{extra}")
+  per_block = per_block or BLOCK_TRAIN_LAUNCHES["pallas"]
   wrap, encode_ms = _cuda_timer()
 
   def timed_load(load):
@@ -2086,7 +2161,7 @@ def _latent_train(build, card):
   try:
     train_state, history = train_ae.train_and_evaluate(
         config, device="cuda",
-        log=lambda s: print(f"[latent] train: {s}", flush=True))
+        log=lambda s: print(f"[{tag}] train{extra}: {s}", flush=True))
   finally:
     undo()
   launches = dict(build.LAUNCHES)
@@ -2096,17 +2171,18 @@ def _latent_train(build, card):
   del train_state
   torch.cuda.empty_cache()
   enc = encode_ms()
-  if len(history) != LATENT_STEPS or len(enc) != LATENT_STEPS:
+  if len(history) != steps or len(enc) != steps:
     fail(f"{len(history)} steps and {len(enc)} encodes ran, not "
-         f"{LATENT_STEPS}")
+         f"{steps}")
   timed = history[1:]
   ms = sum(h["ms"] for h in timed) / len(timed)
   enc_ms = sum(enc[1:]) / len(timed)
-  print(f"[latent] train: UMD-L/2@{LATENT_SIZE} on (32, 32, 4) latents, "
+  print(f"[{tag}] train{extra}: UMD-L/2@{LATENT_SIZE} on (32, 32, 4) "
+        "latents, "
         f"{n_params} parameters (+ {n_vae} frozen VAE), batch "
-        f"{LATENT_BATCH}: {len(timed)} timed steps, mean {ms:.2f} ms/step "
+        f"{batch}: {len(timed)} timed steps, mean {ms:.2f} ms/step "
         f"(min {min(h['ms'] for h in timed):.2f}, max "
-        f"{max(h['ms'] for h in timed):.2f}) = {LATENT_BATCH / ms * 1e3:.2f} "
+        f"{max(h['ms'] for h in timed):.2f}) = {batch / ms * 1e3:.2f} "
         f"img/s; the VAE encode {enc_ms:.2f} ms a step by CUDA events "
         f"({enc_ms / ms * 100:.1f} % of the step); peak memory "
         f"{peak_gb:.2f} GB (max_memory_allocated); waiting for the batch "
@@ -2115,19 +2191,18 @@ def _latent_train(build, card):
   losses = [h["training_loss"] for h in history]
   if not all(np.isfinite(losses)):
     fail(f"non-finite latent training loss: {losses}")
-  if not losses[-1] < losses[0]:
+  if falling and not losses[-1] < losses[0]:
     fail(f"the latent training loss did not fall: {losses}")
   if not (history[-1]["l2_params"] != history[0]["l2_params"]
           and history[-1]["l2_updates"] > 0):
     fail("the L/2 parameters did not change")
-  want = _times(BLOCK_TRAIN_LAUNCHES["pallas"],
-                2 * L2_BLOCKS * LATENT_STEPS)
-  per_step = _times(BLOCK_TRAIN_LAUNCHES["pallas"], 2 * L2_BLOCKS)
-  print(f"[latent] train: kernel launches in {LATENT_STEPS} steps: "
+  want = _times(per_block, 2 * L2_BLOCKS * steps)
+  per_step = _times(per_block, 2 * L2_BLOCKS)
+  print(f"[{tag}] train{extra}: kernel launches in {steps} steps: "
         f"{launches}, model says {want} ({per_step} a step)", flush=True)
   if launches != want:
     fail(f"latent training launch counts {launches} != {want}")
-  return {"launches": launches, "ms": ms, "img_per_s": LATENT_BATCH / ms
+  return {"launches": launches, "ms": ms, "img_per_s": batch / ms
           * 1e3, "encode_ms": enc_ms, "peak_gb": peak_gb,
           "losses": losses}
 
@@ -2289,6 +2364,106 @@ def phase_probe(build, card, backbone_dir):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# A block's launches in a training step under remat ("nothing_saveable"
+# and "save_attn_mlp", phase model and settings): the checkpointed region
+# runs its forward again in the backward, K1 and K3 (K3's recompute for a
+# saved attn_out is dry under "save_attn_mlp": it launches nothing).
+BLOCK_TRAIN_LAUNCHES_REMAT = {
+    "nothing_saveable": {"ln_modulate_fwd": 4, "ln_modulate_bwd": 2,
+                         "attention_packed_fwd": 2,
+                         "attention_packed_bwd": 1},
+    "save_attn_mlp": {"ln_modulate_fwd": 4, "ln_modulate_bwd": 2,
+                      "attention_packed_fwd": 1, "attention_packed_bwd": 1},
+}
+# Under "xla" and "flax" the attention is matmuls and a softmax: K1 and K2
+# only. With dropout > 0 the fused MLP steps aside: no K5.
+BLOCK_TRAIN_LAUNCHES_REF = {"ln_modulate_fwd": 2, "ln_modulate_bwd": 2}
+BLOCK_TRAIN_LAUNCHES_DROPOUT_FUSED = {
+    k: v for k, v in BLOCK_TRAIN_LAUNCHES["pallas_fused"].items()
+    if k != "fused_mlp_fwd"}
+# The model settings phase model holds on the card against the CPU:
+# (label, attn_impl, config string, model fields, launches a block, rate).
+MODEL_SETTINGS = (
+    ("heads=6", "pallas", ",heads=6", None, None, 0.0),
+    ("scan nothing_saveable", "pallas", ",scan=True", None,
+     BLOCK_TRAIN_LAUNCHES_REMAT["nothing_saveable"], 0.0),
+    ("scan save_attn_mlp", "pallas", ",scan=True",
+     {"remat_policy": "save_attn_mlp"},
+     BLOCK_TRAIN_LAUNCHES_REMAT["save_attn_mlp"], 0.0),
+    ("", "xla", "", None, BLOCK_TRAIN_LAUNCHES_REF, 0.0),
+    ("", "flax", "", None, BLOCK_TRAIN_LAUNCHES_REF, 0.0),
+    ("dropout 0.1", "pallas_fused", "", None,
+     BLOCK_TRAIN_LAUNCHES_DROPOUT_FUSED, 0.1),
+)
+SETTINGS_L2_BATCH = 1024      # the config's batch, phase settings (e)
+SETTINGS_L2_STEPS = 3         # 1 warm-up + 2 timed
+RUNLOCAL_STEPS = 3
+
+
+def _runlocal_cli(build, card):
+  """`cli.py --config ae_i1k.py:runlocal,total_steps=3` in this process,
+  on the card (width 64: K1 and K2 at 64, K3 and K4 at head dim 16),
+  with the launches its 3 steps make."""
+  from small_vision_tpu_torch import cli
+
+  build.reset_launches()
+  t0 = time.perf_counter()
+  cli.main(["--config", f"ae_i1k.py:runlocal,total_steps={RUNLOCAL_STEPS}"])
+  s = time.perf_counter() - t0
+  launches = dict(build.LAUNCHES)
+  # Two branches of 2 + 1 blocks a step.
+  want = _times(BLOCK_TRAIN_LAUNCHES["pallas"], 2 * 3 * RUNLOCAL_STEPS)
+  print(f"[settings] (d) runlocal through cli.py: {RUNLOCAL_STEPS} steps in "
+        f"{s:.2f} s; launches {launches}, model says {want} on {card}",
+        flush=True)
+  if launches != want:
+    fail(f"runlocal launch counts {launches} != {want}")
+  return {"launches": launches, "s": s}
+
+
+def phase_settings(build, card):
+  """The model settings at full width through the normal entry points:
+  (a) UMD-B/4@64 under `heads=6,scan=True` (remat "nothing_saveable"),
+  (b) one sampler call under `heads=6`, (c) UMD-S/4@64, (d) runlocal
+  through cli.py, (e) UMD-L/2@256 under `scan=True` at the config's batch
+  of 1,024."""
+  per_remat = BLOCK_TRAIN_LAUNCHES_REMAT["nothing_saveable"]
+  out = {"a": phase_train(build, card, "pallas", tag="settings",
+                          extra=",heads=6,scan=True", per_block=per_remat)}
+  per_step = _times(per_remat, 2 * BLOCKS)
+  print(f"[settings] (a) heads=6,scan=True: {per_step} launches a step "
+        f"(phase train: {_times(BLOCK_TRAIN_LAUNCHES['pallas'], 2 * BLOCKS)})"
+        f"; peak {out['a']['peak_gb']:.2f} GB", flush=True)
+  out["b"] = phase_sample_call(build, card, "pallas", tag="settings",
+                               extra=",heads=6")
+  out["c"] = phase_train(build, card, "pallas", tag="settings",
+                         variant="S/4")
+  out["d"] = _runlocal_cli(build, card)
+  # Two steps past the warm-up one cannot show a fall: step 3's loss
+  # rises above step 1's at any batch (phase train's does, and falls by
+  # step 6), here by more (0.68 to 6.85 at the config's lr, to 4.68 at a
+  # quarter of it, my chip runs). So (e) holds finite losses and changed
+  # parameters.
+  oom = None
+  for batch in (SETTINGS_L2_BATCH, SETTINGS_L2_BATCH // 2):
+    try:
+      out["e"] = _latent_train(build, card, batch, SETTINGS_L2_STEPS,
+                               ",scan=True", per_remat, tag="settings",
+                               falling=False)
+      out["e"].update(batch=batch, oom_at=oom)
+      break
+    except torch.cuda.OutOfMemoryError as e:
+      oom = batch
+      print(f"[settings] (e) UMD-L/2 scan=True at batch {batch}: out of "
+            f"memory ({str(e).splitlines()[0]})", flush=True)
+    gc.collect()  # the failed run's tensors, held by the traceback
+    torch.cuda.empty_cache()
+  if "e" not in out:
+    fail("UMD-L/2 under scan=True ran out of memory at batch "
+         f"{SETTINGS_L2_BATCH // 2} too")
+  return out
+
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2329,9 +2504,35 @@ def main():
         k[f"width_{L2_WIDTH}"] = {
             key: v for key, v in w.items()
             if key not in ("name", "route", "source", "replaces")}
+  # The settings' shapes (phase settings): K1 and K2 at UMD-S's width 384
+  # and runlocal's 64, timed; at 32 (the probe's quick config) and 1,664
+  # (ViT-G), checked. K3 and K4 at head dim 128 (heads=6 at width 768),
+  # timed beside SDPA; at 8, 16, 80 and 104 (16 heads at ViT-H's 1,280 and
+  # ViT-G's 1,664), checked. Each at the sampler's and the training shapes.
+  more = {}
+  for width, timed in ((384, True), (64, True), (32, False), (1664, False)):
+    more[f"width_{width}"] = {
+        ln.NAME: check_ln(ln, card, width, timed=timed),
+        ln.BWD_NAME: check_ln_bwd(ln, card, width, timed=timed)}
+  for width, heads, timed in ((768, 6, True), (32, 4, False),
+                              (64, 4, False), (1280, 16, False),
+                              (1664, 16, False)):
+    more[f"head_dim_{width // heads}"] = {
+        attn.NAME: check_attention(attn, card, width, heads, timed=timed),
+        attn.BWD_NAME: check_attention_bwd(attn, card, width, heads,
+                                           timed=timed)}
+  for k in kernels:
+    for key, entries in more.items():
+      if k["name"] in entries:
+        k[key] = {n: v for n, v in entries[k["name"]].items()
+                  if n not in ("name", "route", "source", "replaces")}
   for attn_impl in ATTN_IMPLS:
     phase_model(build, card, attn_impl)
+  for label, attn_impl, extra, model, per_block, rate in MODEL_SETTINGS:
+    phase_model(build, card, attn_impl, label, extra, model, per_block,
+                rate)
   train = {a: phase_train(build, card, a) for a in ATTN_IMPLS}
+  settings = phase_settings(build, card)
   serve = {"pallas": phase_serve(build, card),
            "pallas_fused": phase_sample_call(build, card, "pallas_fused")}
   data = phase_data(build, card, train["pallas"])
@@ -2378,7 +2579,16 @@ def main():
         f"latent_train_{LATENT_STEPS}_steps":
             latent["train"]["launches"].get(name, 0),
         "latent_sampler": latent["sample"]["launches"].get(name, 0),
-        "probe": probe["launches"].get(name, 0)}
+        "probe": probe["launches"].get(name, 0),
+        f"settings_a_heads6_scan_{TRAIN_STEPS}_steps":
+            settings["a"]["launches"].get(name, 0),
+        "settings_b_sampler_heads6": settings["b"]["launches"].get(name, 0),
+        f"settings_c_umd_s_{TRAIN_STEPS}_steps":
+            settings["c"]["launches"].get(name, 0),
+        f"settings_d_runlocal_{RUNLOCAL_STEPS}_steps":
+            settings["d"]["launches"].get(name, 0),
+        f"settings_e_l2_scan_{SETTINGS_L2_STEPS}_steps":
+            settings["e"]["launches"].get(name, 0)}
     k["launches"] = max(k["launches_by_path"].values())
     if not k["launches"]:
       fail(f"{name} was launched on no path")
@@ -2423,6 +2633,23 @@ def main():
         f"probe {probe['s']:.2f} s ("
         + ", ".join(f"{k} {v:.4f}" for k, v in probe["evals"].items())
         + f"); on {card}", flush=True)
+
+  sa, sc, se = settings["a"], settings["c"], settings["e"]
+  print(f"[result] settings: (a) UMD-B/4@64 heads=6,scan=True "
+        f"{sa['img_per_s']:.2f} img/s, {sa['ms']:.2f} ms/step, peak "
+        f"{sa['peak_gb']:.2f} GB (phase train: "
+        f"{train['pallas']['img_per_s']:.2f} img/s, peak "
+        f"{train['pallas']['peak_gb']:.2f} GB); (b) sampler heads=6 "
+        f"{settings['b']['img_per_s']:.2f} img/s, "
+        f"{settings['b']['s']:.3f} s a call (12 heads: "
+        f"{serve['pallas']['img_per_s']:.2f}); (c) UMD-S/4@64 "
+        f"{sc['img_per_s']:.2f} img/s, peak {sc['peak_gb']:.2f} GB; (d) "
+        f"runlocal {settings['d']['s']:.2f} s for {RUNLOCAL_STEPS} steps; "
+        f"(e) UMD-L/2@{LATENT_SIZE} scan=True batch {se['batch']} "
+        f"{se['img_per_s']:.2f} img/s, {se['ms']:.2f} ms/step, peak "
+        f"{se['peak_gb']:.2f} GB"
+        + (f" (out of memory at {se['oom_at']})" if se["oom_at"] else "")
+        + f"; on {card}", flush=True)
 
   print(card, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,6 +25,11 @@ raises in the port, naming the arrays route.
   --config ae_i1k.py:batch_size=256,total_steps=20
   --config ae_i1k.py:runlocal                 # width 64, depth 2: CPU tests
   --config ae_i1k.py:attn_impl=pallas_fused   # fused MLP and MHA kernels
+  --config ae_i1k.py:attn_impl=xla            # the reference attentions:
+  --config ae_i1k.py:attn_impl=flax           #   matmuls and a softmax
+  --config ae_i1k.py:heads=6                  # 6 heads of 128 at width 768
+  --config ae_i1k.py:scan=True                # stacked blocks, remat
+  --config ae_i1k.py:variant=S/4              # UMD-S: width 384, 6 heads
   --config ae_i1k.py:ckpt_steps=500,eval_steps=1000   # with --workdir
   --config ae_i1k.py:eval_steps=-1            # no evaluators
   --config ae_i1k.py:data=arrays:/data/i1k64  # train/ and validation/
@@ -33,6 +38,11 @@ raises in the port, naming the arrays route.
   --config ae_i1k.py:variant=L/2,size=256,latent_diffusion=True
                       # UMD-L/2 on SD-VAE latents (seeded VAE unless
                       # vae_weights=<npz of scripts/convert_vae.py>)
+
+`scan=True` holds the blocks in the stacked layout of flax's `nn.scan` and
+rematerialises each under `model.remat_policy` ("nothing_saveable", as in
+the JAX config: a step keeps the blocks' inputs only). `fsdp=True` raises:
+FSDP is not ported (ROADMAP Queue A item 9).
 
 With `latent_diffusion` (size 256 only) the model works on (32, 32, 4)
 latents of the Stable Diffusion VAE: `diffusion_space` (32, 32, 4), the
@@ -47,7 +57,8 @@ from small_vision_tpu_torch.configs.common_fewshot import get_fewshot_lsr
 
 def get_config(arg=None) -> dict:
   arg = cc.parse_arg(
-      arg, variant="B/4", size=64, use_labels=False, adaln=True,
+      arg, variant="B/4", scan=False, fsdp=False, heads=0, size=64,
+      use_labels=False, adaln=True,
       samples_per_call=0, runlocal=False, batch_size=1024, mask_ratio=0.375,
       no_noise_prob=0.5, mask_ratio_no_noise=0.75, lr=15e-5, wd=5e-2,
       beta2=0.95, epochs=800, data="synthetic", area_min=80, total_steps=0,
@@ -68,6 +79,9 @@ def get_config(arg=None) -> dict:
       latent_diffusion=False, use_preprocessed_latents=False,
       vae_weights="")  # the npz of scripts/convert_vae.py; "" = seeded
 
+  if arg["fsdp"]:
+    raise ValueError("fsdp=True: FSDP is not ported (ROADMAP Queue A item "
+                     "9, parallelism)")
   latent = arg["latent_diffusion"]
   if latent:
     assert arg["size"] == 256, "Latent diffusion only supports 256x256 images"
@@ -180,13 +194,17 @@ def get_config(arg=None) -> dict:
 
   model = dict(
       num_classes=config["num_classes"], variant=arg["variant"],
-      adaln=arg["adaln"], channels=config["diffusion_space"][-1],
-      img_size=config["diffusion_space"][0], dtype_mm="bfloat16",
+      scan=arg["scan"], adaln=arg["adaln"],
+      channels=config["diffusion_space"][-1],
+      img_size=config["diffusion_space"][0],
+      remat_policy="nothing_saveable", dtype_mm="bfloat16",
       attn_impl=arg["attn_impl"])
   if arg["quant"]:
     model["quant"] = arg["quant"]
+  if arg["heads"]:  # heads=6 at width 768: head dim 128
+    model["num_heads"] = arg["heads"]
   if arg["runlocal"]:
-    model.update(width=64, depth=2, dec_depth=1, num_heads=4)
+    model.update(width=64, depth=2, dec_depth=1, num_heads=4, scan=False)
     config["input"]["batch_size"] = config["batch_size"] = 32
     config["input"]["num_workers"] = 2
     if data == "synthetic":

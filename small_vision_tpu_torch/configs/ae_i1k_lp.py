@@ -12,6 +12,8 @@ config's does; a caller with decoded images (an `arrays` source) sets
 
   --config ae_i1k_lp.py:variant=B/4,size=64,pretrain_workdir=/tmp/run
   --config ae_i1k_lp.py:runlocal,data=synthetic      # tiny CPU run
+  --config ae_i1k_lp.py:scan=True,pretrain_workdir=/tmp/run   # a backbone
+                      # trained with scan=True (stacked layout)
 """
 
 from small_vision_tpu_torch.configs import common as cc
@@ -20,7 +22,8 @@ from small_vision_tpu_torch.configs import common as cc
 def get_config(arg=None) -> dict:
   arg = cc.parse_arg(
       arg, variant="B/4", batch_size=1024, size=64, adaln=True, epochs=90,
-      use_noised_pred=False, latent_diffusion=False, data="imagenet2012",
+      use_noised_pred=False, latent_diffusion=False, scan=False,
+      data="imagenet2012",
       pretrain_workdir="", lr=0.1, wd=0.0, runlocal=False)
 
   config = {
@@ -52,8 +55,8 @@ def get_config(arg=None) -> dict:
   config["input"] = {"data": data_cfg, "pp": pp_train + pp_common,
                      "batch_size": arg["batch_size"], "num_workers": 16}
   config["model"] = dict(num_classes=None, variant=arg["variant"],
-                         adaln=arg["adaln"], channels=3, img_size=arg["size"],
-                         dtype_mm="bfloat16")
+                         scan=arg["scan"], adaln=arg["adaln"], channels=3,
+                         img_size=arg["size"], dtype_mm="bfloat16")
 
   pp_eval = (f"decode|resize_small({arg['size']})|central_crop({arg['size']})"
              '|value_range(-1, 1)|keep("image", "label")')
@@ -81,6 +84,6 @@ def get_config(arg=None) -> dict:
                                                             "onehot(10")
     config["model"] = dict(width=32, depth=1, dec_depth=1, num_heads=4,
                            img_size=arg["size"], patch_size=(4, 4),
-                           adaln=arg["adaln"], num_classes=None,
+                           scan=False, adaln=arg["adaln"], num_classes=None,
                            dtype_mm="float32")
   return config

@@ -6,6 +6,15 @@ state_dict entry `Encoder.blocks_00.MultiHeadAttention_0.query.kernel` of the
 same shape. The bridge checks that the two name sets are equal and the
 shapes agree, and raises on any name left over or missing.
 
+The blocks come in two layouts, as in flax: unrolled
+(`Encoder/blocks_00/...`, `blocks_01`, ...) and stacked, `nn.scan`'s
+(`Encoder/blocks/...`, each leaf with the depth on a leading axis), which
+a `scan=True` model holds. `stack_blocks` and `unstack_blocks` turn a tree
+(parameters, or AdamW's mu or nu, keyed alike) from one into the other,
+exactly; `params_from_jax`, `opt_state_from_jax` and
+`train_state_from_jax` take either layout and hand the model the one it
+holds, and `params_to_jax` gives either.
+
 `init_params` draws a non-degenerate flax-named tree from a seed with numpy.
 Every leaf is drawn, including the ones flax zero-initialises (the AdaLN
 `Dense_0`, `final_modulation`, `cls`, `head_bias`): with AdaLN-zero weights
@@ -32,7 +41,8 @@ OIHW, the (2048, 1008) head kernel its transpose, the BatchNorm leaves
 keep their names. `inception_to_jax` is its inverse.
 """
 
-from typing import Mapping
+import re
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -48,6 +58,71 @@ def _flat(params) -> dict:
   return dict(params)
 
 
+_UNROLLED = re.compile(r"^(.*?)(?:^|/)blocks_(\d+)/(.*)$")
+_STACKED = re.compile(r"^(.*?)(?:^|/)blocks/(.*)$")
+
+
+def _join(prefix, name):
+  return f"{prefix}/{name}" if prefix else name
+
+
+def _stack(leaves):
+  if isinstance(leaves[0], torch.Tensor):
+    return torch.stack(leaves)
+  return np.stack([np.asarray(a) for a in leaves])
+
+
+def _same_form(params, flat: dict):
+  """`flat` nested again if `params` was nested."""
+  if any(isinstance(v, Mapping) for v in params.values()):
+    return recover_tree(list(flat), list(flat.values()))
+  return flat
+
+
+def stack_blocks(params):
+  """The tree (nested or slash-flat) with every `.../blocks_NN/<leaf>`
+  group stacked, in the order of NN, into `.../blocks/<leaf>`: flax
+  `nn.scan`'s layout. numpy leaves or tensors; other leaves unchanged."""
+  flat = _flat(params)
+  out, groups = {}, {}
+  for name, leaf in flat.items():
+    m = _UNROLLED.match(name)
+    if m is None:
+      out[name] = leaf
+    else:
+      groups.setdefault((m.group(1), m.group(3)), {})[int(m.group(2))] = leaf
+  for (prefix, rest), layers in groups.items():
+    if sorted(layers) != list(range(len(layers))):
+      raise KeyError(f"{_join(prefix, 'blocks_NN/' + rest)}: layers "
+                     f"{sorted(layers)} are not 0..{len(layers) - 1}")
+    out[_join(prefix, f"blocks/{rest}")] = _stack(
+        [layers[i] for i in range(len(layers))])
+  return _same_form(params, out)
+
+
+def unstack_blocks(params):
+  """The inverse of `stack_blocks`: every `.../blocks/<leaf>` split along
+  its leading (depth) axis into `.../blocks_NN/<leaf>`."""
+  flat = _flat(params)
+  out = {}
+  for name, leaf in flat.items():
+    m = _STACKED.match(name)
+    if m is None:
+      out[name] = leaf
+      continue
+    for i in range(leaf.shape[0]):
+      out[_join(m.group(1), f"blocks_{i:02d}/{m.group(2)}")] = leaf[i]
+  return _same_form(params, out)
+
+
+def to_layout(params, names) -> dict:
+  """The slash-flat tree `params` in the layout of the names `names`
+  (stacked if any of them is a `blocks/` name, else unrolled)."""
+  flat = _flat(params)
+  stacked = any(_STACKED.match(n) for n in names)
+  return _flat(stack_blocks(flat) if stacked else unstack_blocks(flat))
+
+
 def _as_tensor(leaf) -> torch.Tensor:
   if isinstance(leaf, torch.Tensor):
     return leaf
@@ -59,10 +134,12 @@ def _as_tensor(leaf) -> torch.Tensor:
 
 def params_from_jax(params, model: torch.nn.Module) -> dict:
   """state_dict for `model` from a flax-named tree (nested or `a/b/c`-flat)
-  of numpy arrays or tensors. Raises KeyError on a leftover or missing
-  name and ValueError on a shape mismatch."""
-  got = {k.replace("/", "."): v for k, v in _flat(params).items()}
+  of numpy arrays or tensors, in either block layout (see
+  `stack_blocks`). Raises KeyError on a leftover or missing name and
+  ValueError on a shape mismatch."""
   want = model.state_dict()
+  got = to_layout(params, [k.replace(".", "/") for k in want])
+  got = {k.replace("/", "."): v for k, v in got.items()}
   missing = sorted(set(want) - set(got))
   leftover = sorted(set(got) - set(want))
   if missing or leftover:
@@ -80,11 +157,15 @@ def params_from_jax(params, model: torch.nn.Module) -> dict:
   return out
 
 
-def params_to_jax(state_dict) -> dict:
-  """Nested flax-named tree of float32 numpy arrays from a state_dict."""
+def params_to_jax(state_dict, stacked: Optional[bool] = None) -> dict:
+  """Nested flax-named tree of float32 numpy arrays from a state_dict, in
+  its block layout, or stacked (`stacked=True`) or unrolled (False)."""
   names = [k.replace(".", "/") for k in state_dict]
   values = [v.detach().float().cpu().numpy() for v in state_dict.values()]
-  return recover_tree(names, values)
+  tree = recover_tree(names, values)
+  if stacked is None:
+    return tree
+  return stack_blocks(tree) if stacked else unstack_blocks(tree)
 
 
 def _std_and_mean(name: str, shape) -> tuple:
@@ -105,12 +186,26 @@ def _std_and_mean(name: str, shape) -> tuple:
   return 1.0, 0.0  # cls, mask_token, label embedding table
 
 
+def _unrolled_shapes(config: dict) -> dict:
+  """{flax name: shape} of the config's model in the unrolled layout."""
+  from small_vision_tpu_torch.train.train_ae import build_model
+  config = dict(config, model={**config.get("model", {}), "scan": False})
+  return {k.replace(".", "/"): tuple(v.shape) for k, v in
+          build_model(config, device="meta").state_dict().items()}
+
+
+def _in_config_layout(config: dict, tree):
+  if config.get("model", {}).get("scan", False):
+    return stack_blocks(tree)
+  return tree
+
+
 def init_params(config: dict, seed: int) -> dict:
   """Nested flax-named tree of float32 numpy arrays for the config's model,
-  drawn from `np.random.default_rng(seed)` in sorted-name order."""
-  from small_vision_tpu_torch.train.train_ae import build_model
-  shapes = {k.replace(".", "/"): tuple(v.shape) for k, v in
-            build_model(config, device="meta").state_dict().items()}
+  drawn from `np.random.default_rng(seed)` in the sorted-name order of the
+  unrolled layout, then stacked where the config's model has `scan`: the
+  two layouts of one seed hold the same weights."""
+  shapes = _unrolled_shapes(config)
   names = sorted(shapes)
   rng = np.random.default_rng(seed)
   values = []
@@ -118,7 +213,7 @@ def init_params(config: dict, seed: int) -> dict:
     std, mean = _std_and_mean(name, shapes[name])
     a = rng.standard_normal(shapes[name], dtype=np.float32)
     values.append(a * np.float32(std) + np.float32(mean))
-  return recover_tree(names, values)
+  return _in_config_layout(config, recover_tree(names, values))
 
 
 _TRUNC_STD = 0.87962566103423978  # std of a normal truncated to ±2
@@ -180,23 +275,24 @@ def _train_init(name: str, shape, rng) -> np.ndarray:
 
 def init_train_params(config: dict, seed: int) -> dict:
   """Nested flax-named tree of float32 numpy arrays that training starts
-  from, drawn from `np.random.default_rng(seed)` in sorted-name order."""
-  from small_vision_tpu_torch.train.train_ae import build_model
-  shapes = {k.replace(".", "/"): tuple(v.shape) for k, v in
-            build_model(config, device="meta").state_dict().items()}
+  from, drawn from `np.random.default_rng(seed)` in the sorted-name order
+  of the unrolled layout, then stacked where the config's model has
+  `scan`."""
+  shapes = _unrolled_shapes(config)
   names = sorted(shapes)
   rng = np.random.default_rng(seed)
   values = [_train_init(n, shapes[n], rng).astype(np.float32) for n in names]
-  return recover_tree(names, values)
+  return _in_config_layout(config, recover_tree(names, values))
 
 
 def opt_state_from_jax(names, *, count, mu, nu, ema_params=None,
                        device="cpu"):
   """(AdamW state, EMA list or None) for the parameters `names` (flax
   names, in the port's order) from a JAX run's ScaleByAdamState fields
-  and EMA params, given as nested or flat flax-named numpy trees."""
+  and EMA params, given as nested or flat flax-named numpy trees in either
+  block layout (mu and nu are keyed as the parameters)."""
   def as_list(tree, dtype):
-    flat = _flat(tree)
+    flat = to_layout(tree, names)
     if set(flat) != set(names):
       raise KeyError(f"names differ: missing {sorted(set(names) - set(flat))[:8]}"
                      f", left over {sorted(set(flat) - set(names))[:8]}")
@@ -228,7 +324,7 @@ def train_state_from_jax(state, names, device="cpu") -> dict:
   there on (its `rng` and `gd` entries are ignored; the port rebuilds the
   diffusion tables from the config).
   """
-  flat = _flat(state["params"])
+  flat = to_layout(state["params"], names)
   if set(flat) != set(names):
     raise KeyError(f"names differ: missing {sorted(set(names) - set(flat))[:8]}"
                    f", left over {sorted(set(flat) - set(names))[:8]}")

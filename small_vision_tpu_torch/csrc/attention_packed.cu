@@ -1,5 +1,5 @@
-// Bidirectional attention on packed (B, L, H*64) bf16 tensors, forward, for
-// Hopper (sm_90a).
+// Bidirectional attention on packed (B, L, H*D) bf16 tensors, forward, for
+// Hopper (sm_90a), at any head dim D that is a multiple of 8 up to 128.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_kernel_packed (reached
 // via pallas_attention_packed / fused_attention_packed). Per (batch, head):
@@ -63,6 +63,17 @@
 // latency more than to products, and four heads in flight on an SM hide it
 // better than two heads with two warpgroups each.
 
+// Head dims. A head is one 64-column tile (D <= 64) or two (64 < D <=
+// 128): the template's NT. Each tile is a TMA box of a 4-D tensor map over
+// (D, H, L, B), so columns at or past D arrive as zeros, and a head
+// narrower than its tiles never reads the next head's columns: the padded
+// columns of Q and K add 0 to the scores, those of V give 0 columns of O,
+// which the store drops. The scale is the true D's. Two tiles a head
+// (D = 128, six heads at width 768) double K, V and Q in shared memory
+// (193 KB at L = 260: one CTA of two warpgroups an SM) and O's accumulator
+// (64 more registers a thread, so such a CTA takes up to 255); the
+// products are the same per head-row, and the exps, B*H*L^2, halve with H.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,7 +82,7 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
+constexpr int kMaxHeadDim = 128;
 constexpr int kTile = sm90::kTileRows;
 constexpr int kTileBytes = sm90::kTileBytes;
 // Warpgroups a CTA: two, or one for heads of at most kShortTiles tiles.
@@ -79,30 +90,33 @@ constexpr int kShortTiles = 3;
 constexpr float kClamp = 80.f;
 constexpr int kSmemLimit = 232448;
 
-// 1 KB to align the tiles; nkb K and nkb V blocks; one Q tile a warpgroup;
-// barriers: one a key block, one a Q tile.
-__host__ __device__ constexpr size_t smem_bytes(int nkb, int groups) {
-  return 1024 + static_cast<size_t>(2 * nkb + groups) * kTileBytes +
+// 1 KB to align the tiles; nkb K and nkb V blocks and one Q tile a
+// warpgroup, each of nt 64-column tiles; barriers: one a key block, one a
+// Q tile.
+__host__ __device__ constexpr size_t smem_bytes(int nkb, int groups,
+                                                int nt) {
+  return 1024 + static_cast<size_t>(2 * nkb + groups) * nt * kTileBytes +
          8 * static_cast<size_t>(nkb + groups);
 }
 
-// 128 registers a thread either way: two CTAs of two warpgroups, or four of
-// one, an SM.
-template <int kGroups>
-__global__ void __launch_bounds__(128 * kGroups, 4 / kGroups)
+// One tile a head: 128 registers a thread either way, two CTAs of two
+// warpgroups, or four of one, an SM. Two tiles: half as many CTAs.
+template <int kGroups, int NT>
+__global__ void __launch_bounds__(128 * kGroups, (NT == 1 ? 4 : 2) / kGroups)
 attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
                             __nv_bfloat16* __restrict__ o, int seq_len,
-                            int num_heads, float scale_log2) {
+                            int num_heads, int head_dim, float scale_log2) {
+  constexpr int kHeadBytes = NT * kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_tiles(smem_raw);
   const int nkb = (seq_len + kTile - 1) / kTile;
   const int nqt = nkb;
-  uint8_t* k_s = smem;                            // block j at j * 8 KB
-  uint8_t* v_s = k_s + nkb * kTileBytes;
-  uint8_t* q_s = v_s + nkb * kTileBytes;          // warpgroup w's at w * 8 KB
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kTileBytes);
+  uint8_t* k_s = smem;                    // block j at j * NT * 8 KB
+  uint8_t* v_s = k_s + nkb * kHeadBytes;
+  uint8_t* q_s = v_s + nkb * kHeadBytes;  // warpgroup w's at w * NT * 8 KB
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kHeadBytes);
   uint64_t* q_full = kv_full + nkb;
 
   const int head = blockIdx.x;
@@ -111,23 +125,28 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  const int col0 = head * kHeadDim;
+  // A head's NT tiles of 64 rows from `row`, into dst (zeros past D, L).
+  auto load_head = [&](uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                       int row) {
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      sm90::tma_load_4d(dst + c * kTileBytes, map, bar, c * 64, head, row,
+                        batch);
+    }
+  };
   if (tid == 0) {
     for (int j = 0; j < nkb; ++j) sm90::mbar_init(&kv_full[j], 1);
     for (int w = 0; w < kGroups; ++w) sm90::mbar_init(&q_full[w], 1);
     sm90::fence_barrier_init();
     // The first Q tiles, then the key blocks in order.
     for (int w = 0; w < kGroups && w < nqt; ++w) {
-      sm90::mbar_arrive_expect_tx(&q_full[w], kTileBytes);
-      sm90::tma_load_3d(q_s + w * kTileBytes, &tm_q, &q_full[w], col0,
-                        w * kTile, batch);
+      sm90::mbar_arrive_expect_tx(&q_full[w], kHeadBytes);
+      load_head(q_s + w * kHeadBytes, &tm_q, &q_full[w], w * kTile);
     }
     for (int j = 0; j < nkb; ++j) {
-      sm90::mbar_arrive_expect_tx(&kv_full[j], 2 * kTileBytes);
-      sm90::tma_load_3d(k_s + j * kTileBytes, &tm_k, &kv_full[j], col0,
-                        j * kTile, batch);
-      sm90::tma_load_3d(v_s + j * kTileBytes, &tm_v, &kv_full[j], col0,
-                        j * kTile, batch);
+      sm90::mbar_arrive_expect_tx(&kv_full[j], 2 * kHeadBytes);
+      load_head(k_s + j * kHeadBytes, &tm_k, &kv_full[j], j * kTile);
+      load_head(v_s + j * kHeadBytes, &tm_v, &kv_full[j], j * kTile);
     }
   }
   __syncthreads();
@@ -135,11 +154,19 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg = warp / 4;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int tok_stride = num_heads * kHeadDim;
+  const int tok_stride = num_heads * head_dim;
   __nv_bfloat16* out = o + static_cast<size_t>(batch) * seq_len * tok_stride +
-                       col0;
-  uint8_t* my_q = q_s + wg * kTileBytes;
-  const uint64_t d_q = sm90::desc_k_major(my_q);
+                       head * head_dim;
+  uint8_t* my_q = q_s + wg * kHeadBytes;
+  // S = Q K_j^T over the head's NT tiles of columns.
+  auto scores = [&](float (&sacc)[32], int j) {
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      sm90::gemm_nt(sacc, sm90::desc_k_major(my_q + c * kTileBytes),
+                    sm90::desc_k_major(k_s + j * kHeadBytes + c * kTileBytes),
+                    c > 0);
+    }
+  };
 
   // Once a tile's products are done, the warpgroup's first thread starts
   // the copy of its next tile into the same buffer.
@@ -151,21 +178,20 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::named_barrier<2>(128);
     }
     if (tid % 128 == 0) {
-      sm90::mbar_arrive_expect_tx(&q_full[wg], kTileBytes);
-      sm90::tma_load_3d(my_q, &tm_q, &q_full[wg], col0,
-                        (t + kGroups) * kTile, batch);
+      sm90::mbar_arrive_expect_tx(&q_full[wg], kHeadBytes);
+      load_head(my_q, &tm_q, &q_full[wg], (t + kGroups) * kTile);
     }
   };
 
   for (int t = wg, use = 0; t < nqt; t += kGroups, ++use) {
     sm90::mbar_wait(&q_full[wg], use & 1);
-    float sacc[32], oacc[32];
+    float sacc[32], oacc[NT][32];
     uint32_t pa[16];
     float sum_lo = 0.f, sum_hi = 0.f;  // rows g and g + 8, this lane's keys
 
     sm90::mbar_wait(&kv_full[0], 0);
     sm90::wgmma_fence();
-    sm90::gemm_nt(sacc, d_q, sm90::desc_k_major(k_s));
+    scores(sacc, 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence(sacc);
@@ -189,16 +215,21 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       sm90::pack_a(pa, sacc);
       sm90::wgmma_fence();
-      sm90::gemm_rn(oacc, pa, sm90::desc_mn_major(v_s + j * kTileBytes),
-                    j > 0);
+#pragma unroll
+      for (int c = 0; c < NT; ++c) {
+        sm90::gemm_rn(oacc[c], pa,
+                      sm90::desc_mn_major(v_s + j * kHeadBytes +
+                                          c * kTileBytes),
+                      j > 0);
+      }
       if (j + 1 < nkb) {
         sm90::mbar_wait(&kv_full[j + 1], 0);
-        sm90::gemm_nt(sacc, d_q,
-                      sm90::desc_k_major(k_s + (j + 1) * kTileBytes));
+        scores(sacc, j + 1);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
-      sm90::fence(oacc);
+#pragma unroll
+      for (int c = 0; c < NT; ++c) sm90::fence(oacc[c]);
       sm90::fence(sacc);
     }
 
@@ -213,58 +244,93 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                           2 * t4;
     __nv_bfloat16* o_hi = o_lo + 8 * static_cast<size_t>(tok_stride);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      if (row_lo < seq_len) {
-        *reinterpret_cast<uint32_t*>(o_lo + 8 * nt) = sm90::pack_bf16(
-            oacc[4 * nt] / sum_lo, oacc[4 * nt + 1] / sum_lo);
-      }
-      if (row_hi < seq_len) {
-        *reinterpret_cast<uint32_t*>(o_hi + 8 * nt) = sm90::pack_bf16(
-            oacc[4 * nt + 2] / sum_hi, oacc[4 * nt + 3] / sum_hi);
+    for (int c = 0; c < NT; ++c) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = c * 64 + 8 * nt;  // padded columns are dropped
+        if (col >= head_dim) break;
+        if (row_lo < seq_len) {
+          *reinterpret_cast<uint32_t*>(o_lo + col) = sm90::pack_bf16(
+              oacc[c][4 * nt] / sum_lo, oacc[c][4 * nt + 1] / sum_lo);
+        }
+        if (row_hi < seq_len) {
+          *reinterpret_cast<uint32_t*>(o_hi + col) = sm90::pack_bf16(
+              oacc[c][4 * nt + 2] / sum_hi, oacc[c][4 * nt + 3] / sum_hi);
+        }
       }
     }
   }
 }
 
+template <int kGroups, int NT>
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
+                   const CUtensorMap& tv, void* o, int batch, int seq_len,
+                   int num_heads, int head_dim, float scale_log2,
+                   cudaStream_t s) {
+  const int nkb = (seq_len + kTile - 1) / kTile;
+  const size_t smem = smem_bytes(nkb, kGroups, NT);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_packed_fwd_kernel<kGroups, NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(num_heads, batch);
+  attention_packed_fwd_kernel<kGroups, NT>
+      <<<grid, 128 * kGroups, smem, s>>>(tq, tk, tv,
+                                         static_cast<__nv_bfloat16*>(o),
+                                         seq_len, num_heads, head_dim,
+                                         scale_log2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Largest sequence length the kernel takes (its K and V stay resident in
-// the 227 KB of shared memory a block can use).
-extern "C" int attention_packed_max_len() {
+// Largest head dim the kernel takes; any multiple of 8 up to it.
+extern "C" int attention_packed_max_head_dim() { return kMaxHeadDim; }
+
+// Largest sequence length the kernel takes at a head dim (its K and V stay
+// resident in the 227 KB of shared memory a block can use).
+extern "C" int attention_packed_max_len(int head_dim) {
+  const int nt = head_dim > 64 ? 2 : 1;
   int nkb = 1;
-  while (smem_bytes(nkb + 1, 2) <= kSmemLimit) ++nkb;
+  while (smem_bytes(nkb + 1, 2, nt) <= kSmemLimit) ++nkb;
   return nkb * kTile;
 }
 
-// q, k, v, o: (B, L, H*64) bf16, contiguous, 16-byte aligned.
-// scale_log2 = head_dim**-0.5 * log2(e) in f32. Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for a length past the limit or a tensor map the
-// driver refuses.
+// q, k, v, o: (B, L, H*head_dim) bf16, contiguous, 16-byte aligned;
+// head_dim a multiple of 8 up to 128. scale_log2 = head_dim**-0.5 *
+// log2(e) in f32. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// a head dim or length past the limits or a tensor map the driver refuses.
 extern "C" int attention_packed_fwd(const void* q, const void* k,
                                     const void* v, void* o, int batch,
-                                    int seq_len, int num_heads,
+                                    int seq_len, int num_heads, int head_dim,
                                     float scale_log2, void* stream) {
-  if (seq_len > attention_packed_max_len()) {
+  if (head_dim < 8 || head_dim > kMaxHeadDim || head_dim % 8 != 0 ||
+      seq_len > attention_packed_max_len(head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap tq, tk, tv;
-  if (!sm90_host::packed_head_map(&tq, q, batch, seq_len, num_heads) ||
-      !sm90_host::packed_head_map(&tk, k, batch, seq_len, num_heads) ||
-      !sm90_host::packed_head_map(&tv, v, batch, seq_len, num_heads)) {
+  if (!sm90_host::packed_head_map_d(&tq, q, batch, seq_len, num_heads,
+                                    head_dim) ||
+      !sm90_host::packed_head_map_d(&tk, k, batch, seq_len, num_heads,
+                                    head_dim) ||
+      !sm90_host::packed_head_map_d(&tv, v, batch, seq_len, num_heads,
+                                    head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nkb = (seq_len + kTile - 1) / kTile;
-  const int groups = nkb <= kShortTiles ? 1 : 2;
-  const auto kernel = groups == 1 ? attention_packed_fwd_kernel<1>
-                                  : attention_packed_fwd_kernel<2>;
-  const size_t smem = smem_bytes(nkb, groups);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(num_heads, batch);
-  kernel<<<grid, 128 * groups, smem, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), seq_len, num_heads,
-      scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  const bool one_group = nkb <= kShortTiles;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (head_dim <= 64) {
+    err = one_group ? launch<1, 1>(tq, tk, tv, o, batch, seq_len, num_heads,
+                                   head_dim, scale_log2, s)
+                    : launch<2, 1>(tq, tk, tv, o, batch, seq_len, num_heads,
+                                   head_dim, scale_log2, s);
+  } else {
+    err = one_group ? launch<1, 2>(tq, tk, tv, o, batch, seq_len, num_heads,
+                                   head_dim, scale_log2, s)
+                    : launch<2, 2>(tq, tk, tv, o, batch, seq_len, num_heads,
+                                   head_dim, scale_log2, s);
+  }
+  return static_cast<int>(err);
 }

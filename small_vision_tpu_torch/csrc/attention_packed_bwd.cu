@@ -1,5 +1,5 @@
-// Bidirectional attention on packed (B, L, H*64) bf16 tensors, backward,
-// for Hopper (sm_90a).
+// Bidirectional attention on packed (B, L, H*D) bf16 tensors, backward,
+// for Hopper (sm_90a), at any head dim D that is a multiple of 8 up to 128.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_bwd_kernel_packed
 // (reached via _pallas_attention_packed_bwd_impl, the custom VJP of
@@ -80,6 +80,13 @@
 // are needed (272 with a narrower last block), 24 % more score products and
 // exp2 than the work; at L=68, 2 blocks, 128 columns for 68.
 
+// Head dims, as in the forward (attention_packed.cu): a head is NT = 1 or
+// 2 tiles of 64 columns, read by TMA boxes of a (D, H, L, B) tensor map
+// that arrive as zeros past D, so padded columns add 0 to every score and
+// dP, and give 0 columns of dQ, dK and dV, which the stores drop. At NT =
+// 2 every tile doubles: (a) 97 KB, two CTAs an SM; (b) 161 KB and the dK
+// and dV accumulators 128 registers, one CTA an SM with up to 255 a thread.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,7 +95,7 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
+constexpr int kMaxHeadDim = 128;
 constexpr int kTile = sm90::kTileRows;
 constexpr int kTileBytes = sm90::kTileBytes;
 constexpr int kStages = 2;
@@ -100,31 +107,93 @@ constexpr float kClamp = 80.f;
 constexpr int kMaxLen = 4096;
 
 // (a): Q, dO; kStages x (K, V); barriers. (b): K, V; kStages x (Q, dO,
-// bf16(Q r s), bf16(dO r)); kStages x (r, c) [64] f32; barriers. Plus 1 KB
-// to align the tiles to 1024 bytes.
-constexpr size_t kDqSmem = 1024 + (2 + 2 * kStages) * kTileBytes + 64;
-constexpr size_t kDkvSmem =
-    1024 + (2 + 4 * kStages) * kTileBytes + kStages * 2 * kTile * 4 + 64;
+// bf16(Q r s), bf16(dO r)); kStages x (r, c) [64] f32; barriers. Each
+// operand is NT tiles. Plus 1 KB to align the tiles to 1024 bytes.
+constexpr size_t dq_smem(int nt) {
+  return 1024 + (2 + 2 * kStages) * nt * kTileBytes + 64;
+}
+constexpr size_t dkdv_smem(int nt) {
+  return 1024 + (2 + 4 * kStages) * nt * kTileBytes +
+         kStages * 2 * kTile * 4 + 64;
+}
+
+// A head's NT tiles of 64 rows from `row` (zeros past D and L).
+template <int NT>
+__device__ __forceinline__ void load_head(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int head, int row,
+                                          int batch) {
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    sm90::tma_load_4d(dst + c * kTileBytes, map, bar, c * 64, head, row,
+                      batch);
+  }
+}
+
+// S [+]= A B^T over a head's NT tiles of columns, both K-major.
+template <int NT>
+__device__ __forceinline__ void gemm_nt_head(float (&d)[32], const uint8_t* a,
+                                             const uint8_t* b) {
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    sm90::gemm_nt(d, sm90::desc_k_major(a + c * kTileBytes),
+                  sm90::desc_k_major(b + c * kTileBytes), c > 0);
+  }
+}
+
+// D[c] [+]= P B[c] for each of a head's NT tiles of columns, B MN-major.
+template <int NT>
+__device__ __forceinline__ void gemm_rn_head(float (&d)[NT][32],
+                                             const uint32_t (&p)[16],
+                                             const uint8_t* b,
+                                             bool accumulate) {
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    sm90::gemm_rn(d[c], p, sm90::desc_mn_major(b + c * kTileBytes),
+                  accumulate);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void fence_head(float (&d)[NT][32]) {
+#pragma unroll
+  for (int c = 0; c < NT; ++c) sm90::fence(d[c]);
+}
+
+// Stores a head's NT accumulators, dropping columns at or past head_dim.
+template <int NT>
+__device__ __forceinline__ void store_head(__nv_bfloat16* out, size_t ld,
+                                           int row, int rows,
+                                           const float (&d)[NT][32],
+                                           float f_lo, float f_hi, int t4,
+                                           int head_dim) {
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    sm90::store_acc(out + c * 64, ld, row, rows, d[c], f_lo, f_hi, t4,
+                    head_dim - c * 64);
+  }
+}
 
 __device__ __forceinline__ float exp2_clamped(float s, float scale_log2) {
   return exp2f(fminf(fmaxf(s * scale_log2, -kClamp), kClamp));
 }
 
-__global__ void __launch_bounds__(kThreads, 3)
+template <int NT>
+__global__ void __launch_bounds__(kThreads, NT == 1 ? 3 : 2)
 attn_bwd_dq(const __grid_constant__ CUtensorMap tm_q,
             const __grid_constant__ CUtensorMap tm_k,
             const __grid_constant__ CUtensorMap tm_v,
             const __grid_constant__ CUtensorMap tm_do,
             __nv_bfloat16* __restrict__ dq, float* __restrict__ r_out,
             float* __restrict__ c_out, int seq_len, int num_heads,
-            float scale_log2, float scale) {
+            int head_dim, float scale_log2, float scale) {
+  constexpr int kHeadBytes = NT * kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_tiles(smem_raw);
   uint8_t* q_s = smem;
-  uint8_t* do_s = smem + kTileBytes;
-  uint8_t* ring = smem + 2 * kTileBytes;  // stage s: K at 2 s, V at 2 s + 1
+  uint8_t* do_s = smem + kHeadBytes;
+  uint8_t* ring = smem + 2 * kHeadBytes;  // stage s: K at 2 s, V at 2 s + 1
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(ring + 2 * kStages * kTileBytes);
+      reinterpret_cast<uint64_t*>(ring + 2 * kStages * kHeadBytes);
   uint64_t* qdo_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + kStages;
@@ -149,21 +218,18 @@ attn_bwd_dq(const __grid_constant__ CUtensorMap tm_q,
 
   if (warp == kConsumers / 32) {  // producer
     if (lane == 0) {
-      sm90::mbar_arrive_expect_tx(qdo_full, 2 * kTileBytes);
-      sm90::tma_load_3d(q_s, &tm_q, qdo_full, head * kHeadDim, qt * kTile,
-                        batch);
-      sm90::tma_load_3d(do_s, &tm_do, qdo_full, head * kHeadDim, qt * kTile,
-                        batch);
+      sm90::mbar_arrive_expect_tx(qdo_full, 2 * kHeadBytes);
+      load_head<NT>(q_s, &tm_q, qdo_full, head, qt * kTile, batch);
+      load_head<NT>(do_s, &tm_do, qdo_full, head, qt * kTile, batch);
       for (int n = 0; n < 2 * nkb; ++n) {  // both passes over the keys
         const int s = n % kStages;
         const int kb = n < nkb ? n : n - nkb;
         if (n >= kStages) sm90::mbar_wait(&empty[s], (n / kStages - 1) & 1);
-        uint8_t* st = ring + 2 * s * kTileBytes;
-        sm90::mbar_arrive_expect_tx(&full[s], 2 * kTileBytes);
-        sm90::tma_load_3d(st, &tm_k, &full[s], head * kHeadDim, kb * kTile,
-                          batch);
-        sm90::tma_load_3d(st + kTileBytes, &tm_v, &full[s], head * kHeadDim,
-                          kb * kTile, batch);
+        uint8_t* st = ring + 2 * s * kHeadBytes;
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * kHeadBytes);
+        load_head<NT>(st, &tm_k, &full[s], head, kb * kTile, batch);
+        load_head<NT>(st + kHeadBytes, &tm_v, &full[s], head, kb * kTile,
+                      batch);
       }
     }
     return;
@@ -173,8 +239,6 @@ attn_bwd_dq(const __grid_constant__ CUtensorMap tm_q,
   const int t4 = lane & 3;
   const int row_lo = qt * kTile + warp * 16 + g;  // and row_lo + 8
   const int row_hi = row_lo + 8;
-  const uint64_t d_q = sm90::desc_k_major(q_s);
-  const uint64_t d_do = sm90::desc_k_major(do_s);
   sm90::mbar_wait(qdo_full, 0);
 
   float sacc[32], pacc[32];
@@ -184,10 +248,10 @@ attn_bwd_dq(const __grid_constant__ CUtensorMap tm_q,
   for (int kb = 0; kb < nkb; ++kb, ++n) {
     const int s = n % kStages;
     sm90::mbar_wait(&full[s], (n / kStages) & 1);
-    uint8_t* st = ring + 2 * s * kTileBytes;
+    uint8_t* st = ring + 2 * s * kHeadBytes;
     sm90::wgmma_fence();
-    sm90::gemm_nt(sacc, d_q, sm90::desc_k_major(st));
-    sm90::gemm_nt(pacc, d_do, sm90::desc_k_major(st + kTileBytes));
+    gemm_nt_head<NT>(sacc, q_s, st);
+    gemm_nt_head<NT>(pacc, do_s, st + kHeadBytes);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence(sacc);
@@ -234,14 +298,14 @@ attn_bwd_dq(const __grid_constant__ CUtensorMap tm_q,
   // Pass 2: dS for each key block, then dQ += dS K. (Issuing block kb + 1's
   // S and dP with block kb's dQ product, one wait for both, measured slower:
   // ptxas serialises the wgmmas for want of registers at three CTAs an SM.)
-  float dqacc[32];
+  float dqacc[NT][32];
   for (int kb = 0; kb < nkb; ++kb, ++n) {
     const int s = n % kStages;
     sm90::mbar_wait(&full[s], (n / kStages) & 1);
-    uint8_t* st = ring + 2 * s * kTileBytes;
+    uint8_t* st = ring + 2 * s * kHeadBytes;
     sm90::wgmma_fence();
-    sm90::gemm_nt(sacc, d_q, sm90::desc_k_major(st));
-    sm90::gemm_nt(pacc, d_do, sm90::desc_k_major(st + kTileBytes));
+    gemm_nt_head<NT>(sacc, q_s, st);
+    gemm_nt_head<NT>(pacc, do_s, st + kHeadBytes);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence(sacc);
@@ -259,34 +323,38 @@ attn_bwd_dq(const __grid_constant__ CUtensorMap tm_q,
     uint32_t dsa[16];
     sm90::pack_a(dsa, pacc);
     sm90::wgmma_fence();
-    sm90::gemm_rn(dqacc, dsa, sm90::desc_mn_major(st), kb > 0);
+    gemm_rn_head<NT>(dqacc, dsa, st, kb > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
-    sm90::fence(dqacc);
+    fence_head<NT>(dqacc);
     sm90::mbar_arrive(&empty[s]);
   }
-  const int tok_stride = num_heads * kHeadDim;
+  const int tok_stride = num_heads * head_dim;
   __nv_bfloat16* out = dq + static_cast<size_t>(batch) * seq_len * tok_stride +
-                       head * kHeadDim;
-  sm90::store_acc(out, tok_stride, row_lo, seq_len, dqacc, r_lo * scale,
-                  r_hi * scale, t4);
+                       head * head_dim;
+  store_head<NT>(out, tok_stride, row_lo, seq_len, dqacc, r_lo * scale,
+                 r_hi * scale, t4, head_dim);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int NT>
+__global__ void __launch_bounds__(kThreads, NT == 1 ? 2 : 1)
 attn_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
               const __grid_constant__ CUtensorMap tm_k,
               const __grid_constant__ CUtensorMap tm_v,
               const __grid_constant__ CUtensorMap tm_do,
               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
               const float* __restrict__ r_in, const float* __restrict__ c_in,
-              int seq_len, int num_heads, float scale_log2, float scale) {
+              int seq_len, int num_heads, int head_dim, float scale_log2,
+              float scale) {
+  constexpr int kHeadBytes = NT * kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_tiles(smem_raw);
   uint8_t* k_s = smem;
-  uint8_t* v_s = smem + kTileBytes;
-  // Stage s: Q, dO, bf16(Q r s), bf16(dO r) at tiles 4 s .. 4 s + 3.
-  uint8_t* ring = smem + 2 * kTileBytes;
-  float* rc_s = reinterpret_cast<float*>(ring + 4 * kStages * kTileBytes);
+  uint8_t* v_s = smem + kHeadBytes;
+  // Stage s: Q, dO, bf16(Q r s), bf16(dO r), each NT tiles, from tile
+  // 4 s NT.
+  uint8_t* ring = smem + 2 * kHeadBytes;
+  float* rc_s = reinterpret_cast<float*>(ring + 4 * kStages * kHeadBytes);
   uint64_t* bars = reinterpret_cast<uint64_t*>(rc_s + kStages * 2 * kTile);
   uint64_t* kv_full = bars;
   uint64_t* full = bars + 1;
@@ -312,11 +380,9 @@ attn_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
 
   if (warp == kConsumers / 32) {  // producer
     if (lane == 0) {
-      sm90::mbar_arrive_expect_tx(kv_full, 2 * kTileBytes);
-      sm90::tma_load_3d(k_s, &tm_k, kv_full, head * kHeadDim, kt * kTile,
-                        batch);
-      sm90::tma_load_3d(v_s, &tm_v, kv_full, head * kHeadDim, kt * kTile,
-                        batch);
+      sm90::mbar_arrive_expect_tx(kv_full, 2 * kHeadBytes);
+      load_head<NT>(k_s, &tm_k, kv_full, head, kt * kTile, batch);
+      load_head<NT>(v_s, &tm_v, kv_full, head, kt * kTile, batch);
     }
     const size_t rc = (static_cast<size_t>(batch) * num_heads + head) *
                       seq_len;
@@ -331,12 +397,11 @@ attn_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
         r_s[kTile + j] = qi < seq_len ? c_in[rc + qi] : 0.f;
       }
       if (lane == 0) {
-        uint8_t* st = ring + 4 * s * kTileBytes;
-        sm90::mbar_arrive_expect_tx(&full[s], 2 * kTileBytes);
-        sm90::tma_load_3d(st, &tm_q, &full[s], head * kHeadDim, qb * kTile,
-                          batch);
-        sm90::tma_load_3d(st + kTileBytes, &tm_do, &full[s],
-                          head * kHeadDim, qb * kTile, batch);
+        uint8_t* st = ring + 4 * s * kHeadBytes;
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * kHeadBytes);
+        load_head<NT>(st, &tm_q, &full[s], head, qb * kTile, batch);
+        load_head<NT>(st + kHeadBytes, &tm_do, &full[s], head, qb * kTile,
+                      batch);
       } else {
         sm90::mbar_arrive(&full[s]);
       }
@@ -346,15 +411,13 @@ attn_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
 
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const uint64_t d_k = sm90::desc_k_major(k_s);
-  const uint64_t d_v = sm90::desc_k_major(v_s);
   sm90::mbar_wait(kv_full, 0);
 
   // Per block: S^T = K Q^T and dP^T = V dO^T (keys x queries), then
   // dV += e^T bf16(dO r) and dK += dS^T bf16(Q r s). Block qb + 1's scaled
   // operands are made while block qb's updates run.
-  float dkacc[32], dvacc[32];
-  auto stage = [&](int qb) { return ring + 4 * (qb % kStages) * kTileBytes; };
+  float dkacc[NT][32], dvacc[NT][32];
+  auto stage = [&](int qb) { return ring + 4 * (qb % kStages) * kHeadBytes; };
   // bf16(Q * (r * scale)) and bf16(dO * r) of block qb, 16 bytes at a time
   // (a byte offset's row is offset / 128 whatever the swizzle), then a
   // barrier so that the warpgroup's wgmma reads them.
@@ -362,13 +425,13 @@ attn_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
     const uint8_t* q_st = stage(qb);
     const float* r_s = rc_s + (qb % kStages) * 2 * kTile;
 #pragma unroll
-    for (int it = 0; it < kTileBytes / 16 / kConsumers; ++it) {
+    for (int it = 0; it < kHeadBytes / 16 / kConsumers; ++it) {
       const int off = (tid + it * kConsumers) * 16;
-      const float rr = r_s[off >> 7];
+      const float rr = r_s[(off % kTileBytes) >> 7];
       const float rs = rr * scale;
       const uint4 qv = *reinterpret_cast<const uint4*>(q_st + off);
       const uint4 dv4 =
-          *reinterpret_cast<const uint4*>(q_st + kTileBytes + off);
+          *reinterpret_cast<const uint4*>(q_st + kHeadBytes + off);
       const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&qv);
       const __nv_bfloat162* d2 =
           reinterpret_cast<const __nv_bfloat162*>(&dv4);
@@ -382,8 +445,8 @@ attn_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
         qw[e] = sm90::pack_bf16(qf.x * rs, qf.y * rs);
         dw[e] = sm90::pack_bf16(df.x * rr, df.y * rr);
       }
-      *reinterpret_cast<uint4*>(stage(qb) + 2 * kTileBytes + off) = qo;
-      *reinterpret_cast<uint4*>(stage(qb) + 3 * kTileBytes + off) = dvo;
+      *reinterpret_cast<uint4*>(stage(qb) + 2 * kHeadBytes + off) = qo;
+      *reinterpret_cast<uint4*>(stage(qb) + 3 * kHeadBytes + off) = dvo;
     }
     sm90::fence_proxy_async();
     sm90::named_barrier<1>(kConsumers);
@@ -396,8 +459,8 @@ attn_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
     const float* c_s = rc_s + (qb % kStages) * 2 * kTile + kTile;
     float sacc[32], pacc[32];
     sm90::wgmma_fence();
-    sm90::gemm_nt(sacc, d_k, sm90::desc_k_major(st));
-    sm90::gemm_nt(pacc, d_v, sm90::desc_k_major(st + kTileBytes));
+    gemm_nt_head<NT>(sacc, k_s, st);
+    gemm_nt_head<NT>(pacc, v_s, st + kHeadBytes);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence(sacc);
@@ -418,73 +481,98 @@ attn_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
     sm90::pack_a(ea, sacc);
     sm90::pack_a(dsa, pacc);
     sm90::wgmma_fence();
-    sm90::gemm_rn(dvacc, ea, sm90::desc_mn_major(st + 3 * kTileBytes),
-                  qb > 0);
-    sm90::gemm_rn(dkacc, dsa, sm90::desc_mn_major(st + 2 * kTileBytes),
-                  qb > 0);
+    gemm_rn_head<NT>(dvacc, ea, st + 3 * kHeadBytes, qb > 0);
+    gemm_rn_head<NT>(dkacc, dsa, st + 2 * kHeadBytes, qb > 0);
     sm90::wgmma_commit();
     if (qb + 1 < nqb) {
       sm90::mbar_wait(&full[(qb + 1) % kStages], ((qb + 1) / kStages) & 1);
       scale_operands(qb + 1);
     }
     sm90::wgmma_wait<0>();
-    sm90::fence(dvacc);
-    sm90::fence(dkacc);
+    fence_head<NT>(dvacc);
+    fence_head<NT>(dkacc);
     sm90::mbar_arrive(&empty[qb % kStages]);
   }
-  const int tok_stride = num_heads * kHeadDim;
+  const int tok_stride = num_heads * head_dim;
   const size_t base = static_cast<size_t>(batch) * seq_len * tok_stride +
-                      head * kHeadDim;
+                      head * head_dim;
   const int key_lo = kt * kTile + warp * 16 + g;
-  sm90::store_acc(dk + base, tok_stride, key_lo, seq_len, dkacc, 1.f, 1.f,
-                  t4);
-  sm90::store_acc(dv + base, tok_stride, key_lo, seq_len, dvacc, 1.f, 1.f,
-                  t4);
+  store_head<NT>(dk + base, tok_stride, key_lo, seq_len, dkacc, 1.f, 1.f, t4,
+                 head_dim);
+  store_head<NT>(dv + base, tok_stride, key_lo, seq_len, dvacc, 1.f, 1.f, t4,
+                 head_dim);
+}
+
+template <int NT>
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
+                   const CUtensorMap& tv, const CUtensorMap& tdo, void* dq,
+                   void* dk, void* dv, float* r, float* c, int batch,
+                   int seq_len, int num_heads, int head_dim,
+                   float scale_log2, float scale, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dq_smem(NT)));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_bwd_dkdv<NT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dkdv_smem(NT)));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_len + kTile - 1) / kTile, num_heads, batch);
+  attn_bwd_dq<NT><<<grid, kThreads, dq_smem(NT), s>>>(
+      tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dq), r, c, seq_len,
+      num_heads, head_dim, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkdv<NT><<<grid, kThreads, dkdv_smem(NT), s>>>(
+      tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), r, c, seq_len, num_heads, head_dim,
+      scale_log2, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int attention_packed_bwd_max_len() { return kMaxLen; }
 
-// q, k, v, dout, dq, dk, dv: (B, L, H*64) bf16, contiguous, 16-byte
-// aligned. r, c: (B, H, L) f32 scratch that kernel (a) fills and (b) reads.
-// scale_log2 = head_dim**-0.5 * log2(e) and scale = head_dim**-0.5, in f32.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a length past
-// the limit or a tensor map the driver refuses.
+// Largest head dim the kernels take; any multiple of 8 up to it.
+extern "C" int attention_packed_bwd_max_head_dim() { return kMaxHeadDim; }
+
+// q, k, v, dout, dq, dk, dv: (B, L, H*head_dim) bf16, contiguous, 16-byte
+// aligned; head_dim a multiple of 8 up to 128. r, c: (B, H, L) f32 scratch
+// that kernel (a) fills and (b) reads. scale_log2 = head_dim**-0.5 *
+// log2(e) and scale = head_dim**-0.5, in f32. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a head dim or length past the limits or a
+// tensor map the driver refuses.
 extern "C" int attention_packed_bwd(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     void* dq, void* dk, void* dv, void* r,
                                     void* c, int batch, int seq_len,
-                                    int num_heads, float scale_log2,
-                                    float scale, void* stream) {
-  if (seq_len > kMaxLen) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tq, tk, tv, tdo;
-  if (!sm90_host::packed_head_map(&tq, q, batch, seq_len, num_heads) ||
-      !sm90_host::packed_head_map(&tk, k, batch, seq_len, num_heads) ||
-      !sm90_host::packed_head_map(&tv, v, batch, seq_len, num_heads) ||
-      !sm90_host::packed_head_map(&tdo, dout, batch, seq_len, num_heads)) {
+                                    int num_heads, int head_dim,
+                                    float scale_log2, float scale,
+                                    void* stream) {
+  if (seq_len > kMaxLen || head_dim < 8 || head_dim > kMaxHeadDim ||
+      head_dim % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kDqSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_bwd_dkdv,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kDkvSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!sm90_host::packed_head_map_d(&tq, q, batch, seq_len, num_heads,
+                                    head_dim) ||
+      !sm90_host::packed_head_map_d(&tk, k, batch, seq_len, num_heads,
+                                    head_dim) ||
+      !sm90_host::packed_head_map_d(&tv, v, batch, seq_len, num_heads,
+                                    head_dim) ||
+      !sm90_host::packed_head_map_d(&tdo, dout, batch, seq_len, num_heads,
+                                    head_dim)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((seq_len + kTile - 1) / kTile, num_heads, batch);
   auto* rf = static_cast<float*>(r);
   auto* cf = static_cast<float*>(c);
-  attn_bwd_dq<<<grid, kThreads, kDqSmem, s>>>(
-      tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dq), rf, cf, seq_len,
-      num_heads, scale_log2, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv<<<grid, kThreads, kDkvSmem, s>>>(
-      tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), rf, cf, seq_len, num_heads,
-      scale_log2, scale);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      head_dim <= 64
+          ? launch<1>(tq, tk, tv, tdo, dq, dk, dv, rf, cf, batch, seq_len,
+                      num_heads, head_dim, scale_log2, scale, s)
+          : launch<2>(tq, tk, tv, tdo, dq, dk, dv, rf, cf, batch, seq_len,
+                      num_heads, head_dim, scale_log2, scale, s);
+  return static_cast<int>(err);
 }

@@ -12,13 +12,19 @@
 // 4*B*L*D bytes, against ~9 f32 operations per element: far under the
 // card's operations-per-byte balance.
 //
-// Design: one warp per row, so the row's reductions are warp shuffles and
-// no shared memory or block barrier is needed. Each lane holds D/32
-// elements in registers, loaded and stored as 16-byte vectors (8 bf16) at
-// addresses that neighbouring lanes make contiguous, so every load and store
-// is a full coalesced transaction. x is read once; the centred values stay
-// in registers for the variance pass, as the TPU kernel's two-pass
-// mean((x - mean)^2) does.
+// Design: a team of T lanes of one warp per row (T = 32 for rows of 256
+// columns or more; 4, 8 or 16 for narrower ones, so that a warp takes
+// 32 / T rows and no lane of a narrow row is left without a vector), so the
+// row's reductions are shuffles within the team and no shared memory or
+// block barrier is needed. Each lane holds NV vectors of 8 elements in
+// registers, loaded and stored as 16-byte vectors (8 bf16) at addresses
+// that neighbouring lanes make contiguous, so every load and store is a
+// full coalesced transaction. Lane q of a team owns vectors q, q + T, ...;
+// where T does not divide the row's D / 8 vectors, the last ones are left
+// out (masked), never read past the row. x is read once; the centred
+// values stay in registers for the variance pass, as the TPU kernel's
+// two-pass mean((x - mean)^2) does. D is any multiple of 32 up to 2,048:
+// every width of the ViT and UMD variant tables.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -27,10 +33,12 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxWidth = 2048;
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <int T>
+__device__ __forceinline__ float team_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = T / 2; off > 0; off >>= 1) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
   }
   return v;
@@ -47,8 +55,15 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
-// D = NV * 256: lane `lane` owns columns (i * 32 + lane) * 8 .. + 7.
-template <int NV>
+// Lanes a row and vectors a lane for a width d (a multiple of 32): T the
+// largest power of two up to 32 that is at most d / 8, NV = ceil(d/8 / T).
+__host__ __device__ constexpr int team_lanes(int d) {
+  int t = 32;
+  while (t > d / 8) t >>= 1;
+  return t;
+}
+
+template <int T, int NV>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 ln_modulate_fwd_kernel(const __nv_bfloat16* __restrict__ x,
                        const float* __restrict__ gamma,
@@ -59,44 +74,55 @@ ln_modulate_fwd_kernel(const __nv_bfloat16* __restrict__ x,
                        __nv_bfloat16* __restrict__ y,
                        float* __restrict__ mean_out,
                        float* __restrict__ rstd_out,
-                       int rows, int seq_len, float eps) {
-  constexpr int D = NV * 256;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
+                       int rows, int seq_len, int d, float eps) {
+  constexpr int kRowsPerBlock = kWarpsPerBlock * (32 / T);
+  const int q = threadIdx.x % T;
+  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / T;
+  const bool live = row < rows;  // dead lanes still join the shuffles
+  const int nvec = d / 8;
 
-  const __nv_bfloat16* xr = x + static_cast<size_t>(row) * D;
+  const __nv_bfloat16* xr = x + static_cast<size_t>(live ? row : 0) * d;
   float v[NV][8];
   float sum = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    load8(xr + (i * 32 + lane) * 8, v[i]);
+    const int vec = q + i * T;
+    if (live && vec < nvec) {
+      load8(xr + vec * 8, v[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[i][j] = 0.f;
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) sum += v[i][j];
   }
-  const float mean = warp_sum(sum) / D;
+  const float mean = team_sum<T>(sum) / d;
 
   float sq = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
+    const bool valid = q + i * T < nvec;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      v[i][j] -= mean;
+      v[i][j] = valid ? v[i][j] - mean : 0.f;
       sq += v[i][j] * v[i][j];
     }
   }
-  const float var = warp_sum(sq) / D;
+  const float var = team_sum<T>(sq) / d;
   const float rstd = rsqrtf(var + eps);
-  if (mean_out != nullptr && lane == 0) {
+  if (!live) return;
+  if (mean_out != nullptr && q == 0) {
     mean_out[row] = mean;
     rstd_out[row] = rstd;
   }
 
   const int b = row / seq_len;
-  __nv_bfloat16* yr = y + static_cast<size_t>(row) * D;
+  __nv_bfloat16* yr = y + static_cast<size_t>(row) * d;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const int col = (i * 32 + lane) * 8;
+    const int vec = q + i * T;
+    if (vec >= nvec) continue;
+    const int col = vec * 8;
     const float4 g0 = *reinterpret_cast<const float4*>(gamma + col);
     const float4 g1 = *reinterpret_cast<const float4*>(gamma + col + 4);
     const float4 b0 = *reinterpret_cast<const float4*>(beta + col);
@@ -123,18 +149,38 @@ ln_modulate_fwd_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+template <int T, int NV>
+cudaError_t launch(const __nv_bfloat16* x, const float* gamma,
+                   const float* beta, const __nv_bfloat16* shift,
+                   const __nv_bfloat16* scale, int mod_stride,
+                   __nv_bfloat16* y, float* mean, float* rstd, int rows,
+                   int seq_len, int d, float eps, cudaStream_t s) {
+  constexpr int kRowsPerBlock = kWarpsPerBlock * (32 / T);
+  const dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+  ln_modulate_fwd_kernel<T, NV><<<grid, kWarpsPerBlock * 32, 0, s>>>(
+      x, gamma, beta, shift, scale, mod_stride, y, mean, rstd, rows, seq_len,
+      d, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Widest row the kernel takes; any multiple of 32 up to it.
+extern "C" int ln_modulate_max_width() { return kMaxWidth; }
 
 // x, y: (rows = B*L, d) bf16, contiguous. gamma, beta: (d,) f32.
 // shift, scale: (B, d) bf16 rows `mod_stride` elements apart, or both null.
-// mean, rstd: (rows,) f32 or both null. Returns cudaGetLastError().
+// mean, rstd: (rows,) f32 or both null. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a width that is not a multiple of 32 in
+// [32, 2048].
 extern "C" int ln_modulate_fwd(const void* x, const void* gamma,
                                const void* beta, const void* shift,
                                const void* scale, int mod_stride, void* y,
                                void* mean, void* rstd, int rows, int seq_len,
                                int d, float eps, void* stream) {
-  const dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarpsPerBlock * 32);
+  if (d < 32 || d > kMaxWidth || d % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* gf = static_cast<const float*>(gamma);
@@ -144,17 +190,27 @@ extern "C" int ln_modulate_fwd(const void* x, const void* gamma,
   auto* yb = static_cast<__nv_bfloat16*>(y);
   auto* mf = static_cast<float*>(mean);
   auto* rf = static_cast<float*>(rstd);
-  switch (d) {  // The widths of UMD-B and UMD-L.
-    case 768:
-      ln_modulate_fwd_kernel<3><<<grid, block, 0, s>>>(
-          xb, gf, bf, sh, sc, mod_stride, yb, mf, rf, rows, seq_len, eps);
-      break;
-    case 1024:
-      ln_modulate_fwd_kernel<4><<<grid, block, 0, s>>>(
-          xb, gf, bf, sh, sc, mod_stride, yb, mf, rf, rows, seq_len, eps);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int t = team_lanes(d);
+  const int nv = (d / 8 + t - 1) / t;
+#define SV_LN_CASE(T, NV)                                                  \
+  if (t == T && nv == NV) {                                                \
+    return static_cast<int>(launch<T, NV>(xb, gf, bf, sh, sc, mod_stride, \
+                                          yb, mf, rf, rows, seq_len, d,   \
+                                          eps, s));                       \
   }
-  return static_cast<int>(cudaGetLastError());
+  SV_LN_CASE(4, 1)
+  SV_LN_CASE(8, 1)
+  SV_LN_CASE(8, 2)
+  SV_LN_CASE(16, 1)
+  SV_LN_CASE(16, 2)
+  SV_LN_CASE(32, 1)
+  SV_LN_CASE(32, 2)
+  SV_LN_CASE(32, 3)
+  SV_LN_CASE(32, 4)
+  SV_LN_CASE(32, 5)
+  SV_LN_CASE(32, 6)
+  SV_LN_CASE(32, 7)
+  SV_LN_CASE(32, 8)
+#undef SV_LN_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

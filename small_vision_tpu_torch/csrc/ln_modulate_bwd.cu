@@ -21,16 +21,26 @@
 // ~14 f32 operations an element: far under the card's operations-per-byte
 // balance. So the design keeps enough bytes in flight on every SM.
 //
-// Design. One CTA per batch row b, eight warps. Warp w takes the rows w,
-// w + 8, w + 16, ... of b; its rows of x and dy reach shared memory by bulk
-// asynchronous copies (cp.async.bulk, completion counted on an mbarrier)
-// through a ring of four rows, so three more rows (9 KB at D=768) are in
-// flight while the warp reduces one: 72-96 KB an SM. Each lane holds D/32
-// values of a row (16-byte loads from shared memory, conflict-free) and the
-// mean and rstd of one of its warp's next 32 rows, loaded a chunk ahead;
-// the row's two reductions are warp shuffles; dx leaves from registers in
-// 16-byte stores. The lane keeps A and C of its columns in registers over
-// its rows; the CTA adds its warps' in a fixed order through shared memory
+// Design. One CTA per batch row b, eight warps, and a team of T threads
+// per row of D columns: T = 32 (one warp) for 256 < D <= 1,024; for
+// narrower rows T = 4, 8 or 16 lanes, so that a warp holds 32 / T rows at
+// once rather than leaving lanes without a column; for D > 1,024 T = 64,
+// two warps that take half a row each, so that a lane's registers stay
+// those of D = 1,024. The CTA's 256 / T teams take the rows k, k + 256/T,
+// ... of b; each warp's part of its step (its 32 / T whole rows, or its half
+// row) of x and dy reaches shared memory by bulk asynchronous copies
+// (cp.async.bulk, one contiguous span each, completion counted on an
+// mbarrier) through a ring of four steps, so three more steps are in
+// flight while the warp reduces one: 72-128 KB an SM. Each lane holds NV
+// vectors of 8 values of its row (16-byte loads from shared memory); where
+// its team's lanes do not divide the row's vectors, the last are masked,
+// and no lane reads past its row. The lane also holds the mean and rstd of
+// one of its warp's next 32 rows, loaded a chunk ahead. The row's two
+// reductions are shuffles within the team (and, for T = 64, one exchange
+// of the two warps' sums through shared memory at a 64-thread named
+// barrier, added in warp order); dx leaves from registers in 16-byte
+// stores. The lane keeps A and C of its columns in registers over its
+// rows; the CTA adds its teams' in a fixed order through shared memory
 // (the ring, once drained), writes dshift[b] and dscale[b], and leaves one
 // (2, D) partial, (1 + scale[b]) * (C, A).
 //
@@ -60,16 +70,31 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kStages = 4;   // rows of a warp in its ring
+constexpr int kStages = 4;   // steps of a warp in its ring
 constexpr int kGroup = 16;   // batch rows of a first-level sum
 constexpr int kMaxGroups = 4096;
+constexpr int kMaxWidth = 2048;
 
 __host__ __device__ constexpr int num_groups(int batch) {
   return (batch + kGroup - 1) / kGroup;
 }
 
-__host__ __device__ constexpr size_t ring_bytes(int d) {
-  return static_cast<size_t>(kWarps) * kStages * 2 * d * 2;
+// Threads a row for a width d (a multiple of 32): two warps above 1,024
+// columns, else the largest power of two up to 32 that is at most d / 8.
+__host__ __device__ constexpr int team_threads(int d) {
+  if (d > 1024) return 64;
+  int t = 32;
+  while (t > d / 8) t >>= 1;
+  return t;
+}
+
+// Bytes of x (and of dy) a warp takes a step: 32 / T rows, or half a row.
+__host__ __device__ constexpr int slice_bytes(int t, int d) {
+  return t <= 32 ? (32 / t) * d * 2 : d;
+}
+
+__host__ __device__ constexpr size_t ring_bytes(int t, int d) {
+  return static_cast<size_t>(kWarps) * kStages * 2 * slice_bytes(t, d);
 }
 
 // `bytes` (a multiple of 16) from global to shared memory, both 16-byte
@@ -83,9 +108,11 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// The sum over the aligned group of `lanes` lanes (a power of two <= 32).
+template <int kLanes>
+__device__ __forceinline__ float team_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
   }
   return v;
@@ -117,40 +144,46 @@ __device__ __forceinline__ bool last_to_arrive(unsigned int* counter,
 }
 
 // acc[t] = the sum over k < count, in the order of k, of
-// base[k * 2 D + threadIdx.x + t * kThreads]: 16 rows' loads are issued
-// before their adds (the partials were written by other CTAs, so they are
-// read from L2).
-template <int D>
+// base[k * 2 d + threadIdx.x + t * kThreads] (0 past 2 d): kK rows' loads
+// are issued before their adds (the partials were written by other CTAs,
+// so they are read from L2).
+template <int kPer>
 __device__ __forceinline__ void sum_partials(const float* base, int count,
-                                             float (&acc)[2 * D / kThreads]) {
-  constexpr int kPer = 2 * D / kThreads;
+                                             int d, float (&acc)[kPer]) {
+  constexpr int kK = kPer <= 8 ? kGroup : 8;
 #pragma unroll
   for (int t = 0; t < kPer; ++t) acc[t] = 0.f;
-  for (int k0 = 0; k0 < count; k0 += kGroup) {
-    float v[kPer][kGroup];
+  for (int k0 = 0; k0 < count; k0 += kK) {
+    float v[kPer][kK];
 #pragma unroll
     for (int t = 0; t < kPer; ++t) {
+      const int idx = threadIdx.x + t * kThreads;
 #pragma unroll
-      for (int k = 0; k < kGroup; ++k) {
-        v[t][k] = k0 + k < count
-                      ? __ldcg(base + static_cast<size_t>(k0 + k) * 2 * D +
-                               threadIdx.x + t * kThreads)
+      for (int k = 0; k < kK; ++k) {
+        v[t][k] = k0 + k < count && idx < 2 * d
+                      ? __ldcg(base + static_cast<size_t>(k0 + k) * 2 * d +
+                               idx)
                       : 0.f;
       }
     }
 #pragma unroll
     for (int t = 0; t < kPer; ++t) {
 #pragma unroll
-      for (int k = 0; k < kGroup; ++k) acc[t] += v[t][k];
+      for (int k = 0; k < kK; ++k) acc[t] += v[t][k];
     }
   }
 }
 
-// D = NV * 256: lane `lane` owns columns (i * 32 + lane) * 8 .. + 7.
-// work: (B, 2, D) f32 partials, then (groups, 2, D) group partials; row 0
+// T threads a row (4 .. 32 lanes of a warp, or 64: two warps of half a row
+// each), NV vectors of 8 columns a lane. kD: the width fixed at compile
+// time (UMD-B's 768 and UMD-L's 1,024, whose offsets and masks then fold
+// away as before the kernel took other widths), or 0 for `d_arg`. Lane q
+// of a team's warp owns the vectors q, q + min(T, 32), ... of its slice
+// of the row (the row, or the warp's half).
+// work: (B, 2, d) f32 partials, then (groups, 2, d) group partials; row 0
 // of each sums into dgamma, row 1 into dbeta. tickets: groups + 1
 // counters, 0 when the kernel starts.
-template <int NV>
+template <int T, int NV, int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 ln_modulate_bwd_kernel(const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ dy,
@@ -164,44 +197,60 @@ ln_modulate_bwd_kernel(const __nv_bfloat16* __restrict__ x,
                        float* __restrict__ dshift, float* __restrict__ dscale,
                        float* __restrict__ work,
                        unsigned int* __restrict__ tickets, int batch,
-                       int seq_len) {
-  constexpr int D = NV * 256;
-  constexpr int kRowBytes = D * 2;
+                       int seq_len, int d_arg) {
+  const int d = kD ? kD : d_arg;
+  constexpr int kLanes = T <= 32 ? T : 32;       // a team's lanes in a warp
+  constexpr int kRows = T <= 32 ? 32 / T : 1;    // rows a warp holds a step
+  constexpr int kTeams = kThreads / T;           // rows a CTA holds a step
+  constexpr int kMaxCols = T <= 32 ? NV * T * 8 : NV * 2 * 32 * 8;
+  constexpr int kPer = (2 * kMaxCols + kThreads - 1) / kThreads;
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ unsigned int ticket;
+  __shared__ float exchange[kWarps][2][2];  // T = 64: [warp][parity][s1, s2]
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  // Stage s of warp w: its x row, then its dy row; one barrier a stage.
-  uint8_t* ring = smem + static_cast<size_t>(warp) * kStages * 2 * kRowBytes;
+  const int q = lane % kLanes;
+  const int r = T <= 32 ? lane / T : 0;            // the warp's row r
+  const int team0 = T <= 32 ? warp * kRows : warp / 2;  // its first team
+  const int col0 = T <= 32 ? 0 : (warp & 1) * (d / 2);
+  const int slice_cols = T <= 32 ? d : d / 2;
+  const int nvec = slice_cols / 8;
+  const int row_bytes = slice_cols * 2;            // a row's part in smem
+  const int span = slice_bytes(T, d);              // x (or dy) of a step
+  uint8_t* ring = smem + static_cast<size_t>(warp) * kStages * 2 * span;
   uint64_t* full =
-      reinterpret_cast<uint64_t*>(smem + ring_bytes(D)) + warp * kStages;
-  const size_t first_row = static_cast<size_t>(b) * seq_len + warp;
-  const int rows = (seq_len - warp + kWarps - 1) / kWarps;
+      reinterpret_cast<uint64_t*>(smem + ring_bytes(T, d)) + warp * kStages;
+  // Step j of the warp holds rows j * kTeams + team0 + r (r < kRows) of b.
+  const int steps =
+      seq_len > team0 ? (seq_len - team0 + kTeams - 1) / kTeams : 0;
+  const size_t batch_row0 = static_cast<size_t>(b) * seq_len;
 
-  auto issue = [&](int j) {  // lane 0: the warp's row j into its stage
+  auto issue = [&](int j) {  // lane 0: the warp's step j into its stage
     const int s = j % kStages;
-    const size_t row = first_row + static_cast<size_t>(j) * kWarps;
-    sm90::mbar_arrive_expect_tx(&full[s], 2 * kRowBytes);
-    bulk_load(ring + s * 2 * kRowBytes, x + row * D, kRowBytes, &full[s]);
-    bulk_load(ring + s * 2 * kRowBytes + kRowBytes, dy + row * D, kRowBytes,
-              &full[s]);
+    const int first = j * kTeams + team0;
+    const int rows = T <= 32 ? min(kRows, seq_len - first) : 1;
+    const uint32_t bytes = T <= 32 ? rows * d * 2 : d;
+    const size_t off = (batch_row0 + first) * d + col0;
+    sm90::mbar_arrive_expect_tx(&full[s], 2 * bytes);
+    bulk_load(ring + s * 2 * span, x + off, bytes, &full[s]);
+    bulk_load(ring + s * 2 * span + span, dy + off, bytes, &full[s]);
   };
   if (lane == 0) {
     for (int s = 0; s < kStages; ++s) sm90::mbar_init(&full[s], 1);
     sm90::fence_barrier_init();
-    for (int j = 0; j < kStages && j < rows; ++j) issue(j);
+    for (int j = 0; j < kStages && j < steps; ++j) issue(j);
   }
   __syncwarp();
-  // mean and rstd of the warp's rows, 32 rows at a time and a chunk ahead
-  // (a load per row would expose its latency once a row): lane i holds
-  // those of row 32 c + i of chunk c.
+  // mean and rstd of the warp's rows in the order (step, r), 32 at a time
+  // and a chunk ahead (a load per row would expose its latency once a
+  // row): lane i holds those of the warp's row 32 c + i of chunk c.
   auto stats = [&](int c, float& mu, float& rs) {
-    const int j = c * 32 + lane;
-    if (j < rows) {
-      const size_t row = first_row + static_cast<size_t>(j) * kWarps;
-      mu = mean[row];
-      rs = rstd[row];
+    const int m = c * 32 + lane;
+    const int row = (m / kRows) * kTeams + team0 + m % kRows;
+    if (row < seq_len) {
+      mu = mean[batch_row0 + row];
+      rs = rstd[batch_row0 + row];
     }
   };
   float mu_cur = 0.f, rs_cur = 0.f, mu_next = 0.f, rs_next = 0.f;
@@ -211,44 +260,57 @@ ln_modulate_bwd_kernel(const __nv_bfloat16* __restrict__ x,
   float g[NV][8], ops[NV][8], acc_a[NV][8], acc_c[NV][8];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const int col = (i * 32 + lane) * 8;
-    const float4 g0 = *reinterpret_cast<const float4*>(gamma + col);
-    const float4 g1 = *reinterpret_cast<const float4*>(gamma + col + 4);
-    g[i][0] = g0.x; g[i][1] = g0.y; g[i][2] = g0.z; g[i][3] = g0.w;
-    g[i][4] = g1.x; g[i][5] = g1.y; g[i][6] = g1.z; g[i][7] = g1.w;
-    if (scale != nullptr) {
-      load8(scale + static_cast<size_t>(b) * mod_stride + col, ops[i]);
+    const int vec = q + i * kLanes;
+    const int col = col0 + vec * 8;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) ops[i][j] = 1.f + ops[i][j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) ops[i][j] = 1.f;
+    for (int e = 0; e < 8; ++e) {
+      g[i][e] = ops[i][e] = 1.f;
+      acc_a[i][e] = acc_c[i][e] = 0.f;
     }
+    if (vec < nvec) {
+      const float4 g0 = *reinterpret_cast<const float4*>(gamma + col);
+      const float4 g1 = *reinterpret_cast<const float4*>(gamma + col + 4);
+      g[i][0] = g0.x; g[i][1] = g0.y; g[i][2] = g0.z; g[i][3] = g0.w;
+      g[i][4] = g1.x; g[i][5] = g1.y; g[i][6] = g1.z; g[i][7] = g1.w;
+      if (scale != nullptr) {
+        load8(scale + static_cast<size_t>(b) * mod_stride + col, ops[i]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc_a[i][j] = acc_c[i][j] = 0.f;
+        for (int e = 0; e < 8; ++e) ops[i][e] = 1.f + ops[i][e];
+      }
+    }
   }
 
-  for (int j = 0; j < rows; ++j) {
+  for (int j = 0; j < steps; ++j) {
     const int s = j % kStages;
-    const size_t row = first_row + static_cast<size_t>(j) * kWarps;
-    if (j > 0 && j % 32 == 0) {
+    const int m = j * kRows + r;  // the lane's row in the warp's order
+    const int row = j * kTeams + team0 + r;
+    // A warp of one row a step (T >= 32) holds live rows only: `steps`
+    // counts them.
+    const bool live = kRows == 1 || row < seq_len;
+    if (j > 0 && (j * kRows) % 32 == 0) {
       mu_cur = mu_next;
       rs_cur = rs_next;
-      stats(j / 32 + 1, mu_next, rs_next);
+      stats((j * kRows) / 32 + 1, mu_next, rs_next);
     }
-    const float mu = __shfl_sync(0xffffffffu, mu_cur, j % 32);
-    const float rs = __shfl_sync(0xffffffffu, rs_cur, j % 32);
+    const float mu = __shfl_sync(0xffffffffu, mu_cur, m % 32);
+    const float rs = __shfl_sync(0xffffffffu, rs_cur, m % 32);
     sm90::mbar_wait(&full[s], (j / kStages) & 1);
-    const uint8_t* xs = ring + s * 2 * kRowBytes;
+    const uint8_t* xs = ring + s * 2 * span + r * row_bytes;
     float xh[NV][8], dv[NV][8];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      load8(xs + (i * 32 + lane) * 16, xh[i]);
-      load8(xs + kRowBytes + (i * 32 + lane) * 16, dv[i]);
+      const int vec = q + i * kLanes;
+      if (live && vec < nvec) {
+        load8(xs + vec * 16, xh[i]);
+        load8(xs + span + vec * 16, dv[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) xh[i][e] = dv[i][e] = 0.f;
+      }
     }
-    // Every lane has read the stage: refill it with row j + kStages.
+    // Every lane has read the stage: refill it with step j + kStages.
     __syncwarp();
-    if (lane == 0 && j + kStages < rows) {
+    if (lane == 0 && j + kStages < steps) {
       sm90::fence_proxy_async();
       issue(j + kStages);
     }
@@ -265,11 +327,25 @@ ln_modulate_bwd_kernel(const __nv_bfloat16* __restrict__ x,
         s2 += dv[i][e] * xh[i][e];
       }
     }
-    const float m1 = warp_sum(s1) / D;
-    const float m2 = warp_sum(s2) / D;
+    s1 = team_sum<kLanes>(s1);
+    s2 = team_sum<kLanes>(s2);
+    if (T > 32) {  // the two warps' halves, added in warp order
+      if (lane == 0) {
+        exchange[warp][j & 1][0] = s1;
+        exchange[warp][j & 1][1] = s2;
+      }
+      asm volatile("bar.sync %0, 64;\n" ::"r"(1 + warp / 2) : "memory");
+      s1 = exchange[warp & ~1][j & 1][0] + exchange[warp | 1][j & 1][0];
+      s2 = exchange[warp & ~1][j & 1][1] + exchange[warp | 1][j & 1][1];
+    }
+    if (!live) continue;
+    const float m1 = s1 / d;
+    const float m2 = s2 / d;
+    __nv_bfloat16* dxr = dx + (batch_row0 + row) * d + col0;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      const int col = (i * 32 + lane) * 8;
+      const int vec = q + i * kLanes;
+      if (vec >= nvec) continue;
       uint4 packed;
       __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&packed);
 #pragma unroll
@@ -278,19 +354,21 @@ ln_modulate_bwd_kernel(const __nv_bfloat16* __restrict__ x,
             rs * (dv[i][2 * e] - m1 - xh[i][2 * e] * m2),
             rs * (dv[i][2 * e + 1] - m1 - xh[i][2 * e + 1] * m2));
       }
-      *reinterpret_cast<uint4*>(dx + row * D + col) = packed;
+      *reinterpret_cast<uint4*>(dxr + vec * 8) = packed;
     }
   }
 
-  // The warps' A and C through the drained ring ([warp][2][D] f32), added
-  // in warp order.
+  // The teams' A and C through the drained ring ([team][2][d] f32), added
+  // in team order.
   float* red = reinterpret_cast<float*>(smem);
   __syncthreads();
+  const int team = team0 + r;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const int col = (i * 32 + lane) * 8;
-    float* ra = red + (warp * 2) * D + col;
-    float* rc = ra + D;
+    const int vec = q + i * kLanes;
+    if (vec >= nvec) continue;
+    float* ra = red + static_cast<size_t>(team * 2) * d + col0 + vec * 8;
+    float* rc = ra + d;
 #pragma unroll
     for (int e = 0; e < 8; e += 4) {
       *reinterpret_cast<float4*>(ra + e) = make_float4(
@@ -300,65 +378,65 @@ ln_modulate_bwd_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
   __syncthreads();
-  float* part = work + static_cast<size_t>(b) * 2 * D;
-  for (int col = threadIdx.x; col < D; col += kThreads) {
+  float* part = work + static_cast<size_t>(b) * 2 * d;
+  for (int col = threadIdx.x; col < d; col += kThreads) {
     float a = 0.f, c = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      a += red[(w * 2) * D + col];
-      c += red[(w * 2 + 1) * D + col];
+    for (int k = 0; k < kTeams; ++k) {
+      a += red[static_cast<size_t>(k * 2) * d + col];
+      c += red[static_cast<size_t>(k * 2 + 1) * d + col];
     }
     float op = 1.f;
     if (scale != nullptr) {
       op += __bfloat162float(scale[static_cast<size_t>(b) * mod_stride + col]);
-      dshift[static_cast<size_t>(b) * D + col] = a;
-      dscale[static_cast<size_t>(b) * D + col] = gamma[col] * c + beta[col] * a;
+      dshift[static_cast<size_t>(b) * d + col] = a;
+      dscale[static_cast<size_t>(b) * d + col] = gamma[col] * c + beta[col] * a;
     }
     part[col] = op * c;
-    part[D + col] = op * a;
+    part[d + col] = op * a;
   }
 
   const int group = b / kGroup;
   const int g0 = group * kGroup;
   const int in_group = min(kGroup, batch - g0);
   if (!last_to_arrive(tickets + group, in_group, &ticket)) return;
-  constexpr int kPer = 2 * D / kThreads;
   float sums[kPer];
-  sum_partials<D>(work + static_cast<size_t>(g0) * 2 * D, in_group, sums);
-  float* group_part = work + (static_cast<size_t>(batch) + group) * 2 * D;
-#pragma unroll
-  for (int t = 0; t < kPer; ++t) {
-    group_part[threadIdx.x + t * kThreads] = sums[t];
-  }
-  const int groups = num_groups(batch);
-  if (!last_to_arrive(tickets + groups, groups, &ticket)) return;
-  sum_partials<D>(work + static_cast<size_t>(batch) * 2 * D, groups, sums);
+  sum_partials<kPer>(work + static_cast<size_t>(g0) * 2 * d, in_group, d,
+                     sums);
+  float* group_part = work + (static_cast<size_t>(batch) + group) * 2 * d;
 #pragma unroll
   for (int t = 0; t < kPer; ++t) {
     const int idx = threadIdx.x + t * kThreads;
-    (idx < D ? dgamma : dbeta)[idx % D] = sums[t];
+    if (idx < 2 * d) group_part[idx] = sums[t];
+  }
+  const int groups = num_groups(batch);
+  if (!last_to_arrive(tickets + groups, groups, &ticket)) return;
+  sum_partials<kPer>(work + static_cast<size_t>(batch) * 2 * d, groups, d,
+                     sums);
+#pragma unroll
+  for (int t = 0; t < kPer; ++t) {
+    const int idx = threadIdx.x + t * kThreads;
+    if (idx < 2 * d) (idx < d ? dgamma : dbeta)[idx % d] = sums[t];
   }
 }
 
-template <int NV>
+template <int T, int NV, int kD = 0>
 cudaError_t launch(const void* x, const void* dy, const void* mean,
                    const void* rstd, const void* gamma, const void* beta,
                    const void* scale, int mod_stride, void* dx, void* dgamma,
                    void* dbeta, void* dshift, void* dscale, void* work,
-                   int batch, int seq_len, cudaStream_t s) {
-  constexpr int D = NV * 256;
-  const size_t smem = ring_bytes(D) + kWarps * kStages * 8;
+                   int batch, int seq_len, int d, cudaStream_t s) {
+  const size_t smem = ring_bytes(T, d) + kWarps * kStages * 8;
   cudaError_t err = cudaFuncSetAttribute(
-      ln_modulate_bwd_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ln_modulate_bwd_kernel<T, NV, kD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   unsigned int* tickets = reinterpret_cast<unsigned int*>(
       static_cast<float*>(work) +
-      static_cast<size_t>(batch + num_groups(batch)) * 2 * D);
+      static_cast<size_t>(batch + num_groups(batch)) * 2 * d);
   err = cudaMemsetAsync(tickets, 0,
                         (num_groups(batch) + 1) * sizeof(unsigned int), s);
   if (err != cudaSuccess) return err;
-  ln_modulate_bwd_kernel<NV><<<batch, kThreads, smem, s>>>(
+  ln_modulate_bwd_kernel<T, NV, kD><<<batch, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(mean),
       static_cast<const float*>(rstd), static_cast<const float*>(gamma),
@@ -367,11 +445,14 @@ cudaError_t launch(const void* x, const void* dy, const void* mean,
       static_cast<__nv_bfloat16*>(dx), static_cast<float*>(dgamma),
       static_cast<float*>(dbeta), static_cast<float*>(dshift),
       static_cast<float*>(dscale), static_cast<float*>(work), tickets, batch,
-      seq_len);
+      seq_len, d);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// Widest row the kernel takes; any multiple of 32 up to it.
+extern "C" int ln_modulate_bwd_max_width() { return kMaxWidth; }
 
 // Number of 4-byte words the caller allocates in `work`: the (2, d) f32
 // partials of the batch rows and of the groups, then the ticket counters.
@@ -386,8 +467,8 @@ extern "C" int ln_modulate_bwd_work_words(int batch, int seq_len, int d) {
 // dgamma, dbeta: (d,) f32; dshift, dscale: (B, d) f32. work: the partials
 // and the tickets, see ln_modulate_bwd_work_words; the tickets are zeroed
 // on `stream` before the kernel. A memset and one launch; returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a width other than 768
-// and 1,024 or more than 65,536 batch rows.
+// cudaGetLastError(), or cudaErrorInvalidValue for a width that is not a
+// multiple of 32 in [32, 2048] or more than 65,536 batch rows.
 extern "C" int ln_modulate_bwd(const void* x, const void* dy,
                                const void* mean, const void* rstd,
                                const void* gamma, const void* beta,
@@ -395,20 +476,41 @@ extern "C" int ln_modulate_bwd(const void* x, const void* dy,
                                void* dgamma, void* dbeta, void* dshift,
                                void* dscale, void* work, int batch,
                                int seq_len, int d, void* stream) {
-  if (num_groups(batch) > kMaxGroups) {
+  if (num_groups(batch) > kMaxGroups || d < 32 || d > kMaxWidth ||
+      d % 32 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {  // The widths of UMD-B and UMD-L.
-    case 768:
-      return static_cast<int>(launch<3>(x, dy, mean, rstd, gamma, beta, scale,
-                                        mod_stride, dx, dgamma, dbeta, dshift,
-                                        dscale, work, batch, seq_len, s));
-    case 1024:
-      return static_cast<int>(launch<4>(x, dy, mean, rstd, gamma, beta, scale,
-                                        mod_stride, dx, dgamma, dbeta, dshift,
-                                        dscale, work, batch, seq_len, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int t = team_threads(d);
+  const int lanes = t <= 32 ? t : 32;
+  const int nv = ((t <= 32 ? d : d / 2) / 8 + lanes - 1) / lanes;
+  if (d == 768 || d == 1024) {
+    return static_cast<int>(
+        d == 768 ? launch<32, 3, 768>(x, dy, mean, rstd, gamma, beta, scale,
+                                      mod_stride, dx, dgamma, dbeta, dshift,
+                                      dscale, work, batch, seq_len, d, s)
+                 : launch<32, 4, 1024>(x, dy, mean, rstd, gamma, beta,
+                                       scale, mod_stride, dx, dgamma, dbeta,
+                                       dshift, dscale, work, batch, seq_len,
+                                       d, s));
   }
+#define SV_LN_BWD_CASE(T, NV)                                              \
+  if (t == T && nv == NV) {                                                \
+    return static_cast<int>(launch<T, NV>(                                 \
+        x, dy, mean, rstd, gamma, beta, scale, mod_stride, dx, dgamma,     \
+        dbeta, dshift, dscale, work, batch, seq_len, d, s));               \
+  }
+  SV_LN_BWD_CASE(4, 1)
+  SV_LN_BWD_CASE(8, 1)
+  SV_LN_BWD_CASE(8, 2)
+  SV_LN_BWD_CASE(16, 1)
+  SV_LN_BWD_CASE(16, 2)
+  SV_LN_BWD_CASE(32, 1)
+  SV_LN_BWD_CASE(32, 2)
+  SV_LN_BWD_CASE(32, 3)
+  SV_LN_BWD_CASE(32, 4)
+  SV_LN_BWD_CASE(64, 3)
+  SV_LN_BWD_CASE(64, 4)
+#undef SV_LN_BWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

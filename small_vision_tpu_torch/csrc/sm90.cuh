@@ -109,6 +109,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 4-D tensor map into shared memory (see `tma_load_3d`).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // Orders this thread's ordinary shared-memory stores before later reads of
 // the same bytes by wgmma or TMA (the async proxy).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -212,12 +223,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 #undef SM90_D32
 #undef SM90_D_LIST
 
-// S (64 x 64) = A_tile B_tile^T over all 64 columns: four k16 steps.
+// S (64 x 64) [+]= A_tile B_tile^T over all 64 columns: four k16 steps.
 __device__ __forceinline__ void gemm_nt(float (&d)[32], uint64_t da,
-                                        uint64_t db) {
+                                        uint64_t db,
+                                        bool accumulate = false) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
-    wgmma_ss(d, da + ks * kKMajorStep, db + ks * kKMajorStep, ks > 0);
+    wgmma_ss(d, da + ks * kKMajorStep, db + ks * kKMajorStep,
+             accumulate || ks > 0);
   }
 }
 
@@ -267,15 +280,17 @@ __device__ __forceinline__ void pack_a(uint32_t (&p)[16],
 // Stores rows `row` and `row + 8` of a warpgroup's 64 x 64 f32 accumulator
 // (this thread's part, columns 8 n + 2 t4) as bf16 times f_lo / f_hi into a
 // row-major matrix with `ld` elements a row, dropping rows at or past
-// `rows`.
+// `rows` and columns at or past `cols` (a multiple of 8).
 __device__ __forceinline__ void store_acc(__nv_bfloat16* out, size_t ld,
                                           int row, int rows,
                                           const float (&d)[32], float f_lo,
-                                          float f_hi, int t4) {
+                                          float f_hi, int t4,
+                                          int cols = 64) {
   __nv_bfloat16* lo = out + static_cast<size_t>(row) * ld + 2 * t4;
   __nv_bfloat16* hi = lo + 8 * ld;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
+    if (8 * n >= cols) break;
     if (row < rows) {
       *reinterpret_cast<uint32_t*>(lo + 8 * n) =
           pack_bf16(d[4 * n] * f_lo, d[4 * n + 1] * f_lo);
@@ -340,6 +355,33 @@ inline bool packed_head_map(CUtensorMap* map, const void* base, int batch,
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map over the packed (B, L, H*D) bf16 layout of any head dim D (a
+// multiple of 8), viewed as (D, H, L, B) innermost first, box (64, 1, 64,
+// 1) with the 128-byte swizzle: one box is 64 columns, from `c0`, of one
+// head's 64 rows of one batch element, the 8 KB tile of the other maps.
+// Columns at or past D (the head's, not the row's: the next head's
+// columns lie past the map's first dimension) and rows at or past L are
+// out of bounds and arrive as zeros. A head of D <= 64 is one box, of 64 <
+// D <= 128 two (c0 = 0, 64). Returns false if it cannot be made.
+inline bool packed_head_map_d(CUtensorMap* map, const void* base, int batch,
+                              int seq_len, int num_heads, int head_dim) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t hd = static_cast<cuuint64_t>(head_dim);
+  const cuuint64_t width = static_cast<cuuint64_t>(num_heads) * hd;
+  const cuuint64_t dims[4] = {hd, static_cast<cuuint64_t>(num_heads),
+                              static_cast<cuuint64_t>(seq_len),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {hd * 2, width * 2, width * 2 * seq_len};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
             const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

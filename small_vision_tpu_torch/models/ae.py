@@ -12,12 +12,17 @@ flax tree.
 The draws the JAX module takes from its rng streams are arguments here:
 `mask_noise` ((B, L) uniforms for `random_masking`, the "mae_noise"
 stream) and `label_drop` ((B,) bool, the "cfg" stream, used with
-`train=True`). Dropout is 0 in every config and is not ported; a nonzero
-`dropout` raises. `attn_impl` ("pallas" or "pallas_fused") picks the
-blocks' kernel configuration (see `models.vit`); the parameters are the
-same under both. `quant` ("" or "none", "int8_mlp", "int8_all") puts the
-blocks' MLP products, or all their products but the attention core's,
-through the int8 matmul (`ops/quant.py`).
+`train=True`), and with `dropout` > 0 `dropout_draw`, a function of a
+shape that returns a keep mask (the "dropout" stream; `models.vit`), used
+with `train=True`. `attn_impl` ("pallas", "pallas_fused", "xla" or "flax")
+picks the blocks' attention configuration (see `models.vit`); the
+parameters are the same under all. `scan` puts the encoder's and the
+decoder's blocks in flax `nn.scan`'s stacked layout, and `remat_policy`
+rematerialises them as JAX does (`models.vit.Encoder`). The JAX module
+defaults to `scan=True`; the port to False (every config passes it).
+`quant` ("" or "none", "int8_mlp", "int8_all") puts the blocks' MLP
+products, or all their products but the attention core's, through the
+int8 matmul (`ops/quant.py`).
 
 The patchify conv (VALID, stride = patch) is computed as a reshape and a
 matmul on the (p·p·C, D) view of its HWIO kernel: the same function, with
@@ -70,12 +75,11 @@ class _ViTAE(nn.Module):
                dtype_mm: str = "bfloat16", adaln: bool = False,
                num_cls: int = 4, dropout: float = 0.0,
                cfg_dropout_rate: float = 0.1, attn_impl: str = "pallas",
-               quant: str = "none"):
+               quant: str = "none", scan: bool = False,
+               remat_policy: Optional[str] = "nothing_saveable"):
     super().__init__()
-    if dropout:
-      raise ValueError(f"dropout {dropout}: the port has no dropout (it is "
-                       "0 in every config)")
     p = patch_size[0]
+    self.dropout = dropout
     dtype = DTYPES[dtype_mm]
     self.num_classes = num_classes
     self.cfg_dropout_rate = cfg_dropout_rate  # the train step's label drop
@@ -102,7 +106,8 @@ class _ViTAE(nn.Module):
     if quant not in BLOCK_QUANT:
       raise ValueError(f"quant={quant!r}: one of {sorted(BLOCK_QUANT)}")
     kw = dict(width=width, mlp_dim=mlp_dim, num_heads=num_heads, adaln=adaln,
-              dtype=dtype, attn_impl=attn_impl, quant=BLOCK_QUANT[quant])
+              dtype=dtype, attn_impl=attn_impl, quant=BLOCK_QUANT[quant],
+              scan=scan, remat_policy=remat_policy, dropout=dropout)
     self.Encoder = Encoder(depth=depth, **kw)
     self.Decoder = Encoder(depth=dec_depth, **kw)
     if adaln:
@@ -133,7 +138,7 @@ class _ViTAE(nn.Module):
       cond = nn.functional.silu(cond)
     return x, cond.to(self.dtype)
 
-  def encode(self, x, cond, mask=0.0, mask_noise=None):
+  def encode(self, x, cond, mask=0.0, mask_noise=None, dropout_draw=None):
     """Encoder; with `mask` > 0 only the tokens `mask_noise` keeps."""
     n = x.shape[0]
     x = x + self.pos_embedding.to(x.dtype)
@@ -146,7 +151,7 @@ class _ViTAE(nn.Module):
       out["mask"] = sequence_mask_to_image_mask(seq_mask, self.patch,
                                                 self.img_size)
     x = torch.cat([self.cls.to(x.dtype).expand(n, -1, -1), x], dim=1)
-    x = self.Encoder(x, cond)
+    x = self.Encoder(x, cond, dropout_draw)
     rep = x[:, :self.num_cls].mean(dim=1)  # averaged class tokens
     out["pre_logits"] = rep
     return rep, x[:, self.num_cls:], ids_restore, out
@@ -157,14 +162,15 @@ class _ViTAE(nn.Module):
       x = restore_masked(x, self.mask_token, ids_restore)
     return x
 
-  def decode(self, rep, x, cond, ids_restore=None):
-    return self._decode_restored(rep, self._unmask(x, ids_restore), cond)
+  def decode(self, rep, x, cond, ids_restore=None, dropout_draw=None):
+    return self._decode_restored(rep, self._unmask(x, ids_restore), cond,
+                                 dropout_draw)
 
-  def _decode_restored(self, rep, x, cond):
+  def _decode_restored(self, rep, x, cond, dropout_draw=None):
     """Decoder + final modulation + head on an already-unmasked sequence."""
     x = x + self.dec_pos_embedding.to(x.dtype)
     x = torch.cat([rep[:, None, :].to(x.dtype), x], dim=1)
-    x = self.Decoder(x, cond)[:, 1:, :]
+    x = self.Decoder(x, cond, dropout_draw)[:, 1:, :]
     if self.adaln:
       shift, scale = self.final_modulation(cond).chunk(2, dim=-1)
       # (1 + scale) is rounded to the compute dtype before it meets the
@@ -181,8 +187,19 @@ class _ViTAE(nn.Module):
       raise ValueError("label_drop is a training draw; pass train=True")
     return label_drop
 
+  def _dropout_draw(self, train, draw):
+    """The blocks' mask function: only in training with dropout > 0, where
+    it is needed."""
+    if not train or not self.dropout:
+      return None
+    if draw is None:
+      raise ValueError(f"dropout {self.dropout} in training needs "
+                       "dropout_draw, the keep masks' draws")
+    return draw
+
   def forward(self, image, *, t=None, y=None, cfg_scale=None, mask=0.0,
-              train=False, mask_noise=None, label_drop=None):
+              train=False, mask_noise=None, label_drop=None,
+              dropout_draw=None):
     """Returns (pred, out) with pred = [x0_hat ‖ eps_hat], NHWC f32, and
     out["mask"] the (B, H, W, 1) pixel mask (None at mask 0).
 
@@ -190,8 +207,11 @@ class _ViTAE(nn.Module):
     labels and the prediction extrapolated from uncond towards cond.
     `mask_noise`: (B, L) uniforms, needed when `mask` > 0. `label_drop`:
     (B,) bool, with `train`, drops labels to the null class.
+    `dropout_draw`: with `train` and dropout > 0, a function of a shape
+    that returns a bool keep mask.
     """
     label_drop = self._label_drop(train, label_drop)
+    draw = self._dropout_draw(train, dropout_draw)
     if cfg_scale is not None:
       if train:
         raise ValueError("cfg_scale is inference-only")
@@ -205,8 +225,9 @@ class _ViTAE(nn.Module):
       y = torch.cat([y, null_y], dim=0)
 
     x, cond = self.embed(image, t=t, y=y, label_drop=label_drop)
-    rep, encoded, ids_restore, out = self.encode(x, cond, mask, mask_noise)
-    pred = self.decode(rep, encoded, cond, ids_restore)
+    rep, encoded, ids_restore, out = self.encode(x, cond, mask, mask_noise,
+                                                 draw)
+    pred = self.decode(rep, encoded, cond, ids_restore, draw)
 
     if cfg_scale is not None:
       conditional, unconditional = pred.chunk(2, dim=0)
@@ -215,7 +236,8 @@ class _ViTAE(nn.Module):
 
   def dual_forward(self, img_a, img_b, *, t_a=None, t_b=None, y_a=None,
                    y_b=None, mask_a=0.0, mask_b=0.0, train=False,
-                   noise_a=None, noise_b=None, label_drop=None):
+                   noise_a=None, noise_b=None, label_drop=None,
+                   dropout_draw=None):
     """Two-branch training forward sharing one embed/decoder/head pass.
 
     The branches (clean MAE and noised diffusion) are concatenated wherever
@@ -225,6 +247,7 @@ class _ViTAE(nn.Module):
     batch. Returns (pred, out_a, out_b) with pred ordered [a ‖ b].
     """
     label_drop = self._label_drop(train, label_drop)
+    draw = self._dropout_draw(train, dropout_draw)
     n_a = img_a.shape[0]
     image = torch.cat([img_a.to(self.dtype), img_b.to(self.dtype)], dim=0)
     n = image.shape[0]
@@ -243,13 +266,13 @@ class _ViTAE(nn.Module):
 
     x, cond = self.embed(image, t=t, y=y, label_drop=label_drop)
     rep_a, enc_a, ids_a, out_a = self.encode(x[:n_a], cond[:n_a], mask_a,
-                                             noise_a)
+                                             noise_a, draw)
     rep_b, enc_b, ids_b, out_b = self.encode(x[n_a:], cond[n_a:], mask_b,
-                                             noise_b)
+                                             noise_b, draw)
     full = torch.cat([self._unmask(enc_a, ids_a), self._unmask(enc_b, ids_b)],
                      dim=0)
     rep = torch.cat([rep_a, rep_b], dim=0)
-    return self._decode_restored(rep, full, cond), out_a, out_b
+    return self._decode_restored(rep, full, cond, draw), out_a, out_b
 
 
 def decode_variant(variant):

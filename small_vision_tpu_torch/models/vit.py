@@ -1,20 +1,29 @@
 """ViT encoder blocks with AdaLN-zero or in-context conditioning.
 
-Counterpart of small_vision_tpu/models/vit.py for the paths the sampler and
-the train step run (`scan=False`, no remat, dropout 0): `_FusedLN`,
-`MlpBlock`, the packed q/k/v/out projections, the packed
-`MultiHeadAttention`, `Block` and the unrolled `Encoder`. Module and
-parameter names follow the flax ones (`blocks_00/LayerNorm_0/scale`, ...).
-Activations stay packed (B, L, H*D); matmuls run in `dtype_mm` with f32
-parameters cast per call, as flax does.
+Counterpart of small_vision_tpu/models/vit.py: `_FusedLN`, `MlpBlock`,
+the packed q/k/v/out projections, the packed `MultiHeadAttention`,
+`Block` and `Encoder`, unrolled (`blocks_00`, ...) or under `scan=True`
+in the stacked layout of flax's `nn.scan` (`blocks/<sub>/<leaf>`, each
+leaf with a leading depth axis; block i runs on slice i), with JAX's
+remat policies and dropout. Module and parameter names follow the flax
+ones. Activations stay packed (B, L, H*D); matmuls run in `dtype_mm` with
+f32 parameters cast per call, as flax does.
 
-`attn_impl` picks one of the JAX package's two kernel configurations:
+`attn_impl` picks one of the JAX package's attention configurations:
   "pallas"        unfused Dense layers around the packed attention (K3, K4);
   "pallas_fused"  the whole attention sub-block in `ops.fused_block.fused_mha`
-                  (K6) and the whole MLP in `fused_mlp` (K5).
-The parameter tree is the same under both, and `FusedLN` runs K1/K2 under
-both. The JAX package's other settings ("xla", "flax") are not ported and
-raise.
+                  (K6) and the whole MLP in `fused_mlp` (K5);
+  "xla"           the packed projections around `xla_attention`'s einsums:
+                  q scaled before the product, f32 logits and softmax, the
+                  probabilities cast to v's dtype;
+  "flax"          stock flax `MultiHeadDotProductAttention` in `dtype_mm`:
+                  q divided by sqrt(head dim), logits and softmax in the
+                  compute dtype.
+The parameter tree is the same under all four. "xla" and "flax" are
+compositions of matmuls and a softmax, as XLA ops are in JAX (no Pallas
+kernel is on their path there); `FusedLN` runs K1/K2 on the card under
+every setting (JAX computes the same function in XLA under "xla" and
+"flax") and the plain versions on the CPU.
 
 `quant` ("none", "int8" or "int8_all", the JAX modules' values) puts the
 MLP's two products ("int8") and also the q, k, v and out-projections
@@ -24,12 +33,35 @@ int8 MLP wins over the fused one, so `pallas_fused` with int8 runs no K5;
 the fused attention ignores `int8_all`, so `pallas_fused` runs K6 in the
 compute dtype. (On the CPU the JAX package takes the fused attention only
 in interpret mode, which is the setting the port's tests hold it to.)
+
+Dropout sits at JAX's four sites: after the MLP's gelu, and on the
+attention and MLP branches before their residual adds. Its keep masks are
+arguments (`draw`, a function of a shape that returns a bool mask), drawn
+before each block runs and so before any checkpointed region: a recompute
+sees the masks of the forward. With dropout > 0 the fused MLP steps aside,
+as in JAX, so `pallas_fused` then launches no K5.
+
+`remat_policy` follows JAX's matrix (`Encoder.__call__`) on
+`torch.utils.checkpoint` (`use_reentrant=False`): unrolled, a block is
+rematerialised only under "save_attn" and "save_attn_mlp"; under
+`scan=True`, under every policy but "none" / None. "nothing_saveable"
+keeps a block's inputs only; "everything_saveable" keeps everything (no
+recompute); "save_attn" also keeps `attn_out`, the attention output
+before the out-projection, and "save_attn_mlp" `attn_out` and `mlp_out`,
+the MLP's output before its gate. Under "pallas_fused" `attn_out` does not
+exist (K6 includes the out-projection), so, as in JAX, "save_attn" saves
+what "nothing_saveable" does and "save_attn_mlp" `mlp_out` alone. The
+block's AdaLN vectors (B, 6D) and its input with the conditioning token
+are made before the checkpointed regions, so that the autograd graph is
+the one of the run without remat and the gradients are the same bits.
 """
 
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from small_vision_tpu_torch.models.common import (Dense, LayerNorm,
                                                   compute_dtype, dense)
@@ -38,14 +70,17 @@ from small_vision_tpu_torch.ops.fused_block import fused_mha, fused_mlp
 from small_vision_tpu_torch.ops.layernorm import ln_modulate
 from small_vision_tpu_torch.ops.quant import int8_dot
 
-ATTN_IMPLS = ("pallas", "pallas_fused")
+ATTN_IMPLS = ("pallas", "pallas_fused", "xla", "flax")
 QUANTS = ("none", "int8", "int8_all")
+# The JAX policies the port has; "none" (or None) is no remat.
+REMAT_POLICIES = ("nothing_saveable", "everything_saveable", "save_attn",
+                  "save_attn_mlp", "none")
 
 
 def check_attn_impl(attn_impl: str) -> str:
   if attn_impl not in ATTN_IMPLS:
     raise ValueError(f"attn_impl={attn_impl!r}: the port has "
-                     f"{' and '.join(map(repr, ATTN_IMPLS))} only")
+                     f"{', '.join(map(repr, ATTN_IMPLS))}")
   return attn_impl
 
 
@@ -55,12 +90,56 @@ def check_quant(quant: str) -> str:
   return quant
 
 
+def check_remat_policy(policy: Optional[str]) -> Optional[str]:
+  if policy is not None and policy not in REMAT_POLICIES:
+    raise ValueError(
+        f"remat_policy={policy!r}: the port has "
+        f"{', '.join(map(repr, REMAT_POLICIES))} and None; the other "
+        "jax.checkpoint_policies are not ported")
+  return policy
+
+
+def dropout(x, keep: Optional[torch.Tensor], rate: float):
+  """flax nn.Dropout with the keep mask given: x / keep_prob where kept,
+  else 0. keep_prob is rounded to x's dtype first, as JAX rounds the
+  weak-typed scalar."""
+  if keep is None:
+    return x
+  keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+  return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+
+
 def int8_dense(x, kernel, bias, dtype):
   """`dense` with the product through `int8_dot`: operands cast to the
   compute dtype, the int8 product rounded to it, then the bias added in it
   (two roundings, as the JAX modules)."""
   dt = compute_dtype(x, dtype)
   return int8_dot(x.to(dt), kernel.to(dt)) + bias.to(dt)
+
+
+def xla_attention(q, k, v):
+  """`ops.attention.xla_attention` on [B, L, H, D]: q times D**-0.5 (the
+  scale rounded to q's dtype) before the product, f32 logits, f32
+  softmax, the probabilities cast to v's dtype, an f32 product rounded to
+  v's dtype."""
+  depth = q.shape[-1]
+  q = q * torch.tensor(1.0 / np.sqrt(depth), dtype=q.dtype, device=q.device)
+  logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+  probs = torch.softmax(logits, dim=-1)
+  out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
+  return out.to(v.dtype)
+
+
+def flax_attention(q, k, v):
+  """flax's `dot_product_attention` on [B, L, H, D] in the inputs' dtype:
+  q divided by sqrt(D) (rounded to that dtype), logits rounded to it, the
+  softmax in it, then the product with v."""
+  depth = q.shape[-1]
+  q = q / torch.tensor(np.float32(np.sqrt(depth)), dtype=q.dtype,
+                       device=q.device)
+  weights = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+  return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
 class FusedLN(nn.Module):
@@ -81,25 +160,30 @@ class FusedLN(nn.Module):
 
 
 class MlpBlock(nn.Module):
-  """Dense → gelu (tanh approximation, flax's default) → Dense; under
-  `attn_impl="pallas_fused"` as one `fused_mlp` on the same parameters;
-  with `quant` "int8" or "int8_all" both products through `int8_dot`,
-  which wins over the fused MLP."""
+  """Dense → gelu (tanh approximation, flax's default) → dropout → Dense;
+  under `attn_impl="pallas_fused"` with dropout 0 as one `fused_mlp` on the
+  same parameters; with `quant` "int8" or "int8_all" both products through
+  `int8_dot`, which wins over the fused MLP."""
 
   def __init__(self, width: int, mlp_dim: Optional[int], dtype,
-               attn_impl: str = "pallas", quant: str = "none"):
+               attn_impl: str = "pallas", quant: str = "none",
+               dropout: float = 0.0):
     super().__init__()
     hidden = mlp_dim or 4 * width
     self.dtype = dtype
-    self.fused = check_attn_impl(attn_impl) == "pallas_fused"
+    self.dropout = dropout
+    self.fused = check_attn_impl(attn_impl) == "pallas_fused" and (
+        dropout == 0.0)
     self.int8 = check_quant(quant) != "none"
     self.Dense_0 = Dense(width, hidden, dtype)
     self.Dense_1 = Dense(hidden, width, dtype)
 
-  def forward(self, x):
+  def forward(self, x, keep=None):
+    """`keep`: the (B, L, hidden) dropout mask after the gelu, or None."""
     if self.int8:
       h = int8_dense(x, self.Dense_0.kernel, self.Dense_0.bias, self.dtype)
-      h = nn.functional.gelu(h, approximate="tanh")
+      h = dropout(nn.functional.gelu(h, approximate="tanh"), keep,
+                  self.dropout)
       return int8_dense(h, self.Dense_1.kernel, self.Dense_1.bias,
                         self.dtype)
     if self.fused:
@@ -108,7 +192,7 @@ class MlpBlock(nn.Module):
           self.Dense_0.kernel, self.Dense_0.bias,
           self.Dense_1.kernel, self.Dense_1.bias)))
     h = nn.functional.gelu(self.Dense_0(x), approximate="tanh")
-    return self.Dense_1(h)
+    return self.Dense_1(dropout(h, keep, self.dropout))
 
 
 class PackedProj(nn.Module):
@@ -160,9 +244,11 @@ class PackedOutProj(nn.Module):
 
 class MultiHeadAttention(nn.Module):
   """Self-attention through `ops.attention.attention_packed` (K3, and K4
-  for the gradient); under `attn_impl="pallas_fused"` the projections and
-  the attention as one `fused_mha` (K6) on the same parameters, which
-  ignores `quant`; otherwise `quant="int8"` quantizes the projections."""
+  for the gradient), `xla_attention` or `flax_attention` (`attn_impl`
+  "pallas", "xla", "flax"); under "pallas_fused" the projections and the
+  attention as one `fused_mha` (K6) on the same parameters, which ignores
+  `quant`; otherwise `quant="int8"` quantizes the projections. "flax"
+  computes its projections in `dtype_mm` as flax's DenseGeneral does."""
 
   def __init__(self, width: int, num_heads: int, dtype,
                attn_impl: str = "pallas", quant: str = "none"):
@@ -172,13 +258,29 @@ class MultiHeadAttention(nn.Module):
     head_dim = width // num_heads
     self.num_heads = num_heads
     self.dtype = dtype
-    self.fused = check_attn_impl(attn_impl) == "pallas_fused"
+    self.attn_impl = check_attn_impl(attn_impl)
+    self.fused = attn_impl == "pallas_fused"
     if quant not in ("none", "int8"):
       raise ValueError(f"attention quant={quant!r}: 'none' or 'int8'")
+    if attn_impl == "flax":
+      quant = "none"  # stock flax MHA: DenseGeneral projections
     self.query = PackedProj(width, num_heads, head_dim, dtype, quant)
     self.key = PackedProj(width, num_heads, head_dim, dtype, quant)
     self.value = PackedProj(width, num_heads, head_dim, dtype, quant)
     self.out = PackedOutProj(num_heads, head_dim, width, dtype, quant)
+
+  def core(self, x, dry: bool = False):
+    """The attention output before the out-projection (JAX's `attn_out`),
+    packed (B, L, H*hd). `dry`: a rematerialisation that needs only the
+    attention's saved inputs (its output is saved); K3 is then not
+    launched. Not under "pallas_fused"."""
+    q, k, v = self.query(x), self.key(x), self.value(x)
+    if self.attn_impl == "pallas":
+      return attention_packed(q, k, v, self.num_heads, dry=dry)
+    b, l, hd = q.shape
+    split = lambda t: t.reshape(b, l, self.num_heads, hd // self.num_heads)
+    fn = xla_attention if self.attn_impl == "xla" else flax_attention
+    return fn(split(q), split(k), split(v)).reshape(b, l, hd)
 
   def forward(self, x):
     if self.fused:
@@ -186,9 +288,7 @@ class MultiHeadAttention(nn.Module):
       return fused_mha(x.to(dt), *self.query.params_2d(dt),
                        *self.key.params_2d(dt), *self.value.params_2d(dt),
                        *self.out.params_2d(dt), self.num_heads)
-    o = attention_packed(self.query(x), self.key(x), self.value(x),
-                         self.num_heads)
-    return self.out(o)
+    return self.out(self.core(x))
 
 
 class Block(nn.Module):
@@ -198,16 +298,25 @@ class Block(nn.Module):
   vectors (shift/scale/gate for attention and MLP). Without it, the
   conditioning vector joins the sequence as a leading token and is
   stripped after. `quant`: "int8" quantizes the MLP, "int8_all" the
-  attention's projections too.
+  attention's projections too. `dropout`: the rate at the MLP's hidden
+  layer and on both branches; its masks are arguments.
+
+  `forward(x, cond, drops)` is `prepare`, `attn`, `mlp` and `finish` in
+  turn; `part` runs one of them (the Encoder's remat regions; the stacked
+  layout calls the block through `torch.func.functional_call`, which
+  calls `forward`).
   """
 
   def __init__(self, width: int, mlp_dim: Optional[int], num_heads: int,
                adaln: bool, dtype, attn_impl: str = "pallas",
-               quant: str = "none"):
+               quant: str = "none", dropout: float = 0.0):
     super().__init__()
     check_quant(quant)
     self.adaln = adaln
     self.dtype = dtype
+    self.dropout = dropout
+    self.width = width
+    self.hidden = mlp_dim or 4 * width
     if adaln:
       self.Dense_0 = Dense(width, 6 * width, dtype)
     self.LayerNorm_0 = FusedLN(width)
@@ -215,52 +324,180 @@ class Block(nn.Module):
         width, num_heads, dtype, attn_impl,
         "int8" if quant == "int8_all" else "none")
     self.LayerNorm_1 = FusedLN(width)
-    self.MlpBlock_0 = MlpBlock(width, mlp_dim, dtype, attn_impl, quant)
+    self.MlpBlock_0 = MlpBlock(width, mlp_dim, dtype, attn_impl, quant,
+                               dropout)
 
-  def forward(self, x, cond=None):
-    use_adaln = cond is not None and self.adaln
-    shift_a = scale_a = gate_a = shift_m = scale_m = gate_m = None
-    if use_adaln:
-      (shift_a, scale_a, gate_a,
-       shift_m, scale_m, gate_m) = self.Dense_0(cond).chunk(6, dim=-1)
-    elif cond is not None:
+  def draw_masks(self, draw, b: int, l: int):
+    """The block's three dropout keep masks, in JAX's order (attention
+    branch, MLP hidden, MLP branch), for an input of B x L tokens (L
+    without the conditioning token); None without dropout."""
+    if not self.dropout or draw is None:
+      return None
+    l += 0 if self.adaln else 1
+    return (draw((b, l, self.width)), draw((b, l, self.hidden)),
+            draw((b, l, self.width)))
+
+  def prepare(self, x, cond):
+    """(x with the conditioning token, the AdaLN vectors (B, 6D) or None)."""
+    if cond is not None and self.adaln:
+      return x, self.Dense_0(cond)
+    if cond is not None:
       x = torch.cat([cond[:, None, :], x], dim=1)
+    return x, None
 
-    y = self.LayerNorm_0(x, shift_a, scale_a).to(self.dtype)
-    y = self.MultiHeadAttention_0(y)
-    if use_adaln:
-      y = gate_a[:, None, :] * y
-    x = x + y
+  def attn(self, x, mods, drops=None, *, o=None, stop=None, dry=False):
+    """The attention sub-block on a prepared input, through its residual
+    add. `o`: `attn_out` given (saved by a remat policy) rather than
+    computed; `stop="attn_out"` returns it; `dry`: see
+    `MultiHeadAttention.core`."""
+    shift, scale, gate = mods.chunk(6, -1)[:3] if mods is not None else (
+        None, None, None)
+    mha = self.MultiHeadAttention_0
+    if mha.fused:
+      y = mha(self.LayerNorm_0(x, shift, scale).to(self.dtype))
+    else:
+      if o is None:
+        o = mha.core(self.LayerNorm_0(x, shift, scale).to(self.dtype), dry)
+        if stop == "attn_out":
+          return o
+      y = mha.out(o)
+    if gate is not None:
+      y = gate[:, None, :] * y
+    return x + dropout(y, drops[0] if drops else None, self.dropout)
 
-    y = self.LayerNorm_1(x, shift_m, scale_m).to(self.dtype)
-    y = self.MlpBlock_0(y)
-    if use_adaln:
-      y = gate_m[:, None, :] * y
-    x = x + y
+  def mlp(self, x, mods, drops=None, *, m=None, stop=None):
+    """The MLP sub-block, through its residual add. `m`: `mlp_out` (the
+    MLP's output before its gate) given rather than computed;
+    `stop="mlp_out"` returns it."""
+    shift, scale, gate = mods.chunk(6, -1)[3:] if mods is not None else (
+        None, None, None)
+    if m is None:
+      m = self.MlpBlock_0(self.LayerNorm_1(x, shift, scale).to(self.dtype),
+                          drops[1] if drops else None)
+      if stop == "mlp_out":
+        return m
+    y = m if gate is None else gate[:, None, :] * m
+    return x + dropout(y, drops[2] if drops else None, self.dropout)
 
+  def finish(self, x, cond):
     if cond is not None and not self.adaln:
       x = x[:, 1:]
     return x
 
+  def forward(self, x, cond=None, drops=None, part=None, **kw):
+    if part == "prepare":
+      return self.prepare(x, cond)
+    if part in ("attn", "mlp"):
+      return getattr(self, part)(x, cond, drops, **kw)
+    if part == "finish":
+      return self.finish(x, cond)
+    y, mods = self.prepare(x, cond)
+    return self.finish(self.mlp(self.attn(y, mods, drops), mods, drops),
+                       cond)
+
+
+def _ckpt(fn, *args):
+  return checkpoint(fn, *args, use_reentrant=False)
+
+
+def remat_block(call: Callable, x, cond, drops, policy: Optional[str],
+                fused: bool):
+  """One block under `policy` (None: no remat). `call(part, *args, **kw)`
+  runs a part of the block (`Block.forward`). Each op of the block runs
+  once in the forward whatever the policy, so the autograd graph, and the
+  gradients, are those without remat."""
+  y, mods = call("prepare", x, cond)
+  attn = lambda *a, **kw: call("attn", *a, **kw)
+  mlp = lambda *a, **kw: call("mlp", *a, **kw)
+  block = lambda y, mods, drops, o=None: mlp(attn(y, mods, drops, o=o), mods,
+                                             drops)
+  o = None
+  if policy in ("save_attn", "save_attn_mlp") and not fused:
+    # attn_out is saved; its recompute needs K3's inputs only.
+    recomputed = []
+
+    def attn_out(y, mods):
+      dry = bool(recomputed)
+      recomputed.append(True)
+      return attn(y, mods, None, stop="attn_out", dry=dry)
+    o = _ckpt(attn_out, y, mods)
+  if policy in (None, "none", "everything_saveable"):
+    y = block(y, mods, drops)
+  elif policy == "save_attn_mlp":
+    # mlp_out is saved: the region ends there, and the MLP's gate and
+    # residual add run outside it.
+    def to_mlp_out(y, mods, drops, o):
+      y = attn(y, mods, drops, o=o)
+      return y, mlp(y, mods, drops, stop="mlp_out")
+    y, m = _ckpt(to_mlp_out, y, mods, drops, o)
+    y = mlp(y, mods, drops, m=m)
+  else:  # nothing_saveable (and save_attn): the region's inputs only
+    y = _ckpt(block, y, mods, drops, o)
+  return call("finish", y, cond)
+
 
 class Encoder(nn.Module):
-  """Unrolled stack of Blocks (`blocks_00`, ...) and a final flax LayerNorm
-  (`encoder_norm`), whose output is f32."""
+  """Stack of Blocks and a final flax LayerNorm (`encoder_norm`), whose
+  output is f32: unrolled (`blocks_00`, ...), or with `scan` one `blocks`
+  module whose every parameter holds the depth's layers stacked on a
+  leading axis (flax `nn.scan`'s layout), block i running on slice i.
+
+  `remat_policy`: JAX's matrix (see the module's doc). `dropout`: the
+  blocks' rate; `forward`'s `draw(shape)` makes the keep masks (bool) of
+  each block before it runs, or None for no dropout.
+  """
 
   def __init__(self, depth: int, width: int, mlp_dim: Optional[int],
                num_heads: int, adaln: bool, dtype,
-               attn_impl: str = "pallas", quant: str = "none"):
+               attn_impl: str = "pallas", quant: str = "none",
+               scan: bool = False,
+               remat_policy: Optional[str] = "nothing_saveable",
+               dropout: float = 0.0):
     super().__init__()
     self.depth = depth
-    for i in range(depth):
-      self.add_module(
-          f"blocks_{i:02d}",
-          Block(width, mlp_dim, num_heads, adaln, dtype, attn_impl, quant))
+    self.scan = scan
+    self.fused = attn_impl == "pallas_fused"
+    policy = check_remat_policy(remat_policy)
+    if scan:
+      self.policy = None if policy in (None, "none") else policy
+    else:
+      self.policy = policy if policy in ("save_attn", "save_attn_mlp") else None
+    kw = dict(width=width, mlp_dim=mlp_dim, num_heads=num_heads, adaln=adaln,
+              dtype=dtype, attn_impl=attn_impl, quant=quant, dropout=dropout)
+    if scan:
+      self.blocks = Block(**kw)
+      for mod in self.blocks.modules():
+        for name, p in list(mod.named_parameters(recurse=False)):
+          setattr(mod, name, nn.Parameter(
+              torch.empty((depth, *p.shape), dtype=p.dtype, device=p.device)))
+    else:
+      for i in range(depth):
+        self.add_module(f"blocks_{i:02d}", Block(**kw))
     self.encoder_norm = LayerNorm(width)
 
-  def forward(self, x, cond=None):
-    for i in range(self.depth):
-      x = getattr(self, f"blocks_{i:02d}")(x, cond)
+  def _calls(self):
+    """A function `call(part, *args, **kw)` for each block, in order."""
+    if not self.scan:
+      return [getattr(self, f"blocks_{i:02d}") for i in range(self.depth)]
+    names, stacked = zip(*self.blocks.named_parameters())
+    layers = list(zip(*(p.unbind(0) for p in stacked)))
+
+    def bind(i):
+      params = dict(zip(names, layers[i]))
+      return lambda part, *a, **kw: torch.func.functional_call(
+          self.blocks, params, a, dict(kw, part=part))
+    return [bind(i) for i in range(self.depth)]
+
+  def forward(self, x, cond=None, draw: Optional[Callable] = None):
+    policy = self.policy if torch.is_grad_enabled() else None
+    for block in self._calls():
+      mod = self.blocks if self.scan else block
+      drops = mod.draw_masks(draw, x.shape[0], x.shape[1])
+      if self.scan:
+        call = block
+      else:
+        call = lambda part, *a, _b=block, **kw: _b(*a, part=part, **kw)
+      x = remat_block(call, x, cond, drops, policy, self.fused)
     return self.encoder_norm(x)
 
 

@@ -47,7 +47,10 @@ ABLATE_NAME = "attention_ablate"
 # The arms of K9, in the order of the kernel's `variant` argument.
 ABLATE_VARIANTS = ("prod", "nosoftmax", "nomm", "bf16exp", "exp2", "mulmask",
                    "nomax")
-HEAD_DIM = 64  # The only head dim the kernels take.
+# K3 and K4 take any head dim that is a multiple of 8 up to this; K6-K9
+# take HEAD_DIM only.
+PACKED_MAX_HEAD_DIM = 128
+HEAD_DIM = 64
 CLAMP = 80.0   # Softmax stability clamp, in log2 units.
 
 
@@ -116,7 +119,7 @@ def attention_packed_bwd_plain(q, k, v, do, num_heads):
 @functools.cache
 def _lib():
   lib = _build.library("attention_packed")
-  return lib.attention_packed_fwd, lib.attention_packed_max_len()
+  return lib.attention_packed_fwd, lib.attention_packed_max_len
 
 
 @functools.cache
@@ -144,46 +147,53 @@ def _check_each(name, first, tensors):
 
 
 def _check(name, num_heads, **tensors):
-  """Checks the (B, L, H*64) bf16 inputs of a kernel; returns B, L."""
+  """Checks the (B, L, H*D) bf16 inputs of K3 or K4, D a multiple of 8 up
+  to PACKED_MAX_HEAD_DIM; returns B, L, D."""
   first = next(iter(tensors.values()))
   _require(first.is_cuda, f"{next(iter(tensors))} must be a CUDA tensor",
            name)
   _require(first.dim() == 3,
            f"inputs must be (B, L, H*D), got {tuple(first.shape)}", name)
   b, l, hd = first.shape
-  _require(hd == num_heads * HEAD_DIM,
-           f"width {hd} != num_heads {num_heads} * head dim {HEAD_DIM}",
-           name)
+  _require(num_heads > 0 and hd % num_heads == 0,
+           f"width {hd} is not num_heads {num_heads} heads", name)
+  d = hd // num_heads
+  _require(d % 8 == 0 and 8 <= d <= PACKED_MAX_HEAD_DIM,
+           f"head dim {d}: the kernel takes multiples of 8 up to "
+           f"{PACKED_MAX_HEAD_DIM}", name)
   _check_each(name, first, tensors)
-  return b, l
+  return b, l, d
 
 
 def attention_packed_fwd(q, k, v, num_heads):
-  """Launches K3 on (B, L, H*64) bf16 contiguous q, k, v. L up to the
-  kernel's `attention_packed_max_len()`, 832: a head's K and V stay in
-  shared memory (the limit was 816 before K3 moved to wgmma and TMA)."""
-  b, l = _check(NAME, num_heads, q=q, k=k, v=v)
+  """Launches K3 on (B, L, H*D) bf16 contiguous q, k, v, D a multiple of 8
+  up to 128. L up to the kernel's `attention_packed_max_len(D)`: a head's
+  K and V stay in shared memory, 832 at D <= 64 (one 64-column tile a
+  head), 384 at 64 < D <= 128 (two)."""
+  b, l, d = _check(NAME, num_heads, q=q, k=k, v=v)
   fn, max_len = _lib()
-  _require(l <= max_len, f"sequence length {l} > {max_len}")
+  _require(l <= max_len(d), f"sequence length {l} > {max_len(d)} at head "
+           f"dim {d}")
 
   o = torch.empty_like(q)
   if q.numel() == 0:
     return o
   _build.launch(NAME, q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                o.data_ptr(), b, l, num_heads, scale_log2(HEAD_DIM))
+                o.data_ptr(), b, l, num_heads, d, scale_log2(d))
   _build.LAUNCHES[NAME] += 1
   return o
 
 
 def attention_packed_bwd(q, k, v, do, num_heads):
-  """Launches K4 on (B, L, H*64) bf16 contiguous q, k, v, do; returns
+  """Launches K4 on (B, L, H*D) bf16 contiguous q, k, v, do (D a multiple
+  of 8 up to 128); returns
   (dq, dk, dv). Each output element is summed by one warpgroup's
   accumulator in a fixed order (no atomics), so two launches give the same
   bits. L up to the kernel's `attention_packed_bwd_max_len()`, 4096: its
   shared memory does not grow with L (the limit was 384 before K4 moved to
   wgmma and streamed tiles), and 4096 is the longest length the card's
   tests hold it at."""
-  b, l = _check(BWD_NAME, num_heads, q=q, k=k, v=v, do=do)
+  b, l, d = _check(BWD_NAME, num_heads, q=q, k=k, v=v, do=do)
   fn, max_len = _bwd_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}", BWD_NAME)
 
@@ -196,8 +206,7 @@ def attention_packed_bwd(q, k, v, do, num_heads):
   _build.launch(BWD_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), r.data_ptr(), c.data_ptr(), b, l, num_heads,
-                scale_log2(HEAD_DIM),
-                float(np.float32(1.0 / np.sqrt(HEAD_DIM))))
+                d, scale_log2(d), float(np.float32(1.0 / np.sqrt(d))))
   _build.LAUNCHES[BWD_NAME] += 1
   return dq, dk, dv
 
@@ -205,12 +214,16 @@ def attention_packed_bwd(q, k, v, do, num_heads):
 class AttentionPacked(torch.autograd.Function):
   """Differentiable `attention_packed`: K3 forward and K4 backward on CUDA
   tensors, the plain versions on CPU tensors. Saves q, k, v, as the JAX
-  custom VJP does; the backward recomputes e."""
+  custom VJP does; the backward recomputes e. `dry`: save q, k, v and
+  return an unset tensor without computing the attention, for a
+  rematerialisation that needs only what is saved (the output was kept)."""
 
   @staticmethod
-  def forward(ctx, q, k, v, num_heads):
+  def forward(ctx, q, k, v, num_heads, dry=False):
     ctx.num_heads = num_heads
     ctx.save_for_backward(q, k, v)
+    if dry:
+      return torch.empty_like(q)
     if q.device.type == "cpu":
       return attention_packed_plain(q, k, v, num_heads)
     return attention_packed_fwd(q, k, v, num_heads)
@@ -221,14 +234,15 @@ class AttentionPacked(torch.autograd.Function):
     do = do.contiguous()
     bwd = (attention_packed_bwd_plain if q.device.type == "cpu"
            else attention_packed_bwd)
-    return (*bwd(q, k, v, do, ctx.num_heads), None)
+    return (*bwd(q, k, v, do, ctx.num_heads), None, None)
 
 
-def attention_packed(q, k, v, num_heads):
+def attention_packed(q, k, v, num_heads, dry=False):
   """The plain versions on CPU tensors, the CUDA kernels on CUDA tensors;
-  differentiable through `AttentionPacked` when a gradient is wanted."""
+  differentiable through `AttentionPacked` when a gradient is wanted
+  (`dry`: see there)."""
   if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-    return AttentionPacked.apply(q, k, v, num_heads)
+    return AttentionPacked.apply(q, k, v, num_heads, dry)
   if q.device.type == "cpu":
     return attention_packed_plain(q, k, v, num_heads)
   return attention_packed_fwd(q, k, v, num_heads)
@@ -478,7 +492,10 @@ def attention_ablate_fwd(q, k, v, num_heads, variant):
   _require(variant in ABLATE_VARIANTS,
            f"unknown variant {variant!r}, one of {ABLATE_VARIANTS}",
            ABLATE_NAME)
-  b, l = _check(ABLATE_NAME, num_heads, q=q, k=k, v=v)
+  b, l, _ = _check(ABLATE_NAME, num_heads, q=q, k=k, v=v)
+  _require(q.shape[-1] == num_heads * HEAD_DIM,
+           f"width {q.shape[-1]} != num_heads {num_heads} * head dim "
+           f"{HEAD_DIM}", ABLATE_NAME)
   fn, max_len = _ablate_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}", ABLATE_NAME)
   o = torch.empty_like(q)

@@ -241,10 +241,10 @@ def fused_mha_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
 def _reference_grads(ctx, reference, g, *static):
   """Gradients of `reference(*saved, *static)` for the saved inputs that
   need one, recomputed with gradients enabled."""
-  needs = ctx.needs_input_grad[:len(ctx.saved_tensors)]
+  saved = ctx.saved_tensors  # once: a checkpoint's tensors unpack once
+  needs = ctx.needs_input_grad[:len(saved)]
   with torch.enable_grad():
-    args = [t.detach().requires_grad_(n)
-            for t, n in zip(ctx.saved_tensors, needs)]
+    args = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
     out = reference(*args, *static)
     grads = iter(torch.autograd.grad(
         out, [a for a, n in zip(args, needs) if n], g))

@@ -21,7 +21,9 @@ from small_vision_tpu_torch.ops import _build
 
 NAME = "ln_modulate_fwd"
 BWD_NAME = "ln_modulate_bwd"
-SUPPORTED_WIDTHS = (768, 1024)  # UMD-B and UMD-L
+# The kernels take every width that is a multiple of 32 up to MAX_WIDTH:
+# every width of the ViT and UMD variant tables (mu 32 ... G 1,664).
+MAX_WIDTH = 2048
 
 
 def _acc(t):
@@ -120,8 +122,10 @@ def _check_x(x, name, what="x"):
   _require(x.dim() == 3 and x.is_contiguous() and x.data_ptr() % 16 == 0,
            f"{what} must be a contiguous, 16-byte aligned (B, L, D) tensor, "
            f"got {tuple(x.shape)}", name)
-  _require(x.shape[-1] in SUPPORTED_WIDTHS,
-           f"width {x.shape[-1]} not in {SUPPORTED_WIDTHS}", name)
+  d = x.shape[-1]
+  _require(d % 32 == 0 and 32 <= d <= MAX_WIDTH,
+           f"width {d}: the kernel takes multiples of 32 up to {MAX_WIDTH}",
+           name)
 
 
 def _check_vectors(x, name, **vectors):
@@ -143,7 +147,8 @@ def _check_stats(x, name, **stats):
 def ln_modulate_fwd(x, gamma, beta, shift=None, scale=None, eps=1e-6, *,
                     mean: Optional[torch.Tensor] = None,
                     rstd: Optional[torch.Tensor] = None):
-  """Launches K1. x: (B, L, D) bf16 contiguous, D in SUPPORTED_WIDTHS;
+  """Launches K1. x: (B, L, D) bf16 contiguous, D a multiple of 32 up to
+  MAX_WIDTH;
   gamma/beta: (D,) f32; shift/scale: (B, D) bf16 with unit column stride,
   or both None; mean/rstd: (B, L) f32 buffers the kernel fills, or both
   None. Returns y (B, L, D) bf16."""

@@ -1,8 +1,9 @@
 """Holds this tree's max-shift attention kernels (K6, K7, K8, K9) and the
-LayerNorm-modulate backward (K2) against another tree's, on the card.
+LayerNorm-modulate backward (K2) against another tree's, on the card, and
+K1-K4 at a width and head count of the variant tables.
 
   python -m small_vision_tpu_torch.tools.ab_kernels --other DIR
-      [--rounds 3] [--iters 50] [--out FILE]
+      [--rounds 3] [--iters 50] [--out FILE] [--width 768 --heads 12]
 
 K6's attention stage, K7 and the seven arms of K9 run one shared core
 (`csrc/sm90_attention.cuh`), so a change there moves all three. This tool
@@ -25,6 +26,13 @@ loads them beside this tree's libraries. Then, on inputs from a
     autograd backward of `F.layer_norm` and the modulation. Their bits may
     differ between the trees (their sums and exps may be regrouped), so
     only their times are held.
+  - K1, K2, K3 and K4 at `--width` and `--heads` (head dim width / heads)
+    at the training lengths L = 68, 164, 257 and batch 128, modulated,
+    beside `F.layer_norm` + modulate, its autograd backward, SDPA and its
+    backward. A tree whose K1-K4 take one width or head dim (no
+    `ln_modulate_max_width` / `attention_packed_max_head_dim` entry point)
+    is timed at 768 and 12 heads of 64 only, its older K3/K4 signature
+    bound here; at other shapes its side is left out.
 Each time is the mean of `--iters` launches between two CUDA events after
 a warm-up launch, taken in turns (other, this, this, other) for `--rounds`
 rounds; the tool prints the median and the range of each, beside the
@@ -53,7 +61,9 @@ K7_SHAPES = ((64, 260), (128, 257))
 K9_SHAPES = ((128, 257), (128, 164))
 TRAIN_SHAPES = ((128, 68), (128, 164), (128, 257))  # K8 and K2
 SOURCES = ("fused_mha", "attention_unpacked", "attention_ablate",
-           "attention_unpacked_bwd", "ln_modulate_bwd")
+           "attention_unpacked_bwd", "ln_modulate_bwd", "ln_modulate",
+           "attention_packed", "attention_packed_bwd")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _k2_work_words(lib, b, l) -> int:
@@ -118,6 +128,71 @@ def k6_launches(lib, x, params, b, l):
   }, o
 
 
+def _takes_shape(libs, width, heads) -> bool:
+  """Whether a tree's K1-K4 take (width, heads); binds an older tree's K3
+  and K4, which took head dim 64 only, to their signature of then."""
+  if hasattr(libs["attention_packed"], "attention_packed_max_head_dim"):
+    return True
+  libs["attention_packed"].attention_packed_fwd.argtypes = (
+      [_P] * 4 + [_I, _I, _I, _F, _P])
+  libs["attention_packed_bwd"].attention_packed_bwd.argtypes = (
+      [_P] * 9 + [_I, _I, _I, _F, _F, _P])
+  return width in (768, 1024) and width == heads * 64
+
+
+def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library):
+  """K1-K4 of each side that takes the shape, and their library calls, at
+  (b, l, width) with `heads` heads, into `pairs` and `library`."""
+  hd = width // heads
+  stream = lambda: torch.cuda.current_stream().cuda_stream
+  new = {s: hasattr(libs["attention_packed"], "attention_packed_max_head_dim")
+         for s, libs in sides.items()}
+  x, dy = randn(b, l, width), randn(b, l, width)
+  q, k, v, do = (randn(b, l, width) for _ in range(4))
+  gamma = 1.0 + 0.1 * randn(width).float()
+  beta = 0.1 * randn(width).float()
+  shift, mod = randn(b, 2 * width).chunk(2, dim=-1)
+  xf = x.float()
+  mean = xf.mean(-1)
+  rstd = torch.rsqrt((xf - mean[..., None]).square().mean(-1) + 1e-6)
+  keep += [x, dy, q, k, v, do, gamma, beta, shift, mod, mean, rstd]
+  tag = f"{b}x{l} D={width} H={heads}"
+  for side, libs in sides.items():
+    y = torch.empty_like(x)
+    o3 = [torch.empty_like(q) for _ in range(3)]
+    rc = [torch.empty(b, heads, l, device="cuda") for _ in range(2)]
+    keep += [y, *o3, *rc]
+    k1 = [t.data_ptr() for t in (x, gamma, beta, shift, mod)]
+    pairs.setdefault(f"K1 {tag}", {})[side] = (
+        lambda lib=libs["ln_modulate"], p=k1, y=y: _check(
+            lib.ln_modulate_fwd(*p, mod.stride(0), y.data_ptr(), None, None,
+                                b * l, l, width, 1e-6, stream())))
+    hd_args = (hd,) if new[side] else ()
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    pairs.setdefault(f"K3 {tag}", {})[side] = (
+        lambda lib=libs["attention_packed"], a=hd_args, o=o3[0]: _check(
+            lib.attention_packed_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                b, l, heads, *a, attn.scale_log2(hd), stream())))
+    pairs.setdefault(f"K4 {tag}", {})[side] = (
+        lambda lib=libs["attention_packed_bwd"], a=hd_args, o3=o3, rc=rc:
+        _check(lib.attention_packed_bwd(
+            *[t.data_ptr() for t in (q, k, v, do, *o3, *rc)], b, l, heads,
+            *a, attn.scale_log2(hd), scale, stream())))
+  g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+  library[f"K1 {tag}"] = (
+      lambda: torch.nn.functional.layer_norm(x, (width,), g16, b16, 1e-6)
+      * (1 + mod[:, None]) + shift[:, None])
+  split = [t.view(b, l, heads, hd).transpose(1, 2).detach().requires_grad_()
+           for t in (q, k, v)]
+  library[f"K3 {tag}"] = (
+      lambda: torch.nn.functional.scaled_dot_product_attention(*split))
+  o = torch.nn.functional.scaled_dot_product_attention(*split)
+  library[f"K4 {tag}"] = (
+      lambda g=do.view(b, l, heads, hd).transpose(1, 2):
+      torch.autograd.grad(o, split, g, retain_graph=True))
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser()
   parser.add_argument("--other", required=True,
@@ -125,6 +200,11 @@ def main(argv=None):
   parser.add_argument("--rounds", type=int, default=3)
   parser.add_argument("--iters", type=int, default=50)
   parser.add_argument("--out", default=None, help="JSON file of the times")
+  parser.add_argument("--width", type=int, default=WIDTH,
+                      help="K1-K4's width (a multiple of 32 up to 2,048)")
+  parser.add_argument("--heads", type=int, default=HEADS,
+                      help="K3/K4's heads; width / heads a multiple of 8 "
+                      "up to 128")
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
     raise SystemExit("ab_kernels: needs a CUDA device")
@@ -236,12 +316,19 @@ def main(argv=None):
           lambda y=y, leaves=(xg, g16, b16, sh, sc), dy=dy:
           torch.autograd.grad(y, leaves, dy, retain_graph=True))
 
-    times = {name: {"other": [], "this": []} for name in pairs}
+    takes = {s: _takes_shape(libs, args.width, args.heads)
+             for s, libs in sides.items()}
+    for b, l in TRAIN_SHAPES:
+      k1_to_k4({s: libs for s, libs in sides.items() if takes[s]},
+               args.width, args.heads, b, l, randn, keep, pairs, library)
+
+    times = {name: {side: [] for side in fns} for name, fns in pairs.items()}
     lib_times = {name: [] for name in library}
     for _ in range(args.rounds):
       for name, fns in pairs.items():
         for side in ("other", "this", "this", "other"):
-          times[name][side].append(dev_ms(fns[side], args.iters))
+          if side in fns:
+            times[name][side].append(dev_ms(fns[side], args.iters))
       for name, fn in library.items():
         lib_times[name].append(dev_ms(fn, args.iters))
 
@@ -254,11 +341,15 @@ def main(argv=None):
   print(f"[ab_kernels] K6 bit-equal to the other build: {same_bits}; on "
         f"{card}", flush=True)
   for name, t in result["times"].items():
-    print(f"[ab_kernels] {name}: this {t['this']['median']:.4f} ms "
-          f"({t['this']['min']:.4f}-{t['this']['max']:.4f}), other "
-          f"{t['other']['median']:.4f} ({t['other']['min']:.4f}-"
-          f"{t['other']['max']:.4f}), this/other "
-          f"{t['this']['median'] / t['other']['median']:.3f}", flush=True)
+    line = (f"[ab_kernels] {name}: this {t['this']['median']:.4f} ms "
+            f"({t['this']['min']:.4f}-{t['this']['max']:.4f})")
+    if "other" in t:
+      line += (f", other {t['other']['median']:.4f} ({t['other']['min']:.4f}"
+               f"-{t['other']['max']:.4f}), this/other "
+               f"{t['this']['median'] / t['other']['median']:.3f}")
+    else:
+      line += ", other: does not take this shape"
+    print(line, flush=True)
   for name, t in result["library"].items():
     print(f"[ab_kernels] {name} library: {t['median']:.4f} ms "
           f"({t['min']:.4f}-{t['max']:.4f})", flush=True)

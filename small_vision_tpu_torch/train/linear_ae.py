@@ -83,9 +83,10 @@ def init_head(width: int, num_classes: int, seed: int = 1, device="cuda"):
 def load_frozen_backbone(config: dict, pretrain_workdir: Optional[str],
                          device="cuda") -> torch.nn.Module:
   """The UMD of `config["model"]`, without gradients: the `params` of the
-  newest checkpoint under `pretrain_workdir` (a `train_ae` run's), or the
-  seeded training init (`convert.init_train_params`, seed 0) without
-  one."""
+  newest checkpoint under `pretrain_workdir` (a `train_ae` run's, in
+  either block layout: a `scan=True` run's stacked blocks load into an
+  unrolled backbone and the reverse), or the seeded training init
+  (`convert.init_train_params`, seed 0) without one."""
   model = train_ae.build_model(config, device=device)
   if pretrain_workdir:
     mngr = ckpt_lib.make_manager(pretrain_workdir)
@@ -93,8 +94,9 @@ def load_frozen_backbone(config: dict, pretrain_workdir: Optional[str],
       raise FileNotFoundError(f"no checkpoint under {pretrain_workdir}")
     names = [n for n, _ in train_ae.named_params(model)]
     tensors = [p for _, p in train_ae.named_params(model)]
-    train_ae._copy_named(names, tensors,
-                         ckpt_lib.restore_subtree(mngr, "params"), "params")
+    restored = convert.to_layout(ckpt_lib.restore_subtree(mngr, "params"),
+                                 names)
+    train_ae._copy_named(names, tensors, restored, "params")
   else:
     model.load_state_dict(convert.params_from_jax(
         convert.init_train_params(config, 0), model))

@@ -127,7 +127,10 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
   "label": (B,)}, on the model's device or the host. `draws`: the step's
   random draws, {"t", "noise", "mae_noise", "dit_noise", "flip",
   "mae_drop", "dit_drop", "vae_noise"} as far as the step uses them (see
-  `draw`); None draws them from the train state's generator. With
+  `draw`), and with the model's dropout > 0 "dropout", the blocks' keep
+  masks in the order the forward takes them; None draws them from the
+  train state's generator (the dropout masks as the forward asks for
+  them). With
   `latent_diffusion` and without `use_preprocessed_latents`, the images
   after the device pp go through `vae_encode(train_state["vae_params"],
   draws["vae_noise"], images)` (`models.vae.load_vae`), without
@@ -174,6 +177,25 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
       d["dit_drop"] = uniform(n_noise) < model.cfg_dropout_rate
     return d
 
+  def dropout_draw(masks, gen):
+    """The blocks' keep-mask function: the injected masks in turn, or
+    Bernoulli draws from `gen`; None without dropout."""
+    if not model.dropout:
+      return None
+    if masks is None:
+      keep = 1.0 - model.dropout
+      return lambda shape: torch.rand(shape, generator=gen,
+                                      device=device) < keep
+    masks = iter(masks)
+
+    def take(shape):
+      m = torch.as_tensor(next(masks)).to(device)
+      if tuple(m.shape) != tuple(shape):
+        raise ValueError(f"dropout mask of shape {tuple(m.shape)} where the "
+                         f"forward draws {tuple(shape)}")
+      return m.bool()
+    return take
+
   def loss_and_grads(train_state, batch, draws=None):
     """(loss, gradients in `train_state["params"]` order) of one step."""
     batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
@@ -181,8 +203,12 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
     b = batch["image"].shape[0]
     if draws is None:
       draws = draw(b, batch["image"].shape[1:], train_state["generator"])
+      masks = None
     else:
+      draws = dict(draws)
+      masks = draws.pop("dropout", None)
       draws = {k: torch.as_tensor(v).to(device) for k, v in draws.items()}
+    drop_fn = dropout_draw(masks, train_state["generator"])
     if device_pp is not None:
       batch = device_pp(batch, draws)
     images = batch["image"]
@@ -221,7 +247,7 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
           x0_clean, x_t, t_b=t + 1, y_b=labels_t,
           mask_a=mask_ratio_no_noise, mask_b=mask_ratio, train=True,
           noise_a=draws.get("mae_noise"), noise_b=draws.get("dit_noise"),
-          label_drop=drop)
+          label_drop=drop, dropout_draw=drop_fn)
       mae_loss = mae_branch_loss(pred[:n_no_noise], out_mae)
       dit_loss = dit_branch_loss(pred[n_no_noise:], out_dit)
     else:
@@ -233,14 +259,14 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
                                     device=device),
             train=True, mask=mask_ratio_no_noise,
             mask_noise=draws.get("mae_noise"),
-            label_drop=draws.get("mae_drop"))
+            label_drop=draws.get("mae_drop"), dropout_draw=drop_fn)
         mae_loss = mae_branch_loss(pred, out)
       if n_noise > 0:
         # Diffusion branch: noised input at t+1 (t=0 is the clean input).
         pred, out = model(
             x_t, t=t + 1, y=labels_t, train=True, mask=mask_ratio,
             mask_noise=draws.get("dit_noise"),
-            label_drop=draws.get("dit_drop"))
+            label_drop=draws.get("dit_drop"), dropout_draw=drop_fn)
         dit_loss = dit_branch_loss(pred, out)
     w_mae = mae_mix_weight(b, no_noise_prob)
     loss = dit_loss * (1.0 - w_mae) + mae_loss * w_mae

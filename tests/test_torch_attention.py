@@ -80,3 +80,23 @@ def test_plain_clamps_large_logits():
 def test_scale_log2_is_the_kernels():
   want = np.float32(1.0 / np.sqrt(64)) * np.float32(np.log2(np.e))
   assert tattn.scale_log2(64) == float(want)
+
+
+# Head dims K3 now takes beside 64: 8 (the probe's quick config), 16
+# (runlocal, ViT-mu), 80 (ViT-H) and 128 (heads=6 at width 768).
+@pytest.mark.parametrize("hd", [8, 16, 80, 128])
+def test_plain_matches_jax_at_head_dims(hd):
+  """The plain forward at head dim hd (3 heads) against the interpreted
+  JAX kernel, with the bounds of the head-dim-64 tests above; the scale is
+  the head dim's own, rounded as the JAX kernel rounds it."""
+  rng = np.random.default_rng(hd)
+  q, k, v = (rng.standard_normal((2, 33, 3 * hd)).astype(np.float32)
+             for _ in range(3))
+  for dt, jdt, tol in ((torch.float32, jnp.float32, 1e-5),
+                       (torch.bfloat16, jnp.bfloat16, 2**-7)):
+    got = tattn.attention_packed(*(torch.from_numpy(a).to(dt)
+                                   for a in (q, k, v)), 3).float().numpy()
+    want = jattn.pallas_attention_packed(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), 3, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)

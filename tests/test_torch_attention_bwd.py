@@ -101,3 +101,23 @@ def test_no_grad_takes_the_forward_only():
     assert tattn.attention_packed(q, q, q, H).grad_fn is None
   out = tattn.attention_packed(q, q, q, H)
   assert type(out.grad_fn).__name__ == "AttentionPackedBackward"
+
+
+@pytest.mark.parametrize("hd", [8, 16, 80, 128])
+def test_backward_matches_jax_at_head_dims(hd):
+  """The plain backward (K4's) at head dim hd (3 heads) against the
+  interpreted JAX kernel's VJP, with the bounds of the head-dim-64 tests
+  above (f32 and bf16)."""
+  rng = np.random.default_rng(hd)
+  q, k, v, do = (rng.standard_normal((2, 33, 3 * hd)).astype(np.float32)
+                 for _ in range(4))
+  for dt, jdt, rel in ((torch.float32, jnp.float32, 1e-5),
+                       (torch.bfloat16, jnp.bfloat16, 2**-6)):
+    args = [torch.from_numpy(a).to(dt).requires_grad_() for a in (q, k, v)]
+    tattn.attention_packed(*args, 3).backward(torch.from_numpy(do).to(dt))
+    fn = lambda q, k, v: jattn.fused_attention_packed(q, k, v, 3, True)
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    for a, w in zip(args, vjp(jnp.asarray(do, jdt))):
+      w = np.asarray(w.astype(jnp.float32))
+      np.testing.assert_allclose(a.grad.float().numpy(), w, rtol=0,
+                                 atol=rel * np.max(np.abs(w)))

@@ -269,8 +269,8 @@ def test_forward_matches_jax_under_pallas_fused(dtype):
   rng = np.random.default_rng(1)
   image = rng.standard_normal((3, 16, 16, 3)).astype(np.float32)
   t = np.array([1, 400, 1000], np.int32)
-  jmodel = jae.Model(**{**config["model"],
-                        "attn_impl": "pallas_fused_interpret"}, scan=False)
+  jmodel = jae.Model(**{"scan": False, **config["model"],
+                        "attn_impl": "pallas_fused_interpret"})
   want, jout = jmodel.apply({"params": params}, image, t=t)
   model = train_ae.build_model(config, device="cpu")
   model.load_state_dict(convert.params_from_jax(params, model))
@@ -306,8 +306,8 @@ def test_param_names_are_the_same_under_both_settings():
         convert.init_params(config, 0))}
   assert names["pallas"] == names["pallas_fused"]
   config = small_config()
-  jmodel = jae.Model(**{**config["model"],
-                        "attn_impl": "pallas_fused_interpret"}, scan=False)
+  jmodel = jae.Model(**{"scan": False, **config["model"],
+                        "attn_impl": "pallas_fused_interpret"})
   shapes = jax.eval_shape(
       lambda: jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)),
                           t=jnp.zeros((1,), jnp.int32)))
@@ -321,7 +321,10 @@ def test_param_names_are_the_same_under_both_settings():
       convert.init_params(small_config(), 0), model))
 
 
-@pytest.mark.parametrize("impl", ["xla", "flax", "pallas_interpret"])
+# "xla" and "flax" are ported (tests/test_torch_model_settings.py); the
+# JAX package's interpret-mode settings exist for its CPU tests only.
+@pytest.mark.parametrize("impl", ["pallas_interpret",
+                                  "pallas_fused_interpret", "triton"])
 def test_other_attn_impls_raise(impl):
   with pytest.raises(ValueError, match="attn_impl"):
     train_ae.build_model(small_config(attn_impl=impl), device="cpu")

@@ -36,7 +36,12 @@ the same batches on the CPU; and the int8 matmul (`torch._int_mm`, a
 library call) against the CPU's exact integer product, and refusing the
 shapes `_int_mm` does not take; K3 and K4 at UMD-L/2's 16 heads of 64
 (width 1,024); and the Stable Diffusion VAE (cuDNN, no kernel of the port)
-on the card against the CPU at a small shape.
+on the card against the CPU at a small shape. K1 and K2 at every width of
+the variant tables and the narrow widths of the quick configs (32 ... 2,048,
+modulated or not, K2 three launches in a row and on two streams), and K3
+and K4 at head dims 8, 16, 80, 104 and 128 (and 24, 40, 72, 96, 120),
+against the plain versions, two launches giving the same bits; a width of
+2,080 and a head dim of 136 raise the named error, with no plain route.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -189,7 +194,7 @@ def _edge_len(l, max_len):
 @pytest.mark.parametrize("heads", [1, 3, 12])
 @pytest.mark.parametrize("l", EDGE_LENS)
 def test_attention_kernel_matches_plain_at_the_edges(cuda, l, heads, b):
-  l = _edge_len(l, attn._lib()[1])
+  l = _edge_len(l, attn._lib()[1](64))
   q, k, v = (_randn((b, l, heads * 64), s, cuda, torch.bfloat16)
              for s in range(3))
   got = attn.attention_packed_fwd(q, k, v, heads).float()
@@ -220,10 +225,10 @@ def test_attention_kernel_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
-  q = torch.zeros(1, 8, 2 * 32, dtype=torch.bfloat16, device=cuda)
+  q = torch.zeros(1, 8, 2 * 136, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="head dim"):
     attn.attention_packed_fwd(q, q, q, 2)
-  long = torch.zeros(1, attn._lib()[1] + 16, 64, dtype=torch.bfloat16,
+  long = torch.zeros(1, attn._lib()[1](64) + 16, 64, dtype=torch.bfloat16,
                      device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_packed_fwd(long, long, long, 1)
@@ -320,8 +325,8 @@ def test_ln_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
   with pytest.raises(ValueError, match="float32"):
     ln.ln_modulate_bwd(x, dy, mean.half(), rstd, gamma, beta, scale)
   with pytest.raises(ValueError, match="width"):
-    small = x[..., :256].contiguous()
-    ln.ln_modulate_bwd(small, small, mean, rstd, gamma[:256], beta[:256])
+    small = x[..., :100].contiguous()
+    ln.ln_modulate_bwd(small, small, mean, rstd, gamma[:100], beta[:100])
 
 
 def _qkv_do(device, l, b=4, h=2, seed=0, scale=1.0):
@@ -391,7 +396,7 @@ def test_attention_bwd_kernel_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_attention_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
-  q = torch.zeros(1, 8, 2 * 32, dtype=torch.bfloat16, device=cuda)
+  q = torch.zeros(1, 8, 2 * 136, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="head dim"):
     attn.attention_packed_bwd(q, q, q, q, 2)
   long = torch.zeros(1, attn._bwd_lib()[1] + 16, 64, dtype=torch.bfloat16,
@@ -956,3 +961,119 @@ def test_vae_on_the_card_matches_the_cpu(cuda):
   for g, w in zip(outs["cuda"], outs["cpu"]):
     err = (g - w).abs().max().item()
     assert err <= 1e-5 * w.abs().max().item(), err
+
+
+# Every width of the ViT and UMD variant tables, the quick configs' 32 and
+# 64, and the edges of K2's teams (96, 160: masked vectors; 288; 1,056:
+# the first width of two warps a row; 2,048: the widest).
+LN_WIDTHS = (32, 64, 96, 160, 192, 288, 384, 512, 1056, 1280, 1408, 1664,
+             2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", LN_WIDTHS)
+@pytest.mark.parametrize("modulate", [False, True])
+def test_ln_kernels_at_every_width(cuda, d, modulate):
+  """K1 and K2 at width d against their plain versions, with the bounds of
+  the width-768 tests above (L = 67: a ragged last step of every team
+  size); K2 three launches in a row giving the same bits."""
+  args = _ln_args(cuda, 67, modulate, b=5, d=d, seed=d)
+  got = ln.ln_modulate(*args).float()
+  want = ln.ln_modulate_plain(*args).float()
+  assert torch.all((got - want).abs() <= 2.0**-7 * want.abs() + 1e-5)
+  bargs = _ln_bwd_args(cuda, 67, modulate, b=5, d=d, seed=d)
+  first = ln.ln_modulate_bwd(*bargs)
+  for _ in range(2):
+    for a, again in zip(first, ln.ln_modulate_bwd(*bargs)):
+      assert (a is None and again is None) or torch.equal(a, again)
+  want = ln.ln_modulate_bwd_plain(*bargs)
+  dx, dx_want = first[0].float(), want[0].float()
+  assert torch.all((dx - dx_want).abs() <= 2.0**-7 * dx_want.abs() + 1e-3)
+  for g, w in zip(first[1:], want[1:]):
+    if w is not None:
+      torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 384, 1664])
+def test_ln_bwd_kernel_at_new_widths_on_two_streams(cuda, d):
+  """Two K2 launches in flight at once on two streams give the bits of the
+  same launches in turn, at narrow, team-of-16 and two-warp widths."""
+  cases = [_ln_bwd_args(cuda, 65, True, b=40, d=d),
+           _ln_bwd_args(cuda, 33, False, b=24, d=d, seed=9)]
+  in_turn = [ln.ln_modulate_bwd(*args) for args in cases]
+  streams = [torch.cuda.Stream(cuda) for _ in cases]
+  start = torch.cuda.current_stream(cuda)
+  got = []
+  for stream, args in zip(streams, cases):
+    stream.wait_stream(start)
+    with torch.cuda.stream(stream):
+      got.append(ln.ln_modulate_bwd(*args))
+  for stream in streams:
+    start.wait_stream(stream)
+  torch.cuda.synchronize(cuda)
+  for want, outs in zip(in_turn, got):
+    for w, g in zip(want, outs):
+      assert (w is None and g is None) or torch.equal(w, g)
+
+
+HEAD_DIMS = (8, 16, 24, 40, 72, 80, 96, 104, 120, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("l", [20, 68, 257])
+def test_attention_kernels_at_every_head_dim(cuda, hd, l):
+  """K3 and K4 at head dim hd (3 heads, so that a narrow head's padded
+  columns would read its neighbour's) against the plain versions with the
+  bounds of the head-dim-64 tests above; two launches of each give the
+  same bits."""
+  q, k, v, do = (_randn((2, l, 3 * hd), 60 + i, cuda, torch.bfloat16)
+                 for i in range(4))
+  got = attn.attention_packed_fwd(q, k, v, 3)
+  assert torch.equal(got, attn.attention_packed_fwd(q, k, v, 3))
+  torch.testing.assert_close(
+      got.float(), attn.attention_packed_plain(q, k, v, 3).float(),
+      rtol=2**-7, atol=2**-7)
+  grads = attn.attention_packed_bwd(q, k, v, do, 3)
+  again = attn.attention_packed_bwd(q, k, v, do, 3)
+  want = attn.attention_packed_bwd_plain(q, k, v, do, 3)
+  for g, a, w in zip(grads, again, want):
+    assert torch.equal(g, a)
+    err = (g.float() - w.float()).abs().max().item()
+    assert err <= 2.0**-6 * w.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_attention_kernels_at_head_dim_128_limits(cuda):
+  """K3 at head dim 128 up to its own length limit (two tiles a head halve
+  it; it still exceeds the sampler's 260), against the plain version."""
+  max_len = attn._lib()[1](128)
+  assert 260 < max_len < attn._lib()[1](64)
+  q, k, v = (_randn((1, max_len, 2 * 128), 70 + i, cuda, torch.bfloat16)
+             for i in range(3))
+  torch.testing.assert_close(
+      attn.attention_packed_fwd(q, k, v, 2).float(),
+      attn.attention_packed_plain(q, k, v, 2).float(),
+      rtol=2**-7, atol=2**-7)
+  long = torch.zeros(1, max_len + 16, 128, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="sequence length"):
+    attn.attention_packed_fwd(long, long, long, 1)
+
+
+@pytest.mark.cuda
+def test_wrappers_name_the_shapes_the_kernels_refuse(cuda):
+  """A head dim of 136 and a width of 2,080 raise the named error on the
+  card: there is no plain route for a CUDA tensor."""
+  q = torch.zeros(1, 8, 2 * 136, dtype=torch.bfloat16, device=cuda,
+                  requires_grad=True)
+  for fn in (lambda: attn.attention_packed(q, q, q, 2),
+             lambda: attn.attention_packed_bwd(q, q, q, q, 2)):
+    with pytest.raises(ValueError, match="head dim 136"):
+      fn()
+  x, gamma, beta, shift, scale = _ln_args(cuda, 4, True, b=2, d=2080)
+  with pytest.raises(ValueError, match="width 2080"):
+    ln.ln_modulate(x, gamma, beta, shift, scale)
+  xg = x.requires_grad_()
+  with pytest.raises(ValueError, match="width 2080"):
+    ln.ln_modulate(xg, gamma, beta, shift, scale)

@@ -89,8 +89,8 @@ def jax_vae_fns(jmodel, noise):
 
 def jax_model(config):
   kw = dict(config["model"])
-  return jae.Model(**{**kw, "attn_impl": kw["attn_impl"] + "_interpret"},
-                   scan=False)
+  return jae.Model(**{"scan": False, **kw,
+                      "attn_impl": kw["attn_impl"] + "_interpret"})
 
 
 def torch_model(config, params, trainable=False):

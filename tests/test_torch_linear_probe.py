@@ -128,8 +128,8 @@ def backbone():
   """The runlocal lp config's UMD, seeded, on both sides."""
   config = ae_i1k_lp.get_config("runlocal,size=16,data=synthetic")
   params = convert.init_params(config, seed=6)
-  jmodel = jae.Model(**{**config["model"], "attn_impl": "pallas_interpret"},
-                     scan=False)
+  jmodel = jae.Model(**{"scan": False, **config["model"],
+                        "attn_impl": "pallas_interpret"})
   tmodel = linear_ae.load_frozen_backbone(config, None, device="cpu")
   tmodel.load_state_dict(convert.params_from_jax(params, tmodel))
   return config, jax.tree.map(jnp.asarray, params), jmodel, tmodel
@@ -228,8 +228,7 @@ def test_config_matches_jax():
     for name, ev in got["evals"].items():
       assert ev["pp_fn"] == want.evals[name].pp_fn
       assert ev["data"]["split"] == want.evals[name].data.split
-    model = {k: v for k, v in want.model.items() if k != "scan"}
-    assert got["model"] == model, arg
+    assert got["model"] == dict(want.model), arg
   # The port's entry points run on the card unless the caller asks.
   for fn in (linear_ae.train_and_evaluate, linear_ae.load_frozen_backbone,
              linear_ae.init_head, tvae.load_vae):

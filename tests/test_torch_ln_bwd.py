@@ -21,16 +21,16 @@ from small_vision_tpu_torch.ops import layernorm as tln
 D = 256  # Small; the plain versions take any width.
 
 
-def _inputs(l, modulate, seed, b=3):
+def _inputs(l, modulate, seed, b=3, d=D):
   rng = np.random.default_rng(seed)
   f = lambda *s, sc=1.0, sh=0.0: (sc * rng.standard_normal(s) + sh).astype(
       np.float32)
-  x = f(b, l, D, sc=2.0, sh=0.5)
-  gamma, beta = f(D, sc=0.1, sh=1.0), f(D, sc=0.1)
+  x = f(b, l, d, sc=2.0, sh=0.5)
+  gamma, beta = f(d, sc=0.1, sh=1.0), f(d, sc=0.1)
   shift = scale = None
   if modulate:
-    shift, scale = f(b, D, sc=0.3), f(b, D, sc=0.3)
-  dy = f(b, l, D)
+    shift, scale = f(b, d, sc=0.3), f(b, d, sc=0.3)
+  dy = f(b, l, d)
   return x, gamma, beta, shift, scale, dy
 
 
@@ -134,3 +134,16 @@ def test_no_grad_takes_the_forward_only():
   assert y.grad_fn is None
   y = tln.ln_modulate(*args)
   assert type(y.grad_fn).__name__ == "LNModulateBackward"
+
+
+@pytest.mark.parametrize("d", [32, 64, 384, 1664])
+@pytest.mark.parametrize("modulate", [False, True])
+def test_backward_matches_jax_at_variant_widths(d, modulate):
+  """The plain backward (K2's) at width d against the interpreted JAX
+  kernel's VJP, in f32, with the bound of test_backward_matches_jax_f32."""
+  args = _inputs(33, modulate, seed=d, d=d)
+  got, _, _ = _torch_grads(*args, torch.float32)
+  want, _, _ = _jax_grads(*args, jnp.float32)
+  assert len(got) == len(want) == (5 if modulate else 3)
+  for g, w in zip(got, want):
+    np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.max(np.abs(w)))

@@ -39,8 +39,8 @@ def jax_model(config):
   # The port's "pallas" / "pallas_fused" are the JAX package's
   # "*_interpret" settings on the CPU.
   kw = dict(config["model"])
-  return jae.Model(**{**kw, "attn_impl": kw["attn_impl"] + "_interpret"},
-                   scan=False)
+  return jae.Model(**{"scan": False, **kw,
+                      "attn_impl": kw["attn_impl"] + "_interpret"})
 
 
 def torch_model(config, params):

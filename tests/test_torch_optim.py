@@ -163,8 +163,8 @@ def test_train_init_matches_the_jax_distributions():
   mean and spread (statistics of the leaves, not their bits)."""
   config = ae_i1k.get_config("runlocal,size=16,use_labels=True")
   config["model"].update(width=128, num_heads=2)
-  model = jae.Model(**{**config["model"], "attn_impl": "pallas_interpret"},
-                    scan=False)
+  model = jae.Model(**{"scan": False, **config["model"],
+                       "attn_impl": "pallas_interpret"})
   want = _flat(model.init(
       {"params": jax.random.PRNGKey(0), "mae_noise": jax.random.PRNGKey(1)},
       jnp.zeros((1, 16, 16, 3)), t=jnp.zeros((1,), jnp.int32),

@@ -44,11 +44,11 @@ OPT = dict(peak_lr=0.05, wd=0.05, betas=(0.9, 0.95), clip_norm=1.0,
 
 
 def small_config(dtype="float32", labels=False, fused=False,
-                 attn_impl="pallas"):
+                 attn_impl="pallas", scan=False):
   config = ae_i1k.get_config(
       f"runlocal,size={SIZE},use_labels={labels},fused_branches={fused},"
       f"attn_impl={attn_impl}")
-  config["model"].update(width=128, num_heads=2, dtype_mm=dtype)
+  config["model"].update(width=128, num_heads=2, dtype_mm=dtype, scan=scan)
   config["input"]["batch_size"] = B
   config["diffusion_space"] = (SIZE, SIZE, 3)
   config.update(peak_lr=OPT["peak_lr"], wd=OPT["wd"], betas=OPT["betas"],
@@ -102,8 +102,8 @@ def captured(monkeypatch):
 
 def jax_side(config, params):
   kw = dict(config["model"])
-  model = jae.Model(**{**kw, "attn_impl": kw["attn_impl"] + "_interpret"},
-                    scan=False)
+  model = jae.Model(**{"scan": False, **kw,
+                       "attn_impl": kw["attn_impl"] + "_interpret"})
   tx, _ = joptim.adamw_trainer_tx(
       peak_lr=OPT["peak_lr"], batch_size=B, total_steps=OPT["total_steps"],
       warmup_steps=OPT["warmup_steps"], wd=OPT["wd"], betas=OPT["betas"],
@@ -177,7 +177,7 @@ def flat(tree):
   return dict(tree_flatten_with_names(jax.device_get(tree)))
 
 
-def run_both(config, cap, n_steps, seed=3):
+def run_both(config, cap, n_steps, seed=3, port_draws=port_draws):
   params = convert.init_params(config, seed=seed)
   jstate, jupdate = jax_side(config, params)
   names, tstate, tupdate = torch_side(config, params)
@@ -215,10 +215,14 @@ def check_step1_grads(names, step1, rel):
     assert err <= rel * max(np.max(np.abs(g_want)), floor), (name, err)
 
 
-def check_three_steps_f32(cap, labels, fused, attn_impl="pallas"):
-  """3 f32 steps of the port against the JAX step, with stated bounds."""
-  config = small_config(labels=labels, fused=fused, attn_impl=attn_impl)
-  names, jstate, tstate, history = run_both(config, cap, N_STEPS)
+def check_three_steps_f32(cap, labels, fused, attn_impl="pallas",
+                          config=None, port_draws=port_draws):
+  """3 f32 steps of the port against the JAX step, with stated bounds (on
+  `config`, by default `small_config`'s with the given settings)."""
+  if config is None:
+    config = small_config(labels=labels, fused=fused, attn_impl=attn_impl)
+  names, jstate, tstate, history = run_both(config, cap, N_STEPS,
+                                            port_draws=port_draws)
   lr = OPT["peak_lr"] * B / 256.0
 
   for step, (jmeas, tmeas, _, _) in enumerate(history):
