@@ -143,6 +143,32 @@ Phases, each fatal on failure:
                step-3 checkpoint and resumed, then `classification` on
                validation/; finite losses, the checkpoint, the frozen
                forward's K1 and K3 launches.
+ 14. parallel  the parallel layer on the one card. (a) The production
+               route: `python -c` running `launch.main` (the launcher's
+               entry, under SLURM_PROCID=0, SLURM_NTASKS=1 and
+               SV_COORDINATOR_ADDRESS on localhost) on
+               `ae_i1k.py:fsdp=True,total_steps=3,batch_size=256,
+               eval_steps=-1` with a workdir: NCCL with one rank, against
+               `cli.main` without a process group: the losses and the
+               step-3 checkpoint (params, mu, nu) bit-equal, the launches
+               of 3 scan=True steps, img/s and peak memory. (b) Two
+               processes sharing the card over gloo, started by
+               `tools/dryrun_multichip.spawn` (each a fresh interpreter
+               with a time limit of PARALLEL_TIMEOUT, killed on it, which
+               fails the phase; the kernels were built before, so no two
+               processes run nvcc): an fsdp=2 (`fully_sharded`) run of the
+               same config for 3 steps through `train_and_evaluate`, each
+               process on its rows of a seeded global batch of 256 with
+               injected draws, against the single-process run on the card
+               (losses, step-1 gradients from Adam's nu, parameters after
+               3 steps), with each process's peak memory, its parameters
+               and optimizer state, and the host time of its collectives;
+               and a pipe=2 run (scan=True, pipe_stages=2, 8 microbatches,
+               batch 256): the forward's prediction and the first step's
+               loss and gradients against the unpipelined scan=True step,
+               within phase model's bounds. K1-K4 launched in every
+               process, the counts the schedule gives. The times are host
+               clock; the two processes time-slice the card.
 Then it prints the card's name and power limit, one JSON line of the
 kernels, and as its last line {"ok": true, "device": {...}}. Without a CUDA
 device it exits non-zero and prints no result.
@@ -2464,6 +2490,390 @@ def phase_settings(build, card):
   return out
 
 
+# ---------------------------------------------------------------------------
+# Phase parallel: the parallel layer on the one card.
+
+PARALLEL_STEPS = 3
+PARALLEL_TIMEOUT = 240.0      # s: each spawned process set is killed on it
+PIPE_MICROBATCHES = 8
+PARALLEL_CONFIG = (f"fsdp=True,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
+                   f"total_steps={PARALLEL_STEPS},log_steps=1,eval_steps=-1")
+
+
+def _parallel_plan(path):
+  """Seeded batches and draws of the fsdp run: global images and, per
+  branch, the draws of the single-process step on [every process's
+  diffusion rows, then every process's MAE rows]."""
+  rng = np.random.default_rng(15)
+  n = TRAIN_BATCH // 2
+  plan = {}
+  for s in range(PARALLEL_STEPS):
+    plan[f"image{s}"] = rng.uniform(-1, 1, (TRAIN_BATCH, 64, 64, 3)).astype(
+        np.float32)
+    plan[f"t{s}"] = rng.integers(0, 1000, (n,))
+    plan[f"noise{s}"] = rng.standard_normal((n, 64, 64, 3), dtype=np.float32)
+    plan[f"mae_noise{s}"] = rng.random((n, 256), dtype=np.float32)
+    plan[f"dit_noise{s}"] = rng.random((n, 256), dtype=np.float32)
+  np.savez(path, **plan)
+
+
+def _injected_trainer(plan, index, count, record):
+  """`train_ae.make_update_fn` with this process's rows of the plan's batch
+  (its share of the diffusion rows, then of the MAE rows), the matching
+  draws, no device pp, and records: the layout, the full `nu` after step 1
+  (the step-1 gradients), and the host time of the steps' collectives."""
+  from small_vision_tpu_torch.parallel.sharding import ShardedParams
+  from small_vision_tpu_torch.train import train_ae
+  orig = train_ae.make_update_fn
+
+  def make(model, opt, config, device_pp, **kw):
+    update = orig(model, opt, config, None, **kw)
+    layout = kw.get("layout")
+    record["layout"] = layout
+    nl = ml = TRAIN_BATCH // 2 // count
+
+    def update_fn(train_state, batch, draws=None, *, with_l2=False):
+      s = len(record.setdefault("meas", []))
+      rows = np.r_[index * nl:(index + 1) * nl,
+                   TRAIN_BATCH // 2 + index * ml:TRAIN_BATCH // 2
+                   + (index + 1) * ml]
+      draws = {k: plan[f"{k}{s}"][index * nl:(index + 1) * nl]
+               for k in ("t", "noise", "mae_noise", "dit_noise")}
+      meas = update(train_state, {"image": plan[f"image{s}"][rows]}, draws,
+                    with_l2=with_l2)
+      record["meas"].append(meas)
+      if s == 0:
+        nu = train_state["opt"]["nu"]
+        record["nu1"] = [t.float().cpu() for t in (
+            layout.full(nu) if layout is not None else nu)]
+      return meas
+    return update_fn
+
+  def timed(method):
+    def wrapper(self, *a):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      out = method(self, *a)
+      torch.cuda.synchronize()
+      record["coll_ms"][-1] += (time.perf_counter() - t0) * 1e3
+      return out
+    return wrapper
+  record["coll_ms"] = []
+  gather, reduce = ShardedParams.gather, ShardedParams.reduce_grads
+
+  def gather_timed(self, shards):
+    record["coll_ms"].append(0.0)
+    return timed(gather)(self, shards)
+  ShardedParams.gather = gather_timed
+  ShardedParams.reduce_grads = timed(reduce)
+  return make, lambda: (setattr(ShardedParams, "gather", gather),
+                        setattr(ShardedParams, "reduce_grads", reduce))
+
+
+def _fsdp_run(plan_path, index, count, device, mesh=None):
+  """The 3-step fsdp=True run through `train_and_evaluate` on the plan;
+  returns what the phase compares and reports."""
+  from small_vision_tpu_torch.configs import ae_i1k
+  from small_vision_tpu_torch.ops import _build as build
+  from small_vision_tpu_torch.train import train_ae
+  plan = dict(np.load(plan_path))
+  record = {}
+  make, restore = _injected_trainer(plan, index, count, record)
+  orig = train_ae.make_update_fn
+  train_ae.make_update_fn = make
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  build.reset_launches()
+  try:
+    state, history = train_ae.train_and_evaluate(
+        ae_i1k.get_config(PARALLEL_CONFIG), device=device,
+        log=lambda s: None, mesh=mesh)
+  finally:
+    train_ae.make_update_fn = orig
+    restore()
+  launches = dict(build.LAUNCHES)
+  layout = record["layout"]
+  params = state["params"] if layout is None else layout.full(
+      state["params"])
+  opt = state["opt"]
+  state_bytes = sum(t.numel() * t.element_size() for t in (
+      list(state["params"]) + list(opt["mu"]) + list(opt["nu"])))
+  return {"losses": [float(m["training_loss"]) for m in record["meas"]],
+          "params": [p.detach().float().cpu() for p in params],
+          "nu1": record["nu1"], "launches": launches,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "state_gb": state_bytes / 1e9,
+          "step_ms": [h["ms"] for h in history],
+          "coll_ms": record["coll_ms"]}
+
+
+def _pipe_config(pipe):
+  from small_vision_tpu_torch.configs import ae_i1k
+  config = ae_i1k.get_config(
+      f"scan=True,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
+      f"total_steps={PARALLEL_STEPS},eval_steps=-1")
+  if pipe:
+    config["model"].update(pipe_stages=2,
+                           pipe_microbatches=PIPE_MICROBATCHES)
+    config.update(param_sharding="pipeline", optim_sharding="pipeline")
+  return config
+
+
+def _pipe_step(plan_path, device, mesh=None):
+  """The first step's forward prediction (the sampler's call, x_t at t),
+  loss and gradients (full leaves) under `scan=True`: pipelined on a
+  `pipe` mesh, or not."""
+  from small_vision_tpu_torch.ops import _build as build
+  from small_vision_tpu_torch.parallel import ctx
+  from small_vision_tpu_torch.train import train_ae
+  plan = dict(np.load(plan_path))
+  config = _pipe_config(mesh is not None)
+  run = train_ae.setup_training(config, device, lambda s: None, mesh)
+  model, layout = run["model"], run["layout"]
+  draws = {k: torch.from_numpy(plan[f"{k}0"]).to(device)
+           for k in ("t", "noise", "mae_noise", "dit_noise")}
+  x_t = torch.from_numpy(plan["image1"]).to(device)
+  t = torch.from_numpy(plan["t1"][:TRAIN_BATCH // 2]).to(device)
+  t = torch.cat([t, t])
+  build.reset_launches()
+  with ctx.activate_mesh(mesh):
+    with torch.inference_mode():
+      pred = model(x_t, t=t + 1)[0].float().cpu()
+    step = train_ae.make_update_fn(model, run["opt"], config, None,
+                                   layout=layout, mesh=mesh)
+    loss, grads = step.loss_and_grads(
+        run["train_state"], {"image": torch.from_numpy(plan["image0"]).to(
+            device)}, draws)
+  launches = dict(build.LAUNCHES)
+  if layout is not None:
+    grads = layout.full(grads)
+  return {"pred": pred, "loss": float(loss), "launches": launches,
+          "grads": [g.float().cpu() for g in grads], "names": run["names"]}
+
+
+def parallel_worker(rank, n, device, tmp):
+  """A process of phase parallel's (b): the fsdp=2 run, then the pipe=2
+  step; writes its results to `tmp`."""
+  from small_vision_tpu_torch.parallel import collectives
+  from small_vision_tpu_torch.parallel import mesh as mesh_lib
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  plan = os.path.join(tmp, "plan.npz")
+  mesh = mesh_lib.make_mesh(fsdp=0)
+  out = _fsdp_run(plan, *mesh.batch_shard(), device, mesh)
+  out["transport"] = collectives.transport(mesh.group("fsdp"))
+  torch.save(out, os.path.join(tmp, f"fsdp_rank{rank}.pt"))
+  del out
+  torch.cuda.empty_cache()
+  mesh = mesh_lib.make_mesh(pipe=2)
+  out = _pipe_step(plan, device, mesh)
+  out["transport"] = collectives.transport(mesh.group("pipe"))
+  torch.save(out, os.path.join(tmp, f"pipe_rank{rank}.pt"))
+
+
+def _leaf_rel(got, want):
+  """The worst leaf-relative gradient difference (phase model's measure:
+  each leaf relative to its largest element, floored at 1e-3 of the
+  largest of any leaf)."""
+  top = max(w.abs().max().item() for w in want)
+  return max((g - w).abs().max().item() / max(w.abs().max().item(),
+                                               1e-3 * top)
+             for g, w in zip(got, want))
+
+
+def _launch_cli(entry, argv, env, tmp):
+  """`entry` ("launch" or "cli") of the port in a fresh process on the
+  card, with its kernel launches; returns (stdout, launches)."""
+  code = (f"import sys, json\nfrom small_vision_tpu_torch import {entry}\n"
+          "from small_vision_tpu_torch.ops import _build\n"
+          f"{entry}.main(sys.argv[1:])\n"
+          "print('LAUNCHES ' + json.dumps(dict(_build.LAUNCHES)))\n")
+  repo = os.path.dirname(os.path.abspath(__file__))
+  env = dict(os.environ, **env)
+  env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+  try:
+    proc = subprocess.run([sys.executable, "-c", code] + argv, env=env,
+                          cwd=repo, capture_output=True, text=True,
+                          timeout=PARALLEL_TIMEOUT)
+  except subprocess.TimeoutExpired:
+    fail(f"parallel (a): {entry} did not end within {PARALLEL_TIMEOUT} s")
+  if proc.returncode != 0:
+    fail(f"parallel (a): {entry} failed:\n{proc.stdout[-2000:]}\n"
+         f"{proc.stderr[-3000:]}")
+  line = [l for l in proc.stdout.splitlines() if l.startswith("LAUNCHES ")]
+  return proc.stdout, json.loads(line[-1][len("LAUNCHES "):])
+
+
+def _free_port():
+  import socket
+  with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    return s.getsockname()[1]
+
+
+def _parallel_production(card):
+  """(a) `launch` -> `cli` on fsdp=True under NCCL with one rank, against
+  `cli` without a process group: the step-3 checkpoints and the losses
+  bit-equal."""
+  tmp = tempfile.mkdtemp(prefix="sv_parallel_a_")
+  try:
+    argv = ["--config", f"ae_i1k.py:{PARALLEL_CONFIG}"]
+    env = {"SLURM_PROCID": "0", "SLURM_NTASKS": "1", "SLURM_LOCALID": "0",
+           "SV_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}"}
+    runs = {}
+    for entry, extra_env in (("launch", env), ("cli", {})):
+      work = os.path.join(tmp, entry)
+      t0 = time.perf_counter()
+      out, launches = _launch_cli(entry, argv + ["--workdir", work],
+                                  extra_env, tmp)
+      line = [l for l in out.splitlines() if "img/s at batch" in l][-1]
+      runs[entry] = {
+          "s": time.perf_counter() - t0, "line": line, "launches": launches,
+          "img_per_s": float(line.split(" img/s")[0].split()[-1]),
+          "peak_gb": float(line.split("peak ")[1].split(" GB")[0]),
+          "ckpt": {n: dict(np.load(os.path.join(
+              work, "checkpoints", str(PARALLEL_STEPS), f"{n}.npz")))
+                   for n in ("params", "opt")},
+          "losses": [json.loads(l)["training_loss"] for l in open(
+              os.path.join(work, "sv_tpu_metrics.txt"))
+                     if "training_loss" in l]}
+      print(f"[parallel] (a) {entry}: {line}; {runs[entry]['s']:.1f} s "
+            f"with the process's start", flush=True)
+    a, b = runs["launch"], runs["cli"]
+    if a["losses"] != b["losses"] or len(a["losses"]) != PARALLEL_STEPS:
+      fail(f"parallel (a): NCCL losses {a['losses']} != {b['losses']}")
+    for entry in ("params", "opt"):
+      for k, v in b["ckpt"][entry].items():
+        if not np.array_equal(a["ckpt"][entry][k], v):
+          fail(f"parallel (a): checkpoint {entry}/{k} differs under NCCL")
+    per_step = _times(BLOCK_TRAIN_LAUNCHES_REMAT["nothing_saveable"],
+                      2 * BLOCKS * PARALLEL_STEPS)
+    for entry in runs:
+      if runs[entry]["launches"] != per_step:
+        fail(f"parallel (a) {entry}: launches {runs[entry]['launches']} != "
+             f"{per_step}")
+    print(f"[parallel] (a) fsdp=True through launch on NCCL (world size 1) "
+          f"against cli without a process group: {PARALLEL_STEPS} losses "
+          f"{a['losses']} and the step-{PARALLEL_STEPS} checkpoint "
+          f"(params, mu, nu) bit-equal; launches {a['launches']}; "
+          f"{a['img_per_s']:.2f} img/s (without: {b['img_per_s']:.2f}), peak "
+          f"{a['peak_gb']:.2f} GB, on {card}", flush=True)
+    return runs
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_parallel(build, card):
+  """Phase parallel: (a) the production route with one rank on NCCL, and
+  (b) real sharding and a real pipeline in two processes sharing the card
+  over gloo (`tools/dryrun_multichip.spawn`: each process is started with
+  a time limit and killed on it, which fails the phase)."""
+  from small_vision_tpu_torch.parallel import pipeline as pl
+  from small_vision_tpu_torch.tools import dryrun_multichip
+  torch.cuda.empty_cache()
+  out = {"a": _parallel_production(card)}
+
+  tmp = tempfile.mkdtemp(prefix="sv_parallel_b_")
+  try:
+    plan = os.path.join(tmp, "plan.npz")
+    _parallel_plan(plan)
+    # The single-process references on the card, then the two processes.
+    ref = _fsdp_run(plan, 0, 1, "cuda")
+    ref_pipe = _pipe_step(plan, "cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dryrun_multichip.spawn("chip_smoke:parallel_worker", 2, args=(tmp,),
+                           device="cuda", timeout=PARALLEL_TIMEOUT)
+    out["b_s"] = time.perf_counter() - t0
+    fsdp = [torch.load(os.path.join(tmp, f"fsdp_rank{r}.pt"))
+            for r in range(2)]
+    pipe = [torch.load(os.path.join(tmp, f"pipe_rank{r}.pt"))
+            for r in range(2)]
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+
+  # (b) fsdp=2 against one process at batch 256: phase model's loss bound
+  # (1e-2 relative: bf16 predictions summed in another order), the step-1
+  # gradients (from Adam's nu) within its leaf-relative 5e-2 (also
+  # tests/test_torch_train_step.py's bf16 bound), and the parameters after
+  # 3 steps by test_torch_train_step's share: 98 % of the elements within
+  # 1 % of lr, every one within 4 lr. In bf16 an element whose gradient is
+  # round-off can take its Adam step (about lr) with the other sign: two
+  # steps at lr > 0 move it by 4 lr at most (on an NVIDIA H100 80GB HBM3
+  # at 700 W the phase read 1.028 lr and 99.03 %).
+  per_step = _times(BLOCK_TRAIN_LAUNCHES_REMAT["nothing_saveable"],
+                    2 * BLOCKS * PARALLEL_STEPS)
+  b2 = 0.95
+  g_ref = [torch.sqrt(v / (1 - b2)) for v in ref["nu1"]]
+  lr = 15e-5 * TRAIN_BATCH / 256
+  for r, got in enumerate(fsdp):
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                        ref["losses"]))
+    g_rel = _leaf_rel([torch.sqrt(v / (1 - b2)) for v in got["nu1"]], g_ref)
+    diff = torch.cat([(p - q).abs().flatten() for p, q in zip(
+        got["params"], ref["params"])])
+    print(f"[parallel] (b) fsdp=2 process {r} ({got['transport']}): losses "
+          f"{got['losses']} (one process {ref['losses']}, worst rel "
+          f"{loss_rel:.2e}); step-1 gradients worst leaf-relative "
+          f"{g_rel:.3e}; step-{PARALLEL_STEPS} parameters: max |diff| "
+          f"{diff.max().item() / lr:.3f} lr, {(diff <= 1e-2 * lr).float().mean().item() * 100:.2f} % "
+          f"within 1 % of lr; launches {got['launches']}; peak "
+          f"{got['peak_gb']:.2f} GB (one process {ref['peak_gb']:.2f}); "
+          f"parameters and optimizer state {got['state_gb']:.3f} GB (one "
+          f"process {ref['state_gb']:.3f}); steps {got['step_ms']} ms, of "
+          f"which collectives {got['coll_ms']} ms; host clock, two "
+          f"processes time-slicing one card; on {card}", flush=True)
+    if not loss_rel <= 1e-2:
+      fail(f"parallel (b) fsdp=2: losses differ by {loss_rel:.2e}")
+    if not g_rel <= 5e-2:
+      fail(f"parallel (b) fsdp=2: step-1 gradients differ by {g_rel:.3e}")
+    if got["launches"] != per_step:
+      fail(f"parallel (b) fsdp=2 process {r}: launches {got['launches']} "
+           f"!= {per_step}")
+    if not (diff.max().item() <= 4 * lr
+            and (diff <= 1e-2 * lr).float().mean().item() >= 0.98):
+      fail(f"parallel (b) fsdp=2: parameters differ by "
+           f"{diff.max().item() / lr:.3f} lr")
+    if not got["state_gb"] < 0.6 * ref["state_gb"]:
+      fail(f"parallel (b) fsdp=2: process {r} holds {got['state_gb']:.3f} "
+           f"GB of state, one process {ref['state_gb']:.3f}")
+  if not all(torch.equal(p, q) for p, q in zip(fsdp[0]["params"],
+                                                fsdp[1]["params"])):
+    fail("parallel (b) fsdp=2: the two processes end with other parameters")
+
+  # (b) pipe=2 against the unpipelined scan=True step: phase model's
+  # bounds (forward 3e-2 of the largest |pred|, loss 1e-2 relative,
+  # gradients 5e-2 leaf-relative).
+  ticks = PIPE_MICROBATCHES + 1
+  per_rank = {k: v * ticks * BLOCKS // 2 for k, v in (
+      BLOCK_SAMPLE_LAUNCHES["pallas"].items())}
+  for k, v in BLOCK_TRAIN_LAUNCHES_REMAT["nothing_saveable"].items():
+    per_rank[k] = per_rank.get(k, 0) + 2 * v * ticks * BLOCKS // 2
+  scale = ref_pipe["pred"].abs().max().item()
+  for r, got in enumerate(pipe):
+    err = (got["pred"] - ref_pipe["pred"]).abs().max().item()
+    loss_rel = abs(got["loss"] - ref_pipe["loss"]) / abs(ref_pipe["loss"])
+    g_rel = _leaf_rel(got["grads"], ref_pipe["grads"])
+    print(f"[parallel] (b) pipe=2 process {r} ({got['transport']}), "
+          f"{PIPE_MICROBATCHES} microbatches, bubble "
+          f"{pl.bubble_fraction(2, PIPE_MICROBATCHES):.4f}: forward max abs "
+          f"err {err:.3e} of {scale:.3e}; loss {got['loss']:.6f} (scan=True "
+          f"{ref_pipe['loss']:.6f}, rel {loss_rel:.2e}); gradients worst "
+          f"leaf-relative {g_rel:.3e}; launches {got['launches']} (model "
+          f"says {per_rank}); on {card}", flush=True)
+    if not err <= 3e-2 * scale:
+      fail(f"parallel (b) pipe=2: forward differs by {err:.3e}")
+    if not loss_rel <= 1e-2:
+      fail(f"parallel (b) pipe=2: loss differs by {loss_rel:.2e}")
+    if not g_rel <= 5e-2:
+      fail(f"parallel (b) pipe=2: gradients differ by {g_rel:.3e}")
+    if got["launches"] != per_rank:
+      fail(f"parallel (b) pipe=2 process {r}: launches {got['launches']} "
+           f"!= {per_rank}")
+  out.update(ref=ref, fsdp=fsdp, pipe=pipe)
+  return out
+
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2548,6 +2958,7 @@ def main():
     probe = phase_probe(build, card, backbone)
   finally:
     shutil.rmtree(backbone, ignore_errors=True)
+  parallel = phase_parallel(build, card)
   for k in kernels:
     # Launches on the paths driven above, each counted from 0: the sampler
     # call and the training run under "pallas", the same two under
@@ -2588,7 +2999,14 @@ def main():
         f"settings_d_runlocal_{RUNLOCAL_STEPS}_steps":
             settings["d"]["launches"].get(name, 0),
         f"settings_e_l2_scan_{SETTINGS_L2_STEPS}_steps":
-            settings["e"]["launches"].get(name, 0)}
+            settings["e"]["launches"].get(name, 0),
+        f"parallel_a_nccl_{PARALLEL_STEPS}_steps":
+            parallel["a"]["launch"]["launches"].get(name, 0),
+        **{f"parallel_b_fsdp2_process{r}_{PARALLEL_STEPS}_steps":
+           got["launches"].get(name, 0)
+           for r, got in enumerate(parallel["fsdp"])},
+        **{f"parallel_b_pipe2_process{r}": got["launches"].get(name, 0)
+           for r, got in enumerate(parallel["pipe"])}}
     k["launches"] = max(k["launches_by_path"].values())
     if not k["launches"]:
       fail(f"{name} was launched on no path")
@@ -2650,6 +3068,25 @@ def main():
         f"{se['peak_gb']:.2f} GB"
         + (f" (out of memory at {se['oom_at']})" if se["oom_at"] else "")
         + f"; on {card}", flush=True)
+
+  pa, pf, pp = parallel["a"], parallel["fsdp"], parallel["pipe"]
+  print(f"[result] parallel: (a) fsdp=True on NCCL, one rank "
+        f"{pa['launch']['img_per_s']:.2f} img/s, peak "
+        f"{pa['launch']['peak_gb']:.2f} GB (no process group "
+        f"{pa['cli']['img_per_s']:.2f} img/s; phase train "
+        f"{train['pallas']['img_per_s']:.2f}, settings (a) heads=6,scan=True "
+        f"{sa['img_per_s']:.2f}); (b) fsdp=2 on gloo, two processes "
+        f"time-slicing the card: peak "
+        + ", ".join(f"{g['peak_gb']:.2f}" for g in pf)
+        + f" GB a process (one process {parallel['ref']['peak_gb']:.2f}), "
+        f"parameters and optimizer state "
+        + ", ".join(f"{g['state_gb']:.3f}" for g in pf)
+        + f" GB (one process {parallel['ref']['state_gb']:.3f}), "
+        f"collectives " + ", ".join(
+            f"{np.mean(g['coll_ms'][1:]):.1f}" for g in pf)
+        + " ms a step after the first (host clock); pipe=2 bubble "
+        f"1/{PIPE_MICROBATCHES + 1}; (b)'s two processes {parallel['b_s']:.1f}"
+        f" s from their start; on {card}", flush=True)
 
   print(card, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)

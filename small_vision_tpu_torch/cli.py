@@ -19,9 +19,16 @@ successful run. The JAX CLI's `--jax_cache` and `--transfer_guard` have no
 counterpart.
 Trains on the GPU unless `--device cpu` is given; there is no fallback to
 the CPU when no GPU is present.
+
+Under a launcher (`srun`, `mpirun`: `launch.py`) the CLI joins the process
+group its environment describes (`parallel.mesh.init_distributed`; NCCL on
+the cards, gloo with `--device cpu`) and trains on `cuda:<local rank>`; the
+trainer builds its mesh from the config (`fsdp=True`: every process on the
+`fsdp` axis).
 """
 
 import argparse
+import os
 import shutil
 
 import torch
@@ -40,27 +47,36 @@ def main(argv=None):
                       help="delete the workdir after a successful run")
   args = parser.parse_args(argv)
 
-  if torch.device(args.device).type == "cuda":
+  device = args.device
+  if torch.device(device).type == "cuda":
     if not torch.cuda.is_available():
       raise SystemExit("no CUDA device; pass --device cpu to train on the "
                        "CPU with the plain versions of the kernels")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+  from small_vision_tpu_torch.parallel import mesh as mesh_lib
+  mesh_lib.init_distributed(device=device)
+  if mesh_lib.process_count() > 1 and device == "cuda":
+    device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    torch.cuda.set_device(torch.device(device))
   if args.main == "ae":
     from small_vision_tpu_torch.train import train_ae as trainer
   else:
     from small_vision_tpu_torch.train import linear_ae as trainer
   config = parse_config(args.config)
   _, history = trainer.train_and_evaluate(config, args.workdir,
-                                          device=args.device)
+                                          device=device)
   timed = history[1:] or history
-  if timed:  # empty after `force_eval`, or when the run was already done
+  if timed and mesh_lib.process_index() == 0:
+    # (history is empty after `force_eval`, or when the run was done)
     ms = sum(h["ms"] for h in timed) / len(timed)
     batch = int(config["input"]["batch_size"])
+    peak = (f", peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            if torch.device(device).type == "cuda" else "")
     print(f"mean step {ms:.2f} ms after the first, "
-          f"{batch / ms * 1e3:.2f} img/s at batch {batch} on {args.device}",
-          flush=True)
-  if args.cleanup and args.workdir:
+          f"{batch / ms * 1e3:.2f} img/s at batch {batch} on {device} "
+          f"({mesh_lib.process_count()} process(es)){peak}", flush=True)
+  if args.cleanup and args.workdir and mesh_lib.process_index() == 0:
     shutil.rmtree(args.workdir, ignore_errors=True)
 
 

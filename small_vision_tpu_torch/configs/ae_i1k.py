@@ -41,8 +41,10 @@ raises in the port, naming the arrays route.
 
 `scan=True` holds the blocks in the stacked layout of flax's `nn.scan` and
 rematerialises each under `model.remat_policy` ("nothing_saveable", as in
-the JAX config: a step keeps the blocks' inputs only). `fsdp=True` raises:
-FSDP is not ported (ROADMAP Queue A item 9).
+the JAX config: a step keeps the blocks' inputs only). `fsdp=True` is the
+JAX config's: `fully_sharded` parameters and optimizer state, every
+process on the `fsdp` axis (`mesh_fsdp=0`), `scan=True`; one process
+trains as without it.
 
 With `latent_diffusion` (size 256 only) the model works on (32, 32, 4)
 latents of the Stable Diffusion VAE: `diffusion_space` (32, 32, 4), the
@@ -79,9 +81,6 @@ def get_config(arg=None) -> dict:
       latent_diffusion=False, use_preprocessed_latents=False,
       vae_weights="")  # the npz of scripts/convert_vae.py; "" = seeded
 
-  if arg["fsdp"]:
-    raise ValueError("fsdp=True: FSDP is not ported (ROADMAP Queue A item "
-                     "9, parallelism)")
   latent = arg["latent_diffusion"]
   if latent:
     assert arg["size"] == 256, "Latent diffusion only supports 256x256 images"
@@ -203,6 +202,11 @@ def get_config(arg=None) -> dict:
     model["quant"] = arg["quant"]
   if arg["heads"]:  # heads=6 at width 768: head dim 128
     model["num_heads"] = arg["heads"]
+  if arg["fsdp"]:
+    config["param_sharding"] = "fully_sharded"
+    config["optim_sharding"] = "fully_sharded"
+    config["mesh_fsdp"] = 0  # 0: every process on the fsdp axis
+    model["scan"] = True
   if arg["runlocal"]:
     model.update(width=64, depth=2, dec_depth=1, num_heads=4, scan=False)
     config["input"]["batch_size"] = config["batch_size"] = 32

@@ -3,9 +3,11 @@
 Counterpart of small_vision_tpu/data/core.py: a `DataSource` base class of
 restartable sources of numpy example dicts, and `get(name)`. Shuffling is
 an index permutation per (seed, epoch), so a random-access source shuffles
-globally without a shuffle buffer. The port runs in one process, so the
-process's shard is every example: `even_split_range` is the JAX package's
-split taken for process 0 of 1 by default.
+globally without a shuffle buffer. Each process reads its own shard,
+`even_split_range` of the examples by `process_shard()`: by default the
+process's rank and the world size (JAX's process index and count), and
+under a mesh the trainer's `set_process_shard` (its position on the batch
+axes: the processes of one pipeline read the same rows).
 
 Sources: "synthetic", "arrays" (npy memmaps), "arrays:<root>", and
 "mod:<module>" (a module with a `DataSource` class). TFDS and latent
@@ -22,10 +24,30 @@ from typing import Iterator, Optional
 INGEST_TOOL = "python -m small_vision_tpu_torch.tools.ingest_arrays"
 
 
-def even_split_range(total: int, index: int = 0, count: int = 1):
+_SHARD = None  # (index, count) set by `set_process_shard`
+
+
+def set_process_shard(index=None, count=None):
+  """Makes (index, count) the shard of the data this process reads; None
+  goes back to (rank, world size)."""
+  global _SHARD
+  _SHARD = None if index is None else (int(index), int(count))
+
+
+def process_shard() -> tuple:
+  """(index, count) of this process's shard of every source."""
+  if _SHARD is not None:
+    return _SHARD
+  from small_vision_tpu_torch.parallel import mesh as mesh_lib
+  return mesh_lib.process_index(), mesh_lib.process_count()
+
+
+def even_split_range(total: int, index=None, count=None):
   """[start, stop) of process `index`'s shard of `total` examples over
-  `count` processes, the first `total % count` taking one more (the
-  semantics of tfds.even_splits)."""
+  `count` processes (default: `process_shard()`), the first `total % count`
+  taking one more (the semantics of tfds.even_splits)."""
+  if index is None or count is None:
+    index, count = process_shard()
   base, rem = divmod(total, count)
   start = index * base + min(index, rem)
   return start, start + base + (1 if index < rem else 0)
@@ -46,9 +68,9 @@ class DataSource(abc.ABC):
 
   @property
   def num_examples_per_process(self) -> int:
-    """The most examples a process holds; the evaluators' step count comes
-    from it. One process: every example."""
-    return self.total_examples
+    """The most examples a process holds, the same on every process:
+    ceil(total / count). The evaluators' step count comes from it."""
+    return -(-self.total_examples // process_shard()[1])
 
   @property
   def num_local_examples(self) -> Optional[int]:
@@ -68,8 +90,9 @@ class DataSource(abc.ABC):
         self.examples(seed=seed, epoch=epoch), start, None)
 
   def peek(self) -> dict:
-    """One raw example of the dataset: the template of the evaluators'
-    padding batches. Default: the first ordered example."""
+    """One raw example of the dataset, on every process (one whose shard is
+    empty too): the template of the evaluators' padding batches. Default:
+    the first ordered example of this process's shard."""
     for ex in self.examples(ordered=True):
       return ex
     raise ValueError(f"{type(self).__name__} has no examples to peek at")

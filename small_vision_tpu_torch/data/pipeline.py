@@ -3,7 +3,9 @@ device, then the device pp.
 
 Counterpart of small_vision_tpu/data/pipeline.py (`training`, `TrainIterator`
 with `start_step` resume, `MixedSource`, `make_for_inference` with its
-zero padding and `_mask`), in one process on one device:
+zero padding and `_mask`). Each process reads its shard of the source
+(`data.core.process_shard()`) and batches of the global batch size over
+the shard count, on its own device:
 
   - a producer thread walks the source's examples, gives each its
     augmentation rng `default_rng((seed, epoch, _id))` and maps the host
@@ -262,7 +264,7 @@ class MixedSource(ds_core.DataSource):
           ex["_epoch"] = ep  # fresh augmentation draws every epoch
           yield ex
     iters = [cycle(s) for s in self.sources]
-    rng = np.random.default_rng((seed, epoch, 0))  # process 0
+    rng = np.random.default_rng((seed, epoch, ds_core.process_shard()[0]))
     while True:
       for i in rng.choice(len(iters), size=1024, p=self.weights):
         ex = dict(next(iters[i]))
@@ -283,7 +285,8 @@ _TRAINING_KEYS = frozenset(
 
 def training(cfg, device="cuda"):
   """(TrainIterator, its DevicePP, the number of training examples) from a
-  config's `input` dict.
+  config's `input` dict. The iterator yields this process's batches: the
+  config's (global) batch size over the process shard count.
 
   One dataset: `cfg["data"]` has a `name`. A mixture: `cfg["data"]` maps
   {dataset key: weight} and each `cfg[dataset key]` has its own `data` and
@@ -301,10 +304,11 @@ def training(cfg, device="cuda"):
   kw = dict(device=device, seed=cfg.get("seed", 0),
             num_workers=cfg.get("num_workers", 8),
             prefetch=cfg.get("prefetch_to_device", 2))
+  local_bs = _local_batch(cfg["batch_size"])
 
   if not mixing:
     source = ds_core.get(data_cfg.pop("name"), **data_cfg)
-    it = TrainIterator(source, cfg.get("pp", ""), cfg["batch_size"], **kw)
+    it = TrainIterator(source, cfg.get("pp", ""), local_bs, **kw)
     return it, it.device_pp, source.total_examples
 
   names = list(data_cfg)
@@ -321,23 +325,36 @@ def training(cfg, device="cuda"):
         "Mixed datasets must share an identical device pp stage (the "
         f"mixture has one); got {dict(zip(names, device_specs))}")
   mixed = MixedSource(sources, [float(data_cfg[n]) for n in names])
-  it = TrainIterator(mixed, "", cfg["batch_size"],
+  it = TrainIterator(mixed, "", local_bs,
                      host_pp=_mix_host_pp(host_pps),
                      device_pp=pp_builder.DevicePP(device_specs[0]), **kw)
   return it, it.device_pp, mixed.total_examples
 
 
+def _local_batch(batch_size: int) -> int:
+  count = ds_core.process_shard()[1]
+  if batch_size % count:
+    raise ValueError(f"batch size {batch_size} does not divide over {count} "
+                     "processes")
+  return batch_size // count
+
+
 def make_for_inference(source: ds_core.DataSource, pp_spec: str,
                        batch_size: int, *, num_workers: int = 8):
-  """(iterate, device_pp, n_steps) over the source's ordered examples.
+  """(iterate, device_pp, n_steps) over this process's ordered examples.
 
-  `iterate()` yields `n_steps` numpy batches of `batch_size` rows through
-  the host stage, the last one zero-padded and every one with `_mask` (1.0
-  on real rows, 0.0 on padding); `device_pp` is the string's device stage,
-  which the caller applies on the device. A source with no examples still
-  yields one all-padding batch, built from `source.peek()`.
+  `iterate()` yields `n_steps` numpy batches of `batch_size` over the
+  process shard count rows through the host stage, the last one
+  zero-padded and every one with `_mask` (1.0 on real rows, 0.0 on
+  padding); `device_pp` is the string's device stage, which the caller
+  applies on the device. Every process runs the same `n_steps`, that of
+  the largest shard, padding with all-zero batches built from
+  `source.peek()`: a process whose shard is shorter, or empty, still takes
+  part in every collective of the evaluation (the deadlock JAX's
+  `make_for_inference` guards against).
   """
   host_pp, device_pp = pp_builder.get_preprocess_fn(pp_spec)
+  batch_size = _local_batch(batch_size)
   n_steps = -(-max(source.num_examples_per_process, 1) // batch_size)
 
   def padding():

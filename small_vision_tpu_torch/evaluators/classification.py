@@ -2,8 +2,8 @@
 
 Counterpart of small_vision_tpu/evaluators/classification.py: sums weighted
 by `_mask`, so the zero-padded rows of the last batch do not bias the
-metrics; labels may be integers or one-hot. One device: the totals are
-this process's own.
+metrics; labels may be integers or one-hot. The totals are summed over the
+processes.
 """
 
 import torch
@@ -41,5 +41,7 @@ class Evaluator(common.BatchedEvaluator):
       ncorrect += float(torch.sum(correct * mask))
       nloss += float(torch.sum(xent * mask))
       nseen += float(torch.sum(mask))
+    ncorrect, nloss, nseen = common.reduce_totals(self, ncorrect, nloss,
+                                                  nseen)
     yield "prec@1", common.masked_mean(ncorrect, nseen)
     yield "loss", common.masked_mean(nloss, nseen)

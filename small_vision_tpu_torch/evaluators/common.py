@@ -3,18 +3,26 @@
 Counterpart of small_vision_tpu/evaluators/common.py: `from_config` pops the
 generic keys (type/pred/pred_kw/prefix/log_*) off each `config["evals"]`
 entry, imports `evaluators.<type>`, and instantiates
-`Evaluator(predict_fn, device=..., **cfg)`. One process on one device:
-where the JAX evaluators gather across processes, these just read their own
-totals.
+`Evaluator(predict_fn, device=..., **cfg)`. Each process evaluates its
+shard of the data (`data.core.process_shard()`); the evaluators that sum
+(`mean`, `diffusion_loss`, `mae_reconstruction`, `classification`)
+all-reduce their totals over the processes that hold different rows
+(`reduce_totals`, over the evaluator's `group`: every process by default,
+the mesh's batch group under `from_config(..., mesh=...)`), and those that
+collect examples (`fewshot_lsr`, `diffusion_sampling`, `save`) gather them
+with `parallel.collectives.fetch_global`. Process 0 alone writes files.
 """
 
 import functools
 import importlib
 
+import numpy as np
 import torch
 
 from small_vision_tpu_torch.data import core as ds_core
 from small_vision_tpu_torch.data import pipeline
+from small_vision_tpu_torch.parallel import collectives
+from small_vision_tpu_torch.parallel import mesh as mesh_lib
 
 # Modules of the evaluators package that hold no Evaluator: what the
 # sampling evaluators' FID scoring uses.
@@ -24,8 +32,9 @@ _HELPERS = {"fid": "the FID and Inception Score functions",
 
 def from_config(config, predict_fns, device="cuda",
                 get_steps=lambda key, cfg: cfg.get(f"{key}_steps"),
-                write_note=lambda s: None):
-  """Returns [(name, evaluator, log_steps, prefix)] from config["evals"]."""
+                write_note=lambda s: None, mesh=None):
+  """Returns [(name, evaluator, log_steps, prefix)] from config["evals"];
+  with a `mesh`, each evaluator reduces over its batch group."""
   evaluators = []
   for name, cfg in dict(config.get("evals", {})).items():
     write_note(name)
@@ -67,8 +76,28 @@ def from_config(config, predict_fns, device="cuda",
       raise ValueError(
           f"Bad config for evaluator {name!r} (type={module_name!r}): {e}. "
           f"Config keys passed: {sorted(cfg)}") from e
+    if mesh is not None:
+      evaluator.group = mesh.batch_group()
     evaluators.append((name, evaluator, log_steps, prefix))
   return evaluators
+
+
+def reduce_totals(evaluator, *totals):
+  """The evaluator's per-process totals summed over its `group` (default:
+  every process), as floats."""
+  group = getattr(evaluator, "group", collectives.WORLD)
+  return [float(v) for v in collectives.all_reduce_host(list(totals), group)]
+
+
+def gather_rows(evaluator, tree):
+  """Host numpy of the rows of every process in the evaluator's `group`."""
+  return collectives.fetch_global(
+      tree, getattr(evaluator, "group", collectives.WORLD))
+
+
+def is_writer() -> bool:
+  """True on the process that writes files (process 0)."""
+  return mesh_lib.process_index() == 0
 
 
 def device_batches(iterate, device_pp, n_steps, device):

@@ -16,7 +16,8 @@ class Evaluator(common.BatchedEvaluator):
   The final batch of a split is zero-padded up to batch_size with `_mask`=0
   rows; the reported loss is the mask-weighted mean over REAL examples,
   accumulated as (sum, count) across batches so that ragged batches carry
-  their true weight."""
+  their true weight. The sums are over every process's rows; the images
+  are this process's first batch."""
 
   def __init__(self, predict_fn, *, device, batch_size, data, pp_fn="",
                cache_final=True, num_batches=None):
@@ -34,6 +35,7 @@ class Evaluator(common.BatchedEvaluator):
       n_sum += float(mask.sum())
       if firsts is None:
         firsts = [to_numpy(t) for t in images]
+    loss_sum, n_sum = common.reduce_totals(self, loss_sum, n_sum)
     yield "loss", common.masked_mean(loss_sum, n_sum)
     if firsts is not None:
       x_t, pred_x0, pred_x0_eps = firsts

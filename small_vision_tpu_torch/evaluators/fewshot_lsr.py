@@ -6,7 +6,8 @@ features with a `BIAS_CONSTANT` bias column, the eigh-based solver cache
 accuracy per (seed, dataset, shots) named `{a|z}/{ds}_{shots}shot-seed-{s}`.
 The representations are the predict function's `out[representation_layer]`
 (the trainer's `pre_logits`, the averaged class tokens), taken from the
-real rows of each batch. Everything runs on one device in f32
+real rows of each batch, every process's shard gathered in the source's
+order (each process then solves the same problem). The solve runs in f32
 (`torch.linalg.eigh` for the solver); the per-seed shot draws are numpy's,
 as in the JAX package.
 """
@@ -17,6 +18,7 @@ import torch
 from small_vision_tpu_torch.data import core as ds_core
 from small_vision_tpu_torch.data import pipeline
 from small_vision_tpu_torch.evaluators import common
+from small_vision_tpu_torch.parallel import mesh as mesh_lib
 from small_vision_tpu_torch.utils.trees import tree_get
 
 BIAS_CONSTANT = 100.0
@@ -98,14 +100,20 @@ class Evaluator:
   def get_repr(self, train_state, iterate_pack):
     """(features (N, D), labels (N,)) of the real examples, on the
     device, in the source's order."""
-    reps, labels = [], []
+    reps, labels, masks = [], [], []
     for batch in common.device_batches(*iterate_pack, self.device):
-      keep = batch.pop("_mask") > 0
-      y = batch.pop(self.label_key)
+      masks.append(batch.pop("_mask"))
+      labels.append(batch.pop(self.label_key))
       _, out = self.predict_fn(train_state, batch)
-      reps.append(tree_get(out, self.representation_layer)[keep].float())
-      labels.append(y[keep])
-    return torch.cat(reps), torch.cat(labels)
+      reps.append(tree_get(out, self.representation_layer).float())
+    reps, labels, masks = torch.cat(reps), torch.cat(labels), torch.cat(masks)
+    if mesh_lib.process_count() > 1:
+      # Every process's shard, in process order: the source's order.
+      rows = common.gather_rows(self, {"x": reps, "y": labels, "m": masks})
+      reps, labels, masks = (torch.from_numpy(rows[k]).to(self.device)
+                             for k in ("x", "y", "m"))
+    keep = masks > 0
+    return reps[keep], labels[keep]
 
   def compute_fewshot_metrics(self, train_state, seed, ds_train, ds_val,
                               split_train, split_test):

@@ -36,6 +36,7 @@ class Evaluator(common.BatchedEvaluator):
       if firsts is None:
         firsts = (to_numpy(images * (1 - mask)),
                   to_numpy(images * (1 - mask) + pred_x0 * mask))
+    loss_sum, n_sum = common.reduce_totals(self, loss_sum, n_sum)
     yield "masked_mse", common.masked_mean(loss_sum, n_sum)
     if firsts is not None:
       yield "image_masked", firsts[0]

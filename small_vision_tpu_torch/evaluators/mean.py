@@ -2,7 +2,8 @@
 
 Counterpart of small_vision_tpu/evaluators/mean.py: the predict_fn returns a
 dict of per-example metric tensors; this evaluator accumulates
-`_mask`-weighted sums and yields their normalised means.
+`_mask`-weighted sums, summed over the processes, and yields their
+normalised means.
 """
 
 from small_vision_tpu_torch.evaluators import common
@@ -28,5 +29,8 @@ class Evaluator(common.BatchedEvaluator):
           k: totals[k] + sums[k] for k in totals}
     if totals is None:
       return
-    for key in totals:
-      yield key, common.masked_mean(totals[key], nseen)
+    keys = sorted(totals)
+    *sums, nseen = common.reduce_totals(self, *[totals[k] for k in keys],
+                                        nseen)
+    for key, total in zip(keys, sums):
+      yield key, common.masked_mean(total, nseen)

@@ -2,7 +2,8 @@
 
 Counterpart of small_vision_tpu/evaluators/save.py: the real rows' images
 (after the device pp) and the predict_fn's first output go to `outfile` as
-`inputs` and `outputs`.
+`inputs` and `outputs`, every process's rows gathered (in process order)
+and written by process 0.
 """
 
 import os
@@ -24,11 +25,14 @@ class Evaluator(common.BatchedEvaluator):
   def run(self, train_state):
     ins, outs = [], []
     for batch in self.batches():
-      mask = batch["_mask"].bool().cpu().numpy()
       pred, *_ = self.predict_fn(train_state, batch)
-      if pred is not None:
-        outs.append(pred.cpu().numpy()[mask])
-      ins.append(batch["image"].cpu().numpy()[mask])
-    np.savez(self.outfile, inputs=np.concatenate(ins),
-             outputs=np.concatenate(outs) if outs else np.zeros(0))
+      rows = common.gather_rows(self, {"mask": batch["_mask"],
+                                       "image": batch["image"], "pred": pred})
+      mask = rows["mask"] > 0
+      if rows["pred"] is not None:
+        outs.append(rows["pred"][mask])
+      ins.append(rows["image"][mask])
+    if common.is_writer():
+      np.savez(self.outfile, inputs=np.concatenate(ins),
+               outputs=np.concatenate(outs) if outs else np.zeros(0))
     yield "saved_examples", sum(x.shape[0] for x in ins)

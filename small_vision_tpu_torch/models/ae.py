@@ -27,6 +27,10 @@ int8 matmul (`ops/quant.py`).
 The patchify conv (VALID, stride = patch) is computed as a reshape and a
 matmul on the (p·p·C, D) view of its HWIO kernel: the same function, with
 no cuDNN convolution (and its TF32 default) on the path.
+
+`pipe_stages > 1` pipelines the encoder's and the decoder's stacks over
+the active mesh's `pipe` axis (`models.vit.Encoder`; both depths must
+divide by it), with `pipe_microbatches` microbatches (default 4 S).
 """
 
 from typing import Optional, Sequence
@@ -76,7 +80,8 @@ class _ViTAE(nn.Module):
                num_cls: int = 4, dropout: float = 0.0,
                cfg_dropout_rate: float = 0.1, attn_impl: str = "pallas",
                quant: str = "none", scan: bool = False,
-               remat_policy: Optional[str] = "nothing_saveable"):
+               remat_policy: Optional[str] = "nothing_saveable",
+               pipe_stages: int = 0, pipe_microbatches: int = 0):
     super().__init__()
     p = patch_size[0]
     self.dropout = dropout
@@ -107,7 +112,8 @@ class _ViTAE(nn.Module):
       raise ValueError(f"quant={quant!r}: one of {sorted(BLOCK_QUANT)}")
     kw = dict(width=width, mlp_dim=mlp_dim, num_heads=num_heads, adaln=adaln,
               dtype=dtype, attn_impl=attn_impl, quant=BLOCK_QUANT[quant],
-              scan=scan, remat_policy=remat_policy, dropout=dropout)
+              scan=scan, remat_policy=remat_policy, dropout=dropout,
+              pipe_stages=pipe_stages, pipe_microbatches=pipe_microbatches)
     self.Encoder = Encoder(depth=depth, **kw)
     self.Decoder = Encoder(depth=dec_depth, **kw)
     if adaln:

@@ -69,6 +69,9 @@ from small_vision_tpu_torch.ops.attention import attention_packed
 from small_vision_tpu_torch.ops.fused_block import fused_mha, fused_mlp
 from small_vision_tpu_torch.ops.layernorm import ln_modulate
 from small_vision_tpu_torch.ops.quant import int8_dot
+from small_vision_tpu_torch.parallel import ctx as ctx_lib
+from small_vision_tpu_torch.parallel import mesh as mesh_lib
+from small_vision_tpu_torch.parallel import pipeline as pipeline_lib
 
 ATTN_IMPLS = ("pallas", "pallas_fused", "xla", "flax")
 QUANTS = ("none", "int8", "int8_all")
@@ -445,6 +448,14 @@ class Encoder(nn.Module):
   `remat_policy`: JAX's matrix (see the module's doc). `dropout`: the
   blocks' rate; `forward`'s `draw(shape)` makes the keep masks (bool) of
   each block before it runs, or None for no dropout.
+
+  `pipe_stages > 1` pipelines the stack over the active mesh's `pipe` axis
+  (`parallel.ctx.activate_mesh`, `parallel.pipeline`), as the JAX Encoder
+  does: it needs `scan=True`, a `pipe` axis of `pipe_stages` processes and
+  dropout 0, and runs `pipe_microbatches` microbatches (default 4 S). Each
+  process runs its stage's layers: its own block of the stack where the
+  parameters hold depth / S layers (the `pipeline` sharding the trainer
+  keeps), or its slice of the whole stack where they hold every layer.
   """
 
   def __init__(self, depth: int, width: int, mlp_dim: Optional[int],
@@ -452,10 +463,13 @@ class Encoder(nn.Module):
                attn_impl: str = "pallas", quant: str = "none",
                scan: bool = False,
                remat_policy: Optional[str] = "nothing_saveable",
-               dropout: float = 0.0):
+               dropout: float = 0.0, pipe_stages: int = 0,
+               pipe_microbatches: int = 0):
     super().__init__()
     self.depth = depth
     self.scan = scan
+    self.pipe_stages = pipe_stages
+    self.pipe_microbatches = pipe_microbatches
     self.fused = attn_impl == "pallas_fused"
     policy = check_remat_policy(remat_policy)
     if scan:
@@ -488,8 +502,39 @@ class Encoder(nn.Module):
           self.blocks, params, a, dict(kw, part=part))
     return [bind(i) for i in range(self.depth)]
 
+  def _pipelined(self, x, cond, policy):
+    assert self.scan, "pipe_stages needs scan=True (stacked param layout)"
+    assert not self.blocks.dropout, "pipeline path supports dropout=0 only"
+    assert self.depth % self.pipe_stages == 0, (self.depth, self.pipe_stages)
+    mesh = ctx_lib.current_mesh()
+    assert mesh is not None and "pipe" in mesh.axis_names, (
+        "pipe_stages needs an active mesh (parallel.ctx.activate_mesh) "
+        f"with a 'pipe' axis; got {mesh}")
+    n_stages = self.pipe_stages
+    assert mesh.shape["pipe"] == n_stages, (
+        f"mesh pipe axis {mesh.shape['pipe']} != pipe_stages {n_stages}")
+    names, stacked = zip(*self.blocks.named_parameters())
+    per_stage = self.depth // n_stages
+    if stacked[0].shape[0] == self.depth:  # the whole stack: this stage's
+      lo = mesh.coord("pipe") * per_stage
+      stacked = [p[lo:lo + per_stage] for p in stacked]
+    assert stacked[0].shape[0] == per_stage, (stacked[0].shape, per_stage)
+
+    def block_fn(lp, h, *aux):
+      call = lambda part, *a, **kw: torch.func.functional_call(
+          self.blocks, lp, a, dict(kw, part=part))
+      return remat_block(call, h, aux[0] if aux else None, None, policy,
+                         self.fused)
+    x = pipeline_lib.pipeline_apply_stacked(
+        block_fn, dict(zip(names, stacked)), x, mesh=mesh,
+        n_microbatches=self.pipe_microbatches or 4 * n_stages,
+        batch_axes=mesh_lib.batch_axes(mesh), aux=cond)
+    return self.encoder_norm(x)
+
   def forward(self, x, cond=None, draw: Optional[Callable] = None):
     policy = self.policy if torch.is_grad_enabled() else None
+    if self.pipe_stages > 1:
+      return self._pipelined(x, cond, policy)
     for block in self._calls():
       mod = self.blocks if self.scan else block
       drops = mod.draw_masks(draw, x.shape[0], x.shape[1])

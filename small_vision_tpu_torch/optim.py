@@ -104,19 +104,26 @@ class AdamW:
             "mu": [torch.zeros_like(p, dtype=self.mu_dtype) for p in params],
             "nu": [torch.zeros_like(p, dtype=torch.float32) for p in params]}
 
-  def step(self, params, grads, state, *, with_l2=False) -> dict:
+  def step(self, params, grads, state, *, with_l2=False, norm=None,
+           clip_norm="config") -> dict:
     """Updates `params` (f32 tensors) and `state` in place from `grads`.
 
     Returns {"l2_params", "l2_updates", "l2_grads"} (0-d tensors, after the
     update) when `with_l2`, else {}. Reads the global norm of the
-    gradients on the host once (the clip's branch).
+    gradients on the host once (the clip's branch). `norm`: the function
+    of a tensor list that gives its global norm (default `global_norm`; a
+    sharded step passes one that sums over the shards, so that the update
+    of local shards is the update of the whole). `clip_norm`: the clip's
+    threshold, by default the optimizer's; None does not clip.
     """
     f32 = np.float32
-    g_norm = global_norm(grads)
+    norm = norm or global_norm
+    clip_norm = self.clip_norm if clip_norm == "config" else clip_norm
+    g_norm = norm(grads)
     metrics = {"l2_grads": g_norm} if with_l2 else {}
-    if not bool(g_norm < self.clip_norm):
+    if clip_norm is not None and not bool(g_norm < clip_norm):
       grads = torch._foreach_div(grads, g_norm)
-      torch._foreach_mul_(grads, self.clip_norm)
+      torch._foreach_mul_(grads, clip_norm)
 
     count = state["count"] + 1
     mu = torch._foreach_mul(grads, 1.0 - self.b1)
@@ -142,8 +149,8 @@ class AdamW:
     torch._foreach_add_(params, updates)
     state["count"] = count
     if with_l2:
-      metrics["l2_params"] = global_norm(params)
-      metrics["l2_updates"] = global_norm(updates)
+      metrics["l2_params"] = norm(params)
+      metrics["l2_updates"] = norm(updates)
     return metrics
 
 

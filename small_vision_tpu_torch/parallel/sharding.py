@@ -1,0 +1,350 @@
+"""Sharding strategies over parameter trees, and moving a tree between its
+full and its sharded form.
+
+Counterpart of small_vision_tpu/parallel/sharding.py. A placement is a
+spec tuple in the manner of JAX's PartitionSpec: `()` is replicated, and
+`(None, "fsdp")` shards dim 1 over the mesh axis `fsdp`. `infer_sharding`
+returns a tree of specs shaped like its input (nested dicts, or a flat
+{slash name: tensor} dict as the trainer keeps its parameters), by JAX's
+rules:
+
+  replicated       every leaf replicated;
+  fully_sharded    a leaf of more than `min_size_to_shard` (2^18) elements
+                   sharded on its largest evenly divisible dim over `fsdp`,
+                   else over `data` (ZeRO-3);
+  tensor_parallel  `_TP_RULES`: the q, k, v and out-projections on their
+                   heads and the MLP on its hidden dim, over `tensor`;
+  tp_fsdp          the TP rules, and `fully_sharded` over `fsdp` for the
+                   leaves they do not match;
+  pipeline         `blocks/` stacks (the `scan=True` layout) on dim 0 over
+                   `pipe`, the rest replicated.
+
+The port keeps flax's layouts (`Dense` kernels (in, out), DenseGeneral's
+(d, H, hd)), so each leaf's spec, and each process's element count, is the
+JAX package's. `reshard` takes a full tensor to this process's shard and
+`unshard` gathers it back (an all-gather over the spec's axis); the
+trainer's sharded step (`train/train_ae.py`) and `explicit_step.py` write
+the collectives of a step out with these specs.
+"""
+
+import re
+from collections.abc import Mapping
+
+import numpy as np
+
+from small_vision_tpu_torch.parallel import collectives
+from small_vision_tpu_torch.utils.trees import (recover_tree,
+                                                tree_flatten_with_names)
+
+REPLICATED = ()
+
+
+def _shape(x) -> tuple:
+  return tuple(x.shape) if hasattr(x, "shape") else tuple(x)
+
+
+def _is_flat(tree) -> bool:
+  return isinstance(tree, Mapping) and not any(
+      isinstance(v, Mapping) for v in tree.values())
+
+
+def tree_map_with_names(fn, tree):
+  """`fn(name, leaf)` over a nested or a flat {name: leaf} dict, the result
+  shaped like `tree`."""
+  pairs = tree_flatten_with_names(tree)
+  out = [fn(n, v) for n, v in pairs]
+  if _is_flat(tree):
+    return dict(zip([n for n, _ in pairs], out))
+  return recover_tree([n for n, _ in pairs], out)
+
+
+def _shard_dim(dim: int, ndim: int, axis: str) -> tuple:
+  spec = [None] * ndim
+  spec[dim] = axis
+  return tuple(spec)
+
+
+def infer_sharding(tree, mesh, strategy: str = "replicated",
+                   axis_name: str = None, **strategy_args):
+  """A tree of spec tuples matching `tree` (leaves need only `.shape`)."""
+  fns = {"replicated": replicated, "fully_sharded": fully_sharded,
+         "tensor_parallel": tensor_parallel, "tp_fsdp": tp_fsdp,
+         "pipeline": pipeline}
+  if strategy not in fns:
+    raise ValueError(f"Unknown sharding strategy: {strategy!r}")
+  return fns[strategy](tree, mesh, axis_name=axis_name, **strategy_args)
+
+
+def replicated(tree, mesh, axis_name=None):
+  del mesh, axis_name
+  return tree_map_with_names(lambda n, x: REPLICATED, tree)
+
+
+def fully_sharded(tree, mesh, axis_name=None, min_size_to_shard: int = 2**18):
+  """ZeRO-3: every leaf over `min_size_to_shard` elements sharded on its
+  largest evenly divisible dim, over `axis_name`, else `fsdp` when the mesh
+  has it, else `data`."""
+  if axis_name is None:
+    axis_name = "fsdp" if "fsdp" in mesh.axis_names else "data"
+  size = mesh.shape[axis_name]
+
+  def spec_for(_, x):
+    shape = _shape(x)
+    if int(np.prod(shape, dtype=np.int64)) <= min_size_to_shard:
+      return REPLICATED
+    for dim in np.argsort(shape)[::-1]:  # JAX's order, ties included
+      if shape[dim] % size == 0:
+        return _shard_dim(int(dim), len(shape), axis_name)
+    return REPLICATED
+  return tree_map_with_names(spec_for, tree)
+
+
+# The JAX rules on the port's names (the flax ones): the trailing dims of
+# each kernel; a stacked (`scan=True`) leaf has a leading depth dim left
+# unsharded. Megatron-style: one all-reduce per block half.
+_TP_RULES = (
+    (r".*/(query|key|value)/kernel", (None, "tensor", None)),
+    (r".*/out/kernel", ("tensor", None, None)),
+    (r".*Mlp.*/Dense_0/kernel", (None, "tensor")),
+    (r".*Mlp.*/Dense_1/kernel", ("tensor", None)),
+)
+
+
+def tensor_parallel(tree, mesh, axis_name=None):
+  """Width sharding of the blocks' projections over the `tensor` axis."""
+  axis_name = axis_name or "tensor"
+  assert axis_name in mesh.axis_names, f"mesh lacks '{axis_name}' axis"
+
+  def spec_for(name, x):
+    ndim = len(_shape(x))
+    for pattern, dims in _TP_RULES:
+      if re.fullmatch(pattern, name):
+        return tuple([None] * (ndim - len(dims)) + [
+            axis_name if d == "tensor" else None for d in dims])
+    return REPLICATED
+  return tree_map_with_names(spec_for, tree)
+
+
+def pipeline(tree, mesh, axis_name=None):
+  """`blocks/` stacks on dim 0 over `pipe` (each stage holds its layers);
+  everything else replicated."""
+  axis_name = axis_name or "pipe"
+  assert axis_name in mesh.axis_names, f"mesh lacks '{axis_name}' axis"
+  n_stages = mesh.shape[axis_name]
+
+  def spec_for(name, x):
+    shape = _shape(x)
+    if re.search(r"(^|/)blocks/", name) and shape and \
+        shape[0] % n_stages == 0:
+      return _shard_dim(0, len(shape), axis_name)
+    return REPLICATED
+  return tree_map_with_names(spec_for, tree)
+
+
+def tp_fsdp(tree, mesh, axis_name=None, min_size_to_shard: int = 2**18):
+  """The TP rules over `tensor`; every leaf they leave replicated ZeRO-3
+  over `fsdp`."""
+  del axis_name
+  tp = dict(tree_flatten_with_names(tensor_parallel(tree, mesh)))
+  fs = dict(tree_flatten_with_names(fully_sharded(
+      tree, mesh, axis_name="fsdp", min_size_to_shard=min_size_to_shard)))
+  return tree_map_with_names(
+      lambda n, _: tp[n] if any(e is not None for e in tp[n]) else fs[n],
+      tree)
+
+
+def spec_axis(spec):
+  """(dim, axis) of a spec's one sharded dim, or None when replicated."""
+  hits = [(i, e) for i, e in enumerate(spec) if e is not None]
+  if not hits:
+    return None
+  if len(hits) > 1 or not isinstance(hits[0][1], str):
+    raise NotImplementedError(f"spec {spec}: one dim over one axis only")
+  return hits[0]
+
+
+def shard_shape(shape, spec, mesh) -> tuple:
+  """The shape of one process's shard of a leaf of `shape` under `spec`."""
+  shape = list(_shape(shape))
+  hit = spec_axis(spec)
+  if hit is not None:
+    dim, axis = hit
+    assert shape[dim] % mesh.shape[axis] == 0, (shape, spec, mesh)
+    shape[dim] //= mesh.shape[axis]
+  return tuple(shape)
+
+
+def shard_of(x, spec, mesh, rank=None):
+  """Process `rank`'s (default: this one's) shard of the full leaf `x`: a
+  view of its block on the sharded dim."""
+  hit = spec_axis(spec)
+  if hit is None:
+    return x
+  dim, axis = hit
+  return x.chunk(mesh.shape[axis], dim)[mesh.coord(axis, rank)]
+
+
+def _per_leaf(fn, tree, specs):
+  if not isinstance(tree, Mapping):
+    return fn(tree, specs)
+  if isinstance(specs, tuple):
+    specs = tree_map_with_names(lambda n, _: specs, tree)
+  flat_specs = dict(tree_flatten_with_names(specs))
+  return tree_map_with_names(lambda n, x: fn(x, flat_specs[n]), tree)
+
+
+def reshard(tree, specs, mesh, rank=None):
+  """This process's shards of a tree of full leaves (a spec tuple applies
+  to every leaf). JAX places the arrays on their devices; here each process
+  keeps its own block."""
+  return _per_leaf(lambda x, s: shard_of(x, s, mesh, rank), tree, specs)
+
+
+def unshard(tree, specs, mesh):
+  """The full leaves of a tree of this process's shards: each sharded leaf
+  all-gathered along its dim over its axis."""
+  def full(x, spec):
+    hit = spec_axis(spec)
+    if hit is None:
+      return x
+    dim, axis = hit
+    return collectives.all_gather(x, mesh.group(axis), dim)
+  return _per_leaf(full, tree, specs)
+
+
+class ShardedParams:
+  """A model's parameters placed by specs on a mesh, and the collectives of
+  a step on them: what `param_sharding` asks of the trainer and `zero3` of
+  the explicit step.
+
+  `params` are the model's parameters (full, in the order of `names` and
+  `specs`). `shard_state()` gives the train state's tensors, this
+  process's part of each: a leaf sharded over a batch axis (`fsdp`, or
+  `data` on a 1-D mesh) is a separate shard, and the model's parameter is
+  filled by `gather` (an all-gather) before a forward and emptied by
+  `release` after the backward (ZeRO-3); a leaf sharded over `pipe` is the
+  model's parameter itself, narrowed to this stage's layers; a replicated
+  leaf is the model's parameter. `reduce_grads` takes the gradients of the
+  model's parameters to the mean over the batch of the train state's
+  tensors: a reduce-scatter over the shard axis (divided by its size) and
+  a mean over the other batch axes, or a mean over the batch axes (one
+  all-reduce for all such leaves). `norm` is the global norm of a list of
+  such tensors: the squares of the sharded leaves summed over their axis,
+  the replicated counted once. `full` and `local` move a list of such
+  tensors to their full form and back (checkpoints).
+  """
+
+  def __init__(self, names, params, specs, mesh):
+    self.names = list(names)
+    self.params = list(params)
+    self.mesh = mesh
+    self.specs = [tuple(s) for s in specs]
+    self.full_shapes = [tuple(p.shape) for p in self.params]
+    self._axis = []  # (dim, axis) of each leaf sharded over a real group
+    for spec in self.specs:
+      hit = spec_axis(spec)
+      self._axis.append(hit if hit and mesh.axis_size(hit[1]) > 1 else None)
+    self._batch = tuple(a for a in ("data", "fsdp")
+                        if mesh.axis_size(a) > 1)
+
+  def _gathered(self, i) -> bool:
+    return self._axis[i] is not None and self._axis[i][1] in ("data", "fsdp")
+
+  def shard_state(self) -> list:
+    """The train state's tensors from the model's full parameters."""
+    import torch
+    out = []
+    with torch.no_grad():
+      for i, p in enumerate(self.params):
+        if self._axis[i] is None:
+          out.append(p)
+        elif self._gathered(i):
+          out.append(shard_of(p.data, self.specs[i], self.mesh).clone(
+              memory_format=torch.contiguous_format))
+          p.data = p.data.new_empty(0)
+        else:  # a stage's layers: the parameter keeps its own block
+          p.data = shard_of(p.data, self.specs[i], self.mesh).clone(
+              memory_format=torch.contiguous_format)
+          out.append(p)
+    return out
+
+  def gather(self, shards):
+    """Fills the model's ZeRO-3 parameters from the shards (all-gather)."""
+    for i, p in enumerate(self.params):
+      if self._gathered(i):
+        dim, axis = self._axis[i]
+        p.data = collectives.all_gather(shards[i].detach(),
+                                        self.mesh.group(axis), dim)
+
+  def release(self):
+    """Empties the model's ZeRO-3 parameters (until the next `gather`)."""
+    for i, p in enumerate(self.params):
+      if self._gathered(i):
+        p.data = p.data.new_empty(0)
+
+  def reduce_grads(self, grads) -> list:
+    """The mean over the batch of each gradient, on this process's part."""
+    import torch
+    out = list(grads)
+    buckets = {}  # the batch axes a leaf still needs its mean over
+    for i, g in enumerate(grads):
+      rest = self._batch
+      if self._gathered(i):
+        dim, axis = self._axis[i]
+        g = collectives.reduce_scatter(g, self.mesh.group(axis), dim)
+        out[i] = g / self.mesh.shape[axis]
+        rest = tuple(a for a in self._batch if a != axis)
+      if rest:
+        buckets.setdefault(rest, []).append(i)
+    for axes, idx in buckets.items():
+      group = self.mesh.group(*axes)
+      flat = torch.cat([out[i].reshape(-1) for i in idx])
+      collectives.all_reduce(flat, group, "mean")
+      k = 0
+      for i in idx:
+        n = out[i].numel()
+        out[i] = flat[k:k + n].view(out[i].shape)
+        k += n
+    return out
+
+  def norm(self, tensors):
+    """The global norm of a list of this process's tensors."""
+    import torch
+    from small_vision_tpu_torch import optim
+    if all(a is None for a in self._axis):
+      return optim.global_norm(tensors)
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    total, by_axis = 0.0, {}
+    for i, n in enumerate(norms):
+      if self._axis[i] is None:
+        total = total + n * n
+      else:
+        by_axis.setdefault(self._axis[i][1], []).append(n * n)
+    for axis, sq in by_axis.items():
+      total = total + collectives.all_reduce(torch.stack(sq).sum(),
+                                             self.mesh.group(axis))
+    return torch.sqrt(total)
+
+  def full(self, tensors) -> list:
+    """The full form of each of this process's tensors (all-gathers)."""
+    out = []
+    for i, t in enumerate(tensors):
+      if self._axis[i] is None:
+        out.append(t)
+      else:
+        dim, axis = self._axis[i]
+        out.append(collectives.all_gather(t.detach(), self.mesh.group(axis),
+                                          dim))
+    return out
+
+  def model_view(self, tensors) -> list:
+    """The tensors as the model's parameters hold them: the ZeRO-3 ones
+    gathered, a stage's layers left as they are."""
+    return [collectives.all_gather(t.detach(), self.mesh.group(
+        self._axis[i][1]), self._axis[i][0]) if self._gathered(i) else t
+            for i, t in enumerate(tensors)]
+
+  def local(self, i, full):
+    """This process's part of leaf `i` from its full form."""
+    return full if self._axis[i] is None else shard_of(
+        full, self.specs[i], self.mesh).contiguous()

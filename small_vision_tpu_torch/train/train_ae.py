@@ -15,7 +15,28 @@ step encodes the batch's pixels inside it (unless
 `use_preprocessed_latents`), the evaluation functions encode their inputs
 and decode what they show, the sampler decodes its samples, and the VAE's
 weights ride in the train state and its checkpoints as `vae_params`
-(frozen: not in the optimizer, no EMA). The mesh comes with its slice.
+(frozen: not in the optimizer, no EMA).
+
+Over several processes (`parallel.mesh`, `launch.py`) the loop runs on a
+mesh built from `mesh_fsdp` (or given), each process on
+its own shard of the data and its own rows of the global batch, and the
+parameters placed by `param_sharding` (`replicated`, `fully_sharded`:
+ZeRO-3 over `fsdp`, or `pipeline`: the stacks' stages over `pipe`, with
+the model's `pipe_stages`; `parallel.sharding.ShardedParams`), the
+optimizer state and the EMA placed as the parameters
+(`optim_sharding` must equal `param_sharding`). A step gathers the
+ZeRO-3 parameters, runs the forward and backward on the process's rows
+(each process splits its rows between the two branches at the config's
+ratio), reduces the gradients (reduce-scatter and mean over the batch
+axes), and updates its shards with the clip of the whole gradient's norm.
+Such a step is the single-process step on the global batch ordered as
+[every process's diffusion rows, then every process's MAE rows]; its
+draws are those of that step, each process taking its rows (so a run's
+generator state is the same on every process). Process 0 alone writes
+metrics, logs, checkpoints (of the gathered, full tensors) and evaluator
+outputs; the logged loss is the mean over the processes. `tensor_parallel`
+and `tp_fsdp` (and `mesh_tensor > 1`) raise: tensor parallelism is
+ROADMAP.md Queue A item 9b.
 
 The step's random draws (t, noise, the two branches' mask noise, the flip
 mask, the label-drop masks and the VAE encode's noise) come from the train
@@ -48,8 +69,14 @@ import torch
 
 from small_vision_tpu_torch import convert, optim
 from small_vision_tpu_torch.data import pipeline
+from small_vision_tpu_torch.data import core as ds_core
 from small_vision_tpu_torch.models.common import merge_params
 from small_vision_tpu_torch.ops import diffusion as gd_lib
+from small_vision_tpu_torch.parallel import collectives
+from small_vision_tpu_torch.parallel import ctx as ctx_lib
+from small_vision_tpu_torch.parallel import mesh as mesh_lib
+from small_vision_tpu_torch.parallel.sharding import (ShardedParams,
+                                                      infer_sharding)
 from small_vision_tpu_torch.pp.builder import DevicePP
 from small_vision_tpu_torch.utils import checkpoint as ckpt_lib
 from small_vision_tpu_torch.utils.chrono import Chrono
@@ -97,12 +124,14 @@ def make_optimizer(config: dict, names, total_steps: int,
 
 
 def init_train_state(model, opt: optim.AdamW, config: dict,
-                     device="cuda") -> dict:
+                     device="cuda", params=None) -> dict:
   """{"params", "opt", "generator", "gd"[, "ema_params"]}: the model's
-  parameters (in `named_params` order), the optimizer state, the step's
-  generator (seeded from config["seed"]), the diffusion tables, and with
-  `ema_decay` a copy of the parameters for the EMA."""
-  params = [p for _, p in named_params(model)]
+  parameters (in `named_params` order; or `params`, the process's part of
+  them under a sharding), the optimizer state, the step's generator
+  (seeded from config["seed"]), the diffusion tables, and with `ema_decay`
+  a copy of the parameters for the EMA."""
+  if params is None:
+    params = [p for _, p in named_params(model)]
   sched = config.get("diff_schedule", {})
   state = {
       "params": params,
@@ -118,8 +147,21 @@ def init_train_state(model, opt: optim.AdamW, config: dict,
   return state
 
 
+def _shard_draws(d, index, n_rows, n_noise, n_no_noise):
+  """This process's rows of draws made for `count` processes' worth: the
+  branches' draws by branch rows, the others by batch rows."""
+  noise_keys = ("t", "noise", "dit_noise", "dit_drop")
+  mae_keys = ("mae_noise", "mae_drop")
+  out = {}
+  for k, v in d.items():
+    n = n_noise if k in noise_keys else n_no_noise if k in mae_keys else n_rows
+    out[k] = v[index * n:(index + 1) * n]
+  return out
+
+
 def make_update_fn(model, opt: optim.AdamW, config: dict,
-                   device_pp: Optional[DevicePP], vae_encode=None):
+                   device_pp: Optional[DevicePP], vae_encode=None,
+                   layout: Optional[ShardedParams] = None, mesh=None):
   """The training step, `update_fn(train_state, batch, draws=None, *,
   with_l2=False) -> measurements`.
 
@@ -138,6 +180,13 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
   parameters, the optimizer state and the EMA in place; returns
   {"training_loss"} and, `with_l2`, the l2 norms of the parameters, the
   updates and the gradients (0-d tensors on the device).
+
+  With a `layout` (`parallel.sharding.ShardedParams`, on `mesh`) the
+  train state holds the process's part of each tensor and `batch` its rows
+  of the global batch; the step gathers, reduces and updates as the
+  module's doc says. Injected `draws` are the process's own; drawn ones are
+  made for every process's rows and sliced, so that the generator moves
+  alike everywhere. `training_loss` is the process's own.
   """
   no_noise_prob = float(config.get("no_noise_prob", 0.5))
   mask_ratio = float(config.get("mask_ratio", 0.375))
@@ -154,10 +203,21 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
                      "vae_encode (models.vae.load_vae)")
   num_patches = model.grid * model.grid
   device = next(model.parameters()).device
+  shard_index, shard_count = mesh.batch_shard() if mesh else (0, 1)
+  model_params = (layout.params if layout is not None
+                  else [p for _, p in named_params(model)])
 
   def draw(b, image_shape, gen):
     n_no_noise = int(b * no_noise_prob)
     n_noise = b - n_no_noise
+    if shard_count == 1:
+      return draw_rows(b, n_noise, n_no_noise, image_shape, gen)
+    c = shard_count
+    return _shard_draws(
+        draw_rows(c * b, c * n_noise, c * n_no_noise, image_shape, gen),
+        shard_index, b, n_noise, n_no_noise)
+
+  def draw_rows(b, n_noise, n_no_noise, image_shape, gen):
     d = device_pp.draw(b, gen, device) if device_pp is not None else {}
     if encode:  # the latent's draws, then the step's on the latents
       d["vae_noise"] = torch.randn((b,) + dspace, generator=gen,
@@ -270,14 +330,24 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
         dit_loss = dit_branch_loss(pred, out)
     w_mae = mae_mix_weight(b, no_noise_prob)
     loss = dit_loss * (1.0 - w_mae) + mae_loss * w_mae
-    return loss.detach(), list(torch.autograd.grad(loss,
-                                                   train_state["params"]))
+    return loss.detach(), list(torch.autograd.grad(loss, model_params))
 
   def update_fn(train_state, batch, draws=None, *, with_l2=False):
-    loss, grads = loss_and_grads(train_state, batch, draws)
+    if layout is None:
+      loss, grads = loss_and_grads(train_state, batch, draws)
+      norm = None
+    else:
+      with ctx_lib.activate_mesh(mesh):
+        with torch.profiler.record_function("gather_params"):
+          layout.gather(train_state["params"])
+        loss, grads = loss_and_grads(train_state, batch, draws)
+        with torch.profiler.record_function("reduce_grads"):
+          grads = layout.reduce_grads(grads)
+        layout.release()
+      norm = layout.norm
     with torch.no_grad(), torch.profiler.record_function("optimizer"):
       measurements = opt.step(train_state["params"], grads,
-                              train_state["opt"], with_l2=with_l2)
+                              train_state["opt"], with_l2=with_l2, norm=norm)
       if ema_decay:
         optim.ema_update(train_state["ema_params"], train_state["params"],
                          ema_decay)
@@ -517,7 +587,41 @@ def make_eval_fns(model, config: dict, vae_encode=None,
   return fns
 
 
-def setup_training(config: dict, device="cuda", log=print) -> dict:
+_TP_STRATEGIES = ("tensor_parallel", "tp_fsdp")
+
+
+def check_parallel_config(config: dict) -> str:
+  """The config's parameter strategy; raises on what the port does not
+  run."""
+  param_sharding = config.get("param_sharding", "replicated")
+  optim_sharding = config.get("optim_sharding", param_sharding)
+  for key, value in (("param_sharding", param_sharding),
+                     ("optim_sharding", optim_sharding)):
+    if value in _TP_STRATEGIES:
+      raise NotImplementedError(
+          f"{key}={value!r}: tensor parallelism is not ported (ROADMAP.md "
+          "Queue A item 9b, the Megatron block)")
+  if int(config.get("mesh_tensor", 1)) > 1:
+    raise NotImplementedError(
+        "mesh_tensor > 1: tensor parallelism is not ported (ROADMAP.md "
+        "Queue A item 9b, the Megatron block)")
+  if optim_sharding != param_sharding:
+    raise ValueError(f"optim_sharding={optim_sharding!r} with param_sharding="
+                     f"{param_sharding!r}: the port places the optimizer "
+                     "state as the parameters")
+  return param_sharding
+
+
+def build_mesh(config: dict):
+  """The trainer's mesh from `mesh_fsdp` (0: every process on it), as JAX
+  `train_ae.py` builds it (with `mesh_tensor`, which raises here). A
+  pipeline's mesh is given to `train_and_evaluate`."""
+  check_parallel_config(config)
+  return mesh_lib.make_mesh(fsdp=int(config.get("mesh_fsdp", 1)))
+
+
+def setup_training(config: dict, device="cuda", log=print,
+                   mesh=None) -> dict:
   """Everything a training run needs, from the config: the input pipeline
   (`train_iter`, a `data.pipeline.TrainIterator` on `device`: set its
   `start_step` to continue the stream after that many steps), the model
@@ -526,9 +630,15 @@ def setup_training(config: dict, device="cuda", log=print) -> dict:
   (`models.vae.load_vae` of `config["vae_weights"]`, seeded without it),
   its parameters in the train state as `vae_params`. Returns a dict of
   those and of `names`, `vae_encode`, `vae_decode`, `total_steps`,
-  `batch_size`, `ntrain_img`, `log_steps` and `get_steps(name,
-  default)`."""
+  `batch_size`, `ntrain_img`, `log_steps`, `get_steps(name, default)`
+  and `layout`: on a `mesh` of several processes the
+  `parallel.sharding.ShardedParams` the train state's tensors follow (the
+  process's parts, by `param_sharding`; `fully_sharded` shards the leaves
+  over `min_size_to_shard` elements, 2^18 by default), else None."""
+  strategy = check_parallel_config(config)
   batch_size = int(config["input"]["batch_size"])
+  if mesh is not None:  # each process reads its batch shard's data
+    ds_core.set_process_shard(*mesh.batch_shard())
   train_iter, device_pp, ntrain_img = pipeline.training(config["input"],
                                                         device)
   total_steps = steps("total", config, ntrain_img, batch_size)
@@ -543,7 +653,18 @@ def setup_training(config: dict, device="cuda", log=print) -> dict:
       convert.init_train_params(config, int(config.get("seed", 0))), model))
   names = [n for n, _ in named_params(model)]
   opt = make_optimizer(config, names, total_steps, warmup_steps)
-  train_state = init_train_state(model, opt, config, device)
+  layout = None
+  if mesh is not None and mesh.size > 1:
+    named = named_params(model)
+    kw = ({"min_size_to_shard": int(config["min_size_to_shard"])}
+          if strategy == "fully_sharded" and "min_size_to_shard" in config
+          else {})
+    specs = infer_sharding(dict(named), mesh, strategy, **kw)
+    layout = ShardedParams(names, [p for _, p in named],
+                           [specs[n] for n in names], mesh)
+  train_state = init_train_state(
+      model, opt, config, device,
+      params=None if layout is None else layout.shard_state())
   vae_encode = vae_decode = None
   if config.get("latent_diffusion"):
     from small_vision_tpu_torch.models import vae as vae_lib
@@ -553,7 +674,9 @@ def setup_training(config: dict, device="cuda", log=print) -> dict:
   return {
       "model": model, "opt": opt, "train_state": train_state, "names": names,
       "update_fn": make_update_fn(model, opt, config, device_pp,
-                                  vae_encode=vae_encode),
+                                  vae_encode=vae_encode, layout=layout,
+                                  mesh=mesh),
+      "layout": layout, "mesh": mesh,
       "vae_encode": vae_encode, "vae_decode": vae_decode,
       "train_iter": train_iter,
       "total_steps": total_steps, "batch_size": batch_size,
@@ -566,54 +689,66 @@ def _named(names, tensors) -> dict:
   return dict(zip(names, tensors))
 
 
-def checkpoint_state(train_state, names, chrono: Chrono) -> dict:
+def checkpoint_state(train_state, names, chrono: Chrono,
+                     layout: Optional[ShardedParams] = None) -> dict:
   """The entries a checkpoint holds, each a flat {name: leaf} tree: the
   parameters, the EMA's, the optimizer's (`mu` bf16, `nu`, count), the
   generator's state, Chrono's accumulated time and, on the latent path,
-  the VAE's parameters (`vae_params`, by state_dict name)."""
+  the VAE's parameters (`vae_params`, by state_dict name). With a
+  `layout` each leaf is gathered to its full form (every process takes
+  part)."""
+  full = layout.full if layout is not None else (lambda ts: ts)
   opt = train_state["opt"]
   state = {
-      "params": _named(names, train_state["params"]),
+      "params": _named(names, full(train_state["params"])),
       "opt": {"count": np.int64(opt["count"]),
-              **{f"mu/{n}": t for n, t in zip(names, opt["mu"])},
-              **{f"nu/{n}": t for n, t in zip(names, opt["nu"])}},
+              **{f"mu/{n}": t for n, t in zip(names, full(opt["mu"]))},
+              **{f"nu/{n}": t for n, t in zip(names, full(opt["nu"]))}},
       "generator": {"state": train_state["generator"].get_state()},
       "chrono": {"accum_train_time": chrono.save()},
   }
   if "ema_params" in train_state:
-    state["ema_params"] = _named(names, train_state["ema_params"])
+    state["ema_params"] = _named(names, full(train_state["ema_params"]))
   if "vae_params" in train_state:
     state["vae_params"] = dict(train_state["vae_params"])
   return state
 
 
-def _copy_named(names, tensors, tree, what, skip=()):
+def _copy_named(names, tensors, tree, what, skip=(), layout=None):
   """Copies the restored `tree` into `tensors` (in `names` order), leaf by
-  leaf; names whose first token is in `skip` keep what they hold."""
+  leaf; names whose first token is in `skip` keep what they hold. With a
+  `layout` the tree's leaves are full and each tensor takes its part."""
   flat = dict(tree_flatten_with_names(tree))
   want = [n for n in names if n.split("/")[0] not in skip]
   missing = sorted(set(want) - set(flat))
   if missing:
     raise KeyError(f"checkpoint {what} lacks {missing[:8]}")
   with torch.no_grad():
-    for n, t in zip(names, tensors):
+    for i, (n, t) in enumerate(zip(names, tensors)):
       if n in flat and n.split("/")[0] not in skip:
-        if tuple(flat[n].shape) != tuple(t.shape):
+        shape = (layout.full_shapes[i] if layout is not None
+                 else tuple(t.shape))
+        if tuple(flat[n].shape) != shape:
           raise ValueError(f"{what} {n}: checkpoint shape "
-                           f"{tuple(flat[n].shape)} != {tuple(t.shape)}")
-        t.copy_(flat[n])
+                           f"{tuple(flat[n].shape)} != {shape}")
+        t.copy_(flat[n] if layout is None else layout.local(i, flat[n]))
 
 
-def load_checkpoint_state(train_state, names, restored, chrono: Chrono):
-  """Puts a restored checkpoint into the live train state, in place."""
-  _copy_named(names, train_state["params"], restored["params"], "params")
+def load_checkpoint_state(train_state, names, restored, chrono: Chrono,
+                          layout: Optional[ShardedParams] = None):
+  """Puts a restored checkpoint into the live train state, in place (with a
+  `layout`, each process its parts of the full leaves)."""
+  _copy_named(names, train_state["params"], restored["params"], "params",
+              layout=layout)
   if "ema_params" in train_state:
     _copy_named(names, train_state["ema_params"], restored["ema_params"],
-                "ema_params")
+                "ema_params", layout=layout)
   opt = restored["opt"]
   train_state["opt"]["count"] = int(opt["count"])
-  _copy_named(names, train_state["opt"]["mu"], opt["mu"], "opt/mu")
-  _copy_named(names, train_state["opt"]["nu"], opt["nu"], "opt/nu")
+  _copy_named(names, train_state["opt"]["mu"], opt["mu"], "opt/mu",
+              layout=layout)
+  _copy_named(names, train_state["opt"]["nu"], opt["nu"], "opt/nu",
+              layout=layout)
   train_state["generator"].set_state(restored["generator"]["state"])
   chrono.load(restored["chrono"]["accum_train_time"])
   if "vae_params" in train_state:
@@ -623,8 +758,12 @@ def load_checkpoint_state(train_state, names, restored, chrono: Chrono):
 
 
 def train_and_evaluate(config: dict, workdir: Optional[str] = None,
-                       device="cuda", log=print) -> tuple:
-  """Runs the training loop on one device; returns (train_state, history).
+                       device="cuda", log=print, mesh=None) -> tuple:
+  """Runs the training loop; returns (train_state, history).
+
+  On `mesh` (default: `build_mesh(config)`, one process without a process
+  group) with several processes, each process runs its part (see the
+  module's doc); the returned train state holds the process's parts.
 
   With a `workdir` the run writes `sv_tpu_metrics.txt` and `config.json`
   there, checkpoints every `ckpt_steps` under `checkpoints/` (a finetune
@@ -648,18 +787,33 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
   (`jax.profiler`) have no counterpart here: `tools/profile_train.py`
   traces a step with torch.profiler.
   """
+  mesh = mesh if mesh is not None else build_mesh(config)
+  try:
+    return _train_and_evaluate(config, workdir, device, log, mesh)
+  finally:
+    ds_core.set_process_shard(None)
+
+
+def _train_and_evaluate(config, workdir, device, log, mesh):
+  writer = mesh_lib.process_index() == 0
+  if not writer:  # process 0 alone logs and writes
+    log = lambda s: None
   chrono = Chrono(device=device)
-  mw = MetricWriter(workdir, config)
-  run = setup_training(config, device, log)
+  mw = MetricWriter(workdir if writer else None, config,
+                    sinks=None if writer else [])
+  run = setup_training(config, device, log, mesh)
   total_steps, batch_size = run["total_steps"], run["batch_size"]
   ntrain_img, get_steps = run["ntrain_img"], run["get_steps"]
   train_state, update_fn = run["train_state"], run["update_fn"]
   model, names, opt = run["model"], run["names"], run["opt"]
+  layout = run["layout"]
   note = lambda s: log(f"NOTE: {s}")
   chrono.inform(total_steps=total_steps, global_bs=batch_size,
                 steps_per_epoch=ntrain_img / batch_size,
                 measure=mw.measure, write_note=note)
-  mw.measure("num_params", sum(p.numel() for p in train_state["params"]))
+  mw.measure("num_params", sum(p.numel() for _, p in named_params(model))
+             if layout is None else sum(
+                 int(np.prod(s)) for s in layout.full_shapes))
 
   def reset_ema():
     if "ema_params" in train_state:
@@ -671,9 +825,11 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
     # Warm start from a flat-npz zoo checkpoint.
     merged = merge_params(
         ckpt_lib.load_params_npz(config["model_init"]),
-        _named(names, train_state["params"]),
+        _named(names, train_state["params"] if layout is None
+               else layout.full(train_state["params"])),
         dont_load=tuple(config.get("model_load", {}).get("dont_load", ())))
-    _copy_named(names, train_state["params"], merged, "model_init")
+    _copy_named(names, train_state["params"], merged, "model_init",
+                layout=layout)
     reset_ema()
 
   # Checkpoint resume. A finetune run writes to its own subdirectory; on
@@ -685,11 +841,16 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
   ckpt_mngr = None
   if ckpt_dir and (config.get("save_ckpt", True) or config.get("resume")):
     ckpt_mngr = ckpt_lib.make_manager(
-        ckpt_dir, keep_period=get_steps("keep_ckpt", None))
-    restored = ckpt_lib.restore(ckpt_mngr)
+        ckpt_dir, keep_period=get_steps("keep_ckpt", None), writer=writer)
+    # Every process restores the step process 0 sees.
+    latest = int(collectives.broadcast_one_to_all(
+        np.int64(-1 if ckpt_mngr.latest_step() is None
+                 else ckpt_mngr.latest_step())))
+    restored = (ckpt_lib.restore(ckpt_mngr, latest) if latest >= 0
+                else None)
     if restored is not None:
-      note(f"Resumed from step {ckpt_mngr.latest_step()}")
-      load_checkpoint_state(train_state, names, restored, chrono)
+      note(f"Resumed from step {latest}")
+      load_checkpoint_state(train_state, names, restored, chrono, layout)
     elif config.get("finetune") or config.get("resume"):
       src_dir = config.get("resume") or workdir
       src_mngr = (ckpt_lib.make_manager(src_dir)
@@ -698,7 +859,7 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
         note(f"Finetune surgery from {src_dir} step {src_mngr.latest_step()}")
         _copy_named(names, train_state["params"],
                     ckpt_lib.restore_subtree(src_mngr, "params"), "params",
-                    skip=("label_embed", "label_trunk"))
+                    skip=("label_embed", "label_trunk"), layout=layout)
         reset_ema()
         train_state["opt"] = opt.init(train_state["params"])
 
@@ -710,7 +871,24 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
     evaluators = eval_common.from_config(
         config, eval_fns, device,
         lambda key, cfg: steps(key, cfg, ntrain_img, batch_size, total_steps,
-                               default=None))
+                               default=None), mesh=mesh)
+
+  @contextlib.contextmanager
+  def eval_state():
+    """The train state as the evaluators see it: the full parameters in the
+    model (and a full EMA), under the active mesh."""
+    if layout is None:
+      yield train_state
+      return
+    with ctx_lib.activate_mesh(mesh):
+      layout.gather(train_state["params"])
+      state = dict(train_state, params=layout.params)
+      if "ema_params" in train_state:
+        state["ema_params"] = layout.model_view(train_state["ema_params"])
+      try:
+        yield state
+      finally:
+        layout.release()
 
   def handle_eval_results(name, prefix, results, step):
     """Logs an evaluator's outputs; `fid_samples` are scored (FID and IS,
@@ -719,7 +897,7 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
     for key, value in results:
       if key == "fid_samples":
         ref_stats = config.get("inception_reference_path")
-        if ref_stats:
+        if ref_stats and writer:
           from small_vision_tpu_torch.evaluators.fid import create_fid_score_fn
           fid_fn = create_fid_score_fn(config.get("fid_batch_size", 1024),
                                        ref_stats,
@@ -728,7 +906,7 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
           fid_score, is_score = fid_fn(value["samples"])
           mw.measure(f"{prefix}{key}_fid_score", fid_score)
           mw.measure(f"{prefix}{key}_inception_score", is_score)
-        if workdir:
+        if workdir and writer:
           out_dir = os.path.join(workdir, f"{name}_samples")
           os.makedirs(out_dir, exist_ok=True)
           ys = value["ys"]
@@ -736,7 +914,7 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
                    samples=value["samples"],
                    ys=ys if ys is not None else np.zeros(0))
       elif key.startswith("image"):
-        if workdir:
+        if workdir and writer:
           grid = make_grid(value, num_samples=config.get("num_samples", 36))
           out_dir = os.path.join(workdir, "grids")
           os.makedirs(out_dir, exist_ok=True)
@@ -752,8 +930,8 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
     mw.step_start(first_step)
     for (name, evaluator, _, prefix) in evaluators:
       note(f"{name} evaluation (forced)...")
-      handle_eval_results(name, prefix, evaluator.run(train_state),
-                          first_step)
+      with eval_state() as state:
+        handle_eval_results(name, prefix, evaluator.run(state), first_step)
     mw.step_end()
     if config.get("force_eval"):
       mw.close()
@@ -780,6 +958,9 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
       entry = {"step": step, "ms": (time.perf_counter() - t0) * 1e3,
                "data_ms": (t0 - t_data) * 1e3}
       if log_now:
+        if layout is not None:  # the mean of the processes' losses
+          collectives.all_reduce(measurements["training_loss"],
+                                 mesh.batch_group(), "mean")
         measurements = {k: float(v) for k, v in measurements.items()}
         measurements["epochs"] = step * batch_size / ntrain_img
         for name, value in measurements.items():
@@ -797,8 +978,9 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
           step, ckpt_steps, total_steps, first=False):
         chrono.pause(wait_for=train_state["params"])
         with torch.profiler.record_function("checkpoint"):
-          ckpt_lib.save(ckpt_mngr,
-                        checkpoint_state(train_state, names, chrono), step)
+          state = checkpoint_state(train_state, names, chrono, layout)
+          if writer:
+            ckpt_lib.save(ckpt_mngr, state, step)
         chrono.resume()
 
       for (name, evaluator, ev_steps, prefix) in evaluators:
@@ -806,9 +988,9 @@ def train_and_evaluate(config: dict, workdir: Optional[str] = None,
           chrono.pause(wait_for=train_state["params"])
           chrono.tick(step)
           note(f"{name} evaluation at step {step}...")
-          with torch.profiler.record_function("evaluator"):
-            handle_eval_results(name, prefix, evaluator.run(train_state),
-                                step)
+          with torch.profiler.record_function("evaluator"), \
+              eval_state() as state:
+            handle_eval_results(name, prefix, evaluator.run(state), step)
           chrono.resume()
 
       mw.step_end()

@@ -24,6 +24,11 @@ state (`params.npz`, `ema_params.npz`, `opt.npz`, `generator.npz`,
     removed when the next manager starts on that workdir.
   - Retention, as orbax's: the newest `max_to_keep` steps stay, and of the
     older ones those that are a multiple of `keep_period` stay for ever.
+  - One layout for every process layout: the trainer gathers each sharded
+    leaf to its full form before a save and process 0 writes (the other
+    processes' managers are readers, `writer=False`); on restore every
+    process reads the files and takes its own shard. A checkpoint written
+    by a sharded run restores into one process, and the other way round.
 """
 
 import os
@@ -93,8 +98,9 @@ class Manager:
   """Checkpoints under `directory`, one sub-directory per step."""
 
   def __init__(self, directory: str, keep_period: Optional[int] = None,
-               max_to_keep: int = 1):
+               max_to_keep: int = 1, writer: bool = True):
     self.directory = directory
+    self.writer = writer
     self.keep_period = keep_period
     self.max_to_keep = max_to_keep
     self._thread = None
@@ -104,12 +110,16 @@ class Manager:
     # writer thread's (waiting for the copies, writing, renaming).
     self.last_blocking_s = None
     self.last_write_s = None
+    if not writer:
+      return
     os.makedirs(directory, exist_ok=True)
     for name in os.listdir(directory):
       if name.endswith(_TMP_SUFFIX):  # a save that never completed
         shutil.rmtree(os.path.join(directory, name), ignore_errors=True)
 
   def all_steps(self) -> list:
+    if not os.path.isdir(self.directory):
+      return []
     return sorted(int(n) for n in os.listdir(self.directory)
                   if re.fullmatch(r"\d+", n))
 
@@ -136,6 +146,8 @@ class Manager:
     return out
 
   def save(self, state: Mapping, step: int):
+    if not self.writer:
+      raise RuntimeError("this process's checkpoint manager only reads")
     self.wait_until_finished()
     t0 = time.perf_counter()
     host = {entry: self._host_copy(entry, tree)
@@ -202,10 +214,11 @@ class Manager:
 
 
 def make_manager(workdir: str, *, keep_period: Optional[int] = None,
-                 max_to_keep: int = 1) -> Manager:
-  """A manager writing under `{workdir}/checkpoints`."""
+                 max_to_keep: int = 1, writer: bool = True) -> Manager:
+  """A manager of `{workdir}/checkpoints` (a reader with `writer=False`)."""
   return Manager(os.path.join(os.path.abspath(workdir), "checkpoints"),
-                 keep_period=keep_period, max_to_keep=max_to_keep)
+                 keep_period=keep_period, max_to_keep=max_to_keep,
+                 writer=writer)
 
 
 def save(mngr: Manager, state: Mapping, step: int):

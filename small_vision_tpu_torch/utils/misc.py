@@ -1,9 +1,8 @@
 """Small stateless helpers.
 
-Counterpart of small_vision_tpu/utils/misc.py for what one process on one
-card needs: `itstime`, `hms`, `make_grid` and `log_timing`. The cross-process
-helpers (`sync`, `pad_shard_unpad`, `accumulate_gradient`) come with the
-parallelism slice.
+Counterpart of small_vision_tpu/utils/misc.py: `itstime`, `hms`,
+`make_grid`, `log_timing`, and the cross-process helpers `sync`,
+`pad_shard_unpad` and `accumulate_gradient`.
 """
 
 import contextlib
@@ -12,6 +11,8 @@ import time
 
 import numpy as np
 import torch
+
+from small_vision_tpu_torch.utils.trees import tree_leaves, tree_map
 
 
 def itstime(step, every_n_steps, total_steps, last=True, first=True,
@@ -84,3 +85,70 @@ def log_timing(measure_fn, name: str, device=None):
   t0 = time.monotonic()
   yield
   measure_fn(name, time.monotonic() - t0)
+
+
+def sync():
+  """A barrier over every process: an all-reduce of one per process, whose
+  sum must be the process count. One process: nothing to wait for."""
+  from small_vision_tpu_torch.parallel import collectives
+  from small_vision_tpu_torch.parallel import mesh as mesh_lib
+  total = collectives.all_reduce_host([1.0])
+  assert int(total[0]) == mesh_lib.process_count(), total
+
+
+def pad_shard_unpad(wrapped, static_argnums=(0,), static_argnames=(),
+                    num_shards=None):
+  """Wraps `wrapped` so that a batch that does not divide by the shard count
+  (default: the process count) is zero-padded up to a multiple of it (at
+  least `min_device_batch` rows a shard, a keyword the wrapper adds), and
+  the outputs with a leading batch dim are cut back to the batch."""
+  def wrapper(*args, min_device_batch=None, **kw):
+    from small_vision_tpu_torch.parallel import mesh as mesh_lib
+    d = num_shards or mesh_lib.process_count()
+    sizes = set()
+    for i, a in enumerate(args):
+      if i not in static_argnums:
+        sizes |= {t.shape[0] for t in tree_leaves(a)}
+    for k, v in kw.items():
+      if k not in static_argnames:
+        sizes |= {t.shape[0] for t in tree_leaves(v)}
+    assert len(sizes) == 1, f"Inconsistent batch sizes: {sizes}"
+    b = sizes.pop()
+    db = -(-b // d)
+    if min_device_batch and db < min_device_batch:
+      db = min_device_batch
+
+    def pad(x):
+      if not hasattr(x, "shape") or db * d == b:
+        return x
+      if isinstance(x, torch.Tensor):
+        return torch.cat([x, x.new_zeros((db * d - b,) + tuple(x.shape[1:]))])
+      return np.concatenate(
+          [np.asarray(x), np.zeros((db * d - b,) + x.shape[1:], x.dtype)])
+
+    args = [a if i in static_argnums else tree_map(pad, a)
+            for i, a in enumerate(args)]
+    kw = {k: v if k in static_argnames else tree_map(pad, v)
+          for k, v in kw.items()}
+    out = wrapped(*args, **kw)
+    return tree_map(lambda x: x[:b] if hasattr(x, "shape") and len(x.shape)
+                and x.shape[0] >= b else x, out)
+  return wrapper
+
+
+def accumulate_gradient(loss_and_grad_fn, params, batch, accum_steps):
+  """(loss, grads) of `loss_and_grad_fn(params, batch)` taken over
+  `accum_steps` equal microbatches of the batch (dim 0) and averaged, in
+  the JAX order: the first microbatch's, plus the others' in turn, times
+  1 / accum_steps. `grads` is a list (or dict) of tensors."""
+  if not accum_steps or accum_steps <= 1:
+    return loss_and_grad_fn(params, batch)
+  micro = lambda i: tree_map(lambda x: x.reshape(
+      (accum_steps, x.shape[0] // accum_steps) + tuple(x.shape[1:]))[i], batch)
+  total_l, total_g = loss_and_grad_fn(params, micro(0))
+  for i in range(1, accum_steps):
+    l, g = loss_and_grad_fn(params, micro(i))
+    total_l = total_l + l
+    total_g = tree_map(lambda a, b: a + b, total_g, g)
+  scale = 1.0 / accum_steps
+  return total_l * scale, tree_map(lambda g: g * scale, total_g)

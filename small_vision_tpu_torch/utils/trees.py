@@ -44,3 +44,23 @@ def tree_get(tree, name: str):
     else:
       node = getattr(node, part)
   return node
+
+
+def tree_map(fn, *trees):
+  """`fn` over the leaves of nested dicts, lists and tuples (the first
+  tree's structure; the others alike)."""
+  first = trees[0]
+  if isinstance(first, Mapping):
+    return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+  if isinstance(first, (list, tuple)):
+    return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
+  return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+  """The leaves of nested dicts, lists and tuples, in order."""
+  if isinstance(tree, Mapping):
+    return [x for v in tree.values() for x in tree_leaves(v)]
+  if isinstance(tree, (list, tuple)):
+    return [x for v in tree for x in tree_leaves(v)]
+  return [tree]

@@ -400,7 +400,10 @@ for m in ("tools.ablate_attention_kernel", "evaluators.common",
           "ops.quant", "evaluators.fewshot_lsr", "evaluators.inception",
           "evaluators.fid", "evaluators.classification",
           "configs.common_fewshot", "models.vae", "train.linear_ae",
-          "configs.ae_i1k_lp"):
+          "configs.ae_i1k_lp", "launch", "parallel.mesh",
+          "parallel.collectives", "parallel.ctx", "parallel.sharding",
+          "parallel.explicit_step", "parallel.pipeline",
+          "tools.dryrun_multichip"):
   assert pkg.__name__ + "." + m in sys.modules, m
 print(len([m for m in sys.modules if m.startswith(pkg.__name__)]))
 assert not bad, bad

@@ -3,8 +3,8 @@ remat policies, the `heads` knob, UMD-S and runlocal, `attn_impl` "xla"
 and "flax".
 
   - The config dicts for `heads=6`, `scan=True`, `variant=S/4`,
-    `runlocal` and the attention settings equal the JAX `ConfigDict`s;
-    `fsdp=True` raises, naming the ROADMAP item.
+    `runlocal` and the attention settings equal the JAX `ConfigDict`s, and
+    so do `fsdp=True`'s sharding fields.
   - Under `scan=True` the parameters carry flax `nn.scan`'s names and
     shapes (`Encoder/blocks/...`, depth first), from `jax.eval_shape` of the
     JAX model; `stack_blocks` / `unstack_blocks` round-trip exactly, both
@@ -68,9 +68,11 @@ def test_lp_config_takes_scan_and_fsdp_raises():
   for arg in ("scan=True", "runlocal,scan=True,data=synthetic"):
     assert ae_i1k_lp.get_config(arg)["model"] == dict(
         jconfig_lp.get_config(arg).model), arg
-  assert jconfig.get_config("fsdp=True").model["scan"]
-  with pytest.raises(ValueError, match="Queue A item 9"):
-    ae_i1k.get_config("fsdp=True")
+  for arg in ("fsdp=True", "runlocal,fsdp=True,data=synthetic"):
+    got, want = ae_i1k.get_config(arg), jconfig.get_config(arg)
+    assert got["model"]["scan"] == want.model["scan"], arg
+    for key in ("param_sharding", "optim_sharding", "mesh_fsdp"):
+      assert got[key] == want[key], (arg, key)
 
 
 def test_scan_param_names_and_shapes_are_flaxs():

@@ -1,0 +1,365 @@
+"""Port parity: the parallel layer in one process, against the JAX package
+on conftest's 8 virtual CPU devices.
+
+  - `make_mesh`'s axes and sizes against JAX `make_mesh`'s, over 8
+    processes (a layout-only mesh: no process group here), and the
+    batch-shard coordinates against JAX's `P(("data", "fsdp"))` rows.
+  - `infer_sharding` under all five strategies on a small UMD's parameters
+    (unrolled and `scan=True`): each leaf's spec and each process's element
+    count against the JAX specs and `NamedSharding.shard_shape` on the
+    same mesh, from `jax.eval_shape` of the JAX model.
+  - `reshard` / `unshard` of a tree: the blocks of every rank put back
+    together are the full tree, bit for bit.
+  - `launch.env_rank_size`, `first_host`, `coordinator_address` on the
+    environment dicts of tests/test_parallel.py.
+  - `utils.misc.pad_shard_unpad` and `accumulate_gradient` against JAX's.
+  - `stage_params` / `unstage_params` round trips, `bubble_fraction`.
+  - `MixedSource`'s order at process shards 0-3 against the JAX iterator's
+    at process indices 0-3.
+  - With no process group every collective is the fast path: it returns
+    its input, and the sharded helpers leave one process's step alone.
+The multi-process checks are in tests/test_torch_parallel_multiproc.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import NamedSharding
+
+from small_vision_tpu import parallel as jparallel
+from small_vision_tpu.data import pipeline as jpipeline
+from small_vision_tpu.models import ae as jae
+from small_vision_tpu.utils import misc as jmisc
+from small_vision_tpu_torch import launch
+from small_vision_tpu_torch.configs import ae_i1k
+from small_vision_tpu_torch.data import core as ds_core
+from small_vision_tpu_torch.data import pipeline as tpipeline
+from small_vision_tpu_torch.data import synthetic
+from small_vision_tpu_torch.parallel import collectives, ctx
+from small_vision_tpu_torch.parallel import mesh as mesh_lib
+from small_vision_tpu_torch.parallel import pipeline as pl
+from small_vision_tpu_torch.parallel import sharding
+from small_vision_tpu_torch.train import train_ae
+from small_vision_tpu_torch.utils import misc
+from small_vision_tpu_torch.utils.trees import tree_flatten_with_names
+
+MESHES = [dict(), dict(fsdp=4), dict(fsdp=0), dict(data=2, fsdp=2, tensor=2),
+          dict(data=4, tensor=2), dict(data=2, pipe=4),
+          dict(data=1, pipe=2, fsdp=4), dict(fsdp=2, pipe=2)]
+
+
+@pytest.mark.parametrize("kw", MESHES)
+def test_make_mesh_matches_jax(kw):
+  got = mesh_lib.make_mesh(8, **kw)
+  want = jparallel.make_mesh(**kw)
+  assert got.axis_names == tuple(want.axis_names)
+  assert got.shape == dict(want.shape)
+  assert got.layout_only
+  # The rows of the global batch each rank holds: JAX's P(("data",
+  # "fsdp")) on the mesh's devices, device i being rank i.
+  spec = jparallel.batch_sharding(want)
+  b = 16 * 8
+  idx = spec.devices_indices_map((b,))
+  for rank in range(8):
+    index, count = got.batch_shard(rank)
+    rows = idx[jax.devices()[rank]][0]
+    start = rows.start or 0
+    stop = b if rows.stop is None else rows.stop
+    assert (start, stop) == (index * b // count, (index + 1) * b // count)
+
+
+def test_one_process_mesh_has_no_groups():
+  mesh = mesh_lib.make_mesh()
+  assert mesh.shape == {"data": 1} and not mesh.layout_only
+  assert mesh.group("data") is None and mesh.batch_group() is None
+  assert mesh.batch_shard() == (0, 1)
+  assert mesh_lib.local_mesh_info(mesh) == (1, 1, 1)
+
+
+def _small_config(scan):
+  config = ae_i1k.get_config("runlocal,size=16,data=synthetic")
+  config["model"].update(scan=scan, dtype_mm="float32", num_classes=10)
+  config["num_classes"] = 10
+  return config
+
+
+def _trees(scan):
+  """(the port's {name: parameter} of the small UMD, JAX's shapes)."""
+  config = _small_config(scan)
+  model = train_ae.build_model(config, device="meta")
+  port = dict(train_ae.named_params(model))
+  shapes = jax.eval_shape(lambda: jae.Model(**config["model"]).init(
+      jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)),
+      t=jnp.zeros((1,), jnp.int32), y=jnp.zeros((1,), jnp.int32)))
+  return port, shapes["params"]
+
+
+STRATEGIES = [("replicated", dict(fsdp=4)),
+              ("fully_sharded", dict(fsdp=4)),
+              ("fully_sharded", dict()),
+              ("fully_sharded", dict(data=2, fsdp=2, tensor=2)),
+              ("tensor_parallel", dict(data=4, tensor=2)),
+              ("tp_fsdp", dict(data=2, fsdp=2, tensor=2)),
+              ("pipeline", dict(data=4, pipe=2))]
+
+
+@pytest.mark.parametrize("strategy,kw,scan", [
+    (s, kw, scan) for s, kw in STRATEGIES for scan in (False, True)
+    if scan or s != "pipeline"])  # the pipeline shards scan=True stacks
+def test_infer_sharding_matches_jax(strategy, kw, scan):
+  """Every leaf's spec and per-process element count equal JAX's
+  (min_size_to_shard 0 where the strategy takes it, so that the small
+  model's leaves shard)."""
+  port, jtree = _trees(scan)
+  extra = ({"min_size_to_shard": 0}
+           if strategy in ("fully_sharded", "tp_fsdp") else {})
+  mesh = mesh_lib.make_mesh(8, **kw)
+  jmesh = jparallel.make_mesh(**kw)
+  got = sharding.infer_sharding(port, mesh, strategy, **extra)
+  want = dict(tree_flatten_with_names(
+      jax.tree.map(lambda s: s, jparallel.infer_sharding(
+          jtree, jmesh, strategy, **extra),
+          is_leaf=lambda s: isinstance(s, NamedSharding))))
+  jshapes = dict(tree_flatten_with_names(jtree))
+  assert sorted(got) == sorted(want)
+  sharded = 0
+  for name, spec in got.items():
+    jspec = tuple(want[name].spec)
+    assert spec == jspec + (None,) * (len(spec) - len(jspec)) if spec else \
+        not any(jspec), (name, spec, jspec)
+    local = sharding.shard_shape(port[name].shape, spec, mesh)
+    jlocal = want[name].shard_shape(jshapes[name].shape)
+    assert int(np.prod(local)) == int(np.prod(jlocal)), (name, local, jlocal)
+    sharded += local != tuple(port[name].shape)
+  if strategy != "replicated":
+    assert sharded, "no leaf sharded"
+
+
+def test_reshard_and_unshard_round_trip():
+  """The ranks' blocks of a fully_sharded tree, put back together on their
+  dims, are the tree; `unshard` of one process's tree is the identity."""
+  port, _ = _trees(True)
+  rng = np.random.default_rng(0)
+  full = {n: torch.from_numpy(rng.standard_normal(tuple(p.shape)).astype(
+      np.float32)) for n, p in port.items()}
+  mesh = mesh_lib.make_mesh(8, fsdp=4)
+  specs = sharding.infer_sharding(full, mesh, "fully_sharded",
+                                  min_size_to_shard=0)
+  blocks = [sharding.reshard(full, specs, mesh, rank) for rank in range(8)]
+  for name, t in full.items():
+    hit = sharding.spec_axis(specs[name])
+    if hit is None:
+      assert all(b[name] is t for b in blocks)
+      continue
+    dim, axis = hit
+    ranks = [r for r in range(8) if mesh.coord("data", r) == 0]
+    back = torch.cat([blocks[r][name] for r in ranks], dim)
+    assert torch.equal(back, t), name
+  one = mesh_lib.make_mesh()
+  assert sharding.unshard(full, (), one) == full
+
+
+def _clear_launcher_env(monkeypatch):
+  import os
+  for k in list(os.environ):
+    if k.startswith(("OMPI_", "SLURM_", "PMI_")) or k == "SV_COORDINATOR_ADDRESS":
+      monkeypatch.delenv(k, raising=False)
+
+
+def test_launch_env_rank_discovery(monkeypatch):
+  """The environment dicts of tests/test_parallel.py, through the port's
+  launch helpers and the JAX package's alike."""
+  from small_vision_tpu import launch as jlaunch
+  _clear_launcher_env(monkeypatch)
+  assert launch.env_rank_size() is None is jlaunch.env_rank_size()
+  monkeypatch.setenv("OMPI_COMM_WORLD_RANK", "3")
+  monkeypatch.setenv("OMPI_COMM_WORLD_SIZE", "8")
+  monkeypatch.setenv("OMPI_COMM_WORLD_LOCAL_RANK", "1")
+  assert launch.env_rank_size() == (3, 8, 1) == jlaunch.env_rank_size()
+  monkeypatch.delenv("OMPI_COMM_WORLD_RANK")
+  monkeypatch.delenv("OMPI_COMM_WORLD_SIZE")
+  monkeypatch.setenv("SLURM_PROCID", "5")
+  monkeypatch.setenv("SLURM_NTASKS", "16")
+  assert launch.env_rank_size() == (5, 16, 0) == jlaunch.env_rank_size()
+  monkeypatch.setenv("SLURM_NODELIST", "node[003-008,011]")
+  assert launch.coordinator_address(29500) == "node003:29500"
+  for nodes in ("a1,b2", "gpu-07", "node[003-008,011]", "x[1-2]"):
+    assert launch.first_host(nodes) == jlaunch.first_host(nodes)
+  monkeypatch.setenv("SV_COORDINATOR_ADDRESS", "10.0.0.1")
+  assert launch.coordinator_address(29500) == "10.0.0.1:29500"
+  monkeypatch.setenv("SV_COORDINATOR_ADDRESS", "10.0.0.1:4000")
+  assert launch.coordinator_address(29500) == "10.0.0.1:4000"
+  assert (launch.coordinator_address(1) == jlaunch.coordinator_address(1))
+  monkeypatch.delenv("SV_COORDINATOR_ADDRESS")
+  monkeypatch.delenv("SLURM_NODELIST")
+  with pytest.raises(RuntimeError, match="SV_COORDINATOR_ADDRESS"):
+    launch.coordinator_address(29500)
+
+
+def test_one_process_needs_no_process_group(monkeypatch):
+  """Without a launcher `init_distributed` does nothing, and a launcher
+  world of one joins nothing either."""
+  _clear_launcher_env(monkeypatch)
+  mesh_lib.init_distributed(device="cpu")
+  assert not mesh_lib.is_distributed()
+  monkeypatch.setenv("SLURM_PROCID", "0")
+  monkeypatch.setenv("SLURM_NTASKS", "1")
+  mesh_lib.init_distributed(device="cpu")
+  assert not mesh_lib.is_distributed()
+  assert launch.backend_for("cpu") == "gloo"
+  assert launch.backend_for("cuda") == "nccl"
+
+
+@pytest.mark.parametrize("b,min_device_batch", [(13, None), (16, None),
+                                                (3, 4)])
+def test_pad_shard_unpad_matches_jax(b, min_device_batch):
+  """Rows padded to a multiple of the shard count (8, JAX's device count
+  here), the function sees the padded batch, the outputs are cut back."""
+  seen = {}
+
+  def fn(scale, x):
+    seen.setdefault("shapes", []).append(x.shape[0])
+    return {"y": x * scale, "s": x.sum()}
+
+  x = np.arange(b * 3, dtype=np.float32).reshape(b, 3)
+  want = jmisc.pad_shard_unpad(
+      lambda scale, x: fn(scale, np.asarray(x)))(
+          2.0, x, min_device_batch=min_device_batch)
+  got = misc.pad_shard_unpad(fn, num_shards=jax.device_count())(
+      2.0, torch.from_numpy(x), min_device_batch=min_device_batch)
+  assert seen["shapes"][0] == seen["shapes"][1]
+  np.testing.assert_array_equal(got["y"].numpy(), np.asarray(want["y"]))
+  np.testing.assert_array_equal(got["s"].numpy(), np.asarray(want["s"]))
+
+
+def test_accumulate_gradient_matches_jax():
+  """4 microbatches: the mean loss and gradients, f32, within 1e-6."""
+  rng = np.random.default_rng(1)
+  w = rng.standard_normal((5, 3)).astype(np.float32)
+  x = rng.standard_normal((16, 5)).astype(np.float32)
+  y = rng.standard_normal((16, 3)).astype(np.float32)
+
+  def jloss(p, batch):
+    return jnp.mean((batch["x"] @ p - batch["y"]) ** 2)
+
+  def tloss_grad(p, batch):
+    p = p.clone().requires_grad_(True)
+    loss = torch.mean((batch["x"] @ p - batch["y"]) ** 2)
+    return loss.detach(), torch.autograd.grad(loss, p)[0]
+
+  jl, jg = jmisc.accumulate_gradient(jax.value_and_grad(jloss), w,
+                                     {"x": x, "y": y}, 4)
+  tl, tg = misc.accumulate_gradient(
+      tloss_grad, torch.from_numpy(w),
+      {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}, 4)
+  np.testing.assert_allclose(float(tl), float(jl), rtol=1e-6)
+  np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-5,
+                             atol=1e-6)
+  full_l, full_g = misc.accumulate_gradient(
+      tloss_grad, torch.from_numpy(w),
+      {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}, 1)
+  np.testing.assert_allclose(tg.numpy(), full_g.numpy(), rtol=1e-5,
+                             atol=1e-6)
+
+
+def test_stage_roundtrip():
+  rng = np.random.default_rng(2)
+  stacked = {"w": torch.from_numpy(rng.standard_normal((8, 4, 4))),
+             "b": {"c": torch.from_numpy(rng.standard_normal((8, 4)))}}
+  staged = pl.stage_params(stacked, 4)
+  assert staged["w"].shape == (4, 2, 4, 4)
+  assert staged["b"]["c"].shape == (4, 2, 4)
+  back = pl.unstage_params(staged)
+  assert torch.equal(back["w"], stacked["w"])
+  assert torch.equal(back["b"]["c"], stacked["b"]["c"])
+  assert pl.staged_param_specs(staged)["w"] == ("pipe", None, None, None)
+  with pytest.raises(AssertionError, match="not divisible"):
+    pl.stage_params(stacked, 3)
+
+
+def test_bubble_fraction():
+  from small_vision_tpu.parallel import pipeline as jpl
+  for s, m in ((1, 4), (4, 13), (2, 8), (8, 32)):
+    assert pl.bubble_fraction(s, m) == jpl.bubble_fraction(s, m)
+  assert pl.bubble_fraction(2, 8) == pytest.approx(1 / 9)
+
+
+def _mixed_ids(make, n):
+  out = []
+  for ex in make():
+    out.append((int(ex["_id"]), int(ex["_mix"])))
+    if len(out) == n:
+      return out
+
+
+@pytest.mark.parametrize("index", [0, 1, 2, 3])
+def test_mixed_source_order_matches_jax_per_process(index, monkeypatch):
+  """The mixture's (seed, epoch, process) draws and each source's process
+  shard, at process `index` of 4, against the JAX MixedSource with
+  `jax.process_index()` = index and `jax.process_count()` = 4."""
+  from small_vision_tpu.data import synthetic as jsynthetic
+  monkeypatch.setattr(jax, "process_index", lambda: index)
+  monkeypatch.setattr(jax, "process_count", lambda: 4)
+  kw = [dict(img_size=8, num_examples=40, pool=8),
+        dict(img_size=8, num_examples=24, pool=8, seed=3)]
+  want = _mixed_ids(lambda: jpipeline.MixedSource(
+      [jsynthetic.DataSource(**k) for k in kw], [2.0, 1.0]).examples(
+          seed=5, epoch=1), 60)
+  ds_core.set_process_shard(index, 4)
+  try:
+    got = _mixed_ids(lambda: tpipeline.MixedSource(
+        [synthetic.DataSource(**k) for k in kw], [2.0, 1.0]).examples(
+            seed=5, epoch=1), 60)
+  finally:
+    ds_core.set_process_shard(None)
+  assert got == want
+
+
+def test_collectives_fast_path_without_a_process_group():
+  x = torch.arange(6.0).reshape(2, 3)
+  for fn in (lambda: collectives.all_reduce(x, None),
+             lambda: collectives.all_gather(x, None, 1),
+             lambda: collectives.reduce_scatter(x, None, 0),
+             lambda: collectives.broadcast(x, None),
+             lambda: collectives.ppermute(x, None),
+             lambda: collectives.gather(x, None),
+             lambda: collectives.scatter(x, None),
+             lambda: collectives.ppermute_grad(x, None),
+             lambda: collectives.sum_grad_identity(x, None)):
+    assert fn() is x
+  assert collectives.identity_grad_sum(None, x)[0] is x
+  assert collectives.transport(None) == "local"
+  a = np.arange(4.0)
+  np.testing.assert_array_equal(collectives.process_allgather(a), a)
+  np.testing.assert_array_equal(collectives.fetch_global({"a": a})["a"], a)
+  assert collectives.broadcast_one_to_all(a) is a
+  assert collectives.gather_metrics(np.float32(2.5)) == 2.5
+  np.testing.assert_array_equal(collectives.all_reduce_host([1.0, 2.0]),
+                                [1.0, 2.0])
+  misc.sync()
+
+
+def test_constrain_is_an_identity_that_checks_names():
+  x = torch.zeros(2, 3)
+  assert ctx.constrain(x, "batch") is x  # no mesh: nothing checked
+  with ctx.activate_mesh(mesh_lib.make_mesh()):
+    assert ctx.current_mesh() is not None
+    assert ctx.constrain(x, "batch", "embed") is x
+    with pytest.raises(AssertionError):
+      ctx.constrain(x, "batch")
+  assert ctx.current_mesh() is None
+
+
+def test_trainer_refuses_tensor_parallelism():
+  for extra in ({"param_sharding": "tensor_parallel"},
+                {"param_sharding": "tp_fsdp", "optim_sharding": "tp_fsdp"},
+                {"mesh_tensor": 2}):
+    config = dict(_small_config(False), **extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+      train_ae.check_parallel_config(config)
+  with pytest.raises(ValueError, match="optim_sharding"):
+    train_ae.check_parallel_config(dict(
+        _small_config(False), param_sharding="fully_sharded",
+        optim_sharding="replicated"))
