@@ -9,11 +9,11 @@ process's rank and the world size (JAX's process index and count), and
 under a mesh the trainer's `set_process_shard` (its position on the batch
 axes: the processes of one pipeline read the same rows).
 
-Sources: "synthetic", "arrays" (npy memmaps), "arrays:<root>", and
-"mod:<module>" (a module with a `DataSource` class). TFDS and latent
-sources need TensorFlow, which the port does not use: their names raise
-and point at the arrays route (for latents: the images with the VAE
-encode in the step, or `use_preprocessed_latents`).
+Sources: "synthetic", "arrays" (npy memmaps), "arrays:<root>",
+"latents" (the JAX package's TFRecords of precomputed VAE latents, read
+without TensorFlow; `pattern=` names the files), and "mod:<module>" (a
+module with a `DataSource` class). TFDS sources need TensorFlow, which the
+port does not use: their names raise and point at the arrays route.
 """
 
 import abc
@@ -99,7 +99,8 @@ class DataSource(abc.ABC):
 
 
 _KNOWN = {"synthetic": "small_vision_tpu_torch.data.synthetic",
-          "arrays": "small_vision_tpu_torch.data.arrays"}
+          "arrays": "small_vision_tpu_torch.data.arrays",
+          "latents": "small_vision_tpu_torch.data.latents"}
 
 
 def get(name: str, **kw) -> DataSource:
@@ -109,15 +110,11 @@ def get(name: str, **kw) -> DataSource:
   if name.startswith("arrays:"):
     return get("arrays", root=name[len("arrays:"):], **kw)
   if name not in _KNOWN:
-    what = {"tfds": "the TFDS source", "latents": "the latent source"}.get(
-        name, f"dataset {name!r} (a TFDS name)")
-    latent = (" For the latent path, train on the images with "
-              "latent_diffusion=True (the step encodes them), or feed "
-              "latents from your own source with use_preprocessed_latents."
-              if name == "latents" else "")
+    what = ("the TFDS source" if name == "tfds"
+            else f"dataset {name!r} (a TFDS name)")
     raise ValueError(
         f"data source {name!r}: {what} needs TensorFlow, which the port "
         f"does not use. Decode the images once into an arrays dataset with "
         f"`{INGEST_TOOL} --src dir:<class tree> --out <root>/train` (and "
-        f"<root>/validation) and train on data=arrays:<root>.{latent}")
+        f"<root>/validation) and train on data=arrays:<root>.")
   return importlib.import_module(_KNOWN[name]).DataSource(**kw)

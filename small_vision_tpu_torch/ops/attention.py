@@ -237,12 +237,35 @@ class AttentionPacked(torch.autograd.Function):
     return (*bwd(q, k, v, do, ctx.num_heads), None, None)
 
 
+# K3's forward as an operator that `torch.export` sees (the exported
+# sampler, `tools/export_sampler.py`): CUDA is the wrapper, CPU the plain
+# version; eager code calls the wrapper itself.
+@torch.library.custom_op("svt::attention_packed_fwd", mutates_args=(),
+                         device_types="cuda")
+def _attention_packed_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         num_heads: int) -> torch.Tensor:
+  return attention_packed_fwd(q, k, v, num_heads)
+
+
+@_attention_packed_op.register_kernel("cpu")
+def _(q, k, v, num_heads):
+  return attention_packed_plain(q, k, v, num_heads)
+
+
+@_attention_packed_op.register_fake
+def _(q, k, v, num_heads):
+  return torch.empty_like(q)
+
+
 def attention_packed(q, k, v, num_heads, dry=False):
   """The plain versions on CPU tensors, the CUDA kernels on CUDA tensors;
   differentiable through `AttentionPacked` when a gradient is wanted
-  (`dry`: see there)."""
+  (`dry`: see there); the operator `svt::attention_packed_fwd` under
+  `torch.export`."""
   if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
     return AttentionPacked.apply(q, k, v, num_heads, dry)
+  if torch.compiler.is_exporting():
+    return _attention_packed_op(q, k, v, int(num_heads))
   if q.device.type == "cpu":
     return attention_packed_plain(q, k, v, num_heads)
   return attention_packed_fwd(q, k, v, num_heads)

@@ -289,12 +289,54 @@ def _wants_grad(tensors):
   return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+# K5's and K6's forwards as operators that `torch.export` sees (the
+# exported sampler, `tools/export_sampler.py`): CUDA is the wrapper, CPU
+# the plain version; eager code calls the wrappers themselves.
+@torch.library.custom_op("svt::fused_mlp_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fused_mlp_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                  w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+  return fused_mlp_fwd(x, w1, b1, w2, b2)
+
+
+@_fused_mlp_op.register_kernel("cpu")
+def _(x, w1, b1, w2, b2):
+  return fused_mlp_plain(x, w1, b1, w2, b2)
+
+
+@_fused_mlp_op.register_fake
+def _(x, w1, b1, w2, b2):
+  return torch.empty_like(x)
+
+
+@torch.library.custom_op("svt::fused_mha_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fused_mha_op(x: torch.Tensor, wq: torch.Tensor, bq: torch.Tensor,
+                  wk: torch.Tensor, bk: torch.Tensor, wv: torch.Tensor,
+                  bv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                  num_heads: int) -> torch.Tensor:
+  return fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
+
+
+@_fused_mha_op.register_kernel("cpu")
+def _(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  return fused_mha_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
+
+
+@_fused_mha_op.register_fake
+def _(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  return torch.empty_like(x)
+
+
 def fused_mlp(x, w1, b1, w2, b2):
   """Dense, tanh-gelu, Dense on (..., D): the plain version on CPU tensors,
-  K5 on CUDA tensors; differentiable through `FusedMLP`."""
+  K5 on CUDA tensors; differentiable through `FusedMLP`; the operator
+  `svt::fused_mlp_fwd` under `torch.export`."""
   args = (x, w1, b1, w2, b2)
   if _wants_grad(args):
     return FusedMLP.apply(*args)
+  if torch.compiler.is_exporting():
+    return _fused_mlp_op(*args)
   if x.device.type == "cpu":
     return fused_mlp_plain(*args)
   return fused_mlp_fwd(*args)
@@ -303,10 +345,12 @@ def fused_mlp(x, w1, b1, w2, b2):
 def fused_mha(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   """Self-attention with its four projections on packed (B, L, H*D): the
   plain version on CPU tensors, K6 on CUDA tensors; differentiable through
-  `FusedMHA`."""
+  `FusedMHA`; the operator `svt::fused_mha_fwd` under `torch.export`."""
   args = (x, wq, bq, wk, bk, wv, bv, wo, bo)
   if _wants_grad(args):
     return FusedMHA.apply(*args, num_heads)
+  if torch.compiler.is_exporting():
+    return _fused_mha_op(*args, int(num_heads))
   if x.device.type == "cpu":
     return fused_mha_plain(*args, num_heads)
   return fused_mha_fwd(*args, num_heads)

@@ -10,6 +10,14 @@ tensor on the CPU and the kernels for a CUDA tensor, and raises for a CUDA
 tensor a kernel does not take. Without gradients (the sampler) it is K1
 alone, writing no statistics; with gradients it goes through `LNModulate`,
 whose forward is K1 with its mean/rstd buffers and whose backward is K2.
+
+K1's forward is also the operator `torch.ops.svt.ln_modulate_fwd`
+(`torch.library.custom_op`: the CUDA implementation is `ln_modulate_fwd`,
+the CPU one the plain version, with a fake that gives the output's
+shape), which the no-gradient path calls while `torch.export` traces it
+(`tools/export_sampler.py`), so that an exported graph holds the kernel;
+eagerly it calls the wrapper, as before. The launch count sits in the
+wrapper, so a launch from an exported graph counts as one from eager code.
 """
 
 import functools
@@ -271,11 +279,32 @@ def _needs_grad(*tensors):
       t is not None and t.requires_grad for t in tensors)
 
 
+@torch.library.custom_op("svt::ln_modulate_fwd", mutates_args=(),
+                         device_types="cuda")
+def _ln_modulate_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    shift: Optional[torch.Tensor],
+                    scale: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+  return ln_modulate_fwd(x, gamma, beta, shift, scale, eps)
+
+
+@_ln_modulate_op.register_kernel("cpu")
+def _(x, gamma, beta, shift, scale, eps):
+  return ln_modulate_plain(x, gamma, beta, shift, scale, eps)
+
+
+@_ln_modulate_op.register_fake
+def _(x, gamma, beta, shift, scale, eps):
+  return torch.empty_like(x)
+
+
 def ln_modulate(x, gamma, beta, shift=None, scale=None, eps=1e-6):
   """The plain versions on a CPU tensor, the CUDA kernels on a CUDA tensor;
-  differentiable through `LNModulate` when a gradient is wanted."""
+  differentiable through `LNModulate` when a gradient is wanted; the
+  operator `svt::ln_modulate_fwd` under `torch.export`."""
   if _needs_grad(x, gamma, beta, shift, scale):
     return LNModulate.apply(x, gamma, beta, shift, scale, eps)
+  if torch.compiler.is_exporting():
+    return _ln_modulate_op(x, gamma, beta, shift, scale, float(eps))
   if x.device.type == "cpu":
     return ln_modulate_plain(x, gamma, beta, shift, scale, eps)
   return ln_modulate_fwd(x, gamma, beta, shift, scale, eps)

@@ -213,42 +213,78 @@ def unshard(tree, specs, mesh):
 
 
 class ShardedParams:
-  """A model's parameters placed by specs on a mesh, and the collectives of
-  a step on them: what `param_sharding` asks of the trainer and `zero3` of
+  """A model's parameters placed by specs on a mesh, the optimizer state
+  placed by its own specs, and the collectives of a step on them: what
+  `param_sharding` and `optim_sharding` ask of the trainer and `zero3` of
   the explicit step.
 
-  `params` are the model's parameters (full, in the order of `names` and
-  `specs`). `shard_state()` gives the train state's tensors, this
-  process's part of each: a leaf sharded over a batch axis (`fsdp`, or
-  `data` on a 1-D mesh) is a separate shard, and the model's parameter is
-  filled by `gather` (an all-gather) before a forward and emptied by
-  `release` after the backward (ZeRO-3); a leaf sharded over `pipe` is the
-  model's parameter itself, narrowed to this stage's layers; a replicated
-  leaf is the model's parameter. `reduce_grads` takes the gradients of the
-  model's parameters to the mean over the batch of the train state's
-  tensors: a reduce-scatter over the shard axis (divided by its size) and
-  a mean over the other batch axes, or a mean over the batch axes (one
-  all-reduce for all such leaves). `norm` is the global norm of a list of
-  such tensors: the squares of the sharded leaves summed over their axis,
-  the replicated counted once. `full` and `local` move a list of such
-  tensors to their full form and back (checkpoints).
+  `params` are the model's parameters (full, in the order of `names`,
+  `specs` and `opt_specs`; `opt_specs` defaults to `specs`).
+  `shard_state()` gives the train state's tensors, this process's part of
+  each: a leaf sharded over a batch axis (`fsdp`, or `data` on a 1-D mesh)
+  is a separate shard, and the model's parameter is filled by `gather` (an
+  all-gather) before a forward and emptied by `release` after the step
+  (ZeRO-3); a leaf sharded over `pipe` is the model's parameter itself,
+  narrowed to this stage's layers; a replicated leaf is the model's
+  parameter.
+
+  The optimizer works on `opt_view(params)`: each leaf in the optimizer's
+  placement. Where the two placements agree that is the train state's
+  tensor. Under a replicated parameter with a sharded optimizer state
+  (ZeRO-1) it is a copy of this process's block of the parameter, and
+  `commit` all-gathers the updated blocks into the parameter. Under a
+  sharded parameter with a replicated optimizer state it is the model's
+  gathered parameter, and `commit` keeps this process's block of it in the
+  train state. `reduce_grads` takes the gradients of the model's
+  parameters to the mean over the batch in the optimizer's placement: a
+  reduce-scatter over the shard axis (divided by its size) and a mean over
+  the other batch axes, or a mean over the batch axes (one all-reduce for
+  all such leaves). `norm` is the global norm of a list in the optimizer's
+  placement: the squares of the sharded leaves summed over their axis, the
+  replicated counted once. `full` and `local` move a list of tensors in
+  either placement (`opt=True`: the optimizer's) to their full form and
+  back (checkpoints). `vae_specs`: the placement of a latent run's frozen
+  VAE (`vae_param_sharding`), None when it is replicated.
   """
 
-  def __init__(self, names, params, specs, mesh):
+  def __init__(self, names, params, specs, mesh, opt_specs=None):
     self.names = list(names)
     self.params = list(params)
     self.mesh = mesh
     self.specs = [tuple(s) for s in specs]
+    self.opt_specs = (self.specs if opt_specs is None
+                      else [tuple(s) for s in opt_specs])
     self.full_shapes = [tuple(p.shape) for p in self.params]
-    self._axis = []  # (dim, axis) of each leaf sharded over a real group
-    for spec in self.specs:
-      hit = spec_axis(spec)
-      self._axis.append(hit if hit and mesh.axis_size(hit[1]) > 1 else None)
+    self.vae_specs = None
+    self._axis = [self._real(s) for s in self.specs]
+    self._opt_axis = [self._real(s) for s in self.opt_specs]
+    for i, (a, o) in enumerate(zip(self._axis, self._opt_axis)):
+      sharded = o if a is None else a if o is None else None
+      if a != o and (sharded is None or sharded[1] not in ("data", "fsdp")):
+        raise NotImplementedError(
+            f"{self.names[i]}: parameter spec {self.specs[i]} with "
+            f"optimizer spec {self.opt_specs[i]}; the optimizer's placement "
+            "may differ from the parameter's only by replication over a "
+            "batch axis")
     self._batch = tuple(a for a in ("data", "fsdp")
                         if mesh.axis_size(a) > 1)
 
+  def _real(self, spec):
+    """(dim, axis) of a spec sharded over a group of more than one, or
+    None."""
+    hit = spec_axis(spec)
+    return hit if hit and self.mesh.axis_size(hit[1]) > 1 else None
+
   def _gathered(self, i) -> bool:
     return self._axis[i] is not None and self._axis[i][1] in ("data", "fsdp")
+
+  @property
+  def keeps_full_for_update(self) -> bool:
+    """Whether the optimizer updates some gathered parameter in full (a
+    sharded parameter with a replicated optimizer state): the model keeps
+    its gathered parameters until `commit`."""
+    return any(a is not None and o is None
+               for a, o in zip(self._axis, self._opt_axis))
 
   def shard_state(self) -> list:
     """The train state's tensors from the model's full parameters."""
@@ -268,6 +304,12 @@ class ShardedParams:
           out.append(p)
     return out
 
+  def opt_shapes(self) -> list:
+    """The shape of each leaf of this process's optimizer state."""
+    return [shard_shape(s, spec, self.mesh) if a is not None else s
+            for s, spec, a in zip(self.full_shapes, self.opt_specs,
+                                  self._opt_axis)]
+
   def gather(self, shards):
     """Fills the model's ZeRO-3 parameters from the shards (all-gather)."""
     for i, p in enumerate(self.params):
@@ -282,15 +324,48 @@ class ShardedParams:
       if self._gathered(i):
         p.data = p.data.new_empty(0)
 
+  def opt_view(self, params) -> list:
+    """The tensors the optimizer updates, from the train state's
+    `params` (call between `gather` and `release`)."""
+    import torch
+    out = []
+    for i, t in enumerate(params):
+      a, o = self._axis[i], self._opt_axis[i]
+      if a == o:
+        out.append(t)
+      elif a is None:  # ZeRO-1: this process's block of the full leaf
+        out.append(shard_of(t.data, self.opt_specs[i], self.mesh).clone(
+            memory_format=torch.contiguous_format))
+      else:  # the model's gathered parameter, updated in full
+        out.append(self.params[i])
+    return out
+
+  def commit(self, params, view):
+    """Brings the train state's `params` up to the updated `view`."""
+    import torch
+    with torch.no_grad():
+      for i, t in enumerate(params):
+        a, o = self._axis[i], self._opt_axis[i]
+        if a == o:
+          continue
+        if a is None:
+          dim, axis = o
+          t.copy_(collectives.all_gather(view[i], self.mesh.group(axis),
+                                         dim))
+        else:
+          t.copy_(shard_of(view[i].data, self.specs[i], self.mesh))
+
   def reduce_grads(self, grads) -> list:
-    """The mean over the batch of each gradient, on this process's part."""
+    """The mean over the batch of each gradient, in the optimizer's
+    placement."""
     import torch
     out = list(grads)
     buckets = {}  # the batch axes a leaf still needs its mean over
     for i, g in enumerate(grads):
       rest = self._batch
-      if self._gathered(i):
-        dim, axis = self._axis[i]
+      hit = self._opt_axis[i]
+      if hit is not None and hit[1] in ("data", "fsdp"):
+        dim, axis = hit
         g = collectives.reduce_scatter(g, self.mesh.group(axis), dim)
         out[i] = g / self.mesh.shape[axis]
         rest = tuple(a for a in self._batch if a != axis)
@@ -308,31 +383,34 @@ class ShardedParams:
     return out
 
   def norm(self, tensors):
-    """The global norm of a list of this process's tensors."""
+    """The global norm of a list of tensors in the optimizer's
+    placement."""
     import torch
     from small_vision_tpu_torch import optim
-    if all(a is None for a in self._axis):
+    if all(a is None for a in self._opt_axis):
       return optim.global_norm(tensors)
     norms = torch._foreach_norm([t.float() for t in tensors])
     total, by_axis = 0.0, {}
     for i, n in enumerate(norms):
-      if self._axis[i] is None:
+      if self._opt_axis[i] is None:
         total = total + n * n
       else:
-        by_axis.setdefault(self._axis[i][1], []).append(n * n)
+        by_axis.setdefault(self._opt_axis[i][1], []).append(n * n)
     for axis, sq in by_axis.items():
       total = total + collectives.all_reduce(torch.stack(sq).sum(),
                                              self.mesh.group(axis))
     return torch.sqrt(total)
 
-  def full(self, tensors) -> list:
-    """The full form of each of this process's tensors (all-gathers)."""
+  def full(self, tensors, opt: bool = False) -> list:
+    """The full form of each of this process's tensors (all-gathers), in
+    the parameters' placement or (`opt`) the optimizer's."""
+    axes = self._opt_axis if opt else self._axis
     out = []
     for i, t in enumerate(tensors):
-      if self._axis[i] is None:
+      if axes[i] is None:
         out.append(t)
       else:
-        dim, axis = self._axis[i]
+        dim, axis = axes[i]
         out.append(collectives.all_gather(t.detach(), self.mesh.group(axis),
                                           dim))
     return out
@@ -344,7 +422,10 @@ class ShardedParams:
         self._axis[i][1]), self._axis[i][0]) if self._gathered(i) else t
             for i, t in enumerate(tensors)]
 
-  def local(self, i, full):
-    """This process's part of leaf `i` from its full form."""
-    return full if self._axis[i] is None else shard_of(
-        full, self.specs[i], self.mesh).contiguous()
+  def local(self, i, full, opt: bool = False):
+    """This process's part of leaf `i` from its full form, in the
+    parameters' placement or (`opt`) the optimizer's."""
+    axis = (self._opt_axis if opt else self._axis)[i]
+    spec = (self.opt_specs if opt else self.specs)[i]
+    return full if axis is None else shard_of(
+        full, spec, self.mesh).contiguous()

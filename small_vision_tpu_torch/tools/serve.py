@@ -1,4 +1,5 @@
-"""Batched sampling service on the GPU, from a flat-npz weights file.
+"""Batched sampling service on the GPU, from a training workdir, a flat-npz
+weights file or an exported sampler.
 
 Counterpart of small_vision_tpu/tools/serve.py. The 125-step DDIM sampler
 runs at a fixed batch; throughput comes from keeping that batch full,
@@ -13,13 +14,18 @@ Endpoints (JSON over HTTP, stdlib-only — no server deps):
   GET  /healthz                              -> {"ok": true, ...}
   GET  /stats                                -> latency/throughput counters
 
-Run with the EMA weights as a flat .npz (the JAX package's
-`export_sampler --weights_mode arg --weights_out` writes one):
+Run on the newest checkpoint of a training run (its EMA weights, or its
+parameters with `--no_ema`):
   python -m small_vision_tpu_torch.tools.serve \\
-      --config ae_i1k.py:variant=B/4 --weights ema.npz \\
+      --config ae_i1k.py:variant=B/4 --workdir /path/to/run \\
       --fn uncond_eps --batch_size 64 --port 8777
-(`--config ae_i1k.py:variant=B/4,attn_impl=pallas_fused` serves with the
-fused MLP and MHA kernels; the weights are the same.)
+or on a flat .npz of the weights in flax's names (`--weights ema.npz`, as
+`tools/export_sampler.py --weights_out` or the JAX package's writes one),
+or on an exported sampler (`--artifact sampler.pt2`, with `--weights` for
+its sidecar when it was exported with `--weights_mode arg`; the artifact
+carries its function and batch size). `--config
+ae_i1k.py:variant=B/4,attn_impl=pallas_fused` serves with the fused MLP
+and MHA kernels; the weights are the same.
 """
 
 import argparse
@@ -226,14 +232,32 @@ class SamplerServer:
 
 
 def build_sample_fn(args):
-  """sample(seed) -> uint8 images, from --config and --weights."""
-  from small_vision_tpu_torch.configs import parse_config
+  """(sample(seed) -> uint8 images, batch size), from --artifact (and its
+  --weights sidecar), or from --config with --workdir (--no_ema) or
+  --weights (`args` may lack the options it does not use)."""
   from small_vision_tpu_torch.tools import export_sampler
+
+  opt = lambda name, default="": getattr(args, name, default) or default
+  if opt("artifact"):
+    sample = export_sampler.load_exported(args.artifact,
+                                          weights=opt("weights") or None)
+    print(f"[serve] artifact: {args.artifact} ({sample.meta['fn']})")
+    return sample, int(sample.meta["batch_size"])
+
+  from small_vision_tpu_torch.configs import parse_config
   from small_vision_tpu_torch.utils.checkpoint import load_params_npz
 
+  if not opt("config") or bool(opt("workdir")) == bool(opt("weights")):
+    raise ValueError("pass --artifact, or --config with one of --workdir "
+                     "and --weights")
   config = parse_config(args.config)
-  params = load_params_npz(args.weights)
-  print(f"[serve] weights: {args.weights}")
+  if opt("workdir"):
+    params, step, key = export_sampler.load_params(
+        config, args.workdir, use_ema=not opt("no_ema", False))
+    print(f"[serve] weights: {key} @ step {step} of {args.workdir}")
+  else:
+    params = load_params_npz(args.weights)
+    print(f"[serve] weights: {args.weights}")
   sample = export_sampler.build_sample_callable(
       config, params, fn=args.fn, batch_size=args.batch_size,
       device=args.device)
@@ -303,9 +327,16 @@ def make_http_server(server: SamplerServer, port: int, host="0.0.0.0"):
 
 def main(argv=None):
   parser = argparse.ArgumentParser()
-  parser.add_argument("--config", required=True)
-  parser.add_argument("--weights", required=True,
-                      help="flat .npz of the (EMA) weights, flax names")
+  parser.add_argument("--config", default="")
+  parser.add_argument("--workdir", default="",
+                      help="a training run: its newest checkpoint's EMA")
+  parser.add_argument("--no_ema", action="store_true",
+                      help="with --workdir: the parameters, not the EMA")
+  parser.add_argument("--weights", default="",
+                      help="flat .npz of the (EMA) weights, flax names; "
+                           "with --artifact, its weights sidecar")
+  parser.add_argument("--artifact", default="",
+                      help="an exported sampler (tools/export_sampler.py)")
   parser.add_argument("--fn", default="uncond_eps")
   parser.add_argument("--batch_size", type=int, default=64)
   parser.add_argument("--max_wait_ms", type=float, default=200.0)

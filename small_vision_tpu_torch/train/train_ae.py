@@ -23,12 +23,19 @@ its own shard of the data and its own rows of the global batch, and the
 parameters placed by `param_sharding` (`replicated`, `fully_sharded`:
 ZeRO-3 over `fsdp`, or `pipeline`: the stacks' stages over `pipe`, with
 the model's `pipe_stages`; `parallel.sharding.ShardedParams`), the
-optimizer state and the EMA placed as the parameters
-(`optim_sharding` must equal `param_sharding`). A step gathers the
-ZeRO-3 parameters, runs the forward and backward on the process's rows
-(each process splits its rows between the two branches at the config's
-ratio), reduces the gradients (reduce-scatter and mean over the batch
-axes), and updates its shards with the clip of the whole gradient's norm.
+optimizer state by `optim_sharding` (`replicated` by default, as in JAX,
+or `fully_sharded`; a pipeline's optimizer state follows its stages),
+the EMA as the parameters, and a latent run's frozen VAE by
+`vae_param_sharding` (gathered for each encode and decode). A step
+gathers the ZeRO-3 parameters, runs the forward and backward on the
+process's rows (each process splits its rows between the two branches at
+the config's ratio), reduces the gradients to the optimizer's placement
+(reduce-scatter and mean over the batch axes, or a mean), and updates
+with the clip of the whole gradient's norm: a process's shards in place,
+or under ZeRO-1 (replicated parameters, sharded optimizer state) its
+block of each parameter, all-gathered after the update, or under sharded
+parameters with a replicated optimizer state the whole gathered
+parameter, of which it keeps its block.
 Such a step is the single-process step on the global batch ordered as
 [every process's diffusion rows, then every process's MAE rows]; its
 draws are those of that step, each process taking its rows (so a run's
@@ -76,7 +83,8 @@ from small_vision_tpu_torch.parallel import collectives
 from small_vision_tpu_torch.parallel import ctx as ctx_lib
 from small_vision_tpu_torch.parallel import mesh as mesh_lib
 from small_vision_tpu_torch.parallel.sharding import (ShardedParams,
-                                                      infer_sharding)
+                                                      infer_sharding,
+                                                      reshard, unshard)
 from small_vision_tpu_torch.pp.builder import DevicePP
 from small_vision_tpu_torch.utils import checkpoint as ckpt_lib
 from small_vision_tpu_torch.utils.chrono import Chrono
@@ -124,18 +132,19 @@ def make_optimizer(config: dict, names, total_steps: int,
 
 
 def init_train_state(model, opt: optim.AdamW, config: dict,
-                     device="cuda", params=None) -> dict:
+                     device="cuda", params=None, opt_like=None) -> dict:
   """{"params", "opt", "generator", "gd"[, "ema_params"]}: the model's
   parameters (in `named_params` order; or `params`, the process's part of
-  them under a sharding), the optimizer state, the step's generator
-  (seeded from config["seed"]), the diffusion tables, and with `ema_decay`
-  a copy of the parameters for the EMA."""
+  them under a sharding), the optimizer state (shaped as `opt_like`, the
+  optimizer's placement, default `params`), the step's generator (seeded
+  from config["seed"]), the diffusion tables, and with `ema_decay` a copy
+  of the parameters for the EMA."""
   if params is None:
     params = [p for _, p in named_params(model)]
   sched = config.get("diff_schedule", {})
   state = {
       "params": params,
-      "opt": opt.init(params),
+      "opt": opt.init(params if opt_like is None else opt_like),
       "generator": torch.Generator(device=device).manual_seed(
           int(config.get("seed", 0))),
       "gd": gd_lib.GaussianDiffusion.create(
@@ -335,7 +344,9 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
   def update_fn(train_state, batch, draws=None, *, with_l2=False):
     if layout is None:
       loss, grads = loss_and_grads(train_state, batch, draws)
-      norm = None
+      with torch.no_grad(), torch.profiler.record_function("optimizer"):
+        measurements = opt.step(train_state["params"], grads,
+                                train_state["opt"], with_l2=with_l2)
     else:
       with ctx_lib.activate_mesh(mesh):
         with torch.profiler.record_function("gather_params"):
@@ -343,11 +354,16 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
         loss, grads = loss_and_grads(train_state, batch, draws)
         with torch.profiler.record_function("reduce_grads"):
           grads = layout.reduce_grads(grads)
+        view = layout.opt_view(train_state["params"])
+        if not layout.keeps_full_for_update:
+          layout.release()
+        with torch.no_grad(), torch.profiler.record_function("optimizer"):
+          measurements = opt.step(view, grads, train_state["opt"],
+                                  with_l2=with_l2, norm=layout.norm)
+        with torch.profiler.record_function("commit_params"):
+          layout.commit(train_state["params"], view)
         layout.release()
-      norm = layout.norm
     with torch.no_grad(), torch.profiler.record_function("optimizer"):
-      measurements = opt.step(train_state["params"], grads,
-                              train_state["opt"], with_l2=with_l2, norm=norm)
       if ema_decay:
         optim.ema_update(train_state["ema_params"], train_state["params"],
                          ema_decay)
@@ -505,16 +521,6 @@ def make_eval_fns(model, config: dict, vae_encode=None,
           for z in (x_t, pred_x0, pred_x0_eps))
     return loss, x_t, pred_x0, pred_x0_eps
 
-  def make_apply_fn(gd, eps_pred=True):
-    """The sampler's eps model: the t+1 shift and optional CFG."""
-
-    def apply_fn(*, x_t, t, y=None, cfg_scale=None):
-      pred, _ = model(x_t, t=t + 1, y=y, cfg_scale=cfg_scale)
-      if eps_pred:
-        return pred[..., channels:]
-      return gd_lib.predict_eps_from_xstart(gd, x_t, t, pred[..., :channels])
-    return apply_fn
-
   def make_sample_fn(num_classes_arg=None, manual_ys=None, cfg_scale=None,
                      unnormalize=True, eps_pred=True):
 
@@ -536,7 +542,7 @@ def make_eval_fns(model, config: dict, vae_encode=None,
         ys = None
 
       out = gd_lib.ddim_sample_loop(
-          gd, make_apply_fn(gd, eps_pred=eps_pred),
+          gd, sampler_eps_fn(model, gd, channels, eps_pred),
           (num_samples,) + dspace, generator=generator, noise=noise, ys=ys,
           cfg_scale=cfg_scale, sampling_steps=sampling_steps, eta=eta,
           clip_denoised=clip_denoised)
@@ -570,33 +576,53 @@ def make_eval_fns(model, config: dict, vae_encode=None,
       "noised_predict": make_noised_predict(50),
       "patch": patch_fn,
       "loss": loss_fn,
-      "uncond_eps": make_sample_fn(),
   }
-  if num_classes:
-    fns.update({
-        "cond_eps": make_sample_fn(num_classes),
-        "cfg_eps_1.0": make_sample_fn(num_classes, cfg_scale=1.0),
-        "cfg_eps_1.5": make_sample_fn(num_classes, cfg_scale=1.5),
-        "cfg_eps_2.0": make_sample_fn(num_classes, cfg_scale=2.0),
-        "cfg_eps_4.0": make_sample_fn(num_classes, cfg_scale=4.0),
-        "cfg_x0_2.0": make_sample_fn(num_classes, cfg_scale=2.0,
-                                     eps_pred=False),
-        "cfg_x0_4.0": make_sample_fn(num_classes, cfg_scale=4.0,
-                                     eps_pred=False),
-    })
+  for name, kw in sampler_variants(num_classes).items():
+    fns[name] = make_sample_fn(**kw)
   return fns
 
 
+def sampler_variants(num_classes=None) -> dict:
+  """{sampler name: its settings}: `num_classes_arg` (class-balanced
+  labels), `cfg_scale`, `eps_pred` (False: the model's x0 prediction
+  turned into eps)."""
+  fns = {"uncond_eps": {}}
+  if num_classes:
+    fns["cond_eps"] = {"num_classes_arg": num_classes}
+    for scale in (1.0, 1.5, 2.0, 4.0):
+      fns[f"cfg_eps_{scale}"] = {"num_classes_arg": num_classes,
+                                 "cfg_scale": scale}
+    for scale in (2.0, 4.0):
+      fns[f"cfg_x0_{scale}"] = {"num_classes_arg": num_classes,
+                                "cfg_scale": scale, "eps_pred": False}
+  return fns
+
+
+def sampler_eps_fn(model, gd, channels: int, eps_pred: bool = True):
+  """The sampler's eps model: the t+1 shift and optional CFG."""
+
+  def apply_fn(*, x_t, t, y=None, cfg_scale=None):
+    pred, _ = model(x_t, t=t + 1, y=y, cfg_scale=cfg_scale)
+    if eps_pred:
+      return pred[..., channels:]
+    return gd_lib.predict_eps_from_xstart(gd, x_t, t, pred[..., :channels])
+  return apply_fn
+
+
 _TP_STRATEGIES = ("tensor_parallel", "tp_fsdp")
+_OPTIM_STRATEGIES = ("replicated", "fully_sharded")
 
 
-def check_parallel_config(config: dict) -> str:
-  """The config's parameter strategy; raises on what the port does not
-  run."""
+def check_parallel_config(config: dict) -> tuple:
+  """(parameter strategy, optimizer strategy, VAE strategy) of the config,
+  each defaulting to `replicated` as in JAX; raises on what the port does
+  not run."""
   param_sharding = config.get("param_sharding", "replicated")
-  optim_sharding = config.get("optim_sharding", param_sharding)
+  optim_sharding = config.get("optim_sharding", "replicated")
+  vae_sharding = config.get("vae_param_sharding", "replicated")
   for key, value in (("param_sharding", param_sharding),
-                     ("optim_sharding", optim_sharding)):
+                     ("optim_sharding", optim_sharding),
+                     ("vae_param_sharding", vae_sharding)):
     if value in _TP_STRATEGIES:
       raise NotImplementedError(
           f"{key}={value!r}: tensor parallelism is not ported (ROADMAP.md "
@@ -605,11 +631,40 @@ def check_parallel_config(config: dict) -> str:
     raise NotImplementedError(
         "mesh_tensor > 1: tensor parallelism is not ported (ROADMAP.md "
         "Queue A item 9b, the Megatron block)")
-  if optim_sharding != param_sharding:
+  if "pipeline" in (param_sharding, optim_sharding) and (
+      optim_sharding != param_sharding):
     raise ValueError(f"optim_sharding={optim_sharding!r} with param_sharding="
-                     f"{param_sharding!r}: the port places the optimizer "
-                     "state as the parameters")
-  return param_sharding
+                     f"{param_sharding!r}: a pipeline's optimizer state "
+                     "follows its stages (optim_sharding='pipeline')")
+  if vae_sharding not in _OPTIM_STRATEGIES:
+    raise ValueError(f"vae_param_sharding={vae_sharding!r}: one of "
+                     f"{_OPTIM_STRATEGIES}")
+  return param_sharding, optim_sharding, vae_sharding
+
+
+def _specs(config: dict, tree, mesh, strategy) -> dict:
+  """infer_sharding of `tree` by `strategy`, `fully_sharded` over
+  `min_size_to_shard` elements (2^18 by default)."""
+  kw = ({"min_size_to_shard": int(config["min_size_to_shard"])}
+        if strategy == "fully_sharded" and "min_size_to_shard" in config
+        else {})
+  return infer_sharding(tree, mesh, strategy, **kw)
+
+
+def make_layout(config: dict, mesh, named) -> Optional[ShardedParams]:
+  """The `ShardedParams` of the named parameters `named` ([(name,
+  parameter)]) on `mesh` by `param_sharding` and `optim_sharding`; None
+  on a mesh of one process."""
+  if mesh is None or mesh.size <= 1:
+    return None
+  param_strategy, opt_strategy, _ = check_parallel_config(config)
+  names = [n for n, _ in named]
+
+  def specs(strategy):
+    got = _specs(config, dict(named), mesh, strategy)
+    return [got[n] for n in names]
+  return ShardedParams(names, [p for _, p in named], specs(param_strategy),
+                       mesh, opt_specs=specs(opt_strategy))
 
 
 def build_mesh(config: dict):
@@ -633,9 +688,9 @@ def setup_training(config: dict, device="cuda", log=print,
   `batch_size`, `ntrain_img`, `log_steps`, `get_steps(name, default)`
   and `layout`: on a `mesh` of several processes the
   `parallel.sharding.ShardedParams` the train state's tensors follow (the
-  process's parts, by `param_sharding`; `fully_sharded` shards the leaves
-  over `min_size_to_shard` elements, 2^18 by default), else None."""
-  strategy = check_parallel_config(config)
+  process's parts, by `param_sharding` and `optim_sharding`; see
+  `make_layout`), else None."""
+  _, _, vae_strategy = check_parallel_config(config)
   batch_size = int(config["input"]["batch_size"])
   if mesh is not None:  # each process reads its batch shard's data
     ds_core.set_process_shard(*mesh.batch_shard())
@@ -653,24 +708,28 @@ def setup_training(config: dict, device="cuda", log=print,
       convert.init_train_params(config, int(config.get("seed", 0))), model))
   names = [n for n, _ in named_params(model)]
   opt = make_optimizer(config, names, total_steps, warmup_steps)
-  layout = None
-  if mesh is not None and mesh.size > 1:
-    named = named_params(model)
-    kw = ({"min_size_to_shard": int(config["min_size_to_shard"])}
-          if strategy == "fully_sharded" and "min_size_to_shard" in config
-          else {})
-    specs = infer_sharding(dict(named), mesh, strategy, **kw)
-    layout = ShardedParams(names, [p for _, p in named],
-                           [specs[n] for n in names], mesh)
+  layout = make_layout(config, mesh, named_params(model))
+  opt_like = None
+  if layout is not None:
+    opt_like = [torch.empty(s, device=device) for s in layout.opt_shapes()]
   train_state = init_train_state(
       model, opt, config, device,
-      params=None if layout is None else layout.shard_state())
+      params=None if layout is None else layout.shard_state(),
+      opt_like=opt_like)
   vae_encode = vae_decode = None
   if config.get("latent_diffusion"):
     from small_vision_tpu_torch.models import vae as vae_lib
-    train_state["vae_params"], vae_encode, vae_decode = vae_lib.load_vae(
+    vae_params, vae_encode, vae_decode = vae_lib.load_vae(
         config.get("vae_weights") or None,
         image_size=int(config.get("size", 256)), device=device)
+    if layout is not None and vae_strategy != "replicated":
+      layout.vae_specs = _specs(config, vae_params, mesh, vae_strategy)
+      vae_encode, vae_decode = (_on_full_vae(f, layout)
+                                for f in (vae_encode, vae_decode))
+      vae_params = {n: t.clone(memory_format=torch.contiguous_format)
+                    for n, t in reshard(vae_params, layout.vae_specs,
+                                        mesh).items()}
+    train_state["vae_params"] = vae_params
   return {
       "model": model, "opt": opt, "train_state": train_state, "names": names,
       "update_fn": make_update_fn(model, opt, config, device_pp,
@@ -685,6 +744,14 @@ def setup_training(config: dict, device="cuda", log=print,
   }
 
 
+def _on_full_vae(fn, layout):
+  """`fn(vae_params, ...)` of the VAE's functions on this process's parts
+  of its parameters: gathered (an all-gather of each sharded leaf) for the
+  call."""
+  return lambda params, *a, **kw: fn(
+      unshard(params, layout.vae_specs, layout.mesh), *a, **kw)
+
+
 def _named(names, tensors) -> dict:
   return dict(zip(names, tensors))
 
@@ -697,27 +764,33 @@ def checkpoint_state(train_state, names, chrono: Chrono,
   the VAE's parameters (`vae_params`, by state_dict name). With a
   `layout` each leaf is gathered to its full form (every process takes
   part)."""
-  full = layout.full if layout is not None else (lambda ts: ts)
+  full = layout.full if layout is not None else (lambda ts, opt=False: ts)
   opt = train_state["opt"]
   state = {
       "params": _named(names, full(train_state["params"])),
       "opt": {"count": np.int64(opt["count"]),
-              **{f"mu/{n}": t for n, t in zip(names, full(opt["mu"]))},
-              **{f"nu/{n}": t for n, t in zip(names, full(opt["nu"]))}},
+              **{f"mu/{n}": t for n, t in zip(names, full(opt["mu"], True))},
+              **{f"nu/{n}": t
+                 for n, t in zip(names, full(opt["nu"], True))}},
       "generator": {"state": train_state["generator"].get_state()},
       "chrono": {"accum_train_time": chrono.save()},
   }
   if "ema_params" in train_state:
     state["ema_params"] = _named(names, full(train_state["ema_params"]))
   if "vae_params" in train_state:
-    state["vae_params"] = dict(train_state["vae_params"])
+    vae = dict(train_state["vae_params"])
+    if layout is not None and layout.vae_specs is not None:
+      vae = unshard(vae, layout.vae_specs, layout.mesh)
+    state["vae_params"] = vae
   return state
 
 
-def _copy_named(names, tensors, tree, what, skip=(), layout=None):
+def _copy_named(names, tensors, tree, what, skip=(), layout=None,
+                opt=False):
   """Copies the restored `tree` into `tensors` (in `names` order), leaf by
   leaf; names whose first token is in `skip` keep what they hold. With a
-  `layout` the tree's leaves are full and each tensor takes its part."""
+  `layout` the tree's leaves are full and each tensor takes its part (in
+  the optimizer's placement with `opt`)."""
   flat = dict(tree_flatten_with_names(tree))
   want = [n for n in names if n.split("/")[0] not in skip]
   missing = sorted(set(want) - set(flat))
@@ -731,7 +804,8 @@ def _copy_named(names, tensors, tree, what, skip=(), layout=None):
         if tuple(flat[n].shape) != shape:
           raise ValueError(f"{what} {n}: checkpoint shape "
                            f"{tuple(flat[n].shape)} != {shape}")
-        t.copy_(flat[n] if layout is None else layout.local(i, flat[n]))
+        t.copy_(flat[n] if layout is None else layout.local(i, flat[n],
+                                                            opt))
 
 
 def load_checkpoint_state(train_state, names, restored, chrono: Chrono,
@@ -746,15 +820,17 @@ def load_checkpoint_state(train_state, names, restored, chrono: Chrono,
   opt = restored["opt"]
   train_state["opt"]["count"] = int(opt["count"])
   _copy_named(names, train_state["opt"]["mu"], opt["mu"], "opt/mu",
-              layout=layout)
+              layout=layout, opt=True)
   _copy_named(names, train_state["opt"]["nu"], opt["nu"], "opt/nu",
-              layout=layout)
+              layout=layout, opt=True)
   train_state["generator"].set_state(restored["generator"]["state"])
   chrono.load(restored["chrono"]["accum_train_time"])
   if "vae_params" in train_state:
     vae = train_state["vae_params"]
-    _copy_named(list(vae), list(vae.values()), restored["vae_params"],
-                "vae_params")
+    tree = dict(tree_flatten_with_names(restored["vae_params"]))
+    if layout is not None and layout.vae_specs is not None:
+      tree = reshard(tree, layout.vae_specs, layout.mesh)
+    _copy_named(list(vae), list(vae.values()), tree, "vae_params")
 
 
 def train_and_evaluate(config: dict, workdir: Optional[str] = None,
@@ -839,7 +915,10 @@ def _train_and_evaluate(config, workdir, device, log, mesh):
   if workdir and config.get("finetune"):
     ckpt_dir = os.path.join(workdir, "finetune")
   ckpt_mngr = None
-  if ckpt_dir and (config.get("save_ckpt", True) or config.get("resume")):
+  # `force_eval` restores too (tools/eval_only.py evaluates the newest
+  # checkpoint; the JAX trainer restores only with save_ckpt or resume).
+  if ckpt_dir and (config.get("save_ckpt", True) or config.get("resume")
+                   or config.get("force_eval")):
     ckpt_mngr = ckpt_lib.make_manager(
         ckpt_dir, keep_period=get_steps("keep_ckpt", None), writer=writer)
     # Every process restores the step process 0 sees.
@@ -861,7 +940,9 @@ def _train_and_evaluate(config, workdir, device, log, mesh):
                     ckpt_lib.restore_subtree(src_mngr, "params"), "params",
                     skip=("label_embed", "label_trunk"), layout=layout)
         reset_ema()
-        train_state["opt"] = opt.init(train_state["params"])
+        train_state["opt"] = opt.init(
+            train_state["params"] if layout is None else
+            [torch.empty(s, device=device) for s in layout.opt_shapes()])
 
   eval_fns = make_eval_fns(model, config, vae_encode=run["vae_encode"],
                            vae_decode=run["vae_decode"])

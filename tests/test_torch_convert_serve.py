@@ -403,7 +403,9 @@ for m in ("tools.ablate_attention_kernel", "evaluators.common",
           "configs.ae_i1k_lp", "launch", "parallel.mesh",
           "parallel.collectives", "parallel.ctx", "parallel.sharding",
           "parallel.explicit_step", "parallel.pipeline",
-          "tools.dryrun_multichip"):
+          "tools.dryrun_multichip", "utils.windows", "utils.convert_ref",
+          "configs.eval_ae_i1k", "tools.eval_only", "tools.export_sampler",
+          "data.latents"):
   assert pkg.__name__ + "." + m in sys.modules, m
 print(len([m for m in sys.modules if m.startswith(pkg.__name__)]))
 assert not bad, bad
@@ -429,7 +431,8 @@ from small_vision_tpu_torch.pp import builder
 builder.get_preprocess_fn(
     'decode_jpeg_and_inception_crop(64)|randaug|flip_lr|value_range(-1, 1)')
 for m in ("data.arrays", "data.native_jpeg", "data.imagenet",
-          "pp.autoaugment", "pp.registry", "pp.utils", "tools.ingest_arrays"):
+          "pp.autoaugment", "pp.registry", "pp.utils", "tools.ingest_arrays",
+          "data.latents", "tools.export_sampler"):
   assert pkg.__name__ + "." + m in sys.modules, m
 banned = ("PIL", "tensorflow", "tensorflow_datasets")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)

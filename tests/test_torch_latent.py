@@ -134,7 +134,7 @@ def test_config_latent_fields_match_jax():
       jconfig.get_config(bad)
 
 
-def _jax_step(config, params, vae_params, jenc, capture):
+def _jax_step(config, params, vae_params, jenc, capture, pre_latents=False):
   model = jax_model(config)
   tx, _ = joptim.adamw_trainer_tx(
       peak_lr=OPT["peak_lr"], batch_size=B, total_steps=OPT["total_steps"],
@@ -144,7 +144,8 @@ def _jax_step(config, params, vae_params, jenc, capture):
              mask_ratio=config["mask_ratio"],
              mask_ratio_no_noise=config["mask_ratio_no_noise"],
              use_labels=False, l2_metrics=True, _inject_draws=True,
-             diffusion_space=LATENT, latent_diffusion=True)
+             diffusion_space=LATENT, latent_diffusion=True,
+             use_preprocessed_latents=pre_latents)
   mesh = parallel.make_mesh(jax.devices()[:1])
   jparams = jax.tree.map(jnp.asarray, params)
   state = {"params": jparams, "opt": tx.init(jparams),
@@ -351,10 +352,14 @@ def test_vae_params_survive_a_checkpoint(vae, tmp_path):
 
 
 def test_latents_source_raises_and_names_the_routes():
-  """The TFRecord latent source needs TensorFlow: it raises, naming the
-  arrays route and the two latent routes the step takes."""
+  """The TFRecord latent source (read without TensorFlow) needs its
+  files: without `pattern` it raises, naming the pattern and
+  the arrays route with `use_preprocessed_latents`; a TFDS name still
+  raises, naming the arrays route."""
   from small_vision_tpu_torch.data import core
   with pytest.raises(ValueError, match="arrays:") as e:
     core.get("latents", split="train")
-  assert "latent_diffusion=True" in str(e.value)
+  assert "pattern=" in str(e.value)
   assert "use_preprocessed_latents" in str(e.value)
+  with pytest.raises(ValueError, match="arrays:"):
+    core.get("imagenet2012", split="train")

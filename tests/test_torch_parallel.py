@@ -4,6 +4,14 @@ on conftest's 8 virtual CPU devices.
   - `make_mesh`'s axes and sizes against JAX `make_mesh`'s, over 8
     processes (a layout-only mesh: no process group here), and the
     batch-shard coordinates against JAX's `P(("data", "fsdp"))` rows.
+  - the trainer's placements (`make_layout`): `param_sharding` and
+    `optim_sharding` in the four combinations of `replicated` and
+    `fully_sharded` on UMD-B/4@64's parameters, each leaf's parameter and
+    optimizer spec and per-process element count against the JAX
+    trainer's `infer_sharding` of its params' and its optax state's
+    (`jax.eval_shape(tx.init, ...)`) shapes, mu and nu alike; and
+    `vae_param_sharding` on the SD VAE's parameters, each leaf's full and
+    per-process element counts against JAX's;
   - `infer_sharding` under all five strategies on a small UMD's parameters
     (unrolled and `scan=True`): each leaf's spec and each process's element
     count against the JAX specs and `NamedSharding.shard_shape` on the
@@ -28,6 +36,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding
 
+from small_vision_tpu import optim as joptim
 from small_vision_tpu import parallel as jparallel
 from small_vision_tpu.data import pipeline as jpipeline
 from small_vision_tpu.models import ae as jae
@@ -355,11 +364,115 @@ def test_constrain_is_an_identity_that_checks_names():
 def test_trainer_refuses_tensor_parallelism():
   for extra in ({"param_sharding": "tensor_parallel"},
                 {"param_sharding": "tp_fsdp", "optim_sharding": "tp_fsdp"},
+                {"vae_param_sharding": "tensor_parallel"},
                 {"mesh_tensor": 2}):
     config = dict(_small_config(False), **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
       train_ae.check_parallel_config(config)
+  # A pipeline's optimizer state follows its stages; every combination of
+  # replicated and fully_sharded runs.
   with pytest.raises(ValueError, match="optim_sharding"):
     train_ae.check_parallel_config(dict(
-        _small_config(False), param_sharding="fully_sharded",
-        optim_sharding="replicated"))
+        _small_config(False), param_sharding="pipeline"))
+  for p in ("replicated", "fully_sharded"):
+    for o in ("replicated", "fully_sharded"):
+      assert train_ae.check_parallel_config(dict(
+          _small_config(False), param_sharding=p, optim_sharding=o)) == (
+              p, o, "replicated")
+  assert train_ae.check_parallel_config(_small_config(False)) == (
+      "replicated", "replicated", "replicated")
+
+
+@pytest.fixture(scope="module")
+def umd_b4():
+  """(the port's UMD-B/4@64 on the meta device, JAX's params' shapes and
+  its optax state's shapes, as the JAX trainer makes them)."""
+  config = ae_i1k.get_config("size=64,data=synthetic")
+  model = train_ae.build_model(config, device="meta")
+  kw = dict(config["model"], attn_impl="xla")
+  params = jax.eval_shape(lambda: jae.Model(**kw).init(
+      jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+      t=jnp.zeros((1,), jnp.int32)))["params"]
+  tx, _ = joptim.adamw_trainer_tx(peak_lr=1e-4, batch_size=256,
+                                  total_steps=10, warmup_steps=1, wd=0.05)
+  return model, params, jax.eval_shape(tx.init, params)
+
+
+def _named_specs(tree):
+  return {n: tuple(s.spec) for n, s in tree_flatten_with_names(jax.tree.map(
+      lambda s: s, tree, is_leaf=lambda s: isinstance(s, NamedSharding)))}
+
+
+def _spec_eq(port, jspec):
+  return port == jspec + (None,) * (len(port) - len(jspec)) if port else \
+      not any(jspec)
+
+
+@pytest.mark.parametrize("kw", [dict(fsdp=4), dict(data=2, fsdp=4)])
+@pytest.mark.parametrize("param_s,optim_s", [
+    (p, o) for p in ("replicated", "fully_sharded")
+    for o in ("replicated", "fully_sharded")])
+def test_trainer_placements_match_jax(umd_b4, kw, param_s, optim_s):
+  """The trainer's layout for each combination: every leaf's parameter
+  spec against JAX `infer_sharding(params_shape, ...)` and its optimizer
+  spec against JAX's of the optax state's mu and nu
+  (`train_ae.py:455-458`), and each one's per-process element count."""
+  model, jparams, jopt = umd_b4
+  mesh = mesh_lib.make_mesh(8, **kw)
+  jmesh = jparallel.make_mesh(**kw)
+  config = {"param_sharding": param_s, "optim_sharding": optim_s}
+  layout = train_ae.make_layout(config, mesh, train_ae.named_params(model))
+  want_p = _named_specs(jparallel.infer_sharding(jparams, jmesh, param_s))
+  adam = [s for s in jax.tree.leaves(
+      jparallel.infer_sharding(jopt, jmesh, optim_s),
+      is_leaf=lambda x: hasattr(x, "mu") and hasattr(x, "nu"))
+          if hasattr(s, "mu")]
+  assert len(adam) == 1
+  want_mu, want_nu = _named_specs(adam[0].mu), _named_specs(adam[0].nu)
+  assert sorted(want_p) == sorted(layout.names) == sorted(want_mu)
+  shapes = dict(tree_flatten_with_names(jparams))
+  local_p = local_o = 0
+  for i, name in enumerate(layout.names):
+    assert _spec_eq(layout.specs[i], want_p[name]), name
+    assert _spec_eq(layout.opt_specs[i], want_mu[name]), name
+    assert want_mu[name] == want_nu[name], name
+    full = shapes[name].shape
+    for spec, jspec in ((layout.specs[i], want_p[name]),
+                        (layout.opt_specs[i], want_mu[name])):
+      assert int(np.prod(sharding.shard_shape(full, spec, mesh))) == int(
+          np.prod(NamedSharding(jmesh, jax.sharding.PartitionSpec(*jspec))
+                  .shard_shape(full))), name
+    local_p += int(np.prod(sharding.shard_shape(full, layout.specs[i], mesh)))
+    local_o += int(np.prod(layout.opt_shapes()[i]))
+  total = sum(int(np.prod(s.shape)) for s in shapes.values())
+  for local, strategy in ((local_p, param_s), (local_o, optim_s)):
+    assert local == total if strategy == "replicated" else local < total / 3
+  assert layout.keeps_full_for_update == (
+      (param_s, optim_s) == ("fully_sharded", "replicated"))
+
+
+@pytest.mark.parametrize("strategy", ["replicated", "fully_sharded"])
+def test_vae_placement_matches_jax(strategy):
+  """`vae_param_sharding` on the SD VAE (meta tensors): each leaf's full
+  and per-process element counts, as a multiset, against JAX's on the
+  flax tree (the port keeps torch's OIHW kernels, so leaves pair by size,
+  not by name)."""
+  from small_vision_tpu.models import vae as jvae
+  from small_vision_tpu_torch.models import vae as tvae
+  with torch.device("meta"):
+    port = dict(tvae.AutoencoderKL().state_dict())
+  jtree = jax.eval_shape(lambda: jvae.AutoencoderKL().init(
+      jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))["params"]
+  mesh = mesh_lib.make_mesh(8, fsdp=4)
+  jmesh = jparallel.make_mesh(fsdp=4)
+  specs = sharding.infer_sharding(port, mesh, strategy)
+  got = sorted((t.numel(), int(np.prod(sharding.shard_shape(
+      t.shape, specs[n], mesh)))) for n, t in port.items())
+  jspecs = dict(tree_flatten_with_names(jax.tree.map(
+      lambda s: s, jparallel.infer_sharding(jtree, jmesh, strategy),
+      is_leaf=lambda s: isinstance(s, NamedSharding))))
+  want = sorted((int(np.prod(s.shape)), int(np.prod(
+      jspecs[n].shard_shape(s.shape)))) for n, s in
+      tree_flatten_with_names(jtree))
+  assert got == want
+  assert any(a != b for a, b in got) == (strategy == "fully_sharded")

@@ -26,15 +26,27 @@ the tests read what the processes wrote:
     and 5e-5 (tests/test_pipeline_parallel.py's bounds);
   - 3 training steps through `train_and_evaluate` (warm-started by
     `model_init`, stopped at step 4), `replicated`, `fully_sharded` (fsdp
-    4) and data 2 x fsdp 2, each process on its rows of the JAX step's
+    4), data 2 x fsdp 2, ZeRO-1 (replicated parameters, `optim_sharding`
+    `fully_sharded` over fsdp 4) and sharded parameters with the
+    optimizer state's default placement, replicated (JAX's default), each
+    process on its rows of the JAX step's
     batch with the JAX step's draws (tests/test_torch_train_step.py's
     harness, its config under attn_impl "xla"): losses within rtol 2e-4
     and atol 1e-5 of the one-process port run
     (tests/test_fsdp_equivalence.py's bound), and the parameters held to
-    the JAX step's within tests/test_torch_train_step.py's bounds;
+    the JAX step's within tests/test_torch_train_step.py's bounds; each
+    process's element counts of parameters and optimizer state, and its
+    state bytes (f32 parameters, bf16 mu, f32 nu), follow the two
+    placements, and the gathered nu equals one process's (rtol 1e-4);
   - a `fully_sharded` checkpoint restored in one process, and a
-    one-process checkpoint restored in 4: bit-equal;
-  - `tools/dryrun_multichip.py`'s step at n = 4.
+    one-process checkpoint restored in 4: bit-equal; the fully_sharded
+    run's checkpoint read by `tools/export_sampler.py::load_params` (no
+    EMA: its `params`) as the 4 processes held them;
+  - `tools/dryrun_multichip.py`'s step at n = 4;
+  - `vae_param_sharding`: a latent step (a seeded VAE of channels 32 x
+    4, 32 px images) with
+    the VAE replicated and fully_sharded over fsdp 4, the same loss bit
+    for bit, a quarter of the VAE a process, a checkpoint of the whole.
 """
 
 import json
@@ -153,7 +165,8 @@ def _one_process_training(config, plan, workdir):
   names = [n for n, _ in train_ae.named_params(train_ae.build_model(
       config, device="meta"))]
   return losses, {n: p.detach().numpy()
-                  for n, p in zip(names, state["params"])}
+                  for n, p in zip(names, state["params"])}, {
+                      n: t.numpy() for n, t in zip(names, state["opt"]["nu"])}
 
 
 @pytest.fixture(scope="module")
@@ -331,23 +344,37 @@ def test_model_pipeline_equals_scan(results):
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
 def test_training_matches_one_process_and_jax(results, case):
   got = results["out"][f"train_{case}"]
-  one_losses, one_params = results["one"]
+  one_losses, one_params, one_nu = results["one"]
   for g in got:
     assert len(g["losses"]) == STEPS
     np.testing.assert_allclose(g["losses"], one_losses, rtol=2e-4,
                                atol=1e-5)
-  # Each process holds its shards: the element count the specs give.
+    for name, want in one_nu.items():
+      np.testing.assert_allclose(g[f"nu/{name}"], want, rtol=1e-4,
+                                 atol=1e-12, err_msg=name)
+  # Each process holds its shards: the element counts the two placements
+  # give (JAX's defaults: both replicated), and the bytes of them.
   config = dict(results["config"], **TRAIN_CASES[case])
   mesh = mesh_lib.make_mesh(N, fsdp=int(config.get("mesh_fsdp", 1)))
-  specs = sharding.infer_sharding(
-      {n: v for n, v in one_params.items()}, mesh,
-      config.get("param_sharding", "replicated"), **(
-          {"min_size_to_shard": 0} if case != "replicated" else {}))
-  local = sum(int(np.prod(sharding.shard_shape(v.shape, specs[n], mesh)))
-              for n, v in one_params.items())
+
+  def local_count(strategy):
+    specs = sharding.infer_sharding(
+        {n: v for n, v in one_params.items()}, mesh, strategy,
+        **({"min_size_to_shard": 0} if strategy == "fully_sharded" else {}))
+    return sum(int(np.prod(sharding.shard_shape(v.shape, specs[n], mesh)))
+               for n, v in one_params.items())
+  local = local_count(config.get("param_sharding", "replicated"))
+  opt_local = local_count(config.get("optim_sharding", "replicated"))
   assert [int(g["local"]) for g in got] == [local] * N
+  assert [int(g["opt_local"]) for g in got] == [opt_local] * N
+  ema = 4 * local if config.get("ema_decay") else 0
+  assert [int(g["state_bytes"]) for g in got] == [
+      4 * local + ema + (2 + 4) * opt_local] * N
   full = sum(v.size for v in one_params.values())
-  assert local == full if case == "replicated" else local < full / 1.9
+  for count, strategy in ((local, config.get("param_sharding")),
+                          (opt_local, config.get("optim_sharding"))):
+    assert count < full / 1.9 if strategy == "fully_sharded" else \
+        count == full
   lr = OPT["peak_lr"] * B / 256.0
   within, total = 0, 0
   for name, want in results["jax_train"].items():
@@ -375,6 +402,31 @@ def test_fully_sharded_checkpoint_restores_in_one_process(results):
   for name, p in zip(run["names"], run["train_state"]["params"]):
     np.testing.assert_array_equal(p.detach().numpy(), got[f"p/{name}"])
   assert run["train_state"]["opt"]["count"] == STEPS
+
+
+def test_vae_param_sharding_gathers_for_the_encode(results):
+  """A latent step's loss with the frozen VAE sharded over fsdp 4 equals
+  the replicated VAE's, bit for bit; each process holds about a quarter
+  of it, and a checkpoint holds it whole."""
+  for g in results["out"]["vae"]:
+    assert float(g["loss_fully_sharded"]) == float(g["loss_replicated"])
+    assert int(g["local_replicated"]) == int(g["full_count"])
+    assert int(g["local_fully_sharded"]) < 0.3 * int(g["full_count"])
+    assert float(g["ckpt_fully_sharded"]) == float(g["ckpt_replicated"]) \
+        == float(g["full_sum"])
+
+
+def test_load_params_reads_a_fully_sharded_run(results):
+  from small_vision_tpu_torch.tools import export_sampler
+  config = dict(results["config"], **TRAIN_CASES["fully_sharded"])
+  params, step, key = export_sampler.load_params(
+      config, os.path.join(results["tmp"], "work_fully_sharded"))
+  assert (step, key) == (STEPS, "params")
+  got = results["out"]["train_fully_sharded"][0]
+  flat = dict(tree_flatten_with_names(params))
+  assert sorted(flat) == sorted(k[2:] for k in got if k.startswith("p/"))
+  for name, t in flat.items():
+    np.testing.assert_array_equal(t.numpy(), got[f"p/{name}"])
 
 
 def test_one_process_checkpoint_restores_fully_sharded(results):

@@ -40,7 +40,14 @@ TRAIN_CASES = {"replicated": dict(),
                                      mesh_fsdp=0, min_size_to_shard=0),
                "data2_fsdp2": dict(param_sharding="fully_sharded",
                                    optim_sharding="fully_sharded",
-                                   mesh_fsdp=2, min_size_to_shard=0)}
+                                   mesh_fsdp=2, min_size_to_shard=0),
+               # ZeRO-1: replicated parameters, sharded optimizer state.
+               "zero1": dict(optim_sharding="fully_sharded", mesh_fsdp=0,
+                             min_size_to_shard=0),
+               # Sharded parameters; the optimizer state's default, as in
+               # JAX, is replicated.
+               "sharded_params": dict(param_sharding="fully_sharded",
+                                      mesh_fsdp=0, min_size_to_shard=0)}
 _ORIG_MAKE_UPDATE = train_ae.make_update_fn
 PIPE_MODEL = dict(width=32, depth=4, dec_depth=2, num_heads=4, img_size=16,
                   patch_size=(4, 4), scan=True, adaln=True,
@@ -263,22 +270,28 @@ def train_scenario(rank, n, tmp):
                                 plan, mesh)
     names = [nm for nm, _ in train_ae.named_params(
         train_ae.build_model(config, device="meta"))]
-    full = _layout_of(config, mesh, names).full(state["params"])
+    layout = _layout_of(config, mesh)
+    full = layout.full(state["params"])
     _save(tmp, f"train_{case}", rank, losses=losses,
           local=sum(int(t.numel()) for t in state["params"]),
-          **{f"p/{k}": t for k, t in zip(names, full)})
+          opt_local=sum(int(t.numel()) for t in state["opt"]["mu"]),
+          state_bytes=_state_bytes(state),
+          **{f"p/{k}": t for k, t in zip(names, full)},
+          **{f"nu/{k}": t for k, t in zip(names, layout.full(
+              state["opt"]["nu"], opt=True))})
 
 
-def _layout_of(config, mesh, names):
+def _state_bytes(state):
+  """Bytes of this process's parameters, EMA and optimizer state."""
+  tensors = list(state["params"]) + list(state.get("ema_params", ())) + (
+      list(state["opt"]["mu"]) + list(state["opt"]["nu"]))
+  return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _layout_of(config, mesh):
   """The layout the trainer used, rebuilt from the config (for `full`)."""
   model = train_ae.build_model(config, device="meta")
-  named = train_ae.named_params(model)
-  strategy = train_ae.check_parallel_config(config)
-  kw = ({"min_size_to_shard": int(config["min_size_to_shard"])}
-        if "min_size_to_shard" in config else {})
-  specs = sharding.infer_sharding(dict(named), mesh, strategy, **kw)
-  return sharding.ShardedParams(names, [p for _, p in named],
-                                [specs[k] for k in names], mesh)
+  return train_ae.make_layout(config, mesh, train_ae.named_params(model))
 
 
 def restore_scenario(rank, n, tmp):
@@ -298,15 +311,74 @@ def restore_scenario(rank, n, tmp):
   _save(tmp, "restore", rank, **{
       f"{what}/{k}": t for what, ts in (
           ("params", lay.full(state["params"])),
-          ("mu", lay.full(state["opt"]["mu"])),
-          ("nu", lay.full(state["opt"]["nu"])))
+          ("mu", lay.full(state["opt"]["mu"], opt=True)),
+          ("nu", lay.full(state["opt"]["nu"], opt=True)))
       for k, t in zip(run["names"], ts)},
         count=state["opt"]["count"],
         local=sum(int(t.numel()) for t in state["params"]))
 
 
+def vae_scenario(rank, n, tmp):
+  """A latent step's loss with a seeded VAE (channels 32 x 4, as
+  tests/test_torch_latent.py's) replicated and sharded over fsdp 4
+  (`vae_param_sharding`): the encode gathers the VAE, so the two losses
+  are equal; the checkpoint holds the whole VAE."""
+  import functools
+  from small_vision_tpu_torch.models import vae as vae_lib
+  from small_vision_tpu_torch.utils.chrono import Chrono
+  load_vae = vae_lib.load_vae
+  vae_lib.load_vae = functools.partial(load_vae,
+                                       block_out_channels=(32, 32, 32, 32))
+  rng = np.random.default_rng(5)
+  images = torch.from_numpy(rng.uniform(-1, 1, (4, 32, 32, 3)).astype(
+      np.float32))
+  draws = {"t": torch.tensor([3, 500]),
+           "noise": torch.from_numpy(rng.standard_normal(
+               (2, 4, 4, 4)).astype(np.float32)),
+           "vae_noise": torch.from_numpy(rng.standard_normal(
+               (4, 4, 4, 4)).astype(np.float32)),
+           "mae_noise": torch.from_numpy(rng.random((2, 16), np.float32)),
+           "dit_noise": torch.from_numpy(rng.random((2, 16), np.float32))}
+  out = {}
+  try:
+    _vae_runs(images, draws, out, Chrono)
+  finally:
+    vae_lib.load_vae = load_vae
+  _save(tmp, "vae", rank, **out)
+
+
+def _vae_runs(images, draws, out, chrono):
+  from small_vision_tpu_torch.configs import ae_i1k
+  for placement in ("replicated", "fully_sharded"):
+    config = ae_i1k.get_config("runlocal,data=synthetic,total_steps=2")
+    config.update(latent_diffusion=True, size=32, diffusion_space=(4, 4, 4),
+                  vae_param_sharding=placement, mesh_fsdp=0,
+                  min_size_to_shard=0)
+    config["model"].update(img_size=4, patch_size=(1, 1), channels=4,
+                           dtype_mm="float32", attn_impl="xla")
+    config["input"].update(batch_size=4, num_workers=1,
+                           pp='keep("image", "label")')
+    config["input"]["data"].update(img_size=32, num_examples=16)
+    mesh = train_ae.build_mesh(config)
+    run = train_ae.setup_training(config, "cpu", lambda s: None, mesh)
+    loss, _ = run["update_fn"].loss_and_grads(run["train_state"],
+                                              {"image": images}, draws)
+    out[f"loss_{placement}"] = loss
+    out[f"local_{placement}"] = sum(
+        t.numel() for t in run["train_state"]["vae_params"].values())
+    state = train_ae.checkpoint_state(run["train_state"], run["names"],
+                                      chrono(), run["layout"])
+    out[f"ckpt_{placement}"] = sum(
+        float(t.double().sum()) for t in state["vae_params"].values())
+    if placement == "replicated":  # the whole seeded VAE
+      full = run["train_state"]["vae_params"].values()
+      out["full_sum"] = sum(float(t.double().sum()) for t in full)
+      out["full_count"] = sum(t.numel() for t in full)
+
+
 def run(rank, n, device, tmp):
   collectives_scenario(rank, n, tmp)
+  vae_scenario(rank, n, tmp)
   eval_scenario(rank, n, tmp)
   explicit_scenario(rank, n, tmp)
   pipeline_scenario(rank, n, tmp)
