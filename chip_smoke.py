@@ -210,6 +210,25 @@ Phases, each fatal on failure:
                within phase model's bounds. K1-K4 launched in every
                process, the counts the schedule gives. The times are host
                clock; the two processes time-slice the card.
+ 15. tensor    tensor parallelism (the Megatron block) on the one card,
+               spawned as phase parallel's (b) with PARALLEL_TIMEOUT:
+               UMD-B/4@64 at full width and depth at batch 64 on a seeded
+               batch with injected draws, 3 steps through
+               `train_and_evaluate`: (a) `tensor_parallel` (T = 2, the
+               optimizer state replicated) under `pallas` and (b) under
+               `pallas_fused` in two processes, (c) `tp_fsdp` on fsdp 2 x
+               tensor 2 in four (2 steps), (d) `val` (2 batches) under
+               (a)'s placement; each against the one-process run on the
+               card: the losses within rtol 2e-4 and atol 1e-5
+               (tests/test_fsdp_equivalence.py's bound) and equal on the
+               two tensor ranks of a batch shard, each process's launches
+               those of one process, K3/K4 on 6 heads, K6 on (768 -> 384)
+               projections and K5 on hidden 1,536 under (b), its state
+               bytes those of the placement; each process's step ms and
+               the share of its collectives (host clock, each collective
+               bracketed by device synchronisations). Phase `kernels`
+               holds K6 on a rank's 6 of 12 heads at (64, 260) and
+               (128, 257), timed beside the square K6.
 Then it prints the card's name and power limit, one JSON line of the
 kernels, and as its last line {"ok": true, "device": {...}}. Without a CUDA
 device it exits non-zero and prints no result.
@@ -808,19 +827,24 @@ def check_fused_mlp(fb, card):
 
 
 def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
-                    shapes=FUSED_SHAPES):
+                    shapes=FUSED_SHAPES, rank_heads=None):
   """K6 against its plain version at `shapes` (by default the sampler's
-  and training shapes); two launches must give equal bits."""
+  and training shapes); two launches must give equal bits. `rank_heads`:
+  a tensor rank's heads of `heads` (phase tensor's entry, non-square
+  projections (width, rank_heads * 64) and (rank_heads * 64, width))."""
   gen = torch.Generator(device="cuda").manual_seed(5)
   randn = lambda *s, std=1.0: (torch.randn(*s, generator=gen, device="cuda")
                                * std).to(torch.bfloat16)
+  head_dim = width // heads
+  heads = rank_heads or heads
+  hd = heads * head_dim
   params = []
-  for _ in range(4):
-    params += [randn(width, width, std=width**-0.5), randn(width, std=0.1)]
+  for _ in range(3):
+    params += [randn(width, hd, std=width**-0.5), randn(hd, std=0.1)]
+  params += [randn(hd, width, std=hd**-0.5), randn(width, std=0.1)]
   wq, bq, wk, bk, wv, bv, wo, bo = params
   lin = torch.nn.functional.linear
   wts = [w.t().contiguous() for w in (wq, wk, wv, wo)]
-  head_dim = width // heads
   max_err, by_shape = 0.0, {}
   for b, seq in shapes:
     x = randn(b, seq, width)
@@ -837,7 +861,8 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
     # largest output.
     err, ok = _close_to_max(got, want, 2)
     max_err = max(max_err, err)
-    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={width}: max abs err "
+    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={width} H={heads}: "
+          f"max abs err "
           f"{err:.3e} of max {want.float().abs().max().item():.3e} "
           "(tolerance 2 bf16 ulps of the max), two launches equal",
           flush=True)
@@ -849,10 +874,11 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
       q, k, v = (split(lin(x, w, bias)) for w, bias in
                  zip(wts[:3], (bq, bk, bv)))
       o = torch.nn.functional.scaled_dot_product_attention(q, k, v)
-      return lin(o.transpose(1, 2).reshape(b, seq, width), wts[3], bo)
+      return lin(o.transpose(1, 2).reshape(b, seq, hd), wts[3], bo)
 
-    bytes_moved = (2 * b * seq * width + 4 * width * width + 4 * width) * 2
-    flops = (8 * b * seq * width * width
+    bytes_moved = (2 * b * seq * width + 4 * width * hd + 3 * hd
+                   + width) * 2
+    flops = (8 * b * seq * width * hd
              + 4 * b * heads * seq * seq * head_dim)
     bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
     by_shape[f"{b}x{seq}"] = dict(
@@ -3027,15 +3053,15 @@ PARALLEL_CONFIG = (f"fsdp=True,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
                    f"total_steps={PARALLEL_STEPS},log_steps=1,eval_steps=-1")
 
 
-def _parallel_plan(path):
+def _parallel_plan(path, batch=TRAIN_BATCH, steps=PARALLEL_STEPS):
   """Seeded batches and draws of the fsdp run: global images and, per
   branch, the draws of the single-process step on [every process's
   diffusion rows, then every process's MAE rows]."""
   rng = np.random.default_rng(15)
-  n = TRAIN_BATCH // 2
+  n = batch // 2
   plan = {}
-  for s in range(PARALLEL_STEPS):
-    plan[f"image{s}"] = rng.uniform(-1, 1, (TRAIN_BATCH, 64, 64, 3)).astype(
+  for s in range(steps):
+    plan[f"image{s}"] = rng.uniform(-1, 1, (batch, 64, 64, 3)).astype(
         np.float32)
     plan[f"t{s}"] = rng.integers(0, 1000, (n,))
     plan[f"noise{s}"] = rng.standard_normal((n, 64, 64, 3), dtype=np.float32)
@@ -3044,11 +3070,13 @@ def _parallel_plan(path):
   np.savez(path, **plan)
 
 
-def _injected_trainer(plan, index, count, record):
+def _injected_trainer(plan, index, count, record, batch=TRAIN_BATCH,
+                      time_layout=True):
   """`train_ae.make_update_fn` with this process's rows of the plan's batch
   (its share of the diffusion rows, then of the MAE rows), the matching
   draws, no device pp, and records: the layout, the full `nu` after step 1
-  (the step-1 gradients), and the host time of the steps' collectives."""
+  (the step-1 gradients), and (`time_layout`) the host time of the
+  layout's collectives."""
   from small_vision_tpu_torch.parallel.sharding import ShardedParams
   from small_vision_tpu_torch.train import train_ae
   orig = train_ae.make_update_fn
@@ -3057,13 +3085,12 @@ def _injected_trainer(plan, index, count, record):
     update = orig(model, opt, config, None, **kw)
     layout = kw.get("layout")
     record["layout"] = layout
-    nl = ml = TRAIN_BATCH // 2 // count
+    nl = ml = batch // 2 // count
 
-    def update_fn(train_state, batch, draws=None, *, with_l2=False):
+    def update_fn(train_state, _, draws=None, *, with_l2=False):
       s = len(record.setdefault("meas", []))
       rows = np.r_[index * nl:(index + 1) * nl,
-                   TRAIN_BATCH // 2 + index * ml:TRAIN_BATCH // 2
-                   + (index + 1) * ml]
+                   batch // 2 + index * ml:batch // 2 + (index + 1) * ml]
       draws = {k: plan[f"{k}{s}"][index * nl:(index + 1) * nl]
                for k in ("t", "noise", "mae_noise", "dit_noise")}
       meas = update(train_state, {"image": plan[f"image{s}"][rows]}, draws,
@@ -3085,6 +3112,8 @@ def _injected_trainer(plan, index, count, record):
       record["coll_ms"][-1] += (time.perf_counter() - t0) * 1e3
       return out
     return wrapper
+  if not time_layout:
+    return make, lambda: None
   record["coll_ms"] = []
   gather, reduce = ShardedParams.gather, ShardedParams.reduce_grads
 
@@ -3448,6 +3477,272 @@ def phase_parallel(build, card):
   return out
 
 
+# ---------------------------------------------------------------------------
+# Phase tensor: tensor parallelism (the Megatron block) on the one card.
+
+TENSOR_BATCH = 64           # the collectives go through the host over gloo
+TENSOR_STEPS = 3
+TENSOR_FSDP_STEPS = 2
+TENSOR_HEADS = HEADS // 2   # a rank's heads at T = 2
+# The trainer's loss bound against one process (tests/test_fsdp_equivalence.py).
+TENSOR_RTOL, TENSOR_ATOL = 2e-4, 1e-5
+TENSOR_CASES = {
+    # name: (processes, attn_impl, steps, the config's placement, with val)
+    "a": (2, "pallas", TENSOR_STEPS,
+          dict(mesh_tensor=2, param_sharding="tensor_parallel"), True),
+    "b": (2, "pallas_fused", TENSOR_STEPS,
+          dict(mesh_tensor=2, param_sharding="tensor_parallel"), False),
+    "c": (4, "pallas", TENSOR_FSDP_STEPS,
+          dict(mesh_fsdp=2, mesh_tensor=2, param_sharding="tp_fsdp",
+               optim_sharding="tp_fsdp"), False),
+}
+
+
+def _tensor_config(attn_impl, steps, placement, with_val):
+  """UMD-B/4@64 at full width and depth at batch TENSOR_BATCH, with
+  `placement`; `val` alone (2 batches) at the last step, or no
+  evaluators."""
+  from small_vision_tpu_torch.configs import ae_i1k
+  config = ae_i1k.get_config(
+      f"variant=B/4,size=64,data=synthetic,batch_size={TENSOR_BATCH},"
+      f"total_steps={steps},log_steps=1,attn_impl={attn_impl},"
+      f"eval_steps={steps if with_val else -1}")
+  if with_val:
+    config["evals"] = {"val": dict(config["evals"]["val"], num_batches=2)}
+  config.update(placement, save_ckpt=False)
+  return config
+
+
+def _tensor_run(plan_path, index, count, device, case, mesh=None,
+                workdir=None):
+  """Case `case` of TENSOR_CASES through `train_and_evaluate` on the
+  plan's batch (this process's rows, `_injected_trainer`), one process
+  without a `mesh`. Returns the losses, the launches, the head counts and
+  projection shapes the kernels ran on, the state bytes held and those the
+  layout's placements give, the step times, the host time of the
+  collectives a step (each bracketed by device synchronisations), and the
+  `val` metrics (on the process that writes them)."""
+  from small_vision_tpu_torch.ops import _build as build
+  from small_vision_tpu_torch.ops import attention as attn_lib
+  from small_vision_tpu_torch.ops import fused_block as fb_lib
+  from small_vision_tpu_torch.parallel import collectives
+  from small_vision_tpu_torch.parallel import mesh as mesh_lib
+  from small_vision_tpu_torch.parallel import sharding as sharding_lib
+  from small_vision_tpu_torch.train import train_ae
+  _, attn_impl, steps, placement, with_val = TENSOR_CASES[case]
+  plan = dict(np.load(plan_path))
+  record = {"coll_ms": [], "shapes": set()}
+  make, restore = _injected_trainer(plan, index, count, record,
+                                    batch=TENSOR_BATCH, time_layout=False)
+  wrapped = []
+
+  def wrap(module, name, note):
+    orig = getattr(module, name)
+
+    def call(*a):
+      record["shapes"].add(note(*a))
+      return orig(*a)
+    setattr(module, name, call)
+    wrapped.append((module, name, orig))
+  wrap(attn_lib, "attention_packed_fwd", lambda q, k, v, h: ("K3 heads", h))
+  wrap(attn_lib, "attention_packed_bwd",
+       lambda q, k, v, do, h: ("K4 heads", h))
+  wrap(fb_lib, "fused_mha_fwd", lambda x, wq, *a: (
+      "K6 heads, x, wq, wo", a[-1], tuple(x.shape[-1:]), tuple(wq.shape),
+      tuple(a[-3].shape)))
+  wrap(fb_lib, "fused_mlp_fwd", lambda x, w1, b1, w2, b2: (
+      "K5 w1, w2", tuple(w1.shape), tuple(w2.shape)))
+  for name in ("all_reduce", "all_gather", "reduce_scatter"):
+    orig = getattr(collectives, name)
+
+    def timed(*a, _orig=orig, **kw):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      out = _orig(*a, **kw)
+      torch.cuda.synchronize()
+      if record.get("in_step"):
+        record["coll_ms"][-1] += (time.perf_counter() - t0) * 1e3
+      return out
+    setattr(collectives, name, timed)
+    wrapped.append((collectives, name, orig))
+  orig_make = train_ae.make_update_fn
+
+  def make_counted(*a, **kw):
+    update = make(*a, **kw)
+
+    def update_fn(*b, **bkw):
+      record["coll_ms"].append(0.0)
+      record["in_step"] = True
+      try:
+        return update(*b, **bkw)
+      finally:
+        record["in_step"] = False
+        record["train_launches"] = dict(build.LAUNCHES)
+    return update_fn
+  train_ae.make_update_fn = make_counted
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  build.reset_launches()
+  config = _tensor_config(attn_impl, steps, placement, with_val)
+  if mesh is None:  # one process: no placement
+    for key in placement:
+      config.pop(key)
+  try:
+    state, history = train_ae.train_and_evaluate(
+        config, workdir, device=device, log=lambda s: None, mesh=mesh)
+  finally:
+    train_ae.make_update_fn = orig_make
+    restore()
+    for module, name, orig in wrapped:
+      setattr(module, name, orig)
+  launches = dict(build.LAUNCHES)
+  layout = record["layout"]
+  opt = state["opt"]
+  state_bytes = sum(t.numel() * t.element_size() for t in (
+      list(state["params"]) + list(opt["mu"]) + list(opt["nu"])))
+  if layout is None:
+    n_params = n_opt = sum(int(p.numel()) for p in state["params"])
+  else:
+    n_params = sum(int(np.prod(sharding_lib.shard_shape(f, sp, mesh)))
+                   for f, sp in zip(layout.full_shapes, layout.specs))
+    n_opt = sum(int(np.prod(s)) for s in layout.opt_shapes())
+  val = {}  # process 0 writes the metrics
+  metrics = os.path.join(workdir or "", "sv_tpu_metrics.txt")
+  if with_val and mesh_lib.process_index() == 0 and os.path.exists(metrics):
+    with open(metrics) as f:
+      for line in f:
+        row = json.loads(line)
+        val.update({k: v for k, v in row.items() if k.startswith("val/")})
+  return {"losses": [float(m["training_loss"]) for m in record["meas"]],
+          "launches": launches, "train_launches": record["train_launches"],
+          "shapes": sorted(record["shapes"]),
+          "state_bytes": state_bytes,
+          "expect_bytes": 4 * n_params + (2 + 4) * n_opt,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "step_ms": [h["ms"] for h in history],
+          "coll_ms": record["coll_ms"], "val": val}
+
+
+def tensor_worker(rank, n, device, tmp):
+  """A process of phase tensor: the cases of TENSOR_CASES with n
+  processes; writes each one's results to `tmp`."""
+  from small_vision_tpu_torch.parallel import collectives
+  from small_vision_tpu_torch.train import train_ae
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  for case, (procs, attn_impl, steps, placement, with_val) in (
+      TENSOR_CASES.items()):
+    if procs != n:
+      continue
+    config = _tensor_config(attn_impl, steps, placement, with_val)
+    mesh = train_ae.build_mesh(config)
+    workdir = os.path.join(tmp, f"work_{case}") if with_val else None
+    out = _tensor_run(os.path.join(tmp, "plan.npz"), *mesh.batch_shard(),
+                      device, case, mesh, workdir)
+    out["mesh"] = dict(mesh.shape)
+    out["transport"] = collectives.transport(mesh.group("tensor"))
+    torch.save(out, os.path.join(tmp, f"tensor_{case}_rank{rank}.pt"))
+    del out
+    torch.cuda.empty_cache()
+
+
+def phase_tensor(build, card):
+  """Phase tensor: UMD-B/4@64 at full width and depth under
+  `tensor_parallel` (T = 2, the Megatron block: K1-K4 on a rank's 6 heads,
+  K5/K6 on its shard under "pallas_fused") in two processes sharing the
+  card over gloo, and under `tp_fsdp` (fsdp 2 x tensor 2) in four, each
+  against the one-process run on the card: the losses within
+  tests/test_fsdp_equivalence.py's bound, equal on the tensor ranks of a
+  batch shard, the launches per process those of one process, the head
+  counts and shard shapes the kernels ran on, the state bytes equal to the
+  placement's, and (a)'s `val` equal to one process's."""
+  from small_vision_tpu_torch.tools import dryrun_multichip
+  tmp = tempfile.mkdtemp(prefix="sv_tensor_")
+  try:
+    plan = os.path.join(tmp, "plan.npz")
+    _parallel_plan(plan, TENSOR_BATCH, TENSOR_STEPS)
+    ref = {case: _tensor_run(plan, 0, 1, "cuda", case,
+                             workdir=os.path.join(tmp, f"single_{case}"))
+           for case in ("a", "b")}
+    torch.cuda.empty_cache()
+    seconds = {}
+    for n in (2, 4):
+      t0 = time.perf_counter()
+      dryrun_multichip.spawn("chip_smoke:tensor_worker", n, args=(tmp,),
+                             device="cuda", timeout=PARALLEL_TIMEOUT)
+      seconds[n] = time.perf_counter() - t0
+    got = {case: [torch.load(os.path.join(tmp, f"tensor_{case}_rank{r}.pt"),
+                             weights_only=False) for r in range(procs)]
+           for case, (procs, *_) in TENSOR_CASES.items()}
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+
+  ref["c"] = ref["a"]  # the same one-process run; (c) takes 2 of its steps
+  for case, (procs, attn_impl, steps, placement, with_val) in (
+      TENSOR_CASES.items()):
+    want = ref[case]
+    per_step = _times(BLOCK_TRAIN_LAUNCHES[attn_impl], 2 * BLOCKS * steps)
+    for r, g in enumerate(got[case]):
+      losses, ref_losses = np.array(g["losses"]), np.array(
+          want["losses"][:steps])
+      worst = float(np.max(np.abs(losses - ref_losses) / np.abs(ref_losses)))
+      coll = [c / m for c, m in zip(g["coll_ms"], g["step_ms"])]
+      print(f"[tensor] ({case}) {attn_impl} mesh {g['mesh']} process {r} "
+            f"({g['transport']}): losses {g['losses']} (one process "
+            f"{want['losses'][:steps]}, worst rel {worst:.2e}); launches "
+            f"in the steps {g['train_launches']}, in all {g['launches']}; "
+            f"kernels ran on {g['shapes']}; state "
+            f"{g['state_bytes']} bytes, the placement says "
+            f"{g['expect_bytes']} (one process {want['state_bytes']}); "
+            f"peak {g['peak_gb']:.2f} GB; steps "
+            + ", ".join(f"{m:.1f}" for m in g["step_ms"])
+            + " ms, collectives " + ", ".join(f"{c:.1f}" for c in g["coll_ms"])
+            + " ms (" + ", ".join(f"{c * 100:.1f}" for c in coll)
+            + f" %; host clock, {procs} processes time-slicing the card); "
+            f"on {card}", flush=True)
+      np.testing.assert_allclose(losses, ref_losses, rtol=TENSOR_RTOL,
+                                 atol=TENSOR_ATOL,
+                                 err_msg=f"phase tensor ({case}) losses")
+      partner = got[case][r ^ 1]  # the other tensor rank of its batch shard
+      if g["losses"] != partner["losses"]:
+        fail(f"tensor ({case}): tensor ranks {r} and {r ^ 1} disagree")
+      if g["train_launches"] != per_step:
+        fail(f"tensor ({case}) process {r}: the steps' launches "
+             f"{g['train_launches']} != {per_step}")
+      if with_val and g["launches"] != want["launches"]:
+        fail(f"tensor ({case}) process {r}: launches with val "
+             f"{g['launches']} != one process's {want['launches']}")
+      heads = {s[1] for s in g["shapes"] if s[0].startswith(("K3", "K4"))}
+      if heads != {TENSOR_HEADS}:
+        fail(f"tensor ({case}): K3/K4 ran on {heads} heads")
+      if attn_impl == "pallas_fused":
+        hd = TENSOR_HEADS * 64
+        k6 = {s[1:] for s in g["shapes"] if s[0].startswith("K6")}
+        k5 = {s[1:] for s in g["shapes"] if s[0].startswith("K5")}
+        if k6 != {(TENSOR_HEADS, (WIDTH,), (WIDTH, hd), (hd, WIDTH))}:
+          fail(f"tensor ({case}): K6 ran on {k6}")
+        if k5 != {((WIDTH, MLP_DIM // 2), (MLP_DIM // 2, WIDTH))}:
+          fail(f"tensor ({case}): K5 ran on {k5}")
+      if g["state_bytes"] != g["expect_bytes"]:
+        fail(f"tensor ({case}) process {r}: state bytes {g['state_bytes']} "
+             f"!= the placement's {g['expect_bytes']}")
+      if not g["state_bytes"] < want["state_bytes"]:
+        fail(f"tensor ({case}): process {r} holds no less than one process")
+      if with_val and r == 0:
+        print(f"[tensor] ({case}) val: {g['val']} (one process "
+              f"{want['val']}) on {card}", flush=True)
+        if not g["val"] or sorted(g["val"]) != sorted(want["val"]):
+          fail(f"tensor ({case}): val gave {g['val']}, one process "
+               f"{want['val']}")
+        for k, v in want["val"].items():
+          np.testing.assert_allclose(g["val"][k], v, rtol=TENSOR_RTOL,
+                                     atol=TENSOR_ATOL,
+                                     err_msg=f"phase tensor val {k}")
+  print(f"[tensor] two processes {seconds[2]:.1f} s, four {seconds[4]:.1f} "
+        f"s from their start; on {card}", flush=True)
+  return {"ref": ref, "got": got, "seconds": seconds}
+
+
 def _bf16_spacing(x):
   """The spacing of bf16 numbers at |x| (2^-7 of its power of two)."""
   return 2.0 ** (np.floor(np.log2(abs(x))) - 7) if x else 0.0
@@ -3513,7 +3808,16 @@ def main():
           check_ln_bwd(ln, card, L2_WIDTH, b_latent),
           check_attention_bwd(attn, card, L2_WIDTH, L2_HEADS, b_latent),
           check_fused_mha(fb, card, L2_WIDTH, L2_HEADS, FUSED_SHAPES[:2])]
+  # K6 on a tensor rank's 6 of 12 heads at width 768 (phase tensor's
+  # shard), at the sampler's shape and the decoder's training shape.
+  k6_rank = check_fused_mha(fb, card, WIDTH, HEADS, ((BATCH, SEQ_ENC),
+                                                     (128, SEQ_DEC)),
+                            rank_heads=HEADS // 2)
   for k in kernels:
+    if k["name"] == k6_rank["name"]:
+      k[f"tensor_rank_{HEADS // 2}_heads"] = {
+          key: v for key, v in k6_rank.items()
+          if key not in ("name", "route", "source", "replaces")}
     for w in wide:
       if w["name"] == k["name"]:
         k[f"width_{L2_WIDTH}"] = {
@@ -3569,6 +3873,7 @@ def main():
   finally:
     shutil.rmtree(backbone, ignore_errors=True)
   parallel = phase_parallel(build, card)
+  tensor = phase_tensor(build, card)
   for k in kernels:
     # Launches on the paths driven above, each counted from 0: the sampler
     # call and the training run under "pallas", the same two under
@@ -3628,6 +3933,10 @@ def main():
         **{f"parallel_b_{p}_process{r}_{PARALLEL_STEPS}_steps":
            got["launches"].get(name, 0)
            for p, gs in parallel["placed"].items()
+           for r, got in enumerate(gs)},
+        **{f"tensor_{case}_{TENSOR_CASES[case][1]}_process{r}_"
+           f"{TENSOR_CASES[case][2]}_steps": got["launches"].get(name, 0)
+           for case, gs in tensor["got"].items()
            for r, got in enumerate(gs)}}
     k["launches"] = max(k["launches_by_path"].values())
     if not k["launches"]:
@@ -3731,6 +4040,21 @@ def main():
         + "; pipe=2 bubble "
         f"1/{PIPE_MICROBATCHES + 1}; (b)'s two processes {parallel['b_s']:.1f}"
         f" s from their start; on {card}", flush=True)
+
+  tg = tensor["got"]
+  print("[result] tensor: " + "; ".join(
+      f"({case}) {TENSOR_CASES[case][1]} mesh {gs[0]['mesh']}: steps "
+      + ", ".join(f"{np.mean(g['step_ms'][1:]):.1f}" for g in gs)
+      + " ms a process after the first, collectives "
+      + ", ".join(f"{np.sum(g['coll_ms'][1:]) / np.sum(g['step_ms'][1:]):.1%}"
+                  for g in gs)
+      + " of them; state " + ", ".join(f"{g['state_bytes'] / 1e9:.3f}"
+                                         for g in gs)
+      + f" GB a process (one process "
+      f"{tensor['ref'][case]['state_bytes'] / 1e9:.3f})"
+      for case, gs in tg.items())
+        + f"; host clock, the processes time-slicing the card over gloo; "
+        f"on {card}", flush=True)
 
   print(card, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,12 +3,15 @@
 // out-projection with bias, for Hopper (sm_90a).
 //
 // Replaces: small_vision_tpu/ops/fused_block.py::_mha_kernel (reached via
-// _mha_pallas / fused_mha). Per batch row:
-//   q, k, v = bf16(f32(x W) + b)                             (three W, b)
+// _mha_pallas / fused_mha). Per batch row, on x of width d and H heads of
+// 64 (d = H*64 in one process; a tensor rank's H heads of a wider model,
+// d = 768 and H = 6 at UMD-B/4 over two ranks, whose out-projection then
+// takes a zero bias and is summed over the ranks by the caller):
+//   q, k, v = bf16(f32(x W) + b)              (three W (d, H*64), b (H*64))
 //   per head: S = (q k^T) * scale, keys past L masked to -inf;
 //             p = bf16(exp(S - rowmax) / rowsum), the division before the
 //             rounding;  a = bf16(f32(p v))
-//   o = bf16(f32(a Wo) + bo)
+//   o = bf16(f32(a Wo) + bo)                     (Wo (H*64, d), bo (d))
 // the TPU kernel's rounding points.
 //
 // Bound on this card: at the sampler's shape (B=64, L=260, width 768, 12
@@ -87,28 +90,33 @@ fused_mha_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
 // resident in the 227 KB of shared memory a block can use).
 extern "C" int fused_mha_max_len() { return sm90::attn_max_len(); }
 
+// Marks the entry points that take the width apart from the heads (a
+// tensor rank's projections); an older build's K6 took square ones only.
+extern "C" int fused_mha_takes_width() { return 1; }
+
 // (a): c (m, num_w * n) = [bf16(f32(a w_i) + b_i) for i < num_w] side by
-// side; a (m, n), each w_i (n, n), b_i (n,); bf16, contiguous, 16-byte
-// aligned; n a multiple of 64, num_w 1 to 3 (unused w_i, b_i are
+// side; a (m, k), each w_i (k, n), b_i (n,); bf16, contiguous, 16-byte
+// aligned; n and k multiples of 64, num_w 1 to 3 (unused w_i, b_i are
 // ignored). Returns cudaGetLastError(), or cudaErrorInvalidValue for a
 // shape it does not take or a tensor map the driver refuses.
 extern "C" int fused_mha_proj(const void* a, const void* w0, const void* w1,
                               const void* w2, const void* b0, const void* b1,
-                              const void* b2, void* c, int m, int n,
+                              const void* b2, void* c, int m, int n, int k,
                               int num_w, void* stream) {
-  if (m <= 0 || n <= 0 || n % 64 != 0 || num_w < 1 || num_w > 3) {
+  if (m <= 0 || n <= 0 || n % 64 != 0 || k <= 0 || k % 64 != 0 ||
+      num_w < 1 || num_w > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* ws[3] = {w0, w1, w2};
   CUtensorMap ta, tw[3], tc[3];
-  if (!sm90_host::matrix_map(&ta, a, m, n, n, ProjTiles::kBM)) {
+  if (!sm90_host::matrix_map(&ta, a, m, k, k, ProjTiles::kBM)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int i = 0; i < 3; ++i) {
     const int src = i < num_w ? i : 0;
     __nv_bfloat16* ci = static_cast<__nv_bfloat16*>(c) +
                         static_cast<size_t>(src) * n;
-    if (!sm90_host::matrix_map(&tw[i], ws[src], n, n, n, ProjTiles::kBK) ||
+    if (!sm90_host::matrix_map(&tw[i], ws[src], k, n, n, ProjTiles::kBK) ||
         !sm90_host::matrix_map(&tc[i], ci, m, n, num_w * n, 64)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -125,7 +133,7 @@ extern "C" int fused_mha_proj(const void* a, const void* w0, const void* w1,
   fused_mha_proj_kernel<<<grid, sm90::kGemmThreads, ProjTiles::kSmem,
                           static_cast<cudaStream_t>(stream)>>>(
       ta, tw[0], tw[1], tw[2], tc[0], tc[1], tc[2], bf(b0),
-      bf(num_w > 1 ? b1 : b0), bf(num_w > 2 ? b2 : b0), m, n, n, num_w);
+      bf(num_w > 1 ? b1 : b0), bf(num_w > 2 ? b2 : b0), m, n, k, num_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -148,24 +156,26 @@ extern "C" int fused_mha_attention(const void* qkv, void* heads, int batch,
       batch, num_heads, static_cast<cudaStream_t>(stream));
 }
 
-// x, heads (scratch), o: (B, L, H*64) bf16; qkv (scratch): (B, L, 3 H*64)
-// bf16; wq, wk, wv, wo: (H*64, H*64) bf16 row-major (in, out); bq, bk, bv,
-// bo: (H*64,) bf16; all contiguous and 16-byte aligned. scale = 64**-0.5
-// in f32. The three launches: (a) q, k, v; (b) the heads; (a) the
-// out-projection. Returns the first non-zero status.
+// x, o: (B, L, width) bf16; heads (scratch): (B, L, H*64) bf16; qkv
+// (scratch): (B, L, 3 H*64) bf16; wq, wk, wv: (width, H*64) and wo
+// (H*64, width) bf16 row-major (in, out); bq, bk, bv: (H*64,) and bo
+// (width,) bf16; all contiguous and 16-byte aligned; width a multiple of
+// 64. scale = 64**-0.5 in f32. The three launches: (a) q, k, v; (b) the
+// heads; (a) the out-projection. Returns the first non-zero status.
 extern "C" int fused_mha_fwd(const void* x, const void* wq, const void* bq,
                              const void* wk, const void* bk, const void* wv,
                              const void* bv, const void* wo, const void* bo,
                              void* qkv, void* heads, void* o, int batch,
-                             int seq_len, int num_heads, float scale,
-                             void* stream) {
+                             int seq_len, int width, int num_heads,
+                             float scale, void* stream) {
   const int hd = num_heads * kHeadDim;
   const int m = batch * seq_len;
-  int status = fused_mha_proj(x, wq, wk, wv, bq, bk, bv, qkv, m, hd, 3,
-                              stream);
+  int status = fused_mha_proj(x, wq, wk, wv, bq, bk, bv, qkv, m, hd, width,
+                              3, stream);
   if (status != 0) return status;
   status = fused_mha_attention(qkv, heads, batch, seq_len, num_heads, scale,
                                stream);
   if (status != 0) return status;
-  return fused_mha_proj(heads, wo, wo, wo, bo, bo, bo, o, m, hd, 1, stream);
+  return fused_mha_proj(heads, wo, wo, wo, bo, bo, bo, o, m, width, hd, 1,
+                        stream);
 }

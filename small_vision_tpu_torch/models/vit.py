@@ -54,6 +54,20 @@ what "nothing_saveable" does and "save_attn_mlp" `mlp_out` alone. The
 block's AdaLN vectors (B, 6D) and its input with the conditioning token
 are made before the checkpointed regions, so that the autograd graph is
 the one of the run without remat and the gradients are the same bits.
+
+Tensor parallelism (Megatron's block, the `tensor_parallel` and `tp_fsdp`
+placements of `parallel.sharding`): where the q, k, v and out-projections
+hold a tensor rank's H/T heads and the MLP's kernels its hidden/T units,
+each half takes its input's gradient summed over the tensor group
+(`collectives.identity_grad_sum`), runs on the rank's part (K3/K4, K6 and
+K5 on the shard's shapes, the dropout mask after the gelu sliced), and
+sums its row-split product over the group in f32
+(`collectives.sum_grad_identity`) before adding that layer's bias once;
+int8's row-split scales are the group's (`ops.quant.int8_dot`). The
+replicated biases of the column-split layers are sliced through
+`collectives.scatter`, so their gradients are whole on every rank. JAX
+lets GSPMD lay out the residual stream over `tensor` (`constrain(...,
+"embed")`); here it stays whole and the same on every rank.
 """
 
 from typing import Callable, Optional
@@ -69,6 +83,7 @@ from small_vision_tpu_torch.ops.attention import attention_packed
 from small_vision_tpu_torch.ops.fused_block import fused_mha, fused_mlp
 from small_vision_tpu_torch.ops.layernorm import ln_modulate
 from small_vision_tpu_torch.ops.quant import int8_dot
+from small_vision_tpu_torch.parallel import collectives
 from small_vision_tpu_torch.parallel import ctx as ctx_lib
 from small_vision_tpu_torch.parallel import mesh as mesh_lib
 from small_vision_tpu_torch.parallel import pipeline as pipeline_lib
@@ -113,12 +128,40 @@ def dropout(x, keep: Optional[torch.Tensor], rate: float):
                                                       device=x.device))
 
 
-def int8_dense(x, kernel, bias, dtype):
+def int8_dense(x, kernel, bias, dtype, group=None):
   """`dense` with the product through `int8_dot`: operands cast to the
-  compute dtype, the int8 product rounded to it, then the bias added in it
-  (two roundings, as the JAX modules)."""
+  compute dtype, the int8 product rounded to it, then the bias (None: no
+  bias) added in it (two roundings, as the JAX modules). `group`: the
+  tensor group of a row-split product (`int8_dot`)."""
   dt = compute_dtype(x, dtype)
-  return int8_dot(x.to(dt), kernel.to(dt)) + bias.to(dt)
+  y = int8_dot(x.to(dt), kernel.to(dt), group)
+  return y if bias is None else y + bias.to(dt)
+
+
+def tp_degree(local: int, whole: int, tp, what: str) -> int:
+  """How many tensor ranks share a module whose parameter holds `local`
+  of its `whole` heads (or hidden units): 1 when it holds them all, else
+  the size of the tensor group `tp`, which must make up the whole."""
+  if local == whole:
+    return 1
+  size = collectives.group_size(tp)
+  if size * local != whole:
+    raise ValueError(
+        f"{what}: the parameters hold {local} of {whole}, and the tensor "
+        f"group has {size} processes (a tensor rank's block runs under a "
+        "mesh with that `tensor` axis, parallel.ctx.activate_mesh)")
+  return size
+
+
+def sum_partials(y, tp, bias, dt, bias_in_f32: bool):
+  """Megatron's g after a row-split product: the ranks' partial `y`
+  summed over the tensor group `tp` in f32 (the gradient passes through),
+  then the bias added once, in f32 before the one rounding to `dt` (the
+  fused kernels' order) or after it, in `dt` (a Dense's)."""
+  total = collectives.sum_grad_identity(y.float(), tp)
+  if bias_in_f32:
+    return (total + bias.float()).to(dt)
+  return total.to(dt) + bias.to(dt)
 
 
 def xla_attention(q, k, v):
@@ -166,13 +209,23 @@ class MlpBlock(nn.Module):
   """Dense → gelu (tanh approximation, flax's default) → dropout → Dense;
   under `attn_impl="pallas_fused"` with dropout 0 as one `fused_mlp` on the
   same parameters; with `quant` "int8" or "int8_all" both products through
-  `int8_dot`, which wins over the fused MLP."""
+  `int8_dot`, which wins over the fused MLP.
+
+  Where the parameters hold a tensor rank's block of the hidden units
+  (`Dense_0` by columns, `Dense_1` by rows; `tp` the tensor group), the
+  input's gradient is summed over the group, `Dense_0`'s bias is sliced
+  (its gradient all-gathered), the gelu and the dropout run on the rank's
+  units (the mask drawn whole and sliced), and `Dense_1`'s partial product
+  is summed over the group before its bias is added once; under int8 its
+  scales are the group's (`int8_dot`), and K5 runs on the shard with a
+  zero bias."""
 
   def __init__(self, width: int, mlp_dim: Optional[int], dtype,
                attn_impl: str = "pallas", quant: str = "none",
                dropout: float = 0.0):
     super().__init__()
     hidden = mlp_dim or 4 * width
+    self.hidden = hidden
     self.dtype = dtype
     self.dropout = dropout
     self.fused = check_attn_impl(attn_impl) == "pallas_fused" and (
@@ -181,27 +234,43 @@ class MlpBlock(nn.Module):
     self.Dense_0 = Dense(width, hidden, dtype)
     self.Dense_1 = Dense(hidden, width, dtype)
 
-  def forward(self, x, keep=None):
-    """`keep`: the (B, L, hidden) dropout mask after the gelu, or None."""
+  def forward(self, x, keep=None, tp=None):
+    """`keep`: the (B, L, hidden) dropout mask after the gelu, or None.
+    `tp`: the tensor group (see the class's doc), or None."""
+    dt = compute_dtype(x, self.dtype)
+    k0, b0 = self.Dense_0.kernel, self.Dense_0.bias
+    k1, b1 = self.Dense_1.kernel, self.Dense_1.bias
+    n = tp_degree(k0.shape[1], self.hidden, tp, "MlpBlock")
+    group, out_bias = None, b1
+    if n > 1:
+      (x,) = collectives.identity_grad_sum(tp, x)
+      b0 = collectives.scatter(b0, tp, 0)
+      if keep is not None:
+        keep = keep.chunk(n, -1)[collectives.group_rank(tp)]
+      group, out_bias = tp, None
     if self.int8:
-      h = int8_dense(x, self.Dense_0.kernel, self.Dense_0.bias, self.dtype)
+      h = int8_dense(x, k0, b0, self.dtype)
       h = dropout(nn.functional.gelu(h, approximate="tanh"), keep,
                   self.dropout)
-      return int8_dense(h, self.Dense_1.kernel, self.Dense_1.bias,
-                        self.dtype)
-    if self.fused:
-      dt = compute_dtype(x, self.dtype)
-      return fused_mlp(x.to(dt), *(p.to(dt) for p in (
-          self.Dense_0.kernel, self.Dense_0.bias,
-          self.Dense_1.kernel, self.Dense_1.bias)))
-    h = nn.functional.gelu(self.Dense_0(x), approximate="tanh")
-    return self.Dense_1(dropout(h, keep, self.dropout))
+      y = int8_dense(h, k1, out_bias, self.dtype, group)
+    elif self.fused:
+      y = fused_mlp(x.to(dt), k0.to(dt), b0.to(dt), k1.to(dt),
+                    (b1 if n == 1 else torch.zeros_like(b1)).to(dt))
+    else:
+      h = nn.functional.gelu(dense(x, k0, b0, self.dtype), approximate="tanh")
+      y = dense(dropout(h, keep, self.dropout), k1, out_bias, self.dtype)
+    if n == 1:
+      return y
+    return sum_partials(y, tp, b1, dt, self.fused and not self.int8)
 
 
 class PackedProj(nn.Module):
   """q/k/v projection: flax DenseGeneral params (kernel (d, H, hd), bias
   (H, hd)) applied as one (d, H*hd) matmul on packed activations, through
-  `int8_dot` with `quant="int8"`."""
+  `int8_dot` with `quant="int8"`. A kernel that holds a tensor rank's
+  heads takes their slice of the (replicated) bias through
+  `collectives.scatter` over `tp`, so that the bias's gradient is whole
+  on every rank."""
 
   def __init__(self, width: int, num_heads: int, head_dim: int, dtype,
                quant: str = "none"):
@@ -211,27 +280,36 @@ class PackedProj(nn.Module):
     self.kernel = nn.Parameter(torch.empty(width, num_heads, head_dim))
     self.bias = nn.Parameter(torch.empty(num_heads, head_dim))
 
-  def params_2d(self, dtype):
+  def _bias(self, tp):
+    if self.kernel.shape[1] == self.bias.shape[0]:
+      return self.bias
+    return collectives.scatter(self.bias, tp, 0)
+
+  def params_2d(self, dtype, tp=None):
     """The (d, H*hd) kernel and (H*hd,) bias in `dtype`, for a fused
     kernel."""
     return (self.kernel.reshape(self.kernel.shape[0], -1).to(dtype),
-            self.bias.reshape(-1).to(dtype))
+            self._bias(tp).reshape(-1).to(dtype))
 
-  def forward(self, x):
+  def forward(self, x, tp=None):
     d_in = self.kernel.shape[0]
     return self.dense(x, self.kernel.reshape(d_in, -1),
-                      self.bias.reshape(-1), self.dtype)
+                      self._bias(tp).reshape(-1), self.dtype)
 
 
 class PackedOutProj(nn.Module):
   """Out-projection: kernel (H, hd, d), bias (d,), on packed (B, L, H*hd);
-  through `int8_dot` with `quant="int8"`."""
+  through `int8_dot` with `quant="int8"`. A kernel that holds a tensor
+  rank's heads gives a partial product, summed over `tp` before the bias
+  is added once (`sum_partials`; under int8 with the group's scales)."""
 
   def __init__(self, num_heads: int, head_dim: int, width: int, dtype,
                quant: str = "none"):
     super().__init__()
+    self.num_heads = num_heads
     self.dtype = dtype
-    self.dense = int8_dense if quant == "int8" else dense
+    self.int8 = quant == "int8"
+    self.dense = int8_dense if self.int8 else dense
     self.kernel = nn.Parameter(torch.empty(num_heads, head_dim, width))
     self.bias = nn.Parameter(torch.empty(width))
 
@@ -240,9 +318,14 @@ class PackedOutProj(nn.Module):
     return (self.kernel.reshape(-1, self.kernel.shape[-1]).to(dtype),
             self.bias.to(dtype))
 
-  def forward(self, o):
-    return self.dense(o, self.kernel.reshape(-1, self.kernel.shape[-1]),
-                      self.bias, self.dtype)
+  def forward(self, o, tp=None):
+    kernel = self.kernel.reshape(-1, self.kernel.shape[-1])
+    if self.kernel.shape[0] == self.num_heads:
+      return self.dense(o, kernel, self.bias, self.dtype)
+    y = (int8_dense(o, kernel, None, self.dtype, tp) if self.int8
+         else dense(o, kernel, None, self.dtype))
+    return sum_partials(y, tp, self.bias, compute_dtype(o, self.dtype),
+                        False)
 
 
 class MultiHeadAttention(nn.Module):
@@ -251,7 +334,13 @@ class MultiHeadAttention(nn.Module):
   "pallas", "xla", "flax"); under "pallas_fused" the projections and the
   attention as one `fused_mha` (K6) on the same parameters, which ignores
   `quant`; otherwise `quant="int8"` quantizes the projections. "flax"
-  computes its projections in `dtype_mm` as flax's DenseGeneral does."""
+  computes its projections in `dtype_mm` as flax's DenseGeneral does.
+
+  Megatron's attention half: where the projections hold a tensor rank's
+  H/T heads (`tp` the tensor group of T processes), the input's gradient
+  is summed over the group, q, k and v are the rank's heads, the
+  attention (K3 and K4, K6, `xla`, `flax`) runs on them, and the
+  out-projection's partial products are summed before its bias."""
 
   def __init__(self, width: int, num_heads: int, dtype,
                attn_impl: str = "pallas", quant: str = "none"):
@@ -272,26 +361,44 @@ class MultiHeadAttention(nn.Module):
     self.value = PackedProj(width, num_heads, head_dim, dtype, quant)
     self.out = PackedOutProj(num_heads, head_dim, width, dtype, quant)
 
-  def core(self, x, dry: bool = False):
+  def local_heads(self, tp=None) -> int:
+    """The heads this process runs: all of them, or a tensor rank's."""
+    heads = self.query.kernel.shape[1]
+    tp_degree(heads, self.num_heads, tp, "MultiHeadAttention")
+    return heads
+
+  def core(self, x, dry: bool = False, tp=None):
     """The attention output before the out-projection (JAX's `attn_out`),
-    packed (B, L, H*hd). `dry`: a rematerialisation that needs only the
-    attention's saved inputs (its output is saved); K3 is then not
-    launched. Not under "pallas_fused"."""
-    q, k, v = self.query(x), self.key(x), self.value(x)
+    packed (B, L, H*hd) (a tensor rank's heads under `tp`). `dry`: a
+    rematerialisation that needs only the attention's saved inputs (its
+    output is saved); K3 is then not launched. Not under
+    "pallas_fused"."""
+    heads = self.local_heads(tp)
+    if heads != self.num_heads:
+      (x,) = collectives.identity_grad_sum(tp, x)
+    q, k, v = self.query(x, tp), self.key(x, tp), self.value(x, tp)
     if self.attn_impl == "pallas":
-      return attention_packed(q, k, v, self.num_heads, dry=dry)
+      return attention_packed(q, k, v, heads, dry=dry)
     b, l, hd = q.shape
-    split = lambda t: t.reshape(b, l, self.num_heads, hd // self.num_heads)
+    split = lambda t: t.reshape(b, l, heads, hd // heads)
     fn = xla_attention if self.attn_impl == "xla" else flax_attention
     return fn(split(q), split(k), split(v)).reshape(b, l, hd)
 
-  def forward(self, x):
-    if self.fused:
-      dt = compute_dtype(x, self.dtype)
+  def forward(self, x, tp=None):
+    if not self.fused:
+      return self.out(self.core(x, tp=tp), tp)
+    heads = self.local_heads(tp)
+    dt = compute_dtype(x, self.dtype)
+    wo, bo = self.out.params_2d(dt)
+    if heads == self.num_heads:
       return fused_mha(x.to(dt), *self.query.params_2d(dt),
                        *self.key.params_2d(dt), *self.value.params_2d(dt),
-                       *self.out.params_2d(dt), self.num_heads)
-    return self.out(self.core(x))
+                       wo, bo, heads)
+    (x,) = collectives.identity_grad_sum(tp, x)
+    y = fused_mha(x.to(dt), *self.query.params_2d(dt, tp),
+                  *self.key.params_2d(dt, tp), *self.value.params_2d(dt, tp),
+                  wo, torch.zeros_like(bo), heads)
+    return sum_partials(y, tp, bo, dt, True)
 
 
 class Block(nn.Module):
@@ -308,6 +415,13 @@ class Block(nn.Module):
   turn; `part` runs one of them (the Encoder's remat regions; the stacked
   layout calls the block through `torch.func.functional_call`, which
   calls `forward`).
+
+  `tp`: the tensor group, where the projections hold a tensor rank's
+  heads and hidden units (Megatron's block: `MultiHeadAttention` and
+  `MlpBlock`). The residual stream, the LayerNorms (K1, K2), the AdaLN
+  vectors and the two branches' dropout masks stay whole and the same on
+  every tensor rank; each half sums its partial products over the group
+  once in the forward and its input's gradient once in the backward.
   """
 
   def __init__(self, width: int, mlp_dim: Optional[int], num_heads: int,
@@ -348,7 +462,8 @@ class Block(nn.Module):
       x = torch.cat([cond[:, None, :], x], dim=1)
     return x, None
 
-  def attn(self, x, mods, drops=None, *, o=None, stop=None, dry=False):
+  def attn(self, x, mods, drops=None, *, o=None, stop=None, dry=False,
+           tp=None):
     """The attention sub-block on a prepared input, through its residual
     add. `o`: `attn_out` given (saved by a remat policy) rather than
     computed; `stop="attn_out"` returns it; `dry`: see
@@ -357,18 +472,19 @@ class Block(nn.Module):
         None, None, None)
     mha = self.MultiHeadAttention_0
     if mha.fused:
-      y = mha(self.LayerNorm_0(x, shift, scale).to(self.dtype))
+      y = mha(self.LayerNorm_0(x, shift, scale).to(self.dtype), tp)
     else:
       if o is None:
-        o = mha.core(self.LayerNorm_0(x, shift, scale).to(self.dtype), dry)
+        o = mha.core(self.LayerNorm_0(x, shift, scale).to(self.dtype), dry,
+                     tp)
         if stop == "attn_out":
           return o
-      y = mha.out(o)
+      y = mha.out(o, tp)
     if gate is not None:
       y = gate[:, None, :] * y
     return x + dropout(y, drops[0] if drops else None, self.dropout)
 
-  def mlp(self, x, mods, drops=None, *, m=None, stop=None):
+  def mlp(self, x, mods, drops=None, *, m=None, stop=None, tp=None):
     """The MLP sub-block, through its residual add. `m`: `mlp_out` (the
     MLP's output before its gate) given rather than computed;
     `stop="mlp_out"` returns it."""
@@ -376,7 +492,7 @@ class Block(nn.Module):
         None, None, None)
     if m is None:
       m = self.MlpBlock_0(self.LayerNorm_1(x, shift, scale).to(self.dtype),
-                          drops[1] if drops else None)
+                          drops[1] if drops else None, tp)
       if stop == "mlp_out":
         return m
     y = m if gate is None else gate[:, None, :] * m
@@ -387,16 +503,16 @@ class Block(nn.Module):
       x = x[:, 1:]
     return x
 
-  def forward(self, x, cond=None, drops=None, part=None, **kw):
+  def forward(self, x, cond=None, drops=None, part=None, tp=None, **kw):
     if part == "prepare":
       return self.prepare(x, cond)
     if part in ("attn", "mlp"):
-      return getattr(self, part)(x, cond, drops, **kw)
+      return getattr(self, part)(x, cond, drops, tp=tp, **kw)
     if part == "finish":
       return self.finish(x, cond)
     y, mods = self.prepare(x, cond)
-    return self.finish(self.mlp(self.attn(y, mods, drops), mods, drops),
-                       cond)
+    return self.finish(self.mlp(self.attn(y, mods, drops, tp=tp), mods,
+                                drops, tp=tp), cond)
 
 
 def _ckpt(fn, *args):
@@ -449,6 +565,13 @@ class Encoder(nn.Module):
   blocks' rate; `forward`'s `draw(shape)` makes the keep masks (bool) of
   each block before it runs, or None for no dropout.
 
+  Under an active mesh with a `tensor` axis (`parallel.ctx.tensor_group`)
+  whose parameters hold a tensor rank's block (the `tensor_parallel`
+  placement), every block runs as Megatron's (`Block`); the group is
+  bound into each block's call when the forward starts, so that a
+  rematerialisation in the backward, on autograd's thread, repeats the
+  forward's collectives in the same order on every rank.
+
   `pipe_stages > 1` pipelines the stack over the active mesh's `pipe` axis
   (`parallel.ctx.activate_mesh`, `parallel.pipeline`), as the JAX Encoder
   does: it needs `scan=True`, a `pipe` axis of `pipe_stages` processes and
@@ -456,6 +579,8 @@ class Encoder(nn.Module):
   process runs its stage's layers: its own block of the stack where the
   parameters hold depth / S layers (the `pipeline` sharding the trainer
   keeps), or its slice of the whole stack where they hold every layer.
+  A mesh with both `pipe` and `tensor` axes is refused: the JAX trainer
+  builds none (ROADMAP.md Queue A).
   """
 
   def __init__(self, depth: int, width: int, mlp_dim: Optional[int],
@@ -489,17 +614,19 @@ class Encoder(nn.Module):
         self.add_module(f"blocks_{i:02d}", Block(**kw))
     self.encoder_norm = LayerNorm(width)
 
-  def _calls(self):
-    """A function `call(part, *args, **kw)` for each block, in order."""
+  def _calls(self, tp=None):
+    """A function `call(part, *args, **kw)` for each block, in order, each
+    running on the tensor group `tp`."""
     if not self.scan:
-      return [getattr(self, f"blocks_{i:02d}") for i in range(self.depth)]
+      return [lambda part, *a, _b=getattr(self, f"blocks_{i:02d}"), **kw:
+              _b(*a, part=part, tp=tp, **kw) for i in range(self.depth)]
     names, stacked = zip(*self.blocks.named_parameters())
     layers = list(zip(*(p.unbind(0) for p in stacked)))
 
     def bind(i):
       params = dict(zip(names, layers[i]))
       return lambda part, *a, **kw: torch.func.functional_call(
-          self.blocks, params, a, dict(kw, part=part))
+          self.blocks, params, a, dict(kw, part=part, tp=tp))
     return [bind(i) for i in range(self.depth)]
 
   def _pipelined(self, x, cond, policy):
@@ -510,6 +637,10 @@ class Encoder(nn.Module):
     assert mesh is not None and "pipe" in mesh.axis_names, (
         "pipe_stages needs an active mesh (parallel.ctx.activate_mesh) "
         f"with a 'pipe' axis; got {mesh}")
+    if mesh.axis_size("tensor") > 1:
+      raise NotImplementedError(
+          "pipe_stages on a mesh with a tensor axis: the JAX trainer builds "
+          "no such mesh (ROADMAP.md Queue A)")
     n_stages = self.pipe_stages
     assert mesh.shape["pipe"] == n_stages, (
         f"mesh pipe axis {mesh.shape['pipe']} != pipe_stages {n_stages}")
@@ -535,13 +666,10 @@ class Encoder(nn.Module):
     policy = self.policy if torch.is_grad_enabled() else None
     if self.pipe_stages > 1:
       return self._pipelined(x, cond, policy)
-    for block in self._calls():
-      mod = self.blocks if self.scan else block
+    blocks = [self.blocks] * self.depth if self.scan else [
+        getattr(self, f"blocks_{i:02d}") for i in range(self.depth)]
+    for mod, call in zip(blocks, self._calls(ctx_lib.tensor_group())):
       drops = mod.draw_masks(draw, x.shape[0], x.shape[1])
-      if self.scan:
-        call = block
-      else:
-        call = lambda part, *a, _b=block, **kw: _b(*a, part=part, **kw)
       x = remat_block(call, x, cond, drops, policy, self.fused)
     return self.encoder_norm(x)
 

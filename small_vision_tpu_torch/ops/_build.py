@@ -73,10 +73,11 @@ SIGNATURES = {
         "fused_mlp_up": [_P] * 4 + [_I, _I, _I, _P],
         "fused_mlp_down": [_P] * 4 + [_I, _I, _I, _P]},
     "fused_mha": {
-        "fused_mha_fwd": [_P] * 12 + [_I, _I, _I, _F, _P],
-        "fused_mha_proj": [_P] * 8 + [_I, _I, _I, _P],
+        "fused_mha_fwd": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
+        "fused_mha_proj": [_P] * 8 + [_I, _I, _I, _I, _P],
         "fused_mha_attention": [_P, _P, _I, _I, _I, _F, _P],
-        "fused_mha_max_len": []},
+        "fused_mha_max_len": [],
+        "fused_mha_takes_width": []},
 }
 
 # Kernel launches by kernel name; `reset_launches()` zeroes them.

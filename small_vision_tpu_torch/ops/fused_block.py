@@ -11,7 +11,10 @@ under `attn_impl="pallas_fused"`:
               activations make one round trip through device memory.
   fused_mha:  q, k, v = bf16(f32(x W) + b); per head the max-shift softmax
               attention of `ops.attention.attention_plain`; then
-              o = bf16(f32(attn Wo) + bo)
+              o = bf16(f32(attn Wo) + bo), on x of width d and H heads of
+              64 with W (d, H*64) and Wo (H*64, d): d = H*64 in one
+              process, and a tensor rank's H/T heads (d = 768, H = 6 at
+              UMD-B/4 over two) under the Megatron block
               K6 (`csrc/fused_mha.cu`): a wgmma GEMM with a bias
               epilogue for q, k, v, a wgmma max-shift attention core,
               the same GEMM for the out-projection; the scores and the
@@ -56,13 +59,14 @@ def fused_mlp_plain(x, w1, b1, w2, b2):
 
 
 def fused_mha_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
-  """Plain PyTorch version of `_mha_kernel`'s math."""
-  b, l, hd = x.shape
+  """Plain PyTorch version of `_mha_kernel`'s math, on x (B, L, d), q, k,
+  v weights (d, H*hd) and an out-projection (H*hd, d)."""
+  b, l, _ = x.shape
   xf = _f32(x)
   proj = lambda w, bias: (torch.matmul(xf, _f32(w)) + _f32(bias)).to(
-      x.dtype).reshape(b, l, num_heads, hd // num_heads)
+      x.dtype).reshape(b, l, num_heads, -1)
   a = attn_lib.attention_plain(proj(wq, bq), proj(wk, bk), proj(wv, bv))
-  a = a.reshape(b, l, hd)
+  a = a.reshape(b, l, -1)
   return (torch.matmul(_f32(a), _f32(wo)) + _f32(bo)).to(x.dtype)
 
 
@@ -165,22 +169,26 @@ def fused_mlp_stages(x, w1, b1, w2, b2):
 
 
 def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
-  """(library, (b, l, hd)) once the arguments are what K6 takes."""
+  """(library, (b, l, d, hd)) once the arguments are what K6 takes: x
+  (B, L, d), q, k, v weights (d, hd) and biases (hd,), the out-projection
+  (hd, d) and its bias (d,), hd = num_heads * 64, d a multiple of 64."""
   _require(x.is_cuda, "x must be a CUDA tensor", MHA_NAME)
-  _require(x.dim() == 3, f"x must be (B, L, H*D), got {tuple(x.shape)}",
+  _require(x.dim() == 3, f"x must be (B, L, d), got {tuple(x.shape)}",
            MHA_NAME)
-  b, l, hd = x.shape
-  _require(hd == num_heads * attn_lib.HEAD_DIM,
-           f"width {hd} != num_heads {num_heads} * head dim "
-           f"{attn_lib.HEAD_DIM}", MHA_NAME)
+  b, l, d = x.shape
+  hd = num_heads * attn_lib.HEAD_DIM
+  _require(d > 0 and d % MLP_MULTIPLE == 0,
+           f"width {d} is not a multiple of {MLP_MULTIPLE}", MHA_NAME)
+  _require(tuple(wq.shape[-1:]) == (hd,),
+           f"projections of {tuple(wq.shape[-1:])} columns where num_heads "
+           f"{num_heads} * head dim {attn_lib.HEAD_DIM} = {hd}", MHA_NAME)
   lib, max_len = _mha_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}", MHA_NAME)
-  mats = {n: (t, (hd, hd)) for n, t in
-          (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo))}
-  vecs = {n: (t, (hd,)) for n, t in
-          (("bq", bq), ("bk", bk), ("bv", bv), ("bo", bo))}
-  _check_bf16(MHA_NAME, x.device, x=(x, (b, l, hd)), **mats, **vecs)
-  return lib, (b, l, hd)
+  mats = {n: (t, (d, hd)) for n, t in (("wq", wq), ("wk", wk), ("wv", wv))}
+  vecs = {n: (t, (hd,)) for n, t in (("bq", bq), ("bk", bk), ("bv", bv))}
+  _check_bf16(MHA_NAME, x.device, x=(x, (b, l, d)), **mats, **vecs,
+              wo=(wo, (hd, d)), bo=(bo, (d,)))
+  return lib, (b, l, d, hd)
 
 
 def fused_mha_max_len() -> int:
@@ -193,22 +201,24 @@ def _mha_scale():
 
 
 def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
-  """Launches K6 on bf16 contiguous x (B, L, H*64), four (H*64, H*64)
-  weights and four (H*64,) biases: the q, k, v projection, the attention
-  and the out-projection, three kernel launches through q, k, v and head
-  outputs in device memory. Sums run in a fixed order (no atomics), so two
-  launches give the same bits."""
-  lib, (b, l, hd) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
-                                 num_heads)
+  """Launches K6 on bf16 contiguous x (B, L, d), three (d, H*64) weights
+  with (H*64,) biases and the (H*64, d) out-projection with its (d,)
+  bias, d a multiple of 64 (H*64 in one process; a tensor rank's H heads
+  of a wider model under the Megatron block): the q, k, v projection, the
+  attention and the out-projection, three kernel launches through q, k, v
+  and head outputs in device memory. Sums run in a fixed order (no
+  atomics), so two launches give the same bits."""
+  lib, (b, l, d, hd) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
+                                    num_heads)
   o = torch.empty_like(x)
   if x.numel() == 0:
     return o
   qkv = torch.empty(b, l, 3 * hd, dtype=x.dtype, device=x.device)
-  heads_out = torch.empty_like(x)
+  heads_out = torch.empty(b, l, hd, dtype=x.dtype, device=x.device)
   _build.launch(MHA_NAME, x.device, lib.fused_mha_fwd,
                 *(t.data_ptr() for t in (x, wq, bq, wk, bk, wv, bv, wo, bo,
                                          qkv, heads_out, o)),
-                b, l, num_heads, _mha_scale())
+                b, l, d, num_heads, _mha_scale())
   _build.LAUNCHES[MHA_NAME] += 1
   return o
 
@@ -218,23 +228,24 @@ def fused_mha_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   "attention", "out_proj": a function that launches that kernel}, on
   buffers made here (the attention reads the q, k, v the first one
   wrote). For measurement only: they count no launch."""
-  lib, (b, l, hd) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
-                                 num_heads)
+  lib, (b, l, d, hd) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
+                                    num_heads)
   qkv = torch.empty(b, l, 3 * hd, dtype=x.dtype, device=x.device)
-  heads_out, o = torch.empty_like(x), torch.empty_like(x)
+  heads_out = torch.empty(b, l, hd, dtype=x.dtype, device=x.device)
+  o = torch.empty_like(x)
   ptr = lambda *ts: [t.data_ptr() for t in ts]
   launch = lambda entry, *args: _build.launch(MHA_NAME, x.device, entry,
                                               *args)
   return {
       "qkv_proj": lambda: launch(lib.fused_mha_proj,
                                  *ptr(x, wq, wk, wv, bq, bk, bv, qkv),
-                                 b * l, hd, 3),
+                                 b * l, hd, d, 3),
       "attention": lambda: launch(lib.fused_mha_attention, qkv.data_ptr(),
                                   heads_out.data_ptr(), b, l, num_heads,
                                   _mha_scale()),
       "out_proj": lambda: launch(lib.fused_mha_proj,
                                  *ptr(heads_out, wo, wo, wo, bo, bo, bo, o),
-                                 b * l, hd, 1),
+                                 b * l, d, hd, 1),
   }
 
 

@@ -25,15 +25,19 @@ pays the quantization error.
 
 import torch
 
+from small_vision_tpu_torch.parallel import collectives
+
 _EPS = 1e-8
 INT_MM_MIN_ROWS = 17   # torch._int_mm takes more than 16 rows
 INT_MM_MULTIPLE = 8    # ... and a K and an N that are multiples of 8
 
 
-def quantize(v: torch.Tensor, dim: int):
+def quantize(v: torch.Tensor, dim: int, group=None):
   """(int8 values, f32 scale) of `v`, symmetric absmax along `dim` (kept
-  as a size-1 axis in the scale)."""
+  as a size-1 axis in the scale). With a `group` the absmax is the max
+  over its processes, each holding a block of `dim`."""
   absmax = v.abs().float().amax(dim=dim, keepdim=True)
+  collectives.all_reduce(absmax, group, "max")
   # A divisor on the tensor's device: CUDA divides by a host scalar as a
   # product with its reciprocal, which rounds differently from a division.
   scale = (absmax / absmax.new_full((), 127.0)).clamp_min(_EPS)
@@ -57,18 +61,18 @@ def int_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
   return torch._int_mm(xq, wq)
 
 
-def quantized_operands(x: torch.Tensor, w: torch.Tensor):
+def quantized_operands(x: torch.Tensor, w: torch.Tensor, group=None):
   """(xq (M, K), sx (M, 1), wq (K, N), sw (1, N)) with x flattened to rows.
   On the card wq is a column-major view (the int8 GEMM's own layout); its
-  values are the same."""
-  xq, sx = quantize(x.reshape(-1, x.shape[-1]), -1)
-  wq_t, sw_t = quantize(w.t(), -1)   # per column of w, as rows of w^T
+  values are the same. `group`: see `int8_dot`."""
+  xq, sx = quantize(x.reshape(-1, x.shape[-1]), -1, group)
+  wq_t, sw_t = quantize(w.t(), -1, group)  # per column of w, as rows of w^T
   return xq, sx, wq_t.contiguous().t(), sw_t.t()
 
 
-def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
   """y = x @ w through int8 operands; x: (..., K), w: (K, N)."""
-  xq, sx, wq, sw = quantized_operands(x, w)
+  xq, sx, wq, sw = quantized_operands(x, w, group)
   acc = int_matmul(xq, wq)
   y = (acc.float() * sx) * sw
   return y.to(x.dtype).reshape(*x.shape[:-1], w.shape[1])
@@ -77,9 +81,9 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 class _Int8Dot(torch.autograd.Function):
 
   @staticmethod
-  def forward(ctx, x, w):
+  def forward(ctx, x, w, group):
     ctx.save_for_backward(x, w)
-    return int8_matmul(x, w)
+    return int8_matmul(x, w, group)
 
   @staticmethod
   def backward(ctx, g):
@@ -91,12 +95,20 @@ class _Int8Dot(torch.autograd.Function):
     if ctx.needs_input_grad[1]:
       x2, g2 = x.reshape(-1, x.shape[-1]), g.reshape(-1, g.shape[-1])
       dw = torch.matmul(x2.t(), g2).to(w.dtype)
-    return dx, dw
+    return dx, dw, None
 
 
-def int8_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-  """Quantized forward, straight-through full-precision backward."""
-  return _Int8Dot.apply(x, w)
+def int8_dot(x: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
+  """Quantized forward, straight-through full-precision backward.
+
+  `group`: the tensor-parallel group of a row-split product, whose
+  processes each hold a block of the contraction dim K (x's columns and
+  w's rows); the absmax of each activation row and of each weight column
+  is then the max over the group, so that every process quantizes with
+  the scales one process computes over the whole K, and the sum of the
+  processes' products is the one process's product up to the rounding of
+  each part."""
+  return _Int8Dot.apply(x, w, group)
 
 
 def quant_error(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,7 @@
 Counterpart of small_vision_tpu/parallel/ctx.py: `activate_mesh(mesh)`
 makes `mesh` the one `current_mesh()` returns, for the duration of a block
 (a step, an evaluation); the Encoder under `pipe_stages` reads its `pipe`
-axis there.
+axis there, and every Encoder its `tensor` group (`tensor_group`).
 """
 
 import contextlib
@@ -25,6 +25,16 @@ def activate_mesh(mesh):
     yield mesh
   finally:
     _state.mesh = prev
+
+
+def tensor_group():
+  """The process group of the current mesh's `tensor` axis, which the
+  Megatron block (`models.vit`) sums its partial products over; None
+  without a mesh or a `tensor` axis of more than one process."""
+  mesh = current_mesh()
+  if mesh is None or mesh.axis_size("tensor") == 1:
+    return None
+  return mesh.group("tensor")
 
 
 def constrain(x, *names):

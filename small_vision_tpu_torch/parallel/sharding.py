@@ -13,7 +13,9 @@ rules:
                    sharded on its largest evenly divisible dim over `fsdp`,
                    else over `data` (ZeRO-3);
   tensor_parallel  `_TP_RULES`: the q, k, v and out-projections on their
-                   heads and the MLP on its hidden dim, over `tensor`;
+                   heads and the MLP on its hidden dim, over `tensor` (each
+                   process then runs Megatron's block of `models.vit` on
+                   its block of them; the biases stay replicated);
   tp_fsdp          the TP rules, and `fully_sharded` over `fsdp` for the
                    leaves they do not match;
   pipeline         `blocks/` stacks (the `scan=True` layout) on dim 0 over
@@ -224,27 +226,34 @@ class ShardedParams:
   each: a leaf sharded over a batch axis (`fsdp`, or `data` on a 1-D mesh)
   is a separate shard, and the model's parameter is filled by `gather` (an
   all-gather) before a forward and emptied by `release` after the step
-  (ZeRO-3); a leaf sharded over `pipe` is the model's parameter itself,
-  narrowed to this stage's layers; a replicated leaf is the model's
-  parameter.
+  (ZeRO-3); a leaf sharded over `pipe` or `tensor` is the model's
+  parameter itself, narrowed to this stage's layers or this tensor rank's
+  block (the Megatron block of `models.vit` runs on it, and it is never
+  gathered before a forward); a replicated leaf is the model's parameter.
 
   The optimizer works on `opt_view(params)`: each leaf in the optimizer's
   placement. Where the two placements agree that is the train state's
   tensor. Under a replicated parameter with a sharded optimizer state
   (ZeRO-1) it is a copy of this process's block of the parameter, and
   `commit` all-gathers the updated blocks into the parameter. Under a
-  sharded parameter with a replicated optimizer state it is the model's
-  gathered parameter, and `commit` keeps this process's block of it in the
-  train state. `reduce_grads` takes the gradients of the model's
-  parameters to the mean over the batch in the optimizer's placement: a
-  reduce-scatter over the shard axis (divided by its size) and a mean over
-  the other batch axes, or a mean over the batch axes (one all-reduce for
-  all such leaves). `norm` is the global norm of a list in the optimizer's
-  placement: the squares of the sharded leaves summed over their axis, the
-  replicated counted once. `full` and `local` move a list of tensors in
-  either placement (`opt=True`: the optimizer's) to their full form and
-  back (checkpoints). `vae_specs`: the placement of a latent run's frozen
-  VAE (`vae_param_sharding`), None when it is replicated.
+  sharded parameter with a replicated optimizer state it is the whole
+  parameter (the model's gathered one under ZeRO-3, an all-gather over
+  `tensor` of a tensor rank's block), and `commit` keeps this process's
+  block of it in the train state; where the two are sharded over
+  different axes (`tensor` and `fsdp`) it is the optimizer's block of the
+  whole parameter, and `commit` goes through the whole again.
+  `reduce_grads` takes the gradients of the model's parameters to the
+  mean over the batch in the optimizer's placement: a tensor rank's block
+  all-gathered where the optimizer holds more, then a reduce-scatter over
+  the shard axis (divided by its size) and a mean over the other batch
+  axes, or a mean over the batch axes (one all-reduce for all such
+  leaves); never a sum over `tensor`. `norm` is the global norm of a list
+  in the optimizer's placement: the squares of the sharded leaves summed
+  over their axis, the replicated counted once. `full` and `local` move a
+  list of tensors in either placement (`opt=True`: the optimizer's) to
+  their full form and back (checkpoints). `vae_specs`: the placement of a
+  latent run's frozen VAE (`vae_param_sharding`), None when it is
+  replicated.
   """
 
   def __init__(self, names, params, specs, mesh, opt_specs=None):
@@ -259,13 +268,11 @@ class ShardedParams:
     self._axis = [self._real(s) for s in self.specs]
     self._opt_axis = [self._real(s) for s in self.opt_specs]
     for i, (a, o) in enumerate(zip(self._axis, self._opt_axis)):
-      sharded = o if a is None else a if o is None else None
-      if a != o and (sharded is None or sharded[1] not in ("data", "fsdp")):
+      if a != o and "pipe" in [h[1] for h in (a, o) if h is not None]:
         raise NotImplementedError(
             f"{self.names[i]}: parameter spec {self.specs[i]} with "
-            f"optimizer spec {self.opt_specs[i]}; the optimizer's placement "
-            "may differ from the parameter's only by replication over a "
-            "batch axis")
+            f"optimizer spec {self.opt_specs[i]}; a stage's optimizer state "
+            "follows its layers")
     self._batch = tuple(a for a in ("data", "fsdp")
                         if mesh.axis_size(a) > 1)
 
@@ -281,10 +288,10 @@ class ShardedParams:
   @property
   def keeps_full_for_update(self) -> bool:
     """Whether the optimizer updates some gathered parameter in full (a
-    sharded parameter with a replicated optimizer state): the model keeps
+    ZeRO-3 parameter with a replicated optimizer state): the model keeps
     its gathered parameters until `commit`."""
-    return any(a is not None and o is None
-               for a, o in zip(self._axis, self._opt_axis))
+    return any(self._gathered(i) and o is None
+               for i, o in enumerate(self._opt_axis))
 
   def shard_state(self) -> list:
     """The train state's tensors from the model's full parameters."""
@@ -324,6 +331,17 @@ class ShardedParams:
       if self._gathered(i):
         p.data = p.data.new_empty(0)
 
+  def _full_param(self, i, t):
+    """The whole of parameter `i` from the train state's `t`: the model's
+    gathered parameter for a ZeRO-3 leaf, else `t` all-gathered over its
+    axis (`tensor`), or `t` itself when replicated."""
+    a = self._axis[i]
+    if a is None:
+      return t
+    if self._gathered(i):
+      return self.params[i]
+    return collectives.all_gather(t.detach(), self.mesh.group(a[1]), a[0])
+
   def opt_view(self, params) -> list:
     """The tensors the optimizer updates, from the train state's
     `params` (call between `gather` and `release`)."""
@@ -336,8 +354,12 @@ class ShardedParams:
       elif a is None:  # ZeRO-1: this process's block of the full leaf
         out.append(shard_of(t.data, self.opt_specs[i], self.mesh).clone(
             memory_format=torch.contiguous_format))
-      else:  # the model's gathered parameter, updated in full
-        out.append(self.params[i])
+      elif o is None:  # the whole parameter, updated in full
+        out.append(self._full_param(i, t))
+      else:  # the optimizer's block of the whole parameter
+        out.append(shard_of(self._full_param(i, t), self.opt_specs[i],
+                            self.mesh).clone(
+                                memory_format=torch.contiguous_format))
     return out
 
   def commit(self, params, view):
@@ -348,27 +370,34 @@ class ShardedParams:
         a, o = self._axis[i], self._opt_axis[i]
         if a == o:
           continue
-        if a is None:
-          dim, axis = o
-          t.copy_(collectives.all_gather(view[i], self.mesh.group(axis),
-                                         dim))
-        else:
-          t.copy_(shard_of(view[i].data, self.specs[i], self.mesh))
+        full = view[i].data if o is None else collectives.all_gather(
+            view[i].detach(), self.mesh.group(o[1]), o[0])
+        t.copy_(full if a is None else shard_of(full, self.specs[i],
+                                                 self.mesh))
 
   def reduce_grads(self, grads) -> list:
     """The mean over the batch of each gradient, in the optimizer's
-    placement."""
+    placement. A gradient of a leaf sharded over `tensor` is this process's
+    block of the batch's gradient already (the Megatron block's collectives
+    make it so, and make a replicated leaf's the same on every tensor
+    rank): it is all-gathered over `tensor` where the optimizer holds the
+    leaf otherwise, and never summed over `tensor`."""
     import torch
     out = list(grads)
     buckets = {}  # the batch axes a leaf still needs its mean over
     for i, g in enumerate(grads):
+      a, o = self._axis[i], self._opt_axis[i]
+      if a is not None and not self._gathered(i) and a != o:
+        g = collectives.all_gather(g, self.mesh.group(a[1]), a[0])
       rest = self._batch
-      hit = self._opt_axis[i]
-      if hit is not None and hit[1] in ("data", "fsdp"):
-        dim, axis = hit
+      if o is not None and o[1] in ("data", "fsdp"):
+        dim, axis = o
         g = collectives.reduce_scatter(g, self.mesh.group(axis), dim)
-        out[i] = g / self.mesh.shape[axis]
-        rest = tuple(a for a in self._batch if a != axis)
+        g = g / self.mesh.shape[axis]
+        rest = tuple(x for x in self._batch if x != axis)
+      elif o is not None and a != o:  # a block over `tensor` of the whole
+        g = shard_of(g, self.opt_specs[i], self.mesh).contiguous()
+      out[i] = g
       if rest:
         buckets.setdefault(rest, []).append(i)
     for axes, idx in buckets.items():

@@ -120,8 +120,14 @@ def k6_launches(lib, x, params, b, l):
   stream = torch.cuda.current_stream().cuda_stream
   scale = fb._mha_scale()
   ptrs = [t.data_ptr() for t in (x, *params, qkv, heads, o)]
+  # A tree's K6 from before the width was its own argument takes
+  # (b, l, heads): bind it to that signature.
+  shape = (b, l, WIDTH, HEADS)
+  if not hasattr(lib, "fused_mha_takes_width"):
+    lib.fused_mha_fwd.argtypes = [_P] * 12 + [_I, _I, _I, _F, _P]
+    shape = (b, l, HEADS)
   return {
-      "call": lambda: _check(lib.fused_mha_fwd(*ptrs, b, l, HEADS, scale,
+      "call": lambda: _check(lib.fused_mha_fwd(*ptrs, *shape, scale,
                                                stream)),
       "attention": lambda: _check(lib.fused_mha_attention(
           qkv.data_ptr(), heads.data_ptr(), b, l, HEADS, scale, stream)),

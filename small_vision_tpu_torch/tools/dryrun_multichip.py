@@ -10,10 +10,15 @@ in each runs one training step of a small UMD (width 64, labels, EMA)
     sharded (`min_size_to_shard=0`), and
   - on a `data` x `pipe` mesh (pipe 2), the encoder's and the decoder's
     stacks pipelined (`pipe_stages=2`, 2 microbatches, `pipeline`
-    sharding),
+    sharding), and
+  - where n is a multiple of 4, on a `data` x `fsdp` x `tensor` mesh
+    (fsdp 2, tensor 2), `tp_fsdp` (the blocks' projections over `tensor`,
+    every other leaf over `fsdp`, `min_size_to_shard=0`), as JAX's
+    dryrun does,
 
 through `train_ae.setup_training` and its step, and checks that the loss is
-finite and the same on every process.
+finite, the same on the processes that hold the same rows, and that the
+gradient's norm is the same on every process.
 
   python -m small_vision_tpu_torch.tools.dryrun_multichip --n 4
   python -m small_vision_tpu_torch.tools.dryrun_multichip --n 2 \\
@@ -207,6 +212,21 @@ def dryrun(rank, n, device):
   assert np.isfinite(loss) and np.isfinite(g), (loss, g)
   if rank == 0:
     print(f"dryrun_multichip({n}): mesh={mesh.shape} pipeline "
+          f"loss={mean:.4f} OK", flush=True)
+  if n % 4:
+    return
+  config = _config(device)
+  config.update(param_sharding="tp_fsdp", optim_sharding="tp_fsdp",
+                min_size_to_shard=0, mesh_fsdp=2, mesh_tensor=2)
+  config["input"]["batch_size"] = n
+  mesh = train_ae.build_mesh(config)
+  loss, mean, g = one_step(config, mesh)
+  assert np.isfinite(loss) and np.isfinite(g), (loss, g)
+  got = c.process_allgather(np.asarray([[loss, g]]))
+  assert np.all(got[:, 1] == got[0, 1]), got  # one global norm everywhere
+  assert np.all(got[0::2, 0] == got[1::2, 0]), got  # tensor ranks agree
+  if rank == 0:
+    print(f"dryrun_multichip({n}): mesh={mesh.shape} tp_fsdp "
           f"loss={mean:.4f} OK", flush=True)
 
 

@@ -18,13 +18,17 @@ weights ride in the train state and its checkpoints as `vae_params`
 (frozen: not in the optimizer, no EMA).
 
 Over several processes (`parallel.mesh`, `launch.py`) the loop runs on a
-mesh built from `mesh_fsdp` (or given), each process on
-its own shard of the data and its own rows of the global batch, and the
+mesh built from `mesh_fsdp` and `mesh_tensor` (or given), each process on
+its own shard of the data and its own rows of the global batch (the
+processes that differ only on `tensor` on the same ones), and the
 parameters placed by `param_sharding` (`replicated`, `fully_sharded`:
+ZeRO-3 over `fsdp`, `tensor_parallel`: the blocks' projections by heads
+and hidden units over `tensor`, each process running Megatron's block on
+its part (`models.vit`), `tp_fsdp`: those over `tensor` and the rest
 ZeRO-3 over `fsdp`, or `pipeline`: the stacks' stages over `pipe`, with
 the model's `pipe_stages`; `parallel.sharding.ShardedParams`), the
 optimizer state by `optim_sharding` (`replicated` by default, as in JAX,
-or `fully_sharded`; a pipeline's optimizer state follows its stages),
+or any of the others; a pipeline's optimizer state follows its stages),
 the EMA as the parameters, and a latent run's frozen VAE by
 `vae_param_sharding` (gathered for each encode and decode). A step
 gathers the ZeRO-3 parameters, runs the forward and backward on the
@@ -41,9 +45,8 @@ Such a step is the single-process step on the global batch ordered as
 draws are those of that step, each process taking its rows (so a run's
 generator state is the same on every process). Process 0 alone writes
 metrics, logs, checkpoints (of the gathered, full tensors) and evaluator
-outputs; the logged loss is the mean over the processes. `tensor_parallel`
-and `tp_fsdp` (and `mesh_tensor > 1`) raise: tensor parallelism is
-ROADMAP.md Queue A item 9b.
+outputs; the logged loss is the mean over the batch shards. A pipeline on
+a mesh with a `tensor` axis raises: the JAX trainer builds no such mesh.
 
 The step's random draws (t, noise, the two branches' mask noise, the flip
 mask, the label-drop masks and the VAE encode's noise) come from the train
@@ -248,13 +251,21 @@ def make_update_fn(model, opt: optim.AdamW, config: dict,
 
   def dropout_draw(masks, gen):
     """The blocks' keep-mask function: the injected masks in turn, or
-    Bernoulli draws from `gen`; None without dropout."""
+    Bernoulli draws from `gen`, made for every batch shard's rows and
+    sliced as the step's other draws are (so that the processes on the
+    batch axes draw the one-process masks, and those that differ only on
+    `tensor` the same ones); None without dropout."""
     if not model.dropout:
       return None
     if masks is None:
       keep = 1.0 - model.dropout
-      return lambda shape: torch.rand(shape, generator=gen,
-                                      device=device) < keep
+
+      def bernoulli(shape):
+        rows = shape[0]
+        full = torch.rand((shard_count * rows,) + tuple(shape[1:]),
+                          generator=gen, device=device)
+        return full[shard_index * rows:(shard_index + 1) * rows] < keep
+      return bernoulli
     masks = iter(masks)
 
     def take(shape):
@@ -609,8 +620,7 @@ def sampler_eps_fn(model, gd, channels: int, eps_pred: bool = True):
   return apply_fn
 
 
-_TP_STRATEGIES = ("tensor_parallel", "tp_fsdp")
-_OPTIM_STRATEGIES = ("replicated", "fully_sharded")
+_STRATEGIES = ("replicated", "fully_sharded", "tensor_parallel", "tp_fsdp")
 
 
 def check_parallel_config(config: dict) -> tuple:
@@ -620,34 +630,30 @@ def check_parallel_config(config: dict) -> tuple:
   param_sharding = config.get("param_sharding", "replicated")
   optim_sharding = config.get("optim_sharding", "replicated")
   vae_sharding = config.get("vae_param_sharding", "replicated")
-  for key, value in (("param_sharding", param_sharding),
-                     ("optim_sharding", optim_sharding),
-                     ("vae_param_sharding", vae_sharding)):
-    if value in _TP_STRATEGIES:
-      raise NotImplementedError(
-          f"{key}={value!r}: tensor parallelism is not ported (ROADMAP.md "
-          "Queue A item 9b, the Megatron block)")
-  if int(config.get("mesh_tensor", 1)) > 1:
-    raise NotImplementedError(
-        "mesh_tensor > 1: tensor parallelism is not ported (ROADMAP.md "
-        "Queue A item 9b, the Megatron block)")
   if "pipeline" in (param_sharding, optim_sharding) and (
       optim_sharding != param_sharding):
     raise ValueError(f"optim_sharding={optim_sharding!r} with param_sharding="
                      f"{param_sharding!r}: a pipeline's optimizer state "
                      "follows its stages (optim_sharding='pipeline')")
-  if vae_sharding not in _OPTIM_STRATEGIES:
+  pipelined = param_sharding == "pipeline" or int(dict(config.get(
+      "model", {})).get("pipe_stages", 0) or 0) > 1
+  if pipelined and int(config.get("mesh_tensor", 1)) > 1:
+    raise NotImplementedError(
+        "a pipeline with mesh_tensor > 1: the JAX trainer builds no mesh "
+        "with both a pipe and a tensor axis (ROADMAP.md Queue A)")
+  if vae_sharding not in _STRATEGIES:
     raise ValueError(f"vae_param_sharding={vae_sharding!r}: one of "
-                     f"{_OPTIM_STRATEGIES}")
+                     f"{_STRATEGIES}")
   return param_sharding, optim_sharding, vae_sharding
 
 
 def _specs(config: dict, tree, mesh, strategy) -> dict:
-  """infer_sharding of `tree` by `strategy`, `fully_sharded` over
-  `min_size_to_shard` elements (2^18 by default)."""
+  """infer_sharding of `tree` by `strategy`, `fully_sharded` (and the
+  fsdp part of `tp_fsdp`) over `min_size_to_shard` elements (2^18 by
+  default)."""
   kw = ({"min_size_to_shard": int(config["min_size_to_shard"])}
-        if strategy == "fully_sharded" and "min_size_to_shard" in config
-        else {})
+        if strategy in ("fully_sharded", "tp_fsdp")
+        and "min_size_to_shard" in config else {})
   return infer_sharding(tree, mesh, strategy, **kw)
 
 
@@ -668,11 +674,12 @@ def make_layout(config: dict, mesh, named) -> Optional[ShardedParams]:
 
 
 def build_mesh(config: dict):
-  """The trainer's mesh from `mesh_fsdp` (0: every process on it), as JAX
-  `train_ae.py` builds it (with `mesh_tensor`, which raises here). A
-  pipeline's mesh is given to `train_and_evaluate`."""
+  """The trainer's mesh from `mesh_fsdp` (0: every process on it) and
+  `mesh_tensor`, as JAX `train_ae.py` builds it. A pipeline's mesh is
+  given to `train_and_evaluate`."""
   check_parallel_config(config)
-  return mesh_lib.make_mesh(fsdp=int(config.get("mesh_fsdp", 1)))
+  return mesh_lib.make_mesh(fsdp=int(config.get("mesh_fsdp", 1)),
+                            tensor=int(config.get("mesh_tensor", 1)))
 
 
 def setup_training(config: dict, device="cuda", log=print,

@@ -560,6 +560,27 @@ def test_fused_mha_kernel_matches_plain(cuda, b, l, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,l,width,heads", [
+    (64, 260, 768, 6), (128, 257, 768, 6),  # a tensor rank's 6 of 12 heads
+    (3, 65, 256, 2), (2, 37, 128, 4)])      # narrower and wider than square
+def test_fused_mha_kernel_non_square_matches_plain(cuda, b, l, width, heads):
+  """K6 on (width, heads * 64) projections and a (heads * 64, width)
+  out-projection (the Megatron block's shard) against its plain version."""
+  hd = heads * 64
+  args = [_randn((b, l, width), 1, cuda, torch.bfloat16)]
+  for i in range(3):
+    args += [_randn((width, hd), 2 * i + 2, cuda, torch.bfloat16,
+                    width**-0.5),
+             _randn((hd,), 2 * i + 3, cuda, torch.bfloat16, 0.1)]
+  args += [_randn((hd, width), 8, cuda, torch.bfloat16, hd**-0.5),
+           _randn((width,), 9, cuda, torch.bfloat16, 0.1)]
+  got = fb.fused_mha_fwd(*args, heads)
+  assert got.shape == (b, l, width)
+  _assert_close_to_max(got, fb.fused_mha_plain(*args, heads), 2)
+  assert torch.equal(got, fb.fused_mha_fwd(*args, heads))  # no atomics
+
+
+@pytest.mark.cuda
 def test_fused_mha_refuses_what_the_kernel_does_not_take(cuda):
   args = _mha_args(cuda, 1, 8, 2)
   with pytest.raises(ValueError, match="head dim"):

@@ -361,21 +361,24 @@ def test_constrain_is_an_identity_that_checks_names():
   assert ctx.current_mesh() is None
 
 
-def test_trainer_refuses_tensor_parallelism():
-  for extra in ({"param_sharding": "tensor_parallel"},
-                {"param_sharding": "tp_fsdp", "optim_sharding": "tp_fsdp"},
-                {"vae_param_sharding": "tensor_parallel"},
-                {"mesh_tensor": 2}):
-    config = dict(_small_config(False), **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-      train_ae.check_parallel_config(config)
-  # A pipeline's optimizer state follows its stages; every combination of
-  # replicated and fully_sharded runs.
+def test_trainer_refuses_a_pipeline_on_a_tensor_axis():
+  """The JAX trainer builds no mesh with both a pipe and a tensor axis; a
+  pipeline's optimizer state follows its stages; every combination of the
+  other strategies runs."""
+  config = dict(_small_config(True), mesh_tensor=2,
+                param_sharding="pipeline", optim_sharding="pipeline")
+  with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    train_ae.check_parallel_config(config)
+  config = _small_config(True)
+  config["model"]["pipe_stages"] = 2
+  with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    train_ae.check_parallel_config(dict(config, mesh_tensor=2))
   with pytest.raises(ValueError, match="optim_sharding"):
     train_ae.check_parallel_config(dict(
         _small_config(False), param_sharding="pipeline"))
-  for p in ("replicated", "fully_sharded"):
-    for o in ("replicated", "fully_sharded"):
+  strategies = ("replicated", "fully_sharded", "tensor_parallel", "tp_fsdp")
+  for p in strategies:
+    for o in strategies:
       assert train_ae.check_parallel_config(dict(
           _small_config(False), param_sharding=p, optim_sharding=o)) == (
               p, o, "replicated")
@@ -476,3 +479,58 @@ def test_vae_placement_matches_jax(strategy):
       tree_flatten_with_names(jtree))
   assert got == want
   assert any(a != b for a, b in got) == (strategy == "fully_sharded")
+
+
+def _jax_shardings(tree):
+  return dict(tree_flatten_with_names(jax.tree.map(
+      lambda s: s, tree, is_leaf=lambda s: isinstance(s, NamedSharding))))
+
+
+@pytest.mark.parametrize("extra", [
+    {"param_sharding": "tensor_parallel", "mesh_tensor": 2},
+    {"param_sharding": "tp_fsdp", "optim_sharding": "tp_fsdp",
+     "mesh_fsdp": 2, "mesh_tensor": 2},
+    {"vae_param_sharding": "tensor_parallel", "mesh_tensor": 2},
+    {"mesh_tensor": 2}], ids=["tensor_parallel", "tp_fsdp", "vae", "mesh"])
+def test_trainer_places_tensor_parallelism_as_jax(umd_b4, extra):
+  """The four configs the trainer refused before tensor parallelism was
+  ported: each now builds a layout on 8 processes whose every leaf's
+  parameter and optimizer spec, and per-process element count, is JAX's
+  `infer_sharding` on the same mesh (data x fsdp x tensor of 8 devices)."""
+  model, jparams, _ = umd_b4
+  config = dict(ae_i1k.get_config("size=64,data=synthetic"), **extra)
+  p_s, o_s, v_s = train_ae.check_parallel_config(config)
+  assert (p_s, o_s, v_s) == (extra.get("param_sharding", "replicated"),
+                             extra.get("optim_sharding", "replicated"),
+                             extra.get("vae_param_sharding", "replicated"))
+  sizes = dict(fsdp=int(config.get("mesh_fsdp", 1)),
+               tensor=int(config.get("mesh_tensor", 1)))
+  mesh = mesh_lib.make_mesh(8, **sizes)
+  assert mesh.shape == dict(jparallel.make_mesh(**sizes).shape)
+  layout = train_ae.make_layout(config, mesh, train_ae.named_params(model))
+  jmesh = jparallel.make_mesh(**sizes)
+  flat = dict(tree_flatten_with_names(jparams))
+  for strategy, specs in ((p_s, layout.specs), (o_s, layout.opt_specs)):
+    want = _jax_shardings(jparallel.infer_sharding(jparams, jmesh,
+                                                   strategy))
+    for name, spec in zip(layout.names, specs):
+      jspec = tuple(want[name].spec)
+      assert spec == jspec + (None,) * (len(spec) - len(jspec)) \
+          if spec else not any(jspec), (strategy, name, spec, jspec)
+      assert int(np.prod(sharding.shard_shape(flat[name].shape, spec,
+                                              mesh))) == int(np.prod(
+          want[name].shard_shape(flat[name].shape))), (strategy, name)
+  tp_leaves = [n for n, s in zip(layout.names, layout.specs)
+               if "tensor" in s]
+  assert bool(tp_leaves) == (p_s in ("tensor_parallel", "tp_fsdp"))
+  if v_s == "tensor_parallel":  # no rule matches a VAE name: replicated
+    from small_vision_tpu.models import vae as jvae
+    from small_vision_tpu_torch.models import vae as tvae
+    with torch.device("meta"):
+      port = dict(tvae.AutoencoderKL().state_dict())
+    specs = sharding.infer_sharding(port, mesh, v_s)
+    assert all(s == sharding.REPLICATED for s in specs.values())
+    jtree = jax.eval_shape(lambda: jvae.AutoencoderKL().init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))["params"]
+    assert not any(any(s.spec) for s in _jax_shardings(
+        jparallel.infer_sharding(jtree, jmesh, v_s)).values())

@@ -42,7 +42,8 @@ the tests read what the processes wrote:
     one-process checkpoint restored in 4: bit-equal; the fully_sharded
     run's checkpoint read by `tools/export_sampler.py::load_params` (no
     EMA: its `params`) as the 4 processes held them;
-  - `tools/dryrun_multichip.py`'s step at n = 4;
+  - `tools/dryrun_multichip.py`'s steps at n = 4 (fsdp, pipe, and the
+    data x fsdp x tensor `tp_fsdp` one);
   - `vae_param_sharding`: a latent step (a seeded VAE of channels 32 x
     4, 32 px images) with
     the VAE replicated and fully_sharded over fsdp 4, the same loss bit
@@ -453,6 +454,8 @@ def test_dryrun_multichip_at_4(results):
   log = results["logs"][0]
   assert "mesh={'data': 2, 'fsdp': 2} fully_sharded" in log, log[-2000:]
   assert "mesh={'data': 2, 'pipe': 2} pipeline" in log, log[-2000:]
+  assert "mesh={'data': 1, 'fsdp': 2, 'tensor': 2} tp_fsdp" in log, \
+      log[-2000:]
 
 
 def test_processes_ended_within_their_limit(results):
