@@ -27,7 +27,15 @@ Phases, each fatal on failure:
                and K4 at head dim 128 (6 heads at 768), timed beside SDPA
                and its backward, and at 8, 16, 80 and 104, checked; each
                at the sampler's and the training shapes, launched twice
-               (K2 three times, and twice at once on two streams).
+               (K2 three times, and twice at once on two streams). K6,
+               K7, K8 and the seven arms of K9 at head dims 80 (16 heads at
+               1,280, ViT-H's) and 128 (6 heads at 768), timed beside their
+               library calls and bounds (K6 and K7 at the sampler's and the
+               training shapes, K6 at 80 also at ViT-H/14@224's (64, 256),
+               K8 at the training shapes, K9 at the tool's two), and at 8,
+               16, 88 and 104, checked, each launched twice to show equal
+               bits; head dims 12 and 136 must make each of the four
+               wrappers raise.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
@@ -63,6 +71,23 @@ Phases, each fatal on failure:
                (e) UMD-L/2@256 under `scan=True` at the config's batch of
                1,024 (512 if it runs out of memory), 1 warm-up and 1
                timed step, with its peak memory.
+  4c. classifier the ViT classifier (`models.vit._ViT`) built by name,
+               `models.get_model_module("vit").Model(variant=...,
+               num_classes=1000, head_zeroinit=False)`, at 224 px, every
+               leaf drawn (`convert.init_params`): (a) ViT-B/16 (pool "map" and "tok", L =
+               196 and 197) under "pallas" and "pallas_fused" and ViT-H/14
+               (L = 256, head dim 80: K6, and K3/K4 in its backward) under
+               "pallas_fused", full width at depth 2 and batch 4, on the
+               card against the CPU: the logits within 3e-2 of their max
+               and the gradients of a softmax cross-entropy within 5e-2 of
+               each leaf's max (phase model's bounds), with the launches of
+               the forward and backward; (b) the full-depth forwards at
+               batch 64 (B/16 under both settings, H/14 under
+               "pallas_fused"): requalified img/s over windows of 8
+               forwards, the launches of a forward, the peak memory; (c)
+               one 125-step `heads=6` sampler call under "pallas_fused" at
+               batch 64 (2,016 K6 at head dim 128) beside phase settings
+               (b)'s under "pallas".
   5. serve     the port's HTTP sampling server at full UMD-B/4@64 size from
                seeded random weights: three concurrent requests (16, 16, 32
                images) coalesce into one 125-step DDIM call of batch 64; the
@@ -827,11 +852,12 @@ def check_fused_mlp(fb, card):
 
 
 def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
-                    shapes=FUSED_SHAPES, rank_heads=None):
+                    shapes=FUSED_SHAPES, rank_heads=None, timed=True):
   """K6 against its plain version at `shapes` (by default the sampler's
-  and training shapes); two launches must give equal bits. `rank_heads`:
-  a tensor rank's heads of `heads` (phase tensor's entry, non-square
-  projections (width, rank_heads * 64) and (rank_heads * 64, width))."""
+  and training shapes); two launches must give equal bits; timed beside
+  its library call and bound where `timed`. `rank_heads`: a tensor rank's
+  heads of `heads` (phase tensor's entry, non-square projections (width,
+  rank_heads * head dim) and back)."""
   gen = torch.Generator(device="cuda").manual_seed(5)
   randn = lambda *s, std=1.0: (torch.randn(*s, generator=gen, device="cuda")
                                * std).to(torch.bfloat16)
@@ -846,6 +872,7 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
   lin = torch.nn.functional.linear
   wts = [w.t().contiguous() for w in (wq, wk, wv, wo)]
   max_err, by_shape = 0.0, {}
+  max_len = fb.fused_mha_max_len(head_dim)
   for b, seq in shapes:
     x = randn(b, seq, width)
     args = (x, *params, heads)
@@ -864,10 +891,12 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
     print(f"[kernels] fused_mha_fwd B={b} L={seq} D={width} H={heads}: "
           f"max abs err "
           f"{err:.3e} of max {want.float().abs().max().item():.3e} "
-          "(tolerance 2 bf16 ulps of the max), two launches equal",
-          flush=True)
+          "(tolerance 2 bf16 ulps of the max), two launches equal; L up to "
+          f"{max_len} at head dim {head_dim}", flush=True)
     if not ok:
       fail(f"fused_mha_fwd disagrees with its plain version ({err:.3e})")
+    if not timed:
+      continue
 
     def library():
       split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
@@ -897,21 +926,28 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
   return dict(name=fb.MHA_NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/fused_mha.cu",
               replaces="small_vision_tpu/ops/fused_block.py:68",
-              max_abs_err=max_err, **by_shape["{}x{}".format(*shapes[0])],
-              by_shape=by_shape)
+              max_abs_err=max_err, max_len=max_len,
+              **by_shape.get("{}x{}".format(*shapes[0]), {}),
+              **({"by_shape": by_shape} if timed else {}))
 
 
-def check_attention_unpacked(attn, card):
-  """K7 against its plain version at the sampler's shapes and at the shape
-  phase `unpacked` launches it at, two launches giving equal bits; timed
-  at the first and the last (the ablation tool's L = 257, where K9's arms
-  are timed too)."""
+# K7's shapes at head dim 64: the sampler's, and the shape phase
+# `unpacked` launches it at (the ablation tool's L = 257).
+UNPACKED_SHAPES = ((BATCH, SEQ_ENC), (BATCH, SEQ_DEC),
+                   (TRAIN_BATCH // 2, TRAIN_SEQS[-1]))
+
+
+def check_attention_unpacked(attn, card, width=WIDTH, heads=HEADS,
+                             shapes=UNPACKED_SHAPES, timed=True):
+  """K7 on [B, L, heads, width / heads] against its plain version at
+  `shapes`, two launches giving equal bits; where `timed`, timed at each
+  but the decoder's sampler shape."""
   gen = torch.Generator(device="cuda").manual_seed(6)
-  head_dim = WIDTH // HEADS
+  head_dim = width // heads
   max_err, by_shape = 0.0, {}
-  for b, seq in ((BATCH, SEQ_ENC), (BATCH, SEQ_DEC),
-                 (TRAIN_BATCH // 2, TRAIN_SEQS[-1])):
-    q, k, v = (torch.randn(b, seq, HEADS, head_dim, generator=gen,
+  max_len = attn._unpacked_lib()[1](head_dim)
+  for b, seq in shapes:
+    q, k, v = (torch.randn(b, seq, heads, head_dim, generator=gen,
                            device="cuda").to(torch.bfloat16)
                for _ in range(3))
     got = attn.attention_unpacked_fwd(q, k, v)
@@ -926,16 +962,17 @@ def check_attention_unpacked(attn, card):
     # probability to the neighbouring bf16 value, and o itself is bf16.
     bad = (err > 1e-2 + 1e-2 * ref.abs()).sum().item()
     max_err = max(max_err, err.max().item())
-    print(f"[kernels] attention_unpacked_fwd B={b} L={seq}: max abs err "
-          f"{err.max().item():.3e}, {bad} elements over tolerance, two "
-          "launches equal", flush=True)
+    print(f"[kernels] attention_unpacked_fwd B={b} L={seq} H={heads} "
+          f"D={head_dim}: max abs err {err.max().item():.3e}, {bad} elements "
+          f"over tolerance, two launches equal; L up to {max_len}",
+          flush=True)
     if bad:
       fail(f"attention_unpacked_fwd disagrees with its plain version ({bad})")
-    if seq == SEQ_DEC and b == BATCH:
+    if not timed or (seq == SEQ_DEC and b == BATCH):
       continue
     heads_first = lambda t: t.transpose(1, 2)
-    bytes_moved = 4 * b * seq * WIDTH * 2
-    flops = 4 * b * HEADS * seq * seq * head_dim
+    bytes_moved = 4 * b * seq * width * 2
+    flops = 4 * b * heads * seq * seq * head_dim
     bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
     by_shape[f"{b}x{seq}"] = dict(
         ms=time_ms(lambda: attn.attention_unpacked_fwd(q, k, v)),
@@ -944,14 +981,15 @@ def check_attention_unpacked(attn, card):
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 heads_first(q), heads_first(k), heads_first(v))),
         bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] attention_unpacked_fwd B={b} L={seq} H={HEADS} "
+    print(f"[kernels] attention_unpacked_fwd B={b} L={seq} H={heads} "
           f"D={head_dim}: {_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} "
           f"bytes, {flops} flops) on {card}", flush=True)
   return dict(name=attn.UNPACKED_NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/attention_unpacked.cu",
               replaces="small_vision_tpu/ops/attention.py:79",
-              max_abs_err=max_err, **by_shape[f"{BATCH}x{SEQ_ENC}"],
-              by_shape=by_shape)
+              max_abs_err=max_err, max_len=max_len,
+              **by_shape.get(f"{BATCH}x{SEQ_ENC}", {}),
+              **({"by_shape": by_shape} if timed else {}))
 
 
 # K8's extra lengths, each checked but not timed: (batch, length). 65 is
@@ -959,17 +997,22 @@ def check_attention_unpacked(attn, card):
 K8_EDGE_SHAPES = ((TRAIN_BATCH // 2, 65), (8, 1024))
 
 
-def check_attention_unpacked_bwd(attn, card):
-  """K8 against its plain version at the training shapes, at a ragged
-  length and past its old length limit, two launches giving equal bits;
+K8_SHAPES = tuple((TRAIN_BATCH // 2, l) for l in TRAIN_SEQS) + K8_EDGE_SHAPES
+
+
+def check_attention_unpacked_bwd(attn, card, width=WIDTH, heads=HEADS,
+                                 shapes=K8_SHAPES, timed=True):
+  """K8 on [B, L, heads, width / heads] against its plain version at
+  `shapes` (by default the training shapes, a ragged length and one past
+  its old length limit), two launches giving equal bits; where `timed`,
   timed at the training shapes, with the time of each of its two
   kernels."""
   gen = torch.Generator(device="cuda").manual_seed(7)
-  head_dim = WIDTH // HEADS
+  head_dim = width // heads
   max_err, by_len = 0.0, {}
-  shapes = tuple((TRAIN_BATCH // 2, l) for l in TRAIN_SEQS) + K8_EDGE_SHAPES
+  max_len = attn._unpacked_bwd_lib()[1]
   for b, seq in shapes:
-    q, k, v, do = (torch.randn(b, seq, HEADS, head_dim, generator=gen,
+    q, k, v, do = (torch.randn(b, seq, heads, head_dim, generator=gen,
                                device="cuda").to(torch.bfloat16)
                    for _ in range(4))
     got = attn.attention_unpacked_bwd(q, k, v, do)
@@ -987,19 +1030,19 @@ def check_attention_unpacked_bwd(attn, card):
       worst = max(worst, e)
       bad += int(e > 2.0**-6 * w.float().abs().max().item())
     max_err = max(max_err, worst)
-    print(f"[kernels] attention_unpacked_bwd B={b} L={seq}: max abs err "
-          f"{worst:.3e}, {bad} outputs over tolerance, two launches equal",
-          flush=True)
+    print(f"[kernels] attention_unpacked_bwd B={b} L={seq} H={heads} "
+          f"D={head_dim}: max abs err {worst:.3e}, {bad} outputs over "
+          f"tolerance, two launches equal; L up to {max_len}", flush=True)
     if bad:
       fail(f"attention_unpacked_bwd disagrees with its plain version ({bad})")
-    if (b, seq) in K8_EDGE_SHAPES:
+    if not timed or b != TRAIN_BATCH // 2 or seq not in TRAIN_SEQS:
       continue
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
     dos = do.transpose(1, 2)
-    bound_ms, bound_by = _bound(7 * b * seq * WIDTH * 2,
-                                5 * 2 * b * HEADS * seq * seq * head_dim,
+    bound_ms, bound_by = _bound(7 * b * seq * width * 2,
+                                5 * 2 * b * heads * seq * seq * head_dim,
                                 BF16_FLOPS)
     by_len[seq] = dict(
         ms=time_ms(lambda: attn.attention_unpacked_bwd(q, k, v, do)),
@@ -1013,12 +1056,14 @@ def check_attention_unpacked_bwd(attn, card):
     stages = attn.attention_unpacked_bwd_stages(q, k, v, do)
     by_len[seq]["stage_ms"] = {
         name: time_ms(launch) for name, launch in stages.items()}
-    print(f"[kernels] attention_unpacked_bwd B={b} L={seq} H={HEADS} "
+    print(f"[kernels] attention_unpacked_bwd B={b} L={seq} H={heads} "
           f"D={head_dim}: {_fmt(by_len[seq])} on {card}", flush=True)
   return dict(name=attn.UNPACKED_BWD_NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/attention_unpacked_bwd.cu",
               replaces="small_vision_tpu/ops/attention.py:162",
-              max_abs_err=max_err, **by_len[TRAIN_SEQS[-1]], by_len=by_len)
+              max_abs_err=max_err, max_len=max_len,
+              **by_len.get(TRAIN_SEQS[-1], {}),
+              **({"by_len": by_len} if timed else {}))
 
 
 ABLATE_SHAPES = ((128, 257), (128, 164))  # the ablation tool's (B, L)
@@ -1034,60 +1079,116 @@ ABLATE_ULPS = {"prod": 2, "nosoftmax": 2, "nomm": 0.5, "bf16exp": 4,
                "exp2": 2, "mulmask": 2, "nomax": 2}
 
 
-def check_attention_ablate(attn, card):
-  """K9, all seven arms at the tool's two shapes, against its plain version,
-  two launches of each giving equal bits; returns its kernels-line entry (times of `prod` at L = 257 on top, every
+def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
+                           shapes=ABLATE_SHAPES, timed=True):
+  """K9, all seven arms on (B, L, width) with `heads` heads at `shapes`,
+  against its plain version, two launches of each giving equal bits; where
+  `timed`, each arm timed at the tool's two shapes (ABLATE_SHAPES).
+  Returns its kernels-line entry (times of `prod` at L = 257 on top, every
   arm's under `by_shape`)."""
   gen = torch.Generator(device="cuda").manual_seed(9)
-  head_dim = WIDTH // HEADS
+  head_dim = width // heads
   max_err, by_shape = 0.0, {}
-  for b, seq in ABLATE_SHAPES:
-    q, k, v = (torch.randn(b, seq, WIDTH, generator=gen,
+  max_len = attn._ablate_lib()[1](head_dim)
+  for b, seq in shapes:
+    q, k, v = (torch.randn(b, seq, width, generator=gen,
                            device="cuda").to(torch.bfloat16)
                for _ in range(3))
-    split = lambda t: t.view(b, seq, HEADS, head_dim).transpose(1, 2)
-    bytes_moved = 4 * b * seq * WIDTH * 2
-    flops = 4 * b * HEADS * seq * seq * head_dim
-    bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            split(q), split(k), split(v)), iters=20)
+    split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
+    timing = timed and (b, seq) in ABLATE_SHAPES
     arms = {}
     for arm in attn.ABLATE_VARIANTS:
-      got = attn.attention_ablate_fwd(q, k, v, HEADS, arm)
-      again = attn.attention_ablate_fwd(q, k, v, HEADS, arm)
-      want = attn.attention_ablate_plain(q, k, v, HEADS, arm)
+      got = attn.attention_ablate_fwd(q, k, v, heads, arm)
+      again = attn.attention_ablate_fwd(q, k, v, heads, arm)
+      want = attn.attention_ablate_plain(q, k, v, heads, arm)
       torch.cuda.synchronize()
       if not torch.equal(got, again):
         fail(f"attention_ablate {arm} L={seq}: two launches differ")
       err, ok = _close_to_max(got, want, ABLATE_ULPS[arm])
       max_err = max(max_err, err)
-      arms[arm] = dict(
-          ms=time_ms(lambda: attn.attention_ablate_fwd(q, k, v, HEADS, arm),
-                     iters=20),
-          plain_ms=time_ms(lambda: attn.attention_ablate_plain(
-              q, k, v, HEADS, arm), iters=3, warmup=1),
-          max_abs_err=err)
-      print(f"[kernels] attention_ablate {arm} B={b} L={seq}: max abs err "
-            f"{err:.3e} of max {want.float().abs().max().item():.3e} "
-            f"(tolerance {ABLATE_ULPS[arm]} bf16 ulps of the max), two "
-            f"launches equal; {_fmt(arms[arm])}", flush=True)
+      if timing:
+        arms[arm] = dict(
+            ms=time_ms(lambda: attn.attention_ablate_fwd(q, k, v, heads, arm),
+                       iters=20),
+            plain_ms=time_ms(lambda: attn.attention_ablate_plain(
+                q, k, v, heads, arm), iters=3, warmup=1),
+            max_abs_err=err)
+      print(f"[kernels] attention_ablate {arm} B={b} L={seq} H={heads} "
+            f"D={head_dim}: max abs err {err:.3e} of max "
+            f"{want.float().abs().max().item():.3e} (tolerance "
+            f"{ABLATE_ULPS[arm]} bf16 ulps of the max), two launches equal"
+            + (f"; {_fmt(arms[arm])}" if timing else ""), flush=True)
       if not ok:
         fail(f"attention_ablate {arm} L={seq} disagrees with its plain "
              f"version ({err:.3e})")
+    if not timing:
+      continue
+    bytes_moved = 4 * b * seq * width * 2
+    flops = 4 * b * heads * seq * seq * head_dim
+    bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
+    library_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            split(q), split(k), split(v)), iters=20)
     by_shape[f"{b}x{seq}"] = dict(arms=arms, library_ms=library_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] attention_ablate B={b} L={seq} H={HEADS} D={head_dim}: "
+    print(f"[kernels] attention_ablate B={b} L={seq} H={heads} D={head_dim}: "
           f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bytes_moved} "
-          f"bytes, {flops} flops) on {card}", flush=True)
-  top = by_shape["128x257"]
-  return dict(name=attn.ABLATE_NAME, route="cuda",
-              source="small_vision_tpu_torch/csrc/attention_ablate.cu",
-              replaces="scripts/ablate_attention_kernel.py:46",
-              max_abs_err=max_err, ms=top["arms"]["prod"]["ms"],
-              plain_ms=top["arms"]["prod"]["plain_ms"],
-              library_ms=top["library_ms"], bound_ms=top["bound_ms"],
-              bound_by=top["bound_by"], by_shape=by_shape)
+          f"bytes, {flops} flops); L up to {max_len} on {card}", flush=True)
+  entry = dict(name=attn.ABLATE_NAME, route="cuda",
+               source="small_vision_tpu_torch/csrc/attention_ablate.cu",
+               replaces="scripts/ablate_attention_kernel.py:46",
+               max_abs_err=max_err, max_len=max_len)
+  if timed:
+    top = by_shape["128x257"]
+    entry.update(ms=top["arms"]["prod"]["ms"],
+                 plain_ms=top["arms"]["prod"]["plain_ms"],
+                 library_ms=top["library_ms"], bound_ms=top["bound_ms"],
+                 bound_by=top["bound_by"], by_shape=by_shape)
+  return entry
+
+
+# K6-K9 at head dims other than 64 (phase kernels): (head dim, heads,
+# timed). ViT-H's 80 (16 heads at 1,280, the classifier's K6) and the
+# `heads=6` setting's 128 (6 heads at 768) are timed; the narrow 8 and 16
+# (the quick configs' widths) and ViT-g's and ViT-G's 88 and 104 (16 heads
+# at 1,408 and 1,664) are checked. Each at the sampler's (64, 260) and the
+# training shapes (128, L = 68, 164, 257); K6 at 80 also at ViT-H/14@224's
+# (64, 256).
+WIDE_HEAD_DIMS = ((80, 16, True), (128, 6, True), (8, 8, False),
+                  (16, 4, False), (88, 16, False), (104, 16, False))
+WIDE_SHAPES = ((BATCH, SEQ_ENC),) + tuple((TRAIN_BATCH // 2, l)
+                                          for l in TRAIN_SEQS)
+
+
+def check_refused_head_dims(attn, fb, build):
+  """A head dim of 12 and of 136 must make each of K6-K9's wrappers raise
+  ValueError, with no launch and no CPU run."""
+  build.reset_launches()
+  for head_dim, heads in ((12, 16), (136, 8)):
+    width = heads * head_dim
+    t4 = torch.zeros(1, 20, heads, head_dim, dtype=torch.bfloat16,
+                     device="cuda")
+    t3 = t4.reshape(1, 20, width)
+    w = torch.zeros(width, width, dtype=torch.bfloat16, device="cuda")
+    bias = torch.zeros(width, dtype=torch.bfloat16, device="cuda")
+    for name, fn in (
+        (fb.MHA_NAME, lambda: fb.fused_mha(t3, *(w, bias) * 4, heads)),
+        (attn.UNPACKED_NAME, lambda: attn.fused_attention(t4, t4, t4)),
+        (attn.UNPACKED_BWD_NAME,
+         lambda: attn.attention_unpacked_bwd(t4, t4, t4, t4)),
+        (attn.ABLATE_NAME,
+         lambda: attn.attention_ablate(t3, t3, t3, heads, "prod"))):
+      try:
+        fn()
+      except ValueError as e:
+        if f"head dim {head_dim}" not in str(e):
+          fail(f"{name} at head dim {head_dim}: {e}")
+      else:
+        fail(f"{name} took head dim {head_dim}")
+  if build.LAUNCHES:
+    fail(f"refused head dims launched {dict(build.LAUNCHES)}")
+  print("[kernels] K6, K7, K8 and K9 refuse head dims 12 and 136 "
+        "(ValueError, no launch)", flush=True)
 
 
 def _train_step_grads(config, params, images, draws, dev):
@@ -3044,6 +3145,161 @@ def phase_settings(build, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase classifier: the ViT classifier (models/vit.py's `_ViT`) at 224 px.
+
+CLS_SIZE, CLS_CLASSES = 224, 1000
+CLS_BATCH = 64                # the full-depth forwards' batch
+CLS_CHECK_BATCH, CLS_CHECK_DEPTH = 4, 2   # (a): card against CPU
+CLS_FORWARDS = 8              # forwards in one timed window of (b)
+# (a): (variant, attn_impl, pool_type) held on the card against the CPU.
+# "map" at patch 16 is L = 196, "tok" 197; ViT-H/14 is L = 256, head dim
+# 80 (K6 under pallas_fused; K3/K4 of its backward).
+CLS_CHECKS = (("B/16", "pallas", "map"), ("B/16", "pallas", "tok"),
+              ("B/16", "pallas_fused", "map"),
+              ("B/16", "pallas_fused", "tok"),
+              ("H/14", "pallas_fused", "map"))
+# (b): full depth and width, timed (the factory's default pool, "gap").
+CLS_TIMED = (("B/16", "pallas"), ("B/16", "pallas_fused"),
+             ("H/14", "pallas_fused"))
+
+
+def _classifier(kw, params, device, trainable=False):
+  """`models.get_model_module("vit").Model(**kw)` on `device`, its
+  weights the flax-named tree `params`."""
+  from small_vision_tpu_torch import convert, models
+
+  with torch.device(device):
+    model = models.get_model_module("vit").Model(**kw)
+  model.load_state_dict(convert.params_from_jax(params, model))
+  return model.train(trainable).requires_grad_(trainable)
+
+
+def _classifier_kw(variant, attn_impl, **kw):
+  return dict(variant=variant, num_classes=CLS_CLASSES, head_zeroinit=False,
+              attn_impl=attn_impl, **kw)
+
+
+def _hold_classifier(build, card, variant, attn_impl, pool_type):
+  """ViT-<variant>@224 at full width and depth 2, card (kernels) against
+  CPU (plain versions), the same weights and images: the logits and the
+  gradients of a softmax cross-entropy, with the launches of the card's
+  forward and backward."""
+  from small_vision_tpu_torch import convert
+
+  kw = _classifier_kw(variant, attn_impl, pool_type=pool_type,
+                      depth=CLS_CHECK_DEPTH)
+  params = convert.init_params({"model_name": "vit", "model": kw}, seed=7)
+  rng = np.random.default_rng(8)
+  images = rng.uniform(-1, 1, (CLS_CHECK_BATCH, CLS_SIZE, CLS_SIZE, 3)
+                       ).astype(np.float32)
+  labels = rng.integers(0, CLS_CLASSES, CLS_CHECK_BATCH)
+  got = {}
+  for dev in ("cpu", "cuda"):
+    model = _classifier(kw, params, dev, trainable=True)
+    build.reset_launches()
+    logits, out = model(torch.from_numpy(images).to(dev))
+    torch.nn.functional.cross_entropy(
+        logits.float(), torch.from_numpy(labels).to(dev)).backward()
+    got[dev] = (logits.detach().float().cpu(),
+                [(n, p.grad.float().cpu())
+                 for n, p in sorted(model.named_parameters())],
+                dict(build.LAUNCHES),
+                out["with_posemb"].shape[1] + (pool_type == "tok"))
+  (l_cpu, g_cpu, _, seq), (l_gpu, g_gpu, launches, _) = got["cpu"], got["cuda"]
+  want = _times(BLOCK_TRAIN_LAUNCHES[attn_impl], CLS_CHECK_DEPTH)
+  label = f"ViT-{variant}@{CLS_SIZE} {attn_impl} pool {pool_type}"
+  if launches != want:
+    fail(f"{label}: launches {launches} != {want}")
+  err = (l_gpu - l_cpu).abs().max().item()
+  scale = l_cpu.abs().max().item()
+  # Each leaf relative to its largest element, floored at 1e-3 of the
+  # largest gradient (the key biases' are 0 analytically), as phase model.
+  top = max(g.abs().max().item() for _, g in g_cpu)
+  worst, worst_name = 0.0, None
+  for (name, gc), (_, gg) in zip(g_cpu, g_gpu):
+    rel = ((gg - gc).abs().max().item()
+           / max(gc.abs().max().item(), 1e-3 * top))
+    if rel > worst:
+      worst, worst_name = rel, name
+  print(f"[classifier] (a) {label}, depth {CLS_CHECK_DEPTH}, L = {seq}, "
+        f"batch {CLS_CHECK_BATCH}: logits max abs err {err:.3e} of max "
+        f"{scale:.3e}; {len(g_cpu)} gradient leaves, worst leaf-relative err "
+        f"{worst:.3e} ({worst_name}); launches {launches} on {card}",
+        flush=True)
+  if not (torch.isfinite(l_gpu).all() and err <= 3e-2 * scale):
+    fail(f"{label}: logits on the card differ from the CPU by {err:.3e}")
+  if not worst <= 5e-2:
+    fail(f"{label}: gradients on the card differ from the CPU: {worst:.3e} "
+         f"of leaf max at {worst_name}")
+  return {"err": err, "worst_grad": worst, "launches": launches}
+
+
+def _time_classifier(build, card, variant, attn_impl):
+  """The full-depth, full-width ViT-<variant>@224 forward at batch 64 on
+  the card: its launches, requalified img/s (windows of CLS_FORWARDS
+  forwards) and peak memory."""
+  from small_vision_tpu_torch import convert
+
+  kw = _classifier_kw(variant, attn_impl)
+  params = convert.init_params({"model_name": "vit", "model": kw}, seed=9)
+  model = _classifier(kw, params, "cuda")
+  del params
+  depth = model.Transformer.depth
+  x = torch.from_numpy(np.random.default_rng(10).uniform(
+      -1, 1, (CLS_BATCH, CLS_SIZE, CLS_SIZE, 3)).astype(np.float32)).cuda()
+  label = f"ViT-{variant}@{CLS_SIZE} {attn_impl}"
+  with torch.inference_mode():
+    model(x)  # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    logits, _ = model(x)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    want = _times(BLOCK_SAMPLE_LAUNCHES[attn_impl], depth)
+    if launches != want:
+      fail(f"{label}: forward launches {launches} != {want}")
+    if logits.shape != (CLS_BATCH, CLS_CLASSES) or not torch.isfinite(
+        logits.float()).all():
+      fail(f"{label}: bad logits {tuple(logits.shape)}")
+    torch.cuda.reset_peak_memory_stats()
+
+    def call():
+      for _ in range(CLS_FORWARDS):
+        model(x)
+      torch.cuda.synchronize()
+    qual = qualified_calls(call, CLS_FORWARDS * CLS_BATCH)
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  print(f"[classifier] (b) {label}, depth {depth}, batch {CLS_BATCH}: "
+        f"{qual_text(qual)}; launches a forward {launches}; peak "
+        f"{peak_gb:.2f} GB on {card}", flush=True)
+  del model
+  gc.collect()
+  torch.cuda.empty_cache()
+  return {"qual": qual, "img_per_s": qual["median"], "launches": launches,
+          "peak_gb": peak_gb, "depth": depth}
+
+
+def phase_classifier(build, card, settings):
+  """(a) ViT-B/16@224 and ViT-H/14@224 at full width, depth 2, on the card
+  against the CPU; (b) their full-depth forwards at batch 64, timed; (c)
+  one `heads=6` sampler call under "pallas_fused" (K6 at head dim 128)
+  beside phase settings (b)'s under "pallas"."""
+  out = {"checks": {f"{v} {a} {p}": _hold_classifier(build, card, v, a, p)
+                    for v, a, p in CLS_CHECKS}}
+  out["timed"] = {f"{v} {a}": _time_classifier(build, card, v, a)
+                  for v, a in CLS_TIMED}
+  out["sampler"] = phase_sample_call(build, card, "pallas_fused",
+                                     tag="classifier", extra=",heads=6")
+  print(f"[classifier] (c) heads=6 sampler under pallas_fused: "
+        f"{out['sampler']['img_per_s']:.2f} img/s, "
+        f"{out['sampler']['s']:.3f} s a call (pallas, phase settings (b): "
+        f"{settings['b']['img_per_s']:.2f} img/s); "
+        f"{out['sampler']['launches'].get('fused_mha_fwd', 0)} K6 launches "
+        f"at head dim 128 on {card}", flush=True)
+  return out
+
+
+# ---------------------------------------------------------------------------
 # Phase parallel: the parallel layer on the one card.
 
 PARALLEL_STEPS = 3
@@ -3840,6 +4096,18 @@ def main():
         attn.NAME: check_attention(attn, card, width, heads, timed=timed),
         attn.BWD_NAME: check_attention_bwd(attn, card, width, heads,
                                            timed=timed)}
+  # K6-K9 at head dims 80 and 128 (timed) and 8, 16, 88, 104 (checked).
+  for head_dim, heads, timed in WIDE_HEAD_DIMS:
+    width = heads * head_dim
+    k6_shapes = WIDE_SHAPES + (((BATCH, 256),) if head_dim == 80 else ())
+    more.setdefault(f"head_dim_{head_dim}", {}).update({e["name"]: e for e in (
+        check_fused_mha(fb, card, width, heads, k6_shapes, timed=timed),
+        check_attention_unpacked(attn, card, width, heads, WIDE_SHAPES, timed),
+        check_attention_unpacked_bwd(attn, card, width, heads, WIDE_SHAPES,
+                                     timed),
+        check_attention_ablate(attn, card, width, heads, WIDE_SHAPES,
+                               timed))})
+  check_refused_head_dims(attn, fb, build)
   for k in kernels:
     for key, entries in more.items():
       if k["name"] in entries:
@@ -3852,6 +4120,7 @@ def main():
                 rate)
   train = {a: phase_train(build, card, a, windows=True) for a in ATTN_IMPLS}
   settings = phase_settings(build, card)
+  classifier = phase_classifier(build, card, settings)
   serve = {"pallas": phase_serve(build, card),
            "pallas_fused": phase_sample_call(build, card, "pallas_fused",
                                              windows=True)}
@@ -3923,6 +4192,11 @@ def main():
             settings["d"]["launches"].get(name, 0),
         f"settings_e_l2_scan_{SETTINGS_L2_STEPS}_steps":
             settings["e"]["launches"].get(name, 0),
+        **{f"classifier_{key.replace(' ', '_').replace('/', '')}_forward":
+           got["launches"].get(name, 0)
+           for key, got in classifier["timed"].items()},
+        "classifier_sampler_heads6_fused":
+            classifier["sampler"]["launches"].get(name, 0),
         f"parallel_a_nccl_{PARALLEL_STEPS}_steps":
             parallel["a"]["launch"]["launches"].get(name, 0),
         **{f"parallel_b_fsdp2_process{r}_{PARALLEL_STEPS}_steps":
@@ -4018,6 +4292,15 @@ def main():
         f"{se['peak_gb']:.2f} GB"
         + (f" (out of memory at {se['oom_at']})" if se["oom_at"] else "")
         + f"; on {card}", flush=True)
+
+  cs = classifier["sampler"]
+  print("[result] classifier: " + "; ".join(
+      f"ViT-{key}@{CLS_SIZE} forward {qual_text(got['qual'])} at batch "
+      f"{CLS_BATCH}, peak {got['peak_gb']:.2f} GB, launches {got['launches']}"
+      for key, got in classifier["timed"].items())
+        + f"; heads=6 sampler under pallas_fused {cs['img_per_s']:.2f} img/s "
+        f"({cs['launches'].get('fused_mha_fwd', 0)} K6 at head dim 128; "
+        f"pallas {settings['b']['img_per_s']:.2f}); on {card}", flush=True)
 
   pa, pf, pp = parallel["a"], parallel["fsdp"], parallel["pipe"]
   print(f"[result] parallel: (a) fsdp=True on NCCL, one rank "

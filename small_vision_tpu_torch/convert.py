@@ -4,7 +4,10 @@ The port's modules carry the flax names and shapes, so a flax leaf
 `Encoder/blocks_00/MultiHeadAttention_0/query/kernel` (768, 12, 64) is the
 state_dict entry `Encoder.blocks_00.MultiHeadAttention_0.query.kernel` of the
 same shape. The bridge checks that the two name sets are equal and the
-shapes agree, and raises on any name left over or missing.
+shapes agree, and raises on any name left over or missing. One layout
+differs: a 4-D `weight` (the classifier's patch conv `embedding`, torch's
+OIHW Conv2d layout) is flax's HWIO `kernel` of the same module, transposed
+each way.
 
 The blocks come in two layouts, as in flax: unrolled
 (`Encoder/blocks_00/...`, `blocks_01`, ...) and stacked, `nn.scan`'s
@@ -25,7 +28,10 @@ smoke use it.
 `init_train_params` draws the tree training starts from: each leaf from
 the distribution its JAX module declares (the AdaLN-zero init included,
 which the JAX package's training relies on). It matches the
-distributions, not the bits.
+distributions, not the bits. A model module may declare its own
+initialisers for some leaves (`init_leaf`, as `models/vit.py` does for the
+classifier's posemb, head and `probe`); flax's defaults and the UMD's
+cover the rest.
 
 `opt_state_from_jax` carries a JAX run's optimizer state (optax's
 ScaleByAdamState: count, bf16 mu, f32 nu) and EMA params, as numpy trees,
@@ -47,6 +53,9 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from small_vision_tpu_torch import models
+from small_vision_tpu_torch.models.common import (np_lecun_normal,
+                                                 np_xavier_uniform)
 from small_vision_tpu_torch.utils.trees import (recover_tree,
                                                 tree_flatten_with_names)
 
@@ -123,6 +132,15 @@ def to_layout(params, names) -> dict:
   return _flat(stack_blocks(flat) if stacked else unstack_blocks(flat))
 
 
+def _flax_leaf(name: str, ndim: int) -> tuple:
+  """(flax slash name, whether it is an OIHW conv `weight`, flax's HWIO
+  `kernel`) of a state_dict entry of `ndim` dimensions."""
+  flax_name = name.replace(".", "/")
+  if ndim == 4 and flax_name.endswith("/weight"):
+    return flax_name[:-len("weight")] + "kernel", True
+  return flax_name, False
+
+
 def _as_tensor(leaf) -> torch.Tensor:
   if isinstance(leaf, torch.Tensor):
     return leaf
@@ -138,10 +156,10 @@ def params_from_jax(params, model: torch.nn.Module) -> dict:
   `stack_blocks`). Raises KeyError on a leftover or missing name and
   ValueError on a shape mismatch."""
   want = model.state_dict()
-  got = to_layout(params, [k.replace(".", "/") for k in want])
-  got = {k.replace("/", "."): v for k, v in got.items()}
-  missing = sorted(set(want) - set(got))
-  leftover = sorted(set(got) - set(want))
+  leaves = {k: _flax_leaf(k, v.ndim) for k, v in want.items()}
+  got = to_layout(params, [f for f, _ in leaves.values()])
+  missing = sorted(k for k, (f, _) in leaves.items() if f not in got)
+  leftover = sorted(set(got) - {f for f, _ in leaves.values()})
   if missing or leftover:
     raise KeyError(f"param names differ from the model's: missing "
                    f"{missing[:8]}{'...' if len(missing) > 8 else ''}, "
@@ -149,7 +167,10 @@ def params_from_jax(params, model: torch.nn.Module) -> dict:
                    f"{'...' if len(leftover) > 8 else ''}")
   out = {}
   for name, ref in want.items():
-    t = _as_tensor(got[name])
+    flax_name, conv = leaves[name]
+    t = _as_tensor(got[flax_name])
+    if conv:
+      t = t.permute(3, 2, 0, 1).contiguous()
     if tuple(t.shape) != tuple(ref.shape):
       raise ValueError(f"{name}: shape {tuple(t.shape)} != model's "
                        f"{tuple(ref.shape)}")
@@ -160,8 +181,13 @@ def params_from_jax(params, model: torch.nn.Module) -> dict:
 def params_to_jax(state_dict, stacked: Optional[bool] = None) -> dict:
   """Nested flax-named tree of float32 numpy arrays from a state_dict, in
   its block layout, or stacked (`stacked=True`) or unrolled (False)."""
-  names = [k.replace(".", "/") for k in state_dict]
-  values = [v.detach().float().cpu().numpy() for v in state_dict.values()]
+  names, values = [], []
+  for k, v in state_dict.items():
+    flax_name, conv = _flax_leaf(k, v.ndim)
+    a = v.detach().float().cpu().numpy()
+    names.append(flax_name)
+    values.append(np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if conv
+                  else a)
   tree = recover_tree(names, values)
   if stacked is None:
     return tree
@@ -183,15 +209,19 @@ def _std_and_mean(name: str, shape) -> tuple:
     return 0.1, 0.0
   if leaf in ("pos_embedding", "dec_pos_embedding"):
     return 1.0 / np.sqrt(shape[1]), 0.0  # flax's init scale
-  return 1.0, 0.0  # cls, mask_token, label embedding table
+  return 1.0, 0.0  # cls, mask_token, probe, label embedding table
 
 
 def _unrolled_shapes(config: dict) -> dict:
   """{flax name: shape} of the config's model in the unrolled layout."""
   from small_vision_tpu_torch.train.train_ae import build_model
   config = dict(config, model={**config.get("model", {}), "scan": False})
-  return {k.replace(".", "/"): tuple(v.shape) for k, v in
-          build_model(config, device="meta").state_dict().items()}
+  shapes = {}
+  for k, v in build_model(config, device="meta").state_dict().items():
+    flax_name, conv = _flax_leaf(k, v.ndim)
+    shapes[flax_name] = tuple(v.shape[i] for i in (2, 3, 1, 0)) if conv else (
+        tuple(v.shape))
+  return shapes
 
 
 def _in_config_layout(config: dict, tree):
@@ -216,19 +246,6 @@ def init_params(config: dict, seed: int) -> dict:
   return _in_config_layout(config, recover_tree(names, values))
 
 
-_TRUNC_STD = 0.87962566103423978  # std of a normal truncated to ±2
-
-
-def _truncated_normal(rng, shape):
-  """Standard normal truncated to ±2, as jax.random.truncated_normal."""
-  a = rng.standard_normal(shape)
-  while True:
-    bad = np.abs(a) > 2.0
-    if not bad.any():
-      return a
-    a[bad] = rng.standard_normal(int(bad.sum()))
-
-
 def _train_init(name: str, shape, rng) -> np.ndarray:
   """One leaf as the JAX module initialises it (models/ae.py, vit.py,
   embeddings.py and flax's defaults)."""
@@ -238,13 +255,9 @@ def _train_init(name: str, shape, rng) -> np.ndarray:
   normal = lambda std: rng.standard_normal(shape) * std
   zeros = lambda: np.zeros(shape)
 
-  def xavier(fan_in, fan_out):
-    limit = np.sqrt(6.0 / (fan_in + fan_out))
-    return rng.uniform(-limit, limit, shape)
-
-  def lecun(fan_in):
-    return _truncated_normal(rng, shape) * (np.sqrt(1.0 / fan_in) /
-                                            _TRUNC_STD)
+  xavier = lambda fan_in, fan_out: np_xavier_uniform(rng, shape, fan_in,
+                                                     fan_out)
+  lecun = lambda fan_in: np_lecun_normal(rng, shape, fan_in)
 
   if leaf == "scale":                       # LayerNorms
     return np.ones(shape)
@@ -277,11 +290,20 @@ def init_train_params(config: dict, seed: int) -> dict:
   """Nested flax-named tree of float32 numpy arrays that training starts
   from, drawn from `np.random.default_rng(seed)` in the sorted-name order
   of the unrolled layout, then stacked where the config's model has
-  `scan`."""
+  `scan`. Where the model's module has `init_leaf(name, shape, rng,
+  model_config)` and it gives a leaf (not None), that leaf is its."""
   shapes = _unrolled_shapes(config)
   names = sorted(shapes)
   rng = np.random.default_rng(seed)
-  values = [_train_init(n, shapes[n], rng).astype(np.float32) for n in names]
+  own = getattr(models.get_model_module(config.get("model_name", "ae")),
+                "init_leaf", None)
+  model_config = config.get("model", {})
+  values = []
+  for n in names:
+    a = None if own is None else own(n, shapes[n], rng, model_config)
+    if a is None:
+      a = _train_init(n, shapes[n], rng)
+    values.append(a.astype(np.float32))
   return _in_config_layout(config, recover_tree(names, values))
 
 

@@ -1,6 +1,7 @@
-// Packed (B, L, H*64) bf16 attention under one of seven softmax / matmul
-// arms, forward only, for Hopper (sm_90a): the ablation kernel that tells
-// where the time of the attention core goes that K6 and K7 run.
+// Packed (B, L, H*D) bf16 attention under one of seven softmax / matmul
+// arms, forward only, for Hopper (sm_90a), at any head dim D that is a
+// multiple of 8 up to 128: the ablation kernel that tells where the time
+// of the attention core goes that K6 and K7 run.
 //
 // Replaces: scripts/ablate_attention_kernel.py::_kernel_variant (reached via
 // run_variant). With S = (Q K^T) * scale in f32 and lp = L rounded up to 16
@@ -11,7 +12,7 @@
 //   nosoftmax  p = bf16(S * 0.001), no mask (keys past L are zero rows)
 //   nomm       no QK product: S[i][j] = f32(bf16(q[i][0] * scale)) for every
 //              j, then prod's softmax; out[i][:] = bf16(p[i][0] * v[i][0])
-//              on all 64 columns of the head (query row i's own v)
+//              on all D columns of the head (query row i's own v)
 //   bf16exp    prod with e = bf16(exp(bf16(S - m))), summed in f32
 //   exp2       S * log2(e), masked; e = exp2(S - m)
 //   mulmask    m = rowmax over all lp columns (a 0 joins the max when L is
@@ -30,20 +31,20 @@
 //
 // Design: each arm is a softmax policy of the max-shift attention core of
 // sm90_attention.cuh (wgmma products, K and V resident in 64-row TMA
-// tiles, two passes), one change from its production policy, so the tool
-// measures that core. exp2 is the production instantiation itself (K6,
-// K7); prod differs from it by expf in the natural base; nosoftmax runs
-// one pass and no softmax; nomm issues no product and loads no K; bf16exp
-// runs a pass for the max alone, then the sum, then p (a running rescale of
-// a sum of rounded e is not the sum of the e that are normalised); mulmask
-// bounds its max at lp, not at the 64-row tile, whose further zero keys the
-// JAX arm never sees; nomax drops the max.
+// tiles, a head one or two 64-column tiles, two passes; the scale is
+// f32(D**-0.5), as the TPU kernel rounds it), one change from its
+// production policy, so the tool measures that core. exp2 is the
+// production instantiation itself (K6, K7); prod differs from it by expf
+// in the natural base; nosoftmax runs one pass and no softmax; nomm
+// issues no product and loads no K; bf16exp runs a pass for the max alone,
+// then the sum, then p (a running rescale of a sum of rounded e is not the
+// sum of the e that are normalised); mulmask bounds its max at lp, not at
+// the 64-row tile, whose further zero keys the JAX arm never sees; nomax
+// drops the max.
 
 #include "sm90_attention.cuh"
 
 namespace {
-
-constexpr int kHeadDim = 64;
 
 enum Arm {
   kProd = 0,
@@ -55,50 +56,62 @@ enum Arm {
   kNoMax = 6,
 };
 
-template <class P, int kGroups>
-__global__ void __launch_bounds__(128 * kGroups, 4 / kGroups)
+template <class P, int kGroups, int NT>
+__global__ void __launch_bounds__(128 * kGroups, (NT == 1 ? 4 : 2) / kGroups)
 attention_ablate_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
                         const sm90::AttnArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  sm90::attention_heads<P, kGroups>(smem_raw, &tm_q, &tm_k, &tm_v, a);
+  sm90::attention_heads<P, kGroups, NT>(smem_raw, &tm_q, &tm_k, &tm_v, a);
 }
 
 template <class P>
 int launch(const CUtensorMap (&tm)[3], const sm90::AttnArgs& args, int batch,
            int num_heads, cudaStream_t stream) {
-  return sm90_host::launch_attention<P>(attention_ablate_kernel<P, 1>,
-                                        attention_ablate_kernel<P, 2>, tm[0],
-                                        tm[1], tm[2], args, batch, num_heads,
-                                        stream);
+  using Kernel = decltype(&attention_ablate_kernel<P, 1, 1>);
+  const Kernel kernels[2][2] = {
+      {attention_ablate_kernel<P, 1, 1>, attention_ablate_kernel<P, 2, 1>},
+      {attention_ablate_kernel<P, 1, 2>, attention_ablate_kernel<P, 2, 2>}};
+  return sm90_host::launch_attention<P>(kernels, tm[0], tm[1], tm[2], args,
+                                        batch, num_heads, stream);
 }
 
 }  // namespace
 
-// Largest sequence length the kernel takes (a head's K and V stay resident
-// in the 227 KB of shared memory a block can use).
-extern "C" int attention_ablate_max_len() { return sm90::attn_max_len(); }
+// Largest head dim the kernel takes; any multiple of 8 up to it.
+extern "C" int attention_ablate_max_head_dim() {
+  return sm90::kAttnMaxHeadDim;
+}
 
-// q, k, v, o: (B, L, H*64) bf16, contiguous, 16-byte aligned. scale =
-// 64**-0.5 in f32. variant: 0 prod, 1 nosoftmax, 2 nomm, 3 bf16exp, 4 exp2,
-// 5 mulmask, 6 nomax. Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for an unknown variant, a length past the limit or a tensor map that
-// cannot be encoded.
+// Largest sequence length the kernel takes at a head dim (a head's K and V
+// stay resident in the 227 KB of shared memory a block can use).
+extern "C" int attention_ablate_max_len(int head_dim) {
+  return sm90::attn_max_len(head_dim);
+}
+
+// q, k, v, o: (B, L, H*D) bf16, contiguous, 16-byte aligned; D a multiple
+// of 8 up to 128. scale = D**-0.5 in f32. variant: 0 prod, 1 nosoftmax, 2
+// nomm, 3 bf16exp, 4 exp2, 5 mulmask, 6 nomax. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for an unknown variant, a head dim or a length
+// past the limits or a tensor map that cannot be encoded.
 extern "C" int attention_ablate_fwd(const void* q, const void* k,
                                     const void* v, void* o, int batch,
-                                    int seq_len, int num_heads, float scale,
-                                    int variant, void* stream) {
-  const int hd = num_heads * kHeadDim;
+                                    int seq_len, int num_heads, int head_dim,
+                                    float scale, int variant, void* stream) {
+  if (!sm90_host::valid_head_dim(head_dim)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   CUtensorMap tm[3];
   const void* src[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    if (!sm90_host::rows_map(&tm[i], src[i], batch, seq_len, hd, hd)) {
+    if (!sm90_host::packed_head_map_d(&tm[i], src[i], batch, seq_len,
+                                      num_heads, head_dim)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  const sm90::AttnArgs args{0, 0, 0, static_cast<__nv_bfloat16*>(o), hd,
-                            seq_len, scale};
+  const sm90::AttnArgs args{0, 0, 0, static_cast<__nv_bfloat16*>(o),
+                            num_heads * head_dim, seq_len, head_dim, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (variant) {
     case kProd:

@@ -1,5 +1,6 @@
-// Bidirectional attention on [B, L, H, 64] bf16 tensors with the max-shift
-// softmax, forward, for Hopper (sm_90a).
+// Bidirectional attention on [B, L, H, D] bf16 tensors with the max-shift
+// softmax, forward, for Hopper (sm_90a), at any head dim D that is a
+// multiple of 8 up to 128.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_kernel (reached via
 // pallas_attention / fused_attention). Per (batch, head):
@@ -16,57 +17,75 @@
 // (13 GFLOP, 0.013 ms at 989 TFLOP/s): the floor is memory, and the two
 // exp of every score (one in each pass) are the next limit.
 //
-// Design: a contiguous [B, L, H, 64] tensor is the packed (B, L, H*64)
+// Design: a contiguous [B, L, H, D] tensor is the packed (B, L, H*D)
 // one, so the kernel reads heads in place through three tensor maps (one
-// each over q, k and v, H*64 columns of L rows bounded at L, B) at column
-// offset 0 and writes o with row stride H*64; the TPU wrapper's transposes
-// and pads have no counterpart. It runs the max-shift attention core of
-// sm90_attention.cuh (wgmma products, K and V resident in TMA tiles) under
-// its production softmax, the one K6's attention stage runs: exp becomes
-// exp2 of the log2(e)-scaled score, the same function within two bf16
-// ulps of the output.
+// each over q, k and v, viewed as (D, H, L, B) and bounded at D and L) and
+// writes o with row stride H*D; the TPU wrapper's transposes and pads have
+// no counterpart. It runs the max-shift attention core of
+// sm90_attention.cuh (wgmma products, K and V resident in TMA tiles, a
+// head one or two 64-column tiles) under its production softmax, the one
+// K6's attention stage runs: exp becomes exp2 of the log2(e)-scaled score,
+// the same function within two bf16 ulps of the output. The scale is
+// f32(D**-0.5), as the TPU kernel rounds it.
 
 #include "sm90_attention.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
-
-template <int kGroups>
-__global__ void __launch_bounds__(128 * kGroups, 4 / kGroups)
+template <int kGroups, int NT>
+__global__ void __launch_bounds__(128 * kGroups, (NT == 1 ? 4 : 2) / kGroups)
 attention_unpacked_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_k,
                               const __grid_constant__ CUtensorMap tm_v,
                               const sm90::AttnArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  sm90::attention_heads<sm90::SoftmaxExp2, kGroups>(smem_raw, &tm_q, &tm_k,
-                                                    &tm_v, a);
+  sm90::attention_heads<sm90::SoftmaxExp2, kGroups, NT>(smem_raw, &tm_q,
+                                                        &tm_k, &tm_v, a);
 }
 
 }  // namespace
 
-// Largest sequence length the kernel takes (a head's K and V stay resident
-// in the 227 KB of shared memory a block can use).
-extern "C" int attention_unpacked_max_len() { return sm90::attn_max_len(); }
+// Largest head dim the kernel takes; any multiple of 8 up to it.
+extern "C" int attention_unpacked_max_head_dim() {
+  return sm90::kAttnMaxHeadDim;
+}
 
-// q, k, v, o: [B, L, H, 64] bf16, contiguous, 16-byte aligned.
-// scale = 64**-0.5 in f32. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a length past the limit or a tensor map that
-// cannot be encoded.
+// Largest sequence length the kernel takes at a head dim (a head's K and V
+// stay resident in the 227 KB of shared memory a block can use).
+extern "C" int attention_unpacked_max_len(int head_dim) {
+  return sm90::attn_max_len(head_dim);
+}
+
+// q, k, v, o: [B, L, H, D] bf16, contiguous, 16-byte aligned; D a
+// multiple of 8 up to 128. scale = D**-0.5 in f32. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a head dim or a length
+// past the limits or a tensor map that cannot be encoded.
 extern "C" int attention_unpacked_fwd(const void* q, const void* k,
                                       const void* v, void* o, int batch,
-                                      int seq_len, int num_heads, float scale,
+                                      int seq_len, int num_heads,
+                                      int head_dim, float scale,
                                       void* stream) {
-  const int hd = num_heads * kHeadDim;
-  CUtensorMap tq, tk, tv;
-  if (!sm90_host::rows_map(&tq, q, batch, seq_len, hd, hd) ||
-      !sm90_host::rows_map(&tk, k, batch, seq_len, hd, hd) ||
-      !sm90_host::rows_map(&tv, v, batch, seq_len, hd, hd)) {
+  if (!sm90_host::valid_head_dim(head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const sm90::AttnArgs args{0, 0, 0, static_cast<__nv_bfloat16*>(o), hd,
-                            seq_len, scale};
+  CUtensorMap tq, tk, tv;
+  if (!sm90_host::packed_head_map_d(&tq, q, batch, seq_len, num_heads,
+                                    head_dim) ||
+      !sm90_host::packed_head_map_d(&tk, k, batch, seq_len, num_heads,
+                                    head_dim) ||
+      !sm90_host::packed_head_map_d(&tv, v, batch, seq_len, num_heads,
+                                    head_dim)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const sm90::AttnArgs args{0, 0, 0, static_cast<__nv_bfloat16*>(o),
+                            num_heads * head_dim, seq_len, head_dim, scale};
+  using Kernel = decltype(&attention_unpacked_fwd_kernel<1, 1>);
+  const Kernel kernels[2][2] = {
+      {attention_unpacked_fwd_kernel<1, 1>,
+       attention_unpacked_fwd_kernel<2, 1>},
+      {attention_unpacked_fwd_kernel<1, 2>,
+       attention_unpacked_fwd_kernel<2, 2>}};
   return sm90_host::launch_attention<sm90::SoftmaxExp2>(
-      attention_unpacked_fwd_kernel<1>, attention_unpacked_fwd_kernel<2>, tq,
-      tk, tv, args, batch, num_heads, static_cast<cudaStream_t>(stream));
+      kernels, tq, tk, tv, args, batch, num_heads,
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,6 @@
-// Bidirectional attention on [B, L, H, 64] bf16 tensors with the max-shift
-// softmax, backward, for Hopper (sm_90a).
+// Bidirectional attention on [B, L, H, D] bf16 tensors with the max-shift
+// softmax, backward, for Hopper (sm_90a), at any head dim D that is a
+// multiple of 8 up to 128.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_bwd_kernel (reached
 // via _pallas_attention_bwd_impl, the custom VJP of fused_attention). Per
@@ -25,9 +26,10 @@
 // Design: the packed backward's (attention_packed_bwd.cu), so that every
 // output element is summed by one warpgroup's accumulator in a fixed
 // order: no atomics, and two launches give the same bits. A contiguous
-// [B, L, H, 64] tensor is the packed (B, L, H*64) one, so the same 3-D TMA
-// map over (H*64, L, B), box (64, 64, 1) with the 128-byte swizzle, reads a
-// head's 64 rows in place and fills rows at or past L with zeros.
+// [B, L, H, D] tensor is the packed (B, L, H*D) one, so the same 4-D TMA
+// map over (D, H, L, B), box (64, 1, 64, 1) with the 128-byte swizzle,
+// reads a head's 64 rows in place and fills rows at or past L, and columns
+// at or past D, with zeros.
 //  (a) attn_unpacked_bwd_dq_sm90: one CTA per (64-query tile, head, batch).
 //      Its consumer warpgroup holds the tile's Q and dO; a producer warp
 //      streams the head's 64-key blocks of K and V twice through a
@@ -64,6 +66,15 @@
 // its products and exp2 cost a quarter of a full block's. Shared memory
 // does not grow with L: (a) 49 KB and 128 registers a thread, three CTAs
 // an SM; (b) 50 KB and 168 registers (four 64 x 64 f32 accumulators), two.
+//
+// Head dims, as in K4 (attention_packed_bwd.cu): a head is NT = 1 (D <=
+// 64) or 2 (64 < D <= 128) tiles of 64 columns, each a TMA box that
+// arrives as zeros past D, so the padded columns add 0 to every score and
+// dP and give 0 columns of dQ, dK and dV, which the stores drop. The
+// scale is f32(D**-0.5). At NT = 2 every tile doubles: (a) 97 KB and its
+// dQ accumulator 64 registers, two CTAs an SM; (b) 98 KB and the dK and
+// dV accumulators 128 registers, one CTA an SM with up to 255 a thread.
+// The length limit stays 4,096 at every head dim.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,7 +85,7 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
+constexpr int kMaxHeadDim = 128;
 constexpr int kTile = sm90::kTileRows;
 constexpr int kTileBytes = sm90::kTileBytes;
 constexpr int kStages = 2;
@@ -86,13 +97,27 @@ constexpr float kLog2e = 1.44269504088896341f;
 constexpr int kMaxLen = 4096;
 
 // (a): Q, dO; kStages x (K, V); barriers. (b): K, V; kStages x (Q, dO);
-// kStages x (m2, r, c) [64] f32; barriers. Plus 1 KB to align the
-// tiles to 1024 bytes.
-constexpr size_t kDqSmem =
-    1024 + (2 + 2 * kStages) * kTileBytes + 8 * (1 + 2 * kStages);
-constexpr size_t kDkvSmem = 1024 + (2 + 2 * kStages) * kTileBytes +
-                            kStages * 3 * kTile * 4 + 8 * (1 + 2 * kStages);
+// kStages x (m2, r, c) [64] f32; barriers. Each operand is nt tiles. Plus
+// 1 KB to align the tiles to 1024 bytes.
+constexpr size_t dq_smem(int nt) {
+  return 1024 + (2 + 2 * kStages) * nt * kTileBytes + 8 * (1 + 2 * kStages);
+}
+constexpr size_t dkdv_smem(int nt) {
+  return 1024 + (2 + 2 * kStages) * nt * kTileBytes +
+         kStages * 3 * kTile * 4 + 8 * (1 + 2 * kStages);
+}
 
+// A head's NT tiles of 64 rows from `row` (zeros past D and L).
+template <int NT>
+__device__ __forceinline__ void load_head(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int head, int row,
+                                          int batch) {
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    sm90::tma_load_4d(dst + c * kTileBytes, map, bar, c * 64, head, row,
+                      batch);
+  }
+}
 
 // D (64 x 16, f32) [+]= A B^T over 16 columns, B's first 16 rows, both
 // K-major in shared memory: the m64n64 accumulator's n-tiles 0 and 1.
@@ -111,31 +136,60 @@ __device__ __forceinline__ void wgmma_ss_n16(float (&d)[32], uint64_t da,
 }
 
 // The scores of a block of kNT * 8 rows of B (kNT = 8: 64, or 2: 16):
-// d = A B^T over the head dim.
-template <int kNT>
-__device__ __forceinline__ void gemm_scores(float (&d)[32], uint64_t da,
-                                            uint64_t db) {
-  if constexpr (kNT == 8) {
-    sm90::gemm_nt(d, da, db);
-  } else {
+// d = A B^T over the head's NT tiles of columns, both K-major.
+template <int kNT, int NT>
+__device__ __forceinline__ void gemm_scores(float (&d)[32], const uint8_t* a,
+                                            const uint8_t* b) {
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      wgmma_ss_n16(d, da + ks * sm90::kKMajorStep,
-                   db + ks * sm90::kKMajorStep, ks > 0);
+  for (int c = 0; c < NT; ++c) {
+    const uint64_t da = sm90::desc_k_major(a + c * kTileBytes);
+    const uint64_t db = sm90::desc_k_major(b + c * kTileBytes);
+    if constexpr (kNT == 8) {
+      sm90::gemm_nt(d, da, db, c > 0);
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        wgmma_ss_n16(d, da + ks * sm90::kKMajorStep,
+                     db + ks * sm90::kKMajorStep, c > 0 || ks > 0);
+      }
     }
   }
 }
 
-// d += P B over the block's kNT * 8 rows of the tile B (MN-major).
-template <int kNT>
-__device__ __forceinline__ void gemm_update(float (&d)[32],
+// d[c] += P B[c] over the block's kNT * 8 rows, for each of the head's NT
+// tiles of columns of B (MN-major).
+template <int kNT, int NT>
+__device__ __forceinline__ void gemm_update(float (&d)[NT][32],
                                             const uint32_t (&p)[16],
-                                            uint64_t db) {
+                                            const uint8_t* b) {
 #pragma unroll
-  for (int ks = 0; ks < kNT / 2; ++ks) {
-    const uint32_t a[4] = {p[4 * ks], p[4 * ks + 1], p[4 * ks + 2],
-                           p[4 * ks + 3]};
-    sm90::wgmma_rs(d, a, db + ks * sm90::kMNMajorStep, 1);
+  for (int c = 0; c < NT; ++c) {
+    const uint64_t db = sm90::desc_mn_major(b + c * kTileBytes);
+#pragma unroll
+    for (int ks = 0; ks < kNT / 2; ++ks) {
+      const uint32_t a[4] = {p[4 * ks], p[4 * ks + 1], p[4 * ks + 2],
+                             p[4 * ks + 3]};
+      sm90::wgmma_rs(d[c], a, db + ks * sm90::kMNMajorStep, 1);
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void fence_head(float (&d)[NT][32]) {
+#pragma unroll
+  for (int c = 0; c < NT; ++c) sm90::fence(d[c]);
+}
+
+// Stores a head's NT accumulators, dropping columns at or past head_dim.
+template <int NT>
+__device__ __forceinline__ void store_head(__nv_bfloat16* out, size_t ld,
+                                           int row, int rows,
+                                           const float (&d)[NT][32],
+                                           float f, int t4, int head_dim) {
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    sm90::store_acc(out + c * 64, ld, row, rows, d[c], f, f, t4,
+                    head_dim - c * 64);
   }
 }
 
@@ -158,24 +212,31 @@ __device__ __forceinline__ void pack_tiles(uint32_t (&p)[16],
   }
 }
 
-__device__ __forceinline__ void zero(float (&d)[32]) {
+template <int NT>
+__device__ __forceinline__ void zero(float (&d)[NT][32]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  for (int c = 0; c < NT; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[c][i] = 0.f;
+  }
 }
 
-// S (into s) and dP (into dp) of one block; returns once S has landed.
-// kSplit: as two commit groups, dP still in flight; else one group. Either
-// way the caller reads dP only after dp_landed. (Fencing dP here in the
-// one-group case made ptxas serialise (a)'s wgmmas, C7511.)
-template <int kNT, bool kSplit>
+// S = A B^T (into s) and dP = dA dB^T (into dp) of one block, over the
+// head's NT tiles; returns once S has landed. kSplit: as two commit
+// groups, dP still in flight; else one group. Either way the caller reads
+// dP only after dp_landed. (Fencing dP here in the one-group case made
+// ptxas serialise (a)'s wgmmas, C7511.)
+template <int kNT, int NT, bool kSplit>
 __device__ __forceinline__ void scores_then_dp(float (&s)[32],
-                                               float (&dp)[32], uint64_t da,
-                                               uint64_t d_da, uint64_t db,
-                                               uint64_t d_db) {
+                                               float (&dp)[32],
+                                               const uint8_t* a,
+                                               const uint8_t* d_a,
+                                               const uint8_t* b,
+                                               const uint8_t* d_b) {
   sm90::wgmma_fence();
-  gemm_scores<kNT>(s, da, db);
+  gemm_scores<kNT, NT>(s, a, b);
   if constexpr (kSplit) sm90::wgmma_commit();
-  gemm_scores<kNT>(dp, d_da, d_db);
+  gemm_scores<kNT, NT>(dp, d_a, d_b);
   sm90::wgmma_commit();
   if constexpr (kSplit) {
     sm90::wgmma_wait<1>();
@@ -197,16 +258,17 @@ struct RowSums {
   float m[2], l[2], pe[2];
 };
 
-// Pass 1 over one block of keys key0 .. key0 + 8 kNT - 1; kMask: the block
-// holds keys at or past L.
-template <int kNT, bool kMask>
-__device__ __forceinline__ void dq_pass1(RowSums& st, uint64_t d_q,
-                                         uint64_t d_do, const uint8_t* kv,
-                                         int key0, int seq_len,
-                                         float scale_log2, int t4) {
+// Pass 1 over one block of keys key0 .. key0 + 8 kNT - 1 (kv: its K tiles,
+// then its V tiles); kMask: the block holds keys at or past L.
+template <int kNT, int NT, bool kMask>
+__device__ __forceinline__ void dq_pass1(RowSums& st, const uint8_t* q_s,
+                                         const uint8_t* do_s,
+                                         const uint8_t* kv, int key0,
+                                         int seq_len, float scale_log2,
+                                         int t4) {
   float s[32], dp[32];
-  scores_then_dp<kNT, true>(s, dp, d_q, d_do, sm90::desc_k_major(kv),
-                            sm90::desc_k_major(kv + kTileBytes));
+  scores_then_dp<kNT, NT, true>(s, dp, q_s, do_s, kv,
+                                kv + NT * kTileBytes);
   float bm[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt) {
@@ -248,16 +310,18 @@ __device__ __forceinline__ void dq_pass1(RowSums& st, uint64_t d_q,
 }
 
 // Pass 2 over one block of keys: dS, then dq += dS K.
-template <int kNT, bool kMask>
-__device__ __forceinline__ void dq_pass2(float (&dq)[32], uint64_t d_q,
-                                         uint64_t d_do, const uint8_t* kv,
-                                         int key0, int seq_len,
-                                         float scale_log2, const float (&m)[2],
+template <int kNT, int NT, bool kMask>
+__device__ __forceinline__ void dq_pass2(float (&dq)[NT][32],
+                                         const uint8_t* q_s,
+                                         const uint8_t* do_s,
+                                         const uint8_t* kv, int key0,
+                                         int seq_len, float scale_log2,
+                                         const float (&m)[2],
                                          const float (&r)[2],
                                          const float (&c)[2], int t4) {
   float s[32], dp[32];
-  scores_then_dp<kNT, false>(s, dp, d_q, d_do, sm90::desc_k_major(kv),
-                             sm90::desc_k_major(kv + kTileBytes));
+  scores_then_dp<kNT, NT, false>(s, dp, q_s, do_s, kv,
+                                 kv + NT * kTileBytes);
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
@@ -278,13 +342,14 @@ __device__ __forceinline__ void dq_pass2(float (&dq)[32], uint64_t d_q,
   uint32_t ds[16];
   pack_tiles<kNT>(ds, dp);
   sm90::wgmma_fence();
-  gemm_update<kNT>(dq, ds, sm90::desc_mn_major(kv));
+  gemm_update<kNT, NT>(dq, ds, kv);
   sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
-  sm90::fence(dq);
+  fence_head<NT>(dq);
 }
 
-__global__ void __launch_bounds__(kConsumers + 32, 3)
+template <int NT>
+__global__ void __launch_bounds__(kConsumers + 32, NT == 1 ? 3 : 2)
 attn_unpacked_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
@@ -292,14 +357,16 @@ attn_unpacked_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                           __nv_bfloat16* __restrict__ dq,
                           float* __restrict__ m_out, float* __restrict__ r_out,
                           float* __restrict__ c_out, int seq_len,
-                          int num_heads, float scale_log2, float scale) {
+                          int num_heads, int head_dim, float scale_log2,
+                          float scale) {
+  constexpr int kHeadBytes = NT * kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_tiles(smem_raw);
   uint8_t* q_s = smem;
-  uint8_t* do_s = smem + kTileBytes;
-  uint8_t* ring = smem + 2 * kTileBytes;  // stage s: K at 2 s, V at 2 s + 1
+  uint8_t* do_s = smem + kHeadBytes;
+  uint8_t* ring = smem + 2 * kHeadBytes;  // stage s: K at 2 s, V at 2 s + 1
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(ring + 2 * kStages * kTileBytes);
+      reinterpret_cast<uint64_t*>(ring + 2 * kStages * kHeadBytes);
   uint64_t* qdo_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + kStages;
@@ -324,21 +391,18 @@ attn_unpacked_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
 
   if (warp == kConsumers / 32) {  // producer
     if (lane == 0) {
-      sm90::mbar_arrive_expect_tx(qdo_full, 2 * kTileBytes);
-      sm90::tma_load_3d(q_s, &tm_q, qdo_full, head * kHeadDim, qt * kTile,
-                        batch);
-      sm90::tma_load_3d(do_s, &tm_do, qdo_full, head * kHeadDim, qt * kTile,
-                        batch);
+      sm90::mbar_arrive_expect_tx(qdo_full, 2 * kHeadBytes);
+      load_head<NT>(q_s, &tm_q, qdo_full, head, qt * kTile, batch);
+      load_head<NT>(do_s, &tm_do, qdo_full, head, qt * kTile, batch);
       for (int n = 0; n < 2 * nkb; ++n) {  // both passes over the keys
         const int s = n % kStages;
         const int kb = n < nkb ? n : n - nkb;
         if (n >= kStages) sm90::mbar_wait(&empty[s], (n / kStages - 1) & 1);
-        uint8_t* st = ring + 2 * s * kTileBytes;
-        sm90::mbar_arrive_expect_tx(&full[s], 2 * kTileBytes);
-        sm90::tma_load_3d(st, &tm_k, &full[s], head * kHeadDim, kb * kTile,
-                          batch);
-        sm90::tma_load_3d(st + kTileBytes, &tm_v, &full[s], head * kHeadDim,
-                          kb * kTile, batch);
+        uint8_t* st = ring + 2 * s * kHeadBytes;
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * kHeadBytes);
+        load_head<NT>(st, &tm_k, &full[s], head, kb * kTile, batch);
+        load_head<NT>(st + kHeadBytes, &tm_v, &full[s], head, kb * kTile,
+                      batch);
       }
     }
     return;
@@ -347,8 +411,6 @@ attn_unpacked_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const int row_lo = qt * kTile + warp * 16 + g;  // and row_lo + 8
-  const uint64_t d_q = sm90::desc_k_major(q_s);
-  const uint64_t d_do = sm90::desc_k_major(do_s);
   // The last block: 16 wide when it holds at most 16 keys.
   const bool narrow = seq_len - (nkb - 1) * kTile <= kNarrow;
   sm90::mbar_wait(qdo_full, 0);
@@ -358,14 +420,17 @@ attn_unpacked_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
   for (int kb = 0; kb < nkb; ++kb, ++n) {
     const int s = n % kStages;
     sm90::mbar_wait(&full[s], (n / kStages) & 1);
-    const uint8_t* kv = ring + 2 * s * kTileBytes;
+    const uint8_t* kv = ring + 2 * s * kHeadBytes;
     const int key0 = kb * kTile;
     if (kb + 1 < nkb) {
-      dq_pass1<8, false>(st, d_q, d_do, kv, key0, seq_len, scale_log2, t4);
+      dq_pass1<8, NT, false>(st, q_s, do_s, kv, key0, seq_len, scale_log2,
+                             t4);
     } else if (narrow) {
-      dq_pass1<2, true>(st, d_q, d_do, kv, key0, seq_len, scale_log2, t4);
+      dq_pass1<2, NT, true>(st, q_s, do_s, kv, key0, seq_len, scale_log2,
+                            t4);
     } else {
-      dq_pass1<8, true>(st, d_q, d_do, kv, key0, seq_len, scale_log2, t4);
+      dq_pass1<8, NT, true>(st, q_s, do_s, kv, key0, seq_len, scale_log2,
+                            t4);
     }
     sm90::mbar_arrive(&empty[s]);
   }
@@ -394,42 +459,45 @@ attn_unpacked_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
     }
   }
 
-  float dqacc[32];
-  zero(dqacc);
+  float dqacc[NT][32];
+  zero<NT>(dqacc);
   for (int kb = 0; kb < nkb; ++kb, ++n) {
     const int s = n % kStages;
     sm90::mbar_wait(&full[s], (n / kStages) & 1);
-    const uint8_t* kv = ring + 2 * s * kTileBytes;
+    const uint8_t* kv = ring + 2 * s * kHeadBytes;
     const int key0 = kb * kTile;
     if (kb + 1 < nkb) {
-      dq_pass2<8, false>(dqacc, d_q, d_do, kv, key0, seq_len, scale_log2, m,
-                         r, c, t4);
+      dq_pass2<8, NT, false>(dqacc, q_s, do_s, kv, key0, seq_len, scale_log2,
+                             m, r, c, t4);
     } else if (narrow) {
-      dq_pass2<2, true>(dqacc, d_q, d_do, kv, key0, seq_len, scale_log2, m,
-                        r, c, t4);
+      dq_pass2<2, NT, true>(dqacc, q_s, do_s, kv, key0, seq_len, scale_log2,
+                            m, r, c, t4);
     } else {
-      dq_pass2<8, true>(dqacc, d_q, d_do, kv, key0, seq_len, scale_log2, m,
-                        r, c, t4);
+      dq_pass2<8, NT, true>(dqacc, q_s, do_s, kv, key0, seq_len, scale_log2,
+                            m, r, c, t4);
     }
     sm90::mbar_arrive(&empty[s]);
   }
-  const int tok_stride = num_heads * kHeadDim;
+  const int tok_stride = num_heads * head_dim;
   __nv_bfloat16* out = dq + static_cast<size_t>(batch) * seq_len * tok_stride +
-                       head * kHeadDim;
-  sm90::store_acc(out, tok_stride, row_lo, seq_len, dqacc, scale, scale, t4);
+                       static_cast<size_t>(head) * head_dim;
+  store_head<NT>(out, tok_stride, row_lo, seq_len, dqacc, scale, t4,
+                 head_dim);
 }
 
-// One block of 8 kNT queries in (b): S^T, dP^T, then dV += bf16(P^T) dO and
-// dK += dS^T Q. mrc: the block's m2, r, c, [64] f32 each.
-template <int kNT>
-__device__ __forceinline__ void dkdv_block(float (&dk)[32], float (&dv)[32],
-                                           uint64_t d_k, uint64_t d_v,
+// One block of 8 kNT queries in (b) (qdo: its Q tiles, then its dO
+// tiles): S^T, dP^T, then dV += bf16(P^T) dO and dK += dS^T Q. mrc: the
+// block's m2, r, c, [64] f32 each.
+template <int kNT, int NT>
+__device__ __forceinline__ void dkdv_block(float (&dk)[NT][32],
+                                           float (&dv)[NT][32],
+                                           const uint8_t* k_s,
+                                           const uint8_t* v_s,
                                            const uint8_t* qdo,
                                            const float* mrc,
                                            float scale_log2, int t4) {
   float s[32], dp[32];
-  scores_then_dp<kNT, true>(s, dp, d_k, d_v, sm90::desc_k_major(qdo),
-                            sm90::desc_k_major(qdo + kTileBytes));
+  scores_then_dp<kNT, NT, true>(s, dp, k_s, v_s, qdo, qdo + NT * kTileBytes);
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt) {
     const int col = nt * 8 + 2 * t4;
@@ -456,15 +524,16 @@ __device__ __forceinline__ void dkdv_block(float (&dk)[32], float (&dv)[32],
   pack_tiles<kNT>(pa, s);
   pack_tiles<kNT>(dsa, dp);
   sm90::wgmma_fence();
-  gemm_update<kNT>(dv, pa, sm90::desc_mn_major(qdo + kTileBytes));
-  gemm_update<kNT>(dk, dsa, sm90::desc_mn_major(qdo));
+  gemm_update<kNT, NT>(dv, pa, qdo + NT * kTileBytes);
+  gemm_update<kNT, NT>(dk, dsa, qdo);
   sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
-  sm90::fence(dv);
-  sm90::fence(dk);
+  fence_head<NT>(dv);
+  fence_head<NT>(dk);
 }
 
-__global__ void __launch_bounds__(kConsumers + 32, 2)
+template <int NT>
+__global__ void __launch_bounds__(kConsumers + 32, NT == 1 ? 2 : 1)
 attn_unpacked_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
@@ -474,13 +543,15 @@ attn_unpacked_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
                             const float* __restrict__ m_in,
                             const float* __restrict__ r_in,
                             const float* __restrict__ c_in, int seq_len,
-                            int num_heads, float scale_log2, float scale) {
+                            int num_heads, int head_dim, float scale_log2,
+                            float scale) {
+  constexpr int kHeadBytes = NT * kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_tiles(smem_raw);
   uint8_t* k_s = smem;
-  uint8_t* v_s = smem + kTileBytes;
-  uint8_t* ring = smem + 2 * kTileBytes;  // stage s: Q at 2 s, dO at 2 s + 1
-  float* mrc_s = reinterpret_cast<float*>(ring + 2 * kStages * kTileBytes);
+  uint8_t* v_s = smem + kHeadBytes;
+  uint8_t* ring = smem + 2 * kHeadBytes;  // stage s: Q at 2 s, dO at 2 s + 1
+  float* mrc_s = reinterpret_cast<float*>(ring + 2 * kStages * kHeadBytes);
   uint64_t* bars = reinterpret_cast<uint64_t*>(mrc_s + kStages * 3 * kTile);
   uint64_t* kv_full = bars;
   uint64_t* full = bars + 1;
@@ -506,11 +577,9 @@ attn_unpacked_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
 
   if (warp == kConsumers / 32) {  // producer
     if (lane == 0) {
-      sm90::mbar_arrive_expect_tx(kv_full, 2 * kTileBytes);
-      sm90::tma_load_3d(k_s, &tm_k, kv_full, head * kHeadDim, kt * kTile,
-                        batch);
-      sm90::tma_load_3d(v_s, &tm_v, kv_full, head * kHeadDim, kt * kTile,
-                        batch);
+      sm90::mbar_arrive_expect_tx(kv_full, 2 * kHeadBytes);
+      load_head<NT>(k_s, &tm_k, kv_full, head, kt * kTile, batch);
+      load_head<NT>(v_s, &tm_v, kv_full, head, kt * kTile, batch);
     }
     const size_t rc =
         (static_cast<size_t>(batch) * num_heads + head) * seq_len;
@@ -527,12 +596,11 @@ attn_unpacked_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
         mrc[2 * kTile + j] = ok ? c_in[rc + qi] : 0.f;
       }
       if (lane == 0) {
-        uint8_t* st = ring + 2 * s * kTileBytes;
-        sm90::mbar_arrive_expect_tx(&full[s], 2 * kTileBytes);
-        sm90::tma_load_3d(st, &tm_q, &full[s], head * kHeadDim, qb * kTile,
-                          batch);
-        sm90::tma_load_3d(st + kTileBytes, &tm_do, &full[s],
-                          head * kHeadDim, qb * kTile, batch);
+        uint8_t* st = ring + 2 * s * kHeadBytes;
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * kHeadBytes);
+        load_head<NT>(st, &tm_q, &full[s], head, qb * kTile, batch);
+        load_head<NT>(st + kHeadBytes, &tm_do, &full[s], head, qb * kTile,
+                      batch);
       } else {
         sm90::mbar_arrive(&full[s]);
       }
@@ -541,102 +609,123 @@ attn_unpacked_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
   }
 
   const int t4 = lane & 3;
-  const uint64_t d_k = sm90::desc_k_major(k_s);
-  const uint64_t d_v = sm90::desc_k_major(v_s);
   // The last block: 16 wide when it holds at most 16 queries.
   const bool narrow = seq_len - (nqb - 1) * kTile <= kNarrow;
   sm90::mbar_wait(kv_full, 0);
 
-  float dkacc[32], dvacc[32];
-  zero(dkacc);
-  zero(dvacc);
+  float dkacc[NT][32], dvacc[NT][32];
+  zero<NT>(dkacc);
+  zero<NT>(dvacc);
   for (int qb = 0; qb < nqb; ++qb) {
     const int s = qb % kStages;
     sm90::mbar_wait(&full[s], (qb / kStages) & 1);
-    const uint8_t* qdo = ring + 2 * s * kTileBytes;
+    const uint8_t* qdo = ring + 2 * s * kHeadBytes;
     const float* mrc = mrc_s + s * 3 * kTile;
     if (qb + 1 < nqb || !narrow) {
-      dkdv_block<8>(dkacc, dvacc, d_k, d_v, qdo, mrc, scale_log2, t4);
+      dkdv_block<8, NT>(dkacc, dvacc, k_s, v_s, qdo, mrc, scale_log2, t4);
     } else {
-      dkdv_block<2>(dkacc, dvacc, d_k, d_v, qdo, mrc, scale_log2, t4);
+      dkdv_block<2, NT>(dkacc, dvacc, k_s, v_s, qdo, mrc, scale_log2, t4);
     }
     sm90::mbar_arrive(&empty[s]);
   }
-  const int tok_stride = num_heads * kHeadDim;
+  const int tok_stride = num_heads * head_dim;
   const size_t base = static_cast<size_t>(batch) * seq_len * tok_stride +
-                      head * kHeadDim;
+                      static_cast<size_t>(head) * head_dim;
   const int key_lo = kt * kTile + warp * 16 + (lane >> 2);
-  sm90::store_acc(dk + base, tok_stride, key_lo, seq_len, dkacc, scale,
-                  scale, t4);
-  sm90::store_acc(dv + base, tok_stride, key_lo, seq_len, dvacc, 1.f, 1.f,
-                  t4);
+  store_head<NT>(dk + base, tok_stride, key_lo, seq_len, dkacc, scale, t4,
+                 head_dim);
+  store_head<NT>(dv + base, tok_stride, key_lo, seq_len, dvacc, 1.f, t4,
+                 head_dim);
 }
 
-// Launches (a) and then (b) (stage -1, the backward), or one of them alone
-// to time it (0: (a), 1: (b), which reads the m, r, c that (a) wrote).
+// Launches (a) and then (b) at NT tiles a head (stage -1, the backward),
+// or one of them alone to time it (0: (a), 1: (b), which reads the m, r,
+// c that (a) wrote).
+template <int NT>
+cudaError_t launch_nt(int stage, const CUtensorMap (&tm)[4], void* dq,
+                      void* dk, void* dv, float* m, float* r, float* c,
+                      int batch, int seq_len, int num_heads, int head_dim,
+                      float scale, cudaStream_t s) {
+  const float scale_log2 = scale * kLog2e;
+  const dim3 grid((seq_len + kTile - 1) / kTile, num_heads, batch);
+  cudaError_t err = cudaSuccess;
+  if (stage != 1) {
+    err = cudaFuncSetAttribute(attn_unpacked_bwd_dq_sm90<NT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dq_smem(NT)));
+    if (err != cudaSuccess) return err;
+    attn_unpacked_bwd_dq_sm90<NT><<<grid, kConsumers + 32, dq_smem(NT), s>>>(
+        tm[0], tm[1], tm[2], tm[3], static_cast<__nv_bfloat16*>(dq), m, r, c,
+        seq_len, num_heads, head_dim, scale_log2, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (stage != 0) {
+    err = cudaFuncSetAttribute(attn_unpacked_bwd_dkdv_sm90<NT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dkdv_smem(NT)));
+    if (err != cudaSuccess) return err;
+    attn_unpacked_bwd_dkdv_sm90<NT>
+        <<<grid, kConsumers + 32, dkdv_smem(NT), s>>>(
+            tm[0], tm[1], tm[2], tm[3], static_cast<__nv_bfloat16*>(dk),
+            static_cast<__nv_bfloat16*>(dv), m, r, c, seq_len, num_heads,
+            head_dim, scale_log2, scale);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
 int launch(int stage, const void* q, const void* k, const void* v,
            const void* dout, void* dq, void* dk, void* dv, void* m, void* r,
-           void* c, int batch, int seq_len, int num_heads, float scale,
-           void* stream) {
-  if (seq_len > kMaxLen || stage < -1 || stage > 1) {
+           void* c, int batch, int seq_len, int num_heads, int head_dim,
+           float scale, void* stream) {
+  if (seq_len > kMaxLen || stage < -1 || stage > 1 || head_dim < 8 ||
+      head_dim > kMaxHeadDim || head_dim % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  CUtensorMap tq, tk, tv, tdo;
-  if (!sm90_host::packed_head_map(&tq, q, batch, seq_len, num_heads) ||
-      !sm90_host::packed_head_map(&tk, k, batch, seq_len, num_heads) ||
-      !sm90_host::packed_head_map(&tv, v, batch, seq_len, num_heads) ||
-      !sm90_host::packed_head_map(&tdo, dout, batch, seq_len, num_heads)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm[4];
+  const void* src[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    if (!sm90_host::packed_head_map_d(&tm[i], src[i], batch, seq_len,
+                                      num_heads, head_dim)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  const float scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((seq_len + kTile - 1) / kTile, num_heads, batch);
   auto* mf = static_cast<float*>(m);
   auto* rf = static_cast<float*>(r);
   auto* cf = static_cast<float*>(c);
-  cudaError_t err = cudaSuccess;
-  if (stage != 1) {
-    err = cudaFuncSetAttribute(attn_unpacked_bwd_dq_sm90,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kDqSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_unpacked_bwd_dq_sm90<<<grid, kConsumers + 32, kDqSmem, s>>>(
-        tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dq), mf, rf, cf,
-        seq_len, num_heads, scale_log2, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (stage != 0) {
-    err = cudaFuncSetAttribute(attn_unpacked_bwd_dkdv_sm90,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kDkvSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_unpacked_bwd_dkdv_sm90<<<grid, kConsumers + 32, kDkvSmem, s>>>(
-        tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dv), mf, rf, cf, seq_len, num_heads,
-        scale_log2, scale);
-    err = cudaGetLastError();
-  }
+  const cudaError_t err =
+      head_dim <= 64
+          ? launch_nt<1>(stage, tm, dq, dk, dv, mf, rf, cf, batch, seq_len,
+                         num_heads, head_dim, scale, s)
+          : launch_nt<2>(stage, tm, dq, dk, dv, mf, rf, cf, batch, seq_len,
+                         num_heads, head_dim, scale, s);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
+// Largest head dim the kernels take; any multiple of 8 up to it.
+extern "C" int attention_unpacked_bwd_max_head_dim() { return kMaxHeadDim; }
+
 extern "C" int attention_unpacked_bwd_max_len() { return kMaxLen; }
 
-// q, k, v, dout, dq, dk, dv: [B, L, H, 64] bf16, contiguous, 16-byte
-// aligned. m, r, c: (B, H, L) f32 scratch that kernel (a) fills (m2, r, c
-// of the header) and (b) reads. scale = 64**-0.5 in f32. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a length past the limit
-// or a tensor map that cannot be encoded.
+// q, k, v, dout, dq, dk, dv: [B, L, H, D] bf16, contiguous, 16-byte
+// aligned; D a multiple of 8 up to 128. m, r, c: (B, H, L) f32 scratch
+// that kernel (a) fills (m2, r, c of the header) and (b) reads. scale =
+// D**-0.5 in f32. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// a head dim or a length past the limits or a tensor map that cannot be
+// encoded.
 extern "C" int attention_unpacked_bwd(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       void* dq, void* dk, void* dv, void* m,
                                       void* r, void* c, int batch,
-                                      int seq_len, int num_heads, float scale,
+                                      int seq_len, int num_heads,
+                                      int head_dim, float scale,
                                       void* stream) {
   return launch(-1, q, k, v, dout, dq, dk, dv, m, r, c, batch, seq_len,
-                num_heads, scale, stream);
+                num_heads, head_dim, scale, stream);
 }
 
 // One of the two kernels alone, to time it: `stage` 0 launches (a), 1 (b);
@@ -644,7 +733,7 @@ extern "C" int attention_unpacked_bwd(const void* q, const void* k,
 extern "C" int attention_unpacked_bwd_stage(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, void* m, void* r, void* c, int batch, int seq_len,
-    int num_heads, float scale, int stage, void* stream) {
+    int num_heads, int head_dim, float scale, int stage, void* stream) {
   return launch(stage, q, k, v, dout, dq, dk, dv, m, r, c, batch, seq_len,
-                num_heads, scale, stream);
+                num_heads, head_dim, scale, stream);
 }

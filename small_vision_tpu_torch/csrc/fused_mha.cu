@@ -1,18 +1,20 @@
 // Fused multi-head attention forward on bf16 tensors: the q, k, v
 // projections with bias, per-head max-shift softmax attention and the
-// out-projection with bias, for Hopper (sm_90a).
+// out-projection with bias, for Hopper (sm_90a), at any head dim D that is
+// a multiple of 8 up to 128.
 //
 // Replaces: small_vision_tpu/ops/fused_block.py::_mha_kernel (reached via
 // _mha_pallas / fused_mha). Per batch row, on x of width d and H heads of
-// 64 (d = H*64 in one process; a tensor rank's H heads of a wider model,
+// D (d = H*D in one process; a tensor rank's H heads of a wider model,
 // d = 768 and H = 6 at UMD-B/4 over two ranks, whose out-projection then
 // takes a zero bias and is summed over the ranks by the caller):
-//   q, k, v = bf16(f32(x W) + b)              (three W (d, H*64), b (H*64))
+//   q, k, v = bf16(f32(x W) + b)              (three W (d, H*D), b (H*D))
 //   per head: S = (q k^T) * scale, keys past L masked to -inf;
 //             p = bf16(exp(S - rowmax) / rowsum), the division before the
 //             rounding;  a = bf16(f32(p v))
-//   o = bf16(f32(a Wo) + bo)                     (Wo (H*64, d), bo (d))
-// the TPU kernel's rounding points.
+//   o = bf16(f32(a Wo) + bo)                     (Wo (H*D, d), bo (d))
+// the TPU kernel's rounding points; scale = f32(D**-0.5), as the TPU
+// kernel rounds it.
 //
 // Bound on this card: at the sampler's shape (B=64, L=260, width 768, 12
 // heads) the four projections and the two attention products are 91.8
@@ -29,13 +31,14 @@
 //      with 128 x 128 tiles and a 5-stage ring. Launched for q, k, v at
 //      once (one tensor map per weight and per output, chosen by the
 //      tile's column block; the outputs are the three column blocks of one
-//      (B, L, 3 H*64) scratch) and for the out-projection of the head
-//      outputs.
+//      (B, L, 3 H*D) scratch) and for the out-projection of the head
+//      outputs. Its N (H*D) and K (d) are multiples of 64, the GEMM's rule.
 //  (b) fused_mha_attn_kernel, per (head, batch row): the max-shift
-//      attention core of sm90_attention.cuh (its design there) under its
-//      production softmax, exp2 of the log2(e)-scaled scores, reading the
-//      heads' q, k, v from the scratch at column offsets 0, H*64, 2 H*64
-//      and writing (B, L, H*64). K7 and K9 run the same core.
+//      attention core of sm90_attention.cuh (its design there, its head
+//      dims one or two 64-column tiles) under its production softmax, exp2
+//      of the log2(e)-scaled scores, reading the heads' q, k, v from the
+//      scratch as heads 0..H-1, H..2H-1 and 2H..3H-1 of a (D, 3H, L, B)
+//      tensor map and writing (B, L, H*D). K7 and K9 run the same core.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,8 +47,6 @@
 #include "sm90_attention.cuh"
 
 namespace {
-
-constexpr int kHeadDim = 64;
 
 // ---- (a) the projection GEMM ---------------------------------------------
 
@@ -73,26 +74,27 @@ fused_mha_proj_kernel(const __grid_constant__ CUtensorMap tm_a,
 
 // ---- (b) the attention core: sm90_attention.cuh's production softmax ---
 
-template <int kGroups>
-__global__ void __launch_bounds__(128 * kGroups, 4 / kGroups)
+template <int kGroups, int NT>
+__global__ void __launch_bounds__(128 * kGroups, (NT == 1 ? 4 : 2) / kGroups)
 fused_mha_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const sm90::AttnArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  sm90::attention_heads<sm90::SoftmaxExp2, kGroups>(smem_raw, &tm_q, &tm_k,
-                                                    &tm_v, a);
+  sm90::attention_heads<sm90::SoftmaxExp2, kGroups, NT>(smem_raw, &tm_q,
+                                                        &tm_k, &tm_v, a);
 }
 
 }  // namespace
 
-// Largest sequence length the attention takes (a head's K and V stay
-// resident in the 227 KB of shared memory a block can use).
-extern "C" int fused_mha_max_len() { return sm90::attn_max_len(); }
+// Largest head dim the attention takes; any multiple of 8 up to it.
+extern "C" int fused_mha_max_head_dim() { return sm90::kAttnMaxHeadDim; }
 
-// Marks the entry points that take the width apart from the heads (a
-// tensor rank's projections); an older build's K6 took square ones only.
-extern "C" int fused_mha_takes_width() { return 1; }
+// Largest sequence length the attention takes at a head dim (a head's K
+// and V stay resident in the 227 KB of shared memory a block can use).
+extern "C" int fused_mha_max_len(int head_dim) {
+  return sm90::attn_max_len(head_dim);
+}
 
 // (a): c (m, num_w * n) = [bf16(f32(a w_i) + b_i) for i < num_w] side by
 // side; a (m, k), each w_i (k, n), b_i (n,); bf16, contiguous, 16-byte
@@ -137,44 +139,57 @@ extern "C" int fused_mha_proj(const void* a, const void* w0, const void* w1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// (b): qkv (B, L, 3 H*64) bf16, q, k, v side by side; heads (B, L, H*64)
-// bf16 out; scale = 64**-0.5 in f32. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a length past the limit or a tensor map the
-// driver refuses.
+// (b): qkv (B, L, 3 H*D) bf16, q, k, v side by side; heads (B, L, H*D)
+// bf16 out; D a multiple of 8 up to 128; scale = D**-0.5 in f32. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a head dim or a length
+// past the limits or a tensor map that cannot be encoded.
 extern "C" int fused_mha_attention(const void* qkv, void* heads, int batch,
-                                   int seq_len, int num_heads, float scale,
-                                   void* stream) {
-  const int hd = num_heads * kHeadDim;
-  CUtensorMap tm;
-  if (!sm90_host::rows_map(&tm, qkv, batch, seq_len, 3 * hd, 3 * hd)) {
+                                   int seq_len, int num_heads, int head_dim,
+                                   float scale, void* stream) {
+  if (!sm90_host::valid_head_dim(head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const sm90::AttnArgs args{0, hd, 2 * hd, static_cast<__nv_bfloat16*>(heads),
-                            hd, seq_len, scale};
+  CUtensorMap tm;
+  if (!sm90_host::packed_head_map_d(&tm, qkv, batch, seq_len, 3 * num_heads,
+                                    head_dim)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const sm90::AttnArgs args{0, num_heads, 2 * num_heads,
+                            static_cast<__nv_bfloat16*>(heads),
+                            num_heads * head_dim, seq_len, head_dim, scale};
+  using Kernel = decltype(&fused_mha_attn_kernel<1, 1>);
+  const Kernel kernels[2][2] = {
+      {fused_mha_attn_kernel<1, 1>, fused_mha_attn_kernel<2, 1>},
+      {fused_mha_attn_kernel<1, 2>, fused_mha_attn_kernel<2, 2>}};
   return sm90_host::launch_attention<sm90::SoftmaxExp2>(
-      fused_mha_attn_kernel<1>, fused_mha_attn_kernel<2>, tm, tm, tm, args,
-      batch, num_heads, static_cast<cudaStream_t>(stream));
+      kernels, tm, tm, tm, args, batch, num_heads,
+      static_cast<cudaStream_t>(stream));
 }
 
-// x, o: (B, L, width) bf16; heads (scratch): (B, L, H*64) bf16; qkv
-// (scratch): (B, L, 3 H*64) bf16; wq, wk, wv: (width, H*64) and wo
-// (H*64, width) bf16 row-major (in, out); bq, bk, bv: (H*64,) and bo
-// (width,) bf16; all contiguous and 16-byte aligned; width a multiple of
-// 64. scale = 64**-0.5 in f32. The three launches: (a) q, k, v; (b) the
-// heads; (a) the out-projection. Returns the first non-zero status.
+// x, o: (B, L, width) bf16; heads (scratch): (B, L, H*D) bf16; qkv
+// (scratch): (B, L, 3 H*D) bf16; wq, wk, wv: (width, H*D) and wo
+// (H*D, width) bf16 row-major (in, out); bq, bk, bv: (H*D,) and bo
+// (width,) bf16; all contiguous and 16-byte aligned; width and H*D
+// multiples of 64, D a multiple of 8 up to 128. scale = D**-0.5 in f32.
+// The three launches: (a) q, k, v; (b) the heads; (a) the out-projection.
+// Returns the first non-zero status.
 extern "C" int fused_mha_fwd(const void* x, const void* wq, const void* bq,
                              const void* wk, const void* bk, const void* wv,
                              const void* bv, const void* wo, const void* bo,
                              void* qkv, void* heads, void* o, int batch,
                              int seq_len, int width, int num_heads,
-                             float scale, void* stream) {
-  const int hd = num_heads * kHeadDim;
+                             int head_dim, float scale, void* stream) {
+  if (!sm90_host::valid_head_dim(head_dim) ||
+      seq_len > sm90::attn_max_len(head_dim)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hd = num_heads * head_dim;
   const int m = batch * seq_len;
   int status = fused_mha_proj(x, wq, wk, wv, bq, bk, bv, qkv, m, hd, width,
                               3, stream);
   if (status != 0) return status;
-  status = fused_mha_attention(qkv, heads, batch, seq_len, num_heads, scale,
-                               stream);
+  status = fused_mha_attention(qkv, heads, batch, seq_len, num_heads,
+                               head_dim, scale, stream);
   if (status != 0) return status;
   return fused_mha_proj(heads, wo, wo, wo, bo, bo, bo, o, m, width, hd, 1,
                         stream);

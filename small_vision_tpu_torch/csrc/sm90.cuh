@@ -340,27 +340,6 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map over the packed (B, L, H*64) bf16 layout, viewed as
-// (H*64, L, B) innermost first, box (64, 64, 1) with the 128-byte swizzle:
-// one box is one head's 64 rows of one batch element. Rows at or past L are
-// out of bounds and arrive as zeros. Returns false if it cannot be made.
-inline bool packed_head_map(CUtensorMap* map, const void* base, int batch,
-                            int seq_len, int num_heads) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t width = static_cast<cuuint64_t>(num_heads) * 64;
-  const cuuint64_t dims[3] = {width, static_cast<cuuint64_t>(seq_len),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {width * 2, width * 2 * seq_len};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Tensor map over the packed (B, L, H*D) bf16 layout of any head dim D (a
 // multiple of 8), viewed as (D, H, L, B) innermost first, box (64, 1, 64,
 // 1) with the 128-byte swizzle: one box is 64 columns, from `c0`, of one

@@ -10,17 +10,28 @@
 //
 // Design (K3's structure, attention_packed.cu, with the exact softmax). A
 // CTA takes one (head, batch row): the head's K and V blocks of 64 rows
-// come by TMA through 3-D tensor maps bounded at L (rows past it arrive as
-// zeros) and stay resident; one or two warpgroups walk the query tiles,
-// each from its own Q buffer. Pass 1 over the key blocks keeps a running
-// max and a rescaled sum, computing block j + 1's S while it reads block
-// j's; pass 2 recomputes S (the same products, the same bits), forms p with
-// the final max and sum, rounds it and feeds it from registers to the P V
-// product, issued with the next block's S. Column offsets of q, k, v and
-// the output's row stride are arguments, so one kernel serves any packed
-// layout. Q stays in shared memory (wgmma's A from registers would cost 16
-// registers a thread, and at 128 a thread ptxas spilled and serialised the
+// come by TMA through 4-D tensor maps over (D, heads, L, B) bounded at L
+// (rows past it arrive as zeros) and stay resident; one or two warpgroups
+// walk the query tiles, each from its own Q buffer. Pass 1 over the key
+// blocks keeps a running max and a rescaled sum, computing block j + 1's S
+// while it reads block j's; pass 2 recomputes S (the same products, the
+// same bits), forms p with the final max and sum, rounds it and feeds it
+// from registers to the P V product, issued with the next block's S. The
+// head offsets of q, k and v in their maps and the output's row stride are
+// arguments, so one kernel serves any packed layout (K6 reads q, k and v
+// as heads 0..H-1, H..2H-1 and 2H..3H-1 of one (B, L, 3 H*D) scratch). Q
+// stays in shared memory (wgmma's A from registers would cost 16 registers
+// a thread, and at 128 a thread ptxas spilled and serialised the
 // products). No atomics and no split-K: two launches give the same bits.
+//
+// Head dims: any multiple of 8 up to 128, as K3 (attention_packed.cu). A
+// head is NT = 1 (D <= 64) or 2 (64 < D <= 128) tiles of 64 columns, each
+// a TMA box of the (D, heads, L, B) map, so columns at or past D arrive as
+// zeros and a head never reads the next one's: the padded columns of Q and
+// K add 0 to the scores, those of V give 0 columns of O, which the store
+// drops. At NT = 2 K, V and Q double in shared memory (L up to 384, not
+// 832) and O's accumulator takes 32 more registers a thread (such a CTA
+// may take up to 255); the scores, the exps and the passes are the same.
 //
 // A compile-time softmax policy says how S is scaled and masked, how e is
 // formed, how many passes run and whether the products run at all.
@@ -37,32 +48,43 @@
 namespace sm90 {
 
 constexpr int kAttnShortTiles = 3;  // one warpgroup for heads this short
+constexpr int kAttnMaxHeadDim = 128;
 constexpr int kSmemPerBlock = 232448;
 
-// 1 KB to align the tiles; nkb K and nkb V blocks; one Q tile a warpgroup;
-// barriers: one a K block, one a V block, one a Q tile.
-__host__ __device__ constexpr size_t attn_smem_bytes(int nkb, int groups) {
-  return 1024 + static_cast<size_t>(2 * nkb + groups) * kTileBytes +
+// 64-column tiles a head of `head_dim` columns takes.
+__host__ __device__ constexpr int attn_tiles(int head_dim) {
+  return head_dim > 64 ? 2 : 1;
+}
+
+// 1 KB to align the tiles; nkb K and nkb V blocks and one Q tile a
+// warpgroup, each of nt 64-column tiles; barriers: one a K block, one a V
+// block, one a Q tile.
+__host__ __device__ constexpr size_t attn_smem_bytes(int nkb, int groups,
+                                                     int nt) {
+  return 1024 + static_cast<size_t>(2 * nkb + groups) * nt * kTileBytes +
          8 * static_cast<size_t>(2 * nkb + groups);
 }
 
-// Largest sequence length the core takes: a head's K and V stay resident
-// in the 227 KB of shared memory a block can use (832).
-__host__ __device__ constexpr int attn_max_len() {
+// Largest sequence length the core takes at a head dim: a head's K and V
+// stay resident in the 227 KB of shared memory a block can use (832 at
+// D <= 64, 384 at 64 < D <= 128).
+__host__ __device__ constexpr int attn_max_len(int head_dim) {
+  const int nt = attn_tiles(head_dim);
   int nkb = 1;
-  while (attn_smem_bytes(nkb + 1, 2) <= kSmemPerBlock) ++nkb;
+  while (attn_smem_bytes(nkb + 1, 2, nt) <= kSmemPerBlock) ++nkb;
   return nkb * kTileRows;
 }
 
-// A launch's scalars: head h's q, k, v are the 64 columns at q_col + 64 h,
-// k_col + 64 h, v_col + 64 h of their maps, and its output the 64 columns
-// at 64 h of o, o_ld elements a row. `scale` is the policy's (see
+// A launch's scalars: head h's q, k, v are heads q_head + h, k_head + h,
+// v_head + h of their (D, heads, L, B) maps, and its output the D columns
+// at h D of o, o_ld elements a row. `scale` is the policy's (see
 // launch_attention).
 struct AttnArgs {
-  int q_col, k_col, v_col;
+  int q_head, k_head, v_head;
   __nv_bfloat16* o;
   int o_ld;
   int seq_len;
+  int head_dim;
   float scale;
 };
 
@@ -207,22 +229,24 @@ struct NoMax : SoftmaxExp {
 // ---- the core ------------------------------------------------------------
 
 // The body of a kernel of 128 * kGroups threads over grid (heads, batch):
-// three maps over (cols, L, B) row layouts (sm90_host::rows_map).
-template <class P, int kGroups>
+// three maps over (D, heads, L, B) (sm90_host::packed_head_map_d); a head
+// is NT 64-column tiles.
+template <class P, int kGroups, int NT>
 __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
                                                 const CUtensorMap* tm_q,
                                                 const CUtensorMap* tm_k,
                                                 const CUtensorMap* tm_v,
                                                 const AttnArgs& a) {
+  constexpr int kHeadBytes = NT * kTileBytes;
   uint8_t* smem = align_tiles(smem_raw);
   const int seq_len = a.seq_len;
   const float scale = a.scale;
   const int nkb = (seq_len + kTileRows - 1) / kTileRows;
   const int nqt = nkb;
-  uint8_t* k_s = smem;  // block j at j * 8 KB
-  uint8_t* v_s = k_s + nkb * kTileBytes;
-  uint8_t* q_s = v_s + nkb * kTileBytes;  // warpgroup w's at w * 8 KB
-  uint64_t* k_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kTileBytes);
+  uint8_t* k_s = smem;  // block j at j * NT * 8 KB
+  uint8_t* v_s = k_s + nkb * kHeadBytes;
+  uint8_t* q_s = v_s + nkb * kHeadBytes;  // warpgroup w's at w * NT * 8 KB
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kHeadBytes);
   uint64_t* v_full = k_full + nkb;
   uint64_t* q_full = v_full + nkb;
 
@@ -231,28 +255,36 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int hcol = head * 64;
 
+  // Head `h` of a map's NT tiles of 64 rows from `row` into dst (zeros
+  // past D and L).
+  auto load_head = [&](uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                       int h, int row) {
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      tma_load_4d(dst + c * kTileBytes, map, bar, c * 64, h, row, batch);
+    }
+  };
   if (tid == 0) {
     for (int j = 0; j < 2 * nkb + kGroups; ++j) mbar_init(&k_full[j], 1);
     fence_barrier_init();
     // The first Q tiles, the K blocks (pass 1 needs them first), then V.
     for (int w = 0; w < kGroups && w < nqt; ++w) {
-      mbar_arrive_expect_tx(&q_full[w], kTileBytes);
-      tma_load_3d(q_s + w * kTileBytes, tm_q, &q_full[w], a.q_col + hcol,
-                  w * kTileRows, batch);
+      mbar_arrive_expect_tx(&q_full[w], kHeadBytes);
+      load_head(q_s + w * kHeadBytes, tm_q, &q_full[w], a.q_head + head,
+                w * kTileRows);
     }
     if constexpr (P::kProducts) {
       for (int j = 0; j < nkb; ++j) {
-        mbar_arrive_expect_tx(&k_full[j], kTileBytes);
-        tma_load_3d(k_s + j * kTileBytes, tm_k, &k_full[j], a.k_col + hcol,
-                    j * kTileRows, batch);
+        mbar_arrive_expect_tx(&k_full[j], kHeadBytes);
+        load_head(k_s + j * kHeadBytes, tm_k, &k_full[j], a.k_head + head,
+                  j * kTileRows);
       }
     }
     for (int j = 0; j < nkb; ++j) {
-      mbar_arrive_expect_tx(&v_full[j], kTileBytes);
-      tma_load_3d(v_s + j * kTileBytes, tm_v, &v_full[j], a.v_col + hcol,
-                  j * kTileRows, batch);
+      mbar_arrive_expect_tx(&v_full[j], kHeadBytes);
+      load_head(v_s + j * kHeadBytes, tm_v, &v_full[j], a.v_head + head,
+                j * kTileRows);
     }
   }
   __syncthreads();
@@ -261,25 +293,38 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const int row = (warp % 4) * 16 + g;  // this thread's rows: row, row + 8
-  __nv_bfloat16* out =
-      a.o + static_cast<size_t>(batch) * seq_len * a.o_ld + hcol;
-  uint8_t* my_q = q_s + wg * kTileBytes;
+  __nv_bfloat16* out = a.o + static_cast<size_t>(batch) * seq_len * a.o_ld +
+                       static_cast<size_t>(head) * a.head_dim;
+  uint8_t* my_q = q_s + wg * kHeadBytes;
   const uint64_t d_q = desc_k_major(my_q);
 
   for (int t = wg, use = 0; t < nqt; t += kGroups, ++use) {
     mbar_wait(&q_full[wg], use & 1);
 
-    // S of key block j into s: the QK product, or nomm's row constants.
+    // S of key block j into s: the QK product over the head's NT tiles, or
+    // nomm's row constants.
     float c_lo = 0.f, c_hi = 0.f;
     if constexpr (!P::kProducts) {
       c_lo = round_bf16(ld_swizzled(my_q, row, 0) * scale);
       c_hi = round_bf16(ld_swizzled(my_q, row + 8, 0) * scale);
     }
+    // Tile c's descriptor is tile 0's plus c * 8 KB in the 16-byte units of
+    // its address field. (An array of per-tile descriptors made the
+    // one-tile kernels spill at their 128 registers and cost K7 4 % at the
+    // sampler's shape.)
+    auto products_s = [&](float (&s)[32], int j) {
+      const uint64_t d_k = desc_k_major(k_s + j * kHeadBytes);
+#pragma unroll
+      for (int c = 0; c < NT; ++c) {
+        gemm_nt(s, d_q + c * (kTileBytes >> 4), d_k + c * (kTileBytes >> 4),
+                c > 0);
+      }
+    };
     auto issue_s = [&](float (&s)[32], int j) {
       if constexpr (P::kProducts) {
         mbar_wait(&k_full[j], 0);
         wgmma_fence();
-        gemm_nt(s, d_q, desc_k_major(k_s + j * kTileBytes));
+        products_s(s, j);
         wgmma_commit();
       } else {
 #pragma unroll
@@ -402,9 +447,9 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
       inv_hi = 1.f / quad_sum(l_hi);
     }
 
-    // Last pass: S again, p rounded, O += p V; block j + 1's S is issued
-    // with block j's P V product.
-    float sacc[32], oacc[32];
+    // Last pass: S again, p rounded, O += p V over the head's NT tiles of
+    // V; block j + 1's S is issued with block j's P V product.
+    float sacc[32], oacc[NT][32];
     uint32_t pa[16];
     float p0_lo = 0.f, p0_hi = 0.f;  // nomm: p of key 0
     issue_s(sacc, 0);
@@ -426,14 +471,20 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
       if constexpr (P::kProducts) {
         mbar_wait(&v_full[j], 0);
         wgmma_fence();
-        gemm_rn(oacc, pa, desc_mn_major(v_s + j * kTileBytes), j > 0);
+#pragma unroll
+        for (int c = 0; c < NT; ++c) {
+          gemm_rn(oacc[c], pa,
+                  desc_mn_major(v_s + j * kHeadBytes + c * kTileBytes),
+                  j > 0);
+        }
         if (j + 1 < nkb) {
           mbar_wait(&k_full[j + 1], 0);
-          gemm_nt(sacc, d_q, desc_k_major(k_s + (j + 1) * kTileBytes));
+          products_s(sacc, j + 1);
         }
         wgmma_commit();
         wgmma_wait<0>();
-        fence(oacc);
+#pragma unroll
+        for (int c = 0; c < NT; ++c) fence(oacc[c]);
         fence(sacc);
       } else {
         if (j == 0) {
@@ -453,14 +504,17 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
       const int src = lane & ~3;
       const float pl = __shfl_sync(0xffffffffu, round_bf16(p0_lo), src);
       const float ph = __shfl_sync(0xffffffffu, round_bf16(p0_hi), src);
-      const uint8_t* v_t = v_s + t * kTileBytes;
+      const uint8_t* v_t = v_s + t * kHeadBytes;
       mbar_wait(&v_full[t], 0);
       const float o_lo = pl * ld_swizzled(v_t, row, 0);
       const float o_hi = ph * ld_swizzled(v_t, row + 8, 0);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        oacc[4 * n] = oacc[4 * n + 1] = o_lo;
-        oacc[4 * n + 2] = oacc[4 * n + 3] = o_hi;
+      for (int c = 0; c < NT; ++c) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          oacc[c][4 * n] = oacc[c][4 * n + 1] = o_lo;
+          oacc[c][4 * n + 2] = oacc[c][4 * n + 3] = o_hi;
+        }
       }
     }
 
@@ -469,12 +523,17 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
     if (t + kGroups < nqt) {
       wg_barrier(wg);
       if (tid % 128 == 0) {
-        mbar_arrive_expect_tx(&q_full[wg], kTileBytes);
-        tma_load_3d(my_q, tm_q, &q_full[wg], a.q_col + hcol,
-                    (t + kGroups) * kTileRows, batch);
+        mbar_arrive_expect_tx(&q_full[wg], kHeadBytes);
+        load_head(my_q, tm_q, &q_full[wg], a.q_head + head,
+                  (t + kGroups) * kTileRows);
       }
     }
-    store_acc(out, a.o_ld, t * kTileRows + row, seq_len, oacc, 1.f, 1.f, t4);
+    // Columns at or past D are dropped.
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      store_acc(out + c * 64, a.o_ld, t * kTileRows + row, seq_len, oacc[c],
+                1.f, 1.f, t4, a.head_dim - c * 64);
+    }
   }
 }
 
@@ -482,25 +541,35 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
 
 namespace sm90_host {
 
-// Launches kernel<1> (one_group) or kernel<2> (two_groups), each running
-// sm90::attention_heads<P, groups>, over (num_heads, batch): one warpgroup
-// for heads of at most kAttnShortTiles tiles (as K3), else two. `scale` is
+// Whether the core takes a head dim: a multiple of 8 from 8 to 128.
+inline bool valid_head_dim(int head_dim) {
+  return head_dim >= 8 && head_dim <= sm90::kAttnMaxHeadDim &&
+         head_dim % 8 == 0;
+}
+
+// `kernels[NT - 1][groups - 1]` runs sm90::attention_heads<P, groups, NT>.
+// Launches the kernel of one warpgroup for heads of at most
+// kAttnShortTiles tiles (as K3), else two, and of one 64-column tile a
+// head for D <= 64, else two, over (num_heads, batch). `scale` is
 // head_dim**-0.5 in f32; for a base-2 policy log2(e) is folded in here.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a length past
-// sm90::attn_max_len().
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a head dim that
+// is not a multiple of 8 up to 128 or a length past
+// sm90::attn_max_len(head_dim).
 template <class P, class Kernel>
-inline int launch_attention(Kernel one_group, Kernel two_groups,
+inline int launch_attention(const Kernel (&kernels)[2][2],
                             const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                             const CUtensorMap& tm_v, sm90::AttnArgs a,
                             int batch, int num_heads, cudaStream_t stream) {
-  if (a.seq_len > sm90::attn_max_len()) {
+  if (!valid_head_dim(a.head_dim) ||
+      a.seq_len > sm90::attn_max_len(a.head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (P::kBase2) a.scale = a.scale * 1.44269504088896341f;
   const int nkb = (a.seq_len + sm90::kTileRows - 1) / sm90::kTileRows;
   const int groups = nkb <= sm90::kAttnShortTiles ? 1 : 2;
-  const Kernel kernel = groups == 1 ? one_group : two_groups;
-  const size_t smem = sm90::attn_smem_bytes(nkb, groups);
+  const int nt = sm90::attn_tiles(a.head_dim);
+  const Kernel kernel = kernels[nt - 1][groups - 1];
+  const size_t smem = sm90::attn_smem_bytes(nkb, groups, nt);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -403,26 +403,4 @@ inline bool matrix_map(CUtensorMap* map, const void* base, int rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Tensor map over a (batch, seq_len, cols) bf16 tensor with `ld` elements
-// a row (cols <= ld), viewed as (cols, seq_len, batch) innermost first,
-// box (64, 64, 1) with the 128-byte swizzle: one box is 64 columns of 64
-// rows of one batch element, and rows at or past seq_len arrive as zeros.
-inline bool rows_map(CUtensorMap* map, const void* base, int batch,
-                     int seq_len, int cols, int ld) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t row_bytes = static_cast<cuuint64_t>(ld) * 2;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(seq_len),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {row_bytes, row_bytes * seq_len};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace sm90_host

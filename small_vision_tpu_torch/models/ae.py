@@ -38,10 +38,11 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from small_vision_tpu_torch.models.common import DTYPES, Dense, dense
+from small_vision_tpu_torch.models.common import (DTYPES, Dense, dense,
+                                                  patchify)
 from small_vision_tpu_torch.models.embeddings import (CondTrunk, LabelEmbed,
                                                       TimestepEmbed)
-from small_vision_tpu_torch.models.vit import Encoder
+from small_vision_tpu_torch.models.vit import Encoder, training_draw
 from small_vision_tpu_torch.ops.masking import (random_masking,
                                                 restore_masked,
                                                 sequence_mask_to_image_mask)
@@ -62,11 +63,10 @@ class PatchEmbed(nn.Module):
     self.bias = nn.Parameter(torch.empty(width))
 
   def forward(self, image):  # (n, H, W, C) → (n, gh*gw, D)
-    n, h, w, c = image.shape
     p = self.patch
-    x = image.reshape(n, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
-    x = x.reshape(n, (h // p) * (w // p), p * p * c)
-    return dense(x, self.kernel.reshape(p * p * c, -1), self.bias,
+    x = patchify(image, (p, p))
+    x = x.reshape(x.shape[0], -1, x.shape[-1])
+    return dense(x, self.kernel.reshape(x.shape[-1], -1), self.bias,
                  self.dtype)
 
 
@@ -193,16 +193,6 @@ class _ViTAE(nn.Module):
       raise ValueError("label_drop is a training draw; pass train=True")
     return label_drop
 
-  def _dropout_draw(self, train, draw):
-    """The blocks' mask function: only in training with dropout > 0, where
-    it is needed."""
-    if not train or not self.dropout:
-      return None
-    if draw is None:
-      raise ValueError(f"dropout {self.dropout} in training needs "
-                       "dropout_draw, the keep masks' draws")
-    return draw
-
   def forward(self, image, *, t=None, y=None, cfg_scale=None, mask=0.0,
               train=False, mask_noise=None, label_drop=None,
               dropout_draw=None):
@@ -217,7 +207,7 @@ class _ViTAE(nn.Module):
     that returns a bool keep mask.
     """
     label_drop = self._label_drop(train, label_drop)
-    draw = self._dropout_draw(train, dropout_draw)
+    draw = training_draw(train, self.dropout, dropout_draw)
     if cfg_scale is not None:
       if train:
         raise ValueError("cfg_scale is inference-only")
@@ -253,7 +243,7 @@ class _ViTAE(nn.Module):
     batch. Returns (pred, out_a, out_b) with pred ordered [a ‖ b].
     """
     label_drop = self._label_drop(train, label_drop)
-    draw = self._dropout_draw(train, dropout_draw)
+    draw = training_draw(train, self.dropout, dropout_draw)
     n_a = img_a.shape[0]
     image = torch.cat([img_a.to(self.dtype), img_b.to(self.dtype)], dim=0)
     n = image.shape[0]

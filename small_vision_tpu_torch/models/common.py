@@ -12,6 +12,7 @@ import math
 import re
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -30,6 +31,24 @@ def lecun_normal(shape, fan_in: int, generator: torch.Generator):
   return w * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
 
 
+def np_lecun_normal(rng, shape, fan_in: int):
+  """flax's lecun_normal drawn with numpy's `rng`: a normal truncated to
+  ±2 (jax.random.truncated_normal's support), scaled to variance 1/fan_in."""
+  a = rng.standard_normal(shape)
+  while True:
+    bad = np.abs(a) > 2.0
+    if not bad.any():
+      break
+    a[bad] = rng.standard_normal(int(bad.sum()))
+  return a * (np.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
+
+def np_xavier_uniform(rng, shape, fan_in: int, fan_out: int):
+  """flax's xavier_uniform drawn with numpy's `rng`."""
+  limit = np.sqrt(6.0 / (fan_in + fan_out))
+  return rng.uniform(-limit, limit, shape)
+
+
 def compute_dtype(x: torch.Tensor, dtype: Optional[torch.dtype]):
   """flax's promote_dtype: `dtype` when given, else x promoted with f32."""
   return dtype if dtype is not None else torch.promote_types(
@@ -43,6 +62,16 @@ def dense(x, kernel, bias, dtype: Optional[torch.dtype]):
   dt = compute_dtype(x, dtype)
   y = torch.matmul(x.to(dt), kernel.to(dt))
   return y if bias is None else y + bias.to(dt)
+
+
+def patchify(image, patch):
+  """(n, H, W, C) → (n, H/ph, W/pw, ph·pw·C): each patch's pixels in
+  (row, column, channel) order, the order of a flax conv kernel's (ph, pw,
+  C) axes, so that a VALID conv of stride `patch` is one matmul."""
+  n, h, w, c = image.shape
+  ph, pw = patch
+  x = image.reshape(n, h // ph, ph, w // pw, pw, c).permute(0, 1, 3, 2, 4, 5)
+  return x.reshape(n, h // ph, w // pw, ph * pw * c)
 
 
 class Dense(nn.Module):

@@ -1,13 +1,16 @@
-"""ViT encoder blocks with AdaLN-zero or in-context conditioning.
+"""ViT encoder blocks with AdaLN-zero or in-context conditioning, and the
+ViT classifier.
 
 Counterpart of small_vision_tpu/models/vit.py: `_FusedLN`, `MlpBlock`,
 the packed q/k/v/out projections, the packed `MultiHeadAttention`,
 `Block` and `Encoder`, unrolled (`blocks_00`, ...) or under `scan=True`
 in the stacked layout of flax's `nn.scan` (`blocks/<sub>/<leaf>`, each
 leaf with a leading depth axis; block i runs on slice i), with JAX's
-remat policies and dropout. Module and parameter names follow the flax
-ones. Activations stay packed (B, L, H*D); matmuls run in `dtype_mm` with
-f32 parameters cast per call, as flax does.
+remat policies and dropout; and the classifier: the position embeddings
+(`posemb_sincos_2d`, `get_posemb`, `resample_posemb`), `MAPHead`, `_ViT`
+and its factory `ViT` / `Model` (see `_ViT`). Module and parameter names
+follow the flax ones. Activations stay packed (B, L, H*D); matmuls run in
+`dtype_mm` with f32 parameters cast per call, as flax does.
 
 `attn_impl` picks one of the JAX package's attention configurations:
   "pallas"        unfused Dense layers around the packed attention (K3, K4);
@@ -77,8 +80,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from small_vision_tpu_torch.models.common import (Dense, LayerNorm,
-                                                  compute_dtype, dense)
+from small_vision_tpu_torch.models.common import (DTYPES, Dense, LayerNorm,
+                                                  compute_dtype, dense,
+                                                  np_lecun_normal,
+                                                  np_xavier_uniform,
+                                                  patchify)
 from small_vision_tpu_torch.ops.attention import attention_packed
 from small_vision_tpu_torch.ops.fused_block import fused_mha, fused_mlp
 from small_vision_tpu_torch.ops.layernorm import ln_modulate
@@ -126,6 +132,17 @@ def dropout(x, keep: Optional[torch.Tensor], rate: float):
   keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
   return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                       device=x.device))
+
+
+def training_draw(train: bool, rate: float, draw: Optional[Callable]):
+  """A forward's dropout mask function `draw`, in training with dropout >
+  0, where it is needed (a ValueError without it); else None."""
+  if not train or not rate:
+    return None
+  if draw is None:
+    raise ValueError(f"dropout {rate} in training needs dropout_draw, the "
+                     "keep masks' draws")
+  return draw
 
 
 def int8_dense(x, kernel, bias, dtype, group=None):
@@ -444,13 +461,14 @@ class Block(nn.Module):
     self.MlpBlock_0 = MlpBlock(width, mlp_dim, dtype, attn_impl, quant,
                                dropout)
 
-  def draw_masks(self, draw, b: int, l: int):
+  def draw_masks(self, draw, b: int, l: int, cond: bool = True):
     """The block's three dropout keep masks, in JAX's order (attention
     branch, MLP hidden, MLP branch), for an input of B x L tokens (L
-    without the conditioning token); None without dropout."""
+    without the conditioning token, which joins them where `cond` is
+    given and the block has no AdaLN); None without dropout."""
     if not self.dropout or draw is None:
       return None
-    l += 0 if self.adaln else 1
+    l += 1 if cond and not self.adaln else 0
     return (draw((b, l, self.width)), draw((b, l, self.hidden)),
             draw((b, l, self.width)))
 
@@ -669,7 +687,7 @@ class Encoder(nn.Module):
     blocks = [self.blocks] * self.depth if self.scan else [
         getattr(self, f"blocks_{i:02d}") for i in range(self.depth)]
     for mod, call in zip(blocks, self._calls(ctx_lib.tensor_group())):
-      drops = mod.draw_masks(draw, x.shape[0], x.shape[1])
+      drops = mod.draw_masks(draw, x.shape[0], x.shape[1], cond is not None)
       x = remat_block(call, x, cond, drops, policy, self.fused)
     return self.encoder_norm(x)
 
@@ -693,3 +711,253 @@ def decode_variant(variant):
                     "L": 16, "H": 16, "g": 16, "G": 16}[v],
       **patch,
   }
+
+
+def posemb_sincos_2d(h, w, width, temperature=10_000., dtype=torch.float32,
+                     device=None):
+  """Fixed 2-D sincos position embedding (MoCo-v3 convention), (1, h*w,
+  width), computed in f32 and cast to `dtype`."""
+  assert width % 4 == 0, "Width must be mult of 4 for sincos posemb"
+  f32 = dict(dtype=torch.float32, device=device)
+  y, x = torch.meshgrid(torch.arange(h, **f32), torch.arange(w, **f32),
+                        indexing="ij")
+  omega = torch.arange(width // 4, **f32) / (width // 4 - 1)
+  omega = 1. / torch.pow(torch.tensor(temperature, **f32), omega)
+  y = torch.einsum("m,d->md", y.flatten(), omega)
+  x = torch.einsum("m,d->md", x.flatten(), omega)
+  pe = torch.cat([torch.sin(x), torch.cos(x), torch.sin(y), torch.cos(y)],
+                 dim=1)
+  return pe.to(dtype)[None]
+
+
+def get_posemb(module, typ, seqshape, width, name, dtype=torch.float32,
+               device=None):
+  """The position embedding of `typ`: "learn", the parameter `name` of
+  `module` ((1, prod(seqshape), width), made by `_ViT`), or "sincos2d"."""
+  if typ == "learn":
+    return getattr(module, name).to(dtype)
+  if typ == "sincos2d":
+    return posemb_sincos_2d(*seqshape, width, dtype=dtype, device=device)
+  raise ValueError(f"Unknown posemb type: {typ}")
+
+
+def resample_posemb(old, new):
+  """Bilinear posemb grid resize for hi-res finetuning (scipy's zoom of
+  order 1 on the host): `old` (1, gs_old**2, D) resized to `new`'s shape,
+  in `old`'s dtype and on its device; `old` itself when the shapes
+  agree."""
+  import scipy.ndimage
+  if old.shape == new.shape:
+    return old
+  gs_old = int(np.sqrt(old.shape[1]))
+  gs_new = int(np.sqrt(new.shape[1]))
+  grid = old.detach().cpu().float().numpy().reshape(gs_old, gs_old, -1)
+  grid = scipy.ndimage.zoom(grid, (gs_new / gs_old, gs_new / gs_old, 1),
+                            order=1)
+  return torch.from_numpy(grid.reshape(1, gs_new * gs_new, -1)).to(
+      old.device, old.dtype)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+  """flax's MultiHeadDotProductAttention without dropout or mask, its
+  queries apart from its keys and values: DenseGeneral q, k, v kernels
+  (d, H, hd) with biases (H, hd) and the out kernel (H, hd, d) with bias
+  (d,), in the inputs' dtype promoted with f32 (flax's default dtype), and
+  `flax_attention` between them. A plain composition: no kernel of the
+  JAX package is on its path."""
+
+  def __init__(self, width: int, num_heads: int):
+    super().__init__()
+    if width % num_heads:
+      raise ValueError(f"width {width} not divisible by {num_heads} heads")
+    head_dim = width // num_heads
+    self.num_heads = num_heads
+    self.query = PackedProj(width, num_heads, head_dim, None)
+    self.key = PackedProj(width, num_heads, head_dim, None)
+    self.value = PackedProj(width, num_heads, head_dim, None)
+    self.out = PackedOutProj(num_heads, head_dim, width, None)
+
+  def forward(self, inputs_q, inputs_kv):
+    split = lambda t: t.reshape(*t.shape[:-1], self.num_heads, -1)
+    o = flax_attention(split(self.query(inputs_q)),
+                       split(self.key(inputs_kv)),
+                       split(self.value(inputs_kv)))
+    return self.out(o.reshape(*o.shape[:-2], -1))
+
+
+class MAPHead(nn.Module):
+  """Multihead attention pooling head for the classifier: a learned
+  `probe` (1, 1, d) attends over the tokens, then LayerNorm and an f32
+  `MlpBlock` on a residual; returns the probe's row, (B, d). It runs in
+  f32, the dtype of the encoder's `encoder_norm` output, as in JAX."""
+
+  def __init__(self, width: int, mlp_dim: Optional[int] = None,
+               num_heads: int = 12):
+    super().__init__()
+    self.probe = nn.Parameter(torch.empty(1, 1, width))
+    self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
+        width, num_heads)
+    self.LayerNorm_0 = LayerNorm(width)
+    self.MlpBlock_0 = MlpBlock(width, mlp_dim, torch.float32)
+
+  def forward(self, x):
+    probe = self.probe.to(x.dtype).expand(x.shape[0], -1, -1)
+    x = self.MultiHeadDotProductAttention_0(probe, x)
+    y = self.LayerNorm_0(x)
+    x = x + self.MlpBlock_0(y)
+    return x[:, 0]
+
+
+class PatchConv(nn.Module):
+  """flax nn.Conv(width, (p, p), strides=p, VALID) on NHWC images, with
+  torch's Conv2d layout: `weight` (width, C, p, p) (OIHW; flax's HWIO
+  `kernel`, carried across by `convert.py`) and `bias` (width,). Computed
+  as a reshape and one matmul in `dtype` on the (p·p·C, width) view of the
+  kernel (the product rounded, then the bias added, as flax does): the
+  same function as the convolution, with no cuDNN call (and its TF32
+  default) on the path. Returns (n, H/p, W/p, width)."""
+
+  def __init__(self, patch, channels: int, width: int, dtype):
+    super().__init__()
+    self.patch = tuple(patch)
+    self.dtype = dtype
+    self.weight = nn.Parameter(torch.empty(width, channels, *self.patch))
+    self.bias = nn.Parameter(torch.empty(width))
+
+  def forward(self, image):
+    x = patchify(image, self.patch)
+    kernel = self.weight.permute(2, 3, 1, 0).reshape(x.shape[-1], -1)
+    return dense(x, kernel, self.bias, self.dtype)
+
+
+class _ViT(nn.Module):
+  """Plain ViT classifier: JAX's `_ViT` (small_vision_tpu/models/vit.py).
+
+  The patch conv `embedding` in `dtype_mm`; the position embedding
+  (`posemb` "learn", a parameter in the stream's dtype, or "sincos2d");
+  with `pool_type="tok"` a `cls` token (zero-initialised in JAX, in the
+  stream's dtype) before the sequence; the embedding dropout; the
+  `Encoder` named `Transformer` (no AdaLN, no conditioning: K1 without
+  modulation, and the attention of `attn_impl`; `scan`, `remat_policy`
+  and `dropout` as there), whose `encoder_norm` output is f32; then the
+  pooling ("map": `MAPHead`; "gap": the mean over tokens; "0" and "tok":
+  the first token, "tok" stripping it from `encoded`), `pre_logits` (a
+  Dense and tanh, shared by the pooled and the 2-D outputs, when
+  `rep_size`) and the `head` Dense (when `num_classes`). `forward` returns
+  the logits (or the pre-logits) and the dict `out` of JAX's keys: stem,
+  with_posemb, encoded, head_input, pre_logits_2d, pre_logits,
+  logits_2d, logits.
+
+  PyTorch makes parameters at construction, so the port takes two sizes
+  that JAX reads off the first input: `image_size` (the posemb grid of
+  "learn" is image_size / patch_size) and `channels` (the conv kernel's
+  input). `head_zeroinit` says how `init_leaf` draws the head.
+  With dropout in training, `forward(..., train=True, dropout_draw=fn)`
+  takes the keep masks from `fn(shape)`: the embedding's first, then each
+  block's (`Encoder`), in JAX's order.
+  """
+
+  def __init__(self, num_classes: Optional[int] = None,
+               patch_size=(16, 16), width: int = 768, depth: int = 12,
+               mlp_dim: Optional[int] = None, num_heads: int = 12,
+               posemb: str = "learn", rep_size=False, dropout: float = 0.0,
+               pool_type: str = "gap", head_zeroinit: bool = True,
+               scan: bool = False,
+               remat_policy: Optional[str] = "nothing_saveable",
+               dtype_mm: str = "bfloat16", attn_impl: str = "xla",
+               image_size=224, channels: int = 3):
+    super().__init__()
+    if pool_type not in ("map", "gap", "0", "tok"):
+      raise ValueError(f"Unknown pool type: '{pool_type}'")
+    if posemb not in ("learn", "sincos2d"):
+      raise ValueError(f"Unknown posemb type: {posemb}")
+    self.num_classes = num_classes
+    self.posemb = posemb
+    self.pool_type = pool_type
+    self.dropout = dropout
+    self.head_zeroinit = head_zeroinit
+    self.dtype = DTYPES[dtype_mm]
+    sizes = (image_size, image_size) if isinstance(image_size, int) else (
+        image_size)
+    self.grid = tuple(s // p for s, p in zip(sizes, patch_size))
+    self.embedding = PatchConv(patch_size, channels, width, self.dtype)
+    if posemb == "learn":
+      self.pos_embedding = nn.Parameter(torch.empty(
+          1, int(np.prod(self.grid)), width, dtype=self.dtype))
+    if pool_type == "tok":
+      self.cls = nn.Parameter(torch.empty(1, 1, width, dtype=self.dtype))
+    self.Transformer = Encoder(
+        depth, width, mlp_dim, num_heads, adaln=False, dtype=self.dtype,
+        attn_impl=attn_impl, scan=scan, remat_policy=remat_policy,
+        dropout=dropout)
+    if pool_type == "map":
+      self.MAPHead_0 = MAPHead(width, mlp_dim, num_heads)
+    if rep_size:
+      rep = width if rep_size is True else rep_size
+      self.pre_logits = Dense(width, rep)
+    else:
+      rep = width
+    if num_classes:
+      self.head = Dense(rep, num_classes)
+
+  def forward(self, image, *, train=False, dropout_draw=None):
+    """image (n, H, W, C) → (logits or pre-logits, out)."""
+    draw = training_draw(train, self.dropout, dropout_draw)
+    out = {}
+    x = out["stem"] = self.embedding(image.to(self.dtype))
+    n, h, w, c = x.shape
+    x = x.reshape(n, h * w, c)
+    x = out["with_posemb"] = x + get_posemb(
+        self, self.posemb, (h, w), c, "pos_embedding", x.dtype, x.device)
+    if self.pool_type == "tok":
+      x = torch.cat([self.cls.to(x.dtype).expand(n, -1, -1), x], dim=1)
+    if draw is not None:
+      x = dropout(x, draw(tuple(x.shape)), self.dropout)
+    x = self.Transformer(x, draw=draw)
+    encoded = out["encoded"] = x
+
+    if self.pool_type == "map":
+      x = out["head_input"] = self.MAPHead_0(x)
+    elif self.pool_type == "gap":
+      x = out["head_input"] = torch.mean(x, dim=1)
+    else:  # "0", "tok"
+      x = out["head_input"] = x[:, 0]
+      if self.pool_type == "tok":
+        encoded = encoded[:, 1:]
+
+    x_2d = encoded.reshape(n, h, w, -1)
+    if hasattr(self, "pre_logits"):
+      x_2d = torch.tanh(self.pre_logits(x_2d))
+      x = torch.tanh(self.pre_logits(x))
+    out["pre_logits_2d"] = x_2d
+    out["pre_logits"] = x
+    if self.num_classes:
+      out["logits_2d"] = self.head(x_2d)
+      x = out["logits"] = self.head(x)
+    return x, out
+
+
+def ViT(num_classes=None, *, variant=None, **kw):  # noqa: N802
+  return _ViT(num_classes, **{**decode_variant(variant), **kw})
+
+
+Model = ViT  # Factory alias for `models.get_model_module("vit").Model`.
+
+
+def init_leaf(name: str, shape, rng, model_config: dict):
+  """The classifier's leaf `name` as JAX's `_ViT` initialises it, drawn
+  from numpy's `rng`, where its initialiser is the model's own; else None,
+  and `convert.init_train_params` draws flax's default. The learned posemb
+  is normal(1/sqrt(width)); the head's bias is zero and its kernel zero
+  under `head_zeroinit` (the default), else lecun-normal; MAPHead's `probe`
+  is xavier-uniform over its (1, d) view."""
+  parent = name.split("/")[-2] if "/" in name else ""
+  if name == "pos_embedding":
+    return rng.standard_normal(shape) * (1.0 / np.sqrt(shape[2]))
+  if parent == "head":
+    if name.endswith("/bias") or model_config.get("head_zeroinit", True):
+      return np.zeros(shape)
+    return np_lecun_normal(rng, shape, shape[0])
+  if name.endswith("/probe"):
+    return np_xavier_uniform(rng, shape, shape[-2], shape[-1])
+  return None

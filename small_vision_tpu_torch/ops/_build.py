@@ -58,26 +58,33 @@ SIGNATURES = {
         "attention_packed_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P],
         "attention_packed_bwd_max_len": [],
         "attention_packed_bwd_max_head_dim": []},
+    # K6-K9 take the head dim since they did K3's widening; a tree from
+    # before has no `*_max_head_dim` entry point (tools/ab_kernels.py
+    # binds its older signatures).
     "attention_unpacked": {
-        "attention_unpacked_fwd": [_P] * 4 + [_I, _I, _I, _F, _P],
-        "attention_unpacked_max_len": []},
+        "attention_unpacked_fwd": [_P] * 4 + [_I, _I, _I, _I, _F, _P],
+        "attention_unpacked_max_len": [_I],
+        "attention_unpacked_max_head_dim": []},
     "attention_unpacked_bwd": {
-        "attention_unpacked_bwd": [_P] * 10 + [_I, _I, _I, _F, _P],
-        "attention_unpacked_bwd_stage": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
-        "attention_unpacked_bwd_max_len": []},
+        "attention_unpacked_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+        "attention_unpacked_bwd_stage": [_P] * 10 + [_I, _I, _I, _I, _F, _I,
+                                                     _P],
+        "attention_unpacked_bwd_max_len": [],
+        "attention_unpacked_bwd_max_head_dim": []},
     "attention_ablate": {
-        "attention_ablate_fwd": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
-        "attention_ablate_max_len": []},
+        "attention_ablate_fwd": [_P] * 4 + [_I, _I, _I, _I, _F, _I, _P],
+        "attention_ablate_max_len": [_I],
+        "attention_ablate_max_head_dim": []},
     "fused_mlp": {
         "fused_mlp_fwd": [_P] * 7 + [_I, _I, _I, _P],
         "fused_mlp_up": [_P] * 4 + [_I, _I, _I, _P],
         "fused_mlp_down": [_P] * 4 + [_I, _I, _I, _P]},
     "fused_mha": {
-        "fused_mha_fwd": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
+        "fused_mha_fwd": [_P] * 12 + [_I, _I, _I, _I, _I, _F, _P],
         "fused_mha_proj": [_P] * 8 + [_I, _I, _I, _I, _P],
-        "fused_mha_attention": [_P, _P, _I, _I, _I, _F, _P],
-        "fused_mha_max_len": [],
-        "fused_mha_takes_width": []},
+        "fused_mha_attention": [_P, _P, _I, _I, _I, _I, _F, _P],
+        "fused_mha_max_len": [_I],
+        "fused_mha_max_head_dim": []},
 }
 
 # Kernel launches by kernel name; `reset_launches()` zeroes them.

@@ -47,11 +47,14 @@ ABLATE_NAME = "attention_ablate"
 # The arms of K9, in the order of the kernel's `variant` argument.
 ABLATE_VARIANTS = ("prod", "nosoftmax", "nomm", "bf16exp", "exp2", "mulmask",
                    "nomax")
-# K3 and K4 take any head dim that is a multiple of 8 up to this; K6-K9
-# take HEAD_DIM only.
-PACKED_MAX_HEAD_DIM = 128
-HEAD_DIM = 64
+# K3, K4 and K6-K9 take any head dim that is a multiple of 8 up to this.
+MAX_HEAD_DIM = 128
 CLAMP = 80.0   # Softmax stability clamp, in log2 units.
+
+
+def scale_f32(head_dim: int) -> float:
+  """head_dim**-0.5 rounded to f32, as the JAX kernels round it."""
+  return float(np.float32(1.0 / np.sqrt(head_dim)))
 
 
 def scale_log2(head_dim: int) -> float:
@@ -146,9 +149,17 @@ def _check_each(name, first, tensors):
              f"{n} must be 16-byte aligned (a TMA tensor map's base)", name)
 
 
+def check_head_dim(d, name):
+  """Raises ValueError naming `name` for a head dim the kernels do not
+  take: they take multiples of 8 up to MAX_HEAD_DIM."""
+  _require(d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM,
+           f"head dim {d}: the kernel takes multiples of 8 up to "
+           f"{MAX_HEAD_DIM}", name)
+
+
 def _check(name, num_heads, **tensors):
-  """Checks the (B, L, H*D) bf16 inputs of K3 or K4, D a multiple of 8 up
-  to PACKED_MAX_HEAD_DIM; returns B, L, D."""
+  """Checks the (B, L, H*D) bf16 inputs of K3, K4 or K9, D a multiple of 8
+  up to MAX_HEAD_DIM; returns B, L, D."""
   first = next(iter(tensors.values()))
   _require(first.is_cuda, f"{next(iter(tensors))} must be a CUDA tensor",
            name)
@@ -158,9 +169,7 @@ def _check(name, num_heads, **tensors):
   _require(num_heads > 0 and hd % num_heads == 0,
            f"width {hd} is not num_heads {num_heads} heads", name)
   d = hd // num_heads
-  _require(d % 8 == 0 and 8 <= d <= PACKED_MAX_HEAD_DIM,
-           f"head dim {d}: the kernel takes multiples of 8 up to "
-           f"{PACKED_MAX_HEAD_DIM}", name)
+  check_head_dim(d, name)
   _check_each(name, first, tensors)
   return b, l, d
 
@@ -206,7 +215,7 @@ def attention_packed_bwd(q, k, v, do, num_heads):
   _build.launch(BWD_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), r.data_ptr(), c.data_ptr(), b, l, num_heads,
-                d, scale_log2(d), float(np.float32(1.0 / np.sqrt(d))))
+                d, scale_log2(d), scale_f32(d))
   _build.LAUNCHES[BWD_NAME] += 1
   return dq, dk, dv
 
@@ -318,7 +327,7 @@ def attention_bwd_plain(q, k, v, do):
 @functools.cache
 def _unpacked_lib():
   lib = _build.library("attention_unpacked")
-  return lib.attention_unpacked_fwd, lib.attention_unpacked_max_len()
+  return lib.attention_unpacked_fwd, lib.attention_unpacked_max_len
 
 
 @functools.cache
@@ -328,44 +337,43 @@ def _unpacked_bwd_lib():
 
 
 def _check_unpacked(name, **tensors):
-  """Checks the [B, L, H, 64] bf16 inputs of a kernel; returns B, L, H."""
+  """Checks the [B, L, H, D] bf16 inputs of a kernel, D a multiple of 8 up
+  to MAX_HEAD_DIM; returns B, L, H, D."""
   first = next(iter(tensors.values()))
   _require(first.is_cuda, f"{next(iter(tensors))} must be a CUDA tensor",
            name)
   _require(first.dim() == 4,
            f"inputs must be [B, L, H, D], got {tuple(first.shape)}", name)
   b, l, h, d = first.shape
-  _require(d == HEAD_DIM, f"head dim {d} != {HEAD_DIM}", name)
+  check_head_dim(d, name)
   _check_each(name, first, tensors)
-  return b, l, h
-
-
-def _scale_f32() -> float:
-  return float(np.float32(1.0 / np.sqrt(HEAD_DIM)))
+  return b, l, h, d
 
 
 def attention_unpacked_fwd(q, k, v):
-  """Launches K7 on [B, L, H, 64] bf16 contiguous, 16-byte aligned q, k,
-  v. No atomics: two launches give the same bits. L up to the kernel's
-  `attention_unpacked_max_len()`, 832: a head's K and V stay resident in
-  shared memory."""
-  b, l, h = _check_unpacked(UNPACKED_NAME, q=q, k=k, v=v)
+  """Launches K7 on [B, L, H, D] bf16 contiguous, 16-byte aligned q, k,
+  v, D a multiple of 8 up to 128. No atomics: two launches give the same
+  bits. L up to the kernel's `attention_unpacked_max_len(D)`: a head's K
+  and V stay resident in shared memory, 832 at D <= 64 (one 64-column
+  tile a head), 384 at 64 < D <= 128 (two)."""
+  b, l, h, d = _check_unpacked(UNPACKED_NAME, q=q, k=k, v=v)
   fn, max_len = _unpacked_lib()
-  _require(l <= max_len, f"sequence length {l} > {max_len}", UNPACKED_NAME)
+  _require(l <= max_len(d), f"sequence length {l} > {max_len(d)} at head "
+           f"dim {d}", UNPACKED_NAME)
   o = torch.empty_like(q)
   if q.numel() == 0:
     return o
   _build.launch(UNPACKED_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), b, l, h, _scale_f32())
+                v.data_ptr(), o.data_ptr(), b, l, h, d, scale_f32(d))
   _build.LAUNCHES[UNPACKED_NAME] += 1
   return o
 
 
 def _unpacked_bwd_buffers(q, k, v, do):
-  """(library, (B, L, H), and the tensors of K8's C entry points in their
-  order: q, k, v, do, the outputs dq, dk, dv and the scratch m, r, c) once
-  the inputs are what K8 takes."""
-  b, l, h = _check_unpacked(UNPACKED_BWD_NAME, q=q, k=k, v=v, do=do)
+  """(library, (B, L, H, D), and the tensors of K8's C entry points in
+  their order: q, k, v, do, the outputs dq, dk, dv and the scratch m, r,
+  c) once the inputs are what K8 takes."""
+  b, l, h, d = _check_unpacked(UNPACKED_BWD_NAME, q=q, k=k, v=v, do=do)
   lib, max_len = _unpacked_bwd_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}",
            UNPACKED_BWD_NAME)
@@ -374,22 +382,23 @@ def _unpacked_bwd_buffers(q, k, v, do):
   # 1 / row sum and the row sum of dP∘P.
   scratch = [torch.empty(b, h, l, dtype=torch.float32, device=q.device)
              for _ in range(3)]
-  return lib, (b, l, h), [q, k, v, do, *grads, *scratch]
+  return lib, (b, l, h, d), [q, k, v, do, *grads, *scratch]
 
 
 def attention_unpacked_bwd(q, k, v, do):
-  """Launches K8 on [B, L, H, 64] bf16 contiguous, 16-byte aligned q, k,
-  v, do; returns (dq, dk, dv). Two kernels, dQ and then dK/dV, each output
-  element summed by one warpgroup in a fixed order (no atomics), so two
-  launches give the same bits. L up to `attention_unpacked_bwd_max_len()`,
-  4,096: keys and queries stream through shared memory in 64-row blocks,
-  so nothing there grows with L."""
-  lib, (b, l, h), bufs = _unpacked_bwd_buffers(q, k, v, do)
+  """Launches K8 on [B, L, H, D] bf16 contiguous, 16-byte aligned q, k,
+  v, do, D a multiple of 8 up to 128; returns (dq, dk, dv). Two kernels,
+  dQ and then dK/dV, each output element summed by one warpgroup in a
+  fixed order (no atomics), so two launches give the same bits. L up to
+  `attention_unpacked_bwd_max_len()`, 4,096 at every head dim: keys and
+  queries stream through shared memory in 64-row blocks, so nothing there
+  grows with L."""
+  lib, (b, l, h, d), bufs = _unpacked_bwd_buffers(q, k, v, do)
   grads = tuple(bufs[4:7])
   if q.numel() == 0:
     return grads
   _build.launch(UNPACKED_BWD_NAME, q.device, lib.attention_unpacked_bwd,
-                *(t.data_ptr() for t in bufs), b, l, h, _scale_f32())
+                *(t.data_ptr() for t in bufs), b, l, h, d, scale_f32(d))
   _build.LAUNCHES[UNPACKED_BWD_NAME] += 1
   return grads
 
@@ -399,10 +408,10 @@ def attention_unpacked_bwd_stages(q, k, v, do):
   that launches that kernel}, on buffers made here ("dkdv" reads the m, r,
   c that "dq" wrote: launch "dq" first). For measurement only: they count
   no launch."""
-  lib, (b, l, h), bufs = _unpacked_bwd_buffers(q, k, v, do)
+  lib, (b, l, h, d), bufs = _unpacked_bwd_buffers(q, k, v, do)
   launch = lambda stage: _build.launch(
       UNPACKED_BWD_NAME, q.device, lib.attention_unpacked_bwd_stage,
-      *(t.data_ptr() for t in bufs), b, l, h, _scale_f32(), stage)
+      *(t.data_ptr() for t in bufs), b, l, h, d, scale_f32(d), stage)
   return {"dq": lambda: launch(0), "dkdv": lambda: launch(1)}
 
 
@@ -459,7 +468,7 @@ def attention_ablate_plain(q, k, v, num_heads, variant):
   b, l, hd = q.shape
   d = hd // num_heads
   dt = q.dtype
-  scale = float(np.float32(1.0 / np.sqrt(d)))
+  scale = scale_f32(d)
   qs, ks, vs = (_split(t, num_heads) for t in (q, k, v))
   if variant == "nomm":
     # No QK product: every score of row i is bf16(q[i, 0] * scale).
@@ -505,27 +514,26 @@ def attention_ablate_plain(q, k, v, num_heads, variant):
 @functools.cache
 def _ablate_lib():
   lib = _build.library("attention_ablate")
-  return lib.attention_ablate_fwd, lib.attention_ablate_max_len()
+  return lib.attention_ablate_fwd, lib.attention_ablate_max_len
 
 
 def attention_ablate_fwd(q, k, v, num_heads, variant):
-  """Launches K9's arm `variant` on (B, L, H*64) bf16 contiguous, 16-byte
-  aligned q, k, v; L up to `attention_ablate_max_len()`, 832. No atomics:
-  two launches give the same bits."""
+  """Launches K9's arm `variant` on (B, L, H*D) bf16 contiguous, 16-byte
+  aligned q, k, v, D a multiple of 8 up to 128; L up to
+  `attention_ablate_max_len(D)`, 832 at D <= 64 and 384 above. No
+  atomics: two launches give the same bits."""
   _require(variant in ABLATE_VARIANTS,
            f"unknown variant {variant!r}, one of {ABLATE_VARIANTS}",
            ABLATE_NAME)
-  b, l, _ = _check(ABLATE_NAME, num_heads, q=q, k=k, v=v)
-  _require(q.shape[-1] == num_heads * HEAD_DIM,
-           f"width {q.shape[-1]} != num_heads {num_heads} * head dim "
-           f"{HEAD_DIM}", ABLATE_NAME)
+  b, l, d = _check(ABLATE_NAME, num_heads, q=q, k=k, v=v)
   fn, max_len = _ablate_lib()
-  _require(l <= max_len, f"sequence length {l} > {max_len}", ABLATE_NAME)
+  _require(l <= max_len(d), f"sequence length {l} > {max_len(d)} at head "
+           f"dim {d}", ABLATE_NAME)
   o = torch.empty_like(q)
   if q.numel() == 0:
     return o
   _build.launch(ABLATE_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), b, l, num_heads, _scale_f32(),
+                v.data_ptr(), o.data_ptr(), b, l, num_heads, d, scale_f32(d),
                 ABLATE_VARIANTS.index(variant))
   _build.LAUNCHES[ABLATE_NAME] += 1
   return o

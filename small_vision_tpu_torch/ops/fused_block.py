@@ -12,7 +12,8 @@ under `attn_impl="pallas_fused"`:
   fused_mha:  q, k, v = bf16(f32(x W) + b); per head the max-shift softmax
               attention of `ops.attention.attention_plain`; then
               o = bf16(f32(attn Wo) + bo), on x of width d and H heads of
-              64 with W (d, H*64) and Wo (H*64, d): d = H*64 in one
+              D (a multiple of 8 up to 128) with W (d, H*D) and Wo
+              (H*D, d), d and H*D multiples of 64: d = H*D in one
               process, and a tensor rank's H/T heads (d = 768, H = 6 at
               UMD-B/4 over two) under the Megatron block
               K6 (`csrc/fused_mha.cu`): a wgmma GEMM with a bias
@@ -37,7 +38,6 @@ matmuls of these references lie outside any kernel and go to
 
 import functools
 
-import numpy as np
 import torch
 
 from small_vision_tpu_torch.ops import _build
@@ -115,8 +115,7 @@ def _mlp_lib():
 
 @functools.cache
 def _mha_lib():
-  lib = _build.library("fused_mha")
-  return lib, lib.fused_mha_max_len()
+  return _build.library("fused_mha")
 
 
 def _mlp_checked(x, w1, b1, w2, b2):
@@ -169,47 +168,53 @@ def fused_mlp_stages(x, w1, b1, w2, b2):
 
 
 def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
-  """(library, (b, l, d, hd)) once the arguments are what K6 takes: x
-  (B, L, d), q, k, v weights (d, hd) and biases (hd,), the out-projection
-  (hd, d) and its bias (d,), hd = num_heads * 64, d a multiple of 64."""
+  """(library, (b, l, d, hd, head_dim)) once the arguments are what K6
+  takes: x (B, L, d), q, k, v weights (d, hd) and biases (hd,), the
+  out-projection (hd, d) and its bias (d,), hd = num_heads * head_dim, the
+  head dim a multiple of 8 up to 128, d and hd multiples of 64 (the
+  projection GEMM's tiles)."""
   _require(x.is_cuda, "x must be a CUDA tensor", MHA_NAME)
   _require(x.dim() == 3, f"x must be (B, L, d), got {tuple(x.shape)}",
            MHA_NAME)
   b, l, d = x.shape
-  hd = num_heads * attn_lib.HEAD_DIM
+  hd = wq.shape[-1]
   _require(d > 0 and d % MLP_MULTIPLE == 0,
            f"width {d} is not a multiple of {MLP_MULTIPLE}", MHA_NAME)
-  _require(tuple(wq.shape[-1:]) == (hd,),
-           f"projections of {tuple(wq.shape[-1:])} columns where num_heads "
-           f"{num_heads} * head dim {attn_lib.HEAD_DIM} = {hd}", MHA_NAME)
-  lib, max_len = _mha_lib()
-  _require(l <= max_len, f"sequence length {l} > {max_len}", MHA_NAME)
+  _require(num_heads > 0 and hd % num_heads == 0,
+           f"projections of {hd} columns are not num_heads {num_heads} "
+           "heads", MHA_NAME)
+  head_dim = hd // num_heads
+  attn_lib.check_head_dim(head_dim, MHA_NAME)
+  _require(hd % MLP_MULTIPLE == 0,
+           f"projections of {hd} columns: not a multiple of {MLP_MULTIPLE}",
+           MHA_NAME)
+  max_len = fused_mha_max_len(head_dim)
+  _require(l <= max_len, f"sequence length {l} > {max_len} at head dim "
+           f"{head_dim}", MHA_NAME)
   mats = {n: (t, (d, hd)) for n, t in (("wq", wq), ("wk", wk), ("wv", wv))}
   vecs = {n: (t, (hd,)) for n, t in (("bq", bq), ("bk", bk), ("bv", bv))}
   _check_bf16(MHA_NAME, x.device, x=(x, (b, l, d)), **mats, **vecs,
               wo=(wo, (hd, d)), bo=(bo, (d,)))
-  return lib, (b, l, d, hd)
+  return _mha_lib(), (b, l, d, hd, head_dim)
 
 
-def fused_mha_max_len() -> int:
-  """The longest sequence K6 takes (builds the kernels)."""
-  return _mha_lib()[1]
-
-
-def _mha_scale():
-  return float(np.float32(1.0 / np.sqrt(attn_lib.HEAD_DIM)))
+def fused_mha_max_len(head_dim: int) -> int:
+  """The longest sequence K6 takes at a head dim (builds the kernels): 832
+  at head dims up to 64, 384 above."""
+  return _mha_lib().fused_mha_max_len(head_dim)
 
 
 def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
-  """Launches K6 on bf16 contiguous x (B, L, d), three (d, H*64) weights
-  with (H*64,) biases and the (H*64, d) out-projection with its (d,)
-  bias, d a multiple of 64 (H*64 in one process; a tensor rank's H heads
-  of a wider model under the Megatron block): the q, k, v projection, the
-  attention and the out-projection, three kernel launches through q, k, v
-  and head outputs in device memory. Sums run in a fixed order (no
-  atomics), so two launches give the same bits."""
-  lib, (b, l, d, hd) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
-                                    num_heads)
+  """Launches K6 on bf16 contiguous x (B, L, d), three (d, H*D) weights
+  with (H*D,) biases and the (H*D, d) out-projection with its (d,)
+  bias, D a multiple of 8 up to 128, d and H*D multiples of 64 (d = H*D
+  in one process; a tensor rank's H heads of a wider model under the
+  Megatron block): the q, k, v projection, the attention and the
+  out-projection, three kernel launches through q, k, v and head outputs
+  in device memory. Sums run in a fixed order (no atomics), so two
+  launches give the same bits."""
+  lib, (b, l, d, hd, head_dim) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo,
+                                              bo, num_heads)
   o = torch.empty_like(x)
   if x.numel() == 0:
     return o
@@ -218,7 +223,7 @@ def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   _build.launch(MHA_NAME, x.device, lib.fused_mha_fwd,
                 *(t.data_ptr() for t in (x, wq, bq, wk, bk, wv, bv, wo, bo,
                                          qkv, heads_out, o)),
-                b, l, d, num_heads, _mha_scale())
+                b, l, d, num_heads, head_dim, attn_lib.scale_f32(head_dim))
   _build.LAUNCHES[MHA_NAME] += 1
   return o
 
@@ -228,8 +233,8 @@ def fused_mha_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   "attention", "out_proj": a function that launches that kernel}, on
   buffers made here (the attention reads the q, k, v the first one
   wrote). For measurement only: they count no launch."""
-  lib, (b, l, d, hd) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
-                                    num_heads)
+  lib, (b, l, d, hd, head_dim) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo,
+                                              bo, num_heads)
   qkv = torch.empty(b, l, 3 * hd, dtype=x.dtype, device=x.device)
   heads_out = torch.empty(b, l, hd, dtype=x.dtype, device=x.device)
   o = torch.empty_like(x)
@@ -242,7 +247,7 @@ def fused_mha_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
                                  b * l, hd, d, 3),
       "attention": lambda: launch(lib.fused_mha_attention, qkv.data_ptr(),
                                   heads_out.data_ptr(), b, l, num_heads,
-                                  _mha_scale()),
+                                  head_dim, attn_lib.scale_f32(head_dim)),
       "out_proj": lambda: launch(lib.fused_mha_proj,
                                  *ptr(heads_out, wo, wo, wo, bo, bo, bo, o),
                                  b * l, d, hd, 1),

@@ -13,6 +13,9 @@ builds `fused_mha.cu`, `attention_unpacked.cu`, `attention_ablate.cu`,
 parent commit unpacked with `git archive`) into a temporary directory and
 loads them beside this tree's libraries. Then, on inputs from a
 `torch.Generator` seeded 0:
+  A tree whose K6-K9 take head dim 64 only (no `*_max_head_dim` entry
+  point) is bound to its signatures of then; every shape here is at head
+  dim 64.
   - K6 (the whole fused MHA forward) at the sampler's shape (B=64, L=260)
     and at (128, 257), 768 wide, 12 heads of 64: both sides must give the
     same bits (`torch.equal`); the call and its attention launch alone are
@@ -29,10 +32,7 @@ loads them beside this tree's libraries. Then, on inputs from a
   - K1, K2, K3 and K4 at `--width` and `--heads` (head dim width / heads)
     at the training lengths L = 68, 164, 257 and batch 128, modulated,
     beside `F.layer_norm` + modulate, its autograd backward, SDPA and its
-    backward. A tree whose K1-K4 take one width or head dim (no
-    `ln_modulate_max_width` / `attention_packed_max_head_dim` entry point)
-    is timed at 768 and 12 heads of 64 only, its older K3/K4 signature
-    bound here; at other shapes its side is left out.
+    backward.
 Each time is the mean of `--iters` launches between two CUDA events after
 a warm-up launch, taken in turns (other, this, this, other) for `--rounds`
 rounds; the tool prints the median and the range of each, beside the
@@ -64,14 +64,6 @@ SOURCES = ("fused_mha", "attention_unpacked", "attention_ablate",
            "attention_unpacked_bwd", "ln_modulate_bwd", "ln_modulate",
            "attention_packed", "attention_packed_bwd")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def _k2_work_words(lib, b, l) -> int:
-  """Words of K2's scratch for `lib`: a tree from before K2 kept its ticket
-  counters in the module (`ln_modulate_bwd_partials`, (2, d) rows)."""
-  if hasattr(lib, "ln_modulate_bwd_work_words"):
-    return lib.ln_modulate_bwd_work_words(b, l, WIDTH)
-  return lib.ln_modulate_bwd_partials(b, l) * 2 * WIDTH
 
 
 def dev_ms(fn, iters) -> float:
@@ -112,47 +104,52 @@ def _check(status):
   _build.check(status, "ab_kernels")
 
 
+# The argument types of K6-K9's entry points before they took the head dim.
+_NO_HEAD_DIM = {
+    "fused_mha_fwd": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
+    "fused_mha_attention": [_P, _P, _I, _I, _I, _F, _P],
+    "attention_unpacked_fwd": [_P] * 4 + [_I, _I, _I, _F, _P],
+    "attention_unpacked_bwd": [_P] * 10 + [_I, _I, _I, _F, _P],
+    "attention_ablate_fwd": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
+}
+
+
+def _head_dim_args(lib, marker: str) -> tuple:
+  """(64,), the head dim argument, for a library whose entry points take
+  it (it has the entry point `marker`); for an older one, () once its
+  entry points are bound to their signatures of then."""
+  if hasattr(lib, marker):
+    return (64,)
+  for entry, args in _NO_HEAD_DIM.items():
+    if hasattr(lib, entry):
+      getattr(lib, entry).argtypes = args
+  return ()
+
+
 def k6_launches(lib, x, params, b, l):
   """{"call", "attention": a function that launches it} and the call's
   output, on buffers made here."""
   qkv = torch.empty(b, l, 3 * WIDTH, dtype=x.dtype, device=x.device)
   heads, o = torch.empty_like(x), torch.empty_like(x)
   stream = torch.cuda.current_stream().cuda_stream
-  scale = fb._mha_scale()
+  scale = attn.scale_f32(64)
   ptrs = [t.data_ptr() for t in (x, *params, qkv, heads, o)]
-  # A tree's K6 from before the width was its own argument takes
-  # (b, l, heads): bind it to that signature.
-  shape = (b, l, WIDTH, HEADS)
-  if not hasattr(lib, "fused_mha_takes_width"):
-    lib.fused_mha_fwd.argtypes = [_P] * 12 + [_I, _I, _I, _F, _P]
-    shape = (b, l, HEADS)
+  hd = _head_dim_args(lib, "fused_mha_max_head_dim")
+  shape = (b, l, WIDTH, HEADS, *hd)
   return {
       "call": lambda: _check(lib.fused_mha_fwd(*ptrs, *shape, scale,
                                                stream)),
       "attention": lambda: _check(lib.fused_mha_attention(
-          qkv.data_ptr(), heads.data_ptr(), b, l, HEADS, scale, stream)),
+          qkv.data_ptr(), heads.data_ptr(), b, l, HEADS, *hd, scale,
+          stream)),
   }, o
 
 
-def _takes_shape(libs, width, heads) -> bool:
-  """Whether a tree's K1-K4 take (width, heads); binds an older tree's K3
-  and K4, which took head dim 64 only, to their signature of then."""
-  if hasattr(libs["attention_packed"], "attention_packed_max_head_dim"):
-    return True
-  libs["attention_packed"].attention_packed_fwd.argtypes = (
-      [_P] * 4 + [_I, _I, _I, _F, _P])
-  libs["attention_packed_bwd"].attention_packed_bwd.argtypes = (
-      [_P] * 9 + [_I, _I, _I, _F, _F, _P])
-  return width in (768, 1024) and width == heads * 64
-
-
 def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library):
-  """K1-K4 of each side that takes the shape, and their library calls, at
-  (b, l, width) with `heads` heads, into `pairs` and `library`."""
+  """K1-K4 of each side and their library calls, at (b, l, width) with
+  `heads` heads, into `pairs` and `library`."""
   hd = width // heads
   stream = lambda: torch.cuda.current_stream().cuda_stream
-  new = {s: hasattr(libs["attention_packed"], "attention_packed_max_head_dim")
-         for s, libs in sides.items()}
   x, dy = randn(b, l, width), randn(b, l, width)
   q, k, v, do = (randn(b, l, width) for _ in range(4))
   gamma = 1.0 + 0.1 * randn(width).float()
@@ -173,18 +170,17 @@ def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library):
         lambda lib=libs["ln_modulate"], p=k1, y=y: _check(
             lib.ln_modulate_fwd(*p, mod.stride(0), y.data_ptr(), None, None,
                                 b * l, l, width, 1e-6, stream())))
-    hd_args = (hd,) if new[side] else ()
     scale = float(np.float32(1.0 / np.sqrt(hd)))
     pairs.setdefault(f"K3 {tag}", {})[side] = (
-        lambda lib=libs["attention_packed"], a=hd_args, o=o3[0]: _check(
+        lambda lib=libs["attention_packed"], o=o3[0]: _check(
             lib.attention_packed_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                b, l, heads, *a, attn.scale_log2(hd), stream())))
+                b, l, heads, hd, attn.scale_log2(hd), stream())))
     pairs.setdefault(f"K4 {tag}", {})[side] = (
-        lambda lib=libs["attention_packed_bwd"], a=hd_args, o3=o3, rc=rc:
+        lambda lib=libs["attention_packed_bwd"], o3=o3, rc=rc:
         _check(lib.attention_packed_bwd(
             *[t.data_ptr() for t in (q, k, v, do, *o3, *rc)], b, l, heads,
-            *a, attn.scale_log2(hd), scale, stream())))
+            hd, attn.scale_log2(hd), scale, stream())))
   g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
   library[f"K1 {tag}"] = (
       lambda: torch.nn.functional.layer_norm(x, (width,), g16, b16, 1e-6)
@@ -231,6 +227,10 @@ def main(argv=None):
   with tempfile.TemporaryDirectory() as tmp:
     other = build_other(pathlib.Path(args.other), pathlib.Path(tmp))
     sides = {"other": other, "this": this}
+    head_dims = {s: {stem: _head_dim_args(libs[stem], f"{stem}_max_head_dim")
+                     for stem in ("attention_unpacked", "attention_ablate",
+                                  "attention_unpacked_bwd")}
+                 for s, libs in sides.items()}
     for b, l in K6_SHAPES:
       x = randn(b, l, WIDTH)
       keep.append(x)
@@ -251,8 +251,10 @@ def main(argv=None):
       keep += [q, k, v, o]
       ptrs = [t.data_ptr() for t in (q, k, v, o)]
       pairs[f"K7 {b}x{l}"] = {
-          s: (lambda lib=libs["attention_unpacked"], p=ptrs, b=b, l=l: _check(
-              lib.attention_unpacked_fwd(*p, b, l, HEADS, scale, stream())))
+          s: (lambda lib=libs["attention_unpacked"], p=ptrs, b=b, l=l,
+              hd=head_dims[s]["attention_unpacked"]: _check(
+                  lib.attention_unpacked_fwd(*p, b, l, HEADS, *hd, scale,
+                                             stream())))
           for s, libs in sides.items()}
       heads_first = [t.transpose(1, 2) for t in (q, k, v)]
       library[f"K7 {b}x{l}"] = (
@@ -267,8 +269,9 @@ def main(argv=None):
       for arm_id, arm in enumerate(attn.ABLATE_VARIANTS):
         pairs[f"K9 {arm} {b}x{l}"] = {
             s: (lambda lib=libs["attention_ablate"], a=arm_id, p=ptrs, b=b,
-                l=l: _check(lib.attention_ablate_fwd(*p, b, l, HEADS, scale,
-                                                     a, stream())))
+                l=l, hd=head_dims[s]["attention_ablate"]: _check(
+                    lib.attention_ablate_fwd(*p, b, l, HEADS, *hd, scale, a,
+                                             stream())))
             for s, libs in sides.items()}
       split = [t.view(b, l, HEADS, 64).transpose(1, 2) for t in (q, k, v)]
       library[f"K9 {b}x{l}"] = (
@@ -282,8 +285,9 @@ def main(argv=None):
       keep += [q, k, v, do, *outs]
       ptrs = [t.data_ptr() for t in (q, k, v, do, *outs)]
       pairs[f"K8 {b}x{l}"] = {
-          s: (lambda lib=libs["attention_unpacked_bwd"], p=ptrs, b=b, l=l:
-              _check(lib.attention_unpacked_bwd(*p, b, l, HEADS, scale,
+          s: (lambda lib=libs["attention_unpacked_bwd"], p=ptrs, b=b, l=l,
+              hd=head_dims[s]["attention_unpacked_bwd"]:
+              _check(lib.attention_unpacked_bwd(*p, b, l, HEADS, *hd, scale,
                                                 stream())))
           for s, libs in sides.items()}
       heads_first = [t.transpose(1, 2).detach().requires_grad_()
@@ -305,7 +309,7 @@ def main(argv=None):
         outs = [torch.empty_like(x)] + [
             torch.empty(*shape, device="cuda")
             for shape in ((WIDTH,), (WIDTH,), (b, WIDTH), (b, WIDTH),
-                          (_k2_work_words(lib, b, l),))]
+                          (lib.ln_modulate_bwd_work_words(b, l, WIDTH),))]
         keep += outs
         ptrs = [t.data_ptr() for t in (x, dy, mean, rstd, gamma, beta, mod)]
         pairs.setdefault(f"K2 {b}x{l}", {})[side] = (
@@ -322,19 +326,16 @@ def main(argv=None):
           lambda y=y, leaves=(xg, g16, b16, sh, sc), dy=dy:
           torch.autograd.grad(y, leaves, dy, retain_graph=True))
 
-    takes = {s: _takes_shape(libs, args.width, args.heads)
-             for s, libs in sides.items()}
     for b, l in TRAIN_SHAPES:
-      k1_to_k4({s: libs for s, libs in sides.items() if takes[s]},
-               args.width, args.heads, b, l, randn, keep, pairs, library)
+      k1_to_k4(sides, args.width, args.heads, b, l, randn, keep, pairs,
+               library)
 
     times = {name: {side: [] for side in fns} for name, fns in pairs.items()}
     lib_times = {name: [] for name in library}
     for _ in range(args.rounds):
       for name, fns in pairs.items():
         for side in ("other", "this", "this", "other"):
-          if side in fns:
-            times[name][side].append(dev_ms(fns[side], args.iters))
+          times[name][side].append(dev_ms(fns[side], args.iters))
       for name, fn in library.items():
         lib_times[name].append(dev_ms(fn, args.iters))
 
@@ -347,15 +348,11 @@ def main(argv=None):
   print(f"[ab_kernels] K6 bit-equal to the other build: {same_bits}; on "
         f"{card}", flush=True)
   for name, t in result["times"].items():
-    line = (f"[ab_kernels] {name}: this {t['this']['median']:.4f} ms "
-            f"({t['this']['min']:.4f}-{t['this']['max']:.4f})")
-    if "other" in t:
-      line += (f", other {t['other']['median']:.4f} ({t['other']['min']:.4f}"
-               f"-{t['other']['max']:.4f}), this/other "
-               f"{t['this']['median'] / t['other']['median']:.3f}")
-    else:
-      line += ", other: does not take this shape"
-    print(line, flush=True)
+    print(f"[ab_kernels] {name}: this {t['this']['median']:.4f} ms "
+          f"({t['this']['min']:.4f}-{t['this']['max']:.4f}), other "
+          f"{t['other']['median']:.4f} ({t['other']['min']:.4f}"
+          f"-{t['other']['max']:.4f}), this/other "
+          f"{t['this']['median'] / t['other']['median']:.3f}", flush=True)
   for name, t in result["library"].items():
     print(f"[ab_kernels] {name} library: {t['median']:.4f} ms "
           f"({t['min']:.4f}-{t['max']:.4f})", flush=True)

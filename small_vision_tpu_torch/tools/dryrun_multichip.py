@@ -2,9 +2,10 @@
 
 Counterpart of `__graft_entry__.dryrun_multichip`, for the port: it spawns
 n processes joined in a gloo process group (over a `FileStore` in a
-temporary directory, so that no port is taken), on the CPU or, with
-`--device cuda`, sharing the card(s) (process r on card r mod count), and
-in each runs one training step of a small UMD (width 64, labels, EMA)
+temporary directory, so that no port is taken), sharing the card(s)
+(process r on card r mod count; the default, `--device cuda`, which raises
+where no card is found) or, with `--device cpu`, on the CPU, and in each
+runs one training step of a small UMD (width 64, labels, EMA)
 
   - on a `data` x `fsdp` mesh (fsdp 2), `fully_sharded` with every leaf
     sharded (`min_size_to_shard=0`), and
@@ -21,8 +22,9 @@ finite, the same on the processes that hold the same rows, and that the
 gradient's norm is the same on every process.
 
   python -m small_vision_tpu_torch.tools.dryrun_multichip --n 4
-  python -m small_vision_tpu_torch.tools.dryrun_multichip --n 2 \\
-      --device cuda --probe
+  python -m small_vision_tpu_torch.tools.dryrun_multichip --n 2 --probe
+  python -m small_vision_tpu_torch.tools.dryrun_multichip --n 4 \\
+      --device cpu
 
 `--probe` first checks each collective of `parallel.collectives` (the
 all-reduce, broadcast, all-gather, reduce-scatter and ppermute, and their
@@ -233,13 +235,19 @@ def dryrun(rank, n, device):
 def main(argv=None):
   parser = argparse.ArgumentParser()
   parser.add_argument("--n", type=int, default=4)
-  parser.add_argument("--device", default="cpu")
+  parser.add_argument("--device", default="cuda",
+                      help="cuda (the card(s), shared) or cpu")
   parser.add_argument("--probe", action="store_true")
   parser.add_argument("--timeout", type=float, default=300)
   parser.add_argument("--child", default=None, help=argparse.SUPPRESS)
   args = parser.parse_args(argv)
   if args.child:
     return _child(args.child)
+  if args.device != "cpu":
+    import torch
+    if not torch.cuda.is_available():
+      raise RuntimeError(f"dryrun_multichip: --device {args.device} needs a "
+                         "CUDA device; --device cpu runs on the CPU")
   if args.probe:
     print(spawn(f"{_MODULE}:probe", args.n, device=args.device,
                 timeout=args.timeout)[0], end="")

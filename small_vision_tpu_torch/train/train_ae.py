@@ -68,7 +68,6 @@ split `train_state["rng"]` and leave it), or are injected through `draws`.
 """
 
 import contextlib
-import importlib
 import math
 import os
 import time
@@ -77,7 +76,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from small_vision_tpu_torch import convert, optim
+from small_vision_tpu_torch import convert, models, optim
 from small_vision_tpu_torch.data import pipeline
 from small_vision_tpu_torch.data import core as ds_core
 from small_vision_tpu_torch.models.common import merge_params
@@ -101,8 +100,7 @@ def build_model(config: dict, device="cuda",
                 trainable: bool = False) -> torch.nn.Module:
   """The config's model, parameters uninitialised: in eval mode without
   gradients (the sampler's), or in train mode with them (`trainable`)."""
-  model_mod = importlib.import_module(
-      f"small_vision_tpu_torch.models.{config.get('model_name', 'ae')}")
+  model_mod = models.get_model_module(config.get("model_name", "ae"))
   with torch.device(device):
     model = model_mod.Model(**dict(config.get("model", {})))
   if trainable:

@@ -405,7 +405,8 @@ for m in ("tools.ablate_attention_kernel", "evaluators.common",
           "parallel.explicit_step", "parallel.pipeline",
           "tools.dryrun_multichip", "utils.windows", "utils.convert_ref",
           "configs.eval_ae_i1k", "tools.eval_only", "tools.export_sampler",
-          "data.latents"):
+          "data.latents", "models", "models.vit", "data.sequence_packing",
+          "tools.ab_smoke"):
   assert pkg.__name__ + "." + m in sys.modules, m
 print(len([m for m in sys.modules if m.startswith(pkg.__name__)]))
 assert not bad, bad

@@ -42,6 +42,12 @@ modulated or not, K2 three launches in a row and on two streams), and K3
 and K4 at head dims 8, 16, 80, 104 and 128 (and 24, 40, 72, 96, 120),
 against the plain versions, two launches giving the same bits; a width of
 2,080 and a head dim of 136 raise the named error, with no plain route.
+K6, K7, K8 and each arm of K9 at head dims 8, 16, 80, 88, 104 and 128
+(L = 20, 68, 257 and 260) against their plain versions in the tests of
+each at head dim 64, two launches giving the same bits; K6, K7 and K9 at
+their length limit at head dim 128
+(384) and one past it refused, K8 keeping 4,096; head dims 12 and 136
+refused by all four wrappers, with no launch.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -456,8 +462,8 @@ def _mlp_args(device, rows_shape, d=768, hidden=3072, seed=0):
   return x, w1, b1, w2, b2
 
 
-def _mha_args(device, b, l, heads, seed=0):
-  d = heads * 64
+def _mha_args(device, b, l, heads, seed=0, hd=64):
+  d = heads * hd
   args = [_randn((b, l, d), seed, device, torch.bfloat16)]
   for i in range(4):
     args += [_randn((d, d), seed + 2 * i + 1, device, torch.bfloat16, d**-0.5),
@@ -536,19 +542,27 @@ def test_fused_mlp_stages_launch_both_kernels_and_count_nothing(cuda):
 
 
 MAX_LEN = -1  # stands for the kernel's own length limit, known once built
+# K6-K9 at the head dims of the variant tables and the narrow ones: (head
+# dim, heads), the width heads x head dim a multiple of 64 for K6's GEMM;
+# each at (batch, length) (2, 20), (2, 68), (2, 257) and (1, 260).
+WIDE_HEADS = ((8, 8), (16, 4), (80, 16), (88, 16), (104, 16), (128, 6))
+WIDE_CASES = [(b, l, heads, hd) for hd, heads in WIDE_HEADS
+              for b, l in ((2, 20), (2, 68), (2, 257), (1, 260))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,heads", [
-    (3, 20, 12), (2, 37, 3), (4, 260, 12), (4, 257, 12), (2, 272, 2),
-    (128, 68, 12), (128, 164, 12), (128, 257, 12),  # the training shapes
-    (3, 65, 12), (3, 200, 12),  # ragged: not a multiple of 16 or 64
-    (4, 260, 16),  # width 1,024
-    (2, MAX_LEN, 2)])
-def test_fused_mha_kernel_matches_plain(cuda, b, l, heads):
+@pytest.mark.parametrize("b,l,heads,hd", [
+    (3, 20, 12, 64), (2, 37, 3, 64), (4, 260, 12, 64), (4, 257, 12, 64),
+    (2, 272, 2, 64),
+    (128, 68, 12, 64), (128, 164, 12, 64),  # the training shapes
+    (128, 257, 12, 64),
+    (3, 65, 12, 64), (3, 200, 12, 64),  # ragged: not a multiple of 16 or 64
+    (4, 260, 16, 64),  # width 1,024
+    (2, MAX_LEN, 2, 64)] + WIDE_CASES)
+def test_fused_mha_kernel_matches_plain(cuda, b, l, heads, hd):
   if l == MAX_LEN:
-    l = fb.fused_mha_max_len()
-  args = _mha_args(cuda, b, l, heads)
+    l = fb.fused_mha_max_len(hd)
+  args = _mha_args(cuda, b, l, heads, hd=hd)
   before = _build.LAUNCHES[fb.MHA_NAME]
   got = fb.fused_mha_fwd(*args, heads)
   assert _build.LAUNCHES[fb.MHA_NAME] == before + 1
@@ -583,8 +597,18 @@ def test_fused_mha_kernel_non_square_matches_plain(cuda, b, l, width, heads):
 @pytest.mark.cuda
 def test_fused_mha_refuses_what_the_kernel_does_not_take(cuda):
   args = _mha_args(cuda, 1, 8, 2)
-  with pytest.raises(ValueError, match="head dim"):
-    fb.fused_mha_fwd(*args, 4)
+  with pytest.raises(ValueError, match="not num_heads 3 heads"):
+    fb.fused_mha_fwd(*args, 3)
+  # 16 heads of 12 on (64, 192) projections: a head dim that is not a
+  # multiple of 8.
+  narrow = [args[0][..., :64].contiguous()]
+  for i in range(3):
+    narrow += [_randn((64, 192), i, cuda, torch.bfloat16),
+               _randn((192,), i, cuda, torch.bfloat16)]
+  narrow += [_randn((192, 64), 3, cuda, torch.bfloat16),
+             _randn((64,), 4, cuda, torch.bfloat16)]
+  with pytest.raises(ValueError, match="head dim 12"):
+    fb.fused_mha_fwd(*narrow, 16)
   with pytest.raises(ValueError, match="bfloat16"):
     fb.fused_mha_fwd(args[0].float(), *args[1:], 2)
   long = _mha_args(cuda, 1, 1024, 1)
@@ -617,18 +641,20 @@ def test_fused_block_autograd_launches_the_kernels(cuda):
     assert err <= 2.0**-5 * max(c.abs().max().item(), 1e-3), err
 
 
-def _qkv_do_4d(device, l, b=4, h=2, seed=0, scale=1.0):
-  return [_randn((b, l, h, 64), seed + i, device, torch.bfloat16,
+def _qkv_do_4d(device, l, b=4, h=2, seed=0, scale=1.0, d=64):
+  return [_randn((b, l, h, d), seed + i, device, torch.bfloat16,
                  scale if i < 2 else 1.0) for i in range(4)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,h", [(20, 2), (37, 3), (80, 2), (144, 3),
-                                 (257, 12), (260, 12), (MAX_LEN, 1)])
-def test_unpacked_attention_kernel_matches_plain(cuda, l, h):
+@pytest.mark.parametrize("b,l,h,d", [
+    (4, 20, 2, 64), (4, 37, 3, 64), (4, 80, 2, 64), (4, 144, 3, 64),
+    (4, 257, 12, 64), (4, 260, 12, 64), (4, MAX_LEN, 1, 64),
+    (1, MAX_LEN, 2, 128)] + WIDE_CASES)
+def test_unpacked_attention_kernel_matches_plain(cuda, b, l, h, d):
   if l == MAX_LEN:
-    l = attn._unpacked_lib()[1]
-  q, k, v, _ = _qkv_do_4d(cuda, l, h=h)
+    l = attn._unpacked_lib()[1](d)
+  q, k, v, _ = _qkv_do_4d(cuda, l, b=b, h=h, d=d)
   before = _build.LAUNCHES[attn.UNPACKED_NAME]
   got = attn.fused_attention(q, k, v)
   assert _build.LAUNCHES[attn.UNPACKED_NAME] == before + 1
@@ -658,17 +684,17 @@ def test_unpacked_attention_kernel_takes_large_logits(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,h", [(1, 2), (20, 2), (37, 3), (65, 3), (68, 12),
-                                 (164, 12), (257, 12), (720, 2), (1024, 1),
-                                 (MAX_LEN, 1)])
-def test_unpacked_attention_bwd_kernel_matches_plain(cuda, l, h):
+@pytest.mark.parametrize("b,l,h,d", [
+    (4, 1, 2, 64), (4, 20, 2, 64), (4, 37, 3, 64), (4, 65, 3, 64),
+    (4, 68, 12, 64), (4, 164, 12, 64), (4, 257, 12, 64), (4, 720, 2, 64),
+    (4, 1024, 1, 64), (1, MAX_LEN, 1, 64)] + WIDE_CASES)
+def test_unpacked_attention_bwd_kernel_matches_plain(cuda, b, l, h, d):
   """Also at L = 1, at 65 (one key past a 64-row tile), at 720 and 1,024,
-  past the 704 the kernel once took, and at its own limit (4,096), batch
-  1."""
-  b = 4
+  past the 704 the kernel once took, at its own limit (4,096), batch 1,
+  and at every head dim of WIDE_HEADS."""
   if l == MAX_LEN:
-    b, l = 1, attn._unpacked_bwd_lib()[1]
-  q, k, v, do = _qkv_do_4d(cuda, l, b=b, h=h)
+    l = attn._unpacked_bwd_lib()[1]
+  q, k, v, do = _qkv_do_4d(cuda, l, b=b, h=h, d=d)
   before = _build.LAUNCHES[attn.UNPACKED_BWD_NAME]
   got = attn.attention_unpacked_bwd(q, k, v, do)
   assert _build.LAUNCHES[attn.UNPACKED_BWD_NAME] == before + 1
@@ -752,8 +778,8 @@ def test_unpacked_attention_autograd_and_refusals(cuda):
   attn.fused_attention(q, k, v).backward(do)
   assert dict(_build.LAUNCHES) == {attn.UNPACKED_NAME: 1,
                                    attn.UNPACKED_BWD_NAME: 1}
-  bad = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device=cuda)
-  with pytest.raises(ValueError, match="head dim"):
+  bad = torch.zeros(1, 8, 2, 12, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="head dim 12"):
     attn.attention_unpacked_fwd(bad, bad, bad)
   # K8 takes its limit (4,096: shared memory does not grow with L) and
   # refuses one more.
@@ -761,10 +787,10 @@ def test_unpacked_attention_autograd_and_refusals(cuda):
   long = torch.zeros(1, 4097, 1, 64, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_unpacked_bwd(long, long, long, long)
-  # K7 takes its limit (832, the shared memory that K and V fill) and
-  # refuses one more.
-  assert attn._unpacked_lib()[1] == 832
-  past = long[:, :attn._unpacked_lib()[1] + 1]
+  # K7 takes its limit (832 at head dim 64, the shared memory that K and V
+  # fill) and refuses one more.
+  assert attn._unpacked_lib()[1](64) == 832
+  past = long[:, :attn._unpacked_lib()[1](64) + 1]
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_unpacked_fwd(past, past, past)
   q = q.detach()
@@ -803,13 +829,14 @@ ABLATE_ULPS = {"prod": 2, "nosoftmax": 2, "nomm": 0.5, "bf16exp": 4,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,h", [
-    (2, 21, 2), (3, 37, 3),
-    (2, 80, 2), (2, 144, 3),  # multiples of 16 but not of the 64-row tile
-    (2, 257, 12)])            # five tiles, the decoder's length
+@pytest.mark.parametrize("b,l,h,d", [
+    (2, 21, 2, 64), (3, 37, 3, 64),
+    # multiples of 16 but not of the 64-row tile
+    (2, 80, 2, 64), (2, 144, 3, 64),
+    (2, 257, 12, 64)] + WIDE_CASES)  # five tiles, the decoder's length
 @pytest.mark.parametrize("variant", attn.ABLATE_VARIANTS)
-def test_attention_ablate_kernel_matches_plain(cuda, variant, b, l, h):
-  q, k, v = (_randn((b, l, h * 64), s, cuda, torch.bfloat16)
+def test_attention_ablate_kernel_matches_plain(cuda, variant, b, l, h, d):
+  q, k, v = (_randn((b, l, h * d), s, cuda, torch.bfloat16)
              for s in (50, 51, 52))
   _build.reset_launches()
   got = attn.attention_ablate(q, k, v, h, variant)
@@ -849,8 +876,8 @@ def test_attention_ablate_refuses_what_the_kernel_does_not_take(cuda):
     attn.attention_ablate(q, q, q, 2, "fast")
   with pytest.raises(ValueError, match="bfloat16"):
     attn.attention_ablate(q.float(), q.float(), q.float(), 2, "prod")
-  with pytest.raises(ValueError, match="width 128 != num_heads"):
-    attn.attention_ablate(q, q, q, 4, "prod")
+  with pytest.raises(ValueError, match="width 128 is not num_heads 3"):
+    attn.attention_ablate(q, q, q, 3, "prod")
 
 
 @pytest.mark.cuda
@@ -1080,6 +1107,53 @@ def test_attention_kernels_at_head_dim_128_limits(cuda):
   long = torch.zeros(1, max_len + 16, 128, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_packed_fwd(long, long, long, 1)
+
+
+@pytest.mark.cuda
+def test_max_shift_kernels_at_head_dim_128_limits(cuda):
+  """K6, K7 and K9 at head dim 128 up to their own length limit (two tiles
+  a head: 384), and one more refused; K8 keeps its 4,096."""
+  max_len = attn._unpacked_lib()[1](128)
+  assert max_len == fb.fused_mha_max_len(128) == attn._ablate_lib()[1](128)
+  assert 260 < max_len < attn._unpacked_lib()[1](64)
+  assert attn._unpacked_bwd_lib()[1] == 4096
+  q, k, v = (_randn((1, max_len, 2, 128), 95 + i, cuda, torch.bfloat16)
+             for i in range(3))
+  torch.testing.assert_close(attn.attention_unpacked_fwd(q, k, v).float(),
+                             attn.attention_plain(q, k, v).float(),
+                             rtol=2**-7, atol=2**-7)
+  long = torch.zeros(1, max_len + 1, 2, 128, dtype=torch.bfloat16,
+                     device=cuda)
+  with pytest.raises(ValueError, match="sequence length"):
+    attn.attention_unpacked_fwd(long, long, long)
+  with pytest.raises(ValueError, match="sequence length"):
+    attn.attention_ablate_fwd(*(long.reshape(1, -1, 256),) * 3, 2, "exp2")
+  x = torch.zeros(1, max_len + 1, 256, dtype=torch.bfloat16, device=cuda)
+  w = torch.zeros(256, 256, dtype=torch.bfloat16, device=cuda)
+  bias = torch.zeros(256, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="sequence length"):
+    fb.fused_mha_fwd(x, *(w, bias) * 4, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,heads", [(12, 16), (136, 8)])
+def test_max_shift_wrappers_refuse_head_dims_they_do_not_take(cuda, hd,
+                                                              heads):
+  """A head dim that is not a multiple of 8 or is over 128 makes each of
+  K6-K9's wrappers raise on the card: no plain route, no CPU."""
+  width = heads * hd
+  t4 = torch.zeros(1, 20, heads, hd, dtype=torch.bfloat16, device=cuda)
+  t3 = t4.reshape(1, 20, width)
+  w = torch.zeros(width, width, dtype=torch.bfloat16, device=cuda)
+  bias = torch.zeros(width, dtype=torch.bfloat16, device=cuda)
+  _build.reset_launches()
+  for fn in (lambda: fb.fused_mha(t3, *(w, bias) * 4, heads),
+             lambda: attn.fused_attention(t4, t4, t4),
+             lambda: attn.attention_unpacked_bwd(t4, t4, t4, t4),
+             lambda: attn.attention_ablate(t3, t3, t3, heads, "prod")):
+    with pytest.raises(ValueError, match=f"head dim {hd}"):
+      fn()
+  assert not _build.LAUNCHES
 
 
 @pytest.mark.cuda

@@ -26,6 +26,9 @@ on conftest's 8 virtual CPU devices.
     at process indices 0-3.
   - With no process group every collective is the fast path: it returns
     its input, and the sharded helpers leave one process's step alone.
+  - `tools/dryrun_multichip.py` runs on the card by default: with no card
+    its `main` raises before it starts a process, and `--device cpu`
+    starts them on the CPU.
 The multi-process checks are in tests/test_torch_parallel_multiproc.py.
 """
 
@@ -534,3 +537,18 @@ def test_trainer_places_tensor_parallelism_as_jax(umd_b4, extra):
         jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))["params"]
     assert not any(any(s.spec) for s in _jax_shardings(
         jparallel.infer_sharding(jtree, jmesh, v_s)).values())
+
+
+def test_dryrun_tool_runs_on_the_card_or_raises(monkeypatch):
+  from small_vision_tpu_torch.tools import dryrun_multichip
+  calls = []
+  monkeypatch.setattr(
+      dryrun_multichip, "spawn",
+      lambda target, n, **kw: calls.append((target, kw)) or [""])
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  with pytest.raises(RuntimeError, match="--device cuda needs a CUDA device"):
+    dryrun_multichip.main([])
+  assert not calls  # nothing ran, on the CPU or elsewhere
+  dryrun_multichip.main(["--device", "cpu", "--n", "2"])
+  assert [(t.rsplit(":", 1)[1], kw["device"]) for t, kw in calls] == [
+      ("dryrun", "cpu")]
