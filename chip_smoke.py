@@ -501,16 +501,17 @@ def check_ln(ln, card, width=WIDTH, train_batch=TRAIN_BATCH // 2,
 
 
 def check_attention(attn, card, width=WIDTH, heads=HEADS,
-                    train_batch=TRAIN_BATCH // 2, timed=True):
-  """K3 against its plain version at `model_shapes(train_batch)` (the
-  sampler's shapes, batch 64, L = 260 and 257, and the training shapes, L =
-  68, 164, 257), two launches giving equal bits at each; returns its
-  kernels-line entry (times at the sampler's encoder shape on top, the
-  training shapes' under `by_len`)."""
+                    train_batch=TRAIN_BATCH // 2, timed=True, shapes=None):
+  """K3 against its plain version at `shapes`, by default
+  `model_shapes(train_batch)` (the sampler's shapes, batch 64, L = 260 and
+  257, and the training shapes, L = 68, 164, 257), two launches giving
+  equal bits at each; returns its kernels-line entry (times at the first
+  timed shape on top, the others' under `by_len`; the decoder's sampler
+  shape is checked, not timed)."""
   gen = torch.Generator(device="cuda").manual_seed(1)
   head_dim = width // heads
   max_err, timing, by_len = 0.0, None, {}
-  for b, seq in model_shapes(train_batch):
+  for b, seq in shapes or model_shapes(train_batch):
     q, k, v = (torch.randn(b, seq, width, generator=gen,
                            device="cuda").to(torch.bfloat16)
                for _ in range(3))
@@ -1080,12 +1081,14 @@ ABLATE_ULPS = {"prod": 2, "nosoftmax": 2, "nomm": 0.5, "bf16exp": 4,
 
 
 def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
-                           shapes=ABLATE_SHAPES, timed=True):
+                           shapes=ABLATE_SHAPES, timed=True,
+                           timed_shapes=ABLATE_SHAPES):
   """K9, all seven arms on (B, L, width) with `heads` heads at `shapes`,
   against its plain version, two launches of each giving equal bits; where
-  `timed`, each arm timed at the tool's two shapes (ABLATE_SHAPES).
-  Returns its kernels-line entry (times of `prod` at L = 257 on top, every
-  arm's under `by_shape`)."""
+  `timed`, each arm timed at those of `timed_shapes` (by default the
+  tool's two shapes, ABLATE_SHAPES). Returns its kernels-line entry (times
+  of `prod` at L = 257, or at the first timed shape, on top, every arm's
+  under `by_shape`)."""
   gen = torch.Generator(device="cuda").manual_seed(9)
   head_dim = width // heads
   max_err, by_shape = 0.0, {}
@@ -1095,7 +1098,7 @@ def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
                            device="cuda").to(torch.bfloat16)
                for _ in range(3))
     split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
-    timing = timed and (b, seq) in ABLATE_SHAPES
+    timing = timed and (b, seq) in timed_shapes
     arms = {}
     for arm in attn.ABLATE_VARIANTS:
       got = attn.attention_ablate_fwd(q, k, v, heads, arm)
@@ -1138,8 +1141,8 @@ def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
                source="small_vision_tpu_torch/csrc/attention_ablate.cu",
                replaces="scripts/ablate_attention_kernel.py:46",
                max_abs_err=max_err, max_len=max_len)
-  if timed:
-    top = by_shape["128x257"]
+  if timed and by_shape:
+    top = by_shape.get("128x257") or next(iter(by_shape.values()))
     entry.update(ms=top["arms"]["prod"]["ms"],
                  plain_ms=top["arms"]["prod"]["plain_ms"],
                  library_ms=top["library_ms"], bound_ms=top["bound_ms"],
@@ -1158,6 +1161,15 @@ WIDE_HEAD_DIMS = ((80, 16, True), (128, 6, True), (8, 8, False),
                   (16, 4, False), (88, 16, False), (104, 16, False))
 WIDE_SHAPES = ((BATCH, SEQ_ENC),) + tuple((TRAIN_BATCH // 2, l)
                                           for l in TRAIN_SEQS)
+# K3, K6, K7 and K9's seven arms past the lengths whose K and V they keep
+# resident (320 keys at head dims up to 64, 384 above), where K and V
+# stream through a ring, each timed (phase kernels): (width, heads, (batch,
+# length)s). ViT-L/16@512's 16 heads of 64 ("map" 1,024, "tok" 1,025),
+# ViT-H/14@518's 16 heads of 80 (1,369), and the limit the forwards share
+# with K4 and K8, 4,096, at UMD-B's 12 heads of 64.
+LONG_ATTENTION = ((1024, 16, ((BATCH, 1024), (BATCH, 1025))),
+                  (1280, 16, ((BATCH, 1369),)),
+                  (WIDTH, HEADS, ((4, 4096),)))
 
 
 def check_refused_head_dims(attn, fb, build):
@@ -3145,22 +3157,32 @@ def phase_settings(build, card):
 
 
 # ---------------------------------------------------------------------------
-# Phase classifier: the ViT classifier (models/vit.py's `_ViT`) at 224 px.
+# Phase classifier: the ViT classifier (models/vit.py's `_ViT`) at 224 px
+# and at the ViT paper's fine-tuning resolutions.
 
 CLS_SIZE, CLS_CLASSES = 224, 1000
 CLS_BATCH = 64                # the full-depth forwards' batch
 CLS_CHECK_BATCH, CLS_CHECK_DEPTH = 4, 2   # (a): card against CPU
-CLS_FORWARDS = 8              # forwards in one timed window of (b)
-# (a): (variant, attn_impl, pool_type) held on the card against the CPU.
-# "map" at patch 16 is L = 196, "tok" 197; ViT-H/14 is L = 256, head dim
-# 80 (K6 under pallas_fused; K3/K4 of its backward).
-CLS_CHECKS = (("B/16", "pallas", "map"), ("B/16", "pallas", "tok"),
-              ("B/16", "pallas_fused", "map"),
-              ("B/16", "pallas_fused", "tok"),
-              ("H/14", "pallas_fused", "map"))
-# (b): full depth and width, timed (the factory's default pool, "gap").
-CLS_TIMED = (("B/16", "pallas"), ("B/16", "pallas_fused"),
-             ("H/14", "pallas_fused"))
+CLS_FORWARDS = 8              # forwards in one timed window of (b) at 224
+# (a): (variant, attn_impl, pool_type, image size) held on the card
+# against the CPU. At 224 "map" at patch 16 is L = 196, "tok" 197;
+# ViT-H/14 is L = 256, head dim 80 (K6 under pallas_fused; K3/K4 of its
+# backward). ViT-L/16@512 is 32 x 32 patches (L = 1,025 with the class
+# token) and ViT-H/14@518 37 x 37 (1,369): K3, K4 and K6 past the lengths
+# whose K and V stay resident.
+CLS_CHECKS = (("B/16", "pallas", "map", 224), ("B/16", "pallas", "tok", 224),
+              ("B/16", "pallas_fused", "map", 224),
+              ("B/16", "pallas_fused", "tok", 224),
+              ("H/14", "pallas_fused", "map", 224),
+              ("L/16", "pallas", "tok", 512), ("H/14", "pallas", "map", 518),
+              ("H/14", "pallas_fused", "map", 518))
+# (b): full depth and width, timed (the factory's default pool, "gap"):
+# (variant, attn_impl, image size, forwards in a timed window).
+CLS_TIMED = (("B/16", "pallas", 224, CLS_FORWARDS),
+             ("B/16", "pallas_fused", 224, CLS_FORWARDS),
+             ("H/14", "pallas_fused", 224, CLS_FORWARDS),
+             ("L/16", "pallas", 512, 4), ("L/16", "pallas_fused", 512, 4),
+             ("H/14", "pallas", 518, 2), ("H/14", "pallas_fused", 518, 2))
 
 
 def _classifier(kw, params, device, trainable=False):
@@ -3179,18 +3201,48 @@ def _classifier_kw(variant, attn_impl, **kw):
               attn_impl=attn_impl, **kw)
 
 
-def _hold_classifier(build, card, variant, attn_impl, pool_type):
-  """ViT-<variant>@224 at full width and depth 2, card (kernels) against
-  CPU (plain versions), the same weights and images: the logits and the
-  gradients of a softmax cross-entropy, with the launches of the card's
-  forward and backward."""
+def _classifier_params(kw, seed):
+  """Every leaf drawn by `convert.init_params` at 224 px; at another
+  `kw["image_size"]` the learned posemb is carried from the 224 grid to
+  the model's by `resample_posemb`, as a hi-res fine-tune from a 224
+  checkpoint does."""
   from small_vision_tpu_torch import convert
+  from small_vision_tpu_torch.models import vit
 
+  params = convert.init_params({"model_name": "vit", "model": dict(
+      kw, image_size=CLS_SIZE)}, seed=seed)
+  size = kw.get("image_size", CLS_SIZE)
+  if size != CLS_SIZE:
+    grid = size // vit.decode_variant(kw["variant"])["patch_size"][0]
+    old = torch.from_numpy(params["pos_embedding"])
+    params["pos_embedding"] = vit.resample_posemb(
+        old, torch.zeros(1, grid * grid, old.shape[-1])).numpy()
+  return params
+
+
+def _classifier_gflop(variant, size):
+  """GFLOP of one image's forward through ViT-<variant>'s encoder at
+  `size` px (the "gap" pool: no class token): each block's matmuls, 2 L
+  (4 W^2 + 2 W mlp), and its attention, 4 L^2 W."""
+  from small_vision_tpu_torch.models import vit
+
+  v = vit.decode_variant(variant)
+  w, seq = v["width"], (size // v["patch_size"][0]) ** 2
+  return v["depth"] * (2 * seq * (4 * w * w + 2 * w * v["mlp_dim"])
+                       + 4 * seq * seq * w) / 1e9
+
+
+def _hold_classifier(build, card, variant, attn_impl, pool_type, size):
+  """ViT-<variant>@<size> at full width and depth 2, card (kernels)
+  against CPU (plain versions), the same weights (drawn at 224,
+  `_classifier_params`) and images: the logits and the gradients of a
+  softmax cross-entropy, with the launches of the card's forward and
+  backward."""
   kw = _classifier_kw(variant, attn_impl, pool_type=pool_type,
-                      depth=CLS_CHECK_DEPTH)
-  params = convert.init_params({"model_name": "vit", "model": kw}, seed=7)
+                      depth=CLS_CHECK_DEPTH, image_size=size)
+  params = _classifier_params(kw, seed=7)
   rng = np.random.default_rng(8)
-  images = rng.uniform(-1, 1, (CLS_CHECK_BATCH, CLS_SIZE, CLS_SIZE, 3)
+  images = rng.uniform(-1, 1, (CLS_CHECK_BATCH, size, size, 3)
                        ).astype(np.float32)
   labels = rng.integers(0, CLS_CLASSES, CLS_CHECK_BATCH)
   got = {}
@@ -3207,7 +3259,7 @@ def _hold_classifier(build, card, variant, attn_impl, pool_type):
                 out["with_posemb"].shape[1] + (pool_type == "tok"))
   (l_cpu, g_cpu, _, seq), (l_gpu, g_gpu, launches, _) = got["cpu"], got["cuda"]
   want = _times(BLOCK_TRAIN_LAUNCHES[attn_impl], CLS_CHECK_DEPTH)
-  label = f"ViT-{variant}@{CLS_SIZE} {attn_impl} pool {pool_type}"
+  label = f"ViT-{variant}@{size} {attn_impl} pool {pool_type}"
   if launches != want:
     fail(f"{label}: launches {launches} != {want}")
   err = (l_gpu - l_cpu).abs().max().item()
@@ -3234,20 +3286,19 @@ def _hold_classifier(build, card, variant, attn_impl, pool_type):
   return {"err": err, "worst_grad": worst, "launches": launches}
 
 
-def _time_classifier(build, card, variant, attn_impl):
-  """The full-depth, full-width ViT-<variant>@224 forward at batch 64 on
-  the card: its launches, requalified img/s (windows of CLS_FORWARDS
-  forwards) and peak memory."""
-  from small_vision_tpu_torch import convert
-
-  kw = _classifier_kw(variant, attn_impl)
-  params = convert.init_params({"model_name": "vit", "model": kw}, seed=9)
+def _time_classifier(build, card, variant, attn_impl, size, forwards,
+                     params):
+  """The full-depth, full-width ViT-<variant>@<size> forward at batch 64
+  on the card, on `params` (`_classifier_params`): its launches,
+  requalified img/s (windows of `forwards` forwards), its GFLOP an image
+  and peak memory."""
+  kw = _classifier_kw(variant, attn_impl, image_size=size)
   model = _classifier(kw, params, "cuda")
-  del params
   depth = model.Transformer.depth
+  gflop = _classifier_gflop(variant, size)
   x = torch.from_numpy(np.random.default_rng(10).uniform(
-      -1, 1, (CLS_BATCH, CLS_SIZE, CLS_SIZE, 3)).astype(np.float32)).cuda()
-  label = f"ViT-{variant}@{CLS_SIZE} {attn_impl}"
+      -1, 1, (CLS_BATCH, size, size, 3)).astype(np.float32)).cuda()
+  label = f"ViT-{variant}@{size} {attn_impl}"
   with torch.inference_mode():
     model(x)  # warm-up
     torch.cuda.synchronize()
@@ -3264,30 +3315,41 @@ def _time_classifier(build, card, variant, attn_impl):
     torch.cuda.reset_peak_memory_stats()
 
     def call():
-      for _ in range(CLS_FORWARDS):
+      for _ in range(forwards):
         model(x)
       torch.cuda.synchronize()
-    qual = qualified_calls(call, CLS_FORWARDS * CLS_BATCH)
+    qual = qualified_calls(call, forwards * CLS_BATCH)
   peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  tflops = gflop * qual["median"] / 1e3
   print(f"[classifier] (b) {label}, depth {depth}, batch {CLS_BATCH}: "
-        f"{qual_text(qual)}; launches a forward {launches}; peak "
-        f"{peak_gb:.2f} GB on {card}", flush=True)
+        f"{qual_text(qual)}; {gflop:.1f} GFLOP an image, {tflops:.1f} "
+        f"TFLOP/s; launches a forward {launches}; peak {peak_gb:.2f} GB on "
+        f"{card}", flush=True)
   del model
   gc.collect()
   torch.cuda.empty_cache()
   return {"qual": qual, "img_per_s": qual["median"], "launches": launches,
-          "peak_gb": peak_gb, "depth": depth}
+          "peak_gb": peak_gb, "depth": depth, "gflop": gflop,
+          "tflops": tflops}
 
 
 def phase_classifier(build, card, settings):
-  """(a) ViT-B/16@224 and ViT-H/14@224 at full width, depth 2, on the card
-  against the CPU; (b) their full-depth forwards at batch 64, timed; (c)
-  one `heads=6` sampler call under "pallas_fused" (K6 at head dim 128)
-  beside phase settings (b)'s under "pallas"."""
-  out = {"checks": {f"{v} {a} {p}": _hold_classifier(build, card, v, a, p)
-                    for v, a, p in CLS_CHECKS}}
-  out["timed"] = {f"{v} {a}": _time_classifier(build, card, v, a)
-                  for v, a in CLS_TIMED}
+  """(a) ViT-B/16 and ViT-H/14 @224, ViT-L/16@512 and ViT-H/14@518 at full
+  width, depth 2, on the card against the CPU; (b) their full-depth
+  forwards at batch 64, timed; (c) one `heads=6` sampler call under
+  "pallas_fused" (K6 at head dim 128) beside phase settings (b)'s under
+  "pallas"."""
+  out = {"checks": {f"{v}@{n} {a} {p}": _hold_classifier(build, card, v, a,
+                                                          p, n)
+                    for v, a, p, n in CLS_CHECKS}}
+  out["timed"], drawn = {}, {}
+  for v, a, n, forwards in CLS_TIMED:
+    if (v, n) not in drawn:  # both settings run the same weights
+      drawn = {(v, n): _classifier_params(_classifier_kw(
+          v, a, image_size=n), seed=9)}
+    out["timed"][f"{v}@{n} {a}"] = _time_classifier(
+        build, card, v, a, n, forwards, drawn[(v, n)])
+  del drawn
   out["sampler"] = phase_sample_call(build, card, "pallas_fused",
                                      tag="classifier", extra=",heads=6")
   print(f"[classifier] (c) heads=6 sampler under pallas_fused: "
@@ -4107,6 +4169,16 @@ def main():
                                      timed),
         check_attention_ablate(attn, card, width, heads, WIDE_SHAPES,
                                timed))})
+  # The long heads: "long_<heads>x<head dim>" in the kernels line.
+  for width, heads, shapes in LONG_ATTENTION:
+    more[f"long_{heads}x{width // heads}"] = {e["name"]: e for e in (
+        check_attention(attn, card, width, heads, shapes=shapes),
+        check_fused_mha(fb, card, width, heads, shapes),
+        check_attention_unpacked(attn, card, width, heads, shapes),
+        check_attention_ablate(attn, card, width, heads, shapes,
+                               timed_shapes=shapes))}
+  gc.collect()
+  torch.cuda.empty_cache()  # the plain versions' (B, H, L, L) scores
   check_refused_head_dims(attn, fb, build)
   for k in kernels:
     for key, entries in more.items():
@@ -4295,8 +4367,9 @@ def main():
 
   cs = classifier["sampler"]
   print("[result] classifier: " + "; ".join(
-      f"ViT-{key}@{CLS_SIZE} forward {qual_text(got['qual'])} at batch "
-      f"{CLS_BATCH}, peak {got['peak_gb']:.2f} GB, launches {got['launches']}"
+      f"ViT-{key} forward {qual_text(got['qual'])} at batch {CLS_BATCH}, "
+      f"{got['tflops']:.1f} TFLOP/s, peak {got['peak_gb']:.2f} GB, "
+      f"launches {got['launches']}"
       for key, got in classifier["timed"].items())
         + f"; heads=6 sampler under pallas_fused {cs['img_per_s']:.2f} img/s "
         f"({cs['launches'].get('fused_mha_fwd', 0)} K6 at head dim 128; "

@@ -31,9 +31,10 @@
 //
 // Design: each arm is a softmax policy of the max-shift attention core of
 // sm90_attention.cuh (wgmma products, K and V resident in 64-row TMA
-// tiles, a head one or two 64-column tiles, two passes; the scale is
-// f32(D**-0.5), as the TPU kernel rounds it), one change from its
-// production policy, so the tool measures that core. exp2 is the
+// tiles or, for long heads, streamed through a ring of them, each pass
+// walking the keys again; a head one or two 64-column tiles, two passes;
+// the scale is f32(D**-0.5), as the TPU kernel rounds it), one change from
+// its production policy, so the tool measures that core. exp2 is the
 // production instantiation itself (K6, K7); prod differs from it by expf
 // in the natural base; nosoftmax runs one pass and no softmax; nomm
 // issues no product and loads no K; bf16exp runs a pass for the max alone,
@@ -56,23 +57,28 @@ enum Arm {
   kNoMax = 6,
 };
 
-template <class P, int kGroups, int NT>
+template <class P, int kGroups, int NT, bool kStream>
 __global__ void __launch_bounds__(128 * kGroups, (NT == 1 ? 4 : 2) / kGroups)
 attention_ablate_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
                         const sm90::AttnArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  sm90::attention_heads<P, kGroups, NT>(smem_raw, &tm_q, &tm_k, &tm_v, a);
+  sm90::attention_heads<P, kGroups, NT, kStream>(smem_raw, &tm_q, &tm_k,
+                                                 &tm_v, a);
 }
 
 template <class P>
 int launch(const CUtensorMap (&tm)[3], const sm90::AttnArgs& args, int batch,
            int num_heads, cudaStream_t stream) {
-  using Kernel = decltype(&attention_ablate_kernel<P, 1, 1>);
-  const Kernel kernels[2][2] = {
-      {attention_ablate_kernel<P, 1, 1>, attention_ablate_kernel<P, 2, 1>},
-      {attention_ablate_kernel<P, 1, 2>, attention_ablate_kernel<P, 2, 2>}};
+  using Kernel = decltype(&attention_ablate_kernel<P, 1, 1, false>);
+  const Kernel kernels[2][3] = {
+      {attention_ablate_kernel<P, 1, 1, false>,
+       attention_ablate_kernel<P, 2, 1, false>,
+       attention_ablate_kernel<P, 2, 1, true>},
+      {attention_ablate_kernel<P, 1, 2, false>,
+       attention_ablate_kernel<P, 2, 2, false>,
+       attention_ablate_kernel<P, 2, 2, true>}};
   return sm90_host::launch_attention<P>(kernels, tm[0], tm[1], tm[2], args,
                                         batch, num_heads, stream);
 }
@@ -84,17 +90,18 @@ extern "C" int attention_ablate_max_head_dim() {
   return sm90::kAttnMaxHeadDim;
 }
 
-// Largest sequence length the kernel takes at a head dim (a head's K and V
-// stay resident in the 227 KB of shared memory a block can use).
+// Largest sequence length the kernel takes at a head dim: 4,096 at every
+// one (K and V stream past the resident limit).
 extern "C" int attention_ablate_max_len(int head_dim) {
   return sm90::attn_max_len(head_dim);
 }
 
 // q, k, v, o: (B, L, H*D) bf16, contiguous, 16-byte aligned; D a multiple
-// of 8 up to 128. scale = D**-0.5 in f32. variant: 0 prod, 1 nosoftmax, 2
-// nomm, 3 bf16exp, 4 exp2, 5 mulmask, 6 nomax. Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for an unknown variant, a head dim or a length
-// past the limits or a tensor map that cannot be encoded.
+// of 8 up to 128, L up to 4,096. scale = D**-0.5 in f32. variant: 0 prod,
+// 1 nosoftmax, 2 nomm, 3 bf16exp, 4 exp2, 5 mulmask, 6 nomax. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an unknown variant, a
+// head dim or a length past the limits or a tensor map that cannot be
+// encoded.
 extern "C" int attention_ablate_fwd(const void* q, const void* k,
                                     const void* v, void* o, int batch,
                                     int seq_len, int num_heads, int head_dim,

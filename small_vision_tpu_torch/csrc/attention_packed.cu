@@ -73,6 +73,34 @@
 // (193 KB at L = 260: one CTA of two warpgroups an SM) and O's accumulator
 // (64 more registers a thread, so such a CTA takes up to 255); the
 // products are the same per head-row, and the exps, B*H*L^2, halve with H.
+//
+// Long heads: K and V stream. Resident blocks fit up to L = 832 at D <= 64
+// and 384 above (13 and 6 blocks), but past 320 at D <= 64 only one CTA an
+// SM. Past 320 and 384 (ViT-B/16@384: L = 576; ViT-L/16@512: 1,024 or
+// 1,025 at D = 64; ViT-H/14@518: 1,369 at D = 80) the kernel's kStream
+// instantiation keeps a ring of kRingStages K and V stages instead (5 of
+// 16 KB at one tile a head, two CTAs an SM; 6 of 32 KB at two, one CTA),
+// each with a full and an empty mbarrier (sm90.cuh's Ring). The grid
+// becomes (query-tile pairs, H, B): a CTA takes two query tiles, one a
+// warpgroup, and its two warpgroups walk the same key blocks in the same
+// order, so one ring serves both: block j goes to stage j % kRingStages,
+// and a stage is refilled once every consumer warp has released it, the
+// ring kept kRingStages - 2 blocks ahead of the one waited for (each wait
+// first issues that block; every consumer thread runs the same straight
+// code and thread 0 alone copies, predicated: a thread-dependent branch
+// inside the wgmma pipeline made ptxas serialise the products). Each
+// warpgroup takes exactly one tile: when the tiles are odd in number (L =
+// 1,025 has 17), the last CTA's second warpgroup recomputes the last tile
+// and stores nothing, releasing the stages as the first does (a trip
+// count that differs between the warpgroups made ptxas serialise the
+// core's products). The CTAs of one head
+// are neighbours in the grid, so K and V come from device memory about
+// once and from L2 once a tile pair. The arithmetic, the order of the sums
+// and the rounding are the resident kernel's, so every length gives the
+// function of the plain version, and the lengths that were resident give
+// the same bits either way. Without a max shift one pass stays one pass:
+// nothing is rescaled. The row sum of up to 4,096 terms of at most 2^80
+// is below 2^92, far inside f32. L goes up to 4,096, K4's limit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,25 +111,46 @@
 namespace {
 
 constexpr int kMaxHeadDim = 128;
+constexpr int kMaxLen = 4096;
 constexpr int kTile = sm90::kTileRows;
 constexpr int kTileBytes = sm90::kTileBytes;
 // Warpgroups a CTA: two, or one for heads of at most kShortTiles tiles.
 constexpr int kShortTiles = 3;
 constexpr float kClamp = 80.f;
 constexpr int kSmemLimit = 232448;
+constexpr int kSmemPerSM = 233472;  // blocks an SM holds: 1 KB each reserved
 
-// 1 KB to align the tiles; nkb K and nkb V blocks and one Q tile a
-// warpgroup, each of nt 64-column tiles; barriers: one a key block, one a
-// Q tile.
-__host__ __device__ constexpr size_t smem_bytes(int nkb, int groups,
-                                                int nt) {
-  return 1024 + static_cast<size_t>(2 * nkb + groups) * nt * kTileBytes +
-         8 * static_cast<size_t>(nkb + groups);
+// Stages of the streamed ring: two CTAs an SM at one tile a head, one at
+// two (see kernel's launch bounds).
+template <int NT>
+constexpr int kRingStages = NT == 1 ? 5 : 6;
+
+// 1 KB to align the tiles; `stages` K and `stages` V blocks and one Q tile
+// a warpgroup, each of nt 64-column tiles; barriers: one a stage (two when
+// streamed: full and empty), one a Q tile.
+__host__ __device__ constexpr size_t smem_bytes(int stages, int groups,
+                                                int nt, bool stream = false) {
+  return 1024 + static_cast<size_t>(2 * stages + groups) * nt * kTileBytes +
+         8 * static_cast<size_t>((stream ? 2 : 1) * stages + groups);
+}
+static_assert(2 * (smem_bytes(kRingStages<1>, 2, 1, true) + 1024) <=
+                  kSmemPerSM,
+              "two streamed CTAs an SM at one tile a head");
+static_assert(smem_bytes(kRingStages<2>, 2, 2, true) <= kSmemLimit,
+              "one streamed CTA an SM at two tiles a head");
+
+// Whether a head of nkb key blocks stays resident: while its CTA fits an
+// SM as often as the streamed one (two at one tile a head, L <= 320; one
+// at two, L <= 384). Past that, resident heads ran one CTA an SM where the
+// streamed kernel runs two, and read slower (PERF.md).
+constexpr bool resident(int nkb, int nt) {
+  return (nt == 1 ? 2 : 1) * (smem_bytes(nkb, 2, nt) + 1024) <= kSmemPerSM;
 }
 
 // One tile a head: 128 registers a thread either way, two CTAs of two
-// warpgroups, or four of one, an SM. Two tiles: half as many CTAs.
-template <int kGroups, int NT>
+// warpgroups, or four of one, an SM. Two tiles: half as many CTAs. kStream
+// (two warpgroups only): K and V through the ring, grid (tile pairs, H, B).
+template <int kGroups, int NT, bool kStream>
 __global__ void __launch_bounds__(128 * kGroups, (NT == 1 ? 4 : 2) / kGroups)
 attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -109,21 +158,36 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                             __nv_bfloat16* __restrict__ o, int seq_len,
                             int num_heads, int head_dim, float scale_log2) {
   constexpr int kHeadBytes = NT * kTileBytes;
+  constexpr int kRing = kRingStages<NT>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_tiles(smem_raw);
   const int nkb = (seq_len + kTile - 1) / kTile;
   const int nqt = nkb;
-  uint8_t* k_s = smem;                    // block j at j * NT * 8 KB
-  uint8_t* v_s = k_s + nkb * kHeadBytes;
-  uint8_t* q_s = v_s + nkb * kHeadBytes;  // warpgroup w's at w * NT * 8 KB
+  // Resident: block j of K and V in stage j, each loaded once. Streamed:
+  // in stage j % kRing.
+  const int stages = kStream ? kRing : nkb;
+  uint8_t* k_s = smem;                       // stage s at s * NT * 8 KB
+  uint8_t* v_s = k_s + stages * kHeadBytes;
+  uint8_t* q_s = v_s + stages * kHeadBytes;  // warpgroup w's at w * NT * 8 KB
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kHeadBytes);
-  uint64_t* q_full = kv_full + nkb;
+  uint64_t* q_full = kv_full + stages;
+  const sm90::Ring<kRing> ring{kv_full, q_full + kGroups};  // streamed only
 
-  const int head = blockIdx.x;
-  const int batch = blockIdx.y;
+  const int head = kStream ? blockIdx.y : blockIdx.x;
+  const int batch = kStream ? blockIdx.z : blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  // Resident: CTA (head, batch), warpgroup w walks tiles w, w + kGroups,
+  // ... Streamed: CTA (x, head, batch), warpgroup w takes tile kGroups x +
+  // w, exactly one, so that both run the same count of products (see the
+  // ring in sm90.cuh); when the tiles are odd in number, the last CTA's
+  // second warpgroup recomputes the last tile, releases the stages as the
+  // first does, and stores no row.
+  const int t_mine =
+      kStream ? min(blockIdx.x * kGroups + warp / 4, nqt - 1) : warp / 4;
+  const int rows =
+      kStream && blockIdx.x * kGroups + warp / 4 >= nqt ? 0 : seq_len;
 
   // A head's NT tiles of 64 rows from `row`, into dst (zeros past D, L).
   auto load_head = [&](uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
@@ -134,19 +198,43 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                         batch);
     }
   };
+  // Key block j's K and V into stage s (resident, by the calling thread).
+  auto load_kv = [&](int j, int s, uint64_t* bar) {
+    sm90::mbar_arrive_expect_tx(bar, 2 * kHeadBytes);
+    load_head(k_s + s * kHeadBytes, &tm_k, bar, j * kTile);
+    load_head(v_s + s * kHeadBytes, &tm_v, bar, j * kTile);
+  };
+  // Streamed: the same where `issue` holds; every consumer thread calls it
+  // and thread 0 alone copies, predicated (see sm90::Ring).
+  auto ring_load = [&](int j, int s, uint64_t* bar, bool issue) {
+    const bool copy = issue && tid == 0;
+    sm90::mbar_arrive_expect_tx_if(bar, 2 * kHeadBytes, copy);
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      sm90::tma_load_4d_if(k_s + s * kHeadBytes + c * kTileBytes, &tm_k, bar,
+                           c * 64, head, j * kTile, batch, copy);
+      sm90::tma_load_4d_if(v_s + s * kHeadBytes + c * kTileBytes, &tm_v, bar,
+                           c * 64, head, j * kTile, batch, copy);
+    }
+  };
   if (tid == 0) {
-    for (int j = 0; j < nkb; ++j) sm90::mbar_init(&kv_full[j], 1);
+    if constexpr (kStream) {
+      ring.init(4 * kGroups);
+    } else {
+      for (int j = 0; j < nkb; ++j) sm90::mbar_init(&kv_full[j], 1);
+    }
     for (int w = 0; w < kGroups; ++w) sm90::mbar_init(&q_full[w], 1);
     sm90::fence_barrier_init();
     // The first Q tiles, then the key blocks in order.
-    for (int w = 0; w < kGroups && w < nqt; ++w) {
+    for (int w = 0; w < kGroups && (kStream || w < nqt); ++w) {
+      const int t = kStream ? min(blockIdx.x * kGroups + w, nqt - 1) : w;
       sm90::mbar_arrive_expect_tx(&q_full[w], kHeadBytes);
-      load_head(q_s + w * kHeadBytes, &tm_q, &q_full[w], w * kTile);
+      load_head(q_s + w * kHeadBytes, &tm_q, &q_full[w], t * kTile);
     }
-    for (int j = 0; j < nkb; ++j) {
-      sm90::mbar_arrive_expect_tx(&kv_full[j], 2 * kHeadBytes);
-      load_head(k_s + j * kHeadBytes, &tm_k, &kv_full[j], j * kTile);
-      load_head(v_s + j * kHeadBytes, &tm_v, &kv_full[j], j * kTile);
+    if constexpr (kStream) {
+      ring.prime(nkb, ring_load);
+    } else {
+      for (int j = 0; j < nkb; ++j) load_kv(j, j, &kv_full[j]);
     }
   }
   __syncthreads();
@@ -158,20 +246,30 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   __nv_bfloat16* out = o + static_cast<size_t>(batch) * seq_len * tok_stride +
                        head * head_dim;
   uint8_t* my_q = q_s + wg * kHeadBytes;
+  auto stage = [&](int j) { return kStream ? ring.stage(j) : j; };
+  // Key block j's K and V have landed (streamed: the ring's wait, which
+  // first issues block j + kAhead).
+  auto wait_kv = [&](int j) {
+    if constexpr (kStream) {
+      ring.wait(j, nkb, ring_load);
+    } else {
+      sm90::mbar_wait(&kv_full[j], 0);
+    }
+  };
   // S = Q K_j^T over the head's NT tiles of columns.
   auto scores = [&](float (&sacc)[32], int j) {
+    uint8_t* k_j = k_s + stage(j) * kHeadBytes;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
       sm90::gemm_nt(sacc, sm90::desc_k_major(my_q + c * kTileBytes),
-                    sm90::desc_k_major(k_s + j * kHeadBytes + c * kTileBytes),
-                    c > 0);
+                    sm90::desc_k_major(k_j + c * kTileBytes), c > 0);
     }
   };
 
   // Once a tile's products are done, the warpgroup's first thread starts
   // the copy of its next tile into the same buffer.
   auto refill_q = [&](int t) {
-    if (t + kGroups >= nqt) return;
+    if (kStream || t + kGroups >= nqt) return;
     if (wg == 0) {
       sm90::named_barrier<1>(128);
     } else {
@@ -183,13 +281,14 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   };
 
-  for (int t = wg, use = 0; t < nqt; t += kGroups, ++use) {
+  for (int t = t_mine, use = 0; kStream ? use < 1 : t < nqt;
+       t += kGroups, ++use) {
     sm90::mbar_wait(&q_full[wg], use & 1);
     float sacc[32], oacc[NT][32];
     uint32_t pa[16];
     float sum_lo = 0.f, sum_hi = 0.f;  // rows g and g + 8, this lane's keys
 
-    sm90::mbar_wait(&kv_full[0], 0);
+    wait_kv(0);
     sm90::wgmma_fence();
     scores(sacc, 0);
     sm90::wgmma_commit();
@@ -218,12 +317,12 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int c = 0; c < NT; ++c) {
         sm90::gemm_rn(oacc[c], pa,
-                      sm90::desc_mn_major(v_s + j * kHeadBytes +
+                      sm90::desc_mn_major(v_s + stage(j) * kHeadBytes +
                                           c * kTileBytes),
                       j > 0);
       }
       if (j + 1 < nkb) {
-        sm90::mbar_wait(&kv_full[j + 1], 0);
+        wait_kv(j + 1);
         scores(sacc, j + 1);
       }
       sm90::wgmma_commit();
@@ -231,6 +330,8 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int c = 0; c < NT; ++c) sm90::fence(oacc[c]);
       sm90::fence(sacc);
+      // Block j's K and V are read: this warp releases its stage.
+      if constexpr (kStream) ring.release(j, lane);
     }
 
     refill_q(t);
@@ -249,11 +350,11 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int nt = 0; nt < 8; ++nt) {
         const int col = c * 64 + 8 * nt;  // padded columns are dropped
         if (col >= head_dim) break;
-        if (row_lo < seq_len) {
+        if (row_lo < rows) {
           *reinterpret_cast<uint32_t*>(o_lo + col) = sm90::pack_bf16(
               oacc[c][4 * nt] / sum_lo, oacc[c][4 * nt + 1] / sum_lo);
         }
-        if (row_hi < seq_len) {
+        if (row_hi < rows) {
           *reinterpret_cast<uint32_t*>(o_hi + col) = sm90::pack_bf16(
               oacc[c][4 * nt + 2] / sum_hi, oacc[c][4 * nt + 3] / sum_hi);
         }
@@ -262,19 +363,23 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int kGroups, int NT>
+template <int kGroups, int NT, bool kStream>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, void* o, int batch, int seq_len,
                    int num_heads, int head_dim, float scale_log2,
                    cudaStream_t s) {
   const int nkb = (seq_len + kTile - 1) / kTile;
-  const size_t smem = smem_bytes(nkb, kGroups, NT);
+  const size_t smem = kStream
+                          ? smem_bytes(kRingStages<NT>, kGroups, NT, true)
+                          : smem_bytes(nkb, kGroups, NT);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_packed_fwd_kernel<kGroups, NT>,
+      attention_packed_fwd_kernel<kGroups, NT, kStream>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(num_heads, batch);
-  attention_packed_fwd_kernel<kGroups, NT>
+  const dim3 grid = kStream ? dim3((nkb + kGroups - 1) / kGroups, num_heads,
+                                   batch)
+                            : dim3(num_heads, batch);
+  attention_packed_fwd_kernel<kGroups, NT, kStream>
       <<<grid, 128 * kGroups, smem, s>>>(tq, tk, tv,
                                          static_cast<__nv_bfloat16*>(o),
                                          seq_len, num_heads, head_dim,
@@ -282,30 +387,30 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Largest head dim the kernel takes; any multiple of 8 up to it.
-extern "C" int attention_packed_max_head_dim() { return kMaxHeadDim; }
-
-// Largest sequence length the kernel takes at a head dim (its K and V stay
-// resident in the 227 KB of shared memory a block can use).
-extern "C" int attention_packed_max_len(int head_dim) {
-  const int nt = head_dim > 64 ? 2 : 1;
-  int nkb = 1;
-  while (smem_bytes(nkb + 1, 2, nt) <= kSmemLimit) ++nkb;
-  return nkb * kTile;
+// The resident kernel where a head's K and V fit (one warpgroup a CTA for
+// short heads, as before), else, or when `stream`, the streamed one.
+template <int NT>
+cudaError_t launch_nt(const CUtensorMap& tq, const CUtensorMap& tk,
+                      const CUtensorMap& tv, void* o, int batch, int seq_len,
+                      int num_heads, int head_dim, float scale_log2,
+                      bool stream, cudaStream_t s) {
+  const int nkb = (seq_len + kTile - 1) / kTile;
+  if (stream || !resident(nkb, NT)) {
+    return launch<2, NT, true>(tq, tk, tv, o, batch, seq_len, num_heads,
+                               head_dim, scale_log2, s);
+  }
+  return nkb <= kShortTiles
+             ? launch<1, NT, false>(tq, tk, tv, o, batch, seq_len, num_heads,
+                                    head_dim, scale_log2, s)
+             : launch<2, NT, false>(tq, tk, tv, o, batch, seq_len, num_heads,
+                                    head_dim, scale_log2, s);
 }
 
-// q, k, v, o: (B, L, H*head_dim) bf16, contiguous, 16-byte aligned;
-// head_dim a multiple of 8 up to 128. scale_log2 = head_dim**-0.5 *
-// log2(e) in f32. Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// a head dim or length past the limits or a tensor map the driver refuses.
-extern "C" int attention_packed_fwd(const void* q, const void* k,
-                                    const void* v, void* o, int batch,
-                                    int seq_len, int num_heads, int head_dim,
-                                    float scale_log2, void* stream) {
+int run(const void* q, const void* k, const void* v, void* o, int batch,
+        int seq_len, int num_heads, int head_dim, float scale_log2,
+        bool stream, void* stream_ptr) {
   if (head_dim < 8 || head_dim > kMaxHeadDim || head_dim % 8 != 0 ||
-      seq_len > attention_packed_max_len(head_dim)) {
+      seq_len > kMaxLen) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap tq, tk, tv;
@@ -317,20 +422,45 @@ extern "C" int attention_packed_fwd(const void* q, const void* k,
                                     head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nkb = (seq_len + kTile - 1) / kTile;
-  const bool one_group = nkb <= kShortTiles;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (head_dim <= 64) {
-    err = one_group ? launch<1, 1>(tq, tk, tv, o, batch, seq_len, num_heads,
-                                   head_dim, scale_log2, s)
-                    : launch<2, 1>(tq, tk, tv, o, batch, seq_len, num_heads,
-                                   head_dim, scale_log2, s);
-  } else {
-    err = one_group ? launch<1, 2>(tq, tk, tv, o, batch, seq_len, num_heads,
-                                   head_dim, scale_log2, s)
-                    : launch<2, 2>(tq, tk, tv, o, batch, seq_len, num_heads,
-                                   head_dim, scale_log2, s);
-  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  const cudaError_t err =
+      head_dim <= 64
+          ? launch_nt<1>(tq, tk, tv, o, batch, seq_len, num_heads, head_dim,
+                         scale_log2, stream, s)
+          : launch_nt<2>(tq, tk, tv, o, batch, seq_len, num_heads, head_dim,
+                         scale_log2, stream, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Largest head dim the kernel takes; any multiple of 8 up to it.
+extern "C" int attention_packed_max_head_dim() { return kMaxHeadDim; }
+
+// Largest sequence length the kernel takes at a head dim: 4,096 at every
+// one (K and V stream past the resident limit; K4 takes as much).
+extern "C" int attention_packed_max_len(int) { return kMaxLen; }
+
+// q, k, v, o: (B, L, H*head_dim) bf16, contiguous, 16-byte aligned;
+// head_dim a multiple of 8 up to 128, L up to 4,096. scale_log2 =
+// head_dim**-0.5 * log2(e) in f32. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a head dim or length past the limits or a
+// tensor map that cannot be encoded.
+extern "C" int attention_packed_fwd(const void* q, const void* k,
+                                    const void* v, void* o, int batch,
+                                    int seq_len, int num_heads, int head_dim,
+                                    float scale_log2, void* stream) {
+  return run(q, k, v, o, batch, seq_len, num_heads, head_dim, scale_log2,
+             false, stream);
+}
+
+// attention_packed_fwd with K and V streamed at every length, also where
+// they would stay resident (for tests and measurement: the same bits).
+extern "C" int attention_packed_fwd_streamed(const void* q, const void* k,
+                                             const void* v, void* o,
+                                             int batch, int seq_len,
+                                             int num_heads, int head_dim,
+                                             float scale_log2, void* stream) {
+  return run(q, k, v, o, batch, seq_len, num_heads, head_dim, scale_log2,
+             true, stream);
 }

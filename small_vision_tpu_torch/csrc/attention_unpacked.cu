@@ -22,25 +22,26 @@
 // each over q, k and v, viewed as (D, H, L, B) and bounded at D and L) and
 // writes o with row stride H*D; the TPU wrapper's transposes and pads have
 // no counterpart. It runs the max-shift attention core of
-// sm90_attention.cuh (wgmma products, K and V resident in TMA tiles, a
-// head one or two 64-column tiles) under its production softmax, the one
-// K6's attention stage runs: exp becomes exp2 of the log2(e)-scaled score,
-// the same function within two bf16 ulps of the output. The scale is
-// f32(D**-0.5), as the TPU kernel rounds it.
+// sm90_attention.cuh (wgmma products, K and V resident in TMA tiles or,
+// past 320 keys at D <= 64 and 384 above, streamed through a ring of them,
+// up to L = 4,096; a head one or two 64-column tiles) under its production
+// softmax, the one K6's attention stage runs: exp becomes exp2 of the
+// log2(e)-scaled score, the same function within two bf16 ulps of the
+// output. The scale is f32(D**-0.5), as the TPU kernel rounds it.
 
 #include "sm90_attention.cuh"
 
 namespace {
 
-template <int kGroups, int NT>
+template <int kGroups, int NT, bool kStream>
 __global__ void __launch_bounds__(128 * kGroups, (NT == 1 ? 4 : 2) / kGroups)
 attention_unpacked_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_k,
                               const __grid_constant__ CUtensorMap tm_v,
                               const sm90::AttnArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  sm90::attention_heads<sm90::SoftmaxExp2, kGroups, NT>(smem_raw, &tm_q,
-                                                        &tm_k, &tm_v, a);
+  sm90::attention_heads<sm90::SoftmaxExp2, kGroups, NT, kStream>(
+      smem_raw, &tm_q, &tm_k, &tm_v, a);
 }
 
 }  // namespace
@@ -50,21 +51,17 @@ extern "C" int attention_unpacked_max_head_dim() {
   return sm90::kAttnMaxHeadDim;
 }
 
-// Largest sequence length the kernel takes at a head dim (a head's K and V
-// stay resident in the 227 KB of shared memory a block can use).
+// Largest sequence length the kernel takes at a head dim: 4,096 at every
+// one (K and V stream past the resident limit; K8 takes as much).
 extern "C" int attention_unpacked_max_len(int head_dim) {
   return sm90::attn_max_len(head_dim);
 }
 
-// q, k, v, o: [B, L, H, D] bf16, contiguous, 16-byte aligned; D a
-// multiple of 8 up to 128. scale = D**-0.5 in f32. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a head dim or a length
-// past the limits or a tensor map that cannot be encoded.
-extern "C" int attention_unpacked_fwd(const void* q, const void* k,
-                                      const void* v, void* o, int batch,
-                                      int seq_len, int num_heads,
-                                      int head_dim, float scale,
-                                      void* stream) {
+namespace {
+
+int run(const void* q, const void* k, const void* v, void* o, int batch,
+        int seq_len, int num_heads, int head_dim, float scale, bool stream_kv,
+        void* stream) {
   if (!sm90_host::valid_head_dim(head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -79,13 +76,41 @@ extern "C" int attention_unpacked_fwd(const void* q, const void* k,
   }
   const sm90::AttnArgs args{0, 0, 0, static_cast<__nv_bfloat16*>(o),
                             num_heads * head_dim, seq_len, head_dim, scale};
-  using Kernel = decltype(&attention_unpacked_fwd_kernel<1, 1>);
-  const Kernel kernels[2][2] = {
-      {attention_unpacked_fwd_kernel<1, 1>,
-       attention_unpacked_fwd_kernel<2, 1>},
-      {attention_unpacked_fwd_kernel<1, 2>,
-       attention_unpacked_fwd_kernel<2, 2>}};
+  using Kernel = decltype(&attention_unpacked_fwd_kernel<1, 1, false>);
+  const Kernel kernels[2][3] = {
+      {attention_unpacked_fwd_kernel<1, 1, false>,
+       attention_unpacked_fwd_kernel<2, 1, false>,
+       attention_unpacked_fwd_kernel<2, 1, true>},
+      {attention_unpacked_fwd_kernel<1, 2, false>,
+       attention_unpacked_fwd_kernel<2, 2, false>,
+       attention_unpacked_fwd_kernel<2, 2, true>}};
   return sm90_host::launch_attention<sm90::SoftmaxExp2>(
       kernels, tq, tk, tv, args, batch, num_heads,
-      static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream), stream_kv);
+}
+
+}  // namespace
+
+// q, k, v, o: [B, L, H, D] bf16, contiguous, 16-byte aligned; D a
+// multiple of 8 up to 128, L up to 4,096. scale = D**-0.5 in f32. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a head dim or a length
+// past the limits or a tensor map that cannot be encoded.
+extern "C" int attention_unpacked_fwd(const void* q, const void* k,
+                                      const void* v, void* o, int batch,
+                                      int seq_len, int num_heads,
+                                      int head_dim, float scale,
+                                      void* stream) {
+  return run(q, k, v, o, batch, seq_len, num_heads, head_dim, scale, false,
+             stream);
+}
+
+// attention_unpacked_fwd with K and V streamed at every length, also where
+// they would stay resident (for tests and measurement: the same bits).
+extern "C" int attention_unpacked_fwd_streamed(const void* q, const void* k,
+                                               const void* v, void* o,
+                                               int batch, int seq_len,
+                                               int num_heads, int head_dim,
+                                               float scale, void* stream) {
+  return run(q, k, v, o, batch, seq_len, num_heads, head_dim, scale, true,
+             stream);
 }

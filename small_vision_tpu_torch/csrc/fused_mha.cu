@@ -74,15 +74,15 @@ fused_mha_proj_kernel(const __grid_constant__ CUtensorMap tm_a,
 
 // ---- (b) the attention core: sm90_attention.cuh's production softmax ---
 
-template <int kGroups, int NT>
+template <int kGroups, int NT, bool kStream>
 __global__ void __launch_bounds__(128 * kGroups, (NT == 1 ? 4 : 2) / kGroups)
 fused_mha_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const sm90::AttnArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  sm90::attention_heads<sm90::SoftmaxExp2, kGroups, NT>(smem_raw, &tm_q,
-                                                        &tm_k, &tm_v, a);
+  sm90::attention_heads<sm90::SoftmaxExp2, kGroups, NT, kStream>(
+      smem_raw, &tm_q, &tm_k, &tm_v, a);
 }
 
 }  // namespace
@@ -90,8 +90,8 @@ fused_mha_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
 // Largest head dim the attention takes; any multiple of 8 up to it.
 extern "C" int fused_mha_max_head_dim() { return sm90::kAttnMaxHeadDim; }
 
-// Largest sequence length the attention takes at a head dim (a head's K
-// and V stay resident in the 227 KB of shared memory a block can use).
+// Largest sequence length the attention takes at a head dim: 4,096 at
+// every one (K and V stream past the resident limit).
 extern "C" int fused_mha_max_len(int head_dim) {
   return sm90::attn_max_len(head_dim);
 }
@@ -140,7 +140,8 @@ extern "C" int fused_mha_proj(const void* a, const void* w0, const void* w1,
 }
 
 // (b): qkv (B, L, 3 H*D) bf16, q, k, v side by side; heads (B, L, H*D)
-// bf16 out; D a multiple of 8 up to 128; scale = D**-0.5 in f32. Returns
+// bf16 out; D a multiple of 8 up to 128, L up to 4,096; scale = D**-0.5
+// in f32. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a head dim or a length
 // past the limits or a tensor map that cannot be encoded.
 extern "C" int fused_mha_attention(const void* qkv, void* heads, int batch,
@@ -157,10 +158,12 @@ extern "C" int fused_mha_attention(const void* qkv, void* heads, int batch,
   const sm90::AttnArgs args{0, num_heads, 2 * num_heads,
                             static_cast<__nv_bfloat16*>(heads),
                             num_heads * head_dim, seq_len, head_dim, scale};
-  using Kernel = decltype(&fused_mha_attn_kernel<1, 1>);
-  const Kernel kernels[2][2] = {
-      {fused_mha_attn_kernel<1, 1>, fused_mha_attn_kernel<2, 1>},
-      {fused_mha_attn_kernel<1, 2>, fused_mha_attn_kernel<2, 2>}};
+  using Kernel = decltype(&fused_mha_attn_kernel<1, 1, false>);
+  const Kernel kernels[2][3] = {
+      {fused_mha_attn_kernel<1, 1, false>, fused_mha_attn_kernel<2, 1, false>,
+       fused_mha_attn_kernel<2, 1, true>},
+      {fused_mha_attn_kernel<1, 2, false>, fused_mha_attn_kernel<2, 2, false>,
+       fused_mha_attn_kernel<2, 2, true>}};
   return sm90_host::launch_attention<sm90::SoftmaxExp2>(
       kernels, tm, tm, tm, args, batch, num_heads,
       static_cast<cudaStream_t>(stream));
@@ -170,7 +173,8 @@ extern "C" int fused_mha_attention(const void* qkv, void* heads, int batch,
 // (scratch): (B, L, 3 H*D) bf16; wq, wk, wv: (width, H*D) and wo
 // (H*D, width) bf16 row-major (in, out); bq, bk, bv: (H*D,) and bo
 // (width,) bf16; all contiguous and 16-byte aligned; width and H*D
-// multiples of 64, D a multiple of 8 up to 128. scale = D**-0.5 in f32.
+// multiples of 64, D a multiple of 8 up to 128, L up to 4,096. scale =
+// D**-0.5 in f32.
 // The three launches: (a) q, k, v; (b) the heads; (a) the out-projection.
 // Returns the first non-zero status.
 extern "C" int fused_mha_fwd(const void* x, const void* wq, const void* bq,

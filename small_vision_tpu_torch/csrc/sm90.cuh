@@ -95,6 +95,87 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_arrive / mbar_arrive_expect_tx where `pred` holds, predicated in
+// the instruction (no branch).
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx_if(uint64_t* bar,
+                                                         uint32_t bytes,
+                                                         bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(bytes), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// A ring of kStages shared-memory stages that its consumer threads fill in
+// order by TMA and release: load n goes to stage n % kStages. full[s]
+// takes one arrival, the copying thread's with the bytes it expects, and
+// completes its phase n / kStages when load n has landed; empty[s] takes
+// one arrival from each consumer warp once it is done with the stage, and
+// completes that phase when all have. A stage is refilled only after its
+// previous load is released, so neither barrier runs two phases ahead of a
+// waiter and one parity bit tells the phases apart.
+//
+// Every consumer thread waits for every use in order, and each wait first
+// issues the load kAhead = kStages - 2 uses further (a consumer holds at
+// most its last use and the one it waits for, so that load's stage is
+// freed by releases its own warp has made). The code is straight: the
+// load's copies are predicated in their instructions (the `_if` forms) on
+// the copying thread and on the load's existence, and the first kStages
+// loads wait on empty barriers that are fresh (parity 1 passes at once).
+// A thread-dependent branch inside a wgmma pipeline makes ptxas serialise
+// the products (C7520).
+template <int kStages>
+struct Ring {
+  static constexpr int kAhead = kStages - 2;
+  uint64_t* full;
+  uint64_t* empty;
+
+  __device__ void init(int consumer_warps) const {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumer_warps);
+    }
+  }
+  __device__ int stage(int n) const { return n % kStages; }
+  // Loads 0 .. kAhead - 1, before any wait: load(m, stage, &full[stage],
+  // issue) with issue = whether load m exists (below `total`).
+  template <class Load>
+  __device__ void prime(int total, Load&& load) const {
+#pragma unroll
+    for (int m = 0; m < kAhead; ++m) load(m, m, &full[m], m < total);
+  }
+  // Use n: issues load n + kAhead once its stage is free, then waits for
+  // use n to land.
+  template <class Load>
+  __device__ void wait(int n, int total, Load&& load) const {
+    const int m = n + kAhead;
+    const int s = m % kStages;
+    // Phase m / kStages - 1 of empty[s]: the release of load m - kStages.
+    mbar_wait(&empty[s], ((m / kStages) + 1) & 1);
+    load(m, s, &full[s], m < total);
+    mbar_wait(&full[n % kStages], (n / kStages) & 1);
+  }
+  // This warp is done with use n (its lane 0 arrives).
+  __device__ void release(int n, int lane) const {
+    mbar_arrive_if(&empty[n % kStages], lane == 0);
+  }
+};
+
 // ---- TMA -----------------------------------------------------------------
 
 // One box of a 3-D tensor map into shared memory; completion is counted on
@@ -117,6 +198,23 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// tma_load_4d where `pred` holds, predicated in the instruction.
+__device__ __forceinline__ void tma_load_4d_if(void* dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int c0, int c1,
+                                               int c2, int c3, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %7, 0;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      "}\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(static_cast<int>(pred))
       : "memory");
 }
 

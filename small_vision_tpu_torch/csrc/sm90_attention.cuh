@@ -24,6 +24,31 @@
 // a thread, and at 128 a thread ptxas spilled and serialised the
 // products). No atomics and no split-K: two launches give the same bits.
 //
+// Long heads: K and V stream. Past attn_resident_len (320 at D <= 64, 384
+// above) the kernel's kStream instantiation runs instead: grid (query-tile
+// pairs, heads, batch), a CTA's two warpgroups one tile each, and the key
+// blocks through a ring of attn_ring_stages K and V stages (sm90.cuh's
+// Ring: a full and an empty mbarrier a stage; 5 stages of 16 KB at one
+// tile a head, two CTAs an SM, 6 of 32 KB at two). Every pass walks the
+// key blocks again through the ring in the same order for both
+// warpgroups: the passes before the last load K alone, the last K and V
+// (nomm: V alone; nosoftmax has only the last). A stage is refilled once
+// every consumer warp has released it, the ring kept attn_ring_stages - 2
+// uses ahead of the one waited for (each wait first issues that use;
+// every consumer thread runs the same straight code and thread 0 alone
+// copies, predicated: a thread-dependent branch inside the wgmma pipeline
+// made ptxas serialise the products). When the tiles are odd in number,
+// the last CTA's second warpgroup recomputes the last tile and stores
+// nothing: it releases the stages as the first does, and every warpgroup
+// runs one tile (see attention_heads). p is still formed with the final
+// max and sum of the row, then rounded: the function of _mha_kernel and
+// _attn_kernel, which hold the whole row, not a one-pass online softmax
+// that rescales O. So the streamed kernel gives the resident one's bits,
+// and every length up to kAttnMaxLen (4,096, K4's and K8's) the plain
+// version's function. A pair's CTAs are neighbours in the grid, so a
+// head's K and V come from device memory about once and from L2 once a
+// pass a pair.
+//
 // Head dims: any multiple of 8 up to 128, as K3 (attention_packed.cu). A
 // head is NT = 1 (D <= 64) or 2 (64 < D <= 128) tiles of 64 columns, each
 // a TMA box of the (D, heads, L, B) map, so columns at or past D arrive as
@@ -49,31 +74,52 @@ namespace sm90 {
 
 constexpr int kAttnShortTiles = 3;  // one warpgroup for heads this short
 constexpr int kAttnMaxHeadDim = 128;
+constexpr int kAttnMaxLen = 4096;  // every head dim; K4's and K8's limit
 constexpr int kSmemPerBlock = 232448;
+constexpr int kSmemPerSM = 233472;  // blocks an SM holds: 1 KB each reserved
 
 // 64-column tiles a head of `head_dim` columns takes.
 __host__ __device__ constexpr int attn_tiles(int head_dim) {
   return head_dim > 64 ? 2 : 1;
 }
 
-// 1 KB to align the tiles; nkb K and nkb V blocks and one Q tile a
-// warpgroup, each of nt 64-column tiles; barriers: one a K block, one a V
-// block, one a Q tile.
-__host__ __device__ constexpr size_t attn_smem_bytes(int nkb, int groups,
+// 1 KB to align the tiles; `stages` K and `stages` V blocks and one Q tile
+// a warpgroup, each of nt 64-column tiles; barriers: two a stage (resident:
+// a K and a V block's; streamed: the ring's full and empty), one a Q tile.
+__host__ __device__ constexpr size_t attn_smem_bytes(int stages, int groups,
                                                      int nt) {
-  return 1024 + static_cast<size_t>(2 * nkb + groups) * nt * kTileBytes +
-         8 * static_cast<size_t>(2 * nkb + groups);
+  return 1024 + static_cast<size_t>(2 * stages + groups) * nt * kTileBytes +
+         8 * static_cast<size_t>(2 * stages + groups);
 }
 
-// Largest sequence length the core takes at a head dim: a head's K and V
-// stay resident in the 227 KB of shared memory a block can use (832 at
-// D <= 64, 384 at 64 < D <= 128).
-__host__ __device__ constexpr int attn_max_len(int head_dim) {
+// Stages of the streamed ring: two CTAs an SM at one tile a head, one at
+// two (the kernels' launch bounds).
+__host__ __device__ constexpr int attn_ring_stages(int nt) {
+  return nt == 1 ? 5 : 6;
+}
+static_assert(2 * (attn_smem_bytes(attn_ring_stages(1), 2, 1) + 1024) <=
+                  kSmemPerSM,
+              "two streamed CTAs an SM at one tile a head");
+static_assert(attn_smem_bytes(attn_ring_stages(2), 2, 2) <= kSmemPerBlock,
+              "one streamed CTA an SM at two tiles a head");
+
+// Longest sequence whose K and V stay resident at a head dim: while its
+// CTA fits an SM as often as the streamed one (two at one tile a head, L
+// <= 320; one at two, L <= 384). Resident heads fit up to 832 at D <= 64,
+// but past 320 one CTA an SM, and read slower than streamed (PERF.md);
+// longer ones stream through the ring.
+__host__ __device__ constexpr int attn_resident_len(int head_dim) {
   const int nt = attn_tiles(head_dim);
+  const int ctas = nt == 1 ? 2 : 1;
   int nkb = 1;
-  while (attn_smem_bytes(nkb + 1, 2, nt) <= kSmemPerBlock) ++nkb;
+  while (ctas * (attn_smem_bytes(nkb + 1, 2, nt) + 1024) <= kSmemPerSM) {
+    ++nkb;
+  }
   return nkb * kTileRows;
 }
+
+// Longest sequence the core takes: kAttnMaxLen at every head dim.
+__host__ __device__ constexpr int attn_max_len(int) { return kAttnMaxLen; }
 
 // A launch's scalars: head h's q, k, v are heads q_head + h, k_head + h,
 // v_head + h of their (D, heads, L, B) maps, and its output the D columns
@@ -228,33 +274,69 @@ struct NoMax : SoftmaxExp {
 
 // ---- the core ------------------------------------------------------------
 
-// The body of a kernel of 128 * kGroups threads over grid (heads, batch):
-// three maps over (D, heads, L, B) (sm90_host::packed_head_map_d); a head
-// is NT 64-column tiles.
-template <class P, int kGroups, int NT>
+// Passes over the key blocks that read the ring (streamed): each reads K,
+// the last one V too; nomm reads V alone, in its last pass.
+template <class P>
+__host__ __device__ constexpr int attn_ring_passes() {
+  if constexpr (!P::kProducts || P::kPasses == Passes::kNone) {
+    return 1;
+  } else if constexpr (P::kPasses == Passes::kMaxSum) {
+    return 3;
+  } else {
+    return 2;
+  }
+}
+
+// The body of a kernel of 128 * kGroups threads: three maps over (D, heads,
+// L, B) (sm90_host::packed_head_map_d); a head is NT 64-column tiles.
+// Resident (kStream false): grid (heads, batch), a CTA walks all of its
+// head's query tiles, its K and V blocks loaded once. Streamed (two
+// warpgroups): grid (query-tile pairs, heads, batch), a CTA walks the
+// pair's two tiles, one a warpgroup, through a ring of K and V stages.
+template <class P, int kGroups, int NT, bool kStream>
 __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
                                                 const CUtensorMap* tm_q,
                                                 const CUtensorMap* tm_k,
                                                 const CUtensorMap* tm_v,
                                                 const AttnArgs& a) {
   constexpr int kHeadBytes = NT * kTileBytes;
+  constexpr int kRing = attn_ring_stages(NT);
+  constexpr int kRingPasses = attn_ring_passes<P>();
   uint8_t* smem = align_tiles(smem_raw);
   const int seq_len = a.seq_len;
   const float scale = a.scale;
   const int nkb = (seq_len + kTileRows - 1) / kTileRows;
   const int nqt = nkb;
-  uint8_t* k_s = smem;  // block j at j * NT * 8 KB
-  uint8_t* v_s = k_s + nkb * kHeadBytes;
-  uint8_t* q_s = v_s + nkb * kHeadBytes;  // warpgroup w's at w * NT * 8 KB
+  // Resident: stage j holds key block j's K and V for every pass, each
+  // with its barrier. Streamed: ring use n = r * nkb + j (pass r's block
+  // j, r counting the passes that read the ring) lands in stage n % kRing,
+  // its K and V (what the pass reads) under one full barrier; the second
+  // row of barriers is the ring's empty ones.
+  const int stages = kStream ? kRing : nkb;
+  uint8_t* k_s = smem;  // stage s at s * NT * 8 KB
+  uint8_t* v_s = k_s + stages * kHeadBytes;
+  uint8_t* q_s = v_s + stages * kHeadBytes;  // warpgroup w's at w * NT * 8 KB
   uint64_t* k_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kHeadBytes);
-  uint64_t* v_full = k_full + nkb;
-  uint64_t* q_full = v_full + nkb;
+  uint64_t* v_full = k_full + stages;
+  uint64_t* q_full = v_full + stages;
+  const Ring<kRing> ring{k_full, v_full};  // streamed only
 
-  const int head = blockIdx.x;
-  const int batch = blockIdx.y;
+  const int head = kStream ? blockIdx.y : blockIdx.x;
+  const int batch = kStream ? blockIdx.z : blockIdx.y;
+  const int total = kRingPasses * nkb;  // streamed: the ring's loads
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  // Resident: warpgroup w walks tiles w, w + kGroups, ... Streamed: tile
+  // kGroups x + w, exactly one, so that every warpgroup runs the same
+  // count of products (a trip count that differs between the warpgroups
+  // made ptxas serialise the streamed kernels' products and spill): when
+  // the tiles are odd in number, the last CTA's second warpgroup
+  // recomputes the last tile, releases the ring's stages as the first
+  // does, and stores nothing.
+  const int t_mine =
+      kStream ? min(blockIdx.x * kGroups + warp / 4, nqt - 1) : warp / 4;
+  const bool dummy = kStream && blockIdx.x * kGroups + warp / 4 >= nqt;
 
   // Head `h` of a map's NT tiles of 64 rows from `row` into dst (zeros
   // past D and L).
@@ -265,26 +347,57 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
       tma_load_4d(dst + c * kTileBytes, map, bar, c * 64, h, row, batch);
     }
   };
+  // Ring load n into stage s: its block's K (with products) and, in the
+  // last pass, its V. Every consumer thread calls it; thread 0 alone
+  // copies (predicated, no branch: see Ring).
+  auto ring_load = [&](int n, int s, uint64_t* bar, bool issue) {
+    const int r = (n >= nkb) + (kRingPasses > 2 && n >= 2 * nkb);
+    const int row = (n - r * nkb) * kTileRows;
+    const bool with_v = r == kRingPasses - 1;
+    const bool leader = issue && tid == 0;
+    mbar_arrive_expect_tx_if(
+        bar, ((P::kProducts ? 1 : 0) + (with_v ? 1 : 0)) * kHeadBytes,
+        leader);
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      if constexpr (P::kProducts) {
+        tma_load_4d_if(k_s + s * kHeadBytes + c * kTileBytes, tm_k, bar,
+                       c * 64, a.k_head + head, row, batch, leader);
+      }
+      tma_load_4d_if(v_s + s * kHeadBytes + c * kTileBytes, tm_v, bar,
+                     c * 64, a.v_head + head, row, batch, leader && with_v);
+    }
+  };
   if (tid == 0) {
-    for (int j = 0; j < 2 * nkb + kGroups; ++j) mbar_init(&k_full[j], 1);
+    if constexpr (kStream) {
+      ring.init(4 * kGroups);
+      for (int w = 0; w < kGroups; ++w) mbar_init(&q_full[w], 1);
+    } else {
+      for (int j = 0; j < 2 * nkb + kGroups; ++j) mbar_init(&k_full[j], 1);
+    }
     fence_barrier_init();
     // The first Q tiles, the K blocks (pass 1 needs them first), then V.
-    for (int w = 0; w < kGroups && w < nqt; ++w) {
+    for (int w = 0; w < kGroups && (kStream || w < nqt); ++w) {
+      const int t = kStream ? min(blockIdx.x * kGroups + w, nqt - 1) : w;
       mbar_arrive_expect_tx(&q_full[w], kHeadBytes);
       load_head(q_s + w * kHeadBytes, tm_q, &q_full[w], a.q_head + head,
-                w * kTileRows);
+                t * kTileRows);
     }
-    if constexpr (P::kProducts) {
+    if constexpr (kStream) {
+      ring.prime(total, ring_load);
+    } else {
+      if constexpr (P::kProducts) {
+        for (int j = 0; j < nkb; ++j) {
+          mbar_arrive_expect_tx(&k_full[j], kHeadBytes);
+          load_head(k_s + j * kHeadBytes, tm_k, &k_full[j], a.k_head + head,
+                    j * kTileRows);
+        }
+      }
       for (int j = 0; j < nkb; ++j) {
-        mbar_arrive_expect_tx(&k_full[j], kHeadBytes);
-        load_head(k_s + j * kHeadBytes, tm_k, &k_full[j], a.k_head + head,
+        mbar_arrive_expect_tx(&v_full[j], kHeadBytes);
+        load_head(v_s + j * kHeadBytes, tm_v, &v_full[j], a.v_head + head,
                   j * kTileRows);
       }
-    }
-    for (int j = 0; j < nkb; ++j) {
-      mbar_arrive_expect_tx(&v_full[j], kHeadBytes);
-      load_head(v_s + j * kHeadBytes, tm_v, &v_full[j], a.v_head + head,
-                j * kTileRows);
     }
   }
   __syncthreads();
@@ -298,10 +411,44 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
   uint8_t* my_q = q_s + wg * kHeadBytes;
   const uint64_t d_q = desc_k_major(my_q);
 
-  for (int t = wg, use = 0; t < nqt; t += kGroups, ++use) {
+  // Use n's K and V tiles (resident: n is the key block).
+  auto k_tile = [&](int n) {
+    return k_s + (kStream ? ring.stage(n) : n) * kHeadBytes;
+  };
+  auto v_tile = [&](int n) {
+    return v_s + (kStream ? ring.stage(n) : n) * kHeadBytes;
+  };
+  // Streamed: the ring's wait for use n (which first issues use n +
+  // kAhead).
+  auto wait_stage = [&](int n) { ring.wait(n, total, ring_load); };
+  auto wait_k = [&](int n) {
+    if constexpr (kStream) {
+      wait_stage(n);
+    } else {
+      mbar_wait(&k_full[n], 0);
+    }
+  };
+  // Streamed, V comes with K (waited for there) or alone (nomm).
+  auto wait_v = [&](int n) {
+    if constexpr (!kStream) {
+      mbar_wait(&v_full[n], 0);
+    } else if constexpr (!P::kProducts) {
+      wait_stage(n);
+    }
+  };
+  // This warp is done with use n's stage.
+  auto release = [&](int n) {
+    if constexpr (kStream) ring.release(n, lane);
+  };
+  // Ring uses a pass (0 resident: every pass reads the same stages).
+  const int pass_uses = kStream ? nkb : 0;
+  const int n_last = (kRingPasses - 1) * pass_uses;
+
+  for (int t = t_mine, use = 0; kStream ? use < 1 : t < nqt;
+       t += kGroups, ++use) {
     mbar_wait(&q_full[wg], use & 1);
 
-    // S of key block j into s: the QK product over the head's NT tiles, or
+    // S of ring use n into s: the QK product over the head's NT tiles, or
     // nomm's row constants.
     float c_lo = 0.f, c_hi = 0.f;
     if constexpr (!P::kProducts) {
@@ -312,19 +459,19 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
     // its address field. (An array of per-tile descriptors made the
     // one-tile kernels spill at their 128 registers and cost K7 4 % at the
     // sampler's shape.)
-    auto products_s = [&](float (&s)[32], int j) {
-      const uint64_t d_k = desc_k_major(k_s + j * kHeadBytes);
+    auto products_s = [&](float (&s)[32], int n) {
+      const uint64_t d_k = desc_k_major(k_tile(n));
 #pragma unroll
       for (int c = 0; c < NT; ++c) {
         gemm_nt(s, d_q + c * (kTileBytes >> 4), d_k + c * (kTileBytes >> 4),
                 c > 0);
       }
     };
-    auto issue_s = [&](float (&s)[32], int j) {
+    auto issue_s = [&](float (&s)[32], int n) {
       if constexpr (P::kProducts) {
-        mbar_wait(&k_full[j], 0);
+        wait_k(n);
         wgmma_fence();
-        products_s(s, j);
+        products_s(s, n);
         wgmma_commit();
       } else {
 #pragma unroll
@@ -337,28 +484,31 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
         }
       }
     };
-    // Calls fn(s, j) on every key block's S in order, computing block
-    // j + 1's S while block j's is read.
-    auto walk = [&](auto&& fn) {
+    // Calls fn(s, j) on every key block's S in order (ring uses n0 + j),
+    // computing block j + 1's S while block j's is read; a block's stage
+    // is released once its product is done.
+    auto walk = [&](int n0, auto&& fn) {
       float s0[32], s1[32];
-      issue_s(s0, 0);
+      issue_s(s0, n0);
       for (int j = 0; j < nkb; j += 2) {
         if (j + 1 < nkb) {
-          issue_s(s1, j + 1);
+          issue_s(s1, n0 + j + 1);
           wgmma_wait_if<P::kProducts, 1>();
         } else {
           wgmma_wait_if<P::kProducts, 0>();
         }
         fence(s0);
+        if constexpr (P::kProducts) release(n0 + j);
         fn(s0, j);
         if (j + 1 < nkb) {
           if (j + 2 < nkb) {
-            issue_s(s0, j + 2);
+            issue_s(s0, n0 + j + 2);
             wgmma_wait_if<P::kProducts, 1>();
           } else {
             wgmma_wait_if<P::kProducts, 0>();
           }
           fence(s1);
+          if constexpr (P::kProducts) release(n0 + j + 1);
           fn(s1, j + 1);
         }
       }
@@ -400,7 +550,7 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
       // Pass 1: this lane's running max and rescaled sum.
       float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.f,
             l_hi = 0.f;
-      walk([&](float (&s)[32], int j) {
+      walk(0, [&](float (&s)[32], int j) {
         float b_lo = -CUDART_INF_F, b_hi = -CUDART_INF_F;
         scores(s, j, b_lo, b_hi);
         const float n_lo = fmaxf(m_lo, b_lo);
@@ -422,7 +572,7 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
     } else if constexpr (P::kPasses == Passes::kSum) {
       // Pass 1: the unshifted sum.
       float l_lo = 0.f, l_hi = 0.f;
-      walk([&](float (&s)[32], int j) {
+      walk(0, [&](float (&s)[32], int j) {
         float b_lo = -CUDART_INF_F, b_hi = -CUDART_INF_F;
         scores(s, j, b_lo, b_hi);
         l_lo += block_sum(s, j, 0, 0.f);
@@ -433,11 +583,11 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
     } else if constexpr (P::kPasses == Passes::kMaxSum) {
       // Pass 1: the max; pass 2: the sum with it.
       float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F;
-      walk([&](float (&s)[32], int j) { scores(s, j, m_lo, m_hi); });
+      walk(0, [&](float (&s)[32], int j) { scores(s, j, m_lo, m_hi); });
       row_m_lo = quad_max(m_lo);
       row_m_hi = quad_max(m_hi);
       float l_lo = 0.f, l_hi = 0.f;
-      walk([&](float (&s)[32], int j) {
+      walk(pass_uses, [&](float (&s)[32], int j) {
         float b_lo = -CUDART_INF_F, b_hi = -CUDART_INF_F;
         scores(s, j, b_lo, b_hi);
         l_lo += block_sum(s, j, 0, row_m_lo);
@@ -447,12 +597,14 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
       inv_hi = 1.f / quad_sum(l_hi);
     }
 
-    // Last pass: S again, p rounded, O += p V over the head's NT tiles of
-    // V; block j + 1's S is issued with block j's P V product.
+    // Last pass: S again, p formed with the final max and sum and rounded,
+    // O += p V over the head's NT tiles of V; block j + 1's S is issued
+    // with block j's P V product.
     float sacc[32], oacc[NT][32];
     uint32_t pa[16];
     float p0_lo = 0.f, p0_hi = 0.f;  // nomm: p of key 0
-    issue_s(sacc, 0);
+    float v0_lo = 0.f, v0_hi = 0.f;  // nomm: the row's own v[0]
+    issue_s(sacc, n_last);
     wgmma_wait_if<P::kProducts, 0>();
     fence(sacc);
     for (int j = 0; j < nkb; ++j) {
@@ -469,23 +621,23 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
       }
       pack_a(pa, sacc);
       if constexpr (P::kProducts) {
-        mbar_wait(&v_full[j], 0);
+        wait_v(n_last + j);
         wgmma_fence();
 #pragma unroll
         for (int c = 0; c < NT; ++c) {
           gemm_rn(oacc[c], pa,
-                  desc_mn_major(v_s + j * kHeadBytes + c * kTileBytes),
-                  j > 0);
+                  desc_mn_major(v_tile(n_last + j) + c * kTileBytes), j > 0);
         }
         if (j + 1 < nkb) {
-          mbar_wait(&k_full[j + 1], 0);
-          products_s(sacc, j + 1);
+          wait_k(n_last + j + 1);
+          products_s(sacc, n_last + j + 1);
         }
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
         for (int c = 0; c < NT; ++c) fence(oacc[c]);
         fence(sacc);
+        release(n_last + j);
       } else {
         if (j == 0) {
           p0_lo = sacc[0];
@@ -494,20 +646,29 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
         // The rounded p stay live as they would as the product's operand.
 #pragma unroll
         for (int i = 0; i < 16; ++i) asm volatile("" ::"r"(pa[i]));
-        if (j + 1 < nkb) issue_s(sacc, j + 1);
+        // Row i's own v is row i of V block t. Streamed, every block's
+        // stage is waited for and released in turn.
+        if (kStream || j == t) wait_v(n_last + j);
+        if (j == t) {
+          v0_lo = ld_swizzled(v_tile(n_last + j), row, 0);
+          v0_hi = ld_swizzled(v_tile(n_last + j), row + 8, 0);
+        }
+        if constexpr (kStream) {
+          __syncwarp();
+          release(n_last + j);
+        }
+        if (j + 1 < nkb) issue_s(sacc, n_last + j + 1);
       }
     }
     if constexpr (!P::kProducts) {
       // bf16(p[i][0]) v[i][0], a product of two bf16 (exact in f32) that
       // the store rounds once, on every column. Key 0 is held by the lanes
-      // with t4 = 0; row i's own v is row i of V block t.
+      // with t4 = 0.
       const int src = lane & ~3;
       const float pl = __shfl_sync(0xffffffffu, round_bf16(p0_lo), src);
       const float ph = __shfl_sync(0xffffffffu, round_bf16(p0_hi), src);
-      const uint8_t* v_t = v_s + t * kHeadBytes;
-      mbar_wait(&v_full[t], 0);
-      const float o_lo = pl * ld_swizzled(v_t, row, 0);
-      const float o_hi = ph * ld_swizzled(v_t, row + 8, 0);
+      const float o_lo = pl * v0_lo;
+      const float o_hi = ph * v0_hi;
 #pragma unroll
       for (int c = 0; c < NT; ++c) {
 #pragma unroll
@@ -520,7 +681,7 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
 
     // The tile's products are done: its Q buffer takes the warpgroup's
     // next tile while this one is stored.
-    if (t + kGroups < nqt) {
+    if (!kStream && t + kGroups < nqt) {
       wg_barrier(wg);
       if (tid % 128 == 0) {
         mbar_arrive_expect_tx(&q_full[wg], kHeadBytes);
@@ -531,8 +692,9 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
     // Columns at or past D are dropped.
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
-      store_acc(out + c * 64, a.o_ld, t * kTileRows + row, seq_len, oacc[c],
-                1.f, 1.f, t4, a.head_dim - c * 64);
+      store_acc(out + c * 64, a.o_ld, t * kTileRows + row,
+                dummy ? 0 : seq_len, oacc[c], 1.f, 1.f, t4,
+                a.head_dim - c * 64);
     }
   }
 }
@@ -547,35 +709,41 @@ inline bool valid_head_dim(int head_dim) {
          head_dim % 8 == 0;
 }
 
-// `kernels[NT - 1][groups - 1]` runs sm90::attention_heads<P, groups, NT>.
-// Launches the kernel of one warpgroup for heads of at most
-// kAttnShortTiles tiles (as K3), else two, and of one 64-column tile a
-// head for D <= 64, else two, over (num_heads, batch). `scale` is
-// head_dim**-0.5 in f32; for a base-2 policy log2(e) is folded in here.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a head dim that
-// is not a multiple of 8 up to 128 or a length past
-// sm90::attn_max_len(head_dim).
+// `kernels[NT - 1][mode]` runs sm90::attention_heads<P, groups, NT,
+// stream>: mode 0 one warpgroup, 1 two, both resident; 2 two, streamed.
+// Launches the resident kernel up to sm90::attn_resident_len(head_dim)
+// (one warpgroup for heads of at most kAttnShortTiles tiles, as K3, else
+// two) and the streamed one past it or when `stream_kv`, of one 64-column
+// tile a head for D <= 64, else two. `scale` is head_dim**-0.5 in f32; for
+// a base-2 policy log2(e) is folded in here. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a head dim that is not a multiple of 8 up to
+// 128 or a length past sm90::kAttnMaxLen.
 template <class P, class Kernel>
-inline int launch_attention(const Kernel (&kernels)[2][2],
+inline int launch_attention(const Kernel (&kernels)[2][3],
                             const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                             const CUtensorMap& tm_v, sm90::AttnArgs a,
-                            int batch, int num_heads, cudaStream_t stream) {
-  if (!valid_head_dim(a.head_dim) ||
-      a.seq_len > sm90::attn_max_len(a.head_dim)) {
+                            int batch, int num_heads, cudaStream_t stream,
+                            bool stream_kv = false) {
+  if (!valid_head_dim(a.head_dim) || a.seq_len > sm90::kAttnMaxLen) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (P::kBase2) a.scale = a.scale * 1.44269504088896341f;
   const int nkb = (a.seq_len + sm90::kTileRows - 1) / sm90::kTileRows;
-  const int groups = nkb <= sm90::kAttnShortTiles ? 1 : 2;
+  const bool streamed =
+      stream_kv || a.seq_len > sm90::attn_resident_len(a.head_dim);
+  const int mode = streamed ? 2 : nkb <= sm90::kAttnShortTiles ? 0 : 1;
+  const int groups = mode == 0 ? 1 : 2;
   const int nt = sm90::attn_tiles(a.head_dim);
-  const Kernel kernel = kernels[nt - 1][groups - 1];
-  const size_t smem = sm90::attn_smem_bytes(nkb, groups, nt);
+  const Kernel kernel = kernels[nt - 1][mode];
+  const size_t smem = sm90::attn_smem_bytes(
+      streamed ? sm90::attn_ring_stages(nt) : nkb, groups, nt);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(num_heads, batch), 128 * groups, smem, stream>>>(
-      tm_q, tm_k, tm_v, a);
+  const dim3 grid = streamed ? dim3((nkb + 1) / 2, num_heads, batch)
+                             : dim3(num_heads, batch);
+  kernel<<<grid, 128 * groups, smem, stream>>>(tm_q, tm_k, tm_v, a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,24 +45,22 @@ SIGNATURES = {
     "ln_modulate_bwd": {
         "ln_modulate_bwd": [_P] * 7 + [_I] + [_P] * 6 + [_I, _I, _I, _P],
         "ln_modulate_bwd_work_words": [_I, _I, _I],
-        "ln_modulate_bwd_max_width": [],
-        # An older tree's K2, whose tickets lived in the module.
-        "ln_modulate_bwd_partials": [_I, _I]},
-    # K3 and K4 take the head dim; a tree from before they did has no
-    # `*_max_head_dim` entry point (tools/ab_kernels.py checks for it).
+        "ln_modulate_bwd_max_width": []},
+    # `*_fwd_streamed`: K and V streamed at every length (tests and
+    # measurement; a tree from before it has no such entry point).
     "attention_packed": {
         "attention_packed_fwd": [_P] * 4 + [_I, _I, _I, _I, _F, _P],
+        "attention_packed_fwd_streamed": [_P] * 4 + [_I, _I, _I, _I, _F, _P],
         "attention_packed_max_len": [_I],
         "attention_packed_max_head_dim": []},
     "attention_packed_bwd": {
         "attention_packed_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P],
         "attention_packed_bwd_max_len": [],
         "attention_packed_bwd_max_head_dim": []},
-    # K6-K9 take the head dim since they did K3's widening; a tree from
-    # before has no `*_max_head_dim` entry point (tools/ab_kernels.py
-    # binds its older signatures).
     "attention_unpacked": {
         "attention_unpacked_fwd": [_P] * 4 + [_I, _I, _I, _I, _F, _P],
+        "attention_unpacked_fwd_streamed": [_P] * 4 + [_I, _I, _I, _I, _F,
+                                                       _P],
         "attention_unpacked_max_len": [_I],
         "attention_unpacked_max_head_dim": []},
     "attention_unpacked_bwd": {

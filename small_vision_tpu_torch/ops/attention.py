@@ -11,7 +11,12 @@ The forward is K3 (`csrc/attention_packed.cu`), the backward K4
 `attention_packed` runs the plain versions for tensors on the CPU and the
 kernels for CUDA tensors, and raises for a CUDA tensor a kernel does not
 take. Without gradients (the sampler) it is K3 alone; with gradients it
-goes through `AttentionPacked`.
+goes through `AttentionPacked`. Every forward and backward here takes L up
+to 4,096 at every head dim: a head's K and V stay in shared memory up to
+320 keys (D <= 64) or 384 (64 < D <= 128) and stream through a ring of
+them past that (ViT-L/16@512, L = 1,024 or 1,025; ViT-H/14@518, 1,369),
+with the same arithmetic and the same bits. (From 321 to 832 keys at D <=
+64 the resident layout would fit, but one CTA an SM: it reads slower.)
 
 `fused_attention` is the counterpart of the JAX package's older
 `fused_attention` / `pallas_attention` on [B, L, H, D]: scores times
@@ -121,8 +126,11 @@ def attention_packed_bwd_plain(q, k, v, do, num_heads):
 
 @functools.cache
 def _lib():
+  """K3's entry point, its length limit (a function of the head dim) and
+  its entry point that streams K and V at every length."""
   lib = _build.library("attention_packed")
-  return lib.attention_packed_fwd, lib.attention_packed_max_len
+  return (lib.attention_packed_fwd, lib.attention_packed_max_len,
+          lib.attention_packed_fwd_streamed)
 
 
 @functools.cache
@@ -174,15 +182,19 @@ def _check(name, num_heads, **tensors):
   return b, l, d
 
 
-def attention_packed_fwd(q, k, v, num_heads):
+def attention_packed_fwd(q, k, v, num_heads, streamed=False):
   """Launches K3 on (B, L, H*D) bf16 contiguous q, k, v, D a multiple of 8
-  up to 128. L up to the kernel's `attention_packed_max_len(D)`: a head's
-  K and V stay in shared memory, 832 at D <= 64 (one 64-column tile a
-  head), 384 at 64 < D <= 128 (two)."""
+  up to 128. L up to the kernel's `attention_packed_max_len(D)`, 4,096 at
+  every head dim: a head's K and V stay in shared memory up to 320 keys at
+  D <= 64 (one 64-column tile a head) and 384 at 64 < D <= 128 (two), and
+  stream through a ring of stages past that. `streamed`: stream them at
+  every length (for tests and measurement; the same bits)."""
   b, l, d = _check(NAME, num_heads, q=q, k=k, v=v)
-  fn, max_len = _lib()
+  fn, max_len, fn_streamed = _lib()
   _require(l <= max_len(d), f"sequence length {l} > {max_len(d)} at head "
            f"dim {d}")
+  if streamed:
+    fn = fn_streamed
 
   o = torch.empty_like(q)
   if q.numel() == 0:
@@ -326,8 +338,11 @@ def attention_bwd_plain(q, k, v, do):
 
 @functools.cache
 def _unpacked_lib():
+  """K7's entry point, its length limit (a function of the head dim) and
+  its entry point that streams K and V at every length."""
   lib = _build.library("attention_unpacked")
-  return lib.attention_unpacked_fwd, lib.attention_unpacked_max_len
+  return (lib.attention_unpacked_fwd, lib.attention_unpacked_max_len,
+          lib.attention_unpacked_fwd_streamed)
 
 
 @functools.cache
@@ -350,16 +365,21 @@ def _check_unpacked(name, **tensors):
   return b, l, h, d
 
 
-def attention_unpacked_fwd(q, k, v):
+def attention_unpacked_fwd(q, k, v, streamed=False):
   """Launches K7 on [B, L, H, D] bf16 contiguous, 16-byte aligned q, k,
   v, D a multiple of 8 up to 128. No atomics: two launches give the same
-  bits. L up to the kernel's `attention_unpacked_max_len(D)`: a head's K
-  and V stay resident in shared memory, 832 at D <= 64 (one 64-column
-  tile a head), 384 at 64 < D <= 128 (two)."""
+  bits. L up to the kernel's `attention_unpacked_max_len(D)`, 4,096 at
+  every head dim: a head's K and V stay resident in shared memory up to
+  320 keys at D <= 64 (one 64-column tile a head) and 384 at 64 < D <=
+  128 (two), and stream through a ring of stages past that, every pass
+  walking the keys again. `streamed`: stream them at every length (for
+  tests and measurement; the same bits)."""
   b, l, h, d = _check_unpacked(UNPACKED_NAME, q=q, k=k, v=v)
-  fn, max_len = _unpacked_lib()
+  fn, max_len, fn_streamed = _unpacked_lib()
   _require(l <= max_len(d), f"sequence length {l} > {max_len(d)} at head "
            f"dim {d}", UNPACKED_NAME)
+  if streamed:
+    fn = fn_streamed
   o = torch.empty_like(q)
   if q.numel() == 0:
     return o
@@ -520,8 +540,9 @@ def _ablate_lib():
 def attention_ablate_fwd(q, k, v, num_heads, variant):
   """Launches K9's arm `variant` on (B, L, H*D) bf16 contiguous, 16-byte
   aligned q, k, v, D a multiple of 8 up to 128; L up to
-  `attention_ablate_max_len(D)`, 832 at D <= 64 and 384 above. No
-  atomics: two launches give the same bits."""
+  `attention_ablate_max_len(D)`, 4,096 at every head dim (K and V stream
+  past 320 keys at D <= 64 and 384 above). No atomics: two launches give
+  the same bits."""
   _require(variant in ABLATE_VARIANTS,
            f"unknown variant {variant!r}, one of {ABLATE_VARIANTS}",
            ABLATE_NAME)

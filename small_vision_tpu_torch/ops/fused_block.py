@@ -199,8 +199,9 @@ def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
 
 
 def fused_mha_max_len(head_dim: int) -> int:
-  """The longest sequence K6 takes at a head dim (builds the kernels): 832
-  at head dims up to 64, 384 above."""
+  """The longest sequence K6 takes at a head dim (builds the kernels):
+  4,096 at every one (its attention's K and V stream through a ring of
+  stages past 320 keys at head dims up to 64 and 384 above)."""
   return _mha_lib().fused_mha_max_len(head_dim)
 
 
@@ -211,8 +212,8 @@ def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   in one process; a tensor rank's H heads of a wider model under the
   Megatron block): the q, k, v projection, the attention and the
   out-projection, three kernel launches through q, k, v and head outputs
-  in device memory. Sums run in a fixed order (no atomics), so two
-  launches give the same bits."""
+  in device memory. L up to `fused_mha_max_len`, 4,096. Sums run in a
+  fixed order (no atomics), so two launches give the same bits."""
   lib, (b, l, d, hd, head_dim) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo,
                                               bo, num_heads)
   o = torch.empty_like(x)

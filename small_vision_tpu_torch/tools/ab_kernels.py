@@ -1,29 +1,31 @@
-"""Holds this tree's max-shift attention kernels (K6, K7, K8, K9) and the
-LayerNorm-modulate backward (K2) against another tree's, on the card, and
-K1-K4 at a width and head count of the variant tables.
+"""Holds this tree's attention kernels (K3, K6, K7, K8, K9) and the
+LayerNorm-modulate backward (K2) against another tree's, on the card, K1-K4
+at a width and head count of the variant tables, and times K3, K6, K7 and
+K9 of this tree alone at the long shapes that the other may refuse.
 
   python -m small_vision_tpu_torch.tools.ab_kernels --other DIR
       [--rounds 3] [--iters 50] [--out FILE] [--width 768 --heads 12]
 
 K6's attention stage, K7 and the seven arms of K9 run one shared core
 (`csrc/sm90_attention.cuh`), so a change there moves all three. This tool
-builds `fused_mha.cu`, `attention_unpacked.cu`, `attention_ablate.cu`,
-`attention_unpacked_bwd.cu` and `ln_modulate_bwd.cu` of DIR (the
-`small_vision_tpu_torch/csrc` directory of another checkout, e.g. the
-parent commit unpacked with `git archive`) into a temporary directory and
-loads them beside this tree's libraries. Then, on inputs from a
+builds the kernels of DIR (the `small_vision_tpu_torch/csrc` directory of
+another checkout, e.g. the parent commit unpacked with `git archive`) into
+a temporary directory with this tree's flags, binds them by this tree's
+signatures (the other tree's entry points must take the same arguments)
+and loads them beside this tree's libraries. Then, on inputs from a
 `torch.Generator` seeded 0:
-  A tree whose K6-K9 take head dim 64 only (no `*_max_head_dim` entry
-  point) is bound to its signatures of then; every shape here is at head
-  dim 64.
-  - K6 (the whole fused MHA forward) at the sampler's shape (B=64, L=260)
-    and at (128, 257), 768 wide, 12 heads of 64: both sides must give the
-    same bits (`torch.equal`); the call and its attention launch alone are
-    timed. No fused MLP runs in this tool, so K6 is read away from the
-    power draw of K5.
-  - K7 on [B, L, 12, 64] at (64, 260) and (128, 257), and K9's seven arms
-    on (B, L, 768) at (128, 257) and (128, 164), each beside
-    `scaled_dot_product_attention` on the same inputs.
+  - K3 on (B, L, 768) at the sampler's (64, 260) and the training shapes
+    (128, L = 68, 164, 257), K7 on [B, L, 12, 64] at (64, 260) and (128,
+    257), both also at (64, 576) (ViT-B/16@384's length), K9's seven arms
+    on (B, L, 768) at (128, 257) and (128, 164), and K6 (the whole fused
+    MHA forward, 768 wide, 12 heads of 64) at (64, 260) and (128, 257):
+    both trees must give the same bits (`torch.equal`); each is timed
+    beside `scaled_dot_product_attention` on the same inputs (K6: the call
+    and its attention launch alone; no fused MLP runs in this tool, so K6
+    is read away from the power draw of K5).
+  - K3 and K7 of this tree with K and V resident against streamed through
+    the ring (their `*_fwd_streamed` entry points) at (64, 260) and (128,
+    257): the cost of streaming where the heads are short.
   - K8 on [128, L, 12, 64] and K2 on (128, L, 768) with modulation, at the
     training lengths L = 68, 164, 257, beside SDPA's backward and the
     autograd backward of `F.layer_norm` and the modulation. Their bits may
@@ -33,9 +35,16 @@ loads them beside this tree's libraries. Then, on inputs from a
     at the training lengths L = 68, 164, 257 and batch 128, modulated,
     beside `F.layer_norm` + modulate, its autograd backward, SDPA and its
     backward.
+  - This tree alone: K3, K7, K6 (call and attention launch) and K9's seven
+    arms at (64, 1,024) and (64, 1,025) with 16 heads of 64 (ViT-L/16@512,
+    "map" and "tok"), (64, 1,369) with 16 heads of 80 (ViT-H/14@518) and
+    (4, 4,096) with 12 heads of 64, each beside SDPA and its bound: the
+    larger of q, k, v and o's bytes over 3.35 TB/s and 4 B H L^2 D
+    operations over 989 TFLOP/s.
 Each time is the mean of `--iters` launches between two CUDA events after
-a warm-up launch, taken in turns (other, this, this, other) for `--rounds`
-rounds; the tool prints the median and the range of each, beside the
+a warm-up launch; the two sides of a comparison are taken in turns (other,
+this, this, other; resident, streamed, streamed, resident) for `--rounds`
+rounds. The tool prints the median and the range of each, beside the
 card's name and power limit, and writes them as JSON to `--out`.
 """
 
@@ -56,14 +65,18 @@ from small_vision_tpu_torch.ops import fused_block as fb
 from small_vision_tpu_torch.tools.profile_sampler import card_line
 
 WIDTH, HEADS = 768, 12
+K3_SHAPES = ((64, 260), (128, 68), (128, 164), (128, 257), (64, 576))
 K6_SHAPES = ((64, 260), (128, 257))
-K7_SHAPES = ((64, 260), (128, 257))
+K7_SHAPES = ((64, 260), (128, 257), (64, 576))
 K9_SHAPES = ((128, 257), (128, 164))
+STREAM_SHAPES = ((64, 260), (128, 257))  # resident against streamed
+# (B, L, heads, head dim) of this tree alone.
+LONG_SHAPES = ((64, 1024, 16, 64), (64, 1025, 16, 64), (64, 1369, 16, 80),
+               (4, 4096, 12, 64))
 TRAIN_SHAPES = ((128, 68), (128, 164), (128, 257))  # K8 and K2
 SOURCES = ("fused_mha", "attention_unpacked", "attention_ablate",
            "attention_unpacked_bwd", "ln_modulate_bwd", "ln_modulate",
            "attention_packed", "attention_packed_bwd")
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def dev_ms(fn, iters) -> float:
@@ -104,45 +117,46 @@ def _check(status):
   _build.check(status, "ab_kernels")
 
 
-# The argument types of K6-K9's entry points before they took the head dim.
-_NO_HEAD_DIM = {
-    "fused_mha_fwd": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
-    "fused_mha_attention": [_P, _P, _I, _I, _I, _F, _P],
-    "attention_unpacked_fwd": [_P] * 4 + [_I, _I, _I, _F, _P],
-    "attention_unpacked_bwd": [_P] * 10 + [_I, _I, _I, _F, _P],
-    "attention_ablate_fwd": [_P] * 4 + [_I, _I, _I, _F, _I, _P],
-}
-
-
-def _head_dim_args(lib, marker: str) -> tuple:
-  """(64,), the head dim argument, for a library whose entry points take
-  it (it has the entry point `marker`); for an older one, () once its
-  entry points are bound to their signatures of then."""
-  if hasattr(lib, marker):
-    return (64,)
-  for entry, args in _NO_HEAD_DIM.items():
-    if hasattr(lib, entry):
-      getattr(lib, entry).argtypes = args
-  return ()
-
-
-def k6_launches(lib, x, params, b, l):
+def k6_launches(lib, x, params, b, l, width=WIDTH, heads=HEADS):
   """{"call", "attention": a function that launches it} and the call's
-  output, on buffers made here."""
-  qkv = torch.empty(b, l, 3 * WIDTH, dtype=x.dtype, device=x.device)
-  heads, o = torch.empty_like(x), torch.empty_like(x)
+  output, on buffers made here; heads of width / heads columns."""
+  hd = width // heads
+  qkv = torch.empty(b, l, 3 * width, dtype=x.dtype, device=x.device)
+  heads_out, o = torch.empty_like(x), torch.empty_like(x)
   stream = torch.cuda.current_stream().cuda_stream
-  scale = attn.scale_f32(64)
-  ptrs = [t.data_ptr() for t in (x, *params, qkv, heads, o)]
-  hd = _head_dim_args(lib, "fused_mha_max_head_dim")
-  shape = (b, l, WIDTH, HEADS, *hd)
+  scale = attn.scale_f32(hd)
+  ptrs = [t.data_ptr() for t in (x, *params, qkv, heads_out, o)]
   return {
-      "call": lambda: _check(lib.fused_mha_fwd(*ptrs, *shape, scale,
-                                               stream)),
+      "call": lambda: _check(lib.fused_mha_fwd(*ptrs, b, l, width, heads, hd,
+                                               scale, stream)),
       "attention": lambda: _check(lib.fused_mha_attention(
-          qkv.data_ptr(), heads.data_ptr(), b, l, HEADS, *hd, scale,
+          qkv.data_ptr(), heads_out.data_ptr(), b, l, heads, hd, scale,
           stream)),
   }, o
+
+
+def attention_launch(lib, entry, q, k, v, heads, *extra):
+  """A function that launches `entry` of K3, K7 or K9 (`extra`: K9's arm)
+  on packed q, k, v ((B, L, H*D), or [B, L, H, D] for K7), and its
+  output."""
+  b, l = q.shape[:2]
+  hd = q[0, 0].numel() // heads
+  o = torch.empty_like(q)
+  scale = (attn.scale_log2(hd) if entry.startswith("attention_packed")
+           else attn.scale_f32(hd))
+  fn = getattr(lib, entry)
+  ptrs = [t.data_ptr() for t in (q, k, v, o)]
+  stream = torch.cuda.current_stream().cuda_stream
+  return (lambda: _check(fn(*ptrs, b, l, heads, hd, scale, *extra,
+                            stream))), o
+
+
+def bound_ms(b, l, heads, hd):
+  """The least ms of an attention forward on this card: q, k, v and o
+  once over 3.35 TB/s or 4 B H L^2 D operations over 989 TFLOP/s (bf16),
+  the larger."""
+  return max(4 * b * l * heads * hd * 2 / 3.35e12,
+             4 * b * heads * l * l * hd / 989e12) * 1e3
 
 
 def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library):
@@ -216,10 +230,23 @@ def main(argv=None):
                                * std).to(torch.bfloat16)
   stream = lambda: torch.cuda.current_stream().cuda_stream
   scale = float(np.float32(1.0 / np.sqrt(64)))
+  sdpa = torch.nn.functional.scaled_dot_product_attention
   this = {stem: _build.library(stem) for stem in SOURCES}
-  # name: {"other": fn, "this": fn} to time; name: the library call's fn.
-  # The functions hold raw pointers: `keep` holds their tensors.
-  pairs, library, same_bits, keep = {}, {}, {}, []
+  # name: {side: fn, side: fn} to time in turns; name: the library call's
+  # fn; name: this tree's fn alone. The functions hold raw pointers: `keep`
+  # holds their tensors.
+  pairs, library, alone, bounds, same_bits, keep = {}, {}, {}, {}, {}, []
+
+  def compare(name, runs):
+    """runs: {side: (launch fn, output)}; launches each once, records
+    whether the outputs are bit-equal, and times the sides in turns."""
+    for fn, out in runs.values():
+      fn()
+      keep.append(out)
+    torch.cuda.synchronize()
+    first, second = (out for _, out in runs.values())
+    same_bits[name] = torch.equal(first, second)
+    pairs[name] = {side: fn for side, (fn, _) in runs.items()}
 
   params = []
   for _ in range(4):
@@ -227,56 +254,62 @@ def main(argv=None):
   with tempfile.TemporaryDirectory() as tmp:
     other = build_other(pathlib.Path(args.other), pathlib.Path(tmp))
     sides = {"other": other, "this": this}
-    head_dims = {s: {stem: _head_dim_args(libs[stem], f"{stem}_max_head_dim")
-                     for stem in ("attention_unpacked", "attention_ablate",
-                                  "attention_unpacked_bwd")}
-                 for s, libs in sides.items()}
     for b, l in K6_SHAPES:
       x = randn(b, l, WIDTH)
       keep.append(x)
-      runs, outs = {}, {}
-      for side, libs in sides.items():
-        runs[side], outs[side] = k6_launches(libs["fused_mha"], x, params,
-                                             b, l)
-        runs[side]["call"]()
-      torch.cuda.synchronize()
-      keep += list(outs.values())
-      same_bits[f"K6 {b}x{l}"] = torch.equal(outs["other"], outs["this"])
-      for stage in ("call", "attention"):
-        pairs[f"K6 {stage} {b}x{l}"] = {s: runs[s][stage] for s in sides}
+      runs = {side: k6_launches(libs["fused_mha"], x, params, b, l)
+              for side, libs in sides.items()}
+      compare(f"K6 call {b}x{l}",
+              {side: (r["call"], o) for side, (r, o) in runs.items()})
+      pairs[f"K6 attention {b}x{l}"] = {
+          side: r["attention"] for side, (r, _) in runs.items()}
+
+    for b, l in K3_SHAPES:
+      q, k, v = (randn(b, l, WIDTH) for _ in range(3))
+      keep += [q, k, v]
+      compare(f"K3 {b}x{l}", {
+          side: attention_launch(libs["attention_packed"],
+                                 "attention_packed_fwd", q, k, v, HEADS)
+          for side, libs in sides.items()})
+      library[f"K3 {b}x{l}"] = (
+          lambda sp=[t.view(b, l, HEADS, 64).transpose(1, 2)
+                     for t in (q, k, v)]: sdpa(*sp))
 
     for b, l in K7_SHAPES:
       q, k, v = (randn(b, l, HEADS, 64) for _ in range(3))
-      o = torch.empty_like(q)
-      keep += [q, k, v, o]
-      ptrs = [t.data_ptr() for t in (q, k, v, o)]
-      pairs[f"K7 {b}x{l}"] = {
-          s: (lambda lib=libs["attention_unpacked"], p=ptrs, b=b, l=l,
-              hd=head_dims[s]["attention_unpacked"]: _check(
-                  lib.attention_unpacked_fwd(*p, b, l, HEADS, *hd, scale,
-                                             stream())))
-          for s, libs in sides.items()}
-      heads_first = [t.transpose(1, 2) for t in (q, k, v)]
+      keep += [q, k, v]
+      compare(f"K7 {b}x{l}", {
+          side: attention_launch(libs["attention_unpacked"],
+                                 "attention_unpacked_fwd", q, k, v, HEADS)
+          for side, libs in sides.items()})
       library[f"K7 {b}x{l}"] = (
-          lambda hf=heads_first:
-          torch.nn.functional.scaled_dot_product_attention(*hf))
+          lambda hf=[t.transpose(1, 2) for t in (q, k, v)]: sdpa(*hf))
 
     for b, l in K9_SHAPES:
       q, k, v = (randn(b, l, WIDTH) for _ in range(3))
-      o = torch.empty_like(q)
-      keep += [q, k, v, o]
-      ptrs = [t.data_ptr() for t in (q, k, v, o)]
+      keep += [q, k, v]
       for arm_id, arm in enumerate(attn.ABLATE_VARIANTS):
-        pairs[f"K9 {arm} {b}x{l}"] = {
-            s: (lambda lib=libs["attention_ablate"], a=arm_id, p=ptrs, b=b,
-                l=l, hd=head_dims[s]["attention_ablate"]: _check(
-                    lib.attention_ablate_fwd(*p, b, l, HEADS, *hd, scale, a,
-                                             stream())))
-            for s, libs in sides.items()}
-      split = [t.view(b, l, HEADS, 64).transpose(1, 2) for t in (q, k, v)]
+        compare(f"K9 {arm} {b}x{l}", {
+            side: attention_launch(libs["attention_ablate"],
+                                   "attention_ablate_fwd", q, k, v, HEADS,
+                                   arm_id)
+            for side, libs in sides.items()})
       library[f"K9 {b}x{l}"] = (
-          lambda sp=split:
-          torch.nn.functional.scaled_dot_product_attention(*sp))
+          lambda sp=[t.view(b, l, HEADS, 64).transpose(1, 2)
+                     for t in (q, k, v)]: sdpa(*sp))
+
+    # This tree's K3 and K7 with K and V resident, then streamed.
+    for b, l in STREAM_SHAPES:
+      q, k, v = (randn(b, l, WIDTH) for _ in range(3))
+      keep += [q, k, v]
+      q4, k4, v4 = (t.view(b, l, HEADS, 64) for t in (q, k, v))
+      for name, stem, inputs in (("K3", "attention_packed", (q, k, v)),
+                                 ("K7", "attention_unpacked", (q4, k4, v4))):
+        compare(f"{name} streamed {b}x{l}", {
+            side: attention_launch(this[stem], f"{stem}_fwd{suffix}",
+                                   *inputs, HEADS)
+            for side, suffix in (("resident", ""), ("streamed",
+                                                    "_streamed"))})
 
     for b, l in TRAIN_SHAPES:
       q, k, v, do = (randn(b, l, HEADS, 64) for _ in range(4))
@@ -285,14 +318,13 @@ def main(argv=None):
       keep += [q, k, v, do, *outs]
       ptrs = [t.data_ptr() for t in (q, k, v, do, *outs)]
       pairs[f"K8 {b}x{l}"] = {
-          s: (lambda lib=libs["attention_unpacked_bwd"], p=ptrs, b=b, l=l,
-              hd=head_dims[s]["attention_unpacked_bwd"]:
-              _check(lib.attention_unpacked_bwd(*p, b, l, HEADS, *hd, scale,
+          s: (lambda lib=libs["attention_unpacked_bwd"], p=ptrs, b=b, l=l:
+              _check(lib.attention_unpacked_bwd(*p, b, l, HEADS, 64, scale,
                                                 stream())))
           for s, libs in sides.items()}
       heads_first = [t.transpose(1, 2).detach().requires_grad_()
                      for t in (q, k, v)]
-      o = torch.nn.functional.scaled_dot_product_attention(*heads_first)
+      o = sdpa(*heads_first)
       library[f"K8 {b}x{l}"] = (
           lambda o=o, hf=heads_first, g=do.transpose(1, 2):
           torch.autograd.grad(o, hf, g, retain_graph=True))
@@ -330,12 +362,47 @@ def main(argv=None):
       k1_to_k4(sides, args.width, args.heads, b, l, randn, keep, pairs,
                library)
 
+    # This tree alone at the long shapes.
+    for b, l, heads, hd in LONG_SHAPES:
+      width = heads * hd
+      tag = f"{b}x{l} {heads}x{hd}"
+      q, k, v = (randn(b, l, width) for _ in range(3))
+      q4, k4, v4 = (t.view(b, l, heads, hd) for t in (q, k, v))
+      x = randn(b, l, width)
+      wide = []
+      for _ in range(4):
+        wide += [randn(width, width, std=width**-0.5), randn(width, std=0.1)]
+      keep += [q, k, v, x, *wide]
+      launches = {
+          "K3": attention_launch(this["attention_packed"],
+                                 "attention_packed_fwd", q, k, v, heads),
+          "K7": attention_launch(this["attention_unpacked"],
+                                 "attention_unpacked_fwd", q4, k4, v4,
+                                 heads)}
+      for arm_id, arm in enumerate(attn.ABLATE_VARIANTS):
+        launches[f"K9 {arm}"] = attention_launch(
+            this["attention_ablate"], "attention_ablate_fwd", q, k, v, heads,
+            arm_id)
+      k6, o6 = k6_launches(this["fused_mha"], x, wide, b, l, width, heads)
+      launches["K6 call"] = (k6["call"], o6)
+      launches["K6 attention"] = (k6["attention"], o6)
+      for name, (fn, out) in launches.items():
+        alone[f"{name} {tag}"] = fn
+        bounds[f"{name} {tag}"] = bound_ms(b, l, heads, hd)
+        keep.append(out)
+      library[f"long {tag}"] = (
+          lambda hf=[t.transpose(1, 2) for t in (q4, k4, v4)]: sdpa(*hf))
+
     times = {name: {side: [] for side in fns} for name, fns in pairs.items()}
+    alone_times = {name: [] for name in alone}
     lib_times = {name: [] for name in library}
     for _ in range(args.rounds):
       for name, fns in pairs.items():
-        for side in ("other", "this", "this", "other"):
+        first, second = fns
+        for side in (first, second, second, first):
           times[name][side].append(dev_ms(fns[side], args.iters))
+      for name, fn in alone.items():
+        alone_times[name].append(dev_ms(fn, args.iters))
       for name, fn in library.items():
         lib_times[name].append(dev_ms(fn, args.iters))
 
@@ -344,15 +411,20 @@ def main(argv=None):
   result = {"card": card, "same_bits": same_bits,
             "times": {name: {side: summary(v) for side, v in t.items()}
                       for name, t in times.items()},
-            "library": {name: summary(v) for name, v in lib_times.items()}}
-  print(f"[ab_kernels] K6 bit-equal to the other build: {same_bits}; on "
-        f"{card}", flush=True)
+            "alone": {name: summary(v) for name, v in alone_times.items()},
+            "library": {name: summary(v) for name, v in lib_times.items()},
+            "bound_ms": bounds}
+  print(f"[ab_kernels] bit-equal: {same_bits}; on {card}", flush=True)
   for name, t in result["times"].items():
-    print(f"[ab_kernels] {name}: this {t['this']['median']:.4f} ms "
-          f"({t['this']['min']:.4f}-{t['this']['max']:.4f}), other "
-          f"{t['other']['median']:.4f} ({t['other']['min']:.4f}"
-          f"-{t['other']['max']:.4f}), this/other "
-          f"{t['this']['median'] / t['other']['median']:.3f}", flush=True)
+    (a, ta), (b, tb) = t.items()
+    print(f"[ab_kernels] {name}: {b} {tb['median']:.4f} ms "
+          f"({tb['min']:.4f}-{tb['max']:.4f}), {a} {ta['median']:.4f} "
+          f"({ta['min']:.4f}-{ta['max']:.4f}), {b}/{a} "
+          f"{tb['median'] / ta['median']:.3f}", flush=True)
+  for name, t in result["alone"].items():
+    print(f"[ab_kernels] {name}: this {t['median']:.4f} ms "
+          f"({t['min']:.4f}-{t['max']:.4f}), bound of the attention "
+          f"{bounds[name]:.4f}", flush=True)
   for name, t in result["library"].items():
     print(f"[ab_kernels] {name} library: {t['median']:.4f} ms "
           f"({t['min']:.4f}-{t['max']:.4f})", flush=True)
@@ -360,8 +432,8 @@ def main(argv=None):
     pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
   if not all(same_bits.values()):
-    raise SystemExit("ab_kernels: K6 gives other bits than the other "
-                     "build")
+    raise SystemExit("ab_kernels: bits differ: " + ", ".join(
+        name for name, same in same_bits.items() if not same))
   return result
 
 

@@ -100,3 +100,32 @@ def test_plain_matches_jax_at_head_dims(hd):
         *(jnp.asarray(a, jdt) for a in (q, k, v)), 3, interpret=True)
     np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
                                rtol=tol, atol=tol)
+
+
+# The lengths of ViT-L/16@512 ("map" 1,024, "tok" 1,025) at head dim 32
+# and of ViT-H/14@518 (1,369) at its own head dim, 80: on the card K and V
+# stream through K3's ring there (past 320 keys at head dims up to 64, 384
+# above), with the arithmetic of the plain version, which is the function
+# at every length.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l,hd", [(1024, 32), (1025, 32), (1369, 80)])
+def test_plain_matches_jax_at_long_lengths(l, hd, dtype):
+  """The plain forward (two heads, batch 2) against the interpreted JAX
+  kernel, which holds the whole (L, L) score; bounds of the head-dim-64
+  tests: f32 1e-5 (the same arithmetic, sums in another order), bf16 two
+  ulps at unit magnitude. The row sums run over up to 1,369 terms of at
+  most 2^80 and stay finite."""
+  rng = np.random.default_rng(l + hd)
+  q, k, v = (rng.standard_normal((2, l, 2 * hd)).astype(np.float32)
+             for _ in range(3))
+  dt, jdt = {"float32": (torch.float32, jnp.float32),
+             "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+  tol = 1e-5 if dtype == "float32" else 2**-7
+  got = tattn.attention_packed(*(torch.from_numpy(a).to(dt)
+                                 for a in (q, k, v)), 2)
+  assert got.dtype == dt and got.shape == (2, l, 2 * hd)
+  want = jattn.pallas_attention_packed(
+      *(jnp.asarray(a, jdt) for a in (q, k, v)), 2, interpret=True)
+  np.testing.assert_allclose(got.float().numpy(),
+                             np.asarray(want.astype(jnp.float32)),
+                             rtol=tol, atol=tol)

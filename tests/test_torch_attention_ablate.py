@@ -7,8 +7,9 @@ Pallas interpret mode. The script's own `run_variant` has no `interpret`
 argument, so the test loads the script from its path and builds the same
 `pl.pallas_call` with `interpret=True`. Inputs come from a numpy seed and
 go to both sides as bf16, at a length that is not a multiple of 16 (the TPU
-tile pads it, which `mulmask` can see) and at two that are (80 is not a
-multiple of the card kernel's 64-row tile). `nomm` and `prod`
+tile pads it, which `mulmask` can see) and at three that are (80 is not a
+multiple of the card kernel's 64-row tile; 1,024 is past the lengths whose
+K and V the card kernel keeps resident). `nomm` and `prod`
 are also held against closed-form numpy expressions, so that a misreading
 shared by the two versions cannot pass.
 """
@@ -89,8 +90,10 @@ def _close(got, want, ulps):
 
 
 # 80: a multiple of 16 but not of 64, where the TPU tile has no padded key
-# and the card's 64-row tiles have 48 zero keys that no arm may see.
-@pytest.mark.parametrize("l", [21, 32, 80])
+# and the card's 64-row tiles have 48 zero keys that no arm may see. 1,024:
+# ViT-L/16@512's length, where the card kernel's K and V stream through
+# its ring, every pass walking the keys again.
+@pytest.mark.parametrize("l", [21, 32, 80, 1024])
 @pytest.mark.parametrize("variant", attn.ABLATE_VARIANTS)
 def test_plain_matches_the_jax_body(variant, l):
   q, k, v = _inputs(l, 2, l)

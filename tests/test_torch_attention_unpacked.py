@@ -78,6 +78,26 @@ def _torch_grads(q, k, v, do, dtype):
   return [_np(a.grad) for a in args]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_matches_jax_at_vit_h_518(dtype):
+  """ViT-H/14@518's length, 1,369 (37 x 37 patches), at its head dim 80,
+  two heads: on the card K7's K and V stream through the core's ring
+  there (past 384 keys at head dims over 64); the plain version is the
+  function at every length. Bounds of the tests above: f32 1e-5, bf16 two
+  ulps at unit magnitude."""
+  rng = np.random.default_rng(1369)
+  q, k, v = (rng.standard_normal((B, 1369, 2, 80)).astype(np.float32)
+             for _ in range(3))
+  jdt, dt, tol = {"float32": (jnp.float32, torch.float32, 1e-5),
+                  "bfloat16": (jnp.bfloat16, torch.bfloat16, 2**-7)}[dtype]
+  want = jattn.pallas_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                                interpret=True)
+  got = tattn.fused_attention(*(torch.from_numpy(a).to(dt)
+                                for a in (q, k, v)))
+  assert got.dtype == dt and got.shape == (B, 1369, 2, 80)
+  np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("l,heads", CASES)
 def test_backward_matches_jax_f32(l, heads):
   args = _inputs(l, heads, seed=l + 2)

@@ -102,9 +102,9 @@ def _loss_jax(model, image, labels):
   return loss
 
 
-def _grads_match(config, rel_logits, rel_grads):
-  params = convert.init_params(config, seed=2)
-  image = _image(2)
+def _grads_match(config, rel_logits, rel_grads, params=None, image=None):
+  params = convert.init_params(config, seed=2) if params is None else params
+  image = _image(2) if image is None else image
   labels = np.array([3, 7])
   jmodel = _jax_model(config)
   want, _ = jmodel.apply({"params": params}, image)
@@ -149,6 +149,37 @@ def test_vit_logits_and_gradients_match_jax(attn_impl, pool_type, scan,
     _grads_match(config, F32_TOL, F32_TOL)
   else:
     _grads_match(config, BF16_LOGITS, BF16_GRADS)
+
+
+# ViT-L/16@512's grid (32 x 32 patches: L = 1,024, 1,025 with the class
+# token) and ViT-H/14@518's (37 x 37: 1,369), the ViT paper's fine-tuning
+# resolutions, at the small model's width (patch 8, so 256 and 296 px).
+@pytest.mark.parametrize("grid,pool_type", [(32, "tok"), (32, "map"),
+                                            (37, "tok"), (37, "map")])
+def test_vit_at_fine_tuning_grids_matches_jax(grid, pool_type):
+  """A hi-res fine-tune from a 224 px checkpoint: every leaf drawn on the
+  14 x 14 grid, the learned posemb carried to the grid by each package's
+  `resample_posemb` (the same scipy zoom: the same bits), then the logits
+  and the gradients of a softmax cross-entropy under "pallas" (the JAX side
+  `pallas_interpret`; on the card K3 and K4 stream at these lengths), f32
+  1e-5. `get_posemb`, the class token and MAPHead take the grid as it is."""
+  low = _config(pool_type=pool_type, rep_size=32, dtype_mm="float32",
+                attn_impl="pallas")
+  low["model"]["image_size"] = 8 * 14
+  params = convert.init_params(low, seed=8)
+  old = params["pos_embedding"]
+  assert old.shape == (1, 14 * 14, SMALL["width"])
+  new = np.zeros((1, grid * grid, SMALL["width"]), np.float32)
+  jpos = np.asarray(jvit.resample_posemb(jnp.asarray(old), jnp.asarray(new)))
+  tpos = tvit.resample_posemb(torch.from_numpy(old), torch.from_numpy(new))
+  np.testing.assert_array_equal(_np(tpos), jpos)
+  high = _config(pool_type=pool_type, rep_size=32, dtype_mm="float32",
+                 attn_impl="pallas")
+  high["model"]["image_size"] = 8 * grid
+  image = np.random.default_rng(grid).standard_normal(
+      (2, 8 * grid, 8 * grid, 3)).astype(np.float32)
+  _grads_match(high, F32_TOL, F32_TOL, dict(params, pos_embedding=jpos),
+               image)
 
 
 def test_embedding_dropout_takes_jaxs_masks(monkeypatch):

@@ -144,6 +144,52 @@ def test_fused_mha_matches_jax_bf16(l, heads):
   _assert_bf16_close(_np(got), _np(want))
 
 
+def _mha_kernel_math(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """The body of the JAX `_mha_kernel`, in jnp outside Pallas, over the
+  whole batch."""
+  f32 = jnp.float32
+  dot = lambda a, w: jnp.dot(a, w, preferred_element_type=f32)
+  q, k, v = ((dot(x, w) + bias).astype(x.dtype)
+             for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
+  d = q.shape[-1] // num_heads
+  heads = []
+  for h in range(num_heads):
+    sl = slice(h * d, (h + 1) * d)
+    scores = jnp.einsum("bqd,bkd->bqk", q[..., sl], k[..., sl],
+                        preferred_element_type=f32) * (1.0 / np.sqrt(d))
+    e = jnp.exp(scores - jnp.max(scores, axis=-1, keepdims=True))
+    probs = (e / jnp.sum(e, axis=-1, keepdims=True)).astype(x.dtype)
+    heads.append(jnp.einsum("bqk,bkd->bqd", probs, v[..., sl],
+                            preferred_element_type=f32).astype(x.dtype))
+  attn = jnp.concatenate(heads, axis=-1)
+  return (dot(attn, wo) + bo).astype(x.dtype)
+
+
+# ViT-L/16@512's lengths (1,024 "map", 1,025 "tok") at head dim 64 and
+# ViT-H/14@518's (1,369) at 80, two heads: the card's K6 streams K and V
+# there.
+@pytest.mark.parametrize("l,head_dim", [(1024, 64), (1025, 64), (1369, 80)])
+def test_fused_mha_matches_the_jax_kernel_math_where_the_kernel_refuses(
+    l, head_dim):
+  """Lengths past about 950 that the JAX kernel refuses at every width:
+  its VMEM budget (`_pick_bb`, 11 MiB) must hold the (Lp, Lp) f32 scores
+  of a row. The port computes the same function there (as K5 and K6 do at
+  ViT-H's width); it is held against the kernel's own arithmetic."""
+  rng = np.random.default_rng(l)
+  d = 2 * head_dim
+  n = lambda *s: rng.standard_normal(s).astype(np.float32)
+  args = [n(2, l, d)]
+  for _ in range(4):
+    args += [n(d, d) * 0.08, n(d) * 0.02]
+  jargs = _jax(args, jnp.bfloat16)
+  with pytest.raises(ValueError, match="cannot fit in VMEM"):
+    jfb.fused_mha(*jargs, 2, True)
+  want = _mha_kernel_math(*jargs, 2)
+  got = tfb.fused_mha(*_torch(args, torch.bfloat16), 2)
+  assert got.dtype == torch.bfloat16 and got.shape == (2, l, d)
+  _assert_bf16_close(_np(got), _np(want))
+
+
 def _grads_match(jax_fn, torch_fn, args, l, d):
   co = np.random.default_rng(9).standard_normal((B, l, d)).astype(np.float32)
   want = jax.grad(lambda *a: jnp.sum(jax_fn(*a) * co),

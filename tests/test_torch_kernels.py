@@ -44,10 +44,14 @@ against the plain versions, two launches giving the same bits; a width of
 2,080 and a head dim of 136 raise the named error, with no plain route.
 K6, K7, K8 and each arm of K9 at head dims 8, 16, 80, 88, 104 and 128
 (L = 20, 68, 257 and 260) against their plain versions in the tests of
-each at head dim 64, two launches giving the same bits; K6, K7 and K9 at
-their length limit at head dim 128
-(384) and one past it refused, K8 keeping 4,096; head dims 12 and 136
-refused by all four wrappers, with no launch.
+each at head dim 64, two launches giving the same bits; K3, K6, K7 and K9
+past the lengths whose K and V they keep resident (320 keys at head dims
+up to 64, 384 above), where K and V stream through a ring: at 1,024,
+1,025 and 4,096 (head dim 64) and 1,369 (80), and at head dim 128 from 384
+to 4,096, two launches giving the same bits, and 4,097 refused, the limit
+K4 and K8 share; K3 and K7 streamed at the resident lengths giving the
+resident launch's bits; head dims 12 and 136 refused by all four
+wrappers, with no launch.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -171,19 +175,51 @@ def test_ln_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     ln.ln_modulate_fwd(x.transpose(0, 1), gamma, beta)
 
 
+# The forwards past the heads they keep resident (320 keys at head dims up
+# to 64, 384 above), K and V streamed: ViT-L/16@512's 1,024 ("map") and
+# 1,025 ("tok": 17 query tiles, so the last CTA's second warpgroup
+# recomputes a tile and stores nothing), ViT-H/14@518's 1,369 at head dim
+# 80, and 4,096, the limit they share with K4 and K8: (batch, length, head
+# dim), two heads (four for K6 at 80, whose projections take multiples of
+# 64 columns).
+LONG_CASES = [(2, 1024, 64), (2, 1025, 64), (1, 1369, 80), (1, 4096, 64)]
+MAX_ATTN_LEN = 4096
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("l", [20, 257, 260])
-def test_attention_kernel_matches_plain(cuda, l):
-  q, k, v = (_randn((4, l, 2 * 64), s, cuda, torch.bfloat16)
+@pytest.mark.parametrize("b,l,d", [(4, 20, 64), (4, 257, 64), (4, 260, 64)]
+                         + LONG_CASES)
+def test_attention_kernel_matches_plain(cuda, b, l, d):
+  q, k, v = (_randn((b, l, 2 * d), s, cuda, torch.bfloat16)
              for s in range(3))
   before = _build.LAUNCHES[attn.NAME]
-  got = attn.attention_packed(q, k, v, 2).float()
+  got = attn.attention_packed(q, k, v, 2)
   assert _build.LAUNCHES[attn.NAME] == before + 1
+  assert torch.equal(got, attn.attention_packed(q, k, v, 2))  # no atomics
   want = attn.attention_packed_plain(q, k, v, 2).float()
   # Outputs are convex mixes of N(0,1) values rounded to bf16 (ulp 2^-7 at
   # unit magnitude); scores summed in another order may flip the bf16
   # rounding of a weight e: allow two ulps.
-  torch.testing.assert_close(got, want, rtol=2**-7, atol=2**-7)
+  torch.testing.assert_close(got.float(), want, rtol=2**-7, atol=2**-7)
+
+
+# Lengths where the heads stay resident (up to 320 keys at head dims up to
+# 64, 384 above): the edges of the 64-row tiles, odd tile counts (257 and
+# 320: five, so the streamed launch's last CTA has an idle warpgroup).
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,d", [(1, 64), (63, 64), (65, 64), (257, 64),
+                                 (320, 64), (200, 80), (384, 128)])
+def test_streamed_kernels_give_the_resident_bits(cuda, l, d):
+  """K3 and K7 with K and V streamed through the ring (`streamed=True`,
+  which the wrappers take past the resident lengths) give the bits of the
+  resident launch: the same arithmetic in the same order."""
+  q, k, v = (_randn((3, l, 3 * d), 40 + i, cuda, torch.bfloat16)
+             for i in range(3))
+  assert torch.equal(attn.attention_packed_fwd(q, k, v, 3, streamed=True),
+                     attn.attention_packed_fwd(q, k, v, 3))
+  q4, k4, v4 = (t.view(3, l, 3, d) for t in (q, k, v))
+  assert torch.equal(attn.attention_unpacked_fwd(q4, k4, v4, streamed=True),
+                     attn.attention_unpacked_fwd(q4, k4, v4))
 
 
 # The edges of K3's and K4's 64-row tiles and of their rings of key or
@@ -234,6 +270,9 @@ def test_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
   q = torch.zeros(1, 8, 2 * 136, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="head dim"):
     attn.attention_packed_fwd(q, q, q, 2)
+  # L up to 4,096 at every head dim (the runs: test_attention_kernel_
+  # matches_plain); one past it is refused.
+  assert attn._lib()[1](64) == attn._lib()[1](128) == MAX_ATTN_LEN
   long = torch.zeros(1, attn._lib()[1](64) + 16, 64, dtype=torch.bfloat16,
                      device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
@@ -558,7 +597,8 @@ WIDE_CASES = [(b, l, heads, hd) for hd, heads in WIDE_HEADS
     (128, 257, 12, 64),
     (3, 65, 12, 64), (3, 200, 12, 64),  # ragged: not a multiple of 16 or 64
     (4, 260, 16, 64),  # width 1,024
-    (2, MAX_LEN, 2, 64)] + WIDE_CASES)
+    (2, MAX_LEN, 2, 64)] + WIDE_CASES + [
+        (b, l, 4 if d == 80 else 2, d) for b, l, d in LONG_CASES])
 def test_fused_mha_kernel_matches_plain(cuda, b, l, heads, hd):
   if l == MAX_LEN:
     l = fb.fused_mha_max_len(hd)
@@ -611,9 +651,16 @@ def test_fused_mha_refuses_what_the_kernel_does_not_take(cuda):
     fb.fused_mha_fwd(*narrow, 16)
   with pytest.raises(ValueError, match="bfloat16"):
     fb.fused_mha_fwd(args[0].float(), *args[1:], 2)
+  # 1,024 keys (one head of 64) run, K and V streamed; one past 4,096 is
+  # refused.
   long = _mha_args(cuda, 1, 1024, 1)
+  got = fb.fused_mha_fwd(*long, 1)
+  assert torch.equal(got, fb.fused_mha_fwd(*long, 1))
+  _assert_close_to_max(got, fb.fused_mha_plain(*long, 1), 2)
+  assert fb.fused_mha_max_len(64) == MAX_ATTN_LEN
+  past = _mha_args(cuda, 1, MAX_ATTN_LEN + 1, 1)
   with pytest.raises(ValueError, match="sequence length"):
-    fb.fused_mha_fwd(*long, 1)
+    fb.fused_mha_fwd(*past, 1)
 
 
 @pytest.mark.cuda
@@ -650,7 +697,8 @@ def _qkv_do_4d(device, l, b=4, h=2, seed=0, scale=1.0, d=64):
 @pytest.mark.parametrize("b,l,h,d", [
     (4, 20, 2, 64), (4, 37, 3, 64), (4, 80, 2, 64), (4, 144, 3, 64),
     (4, 257, 12, 64), (4, 260, 12, 64), (4, MAX_LEN, 1, 64),
-    (1, MAX_LEN, 2, 128)] + WIDE_CASES)
+    (1, MAX_LEN, 2, 128)] + WIDE_CASES + [(b, l, 2, d)
+                                         for b, l, d in LONG_CASES])
 def test_unpacked_attention_kernel_matches_plain(cuda, b, l, h, d):
   if l == MAX_LEN:
     l = attn._unpacked_lib()[1](d)
@@ -787,9 +835,18 @@ def test_unpacked_attention_autograd_and_refusals(cuda):
   long = torch.zeros(1, 4097, 1, 64, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_unpacked_bwd(long, long, long, long)
-  # K7 takes its limit (832 at head dim 64, the shared memory that K and V
-  # fill) and refuses one more.
-  assert attn._unpacked_lib()[1](64) == 832
+  # K7 takes 1,025 keys (K and V streamed) and its limit, K8's 4,096,
+  # against its plain version, two launches giving the same bits, and
+  # refuses one more.
+  assert attn._unpacked_lib()[1](64) == MAX_ATTN_LEN
+  for l in (1025, MAX_ATTN_LEN):
+    q7, k7, v7 = (_randn((1, l, 2, 64), 80 + i, cuda, torch.bfloat16)
+                  for i in range(3))
+    got = attn.attention_unpacked_fwd(q7, k7, v7)
+    assert torch.equal(got, attn.attention_unpacked_fwd(q7, k7, v7))
+    torch.testing.assert_close(got.float(),
+                               attn.attention_plain(q7, k7, v7).float(),
+                               rtol=2**-7, atol=2**-7)
   past = long[:, :attn._unpacked_lib()[1](64) + 1]
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_unpacked_fwd(past, past, past)
@@ -833,7 +890,8 @@ ABLATE_ULPS = {"prod": 2, "nosoftmax": 2, "nomm": 0.5, "bf16exp": 4,
     (2, 21, 2, 64), (3, 37, 3, 64),
     # multiples of 16 but not of the 64-row tile
     (2, 80, 2, 64), (2, 144, 3, 64),
-    (2, 257, 12, 64)] + WIDE_CASES)  # five tiles, the decoder's length
+    (2, 257, 12, 64)] + WIDE_CASES  # five tiles, the decoder's length
+    + [(b, l, 2, d) for b, l, d in LONG_CASES])
 @pytest.mark.parametrize("variant", attn.ABLATE_VARIANTS)
 def test_attention_ablate_kernel_matches_plain(cuda, variant, b, l, h, d):
   q, k, v = (_randn((b, l, h * d), s, cuda, torch.bfloat16)
@@ -878,6 +936,13 @@ def test_attention_ablate_refuses_what_the_kernel_does_not_take(cuda):
     attn.attention_ablate(q.float(), q.float(), q.float(), 2, "prod")
   with pytest.raises(ValueError, match="width 128 is not num_heads 3"):
     attn.attention_ablate(q, q, q, 3, "prod")
+  # L up to 4,096 (the runs: test_attention_ablate_kernel_matches_plain);
+  # one past it is refused.
+  assert attn._ablate_lib()[1](64) == MAX_ATTN_LEN
+  long = torch.zeros(1, MAX_ATTN_LEN + 1, 128, dtype=torch.bfloat16,
+                     device=cuda)
+  with pytest.raises(ValueError, match="sequence length"):
+    attn.attention_ablate(long, long, long, 2, "prod")
 
 
 @pytest.mark.cuda
@@ -1092,43 +1157,65 @@ def test_attention_kernels_at_every_head_dim(cuda, hd, l):
     assert err <= 2.0**-6 * w.float().abs().max().item(), err
 
 
+# Head dim 128 (two 64-column tiles a head): the last length whose K and V
+# stay resident (384), one past it, and the long lengths up to 4,096.
+HD128_LENS = [384, 385, 1024, 1025, 1369, MAX_ATTN_LEN]
+
+
 @pytest.mark.cuda
-def test_attention_kernels_at_head_dim_128_limits(cuda):
-  """K3 at head dim 128 up to its own length limit (two tiles a head halve
-  it; it still exceeds the sampler's 260), against the plain version."""
-  max_len = attn._lib()[1](128)
-  assert 260 < max_len < attn._lib()[1](64)
-  q, k, v = (_randn((1, max_len, 2 * 128), 70 + i, cuda, torch.bfloat16)
+@pytest.mark.parametrize("l", HD128_LENS)
+def test_attention_kernels_at_head_dim_128_limits(cuda, l):
+  """K3 at head dim 128 around its resident length and up to the common
+  limit, 4,096, against the plain version, two launches giving the same
+  bits; one past 4,096 refused."""
+  q, k, v = (_randn((1, l, 2 * 128), 70 + i, cuda, torch.bfloat16)
              for i in range(3))
+  got = attn.attention_packed_fwd(q, k, v, 2)
+  assert torch.equal(got, attn.attention_packed_fwd(q, k, v, 2))
   torch.testing.assert_close(
-      attn.attention_packed_fwd(q, k, v, 2).float(),
-      attn.attention_packed_plain(q, k, v, 2).float(),
+      got.float(), attn.attention_packed_plain(q, k, v, 2).float(),
       rtol=2**-7, atol=2**-7)
-  long = torch.zeros(1, max_len + 16, 128, dtype=torch.bfloat16, device=cuda)
+  assert attn._lib()[1](128) == MAX_ATTN_LEN
+  long = torch.zeros(1, MAX_ATTN_LEN + 1, 128, dtype=torch.bfloat16,
+                     device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_packed_fwd(long, long, long, 1)
 
 
 @pytest.mark.cuda
-def test_max_shift_kernels_at_head_dim_128_limits(cuda):
-  """K6, K7 and K9 at head dim 128 up to their own length limit (two tiles
-  a head: 384), and one more refused; K8 keeps its 4,096."""
-  max_len = attn._unpacked_lib()[1](128)
-  assert max_len == fb.fused_mha_max_len(128) == attn._ablate_lib()[1](128)
-  assert 260 < max_len < attn._unpacked_lib()[1](64)
-  assert attn._unpacked_bwd_lib()[1] == 4096
-  q, k, v = (_randn((1, max_len, 2, 128), 95 + i, cuda, torch.bfloat16)
+@pytest.mark.parametrize("l", HD128_LENS)
+def test_max_shift_kernels_at_head_dim_128_limits(cuda, l):
+  """K6, K7 and K9 (its production arm) at head dim 128 around their
+  resident length and up to 4,096, the limit they share with K8, against
+  their plain versions, two launches of each giving the same bits; one
+  past 4,096 refused by each."""
+  assert (attn._unpacked_lib()[1](128) == fb.fused_mha_max_len(128)
+          == attn._ablate_lib()[1](128) == attn._unpacked_bwd_lib()[1]
+          == MAX_ATTN_LEN)
+  q, k, v = (_randn((1, l, 2, 128), 95 + i, cuda, torch.bfloat16)
              for i in range(3))
-  torch.testing.assert_close(attn.attention_unpacked_fwd(q, k, v).float(),
+  got = attn.attention_unpacked_fwd(q, k, v)
+  assert torch.equal(got, attn.attention_unpacked_fwd(q, k, v))
+  torch.testing.assert_close(got.float(),
                              attn.attention_plain(q, k, v).float(),
                              rtol=2**-7, atol=2**-7)
-  long = torch.zeros(1, max_len + 1, 2, 128, dtype=torch.bfloat16,
+  q3, k3, v3 = (t.reshape(1, l, 256) for t in (q, k, v))
+  got = attn.attention_ablate_fwd(q3, k3, v3, 2, "exp2")
+  assert torch.equal(got, attn.attention_ablate_fwd(q3, k3, v3, 2, "exp2"))
+  _assert_close_to_max(got, attn.attention_ablate_plain(q3, k3, v3, 2,
+                                                        "exp2"), 2)
+  args = _mha_args(cuda, 1, l, 2, hd=128)
+  got = fb.fused_mha_fwd(*args, 2)
+  assert torch.equal(got, fb.fused_mha_fwd(*args, 2))
+  _assert_close_to_max(got, fb.fused_mha_plain(*args, 2), 2)
+  long = torch.zeros(1, MAX_ATTN_LEN + 1, 2, 128, dtype=torch.bfloat16,
                      device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_unpacked_fwd(long, long, long)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_ablate_fwd(*(long.reshape(1, -1, 256),) * 3, 2, "exp2")
-  x = torch.zeros(1, max_len + 1, 256, dtype=torch.bfloat16, device=cuda)
+  x = torch.zeros(1, MAX_ATTN_LEN + 1, 256, dtype=torch.bfloat16,
+                  device=cuda)
   w = torch.zeros(256, 256, dtype=torch.bfloat16, device=cuda)
   bias = torch.zeros(256, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
