@@ -3,7 +3,11 @@
   python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build     nvcc builds every kernel under small_vision_tpu_torch/csrc/.
+  1. build     nvcc builds every kernel under small_vision_tpu_torch/csrc/
+               (refused where ptxas serialised wgmma products for a
+               divergent path, C7520), with its seconds and ptxas's
+               registers, spills and notes of each attention kernel at
+               three and four 64-column tiles a head.
   2. kernels   each kernel against its plain PyTorch version on the card,
                with its time, the plain version's, one library call's and
                the bound: the forwards K1, K3, K7 at the shapes of the
@@ -24,18 +28,21 @@ Phases, each fatal on failure:
                launched twice to show equal bits. K1 and K2 also at the
                widths of UMD-S (384) and runlocal (64), timed, and of the
                probe's quick config (32) and ViT-G (1,664), checked; K3
-               and K4 at head dim 128 (6 heads at 768), timed beside SDPA
-               and its backward, and at 8, 16, 80 and 104, checked; each
-               at the sampler's and the training shapes, launched twice
-               (K2 three times, and twice at once on two streams). K6,
-               K7, K8 and the seven arms of K9 at head dims 80 (16 heads at
-               1,280, ViT-H's) and 128 (6 heads at 768), timed beside their
-               library calls and bounds (K6 and K7 at the sampler's and the
-               training shapes, K6 at 80 also at ViT-H/14@224's (64, 256),
-               K8 at the training shapes, K9 at the tool's two), and at 8,
-               16, 88 and 104, checked, each launched twice to show equal
-               bits; head dims 12 and 136 must make each of the four
-               wrappers raise.
+               and K4 at head dims 128, 192 and 256 (6, 4 and 3 heads at
+               768), timed beside SDPA and its backward, and at 8, 16, 80,
+               104, 136, 200 and 248, checked; each at the sampler's and
+               the training shapes, launched twice (K2 three times, and
+               twice at once on two streams). K6, K7, K8 and the seven
+               arms of K9 at head dims 80 (16 heads at 1,280, ViT-H's),
+               128, 192 and 256 (6, 4 and 3 heads at 768), timed beside
+               their library calls and bounds (K6 and K7 at the sampler's
+               and the training shapes, K6 at 80 also at ViT-H/14@224's
+               (64, 256), K8 at the training shapes, K9 at the tool's
+               two), and at 8, 16, 88, 104, 136, 200 and 248, checked,
+               each launched twice to show equal bits; every attention
+               kernel at head dim 256 at (4, 1,024) and (1, 4,096), and K6
+               at width 1,024 in 4 heads of 256, checked; head dims 12
+               and 264 must make each of the six wrappers raise.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
@@ -71,13 +78,23 @@ Phases, each fatal on failure:
                (e) UMD-L/2@256 under `scan=True` at the config's batch of
                1,024 (512 if it runs out of memory), 1 warm-up and 1
                timed step, with its peak memory.
+  4d. heads    UMD-B/4@64 at full width under `heads=4` (4 heads of 192)
+               and `heads=3` (3 of 256): the depth-2+1 model and one
+               training step on the card against the CPU under "pallas"
+               and "pallas_fused" (phase model's bounds), full-depth
+               training at batch 256 under "pallas" through
+               `train_and_evaluate` (requalified img/s, peak memory, K1
+               64, K3 32, K2 64, K4 32 a step), and one 125-step sampler
+               call at batch 64 under each setting (K1 4,032 and K3 2,016;
+               K1 4,032, K6 2,016 and K5 2,016), beside phase train's and
+               serve's 12-head readings. It runs after phase serve.
   4c. classifier the ViT classifier (`models.vit._ViT`) built by name,
                `models.get_model_module("vit").Model(variant=...,
                num_classes=1000, head_zeroinit=False)`, at 224 px, every
                leaf drawn (`convert.init_params`): (a) ViT-B/16 (pool "map" and "tok", L =
                196 and 197) under "pallas" and "pallas_fused" and ViT-H/14
                (L = 256, head dim 80: K6, and K3/K4 in its backward) under
-               "pallas_fused", full width at depth 2 and batch 4, on the
+               "pallas_fused", full width at depth 2 and batch 2, on the
                card against the CPU: the logits within 3e-2 of their max
                and the gradients of a softmax cross-entropy within 5e-2 of
                each leaf's max (phase model's bounds), with the launches of
@@ -132,7 +149,8 @@ Phases, each fatal on failure:
                MLP's two shapes of the training step, (128 x 257, 768) @
                (768, 3,072) and (128 x 257, 3,072) @ (3,072, 768): the
                quantized operands equal to the CPU's, the int32
-               accumulator bit-equal to the CPU's exact integer product,
+               accumulator bit-equal to the CPU's exact integer product
+               at every 8th row,
                the output within one bf16 ulp, timed beside bf16
                F.linear; then the train run of phase train under
                `quant=int8_mlp` and the sampler call under `int8_all`,
@@ -155,7 +173,7 @@ Phases, each fatal on failure:
  11b. eval_only `tools/eval_only.py` on phase resume's workdir (its
                step-6 checkpoint, full width and depth) with
                `eval_ae_i1k.py` (125 sampling steps): a diffusion_sampling
-               evaluator of 256 samples scored (FID, IS) against phase
+               evaluator of 128 samples scored (FID, IS) against phase
                evals' reference statistics with the seeded InceptionV3,
                and the transfer suite (5 shots) on ten seeded arrays
                stand-ins of 4-13 colour-coded classes; each evaluator's
@@ -218,11 +236,11 @@ Phases, each fatal on failure:
                with a time limit of PARALLEL_TIMEOUT, killed on it, which
                fails the phase; the kernels were built before, so no two
                processes run nvcc): an fsdp=2 (`fully_sharded`) run of the
-               same config for 3 steps through `train_and_evaluate`, each
+               same config for 2 steps through `train_and_evaluate`, each
                process on its rows of a seeded global batch of 256 with
                injected draws, against the single-process run on the card
                (losses, step-1 gradients from Adam's nu, parameters after
-               3 steps), with each process's peak memory, its parameters
+               2 steps), with each process's peak memory, its parameters
                and optimizer state, and the host time of its collectives;
                then the same run under ZeRO-1 (replicated parameters,
                sharded optimizer state) and under sharded parameters with
@@ -238,7 +256,7 @@ Phases, each fatal on failure:
  15. tensor    tensor parallelism (the Megatron block) on the one card,
                spawned as phase parallel's (b) with PARALLEL_TIMEOUT:
                UMD-B/4@64 at full width and depth at batch 64 on a seeded
-               batch with injected draws, 3 steps through
+               batch with injected draws, 2 steps through
                `train_and_evaluate`: (a) `tensor_parallel` (T = 2, the
                optimizer state replicated) under `pallas` and (b) under
                `pallas_fused` in two processes, (c) `tp_fsdp` on fsdp 2 x
@@ -263,6 +281,7 @@ import gc
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -387,6 +406,16 @@ def fail(msg):
   sys.exit(1)
 
 
+_START = time.perf_counter()
+
+
+def mark(phase):
+  """Prints the seconds since the script started, once `phase` is done
+  (the script's time limit is shared by every phase)."""
+  print(f"[time] {phase} done at {time.perf_counter() - _START:.1f} s",
+        flush=True)
+
+
 def time_ms(fn, iters=50, warmup=3):
   """Mean device time of one call, by CUDA events over `iters` calls."""
   for _ in range(warmup):
@@ -414,6 +443,33 @@ def phase_build(build):
   libs = build.build_all()
   print(f"[build] {len(libs)} kernel libraries ({', '.join(sorted(libs))}) "
         f"built in {time.perf_counter() - t0:.2f} s", flush=True)
+  # ptxas's report of the attention kernels at three and four 64-column
+  # tiles a head (head dims 136 to 256); the build refuses a library with
+  # wgmma products serialised for a divergent path (C7520).
+  for stem in sorted(libs):
+    for name, r in build.ptxas_report(build.build_log(stem)).items():
+      kernel = _kernel_instance(name)
+      if kernel and kernel[1] >= 3:
+        print(f"[build] {stem}: {kernel[0]}: {r['registers']} registers, "
+              f"spill stores {r['spill_stores']} B, loads "
+              f"{r['spill_loads']} B, notes {r['notes'] or 'none'}",
+              flush=True)
+
+
+def _kernel_instance(mangled):
+  """(readable name, tiles a head) of an attention kernel's mangled name,
+  its template's last int argument being the 64-column tiles of a head;
+  None for other kernels."""
+  m = re.search(r"\d+((?:attn|attention|fused_mha)[a-z_0-9]*?)I("
+                r"(?:N4sm90\d+\w+?E)?(?:L[ib]\d+E)+)E", mangled)
+  if not m:
+    return None
+  ints = [int(i) for i in re.findall(r"Li(\d+)E", m.group(2))]
+  policy = re.search(r"N4sm90\d+(\w+?)E", m.group(2))
+  args = ([policy.group(1)] if policy else []) + [str(i) for i in ints] + [
+      b == "1" and "true" or "false" for b in re.findall(r"Lb(\d)E",
+                                                         m.group(2))]
+  return f"{m.group(1)}<{', '.join(args)}>", ints[-1]
 
 
 def _bound(bytes_moved, ops, peak):
@@ -700,13 +756,14 @@ def _check_ln_bwd_two_streams(ln, cases):
 
 
 def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
-                        b=TRAIN_BATCH // 2, timed=True):
-  """K4 against its plain version at the training shapes (per-branch
-  batch `b`, L = 68, 164, 257), two launches giving equal bits."""
+                        b=TRAIN_BATCH // 2, timed=True, shapes=None):
+  """K4 against its plain version at `shapes`, by default the training
+  shapes (per-branch batch `b`, L = 68, 164, 257), two launches giving
+  equal bits; timed there where `timed`."""
   gen = torch.Generator(device="cuda").manual_seed(3)
   head_dim = width // heads
   max_err, by_len = 0.0, {}
-  for seq in TRAIN_SEQS:
+  for b, seq in shapes or tuple((b, l) for l in TRAIN_SEQS):
     q, k, v, do = (torch.randn(b, seq, width, generator=gen,
                                device="cuda").to(torch.bfloat16)
                    for _ in range(4))
@@ -1151,14 +1208,31 @@ def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
 
 
 # K6-K9 at head dims other than 64 (phase kernels): (head dim, heads,
-# timed). ViT-H's 80 (16 heads at 1,280, the classifier's K6) and the
-# `heads=6` setting's 128 (6 heads at 768) are timed; the narrow 8 and 16
-# (the quick configs' widths) and ViT-g's and ViT-G's 88 and 104 (16 heads
-# at 1,408 and 1,664) are checked. Each at the sampler's (64, 260) and the
-# training shapes (128, L = 68, 164, 257); K6 at 80 also at ViT-H/14@224's
-# (64, 256).
-WIDE_HEAD_DIMS = ((80, 16, True), (128, 6, True), (8, 8, False),
-                  (16, 4, False), (88, 16, False), (104, 16, False))
+# timed). ViT-H's 80 (16 heads at 1,280, the classifier's K6), the
+# `heads=6` setting's 128 (6 heads at 768) and the `heads=4` and `heads=3`
+# settings' 192 and 256 (three and four 64-column tiles a head) are timed;
+# the narrow 8 and 16 (the quick configs' widths), ViT-g's and ViT-G's 88
+# and 104 (16 heads at 1,408 and 1,664), and 136, 200 and 248 (8 heads; a
+# ragged last tile of 8, 8 and 56 columns) are checked. Each at the
+# sampler's (64, 260) and the training shapes (128, L = 68, 164, 257); K6
+# at 80 also at ViT-H/14@224's (64, 256).
+WIDE_HEAD_DIMS = ((80, 16, True), (128, 6, True), (192, 4, True),
+                  (256, 3, True), (8, 8, False), (16, 4, False),
+                  (88, 16, False), (104, 16, False), (136, 8, False),
+                  (200, 8, False), (248, 8, False))
+# K3 and K4 at head dims other than 64 (phase kernels): (width, heads,
+# timed), each at the sampler's and the training shapes. 128, 192 and 256
+# (`heads=6`, `heads=4`, `heads=3` at width 768) timed beside SDPA; 8, 16,
+# 80 and 104 (the quick configs, ViT-H, ViT-G) and 136, 200 and 248 (a
+# ragged last tile) checked.
+PACKED_HEAD_DIMS = ((768, 6, True), (768, 4, True), (768, 3, True),
+                    (32, 4, False), (64, 4, False), (1280, 16, False),
+                    (1664, 16, False), (1088, 8, False), (1600, 8, False),
+                    (1984, 8, False))
+# Every attention kernel at head dim 256 (`heads=3` at width 768) past the
+# lengths of the model (phase kernels, checked): (width, heads, (batch,
+# length)s).
+WIDE_LONG = (WIDTH, 3, ((4, 1024), (1, 4096)))
 WIDE_SHAPES = ((BATCH, SEQ_ENC),) + tuple((TRAIN_BATCH // 2, l)
                                           for l in TRAIN_SEQS)
 # K3, K6, K7 and K9's seven arms past the lengths whose K and V they keep
@@ -1173,10 +1247,10 @@ LONG_ATTENTION = ((1024, 16, ((BATCH, 1024), (BATCH, 1025))),
 
 
 def check_refused_head_dims(attn, fb, build):
-  """A head dim of 12 and of 136 must make each of K6-K9's wrappers raise
-  ValueError, with no launch and no CPU run."""
+  """A head dim of 12 and of 264 must make each of K3, K4 and K6-K9's
+  wrappers raise ValueError, with no launch and no CPU run."""
   build.reset_launches()
-  for head_dim, heads in ((12, 16), (136, 8)):
+  for head_dim, heads in ((12, 16), (264, 8)):
     width = heads * head_dim
     t4 = torch.zeros(1, 20, heads, head_dim, dtype=torch.bfloat16,
                      device="cuda")
@@ -1184,6 +1258,9 @@ def check_refused_head_dims(attn, fb, build):
     w = torch.zeros(width, width, dtype=torch.bfloat16, device="cuda")
     bias = torch.zeros(width, dtype=torch.bfloat16, device="cuda")
     for name, fn in (
+        (attn.NAME, lambda: attn.attention_packed(t3, t3, t3, heads)),
+        (attn.BWD_NAME,
+         lambda: attn.attention_packed_bwd(t3, t3, t3, t3, heads)),
         (fb.MHA_NAME, lambda: fb.fused_mha(t3, *(w, bias) * 4, heads)),
         (attn.UNPACKED_NAME, lambda: attn.fused_attention(t4, t4, t4)),
         (attn.UNPACKED_BWD_NAME,
@@ -1199,7 +1276,7 @@ def check_refused_head_dims(attn, fb, build):
         fail(f"{name} took head dim {head_dim}")
   if build.LAUNCHES:
     fail(f"refused head dims launched {dict(build.LAUNCHES)}")
-  print("[kernels] K6, K7, K8 and K9 refuse head dims 12 and 136 "
+  print("[kernels] K3, K4, K6, K7, K8 and K9 refuse head dims 12 and 264 "
         "(ValueError, no launch)", flush=True)
 
 
@@ -1932,9 +2009,17 @@ def _bf16_ulp(t):
                      torch.zeros_like(t))
 
 
+# Every INT8_ROW_STEP-th row of the int32 accumulator and the output is
+# held against the CPU's exact int64 product (all columns, the full
+# contraction): all 32,896 rows take 34 s of the host, more than the
+# script's time limit leaves.
+INT8_ROW_STEP = 8
+
+
 def check_int8_dot(card):
   """`int8_dot` on the card at the MLP's shapes against the plain integer
-  version on the CPU, on the same operands; timed beside bf16 F.linear."""
+  version on the CPU, on the same operands (the accumulator and the
+  output at every INT8_ROW_STEP-th row); timed beside bf16 F.linear."""
   from small_vision_tpu_torch.ops import quant
 
   gen = torch.Generator(device="cuda").manual_seed(13)
@@ -1950,14 +2035,15 @@ def check_int8_dot(card):
         fail(f"int8 ({m}, {k}) @ ({k}, {n}): {name} on the card differs "
              "from the CPU's")
     acc = quant.int_matmul(ops[0], ops[2])
+    rows = slice(None, None, INT8_ROW_STEP)
     t0 = time.perf_counter()
-    acc_plain = quant.int_matmul(plain_ops[0], plain_ops[2])
+    acc_plain = quant.int_matmul(plain_ops[0][rows], plain_ops[2])
     plain_s = time.perf_counter() - t0
-    if not torch.equal(acc.cpu(), acc_plain):
+    if not torch.equal(acc.cpu()[rows], acc_plain):
       fail(f"int8 ({m}, {k}) @ ({k}, {n}): the int32 accumulator differs "
            "from the plain integer version")
-    y = quant.int8_dot(x, w).float().cpu()
-    y_plain = ((acc_plain.float() * plain_ops[1]) * plain_ops[3]).to(
+    y = quant.int8_dot(x, w).float().cpu()[rows]
+    y_plain = ((acc_plain.float() * plain_ops[1][rows]) * plain_ops[3]).to(
         torch.bfloat16)
     over = ((y - y_plain.float()).abs() > _bf16_ulp(y_plain)).sum().item()
     if over:
@@ -1974,8 +2060,9 @@ def check_int8_dot(card):
         plain_s=plain_s, acc_max=int(acc.abs().max()))
     ops_count = 2.0 * m * k * n
     print(f"[quant] int8_dot ({m}, {k}) @ ({k}, {n}) bf16: int32 "
-          f"accumulator bit-equal to the CPU's int64 product ({plain_s:.1f} "
-          f"s there; |acc| up to {reading['acc_max']}), output within one "
+          f"accumulator bit-equal to the CPU's int64 product at every "
+          f"{INT8_ROW_STEP}th row ({plain_s:.1f} s there; |acc| up to "
+          f"{reading['acc_max']}), output within one "
           f"bf16 ulp; int8_dot {reading['int8_dot_ms']:.4f} ms (quantize + "
           f"_int_mm + rescale), _int_mm alone {reading['int_mm_ms']:.4f} ms "
           f"= {ops_count / reading['int_mm_ms'] / 1e9:.1f} TOPS (B "
@@ -2742,7 +2829,7 @@ def phase_latent_pre(build, card, with_encode):
 
 
 TRANSFER_TRAIN, TRANSFER_TEST, TRANSFER_SHOTS = 8, 4, 5
-EVAL_ONLY_SAMPLES = 256
+EVAL_ONLY_SAMPLES = 128      # within the script's time limit
 
 
 def _transfer_arrays(root):
@@ -2768,7 +2855,7 @@ def _transfer_arrays(root):
 def phase_eval_only(build, card, workdir, ref_stats):
   """`tools/eval_only.py` on phase resume's workdir (UMD-B/4@64 at full
   width and depth, step 6): `eval_ae_i1k.py` with 125 sampling steps, a
-  `diffusion_sampling` evaluator of 256 samples scored against phase
+  `diffusion_sampling` evaluator of 128 samples scored against phase
   evals' reference statistics with the seeded InceptionV3, and the
   transfer suite on ten seeded stand-ins."""
   from small_vision_tpu_torch.configs import parse_config
@@ -2944,8 +3031,10 @@ def phase_export(build, card, workdir):
       rates = ""
       q_exp = q_live = None
       if name == "baked":  # img/s of the artifact beside the live callable
-        q_exp = qualified_calls(lambda: exported(3), BATCH, SAMPLER_RETRIES)
-        q_live = qualified_calls(lambda: live(3), BATCH, SAMPLER_RETRIES)
+        # No requalification (the script's time limit): the windows and
+        # their spread are printed.
+        q_exp = qualified_calls(lambda: exported(3), BATCH, 0)
+        q_live = qualified_calls(lambda: live(3), BATCH, 0)
         rates = (f"; exported {qual_text(q_exp)}; live "
                  f"{qual_text(q_live)} at batch {BATCH}")
       print(f"[serve] exported sampler {name} ({attn_impl}): "
@@ -3157,12 +3246,46 @@ def phase_settings(build, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase heads: UMD-B/4@64 at full width under `heads=4` (4 heads of 192)
+# and `heads=3` (3 heads of 256), whose heads are three and four 64-column
+# tiles in every attention kernel.
+
+HEADS_SETTINGS = (4, 3)
+
+
+def phase_heads(build, card):
+  """Under each of HEADS_SETTINGS: (a) the depth-2+1 model and one
+  training step on the card against the CPU under "pallas" and
+  "pallas_fused" (phase model's bounds and launches); (b) full-depth
+  UMD-B/4@64 at batch 256 under "pallas" through `train_and_evaluate`
+  (finite, falling losses, requalified img/s, peak memory, K1 64, K3 32,
+  K2 64, K4 32 a step); (c) one 125-step sampler call at batch 64 under
+  each setting (K1 4,032 and K3 2,016; K1 4,032, K6 2,016 and K5
+  2,016)."""
+  out = {}
+  for heads in HEADS_SETTINGS:
+    extra = f",heads={heads}"
+    label = f"heads={heads} (head dim {WIDTH // heads})"
+    for attn_impl in ATTN_IMPLS:
+      phase_model(build, card, attn_impl, label, extra)
+    got = {"train": phase_train(build, card, "pallas", tag="heads",
+                                extra=extra, windows=True)}
+    for attn_impl in ATTN_IMPLS:
+      got[attn_impl] = phase_sample_call(build, card, attn_impl,
+                                         tag="heads", extra=extra)
+    out[heads] = got
+  return out
+
+
+# ---------------------------------------------------------------------------
 # Phase classifier: the ViT classifier (models/vit.py's `_ViT`) at 224 px
 # and at the ViT paper's fine-tuning resolutions.
 
 CLS_SIZE, CLS_CLASSES = 224, 1000
 CLS_BATCH = 64                # the full-depth forwards' batch
-CLS_CHECK_BATCH, CLS_CHECK_DEPTH = 4, 2   # (a): card against CPU
+# (a): card against CPU at batch 2: the CPU's depth-2 passes at 512 and
+# 518 px take much of the script's time limit.
+CLS_CHECK_BATCH, CLS_CHECK_DEPTH = 2, 2
 CLS_FORWARDS = 8              # forwards in one timed window of (b) at 224
 # (a): (variant, attn_impl, pool_type, image size) held on the card
 # against the CPU. At 224 "map" at patch 16 is L = 196, "tok" 197;
@@ -3364,7 +3487,7 @@ def phase_classifier(build, card, settings):
 # ---------------------------------------------------------------------------
 # Phase parallel: the parallel layer on the one card.
 
-PARALLEL_STEPS = 3
+PARALLEL_STEPS = 2           # within the script's time limit
 PARALLEL_TIMEOUT = 240.0      # s: each spawned process set is killed on it
 PIPE_MICROBATCHES = 8
 PARALLEL_CONFIG = (f"fsdp=True,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
@@ -3698,13 +3821,14 @@ def phase_parallel(build, card):
   # 256: phase model's loss bound (1e-2 relative: bf16 predictions summed
   # in another order), the step-1 gradients (from Adam's nu) within its
   # leaf-relative 5e-2 (also tests/test_torch_train_step.py's bf16 bound),
-  # and the parameters after 3 steps: 98 % of the elements within 1 % of
-  # lr, every one within 4 lr. That is not test_torch_train_step's bound
+  # and the parameters after the last step: 98 % of the elements within 1 %
+  # of lr, every one within 4 lr. That is not test_torch_train_step's bound
   # (5 % of lr for every element, f32 against JAX at width 64): here the
   # step runs in bf16 at full width, and an element whose step-1 gradient
   # is below the bf16 round-off of its leaf's largest gradient has no sign
   # of its own, so Adam's normalised step (about lr) may go either way in
-  # either run; two steps at lr > 0 move it by 4 lr at most. The phase
+  # either run; two steps at lr > 0 move it by 4 lr at most (the run
+  # takes one: step 1 runs at lr 0). The phase
   # prints the worst element, both runs' step-1 gradient there and that
   # round-off (NVIDIA H100 80GB HBM3, 700 W: 1.028 lr at most, 99.03 %
   # within 1 % of lr, at an element whose step-1 gradient, 4.3e-7, is
@@ -3799,7 +3923,7 @@ def phase_parallel(build, card):
 # Phase tensor: tensor parallelism (the Megatron block) on the one card.
 
 TENSOR_BATCH = 64           # the collectives go through the host over gloo
-TENSOR_STEPS = 3
+TENSOR_STEPS = 2             # within the script's time limit
 TENSOR_FSDP_STEPS = 2
 TENSOR_HEADS = HEADS // 2   # a rank's heads at T = 2
 # The trainer's loss bound against one process (tests/test_fsdp_equivalence.py).
@@ -4111,12 +4235,14 @@ def main():
         f"{torch.version.cuda}; {card}", flush=True)
 
   phase_build(build)
+  mark("build")
   kernels = [check_ln(ln, card), check_attention(attn, card),
              check_ln_bwd(ln, card), check_attention_bwd(attn, card),
              check_fused_mlp(fb, card), check_fused_mha(fb, card),
              check_attention_unpacked(attn, card),
              check_attention_unpacked_bwd(attn, card),
              check_attention_ablate(attn, card)]
+  mark("kernels at the model's shapes")
   # UMD-L/2's width: K1-K4 at the latent sampler's shapes and the latent
   # step's per-branch batch, K6 at the sampler's shapes (not on the L/2
   # path: it waits for the latent path under "pallas_fused").
@@ -4143,22 +4269,24 @@ def main():
             if key not in ("name", "route", "source", "replaces")}
   # The settings' shapes (phase settings): K1 and K2 at UMD-S's width 384
   # and runlocal's 64, timed; at 32 (the probe's quick config) and 1,664
-  # (ViT-G), checked. K3 and K4 at head dim 128 (heads=6 at width 768),
-  # timed beside SDPA; at 8, 16, 80 and 104 (16 heads at ViT-H's 1,280 and
-  # ViT-G's 1,664), checked. Each at the sampler's and the training shapes.
+  # (ViT-G), checked. K3 and K4 at PACKED_HEAD_DIMS: head dims 128, 192
+  # and 256 (heads=6, 4 and 3 at width 768), timed beside SDPA; at 8, 16,
+  # 80, 104, 136, 200 and 248, checked. Each at the sampler's and the
+  # training shapes.
+  mark("kernels at width 1,024 and a rank's heads")
   more = {}
   for width, timed in ((384, True), (64, True), (32, False), (1664, False)):
     more[f"width_{width}"] = {
         ln.NAME: check_ln(ln, card, width, timed=timed),
         ln.BWD_NAME: check_ln_bwd(ln, card, width, timed=timed)}
-  for width, heads, timed in ((768, 6, True), (32, 4, False),
-                              (64, 4, False), (1280, 16, False),
-                              (1664, 16, False)):
+  for width, heads, timed in PACKED_HEAD_DIMS:
     more[f"head_dim_{width // heads}"] = {
         attn.NAME: check_attention(attn, card, width, heads, timed=timed),
         attn.BWD_NAME: check_attention_bwd(attn, card, width, heads,
                                            timed=timed)}
-  # K6-K9 at head dims 80 and 128 (timed) and 8, 16, 88, 104 (checked).
+  # K6-K9 at head dims 80, 128, 192 and 256 (timed; K9's arms at the
+  # tool's two shapes, at 192 and 256 at all four) and 8, 16, 88, 104,
+  # 136, 200 and 248 (checked).
   for head_dim, heads, timed in WIDE_HEAD_DIMS:
     width = heads * head_dim
     k6_shapes = WIDE_SHAPES + (((BATCH, 256),) if head_dim == 80 else ())
@@ -4167,8 +4295,10 @@ def main():
         check_attention_unpacked(attn, card, width, heads, WIDE_SHAPES, timed),
         check_attention_unpacked_bwd(attn, card, width, heads, WIDE_SHAPES,
                                      timed),
-        check_attention_ablate(attn, card, width, heads, WIDE_SHAPES,
-                               timed))})
+        check_attention_ablate(
+            attn, card, width, heads, WIDE_SHAPES, timed,
+            timed_shapes=WIDE_SHAPES if head_dim > 128 else ABLATE_SHAPES))})
+  mark("kernels at the widths and head dims")
   # The long heads: "long_<heads>x<head dim>" in the kernels line.
   for width, heads, shapes in LONG_ATTENTION:
     more[f"long_{heads}x{width // heads}"] = {e["name"]: e for e in (
@@ -4177,6 +4307,24 @@ def main():
         check_attention_unpacked(attn, card, width, heads, shapes),
         check_attention_ablate(attn, card, width, heads, shapes,
                                timed_shapes=shapes))}
+  # Head dim 256 (`heads=3`) at the long lengths, every attention kernel,
+  # checked; K6 at UMD-L's width 1,024 in 4 heads of 256, checked.
+  width, heads, shapes = WIDE_LONG
+  more[f"long_{heads}x{width // heads}"] = {
+      attn.NAME: check_attention(attn, card, width, heads, timed=False,
+                                 shapes=shapes),
+      attn.BWD_NAME: check_attention_bwd(attn, card, width, heads,
+                                         timed=False, shapes=shapes),
+      fb.MHA_NAME: check_fused_mha(fb, card, width, heads, shapes=shapes,
+                                   timed=False),
+      attn.UNPACKED_NAME: check_attention_unpacked(
+          attn, card, width, heads, shapes=shapes, timed=False),
+      attn.UNPACKED_BWD_NAME: check_attention_unpacked_bwd(
+          attn, card, width, heads, shapes=shapes, timed=False),
+      attn.ABLATE_NAME: check_attention_ablate(
+          attn, card, width, heads, shapes=shapes, timed=False)}
+  more["width_1024_4x256"] = {fb.MHA_NAME: check_fused_mha(
+      fb, card, L2_WIDTH, 4, FUSED_SHAPES[:1], timed=False)}
   gc.collect()
   torch.cuda.empty_cache()  # the plain versions' (B, H, L, L) scores
   check_refused_head_dims(attn, fb, build)
@@ -4185,36 +4333,53 @@ def main():
       if k["name"] in entries:
         k[key] = {n: v for n, v in entries[k["name"]].items()
                   if n not in ("name", "route", "source", "replaces")}
+  mark("kernels")
   for attn_impl in ATTN_IMPLS:
     phase_model(build, card, attn_impl)
   for label, attn_impl, extra, model, per_block, rate in MODEL_SETTINGS:
     phase_model(build, card, attn_impl, label, extra, model, per_block,
                 rate)
+  mark("model")
   train = {a: phase_train(build, card, a, windows=True) for a in ATTN_IMPLS}
+  mark("train")
   settings = phase_settings(build, card)
+  mark("settings")
   classifier = phase_classifier(build, card, settings)
+  mark("classifier")
   serve = {"pallas": phase_serve(build, card),
            "pallas_fused": phase_sample_call(build, card, "pallas_fused",
                                              windows=True)}
+  mark("serve")
+  by_heads = phase_heads(build, card)
+  mark("heads")
   data = phase_data(build, card, train["pallas"])
+  mark("data")
   unpacked = phase_unpacked(build, attn, card)
   ablate = phase_ablate(build, attn, card)
+  mark("unpacked, ablate")
   backbone = tempfile.mkdtemp(prefix="sv_backbone_")
   try:
     resume = phase_resume(build, card, train["pallas"]["img_per_s"],
                           backbone)
+    mark("resume")
     quant = phase_quant(build, card, train, serve)
+    mark("quant")
     ref_stats = os.path.join(backbone, "fid_ref.npz")
     evals = phase_evals(build, card, keep_ref=ref_stats)
+    mark("evals")
     eval_o = phase_eval_only(build, card, backbone, ref_stats)
     export = phase_export(build, card, backbone)
+    mark("eval_only, export")
     latent = phase_latent(build, card)
     latent_pre = phase_latent_pre(build, card, latent["train"])
+    mark("latent")
     probe = phase_probe(build, card, backbone)
   finally:
     shutil.rmtree(backbone, ignore_errors=True)
   parallel = phase_parallel(build, card)
+  mark("probe, parallel")
   tensor = phase_tensor(build, card)
+  mark("tensor")
   for k in kernels:
     # Launches on the paths driven above, each counted from 0: the sampler
     # call and the training run under "pallas", the same two under
@@ -4269,6 +4434,11 @@ def main():
            for key, got in classifier["timed"].items()},
         "classifier_sampler_heads6_fused":
             classifier["sampler"]["launches"].get(name, 0),
+        **{f"heads{h}_train_pallas_{got['train']['steps']}_steps":
+           got["train"]["launches"].get(name, 0)
+           for h, got in by_heads.items()},
+        **{f"heads{h}_sampler_{a}": got[a]["launches"].get(name, 0)
+           for h, got in by_heads.items() for a in ATTN_IMPLS},
         f"parallel_a_nccl_{PARALLEL_STEPS}_steps":
             parallel["a"]["launch"]["launches"].get(name, 0),
         **{f"parallel_b_fsdp2_process{r}_{PARALLEL_STEPS}_steps":
@@ -4374,6 +4544,18 @@ def main():
         + f"; heads=6 sampler under pallas_fused {cs['img_per_s']:.2f} img/s "
         f"({cs['launches'].get('fused_mha_fwd', 0)} K6 at head dim 128; "
         f"pallas {settings['b']['img_per_s']:.2f}); on {card}", flush=True)
+
+  print("[result] heads: " + "; ".join(
+      f"heads={h} (head dim {WIDTH // h}): training under pallas "
+      f"{qual_text(got['train']['qual'])}, "
+      f"{got['train']['ms']:.2f} ms/step, "
+      f"peak {got['train']['peak_gb']:.2f} GB; sampler "
+      + ", ".join(f"{a} {got[a]['img_per_s']:.2f} img/s" for a in ATTN_IMPLS)
+      for h, got in by_heads.items())
+        + f" (12 heads: training {train['pallas']['img_per_s']:.2f} img/s, "
+        f"peak {train['pallas']['peak_gb']:.2f} GB; sampler " + ", ".join(
+            f"{a} {serve[a]['img_per_s']:.2f}" for a in ATTN_IMPLS)
+        + f"); on {card}", flush=True)
 
   pa, pf, pp = parallel["a"], parallel["fsdp"], parallel["pipe"]
   print(f"[result] parallel: (a) fsdp=True on NCCL, one rank "

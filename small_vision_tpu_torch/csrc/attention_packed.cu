@@ -1,5 +1,5 @@
 // Bidirectional attention on packed (B, L, H*D) bf16 tensors, forward, for
-// Hopper (sm_90a), at any head dim D that is a multiple of 8 up to 128.
+// Hopper (sm_90a), at any head dim D that is a multiple of 8 up to 256.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_kernel_packed (reached
 // via pallas_attention_packed / fused_attention_packed). Per (batch, head):
@@ -63,9 +63,10 @@
 // latency more than to products, and four heads in flight on an SM hide it
 // better than two heads with two warpgroups each.
 
-// Head dims. A head is one 64-column tile (D <= 64) or two (64 < D <=
-// 128): the template's NT. Each tile is a TMA box of a 4-D tensor map over
-// (D, H, L, B), so columns at or past D arrive as zeros, and a head
+// Head dims. A head is one 64-column tile (D <= 64), two (64 < D <= 128),
+// three (<= 192) or four (<= 256): the template's NT. Each tile is a TMA
+// box of a 4-D tensor map over (D, H, L, B), so columns at or past D
+// arrive as zeros (D = 136 or 200: a ragged last tile), and a head
 // narrower than its tiles never reads the next head's columns: the padded
 // columns of Q and K add 0 to the scores, those of V give 0 columns of O,
 // which the store drops. The scale is the true D's. Two tiles a head
@@ -75,7 +76,7 @@
 // products are the same per head-row, and the exps, B*H*L^2, halve with H.
 //
 // Long heads: K and V stream. Resident blocks fit up to L = 832 at D <= 64
-// and 384 above (13 and 6 blocks), but past 320 at D <= 64 only one CTA an
+// and 384 to 128 (13 and 6 blocks), but past 320 at D <= 64 only one CTA an
 // SM. Past 320 and 384 (ViT-B/16@384: L = 576; ViT-L/16@512: 1,024 or
 // 1,025 at D = 64; ViT-H/14@518: 1,369 at D = 80) the kernel's kStream
 // instantiation keeps a ring of kRingStages K and V stages instead (5 of
@@ -102,6 +103,26 @@
 // nothing is rescaled. The row sum of up to 4,096 terms of at most 2^80
 // is below 2^92, far inside f32. L goes up to 4,096, K4's limit.
 
+// Wide heads: three or four tiles (128 < D <= 256; `heads=4` at width 768
+// is D = 192, `heads=3` 256) stream at every length. A resident head would
+// hold 2 (D = 256) or 3 key blocks, and a ring stage of K and V together
+// (48 or 64 KB) leaves beside the two warpgroups' Q tiles (48 or 64 KB)
+// room for 3 or 2 stages: the ring would run 1 or 0 blocks ahead, no copy
+// in flight during the products. So there a stage holds one head of K or
+// of V (24 or 32 KB, split_kv), block j's K and V are ring uses 2 j and 2 j
+// + 1, and 7 stages (D <= 192) or 5 (D <= 256) keep the ring 5 or 3 uses
+// ahead (222 and 230 KB of shared memory, one CTA an SM). Other choices
+// weighed: one query tile a CTA with O's columns split between its two
+// warpgroups halves O's registers but computes every S and exp twice;
+// three stages of a smaller (32-key) block would change the order of the
+// sums. A warp holds at most the use it waits for and the one before: V_j,
+// its P V product in flight with K_{j+1}'s S product, while it waits for
+// K_{j+1}; V_j and K_{j+1} are released together after the wait, K_0 after
+// the first S product. Registers: O's accumulator is 96 or 128 a thread,
+// with S (32) and e (16) under the 255 that one 256-thread CTA an SM
+// allows (ptxas's report: the build log). The arithmetic and the order of
+// the sums are D <= 128's: the same function of the plain version.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,7 +131,7 @@
 
 namespace {
 
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 256;
 constexpr int kMaxLen = 4096;
 constexpr int kTile = sm90::kTileRows;
 constexpr int kTileBytes = sm90::kTileBytes;
@@ -120,17 +141,24 @@ constexpr float kClamp = 80.f;
 constexpr int kSmemLimit = 232448;
 constexpr int kSmemPerSM = 233472;  // blocks an SM holds: 1 KB each reserved
 
-// Stages of the streamed ring: two CTAs an SM at one tile a head, one at
-// two (see kernel's launch bounds).
-template <int NT>
-constexpr int kRingStages = NT == 1 ? 5 : 6;
+// Whether a ring stage holds one head of K or of V, not both (wide heads).
+__host__ __device__ constexpr bool split_kv(int nt) { return nt > 2; }
 
-// 1 KB to align the tiles; `stages` K and `stages` V blocks and one Q tile
-// a warpgroup, each of nt 64-column tiles; barriers: one a stage (two when
-// streamed: full and empty), one a Q tile.
+// Stages of the streamed ring: two CTAs an SM at one tile a head, one at
+// two or more (see kernel's launch bounds); at three and four as many
+// single K or V blocks as fit.
+template <int NT>
+constexpr int kRingStages = NT == 1 ? 5 : NT == 2 ? 6 : NT == 3 ? 7 : 5;
+
+// 1 KB to align the tiles; `stages` K and `stages` V blocks (split_kv:
+// `stages` blocks of either) and one Q tile a warpgroup, each of nt
+// 64-column tiles; barriers: one a stage (two when streamed: full and
+// empty), one a Q tile.
 __host__ __device__ constexpr size_t smem_bytes(int stages, int groups,
                                                 int nt, bool stream = false) {
-  return 1024 + static_cast<size_t>(2 * stages + groups) * nt * kTileBytes +
+  return 1024 +
+         static_cast<size_t>((split_kv(nt) ? 1 : 2) * stages + groups) * nt *
+             kTileBytes +
          8 * static_cast<size_t>((stream ? 2 : 1) * stages + groups);
 }
 static_assert(2 * (smem_bytes(kRingStages<1>, 2, 1, true) + 1024) <=
@@ -138,18 +166,27 @@ static_assert(2 * (smem_bytes(kRingStages<1>, 2, 1, true) + 1024) <=
               "two streamed CTAs an SM at one tile a head");
 static_assert(smem_bytes(kRingStages<2>, 2, 2, true) <= kSmemLimit,
               "one streamed CTA an SM at two tiles a head");
+static_assert(smem_bytes(kRingStages<3>, 2, 3, true) <= kSmemLimit &&
+                  smem_bytes(kRingStages<3> + 1, 2, 3, true) > kSmemLimit,
+              "the most single-block stages at three tiles a head");
+static_assert(smem_bytes(kRingStages<4>, 2, 4, true) <= kSmemLimit &&
+                  smem_bytes(kRingStages<4> + 1, 2, 4, true) > kSmemLimit,
+              "the most single-block stages at four tiles a head");
 
 // Whether a head of nkb key blocks stays resident: while its CTA fits an
 // SM as often as the streamed one (two at one tile a head, L <= 320; one
 // at two, L <= 384). Past that, resident heads ran one CTA an SM where the
-// streamed kernel runs two, and read slower (PERF.md).
+// streamed kernel runs two, and read slower (PERF.md). Never at three or
+// four tiles a head.
 constexpr bool resident(int nkb, int nt) {
-  return (nt == 1 ? 2 : 1) * (smem_bytes(nkb, 2, nt) + 1024) <= kSmemPerSM;
+  return !split_kv(nt) &&
+         (nt == 1 ? 2 : 1) * (smem_bytes(nkb, 2, nt) + 1024) <= kSmemPerSM;
 }
 
 // One tile a head: 128 registers a thread either way, two CTAs of two
-// warpgroups, or four of one, an SM. Two tiles: half as many CTAs. kStream
-// (two warpgroups only): K and V through the ring, grid (tile pairs, H, B).
+// warpgroups, or four of one, an SM. Two tiles or more: half as many CTAs.
+// kStream (two warpgroups only): K and V through the ring, grid (tile
+// pairs, H, B); at three and four tiles, split_kv.
 template <int kGroups, int NT, bool kStream>
 __global__ void __launch_bounds__(128 * kGroups, (NT == 1 ? 4 : 2) / kGroups)
 attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -159,15 +196,19 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                             int num_heads, int head_dim, float scale_log2) {
   constexpr int kHeadBytes = NT * kTileBytes;
   constexpr int kRing = kRingStages<NT>;
+  constexpr bool kSplit = split_kv(NT);
+  static_assert(kStream || !kSplit, "three or four tiles a head stream");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_tiles(smem_raw);
   const int nkb = (seq_len + kTile - 1) / kTile;
   const int nqt = nkb;
   // Resident: block j of K and V in stage j, each loaded once. Streamed:
-  // in stage j % kRing.
+  // in stage j % kRing; kSplit: block j's K is ring use 2 j, its V 2 j + 1,
+  // each in a stage of its own.
   const int stages = kStream ? kRing : nkb;
+  const int uses = kSplit ? 2 * nkb : nkb;
   uint8_t* k_s = smem;                       // stage s at s * NT * 8 KB
-  uint8_t* v_s = k_s + stages * kHeadBytes;
+  uint8_t* v_s = kSplit ? k_s : k_s + stages * kHeadBytes;
   uint8_t* q_s = v_s + stages * kHeadBytes;  // warpgroup w's at w * NT * 8 KB
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kHeadBytes);
   uint64_t* q_full = kv_full + stages;
@@ -205,9 +246,20 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     load_head(v_s + s * kHeadBytes, &tm_v, bar, j * kTile);
   };
   // Streamed: the same where `issue` holds; every consumer thread calls it
-  // and thread 0 alone copies, predicated (see sm90::Ring).
+  // and thread 0 alone copies, predicated (see sm90::Ring). kSplit: use j
+  // is block j / 2's K (even) or V (odd).
   auto ring_load = [&](int j, int s, uint64_t* bar, bool issue) {
     const bool copy = issue && tid == 0;
+    if constexpr (kSplit) {
+      sm90::mbar_arrive_expect_tx_if(bar, kHeadBytes, copy);
+#pragma unroll
+      for (int c = 0; c < NT; ++c) {
+        sm90::tma_load_4d_if(k_s + s * kHeadBytes + c * kTileBytes,
+                             (j & 1) ? &tm_v : &tm_k, bar, c * 64, head,
+                             (j >> 1) * kTile, batch, copy);
+      }
+      return;
+    }
     sm90::mbar_arrive_expect_tx_if(bar, 2 * kHeadBytes, copy);
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
@@ -232,7 +284,7 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       load_head(q_s + w * kHeadBytes, &tm_q, &q_full[w], t * kTile);
     }
     if constexpr (kStream) {
-      ring.prime(nkb, ring_load);
+      ring.prime(uses, ring_load);
     } else {
       for (int j = 0; j < nkb; ++j) load_kv(j, j, &kv_full[j]);
     }
@@ -247,18 +299,21 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                        head * head_dim;
   uint8_t* my_q = q_s + wg * kHeadBytes;
   auto stage = [&](int j) { return kStream ? ring.stage(j) : j; };
-  // Key block j's K and V have landed (streamed: the ring's wait, which
-  // first issues block j + kAhead).
+  // Key block j's K and V uses (one use for both unless kSplit).
+  auto k_use = [&](int j) { return kSplit ? 2 * j : j; };
+  auto v_use = [&](int j) { return kSplit ? 2 * j + 1 : j; };
+  // Key block j's K (and V unless kSplit) has landed (streamed: the ring's
+  // wait, which first issues use k_use(j) + kAhead).
   auto wait_kv = [&](int j) {
     if constexpr (kStream) {
-      ring.wait(j, nkb, ring_load);
+      ring.wait(k_use(j), uses, ring_load);
     } else {
       sm90::mbar_wait(&kv_full[j], 0);
     }
   };
   // S = Q K_j^T over the head's NT tiles of columns.
   auto scores = [&](float (&sacc)[32], int j) {
-    uint8_t* k_j = k_s + stage(j) * kHeadBytes;
+    uint8_t* k_j = k_s + stage(k_use(j)) * kHeadBytes;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
       sm90::gemm_nt(sacc, sm90::desc_k_major(my_q + c * kTileBytes),
@@ -294,6 +349,7 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence(sacc);
+    if constexpr (kSplit) ring.release(k_use(0), lane);
 
     for (int j = 0; j < nkb; ++j) {
 #pragma unroll
@@ -313,11 +369,12 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
       sm90::pack_a(pa, sacc);
+      if constexpr (kSplit) ring.wait(v_use(j), uses, ring_load);
       sm90::wgmma_fence();
 #pragma unroll
       for (int c = 0; c < NT; ++c) {
         sm90::gemm_rn(oacc[c], pa,
-                      sm90::desc_mn_major(v_s + stage(j) * kHeadBytes +
+                      sm90::desc_mn_major(v_s + stage(v_use(j)) * kHeadBytes +
                                           c * kTileBytes),
                       j > 0);
       }
@@ -330,8 +387,10 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int c = 0; c < NT; ++c) sm90::fence(oacc[c]);
       sm90::fence(sacc);
-      // Block j's K and V are read: this warp releases its stage.
-      if constexpr (kStream) ring.release(j, lane);
+      // Block j's K and V are read: this warp releases its stage (kSplit:
+      // V_j's and, its S product done, K_{j+1}'s).
+      if constexpr (kStream) ring.release(v_use(j), lane);
+      if constexpr (kSplit) ring.release_if(k_use(j + 1), lane, j + 1 < nkb);
     }
 
     refill_q(t);
@@ -388,22 +447,28 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 }
 
 // The resident kernel where a head's K and V fit (one warpgroup a CTA for
-// short heads, as before), else, or when `stream`, the streamed one.
+// short heads, as before), else, or when `stream`, the streamed one; at
+// three or four tiles a head, the streamed one always.
 template <int NT>
 cudaError_t launch_nt(const CUtensorMap& tq, const CUtensorMap& tk,
                       const CUtensorMap& tv, void* o, int batch, int seq_len,
                       int num_heads, int head_dim, float scale_log2,
                       bool stream, cudaStream_t s) {
   const int nkb = (seq_len + kTile - 1) / kTile;
-  if (stream || !resident(nkb, NT)) {
+  if constexpr (split_kv(NT)) {  // wide heads stream at every length
     return launch<2, NT, true>(tq, tk, tv, o, batch, seq_len, num_heads,
                                head_dim, scale_log2, s);
+  } else {
+    if (stream || !resident(nkb, NT)) {
+      return launch<2, NT, true>(tq, tk, tv, o, batch, seq_len, num_heads,
+                                 head_dim, scale_log2, s);
+    }
+    return nkb <= kShortTiles
+               ? launch<1, NT, false>(tq, tk, tv, o, batch, seq_len,
+                                      num_heads, head_dim, scale_log2, s)
+               : launch<2, NT, false>(tq, tk, tv, o, batch, seq_len,
+                                      num_heads, head_dim, scale_log2, s);
   }
-  return nkb <= kShortTiles
-             ? launch<1, NT, false>(tq, tk, tv, o, batch, seq_len, num_heads,
-                                    head_dim, scale_log2, s)
-             : launch<2, NT, false>(tq, tk, tv, o, batch, seq_len, num_heads,
-                                    head_dim, scale_log2, s);
 }
 
 int run(const void* q, const void* k, const void* v, void* o, int batch,
@@ -423,12 +488,14 @@ int run(const void* q, const void* k, const void* v, void* o, int batch,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t (*const by_tiles[4])(const CUtensorMap&, const CUtensorMap&,
+                                   const CUtensorMap&, void*, int, int, int,
+                                   int, float, bool, cudaStream_t) = {
+      launch_nt<1>, launch_nt<2>, launch_nt<3>, launch_nt<4>};
   const cudaError_t err =
-      head_dim <= 64
-          ? launch_nt<1>(tq, tk, tv, o, batch, seq_len, num_heads, head_dim,
-                         scale_log2, stream, s)
-          : launch_nt<2>(tq, tk, tv, o, batch, seq_len, num_heads, head_dim,
-                         scale_log2, stream, s);
+      by_tiles[(head_dim + 63) / 64 - 1](tq, tk, tv, o, batch, seq_len,
+                                         num_heads, head_dim, scale_log2,
+                                         stream, s);
   return static_cast<int>(err);
 }
 
@@ -442,7 +509,7 @@ extern "C" int attention_packed_max_head_dim() { return kMaxHeadDim; }
 extern "C" int attention_packed_max_len(int) { return kMaxLen; }
 
 // q, k, v, o: (B, L, H*head_dim) bf16, contiguous, 16-byte aligned;
-// head_dim a multiple of 8 up to 128, L up to 4,096. scale_log2 =
+// head_dim a multiple of 8 up to 256, L up to 4,096. scale_log2 =
 // head_dim**-0.5 * log2(e) in f32. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a head dim or length past the limits or a
 // tensor map that cannot be encoded.

@@ -1,5 +1,5 @@
 // Bidirectional attention on packed (B, L, H*D) bf16 tensors, backward,
-// for Hopper (sm_90a), at any head dim D that is a multiple of 8 up to 128.
+// for Hopper (sm_90a), at any head dim D that is a multiple of 8 up to 256.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_bwd_kernel_packed
 // (reached via _pallas_attention_packed_bwd_impl, the custom VJP of
@@ -80,12 +80,35 @@
 // are needed (272 with a narrower last block), 24 % more score products and
 // exp2 than the work; at L=68, 2 blocks, 128 columns for 68.
 
-// Head dims, as in the forward (attention_packed.cu): a head is NT = 1 or
-// 2 tiles of 64 columns, read by TMA boxes of a (D, H, L, B) tensor map
+// Head dims, as in the forward (attention_packed.cu): a head is NT = 1 to
+// 4 tiles of 64 columns, read by TMA boxes of a (D, H, L, B) tensor map
 // that arrive as zeros past D, so padded columns add 0 to every score and
 // dP, and give 0 columns of dQ, dK and dV, which the stores drop. At NT =
 // 2 every tile doubles: (a) 97 KB, two CTAs an SM; (b) 161 KB and the dK
 // and dV accumulators 128 registers, one CTA an SM with up to 255 a thread.
+//
+// Wide heads, NT = 3 or 4 (128 < D <= 256: `heads=4` and `heads=3` at
+// width 768). (a) fits as it is: 1 KB + 6 x NT x 8 KB (145 or 193 KB), one
+// CTA an SM, its dQ accumulator 96 or 128 registers beside S and dP (64).
+// (b) does not: its ring would take 2 x 4 x NT x 8 KB (192 or 256 KB) and
+// its dK and dV accumulators 192 or 256 registers a thread. So at NT >= 3
+// (b) becomes attn_bwd_dkdv_cols: the grid's first axis takes each key
+// tile twice, and CTA half h accumulates only the column tiles 2 h and 2 h
+// + 1 of dK and dV (kColTiles; 128 accumulator registers). Each half
+// recomputes S^T and dP^T over all NT tiles of D (the contraction needs
+// them; the two halves of a tile are neighbours in the grid, so Q and dO
+// come from L2 the second time), and scales only its own two column tiles
+// of Q and dO, in place in the stage (the S^T and dP^T products are done
+// with them by then), so a stage is Q and dO only: 2 stages x 2 x 4 tiles,
+// 194 KB (NT = 4; 178 KB at 3). At NT = 3 the stage's operands keep room
+// for a fourth tile, which TMA never writes: the second half's products
+// with it land in accumulator columns 192-255, which the store drops. The
+// scaling now waits for the products instead of running beside the
+// previous block's updates (a named barrier before the in-place writes,
+// one after them). The arithmetic, its rounding points and the order of
+// every sum are (b)'s: each output element still comes from one
+// accumulator in a fixed order, no atomics, the same bits launch to launch.
+// The kernels at NT <= 2 are unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,7 +118,7 @@
 
 namespace {
 
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 256;
 constexpr int kTile = sm90::kTileRows;
 constexpr int kTileBytes = sm90::kTileBytes;
 constexpr int kStages = 2;
@@ -116,6 +139,16 @@ constexpr size_t dkdv_smem(int nt) {
   return 1024 + (2 + 4 * kStages) * nt * kTileBytes +
          kStages * 2 * kTile * 4 + 64;
 }
+// Wide heads' (b), attn_bwd_dkdv_cols: K, V; kStages x (Q, dO), each of
+// kOpTiles tiles; kStages x (r, c); barriers.
+constexpr int kColTiles = 2;             // dK and dV column tiles a CTA
+constexpr int kOpTiles = 2 * kColTiles;  // a stage's Q or dO buffer
+constexpr size_t dkdv_cols_smem(int nt) {
+  return 1024 + (2 * nt + 2 * kStages * kOpTiles) * kTileBytes +
+         kStages * 2 * kTile * 4 + 64;
+}
+static_assert(dq_smem(4) <= 232448 && dkdv_cols_smem(4) <= 232448,
+              "one CTA an SM at four tiles a head");
 
 // A head's NT tiles of 64 rows from `row` (zeros past D and L).
 template <int NT>
@@ -178,7 +211,7 @@ __device__ __forceinline__ float exp2_clamped(float s, float scale_log2) {
 }
 
 template <int NT>
-__global__ void __launch_bounds__(kThreads, NT == 1 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads, NT == 1 ? 3 : NT == 2 ? 2 : 1)
 attn_bwd_dq(const __grid_constant__ CUtensorMap tm_q,
             const __grid_constant__ CUtensorMap tm_k,
             const __grid_constant__ CUtensorMap tm_v,
@@ -503,6 +536,187 @@ attn_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
                  head_dim);
 }
 
+// (b) at three or four tiles a head: as attn_bwd_dkdv, for the column
+// tiles c0 = 2 (blockIdx.x & 1) and c0 + 1 of dK and dV of key tile
+// blockIdx.x / 2 (see the header), Q and dO scaled in place.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dkdv_cols(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv,
+                   const float* __restrict__ r_in,
+                   const float* __restrict__ c_in, int seq_len,
+                   int num_heads, int head_dim, float scale_log2,
+                   float scale) {
+  constexpr int kHeadBytes = NT * kTileBytes;
+  constexpr int kOpBytes = kOpTiles * kTileBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align_tiles(smem_raw);
+  uint8_t* k_s = smem;
+  uint8_t* v_s = smem + kHeadBytes;
+  // Stage s: Q at 2 s kOpBytes, dO kOpBytes further.
+  uint8_t* ring = smem + 2 * kHeadBytes;
+  float* rc_s = reinterpret_cast<float*>(ring + 2 * kStages * kOpBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rc_s + kStages * 2 * kTile);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int kt = blockIdx.x >> 1;
+  const int c0 = (blockIdx.x & 1) * kColTiles;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int nqb = (seq_len + kTile - 1) / kTile;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  if (tid == kConsumers) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 32);  // every producer lane writes r and c
+      sm90::mbar_init(&empty[s], kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // producer
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(kv_full, 2 * kHeadBytes);
+      load_head<NT>(k_s, &tm_k, kv_full, head, kt * kTile, batch);
+      load_head<NT>(v_s, &tm_v, kv_full, head, kt * kTile, batch);
+    }
+    const size_t rc = (static_cast<size_t>(batch) * num_heads + head) *
+                      seq_len;
+    for (int qb = 0; qb < nqb; ++qb) {
+      const int s = qb % kStages;
+      if (qb >= kStages) sm90::mbar_wait(&empty[s], (qb / kStages - 1) & 1);
+      float* r_s = rc_s + s * 2 * kTile;
+      for (int j = lane; j < kTile; j += 32) {
+        const int qi = qb * kTile + j;
+        r_s[j] = qi < seq_len ? r_in[rc + qi] : 0.f;
+        r_s[kTile + j] = qi < seq_len ? c_in[rc + qi] : 0.f;
+      }
+      if (lane == 0) {
+        uint8_t* st = ring + 2 * s * kOpBytes;
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * kHeadBytes);
+        load_head<NT>(st, &tm_q, &full[s], head, qb * kTile, batch);
+        load_head<NT>(st + kOpBytes, &tm_do, &full[s], head, qb * kTile,
+                      batch);
+      } else {
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  sm90::mbar_wait(kv_full, 0);
+
+  float dkacc[kColTiles][32], dvacc[kColTiles][32];
+  for (int qb = 0; qb < nqb; ++qb) {
+    const int s = qb % kStages;
+    sm90::mbar_wait(&full[s], (qb / kStages) & 1);
+    uint8_t* st = ring + 2 * s * kOpBytes;
+    const float* r_s = rc_s + s * 2 * kTile;
+    const float* c_s = r_s + kTile;
+    float sacc[32], pacc[32];
+    sm90::wgmma_fence();
+    gemm_nt_head<NT>(sacc, k_s, st);
+    gemm_nt_head<NT>(pacc, v_s, st + kOpBytes);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence(sacc);
+    sm90::fence(pacc);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = nt * 8 + 2 * t4 + (i & 1);
+        const float e = qb * kTile + col < seq_len
+                            ? exp2_clamped(sacc[4 * nt + i], scale_log2)
+                            : 0.f;
+        sacc[4 * nt + i] = e;
+        pacc[4 * nt + i] = e * (pacc[4 * nt + i] - c_s[col]);
+      }
+    }
+    uint32_t ea[16], dsa[16];
+    sm90::pack_a(ea, sacc);
+    sm90::pack_a(dsa, pacc);
+    // Every warp's S^T and dP^T products are done with Q and dO: scale
+    // this CTA's column tiles of them in place, bf16(Q * (r * scale)) and
+    // bf16(dO * r), 16 bytes at a time (a byte offset's row is offset /
+    // 128 whatever the swizzle).
+    sm90::named_barrier<1>(kConsumers);
+#pragma unroll
+    for (int it = 0; it < kColTiles * kTileBytes / 16 / kConsumers; ++it) {
+      const int off = c0 * kTileBytes + (tid + it * kConsumers) * 16;
+      const float rr = r_s[(off % kTileBytes) >> 7];
+      const float rs = rr * scale;
+      uint4* qp = reinterpret_cast<uint4*>(st + off);
+      uint4* dp = reinterpret_cast<uint4*>(st + kOpBytes + off);
+      uint4 qv = *qp, dv4 = *dp;
+      uint32_t* qw = reinterpret_cast<uint32_t*>(&qv);
+      uint32_t* dw = reinterpret_cast<uint32_t*>(&dv4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 qf =
+            __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&qw[e]));
+        const float2 df =
+            __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&dw[e]));
+        qw[e] = sm90::pack_bf16(qf.x * rs, qf.y * rs);
+        dw[e] = sm90::pack_bf16(df.x * rr, df.y * rr);
+      }
+      *qp = qv;
+      *dp = dv4;
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier<1>(kConsumers);
+    sm90::wgmma_fence();
+    gemm_rn_head<kColTiles>(dvacc, ea, st + kOpBytes + c0 * kTileBytes,
+                            qb > 0);
+    gemm_rn_head<kColTiles>(dkacc, dsa, st + c0 * kTileBytes, qb > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_head<kColTiles>(dvacc);
+    fence_head<kColTiles>(dkacc);
+    sm90::mbar_arrive(&empty[s]);
+  }
+  const int tok_stride = num_heads * head_dim;
+  const size_t base = static_cast<size_t>(batch) * seq_len * tok_stride +
+                      head * head_dim + c0 * 64;
+  const int key_lo = kt * kTile + warp * 16 + g;
+  store_head<kColTiles>(dk + base, tok_stride, key_lo, seq_len, dkacc, 1.f,
+                        1.f, t4, head_dim - c0 * 64);
+  store_head<kColTiles>(dv + base, tok_stride, key_lo, seq_len, dvacc, 1.f,
+                        1.f, t4, head_dim - c0 * 64);
+}
+
+// (b) at NT tiles a head over `tiles` key tiles (each `ctas` times).
+template <class Kernel>
+cudaError_t launch_dkdv(Kernel kernel, size_t smem, int ctas,
+                        const CUtensorMap& tq, const CUtensorMap& tk,
+                        const CUtensorMap& tv, const CUtensorMap& tdo,
+                        void* dk, void* dv, float* r, float* c, int batch,
+                        int seq_len, int num_heads, int head_dim,
+                        float scale_log2, float scale, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ctas * ((seq_len + kTile - 1) / kTile), num_heads, batch);
+  kernel<<<grid, kThreads, smem, s>>>(
+      tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), r, c, seq_len, num_heads, head_dim,
+      scale_log2, scale);
+  return cudaGetLastError();
+}
+
 template <int NT>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const CUtensorMap& tdo, void* dq,
@@ -513,21 +727,22 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
       attn_bwd_dq<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(dq_smem(NT)));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_dkdv<NT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(dkdv_smem(NT)));
-  if (err != cudaSuccess) return err;
   const dim3 grid((seq_len + kTile - 1) / kTile, num_heads, batch);
   attn_bwd_dq<NT><<<grid, kThreads, dq_smem(NT), s>>>(
       tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dq), r, c, seq_len,
       num_heads, head_dim, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkdv<NT><<<grid, kThreads, dkdv_smem(NT), s>>>(
-      tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), r, c, seq_len, num_heads, head_dim,
-      scale_log2, scale);
-  return cudaGetLastError();
+  // (b): at three or four tiles a head, the column halves of each key tile.
+  if constexpr (NT > 2) {
+    return launch_dkdv(attn_bwd_dkdv_cols<NT>, dkdv_cols_smem(NT), 2, tq, tk,
+                       tv, tdo, dk, dv, r, c, batch, seq_len, num_heads,
+                       head_dim, scale_log2, scale, s);
+  } else {
+    return launch_dkdv(attn_bwd_dkdv<NT>, dkdv_smem(NT), 1, tq, tk, tv, tdo,
+                       dk, dv, r, c, batch, seq_len, num_heads, head_dim,
+                       scale_log2, scale, s);
+  }
 }
 
 }  // namespace
@@ -538,7 +753,7 @@ extern "C" int attention_packed_bwd_max_len() { return kMaxLen; }
 extern "C" int attention_packed_bwd_max_head_dim() { return kMaxHeadDim; }
 
 // q, k, v, dout, dq, dk, dv: (B, L, H*head_dim) bf16, contiguous, 16-byte
-// aligned; head_dim a multiple of 8 up to 128. r, c: (B, H, L) f32 scratch
+// aligned; head_dim a multiple of 8 up to 256. r, c: (B, H, L) f32 scratch
 // that kernel (a) fills and (b) reads. scale_log2 = head_dim**-0.5 *
 // log2(e) and scale = head_dim**-0.5, in f32. Returns cudaGetLastError(),
 // or cudaErrorInvalidValue for a head dim or length past the limits or a
@@ -568,11 +783,13 @@ extern "C" int attention_packed_bwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* rf = static_cast<float*>(r);
   auto* cf = static_cast<float*>(c);
-  const cudaError_t err =
-      head_dim <= 64
-          ? launch<1>(tq, tk, tv, tdo, dq, dk, dv, rf, cf, batch, seq_len,
-                      num_heads, head_dim, scale_log2, scale, s)
-          : launch<2>(tq, tk, tv, tdo, dq, dk, dv, rf, cf, batch, seq_len,
-                      num_heads, head_dim, scale_log2, scale, s);
+  cudaError_t (*const by_tiles[4])(
+      const CUtensorMap&, const CUtensorMap&, const CUtensorMap&,
+      const CUtensorMap&, void*, void*, void*, float*, float*, int, int, int,
+      int, float, float, cudaStream_t) = {launch<1>, launch<2>, launch<3>,
+                                          launch<4>};
+  const cudaError_t err = by_tiles[(head_dim + 63) / 64 - 1](
+      tq, tk, tv, tdo, dq, dk, dv, rf, cf, batch, seq_len, num_heads,
+      head_dim, scale_log2, scale, s);
   return static_cast<int>(err);
 }

@@ -1,6 +1,6 @@
 // Bidirectional attention on [B, L, H, D] bf16 tensors with the max-shift
 // softmax, forward, for Hopper (sm_90a), at any head dim D that is a
-// multiple of 8 up to 128.
+// multiple of 8 up to 256.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_kernel (reached via
 // pallas_attention / fused_attention). Per (batch, head):
@@ -23,8 +23,9 @@
 // writes o with row stride H*D; the TPU wrapper's transposes and pads have
 // no counterpart. It runs the max-shift attention core of
 // sm90_attention.cuh (wgmma products, K and V resident in TMA tiles or,
-// past 320 keys at D <= 64 and 384 above, streamed through a ring of them,
-// up to L = 4,096; a head one or two 64-column tiles) under its production
+// past 320 keys at D <= 64 and 384 up to 128, and at every length above,
+// streamed through a ring of them, up to L = 4,096; a head one to four
+// 64-column tiles) under its production
 // softmax, the one K6's attention stage runs: exp becomes exp2 of the
 // log2(e)-scaled score, the same function within two bf16 ulps of the
 // output. The scale is f32(D**-0.5), as the TPU kernel rounds it.
@@ -77,13 +78,19 @@ int run(const void* q, const void* k, const void* v, void* o, int batch,
   const sm90::AttnArgs args{0, 0, 0, static_cast<__nv_bfloat16*>(o),
                             num_heads * head_dim, seq_len, head_dim, scale};
   using Kernel = decltype(&attention_unpacked_fwd_kernel<1, 1, false>);
-  const Kernel kernels[2][3] = {
+  const Kernel kernels[4][3] = {
       {attention_unpacked_fwd_kernel<1, 1, false>,
        attention_unpacked_fwd_kernel<2, 1, false>,
        attention_unpacked_fwd_kernel<2, 1, true>},
       {attention_unpacked_fwd_kernel<1, 2, false>,
        attention_unpacked_fwd_kernel<2, 2, false>,
-       attention_unpacked_fwd_kernel<2, 2, true>}};
+       attention_unpacked_fwd_kernel<2, 2, true>},
+      {attention_unpacked_fwd_kernel<2, 3, true>,
+       attention_unpacked_fwd_kernel<2, 3, true>,
+       attention_unpacked_fwd_kernel<2, 3, true>},
+      {attention_unpacked_fwd_kernel<2, 4, true>,
+       attention_unpacked_fwd_kernel<2, 4, true>,
+       attention_unpacked_fwd_kernel<2, 4, true>}};
   return sm90_host::launch_attention<sm90::SoftmaxExp2>(
       kernels, tq, tk, tv, args, batch, num_heads,
       static_cast<cudaStream_t>(stream), stream_kv);
@@ -92,7 +99,7 @@ int run(const void* q, const void* k, const void* v, void* o, int batch,
 }  // namespace
 
 // q, k, v, o: [B, L, H, D] bf16, contiguous, 16-byte aligned; D a
-// multiple of 8 up to 128, L up to 4,096. scale = D**-0.5 in f32. Returns
+// multiple of 8 up to 256, L up to 4,096. scale = D**-0.5 in f32. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a head dim or a length
 // past the limits or a tensor map that cannot be encoded.
 extern "C" int attention_unpacked_fwd(const void* q, const void* k,

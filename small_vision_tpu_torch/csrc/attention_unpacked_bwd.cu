@@ -1,6 +1,6 @@
 // Bidirectional attention on [B, L, H, D] bf16 tensors with the max-shift
 // softmax, backward, for Hopper (sm_90a), at any head dim D that is a
-// multiple of 8 up to 128.
+// multiple of 8 up to 256.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_bwd_kernel (reached
 // via _pallas_attention_bwd_impl, the custom VJP of fused_attention). Per
@@ -68,13 +68,27 @@
 // an SM; (b) 50 KB and 168 registers (four 64 x 64 f32 accumulators), two.
 //
 // Head dims, as in K4 (attention_packed_bwd.cu): a head is NT = 1 (D <=
-// 64) or 2 (64 < D <= 128) tiles of 64 columns, each a TMA box that
+// 64), 2 (<= 128), 3 or 4 (<= 256) tiles of 64 columns, each a TMA box that
 // arrives as zeros past D, so the padded columns add 0 to every score and
 // dP and give 0 columns of dQ, dK and dV, which the stores drop. The
 // scale is f32(D**-0.5). At NT = 2 every tile doubles: (a) 97 KB and its
 // dQ accumulator 64 registers, two CTAs an SM; (b) 98 KB and the dK and
 // dV accumulators 128 registers, one CTA an SM with up to 255 a thread.
 // The length limit stays 4,096 at every head dim.
+//
+// Wide heads, NT = 3 or 4 (128 < D <= 256), K4's answer: (a) as it is (1
+// KB + 6 x NT x 8 KB, 145 or 193 KB, one CTA an SM; dQ 96 or 128
+// registers). (b) would hold dK and dV in 192 or 256 registers a thread,
+// so there (kCols) the grid's first axis takes each key tile twice and
+// half h accumulates the column tiles 2 h and 2 h + 1 of dK and dV only
+// (128 registers), recomputing S^T and dP^T over all of D; the two halves
+// of a tile are neighbours in the grid, so Q and dO come from L2 the
+// second time. A stage's Q and dO keep room for four tiles each (2 stages,
+// 194 KB at NT = 4, 178 KB at 3): at NT = 3 the fourth is never written,
+// and the second half's products with it land in accumulator columns
+// 192-255, which the store drops. Every output element still comes from
+// one accumulator in a fixed order: no atomics, the same bits launch to
+// launch, and the arithmetic of NT <= 2, whose kernels are unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,7 +99,7 @@
 
 namespace {
 
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 256;
 constexpr int kTile = sm90::kTileRows;
 constexpr int kTileBytes = sm90::kTileBytes;
 constexpr int kStages = 2;
@@ -97,15 +111,21 @@ constexpr float kLog2e = 1.44269504088896341f;
 constexpr int kMaxLen = 4096;
 
 // (a): Q, dO; kStages x (K, V); barriers. (b): K, V; kStages x (Q, dO);
-// kStages x (m2, r, c) [64] f32; barriers. Each operand is nt tiles. Plus
-// 1 KB to align the tiles to 1024 bytes.
+// kStages x (m2, r, c) [64] f32; barriers. Each operand is nt tiles (in
+// (b) at three or four tiles a head, Q and dO kOpTiles each). Plus 1 KB to
+// align the tiles to 1024 bytes.
+constexpr int kColTiles = 2;             // (b) kCols: dK, dV tiles a CTA
+constexpr int kOpTiles = 2 * kColTiles;  // (b) kCols: a Q or dO buffer
 constexpr size_t dq_smem(int nt) {
   return 1024 + (2 + 2 * kStages) * nt * kTileBytes + 8 * (1 + 2 * kStages);
 }
 constexpr size_t dkdv_smem(int nt) {
-  return 1024 + (2 + 2 * kStages) * nt * kTileBytes +
+  const int op = nt > 2 ? kOpTiles : nt;
+  return 1024 + (2 * nt + 2 * kStages * op) * kTileBytes +
          kStages * 3 * kTile * 4 + 8 * (1 + 2 * kStages);
 }
+static_assert(dq_smem(4) <= 232448 && dkdv_smem(4) <= 232448,
+              "one CTA an SM at four tiles a head");
 
 // A head's NT tiles of 64 rows from `row` (zeros past D and L).
 template <int NT>
@@ -349,7 +369,8 @@ __device__ __forceinline__ void dq_pass2(float (&dq)[NT][32],
 }
 
 template <int NT>
-__global__ void __launch_bounds__(kConsumers + 32, NT == 1 ? 3 : 2)
+__global__ void __launch_bounds__(kConsumers + 32,
+                                  NT == 1 ? 3 : NT == 2 ? 2 : 1)
 attn_unpacked_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
@@ -485,19 +506,20 @@ attn_unpacked_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                  head_dim);
 }
 
-// One block of 8 kNT queries in (b) (qdo: its Q tiles, then its dO
-// tiles): S^T, dP^T, then dV += bf16(P^T) dO and dK += dS^T Q. mrc: the
-// block's m2, r, c, [64] f32 each.
-template <int kNT, int NT>
-__device__ __forceinline__ void dkdv_block(float (&dk)[NT][32],
-                                           float (&dv)[NT][32],
+// One block of 8 kNT queries in (b) (q, d_o: its Q and dO tiles): S^T,
+// dP^T, then dV += bf16(P^T) dO and dK += dS^T Q over the NC column tiles
+// from c0. mrc: the block's m2, r, c, [64] f32 each.
+template <int kNT, int NT, int NC>
+__device__ __forceinline__ void dkdv_block(float (&dk)[NC][32],
+                                           float (&dv)[NC][32],
                                            const uint8_t* k_s,
                                            const uint8_t* v_s,
-                                           const uint8_t* qdo,
+                                           const uint8_t* q,
+                                           const uint8_t* d_o, int c0,
                                            const float* mrc,
                                            float scale_log2, int t4) {
   float s[32], dp[32];
-  scores_then_dp<kNT, NT, true>(s, dp, k_s, v_s, qdo, qdo + NT * kTileBytes);
+  scores_then_dp<kNT, NT, true>(s, dp, k_s, v_s, q, d_o);
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt) {
     const int col = nt * 8 + 2 * t4;
@@ -524,14 +546,15 @@ __device__ __forceinline__ void dkdv_block(float (&dk)[NT][32],
   pack_tiles<kNT>(pa, s);
   pack_tiles<kNT>(dsa, dp);
   sm90::wgmma_fence();
-  gemm_update<kNT, NT>(dv, pa, qdo + NT * kTileBytes);
-  gemm_update<kNT, NT>(dk, dsa, qdo);
+  gemm_update<kNT, NC>(dv, pa, d_o + c0 * kTileBytes);
+  gemm_update<kNT, NC>(dk, dsa, q + c0 * kTileBytes);
   sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
-  fence_head<NT>(dv);
-  fence_head<NT>(dk);
+  fence_head<NC>(dv);
+  fence_head<NC>(dk);
 }
 
+// kCols (NT > 2): blockIdx.x is twice the key tile plus the column half.
 template <int NT>
 __global__ void __launch_bounds__(kConsumers + 32, NT == 1 ? 2 : 1)
 attn_unpacked_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
@@ -546,18 +569,22 @@ attn_unpacked_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
                             int num_heads, int head_dim, float scale_log2,
                             float scale) {
   constexpr int kHeadBytes = NT * kTileBytes;
+  constexpr bool kCols = NT > 2;
+  constexpr int kOpBytes = (kCols ? kOpTiles : NT) * kTileBytes;
+  constexpr int NC = kCols ? kColTiles : NT;  // accumulated column tiles
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_tiles(smem_raw);
   uint8_t* k_s = smem;
   uint8_t* v_s = smem + kHeadBytes;
   uint8_t* ring = smem + 2 * kHeadBytes;  // stage s: Q at 2 s, dO at 2 s + 1
-  float* mrc_s = reinterpret_cast<float*>(ring + 2 * kStages * kHeadBytes);
+  float* mrc_s = reinterpret_cast<float*>(ring + 2 * kStages * kOpBytes);
   uint64_t* bars = reinterpret_cast<uint64_t*>(mrc_s + kStages * 3 * kTile);
   uint64_t* kv_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + kStages;
 
-  const int kt = blockIdx.x;
+  const int kt = kCols ? blockIdx.x >> 1 : blockIdx.x;
+  const int c0 = kCols ? (blockIdx.x & 1) * kColTiles : 0;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int nqb = (seq_len + kTile - 1) / kTile;
@@ -596,10 +623,10 @@ attn_unpacked_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
         mrc[2 * kTile + j] = ok ? c_in[rc + qi] : 0.f;
       }
       if (lane == 0) {
-        uint8_t* st = ring + 2 * s * kHeadBytes;
+        uint8_t* st = ring + 2 * s * kOpBytes;
         sm90::mbar_arrive_expect_tx(&full[s], 2 * kHeadBytes);
         load_head<NT>(st, &tm_q, &full[s], head, qb * kTile, batch);
-        load_head<NT>(st + kHeadBytes, &tm_do, &full[s], head, qb * kTile,
+        load_head<NT>(st + kOpBytes, &tm_do, &full[s], head, qb * kTile,
                       batch);
       } else {
         sm90::mbar_arrive(&full[s]);
@@ -613,29 +640,31 @@ attn_unpacked_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
   const bool narrow = seq_len - (nqb - 1) * kTile <= kNarrow;
   sm90::mbar_wait(kv_full, 0);
 
-  float dkacc[NT][32], dvacc[NT][32];
-  zero<NT>(dkacc);
-  zero<NT>(dvacc);
+  float dkacc[NC][32], dvacc[NC][32];
+  zero<NC>(dkacc);
+  zero<NC>(dvacc);
   for (int qb = 0; qb < nqb; ++qb) {
     const int s = qb % kStages;
     sm90::mbar_wait(&full[s], (qb / kStages) & 1);
-    const uint8_t* qdo = ring + 2 * s * kHeadBytes;
+    const uint8_t* qdo = ring + 2 * s * kOpBytes;
     const float* mrc = mrc_s + s * 3 * kTile;
     if (qb + 1 < nqb || !narrow) {
-      dkdv_block<8, NT>(dkacc, dvacc, k_s, v_s, qdo, mrc, scale_log2, t4);
+      dkdv_block<8, NT, NC>(dkacc, dvacc, k_s, v_s, qdo, qdo + kOpBytes, c0,
+                            mrc, scale_log2, t4);
     } else {
-      dkdv_block<2, NT>(dkacc, dvacc, k_s, v_s, qdo, mrc, scale_log2, t4);
+      dkdv_block<2, NT, NC>(dkacc, dvacc, k_s, v_s, qdo, qdo + kOpBytes, c0,
+                            mrc, scale_log2, t4);
     }
     sm90::mbar_arrive(&empty[s]);
   }
   const int tok_stride = num_heads * head_dim;
   const size_t base = static_cast<size_t>(batch) * seq_len * tok_stride +
-                      static_cast<size_t>(head) * head_dim;
+                      static_cast<size_t>(head) * head_dim + c0 * 64;
   const int key_lo = kt * kTile + warp * 16 + (lane >> 2);
-  store_head<NT>(dk + base, tok_stride, key_lo, seq_len, dkacc, scale, t4,
-                 head_dim);
-  store_head<NT>(dv + base, tok_stride, key_lo, seq_len, dvacc, 1.f, t4,
-                 head_dim);
+  store_head<NC>(dk + base, tok_stride, key_lo, seq_len, dkacc, scale, t4,
+                 head_dim - c0 * 64);
+  store_head<NC>(dv + base, tok_stride, key_lo, seq_len, dvacc, 1.f, t4,
+                 head_dim - c0 * 64);
 }
 
 // Launches (a) and then (b) at NT tiles a head (stage -1, the backward),
@@ -665,8 +694,10 @@ cudaError_t launch_nt(int stage, const CUtensorMap (&tm)[4], void* dq,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(dkdv_smem(NT)));
     if (err != cudaSuccess) return err;
+    // At three or four tiles a head, each key tile's two column halves.
+    const dim3 dkdv_grid((NT > 2 ? 2 : 1) * grid.x, num_heads, batch);
     attn_unpacked_bwd_dkdv_sm90<NT>
-        <<<grid, kConsumers + 32, dkdv_smem(NT), s>>>(
+        <<<dkdv_grid, kConsumers + 32, dkdv_smem(NT), s>>>(
             tm[0], tm[1], tm[2], tm[3], static_cast<__nv_bfloat16*>(dk),
             static_cast<__nv_bfloat16*>(dv), m, r, c, seq_len, num_heads,
             head_dim, scale_log2, scale);
@@ -695,12 +726,14 @@ int launch(int stage, const void* q, const void* k, const void* v,
   auto* mf = static_cast<float*>(m);
   auto* rf = static_cast<float*>(r);
   auto* cf = static_cast<float*>(c);
-  const cudaError_t err =
-      head_dim <= 64
-          ? launch_nt<1>(stage, tm, dq, dk, dv, mf, rf, cf, batch, seq_len,
-                         num_heads, head_dim, scale, s)
-          : launch_nt<2>(stage, tm, dq, dk, dv, mf, rf, cf, batch, seq_len,
-                         num_heads, head_dim, scale, s);
+  cudaError_t (*const by_tiles[4])(int, const CUtensorMap(&)[4], void*,
+                                   void*, void*, float*, float*, float*,
+                                   int, int, int, int, float,
+                                   cudaStream_t) = {
+      launch_nt<1>, launch_nt<2>, launch_nt<3>, launch_nt<4>};
+  const cudaError_t err = by_tiles[(head_dim + 63) / 64 - 1](
+      stage, tm, dq, dk, dv, mf, rf, cf, batch, seq_len, num_heads, head_dim,
+      scale, s);
   return static_cast<int>(err);
 }
 
@@ -712,7 +745,7 @@ extern "C" int attention_unpacked_bwd_max_head_dim() { return kMaxHeadDim; }
 extern "C" int attention_unpacked_bwd_max_len() { return kMaxLen; }
 
 // q, k, v, dout, dq, dk, dv: [B, L, H, D] bf16, contiguous, 16-byte
-// aligned; D a multiple of 8 up to 128. m, r, c: (B, H, L) f32 scratch
+// aligned; D a multiple of 8 up to 256. m, r, c: (B, H, L) f32 scratch
 // that kernel (a) fills (m2, r, c of the header) and (b) reads. scale =
 // D**-0.5 in f32. Returns cudaGetLastError(), or cudaErrorInvalidValue for
 // a head dim or a length past the limits or a tensor map that cannot be

@@ -1,7 +1,7 @@
 // Fused multi-head attention forward on bf16 tensors: the q, k, v
 // projections with bias, per-head max-shift softmax attention and the
 // out-projection with bias, for Hopper (sm_90a), at any head dim D that is
-// a multiple of 8 up to 128.
+// a multiple of 8 up to 256.
 //
 // Replaces: small_vision_tpu/ops/fused_block.py::_mha_kernel (reached via
 // _mha_pallas / fused_mha). Per batch row, on x of width d and H heads of
@@ -35,7 +35,7 @@
 //      outputs. Its N (H*D) and K (d) are multiples of 64, the GEMM's rule.
 //  (b) fused_mha_attn_kernel, per (head, batch row): the max-shift
 //      attention core of sm90_attention.cuh (its design there, its head
-//      dims one or two 64-column tiles) under its production softmax, exp2
+//      dims one to four 64-column tiles) under its production softmax, exp2
 //      of the log2(e)-scaled scores, reading the heads' q, k, v from the
 //      scratch as heads 0..H-1, H..2H-1 and 2H..3H-1 of a (D, 3H, L, B)
 //      tensor map and writing (B, L, H*D). K7 and K9 run the same core.
@@ -140,7 +140,7 @@ extern "C" int fused_mha_proj(const void* a, const void* w0, const void* w1,
 }
 
 // (b): qkv (B, L, 3 H*D) bf16, q, k, v side by side; heads (B, L, H*D)
-// bf16 out; D a multiple of 8 up to 128, L up to 4,096; scale = D**-0.5
+// bf16 out; D a multiple of 8 up to 256, L up to 4,096; scale = D**-0.5
 // in f32. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a head dim or a length
 // past the limits or a tensor map that cannot be encoded.
@@ -159,11 +159,19 @@ extern "C" int fused_mha_attention(const void* qkv, void* heads, int batch,
                             static_cast<__nv_bfloat16*>(heads),
                             num_heads * head_dim, seq_len, head_dim, scale};
   using Kernel = decltype(&fused_mha_attn_kernel<1, 1, false>);
-  const Kernel kernels[2][3] = {
-      {fused_mha_attn_kernel<1, 1, false>, fused_mha_attn_kernel<2, 1, false>,
+  const Kernel kernels[4][3] = {
+      {fused_mha_attn_kernel<1, 1, false>,
+       fused_mha_attn_kernel<2, 1, false>,
        fused_mha_attn_kernel<2, 1, true>},
-      {fused_mha_attn_kernel<1, 2, false>, fused_mha_attn_kernel<2, 2, false>,
-       fused_mha_attn_kernel<2, 2, true>}};
+      {fused_mha_attn_kernel<1, 2, false>,
+       fused_mha_attn_kernel<2, 2, false>,
+       fused_mha_attn_kernel<2, 2, true>},
+      {fused_mha_attn_kernel<2, 3, true>,
+       fused_mha_attn_kernel<2, 3, true>,
+       fused_mha_attn_kernel<2, 3, true>},
+      {fused_mha_attn_kernel<2, 4, true>,
+       fused_mha_attn_kernel<2, 4, true>,
+       fused_mha_attn_kernel<2, 4, true>}};
   return sm90_host::launch_attention<sm90::SoftmaxExp2>(
       kernels, tm, tm, tm, args, batch, num_heads,
       static_cast<cudaStream_t>(stream));
@@ -173,7 +181,7 @@ extern "C" int fused_mha_attention(const void* qkv, void* heads, int batch,
 // (scratch): (B, L, 3 H*D) bf16; wq, wk, wv: (width, H*D) and wo
 // (H*D, width) bf16 row-major (in, out); bq, bk, bv: (H*D,) and bo
 // (width,) bf16; all contiguous and 16-byte aligned; width and H*D
-// multiples of 64, D a multiple of 8 up to 128, L up to 4,096. scale =
+// multiples of 64, D a multiple of 8 up to 256, L up to 4,096. scale =
 // D**-0.5 in f32.
 // The three launches: (a) q, k, v; (b) the heads; (a) the out-projection.
 // Returns the first non-zero status.

@@ -174,6 +174,12 @@ struct Ring {
   __device__ void release(int n, int lane) const {
     mbar_arrive_if(&empty[n % kStages], lane == 0);
   }
+  // release(n, lane) where `pred` holds, predicated, with no branch (a
+  // branch around it in the wgmma pipeline made ptxas serialise the
+  // products of the wide-head attention kernels, C7520).
+  __device__ void release_if(int n, int lane, bool pred) const {
+    mbar_arrive_if(&empty[n % kStages], lane == 0 && pred);
+  }
 };
 
 // ---- TMA -----------------------------------------------------------------

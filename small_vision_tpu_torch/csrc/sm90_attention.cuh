@@ -25,12 +25,12 @@
 // products). No atomics and no split-K: two launches give the same bits.
 //
 // Long heads: K and V stream. Past attn_resident_len (320 at D <= 64, 384
-// above) the kernel's kStream instantiation runs instead: grid (query-tile
-// pairs, heads, batch), a CTA's two warpgroups one tile each, and the key
-// blocks through a ring of attn_ring_stages K and V stages (sm90.cuh's
-// Ring: a full and an empty mbarrier a stage; 5 stages of 16 KB at one
-// tile a head, two CTAs an SM, 6 of 32 KB at two). Every pass walks the
-// key blocks again through the ring in the same order for both
+// to 128, 0 above) the kernel's kStream instantiation runs instead: grid
+// (query-tile pairs, heads, batch), a CTA's two warpgroups one tile each,
+// and the key blocks through a ring of attn_ring_stages K and V stages
+// (sm90.cuh's Ring: a full and an empty mbarrier a stage; 5 stages of 16
+// KB at one tile a head, two CTAs an SM, 6 of 32 KB at two). Every pass
+// walks the key blocks again through the ring in the same order for both
 // warpgroups: the passes before the last load K alone, the last K and V
 // (nomm: V alone; nosoftmax has only the last). A stage is refilled once
 // every consumer warp has released it, the ring kept attn_ring_stages - 2
@@ -49,14 +49,29 @@
 // head's K and V come from device memory about once and from L2 once a
 // pass a pair.
 //
-// Head dims: any multiple of 8 up to 128, as K3 (attention_packed.cu). A
-// head is NT = 1 (D <= 64) or 2 (64 < D <= 128) tiles of 64 columns, each
-// a TMA box of the (D, heads, L, B) map, so columns at or past D arrive as
-// zeros and a head never reads the next one's: the padded columns of Q and
-// K add 0 to the scores, those of V give 0 columns of O, which the store
-// drops. At NT = 2 K, V and Q double in shared memory (L up to 384, not
-// 832) and O's accumulator takes 32 more registers a thread (such a CTA
-// may take up to 255); the scores, the exps and the passes are the same.
+// Head dims: any multiple of 8 up to 256, as K3 (attention_packed.cu). A
+// head is NT = ceil(D / 64) tiles of 64 columns (1 to 4), each a TMA box
+// of the (D, heads, L, B) map, so columns at or past D arrive as zeros and
+// a head never reads the next one's: the padded columns of Q and K add 0
+// to the scores, those of V give 0 columns of O, which the store drops. At
+// NT = 2 K, V and Q double in shared memory (L up to 384, not 832) and O's
+// accumulator takes 32 more registers a thread (such a CTA may take up to
+// 255); the scores, the exps and the passes are the same.
+//
+// Wide heads (NT = 3 and 4, D = 136 to 256) always stream: a resident head
+// would hold 2 or 3 key blocks at most. A stage of K and V together would
+// be 48 or 64 KB, and beside the two warpgroups' Q tiles (48 or 64 KB)
+// only 3 or 2 such stages fit, which leaves the ring 1 or 0 loads ahead of
+// the one waited for: no copy in flight during the products. So at NT >= 3
+// a stage holds one head of K or of V (24 or 32 KB), and the last pass
+// walks K_0, V_0, K_1, V_1, ... as separate ring uses (attn_split_kv): 7
+// stages at NT = 3, 5 at NT = 4, the ring 5 or 3 uses (2.5 or 1.5 blocks)
+// ahead. The passes before it read K alone, one use a block, as before. A
+// warp holds at most the use it waits for and the one before (V_j, whose P
+// V product is in flight, while it waits for K_{j+1}), as the ring needs.
+// O's accumulator is 96 or 128 registers a thread beside S (32) and p
+// (16): one CTA of two warpgroups an SM, up to 255 registers a thread. The
+// arithmetic and the order of every sum are NT = 2's, with more products.
 //
 // A compile-time softmax policy says how S is scaled and masked, how e is
 // formed, how many passes run and whether the products run at all.
@@ -73,43 +88,60 @@
 namespace sm90 {
 
 constexpr int kAttnShortTiles = 3;  // one warpgroup for heads this short
-constexpr int kAttnMaxHeadDim = 128;
+constexpr int kAttnMaxHeadDim = 256;
 constexpr int kAttnMaxLen = 4096;  // every head dim; K4's and K8's limit
 constexpr int kSmemPerBlock = 232448;
 constexpr int kSmemPerSM = 233472;  // blocks an SM holds: 1 KB each reserved
 
 // 64-column tiles a head of `head_dim` columns takes.
 __host__ __device__ constexpr int attn_tiles(int head_dim) {
-  return head_dim > 64 ? 2 : 1;
+  return (head_dim + 63) / 64;
 }
 
-// 1 KB to align the tiles; `stages` K and `stages` V blocks and one Q tile
-// a warpgroup, each of nt 64-column tiles; barriers: two a stage (resident:
-// a K and a V block's; streamed: the ring's full and empty), one a Q tile.
+// Whether a ring stage holds one head of K or of V (NT >= 3), not both.
+__host__ __device__ constexpr bool attn_split_kv(int nt) { return nt > 2; }
+
+// 1 KB to align the tiles; `stages` K and `stages` V blocks (split: `stages`
+// blocks of either) and one Q tile a warpgroup, each of nt 64-column tiles;
+// barriers: two a stage (resident: a K and a V block's; streamed: the
+// ring's full and empty), one a Q tile.
 __host__ __device__ constexpr size_t attn_smem_bytes(int stages, int groups,
                                                      int nt) {
-  return 1024 + static_cast<size_t>(2 * stages + groups) * nt * kTileBytes +
+  return 1024 +
+         static_cast<size_t>((attn_split_kv(nt) ? 1 : 2) * stages + groups) *
+             nt * kTileBytes +
          8 * static_cast<size_t>(2 * stages + groups);
 }
 
 // Stages of the streamed ring: two CTAs an SM at one tile a head, one at
-// two (the kernels' launch bounds).
+// two or more (the kernels' launch bounds); at three and four as many
+// single K or V blocks as fit beside the two Q tiles.
 __host__ __device__ constexpr int attn_ring_stages(int nt) {
-  return nt == 1 ? 5 : 6;
+  return nt == 1 ? 5 : nt == 2 ? 6 : nt == 3 ? 7 : 5;
 }
 static_assert(2 * (attn_smem_bytes(attn_ring_stages(1), 2, 1) + 1024) <=
                   kSmemPerSM,
               "two streamed CTAs an SM at one tile a head");
 static_assert(attn_smem_bytes(attn_ring_stages(2), 2, 2) <= kSmemPerBlock,
               "one streamed CTA an SM at two tiles a head");
+static_assert(attn_smem_bytes(attn_ring_stages(3), 2, 3) <= kSmemPerBlock &&
+                  attn_smem_bytes(attn_ring_stages(3) + 1, 2, 3) >
+                      kSmemPerBlock,
+              "one streamed CTA an SM at three tiles a head, the most stages");
+static_assert(attn_smem_bytes(attn_ring_stages(4), 2, 4) <= kSmemPerBlock &&
+                  attn_smem_bytes(attn_ring_stages(4) + 1, 2, 4) >
+                      kSmemPerBlock,
+              "one streamed CTA an SM at four tiles a head, the most stages");
 
 // Longest sequence whose K and V stay resident at a head dim: while its
 // CTA fits an SM as often as the streamed one (two at one tile a head, L
 // <= 320; one at two, L <= 384). Resident heads fit up to 832 at D <= 64,
 // but past 320 one CTA an SM, and read slower than streamed (PERF.md);
-// longer ones stream through the ring.
+// longer ones stream through the ring. 0 at three or four tiles a head:
+// every length streams.
 __host__ __device__ constexpr int attn_resident_len(int head_dim) {
   const int nt = attn_tiles(head_dim);
+  if (attn_split_kv(nt)) return 0;
   const int ctas = nt == 1 ? 2 : 1;
   int nkb = 1;
   while (ctas * (attn_smem_bytes(nkb + 1, 2, nt) + 1024) <= kSmemPerSM) {
@@ -275,7 +307,8 @@ struct NoMax : SoftmaxExp {
 // ---- the core ------------------------------------------------------------
 
 // Passes over the key blocks that read the ring (streamed): each reads K,
-// the last one V too; nomm reads V alone, in its last pass.
+// the last one V too; nomm reads V alone, in its last pass. (At three or
+// four tiles a head the last pass's K and V are two uses a block.)
 template <class P>
 __host__ __device__ constexpr int attn_ring_passes() {
   if constexpr (!P::kProducts || P::kPasses == Passes::kNone) {
@@ -292,7 +325,8 @@ __host__ __device__ constexpr int attn_ring_passes() {
 // Resident (kStream false): grid (heads, batch), a CTA walks all of its
 // head's query tiles, its K and V blocks loaded once. Streamed (two
 // warpgroups): grid (query-tile pairs, heads, batch), a CTA walks the
-// pair's two tiles, one a warpgroup, through a ring of K and V stages.
+// pair's two tiles, one a warpgroup, through a ring of K and V stages. At
+// NT >= 3 streamed only, a stage one head of K or of V (attn_split_kv).
 template <class P, int kGroups, int NT, bool kStream>
 __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
                                                 const CUtensorMap* tm_q,
@@ -302,6 +336,11 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
   constexpr int kHeadBytes = NT * kTileBytes;
   constexpr int kRing = attn_ring_stages(NT);
   constexpr int kRingPasses = attn_ring_passes<P>();
+  // One array of single-operand stages; kSplit: the last pass's K and V
+  // of a block are two ring uses (nomm's last pass reads V alone anyway).
+  constexpr bool kOneBuf = attn_split_kv(NT);
+  constexpr bool kSplit = kOneBuf && P::kProducts;
+  static_assert(kStream || !kOneBuf, "three or four tiles a head stream");
   uint8_t* smem = align_tiles(smem_raw);
   const int seq_len = a.seq_len;
   const float scale = a.scale;
@@ -311,10 +350,11 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
   // with its barrier. Streamed: ring use n = r * nkb + j (pass r's block
   // j, r counting the passes that read the ring) lands in stage n % kRing,
   // its K and V (what the pass reads) under one full barrier; the second
-  // row of barriers is the ring's empty ones.
+  // row of barriers is the ring's empty ones. kSplit: the last pass's
+  // uses are n_last + 2 j (K_j) and n_last + 2 j + 1 (V_j), each a stage.
   const int stages = kStream ? kRing : nkb;
   uint8_t* k_s = smem;  // stage s at s * NT * 8 KB
-  uint8_t* v_s = k_s + stages * kHeadBytes;
+  uint8_t* v_s = kOneBuf ? k_s : k_s + stages * kHeadBytes;
   uint8_t* q_s = v_s + stages * kHeadBytes;  // warpgroup w's at w * NT * 8 KB
   uint64_t* k_full = reinterpret_cast<uint64_t*>(q_s + kGroups * kHeadBytes);
   uint64_t* v_full = k_full + stages;
@@ -323,7 +363,8 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
 
   const int head = kStream ? blockIdx.y : blockIdx.x;
   const int batch = kStream ? blockIdx.z : blockIdx.y;
-  const int total = kRingPasses * nkb;  // streamed: the ring's loads
+  // Streamed: the ring's loads.
+  const int total = (kSplit ? kRingPasses + 1 : kRingPasses) * nkb;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -352,9 +393,25 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
   // copies (predicated, no branch: see Ring).
   auto ring_load = [&](int n, int s, uint64_t* bar, bool issue) {
     const int r = (n >= nkb) + (kRingPasses > 2 && n >= 2 * nkb);
+    const bool leader = issue && tid == 0;
+    if constexpr (kSplit) {
+      // Before the last pass K of block n - r nkb; in it, K or V of block
+      // (n - n_last) / 2 by the parity.
+      const int m = n - (kRingPasses - 1) * nkb;
+      const bool is_v = m >= 0 && (m & 1);
+      const int row = (m >= 0 ? m >> 1 : n - r * nkb) * kTileRows;
+      mbar_arrive_expect_tx_if(bar, kHeadBytes, leader);
+#pragma unroll
+      for (int c = 0; c < NT; ++c) {
+        tma_load_4d_if(k_s + s * kHeadBytes + c * kTileBytes,
+                       is_v ? tm_v : tm_k, bar, c * 64,
+                       (is_v ? a.v_head : a.k_head) + head, row, batch,
+                       leader);
+      }
+      return;
+    }
     const int row = (n - r * nkb) * kTileRows;
     const bool with_v = r == kRingPasses - 1;
-    const bool leader = issue && tid == 0;
     mbar_arrive_expect_tx_if(
         bar, ((P::kProducts ? 1 : 0) + (with_v ? 1 : 0)) * kHeadBytes,
         leader);
@@ -428,11 +485,11 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
       mbar_wait(&k_full[n], 0);
     }
   };
-  // Streamed, V comes with K (waited for there) or alone (nomm).
+  // Streamed, V comes with K (waited for there), or alone (nomm; kSplit).
   auto wait_v = [&](int n) {
     if constexpr (!kStream) {
       mbar_wait(&v_full[n], 0);
-    } else if constexpr (!P::kProducts) {
+    } else if constexpr (!P::kProducts || kSplit) {
       wait_stage(n);
     }
   };
@@ -443,6 +500,11 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
   // Ring uses a pass (0 resident: every pass reads the same stages).
   const int pass_uses = kStream ? nkb : 0;
   const int n_last = (kRingPasses - 1) * pass_uses;
+  // The last pass's uses of block j's K and V.
+  auto k_use = [&](int j) { return kSplit ? n_last + 2 * j : n_last + j; };
+  auto v_use = [&](int j) {
+    return kSplit ? n_last + 2 * j + 1 : n_last + j;
+  };
 
   for (int t = t_mine, use = 0; kStream ? use < 1 : t < nqt;
        t += kGroups, ++use) {
@@ -604,9 +666,10 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
     uint32_t pa[16];
     float p0_lo = 0.f, p0_hi = 0.f;  // nomm: p of key 0
     float v0_lo = 0.f, v0_hi = 0.f;  // nomm: the row's own v[0]
-    issue_s(sacc, n_last);
+    issue_s(sacc, k_use(0));
     wgmma_wait_if<P::kProducts, 0>();
     fence(sacc);
+    if constexpr (kSplit) release(k_use(0));
     for (int j = 0; j < nkb; ++j) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
@@ -621,23 +684,27 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
       }
       pack_a(pa, sacc);
       if constexpr (P::kProducts) {
-        wait_v(n_last + j);
+        wait_v(v_use(j));
         wgmma_fence();
 #pragma unroll
         for (int c = 0; c < NT; ++c) {
           gemm_rn(oacc[c], pa,
-                  desc_mn_major(v_tile(n_last + j) + c * kTileBytes), j > 0);
+                  desc_mn_major(v_tile(v_use(j)) + c * kTileBytes), j > 0);
         }
         if (j + 1 < nkb) {
-          wait_k(n_last + j + 1);
-          products_s(sacc, n_last + j + 1);
+          wait_k(k_use(j + 1));
+          products_s(sacc, k_use(j + 1));
         }
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
         for (int c = 0; c < NT; ++c) fence(oacc[c]);
         fence(sacc);
-        release(n_last + j);
+        release(v_use(j));
+        // kSplit: block j + 1's K too, its S product done (predicated: a
+        // branch here made ptxas serialise the products of two of K9's
+        // arms, C7520).
+        if constexpr (kSplit) ring.release_if(k_use(j + 1), lane, j + 1 < nkb);
       } else {
         if (j == 0) {
           p0_lo = sacc[0];
@@ -703,23 +770,25 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
 
 namespace sm90_host {
 
-// Whether the core takes a head dim: a multiple of 8 from 8 to 128.
+// Whether the core takes a head dim: a multiple of 8 from 8 to 256.
 inline bool valid_head_dim(int head_dim) {
   return head_dim >= 8 && head_dim <= sm90::kAttnMaxHeadDim &&
          head_dim % 8 == 0;
 }
 
 // `kernels[NT - 1][mode]` runs sm90::attention_heads<P, groups, NT,
-// stream>: mode 0 one warpgroup, 1 two, both resident; 2 two, streamed.
-// Launches the resident kernel up to sm90::attn_resident_len(head_dim)
-// (one warpgroup for heads of at most kAttnShortTiles tiles, as K3, else
-// two) and the streamed one past it or when `stream_kv`, of one 64-column
-// tile a head for D <= 64, else two. `scale` is head_dim**-0.5 in f32; for
-// a base-2 policy log2(e) is folded in here. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a head dim that is not a multiple of 8 up to
-// 128 or a length past sm90::kAttnMaxLen.
+// stream>: mode 0 one warpgroup, 1 two, both resident; 2 two, streamed
+// (rows 3 and 4 hold the streamed kernel in every mode: only mode 2 is
+// chosen there, so nothing else is instantiated). Launches the resident
+// kernel up to sm90::attn_resident_len(head_dim) (one warpgroup for heads
+// of at most kAttnShortTiles tiles, as K3, else two) and the streamed one
+// past it or when `stream_kv`, of NT = ceil(D / 64) 64-column tiles a
+// head. `scale` is head_dim**-0.5 in f32; for a base-2 policy log2(e) is
+// folded in here. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// a head dim that is not a multiple of 8 up to 256 or a length past
+// sm90::kAttnMaxLen.
 template <class P, class Kernel>
-inline int launch_attention(const Kernel (&kernels)[2][3],
+inline int launch_attention(const Kernel (&kernels)[4][3],
                             const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                             const CUtensorMap& tm_v, sm90::AttnArgs a,
                             int batch, int num_heads, cudaStream_t stream,

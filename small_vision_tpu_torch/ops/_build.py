@@ -6,8 +6,11 @@ header `csrc/*.cuh` and the flags, so an edited source or header is rebuilt
 and a built one is reused. The first call starts one nvcc per source, all at
 once, and waits for them; what nvcc and ptxas said (registers, spills and
 shared memory of each kernel) is kept beside each library as
-`_build/<name>-<hash>.log`. Nothing is built or loaded at import time, so
-CPU-only machines import every module.
+`_build/<name>-<hash>.log` (`ptxas_report` reads it). A library whose ptxas
+report says that wgmma products were serialised for a divergent path (note
+C7520) is refused: its kernels would run, at a fraction of their speed.
+Nothing is built or loaded at import time, so CPU-only machines import
+every module.
 
 The argument types of every C entry point are declared here once, in
 `SIGNATURES`, for this tree's libraries and for another checkout's that a
@@ -24,6 +27,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -85,6 +89,11 @@ SIGNATURES = {
         "fused_mha_max_head_dim": []},
 }
 
+# ptxas's note that a kernel's wgmma products were serialised because of a
+# compiler-inserted warpgroup arrive in a divergent path: a build that says
+# it fails (`build_all`).
+SERIALISED_DIVERGENT = "C7520"
+
 # Kernel launches by kernel name; `reset_launches()` zeroes them.
 LAUNCHES = collections.Counter()
 
@@ -136,10 +145,54 @@ def build_all() -> dict:
       errors.append(f"nvcc failed on {src.name}:\n{log}")
       continue
     out.with_suffix(".log").write_text(log)
+    serialised = [k for k, r in ptxas_report(log).items()
+                  if SERIALISED_DIVERGENT in r["notes"]]
+    if serialised:
+      tmp.unlink()
+      errors.append(f"ptxas serialised the wgmma products of {src.name} "
+                    f"({SERIALISED_DIVERGENT}) in {serialised}")
+      continue
     os.replace(tmp, out)
   if errors:
     raise RuntimeError("\n".join(errors))
   return {s.stem: _target(s) for s in sources}
+
+
+def ptxas_report(log: str) -> dict:
+  """{kernel's mangled name: {"registers", "spill_stores", "spill_loads"
+  (bytes), "notes": the codes of ptxas's numbered notes on it, such as
+  "C7511" or "C7520"}} from the output of nvcc with `-Xptxas -v`."""
+  report, name = {}, None
+  entry = lambda k: report.setdefault(k, {"registers": None, "spill_stores": 0,
+                                          "spill_loads": 0, "notes": []})
+  for line in log.splitlines():
+    # A kernel's notes may come before the line that names it.
+    m = re.search(r"Compiling entry function '([^']+)'", line)
+    if m:
+      name = m.group(1)
+      entry(name)
+      continue
+    m = re.search(r"\((C\d+)\).* in (?:the )?function '([^']+)'", line)
+    if m:
+      notes = entry(m.group(2))["notes"]
+      if m.group(1) not in notes:
+        notes.append(m.group(1))
+      continue
+    if name is None:
+      continue
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+    if m:
+      report[name]["spill_stores"] = int(m.group(1))
+      report[name]["spill_loads"] = int(m.group(2))
+    m = re.search(r"Used (\d+) registers", line)
+    if m:
+      report[name]["registers"] = int(m.group(1))
+  return report
+
+
+def build_log(name: str) -> str:
+  """What nvcc and ptxas said when `csrc/<name>.cu` was built."""
+  return build_all()[name].with_suffix(".log").read_text()
 
 
 def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:

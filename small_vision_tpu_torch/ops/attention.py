@@ -11,12 +11,14 @@ The forward is K3 (`csrc/attention_packed.cu`), the backward K4
 `attention_packed` runs the plain versions for tensors on the CPU and the
 kernels for CUDA tensors, and raises for a CUDA tensor a kernel does not
 take. Without gradients (the sampler) it is K3 alone; with gradients it
-goes through `AttentionPacked`. Every forward and backward here takes L up
-to 4,096 at every head dim: a head's K and V stay in shared memory up to
-320 keys (D <= 64) or 384 (64 < D <= 128) and stream through a ring of
-them past that (ViT-L/16@512, L = 1,024 or 1,025; ViT-H/14@518, 1,369),
-with the same arithmetic and the same bits. (From 321 to 832 keys at D <=
-64 the resident layout would fit, but one CTA an SM: it reads slower.)
+goes through `AttentionPacked`. Every kernel here takes any head dim that is
+a multiple of 8 up to 256 (`MAX_HEAD_DIM`; `heads=4` at width 768 gives
+192, `heads=3` 256), and L up to 4,096 at every head dim: a head's K and V
+stay in shared memory up to 320 keys (D <= 64) or 384 (64 < D <= 128) and
+stream through a ring of them past that (ViT-L/16@512, L = 1,024 or 1,025;
+ViT-H/14@518, 1,369), and at every length above 128, with the same
+arithmetic and the same bits. (From 321 to 832 keys at D <= 64 the
+resident layout would fit, but one CTA an SM: it reads slower.)
 
 `fused_attention` is the counterpart of the JAX package's older
 `fused_attention` / `pallas_attention` on [B, L, H, D]: scores times
@@ -53,7 +55,7 @@ ABLATE_NAME = "attention_ablate"
 ABLATE_VARIANTS = ("prod", "nosoftmax", "nomm", "bf16exp", "exp2", "mulmask",
                    "nomax")
 # K3, K4 and K6-K9 take any head dim that is a multiple of 8 up to this.
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 CLAMP = 80.0   # Softmax stability clamp, in log2 units.
 
 
@@ -184,11 +186,12 @@ def _check(name, num_heads, **tensors):
 
 def attention_packed_fwd(q, k, v, num_heads, streamed=False):
   """Launches K3 on (B, L, H*D) bf16 contiguous q, k, v, D a multiple of 8
-  up to 128. L up to the kernel's `attention_packed_max_len(D)`, 4,096 at
+  up to 256. L up to the kernel's `attention_packed_max_len(D)`, 4,096 at
   every head dim: a head's K and V stay in shared memory up to 320 keys at
   D <= 64 (one 64-column tile a head) and 384 at 64 < D <= 128 (two), and
-  stream through a ring of stages past that. `streamed`: stream them at
-  every length (for tests and measurement; the same bits)."""
+  stream through a ring of stages past that, and at every length at D >
+  128 (three or four tiles). `streamed`: stream them at every length (for
+  tests and measurement; the same bits)."""
   b, l, d = _check(NAME, num_heads, q=q, k=k, v=v)
   fn, max_len, fn_streamed = _lib()
   _require(l <= max_len(d), f"sequence length {l} > {max_len(d)} at head "
@@ -207,7 +210,7 @@ def attention_packed_fwd(q, k, v, num_heads, streamed=False):
 
 def attention_packed_bwd(q, k, v, do, num_heads):
   """Launches K4 on (B, L, H*D) bf16 contiguous q, k, v, do (D a multiple
-  of 8 up to 128); returns
+  of 8 up to 256); returns
   (dq, dk, dv). Each output element is summed by one warpgroup's
   accumulator in a fixed order (no atomics), so two launches give the same
   bits. L up to the kernel's `attention_packed_bwd_max_len()`, 4096: its
@@ -367,13 +370,14 @@ def _check_unpacked(name, **tensors):
 
 def attention_unpacked_fwd(q, k, v, streamed=False):
   """Launches K7 on [B, L, H, D] bf16 contiguous, 16-byte aligned q, k,
-  v, D a multiple of 8 up to 128. No atomics: two launches give the same
+  v, D a multiple of 8 up to 256. No atomics: two launches give the same
   bits. L up to the kernel's `attention_unpacked_max_len(D)`, 4,096 at
   every head dim: a head's K and V stay resident in shared memory up to
   320 keys at D <= 64 (one 64-column tile a head) and 384 at 64 < D <=
   128 (two), and stream through a ring of stages past that, every pass
-  walking the keys again. `streamed`: stream them at every length (for
-  tests and measurement; the same bits)."""
+  walking the keys again, and at every length at D > 128. `streamed`:
+  stream them at every length (for tests and measurement; the same
+  bits)."""
   b, l, h, d = _check_unpacked(UNPACKED_NAME, q=q, k=k, v=v)
   fn, max_len, fn_streamed = _unpacked_lib()
   _require(l <= max_len(d), f"sequence length {l} > {max_len(d)} at head "
@@ -407,7 +411,7 @@ def _unpacked_bwd_buffers(q, k, v, do):
 
 def attention_unpacked_bwd(q, k, v, do):
   """Launches K8 on [B, L, H, D] bf16 contiguous, 16-byte aligned q, k,
-  v, do, D a multiple of 8 up to 128; returns (dq, dk, dv). Two kernels,
+  v, do, D a multiple of 8 up to 256; returns (dq, dk, dv). Two kernels,
   dQ and then dK/dV, each output element summed by one warpgroup in a
   fixed order (no atomics), so two launches give the same bits. L up to
   `attention_unpacked_bwd_max_len()`, 4,096 at every head dim: keys and
@@ -539,10 +543,10 @@ def _ablate_lib():
 
 def attention_ablate_fwd(q, k, v, num_heads, variant):
   """Launches K9's arm `variant` on (B, L, H*D) bf16 contiguous, 16-byte
-  aligned q, k, v, D a multiple of 8 up to 128; L up to
+  aligned q, k, v, D a multiple of 8 up to 256; L up to
   `attention_ablate_max_len(D)`, 4,096 at every head dim (K and V stream
-  past 320 keys at D <= 64 and 384 above). No atomics: two launches give
-  the same bits."""
+  past 320 keys at D <= 64 and 384 up to 128, and at every length above).
+  No atomics: two launches give the same bits."""
   _require(variant in ABLATE_VARIANTS,
            f"unknown variant {variant!r}, one of {ABLATE_VARIANTS}",
            ABLATE_NAME)

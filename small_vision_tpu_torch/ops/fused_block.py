@@ -12,7 +12,7 @@ under `attn_impl="pallas_fused"`:
   fused_mha:  q, k, v = bf16(f32(x W) + b); per head the max-shift softmax
               attention of `ops.attention.attention_plain`; then
               o = bf16(f32(attn Wo) + bo), on x of width d and H heads of
-              D (a multiple of 8 up to 128) with W (d, H*D) and Wo
+              D (a multiple of 8 up to 256) with W (d, H*D) and Wo
               (H*D, d), d and H*D multiples of 64: d = H*D in one
               process, and a tensor rank's H/T heads (d = 768, H = 6 at
               UMD-B/4 over two) under the Megatron block
@@ -171,7 +171,7 @@ def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   """(library, (b, l, d, hd, head_dim)) once the arguments are what K6
   takes: x (B, L, d), q, k, v weights (d, hd) and biases (hd,), the
   out-projection (hd, d) and its bias (d,), hd = num_heads * head_dim, the
-  head dim a multiple of 8 up to 128, d and hd multiples of 64 (the
+  head dim a multiple of 8 up to 256, d and hd multiples of 64 (the
   projection GEMM's tiles)."""
   _require(x.is_cuda, "x must be a CUDA tensor", MHA_NAME)
   _require(x.dim() == 3, f"x must be (B, L, d), got {tuple(x.shape)}",
@@ -201,14 +201,15 @@ def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
 def fused_mha_max_len(head_dim: int) -> int:
   """The longest sequence K6 takes at a head dim (builds the kernels):
   4,096 at every one (its attention's K and V stream through a ring of
-  stages past 320 keys at head dims up to 64 and 384 above)."""
+  stages past 320 keys at head dims up to 64 and 384 up to 128, and at
+  every length above)."""
   return _mha_lib().fused_mha_max_len(head_dim)
 
 
 def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   """Launches K6 on bf16 contiguous x (B, L, d), three (d, H*D) weights
   with (H*D,) biases and the (H*D, d) out-projection with its (d,)
-  bias, D a multiple of 8 up to 128, d and H*D multiples of 64 (d = H*D
+  bias, D a multiple of 8 up to 256, d and H*D multiples of 64 (d = H*D
   in one process; a tensor rank's H heads of a wider model under the
   Megatron block): the q, k, v projection, the attention and the
   out-projection, three kernel launches through q, k, v and head outputs

@@ -1,7 +1,8 @@
-"""Holds this tree's attention kernels (K3, K6, K7, K8, K9) and the
+"""Holds this tree's attention kernels (K3, K4, K6, K7, K8, K9) and the
 LayerNorm-modulate backward (K2) against another tree's, on the card, K1-K4
 at a width and head count of the variant tables, and times K3, K6, K7 and
-K9 of this tree alone at the long shapes that the other may refuse.
+K9 of this tree alone at the long shapes that the other may refuse, and
+every attention kernel of this tree alone at head dims 192 and 256.
 
   python -m small_vision_tpu_torch.tools.ab_kernels --other DIR
       [--rounds 3] [--iters 50] [--out FILE] [--width 768 --heads 12]
@@ -28,19 +29,27 @@ and loads them beside this tree's libraries. Then, on inputs from a
     257): the cost of streaming where the heads are short.
   - K8 on [128, L, 12, 64] and K2 on (128, L, 768) with modulation, at the
     training lengths L = 68, 164, 257, beside SDPA's backward and the
-    autograd backward of `F.layer_norm` and the modulation. Their bits may
-    differ between the trees (their sums and exps may be regrouped), so
-    only their times are held.
+    autograd backward of `F.layer_norm` and the modulation. K8's dq, dk
+    and dv must be the other tree's bits; K2's may differ between the
+    trees (its sums may be regrouped), so only its times are held.
   - K1, K2, K3 and K4 at `--width` and `--heads` (head dim width / heads)
     at the training lengths L = 68, 164, 257 and batch 128, modulated,
     beside `F.layer_norm` + modulate, its autograd backward, SDPA and its
-    backward.
+    backward; K3's and K4's outputs must be the other tree's bits.
   - This tree alone: K3, K7, K6 (call and attention launch) and K9's seven
     arms at (64, 1,024) and (64, 1,025) with 16 heads of 64 (ViT-L/16@512,
     "map" and "tok"), (64, 1,369) with 16 heads of 80 (ViT-H/14@518) and
     (4, 4,096) with 12 heads of 64, each beside SDPA and its bound: the
     larger of q, k, v and o's bytes over 3.35 TB/s and 4 B H L^2 D
     operations over 989 TFLOP/s.
+  - This tree alone at the head dims that take three and four 64-column
+    tiles a head (`WIDE_HEADS`: 4 heads of 192 and 3 of 256 at width
+    768): K3 at the sampler's (64, 260) and the training shapes (128, L =
+    68, 164, 257), K4 and K8 at the training shapes, K6 (call and
+    attention launch) and K7 at (64, 260) and (128, 257), K9's seven arms
+    at (128, 257) and (128, 164), each beside SDPA (or its backward) and
+    the bound (a backward's: q, k, v, dO, dq, dk, dv once, or five
+    products of 2 B H L^2 D operations).
 Each time is the mean of `--iters` launches between two CUDA events after
 a warm-up launch; the two sides of a comparison are taken in turns (other,
 this, this, other; resident, streamed, streamed, resident) for `--rounds`
@@ -74,6 +83,8 @@ STREAM_SHAPES = ((64, 260), (128, 257))  # resident against streamed
 LONG_SHAPES = ((64, 1024, 16, 64), (64, 1025, 16, 64), (64, 1369, 16, 80),
                (4, 4096, 12, 64))
 TRAIN_SHAPES = ((128, 68), (128, 164), (128, 257))  # K8 and K2
+# (heads, head dim) of this tree alone at width 768: `heads=4`, `heads=3`.
+WIDE_HEADS = ((4, 192), (3, 256))
 SOURCES = ("fused_mha", "attention_unpacked", "attention_ablate",
            "attention_unpacked_bwd", "ln_modulate_bwd", "ln_modulate",
            "attention_packed", "attention_packed_bwd")
@@ -159,9 +170,19 @@ def bound_ms(b, l, heads, hd):
              4 * b * heads * l * l * hd / 989e12) * 1e3
 
 
-def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library):
+def bwd_bound_ms(b, l, heads, hd):
+  """The least ms of an attention backward on this card: q, k, v, dO, dq,
+  dk and dv once over 3.35 TB/s or five products of 2 B H L^2 D
+  operations over 989 TFLOP/s (bf16), the larger."""
+  return max(7 * b * l * heads * hd * 2 / 3.35e12,
+             5 * 2 * b * heads * l * l * hd / 989e12) * 1e3
+
+
+def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library,
+             outputs):
   """K1-K4 of each side and their library calls, at (b, l, width) with
-  `heads` heads, into `pairs` and `library`."""
+  `heads` heads, into `pairs` and `library`; K3's and K4's outputs of each
+  side into `outputs` ({name: {side: tensors}})."""
   hd = width // heads
   stream = lambda: torch.cuda.current_stream().cuda_stream
   x, dy = randn(b, l, width), randn(b, l, width)
@@ -185,8 +206,10 @@ def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library):
             lib.ln_modulate_fwd(*p, mod.stride(0), y.data_ptr(), None, None,
                                 b * l, l, width, 1e-6, stream())))
     scale = float(np.float32(1.0 / np.sqrt(hd)))
+    o_fwd = torch.empty_like(q)
+    keep.append(o_fwd)
     pairs.setdefault(f"K3 {tag}", {})[side] = (
-        lambda lib=libs["attention_packed"], o=o3[0]: _check(
+        lambda lib=libs["attention_packed"], o=o_fwd: _check(
             lib.attention_packed_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 b, l, heads, hd, attn.scale_log2(hd), stream())))
@@ -195,6 +218,8 @@ def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library):
         _check(lib.attention_packed_bwd(
             *[t.data_ptr() for t in (q, k, v, do, *o3, *rc)], b, l, heads,
             hd, attn.scale_log2(hd), scale, stream())))
+    outputs.setdefault(f"K3 {tag}", {})[side] = [o_fwd]
+    outputs.setdefault(f"K4 {tag}", {})[side] = o3
   g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
   library[f"K1 {tag}"] = (
       lambda: torch.nn.functional.layer_norm(x, (width,), g16, b16, 1e-6)
@@ -209,6 +234,66 @@ def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library):
       torch.autograd.grad(o, split, g, retain_graph=True))
 
 
+def wide_heads(this, heads, hd, randn, keep, alone, bounds, library):
+  """This tree's K3, K4, K6, K7, K8 and K9 at `heads` heads of `hd` (width
+  heads * hd) at their shapes of WIDE_HEADS (see the module's docstring)
+  into `alone`, with their bounds and library calls."""
+  width = heads * hd
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  stream = lambda: torch.cuda.current_stream().cuda_stream
+  params = []
+  for _ in range(4):
+    params += [randn(width, width, std=width**-0.5), randn(width, std=0.1)]
+  keep += params
+  for b, l in K3_SHAPES[:4]:
+    tag = f"{b}x{l} {heads}x{hd}"
+    q, k, v, do = (randn(b, l, width) for _ in range(4))
+    q4, k4, v4, do4 = (t.view(b, l, heads, hd) for t in (q, k, v, do))
+    keep += [q, k, v, do]
+    hf = [t.transpose(1, 2).detach().requires_grad_() for t in (q4, k4, v4)]
+    o = sdpa(*hf)
+    library[f"forward {tag}"] = (
+        lambda hf=[t.detach() for t in hf]: sdpa(*hf))
+    fns = {"K3": attention_launch(this["attention_packed"],
+                                  "attention_packed_fwd", q, k, v, heads)}
+    if (b, l) in K6_SHAPES:
+      x = randn(b, l, width)
+      keep.append(x)
+      k6, o6 = k6_launches(this["fused_mha"], x, params, b, l, width, heads)
+      fns["K6 call"] = (k6["call"], o6)
+      fns["K6 attention"] = (k6["attention"], o6)
+      fns["K7"] = attention_launch(this["attention_unpacked"],
+                                   "attention_unpacked_fwd", q4, k4, v4,
+                                   heads)
+    if (b, l) in K9_SHAPES:
+      for arm_id, arm in enumerate(attn.ABLATE_VARIANTS):
+        fns[f"K9 {arm}"] = attention_launch(
+            this["attention_ablate"], "attention_ablate_fwd", q, k, v,
+            heads, arm_id)
+    for name, (fn, out) in fns.items():
+      alone[f"{name} {tag}"] = fn
+      bounds[f"{name} {tag}"] = bound_ms(b, l, heads, hd)
+      keep.append(out)
+    if (b, l) not in TRAIN_SHAPES:
+      continue
+    library[f"backward {tag}"] = (
+        lambda o=o, hf=hf, g=do4.transpose(1, 2):
+        torch.autograd.grad(o, hf, g, retain_graph=True))
+    scale = attn.scale_f32(hd)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    rc = [torch.empty(b, heads, l, device="cuda") for _ in range(3)]
+    keep += grads + rc
+    k4_ptrs = [t.data_ptr() for t in (q, k, v, do, *grads, *rc[:2])]
+    k8_ptrs = [t.data_ptr() for t in (q4, k4, v4, do4, *grads, *rc)]
+    alone[f"K4 {tag}"] = lambda p=k4_ptrs, b=b, l=l: _check(
+        this["attention_packed_bwd"].attention_packed_bwd(
+            *p, b, l, heads, hd, attn.scale_log2(hd), scale, stream()))
+    alone[f"K8 {tag}"] = lambda p=k8_ptrs, b=b, l=l: _check(
+        this["attention_unpacked_bwd"].attention_unpacked_bwd(
+            *p, b, l, heads, hd, scale, stream()))
+    bounds[f"K4 {tag}"] = bounds[f"K8 {tag}"] = bwd_bound_ms(b, l, heads, hd)
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser()
   parser.add_argument("--other", required=True,
@@ -220,7 +305,7 @@ def main(argv=None):
                       help="K1-K4's width (a multiple of 32 up to 2,048)")
   parser.add_argument("--heads", type=int, default=HEADS,
                       help="K3/K4's heads; width / heads a multiple of 8 "
-                      "up to 128")
+                      "up to 256")
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
     raise SystemExit("ab_kernels: needs a CUDA device")
@@ -236,6 +321,9 @@ def main(argv=None):
   # fn; name: this tree's fn alone. The functions hold raw pointers: `keep`
   # holds their tensors.
   pairs, library, alone, bounds, same_bits, keep = {}, {}, {}, {}, {}, []
+  # name: {side: its output tensors}, for kernels launched by `pairs`
+  # alone (K4, K8): each side launched once, then compared.
+  outputs = {}
 
   def compare(name, runs):
     """runs: {side: (launch fn, output)}; launches each once, records
@@ -313,15 +401,18 @@ def main(argv=None):
 
     for b, l in TRAIN_SHAPES:
       q, k, v, do = (randn(b, l, HEADS, 64) for _ in range(4))
-      outs = [torch.empty_like(q) for _ in range(3)] + [
-          torch.empty(b, HEADS, l, device="cuda") for _ in range(3)]
-      keep += [q, k, v, do, *outs]
-      ptrs = [t.data_ptr() for t in (q, k, v, do, *outs)]
-      pairs[f"K8 {b}x{l}"] = {
-          s: (lambda lib=libs["attention_unpacked_bwd"], p=ptrs, b=b, l=l:
-              _check(lib.attention_unpacked_bwd(*p, b, l, HEADS, 64, scale,
-                                                stream())))
-          for s, libs in sides.items()}
+      keep += [q, k, v, do]
+      pairs[f"K8 {b}x{l}"] = {}
+      for s, libs in sides.items():
+        outs = [torch.empty_like(q) for _ in range(3)] + [
+            torch.empty(b, HEADS, l, device="cuda") for _ in range(3)]
+        keep += outs
+        ptrs = [t.data_ptr() for t in (q, k, v, do, *outs)]
+        pairs[f"K8 {b}x{l}"][s] = (
+            lambda lib=libs["attention_unpacked_bwd"], p=ptrs, b=b, l=l:
+            _check(lib.attention_unpacked_bwd(*p, b, l, HEADS, 64, scale,
+                                              stream())))
+        outputs.setdefault(f"K8 {b}x{l}", {})[s] = outs[:3]
       heads_first = [t.transpose(1, 2).detach().requires_grad_()
                      for t in (q, k, v)]
       o = sdpa(*heads_first)
@@ -360,7 +451,19 @@ def main(argv=None):
 
     for b, l in TRAIN_SHAPES:
       k1_to_k4(sides, args.width, args.heads, b, l, randn, keep, pairs,
-               library)
+               library, outputs)
+    # Each side of K3, K4 and K8 there once; their outputs compared.
+    for name, by_side in outputs.items():
+      for side in by_side:
+        pairs[name][side]()
+      torch.cuda.synchronize()
+      first, second = by_side.values()
+      same_bits[name] = all(torch.equal(a, b)
+                            for a, b in zip(first, second))
+
+    # This tree alone at three and four 64-column tiles a head.
+    for heads, hd in WIDE_HEADS:
+      wide_heads(this, heads, hd, randn, keep, alone, bounds, library)
 
     # This tree alone at the long shapes.
     for b, l, heads, hd in LONG_SHAPES:

@@ -77,27 +77,48 @@ def test_plain_clamps_large_logits():
   np.testing.assert_allclose(got, kernel, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("hd", [8, 136, 192, 256])
+def test_check_head_dim_takes_multiples_of_8_up_to_256(hd):
+  """The kernels' wrappers take every head dim that is a multiple of 8 from
+  8 to 256: 136 (a ragged last 64-column tile), 192 and 256 (`heads=4` and
+  `heads=3` at width 768)."""
+  assert tattn.MAX_HEAD_DIM == 256
+  tattn.check_head_dim(hd, tattn.NAME)
+
+
+@pytest.mark.parametrize("hd", [12, 264, 4, 0])
+def test_check_head_dim_refuses_the_others_by_name(hd):
+  """Past 256, or not a multiple of 8, the named error: no plain route."""
+  with pytest.raises(ValueError,
+                     match=f"{tattn.NAME}: head dim {hd}: the kernel takes "
+                     "multiples of 8 up to 256"):
+    tattn.check_head_dim(hd, tattn.NAME)
+
+
 def test_scale_log2_is_the_kernels():
   want = np.float32(1.0 / np.sqrt(64)) * np.float32(np.log2(np.e))
   assert tattn.scale_log2(64) == float(want)
 
 
 # Head dims K3 now takes beside 64: 8 (the probe's quick config), 16
-# (runlocal, ViT-mu), 80 (ViT-H) and 128 (heads=6 at width 768).
-@pytest.mark.parametrize("hd", [8, 16, 80, 128])
+# (runlocal, ViT-mu), 80 (ViT-H), 128 (heads=6 at width 768), 192 and 256
+# (heads=4 and heads=3 at width 768: three and four 64-column tiles on the
+# card), these two in two heads.
+@pytest.mark.parametrize("hd", [8, 16, 80, 128, 192, 256])
 def test_plain_matches_jax_at_head_dims(hd):
-  """The plain forward at head dim hd (3 heads) against the interpreted
-  JAX kernel, with the bounds of the head-dim-64 tests above; the scale is
-  the head dim's own, rounded as the JAX kernel rounds it."""
+  """The plain forward at head dim hd (3 heads, 2 past 128) against the
+  interpreted JAX kernel, with the bounds of the head-dim-64 tests above;
+  the scale is the head dim's own, rounded as the JAX kernel rounds it."""
   rng = np.random.default_rng(hd)
-  q, k, v = (rng.standard_normal((2, 33, 3 * hd)).astype(np.float32)
+  heads = 3 if hd <= 128 else 2
+  q, k, v = (rng.standard_normal((2, 33, heads * hd)).astype(np.float32)
              for _ in range(3))
   for dt, jdt, tol in ((torch.float32, jnp.float32, 1e-5),
                        (torch.bfloat16, jnp.bfloat16, 2**-7)):
     got = tattn.attention_packed(*(torch.from_numpy(a).to(dt)
-                                   for a in (q, k, v)), 3).float().numpy()
+                                   for a in (q, k, v)), heads).float().numpy()
     want = jattn.pallas_attention_packed(
-        *(jnp.asarray(a, jdt) for a in (q, k, v)), 3, interpret=True)
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), heads, interpret=True)
     np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
                                rtol=tol, atol=tol)
 

@@ -103,19 +103,22 @@ def test_no_grad_takes_the_forward_only():
   assert type(out.grad_fn).__name__ == "AttentionPackedBackward"
 
 
-@pytest.mark.parametrize("hd", [8, 16, 80, 128])
+@pytest.mark.parametrize("hd", [8, 16, 80, 128, 192, 256])
 def test_backward_matches_jax_at_head_dims(hd):
-  """The plain backward (K4's) at head dim hd (3 heads) against the
-  interpreted JAX kernel's VJP, with the bounds of the head-dim-64 tests
-  above (f32 and bf16)."""
+  """The plain backward (K4's) at head dim hd (3 heads; 2 at 192 and 256,
+  `heads=4` and `heads=3`'s head dims) against the interpreted JAX
+  kernel's VJP, with the bounds of the head-dim-64 tests above (f32 and
+  bf16)."""
   rng = np.random.default_rng(hd)
-  q, k, v, do = (rng.standard_normal((2, 33, 3 * hd)).astype(np.float32)
+  heads = 3 if hd <= 128 else 2
+  q, k, v, do = (rng.standard_normal((2, 33, heads * hd)).astype(np.float32)
                  for _ in range(4))
   for dt, jdt, rel in ((torch.float32, jnp.float32, 1e-5),
                        (torch.bfloat16, jnp.bfloat16, 2**-6)):
     args = [torch.from_numpy(a).to(dt).requires_grad_() for a in (q, k, v)]
-    tattn.attention_packed(*args, 3).backward(torch.from_numpy(do).to(dt))
-    fn = lambda q, k, v: jattn.fused_attention_packed(q, k, v, 3, True)
+    tattn.attention_packed(*args, heads).backward(
+        torch.from_numpy(do).to(dt))
+    fn = lambda q, k, v: jattn.fused_attention_packed(q, k, v, heads, True)
     _, vjp = jax.vjp(fn, *(jnp.asarray(a, jdt) for a in (q, k, v)))
     for a, w in zip(args, vjp(jnp.asarray(do, jdt))):
       w = np.asarray(w.astype(jnp.float32))

@@ -1,14 +1,15 @@
 """Port parity at head dims other than 64: the plain versions of K6 (the
 fused MHA), K7 and K8 (attention on [B, L, H, D] with the max-shift
 softmax, forward and backward) and K9 (the seven ablation arms), whose
-CUDA kernels take every head dim that is a multiple of 8 up to 128.
+CUDA kernels take every head dim that is a multiple of 8 up to 256.
 
 The same inputs, drawn with numpy, go through the JAX package's Pallas
 kernels in interpret mode (`_mha_pallas`, `pallas_attention`,
 `_pallas_attention_bwd_impl`, and `run_variant`'s kernel body, which the
 script builds for the TPU only) and through the port on the CPU, at head
-dims 8, 16, 80 and 128 with B <= 2 and L <= 70. Each JAX kernel derives its
-head dim from the shapes and scales by f32(D**-0.5), as the port does.
+dims 8, 16, 80, 128, 192 and 256 with B <= 2 and L <= 70. Each JAX kernel
+derives its head dim from the shapes and scales by f32(D**-0.5), as the
+port does.
 
 Tolerances, relative to the largest output: f32 1e-5 (the same formulas,
 sums in another order); bf16 2^-6, two bf16 ulps (q, k, v, the
@@ -35,9 +36,11 @@ from small_vision_tpu_torch.ops import fused_block as tfb
 
 SCRIPT = (pathlib.Path(__file__).resolve().parent.parent / "scripts"
           / "ablate_attention_kernel.py")
-# (head dim, heads, L): the narrow dims of the quick configs, ViT-H's 80
-# and the `heads=6` setting's 128.
-CASES = [(8, 8, 21), (16, 4, 37), (80, 2, 70), (128, 2, 45)]
+# (head dim, heads, L): the narrow dims of the quick configs, ViT-H's 80,
+# the `heads=6` setting's 128, and `heads=4`'s and `heads=3`'s 192 and 256
+# (three and four 64-column tiles a head on the card).
+CASES = [(8, 8, 21), (16, 4, 37), (80, 2, 70), (128, 2, 45), (192, 2, 33),
+         (256, 1, 52)]
 IDS = [f"d{d}" for d, _, _ in CASES]
 B = 2
 DTYPES = {"float32": (jnp.float32, torch.float32),

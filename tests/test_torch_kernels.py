@@ -39,19 +39,21 @@ shapes `_int_mm` does not take; K3 and K4 at UMD-L/2's 16 heads of 64
 on the card against the CPU at a small shape. K1 and K2 at every width of
 the variant tables and the narrow widths of the quick configs (32 ... 2,048,
 modulated or not, K2 three launches in a row and on two streams), and K3
-and K4 at head dims 8, 16, 80, 104 and 128 (and 24, 40, 72, 96, 120),
-against the plain versions, two launches giving the same bits; a width of
-2,080 and a head dim of 136 raise the named error, with no plain route.
-K6, K7, K8 and each arm of K9 at head dims 8, 16, 80, 88, 104 and 128
-(L = 20, 68, 257 and 260) against their plain versions in the tests of
-each at head dim 64, two launches giving the same bits; K3, K6, K7 and K9
-past the lengths whose K and V they keep resident (320 keys at head dims
-up to 64, 384 above), where K and V stream through a ring: at 1,024,
-1,025 and 4,096 (head dim 64) and 1,369 (80), and at head dim 128 from 384
-to 4,096, two launches giving the same bits, and 4,097 refused, the limit
-K4 and K8 share; K3 and K7 streamed at the resident lengths giving the
-resident launch's bits; head dims 12 and 136 refused by all four
-wrappers, with no launch.
+and K4 at head dims 8, 16, 80, 104, 128, 136, 192, 200, 248 and 256 (and
+24, 40, 72, 96, 120), against the plain versions, two launches giving the
+same bits; a width of 2,080 and a head dim of 264 raise the named error,
+with no plain route. K6, K7, K8 and each arm of K9 at head dims 8, 16, 80,
+88, 104, 128, 136, 192, 200 and 256 (L = 20, 68, 257 and 260) against
+their plain versions in the tests of each at head dim 64, two launches
+giving the same bits; K3, K6, K7 and K9 past the lengths whose K and V
+they keep resident (320 keys at head dims up to 64, 384 up to 128, none
+above), where K and V stream through a ring: at 1,024, 1,025 and 4,096
+(head dim 64), 1,369 (80) and 1,024 and 4,096 (256), and at head dims 128
+and 256 from 384 (1 at 256) to 4,096, K4 and K8 too at 256, two launches
+giving the same bits, and 4,097 refused, the limit K4 and K8 share; K3
+and K7 streamed at the resident lengths giving the resident launch's
+bits; head dims 12 and 264 refused by all four wrappers, with no
+launch.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -179,10 +181,12 @@ def test_ln_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 # to 64, 384 above), K and V streamed: ViT-L/16@512's 1,024 ("map") and
 # 1,025 ("tok": 17 query tiles, so the last CTA's second warpgroup
 # recomputes a tile and stores nothing), ViT-H/14@518's 1,369 at head dim
-# 80, and 4,096, the limit they share with K4 and K8: (batch, length, head
-# dim), two heads (four for K6 at 80, whose projections take multiples of
-# 64 columns).
-LONG_CASES = [(2, 1024, 64), (2, 1025, 64), (1, 1369, 80), (1, 4096, 64)]
+# 80, and 4,096, the limit they share with K4 and K8, also at head dim 256
+# (`heads=3` at width 768; three or four tiles a head stream at every
+# length): (batch, length, head dim), two heads (four for K6 at 80, whose
+# projections take multiples of 64 columns).
+LONG_CASES = [(2, 1024, 64), (2, 1025, 64), (1, 1369, 80), (1, 4096, 64),
+              (1, 1024, 256), (1, 4096, 256)]
 MAX_ATTN_LEN = 4096
 
 
@@ -267,7 +271,7 @@ def test_attention_kernel_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
-  q = torch.zeros(1, 8, 2 * 136, dtype=torch.bfloat16, device=cuda)
+  q = torch.zeros(1, 8, 2 * 264, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="head dim"):
     attn.attention_packed_fwd(q, q, q, 2)
   # L up to 4,096 at every head dim (the runs: test_attention_kernel_
@@ -441,7 +445,7 @@ def test_attention_bwd_kernel_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_attention_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
-  q = torch.zeros(1, 8, 2 * 136, dtype=torch.bfloat16, device=cuda)
+  q = torch.zeros(1, 8, 2 * 264, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="head dim"):
     attn.attention_packed_bwd(q, q, q, q, 2)
   long = torch.zeros(1, attn._bwd_lib()[1] + 16, 64, dtype=torch.bfloat16,
@@ -581,10 +585,13 @@ def test_fused_mlp_stages_launch_both_kernels_and_count_nothing(cuda):
 
 
 MAX_LEN = -1  # stands for the kernel's own length limit, known once built
-# K6-K9 at the head dims of the variant tables and the narrow ones: (head
+# K6-K9 at the head dims of the variant tables and the narrow ones, and the
+# wide ones of `heads=4` and `heads=3` at width 768 (192, 256; three and
+# four 64-column tiles) and two with a ragged last tile (136, 200): (head
 # dim, heads), the width heads x head dim a multiple of 64 for K6's GEMM;
 # each at (batch, length) (2, 20), (2, 68), (2, 257) and (1, 260).
-WIDE_HEADS = ((8, 8), (16, 4), (80, 16), (88, 16), (104, 16), (128, 6))
+WIDE_HEADS = ((8, 8), (16, 4), (80, 16), (88, 16), (104, 16), (128, 6),
+              (136, 8), (192, 4), (200, 8), (256, 3))
 WIDE_CASES = [(b, l, heads, hd) for hd, heads in WIDE_HEADS
               for b, l in ((2, 20), (2, 68), (2, 257), (1, 260))]
 
@@ -735,11 +742,13 @@ def test_unpacked_attention_kernel_takes_large_logits(cuda):
 @pytest.mark.parametrize("b,l,h,d", [
     (4, 1, 2, 64), (4, 20, 2, 64), (4, 37, 3, 64), (4, 65, 3, 64),
     (4, 68, 12, 64), (4, 164, 12, 64), (4, 257, 12, 64), (4, 720, 2, 64),
-    (4, 1024, 1, 64), (1, MAX_LEN, 1, 64)] + WIDE_CASES)
+    (4, 1024, 1, 64), (1, MAX_LEN, 1, 64)] + WIDE_CASES + [
+        (4, 1024, 1, 256), (1, MAX_LEN, 1, 256)])
 def test_unpacked_attention_bwd_kernel_matches_plain(cuda, b, l, h, d):
   """Also at L = 1, at 65 (one key past a 64-row tile), at 720 and 1,024,
   past the 704 the kernel once took, at its own limit (4,096), batch 1,
-  and at every head dim of WIDE_HEADS."""
+  at every head dim of WIDE_HEADS, and at 1,024 and 4,096 at head dim
+  256."""
   if l == MAX_LEN:
     l = attn._unpacked_bwd_lib()[1]
   q, k, v, do = _qkv_do_4d(cuda, l, b=b, h=h, d=d)
@@ -1130,7 +1139,8 @@ def test_ln_bwd_kernel_at_new_widths_on_two_streams(cuda, d):
       assert (w is None and g is None) or torch.equal(w, g)
 
 
-HEAD_DIMS = (8, 16, 24, 40, 72, 80, 96, 104, 120, 128)
+HEAD_DIMS = (8, 16, 24, 40, 72, 80, 96, 104, 120, 128, 136, 192, 200, 248,
+             256)
 
 
 @pytest.mark.cuda
@@ -1162,24 +1172,55 @@ def test_attention_kernels_at_every_head_dim(cuda, hd, l):
 HD128_LENS = [384, 385, 1024, 1025, 1369, MAX_ATTN_LEN]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("l", HD128_LENS)
-def test_attention_kernels_at_head_dim_128_limits(cuda, l):
-  """K3 at head dim 128 around its resident length and up to the common
-  limit, 4,096, against the plain version, two launches giving the same
-  bits; one past 4,096 refused."""
-  q, k, v = (_randn((1, l, 2 * 128), 70 + i, cuda, torch.bfloat16)
+# Head dim 256 (four tiles a head, streamed at every length): one key, the
+# edges of a 64-row tile, the long lengths and the limit.
+HD256_LENS = [1, 64, 65, 1024, 1025, MAX_ATTN_LEN]
+
+
+def _packed_at_limits(cuda, l, hd):
+  q, k, v = (_randn((1, l, 2 * hd), 70 + i, cuda, torch.bfloat16)
              for i in range(3))
   got = attn.attention_packed_fwd(q, k, v, 2)
   assert torch.equal(got, attn.attention_packed_fwd(q, k, v, 2))
   torch.testing.assert_close(
       got.float(), attn.attention_packed_plain(q, k, v, 2).float(),
       rtol=2**-7, atol=2**-7)
-  assert attn._lib()[1](128) == MAX_ATTN_LEN
-  long = torch.zeros(1, MAX_ATTN_LEN + 1, 128, dtype=torch.bfloat16,
+  assert attn._lib()[1](hd) == MAX_ATTN_LEN
+  long = torch.zeros(1, MAX_ATTN_LEN + 1, hd, dtype=torch.bfloat16,
                      device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_packed_fwd(long, long, long, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", HD128_LENS)
+def test_attention_kernels_at_head_dim_128_limits(cuda, l):
+  """K3 at head dim 128 around its resident length and up to the common
+  limit, 4,096, against the plain version, two launches giving the same
+  bits; one past 4,096 refused."""
+  _packed_at_limits(cuda, l, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", HD256_LENS)
+def test_attention_kernels_at_head_dim_256_limits(cuda, l):
+  """K3 and K4 at head dim 256 from one key to the common limit, 4,096,
+  against the plain versions, two launches of each giving the same bits;
+  one past 4,096 refused."""
+  _packed_at_limits(cuda, l, 256)
+  q, k, v, do = (_randn((1, l, 2 * 256), 80 + i, cuda, torch.bfloat16)
+                 for i in range(4))
+  grads = attn.attention_packed_bwd(q, k, v, do, 2)
+  again = attn.attention_packed_bwd(q, k, v, do, 2)
+  want = attn.attention_packed_bwd_plain(q, k, v, do, 2)
+  # As test_attention_bwd_kernel_matches_plain_at_the_edges: dq and dk
+  # vanish at L = 1, so each output's scale is floored at 1e-3 of the
+  # largest of the three.
+  top = max(w.float().abs().max().item() for w in want)
+  for g, a, w in zip(grads, again, want):
+    assert torch.equal(g, a)
+    err = (g.float() - w.float()).abs().max().item()
+    assert err <= 2.0**-6 * max(w.float().abs().max().item(), 1e-3 * top)
 
 
 @pytest.mark.cuda
@@ -1189,44 +1230,57 @@ def test_max_shift_kernels_at_head_dim_128_limits(cuda, l):
   resident length and up to 4,096, the limit they share with K8, against
   their plain versions, two launches of each giving the same bits; one
   past 4,096 refused by each."""
-  assert (attn._unpacked_lib()[1](128) == fb.fused_mha_max_len(128)
-          == attn._ablate_lib()[1](128) == attn._unpacked_bwd_lib()[1]
+  _max_shift_at_limits(cuda, l, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", HD256_LENS)
+def test_max_shift_kernels_at_head_dim_256_limits(cuda, l):
+  """K6, K7 and K9's production arm at head dim 256 from one key to 4,096,
+  as at 128."""
+  _max_shift_at_limits(cuda, l, 256)
+
+
+def _max_shift_at_limits(cuda, l, hd):
+  assert (attn._unpacked_lib()[1](hd) == fb.fused_mha_max_len(hd)
+          == attn._ablate_lib()[1](hd) == attn._unpacked_bwd_lib()[1]
           == MAX_ATTN_LEN)
-  q, k, v = (_randn((1, l, 2, 128), 95 + i, cuda, torch.bfloat16)
+  q, k, v = (_randn((1, l, 2, hd), 95 + i, cuda, torch.bfloat16)
              for i in range(3))
   got = attn.attention_unpacked_fwd(q, k, v)
   assert torch.equal(got, attn.attention_unpacked_fwd(q, k, v))
   torch.testing.assert_close(got.float(),
                              attn.attention_plain(q, k, v).float(),
                              rtol=2**-7, atol=2**-7)
-  q3, k3, v3 = (t.reshape(1, l, 256) for t in (q, k, v))
+  q3, k3, v3 = (t.reshape(1, l, 2 * hd) for t in (q, k, v))
   got = attn.attention_ablate_fwd(q3, k3, v3, 2, "exp2")
   assert torch.equal(got, attn.attention_ablate_fwd(q3, k3, v3, 2, "exp2"))
   _assert_close_to_max(got, attn.attention_ablate_plain(q3, k3, v3, 2,
                                                         "exp2"), 2)
-  args = _mha_args(cuda, 1, l, 2, hd=128)
+  args = _mha_args(cuda, 1, l, 2, hd=hd)
   got = fb.fused_mha_fwd(*args, 2)
   assert torch.equal(got, fb.fused_mha_fwd(*args, 2))
   _assert_close_to_max(got, fb.fused_mha_plain(*args, 2), 2)
-  long = torch.zeros(1, MAX_ATTN_LEN + 1, 2, 128, dtype=torch.bfloat16,
+  long = torch.zeros(1, MAX_ATTN_LEN + 1, 2, hd, dtype=torch.bfloat16,
                      device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     attn.attention_unpacked_fwd(long, long, long)
   with pytest.raises(ValueError, match="sequence length"):
-    attn.attention_ablate_fwd(*(long.reshape(1, -1, 256),) * 3, 2, "exp2")
-  x = torch.zeros(1, MAX_ATTN_LEN + 1, 256, dtype=torch.bfloat16,
+    attn.attention_ablate_fwd(*(long.reshape(1, -1, 2 * hd),) * 3, 2,
+                              "exp2")
+  x = torch.zeros(1, MAX_ATTN_LEN + 1, 2 * hd, dtype=torch.bfloat16,
                   device=cuda)
-  w = torch.zeros(256, 256, dtype=torch.bfloat16, device=cuda)
-  bias = torch.zeros(256, dtype=torch.bfloat16, device=cuda)
+  w = torch.zeros(2 * hd, 2 * hd, dtype=torch.bfloat16, device=cuda)
+  bias = torch.zeros(2 * hd, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="sequence length"):
     fb.fused_mha_fwd(x, *(w, bias) * 4, 2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,heads", [(12, 16), (136, 8)])
+@pytest.mark.parametrize("hd,heads", [(12, 16), (264, 8)])
 def test_max_shift_wrappers_refuse_head_dims_they_do_not_take(cuda, hd,
                                                               heads):
-  """A head dim that is not a multiple of 8 or is over 128 makes each of
+  """A head dim that is not a multiple of 8 or is over 256 makes each of
   K6-K9's wrappers raise on the card: no plain route, no CPU."""
   width = heads * hd
   t4 = torch.zeros(1, 20, heads, hd, dtype=torch.bfloat16, device=cuda)
@@ -1245,13 +1299,13 @@ def test_max_shift_wrappers_refuse_head_dims_they_do_not_take(cuda, hd,
 
 @pytest.mark.cuda
 def test_wrappers_name_the_shapes_the_kernels_refuse(cuda):
-  """A head dim of 136 and a width of 2,080 raise the named error on the
+  """A head dim of 264 and a width of 2,080 raise the named error on the
   card: there is no plain route for a CUDA tensor."""
-  q = torch.zeros(1, 8, 2 * 136, dtype=torch.bfloat16, device=cuda,
+  q = torch.zeros(1, 8, 2 * 264, dtype=torch.bfloat16, device=cuda,
                   requires_grad=True)
   for fn in (lambda: attn.attention_packed(q, q, q, 2),
              lambda: attn.attention_packed_bwd(q, q, q, q, 2)):
-    with pytest.raises(ValueError, match="head dim 136"):
+    with pytest.raises(ValueError, match="head dim 264"):
       fn()
   x, gamma, beta, shift, scale = _ln_args(cuda, 4, True, b=2, d=2080)
   with pytest.raises(ValueError, match="width 2080"):

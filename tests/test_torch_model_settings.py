@@ -17,7 +17,9 @@ and "flax".
     stacked.
   - "xla" and "flax": the forward and the gradients against the JAX model
     under the same setting (XLA ops there; matmuls and a softmax here).
-  - Head dim 128 (the `heads` knob's shape): the forward against JAX.
+  - Head dim 128 (the `heads` knob's shape): the forward against JAX; head
+    dim 192 (`heads=4`'s) under "pallas" and "pallas_fused": the forward
+    and the gradients against JAX's interpreted kernels.
 The training step under `scan=True` and with dropout, and a `scan=True`
 run resumed, are in tests/test_torch_model_settings_step.py.
 """
@@ -54,7 +56,8 @@ def small(extra="", dtype="float32", **model):
     "heads=6", "scan=True", "heads=6,scan=True", "variant=S/4", "runlocal",
     "runlocal,scan=True", "attn_impl=xla", "attn_impl=flax",
     "variant=L/2,size=256,latent_diffusion=True,scan=True",
-    "heads=6,scan=True,attn_impl=pallas_fused"])
+    "heads=6,scan=True,attn_impl=pallas_fused", "heads=4", "heads=3",
+    "heads=4,attn_impl=pallas_fused"])
 def test_config_dicts_match_jax(arg):
   arg = f"data=synthetic,{arg}"
   got, want = ae_i1k.get_config(arg), jconfig.get_config(arg)
@@ -190,12 +193,14 @@ def test_unported_remat_policy_raises():
                          device="meta")
 
 
-def _jax_grads(config, params, image, t):
-  model = jax_model_raw(config)
-  loss = lambda p: jnp.mean(jnp.square(model.apply(
-      {"params": p}, image, t=t)[0]))
-  pred = model.apply({"params": params}, image, t=t)[0]
-  grads = jax.grad(loss)(jax.tree.map(jnp.asarray, params))
+def _jax_grads(config, params, image, t, build=None):
+  model = (build or jax_model_raw)(config)
+
+  def loss(p):
+    pred = model.apply({"params": p}, image, t=t)[0]
+    return jnp.mean(jnp.square(pred)), pred
+  (_, pred), grads = jax.value_and_grad(loss, has_aux=True)(
+      jax.tree.map(jnp.asarray, params))
   return np.asarray(pred), dict(tree_flatten_with_names(grads))
 
 
@@ -267,3 +272,28 @@ def test_head_dim_128_forward_matches_jax(scan):
   got, _ = torch_model(config, params)(torch.from_numpy(image),
                                        t=torch.from_numpy(t).long())
   _close(got.numpy(), np.asarray(want), 1e-5)
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "pallas_fused"])
+def test_head_dim_192_step_matches_jax(attn_impl):
+  """Width 384 in 2 heads of 192 (the head dim `heads=4` gives at 768;
+  three 64-column tiles a head on the card), depth 1 + 1, under
+  `attn_impl` (the plain K1-K6 here) against the JAX model under its
+  `*_interpret` setting: the forward and every parameter's gradient of a
+  mean-square loss in f32, with test_reference_attentions_match_jax's
+  bounds."""
+  config = small(attn_impl=attn_impl, width=384, num_heads=2, depth=1,
+                 dec_depth=1)
+  params = convert.init_params(config, seed=9)
+  rng = np.random.default_rng(5)
+  image = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+  t = np.array([3, 800], np.int32)
+  want_pred, want = _jax_grads(config, params, image, t, jax_model)
+  pred, got = _grads(config, params, image, t)
+  _close(pred.numpy(), want_pred, 1e-5)
+  top = max(np.max(np.abs(np.asarray(w))) for w in want.values())
+  for name, w in want.items():
+    w = np.asarray(w)
+    g = got[name].numpy() if got[name] is not None else np.zeros_like(w)
+    err = np.max(np.abs(g - w))
+    assert err <= max(1e-4 * np.max(np.abs(w)), 1e-6 * top), (name, err)
