@@ -41,8 +41,19 @@ Phases, each fatal on failure:
                two), and at 8, 16, 88, 104, 136, 200 and 248, checked,
                each launched twice to show equal bits; every attention
                kernel at head dim 256 at (4, 1,024) and (1, 4,096), and K6
-               at width 1,024 in 4 heads of 256, checked; head dims 12
-               and 264 must make each of the six wrappers raise.
+               at width 1,024 in 4 heads of 256, checked. The shapes the
+               GEMM's tails and the padded heads opened, each timed: K5 at
+               ViT-mu's 32 -> 128 at (64, 196) and (64, 197), at SigLIP
+               So400m's 1,152 -> 4,304 at (64, 256) and at 36 -> 150 (run
+               on copies padded to 40 -> 152) at (64, 197); K6 at width
+               32 in 2 heads of 16 at (64, 196) and (64, 197), and on a
+               tensor rank's 3 of 12 heads of 32 (96 columns) and 3 of 32
+               heads of 12 (36 columns, run at 48) at width 384; K3, K4
+               and K6-K9 at head dim 12 (32 heads at 384, `heads=32` on
+               UMD-S; run on heads zero-padded to 16) and K3, K4 at head
+               dim 4 (32 heads at 128). Head dims 264 and 0 must make each
+               of the six wrappers raise, with no launch, and 12 launch
+               each once.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
@@ -55,10 +66,10 @@ Phases, each fatal on failure:
   4. train     the full UMD-B/4@64 training step at batch 256 on synthetic
                data through `train_and_evaluate` (what the CLI runs), from
                `init_train_params` weights, under both settings: 1 warm-up
-               and 24 timed steps, whose img/s is the median of 3 windows
+               and 12 timed steps, whose img/s is the median of 3 windows
                of 2 steps, requalified (`utils/windows.py`: another 3
-               windows while their spread exceeds 2 %, at most 3 times; a
-               sampler reading once, the latent step with the encode
+               windows while their spread exceeds 2 %, at most once; a
+               sampler reading and the latent step with the encode
                never: their windows are long; printed with the windows,
                spread and `host_contended`);
                finite, falling losses, changed parameters, and exactly
@@ -71,8 +82,8 @@ Phases, each fatal on failure:
                "nothing_saveable") through `train_and_evaluate` at batch
                256, 1 warm-up and 5 timed steps, finite, falling losses,
                K1 128, K2 64, K3 64, K4 32 a step, the peak memory beside
-               phase train's; (b) one 125-step sampler call at batch 64
-               under `heads=6` (2,016 K3 at head dim 128); (c) UMD-S/4@64
+               phase train's; (b) one 25-step sampler call at batch 64
+               under `heads=6` (416 K3 at head dim 128); (c) UMD-S/4@64
                at batch 256, 1 warm-up and 5 steps; (d) `cli.py` on
                `ae_i1k.py:runlocal,total_steps=3` (width 64, head dim 16);
                (e) UMD-L/2@256 under `scan=True` at the config's batch of
@@ -84,10 +95,28 @@ Phases, each fatal on failure:
                and "pallas_fused" (phase model's bounds), full-depth
                training at batch 256 under "pallas" through
                `train_and_evaluate` (requalified img/s, peak memory, K1
-               64, K3 32, K2 64, K4 32 a step), and one 125-step sampler
-               call at batch 64 under each setting (K1 4,032 and K3 2,016;
-               K1 4,032, K6 2,016 and K5 2,016), beside phase train's and
+               64, K3 32, K2 64, K4 32 a step), and one 25-step sampler
+               call at batch 64 under each setting (K1 832 and K3 416; K1
+               832, K6 416 and K5 416), beside phase train's and
                serve's 12-head readings. It runs after phase serve.
+  4e. shapes   the shapes K5 and K6 took once their GEMM took tails
+               along K and N, and the attention kernels once their
+               wrappers zero-padded heads to a multiple of 8: (a)
+               UMD-S/4@64 under `heads=32` (32 heads of 12 at width 384):
+               the depth-2+1 model and one training step on the card
+               against the CPU under "pallas" and "pallas_fused" (phase
+               model's bounds and launches), full-depth training at batch
+               256 under "pallas" through `train_and_evaluate`
+               (requalified img/s beside phase settings (c)'s UMD-S with 6
+               heads of 64, K1 64, K3 32, K2 64, K4 32 a step), and one
+               25-step sampler call at batch 64 under each setting (K3 at
+               head dim 12; K5 on 384 -> 1,536 and K6 on 32 heads of 12);
+               (b) ViT-mu/16@224 (width 32, depth 1, MLP 128, 2 heads of
+               16) under "pallas_fused": "map" and "tok" at depth 2 and
+               batch 2 on the card against the CPU (phase classifier's
+               bounds), and its full-depth forward at batch 64, timed as
+               phase classifier times, with its K5 and K6 launches. It
+               runs after phase heads.
   4c. classifier the ViT classifier (`models.vit._ViT`) built by name,
                `models.get_model_module("vit").Model(variant=...,
                num_classes=1000, head_zeroinit=False)`, at 224 px, every
@@ -101,9 +130,11 @@ Phases, each fatal on failure:
                the forward and backward; (b) the full-depth forwards at
                batch 64 (B/16 under both settings, H/14 under
                "pallas_fused"): requalified img/s over windows of 8
-               forwards, the launches of a forward, the peak memory; (c)
-               one 125-step `heads=6` sampler call under "pallas_fused" at
-               batch 64 (2,016 K6 at head dim 128) beside phase settings
+               forwards (2 at 512, 1 at 518; on weights of the same means
+               and spreads drawn
+               on the card), the launches of a forward, the peak memory; (c)
+               one 25-step `heads=6` sampler call under "pallas_fused" at
+               batch 64 (416 K6 at head dim 128) beside phase settings
                (b)'s under "pallas".
   5. serve     the port's HTTP sampling server at full UMD-B/4@64 size from
                seeded random weights: three concurrent requests (16, 16, 32
@@ -130,7 +161,7 @@ Phases, each fatal on failure:
                permutation, the evaluators on `validation/`; its img/s
                beside phase train's synthetic-fed reading; `TrainIterator`
                alone over the same source (batch 256, 16 workers) in
-               img/s; and, where PIL is installed, 512 seeded 500x375
+               img/s; and, where PIL is installed, 256 seeded 500x375
                JPEGs (quality 90) through
                `decode_jpeg_and_inception_crop(size=64)` on the host stage
                with 16 workers, in img/s, with the decoder that ran.
@@ -153,15 +184,16 @@ Phases, each fatal on failure:
                at every 8th row,
                the output within one bf16 ulp, timed beside bf16
                F.linear; then the train run of phase train under
-               `quant=int8_mlp` and the sampler call under `int8_all`,
-               under both settings, each beside its bf16 reading of this
-               call, with the launches the precedence gives (the int8 MLP
+               `quant=int8_mlp` and a 25-step sampler call under
+               `int8_all`, under both settings, each beside its bf16
+               reading of this call (the sampler's in ms a forward), with
+               the launches the precedence gives (the int8 MLP
                wins over K5; the fused MHA, K6, ignores `int8_all`).
  11. evals     an arrays dataset of 10 colour-coded classes (2,050
                training images, 2,560 validation images): the config's
                `fewshot_lsr` evaluator through `from_config` on a UMD-B/4@64
                train state of seeded weights (shots 5 and 100: both solver
-               branches), with its accuracy, time and launches;
+               branches; one seed), with its accuracy, time and launches;
                `classification` on the same source (the nearest training
                class centre on pre_logits); seeded InceptionV3 on the card
                against the CPU; `compute_reference_stats` over the
@@ -173,7 +205,7 @@ Phases, each fatal on failure:
  11b. eval_only `tools/eval_only.py` on phase resume's workdir (its
                step-6 checkpoint, full width and depth) with
                `eval_ae_i1k.py` (125 sampling steps): a diffusion_sampling
-               evaluator of 128 samples scored (FID, IS) against phase
+               evaluator of 64 samples scored (FID, IS) against phase
                evals' reference statistics with the seeded InceptionV3,
                and the transfer suite (5 shots) on ten seeded arrays
                stand-ins of 4-13 colour-coded classes; each evaluator's
@@ -186,8 +218,9 @@ Phases, each fatal on failure:
                (`torch.export`: one DDIM step with the kernels as
                operators, the loop and the draws in the loader), `baked`
                and `arg` with a bfloat16 sidecar under "pallas" and `arg`
-               under "pallas_fused", each bit-equal to the live callable
-               at the same seed and launching the model's kernels; its
+               under "pallas_fused", each at 25 steps and
+               bit-equal to the live callable at the same seed and
+               launching the model's kernels; its
                size, export and load seconds, and (baked) its img/s
                beside the live callable's.
  12. latent    UMD-L/2@256 on Stable Diffusion VAE latents (width 1,024,
@@ -195,12 +228,18 @@ Phases, each fatal on failure:
                VAE's encode_moments and decode on two 256x256 images on the
                card against the CPU (f32, TF32 off); one training step of
                the model at depth 2 + 1 with the VAE encode inside, card
-               against CPU; 6 steps (1 warm-up, 5 timed) at full depth
+               against CPU; 4 steps (1 warm-up, 3 timed, each a window)
+               at full depth
                through `train_and_evaluate` on
                `ae_i1k.py:variant=L/2,size=256,latent_diffusion=True,
                data=synthetic` at batch LATENT_BATCH (finite, falling
                losses, the launches per step the model gives, img/s, peak
-               memory, the encode's ms a step by CUDA events); one 125-step
+               memory, the encode's ms a step by CUDA events); the depth
+               2 + 1 step also under "pallas_fused" against the CPU, and 1
+               warm-up and 3 timed full-depth steps at batch LATENT_BATCH
+               under "pallas_fused" (K5 and K6 at width 1,024 on a model
+               path; finite losses, the launches per step), beside the
+               "pallas" reading; one 125-step
                `uncond_eps` call of `make_eval_fns` at batch 64 with its
                decode (uint8 (64, 256, 256, 3), K1 8,064 and K3 4,032
                launches, the decode's share). Phase `kernels` also runs
@@ -210,7 +249,7 @@ Phases, each fatal on failure:
                the sampler's shapes. Then precomputed latents: the JAX
                writer's TFRecord shard in tests/data read through the
                `latents` source (no TensorFlow), `precompute_latents` of
-               512 seeded 256 px images x 4 views through the seeded VAE
+               256 seeded 256 px images x 4 views through the seeded VAE
                into an arrays split (img/s), UMD-L/2@256 trained on it
                with `use_preprocessed_latents` at batch 256 (img/s, peak
                memory, K1-K4 a step, beside the step with the encode), and
@@ -226,11 +265,12 @@ Phases, each fatal on failure:
                route: `python -c` running `launch.main` (the launcher's
                entry, under SLURM_PROCID=0, SLURM_NTASKS=1 and
                SV_COORDINATOR_ADDRESS on localhost) on
-               `ae_i1k.py:fsdp=True,total_steps=3,batch_size=256,
+               `ae_i1k.py:fsdp=True,total_steps=2,batch_size=256,
                eval_steps=-1` with a workdir: NCCL with one rank, against
-               `cli.main` without a process group: the losses and the
-               step-3 checkpoint (params, mu, nu) bit-equal, the launches
-               of 3 scan=True steps, img/s and peak memory. (b) Two
+               `cli.main` without a process group, the two processes at
+               once and beside (b): the losses and the
+               step-2 checkpoint (params, mu, nu) bit-equal, the launches
+               of 2 scan=True steps, img/s and peak memory. (b) Two
                processes sharing the card over gloo, started by
                `tools/dryrun_multichip.spawn` (each a fresh interpreter
                with a time limit of PARALLEL_TIMEOUT, killed on it, which
@@ -257,7 +297,9 @@ Phases, each fatal on failure:
                spawned as phase parallel's (b) with PARALLEL_TIMEOUT:
                UMD-B/4@64 at full width and depth at batch 64 on a seeded
                batch with injected draws, 2 steps through
-               `train_and_evaluate`: (a) `tensor_parallel` (T = 2, the
+               `train_and_evaluate` (the two-process and the
+               four-process set at once, beside phase parallel's (b)):
+               (a) `tensor_parallel` (T = 2, the
                optimizer state replicated) under `pallas` and (b) under
                `pallas_fused` in two processes, (c) `tp_fsdp` on fsdp 2 x
                tensor 2 in four (2 steps), (d) `val` (2 batches) under
@@ -277,6 +319,7 @@ kernels, and as its last line {"ok": true, "device": {...}}. Without a CUDA
 device it exits non-zero and prints no result.
 """
 
+import collections
 import gc
 import io
 import json
@@ -308,7 +351,7 @@ MLP_DIM = 3072
 TRAIN_STEPS = 6               # 1 warm-up + 5 timed
 DATA_TRAIN, DATA_VAL = 4096, 512   # phase data: arrays examples, 64x64x3
 DATA_WORKERS = 16             # the config's input.num_workers
-JPEGS, JPEG_HW = 512, (375, 500)   # phase data: the JPEG reading
+JPEGS, JPEG_HW = 256, (375, 500)   # phase data: the JPEG reading
 # K2 by launches alone (`device_ms`) at (128, L, 768) modulated, before its
 # tickets moved into the launch's scratch: PR 10's measuring call, NVIDIA
 # H100 80GB HBM3, 700.00 W.
@@ -345,30 +388,31 @@ BLOCK_SAMPLE_LAUNCHES_INT8 = {
 # An end-to-end img/s reading is the median of WINDOWS windows of
 # WINDOW_STEPS training steps (a sampler window: one call), requalified by
 # `utils/windows.py` when their spread exceeds 2 %: a training run takes
-# enough steps for every retry, 1 + 2 x 3 x (1 + retries). The phase's
-# time allows a sampler reading (3 calls of 2-4 s) SAMPLER_RETRIES, and
-# the latent step with the encode (2.4 s) none.
-WINDOWS, WINDOW_STEPS, WINDOW_RETRIES = 3, 2, 3
-SAMPLER_RETRIES = 1
+# enough steps for every retry, 1 + 2 x 3 x (1 + retries). The script's
+# time limit allows a sampler reading (3 calls of 2-4 s) SAMPLER_RETRIES,
+# and the latent step with the encode (2.4 s, a window of one step) none.
+WINDOWS, WINDOW_STEPS, WINDOW_RETRIES = 3, 2, 1
+SAMPLER_RETRIES = 0
 
 
-def window_run_steps(retries=WINDOW_RETRIES):
-  return 1 + WINDOW_STEPS * WINDOWS * (1 + retries)
+def window_run_steps(retries=WINDOW_RETRIES, window_steps=WINDOW_STEPS):
+  return 1 + window_steps * WINDOWS * (1 + retries)
 
 
-def qualified_steps(history, batch, retries=WINDOW_RETRIES):
+def qualified_steps(history, batch, retries=WINDOW_RETRIES,
+                    window_steps=WINDOW_STEPS):
   """`windows.requalify` over a run's steps after the warm-up one: window
-  k is steps 2 + 2k and 3 + 2k, its rate the batch over their host time
-  (each step ends in a device synchronisation) and their wait for the
-  batch."""
+  k is steps 2 + 2k and 3 + 2k (of `window_steps` = 2), its rate the batch
+  over their host time (each step ends in a device synchronisation) and
+  their wait for the batch."""
   from small_vision_tpu_torch.utils import windows
   timed = history[1:]
-  pool = iter(range(len(timed) // WINDOW_STEPS))
+  pool = iter(range(len(timed) // window_steps))
 
   def run_windows(n):
     out = []
     for _ in range(n):
-      ws = timed[next(pool) * WINDOW_STEPS:][:WINDOW_STEPS]
+      ws = timed[next(pool) * window_steps:][:window_steps]
       out.append(batch * len(ws) * 1e3 / sum(h["ms"] + h["data_ms"]
                                              for h in ws))
     return out
@@ -835,16 +879,23 @@ def _close_to_max(got, want, ulps):
 # (batch, length) of the fused kernels' calls: the sampler's encoder and
 # decoder, and the three training shapes.
 FUSED_SHAPES = model_shapes(TRAIN_BATCH // 2)
-# K5's (batch, length, width): those at width 768, and one at UMD-L/2's
-# width 1,024.
-FUSED_SHAPES_MLP = tuple((b, l, WIDTH) for b, l in FUSED_SHAPES) + (
-    (BATCH, SEQ_DEC, 1024),)
+# K5's (batch, length, width, hidden width): those at width 768, one at
+# UMD-L/2's width 1,024, ViT-mu/16@224's 32 -> 128 ("map" and "tok": one
+# stage of 64 whose upper half TMA fills with zeros), SigLIP So400m's
+# 1,152 -> 4,304 (a hidden width that is a multiple of 8, not of 64) and
+# 36 -> 150, which the wrapper runs on copies padded to 40 -> 152.
+VIT_MU_SHAPES = ((BATCH, 196), (BATCH, 197))
+FUSED_SHAPES_MLP = tuple((b, l, WIDTH, MLP_DIM) for b, l in FUSED_SHAPES) + (
+    (BATCH, SEQ_DEC, 1024, 4096),) + tuple(
+        (b, l, 32, 128) for b, l in VIT_MU_SHAPES) + (
+            (BATCH, 256, 1152, 4304), (BATCH, 197, 36, 150))
 
 
 def check_fused_mlp(fb, card):
   """K5 against its plain version at the sampler's and training shapes, two
   launches giving equal bits, with the time of each of its two launches;
-  and once at width 1,024 with hidden 4,096 (UMD-L/2's MLP)."""
+  and at the other widths of FUSED_SHAPES_MLP (UMD-L/2's, ViT-mu's,
+  So400m's and a padded one), the same."""
   gen = torch.Generator(device="cuda").manual_seed(4)
   randn = lambda *s, std=1.0: (torch.randn(*s, generator=gen, device="cuda")
                                * std).to(torch.bfloat16)
@@ -854,13 +905,12 @@ def check_fused_mlp(fb, card):
     return (randn(width, hidden, std=width**-0.5), randn(hidden, std=0.1),
             randn(hidden, width, std=hidden**-0.5), randn(width, std=0.1))
 
-  params = {WIDTH: weights(WIDTH, MLP_DIM)}
+  params = {}
   max_err, by_shape = 0.0, {}
-  for b, seq, width in FUSED_SHAPES_MLP:
-    if width not in params:
-      params[width] = weights(width, 4 * width)
-    w1, b1, w2, b2 = params[width]
-    hidden = w1.shape[1]
+  for b, seq, width, hidden in FUSED_SHAPES_MLP:
+    if (width, hidden) not in params:
+      params[(width, hidden)] = weights(width, hidden)
+    w1, b1, w2, b2 = params[(width, hidden)]
     x = randn(b, seq, width)
     args = (x, w1, b1, w2, b2)
     got = fb.fused_mlp_fwd(*args)
@@ -886,8 +936,10 @@ def check_fused_mlp(fb, card):
                    + width) * 2
     flops = 4 * rows * width * hidden
     bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
-    # The model width's shapes by (batch, length), UMD-L/2's by its width.
-    key = f"{b}x{seq}" if width == WIDTH else f"{b}x{seq}_D{width}"
+    # The model width's shapes by (batch, length), the others' by their
+    # width (and hidden width, where it is not four times the width).
+    key = f"{b}x{seq}" if width == WIDTH else f"{b}x{seq}_D{width}" + (
+        "" if hidden == 4 * width else f"_H{hidden}")
     by_shape[key] = dict(
         ms=time_ms(lambda: fb.fused_mlp_fwd(*args), iters=20),
         plain_ms=time_ms(lambda: fb.fused_mlp_plain(*args), iters=3,
@@ -946,8 +998,8 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
     # largest output.
     err, ok = _close_to_max(got, want, 2)
     max_err = max(max_err, err)
-    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={width} H={heads}: "
-          f"max abs err "
+    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={width} H={heads}x"
+          f"{head_dim}: max abs err "
           f"{err:.3e} of max {want.float().abs().max().item():.3e} "
           "(tolerance 2 bf16 ulps of the max), two launches equal; L up to "
           f"{max_len} at head dim {head_dim}", flush=True)
@@ -978,8 +1030,8 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
     stages = fb.fused_mha_stages(*args)
     by_shape[f"{b}x{seq}"]["stage_ms"] = {
         name: time_ms(launch, iters=20) for name, launch in stages.items()}
-    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={width} H={heads}: "
-          f"{_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} bytes, {flops} "
+    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={width} H={heads}x"
+          f"{head_dim}: {_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} bytes, {flops} "
           f"flops) on {card}", flush=True)
   return dict(name=fb.MHA_NAME, route="cuda",
               source="small_vision_tpu_torch/csrc/fused_mha.cu",
@@ -1209,23 +1261,26 @@ def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
 
 # K6-K9 at head dims other than 64 (phase kernels): (head dim, heads,
 # timed). ViT-H's 80 (16 heads at 1,280, the classifier's K6), the
-# `heads=6` setting's 128 (6 heads at 768) and the `heads=4` and `heads=3`
-# settings' 192 and 256 (three and four 64-column tiles a head) are timed;
+# `heads=6` setting's 128 (6 heads at 768), the `heads=4` and `heads=3`
+# settings' 192 and 256 (three and four 64-column tiles a head) and
+# `heads=32`'s 12 at UMD-S's 384 (run on heads zero-padded to 16) are timed;
 # the narrow 8 and 16 (the quick configs' widths), ViT-g's and ViT-G's 88
 # and 104 (16 heads at 1,408 and 1,664), and 136, 200 and 248 (8 heads; a
 # ragged last tile of 8, 8 and 56 columns) are checked. Each at the
 # sampler's (64, 260) and the training shapes (128, L = 68, 164, 257); K6
 # at 80 also at ViT-H/14@224's (64, 256).
 WIDE_HEAD_DIMS = ((80, 16, True), (128, 6, True), (192, 4, True),
-                  (256, 3, True), (8, 8, False), (16, 4, False),
-                  (88, 16, False), (104, 16, False), (136, 8, False),
-                  (200, 8, False), (248, 8, False))
+                  (256, 3, True), (12, 32, True), (8, 8, False),
+                  (16, 4, False), (88, 16, False), (104, 16, False),
+                  (136, 8, False), (200, 8, False), (248, 8, False))
 # K3 and K4 at head dims other than 64 (phase kernels): (width, heads,
 # timed), each at the sampler's and the training shapes. 128, 192 and 256
-# (`heads=6`, `heads=4`, `heads=3` at width 768) timed beside SDPA; 8, 16,
-# 80 and 104 (the quick configs, ViT-H, ViT-G) and 136, 200 and 248 (a
-# ragged last tile) checked.
+# (`heads=6`, `heads=4`, `heads=3` at width 768), 12 (`heads=32` at UMD-S's
+# 384) and 4 (32 heads at 128; both on heads zero-padded to a multiple of
+# 8) timed beside SDPA; 8, 16, 80 and 104 (the quick configs, ViT-H,
+# ViT-G) and 136, 200 and 248 (a ragged last tile) checked.
 PACKED_HEAD_DIMS = ((768, 6, True), (768, 4, True), (768, 3, True),
+                    (384, 32, True), (128, 32, True),
                     (32, 4, False), (64, 4, False), (1280, 16, False),
                     (1664, 16, False), (1088, 8, False), (1600, 8, False),
                     (1984, 8, False))
@@ -1241,32 +1296,46 @@ WIDE_SHAPES = ((BATCH, SEQ_ENC),) + tuple((TRAIN_BATCH // 2, l)
 # length)s). ViT-L/16@512's 16 heads of 64 ("map" 1,024, "tok" 1,025),
 # ViT-H/14@518's 16 heads of 80 (1,369), and the limit the forwards share
 # with K4 and K8, 4,096, at UMD-B's 12 heads of 64.
+# K6 on a tensor rank's narrow shards at width 384 (phase kernels, timed):
+# (heads, rank's heads, (batch, length)s). 3 of 12 heads of 32 (UMD-S under
+# `heads=12` over a tensor group of four: 96 columns) and 3 of `heads=32`'s
+# 32 heads of 12 (36 columns, run at 48).
+NARROW_SHARDS = ((12, 3), (32, 3))
+NARROW_SHARD_SHAPES = ((BATCH, SEQ_ENC), (TRAIN_BATCH // 2, SEQ_DEC))
 LONG_ATTENTION = ((1024, 16, ((BATCH, 1024), (BATCH, 1025))),
                   (1280, 16, ((BATCH, 1369),)),
                   (WIDTH, HEADS, ((4, 4096),)))
 
 
+def _attention_wrappers(attn, fb, head_dim, heads):
+  """(name, a call of that wrapper on zeros of `heads` heads of
+  `head_dim`) for each of K3, K4 and K6-K9."""
+  width = heads * head_dim
+  t4 = torch.zeros(1, 20, heads, head_dim, dtype=torch.bfloat16,
+                   device="cuda")
+  t3 = t4.reshape(1, 20, width)
+  w = torch.zeros(width, width, dtype=torch.bfloat16, device="cuda")
+  bias = torch.zeros(width, dtype=torch.bfloat16, device="cuda")
+  return (
+      (attn.NAME, lambda: attn.attention_packed(t3, t3, t3, heads)),
+      (attn.BWD_NAME,
+       lambda: attn.attention_packed_bwd(t3, t3, t3, t3, heads)),
+      (fb.MHA_NAME, lambda: fb.fused_mha(t3, *(w, bias) * 4, heads)),
+      (attn.UNPACKED_NAME, lambda: attn.fused_attention(t4, t4, t4)),
+      (attn.UNPACKED_BWD_NAME,
+       lambda: attn.attention_unpacked_bwd(t4, t4, t4, t4)),
+      (attn.ABLATE_NAME,
+       lambda: attn.attention_ablate(t3, t3, t3, heads, "prod")))
+
+
 def check_refused_head_dims(attn, fb, build):
-  """A head dim of 12 and of 264 must make each of K3, K4 and K6-K9's
-  wrappers raise ValueError, with no launch and no CPU run."""
+  """A head dim of 264 and of 0 must make each of K3, K4 and K6-K9's
+  wrappers raise ValueError, with no launch and no CPU run; one of 12
+  (`heads=32` at UMD-S's 384, run on heads zero-padded to 16) must launch
+  each of their kernels once."""
   build.reset_launches()
-  for head_dim, heads in ((12, 16), (264, 8)):
-    width = heads * head_dim
-    t4 = torch.zeros(1, 20, heads, head_dim, dtype=torch.bfloat16,
-                     device="cuda")
-    t3 = t4.reshape(1, 20, width)
-    w = torch.zeros(width, width, dtype=torch.bfloat16, device="cuda")
-    bias = torch.zeros(width, dtype=torch.bfloat16, device="cuda")
-    for name, fn in (
-        (attn.NAME, lambda: attn.attention_packed(t3, t3, t3, heads)),
-        (attn.BWD_NAME,
-         lambda: attn.attention_packed_bwd(t3, t3, t3, t3, heads)),
-        (fb.MHA_NAME, lambda: fb.fused_mha(t3, *(w, bias) * 4, heads)),
-        (attn.UNPACKED_NAME, lambda: attn.fused_attention(t4, t4, t4)),
-        (attn.UNPACKED_BWD_NAME,
-         lambda: attn.attention_unpacked_bwd(t4, t4, t4, t4)),
-        (attn.ABLATE_NAME,
-         lambda: attn.attention_ablate(t3, t3, t3, heads, "prod"))):
+  for head_dim, heads in ((264, 8), (0, 8)):
+    for name, fn in _attention_wrappers(attn, fb, head_dim, heads):
       try:
         fn()
       except ValueError as e:
@@ -1276,8 +1345,15 @@ def check_refused_head_dims(attn, fb, build):
         fail(f"{name} took head dim {head_dim}")
   if build.LAUNCHES:
     fail(f"refused head dims launched {dict(build.LAUNCHES)}")
-  print("[kernels] K3, K4, K6, K7, K8 and K9 refuse head dims 12 and 264 "
-        "(ValueError, no launch)", flush=True)
+  taken = _attention_wrappers(attn, fb, 12, 32)
+  for _, fn in taken:
+    fn()
+  torch.cuda.synchronize()
+  if dict(build.LAUNCHES) != {name: 1 for name, _ in taken}:
+    fail(f"head dim 12 launched {dict(build.LAUNCHES)}, not each kernel "
+         "once")
+  print("[kernels] K3, K4, K6, K7, K8 and K9 refuse head dims 264 and 0 "
+        "(ValueError, no launch) and take 12 (one launch each)", flush=True)
 
 
 def _train_step_grads(config, params, images, draws, dev):
@@ -1343,9 +1419,10 @@ def phase_model(build, card, attn_impl, setting="", extra="", model=None,
                          t=torch.from_numpy(t).to(dev))[0].cpu()
   err = (preds["cuda"] - preds["cpu"]).abs().max().item()
   scale = preds["cpu"].abs().max().item()
-  print(f"[model] {label}: forward (3, 64, 64, 3) at width {WIDTH}, "
-        f"depth 2+1, t = {t.tolist()}: max abs err {err:.3e} of max |pred| "
-        f"{scale:.3e}", flush=True)
+  variant = f"UMD-{config['model']['variant']}"
+  print(f"[model] {label}: forward (3, 64, 64, 3) of {variant} at full "
+        f"width, depth 2+1, t = {t.tolist()}: max abs err {err:.3e} of max "
+        f"|pred| {scale:.3e}", flush=True)
   # bf16 matmuls summed in another order on the two devices: a few bf16
   # roundings (2^-8 relative each) through three blocks and the head.
   if not err <= 3e-2 * scale:
@@ -1384,8 +1461,9 @@ def phase_model(build, card, attn_impl, setting="", extra="", model=None,
     if rel > worst:
       worst, worst_name = rel, name
   loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-  print(f"[model] {label}: training step (8, 64, 64, 3) at width "
-        f"{WIDTH}, depth 2+1: loss card {loss_gpu:.6f}, cpu {loss_cpu:.6f} "
+  print(f"[model] {label}: training step (8, 64, 64, 3) of {variant} at "
+        f"full width, depth 2+1: loss card {loss_gpu:.6f}, cpu "
+        f"{loss_cpu:.6f} "
         f"(rel {loss_rel:.2e}); "
         f"{len(grads_cpu)} gradient leaves, worst leaf-relative err "
         f"{worst:.3e} ({worst_name}); launches {launches} on {card}",
@@ -1478,41 +1556,69 @@ def _check_images(images, n):
     fail("a constant image came back")
 
 
+# The sampler calls off the main path (phases settings (b), classifier
+# (c), heads, shapes and quant) take SIDE_SAMPLER_STEPS DDIM steps; they are
+# compared with the 125-step calls of phase serve in ms a forward.
+SIDE_SAMPLER_STEPS = 25
+
+
+def _fwd_ms(call):
+  """ms a forward of a sampler call's reading (`steps` + 1 forwards)."""
+  return call["s"] * 1e3 / (call.get("steps", 125) + 1)
+
+
+def _warm_sampler(config, params):
+  """The warm-up before a timed sampler call: one 2-step call of the same
+  config and weights (cuBLAS handles, the allocator, kernel loads at the
+  call's shapes), not a 125-step one."""
+  from small_vision_tpu_torch.tools import export_sampler
+
+  warm = dict(config, diff_schedule=dict(config["diff_schedule"],
+                                         sampling_timesteps=2))
+  export_sampler.build_sample_callable(warm, params, fn="uncond_eps",
+                                       batch_size=BATCH, device="cuda")(12345)
+  torch.cuda.synchronize()
+
+
 def phase_sample_call(build, card, attn_impl, quant="", tag="serve",
-                      extra="", windows=False):
-  """One 125-step sampler call at batch 64 under `attn_impl` (and the
-  model's `quant`, phase quant; the config string `extra`, phase
-  settings), through `build_sample_callable` (what the server calls);
-  with `windows`, then the requalified median of single calls."""
-  from small_vision_tpu_torch import convert
+                      extra="", windows=False, steps=125):
+  """One sampler call of `steps` DDIM steps (the config's 125, or
+  SIDE_SAMPLER_STEPS) at batch 64 under `attn_impl` (and the model's
+  `quant`, phase quant; the config string `extra`, phase settings),
+  through `build_sample_callable` (what the server calls), with its ms a
+  forward; with `windows`, then the requalified median of single
+  calls."""
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.tools import export_sampler
 
   config = ae_i1k.get_config(f"variant=B/4,size=64,samples_per_call={BATCH},"
                              f"attn_impl={attn_impl},quant={quant}{extra}")
+  config["diff_schedule"] = dict(config["diff_schedule"],
+                                 sampling_timesteps=steps)
   what = f"{attn_impl}{', ' + quant if quant else ''}{extra}"
+  params = _card_params(config, seed=0)
   sample = export_sampler.build_sample_callable(
-      config, convert.init_params(config, seed=0), fn="uncond_eps",
-      batch_size=BATCH, device="cuda")
-  sample(12345)  # warm-up call
+      config, params, fn="uncond_eps", batch_size=BATCH, device="cuda")
+  _warm_sampler(config, params)
   build.reset_launches()
   t0 = time.perf_counter()
   images = sample(1)  # returns numpy: ends in a device-to-host copy
   sampler_s = time.perf_counter() - t0
   launches = dict(build.LAUNCHES)
-  print(f"[{tag}] {what}: one sampler call {sampler_s:.3f} s = "
-        f"{BATCH / sampler_s:.2f} img/s at batch {BATCH} on {card}",
-        flush=True)
+  fwd_ms = sampler_s * 1e3 / (steps + 1)
+  print(f"[{tag}] {what}: one {steps}-step sampler call {sampler_s:.3f} s "
+        f"= {BATCH / sampler_s:.2f} img/s at batch {BATCH}, {fwd_ms:.2f} ms "
+        f"a forward on {card}", flush=True)
   _check_images(images, BATCH)
   per_block = (BLOCK_SAMPLE_LAUNCHES_INT8 if quant else
                BLOCK_SAMPLE_LAUNCHES)[attn_impl]
-  want = _times(per_block, BLOCKS * SAMPLER_FORWARDS)
+  want = _times(per_block, BLOCKS * (steps + 1))
   print(f"[{tag}] {what}: kernel launches in the call: {launches}, "
         f"model says {want} and no other kernel", flush=True)
   if launches != want:  # no K3, K2, K4, K7, K8
     fail(f"launch counts {launches} != {want}")
   out = {"launches": launches, "img_per_s": BATCH / sampler_s,
-         "s": sampler_s}
+         "s": sampler_s, "steps": steps, "fwd_ms": fwd_ms}
   if windows:
     out["qual"] = qualified_calls(lambda: sample(2), BATCH, SAMPLER_RETRIES)
     out["img_per_s"] = out["qual"]["median"]
@@ -1581,6 +1687,81 @@ def _wrap(module, name, make):
   original = getattr(module, name)
   setattr(module, name, make(original))
   return lambda: setattr(module, name, original)
+
+
+# Drawn weight trees kept between the phases that draw the same one, up to
+# DRAWN_BYTES of host memory (the least recently used dropped first):
+# numpy draws UMD-L/2's 611 M leaves in seconds, and phases draw one tree
+# again and again (every training run's `init_train_params`, the
+# classifier checks' depth-2 ViT-H/14 at 224 and at 518).
+_DRAWN = collections.OrderedDict()
+DRAWN_BYTES = 12e9
+
+
+def _card_params(config, seed):
+  """`convert.init_params`'s tree for the config's model (each leaf normal
+  at convert's mean and std for its name, in the config's layout), drawn
+  on the card by torch from `seed`: the weights of the paths that no CPU
+  reference reads (the timed classifier forwards, the sampler calls of
+  `phase_sample_call`, the latent sampler), where numpy takes seconds a
+  tree."""
+  from small_vision_tpu_torch import convert
+  from small_vision_tpu_torch.utils.trees import recover_tree
+
+  shapes = convert._unrolled_shapes(config)
+  names = sorted(shapes)
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  values = []
+  for name in names:
+    std, mean = convert._std_and_mean(name, shapes[name])
+    values.append(torch.randn(shapes[name], generator=gen, device="cuda")
+                  * std + mean)
+  return convert._in_config_layout(config, recover_tree(names, values))
+
+
+def _tree_copy(tree):
+  """The tree's dicts anew, its arrays shared."""
+  return {k: _tree_copy(v) if isinstance(v, dict) else v
+          for k, v in tree.items()}
+
+
+def _tree_bytes(tree):
+  return sum(_tree_bytes(v) if isinstance(v, dict) else v.nbytes
+             for v in tree.values())
+
+
+def _kept_draws(draw):
+  """`draw` (`convert.init_params` or `init_train_params`) that keeps its
+  trees. A tree is a function of the seed, the model's leaves and their
+  shapes and the classifier head's `head_zeroinit`, drawn in the unrolled
+  layout and then stacked where the config's model has `scan`; so the
+  unrolled tree is kept, and a call with the same key gets its arrays in
+  new dicts, in the config's layout (a phase may replace a leaf, as
+  `_classifier_params` the posemb; none writes into an array)."""
+  from small_vision_tpu_torch import convert
+
+  def kept(config, seed):
+    model = config.get("model", {})
+    unrolled = dict(config, model={**model, "scan": False})
+    key = (draw.__name__, int(seed), config.get("model_name", "ae"),
+           model.get("head_zeroinit", True),
+           tuple(sorted(convert._unrolled_shapes(unrolled).items())))
+    if key not in _DRAWN:
+      _DRAWN[key] = draw(unrolled, seed)
+      while (len(_DRAWN) > 1 and sum(map(_tree_bytes, _DRAWN.values()))
+             > DRAWN_BYTES):
+        _DRAWN.popitem(last=False)
+    _DRAWN.move_to_end(key)
+    return convert._in_config_layout(config, _tree_copy(_DRAWN[key]))
+  return kept
+
+
+def keep_draws():
+  """Installs `_kept_draws` over `convert.init_params` and
+  `init_train_params` for the rest of this process."""
+  from small_vision_tpu_torch import convert
+  for name in ("init_params", "init_train_params"):
+    _wrap(convert, name, _kept_draws)
 
 
 def phase_data(build, card, synthetic):
@@ -1708,7 +1889,7 @@ def phase_data(build, card, synthetic):
 
 
 def _jpeg_reading(card):
-  """`decode_jpeg_and_inception_crop(size=64)` over 512 seeded 500x375
+  """`decode_jpeg_and_inception_crop(size=64)` over 256 seeded 500x375
   JPEGs on the host stage with 16 workers: img/s and the decoder that ran;
   None where PIL, which writes the JPEGs, is not installed."""
   import importlib.util
@@ -2089,12 +2270,13 @@ def phase_quant(build, card, train, serve):
           f"{card}", flush=True)
     out["train"][a] = q
   for a in ATTN_IMPLS:
-    q = phase_sample_call(build, card, a, quant=QUANT_SAMPLE, tag="quant")
-    print(f"[quant] {a}: sampler {QUANT_SAMPLE} {q['img_per_s']:.2f} img/s "
-          f"({q['s']:.3f} s a call) against bf16 "
-          f"{serve[a]['img_per_s']:.2f} img/s ({serve[a]['s']:.3f} s, phase "
-          f"serve) = {q['img_per_s'] / serve[a]['img_per_s']:.3f}x on {card}",
-          flush=True)
+    q = phase_sample_call(build, card, a, quant=QUANT_SAMPLE, tag="quant",
+                          steps=SIDE_SAMPLER_STEPS)
+    print(f"[quant] {a}: sampler {QUANT_SAMPLE} {q['fwd_ms']:.2f} ms a "
+          f"forward ({q['steps']}-step call {q['s']:.3f} s) against bf16 "
+          f"{_fwd_ms(serve[a]):.2f} ms ({serve[a]['s']:.3f} s a 125-step "
+          f"call, phase serve) = {_fwd_ms(serve[a]) / q['fwd_ms']:.3f}x on "
+          f"{card}", flush=True)
     out["serve"][a] = q
   return out
 
@@ -2104,7 +2286,7 @@ def phase_quant(build, card, train, serve):
 # than 2,048 images (pool3's dimension: its covariance can be full rank).
 EVAL_CLASSES, EVAL_PER_CLASS, EVAL_VAL = 10, 205, 2560
 FEWSHOT_SHOTS = (5, 100)  # 50 rows < D = 769: the kernel form; 1,000: XᵀX
-FID_BATCH, FID_SAMPLES = 256, 128
+FID_BATCH, FID_SAMPLES = 256, 64
 # The FID of a set against its own statistics is 0 in exact arithmetic;
 # the two computations share their batches, so their moments are equal and
 # what remains is sqrtm's error on sigma², whose smallest eigenvalues are
@@ -2150,7 +2332,9 @@ def phase_evals(build, card, keep_ref=None):
     _eval_arrays(root)
     config = ae_i1k.get_config(f"variant=B/4,size=64,data=arrays:{root},"
                                f"batch_size={TRAIN_BATCH}")
-    probe_cfg = dict(config["evals"]["fewshot"], shots=FEWSHOT_SHOTS)
+    # One seed of the config's three: each seed reruns the same forwards.
+    probe_cfg = dict(config["evals"]["fewshot"], shots=FEWSHOT_SHOTS,
+                     num_seeds=1)
     params = convert.init_params(config, seed=0)
     model = train_ae.build_model(config, device="cuda", trainable=True)
     model.load_state_dict(convert.params_from_jax(params, model))
@@ -2336,6 +2520,7 @@ LATENT_BATCH = 256
 # Its token counts are UMD-B/4@64's, TRAIN_SEQS: 32x32 latents at patch 2
 # give 256 patches, as 64 px images at patch 4 do.
 LATENT_STEPS = 6              # 1 warm-up + 5 timed
+LATENT_FUSED_STEPS = 4        # under "pallas_fused": 1 warm-up + 3 timed
 LATENT_SIZE = 256
 # The SD VAE (channels 128-512) in f32 on the card (cuDNN, TF32 off)
 # against the CPU, relative to each output's largest magnitude: two orders
@@ -2453,14 +2638,16 @@ def _latent_step_grads(config, params, images, draws, dev):
   return float(loss), [(n, g.float().cpu()) for n, g in zip(names, grads)]
 
 
-def _hold_latent_step(build, card):
+def _hold_latent_step(build, card, attn_impl="pallas"):
   """UMD-L/2 at full width, depth 2 + 1, one latent training step at batch
-  4 with injected draws (the VAE's noise too): card against CPU."""
+  4 with injected draws (the VAE's noise too) under `attn_impl`: card
+  against CPU."""
   from small_vision_tpu_torch import convert
   from small_vision_tpu_torch.configs import ae_i1k
 
   config = ae_i1k.get_config(
-      "variant=L/2,size=256,latent_diffusion=True,batch_size=4")
+      "variant=L/2,size=256,latent_diffusion=True,batch_size=4,"
+      f"attn_impl={attn_impl}")
   config["model"].update(depth=2, dec_depth=1)
   params = convert.init_params(config, seed=1)
   rng = np.random.default_rng(32)
@@ -2479,7 +2666,8 @@ def _hold_latent_step(build, card):
   loss_gpu, grads_gpu = _latent_step_grads(config, params, images, draws,
                                            "cuda")
   launches = dict(build.LAUNCHES)
-  want = _times(BLOCK_TRAIN_LAUNCHES["pallas"], 6)  # two branches of 2 + 1
+  # Two branches of 2 + 1 blocks.
+  want = _times(BLOCK_TRAIN_LAUNCHES[attn_impl], 6)
   if launches != want:
     fail(f"latent training step launches {launches} != {want}")
   # As phase model: each leaf relative to its largest element, floored at
@@ -2493,8 +2681,9 @@ def _hold_latent_step(build, card):
     if rel > worst:
       worst, worst_name = rel, name
   loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-  print(f"[latent] L/2 training step at width {L2_WIDTH}, depth 2+1, batch 4 "
-        f"of {LATENT_SIZE} px with the VAE encode inside: loss card "
+  print(f"[latent] L/2 training step under {attn_impl} at width {L2_WIDTH}, "
+        f"depth 2+1, batch 4 of {LATENT_SIZE} px with the VAE encode "
+        f"inside: loss card "
         f"{loss_gpu:.6f}, cpu {loss_cpu:.6f} (rel {loss_rel:.2e}); "
         f"{len(grads_cpu)} gradient leaves, worst leaf-relative err "
         f"{worst:.3e} ({worst_name}); launches {launches} on {card}",
@@ -2509,15 +2698,16 @@ def _hold_latent_step(build, card):
 
 def _latent_train(build, card, batch=LATENT_BATCH, steps=LATENT_STEPS,
                   extra="", per_block=None, tag="latent", falling=True,
-                  windows_retries=None):
+                  windows_retries=None, window_steps=WINDOW_STEPS):
   """Full-width, full-depth UMD-L/2@256 through `train_and_evaluate`, the
   VAE encode timed inside each step (at `batch`, for `steps` steps, with
   the config string `extra` and a block's launches `per_block`); finite
   losses that fall over the run (with `falling`). With `windows_retries`
-  the run is `window_run_steps(windows_retries)` long and its img/s the
+  the run is `window_run_steps(windows_retries, window_steps)` long and
+  its img/s the
   requalified median of its windows."""
   if windows_retries is not None:
-    steps = window_run_steps(windows_retries)
+    steps = window_run_steps(windows_retries, window_steps)
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.models import vae as vae_lib
   from small_vision_tpu_torch.train import train_ae
@@ -2586,7 +2776,8 @@ def _latent_train(build, card, batch=LATENT_BATCH, steps=LATENT_STEPS,
          "encode_ms": enc_ms, "peak_gb": peak_gb, "losses": losses,
          "steps": steps}
   if windows_retries is not None:
-    out["qual"] = qualified_steps(history, batch, windows_retries)
+    out["qual"] = qualified_steps(history, batch, windows_retries,
+                                  window_steps)
     out["img_per_s"] = out["qual"]["median"]
     print(f"[{tag}] train{extra}: training {qual_text(out['qual'])} at "
           f"batch {batch} on {card}", flush=True)
@@ -2607,7 +2798,7 @@ def _latent_sample(build, card):
       f"samples_per_call={BATCH}")
   model = train_ae.build_model(config, device="cuda")
   model.load_state_dict(convert.params_from_jax(
-      convert.init_params(config, seed=0), model))
+      _card_params(config, seed=0), model))
   vae_params, encode, decode = vae_lib.load_vae(device="cuda")
   wrap, decode_ms = _cuda_timer()
   state = {"gd": gd_lib.GaussianDiffusion.create("linear", 1000,
@@ -2652,8 +2843,22 @@ def _latent_sample(build, card):
 def phase_latent(build, card):
   """The latent path at UMD-L/2@256; see the module's docstring."""
   vae_errs, flops = _hold_vae(card)
-  _hold_latent_step(build, card)
-  train = _latent_train(build, card, windows_retries=0)
+  for attn_impl in ATTN_IMPLS:
+    _hold_latent_step(build, card, attn_impl)
+  # Windows of one 2.4 s step: 1 warm-up and 3 timed steps.
+  train = _latent_train(build, card, windows_retries=0, window_steps=1)
+  # K5 and K6 at width 1,024 on a model path. Over 1 warm-up and 3 steps
+  # the loss need not fall (phase settings (e)): finite losses and changed
+  # parameters are held.
+  fused = _latent_train(build, card, steps=LATENT_FUSED_STEPS,
+                        extra=",attn_impl=pallas_fused",
+                        per_block=BLOCK_TRAIN_LAUNCHES["pallas_fused"],
+                        falling=False)
+  print(f"[latent] train under pallas_fused: {fused['ms']:.2f} ms/step, "
+        f"the VAE encode {fused['encode_ms']:.2f} ms "
+        f"({fused['encode_ms'] / fused['ms'] * 100:.1f} %), against pallas "
+        f"{train['ms']:.2f} ms/step ({fused['ms'] / train['ms']:.4f} of "
+        f"it) on {card}", flush=True)
   sample = _latent_sample(build, card)
   enc_tflops = (flops["encoder"] * LATENT_BATCH
                 / (train["encode_ms"] / 1e3) / 1e12)
@@ -2661,12 +2866,13 @@ def phase_latent(build, card):
   print(f"[latent] the VAE in f32 (TF32 off): encode {enc_tflops:.2f} "
         f"TFLOP/s, decode {dec_tflops:.2f} TFLOP/s, against the card's "
         f"{F32_FLOPS / 1e12:.0f} TFLOP/s f32 peak, on {card}", flush=True)
-  return {"train": train, "sample": sample, "vae_errs": vae_errs,
+  return {"train": train, "train_fused": fused, "sample": sample,
+          "vae_errs": vae_errs,
           "flops": flops, "encode_tflops": enc_tflops,
           "decode_tflops": dec_tflops}
 
 
-PRECOMPUTE_IMAGES, PRECOMPUTE_VIEWS = 512, 4
+PRECOMPUTE_IMAGES, PRECOMPUTE_VIEWS = 256, 4
 PRECOMPUTE_BATCH = 256
 FIXTURE_PATTERN = os.path.join("tests", "data", "latents_fixture-*.tfrecord")
 FIXTURE_RECORDS, FIXTURE_BATCH = 4, 2
@@ -2703,7 +2909,7 @@ def _read_fixture(card):
 
 
 def _precompute(card, root):
-  """`precompute_latents` of 512 seeded 256 px images (the synthetic
+  """`precompute_latents` of 256 seeded 256 px images (the synthetic
   source), 4 views, through the seeded SD VAE at batch 256, into the
   arrays split `root`/train."""
   from small_vision_tpu_torch.data import core
@@ -2829,7 +3035,7 @@ def phase_latent_pre(build, card, with_encode):
 
 
 TRANSFER_TRAIN, TRANSFER_TEST, TRANSFER_SHOTS = 8, 4, 5
-EVAL_ONLY_SAMPLES = 128      # within the script's time limit
+EVAL_ONLY_SAMPLES = 64       # within the script's time limit
 
 
 def _transfer_arrays(root):
@@ -2855,7 +3061,7 @@ def _transfer_arrays(root):
 def phase_eval_only(build, card, workdir, ref_stats):
   """`tools/eval_only.py` on phase resume's workdir (UMD-B/4@64 at full
   width and depth, step 6): `eval_ae_i1k.py` with 125 sampling steps, a
-  `diffusion_sampling` evaluator of 128 samples scored against phase
+  `diffusion_sampling` evaluator of 64 samples scored against phase
   evals' reference statistics with the seeded InceptionV3, and the
   transfer suite on ten seeded stand-ins."""
   from small_vision_tpu_torch.configs import parse_config
@@ -2944,6 +3150,9 @@ def _same_rows(results, ref):
       np.concatenate(ordered), ref)
 
 
+EXPORT_STEPS = 25             # the exported artifacts' sampler calls
+
+
 def phase_export(build, card, workdir):
   """The server and the exported sampler from phase resume's workdir
   (UMD-B/4@64, step 6, its EMA): a `SamplerServer` built by `serve
@@ -2967,7 +3176,6 @@ def phase_export(build, card, workdir):
                                   artifact="", no_ema=False, fn="uncond_eps",
                                   batch_size=BATCH, device="cuda")
     sample, batch = serve.build_sample_fn(args)
-    sample(12345)  # warm-up
     server = serve.SamplerServer(sample, batch, max_wait_ms=2000.0)
     sizes, results, errors = (16, 16, 32), [None] * 3, []
 
@@ -3006,6 +3214,11 @@ def phase_export(build, card, workdir):
     for name, attn_impl, store in cases:
       cfg = ae_i1k.get_config(f"variant=B/4,size=64,samples_per_call="
                               f"{BATCH},attn_impl={attn_impl}")
+      # The artifacts' calls at EXPORT_STEPS (the ladder is baked into an
+      # artifact at export), each held against the live callable's.
+      steps = EXPORT_STEPS
+      cfg["diff_schedule"] = dict(cfg["diff_schedule"],
+                                  sampling_timesteps=steps)
       path = os.path.join(tmp, f"{name}.pt2")
       side = os.path.join(tmp, f"{name}.npz") if name != "baked" else None
       torch.cuda.synchronize()
@@ -3026,7 +3239,7 @@ def phase_export(build, card, workdir):
       launches[name] = dict(build.LAUNCHES)
       want = live(7)
       per_call = _times(BLOCK_SAMPLE_LAUNCHES[attn_impl],
-                        BLOCKS * SAMPLER_FORWARDS)
+                        BLOCKS * (steps + 1))
       size = os.path.getsize(path) + (os.path.getsize(side) if side else 0)
       rates = ""
       q_exp = q_live = None
@@ -3041,8 +3254,8 @@ def phase_export(build, card, workdir):
             f"{os.path.getsize(path) / 1e6:.1f} MB"
             + (f" + sidecar {os.path.getsize(side) / 1e6:.1f} MB" if side
                else "")
-            + f"; export {export_s:.2f} s, load {load_s:.2f} s; one call "
-            f"bit-equal to the live callable: {np.array_equal(got, want)}; "
+            + f"; export {export_s:.2f} s, load {load_s:.2f} s; one "
+            f"{steps}-step call bit-equal to the live callable: {np.array_equal(got, want)}; "
             f"launches {launches[name]} (model says {per_call}){rates} on "
             f"{card}", flush=True)
       if not np.array_equal(got, want):
@@ -3216,6 +3429,7 @@ def phase_settings(build, card):
         f"(phase train: {_times(BLOCK_TRAIN_LAUNCHES['pallas'], 2 * BLOCKS)})"
         f"; peak {out['a']['peak_gb']:.2f} GB", flush=True)
   out["b"] = phase_sample_call(build, card, "pallas", tag="settings",
+                               steps=SIDE_SAMPLER_STEPS,
                                extra=",heads=6")
   out["c"] = phase_train(build, card, "pallas", tag="settings",
                          variant="S/4", windows=True)
@@ -3259,9 +3473,8 @@ def phase_heads(build, card):
   "pallas_fused" (phase model's bounds and launches); (b) full-depth
   UMD-B/4@64 at batch 256 under "pallas" through `train_and_evaluate`
   (finite, falling losses, requalified img/s, peak memory, K1 64, K3 32,
-  K2 64, K4 32 a step); (c) one 125-step sampler call at batch 64 under
-  each setting (K1 4,032 and K3 2,016; K1 4,032, K6 2,016 and K5
-  2,016)."""
+  K2 64, K4 32 a step); (c) one 25-step sampler call at batch 64 under
+  each setting (K1 832 and K3 416; K1 832, K6 416 and K5 416)."""
   out = {}
   for heads in HEADS_SETTINGS:
     extra = f",heads={heads}"
@@ -3272,8 +3485,68 @@ def phase_heads(build, card):
                                 extra=extra, windows=True)}
     for attn_impl in ATTN_IMPLS:
       got[attn_impl] = phase_sample_call(build, card, attn_impl,
-                                         tag="heads", extra=extra)
+                                         tag="heads", extra=extra,
+                                         steps=SIDE_SAMPLER_STEPS)
     out[heads] = got
+  return out
+
+
+# ---------------------------------------------------------------------------
+# Phase shapes: UMD-S/4@64 under `heads=32` (32 heads of 12 at width 384,
+# run on heads zero-padded to 16) and ViT-mu/16@224 (width 32, MLP 128, 2
+# heads of 16: K5's and K6's GEMM on tails along K and N) under
+# "pallas_fused".
+
+SHAPES_S4 = ",variant=S/4,heads=32"
+VIT_MU = "mu/16"
+
+
+def phase_shapes(build, card, settings):
+  """(a) UMD-S/4@64 under `heads=32`: the depth-2+1 model and one training
+  step on the card against the CPU under "pallas" and "pallas_fused"
+  (phase model's bounds and launches); full-depth training at batch 256
+  under "pallas" through `train_and_evaluate` (finite, falling losses,
+  requalified img/s, K1 64, K3 32, K2 64, K4 32 a step), beside phase
+  settings (c)'s UMD-S/4@64 of 6 heads of 64; one 25-step sampler call at
+  batch 64 under each setting (K1 832 and K3 416; K1 832, K6 416 and K5
+  416). (b) ViT-mu/16@224 under "pallas_fused": "map" and "tok"
+  at depth 2 on the card against the CPU (phase classifier's bounds and
+  launches), and its full-depth forward at batch 64, timed as phase
+  classifier times, with its K5 and K6 launches."""
+  from small_vision_tpu_torch.ops import fused_block as fb
+
+  out = {}
+  label = "UMD-S/4 heads=32 (head dim 12)"
+  for attn_impl in ATTN_IMPLS:
+    phase_model(build, card, attn_impl, label, SHAPES_S4)
+  out["train"] = phase_train(build, card, "pallas", tag="shapes",
+                             extra=",heads=32", variant="S/4", windows=True)
+  for attn_impl in ATTN_IMPLS:
+    out[attn_impl] = phase_sample_call(build, card, attn_impl, tag="shapes",
+                                       extra=SHAPES_S4,
+                                       steps=SIDE_SAMPLER_STEPS)
+  per_step = _times(BLOCK_TRAIN_LAUNCHES["pallas"], 2 * BLOCKS)
+  print(f"[shapes] (a) {label}: training under pallas "
+        f"{qual_text(out['train']['qual'])}, peak "
+        f"{out['train']['peak_gb']:.2f} GB, launches a step {per_step} "
+        f"(phase settings (c), 6 heads of 64: "
+        f"{settings['c']['img_per_s']:.2f} img/s, peak "
+        f"{settings['c']['peak_gb']:.2f} GB); sampler "
+        + ", ".join(f"{a} {out[a]['fwd_ms']:.2f} ms a forward"
+                    for a in ATTN_IMPLS)
+        + f" ({SIDE_SAMPLER_STEPS}-step calls) on {card}", flush=True)
+  out["cls_checks"] = {
+      pool: _hold_classifier(build, card, VIT_MU, "pallas_fused", pool,
+                             CLS_SIZE, exact=True) for pool in ("map", "tok")}
+  params = _classifier_params(_classifier_kw(VIT_MU, "pallas_fused"), seed=9,
+                              card=True)
+  out["cls"] = _time_classifier(build, card, VIT_MU, "pallas_fused",
+                                CLS_SIZE, CLS_FORWARDS, params)
+  got = out["cls"]["launches"]
+  print(f"[shapes] (b) ViT-{VIT_MU}@{CLS_SIZE} under pallas_fused: "
+        f"{qual_text(out['cls']['qual'])} at batch {CLS_BATCH}; a forward "
+        f"launches K5 {got.get(fb.MLP_NAME, 0)} times and K6 "
+        f"{got.get(fb.MHA_NAME, 0)} on {card}", flush=True)
   return out
 
 
@@ -3304,8 +3577,8 @@ CLS_CHECKS = (("B/16", "pallas", "map", 224), ("B/16", "pallas", "tok", 224),
 CLS_TIMED = (("B/16", "pallas", 224, CLS_FORWARDS),
              ("B/16", "pallas_fused", 224, CLS_FORWARDS),
              ("H/14", "pallas_fused", 224, CLS_FORWARDS),
-             ("L/16", "pallas", 512, 4), ("L/16", "pallas_fused", 512, 4),
-             ("H/14", "pallas", 518, 2), ("H/14", "pallas_fused", 518, 2))
+             ("L/16", "pallas", 512, 2), ("L/16", "pallas_fused", 512, 2),
+             ("H/14", "pallas", 518, 1), ("H/14", "pallas_fused", 518, 1))
 
 
 def _classifier(kw, params, device, trainable=False):
@@ -3324,22 +3597,23 @@ def _classifier_kw(variant, attn_impl, **kw):
               attn_impl=attn_impl, **kw)
 
 
-def _classifier_params(kw, seed):
-  """Every leaf drawn by `convert.init_params` at 224 px; at another
-  `kw["image_size"]` the learned posemb is carried from the 224 grid to
-  the model's by `resample_posemb`, as a hi-res fine-tune from a 224
-  checkpoint does."""
+def _classifier_params(kw, seed, card=False):
+  """Every leaf drawn by `convert.init_params` at 224 px (with `card`, by
+  `_card_params` on the card); at another `kw["image_size"]` the learned
+  posemb is carried from the 224 grid to the model's by `resample_posemb`,
+  as a hi-res fine-tune from a 224 checkpoint does."""
   from small_vision_tpu_torch import convert
   from small_vision_tpu_torch.models import vit
 
-  params = convert.init_params({"model_name": "vit", "model": dict(
-      kw, image_size=CLS_SIZE)}, seed=seed)
+  config = {"model_name": "vit", "model": dict(kw, image_size=CLS_SIZE)}
+  params = (_card_params if card else convert.init_params)(config, seed)
   size = kw.get("image_size", CLS_SIZE)
   if size != CLS_SIZE:
     grid = size // vit.decode_variant(kw["variant"])["patch_size"][0]
-    old = torch.from_numpy(params["pos_embedding"])
-    params["pos_embedding"] = vit.resample_posemb(
-        old, torch.zeros(1, grid * grid, old.shape[-1])).numpy()
+    old = params["pos_embedding"]
+    old = old.cpu() if card else torch.from_numpy(old)
+    new = vit.resample_posemb(old, torch.zeros(1, grid * grid, old.shape[-1]))
+    params["pos_embedding"] = new.cuda() if card else new.numpy()
   return params
 
 
@@ -3355,12 +3629,33 @@ def _classifier_gflop(variant, size):
                        + 4 * seq * seq * w) / 1e9
 
 
-def _hold_classifier(build, card, variant, attn_impl, pool_type, size):
+def _leaf_worst(grads, ref, top, skip=()):
+  """(worst leaf-relative error, its leaf) of `grads` against `ref`, each
+  leaf relative to its largest element in `ref`, floored at 1e-3 of `top`
+  (the largest gradient), as phase model; leaves in `skip` left out."""
+  worst, worst_name = 0.0, None
+  for (name, gr), (_, g) in zip(ref, grads):
+    if name in skip:
+      continue
+    rel = ((g - gr).abs().max().item()
+           / max(gr.abs().max().item(), 1e-3 * top))
+    if rel > worst:
+      worst, worst_name = rel, name
+  return worst, worst_name
+
+
+def _hold_classifier(build, card, variant, attn_impl, pool_type, size,
+                     exact=False):
   """ViT-<variant>@<size> at full width and depth 2, card (kernels)
   against CPU (plain versions), the same weights (drawn at 224,
   `_classifier_params`) and images: the logits and the gradients of a
   softmax cross-entropy, with the launches of the card's forward and
-  backward."""
+  backward. With `exact`, the card is also held against the CPU in f32
+  (the function without bf16 roundings), every leaf within the same
+  bounds; a leaf whose f32 gradient is rounding noise (at most 1e-6 of
+  the largest: the key biases, 0 analytically) is held against f32 alone,
+  since its bf16 gradients on both sides are noise as large as their
+  bound (2-4e-5 of the largest gradient at ViT-mu's width 32)."""
   kw = _classifier_kw(variant, attn_impl, pool_type=pool_type,
                       depth=CLS_CHECK_DEPTH, image_size=size)
   params = _classifier_params(kw, seed=7)
@@ -3368,14 +3663,16 @@ def _hold_classifier(build, card, variant, attn_impl, pool_type, size):
   images = rng.uniform(-1, 1, (CLS_CHECK_BATCH, size, size, 3)
                        ).astype(np.float32)
   labels = rng.integers(0, CLS_CLASSES, CLS_CHECK_BATCH)
-  got = {}
-  for dev in ("cpu", "cuda"):
-    model = _classifier(kw, params, dev, trainable=True)
+  got, runs = {}, {"cpu": ("cpu", kw), "cuda": ("cuda", kw)}
+  if exact:
+    runs["f32"] = ("cpu", dict(kw, dtype_mm="float32"))
+  for key, (dev, model_kw) in runs.items():
+    model = _classifier(model_kw, params, dev, trainable=True)
     build.reset_launches()
     logits, out = model(torch.from_numpy(images).to(dev))
     torch.nn.functional.cross_entropy(
         logits.float(), torch.from_numpy(labels).to(dev)).backward()
-    got[dev] = (logits.detach().float().cpu(),
+    got[key] = (logits.detach().float().cpu(),
                 [(n, p.grad.float().cpu())
                  for n, p in sorted(model.named_parameters())],
                 dict(build.LAUNCHES),
@@ -3390,22 +3687,31 @@ def _hold_classifier(build, card, variant, attn_impl, pool_type, size):
   # Each leaf relative to its largest element, floored at 1e-3 of the
   # largest gradient (the key biases' are 0 analytically), as phase model.
   top = max(g.abs().max().item() for _, g in g_cpu)
-  worst, worst_name = 0.0, None
-  for (name, gc), (_, gg) in zip(g_cpu, g_gpu):
-    rel = ((gg - gc).abs().max().item()
-           / max(gc.abs().max().item(), 1e-3 * top))
-    if rel > worst:
-      worst, worst_name = rel, name
+  noise = ()
+  if exact:
+    l_f32, g_f32 = got["f32"][:2]
+    top32 = max(g.abs().max().item() for _, g in g_f32)
+    noise = {n for n, g in g_f32 if g.abs().max().item() <= 1e-6 * top32}
+    err32 = (l_gpu - l_f32).abs().max().item()
+    worst32, worst32_name = _leaf_worst(g_gpu, g_f32, top32)
+  worst, worst_name = _leaf_worst(g_gpu, g_cpu, top, noise)
   print(f"[classifier] (a) {label}, depth {CLS_CHECK_DEPTH}, L = {seq}, "
         f"batch {CLS_CHECK_BATCH}: logits max abs err {err:.3e} of max "
         f"{scale:.3e}; {len(g_cpu)} gradient leaves, worst leaf-relative err "
-        f"{worst:.3e} ({worst_name}); launches {launches} on {card}",
-        flush=True)
+        f"{worst:.3e} ({worst_name})"
+        + (f" ({len(noise)} leaves of rounding noise held against f32 "
+           f"alone); against the CPU in f32: logits {err32:.3e}, worst leaf "
+           f"{worst32:.3e} ({worst32_name})" if exact else "")
+        + f"; launches {launches} on {card}", flush=True)
   if not (torch.isfinite(l_gpu).all() and err <= 3e-2 * scale):
     fail(f"{label}: logits on the card differ from the CPU by {err:.3e}")
   if not worst <= 5e-2:
     fail(f"{label}: gradients on the card differ from the CPU: {worst:.3e} "
          f"of leaf max at {worst_name}")
+  if exact and not (err32 <= 3e-2 * scale and worst32 <= 5e-2):
+    fail(f"{label}: the card differs from the CPU in f32: logits "
+         f"{err32:.3e}, gradients {worst32:.3e} of leaf max at "
+         f"{worst32_name}")
   return {"err": err, "worst_grad": worst, "launches": launches}
 
 
@@ -3469,16 +3775,17 @@ def phase_classifier(build, card, settings):
   for v, a, n, forwards in CLS_TIMED:
     if (v, n) not in drawn:  # both settings run the same weights
       drawn = {(v, n): _classifier_params(_classifier_kw(
-          v, a, image_size=n), seed=9)}
+          v, a, image_size=n), seed=9, card=True)}
     out["timed"][f"{v}@{n} {a}"] = _time_classifier(
         build, card, v, a, n, forwards, drawn[(v, n)])
   del drawn
   out["sampler"] = phase_sample_call(build, card, "pallas_fused",
-                                     tag="classifier", extra=",heads=6")
+                                     tag="classifier", extra=",heads=6",
+                                     steps=SIDE_SAMPLER_STEPS)
   print(f"[classifier] (c) heads=6 sampler under pallas_fused: "
-        f"{out['sampler']['img_per_s']:.2f} img/s, "
-        f"{out['sampler']['s']:.3f} s a call (pallas, phase settings (b): "
-        f"{settings['b']['img_per_s']:.2f} img/s); "
+        f"{out['sampler']['fwd_ms']:.2f} ms a forward, "
+        f"{out['sampler']['s']:.3f} s a {SIDE_SAMPLER_STEPS}-step call "
+        f"(pallas, phase settings (b): {settings['b']['fwd_ms']:.2f} ms); "
         f"{out['sampler']['launches'].get('fused_mha_fwd', 0)} K6 launches "
         f"at head dim 128 on {card}", flush=True)
   return out
@@ -3488,7 +3795,10 @@ def phase_classifier(build, card, settings):
 # Phase parallel: the parallel layer on the one card.
 
 PARALLEL_STEPS = 2           # within the script's time limit
-PARALLEL_TIMEOUT = 240.0      # s: each spawned process set is killed on it
+PARALLEL_TIMEOUT = 360.0      # s: each spawned process set is killed on it
+# torch's CPU threads in each process that phases parallel and tensor start:
+# ten of them run at once on the host's cores.
+CHILD_THREADS = 2
 PIPE_MICROBATCHES = 8
 PARALLEL_CONFIG = (f"fsdp=True,size=64,data=synthetic,batch_size={TRAIN_BATCH},"
                    f"total_steps={PARALLEL_STEPS},log_steps=1,eval_steps=-1")
@@ -3675,6 +3985,7 @@ def parallel_worker(rank, n, device, tmp):
   from small_vision_tpu_torch.parallel import mesh as mesh_lib
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
+  keep_draws()  # its four runs start from one tree
   plan = os.path.join(tmp, "plan.npz")
   mesh = mesh_lib.make_mesh(fsdp=0)
   out = _fsdp_run(plan, *mesh.batch_shard(), device, mesh)
@@ -3727,6 +4038,30 @@ def _launch_cli(entry, argv, env, tmp):
   return proc.stdout, json.loads(line[-1][len("LAUNCHES "):])
 
 
+def _in_thread(fn, *args):
+  """Starts `fn(*args)` in a thread; returns a join that gives its result,
+  or raises what it raised (a `fail` in the thread included)."""
+  box = {}
+
+  def run():
+    try:
+      box["out"] = fn(*args)
+    except BaseException as e:  # noqa: BLE001 -- raised again in join
+      box["error"] = e
+  # Not a daemon: on a failure the interpreter waits for it, so the
+  # processes it started are stopped (`spawn` kills its own on the way
+  # out, `subprocess.run` on its time limit).
+  thread = threading.Thread(target=run)
+  thread.start()
+
+  def join():
+    thread.join()
+    if "error" in box:
+      raise box["error"]
+    return box["out"]
+  return join
+
+
 def _free_port():
   import socket
   with socket.socket() as s:
@@ -3743,14 +4078,16 @@ def _parallel_production(card):
     argv = ["--config", f"ae_i1k.py:{PARALLEL_CONFIG}"]
     env = {"SLURM_PROCID": "0", "SLURM_NTASKS": "1", "SLURM_LOCALID": "0",
            "SV_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}"}
+    threads = {"OMP_NUM_THREADS": str(CHILD_THREADS)}
     runs = {}
-    for entry, extra_env in (("launch", env), ("cli", {})):
+
+    def run(entry, extra_env):
       work = os.path.join(tmp, entry)
       t0 = time.perf_counter()
       out, launches = _launch_cli(entry, argv + ["--workdir", work],
                                   extra_env, tmp)
       line = [l for l in out.splitlines() if "img/s at batch" in l][-1]
-      runs[entry] = {
+      return {
           "s": time.perf_counter() - t0, "line": line, "launches": launches,
           "img_per_s": float(line.split(" img/s")[0].split()[-1]),
           "peak_gb": float(line.split("peak ")[1].split(" GB")[0]),
@@ -3760,8 +4097,16 @@ def _parallel_production(card):
           "losses": [json.loads(l)["training_loss"] for l in open(
               os.path.join(work, "sv_tpu_metrics.txt"))
                      if "training_loss" in l]}
-      print(f"[parallel] (a) {entry}: {line}; {runs[entry]['s']:.1f} s "
-            f"with the process's start", flush=True)
+    # The two processes at once (each ~8 s to reach the card, most of the
+    # rest host work): their img/s share the card and the host.
+    joins = {entry: _in_thread(run, entry, extra_env)
+             for entry, extra_env in (("launch", {**env, **threads}),
+                                      ("cli", threads))}
+    for entry, join in joins.items():
+      runs[entry] = join()
+      print(f"[parallel] (a) {entry}: {runs[entry]['line']}; "
+            f"{runs[entry]['s']:.1f} s with the process's start (launch and "
+            f"cli at once, beside phase parallel's (b))", flush=True)
     a, b = runs["launch"], runs["cli"]
     if a["losses"] != b["losses"] or len(a["losses"]) != PARALLEL_STEPS:
       fail(f"parallel (a): NCCL losses {a['losses']} != {b['losses']}")
@@ -3786,7 +4131,7 @@ def _parallel_production(card):
     shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_parallel(build, card):
+def phase_parallel(build, card, then=None):
   """Phase parallel: (a) the production route with one rank on NCCL, and
   (b) real sharding and a real pipeline in two processes sharing the card
   over gloo (`tools/dryrun_multichip.spawn`: each process is started with
@@ -3794,7 +4139,10 @@ def phase_parallel(build, card):
   from small_vision_tpu_torch.parallel import pipeline as pl
   from small_vision_tpu_torch.tools import dryrun_multichip
   torch.cuda.empty_cache()
-  out = {"a": _parallel_production(card)}
+  # (a)'s two processes run while this process computes (b)'s references
+  # and (b)'s two processes run.
+  production = _in_thread(_parallel_production, card)
+  out = {}
 
   tmp = tempfile.mkdtemp(prefix="sv_parallel_b_")
   try:
@@ -3804,9 +4152,12 @@ def phase_parallel(build, card):
     ref = _fsdp_run(plan, 0, 1, "cuda")
     ref_pipe = _pipe_step(plan, "cuda")
     torch.cuda.empty_cache()
+    if then is not None:  # phase tensor's start, beside (b)
+      then()
     t0 = time.perf_counter()
     dryrun_multichip.spawn("chip_smoke:parallel_worker", 2, args=(tmp,),
-                           device="cuda", timeout=PARALLEL_TIMEOUT)
+                           device="cuda", timeout=PARALLEL_TIMEOUT,
+                           threads=CHILD_THREADS)
     out["b_s"] = time.perf_counter() - t0
     fsdp = [torch.load(os.path.join(tmp, f"fsdp_rank{r}.pt"))
             for r in range(2)]
@@ -3816,6 +4167,7 @@ def phase_parallel(build, card):
             for r in range(2)]
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
+  out["a"] = production()
 
   # (b) fsdp=2 and the two other placements against one process at batch
   # 256: phase model's loss bound (1e-2 relative: bf16 predictions summed
@@ -4072,6 +4424,7 @@ def tensor_worker(rank, n, device, tmp):
   from small_vision_tpu_torch.train import train_ae
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
+  keep_draws()  # its cases start from one tree
   for case, (procs, attn_impl, steps, placement, with_val) in (
       TENSOR_CASES.items()):
     if procs != n:
@@ -4088,16 +4441,12 @@ def tensor_worker(rank, n, device, tmp):
     torch.cuda.empty_cache()
 
 
-def phase_tensor(build, card):
-  """Phase tensor: UMD-B/4@64 at full width and depth under
-  `tensor_parallel` (T = 2, the Megatron block: K1-K4 on a rank's 6 heads,
-  K5/K6 on its shard under "pallas_fused") in two processes sharing the
-  card over gloo, and under `tp_fsdp` (fsdp 2 x tensor 2) in four, each
-  against the one-process run on the card: the losses within
-  tests/test_fsdp_equivalence.py's bound, equal on the tensor ranks of a
-  batch shard, the launches per process those of one process, the head
-  counts and shard shapes the kernels ran on, the state bytes equal to the
-  placement's, and (a)'s `val` equal to one process's."""
+def tensor_start(build):
+  """Phase tensor's first half: the one-process references on the card in
+  this process, then the two-process and the four-process set started at
+  once (each timed from its start), beside phase parallel's (b). Returns
+  the join that waits for them: (references, the processes' results,
+  their seconds)."""
   from small_vision_tpu_torch.tools import dryrun_multichip
   tmp = tempfile.mkdtemp(prefix="sv_tensor_")
   try:
@@ -4107,18 +4456,42 @@ def phase_tensor(build, card):
                              workdir=os.path.join(tmp, f"single_{case}"))
            for case in ("a", "b")}
     torch.cuda.empty_cache()
-    seconds = {}
-    for n in (2, 4):
-      t0 = time.perf_counter()
-      dryrun_multichip.spawn("chip_smoke:tensor_worker", n, args=(tmp,),
-                             device="cuda", timeout=PARALLEL_TIMEOUT)
-      seconds[n] = time.perf_counter() - t0
-    got = {case: [torch.load(os.path.join(tmp, f"tensor_{case}_rank{r}.pt"),
-                             weights_only=False) for r in range(procs)]
-           for case, (procs, *_) in TENSOR_CASES.items()}
-  finally:
+  except BaseException:
     shutil.rmtree(tmp, ignore_errors=True)
+    raise
 
+  def run(n):
+    t0 = time.perf_counter()
+    dryrun_multichip.spawn("chip_smoke:tensor_worker", n, args=(tmp,),
+                           device="cuda", timeout=PARALLEL_TIMEOUT,
+                           threads=CHILD_THREADS)
+    return time.perf_counter() - t0
+  joins = {n: _in_thread(run, n) for n in (2, 4)}
+
+  def join():
+    try:
+      seconds = {n: j() for n, j in joins.items()}
+      got = {case: [torch.load(os.path.join(tmp, f"tensor_{case}_rank{r}.pt"),
+                               weights_only=False) for r in range(procs)]
+             for case, (procs, *_) in TENSOR_CASES.items()}
+    finally:
+      shutil.rmtree(tmp, ignore_errors=True)
+    return ref, got, seconds
+  return join
+
+
+def phase_tensor(build, card, started):
+  """Phase tensor: UMD-B/4@64 at full width and depth under
+  `tensor_parallel` (T = 2, the Megatron block: K1-K4 on a rank's 6 heads,
+  K5/K6 on its shard under "pallas_fused") in two processes sharing the
+  card over gloo, and under `tp_fsdp` (fsdp 2 x tensor 2) in four, each
+  against the one-process run on the card: the losses within
+  tests/test_fsdp_equivalence.py's bound, equal on the tensor ranks of a
+  batch shard, the launches per process those of one process, the head
+  counts and shard shapes the kernels ran on, the state bytes equal to the
+  placement's, and (a)'s `val` equal to one process's. `started`: the join
+  of `tensor_start`."""
+  ref, got, seconds = started()
   ref["c"] = ref["a"]  # the same one-process run; (c) takes 2 of its steps
   for case, (procs, attn_impl, steps, placement, with_val) in (
       TENSOR_CASES.items()):
@@ -4181,7 +4554,8 @@ def phase_tensor(build, card):
                                      atol=TENSOR_ATOL,
                                      err_msg=f"phase tensor val {k}")
   print(f"[tensor] two processes {seconds[2]:.1f} s, four {seconds[4]:.1f} "
-        f"s from their start; on {card}", flush=True)
+        f"s from their start, the six at once and beside phase parallel's "
+        f"(b); on {card}", flush=True)
   return {"ref": ref, "got": got, "seconds": seconds}
 
 
@@ -4236,6 +4610,7 @@ def main():
 
   phase_build(build)
   mark("build")
+  keep_draws()
   kernels = [check_ln(ln, card), check_attention(attn, card),
              check_ln_bwd(ln, card), check_attention_bwd(attn, card),
              check_fused_mlp(fb, card), check_fused_mha(fb, card),
@@ -4244,8 +4619,7 @@ def main():
              check_attention_ablate(attn, card)]
   mark("kernels at the model's shapes")
   # UMD-L/2's width: K1-K4 at the latent sampler's shapes and the latent
-  # step's per-branch batch, K6 at the sampler's shapes (not on the L/2
-  # path: it waits for the latent path under "pallas_fused").
+  # step's per-branch batch, K6 at the sampler's shapes.
   b_latent = LATENT_BATCH // 2
   wide = [check_ln(ln, card, L2_WIDTH, b_latent),
           check_attention(attn, card, L2_WIDTH, L2_HEADS, b_latent),
@@ -4298,6 +4672,14 @@ def main():
         check_attention_ablate(
             attn, card, width, heads, WIDE_SHAPES, timed,
             timed_shapes=WIDE_SHAPES if head_dim > 128 else ABLATE_SHAPES))})
+  # K6 at ViT-mu's width 32 in 2 heads of 16 at ViT-mu/16@224's shapes,
+  # and on a tensor rank's narrow shards at width 384 (NARROW_SHARDS).
+  more["width_32_2x16"] = {fb.MHA_NAME: check_fused_mha(
+      fb, card, 32, 2, VIT_MU_SHAPES)}
+  for heads, rank in NARROW_SHARDS:
+    more[f"tensor_rank_{rank}_of_{heads}_heads_width_384"] = {
+        fb.MHA_NAME: check_fused_mha(fb, card, 384, heads,
+                                     NARROW_SHARD_SHAPES, rank_heads=rank)}
   mark("kernels at the widths and head dims")
   # The long heads: "long_<heads>x<head dim>" in the kernels line.
   for width, heads, shapes in LONG_ATTENTION:
@@ -4352,6 +4734,8 @@ def main():
   mark("serve")
   by_heads = phase_heads(build, card)
   mark("heads")
+  shapes = phase_shapes(build, card, settings)
+  mark("shapes")
   data = phase_data(build, card, train["pallas"])
   mark("data")
   unpacked = phase_unpacked(build, attn, card)
@@ -4376,9 +4760,12 @@ def main():
     probe = phase_probe(build, card, backbone)
   finally:
     shutil.rmtree(backbone, ignore_errors=True)
-  parallel = phase_parallel(build, card)
+  _DRAWN.clear()  # host memory for the processes below
+  started = {}
+  parallel = phase_parallel(
+      build, card, then=lambda: started.update(tensor=tensor_start(build)))
   mark("probe, parallel")
-  tensor = phase_tensor(build, card)
+  tensor = phase_tensor(build, card, started["tensor"])
   mark("tensor")
   for k in kernels:
     # Launches on the paths driven above, each counted from 0: the sampler
@@ -4413,6 +4800,8 @@ def main():
            for path, n in evals["launches"].items()},
         f"latent_train_{latent['train']['steps']}_steps":
             latent["train"]["launches"].get(name, 0),
+        f"latent_train_pallas_fused_{latent['train_fused']['steps']}_steps":
+            latent["train_fused"]["launches"].get(name, 0),
         f"latent_precomputed_{latent_pre['train']['steps']}_steps":
             latent_pre["train"]["launches"].get(name, 0),
         "eval_only": eval_o["launches"].get(name, 0),
@@ -4439,6 +4828,12 @@ def main():
            for h, got in by_heads.items()},
         **{f"heads{h}_sampler_{a}": got[a]["launches"].get(name, 0)
            for h, got in by_heads.items() for a in ATTN_IMPLS},
+        f"shapes_umd_s_heads32_train_pallas_{shapes['train']['steps']}_steps":
+            shapes["train"]["launches"].get(name, 0),
+        **{f"shapes_umd_s_heads32_sampler_{a}":
+           shapes[a]["launches"].get(name, 0) for a in ATTN_IMPLS},
+        "shapes_vit_mu_forward_pallas_fused":
+            shapes["cls"]["launches"].get(name, 0),
         f"parallel_a_nccl_{PARALLEL_STEPS}_steps":
             parallel["a"]["launch"]["launches"].get(name, 0),
         **{f"parallel_b_fsdp2_process{r}_{PARALLEL_STEPS}_steps":
@@ -4473,8 +4868,8 @@ def main():
     print(f"[result] quant {a}: training {QUANT_TRAIN} "
           f"{quant['train'][a]['img_per_s']:.2f} img/s (bf16 "
           f"{train[a]['img_per_s']:.2f}); sampler {QUANT_SAMPLE} "
-          f"{quant['serve'][a]['img_per_s']:.2f} img/s (bf16 "
-          f"{serve[a]['img_per_s']:.2f}); on {card}", flush=True)
+          f"{quant['serve'][a]['fwd_ms']:.2f} ms a forward (bf16 "
+          f"{_fwd_ms(serve[a]):.2f}); on {card}", flush=True)
   print("[result] quant int8_dot: " + "; ".join(
       f"{r['shape']}: {r['int8_dot_ms']:.4f} ms (_int_mm "
       f"{r['int_mm_ms']:.4f}), bf16 F.linear {r['linear_ms']:.4f}"
@@ -4506,12 +4901,14 @@ def main():
         f"largest power-of-two batch that fits {lp['largest']}"
         + (f" (out of memory at {lp['oom_at']})" if lp["oom_at"] else "")
         + f"; on {card}", flush=True)
-  lt, ls = latent["train"], latent["sample"]
+  lt, ls, lf = latent["train"], latent["sample"], latent["train_fused"]
   print(f"[result] latent UMD-L/2@{LATENT_SIZE}: training "
         f"{lt['img_per_s']:.2f} img/s, {lt['ms']:.2f} ms/step at batch "
         f"{LATENT_BATCH}, the VAE encode {lt['encode_ms']:.2f} ms "
         f"({lt['encode_ms'] / lt['ms'] * 100:.1f} %), peak "
-        f"{lt['peak_gb']:.2f} GB; sampler {ls['s']:.3f} s a call "
+        f"{lt['peak_gb']:.2f} GB; under pallas_fused {lf['ms']:.2f} ms/step "
+        f"({lf['steps'] - 1} timed), the encode {lf['encode_ms']:.2f} ms; "
+        f"sampler {ls['s']:.3f} s a call "
         f"({ls['img_per_s']:.2f} img/s) at batch {BATCH}, the decode "
         f"{ls['decode_s']:.3f} s ({ls['decode_s'] / ls['s'] * 100:.1f} %); "
         f"probe {probe['s']:.2f} s ("
@@ -4524,9 +4921,9 @@ def main():
         f"{sa['peak_gb']:.2f} GB (phase train: "
         f"{train['pallas']['img_per_s']:.2f} img/s, peak "
         f"{train['pallas']['peak_gb']:.2f} GB); (b) sampler heads=6 "
-        f"{settings['b']['img_per_s']:.2f} img/s, "
-        f"{settings['b']['s']:.3f} s a call (12 heads: "
-        f"{serve['pallas']['img_per_s']:.2f}); (c) UMD-S/4@64 "
+        f"{settings['b']['fwd_ms']:.2f} ms a forward, "
+        f"{settings['b']['s']:.3f} s a {SIDE_SAMPLER_STEPS}-step call (12 "
+        f"heads: {_fwd_ms(serve['pallas']):.2f}); (c) UMD-S/4@64 "
         f"{qual_text(sc['qual'])}, peak {sc['peak_gb']:.2f} GB; (d) "
         f"runlocal {settings['d']['s']:.2f} s for {RUNLOCAL_STEPS} steps; "
         f"(e) UMD-L/2@{LATENT_SIZE} scan=True batch {se['batch']} "
@@ -4541,21 +4938,32 @@ def main():
       f"{got['tflops']:.1f} TFLOP/s, peak {got['peak_gb']:.2f} GB, "
       f"launches {got['launches']}"
       for key, got in classifier["timed"].items())
-        + f"; heads=6 sampler under pallas_fused {cs['img_per_s']:.2f} img/s "
-        f"({cs['launches'].get('fused_mha_fwd', 0)} K6 at head dim 128; "
-        f"pallas {settings['b']['img_per_s']:.2f}); on {card}", flush=True)
+        + f"; heads=6 sampler under pallas_fused {cs['fwd_ms']:.2f} ms a "
+        f"forward ({cs['launches'].get('fused_mha_fwd', 0)} K6 at head dim "
+        f"128; pallas {settings['b']['fwd_ms']:.2f}); on {card}", flush=True)
 
   print("[result] heads: " + "; ".join(
       f"heads={h} (head dim {WIDTH // h}): training under pallas "
       f"{qual_text(got['train']['qual'])}, "
       f"{got['train']['ms']:.2f} ms/step, "
       f"peak {got['train']['peak_gb']:.2f} GB; sampler "
-      + ", ".join(f"{a} {got[a]['img_per_s']:.2f} img/s" for a in ATTN_IMPLS)
+      + ", ".join(f"{a} {got[a]['fwd_ms']:.2f} ms a forward"
+                  for a in ATTN_IMPLS)
       for h, got in by_heads.items())
         + f" (12 heads: training {train['pallas']['img_per_s']:.2f} img/s, "
         f"peak {train['pallas']['peak_gb']:.2f} GB; sampler " + ", ".join(
-            f"{a} {serve[a]['img_per_s']:.2f}" for a in ATTN_IMPLS)
+            f"{a} {_fwd_ms(serve[a]):.2f}" for a in ATTN_IMPLS)
         + f"); on {card}", flush=True)
+
+  st, cm = shapes["train"], shapes["cls"]
+  print(f"[result] shapes: (a) UMD-S/4@64 heads=32 (head dim 12): training "
+        f"under pallas {qual_text(st['qual'])}, {st['ms']:.2f} ms/step, peak "
+        f"{st['peak_gb']:.2f} GB; sampler " + ", ".join(
+            f"{a} {shapes[a]['fwd_ms']:.2f} ms a forward" for a in ATTN_IMPLS)
+        + f" (settings (c) UMD-S/4@64, 6 heads of 64: training "
+        f"{settings['c']['img_per_s']:.2f} img/s); (b) ViT-{VIT_MU}@{CLS_SIZE}"
+        f" forward under pallas_fused {qual_text(cm['qual'])} at batch "
+        f"{CLS_BATCH}, launches {cm['launches']}; on {card}", flush=True)
 
   pa, pf, pp = parallel["a"], parallel["fsdp"], parallel["pipe"]
   print(f"[result] parallel: (a) fsdp=True on NCCL, one rank "

@@ -32,7 +32,12 @@
 //      once (one tensor map per weight and per output, chosen by the
 //      tile's column block; the outputs are the three column blocks of one
 //      (B, L, 3 H*D) scratch) and for the out-projection of the head
-//      outputs. Its N (H*D) and K (d) are multiples of 64, the GEMM's rule.
+//      outputs. Its N (H*D) and K (d) are multiples of 8, the GEMM's rule
+//      (ViT-mu: 2 heads of 16, H*D = 32, half of one 64-column box); the
+//      wrapper (ops/fused_block.py) zero-pads a width that is not, and a
+//      head dim that is not, whose heads it lays out at the next multiple
+//      of 8 with zero columns (zero rows of Wo), run at that head dim with
+//      the true head dim's scale.
 //  (b) fused_mha_attn_kernel, per (head, batch row): the max-shift
 //      attention core of sm90_attention.cuh (its design there, its head
 //      dims one to four 64-column tiles) under its production softmax, exp2
@@ -53,7 +58,7 @@ namespace {
 using ProjTiles = sm90::GemmTiles<>;
 
 // C_w = bf16(f32(A W_w) + b_w) for w < num_w: A (m, k), W_w (k, n) and
-// C_w (m, n) through their maps; k and n are multiples of 64.
+// C_w (m, n) through their maps; k and n are multiples of 8.
 __global__ void __launch_bounds__(sm90::kGemmThreads, 1)
 fused_mha_proj_kernel(const __grid_constant__ CUtensorMap tm_a,
                       const __grid_constant__ CUtensorMap tm_w0,
@@ -98,14 +103,14 @@ extern "C" int fused_mha_max_len(int head_dim) {
 
 // (a): c (m, num_w * n) = [bf16(f32(a w_i) + b_i) for i < num_w] side by
 // side; a (m, k), each w_i (k, n), b_i (n,); bf16, contiguous, 16-byte
-// aligned; n and k multiples of 64, num_w 1 to 3 (unused w_i, b_i are
+// aligned; n and k multiples of 8, num_w 1 to 3 (unused w_i, b_i are
 // ignored). Returns cudaGetLastError(), or cudaErrorInvalidValue for a
 // shape it does not take or a tensor map the driver refuses.
 extern "C" int fused_mha_proj(const void* a, const void* w0, const void* w1,
                               const void* w2, const void* b0, const void* b1,
                               const void* b2, void* c, int m, int n, int k,
                               int num_w, void* stream) {
-  if (m <= 0 || n <= 0 || n % 64 != 0 || k <= 0 || k % 64 != 0 ||
+  if (m <= 0 || n <= 0 || n % 8 != 0 || k <= 0 || k % 8 != 0 ||
       num_w < 1 || num_w > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -116,6 +121,7 @@ extern "C" int fused_mha_proj(const void* a, const void* w0, const void* w1,
   }
   for (int i = 0; i < 3; ++i) {
     const int src = i < num_w ? i : 0;
+    // Column block src of c: 16-byte aligned, as n is a multiple of 8.
     __nv_bfloat16* ci = static_cast<__nv_bfloat16*>(c) +
                         static_cast<size_t>(src) * n;
     if (!sm90_host::matrix_map(&tw[i], ws[src], k, n, n, ProjTiles::kBK) ||
@@ -181,8 +187,9 @@ extern "C" int fused_mha_attention(const void* qkv, void* heads, int batch,
 // (scratch): (B, L, 3 H*D) bf16; wq, wk, wv: (width, H*D) and wo
 // (H*D, width) bf16 row-major (in, out); bq, bk, bv: (H*D,) and bo
 // (width,) bf16; all contiguous and 16-byte aligned; width and H*D
-// multiples of 64, D a multiple of 8 up to 256, L up to 4,096. scale =
-// D**-0.5 in f32.
+// multiples of 8, D a multiple of 8 up to 256, L up to 4,096. scale =
+// D**-0.5 in f32 (the caller's: of the true head dim where it ran the
+// heads zero-padded to D).
 // The three launches: (a) q, k, v; (b) the heads; (a) the out-projection.
 // Returns the first non-zero status.
 extern "C" int fused_mha_fwd(const void* x, const void* wq, const void* bq,

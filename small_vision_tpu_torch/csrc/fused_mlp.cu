@@ -28,7 +28,10 @@
 //  (b) fused_mlp_down_kernel: y = bf16(f32(h W2) + b2), M = rows, K =
 //      hidden, N = width.
 // No split-K and no atomics, so two calls give the same bits. The width
-// and the hidden width are any multiples of 64, the rows any count.
+// and the hidden width are any multiples of 8 (the GEMM takes tails along
+// K and N, zero-filled by TMA; ViT-mu's 32 -> 128 -> 32 is one stage of
+// 64 whose upper half is zeros), the rows any count. The wrapper
+// (ops/fused_block.py) zero-pads other widths to multiples of 8.
 //
 // Tiles: 128 x 128, a ring of 5 stages 64 deep, one CTA a SM, for both.
 // The up-projection runs the ping-pong schedule: its K is the width (12
@@ -77,11 +80,11 @@ fused_mlp_down_kernel(const __grid_constant__ CUtensorMap tm_h,
 }
 
 // c (m, n) = kernel's bf16(Epi(f32(a w) + b)): a (m, k), w (k, n), b (n,),
-// row-major bf16; k and n multiples of 64.
+// row-major bf16; k and n multiples of 8.
 template <class T, class Kernel>
 int launch(Kernel kernel, const void* a, const void* w, const void* b,
            void* c, int m, int n, int k, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || n % 64 != 0 || k % 64 != 0) {
+  if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap ta, tw, tc;
@@ -106,7 +109,7 @@ int launch(Kernel kernel, const void* a, const void* w, const void* b,
 
 // (a): h (rows, hidden) = bf16(gelu_tanh(f32(x w1) + b1)); x (rows,
 // width), w1 (width, hidden), b1 (hidden,). All bf16, contiguous, 16-byte
-// aligned; width and hidden multiples of 64. Returns cudaGetLastError(), or
+// aligned; width and hidden multiples of 8. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape it does not take or a tensor map the
 // driver refuses.
 extern "C" int fused_mlp_up(const void* x, const void* w1, const void* b1,
@@ -127,7 +130,7 @@ extern "C" int fused_mlp_down(const void* h, const void* w2, const void* b2,
 
 // x, y: (rows, width); w1: (width, hidden), b1: (hidden,), w2: (hidden,
 // width), b2: (width,); h: (rows, hidden) scratch. All bf16, contiguous,
-// 16-byte aligned; width and hidden multiples of 64. The two launches (a),
+// 16-byte aligned; width and hidden multiples of 8. The two launches (a),
 // (b); returns the first non-zero status.
 extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* h, void* y,

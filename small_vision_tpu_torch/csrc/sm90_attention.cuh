@@ -770,7 +770,11 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
 
 namespace sm90_host {
 
-// Whether the core takes a head dim: a multiple of 8 from 8 to 256.
+// Whether the core takes a head dim: a multiple of 8 from 8 to 256 (a
+// head's TMA stride is a multiple of 16 bytes). The wrappers
+// (ops/attention.py, ops/fused_block.py) run any other head dim up to 256
+// at the next multiple of 8, on heads zero-padded to it, with the true
+// head dim's scale.
 inline bool valid_head_dim(int head_dim) {
   return head_dim >= 8 && head_dim <= sm90::kAttnMaxHeadDim &&
          head_dim % 8 == 0;

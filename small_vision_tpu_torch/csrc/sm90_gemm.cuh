@@ -128,9 +128,16 @@ __device__ __forceinline__ void wg_barrier(int wg) {
 // C_w = bf16(Epi(f32(A W_w) + b_w)) for w < num_w: A (m, k), each W_w
 // (k, n) and C_w (m, n) row-major bf16 behind their tensor maps (A's box
 // 128 x 64, W's and C's 64 x 64, all with the 128-byte swizzle), biases
-// (n,) bf16; k and n multiples of 64, m any count (TMA brings A's rows
-// past m as zeros, and the stores leave out rows past m and columns past
-// n). Epi maps the f32 sum before its one rounding.
+// (n,) bf16; k and n multiples of 8 (a TMA row stride is a multiple of 16
+// bytes), m any count. TMA brings what lies past the matrices as zeros:
+// A's rows past m, and in the last of the ceil(k / 64) stages A's columns
+// and W's rows past k, whose products add exact zeros to the f32 sums; a
+// box wider than its matrix (k or n under 64) is filled the same way, and
+// the stage's barrier still counts the whole box's bytes. The stores
+// leave out rows past m and columns past n, and the bias is read in
+// pairs below n (even, as n is). Where k and n are multiples of 64 nothing
+// lies past them: the same products in the same order as before the tails
+// were taken. Epi maps the f32 sum before its one rounding.
 //
 // Design. One persistent CTA a SM walks 128 x 128 output tiles,
 // row block outermost, so the CTAs in flight share their A rows in L2. Its
@@ -215,7 +222,7 @@ __device__ __forceinline__ void gemm_bias_tiles(
   const int n_per_w = (n + kBN - 1) / kBN;
   const int n_tiles = num_w * n_per_w;
   const int tiles = (m + kBM - 1) / kBM * n_tiles;
-  const int k_steps = k / kBK;
+  const int k_steps = (k + kBK - 1) / kBK;  // the last one zero-filled past k
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {

@@ -11,9 +11,15 @@ The forward is K3 (`csrc/attention_packed.cu`), the backward K4
 `attention_packed` runs the plain versions for tensors on the CPU and the
 kernels for CUDA tensors, and raises for a CUDA tensor a kernel does not
 take. Without gradients (the sampler) it is K3 alone; with gradients it
-goes through `AttentionPacked`. Every kernel here takes any head dim that is
-a multiple of 8 up to 256 (`MAX_HEAD_DIM`; `heads=4` at width 768 gives
-192, `heads=3` 256), and L up to 4,096 at every head dim: a head's K and V
+goes through `AttentionPacked`. Every kernel here takes any head dim from 1
+to 256 (`MAX_HEAD_DIM`; `heads=4` at width 768 gives 192, `heads=3` 256,
+`heads=32` at UMD-S's 384 gives 12): the kernels run multiples of 8, so
+the wrappers lay the heads of any other out at the next multiple of 8 with
+zero columns (`pad_heads`), launch at that head dim with the true head
+dim's scale and drop the padded columns of the outputs (`unpad_heads`).
+The zero columns add exact zeros to every score and to dP = dO V^T, and
+the output columns they give are dropped, so nothing else changes. L up
+to 4,096 at every head dim: a head's K and V
 stay in shared memory up to 320 keys (D <= 64) or 384 (64 < D <= 128) and
 stream through a ring of them past that (ViT-L/16@512, L = 1,024 or 1,025;
 ViT-H/14@518, 1,369), and at every length above 128, with the same
@@ -54,7 +60,8 @@ ABLATE_NAME = "attention_ablate"
 # The arms of K9, in the order of the kernel's `variant` argument.
 ABLATE_VARIANTS = ("prod", "nosoftmax", "nomm", "bf16exp", "exp2", "mulmask",
                    "nomax")
-# K3, K4 and K6-K9 take any head dim that is a multiple of 8 up to this.
+# K3, K4 and K6-K9 take any head dim from 1 up to this (the kernels
+# themselves multiples of 8; the wrappers pad the others, `pad_heads`).
 MAX_HEAD_DIM = 256
 CLAMP = 80.0   # Softmax stability clamp, in log2 units.
 
@@ -84,15 +91,48 @@ def _merge(t, dtype):
   return t.to(dtype).transpose(1, 2).reshape(b, l, h * d)
 
 
+def padded_head_dim(d: int) -> int:
+  """The head dim the kernels run a head of `d` columns at: `d` rounded up
+  to a multiple of 8 (a head's TMA row stride is a multiple of 16
+  bytes)."""
+  return -(-d // 8) * 8
+
+
+def pad_heads(t, num_heads, dp):
+  """(..., H*D) → (..., H*dp): each of the H heads' D columns followed by
+  dp - D zeros, as a new contiguous tensor; `t` itself where dp == D. A
+  [B, L, H, D] tensor is its last axis as one head (`num_heads` 1). The
+  copy reads t once and writes dp / D of its bytes."""
+  *lead, hd = t.shape
+  d = hd // num_heads
+  if dp == d:
+    return t
+  t = torch.nn.functional.pad(t.reshape(*lead, num_heads, d), (0, dp - d))
+  return t.reshape(*lead, num_heads * dp)
+
+
+def unpad_heads(t, num_heads, d):
+  """(..., H*dp) → (..., H*d): each head's first d columns, as a new
+  contiguous tensor; `t` itself where dp == d. `pad_heads`' inverse."""
+  *lead, hdp = t.shape
+  dp = hdp // num_heads
+  if dp == d:
+    return t
+  t = t.reshape(*lead, num_heads, dp)[..., :d].contiguous()
+  return t.reshape(*lead, num_heads * d)
+
+
 def _e(q, k, d):
   """exp2 of the clamped log2-scaled scores, (B, H, L, L) f32."""
   scores = torch.matmul(q, k.transpose(-1, -2)) * scale_log2(d)
   return torch.exp2(torch.clamp(scores, -CLAMP, CLAMP))
 
 
-def attention_packed_plain(q, k, v, num_heads):
-  """Plain PyTorch version of `_attn_kernel_packed`'s math."""
-  d = q.shape[-1] // num_heads
+def attention_packed_plain(q, k, v, num_heads, scale_dim=None):
+  """Plain PyTorch version of `_attn_kernel_packed`'s math. `scale_dim`:
+  the head dim whose scale the scores take (by default the heads' own; a
+  head zero-padded by `pad_heads` takes its true one)."""
+  d = scale_dim or q.shape[-1] // num_heads
   e = _e(_split(q, num_heads), _split(k, num_heads), d)
   s = e.sum(-1, keepdim=True)
   vs = _split(v, num_heads)
@@ -100,10 +140,11 @@ def attention_packed_plain(q, k, v, num_heads):
   return _merge(o, q.dtype)
 
 
-def attention_packed_bwd_plain(q, k, v, do, num_heads):
+def attention_packed_bwd_plain(q, k, v, do, num_heads, scale_dim=None):
   """Plain version of K4; mirrors `_attn_bwd_kernel_packed` formula by
   formula, with its rounding points (e, dO·r, dS and Q·r·scale rounded to
-  the input dtype before their products; f32 sums).
+  the input dtype before their products; f32 sums). `scale_dim`: as in
+  `attention_packed_plain`.
 
   Not autograd of the forward: the JAX backward treats the ±80 clamp as
   the identity (dS uses the clamped e, nothing is zeroed), and rounds at
@@ -111,7 +152,7 @@ def attention_packed_bwd_plain(q, k, v, do, num_heads):
   Returns (dq, dk, dv) in q's dtype.
   """
   dt = q.dtype
-  d = q.shape[-1] // num_heads
+  d = scale_dim or q.shape[-1] // num_heads
   scale = 1.0 / np.sqrt(d)
   qs, ks, vs, dos = (_split(t, num_heads) for t in (q, k, v, do))
   e = _e(qs, ks, d)
@@ -160,16 +201,16 @@ def _check_each(name, first, tensors):
 
 
 def check_head_dim(d, name):
-  """Raises ValueError naming `name` for a head dim the kernels do not
-  take: they take multiples of 8 up to MAX_HEAD_DIM."""
-  _require(d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM,
-           f"head dim {d}: the kernel takes multiples of 8 up to "
-           f"{MAX_HEAD_DIM}", name)
+  """Raises ValueError naming `name` for a head dim the kernels' wrappers
+  do not take: they take 1 to MAX_HEAD_DIM (the kernels multiples of 8,
+  the others on heads zero-padded to one, `pad_heads`)."""
+  _require(1 <= d <= MAX_HEAD_DIM,
+           f"head dim {d}: the kernels take 1 to {MAX_HEAD_DIM}", name)
 
 
 def _check(name, num_heads, **tensors):
-  """Checks the (B, L, H*D) bf16 inputs of K3, K4 or K9, D a multiple of 8
-  up to MAX_HEAD_DIM; returns B, L, D."""
+  """Checks the (B, L, H*D) bf16 inputs of K3, K4 or K9, D from 1 to
+  MAX_HEAD_DIM; returns B, L, D."""
   first = next(iter(tensors.values()))
   _require(first.is_cuda, f"{next(iter(tensors))} must be a CUDA tensor",
            name)
@@ -185,54 +226,59 @@ def _check(name, num_heads, **tensors):
 
 
 def attention_packed_fwd(q, k, v, num_heads, streamed=False):
-  """Launches K3 on (B, L, H*D) bf16 contiguous q, k, v, D a multiple of 8
-  up to 256. L up to the kernel's `attention_packed_max_len(D)`, 4,096 at
-  every head dim: a head's K and V stay in shared memory up to 320 keys at
-  D <= 64 (one 64-column tile a head) and 384 at 64 < D <= 128 (two), and
-  stream through a ring of stages past that, and at every length at D >
-  128 (three or four tiles). `streamed`: stream them at every length (for
-  tests and measurement; the same bits)."""
+  """Launches K3 on (B, L, H*D) bf16 contiguous q, k, v, D from 1 to 256
+  (a D that is not a multiple of 8 on copies of q, k, v padded to the next
+  one, `pad_heads`, and o cut back, `unpad_heads`). L up to the kernel's
+  `attention_packed_max_len(D)`, 4,096 at every head dim: a head's K and V
+  stay in shared memory up to 320 keys at D <= 64 (one 64-column tile a
+  head) and 384 at 64 < D <= 128 (two), and stream through a ring of
+  stages past that, and at every length at D > 128 (three or four tiles).
+  `streamed`: stream them at every length (for tests and measurement; the
+  same bits)."""
   b, l, d = _check(NAME, num_heads, q=q, k=k, v=v)
+  dp = padded_head_dim(d)
   fn, max_len, fn_streamed = _lib()
-  _require(l <= max_len(d), f"sequence length {l} > {max_len(d)} at head "
+  _require(l <= max_len(dp), f"sequence length {l} > {max_len(dp)} at head "
            f"dim {d}")
   if streamed:
     fn = fn_streamed
 
-  o = torch.empty_like(q)
   if q.numel() == 0:
-    return o
+    return torch.empty_like(q)
+  q, k, v = (pad_heads(t, num_heads, dp) for t in (q, k, v))
+  o = torch.empty_like(q)
   _build.launch(NAME, q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                o.data_ptr(), b, l, num_heads, d, scale_log2(d))
+                o.data_ptr(), b, l, num_heads, dp, scale_log2(d))
   _build.LAUNCHES[NAME] += 1
-  return o
+  return unpad_heads(o, num_heads, d)
 
 
 def attention_packed_bwd(q, k, v, do, num_heads):
-  """Launches K4 on (B, L, H*D) bf16 contiguous q, k, v, do (D a multiple
-  of 8 up to 256); returns
-  (dq, dk, dv). Each output element is summed by one warpgroup's
-  accumulator in a fixed order (no atomics), so two launches give the same
-  bits. L up to the kernel's `attention_packed_bwd_max_len()`, 4096: its
-  shared memory does not grow with L (the limit was 384 before K4 moved to
-  wgmma and streamed tiles), and 4096 is the longest length the card's
-  tests hold it at."""
+  """Launches K4 on (B, L, H*D) bf16 contiguous q, k, v, do (D from 1 to
+  256, padded as K3's, `attention_packed_fwd`); returns (dq, dk, dv).
+  Each output element is summed by one warpgroup's accumulator in a fixed
+  order (no atomics), so two launches give the same bits. L up to the
+  kernel's `attention_packed_bwd_max_len()`, 4096: its shared memory does
+  not grow with L (the limit was 384 before K4 moved to wgmma and streamed
+  tiles), and 4096 is the longest length the card's tests hold it at."""
   b, l, d = _check(BWD_NAME, num_heads, q=q, k=k, v=v, do=do)
+  dp = padded_head_dim(d)
   fn, max_len = _bwd_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}", BWD_NAME)
 
-  dq, dk, dv = (torch.empty_like(q) for _ in range(3))
   if q.numel() == 0:
-    return dq, dk, dv
+    return tuple(torch.empty_like(q) for _ in range(3))
+  q, k, v, do = (pad_heads(t, num_heads, dp) for t in (q, k, v, do))
+  dq, dk, dv = (torch.empty_like(q) for _ in range(3))
   f32 = dict(dtype=torch.float32, device=q.device)
   r = torch.empty(b, num_heads, l, **f32)  # 1 / row sum of e
   c = torch.empty(b, num_heads, l, **f32)  # row sum of dP∘e, times r
   _build.launch(BWD_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), r.data_ptr(), c.data_ptr(), b, l, num_heads,
-                d, scale_log2(d), scale_f32(d))
+                dp, scale_log2(d), scale_f32(d))
   _build.LAUNCHES[BWD_NAME] += 1
-  return dq, dk, dv
+  return tuple(unpad_heads(t, num_heads, d) for t in (dq, dk, dv))
 
 
 class AttentionPacked(torch.autograd.Function):
@@ -305,32 +351,36 @@ def _heads_first(t):
   return t.transpose(1, 2).to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _probs(q, k):
+def _probs(q, k, scale_dim=None):
   """softmax((q k^T) * D**-0.5) with the row max subtracted, (B, H, L, L)
-  f32, from heads-first q and k."""
-  scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / np.sqrt(q.shape[-1]))
+  f32, from heads-first q and k; D is `scale_dim`, by default q's head
+  dim."""
+  d = scale_dim or q.shape[-1]
+  scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / np.sqrt(d))
   e = torch.exp(scores - scores.amax(-1, keepdim=True))
   return e / e.sum(-1, keepdim=True)
 
 
-def attention_plain(q, k, v):
-  """Plain PyTorch version of `_attn_kernel`'s math on [B, L, H, D]."""
-  p = _probs(_heads_first(q), _heads_first(k))
+def attention_plain(q, k, v, scale_dim=None):
+  """Plain PyTorch version of `_attn_kernel`'s math on [B, L, H, D].
+  `scale_dim`: as in `attention_packed_plain`."""
+  p = _probs(_heads_first(q), _heads_first(k), scale_dim)
   vs = _heads_first(v)
   o = torch.matmul(p.to(q.dtype).to(vs.dtype), vs)
   return o.to(q.dtype).transpose(1, 2)
 
 
-def attention_bwd_plain(q, k, v, do):
+def attention_bwd_plain(q, k, v, do, scale_dim=None):
   """Plain version of K8; mirrors `_attn_bwd_kernel` formula by formula,
   with its rounding points (P rounded to the input dtype for dV only, dS
   rounded before its products, the scale applied to the f32 dQ and dK).
-  Returns (dq, dk, dv), [B, L, H, D] in q's dtype."""
+  `scale_dim`: as in `attention_packed_plain`. Returns (dq, dk, dv),
+  [B, L, H, D] in q's dtype."""
   dt = q.dtype
-  scale = 1.0 / np.sqrt(q.shape[-1])
+  scale = 1.0 / np.sqrt(scale_dim or q.shape[-1])
   qs, ks, vs, dos = (_heads_first(t) for t in (q, k, v, do))
   rounded = lambda t: t.to(dt).to(t.dtype)
-  p = _probs(qs, ks)
+  p = _probs(qs, ks, scale_dim)
   dv = torch.matmul(rounded(p).transpose(-1, -2), dos)
   dp = torch.matmul(dos, vs.transpose(-1, -2))
   ds = rounded(p * (dp - (dp * p).sum(-1, keepdim=True)))
@@ -355,8 +405,8 @@ def _unpacked_bwd_lib():
 
 
 def _check_unpacked(name, **tensors):
-  """Checks the [B, L, H, D] bf16 inputs of a kernel, D a multiple of 8 up
-  to MAX_HEAD_DIM; returns B, L, H, D."""
+  """Checks the [B, L, H, D] bf16 inputs of a kernel, D from 1 to
+  MAX_HEAD_DIM; returns B, L, H, D."""
   first = next(iter(tensors.values()))
   _require(first.is_cuda, f"{next(iter(tensors))} must be a CUDA tensor",
            name)
@@ -370,8 +420,9 @@ def _check_unpacked(name, **tensors):
 
 def attention_unpacked_fwd(q, k, v, streamed=False):
   """Launches K7 on [B, L, H, D] bf16 contiguous, 16-byte aligned q, k,
-  v, D a multiple of 8 up to 256. No atomics: two launches give the same
-  bits. L up to the kernel's `attention_unpacked_max_len(D)`, 4,096 at
+  v, D from 1 to 256 (padded as K3's, `attention_packed_fwd`). No
+  atomics: two launches give the same bits. L up to the kernel's
+  `attention_unpacked_max_len(D)`, 4,096 at
   every head dim: a head's K and V stay resident in shared memory up to
   320 keys at D <= 64 (one 64-column tile a head) and 384 at 64 < D <=
   128 (two), and stream through a ring of stages past that, every pass
@@ -379,52 +430,57 @@ def attention_unpacked_fwd(q, k, v, streamed=False):
   stream them at every length (for tests and measurement; the same
   bits)."""
   b, l, h, d = _check_unpacked(UNPACKED_NAME, q=q, k=k, v=v)
+  dp = padded_head_dim(d)
   fn, max_len, fn_streamed = _unpacked_lib()
-  _require(l <= max_len(d), f"sequence length {l} > {max_len(d)} at head "
+  _require(l <= max_len(dp), f"sequence length {l} > {max_len(dp)} at head "
            f"dim {d}", UNPACKED_NAME)
   if streamed:
     fn = fn_streamed
-  o = torch.empty_like(q)
   if q.numel() == 0:
-    return o
+    return torch.empty_like(q)
+  q, k, v = (pad_heads(t, 1, dp) for t in (q, k, v))
+  o = torch.empty_like(q)
   _build.launch(UNPACKED_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), b, l, h, d, scale_f32(d))
+                v.data_ptr(), o.data_ptr(), b, l, h, dp, scale_f32(d))
   _build.LAUNCHES[UNPACKED_NAME] += 1
-  return o
+  return unpad_heads(o, 1, d)
 
 
 def _unpacked_bwd_buffers(q, k, v, do):
-  """(library, (B, L, H, D), and the tensors of K8's C entry points in
-  their order: q, k, v, do, the outputs dq, dk, dv and the scratch m, r,
-  c) once the inputs are what K8 takes."""
+  """(library, (B, L, H, D, the head dim it runs at), and the tensors of
+  K8's C entry points in their order: q, k, v, do (padded, `pad_heads`),
+  the outputs dq, dk, dv and the scratch m, r, c) once the inputs are
+  what K8 takes."""
   b, l, h, d = _check_unpacked(UNPACKED_BWD_NAME, q=q, k=k, v=v, do=do)
+  dp = padded_head_dim(d)
   lib, max_len = _unpacked_bwd_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}",
            UNPACKED_BWD_NAME)
+  q, k, v, do = (pad_heads(t, 1, dp) for t in (q, k, v, do))
   grads = [torch.empty_like(q) for _ in range(3)]
   # Per query, (B, H, L) f32: the row max of the log2(e)-scaled scores,
   # 1 / row sum and the row sum of dP∘P.
   scratch = [torch.empty(b, h, l, dtype=torch.float32, device=q.device)
              for _ in range(3)]
-  return lib, (b, l, h, d), [q, k, v, do, *grads, *scratch]
+  return lib, (b, l, h, d, dp), [q, k, v, do, *grads, *scratch]
 
 
 def attention_unpacked_bwd(q, k, v, do):
   """Launches K8 on [B, L, H, D] bf16 contiguous, 16-byte aligned q, k,
-  v, do, D a multiple of 8 up to 256; returns (dq, dk, dv). Two kernels,
-  dQ and then dK/dV, each output element summed by one warpgroup in a
-  fixed order (no atomics), so two launches give the same bits. L up to
-  `attention_unpacked_bwd_max_len()`, 4,096 at every head dim: keys and
-  queries stream through shared memory in 64-row blocks, so nothing there
-  grows with L."""
-  lib, (b, l, h, d), bufs = _unpacked_bwd_buffers(q, k, v, do)
+  v, do, D from 1 to 256 (padded as K3's, `attention_packed_fwd`);
+  returns (dq, dk, dv). Two kernels, dQ and then dK/dV, each output
+  element summed by one warpgroup in a fixed order (no atomics), so two
+  launches give the same bits. L up to `attention_unpacked_bwd_max_len()`,
+  4,096 at every head dim: keys and queries stream through shared memory
+  in 64-row blocks, so nothing there grows with L."""
+  lib, (b, l, h, d, dp), bufs = _unpacked_bwd_buffers(q, k, v, do)
   grads = tuple(bufs[4:7])
   if q.numel() == 0:
-    return grads
+    return tuple(unpad_heads(t, 1, d) for t in grads)
   _build.launch(UNPACKED_BWD_NAME, q.device, lib.attention_unpacked_bwd,
-                *(t.data_ptr() for t in bufs), b, l, h, d, scale_f32(d))
+                *(t.data_ptr() for t in bufs), b, l, h, dp, scale_f32(d))
   _build.LAUNCHES[UNPACKED_BWD_NAME] += 1
-  return grads
+  return tuple(unpad_heads(t, 1, d) for t in grads)
 
 
 def attention_unpacked_bwd_stages(q, k, v, do):
@@ -432,10 +488,10 @@ def attention_unpacked_bwd_stages(q, k, v, do):
   that launches that kernel}, on buffers made here ("dkdv" reads the m, r,
   c that "dq" wrote: launch "dq" first). For measurement only: they count
   no launch."""
-  lib, (b, l, h, d), bufs = _unpacked_bwd_buffers(q, k, v, do)
+  lib, (b, l, h, d, dp), bufs = _unpacked_bwd_buffers(q, k, v, do)
   launch = lambda stage: _build.launch(
       UNPACKED_BWD_NAME, q.device, lib.attention_unpacked_bwd_stage,
-      *(t.data_ptr() for t in bufs), b, l, h, d, scale_f32(d), stage)
+      *(t.data_ptr() for t in bufs), b, l, h, dp, scale_f32(d), stage)
   return {"dq": lambda: launch(0), "dkdv": lambda: launch(1)}
 
 
@@ -543,7 +599,9 @@ def _ablate_lib():
 
 def attention_ablate_fwd(q, k, v, num_heads, variant):
   """Launches K9's arm `variant` on (B, L, H*D) bf16 contiguous, 16-byte
-  aligned q, k, v, D a multiple of 8 up to 256; L up to
+  aligned q, k, v, D from 1 to 256 (padded as K3's,
+  `attention_packed_fwd`: the arms read a padded head's column 0 and
+  drop its padded output columns); L up to
   `attention_ablate_max_len(D)`, 4,096 at every head dim (K and V stream
   past 320 keys at D <= 64 and 384 up to 128, and at every length above).
   No atomics: two launches give the same bits."""
@@ -551,17 +609,19 @@ def attention_ablate_fwd(q, k, v, num_heads, variant):
            f"unknown variant {variant!r}, one of {ABLATE_VARIANTS}",
            ABLATE_NAME)
   b, l, d = _check(ABLATE_NAME, num_heads, q=q, k=k, v=v)
+  dp = padded_head_dim(d)
   fn, max_len = _ablate_lib()
-  _require(l <= max_len(d), f"sequence length {l} > {max_len(d)} at head "
+  _require(l <= max_len(dp), f"sequence length {l} > {max_len(dp)} at head "
            f"dim {d}", ABLATE_NAME)
-  o = torch.empty_like(q)
   if q.numel() == 0:
-    return o
+    return torch.empty_like(q)
+  q, k, v = (pad_heads(t, num_heads, dp) for t in (q, k, v))
+  o = torch.empty_like(q)
   _build.launch(ABLATE_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), b, l, num_heads, d, scale_f32(d),
-                ABLATE_VARIANTS.index(variant))
+                v.data_ptr(), o.data_ptr(), b, l, num_heads, dp,
+                scale_f32(d), ABLATE_VARIANTS.index(variant))
   _build.LAUNCHES[ABLATE_NAME] += 1
-  return o
+  return unpad_heads(o, num_heads, d)
 
 
 def attention_ablate(q, k, v, num_heads, variant):

@@ -12,10 +12,9 @@ under `attn_impl="pallas_fused"`:
   fused_mha:  q, k, v = bf16(f32(x W) + b); per head the max-shift softmax
               attention of `ops.attention.attention_plain`; then
               o = bf16(f32(attn Wo) + bo), on x of width d and H heads of
-              D (a multiple of 8 up to 256) with W (d, H*D) and Wo
-              (H*D, d), d and H*D multiples of 64: d = H*D in one
-              process, and a tensor rank's H/T heads (d = 768, H = 6 at
-              UMD-B/4 over two) under the Megatron block
+              D (1 to 256) with W (d, H*D) and Wo (H*D, d): d = H*D in
+              one process, and a tensor rank's H/T heads (d = 768, H = 6
+              at UMD-B/4 over two) under the Megatron block
               K6 (`csrc/fused_mha.cu`): a wgmma GEMM with a bias
               epilogue for q, k, v, a wgmma max-shift attention core,
               the same GEMM for the out-projection; the scores and the
@@ -25,6 +24,16 @@ Sums are f32 and each result is rounded once, where the unfused modules
 round the product and the bias add separately. `fused_mlp` and `fused_mha`
 run the plain versions for tensors on the CPU and the kernels for CUDA
 tensors, and raise for a CUDA tensor a kernel does not take.
+
+Both take every width, hidden width and H*D, as the JAX kernels do. The
+kernels' GEMM takes any K and N that are multiples of 8 (TMA zero-fills
+the tails: ViT-mu's width 32 and MLP 128 run as they are); the wrappers
+launch them on zero-padded copies where a width is not a multiple of 8
+(`pad_mlp`, `pad_mha`) or a head dim is not (`pad_mha` lays each head out
+at the next multiple of 8, as `ops.attention.pad_heads`, and the
+attention takes the true head dim's scale), and cut the output back. The
+padded zeros add exact zeros to every sum, so the results are those at
+the true widths.
 
 Neither backward is a kernel, as in the JAX package: `FusedMLP` and
 `FusedMHA` save their inputs and differentiate a reference composition
@@ -58,14 +67,18 @@ def fused_mlp_plain(x, w1, b1, w2, b2):
   return (torch.matmul(_f32(h), _f32(w2)) + _f32(b2)).to(x.dtype)
 
 
-def fused_mha_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+def fused_mha_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads,
+                    scale_dim=None):
   """Plain PyTorch version of `_mha_kernel`'s math, on x (B, L, d), q, k,
-  v weights (d, H*hd) and an out-projection (H*hd, d)."""
+  v weights (d, H*hd) and an out-projection (H*hd, d). `scale_dim`: the
+  head dim whose scale the scores take (by default hd; heads padded by
+  `pad_mha` take their true one)."""
   b, l, _ = x.shape
   xf = _f32(x)
   proj = lambda w, bias: (torch.matmul(xf, _f32(w)) + _f32(bias)).to(
       x.dtype).reshape(b, l, num_heads, -1)
-  a = attn_lib.attention_plain(proj(wq, bq), proj(wk, bk), proj(wv, bv))
+  a = attn_lib.attention_plain(proj(wq, bq), proj(wk, bk), proj(wv, bv),
+                               scale_dim)
   a = a.reshape(b, l, -1)
   return (torch.matmul(_f32(a), _f32(wo)) + _f32(bo)).to(x.dtype)
 
@@ -103,9 +116,76 @@ def _check_bf16(name, device, **tensors):
              f"on {device}, got {t.dtype} {tuple(t.shape)}", name)
 
 
-# K5 takes widths and hidden widths that are multiples of this (its tiles
-# are 64 columns wide and 64 deep).
-MLP_MULTIPLE = 64
+# K5's and K6's GEMM takes widths that are multiples of this (a TMA row
+# stride is a multiple of 16 bytes); the wrappers pad the others.
+GEMM_MULTIPLE = 8
+
+
+def _round_up(n):
+  return -(-n // GEMM_MULTIPLE) * GEMM_MULTIPLE
+
+
+def pad_cols(t, n):
+  """`t` with its last axis zero-padded to `n` columns, as a new contiguous
+  tensor; `t` itself where it has `n`."""
+  if t.shape[-1] == n:
+    return t
+  return torch.nn.functional.pad(t, (0, n - t.shape[-1]))
+
+
+def pad_rows(w, n):
+  """The matrix `w` with zero rows appended up to `n`, as a new contiguous
+  tensor; `w` itself where it has `n`."""
+  if w.shape[0] == n:
+    return w
+  return torch.nn.functional.pad(w, (0, 0, 0, n - w.shape[0]))
+
+
+def unpad_cols(t, n):
+  """The first `n` columns of `t`'s last axis, contiguous; `t` itself
+  where it has `n`."""
+  return t if t.shape[-1] == n else t[..., :n].contiguous()
+
+
+def pad_mlp(x, w1, b1, w2, b2):
+  """K5's operands at the width d and hidden width rounded up to multiples
+  of 8: x's columns, W1's rows and columns, b1, W2's rows and columns and
+  b2 zero-padded (the arguments themselves where both are multiples of 8).
+  Exact: a padded column of x meets a zero row of W1, a padded hidden unit
+  is gelu(0 + 0) = 0 and meets a zero row of W2, and the padded output
+  columns are cut off (`unpad_cols(y, d)`). The copies read x and the
+  weights once and write them at the padded widths, and cut y once more:
+  a few passes over x's bytes, at widths no configuration reaches."""
+  d, hidden = w1.shape
+  dp, hp = _round_up(d), _round_up(hidden)
+  return (pad_cols(x, dp), pad_cols(pad_rows(w1, dp), hp), pad_cols(b1, hp),
+          pad_cols(pad_rows(w2, hp), dp), pad_cols(b2, dp))
+
+
+def pad_mha(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """K6's operands at the width d rounded up to a multiple of 8 and with
+  each head laid out at `ops.attention.padded_head_dim` of its head dim
+  (the arguments themselves where neither needs it): x's columns, the
+  rows of wq, wk, wv and the columns of wo and bo zero-padded to the
+  width; each head's columns of wq, wk, wv, bq, bk, bv and its rows of wo
+  zero-padded to the head dim. Exact, with the attention at the true head
+  dim's scale: the padded columns of q and k add zeros to every score,
+  those of v give head outputs that meet zero rows of wo, and the padded
+  output columns are cut off (`unpad_cols(o, d)`). Only the weights are
+  copied where d is a multiple of 8: at `heads=32` on UMD-S (width 384,
+  head dim 12 run at 16) four 384 x 512 matrices, 1.5 MB a call."""
+  d = x.shape[-1]
+  hd = wq.shape[-1]
+  head_dim = hd // num_heads
+  dm, dp = _round_up(d), attn_lib.padded_head_dim(head_dim)
+  heads = lambda t: attn_lib.pad_heads(t, num_heads, dp)
+  if dp != head_dim:
+    wo = torch.nn.functional.pad(wo.reshape(num_heads, head_dim, -1),
+                                 (0, 0, 0, dp - head_dim))
+    wo = wo.reshape(num_heads * dp, -1)
+  return (pad_cols(x, dm), *(t for w, b in ((wq, bq), (wk, bk), (wv, bv))
+                             for t in (heads(pad_rows(w, dm)), heads(b))),
+          pad_cols(wo, dm), pad_cols(bo, dm))
 
 
 @functools.cache
@@ -119,43 +199,47 @@ def _mha_lib():
 
 
 def _mlp_checked(x, w1, b1, w2, b2):
-  """(library, rows, width, hidden) once the arguments are what K5 takes."""
+  """(library, rows, width) once the arguments are what K5 takes: any
+  width and hidden width (`pad_mlp` pads them to multiples of 8)."""
   _require(x.is_cuda, "x must be a CUDA tensor", MLP_NAME)
   d, hidden = x.shape[-1], w1.shape[-1]
-  _require(d > 0 and d % MLP_MULTIPLE == 0,
-           f"width {d} is not a multiple of {MLP_MULTIPLE}", MLP_NAME)
-  _require(hidden > 0 and hidden % MLP_MULTIPLE == 0,
-           f"hidden width {hidden} is not a multiple of {MLP_MULTIPLE}",
-           MLP_NAME)
+  _require(d > 0, f"width {d}: the kernel takes widths from 1", MLP_NAME)
+  _require(hidden > 0, f"hidden width {hidden}: the kernel takes widths "
+           "from 1", MLP_NAME)
   _check_bf16(MLP_NAME, x.device, x=(x, tuple(x.shape)), w1=(w1, (d, hidden)),
               b1=(b1, (hidden,)), w2=(w2, (hidden, d)), b2=(b2, (d,)))
-  return _mlp_lib(), x.numel() // d, d, hidden
+  return _mlp_lib(), x.numel() // d, d
 
 
 def fused_mlp_fwd(x, w1, b1, w2, b2):
   """Launches K5 on bf16 contiguous x (..., D), w1 (D, hidden), b1
-  (hidden,), w2 (hidden, D), b2 (D,), D and hidden multiples of 64: the
-  up-projection with gelu into a (rows, hidden) scratch, then the
-  down-projection, two kernel launches. Sums run in a fixed order (no
-  atomics), so two launches give the same bits."""
-  lib, rows, d, hidden = _mlp_checked(x, w1, b1, w2, b2)
-  y = torch.empty_like(x)
+  (hidden,), w2 (hidden, D), b2 (D,), any D and hidden (on copies padded
+  to multiples of 8 where they are not, `pad_mlp`): the up-projection with
+  gelu into a (rows, hidden) scratch, then the down-projection, two kernel
+  launches. Sums run in a fixed order (no atomics), so two launches give
+  the same bits."""
+  lib, rows, d = _mlp_checked(x, w1, b1, w2, b2)
   if rows == 0:
-    return y
+    return torch.empty_like(x)
+  x, w1, b1, w2, b2 = pad_mlp(x, w1, b1, w2, b2)
+  dp, hidden = w1.shape
   h = torch.empty(rows, hidden, dtype=x.dtype, device=x.device)
+  y = torch.empty_like(x)
   _build.launch(MLP_NAME, x.device, lib.fused_mlp_fwd,
-                *(t.data_ptr() for t in (x, w1, b1, w2, b2, h, y)), rows, d,
+                *(t.data_ptr() for t in (x, w1, b1, w2, b2, h, y)), rows, dp,
                 hidden)
   _build.LAUNCHES[MLP_NAME] += 1
-  return y
+  return unpad_cols(y, d)
 
 
 def fused_mlp_stages(x, w1, b1, w2, b2):
   """K5's two launches one by one, to time each: {"up", "down": a function
   that launches that kernel}, on buffers made here (the down-projection
-  reads the h the first one wrote). For measurement only: they count no
-  launch."""
-  lib, rows, d, hidden = _mlp_checked(x, w1, b1, w2, b2)
+  reads the h the first one wrote), at the padded widths where `pad_mlp`
+  pads. For measurement only: they count no launch."""
+  lib, rows, _ = _mlp_checked(x, w1, b1, w2, b2)
+  x, w1, b1, w2, b2 = pad_mlp(x, w1, b1, w2, b2)
+  d, hidden = w1.shape
   h = torch.empty(rows, hidden, dtype=x.dtype, device=x.device)
   y = torch.empty_like(x)
   ptr = lambda *ts: [t.data_ptr() for t in ts]
@@ -168,26 +252,22 @@ def fused_mlp_stages(x, w1, b1, w2, b2):
 
 
 def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
-  """(library, (b, l, d, hd, head_dim)) once the arguments are what K6
+  """(library, (b, l, d, head_dim)) once the arguments are what K6
   takes: x (B, L, d), q, k, v weights (d, hd) and biases (hd,), the
   out-projection (hd, d) and its bias (d,), hd = num_heads * head_dim, the
-  head dim a multiple of 8 up to 256, d and hd multiples of 64 (the
-  projection GEMM's tiles)."""
+  head dim from 1 to 256, any d (`pad_mha` pads the widths and head dims
+  the kernels' tiles do not take)."""
   _require(x.is_cuda, "x must be a CUDA tensor", MHA_NAME)
   _require(x.dim() == 3, f"x must be (B, L, d), got {tuple(x.shape)}",
            MHA_NAME)
   b, l, d = x.shape
   hd = wq.shape[-1]
-  _require(d > 0 and d % MLP_MULTIPLE == 0,
-           f"width {d} is not a multiple of {MLP_MULTIPLE}", MHA_NAME)
   _require(num_heads > 0 and hd % num_heads == 0,
            f"projections of {hd} columns are not num_heads {num_heads} "
            "heads", MHA_NAME)
   head_dim = hd // num_heads
   attn_lib.check_head_dim(head_dim, MHA_NAME)
-  _require(hd % MLP_MULTIPLE == 0,
-           f"projections of {hd} columns: not a multiple of {MLP_MULTIPLE}",
-           MHA_NAME)
+  _require(d > 0, f"width {d}: the kernel takes widths from 1", MHA_NAME)
   max_len = fused_mha_max_len(head_dim)
   _require(l <= max_len, f"sequence length {l} > {max_len} at head dim "
            f"{head_dim}", MHA_NAME)
@@ -195,48 +275,57 @@ def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   vecs = {n: (t, (hd,)) for n, t in (("bq", bq), ("bk", bk), ("bv", bv))}
   _check_bf16(MHA_NAME, x.device, x=(x, (b, l, d)), **mats, **vecs,
               wo=(wo, (hd, d)), bo=(bo, (d,)))
-  return _mha_lib(), (b, l, d, hd, head_dim)
+  return _mha_lib(), (b, l, d, head_dim)
 
 
 def fused_mha_max_len(head_dim: int) -> int:
   """The longest sequence K6 takes at a head dim (builds the kernels):
   4,096 at every one (its attention's K and V stream through a ring of
   stages past 320 keys at head dims up to 64 and 384 up to 128, and at
-  every length above)."""
-  return _mha_lib().fused_mha_max_len(head_dim)
+  every length above); a head dim that is not a multiple of 8 runs at the
+  next one."""
+  return _mha_lib().fused_mha_max_len(attn_lib.padded_head_dim(head_dim))
 
 
 def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   """Launches K6 on bf16 contiguous x (B, L, d), three (d, H*D) weights
   with (H*D,) biases and the (H*D, d) out-projection with its (d,)
-  bias, D a multiple of 8 up to 256, d and H*D multiples of 64 (d = H*D
-  in one process; a tensor rank's H heads of a wider model under the
-  Megatron block): the q, k, v projection, the attention and the
-  out-projection, three kernel launches through q, k, v and head outputs
-  in device memory. L up to `fused_mha_max_len`, 4,096. Sums run in a
-  fixed order (no atomics), so two launches give the same bits."""
-  lib, (b, l, d, hd, head_dim) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo,
-                                              bo, num_heads)
-  o = torch.empty_like(x)
+  bias, D from 1 to 256, any d (d = H*D in one process; a tensor rank's H
+  heads of a wider model under the Megatron block; on copies padded by
+  `pad_mha` where d or D is not a multiple of 8): the q, k, v projection,
+  the attention (at the true head dim's scale) and the out-projection,
+  three kernel launches through q, k, v and head outputs in device
+  memory. L up to `fused_mha_max_len`, 4,096. Sums run in a fixed order
+  (no atomics), so two launches give the same bits."""
+  lib, (b, l, d, head_dim) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
+                                          num_heads)
   if x.numel() == 0:
-    return o
+    return torch.empty_like(x)
+  x, *params = pad_mha(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
+  dm, hd = x.shape[-1], params[0].shape[-1]
   qkv = torch.empty(b, l, 3 * hd, dtype=x.dtype, device=x.device)
   heads_out = torch.empty(b, l, hd, dtype=x.dtype, device=x.device)
+  o = torch.empty_like(x)
   _build.launch(MHA_NAME, x.device, lib.fused_mha_fwd,
-                *(t.data_ptr() for t in (x, wq, bq, wk, bk, wv, bv, wo, bo,
-                                         qkv, heads_out, o)),
-                b, l, d, num_heads, head_dim, attn_lib.scale_f32(head_dim))
+                *(t.data_ptr() for t in (x, *params, qkv, heads_out, o)),
+                b, l, dm, num_heads, hd // num_heads,
+                attn_lib.scale_f32(head_dim))
   _build.LAUNCHES[MHA_NAME] += 1
-  return o
+  return unpad_cols(o, d)
 
 
 def fused_mha_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   """K6's three launches one by one, to time each: {"qkv_proj",
   "attention", "out_proj": a function that launches that kernel}, on
   buffers made here (the attention reads the q, k, v the first one
-  wrote). For measurement only: they count no launch."""
-  lib, (b, l, d, hd, head_dim) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo,
+  wrote), at the padded widths where `pad_mha` pads. For measurement
+  only: they count no launch."""
+  lib, (b, l, _, head_dim) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
+                                          num_heads)
+  scale = attn_lib.scale_f32(head_dim)
+  x, wq, bq, wk, bk, wv, bv, wo, bo = pad_mha(x, wq, bq, wk, bk, wv, bv, wo,
                                               bo, num_heads)
+  d, hd = x.shape[-1], wq.shape[-1]
   qkv = torch.empty(b, l, 3 * hd, dtype=x.dtype, device=x.device)
   heads_out = torch.empty(b, l, hd, dtype=x.dtype, device=x.device)
   o = torch.empty_like(x)
@@ -249,7 +338,7 @@ def fused_mha_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
                                  b * l, hd, d, 3),
       "attention": lambda: launch(lib.fused_mha_attention, qkv.data_ptr(),
                                   heads_out.data_ptr(), b, l, num_heads,
-                                  head_dim, attn_lib.scale_f32(head_dim)),
+                                  hd // num_heads, scale),
       "out_proj": lambda: launch(lib.fused_mha_proj,
                                  *ptr(heads_out, wo, wo, wo, bo, bo, bo, o),
                                  b * l, d, hd, 1),

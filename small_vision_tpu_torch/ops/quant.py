@@ -47,9 +47,13 @@ def quantize(v: torch.Tensor, dim: int, group=None):
 
 def int_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
   """Exact int32 product of (M, K) and (K, N) int8 matrices: `_int_mm` for
-  CUDA tensors, an int64 matmul for CPU tensors."""
+  CUDA tensors, a float64 matmul for CPU tensors (exact: every partial sum
+  is an integer of magnitude at most 2^14 K, below 2^53; an int64 matmul
+  is not BLAS's and runs some 50 times longer)."""
   if xq.device.type == "cpu":
-    return torch.matmul(xq.long(), wq.long()).to(torch.int32)
+    if xq.shape[-1] >= 2 ** 39:
+      return torch.matmul(xq.long(), wq.long()).to(torch.int32)
+    return torch.matmul(xq.double(), wq.double()).to(torch.int32)
   if xq.device.type != "cuda":
     raise ValueError(f"int8 matmul on {xq.device}: CPU or CUDA tensors only")
   (m, k), n = xq.shape, wq.shape[1]

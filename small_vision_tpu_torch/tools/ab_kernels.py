@@ -1,5 +1,6 @@
-"""Holds this tree's attention kernels (K3, K4, K6, K7, K8, K9) and the
-LayerNorm-modulate backward (K2) against another tree's, on the card, K1-K4
+"""Holds this tree's attention kernels (K3, K4, K6, K7, K8, K9), the fused
+MLP (K5) and the LayerNorm-modulate backward (K2) against another tree's,
+on the card, K1-K4
 at a width and head count of the variant tables, and times K3, K6, K7 and
 K9 of this tree alone at the long shapes that the other may refuse, and
 every attention kernel of this tree alone at head dims 192 and 256.
@@ -24,6 +25,10 @@ and loads them beside this tree's libraries. Then, on inputs from a
     beside `scaled_dot_product_attention` on the same inputs (K6: the call
     and its attention launch alone; no fused MLP runs in this tool, so K6
     is read away from the power draw of K5).
+  - K5 (the fused MLP's two kernels, `fused_mlp_fwd`) on (B, L, 768) with
+    hidden 3,072 at (64, 260) and (128, 257), and on (64, 257, 1,024)
+    with hidden 4,096: both trees must give the same bits; each is timed
+    beside F.linear, tanh-gelu, F.linear on the same inputs.
   - K3 and K7 of this tree with K and V resident against streamed through
     the ring (their `*_fwd_streamed` entry points) at (64, 260) and (128,
     257): the cost of streaming where the heads are short.
@@ -78,6 +83,8 @@ K3_SHAPES = ((64, 260), (128, 68), (128, 164), (128, 257), (64, 576))
 K6_SHAPES = ((64, 260), (128, 257))
 K7_SHAPES = ((64, 260), (128, 257), (64, 576))
 K9_SHAPES = ((128, 257), (128, 164))
+K5_SHAPES = ((64, 260, 768, 3072), (128, 257, 768, 3072),
+             (64, 257, 1024, 4096))
 STREAM_SHAPES = ((64, 260), (128, 257))  # resident against streamed
 # (B, L, heads, head dim) of this tree alone.
 LONG_SHAPES = ((64, 1024, 16, 64), (64, 1025, 16, 64), (64, 1369, 16, 80),
@@ -85,7 +92,8 @@ LONG_SHAPES = ((64, 1024, 16, 64), (64, 1025, 16, 64), (64, 1369, 16, 80),
 TRAIN_SHAPES = ((128, 68), (128, 164), (128, 257))  # K8 and K2
 # (heads, head dim) of this tree alone at width 768: `heads=4`, `heads=3`.
 WIDE_HEADS = ((4, 192), (3, 256))
-SOURCES = ("fused_mha", "attention_unpacked", "attention_ablate",
+SOURCES = ("fused_mlp", "fused_mha", "attention_unpacked",
+           "attention_ablate",
            "attention_unpacked_bwd", "ln_modulate_bwd", "ln_modulate",
            "attention_packed", "attention_packed_bwd")
 
@@ -144,6 +152,20 @@ def k6_launches(lib, x, params, b, l, width=WIDTH, heads=HEADS):
           qkv.data_ptr(), heads_out.data_ptr(), b, l, heads, hd, scale,
           stream)),
   }, o
+
+
+def k5_launch(lib, x, w1, b1, w2, b2):
+  """A function that launches K5 (`fused_mlp_fwd`: its up- and
+  down-projection kernels) on bf16 x (B, L, d), and its output; the
+  hidden activations' scratch is made here and held by the function."""
+  b, l, d = x.shape
+  hidden = w1.shape[1]
+  h = torch.empty(b * l, hidden, dtype=x.dtype, device=x.device)
+  y = torch.empty_like(x)
+  ptrs = [t.data_ptr() for t in (x, w1, b1, w2, b2, h, y)]
+  stream = torch.cuda.current_stream().cuda_stream
+  return (lambda h=h: _check(lib.fused_mlp_fwd(*ptrs, b * l, d, hidden,
+                                               stream))), y
 
 
 def attention_launch(lib, entry, q, k, v, heads, *extra):
@@ -351,6 +373,20 @@ def main(argv=None):
               {side: (r["call"], o) for side, (r, o) in runs.items()})
       pairs[f"K6 attention {b}x{l}"] = {
           side: r["attention"] for side, (r, _) in runs.items()}
+
+    lin = torch.nn.functional.linear
+    for b, l, d, hidden in K5_SHAPES:
+      x = randn(b, l, d)
+      w1, b1 = randn(d, hidden, std=d**-0.5), randn(hidden, std=0.1)
+      w2, b2 = randn(hidden, d, std=hidden**-0.5), randn(d, std=0.1)
+      w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+      keep += [x, w1, b1, w2, b2, w1t, w2t]
+      tag = f"K5 {b}x{l}" + ("" if d == WIDTH else f" D{d}")
+      compare(tag, {side: k5_launch(libs["fused_mlp"], x, w1, b1, w2, b2)
+                    for side, libs in sides.items()})
+      library[tag] = (lambda x=x, w1t=w1t, b1=b1, w2t=w2t, b2=b2: lin(
+          torch.nn.functional.gelu(lin(x, w1t, b1), approximate="tanh"),
+          w2t, b2))
 
     for b, l in K3_SHAPES:
       q, k, v = (randn(b, l, WIDTH) for _ in range(3))

@@ -77,22 +77,88 @@ def test_plain_clamps_large_logits():
   np.testing.assert_allclose(got, kernel, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("hd", [8, 136, 192, 256])
+@pytest.mark.parametrize("hd", [8, 136, 192, 256, 12, 4, 1])
 def test_check_head_dim_takes_multiples_of_8_up_to_256(hd):
-  """The kernels' wrappers take every head dim that is a multiple of 8 from
-  8 to 256: 136 (a ragged last 64-column tile), 192 and 256 (`heads=4` and
-  `heads=3` at width 768)."""
+  """The kernels' wrappers take every head dim from 1 to 256: the
+  multiples of 8 as they are, 136 (a ragged last 64-column tile), 192 and
+  256 (`heads=4` and `heads=3` at width 768), and the others on heads
+  zero-padded to the next multiple of 8: 12 (`heads=32` at UMD-S's 384),
+  4 and 1."""
   assert tattn.MAX_HEAD_DIM == 256
   tattn.check_head_dim(hd, tattn.NAME)
 
 
-@pytest.mark.parametrize("hd", [12, 264, 4, 0])
+@pytest.mark.parametrize("hd", [264, 0])
 def test_check_head_dim_refuses_the_others_by_name(hd):
-  """Past 256, or not a multiple of 8, the named error: no plain route."""
+  """Past 256, or 0, the named error: no plain route."""
   with pytest.raises(ValueError,
-                     match=f"{tattn.NAME}: head dim {hd}: the kernel takes "
-                     "multiples of 8 up to 256"):
+                     match=f"{tattn.NAME}: head dim {hd}: the kernels take "
+                     "1 to 256"):
     tattn.check_head_dim(hd, tattn.NAME)
+
+
+@pytest.mark.parametrize("d,dp", [(1, 8), (4, 8), (8, 8), (12, 16), (13, 16),
+                                  (64, 64), (250, 256)])
+def test_pad_heads_lays_each_head_out_at_the_next_multiple_of_8(d, dp):
+  """`pad_heads`: each head's d columns, then dp - d zeros; `unpad_heads`
+  gives the input back, and both return their argument itself where d is
+  already a multiple of 8 (no copy at the head dims the kernels take)."""
+  assert tattn.padded_head_dim(d) == dp
+  t = torch.arange(1, 2 * 3 * 3 * d + 1, dtype=torch.float32).reshape(
+      2, 3, 3 * d)
+  padded = tattn.pad_heads(t, 3, dp)
+  assert padded.shape == (2, 3, 3 * dp) and padded.is_contiguous()
+  heads = padded.reshape(2, 3, 3, dp)
+  assert torch.equal(heads[..., :d], t.reshape(2, 3, 3, d))
+  assert not heads[..., d:].any()
+  back = tattn.unpad_heads(padded, 3, d)
+  assert torch.equal(back, t) and back.is_contiguous()
+  if d == dp:
+    assert padded is t and back is padded
+
+
+def _padded(fn, arrays, heads, d):
+  """`fn` (a plain version) run on `arrays` with each of their `heads`
+  heads padded to the kernels' head dim and the scale of d, its outputs
+  cut back."""
+  dp = tattn.padded_head_dim(d)
+  out = fn(*(tattn.pad_heads(a, heads, dp) for a in arrays), scale_dim=d)
+  return [tattn.unpad_heads(o.contiguous(), heads, d)
+          for o in (out if isinstance(out, tuple) else (out,))]
+
+
+# K3, K4, K7 and K8 at head dims that are not multiples of 8: 12
+# (`heads=32` at UMD-S), 4, 13.
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K7", "K8"])
+@pytest.mark.parametrize("d,heads", [(12, 4), (4, 3), (13, 2)])
+def test_padded_heads_give_the_plain_version_at_the_true_head_dim(
+    kernel, d, heads):
+  """What the wrappers launch: the kernel's arithmetic at the padded head
+  dim with the true head dim's scale, the padded columns cut off. Run
+  through the plain versions in f64, it equals them at d within 1e-12 of
+  the largest output: the zeros add exact zeros, and only the order of a
+  BLAS sum of another length may differ."""
+  rng = np.random.default_rng(d)
+  arrays = [torch.from_numpy(rng.standard_normal((2, 19, heads * d)))
+            for _ in range(4)]
+  if kernel in ("K3", "K4"):
+    fn = {"K3": tattn.attention_packed_plain,
+          "K4": tattn.attention_packed_bwd_plain}[kernel]
+    n = 3 if kernel == "K3" else 4
+    want = fn(*arrays[:n], heads)
+    got = _padded(lambda *a, scale_dim: fn(*a, heads, scale_dim=scale_dim),
+                  arrays[:n], heads, d)
+  else:
+    fn = {"K7": tattn.attention_plain, "K8": tattn.attention_bwd_plain}[kernel]
+    n = 3 if kernel == "K7" else 4
+    arrays = [a.reshape(2, 19, heads, d) for a in arrays[:n]]
+    want = fn(*arrays)
+    got = _padded(fn, arrays, 1, d)  # [B, L, H, D]: the last axis
+  want = want if isinstance(want, tuple) else (want,)
+  assert len(got) == len(want)
+  for g, w in zip(got, want):
+    assert g.dtype == torch.float64 and g.shape == w.shape
+    assert (g - w).abs().max().item() <= 1e-12 * w.abs().max().item()
 
 
 def test_scale_log2_is_the_kernels():
@@ -103,8 +169,9 @@ def test_scale_log2_is_the_kernels():
 # Head dims K3 now takes beside 64: 8 (the probe's quick config), 16
 # (runlocal, ViT-mu), 80 (ViT-H), 128 (heads=6 at width 768), 192 and 256
 # (heads=4 and heads=3 at width 768: three and four 64-column tiles on the
-# card), these two in two heads.
-@pytest.mark.parametrize("hd", [8, 16, 80, 128, 192, 256])
+# card), these two in two heads; 12 (heads=32 at UMD-S's 384) and 4, which
+# the card runs on heads zero-padded to 16 and 8.
+@pytest.mark.parametrize("hd", [8, 16, 80, 128, 192, 256, 12, 4])
 def test_plain_matches_jax_at_head_dims(hd):
   """The plain forward at head dim hd (3 heads, 2 past 128) against the
   interpreted JAX kernel, with the bounds of the head-dim-64 tests above;

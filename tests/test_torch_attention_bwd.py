@@ -103,7 +103,7 @@ def test_no_grad_takes_the_forward_only():
   assert type(out.grad_fn).__name__ == "AttentionPackedBackward"
 
 
-@pytest.mark.parametrize("hd", [8, 16, 80, 128, 192, 256])
+@pytest.mark.parametrize("hd", [8, 16, 80, 128, 192, 256, 12, 4])
 def test_backward_matches_jax_at_head_dims(hd):
   """The plain backward (K4's) at head dim hd (3 heads; 2 at 192 and 256,
   `heads=4` and `heads=3`'s head dims) against the interpreted JAX

@@ -151,6 +151,21 @@ def test_vit_logits_and_gradients_match_jax(attn_impl, pool_type, scan,
     _grads_match(config, BF16_LOGITS, BF16_GRADS)
 
 
+@pytest.mark.parametrize("pool_type", ["map", "tok"])
+def test_vit_mu_matches_jax_under_pallas_fused(pool_type):
+  """ViT-mu/16 by name (width 32, depth 1, MLP 128, 2 heads of 16: the
+  widths the card's K5 and K6 took once their GEMM took tails) at 64 px
+  (16 patches), under "pallas_fused" (the plain K5 and K6 here) against
+  the JAX model under "pallas_fused_interpret": the logits and every
+  gradient in f32, F32_TOL."""
+  config = {"model_name": "vit", "model": dict(
+      variant="mu/16", num_classes=10, head_zeroinit=False, image_size=64,
+      pool_type=pool_type, dtype_mm="float32", attn_impl="pallas_fused")}
+  image = np.random.default_rng(12).standard_normal(
+      (2, 64, 64, 3)).astype(np.float32)
+  _grads_match(config, F32_TOL, F32_TOL, image=image)
+
+
 # ViT-L/16@512's grid (32 x 32 patches: L = 1,024, 1,025 with the class
 # token) and ViT-H/14@518's (37 x 37: 1,369), the ViT paper's fine-tuning
 # resolutions, at the small model's width (patch 8, so 256 and 296 px).

@@ -40,9 +40,9 @@ def _mlp_args(l, seed=0, d=D, dh=DH, b=B):
           n(d) * 0.02)
 
 
-def _mha_args(l, heads=2, seed=0):
+def _mha_args(l, heads=2, seed=0, head_dim=64):
   rng = np.random.default_rng(seed)
-  d = heads * 64
+  d = heads * head_dim
   n = lambda *s: rng.standard_normal(s).astype(np.float32)
   args = [n(B, l, d)]
   for _ in range(4):
@@ -142,6 +142,105 @@ def test_fused_mha_matches_jax_bf16(l, heads):
   got = tfb.fused_mha(*_torch(args, torch.bfloat16), heads)
   assert got.dtype == torch.bfloat16
   _assert_bf16_close(_np(got), _np(want))
+
+
+# Widths the card's GEMM once refused (multiples of 64 only): ViT-mu's
+# MLP, 32 -> 128 (one zero-filled half stage of 64), and a hidden width
+# that is a multiple of 8 but not of 64, 40 -> 176; and one that the
+# wrapper pads, 36 -> 150 (run at 40 -> 152).
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,dh", [(32, 128), (36, 150), (40, 176)])
+def test_fused_mlp_matches_jax_at_any_width(d, dh, dtype):
+  """K5's plain version against the interpreted JAX kernel, which takes
+  any width, with the bounds of the tests above."""
+  args = _mlp_args(23, seed=d, d=d, dh=dh, b=2)
+  jdt, tdt = DTYPES[dtype]
+  want = jfb.fused_mlp(*_jax(args, jdt), True)
+  got = tfb.fused_mlp(*_torch(args, tdt))
+  assert got.dtype == tdt and got.shape == (2, 23, d)
+  if dtype == "float32":
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
+  else:
+    _assert_bf16_close(_np(got), _np(want))
+
+
+# K6 at ViT-mu's width 32 in 2 heads of 16 (H*D = 32, under one 64-column
+# tile), at 36 in 3 heads of 12 (the width and the head dim padded: 40, 3
+# heads of 16) and at 40 in 5 heads of 8.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads,head_dim", [(2, 16), (3, 12), (5, 8)])
+def test_fused_mha_matches_jax_at_any_width(heads, head_dim, dtype):
+  """K6's plain version against the interpreted JAX kernel (any width,
+  any head dim), with the bounds of the tests above."""
+  args = _mha_args(21, heads, seed=head_dim, head_dim=head_dim)
+  jdt, tdt = DTYPES[dtype]
+  want = jfb.fused_mha(*_jax(args, jdt), heads, True)
+  got = tfb.fused_mha(*_torch(args, tdt), heads)
+  assert got.dtype == tdt and got.shape == args[0].shape
+  if dtype == "float32":
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
+  else:
+    _assert_bf16_close(_np(got), _np(want))
+
+
+def _f64(args):
+  return [torch.from_numpy(a).double() for a in args]
+
+
+@pytest.mark.parametrize("d,dh", [(36, 150), (40, 176), (30, 7)])
+def test_padded_mlp_gives_the_plain_version_at_the_true_widths(d, dh):
+  """What `fused_mlp_fwd` launches where a width is not a multiple of 8:
+  K5's arithmetic on `pad_mlp`'s copies, y cut back. Through the plain
+  version in f64 it equals the plain version at the true widths within
+  1e-12 of the largest output (the zeros add exact zeros; a BLAS may
+  order a sum of another length otherwise). At multiples of 8 the
+  operands are the arguments themselves."""
+  args = _f64(_mlp_args(9, seed=d, d=d, dh=dh, b=2))
+  padded = tfb.pad_mlp(*args)
+  assert [tuple(t.shape) for t in padded] == [
+      (2, 9, -(-d // 8) * 8), (-(-d // 8) * 8, -(-dh // 8) * 8),
+      (-(-dh // 8) * 8,), (-(-dh // 8) * 8, -(-d // 8) * 8),
+      (-(-d // 8) * 8,)]
+  want = tfb.fused_mlp_plain(*args)
+  got = tfb.unpad_cols(tfb.fused_mlp_plain(*padded), d)
+  assert got.shape == want.shape
+  assert (got - want).abs().max().item() <= 1e-12 * want.abs().max().item()
+  whole = _f64(_mlp_args(9, d=32, dh=128, b=2))
+  assert all(p is a for p, a in zip(tfb.pad_mlp(*whole), whole))
+
+
+@pytest.mark.parametrize("heads,head_dim,width", [
+    (32, 12, 384),  # heads=32 at UMD-S: 32 heads of 12 run at 16
+    (3, 12, 36), (5, 6, 30),  # the width padded too
+    (3, 32, 384)])  # a tensor rank's 3 of 12 heads of 32: 96 columns
+def test_padded_mha_gives_the_plain_version_at_the_true_widths(
+    heads, head_dim, width):
+  """What `fused_mha_fwd` launches where the width or the head dim is not
+  a multiple of 8: K6's arithmetic on `pad_mha`'s copies at the padded
+  head dim with the true head dim's scale, o cut back. Through the plain
+  version in f64 it equals the plain version at the true shapes within
+  1e-12 of the largest output."""
+  rng = np.random.default_rng(heads + head_dim)
+  hd = heads * head_dim
+  n = lambda *s, std=1.0: torch.from_numpy(rng.standard_normal(s) * std)
+  args = [n(2, 11, width)]
+  for _ in range(3):
+    args += [n(width, hd, std=width**-0.5), n(hd, std=0.1)]
+  args += [n(hd, width, std=hd**-0.5), n(width, std=0.1)]
+  padded = tfb.pad_mha(*args, heads)
+  dm = -(-width // 8) * 8
+  dp = -(-head_dim // 8) * 8
+  assert padded[0].shape == (2, 11, dm)
+  assert padded[1].shape == (dm, heads * dp) and padded[2].shape == (
+      heads * dp,)
+  assert padded[7].shape == (heads * dp, dm) and padded[8].shape == (dm,)
+  if (dm, dp) == (width, head_dim):
+    assert all(p is a for p, a in zip(padded, args))
+  want = tfb.fused_mha_plain(*args, heads)
+  got = tfb.unpad_cols(tfb.fused_mha_plain(*padded, heads,
+                                           scale_dim=head_dim), width)
+  assert got.shape == want.shape
+  assert (got - want).abs().max().item() <= 1e-12 * want.abs().max().item()
 
 
 def _mha_kernel_math(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):

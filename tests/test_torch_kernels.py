@@ -52,7 +52,13 @@ above), where K and V stream through a ring: at 1,024, 1,025 and 4,096
 and 256 from 384 (1 at 256) to 4,096, K4 and K8 too at 256, two launches
 giving the same bits, and 4,097 refused, the limit K4 and K8 share; K3
 and K7 streamed at the resident lengths giving the resident launch's
-bits; head dims 12 and 264 refused by all four wrappers, with no
+bits; head dims that are not multiples of 8 (1, 4, 12 as `heads=32`
+gives at UMD-S's 384, 13), which the wrappers run on heads zero-padded to
+the next multiple of 8, in every attention kernel and K6, against the
+plain versions at the true head dim; K5 and K6 at widths that are not
+multiples of 64 (ViT-mu's 32 -> 128 and 2 heads of 16, SigLIP So400m's
+1,152 -> 4,304, a tensor rank's 96 columns) and not multiples of 8 (36 ->
+150, padded); head dims 264 and 0 refused by all six wrappers, with no
 launch.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
@@ -184,7 +190,8 @@ def test_ln_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 # 80, and 4,096, the limit they share with K4 and K8, also at head dim 256
 # (`heads=3` at width 768; three or four tiles a head stream at every
 # length): (batch, length, head dim), two heads (four for K6 at 80, whose
-# projections take multiples of 64 columns).
+# projections took multiples of 64 columns only before its GEMM took
+# tails).
 LONG_CASES = [(2, 1024, 64), (2, 1025, 64), (1, 1369, 80), (1, 4096, 64),
               (1, 1024, 256), (1, 4096, 256)]
 MAX_ATTN_LEN = 4096
@@ -532,7 +539,11 @@ def _assert_close_to_max(got, want, ulps):
     ((128, 257), 768, 3072),
     ((3, 65), 768, 3072),  # ragged: not a multiple of 64 or 128 rows
     ((4, 257), 1024, 4096),  # width 1,024
-    ((3, 20), 768, 1088)])  # hidden a multiple of 64, not of 128
+    ((3, 20), 768, 1088),  # hidden a multiple of 64, not of 128
+    ((64, 196), 32, 128), ((64, 197), 32, 128),  # ViT-mu: one half stage
+    ((8, 256), 1152, 4304),  # SigLIP So400m: hidden not a multiple of 64
+    ((3, 20), 40, 176),  # multiples of 8 only
+    ((3, 20), 36, 150), ((2, 7), 5, 3)])  # padded to multiples of 8
 def test_fused_mlp_kernel_matches_plain(cuda, rows_shape, d, hidden):
   args = _mlp_args(cuda, rows_shape, d, hidden)
   before = _build.LAUNCHES[fb.MLP_NAME]
@@ -558,12 +569,16 @@ def test_fused_mlp_dispatch_and_refusals(cuda):
   narrow = _mlp_args(cuda, (2, 20), d=256, hidden=1024)
   _assert_close_to_max(fb.fused_mlp_fwd(*narrow), fb.fused_mlp_plain(*narrow),
                        2)
-  with pytest.raises(ValueError, match="width 96 is not a multiple of 64"):
-    fb.fused_mlp_fwd(*_mlp_args(cuda, (2, 20), d=96, hidden=384))
-  with pytest.raises(ValueError,
-                     match="hidden width 100 is not a multiple of 64"):
-    fb.fused_mlp_fwd(x, w1[:, :100].contiguous(), b1[:100].contiguous(),
-                     w2[:100].contiguous(), b2)
+  # A width of 96 (a multiple of 8, not of 64) and a hidden width of 100
+  # (padded to 104) run: K5 takes every width since its GEMM took tails.
+  for args in (_mlp_args(cuda, (2, 20), d=96, hidden=384),
+               (x, w1[:, :100].contiguous(), b1[:100].contiguous(),
+                w2[:100].contiguous(), b2)):
+    _build.reset_launches()
+    got = fb.fused_mlp(*args)
+    assert dict(_build.LAUNCHES) == {fb.MLP_NAME: 1}
+    assert got.shape == args[0].shape and got.is_contiguous()
+    _assert_close_to_max(got, fb.fused_mlp_plain(*args), 2)
   with pytest.raises(ValueError, match="contiguous"):
     fb.fused_mlp_fwd(x.transpose(0, 1), w1, b1, w2, b2)
 
@@ -588,10 +603,13 @@ MAX_LEN = -1  # stands for the kernel's own length limit, known once built
 # K6-K9 at the head dims of the variant tables and the narrow ones, and the
 # wide ones of `heads=4` and `heads=3` at width 768 (192, 256; three and
 # four 64-column tiles) and two with a ragged last tile (136, 200): (head
-# dim, heads), the width heads x head dim a multiple of 64 for K6's GEMM;
-# each at (batch, length) (2, 20), (2, 68), (2, 257) and (1, 260).
+# dim, heads), the width heads x head dim (a multiple of 64 for K6's GEMM
+# before it took tails; 384, 16 and 39 for the last three); each at
+# (batch, length) (2, 20), (2, 68), (2, 257) and (1, 260).
 WIDE_HEADS = ((8, 8), (16, 4), (80, 16), (88, 16), (104, 16), (128, 6),
-              (136, 8), (192, 4), (200, 8), (256, 3))
+              (136, 8), (192, 4), (200, 8), (256, 3),
+              # Not multiples of 8: run on heads zero-padded to 16, 8, 16.
+              (12, 32), (4, 4), (13, 3))
 WIDE_CASES = [(b, l, heads, hd) for hd, heads in WIDE_HEADS
               for b, l in ((2, 20), (2, 68), (2, 257), (1, 260))]
 
@@ -604,6 +622,7 @@ WIDE_CASES = [(b, l, heads, hd) for hd, heads in WIDE_HEADS
     (128, 257, 12, 64),
     (3, 65, 12, 64), (3, 200, 12, 64),  # ragged: not a multiple of 16 or 64
     (4, 260, 16, 64),  # width 1,024
+    (64, 197, 2, 16), (64, 196, 2, 16),  # ViT-mu: H*D = 32, under a tile
     (2, MAX_LEN, 2, 64)] + WIDE_CASES + [
         (b, l, 4 if d == 80 else 2, d) for b, l, d in LONG_CASES])
 def test_fused_mha_kernel_matches_plain(cuda, b, l, heads, hd):
@@ -642,20 +661,50 @@ def test_fused_mha_kernel_non_square_matches_plain(cuda, b, l, width, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,l,width,heads,head_dim", [
+    (64, 260, 384, 3, 32),  # a tensor rank's 3 of 12 heads: 96 columns
+    (3, 65, 384, 3, 12), (2, 37, 36, 3, 12)])  # head dim (and width) padded
+def test_fused_mha_kernel_at_narrow_shards_matches_plain(cuda, b, l, width,
+                                                         heads, head_dim):
+  """K6 on (width, heads * head_dim) projections that are not multiples
+  of 64 columns, or whose head dim is not a multiple of 8 (run on heads
+  padded by `pad_mha`), against its plain version; two launches give the
+  same bits."""
+  hd = heads * head_dim
+  args = [_randn((b, l, width), 1, cuda, torch.bfloat16)]
+  for i in range(3):
+    args += [_randn((width, hd), 2 * i + 2, cuda, torch.bfloat16,
+                    width**-0.5),
+             _randn((hd,), 2 * i + 3, cuda, torch.bfloat16, 0.1)]
+  args += [_randn((hd, width), 8, cuda, torch.bfloat16, hd**-0.5),
+           _randn((width,), 9, cuda, torch.bfloat16, 0.1)]
+  got = fb.fused_mha_fwd(*args, heads)
+  assert got.shape == (b, l, width) and got.is_contiguous()
+  _assert_close_to_max(got, fb.fused_mha_plain(*args, heads), 2)
+  assert torch.equal(got, fb.fused_mha_fwd(*args, heads))  # no atomics
+
+
+@pytest.mark.cuda
 def test_fused_mha_refuses_what_the_kernel_does_not_take(cuda):
   args = _mha_args(cuda, 1, 8, 2)
   with pytest.raises(ValueError, match="not num_heads 3 heads"):
     fb.fused_mha_fwd(*args, 3)
   # 16 heads of 12 on (64, 192) projections: a head dim that is not a
-  # multiple of 8.
+  # multiple of 8 runs, on heads padded to 16.
   narrow = [args[0][..., :64].contiguous()]
   for i in range(3):
-    narrow += [_randn((64, 192), i, cuda, torch.bfloat16),
-               _randn((192,), i, cuda, torch.bfloat16)]
-  narrow += [_randn((192, 64), 3, cuda, torch.bfloat16),
-             _randn((64,), 4, cuda, torch.bfloat16)]
-  with pytest.raises(ValueError, match="head dim 12"):
-    fb.fused_mha_fwd(*narrow, 16)
+    narrow += [_randn((64, 192), i, cuda, torch.bfloat16, 0.125),
+               _randn((192,), i, cuda, torch.bfloat16, 0.1)]
+  narrow += [_randn((192, 64), 3, cuda, torch.bfloat16, 192**-0.5),
+             _randn((64,), 4, cuda, torch.bfloat16, 0.1)]
+  _assert_close_to_max(fb.fused_mha_fwd(*narrow, 16),
+                       fb.fused_mha_plain(*narrow, 16), 2)
+  # 2 heads of 264: past the largest head dim.
+  wide = [_randn((1, 8, 528), 5, cuda, torch.bfloat16)] + [
+      torch.zeros(*shape, dtype=torch.bfloat16, device=cuda)
+      for shape in ((528, 528), (528,)) * 4]
+  with pytest.raises(ValueError, match="head dim 264"):
+    fb.fused_mha_fwd(*wide, 2)
   with pytest.raises(ValueError, match="bfloat16"):
     fb.fused_mha_fwd(args[0].float(), *args[1:], 2)
   # 1,024 keys (one head of 64) run, K and V streamed; one past 4,096 is
@@ -835,8 +884,10 @@ def test_unpacked_attention_autograd_and_refusals(cuda):
   attn.fused_attention(q, k, v).backward(do)
   assert dict(_build.LAUNCHES) == {attn.UNPACKED_NAME: 1,
                                    attn.UNPACKED_BWD_NAME: 1}
-  bad = torch.zeros(1, 8, 2, 12, dtype=torch.bfloat16, device=cuda)
-  with pytest.raises(ValueError, match="head dim 12"):
+  # Head dim 12 runs (on heads padded to 16, `WIDE_HEADS`); 264 is past
+  # the largest.
+  bad = torch.zeros(1, 8, 2, 264, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="head dim 264"):
     attn.attention_unpacked_fwd(bad, bad, bad)
   # K8 takes its limit (4,096: shared memory does not grow with L) and
   # refuses one more.
@@ -1140,7 +1191,9 @@ def test_ln_bwd_kernel_at_new_widths_on_two_streams(cuda, d):
 
 
 HEAD_DIMS = (8, 16, 24, 40, 72, 80, 96, 104, 120, 128, 136, 192, 200, 248,
-             256)
+             256,
+             # Not multiples of 8: on heads zero-padded to 8, 8, 16, 16, 256.
+             1, 4, 12, 13, 250)
 
 
 @pytest.mark.cuda
@@ -1277,11 +1330,12 @@ def _max_shift_at_limits(cuda, l, hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,heads", [(12, 16), (264, 8)])
+@pytest.mark.parametrize("hd,heads", [(264, 8), (0, 8)])
 def test_max_shift_wrappers_refuse_head_dims_they_do_not_take(cuda, hd,
                                                               heads):
-  """A head dim that is not a multiple of 8 or is over 256 makes each of
-  K6-K9's wrappers raise on the card: no plain route, no CPU."""
+  """A head dim over 256, or of 0, makes each of K6-K9's wrappers raise on
+  the card: no plain route, no CPU. (Head dims that are not multiples of 8
+  run: `WIDE_HEADS`, `HEAD_DIMS`.)"""
   width = heads * hd
   t4 = torch.zeros(1, 20, heads, hd, dtype=torch.bfloat16, device=cuda)
   t3 = t4.reshape(1, 20, width)

@@ -18,8 +18,9 @@ and "flax".
   - "xla" and "flax": the forward and the gradients against the JAX model
     under the same setting (XLA ops there; matmuls and a softmax here).
   - Head dim 128 (the `heads` knob's shape): the forward against JAX; head
-    dim 192 (`heads=4`'s) under "pallas" and "pallas_fused": the forward
-    and the gradients against JAX's interpreted kernels.
+    dims 192 (`heads=4`'s) and 12 (`heads=32`'s at UMD-S, which the card
+    runs on heads zero-padded to 16) under "pallas" and "pallas_fused":
+    the forward and the gradients against JAX's interpreted kernels.
 The training step under `scan=True` and with dropout, and a `scan=True`
 run resumed, are in tests/test_torch_model_settings_step.py.
 """
@@ -57,7 +58,8 @@ def small(extra="", dtype="float32", **model):
     "runlocal,scan=True", "attn_impl=xla", "attn_impl=flax",
     "variant=L/2,size=256,latent_diffusion=True,scan=True",
     "heads=6,scan=True,attn_impl=pallas_fused", "heads=4", "heads=3",
-    "heads=4,attn_impl=pallas_fused"])
+    "heads=4,attn_impl=pallas_fused", "variant=S/4,heads=32",
+    "variant=S/4,heads=32,attn_impl=pallas_fused"])
 def test_config_dicts_match_jax(arg):
   arg = f"data=synthetic,{arg}"
   got, want = ae_i1k.get_config(arg), jconfig.get_config(arg)
@@ -288,6 +290,30 @@ def test_head_dim_192_step_matches_jax(attn_impl):
   rng = np.random.default_rng(5)
   image = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
   t = np.array([3, 800], np.int32)
+  want_pred, want = _jax_grads(config, params, image, t, jax_model)
+  pred, got = _grads(config, params, image, t)
+  _close(pred.numpy(), want_pred, 1e-5)
+  top = max(np.max(np.abs(np.asarray(w))) for w in want.values())
+  for name, w in want.items():
+    w = np.asarray(w)
+    g = got[name].numpy() if got[name] is not None else np.zeros_like(w)
+    err = np.max(np.abs(g - w))
+    assert err <= max(1e-4 * np.max(np.abs(w)), 1e-6 * top), (name, err)
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "pallas_fused"])
+def test_head_dim_12_step_matches_jax(attn_impl):
+  """Width 96 in 8 heads of 12 (the head dim `heads=32` gives at UMD-S's
+  384; the card's wrappers run it on heads zero-padded to 16), depth
+  2 + 1, under `attn_impl` (the plain K1-K6 here) against the JAX model
+  under its `*_interpret` setting: the forward and every parameter's
+  gradient of a mean-square loss in f32, with
+  test_reference_attentions_match_jax's bounds."""
+  config = small(attn_impl=attn_impl, width=96, num_heads=8)
+  params = convert.init_params(config, seed=10)
+  rng = np.random.default_rng(6)
+  image = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+  t = np.array([4, 900], np.int32)
   want_pred, want = _jax_grads(config, params, image, t, jax_model)
   pred, got = _grads(config, params, image, t)
   _close(pred.numpy(), want_pred, 1e-5)
