@@ -488,12 +488,13 @@ def phase_build(build):
   print(f"[build] {len(libs)} kernel libraries ({', '.join(sorted(libs))}) "
         f"built in {time.perf_counter() - t0:.2f} s", flush=True)
   # ptxas's report of the attention kernels at three and four 64-column
-  # tiles a head (head dims 136 to 256); the build refuses a library with
-  # wgmma products serialised for a divergent path (C7520).
+  # tiles a head (head dims 136 to 256) and past four (the wide kernels);
+  # the build refuses a library with wgmma products serialised for a
+  # divergent path (C7520).
   for stem in sorted(libs):
     for name, r in build.ptxas_report(build.build_log(stem)).items():
       kernel = _kernel_instance(name)
-      if kernel and kernel[1] >= 3:
+      if kernel and (kernel[1] is None or kernel[1] >= 3):
         print(f"[build] {stem}: {kernel[0]}: {r['registers']} registers, "
               f"spill stores {r['spill_stores']} B, loads "
               f"{r['spill_loads']} B, notes {r['notes'] or 'none'}",
@@ -502,8 +503,16 @@ def phase_build(build):
 
 def _kernel_instance(mangled):
   """(readable name, tiles a head) of an attention kernel's mangled name,
-  its template's last int argument being the 64-column tiles of a head;
-  None for other kernels."""
+  its template's last int argument being the 64-column tiles of a head
+  (None for the wide-head kernels, which take any count past four); None
+  for other kernels."""
+  wide = re.search(r"\d+((?:attn|attention|fused_mha)[a-z_]*_wide[a-z_]*)"
+                   r"(?:IN4sm90(\d+)|ILb(\d)E)?", mangled)
+  if wide:  # a policy's name is as long as its length prefix says
+    n = int(wide.group(2) or 0)
+    arg = (mangled[wide.end():wide.end() + n] if n else
+           {"0": "false", "1": "true"}.get(wide.group(3)))
+    return (f"{wide.group(1)}<{arg}>" if arg else wide.group(1)), None
   m = re.search(r"\d+((?:attn|attention|fused_mha)[a-z_0-9]*?)I("
                 r"(?:N4sm90\d+\w+?E)?(?:L[ib]\d+E)+)E", mangled)
   if not m:
@@ -522,6 +531,19 @@ def _bound(bytes_moved, ops, peak):
   bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
   ops_ms = ops / peak * 1e3
   return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def sdpa_backend(q, k, v):
+  """The backend that `scaled_dot_product_attention`'s dispatcher picks for
+  q, k, v, as `torch._fused_sdp_choice` reports it (flash takes head dims
+  up to 256 only): "flash_attention", "efficient_attention", "math",
+  "cudnn_attention", or "unknown" where this PyTorch has no such query."""
+  choice = getattr(torch, "_fused_sdp_choice", None)
+  if choice is None:
+    return "unknown"
+  from torch.nn.attention import SDPBackend
+  names = {int(b): n.lower() for n, b in SDPBackend.__members__.items()}
+  return names.get(int(choice(q, k, v)), "unknown")
 
 
 def model_shapes(train_batch):
@@ -649,6 +671,7 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
         library_ms=time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 split(q), split(k), split(v)), iters=200),
+        library_backend=sdpa_backend(split(q), split(k), split(v)),
         bound_ms=bound_ms, bound_by=bound_by)
     print(f"[kernels] attention_packed_fwd B={b} L={seq} H={heads} "
           f"D={head_dim}: {_fmt(entry)} (sdpa as library) on {card}",
@@ -819,13 +842,16 @@ def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
       fail(f"attention_packed_bwd B={b} L={seq} H={heads}: two launches "
            "differ")
     worst, bad = 0.0, 0
+    top = max(w.float().abs().max().item() for w in want)
     for g, w in zip(got, want):
       # bf16 outputs of f32 sums over L; a sum in another order may flip
       # the bf16 rounding of an e, dO*r or dS input of a product: a few
-      # bf16 ulps of the largest output.
+      # bf16 ulps of the largest output. dq and dk vanish at L = 1 (one
+      # key: dS is 0 but for roundings), so each output's scale is floored
+      # at 1e-3 of the largest of the three, as in the card tests.
       e = (g.float() - w.float()).abs().max().item()
       worst = max(worst, e)
-      bad += int(e > 2.0**-6 * w.float().abs().max().item())
+      bad += int(e > 2.0**-6 * max(w.float().abs().max().item(), 1e-3 * top))
     max_err = max(max_err, worst)
     print(f"[kernels] attention_packed_bwd B={b} L={seq} H={heads}: max "
           f"abs err {worst:.3e}, {bad} outputs over tolerance, two launches "
@@ -847,6 +873,7 @@ def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
             q, k, v, do, heads), iters=5),
         library_ms=time_ms(lambda: torch.autograd.grad(
             o, (qs, ks, vs), dos, retain_graph=True)),
+        library_backend=sdpa_backend(qs, ks, vs),
         bound_ms=bound_ms, bound_by=bound_by)
     print(f"[kernels] attention_packed_bwd B={b} L={seq} H={heads} "
           f"D={head_dim}: " + ", ".join(
@@ -1025,6 +1052,8 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
         plain_ms=time_ms(lambda: fb.fused_mha_plain(*args), iters=3,
                          warmup=1),
         library_ms=time_ms(library, iters=20),
+        library_backend=sdpa_backend(
+            *[x.new_empty(b, seq, heads, head_dim).transpose(1, 2)] * 3),
         bound_ms=bound_ms, bound_by=bound_by)
     # The three launches of one call, each timed alone.
     stages = fb.fused_mha_stages(*args)
@@ -1090,6 +1119,8 @@ def check_attention_unpacked(attn, card, width=WIDTH, heads=HEADS,
         library_ms=time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 heads_first(q), heads_first(k), heads_first(v))),
+        library_backend=sdpa_backend(heads_first(q), heads_first(k),
+                                     heads_first(v)),
         bound_ms=bound_ms, bound_by=bound_by)
     print(f"[kernels] attention_unpacked_fwd B={b} L={seq} H={heads} "
           f"D={head_dim}: {_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} "
@@ -1132,13 +1163,15 @@ def check_attention_unpacked_bwd(attn, card, width=WIDTH, heads=HEADS,
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
       fail(f"attention_unpacked_bwd B={b} L={seq}: two launches differ")
     worst, bad = 0.0, 0
+    top = max(w.float().abs().max().item() for w in want)
     for g, w in zip(got, want):
       # bf16 outputs of f32 sums over L; a sum in another order may flip
       # the bf16 rounding of a P or dS input of a product: a few bf16 ulps
-      # of the largest output.
+      # of the largest output, floored at 1e-3 of the largest of the three
+      # (dq and dk vanish at L = 1), as in check_attention_bwd.
       e = (g.float() - w.float()).abs().max().item()
       worst = max(worst, e)
-      bad += int(e > 2.0**-6 * w.float().abs().max().item())
+      bad += int(e > 2.0**-6 * max(w.float().abs().max().item(), 1e-3 * top))
     max_err = max(max_err, worst)
     print(f"[kernels] attention_unpacked_bwd B={b} L={seq} H={heads} "
           f"D={head_dim}: max abs err {worst:.3e}, {bad} outputs over "
@@ -1160,6 +1193,7 @@ def check_attention_unpacked_bwd(attn, card, width=WIDTH, heads=HEADS,
                          iters=5),
         library_ms=time_ms(lambda: torch.autograd.grad(
             o, (qs, ks, vs), dos, retain_graph=True)),
+        library_backend=sdpa_backend(qs, ks, vs),
         bound_ms=bound_ms, bound_by=bound_by)
     # The two kernels of one call, each timed alone ("dkdv" reads the m, r,
     # c that "dq" wrote in its warm-up).
@@ -1191,9 +1225,10 @@ ABLATE_ULPS = {"prod": 2, "nosoftmax": 2, "nomm": 0.5, "bf16exp": 4,
 
 def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
                            shapes=ABLATE_SHAPES, timed=True,
-                           timed_shapes=ABLATE_SHAPES):
-  """K9, all seven arms on (B, L, width) with `heads` heads at `shapes`,
-  against its plain version, two launches of each giving equal bits; where
+                           timed_shapes=ABLATE_SHAPES, arms=None):
+  """K9, all seven arms (or `arms`) on (B, L, width) with `heads` heads at
+  `shapes`, against its plain version, two launches of each giving equal
+  bits; where
   `timed`, each arm timed at those of `timed_shapes` (by default the
   tool's two shapes, ABLATE_SHAPES). Returns its kernels-line entry (times
   of `prod` at L = 257, or at the first timed shape, on top, every arm's
@@ -1208,8 +1243,8 @@ def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
                for _ in range(3))
     split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
     timing = timed and (b, seq) in timed_shapes
-    arms = {}
-    for arm in attn.ABLATE_VARIANTS:
+    timings = {}
+    for arm in arms or attn.ABLATE_VARIANTS:
       got = attn.attention_ablate_fwd(q, k, v, heads, arm)
       again = attn.attention_ablate_fwd(q, k, v, heads, arm)
       want = attn.attention_ablate_plain(q, k, v, heads, arm)
@@ -1219,7 +1254,7 @@ def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
       err, ok = _close_to_max(got, want, ABLATE_ULPS[arm])
       max_err = max(max_err, err)
       if timing:
-        arms[arm] = dict(
+        timings[arm] = dict(
             ms=time_ms(lambda: attn.attention_ablate_fwd(q, k, v, heads, arm),
                        iters=20),
             plain_ms=time_ms(lambda: attn.attention_ablate_plain(
@@ -1229,7 +1264,7 @@ def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
             f"D={head_dim}: max abs err {err:.3e} of max "
             f"{want.float().abs().max().item():.3e} (tolerance "
             f"{ABLATE_ULPS[arm]} bf16 ulps of the max), two launches equal"
-            + (f"; {_fmt(arms[arm])}" if timing else ""), flush=True)
+            + (f"; {_fmt(timings[arm])}" if timing else ""), flush=True)
       if not ok:
         fail(f"attention_ablate {arm} L={seq} disagrees with its plain "
              f"version ({err:.3e})")
@@ -1241,11 +1276,14 @@ def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
     library_ms = time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             split(q), split(k), split(v)), iters=20)
-    by_shape[f"{b}x{seq}"] = dict(arms=arms, library_ms=library_ms,
+    backend = sdpa_backend(split(q), split(k), split(v))
+    by_shape[f"{b}x{seq}"] = dict(arms=timings, library_ms=library_ms,
+                                  library_backend=backend,
                                   bound_ms=bound_ms, bound_by=bound_by)
     print(f"[kernels] attention_ablate B={b} L={seq} H={heads} D={head_dim}: "
-          f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bytes_moved} "
-          f"bytes, {flops} flops); L up to {max_len} on {card}", flush=True)
+          f"sdpa ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bytes_moved} bytes, {flops} flops); L up to {max_len} on "
+          f"{card}", flush=True)
   entry = dict(name=attn.ABLATE_NAME, route="cuda",
                source="small_vision_tpu_torch/csrc/attention_ablate.cu",
                replaces="scripts/ablate_attention_kernel.py:46",
@@ -1254,7 +1292,9 @@ def check_attention_ablate(attn, card, width=WIDTH, heads=HEADS,
     top = by_shape.get("128x257") or next(iter(by_shape.values()))
     entry.update(ms=top["arms"]["prod"]["ms"],
                  plain_ms=top["arms"]["prod"]["plain_ms"],
-                 library_ms=top["library_ms"], bound_ms=top["bound_ms"],
+                 library_ms=top["library_ms"],
+                 library_backend=top["library_backend"],
+                 bound_ms=top["bound_ms"],
                  bound_by=top["bound_by"], by_shape=by_shape)
   return entry
 
@@ -1307,6 +1347,56 @@ LONG_ATTENTION = ((1024, 16, ((BATCH, 1024), (BATCH, 1025))),
                   (WIDTH, HEADS, ((4, 4096),)))
 
 
+# Every attention kernel past head dim 256, the kernels' wide path (phase
+# kernels): (head dim, heads, timed). `heads=2`'s 384 and `heads=1`'s 768
+# at width 768, timed at the sampler's (64, 260) and the decoder's training
+# shape (128, 257) beside bound and SDPA (its efficient or math backend:
+# flash takes head dims up to 256), checked at (128, 68) and (128, 164);
+# 264 (a ragged fifth 64-column tile), 520 (a ragged ninth), 1,024 (UMD-L's
+# width in one head), 1,664 (ViT-G's) and 2,048 (the limit), in two heads,
+# checked at WIDER_CHECK_SHAPES. K9's seven arms at 520, its prod and exp2
+# arms at the others.
+WIDER_HEAD_DIMS = ((384, 2, True), (768, 1, True), (264, 2, False),
+                   (520, 2, False), (1024, 2, False), (1664, 2, False),
+                   (2048, 2, False))
+WIDER_TIMED = ((BATCH, SEQ_ENC), (TRAIN_BATCH // 2, TRAIN_SEQS[-1]))
+WIDER_CHECKED = tuple((TRAIN_BATCH // 2, l) for l in TRAIN_SEQS[:-1])
+WIDER_CHECK_SHAPES = ((4, 65), (2, 257))
+# One head of 1,024 and one of 2,048 at batch 1 from one key to the limit,
+# every attention kernel, checked: (head dim, lengths).
+WIDER_LONG = ((1024, (1, 65, 1024, 4096)), (2048, (1, 65, 1024, 4096)))
+
+
+def _wide_head_entries(attn, fb, card, width, heads, timed_shapes,
+                       checked_shapes, arms):
+  """{kernel name: its kernels-line entry} of K3, K4, K6, K7, K8 and K9
+  (`arms`, None for all seven) at `heads` heads of width // heads: timed
+  at `timed_shapes` beside bound and library, and checked against the
+  plain versions, two launches equal, there and at `checked_shapes`."""
+  names = (attn.NAME, attn.BWD_NAME, fb.MHA_NAME, attn.UNPACKED_NAME,
+           attn.UNPACKED_BWD_NAME, attn.ABLATE_NAME)
+  out = {}
+  for shapes, timed in ((timed_shapes, True), (checked_shapes, False)):
+    if not shapes:
+      continue
+    entries = (
+        check_attention(attn, card, width, heads, timed=timed,
+                        shapes=shapes),
+        check_attention_bwd(attn, card, width, heads, timed=timed,
+                            shapes=shapes),
+        check_fused_mha(fb, card, width, heads, shapes, timed=timed),
+        check_attention_unpacked(attn, card, width, heads, shapes, timed),
+        check_attention_unpacked_bwd(attn, card, width, heads, shapes,
+                                     timed),
+        check_attention_ablate(attn, card, width, heads, shapes, timed,
+                               timed_shapes=shapes, arms=arms))
+    for name, entry in zip(names, entries):
+      got = out.setdefault(name, {})
+      err = max(got.get("max_abs_err", 0.0), entry["max_abs_err"])
+      got.update(entry, max_abs_err=err)
+  return out
+
+
 def _attention_wrappers(attn, fb, head_dim, heads):
   """(name, a call of that wrapper on zeros of `heads` heads of
   `head_dim`) for each of K3, K4 and K6-K9."""
@@ -1329,12 +1419,12 @@ def _attention_wrappers(attn, fb, head_dim, heads):
 
 
 def check_refused_head_dims(attn, fb, build):
-  """A head dim of 264 and of 0 must make each of K3, K4 and K6-K9's
+  """A head dim of 2,056 and of 0 must make each of K3, K4 and K6-K9's
   wrappers raise ValueError, with no launch and no CPU run; one of 12
   (`heads=32` at UMD-S's 384, run on heads zero-padded to 16) must launch
   each of their kernels once."""
   build.reset_launches()
-  for head_dim, heads in ((264, 8), (0, 8)):
+  for head_dim, heads in ((2056, 1), (0, 8)):
     for name, fn in _attention_wrappers(attn, fb, head_dim, heads):
       try:
         fn()
@@ -1352,7 +1442,7 @@ def check_refused_head_dims(attn, fb, build):
   if dict(build.LAUNCHES) != {name: 1 for name, _ in taken}:
     fail(f"head dim 12 launched {dict(build.LAUNCHES)}, not each kernel "
          "once")
-  print("[kernels] K3, K4, K6, K7, K8 and K9 refuse head dims 264 and 0 "
+  print("[kernels] K3, K4, K6, K7, K8 and K9 refuse head dims 2,056 and 0 "
         "(ValueError, no launch) and take 12 (one launch each)", flush=True)
 
 
@@ -3462,9 +3552,11 @@ def phase_settings(build, card):
 # ---------------------------------------------------------------------------
 # Phase heads: UMD-B/4@64 at full width under `heads=4` (4 heads of 192)
 # and `heads=3` (3 heads of 256), whose heads are three and four 64-column
-# tiles in every attention kernel.
+# tiles in every attention kernel, and under `heads=2` (2 heads of 384) and
+# `heads=1` (one of 768), six and twelve tiles: the kernels' wide path (S
+# summed over the tiles in a loop, the outputs' columns split across CTAs).
 
-HEADS_SETTINGS = (4, 3)
+HEADS_SETTINGS = (4, 3, 2, 1)
 
 
 def phase_heads(build, card):
@@ -4707,6 +4799,19 @@ def main():
           attn, card, width, heads, shapes=shapes, timed=False)}
   more["width_1024_4x256"] = {fb.MHA_NAME: check_fused_mha(
       fb, card, L2_WIDTH, 4, FUSED_SHAPES[:1], timed=False)}
+  mark("kernels at the long lengths")
+  # Past head dim 256: "head_dim_<D>" (WIDER_HEAD_DIMS) and "long_1x<D>"
+  # (WIDER_LONG) in the kernels line.
+  for head_dim, heads, timed in WIDER_HEAD_DIMS:
+    more[f"head_dim_{head_dim}"] = _wide_head_entries(
+        attn, fb, card, heads * head_dim, heads,
+        WIDER_TIMED if timed else (),
+        WIDER_CHECKED if timed else WIDER_CHECK_SHAPES,
+        None if head_dim == 520 else ("prod", "exp2"))
+  for head_dim, lens in WIDER_LONG:
+    more[f"long_1x{head_dim}"] = _wide_head_entries(
+        attn, fb, card, head_dim, 1, (), tuple((1, l) for l in lens),
+        ("prod", "exp2"))
   gc.collect()
   torch.cuda.empty_cache()  # the plain versions' (B, H, L, L) scores
   check_refused_head_dims(attn, fb, build)

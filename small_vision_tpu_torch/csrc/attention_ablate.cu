@@ -1,6 +1,6 @@
 // Packed (B, L, H*D) bf16 attention under one of seven softmax / matmul
 // arms, forward only, for Hopper (sm_90a), at any head dim D that is a
-// multiple of 8 up to 256: the ablation kernel that tells where the time
+// multiple of 8 up to 2,048: the ablation kernel that tells where the time
 // of the attention core goes that K6 and K7 run.
 //
 // Replaces: scripts/ablate_attention_kernel.py::_kernel_variant (reached via
@@ -32,7 +32,8 @@
 // Design: each arm is a softmax policy of the max-shift attention core of
 // sm90_attention.cuh (wgmma products, K and V resident in 64-row TMA
 // tiles or, for long heads, streamed through a ring of them, each pass
-// walking the keys again; a head one to four 64-column tiles, two passes;
+// walking the keys again; a head one to four 64-column tiles, or past 256
+// the core's wide path; two passes;
 // the scale is f32(D**-0.5), as the TPU kernel rounds it), one change from
 // its production policy, so the tool measures that core. exp2 is the
 // production instantiation itself (K6, K7); prod differs from it by expf
@@ -69,6 +70,16 @@ attention_ablate_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 template <class P>
+__global__ void __launch_bounds__(128, 2)
+attention_ablate_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const sm90::AttnArgs a, int chunk_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  sm90::attention_wide<P>(smem_raw, &tm_q, &tm_k, &tm_v, a, chunk_tiles);
+}
+
+template <class P>
 int launch(const CUtensorMap (&tm)[3], const sm90::AttnArgs& args, int batch,
            int num_heads, cudaStream_t stream) {
   using Kernel = decltype(&attention_ablate_kernel<P, 1, 1, false>);
@@ -85,8 +96,10 @@ int launch(const CUtensorMap (&tm)[3], const sm90::AttnArgs& args, int batch,
       {attention_ablate_kernel<P, 2, 4, true>,
        attention_ablate_kernel<P, 2, 4, true>,
        attention_ablate_kernel<P, 2, 4, true>}};
-  return sm90_host::launch_attention<P>(kernels, tm[0], tm[1], tm[2], args,
-                                        batch, num_heads, stream);
+  return sm90_host::launch_attention<P>(kernels,
+                                        attention_ablate_wide_kernel<P>,
+                                        tm[0], tm[1], tm[2], args, batch,
+                                        num_heads, stream);
 }
 
 }  // namespace
@@ -103,7 +116,7 @@ extern "C" int attention_ablate_max_len(int head_dim) {
 }
 
 // q, k, v, o: (B, L, H*D) bf16, contiguous, 16-byte aligned; D a multiple
-// of 8 up to 256, L up to 4,096. scale = D**-0.5 in f32. variant: 0 prod,
+// of 8 up to 2,048, L up to 4,096. scale = D**-0.5 in f32. variant: 0 prod,
 // 1 nosoftmax, 2 nomm, 3 bf16exp, 4 exp2, 5 mulmask, 6 nomax. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for an unknown variant, a
 // head dim or a length past the limits or a tensor map that cannot be

@@ -1,5 +1,5 @@
 // Bidirectional attention on packed (B, L, H*D) bf16 tensors, forward, for
-// Hopper (sm_90a), at any head dim D that is a multiple of 8 up to 256.
+// Hopper (sm_90a), at any head dim D that is a multiple of 8 up to 2,048.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_kernel_packed (reached
 // via pallas_attention_packed / fused_attention_packed). Per (batch, head):
@@ -123,15 +123,29 @@
 // allows (ptxas's report: the build log). The arithmetic and the order of
 // the sums are D <= 128's: the same function of the plain version.
 
+// Heads past four tiles (256 < D <= 2,048; `heads=2` at width 768 is D =
+// 384, `heads=1` 768) run the wide path of the max-shift core
+// (sm90_attention.cuh's attention_wide, its design and costs there) under
+// this kernel's softmax as a policy, sm90::ClampExp2: e = exp2 of the
+// clamped log2-scaled score, masked past L, summed unrounded over the row
+// in the one pass that also forms O += bf16(e) V, and O divided by the sum
+// at the store. A head's S is summed over its nd column tiles through a
+// ring of 16 KB tile pairs (Q's and K's tile c), and O's columns are split
+// four tiles a CTA, each chunk recomputing S and e (2 chunks at D = 384, 3
+// at 768, 8 at 2,048): every chunk's S, e and sums are the same bits, so
+// the chunk count changes no output bit (`attention_packed_fwd_chunked`).
+// Shared memory 97 KB a CTA at every D, two CTAs an SM; O 128 registers a
+// thread beside S 32 and e 16.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sm90.cuh"
+#include "sm90_attention.cuh"
 
 namespace {
 
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxHeadDim = 2048;
 constexpr int kMaxLen = 4096;
 constexpr int kTile = sm90::kTileRows;
 constexpr int kTileBytes = sm90::kTileBytes;
@@ -422,6 +436,17 @@ attention_packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// Heads past four tiles: the wide core under K3's softmax.
+__global__ void __launch_bounds__(128, 2)
+attention_packed_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const sm90::AttnArgs a, int chunk_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  sm90::attention_wide<sm90::ClampExp2>(smem_raw, &tm_q, &tm_k, &tm_v, a,
+                                        chunk_tiles);
+}
+
 template <int kGroups, int NT, bool kStream>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, void* o, int batch, int seq_len,
@@ -473,7 +498,7 @@ cudaError_t launch_nt(const CUtensorMap& tq, const CUtensorMap& tk,
 
 int run(const void* q, const void* k, const void* v, void* o, int batch,
         int seq_len, int num_heads, int head_dim, float scale_log2,
-        bool stream, void* stream_ptr) {
+        bool stream, int chunk_tiles, void* stream_ptr) {
   if (head_dim < 8 || head_dim > kMaxHeadDim || head_dim % 8 != 0 ||
       seq_len > kMaxLen) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -488,6 +513,14 @@ int run(const void* q, const void* k, const void* v, void* o, int batch,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if ((head_dim + 63) / 64 > 4) {
+    const sm90::AttnArgs args{0, 0, 0, static_cast<__nv_bfloat16*>(o),
+                              num_heads * head_dim, seq_len, head_dim,
+                              scale_log2};
+    return sm90_host::launch_attention_wide<sm90::ClampExp2>(
+        attention_packed_wide_kernel, tq, tk, tv, args, batch, num_heads, s,
+        chunk_tiles);
+  }
   cudaError_t (*const by_tiles[4])(const CUtensorMap&, const CUtensorMap&,
                                    const CUtensorMap&, void*, int, int, int,
                                    int, float, bool, cudaStream_t) = {
@@ -509,7 +542,7 @@ extern "C" int attention_packed_max_head_dim() { return kMaxHeadDim; }
 extern "C" int attention_packed_max_len(int) { return kMaxLen; }
 
 // q, k, v, o: (B, L, H*head_dim) bf16, contiguous, 16-byte aligned;
-// head_dim a multiple of 8 up to 256, L up to 4,096. scale_log2 =
+// head_dim a multiple of 8 up to 2,048, L up to 4,096. scale_log2 =
 // head_dim**-0.5 * log2(e) in f32. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a head dim or length past the limits or a
 // tensor map that cannot be encoded.
@@ -518,7 +551,7 @@ extern "C" int attention_packed_fwd(const void* q, const void* k,
                                     int seq_len, int num_heads, int head_dim,
                                     float scale_log2, void* stream) {
   return run(q, k, v, o, batch, seq_len, num_heads, head_dim, scale_log2,
-             false, stream);
+             false, sm90::kWideTiles, stream);
 }
 
 // attention_packed_fwd with K and V streamed at every length, also where
@@ -529,5 +562,18 @@ extern "C" int attention_packed_fwd_streamed(const void* q, const void* k,
                                              int num_heads, int head_dim,
                                              float scale_log2, void* stream) {
   return run(q, k, v, o, batch, seq_len, num_heads, head_dim, scale_log2,
-             true, stream);
+             true, sm90::kWideTiles, stream);
+}
+
+// attention_packed_fwd with `chunk_tiles` (1 to 4) of O's 64-column tiles
+// a CTA past head dim 256, not 4 (for tests: every chunk count gives the
+// same bits).
+extern "C" int attention_packed_fwd_chunked(const void* q, const void* k,
+                                            const void* v, void* o,
+                                            int batch, int seq_len,
+                                            int num_heads, int head_dim,
+                                            float scale_log2,
+                                            int chunk_tiles, void* stream) {
+  return run(q, k, v, o, batch, seq_len, num_heads, head_dim, scale_log2,
+             false, chunk_tiles, stream);
 }

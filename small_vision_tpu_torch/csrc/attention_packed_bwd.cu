@@ -1,5 +1,6 @@
 // Bidirectional attention on packed (B, L, H*D) bf16 tensors, backward,
-// for Hopper (sm_90a), at any head dim D that is a multiple of 8 up to 256.
+// for Hopper (sm_90a), at any head dim D that is a multiple of 8 up to
+// 2,048.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_bwd_kernel_packed
 // (reached via _pallas_attention_packed_bwd_impl, the custom VJP of
@@ -109,16 +110,25 @@
 // every sum are (b)'s: each output element still comes from one
 // accumulator in a fixed order, no atomics, the same bits launch to launch.
 // The kernels at NT <= 2 are unchanged.
+//
+// Past four tiles (256 < D <= 2,048: `heads=2` at width 768 is D = 384,
+// `heads=1` 768) the head no longer fits a CTA, and the backward runs the
+// wide kernels of sm90_attention_bwd.cuh (their design and costs there)
+// under this file's softmax (kShift false): (r) the row statistics r and
+// c, (a) dQ four column tiles a CTA, (b) dK and dV two each; every operand
+// streams through a ring of 16 KB tile pairs, the contractions over D in a
+// loop of run-time length, and each chunk recomputes S and dP. The
+// formulas and rounding points are the ones above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sm90.cuh"
+#include "sm90_attention_bwd.cuh"
 
 namespace {
 
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxHeadDim = 2048;
 constexpr int kTile = sm90::kTileRows;
 constexpr int kTileBytes = sm90::kTileBytes;
 constexpr int kStages = 2;
@@ -752,19 +762,12 @@ extern "C" int attention_packed_bwd_max_len() { return kMaxLen; }
 // Largest head dim the kernels take; any multiple of 8 up to it.
 extern "C" int attention_packed_bwd_max_head_dim() { return kMaxHeadDim; }
 
-// q, k, v, dout, dq, dk, dv: (B, L, H*head_dim) bf16, contiguous, 16-byte
-// aligned; head_dim a multiple of 8 up to 256. r, c: (B, H, L) f32 scratch
-// that kernel (a) fills and (b) reads. scale_log2 = head_dim**-0.5 *
-// log2(e) and scale = head_dim**-0.5, in f32. Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for a head dim or length past the limits or a
-// tensor map the driver refuses.
-extern "C" int attention_packed_bwd(const void* q, const void* k,
-                                    const void* v, const void* dout,
-                                    void* dq, void* dk, void* dv, void* r,
-                                    void* c, int batch, int seq_len,
-                                    int num_heads, int head_dim,
-                                    float scale_log2, float scale,
-                                    void* stream) {
+namespace {
+
+int run(const void* q, const void* k, const void* v, const void* dout,
+        void* dq, void* dk, void* dv, void* r, void* c, int batch,
+        int seq_len, int num_heads, int head_dim, float scale_log2,
+        float scale, int chunk_tiles, void* stream) {
   if (seq_len > kMaxLen || head_dim < 8 || head_dim > kMaxHeadDim ||
       head_dim % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -783,6 +786,16 @@ extern "C" int attention_packed_bwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* rf = static_cast<float*>(r);
   auto* cf = static_cast<float*>(c);
+  if ((head_dim + 63) / 64 > 4) {
+    const CUtensorMap tm[4] = {tq, tk, tv, tdo};
+    const sm90::BwdArgs args{static_cast<__nv_bfloat16*>(dq),
+                             static_cast<__nv_bfloat16*>(dk),
+                             static_cast<__nv_bfloat16*>(dv),
+                             nullptr, rf, cf, seq_len, num_heads, head_dim,
+                             scale_log2, scale, 0};
+    return static_cast<int>(sm90_host::launch_attention_bwd_wide<false>(
+        tm, args, batch, -1, chunk_tiles, s));
+  }
   cudaError_t (*const by_tiles[4])(
       const CUtensorMap&, const CUtensorMap&, const CUtensorMap&,
       const CUtensorMap&, void*, void*, void*, float*, float*, int, int, int,
@@ -792,4 +805,35 @@ extern "C" int attention_packed_bwd(const void* q, const void* k,
       tq, tk, tv, tdo, dq, dk, dv, rf, cf, batch, seq_len, num_heads,
       head_dim, scale_log2, scale, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// q, k, v, dout, dq, dk, dv: (B, L, H*head_dim) bf16, contiguous, 16-byte
+// aligned; head_dim a multiple of 8 up to 2,048. r, c: (B, H, L) f32
+// scratch that kernel (a) fills ((r) past four tiles a head) and (b)
+// reads. scale_log2 = head_dim**-0.5 * log2(e) and scale = head_dim**-0.5,
+// in f32. Returns cudaGetLastError(), or cudaErrorInvalidValue for a head
+// dim or length past the limits or a tensor map that cannot be encoded.
+extern "C" int attention_packed_bwd(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    void* dq, void* dk, void* dv, void* r,
+                                    void* c, int batch, int seq_len,
+                                    int num_heads, int head_dim,
+                                    float scale_log2, float scale,
+                                    void* stream) {
+  return run(q, k, v, dout, dq, dk, dv, r, c, batch, seq_len, num_heads,
+             head_dim, scale_log2, scale, sm90::kBwdDqTiles, stream);
+}
+
+// attention_packed_bwd with at most `chunk_tiles` (from 1) of the outputs'
+// 64-column tiles a CTA past head dim 256 (for tests: every chunk count
+// gives the same bits).
+extern "C" int attention_packed_bwd_chunked(
+    const void* q, const void* k, const void* v, const void* dout, void* dq,
+    void* dk, void* dv, void* r, void* c, int batch, int seq_len,
+    int num_heads, int head_dim, float scale_log2, float scale,
+    int chunk_tiles, void* stream) {
+  return run(q, k, v, dout, dq, dk, dv, r, c, batch, seq_len, num_heads,
+             head_dim, scale_log2, scale, chunk_tiles, stream);
 }

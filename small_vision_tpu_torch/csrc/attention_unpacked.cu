@@ -1,6 +1,6 @@
 // Bidirectional attention on [B, L, H, D] bf16 tensors with the max-shift
 // softmax, forward, for Hopper (sm_90a), at any head dim D that is a
-// multiple of 8 up to 256.
+// multiple of 8 up to 2,048.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_kernel (reached via
 // pallas_attention / fused_attention). Per (batch, head):
@@ -25,7 +25,9 @@
 // sm90_attention.cuh (wgmma products, K and V resident in TMA tiles or,
 // past 320 keys at D <= 64 and 384 up to 128, and at every length above,
 // streamed through a ring of them, up to L = 4,096; a head one to four
-// 64-column tiles) under its production
+// 64-column tiles, or past 256 its wide path, S summed over the head's
+// tiles through a ring of tile pairs and O's columns split across CTAs)
+// under its production
 // softmax, the one K6's attention stage runs: exp becomes exp2 of the
 // log2(e)-scaled score, the same function within two bf16 ulps of the
 // output. The scale is f32(D**-0.5), as the TPU kernel rounds it.
@@ -45,6 +47,18 @@ attention_unpacked_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       smem_raw, &tm_q, &tm_k, &tm_v, a);
 }
 
+// Head dims past 256 (sm90::attention_wide): O's `chunk_tiles` column
+// tiles a CTA.
+__global__ void __launch_bounds__(128, 2)
+attention_unpacked_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const sm90::AttnArgs a, int chunk_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  sm90::attention_wide<sm90::SoftmaxExp2>(smem_raw, &tm_q, &tm_k, &tm_v, a,
+                                          chunk_tiles);
+}
+
 }  // namespace
 
 // Largest head dim the kernel takes; any multiple of 8 up to it.
@@ -62,7 +76,7 @@ namespace {
 
 int run(const void* q, const void* k, const void* v, void* o, int batch,
         int seq_len, int num_heads, int head_dim, float scale, bool stream_kv,
-        void* stream) {
+        int chunk_tiles, void* stream) {
   if (!sm90_host::valid_head_dim(head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -92,14 +106,14 @@ int run(const void* q, const void* k, const void* v, void* o, int batch,
        attention_unpacked_fwd_kernel<2, 4, true>,
        attention_unpacked_fwd_kernel<2, 4, true>}};
   return sm90_host::launch_attention<sm90::SoftmaxExp2>(
-      kernels, tq, tk, tv, args, batch, num_heads,
-      static_cast<cudaStream_t>(stream), stream_kv);
+      kernels, attention_unpacked_wide_kernel, tq, tk, tv, args, batch,
+      num_heads, static_cast<cudaStream_t>(stream), stream_kv, chunk_tiles);
 }
 
 }  // namespace
 
 // q, k, v, o: [B, L, H, D] bf16, contiguous, 16-byte aligned; D a
-// multiple of 8 up to 256, L up to 4,096. scale = D**-0.5 in f32. Returns
+// multiple of 8 up to 2,048, L up to 4,096. scale = D**-0.5 in f32. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a head dim or a length
 // past the limits or a tensor map that cannot be encoded.
 extern "C" int attention_unpacked_fwd(const void* q, const void* k,
@@ -108,7 +122,7 @@ extern "C" int attention_unpacked_fwd(const void* q, const void* k,
                                       int head_dim, float scale,
                                       void* stream) {
   return run(q, k, v, o, batch, seq_len, num_heads, head_dim, scale, false,
-             stream);
+             sm90::kWideTiles, stream);
 }
 
 // attention_unpacked_fwd with K and V streamed at every length, also where
@@ -119,5 +133,18 @@ extern "C" int attention_unpacked_fwd_streamed(const void* q, const void* k,
                                                int num_heads, int head_dim,
                                                float scale, void* stream) {
   return run(q, k, v, o, batch, seq_len, num_heads, head_dim, scale, true,
-             stream);
+             sm90::kWideTiles, stream);
+}
+
+// attention_unpacked_fwd with `chunk_tiles` (1 to 4) of O's 64-column
+// tiles a CTA past head dim 256, not 4 (for tests: every chunk count gives
+// the same bits).
+extern "C" int attention_unpacked_fwd_chunked(const void* q, const void* k,
+                                              const void* v, void* o,
+                                              int batch, int seq_len,
+                                              int num_heads, int head_dim,
+                                              float scale, int chunk_tiles,
+                                              void* stream) {
+  return run(q, k, v, o, batch, seq_len, num_heads, head_dim, scale, false,
+             chunk_tiles, stream);
 }

@@ -1,6 +1,6 @@
 // Bidirectional attention on [B, L, H, D] bf16 tensors with the max-shift
 // softmax, backward, for Hopper (sm_90a), at any head dim D that is a
-// multiple of 8 up to 256.
+// multiple of 8 up to 2,048.
 //
 // Replaces: small_vision_tpu/ops/attention.py::_attn_bwd_kernel (reached
 // via _pallas_attention_bwd_impl, the custom VJP of fused_attention). Per
@@ -89,17 +89,26 @@
 // 192-255, which the store drops. Every output element still comes from
 // one accumulator in a fixed order: no atomics, the same bits launch to
 // launch, and the arithmetic of NT <= 2, whose kernels are unchanged.
+//
+// Past four tiles (256 < D <= 2,048: `heads=2` at width 768 is D = 384,
+// `heads=1` 768) the backward runs the wide kernels of
+// sm90_attention_bwd.cuh (their design and costs there) under this file's
+// softmax (kShift true): (r) m2, r and c, (a) dQ four column tiles a CTA,
+// (b) dK and dV two each, every operand through a ring of 16 KB tile
+// pairs, each chunk recomputing S and dP. The formulas and rounding points
+// are the ones above (without the narrow last block: every block is 64
+// wide, its keys past L masked).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "sm90_gemm.cuh"
+#include "sm90_attention_bwd.cuh"
 
 namespace {
 
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxHeadDim = 2048;
 constexpr int kTile = sm90::kTileRows;
 constexpr int kTileBytes = sm90::kTileBytes;
 constexpr int kStages = 2;
@@ -709,7 +718,7 @@ cudaError_t launch_nt(int stage, const CUtensorMap (&tm)[4], void* dq,
 int launch(int stage, const void* q, const void* k, const void* v,
            const void* dout, void* dq, void* dk, void* dv, void* m, void* r,
            void* c, int batch, int seq_len, int num_heads, int head_dim,
-           float scale, void* stream) {
+           float scale, int chunk_tiles, void* stream) {
   if (seq_len > kMaxLen || stage < -1 || stage > 1 || head_dim < 8 ||
       head_dim > kMaxHeadDim || head_dim % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -726,6 +735,15 @@ int launch(int stage, const void* q, const void* k, const void* v,
   auto* mf = static_cast<float*>(m);
   auto* rf = static_cast<float*>(r);
   auto* cf = static_cast<float*>(c);
+  if ((head_dim + 63) / 64 > 4) {
+    const sm90::BwdArgs args{static_cast<__nv_bfloat16*>(dq),
+                             static_cast<__nv_bfloat16*>(dk),
+                             static_cast<__nv_bfloat16*>(dv),
+                             mf, rf, cf, seq_len, num_heads, head_dim,
+                             scale * kLog2e, scale, 0};
+    return static_cast<int>(sm90_host::launch_attention_bwd_wide<true>(
+        tm, args, batch, stage, chunk_tiles, s));
+  }
   cudaError_t (*const by_tiles[4])(int, const CUtensorMap(&)[4], void*,
                                    void*, void*, float*, float*, float*,
                                    int, int, int, int, float,
@@ -745,8 +763,9 @@ extern "C" int attention_unpacked_bwd_max_head_dim() { return kMaxHeadDim; }
 extern "C" int attention_unpacked_bwd_max_len() { return kMaxLen; }
 
 // q, k, v, dout, dq, dk, dv: [B, L, H, D] bf16, contiguous, 16-byte
-// aligned; D a multiple of 8 up to 256. m, r, c: (B, H, L) f32 scratch
-// that kernel (a) fills (m2, r, c of the header) and (b) reads. scale =
+// aligned; D a multiple of 8 up to 2,048. m, r, c: (B, H, L) f32 scratch
+// that kernel (a) ((r) past four tiles a head) fills (m2, r, c of the
+// header) and (b) reads. scale =
 // D**-0.5 in f32. Returns cudaGetLastError(), or cudaErrorInvalidValue for
 // a head dim or a length past the limits or a tensor map that cannot be
 // encoded.
@@ -758,15 +777,28 @@ extern "C" int attention_unpacked_bwd(const void* q, const void* k,
                                       int head_dim, float scale,
                                       void* stream) {
   return launch(-1, q, k, v, dout, dq, dk, dv, m, r, c, batch, seq_len,
-                num_heads, head_dim, scale, stream);
+                num_heads, head_dim, scale, sm90::kBwdDqTiles, stream);
+}
+
+// attention_unpacked_bwd with at most `chunk_tiles` (from 1) of the
+// outputs' 64-column tiles a CTA past head dim 256 (for tests: every chunk
+// count gives the same bits).
+extern "C" int attention_unpacked_bwd_chunked(
+    const void* q, const void* k, const void* v, const void* dout, void* dq,
+    void* dk, void* dv, void* m, void* r, void* c, int batch, int seq_len,
+    int num_heads, int head_dim, float scale, int chunk_tiles,
+    void* stream) {
+  return launch(-1, q, k, v, dout, dq, dk, dv, m, r, c, batch, seq_len,
+                num_heads, head_dim, scale, chunk_tiles, stream);
 }
 
 // One of the two kernels alone, to time it: `stage` 0 launches (a), 1 (b);
-// (b) reads the m, r, c that (a) wrote.
+// (b) reads the m, r, c that (a) wrote. Past four tiles a head, stage 0
+// is (r) and (a).
 extern "C" int attention_unpacked_bwd_stage(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, void* m, void* r, void* c, int batch, int seq_len,
     int num_heads, int head_dim, float scale, int stage, void* stream) {
   return launch(stage, q, k, v, dout, dq, dk, dv, m, r, c, batch, seq_len,
-                num_heads, head_dim, scale, stream);
+                num_heads, head_dim, scale, sm90::kBwdDqTiles, stream);
 }

@@ -1,7 +1,7 @@
 // Fused multi-head attention forward on bf16 tensors: the q, k, v
 // projections with bias, per-head max-shift softmax attention and the
 // out-projection with bias, for Hopper (sm_90a), at any head dim D that is
-// a multiple of 8 up to 256.
+// a multiple of 8 up to 2,048.
 //
 // Replaces: small_vision_tpu/ops/fused_block.py::_mha_kernel (reached via
 // _mha_pallas / fused_mha). Per batch row, on x of width d and H heads of
@@ -40,7 +40,8 @@
 //      the true head dim's scale.
 //  (b) fused_mha_attn_kernel, per (head, batch row): the max-shift
 //      attention core of sm90_attention.cuh (its design there, its head
-//      dims one to four 64-column tiles) under its production softmax, exp2
+//      dims one to four 64-column tiles, or past 256 its wide path, O's
+//      columns split across CTAs) under its production softmax, exp2
 //      of the log2(e)-scaled scores, reading the heads' q, k, v from the
 //      scratch as heads 0..H-1, H..2H-1 and 2H..3H-1 of a (D, 3H, L, B)
 //      tensor map and writing (B, L, H*D). K7 and K9 run the same core.
@@ -88,6 +89,17 @@ fused_mha_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
   extern __shared__ uint8_t smem_raw[];
   sm90::attention_heads<sm90::SoftmaxExp2, kGroups, NT, kStream>(
       smem_raw, &tm_q, &tm_k, &tm_v, a);
+}
+
+// Head dims past 256 (sm90::attention_wide).
+__global__ void __launch_bounds__(128, 2)
+fused_mha_attn_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const sm90::AttnArgs a, int chunk_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  sm90::attention_wide<sm90::SoftmaxExp2>(smem_raw, &tm_q, &tm_k, &tm_v, a,
+                                          chunk_tiles);
 }
 
 }  // namespace
@@ -146,7 +158,7 @@ extern "C" int fused_mha_proj(const void* a, const void* w0, const void* w1,
 }
 
 // (b): qkv (B, L, 3 H*D) bf16, q, k, v side by side; heads (B, L, H*D)
-// bf16 out; D a multiple of 8 up to 256, L up to 4,096; scale = D**-0.5
+// bf16 out; D a multiple of 8 up to 2,048, L up to 4,096; scale = D**-0.5
 // in f32. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a head dim or a length
 // past the limits or a tensor map that cannot be encoded.
@@ -179,15 +191,15 @@ extern "C" int fused_mha_attention(const void* qkv, void* heads, int batch,
        fused_mha_attn_kernel<2, 4, true>,
        fused_mha_attn_kernel<2, 4, true>}};
   return sm90_host::launch_attention<sm90::SoftmaxExp2>(
-      kernels, tm, tm, tm, args, batch, num_heads,
-      static_cast<cudaStream_t>(stream));
+      kernels, fused_mha_attn_wide_kernel, tm, tm, tm, args, batch,
+      num_heads, static_cast<cudaStream_t>(stream));
 }
 
 // x, o: (B, L, width) bf16; heads (scratch): (B, L, H*D) bf16; qkv
 // (scratch): (B, L, 3 H*D) bf16; wq, wk, wv: (width, H*D) and wo
 // (H*D, width) bf16 row-major (in, out); bq, bk, bv: (H*D,) and bo
 // (width,) bf16; all contiguous and 16-byte aligned; width and H*D
-// multiples of 8, D a multiple of 8 up to 256, L up to 4,096. scale =
+// multiples of 8, D a multiple of 8 up to 2,048, L up to 4,096. scale =
 // D**-0.5 in f32 (the caller's: of the true head dim where it ran the
 // heads zero-padded to D).
 // The three launches: (a) q, k, v; (b) the heads; (a) the out-projection.

@@ -406,6 +406,95 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* out, size_t ld,
   }
 }
 
+// ---- wide heads: a ring of tile pairs --------------------------------------
+//
+// Heads of more than four 64-column tiles (D > 256) stream every operand
+// through one ring of 16 KB stages, each two tiles, the first at the stage
+// and the second 8 KB further: a pair of the contraction over D (tile c of
+// Q and of K, or of dO and of V) or two column tiles of one operand. The
+// kernels that run it are one warpgroup a CTA, two CTAs an SM, and fill it
+// by Ring's predicated copies (no producer warp: its registers would come
+// from the accumulators).
+constexpr int kPairStages = 6;
+constexpr int kPairBytes = 2 * kTileBytes;
+using PairRing = Ring<kPairStages>;
+
+// A head's 64-column tiles.
+__host__ __device__ constexpr int head_tiles(int head_dim) {
+  return (head_dim + 63) / 64;
+}
+
+// 1 KB to align the tiles, the stages, and a full and an empty barrier
+// each.
+__host__ __device__ constexpr size_t pair_ring_smem() {
+  return 1024 + static_cast<size_t>(kPairStages) * kPairBytes +
+         16 * kPairStages;
+}
+static_assert(2 * (pair_ring_smem() + 1024) <= 233472, "two CTAs an SM");
+
+// A CTA's ring over its aligned shared memory: the stages, then the full
+// and the empty barriers.
+__device__ __forceinline__ PairRing pair_ring(uint8_t* smem) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kPairStages *
+                                               kPairBytes);
+  return PairRing{full, full + kPairStages};
+}
+
+// Ring use n's first tile.
+__device__ __forceinline__ uint8_t* pair_tile(uint8_t* smem, int n) {
+  return smem + (n % kPairStages) * kPairBytes;
+}
+
+// One use's copies, issued by thread 0 where `copy` holds (predicated):
+// tile c0 of head h of map a at `row` into the stage's first tile and tile
+// c1 of head hb of map b at `row_b` into its second, the barrier expecting
+// what is copied. A tile whose column tile is at or past nd is not copied
+// (its stale products fill accumulator columns that no store keeps).
+__device__ __forceinline__ void pair_load(uint8_t* dst, uint64_t* bar,
+                                          const CUtensorMap* a, int c0,
+                                          int h, int row,
+                                          const CUtensorMap* b, int c1,
+                                          int hb, int row_b, int batch,
+                                          int nd, bool copy) {
+  const bool la = c0 < nd;
+  const bool lb = c1 < nd;
+  mbar_arrive_expect_tx_if(bar, (la + lb) * kTileBytes, copy);
+  tma_load_4d_if(dst, a, bar, c0 * 64, h, row, batch, copy && la);
+  tma_load_4d_if(dst + kTileBytes, b, bar, c1 * 64, hb, row_b, batch,
+                 copy && lb);
+}
+
+// Products of the contraction over a head's nd column tiles: for c = 0 ..
+// nd - 1 and w < kPer, ring use n0 + kPer c + w holds tile c of both
+// operands and `product(w, tiles, c > 0)` issues acc_w [+]= A_c B_c^T on
+// them (kPer 1: S; 2: S and dP, alternating). Each use is its own commit
+// group: the wait after it lets the one before finish and releases its
+// use (the use before n0 too where `prev_held`: the caller's product in
+// flight on it), so that a warp holds at most the use it waits for and
+// the one before, as Ring needs. Returns with every product landed and
+// every use released; the caller fences its accumulators.
+template <int kPer, class Load, class Product>
+__device__ __forceinline__ void pair_products(const PairRing& ring,
+                                              uint8_t* smem, int n0, int nd,
+                                              int total, Load&& load,
+                                              Product&& product, int lane,
+                                              bool prev_held) {
+  for (int c = 0; c < nd; ++c) {
+#pragma unroll
+    for (int w = 0; w < kPer; ++w) {
+      const int n = n0 + kPer * c + w;
+      ring.wait(n, total, load);
+      wgmma_fence();
+      product(w, pair_tile(smem, n), c > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      ring.release_if(n > 0 ? n - 1 : 0, lane, n > n0 || prev_held);
+    }
+  }
+  wgmma_wait<0>();
+  ring.release(n0 + kPer * nd - 1, lane);
+}
+
 }  // namespace sm90
 
 // ---- host: tensor maps -----------------------------------------------------

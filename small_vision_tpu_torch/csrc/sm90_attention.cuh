@@ -49,10 +49,11 @@
 // head's K and V come from device memory about once and from L2 once a
 // pass a pair.
 //
-// Head dims: any multiple of 8 up to 256, as K3 (attention_packed.cu). A
-// head is NT = ceil(D / 64) tiles of 64 columns (1 to 4), each a TMA box
-// of the (D, heads, L, B) map, so columns at or past D arrive as zeros and
-// a head never reads the next one's: the padded columns of Q and K add 0
+// Head dims: any multiple of 8 up to 2,048, as K3 (attention_packed.cu);
+// up to 256 a head is NT = ceil(D / 64) tiles of 64 columns (1 to 4),
+// each a TMA box of the (D, heads, L, B) map, so columns at or past D
+// arrive as zeros and a head never reads the next one's (past 256 too):
+// the padded columns of Q and K add 0
 // to the scores, those of V give 0 columns of O, which the store drops. At
 // NT = 2 K, V and Q double in shared memory (L up to 384, not 832) and O's
 // accumulator takes 32 more registers a thread (such a CTA may take up to
@@ -73,6 +74,36 @@
 // (16): one CTA of two warpgroups an SM, up to 255 registers a thread. The
 // arithmetic and the order of every sum are NT = 2's, with more products.
 //
+// Heads past four tiles (D = 264 to 2,048: `heads=2` at width 768 is 384,
+// `heads=1` 768; a ViT-G head alone 1,664) run attention_wide, once for
+// every policy here and for K3's (ClampExp2). A head no longer fits: one
+// 64-row tile of Q or of K is 96 KB at D = 768 and 256 KB at 2,048. So the
+// two sides of the head part:
+//  - the contraction: S = Q K^T is summed over the nd = ceil(D / 64)
+//    column tiles in a loop of run-time length, tile c of Q's query tile
+//    and of K's key block arriving together as one 16 KB stage of the pair
+//    ring (sm90.cuh: 6 stages, 4 loads ahead, Ring's predicated copies),
+//    one commit group a tile, so that at most two stages are held;
+//  - the output: O's columns are split across CTAs, kWideTiles = 4 tiles
+//    (256 columns, 128 accumulator registers, NT = 4's) a CTA. The grid is
+//    (chunks x query tiles, heads, batch), a tile's chunks neighbours, so
+//    the re-read Q and K come from L2; V's block j comes as two uses of
+//    two of the chunk's column tiles.
+// Every chunk of a query tile computes the same S, the same max, sums and
+// rescales in the same order, so its columns are the whole head's, bit
+// for bit, whatever the chunk count (the `_chunked` entry points store
+// fewer tiles a CTA to show it); no atomics, no sum across CTAs. The
+// cost: each chunk recomputes S and its softmax, every pass (2 chunks at
+// D = 384, 3 at 768, 8 at 2,048), and Q is read again for every key
+// block. Shared memory is 97 KB a CTA at every D (two CTAs an SM);
+// registers: O 128, S 32, p 16 a thread, under the 255 of two 128-thread
+// CTAs an SM (ptxas's report: the build log). Weighed: Q resident beside
+// a ring of K (fits to D = 768 at one CTA an SM, not past it: a second
+// design for part of the range); two warpgroups of a CTA on two query
+// tiles sharing K and V (halves the reads of K and V, but a stage of two
+// Q tiles and K is 24 KB and V's 32 KB, and one CTA an SM). The first
+// design is the simplest that takes every D; making it fast is later work.
+//
 // A compile-time softmax policy says how S is scaled and masked, how e is
 // formed, how many passes run and whether the products run at all.
 // `SoftmaxExp2` is the production one (K6, K7, K9's exp2 arm); the others
@@ -83,12 +114,14 @@
 
 #include <math_constants.h>
 
+#include <type_traits>
+
 #include "sm90_gemm.cuh"
 
 namespace sm90 {
 
 constexpr int kAttnShortTiles = 3;  // one warpgroup for heads this short
-constexpr int kAttnMaxHeadDim = 256;
+constexpr int kAttnMaxHeadDim = 2048;
 constexpr int kAttnMaxLen = 4096;  // every head dim; K4's and K8's limit
 constexpr int kSmemPerBlock = 232448;
 constexpr int kSmemPerSM = 233472;  // blocks an SM holds: 1 KB each reserved
@@ -766,18 +799,379 @@ __device__ __forceinline__ void attention_heads(uint8_t* smem_raw,
   }
 }
 
+// ---- wide heads (D > 256) -------------------------------------------------
+
+// K3's softmax (attention_packed.cu) as a policy of the wide core: e =
+// exp2(clamp(S * scale, -80, 80)) for keys below L, 0 past (`scale` is
+// scale * log2(e), folded by K3's caller), no max and one pass; O =
+// bf16(e) V divided at the store by the row sum of the unrounded e.
+struct ClampExp2 {
+  static constexpr Passes kPasses = Passes::kNone;
+  static constexpr bool kProducts = true, kBase2 = false;
+  __device__ static float p(float s, int key, int len, float scale, float,
+                            float) {
+    return key < len ? exp2f(fminf(fmaxf(s * scale, -80.f), 80.f)) : 0.f;
+  }
+};
+
+// The passes over the keys before the last one, each reading K alone.
+template <class P>
+__host__ __device__ constexpr int wide_s_passes() {
+  return P::kPasses == Passes::kNone     ? 0
+         : P::kPasses == Passes::kMaxSum ? 2
+                                         : 1;
+}
+
+// This lane's scores of rows g and g + 8 over its 16 keys of block j, in
+// place, and their max of each row (attention_heads' `scores`).
+template <class P>
+__device__ __forceinline__ void wide_scores(float (&s)[32], int j, int len,
+                                            float scale, int t4, float& b_lo,
+                                            float& b_hi) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = j * kTileRows + nt * 8 + 2 * t4 + (i & 1);
+      const float x = P::score(s[4 * nt + i], key, len, scale);
+      s[4 * nt + i] = x;
+      if (i < 2) {
+        b_lo = fmaxf(b_lo, x);
+      } else {
+        b_hi = fmaxf(b_hi, x);
+      }
+    }
+  }
+}
+
+// The sum of e over this lane's keys of block j, row lo (i0 = 0) or hi (i0
+// = 2), with shift m (attention_heads' `block_sum`).
+template <class P>
+__device__ __forceinline__ float wide_block_sum(const float (&s)[32], int j,
+                                                int i0, float m, int len,
+                                                int t4) {
+  float e = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int key = j * kTileRows + nt * 8 + 2 * t4;
+    e += P::e(s[4 * nt + i0], m, key, len) +
+         P::e(s[4 * nt + i0 + 1], m, key + 1, len);
+  }
+  return e;
+}
+
+// The body of a wide-head kernel of 128 threads (see the header's "Wide
+// heads"): grid (chunks x query tiles, heads, batch), chunk fastest; the
+// CTA computes query tile t's S over all nd column tiles of the head,
+// every pass, and O's column tiles tile0 .. tile0 + chunk_tiles - 1 (at
+// most kWideTiles). Every operand streams through the pair ring.
+constexpr int kWideTiles = 4;
+
+template <class P>
+__device__ __forceinline__ void attention_wide(uint8_t* smem_raw,
+                                               const CUtensorMap* tm_q,
+                                               const CUtensorMap* tm_k,
+                                               const CUtensorMap* tm_v,
+                                               const AttnArgs& a,
+                                               int chunk_tiles) {
+  constexpr bool kDivide = std::is_same<P, ClampExp2>::value;
+  constexpr int kSPasses = wide_s_passes<P>();
+  uint8_t* smem = align_tiles(smem_raw);
+  const PairRing ring = pair_ring(smem);
+  const int seq_len = a.seq_len;
+  const float scale = a.scale;
+  const int nkb = (seq_len + kTileRows - 1) / kTileRows;
+  const int nd = attn_tiles(a.head_dim);
+  const int nch = (nd + chunk_tiles - 1) / chunk_tiles;
+  const int t = blockIdx.x / nch;
+  const int tile0 = (blockIdx.x % nch) * chunk_tiles;
+  const int tile_end = tile0 + chunk_tiles;  // past the CTA's O tiles
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  // Ring uses: each S-only pass takes nd a key block (tile c of Q's tile t
+  // and of K's block j); the last pass a block's nd pairs and then two
+  // uses of V's block j (its column tiles tile0 .. tile0 + 3, two a use,
+  // those the CTA does not store not copied). nomm: one use a block, Q's
+  // tile 0 (row constants) and V's block j tile 0 (its own v).
+  const int s_uses = P::kProducts ? nd : 0;
+  const int per_last = P::kProducts ? nd + 2 : 1;
+  const int n_last = kSPasses * nkb * s_uses;
+  const int total = n_last + nkb * per_last;
+  // Straight code for every thread (selects, no branch: see Ring).
+  auto load = [&](int n, int s, uint64_t* bar, bool issue) {
+    const bool before = n < n_last;
+    const int m = before ? n % (nkb * nd) : n - n_last;
+    const int per = before ? nd : per_last;
+    const int j = m / per;
+    const int u = m % per;
+    const bool pair = P::kProducts && u < nd;
+    const int cv = tile0 + 2 * (u - nd);  // V's first tile of the use
+    const int ca = !P::kProducts ? 0 : pair ? u : cv < tile_end ? cv : nd;
+    const int cb = !P::kProducts ? 0
+                   : pair        ? u
+                   : cv + 1 < tile_end ? cv + 1
+                                       : nd;
+    pair_load(smem + s * kPairBytes, bar, pair || !P::kProducts ? tm_q : tm_v,
+              ca, (pair || !P::kProducts ? a.q_head : a.v_head) + head,
+              pair || !P::kProducts ? t * kTileRows : j * kTileRows,
+              pair ? tm_k : tm_v, cb, (pair ? a.k_head : a.v_head) + head,
+              j * kTileRows, batch, nd, issue && tid == 0);
+  };
+  if (tid == 0) {
+    ring.init(4);
+    fence_barrier_init();
+    ring.prime(total, load);
+  }
+  __syncthreads();
+
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int row = (warp % 4) * 16 + g;  // this thread's rows: row, row + 8
+  // nomm's row constants, from Q's tile 0 in use 0 (held to the last pass).
+  float c_lo = 0.f, c_hi = 0.f;
+  if constexpr (!P::kProducts) {
+    ring.wait(0, total, load);
+    c_lo = round_bf16(ld_swizzled(pair_tile(smem, 0), row, 0) * scale);
+    c_hi = round_bf16(ld_swizzled(pair_tile(smem, 0), row + 8, 0) * scale);
+  }
+  // S of a key block from use n0 (`prev_held`: the use before it is still
+  // read by a product in flight), or nomm's row constants.
+  auto block_s = [&](float (&s)[32], int n0, bool prev_held) {
+    if constexpr (P::kProducts) {
+      pair_products<1>(
+          ring, smem, n0, nd, total, load,
+          [&](int, uint8_t* st, bool acc) {
+            gemm_nt(s, desc_k_major(st), desc_k_major(st + kTileBytes), acc);
+          },
+          lane, prev_held);
+      fence(s);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = (i & 2) ? c_hi : c_lo;
+        asm volatile("" : "+f"(x));  // every key's softmax stays
+        s[i] = x;
+      }
+    }
+  };
+
+  float row_m_lo = 0.f, row_m_hi = 0.f, inv_lo = 1.f, inv_hi = 1.f;
+  if constexpr (P::kPasses == Passes::kOnline) {
+    float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.f, l_hi = 0.f;
+    for (int j = 0; j < nkb; ++j) {
+      float s[32];
+      block_s(s, j * s_uses, false);
+      float b_lo = -CUDART_INF_F, b_hi = -CUDART_INF_F;
+      wide_scores<P>(s, j, seq_len, scale, t4, b_lo, b_hi);
+      const float n_lo = fmaxf(m_lo, b_lo);
+      const float n_hi = fmaxf(m_hi, b_hi);
+      if (n_lo > -CUDART_INF_F) {
+        l_lo = l_lo * P::exp(m_lo - n_lo) +
+               wide_block_sum<P>(s, j, 0, n_lo, seq_len, t4);
+        m_lo = n_lo;
+      }
+      if (n_hi > -CUDART_INF_F) {
+        l_hi = l_hi * P::exp(m_hi - n_hi) +
+               wide_block_sum<P>(s, j, 2, n_hi, seq_len, t4);
+        m_hi = n_hi;
+      }
+    }
+    row_m_lo = quad_max(m_lo);
+    row_m_hi = quad_max(m_hi);
+    inv_lo = 1.f / quad_sum(l_lo * P::exp(m_lo - row_m_lo));
+    inv_hi = 1.f / quad_sum(l_hi * P::exp(m_hi - row_m_hi));
+  } else if constexpr (P::kPasses == Passes::kSum) {
+    float l_lo = 0.f, l_hi = 0.f;
+    for (int j = 0; j < nkb; ++j) {
+      float s[32];
+      block_s(s, j * s_uses, false);
+      float b_lo = -CUDART_INF_F, b_hi = -CUDART_INF_F;
+      wide_scores<P>(s, j, seq_len, scale, t4, b_lo, b_hi);
+      l_lo += wide_block_sum<P>(s, j, 0, 0.f, seq_len, t4);
+      l_hi += wide_block_sum<P>(s, j, 2, 0.f, seq_len, t4);
+    }
+    inv_lo = 1.f / quad_sum(l_lo);
+    inv_hi = 1.f / quad_sum(l_hi);
+  } else if constexpr (P::kPasses == Passes::kMaxSum) {
+    float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F;
+    for (int j = 0; j < nkb; ++j) {
+      float s[32];
+      block_s(s, j * s_uses, false);
+      wide_scores<P>(s, j, seq_len, scale, t4, m_lo, m_hi);
+    }
+    row_m_lo = quad_max(m_lo);
+    row_m_hi = quad_max(m_hi);
+    float l_lo = 0.f, l_hi = 0.f;
+    for (int j = 0; j < nkb; ++j) {
+      float s[32];
+      block_s(s, (nkb + j) * s_uses, false);
+      float b_lo = -CUDART_INF_F, b_hi = -CUDART_INF_F;
+      wide_scores<P>(s, j, seq_len, scale, t4, b_lo, b_hi);
+      l_lo += wide_block_sum<P>(s, j, 0, row_m_lo, seq_len, t4);
+      l_hi += wide_block_sum<P>(s, j, 2, row_m_hi, seq_len, t4);
+    }
+    inv_lo = 1.f / quad_sum(l_lo);
+    inv_hi = 1.f / quad_sum(l_hi);
+  }
+
+  // Last pass: S again, p formed and rounded, O's tiles += p V from the
+  // block's two V uses; the first V use is released once the second's
+  // product is issued, the second at the next block's first S product.
+  float oacc[kWideTiles][32];
+  uint32_t pa[16];
+  float sum_lo = 0.f, sum_hi = 0.f;  // kDivide: the row sums of e
+  float p0_lo = 0.f, p0_hi = 0.f;    // nomm: p of key 0
+  float v0_lo = 0.f, v0_hi = 0.f;    // nomm: the row's own v[0]
+  for (int j = 0; j < nkb; ++j) {
+    const int n0 = n_last + j * per_last;
+    float sacc[32];
+    block_s(sacc, n0, j > 0);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = j * kTileRows + nt * 8 + 2 * t4 + (i & 1);
+        const float x = P::p(sacc[4 * nt + i], key, seq_len, scale,
+                             i < 2 ? row_m_lo : row_m_hi,
+                             i < 2 ? inv_lo : inv_hi);
+        if constexpr (kDivide) {
+          if (i < 2) {
+            sum_lo += x;
+          } else {
+            sum_hi += x;
+          }
+        }
+        sacc[4 * nt + i] = x;
+      }
+    }
+    pack_a(pa, sacc);
+    if constexpr (P::kProducts) {
+      const int nv = n0 + nd;
+      ring.wait(nv, total, load);
+      wgmma_fence();
+      gemm_rn(oacc[0], pa, desc_mn_major(pair_tile(smem, nv)), j > 0);
+      gemm_rn(oacc[1], pa, desc_mn_major(pair_tile(smem, nv) + kTileBytes),
+              j > 0);
+      wgmma_commit();
+      ring.wait(nv + 1, total, load);
+      wgmma_fence();
+      gemm_rn(oacc[2], pa, desc_mn_major(pair_tile(smem, nv + 1)), j > 0);
+      gemm_rn(oacc[3], pa,
+              desc_mn_major(pair_tile(smem, nv + 1) + kTileBytes), j > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      ring.release(nv, lane);
+    } else {
+      if (j == 0) {
+        p0_lo = sacc[0];
+        p0_hi = sacc[2];
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) asm volatile("" ::"r"(pa[i]));
+      if (j > 0) ring.wait(n0, total, load);  // use 0 was waited for above
+      if (j == t) {
+        v0_lo = ld_swizzled(pair_tile(smem, n0) + kTileBytes, row, 0);
+        v0_hi = ld_swizzled(pair_tile(smem, n0) + kTileBytes, row + 8, 0);
+      }
+      __syncwarp();
+      ring.release(n0, lane);
+    }
+  }
+  if constexpr (P::kProducts) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kWideTiles; ++c) fence(oacc[c]);
+    ring.release(total - 1, lane);
+  } else {
+    const int src = lane & ~3;
+    const float pl = __shfl_sync(0xffffffffu, round_bf16(p0_lo), src);
+    const float ph = __shfl_sync(0xffffffffu, round_bf16(p0_hi), src);
+#pragma unroll
+    for (int c = 0; c < kWideTiles; ++c) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        oacc[c][4 * n] = oacc[c][4 * n + 1] = pl * v0_lo;
+        oacc[c][4 * n + 2] = oacc[c][4 * n + 3] = ph * v0_hi;
+      }
+    }
+  }
+
+  // The CTA's column tiles, columns at or past D dropped; kDivide divides
+  // by the row sum (as K3's store does), the others store O as it is.
+  if constexpr (kDivide) {
+    sum_lo = quad_sum(sum_lo);
+    sum_hi = quad_sum(sum_hi);
+  }
+  const int row_lo = t * kTileRows + row;
+  __nv_bfloat16* out = a.o + static_cast<size_t>(batch) * seq_len * a.o_ld +
+                       static_cast<size_t>(head) * a.head_dim;
+#pragma unroll
+  for (int c = 0; c < kWideTiles; ++c) {
+    const int col0 = (tile0 + c) * 64;
+    if (c >= chunk_tiles) break;
+    __nv_bfloat16* o_lo =
+        out + static_cast<size_t>(row_lo) * a.o_ld + col0 + 2 * t4;
+    __nv_bfloat16* o_hi = o_lo + 8 * static_cast<size_t>(a.o_ld);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (col0 + 8 * n >= a.head_dim) break;
+      const float* x = &oacc[c][4 * n];
+      if (row_lo < seq_len) {
+        *reinterpret_cast<uint32_t*>(o_lo + 8 * n) =
+            kDivide ? pack_bf16(x[0] / sum_lo, x[1] / sum_lo)
+                    : pack_bf16(x[0], x[1]);
+      }
+      if (row_lo + 8 < seq_len) {
+        *reinterpret_cast<uint32_t*>(o_hi + 8 * n) =
+            kDivide ? pack_bf16(x[2] / sum_hi, x[3] / sum_hi)
+                    : pack_bf16(x[2], x[3]);
+      }
+    }
+  }
+}
+
 }  // namespace sm90
 
 namespace sm90_host {
 
-// Whether the core takes a head dim: a multiple of 8 from 8 to 256 (a
+// Whether the core takes a head dim: a multiple of 8 from 8 to 2,048 (a
 // head's TMA stride is a multiple of 16 bytes). The wrappers
-// (ops/attention.py, ops/fused_block.py) run any other head dim up to 256
-// at the next multiple of 8, on heads zero-padded to it, with the true
-// head dim's scale.
+// (ops/attention.py, ops/fused_block.py) run any other head dim up to
+// 2,048 at the next multiple of 8, on heads zero-padded to it, with the
+// true head dim's scale.
 inline bool valid_head_dim(int head_dim) {
   return head_dim >= 8 && head_dim <= sm90::kAttnMaxHeadDim &&
          head_dim % 8 == 0;
+}
+
+// Launches a wide-head kernel (sm90::attention_wide<P>) of O's column
+// tiles `chunk_tiles` a CTA (1 to sm90::kWideTiles; the kernels' entry
+// points pass kWideTiles, their tests fewer). Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a chunk outside 1 .. kWideTiles.
+template <class P, class Kernel>
+inline int launch_attention_wide(Kernel kernel, const CUtensorMap& tm_q,
+                                 const CUtensorMap& tm_k,
+                                 const CUtensorMap& tm_v, sm90::AttnArgs a,
+                                 int batch, int num_heads,
+                                 cudaStream_t stream, int chunk_tiles) {
+  if (chunk_tiles < 1 || chunk_tiles > sm90::kWideTiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (P::kBase2) a.scale = a.scale * 1.44269504088896341f;
+  const int nkb = (a.seq_len + sm90::kTileRows - 1) / sm90::kTileRows;
+  const int nd = sm90::attn_tiles(a.head_dim);
+  const int nch = (nd + chunk_tiles - 1) / chunk_tiles;
+  const size_t smem = sm90::pair_ring_smem();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(nch * nkb, num_heads, batch), 128, smem, stream>>>(
+      tm_q, tm_k, tm_v, a, chunk_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // `kernels[NT - 1][mode]` runs sm90::attention_heads<P, groups, NT,
@@ -787,18 +1181,24 @@ inline bool valid_head_dim(int head_dim) {
 // kernel up to sm90::attn_resident_len(head_dim) (one warpgroup for heads
 // of at most kAttnShortTiles tiles, as K3, else two) and the streamed one
 // past it or when `stream_kv`, of NT = ceil(D / 64) 64-column tiles a
-// head. `scale` is head_dim**-0.5 in f32; for a base-2 policy log2(e) is
-// folded in here. Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// a head dim that is not a multiple of 8 up to 256 or a length past
+// head; past four tiles, `wide` (launch_attention_wide, `chunk_tiles` of
+// O a CTA). `scale` is head_dim**-0.5 in f32; for a base-2 policy log2(e)
+// is folded in here. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a head dim that is not a multiple of 8 up to 2,048 or a length past
 // sm90::kAttnMaxLen.
-template <class P, class Kernel>
-inline int launch_attention(const Kernel (&kernels)[4][3],
+template <class P, class Kernel, class WideKernel>
+inline int launch_attention(const Kernel (&kernels)[4][3], WideKernel wide,
                             const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                             const CUtensorMap& tm_v, sm90::AttnArgs a,
                             int batch, int num_heads, cudaStream_t stream,
-                            bool stream_kv = false) {
+                            bool stream_kv = false,
+                            int chunk_tiles = sm90::kWideTiles) {
   if (!valid_head_dim(a.head_dim) || a.seq_len > sm90::kAttnMaxLen) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (sm90::attn_tiles(a.head_dim) > 4) {
+    return launch_attention_wide<P>(wide, tm_q, tm_k, tm_v, a, batch,
+                                    num_heads, stream, chunk_tiles);
   }
   if (P::kBase2) a.scale = a.scale * 1.44269504088896341f;
   const int nkb = (a.seq_len + sm90::kTileRows - 1) / sm90::kTileRows;

@@ -52,23 +52,33 @@ SIGNATURES = {
         "ln_modulate_bwd_max_width": []},
     # `*_fwd_streamed`: K and V streamed at every length (tests and
     # measurement; a tree from before it has no such entry point).
+    # `*_chunked`: past head dim 256, fewer output column tiles a CTA than
+    # the kernels' own (tests: the same bits at every chunk count).
     "attention_packed": {
         "attention_packed_fwd": [_P] * 4 + [_I, _I, _I, _I, _F, _P],
         "attention_packed_fwd_streamed": [_P] * 4 + [_I, _I, _I, _I, _F, _P],
+        "attention_packed_fwd_chunked": [_P] * 4 + [_I, _I, _I, _I, _F, _I,
+                                                    _P],
         "attention_packed_max_len": [_I],
         "attention_packed_max_head_dim": []},
     "attention_packed_bwd": {
         "attention_packed_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P],
+        "attention_packed_bwd_chunked": [_P] * 9 + [_I, _I, _I, _I, _F, _F,
+                                                    _I, _P],
         "attention_packed_bwd_max_len": [],
         "attention_packed_bwd_max_head_dim": []},
     "attention_unpacked": {
         "attention_unpacked_fwd": [_P] * 4 + [_I, _I, _I, _I, _F, _P],
         "attention_unpacked_fwd_streamed": [_P] * 4 + [_I, _I, _I, _I, _F,
                                                        _P],
+        "attention_unpacked_fwd_chunked": [_P] * 4 + [_I, _I, _I, _I, _F, _I,
+                                                      _P],
         "attention_unpacked_max_len": [_I],
         "attention_unpacked_max_head_dim": []},
     "attention_unpacked_bwd": {
         "attention_unpacked_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+        "attention_unpacked_bwd_chunked": [_P] * 10 + [_I, _I, _I, _I, _F, _I,
+                                                       _P],
         "attention_unpacked_bwd_stage": [_P] * 10 + [_I, _I, _I, _I, _F, _I,
                                                      _P],
         "attention_unpacked_bwd_max_len": [],

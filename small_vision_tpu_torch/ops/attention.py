@@ -12,19 +12,23 @@ The forward is K3 (`csrc/attention_packed.cu`), the backward K4
 kernels for CUDA tensors, and raises for a CUDA tensor a kernel does not
 take. Without gradients (the sampler) it is K3 alone; with gradients it
 goes through `AttentionPacked`. Every kernel here takes any head dim from 1
-to 256 (`MAX_HEAD_DIM`; `heads=4` at width 768 gives 192, `heads=3` 256,
-`heads=32` at UMD-S's 384 gives 12): the kernels run multiples of 8, so
-the wrappers lay the heads of any other out at the next multiple of 8 with
-zero columns (`pad_heads`), launch at that head dim with the true head
-dim's scale and drop the padded columns of the outputs (`unpad_heads`).
-The zero columns add exact zeros to every score and to dP = dO V^T, and
-the output columns they give are dropped, so nothing else changes. L up
-to 4,096 at every head dim: a head's K and V
+to 2,048 (`MAX_HEAD_DIM`; `heads=4` at width 768 gives 192, `heads=3` 256,
+`heads=2` 384, `heads=1` 768, `heads=32` at UMD-S's 384 gives 12): the
+kernels run multiples of 8, so the wrappers lay the heads of any other out
+at the next multiple of 8 with zero columns (`pad_heads`), launch at that
+head dim with the true head dim's scale and drop the padded columns of the
+outputs (`unpad_heads`). The zero columns add exact zeros to every score
+and to dP = dO V^T, and the output columns they give are dropped, so
+nothing else changes. L up to 4,096 at every head dim: a head's K and V
 stay in shared memory up to 320 keys (D <= 64) or 384 (64 < D <= 128) and
 stream through a ring of them past that (ViT-L/16@512, L = 1,024 or 1,025;
 ViT-H/14@518, 1,369), and at every length above 128, with the same
 arithmetic and the same bits. (From 321 to 832 keys at D <= 64 the
-resident layout would fit, but one CTA an SM: it reads slower.)
+resident layout would fit, but one CTA an SM: it reads slower.) Past 256
+(more than four 64-column tiles a head) every operand streams in tile
+pairs, the sums over D loop, and the outputs' columns are split across
+CTAs, each recomputing the scores; `chunk_tiles` (tests only) stores fewer
+column tiles a CTA, with the same bits.
 
 `fused_attention` is the counterpart of the JAX package's older
 `fused_attention` / `pallas_attention` on [B, L, H, D]: scores times
@@ -62,7 +66,7 @@ ABLATE_VARIANTS = ("prod", "nosoftmax", "nomm", "bf16exp", "exp2", "mulmask",
                    "nomax")
 # K3, K4 and K6-K9 take any head dim from 1 up to this (the kernels
 # themselves multiples of 8; the wrappers pad the others, `pad_heads`).
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 2048
 CLAMP = 80.0   # Softmax stability clamp, in log2 units.
 
 
@@ -169,17 +173,23 @@ def attention_packed_bwd_plain(q, k, v, do, num_heads, scale_dim=None):
 
 @functools.cache
 def _lib():
-  """K3's entry point, its length limit (a function of the head dim) and
-  its entry point that streams K and V at every length."""
+  """K3's library (its entry points `attention_packed_fwd`, `_streamed`
+  and `_chunked`) and its length limit (a function of the head dim)."""
   lib = _build.library("attention_packed")
-  return (lib.attention_packed_fwd, lib.attention_packed_max_len,
-          lib.attention_packed_fwd_streamed)
+  return lib, lib.attention_packed_max_len
 
 
 @functools.cache
 def _bwd_lib():
   lib = _build.library("attention_packed_bwd")
-  return lib.attention_packed_bwd, lib.attention_packed_bwd_max_len()
+  return lib, lib.attention_packed_bwd_max_len()
+
+
+def _chunk_args(chunk_tiles, name):
+  """The trailing argument of a `_chunked` entry point: `chunk_tiles`, the
+  output column tiles a CTA stores past head dim 256 (from 1)."""
+  _require(chunk_tiles >= 1, f"chunk_tiles {chunk_tiles}: from 1", name)
+  return (int(chunk_tiles),)
 
 
 def _require(cond, msg, name=NAME):
@@ -225,46 +235,59 @@ def _check(name, num_heads, **tensors):
   return b, l, d
 
 
-def attention_packed_fwd(q, k, v, num_heads, streamed=False):
-  """Launches K3 on (B, L, H*D) bf16 contiguous q, k, v, D from 1 to 256
+def attention_packed_fwd(q, k, v, num_heads, streamed=False,
+                         chunk_tiles=None):
+  """Launches K3 on (B, L, H*D) bf16 contiguous q, k, v, D from 1 to 2,048
   (a D that is not a multiple of 8 on copies of q, k, v padded to the next
   one, `pad_heads`, and o cut back, `unpad_heads`). L up to the kernel's
   `attention_packed_max_len(D)`, 4,096 at every head dim: a head's K and V
   stay in shared memory up to 320 keys at D <= 64 (one 64-column tile a
   head) and 384 at 64 < D <= 128 (two), and stream through a ring of
-  stages past that, and at every length at D > 128 (three or four tiles).
-  `streamed`: stream them at every length (for tests and measurement; the
-  same bits)."""
+  stages past that, and at every length at D > 128 (three or more
+  tiles; past four, O's columns four tiles a CTA). `streamed`: stream
+  them at every length (for tests and measurement; the same bits).
+  `chunk_tiles` (1 to 4, tests only): O's column tiles a CTA past D = 256
+  (the same bits)."""
   b, l, d = _check(NAME, num_heads, q=q, k=k, v=v)
   dp = padded_head_dim(d)
-  fn, max_len, fn_streamed = _lib()
+  lib, max_len = _lib()
   _require(l <= max_len(dp), f"sequence length {l} > {max_len(dp)} at head "
            f"dim {d}")
+  fn, extra = lib.attention_packed_fwd, ()
   if streamed:
-    fn = fn_streamed
+    fn = lib.attention_packed_fwd_streamed
+  if chunk_tiles is not None:
+    fn, extra = lib.attention_packed_fwd_chunked, _chunk_args(chunk_tiles,
+                                                              NAME)
 
   if q.numel() == 0:
     return torch.empty_like(q)
   q, k, v = (pad_heads(t, num_heads, dp) for t in (q, k, v))
   o = torch.empty_like(q)
   _build.launch(NAME, q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                o.data_ptr(), b, l, num_heads, dp, scale_log2(d))
+                o.data_ptr(), b, l, num_heads, dp, scale_log2(d), *extra)
   _build.LAUNCHES[NAME] += 1
   return unpad_heads(o, num_heads, d)
 
 
-def attention_packed_bwd(q, k, v, do, num_heads):
+def attention_packed_bwd(q, k, v, do, num_heads, chunk_tiles=None):
   """Launches K4 on (B, L, H*D) bf16 contiguous q, k, v, do (D from 1 to
-  256, padded as K3's, `attention_packed_fwd`); returns (dq, dk, dv).
+  2,048, padded as K3's, `attention_packed_fwd`); returns (dq, dk, dv).
   Each output element is summed by one warpgroup's accumulator in a fixed
   order (no atomics), so two launches give the same bits. L up to the
   kernel's `attention_packed_bwd_max_len()`, 4096: its shared memory does
   not grow with L (the limit was 384 before K4 moved to wgmma and streamed
-  tiles), and 4096 is the longest length the card's tests hold it at."""
+  tiles), and 4096 is the longest length the card's tests hold it at.
+  `chunk_tiles` (from 1, tests only): at most this many of the outputs'
+  column tiles a CTA past D = 256 (the same bits)."""
   b, l, d = _check(BWD_NAME, num_heads, q=q, k=k, v=v, do=do)
   dp = padded_head_dim(d)
-  fn, max_len = _bwd_lib()
+  lib, max_len = _bwd_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}", BWD_NAME)
+  fn, extra = lib.attention_packed_bwd, ()
+  if chunk_tiles is not None:
+    fn, extra = (lib.attention_packed_bwd_chunked,
+                 _chunk_args(chunk_tiles, BWD_NAME))
 
   if q.numel() == 0:
     return tuple(torch.empty_like(q) for _ in range(3))
@@ -276,7 +299,7 @@ def attention_packed_bwd(q, k, v, do, num_heads):
   _build.launch(BWD_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), r.data_ptr(), c.data_ptr(), b, l, num_heads,
-                dp, scale_log2(d), scale_f32(d))
+                dp, scale_log2(d), scale_f32(d), *extra)
   _build.LAUNCHES[BWD_NAME] += 1
   return tuple(unpad_heads(t, num_heads, d) for t in (dq, dk, dv))
 
@@ -391,11 +414,10 @@ def attention_bwd_plain(q, k, v, do, scale_dim=None):
 
 @functools.cache
 def _unpacked_lib():
-  """K7's entry point, its length limit (a function of the head dim) and
-  its entry point that streams K and V at every length."""
+  """K7's library (its entry points `attention_unpacked_fwd`, `_streamed`
+  and `_chunked`) and its length limit (a function of the head dim)."""
   lib = _build.library("attention_unpacked")
-  return (lib.attention_unpacked_fwd, lib.attention_unpacked_max_len,
-          lib.attention_unpacked_fwd_streamed)
+  return lib, lib.attention_unpacked_max_len
 
 
 @functools.cache
@@ -418,30 +440,36 @@ def _check_unpacked(name, **tensors):
   return b, l, h, d
 
 
-def attention_unpacked_fwd(q, k, v, streamed=False):
+def attention_unpacked_fwd(q, k, v, streamed=False, chunk_tiles=None):
   """Launches K7 on [B, L, H, D] bf16 contiguous, 16-byte aligned q, k,
-  v, D from 1 to 256 (padded as K3's, `attention_packed_fwd`). No
+  v, D from 1 to 2,048 (padded as K3's, `attention_packed_fwd`). No
   atomics: two launches give the same bits. L up to the kernel's
   `attention_unpacked_max_len(D)`, 4,096 at
   every head dim: a head's K and V stay resident in shared memory up to
   320 keys at D <= 64 (one 64-column tile a head) and 384 at 64 < D <=
   128 (two), and stream through a ring of stages past that, every pass
-  walking the keys again, and at every length at D > 128. `streamed`:
-  stream them at every length (for tests and measurement; the same
-  bits)."""
+  walking the keys again, and at every length at D > 128 (past 256, O's
+  columns four tiles a CTA). `streamed`: stream them at every length
+  (for tests and measurement; the same bits). `chunk_tiles` (1 to 4,
+  tests only): O's column tiles a CTA past D = 256 (the same bits)."""
   b, l, h, d = _check_unpacked(UNPACKED_NAME, q=q, k=k, v=v)
   dp = padded_head_dim(d)
-  fn, max_len, fn_streamed = _unpacked_lib()
+  lib, max_len = _unpacked_lib()
   _require(l <= max_len(dp), f"sequence length {l} > {max_len(dp)} at head "
            f"dim {d}", UNPACKED_NAME)
+  fn, extra = lib.attention_unpacked_fwd, ()
   if streamed:
-    fn = fn_streamed
+    fn = lib.attention_unpacked_fwd_streamed
+  if chunk_tiles is not None:
+    fn, extra = (lib.attention_unpacked_fwd_chunked,
+                 _chunk_args(chunk_tiles, UNPACKED_NAME))
   if q.numel() == 0:
     return torch.empty_like(q)
   q, k, v = (pad_heads(t, 1, dp) for t in (q, k, v))
   o = torch.empty_like(q)
   _build.launch(UNPACKED_NAME, q.device, fn, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), b, l, h, dp, scale_f32(d))
+                v.data_ptr(), o.data_ptr(), b, l, h, dp, scale_f32(d),
+                *extra)
   _build.LAUNCHES[UNPACKED_NAME] += 1
   return unpad_heads(o, 1, d)
 
@@ -465,20 +493,28 @@ def _unpacked_bwd_buffers(q, k, v, do):
   return lib, (b, l, h, d, dp), [q, k, v, do, *grads, *scratch]
 
 
-def attention_unpacked_bwd(q, k, v, do):
+def attention_unpacked_bwd(q, k, v, do, chunk_tiles=None):
   """Launches K8 on [B, L, H, D] bf16 contiguous, 16-byte aligned q, k,
-  v, do, D from 1 to 256 (padded as K3's, `attention_packed_fwd`);
-  returns (dq, dk, dv). Two kernels, dQ and then dK/dV, each output
-  element summed by one warpgroup in a fixed order (no atomics), so two
-  launches give the same bits. L up to `attention_unpacked_bwd_max_len()`,
-  4,096 at every head dim: keys and queries stream through shared memory
-  in 64-row blocks, so nothing there grows with L."""
+  v, do, D from 1 to 2,048 (padded as K3's, `attention_packed_fwd`);
+  returns (dq, dk, dv). Two kernels, dQ and then dK/dV (past D = 256
+  three: the row statistics first), each output element summed by one
+  warpgroup in a fixed order (no atomics), so two launches give the same
+  bits. L up to `attention_unpacked_bwd_max_len()`, 4,096 at every head
+  dim: keys and queries stream through shared memory in 64-row blocks, so
+  nothing there grows with L. `chunk_tiles` (from 1, tests only): at most
+  this many of the outputs' column tiles a CTA past D = 256 (the same
+  bits)."""
   lib, (b, l, h, d, dp), bufs = _unpacked_bwd_buffers(q, k, v, do)
   grads = tuple(bufs[4:7])
   if q.numel() == 0:
     return tuple(unpad_heads(t, 1, d) for t in grads)
-  _build.launch(UNPACKED_BWD_NAME, q.device, lib.attention_unpacked_bwd,
-                *(t.data_ptr() for t in bufs), b, l, h, dp, scale_f32(d))
+  fn, extra = lib.attention_unpacked_bwd, ()
+  if chunk_tiles is not None:
+    fn, extra = (lib.attention_unpacked_bwd_chunked,
+                 _chunk_args(chunk_tiles, UNPACKED_BWD_NAME))
+  _build.launch(UNPACKED_BWD_NAME, q.device, fn,
+                *(t.data_ptr() for t in bufs), b, l, h, dp, scale_f32(d),
+                *extra)
   _build.LAUNCHES[UNPACKED_BWD_NAME] += 1
   return tuple(unpad_heads(t, 1, d) for t in grads)
 
@@ -599,12 +635,13 @@ def _ablate_lib():
 
 def attention_ablate_fwd(q, k, v, num_heads, variant):
   """Launches K9's arm `variant` on (B, L, H*D) bf16 contiguous, 16-byte
-  aligned q, k, v, D from 1 to 256 (padded as K3's,
+  aligned q, k, v, D from 1 to 2,048 (padded as K3's,
   `attention_packed_fwd`: the arms read a padded head's column 0 and
   drop its padded output columns); L up to
   `attention_ablate_max_len(D)`, 4,096 at every head dim (K and V stream
-  past 320 keys at D <= 64 and 384 up to 128, and at every length above).
-  No atomics: two launches give the same bits."""
+  past 320 keys at D <= 64 and 384 up to 128, and at every length above;
+  past D = 256 O's columns four tiles a CTA). No atomics: two launches
+  give the same bits."""
   _require(variant in ABLATE_VARIANTS,
            f"unknown variant {variant!r}, one of {ABLATE_VARIANTS}",
            ABLATE_NAME)

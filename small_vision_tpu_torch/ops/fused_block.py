@@ -12,7 +12,7 @@ under `attn_impl="pallas_fused"`:
   fused_mha:  q, k, v = bf16(f32(x W) + b); per head the max-shift softmax
               attention of `ops.attention.attention_plain`; then
               o = bf16(f32(attn Wo) + bo), on x of width d and H heads of
-              D (1 to 256) with W (d, H*D) and Wo (H*D, d): d = H*D in
+              D (1 to 2,048) with W (d, H*D) and Wo (H*D, d): d = H*D in
               one process, and a tensor rank's H/T heads (d = 768, H = 6
               at UMD-B/4 over two) under the Megatron block
               K6 (`csrc/fused_mha.cu`): a wgmma GEMM with a bias
@@ -255,7 +255,7 @@ def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   """(library, (b, l, d, head_dim)) once the arguments are what K6
   takes: x (B, L, d), q, k, v weights (d, hd) and biases (hd,), the
   out-projection (hd, d) and its bias (d,), hd = num_heads * head_dim, the
-  head dim from 1 to 256, any d (`pad_mha` pads the widths and head dims
+  head dim from 1 to 2,048, any d (`pad_mha` pads the widths and head dims
   the kernels' tiles do not take)."""
   _require(x.is_cuda, "x must be a CUDA tensor", MHA_NAME)
   _require(x.dim() == 3, f"x must be (B, L, d), got {tuple(x.shape)}",
@@ -290,7 +290,7 @@ def fused_mha_max_len(head_dim: int) -> int:
 def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   """Launches K6 on bf16 contiguous x (B, L, d), three (d, H*D) weights
   with (H*D,) biases and the (H*D, d) out-projection with its (d,)
-  bias, D from 1 to 256, any d (d = H*D in one process; a tensor rank's H
+  bias, D from 1 to 2,048, any d (d = H*D in one process; a tensor rank's H
   heads of a wider model under the Megatron block; on copies padded by
   `pad_mha` where d or D is not a multiple of 8): the q, k, v projection,
   the attention (at the true head dim's scale) and the out-projection,

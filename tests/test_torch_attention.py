@@ -84,16 +84,25 @@ def test_check_head_dim_takes_multiples_of_8_up_to_256(hd):
   256 (`heads=4` and `heads=3` at width 768), and the others on heads
   zero-padded to the next multiple of 8: 12 (`heads=32` at UMD-S's 384),
   4 and 1."""
-  assert tattn.MAX_HEAD_DIM == 256
+  assert tattn.MAX_HEAD_DIM >= 256
   tattn.check_head_dim(hd, tattn.NAME)
 
 
-@pytest.mark.parametrize("hd", [264, 0])
+@pytest.mark.parametrize("hd", [264, 384, 768, 1664, 2048])
+def test_check_head_dim_takes_multiples_of_8_up_to_2048(hd):
+  """Past 256, up to 2,048: 264 (a ragged fifth 64-column tile), 384 and
+  768 (`heads=2` and `heads=1` at width 768), 1,664 (ViT-G in one head)
+  and the limit."""
+  assert tattn.MAX_HEAD_DIM == 2048
+  tattn.check_head_dim(hd, tattn.NAME)
+
+
+@pytest.mark.parametrize("hd", [2056, 0])
 def test_check_head_dim_refuses_the_others_by_name(hd):
-  """Past 256, or 0, the named error: no plain route."""
+  """Past 2,048, or 0, the named error: no plain route."""
   with pytest.raises(ValueError,
                      match=f"{tattn.NAME}: head dim {hd}: the kernels take "
-                     "1 to 256"):
+                     "1 to 2048"):
     tattn.check_head_dim(hd, tattn.NAME)
 
 
@@ -169,9 +178,10 @@ def test_scale_log2_is_the_kernels():
 # Head dims K3 now takes beside 64: 8 (the probe's quick config), 16
 # (runlocal, ViT-mu), 80 (ViT-H), 128 (heads=6 at width 768), 192 and 256
 # (heads=4 and heads=3 at width 768: three and four 64-column tiles on the
-# card), these two in two heads; 12 (heads=32 at UMD-S's 384) and 4, which
-# the card runs on heads zero-padded to 16 and 8.
-@pytest.mark.parametrize("hd", [8, 16, 80, 128, 192, 256, 12, 4])
+# card), 384 (heads=2: six tiles, O's columns over two CTAs on the card)
+# and 520 (a ragged ninth tile), these four in two heads; 12 (heads=32 at
+# UMD-S's 384) and 4, which the card runs on heads zero-padded to 16 and 8.
+@pytest.mark.parametrize("hd", [8, 16, 80, 128, 192, 256, 12, 4, 384, 520])
 def test_plain_matches_jax_at_head_dims(hd):
   """The plain forward at head dim hd (3 heads, 2 past 128) against the
   interpreted JAX kernel, with the bounds of the head-dim-64 tests above;

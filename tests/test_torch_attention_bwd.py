@@ -103,10 +103,11 @@ def test_no_grad_takes_the_forward_only():
   assert type(out.grad_fn).__name__ == "AttentionPackedBackward"
 
 
-@pytest.mark.parametrize("hd", [8, 16, 80, 128, 192, 256, 12, 4])
+@pytest.mark.parametrize("hd", [8, 16, 80, 128, 192, 256, 12, 4, 384, 520])
 def test_backward_matches_jax_at_head_dims(hd):
-  """The plain backward (K4's) at head dim hd (3 heads; 2 at 192 and 256,
-  `heads=4` and `heads=3`'s head dims) against the interpreted JAX
+  """The plain backward (K4's) at head dim hd (3 heads; 2 at 192, 256 and
+  384, `heads=4`, `heads=3` and `heads=2`'s head dims, and at 520, a
+  ragged ninth 64-column tile) against the interpreted JAX
   kernel's VJP, with the bounds of the head-dim-64 tests above (f32 and
   bf16)."""
   rng = np.random.default_rng(hd)

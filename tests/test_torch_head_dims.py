@@ -1,15 +1,16 @@
 """Port parity at head dims other than 64: the plain versions of K6 (the
 fused MHA), K7 and K8 (attention on [B, L, H, D] with the max-shift
 softmax, forward and backward) and K9 (the seven ablation arms), whose
-CUDA kernels take every head dim that is a multiple of 8 up to 256, and
-whose wrappers take the others up to 256 on heads zero-padded to one
+CUDA kernels take every head dim that is a multiple of 8 up to 2,048,
+and whose wrappers take the others up to 2,048 on heads zero-padded to one
 (12, `heads=32` at UMD-S's 384, and 4 here).
 
 The same inputs, drawn with numpy, go through the JAX package's Pallas
 kernels in interpret mode (`_mha_pallas`, `pallas_attention`,
 `_pallas_attention_bwd_impl`, and `run_variant`'s kernel body, which the
 script builds for the TPU only) and through the port on the CPU, at head
-dims 8, 16, 80, 128, 192, 256, 12 and 4 with B <= 2 and L <= 70. Each JAX kernel
+dims 8, 16, 80, 128, 192, 256, 12, 4, 384 and 520 with B <= 2 and L <=
+70 (L <= 40 past 256). Each JAX kernel
 derives its head dim from the shapes and scales by f32(D**-0.5), as the
 port does.
 
@@ -41,9 +42,11 @@ SCRIPT = (pathlib.Path(__file__).resolve().parent.parent / "scripts"
 # (head dim, heads, L): the narrow dims of the quick configs, ViT-H's 80,
 # the `heads=6` setting's 128, `heads=4`'s and `heads=3`'s 192 and 256
 # (three and four 64-column tiles a head on the card), and 12 and 4, which
-# are not multiples of 8 (the card's wrappers pad them to 16 and 8).
+# are not multiples of 8 (the card's wrappers pad them to 16 and 8);
+# `heads=2`'s 384 and 520 (six and nine tiles, the last ragged: the card's
+# wide path, O's columns split across CTAs).
 CASES = [(8, 8, 21), (16, 4, 37), (80, 2, 70), (128, 2, 45), (192, 2, 33),
-         (256, 1, 52), (12, 4, 23), (4, 3, 19)]
+         (256, 1, 52), (12, 4, 23), (4, 3, 19), (384, 1, 40), (520, 1, 33)]
 IDS = [f"d{d}" for d, _, _ in CASES]
 B = 2
 DTYPES = {"float32": (jnp.float32, torch.float32),

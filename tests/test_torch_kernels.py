@@ -41,7 +41,7 @@ the variant tables and the narrow widths of the quick configs (32 ... 2,048,
 modulated or not, K2 three launches in a row and on two streams), and K3
 and K4 at head dims 8, 16, 80, 104, 128, 136, 192, 200, 248 and 256 (and
 24, 40, 72, 96, 120), against the plain versions, two launches giving the
-same bits; a width of 2,080 and a head dim of 264 raise the named error,
+same bits; a width of 2,080 and a head dim of 2,056 raise the named error,
 with no plain route. K6, K7, K8 and each arm of K9 at head dims 8, 16, 80,
 88, 104, 128, 136, 192, 200 and 256 (L = 20, 68, 257 and 260) against
 their plain versions in the tests of each at head dim 64, two launches
@@ -58,8 +58,13 @@ the next multiple of 8, in every attention kernel and K6, against the
 plain versions at the true head dim; K5 and K6 at widths that are not
 multiples of 64 (ViT-mu's 32 -> 128 and 2 heads of 16, SigLIP So400m's
 1,152 -> 4,304, a tensor rank's 96 columns) and not multiples of 8 (36 ->
-150, padded); head dims 264 and 0 refused by all six wrappers, with no
-launch.
+150, padded); head dims 2,056 and 0 refused by all six wrappers, with no
+launch. Past 256 (`WIDER_HEAD_DIMS`: 264, 384, 520, 768, 1,024, 1,664 and
+2,048, five to 32 tiles a head) K3, K4, K6, K7, K8 and K9's prod and exp2
+arms at L = 20 and 65, all seven arms at 520, every kernel at 1,024 and
+2,048 from one key to 4,096, two launches of each giving the same bits,
+and every chunk count of the outputs' columns (`chunk_tiles`) giving the
+same bits at 264 and 768.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -278,7 +283,7 @@ def test_attention_kernel_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
-  q = torch.zeros(1, 8, 2 * 264, dtype=torch.bfloat16, device=cuda)
+  q = torch.zeros(1, 8, 2 * 2056, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="head dim"):
     attn.attention_packed_fwd(q, q, q, 2)
   # L up to 4,096 at every head dim (the runs: test_attention_kernel_
@@ -452,7 +457,7 @@ def test_attention_bwd_kernel_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_attention_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
-  q = torch.zeros(1, 8, 2 * 264, dtype=torch.bfloat16, device=cuda)
+  q = torch.zeros(1, 8, 2 * 2056, dtype=torch.bfloat16, device=cuda)
   with pytest.raises(ValueError, match="head dim"):
     attn.attention_packed_bwd(q, q, q, q, 2)
   long = torch.zeros(1, attn._bwd_lib()[1] + 16, 64, dtype=torch.bfloat16,
@@ -699,11 +704,11 @@ def test_fused_mha_refuses_what_the_kernel_does_not_take(cuda):
              _randn((64,), 4, cuda, torch.bfloat16, 0.1)]
   _assert_close_to_max(fb.fused_mha_fwd(*narrow, 16),
                        fb.fused_mha_plain(*narrow, 16), 2)
-  # 2 heads of 264: past the largest head dim.
-  wide = [_randn((1, 8, 528), 5, cuda, torch.bfloat16)] + [
+  # 2 heads of 2,056: past the largest head dim.
+  wide = [_randn((1, 8, 4112), 5, cuda, torch.bfloat16)] + [
       torch.zeros(*shape, dtype=torch.bfloat16, device=cuda)
-      for shape in ((528, 528), (528,)) * 4]
-  with pytest.raises(ValueError, match="head dim 264"):
+      for shape in ((4112, 4112), (4112,)) * 4]
+  with pytest.raises(ValueError, match="head dim 2056"):
     fb.fused_mha_fwd(*wide, 2)
   with pytest.raises(ValueError, match="bfloat16"):
     fb.fused_mha_fwd(args[0].float(), *args[1:], 2)
@@ -884,10 +889,10 @@ def test_unpacked_attention_autograd_and_refusals(cuda):
   attn.fused_attention(q, k, v).backward(do)
   assert dict(_build.LAUNCHES) == {attn.UNPACKED_NAME: 1,
                                    attn.UNPACKED_BWD_NAME: 1}
-  # Head dim 12 runs (on heads padded to 16, `WIDE_HEADS`); 264 is past
+  # Head dim 12 runs (on heads padded to 16, `WIDE_HEADS`); 2,056 is past
   # the largest.
-  bad = torch.zeros(1, 8, 2, 264, dtype=torch.bfloat16, device=cuda)
-  with pytest.raises(ValueError, match="head dim 264"):
+  bad = torch.zeros(1, 8, 2, 2056, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="head dim 2056"):
     attn.attention_unpacked_fwd(bad, bad, bad)
   # K8 takes its limit (4,096: shared memory does not grow with L) and
   # refuses one more.
@@ -1330,10 +1335,10 @@ def _max_shift_at_limits(cuda, l, hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,heads", [(264, 8), (0, 8)])
+@pytest.mark.parametrize("hd,heads", [(2056, 1), (0, 8)])
 def test_max_shift_wrappers_refuse_head_dims_they_do_not_take(cuda, hd,
                                                               heads):
-  """A head dim over 256, or of 0, makes each of K6-K9's wrappers raise on
+  """A head dim over 2,048, or of 0, makes each of K6-K9's wrappers raise on
   the card: no plain route, no CPU. (Head dims that are not multiples of 8
   run: `WIDE_HEADS`, `HEAD_DIMS`.)"""
   width = heads * hd
@@ -1353,13 +1358,13 @@ def test_max_shift_wrappers_refuse_head_dims_they_do_not_take(cuda, hd,
 
 @pytest.mark.cuda
 def test_wrappers_name_the_shapes_the_kernels_refuse(cuda):
-  """A head dim of 264 and a width of 2,080 raise the named error on the
-  card: there is no plain route for a CUDA tensor."""
-  q = torch.zeros(1, 8, 2 * 264, dtype=torch.bfloat16, device=cuda,
+  """A head dim of 2,056 and a width of 2,080 raise the named error on
+  the card: there is no plain route for a CUDA tensor."""
+  q = torch.zeros(1, 8, 2 * 2056, dtype=torch.bfloat16, device=cuda,
                   requires_grad=True)
   for fn in (lambda: attn.attention_packed(q, q, q, 2),
              lambda: attn.attention_packed_bwd(q, q, q, q, 2)):
-    with pytest.raises(ValueError, match="head dim 264"):
+    with pytest.raises(ValueError, match="head dim 2056"):
       fn()
   x, gamma, beta, shift, scale = _ln_args(cuda, 4, True, b=2, d=2080)
   with pytest.raises(ValueError, match="width 2080"):
@@ -1367,3 +1372,122 @@ def test_wrappers_name_the_shapes_the_kernels_refuse(cuda):
   xg = x.requires_grad_()
   with pytest.raises(ValueError, match="width 2080"):
     ln.ln_modulate(xg, gamma, beta, shift, scale)
+
+
+# Head dims past 256, five to 32 tiles a head (S and dP summed over the
+# tiles in a loop, the outputs' columns split across CTAs, every operand
+# through a ring of tile pairs): a ragged fifth tile (264), `heads=2` and
+# `heads=1` at width 768 (384, 768), a ragged ninth (520), UMD-L's width
+# in one head (1,024), ViT-G's (1,664) and the limit (2,048).
+WIDER_HEAD_DIMS = (264, 384, 520, 768, 1024, 1664, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", WIDER_HEAD_DIMS)
+@pytest.mark.parametrize("l", [20, 65])
+def test_attention_kernels_past_head_dim_256(cuda, hd, l):
+  """K3, K4, K6, K7, K8 and K9's prod and exp2 arms at head dim hd (2
+  heads) against their plain versions with the bounds of their tests at
+  head dim 64; two launches of each give the same bits."""
+  q, k, v, do = (_randn((2, l, 2 * hd), 110 + i, cuda, torch.bfloat16)
+                 for i in range(4))
+  got = attn.attention_packed_fwd(q, k, v, 2)
+  assert torch.equal(got, attn.attention_packed_fwd(q, k, v, 2))
+  torch.testing.assert_close(
+      got.float(), attn.attention_packed_plain(q, k, v, 2).float(),
+      rtol=2**-7, atol=2**-7)
+  q4, k4, v4, do4 = (t.view(2, l, 2, hd) for t in (q, k, v, do))
+  got = attn.attention_unpacked_fwd(q4, k4, v4)
+  assert torch.equal(got, attn.attention_unpacked_fwd(q4, k4, v4))
+  torch.testing.assert_close(got.float(),
+                             attn.attention_plain(q4, k4, v4).float(),
+                             rtol=2**-7, atol=2**-7)
+  for bwd, plain, args in (
+      (attn.attention_packed_bwd, attn.attention_packed_bwd_plain,
+       (q, k, v, do, 2)),
+      (attn.attention_unpacked_bwd, attn.attention_bwd_plain,
+       (q4, k4, v4, do4))):
+    grads, again = bwd(*args), bwd(*args)
+    for g, a, w in zip(grads, again, plain(*args)):
+      assert torch.equal(g, a)
+      err = (g.float() - w.float()).abs().max().item()
+      assert err <= 2.0**-6 * w.float().abs().max().item(), err
+  for variant in ("prod", "exp2"):
+    got = attn.attention_ablate_fwd(q, k, v, 2, variant)
+    assert torch.equal(got, attn.attention_ablate_fwd(q, k, v, 2, variant))
+    want = attn.attention_ablate_plain(q, k, v, 2, variant).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= ABLATE_ULPS[variant] * 2.0**-7 * want.abs().max().item()
+  args = _mha_args(cuda, 2, l, 2, hd=hd)
+  got = fb.fused_mha_fwd(*args, 2)
+  assert torch.equal(got, fb.fused_mha_fwd(*args, 2))
+  _assert_close_to_max(got, fb.fused_mha_plain(*args, 2), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", attn.ABLATE_VARIANTS)
+def test_attention_ablate_arms_past_head_dim_256(cuda, variant):
+  """Each of K9's seven arms at head dim 520 (nine tiles, the last ragged;
+  three heads, L = 65) against its plain version, in ABLATE_ULPS."""
+  q, k, v = (_randn((2, 65, 3 * 520), 120 + i, cuda, torch.bfloat16)
+             for i in range(3))
+  got = attn.attention_ablate_fwd(q, k, v, 3, variant)
+  assert torch.equal(got, attn.attention_ablate_fwd(q, k, v, 3, variant))
+  want = attn.attention_ablate_plain(q, k, v, 3, variant).float()
+  err = (got.float() - want).abs().max().item()
+  assert err <= ABLATE_ULPS[variant] * 2.0**-7 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [1024, 2048])
+@pytest.mark.parametrize("l", HD256_LENS)
+def test_attention_kernels_at_wide_head_dim_limits(cuda, l, hd):
+  """Every attention kernel at head dims 1,024 and 2,048 from one key to
+  the common limit, 4,096, against its plain version, two launches giving
+  the same bits, and one past 4,096 refused (as at head dim 256)."""
+  _packed_at_limits(cuda, l, hd)
+  _max_shift_at_limits(cuda, l, hd)
+  q, k, v, do = (_randn((1, l, 2 * hd), 130 + i, cuda, torch.bfloat16)
+                 for i in range(4))
+  q4, k4, v4, do4 = (t.view(1, l, 2, hd) for t in (q, k, v, do))
+  for bwd, plain, args in (
+      (attn.attention_packed_bwd, attn.attention_packed_bwd_plain,
+       (q, k, v, do, 2)),
+      (attn.attention_unpacked_bwd, attn.attention_bwd_plain,
+       (q4, k4, v4, do4))):
+    grads, again, want = bwd(*args), bwd(*args), plain(*args)
+    # dq and dk vanish at L = 1: each output's scale is floored at 1e-3 of
+    # the largest of the three (test_attention_kernels_at_head_dim_256_
+    # limits).
+    top = max(w.float().abs().max().item() for w in want)
+    for g, a, w in zip(grads, again, want):
+      assert torch.equal(g, a)
+      err = (g.float() - w.float()).abs().max().item()
+      assert err <= 2.0**-6 * max(w.float().abs().max().item(), 1e-3 * top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [264, 768])
+def test_wide_head_chunks_give_the_same_bits(cuda, hd):
+  """Past head dim 256 each CTA computes its chunk of the outputs' columns
+  from the whole head's scores: storing 1, 2 or 3 column tiles a CTA
+  (`chunk_tiles`) instead of 4 (K3, K7; K4's and K8's dQ) and 1 instead of
+  2 (their dK and dV) gives the same bits."""
+  q, k, v, do = (_randn((2, 130, 2 * hd), 140 + i, cuda, torch.bfloat16)
+                 for i in range(4))
+  q4, k4, v4, do4 = (t.view(2, 130, 2, hd) for t in (q, k, v, do))
+  o3 = attn.attention_packed_fwd(q, k, v, 2)
+  o7 = attn.attention_unpacked_fwd(q4, k4, v4)
+  g4 = attn.attention_packed_bwd(q, k, v, do, 2)
+  g8 = attn.attention_unpacked_bwd(q4, k4, v4, do4)
+  for ct in (1, 2, 3):
+    assert torch.equal(o3, attn.attention_packed_fwd(q, k, v, 2,
+                                                     chunk_tiles=ct))
+    assert torch.equal(o7, attn.attention_unpacked_fwd(q4, k4, v4,
+                                                       chunk_tiles=ct))
+    for a, b in zip(g4, attn.attention_packed_bwd(q, k, v, do, 2,
+                                                  chunk_tiles=ct)):
+      assert torch.equal(a, b)
+    for a, b in zip(g8, attn.attention_unpacked_bwd(q4, k4, v4, do4,
+                                                    chunk_tiles=ct)):
+      assert torch.equal(a, b)

@@ -18,9 +18,10 @@ and "flax".
   - "xla" and "flax": the forward and the gradients against the JAX model
     under the same setting (XLA ops there; matmuls and a softmax here).
   - Head dim 128 (the `heads` knob's shape): the forward against JAX; head
-    dims 192 (`heads=4`'s) and 12 (`heads=32`'s at UMD-S, which the card
-    runs on heads zero-padded to 16) under "pallas" and "pallas_fused":
-    the forward and the gradients against JAX's interpreted kernels.
+    dims 192 (`heads=4`'s), 384 (`heads=2`'s: the card's wide path) and 12
+    (`heads=32`'s at UMD-S, which the card runs on heads zero-padded to
+    16) under "pallas" and "pallas_fused": the forward and the gradients
+    against JAX's interpreted kernels.
 The training step under `scan=True` and with dropout, and a `scan=True`
 run resumed, are in tests/test_torch_model_settings_step.py.
 """
@@ -59,7 +60,8 @@ def small(extra="", dtype="float32", **model):
     "variant=L/2,size=256,latent_diffusion=True,scan=True",
     "heads=6,scan=True,attn_impl=pallas_fused", "heads=4", "heads=3",
     "heads=4,attn_impl=pallas_fused", "variant=S/4,heads=32",
-    "variant=S/4,heads=32,attn_impl=pallas_fused"])
+    "variant=S/4,heads=32,attn_impl=pallas_fused", "heads=2", "heads=1",
+    "heads=1,attn_impl=pallas_fused"])
 def test_config_dicts_match_jax(arg):
   arg = f"data=synthetic,{arg}"
   got, want = ae_i1k.get_config(arg), jconfig.get_config(arg)
@@ -276,16 +278,13 @@ def test_head_dim_128_forward_matches_jax(scan):
   _close(got.numpy(), np.asarray(want), 1e-5)
 
 
-@pytest.mark.parametrize("attn_impl", ["pallas", "pallas_fused"])
-def test_head_dim_192_step_matches_jax(attn_impl):
-  """Width 384 in 2 heads of 192 (the head dim `heads=4` gives at 768;
-  three 64-column tiles a head on the card), depth 1 + 1, under
-  `attn_impl` (the plain K1-K6 here) against the JAX model under its
-  `*_interpret` setting: the forward and every parameter's gradient of a
-  mean-square loss in f32, with test_reference_attentions_match_jax's
-  bounds."""
-  config = small(attn_impl=attn_impl, width=384, num_heads=2, depth=1,
-                 dec_depth=1)
+def _hold_wide_step(attn_impl, num_heads):
+  """Width 384 in `num_heads` heads, depth 1 + 1, under `attn_impl` (the
+  plain K1-K6 here) against the JAX model under its `*_interpret` setting:
+  the forward and every parameter's gradient of a mean-square loss in
+  f32, with test_reference_attentions_match_jax's bounds."""
+  config = small(attn_impl=attn_impl, width=384, num_heads=num_heads,
+                 depth=1, dec_depth=1)
   params = convert.init_params(config, seed=9)
   rng = np.random.default_rng(5)
   image = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
@@ -299,6 +298,20 @@ def test_head_dim_192_step_matches_jax(attn_impl):
     g = got[name].numpy() if got[name] is not None else np.zeros_like(w)
     err = np.max(np.abs(g - w))
     assert err <= max(1e-4 * np.max(np.abs(w)), 1e-6 * top), (name, err)
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "pallas_fused"])
+def test_head_dim_192_step_matches_jax(attn_impl):
+  """Width 384 in 2 heads of 192 (the head dim `heads=4` gives at 768;
+  three 64-column tiles a head on the card): `_hold_wide_step`."""
+  _hold_wide_step(attn_impl, 2)
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "pallas_fused"])
+def test_head_dim_384_step_matches_jax(attn_impl):
+  """Width 384 in one head of 384 (the head dim `heads=2` gives at 768;
+  six 64-column tiles a head, the card's wide path): `_hold_wide_step`."""
+  _hold_wide_step(attn_impl, 1)
 
 
 @pytest.mark.parametrize("attn_impl", ["pallas", "pallas_fused"])
