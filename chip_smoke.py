@@ -53,7 +53,15 @@ Phases, each fatal on failure:
                UMD-S; run on heads zero-padded to 16) and K3, K4 at head
                dim 4 (32 heads at 128). Head dims 264 and 0 must make each
                of the six wrappers raise, with no launch, and 12 launch
-               each once.
+               each once. K1-K4 in f32 (their f32 instances, "*_f32" in
+               the kernels line) at the model's shapes, timed beside their
+               f32 bounds, plain versions and library calls in f32 (y and
+               dx within 1e-5 of their largest value, the sums, o, dq, dk
+               and dv within 1e-4; K1 and K3 two launches, K2 three and
+               two on two streams at once, K4 two, giving equal bits); K1
+               and K2 in bf16 and f32 at widths 1, 36, 100, 1,000, 2,080,
+               4,096 and 8,192 (timed at 36, 2,080 and 4,096) and f32 K3
+               and K4 at head dims 12, 192 and 768, checked.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
@@ -117,6 +125,19 @@ Phases, each fatal on failure:
                bounds), and its full-depth forward at batch 64, timed as
                phase classifier times, with its K5 and K6 launches. It
                runs after phase heads.
+  4f. f32      UMD-B/4@64 under `dtype_mm="float32"` (the upstream
+               reference's precision) and "pallas", TF32 off (held): (a)
+               the depth-2+1 model and one training step on the card
+               against the CPU's plain f32 path within 1e-3 of the largest
+               prediction and of each gradient leaf's largest value (loss
+               1e-4), the launches exact (K1-K4's f32 instances); (b)
+               full-depth training at batch 256 through
+               `train_and_evaluate` (finite, falling losses, requalified
+               img/s, peak memory, K1 64, K3 32, K2 64, K4 32 a step, all
+               in f32) beside phase train's bf16 reading; (c) one 25-step
+               sampler call at batch 64 (K1 832, K3 416 in f32); (d)
+               "pallas_fused" in f32 raises K6's (or K5's) named error
+               (they take bf16 only). It runs after phase shapes.
   4c. classifier the ViT classifier (`models.vit._ViT`) built by name,
                `models.get_model_module("vit").Model(variant=...,
                num_classes=1000, head_zeroinit=False)`, at 224 px, every
@@ -553,23 +574,31 @@ def model_shapes(train_batch):
       (train_batch, l) for l in TRAIN_SEQS)
 
 
+def _named(name, dtype):
+  """A kernel's name in the kernels line and its launch count: `name`,
+  or its f32 instance's."""
+  return name + "_f32" if dtype == torch.float32 else name
+
+
 def check_ln(ln, card, width=WIDTH, train_batch=TRAIN_BATCH // 2,
-             timed=True):
-  """K1 against its plain version, modulated and not, two launches giving
-  equal bits, at `model_shapes(train_batch)`; returns its kernels-line
-  entry (times of the modulated call at the sampler's encoder shape on
-  top, the training shapes' under `by_len`; with `timed` False, checked
-  only)."""
+             timed=True, dtype=torch.bfloat16, shapes=None):
+  """K1 in `dtype` against its plain version, modulated and not, two
+  launches giving equal bits, at `shapes` (by default
+  `model_shapes(train_batch)`); returns its kernels-line entry (times of
+  the modulated call at the first shape on top, the others' under
+  `by_len`; the sampler's decoder shape and, with `timed` False, every
+  shape checked only)."""
   gen = torch.Generator(device="cuda").manual_seed(0)
   randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
   gamma = 1.0 + 0.1 * randn(width)
   beta = 0.1 * randn(width)
+  name = _named(ln.NAME, dtype)
   max_err, timing, by_len = 0.0, None, {}
-  for b, seq in model_shapes(train_batch):
+  for b, seq in shapes or model_shapes(train_batch):
     # shift/scale as the block makes them: column slices of the AdaLN output.
-    mods = (0.5 * randn(b, 6 * width)).to(torch.bfloat16)
+    mods = (0.5 * randn(b, 6 * width)).to(dtype)
     shift, scale = mods.chunk(6, dim=-1)[:2]
-    x = (2.0 * randn(b, seq, width) + 0.5).to(torch.bfloat16)
+    x = (2.0 * randn(b, seq, width) + 0.5).to(dtype)
     for mod in ((shift, scale), (None, None)):
       args = (x, gamma, beta, *mod)
       got = ln.ln_modulate_fwd(*args)
@@ -577,24 +606,31 @@ def check_ln(ln, card, width=WIDTH, train_batch=TRAIN_BATCH // 2,
       ref = ln.ln_modulate_plain(*args).float()
       torch.cuda.synchronize()
       if not torch.equal(got, again):
-        fail(f"ln_modulate_fwd B={b} L={seq} D={width}: two launches differ")
+        fail(f"{name} B={b} L={seq} D={width}: two launches differ")
       err = (got.float() - ref).abs()
-      # One bf16 ulp of the output (2^-7 relative), plus f32 rounding of
-      # the O(1) intermediates, which may tip a value across a bf16 tie.
-      bad = (err > 2.0**-7 * ref.abs() + 1e-5).sum().item()
+      if dtype == torch.float32:
+        # f32 throughout; the row's two sums in another order: 1e-5 of
+        # the largest output.
+        bad = (err > 1e-5 * ref.abs().max()).sum().item()
+        what = "over 1e-5 of max |y|"
+      else:
+        # One bf16 ulp of the output (2^-7 relative), plus f32 rounding of
+        # the O(1) intermediates, which may tip a value across a bf16 tie.
+        bad = (err > 2.0**-7 * ref.abs() + 1e-5).sum().item()
+        what = "over 1 bf16 ulp"
       max_err = max(max_err, err.max().item())
-      print(f"[kernels] ln_modulate_fwd B={b} L={seq} D={width} "
+      print(f"[kernels] {name} B={b} L={seq} D={width} "
             f"modulate={mod[0] is not None}: max abs err "
-            f"{err.max().item():.3e}, {bad} elements over 1 bf16 ulp, two "
+            f"{err.max().item():.3e}, {bad} elements {what}, two "
             "launches equal", flush=True)
       if bad:
-        fail(f"ln_modulate_fwd disagrees with its plain version ({bad})")
+        fail(f"{name} disagrees with its plain version ({bad})")
     if (b, seq) == (BATCH, SEQ_DEC) or not timed:
       continue  # the decoder's sampler shape is checked, not timed
     args = (x, gamma, beta, shift, scale)
     g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
-    n = b * seq * width
-    bytes_moved = 2 * n * 2 + 2 * width * 4 + 2 * b * width * 2
+    n, esize = b * seq * width, x.element_size()
+    bytes_moved = 2 * n * esize + 2 * width * 4 + 2 * b * width * esize
     bound_ms, bound_by = _bound(bytes_moved, 9 * n, F32_FLOPS)
     # 200 launches, as for K3 (50 read 0.023 and 0.057 ms at (128, 68,
     # 1024) in two calls). A call's host time, 24-44 us by K3's reading
@@ -607,7 +643,7 @@ def check_ln(ln, card, width=WIDTH, train_batch=TRAIN_BATCH // 2,
             x, (width,), g16, b16, 1e-6) * (1 + scale[:, None])
                            + shift[:, None], iters=200),
         bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] ln_modulate_fwd B={b} L={seq} D={width} modulated: "
+    print(f"[kernels] {name} B={b} L={seq} D={width} modulated: "
           f"{_fmt(entry)} (layer_norm+modulate as library; {bytes_moved} "
           f"bytes) on {card}", flush=True)
     if timing is None:
@@ -616,15 +652,16 @@ def check_ln(ln, card, width=WIDTH, train_batch=TRAIN_BATCH // 2,
       by_len[seq] = entry
   if not timed:
     return dict(max_abs_err=max_err)
-  return dict(name=ln.NAME, route="cuda",
+  return dict(name=name, route="cuda",
               source="small_vision_tpu_torch/csrc/ln_modulate.cu",
               replaces="small_vision_tpu/ops/layernorm.py:78",
               max_abs_err=max_err, **timing, by_len=by_len)
 
 
 def check_attention(attn, card, width=WIDTH, heads=HEADS,
-                    train_batch=TRAIN_BATCH // 2, timed=True, shapes=None):
-  """K3 against its plain version at `shapes`, by default
+                    train_batch=TRAIN_BATCH // 2, timed=True, shapes=None,
+                    dtype=torch.bfloat16):
+  """K3 in `dtype` against its plain version at `shapes`, by default
   `model_shapes(train_batch)` (the sampler's shapes, batch 64, L = 260 and
   257, and the training shapes, L = 68, 164, 257), two launches giving
   equal bits at each; returns its kernels-line entry (times at the first
@@ -632,35 +669,42 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
   shape is checked, not timed)."""
   gen = torch.Generator(device="cuda").manual_seed(1)
   head_dim = width // heads
+  name = _named(attn.NAME, dtype)
+  f32 = dtype == torch.float32
   max_err, timing, by_len = 0.0, None, {}
   for b, seq in shapes or model_shapes(train_batch):
     q, k, v = (torch.randn(b, seq, width, generator=gen,
-                           device="cuda").to(torch.bfloat16)
+                           device="cuda").to(dtype)
                for _ in range(3))
     got = attn.attention_packed_fwd(q, k, v, heads)
     again = attn.attention_packed_fwd(q, k, v, heads)
     ref = attn.attention_packed_plain(q, k, v, heads).float()
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-      fail(f"attention_packed_fwd B={b} L={seq} H={heads}: two launches "
-           "differ")
+      fail(f"{name} B={b} L={seq} H={heads}: two launches differ")
     err = (got.float() - ref).abs()
-    # Two bf16 ulps at unit magnitude (outputs are convex mixes of N(0,1)
-    # values): the f32 score sums run in another order, which may round a
-    # weight e to the neighbouring bf16 value, and o itself is bf16.
-    bad = (err > 1e-2 + 1e-2 * ref.abs()).sum().item()
+    if f32:
+      # f32 throughout: score and value sums over D and L in another
+      # order, through exp2 of scores of a few units: 1e-4 of the largest
+      # output.
+      bad = (err > 1e-4 * ref.abs().max()).sum().item()
+    else:
+      # Two bf16 ulps at unit magnitude (outputs are convex mixes of N(0,1)
+      # values): the f32 score sums run in another order, which may round a
+      # weight e to the neighbouring bf16 value, and o itself is bf16.
+      bad = (err > 1e-2 + 1e-2 * ref.abs()).sum().item()
     max_err = max(max_err, err.max().item())
-    print(f"[kernels] attention_packed_fwd B={b} L={seq} H={heads}: max abs "
+    print(f"[kernels] {name} B={b} L={seq} H={heads}: max abs "
           f"err {err.max().item():.3e}, {bad} elements over tolerance, two "
           "launches equal", flush=True)
     if bad:
-      fail(f"attention_packed_fwd disagrees with its plain version ({bad})")
+      fail(f"{name} disagrees with its plain version ({bad})")
     if (b, seq) == (BATCH, SEQ_DEC) or not timed:
       continue  # the decoder's sampler shape is checked, not timed
     split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
-    bound_ms, bound_by = _bound(4 * b * seq * width * 2,
+    bound_ms, bound_by = _bound(4 * b * seq * width * q.element_size(),
                                 4 * b * heads * seq * seq * head_dim,
-                                BF16_FLOPS)
+                                F32_FLOPS if f32 else BF16_FLOPS)
     # 200 launches: at L=68 a launch takes 0.05 ms, and 50 of them read
     # two clock states apart from call to call.
     entry = dict(
@@ -673,7 +717,7 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
                 split(q), split(k), split(v)), iters=200),
         library_backend=sdpa_backend(split(q), split(k), split(v)),
         bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] attention_packed_fwd B={b} L={seq} H={heads} "
+    print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: {_fmt(entry)} (sdpa as library) on {card}",
           flush=True)
     if timing is None:
@@ -682,6 +726,11 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
       by_len[seq] = entry
   if not timed:
     return dict(max_abs_err=max_err)
+  if f32:
+    return dict(name=name, route="cuda",
+                source="small_vision_tpu_torch/csrc/attention_packed_f32.cu",
+                replaces="small_vision_tpu/ops/attention.py:312",
+                max_abs_err=max_err, **timing, by_len=by_len)
   # Host time of one call at a shape the card finishes at once (one batch
   # element, 64 tokens): the wrapper's checks, the encoding of the three
   # tensor maps and the launch, best of 5 runs of 500 calls.
@@ -703,21 +752,24 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
               host_us=min(runs))
 
 
-def check_ln_bwd(ln, card, width=WIDTH, b=TRAIN_BATCH // 2, timed=True):
-  """K2 against its plain version at the training shapes (per-branch
-  batch `b`, L = 68, 164, 257), modulated and not, three launches in a
-  row giving equal bits, two at once on two streams giving the bits of the
-  same two in turn; timed beside its bound and its library call."""
+def check_ln_bwd(ln, card, width=WIDTH, b=TRAIN_BATCH // 2, timed=True,
+                 dtype=torch.bfloat16, seqs=TRAIN_SEQS):
+  """K2 in `dtype` against its plain version at the training shapes
+  (per-branch batch `b`, L = `seqs`, by default 68, 164, 257), modulated
+  and not, three launches in a row giving equal bits, two at once on two
+  streams giving the bits of the same two in turn; timed beside its bound
+  and its library call."""
   gen = torch.Generator(device="cuda").manual_seed(2)
   randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
   gamma = 1.0 + 0.1 * randn(width)
   beta = 0.1 * randn(width)
-  mods = (0.5 * randn(b, 6 * width)).to(torch.bfloat16)
+  mods = (0.5 * randn(b, 6 * width)).to(dtype)
   shift, scale = mods.chunk(6, dim=-1)[:2]
+  name = _named(ln.BWD_NAME, dtype)
   max_err, by_len, cases = 0.0, {}, {}
-  for seq in TRAIN_SEQS:
-    x = (2.0 * randn(b, seq, width) + 0.5).to(torch.bfloat16)
-    dy = randn(b, seq, width).to(torch.bfloat16)
+  for seq in seqs:
+    x = (2.0 * randn(b, seq, width) + 0.5).to(dtype)
+    dy = randn(b, seq, width).to(dtype)
     mean = torch.empty(b, seq, device="cuda")
     rstd = torch.empty_like(mean)
     ln.ln_modulate_fwd(x, gamma, beta, shift, scale, mean=mean, rstd=rstd)
@@ -732,14 +784,17 @@ def check_ln_bwd(ln, card, width=WIDTH, b=TRAIN_BATCH // 2, timed=True):
       torch.cuda.synchronize()
       if not all(torch.equal(g, a) for other in again
                  for g, a in zip(got, other) if g is not None):
-        fail(f"ln_modulate_bwd B={b} L={seq} D={width}: three launches "
-             "differ")
+        fail(f"{name} B={b} L={seq} D={width}: three launches differ")
       dx, dx_want = got[0].float(), want[0].float()
       err = (dx - dx_want).abs()
-      # dx: one bf16 ulp (rounding either way) plus f32 noise; the sums:
-      # f32 sums of 128*L O(1) terms in another order, relative to the
-      # largest.
-      bad = int((err > 2.0**-7 * dx_want.abs() + 1e-3).sum())
+      # dx: in bf16 one bf16 ulp (rounding either way) plus f32 noise, in
+      # f32 1e-5 of the largest (the row's two sums in another order); the
+      # sums: f32 sums of 128*L O(1) terms in another order, relative to
+      # the largest.
+      if dtype == torch.float32:
+        bad = int((err > 1e-5 * dx_want.abs().max()).sum())
+      else:
+        bad = int((err > 2.0**-7 * dx_want.abs() + 1e-3).sum())
       worst = err.max().item()
       for g, w in zip(got[1:], want[1:]):
         if w is not None:
@@ -747,25 +802,25 @@ def check_ln_bwd(ln, card, width=WIDTH, b=TRAIN_BATCH // 2, timed=True):
           worst = max(worst, e)
           bad += int(e > 1e-4 * w.abs().max().item())
       max_err = max(max_err, worst)
-      print(f"[kernels] ln_modulate_bwd B={b} L={seq} D={width} modulate="
+      print(f"[kernels] {name} B={b} L={seq} D={width} modulate="
             f"{sc is not None}: max abs err {worst:.3e}, {bad} over "
             "tolerance, three launches equal", flush=True)
       if bad:
-        fail(f"ln_modulate_bwd disagrees with its plain version ({bad})")
+        fail(f"{name} disagrees with its plain version ({bad})")
     if not timed:
       continue
     args = (x, dy, mean, rstd, gamma, beta, scale)
     # The library yardstick: autograd of F.layer_norm + modulate, on a
     # retained graph.
     xg = x.clone().requires_grad_()
-    g16 = gamma.to(torch.bfloat16).requires_grad_()
-    b16 = beta.to(torch.bfloat16).requires_grad_()
+    g16 = gamma.to(dtype).requires_grad_()
+    b16 = beta.to(dtype).requires_grad_()
     sh, scl = (t.clone().requires_grad_() for t in (shift, scale))
     y = (torch.nn.functional.layer_norm(xg, (width,), g16, b16, 1e-6)
          * (1 + scl[:, None]) + sh[:, None])
-    n = b * seq * width
+    n, esize = b * seq * width, x.element_size()
     bound_ms, bound_by = _bound(
-        3 * n * 2 + 2 * b * seq * 4 + 4 * width * 4 + b * width * 2
+        3 * n * esize + 2 * b * seq * 4 + 4 * width * 4 + b * width * esize
         + 2 * b * width * 4, 14 * n, F32_FLOPS)
     # `ms` times calls through the wrapper, as for every other kernel. A
     # call's checks and allocations can take as long on the host as K2 on
@@ -777,21 +832,21 @@ def check_ln_bwd(ln, card, width=WIDTH, b=TRAIN_BATCH // 2, timed=True):
         library_ms=time_ms(lambda: torch.autograd.grad(
             y, (xg, g16, b16, sh, scl), dy, retain_graph=True)),
         bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] ln_modulate_bwd B={b} L={seq} D={width} modulated: "
+    print(f"[kernels] {name} B={b} L={seq} D={width} modulated: "
           + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                       for k, v in by_len[seq].items())
           + (f" (device_ms before the tickets moved into the launch's "
              f"scratch, PR 10: {K2_DEVICE_MS_BEFORE[seq]:.4f})"
-             if width == WIDTH else "") + f" on {card}",
-          flush=True)
-  _check_ln_bwd_two_streams(ln, [cases[(TRAIN_SEQS[-1], True)],
-                                 cases[(TRAIN_SEQS[0], False)]])
+             if width == WIDTH and dtype == torch.bfloat16 else "")
+          + f" on {card}", flush=True)
+  _check_ln_bwd_two_streams(ln, [cases[(seqs[-1], True)],
+                                 cases[(seqs[0], False)]])
   if not timed:
     return dict(max_abs_err=max_err)
-  return dict(name=ln.BWD_NAME, route="cuda",
+  return dict(name=name, route="cuda",
               source="small_vision_tpu_torch/csrc/ln_modulate_bwd.cu",
               replaces="small_vision_tpu/ops/layernorm.py:185",
-              max_abs_err=max_err, **by_len[TRAIN_SEQS[-1]],
+              max_abs_err=max_err, **by_len[seqs[-1]],
               by_len=by_len)
 
 
@@ -823,50 +878,55 @@ def _check_ln_bwd_two_streams(ln, cases):
 
 
 def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
-                        b=TRAIN_BATCH // 2, timed=True, shapes=None):
-  """K4 against its plain version at `shapes`, by default the training
-  shapes (per-branch batch `b`, L = 68, 164, 257), two launches giving
-  equal bits; timed there where `timed`."""
+                        b=TRAIN_BATCH // 2, timed=True, shapes=None,
+                        dtype=torch.bfloat16):
+  """K4 in `dtype` against its plain version at `shapes`, by default the
+  training shapes (per-branch batch `b`, L = 68, 164, 257), two launches
+  giving equal bits; timed there where `timed`."""
   gen = torch.Generator(device="cuda").manual_seed(3)
   head_dim = width // heads
+  name = _named(attn.BWD_NAME, dtype)
+  f32 = dtype == torch.float32
   max_err, by_len = 0.0, {}
   for b, seq in shapes or tuple((b, l) for l in TRAIN_SEQS):
     q, k, v, do = (torch.randn(b, seq, width, generator=gen,
-                               device="cuda").to(torch.bfloat16)
+                               device="cuda").to(dtype)
                    for _ in range(4))
     got = attn.attention_packed_bwd(q, k, v, do, heads)
     again = attn.attention_packed_bwd(q, k, v, do, heads)
     want = attn.attention_packed_bwd_plain(q, k, v, do, heads)
     torch.cuda.synchronize()
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
-      fail(f"attention_packed_bwd B={b} L={seq} H={heads}: two launches "
-           "differ")
+      fail(f"{name} B={b} L={seq} H={heads}: two launches differ")
     worst, bad = 0.0, 0
     top = max(w.float().abs().max().item() for w in want)
     for g, w in zip(got, want):
-      # bf16 outputs of f32 sums over L; a sum in another order may flip
-      # the bf16 rounding of an e, dO*r or dS input of a product: a few
-      # bf16 ulps of the largest output. dq and dk vanish at L = 1 (one
-      # key: dS is 0 but for roundings), so each output's scale is floored
-      # at 1e-3 of the largest of the three, as in the card tests.
+      # bf16: bf16 outputs of f32 sums over L; a sum in another order may
+      # flip the bf16 rounding of an e, dO*r or dS input of a product: a
+      # few bf16 ulps of the largest output. f32: the same sums in another
+      # order, nothing rounded to bf16: 1e-4 of the largest output. dq and
+      # dk vanish at L = 1 (one key: dS is 0 but for roundings), so each
+      # output's scale is floored at 1e-3 of the largest of the three, as
+      # in the card tests.
       e = (g.float() - w.float()).abs().max().item()
       worst = max(worst, e)
-      bad += int(e > 2.0**-6 * max(w.float().abs().max().item(), 1e-3 * top))
+      bad += int(e > (1e-4 if f32 else 2.0**-6) * max(
+          w.float().abs().max().item(), 1e-3 * top))
     max_err = max(max_err, worst)
-    print(f"[kernels] attention_packed_bwd B={b} L={seq} H={heads}: max "
+    print(f"[kernels] {name} B={b} L={seq} H={heads}: max "
           f"abs err {worst:.3e}, {bad} outputs over tolerance, two launches "
           "equal", flush=True)
     if bad:
-      fail(f"attention_packed_bwd disagrees with its plain version ({bad})")
+      fail(f"{name} disagrees with its plain version ({bad})")
     if not timed:
       continue
     split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
     qs, ks, vs = (split(t).detach().requires_grad_() for t in (q, k, v))
     o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
     dos = split(do)
-    bound_ms, bound_by = _bound(7 * b * seq * width * 2,
+    bound_ms, bound_by = _bound(7 * b * seq * width * q.element_size(),
                                 5 * 2 * b * heads * seq * seq * head_dim,
-                                BF16_FLOPS)
+                                F32_FLOPS if f32 else BF16_FLOPS)
     by_len[seq] = dict(
         ms=time_ms(lambda: attn.attention_packed_bwd(q, k, v, do, heads)),
         plain_ms=time_ms(lambda: attn.attention_packed_bwd_plain(
@@ -875,14 +935,16 @@ def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
             o, (qs, ks, vs), dos, retain_graph=True)),
         library_backend=sdpa_backend(qs, ks, vs),
         bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] attention_packed_bwd B={b} L={seq} H={heads} "
+    print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: " + ", ".join(
               f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
               for k, v in by_len[seq].items()) + f" on {card}", flush=True)
   if not timed:
     return dict(max_abs_err=max_err)
-  return dict(name=attn.BWD_NAME, route="cuda",
-              source="small_vision_tpu_torch/csrc/attention_packed_bwd.cu",
+  return dict(name=name, route="cuda",
+              source=("small_vision_tpu_torch/csrc/attention_packed_f32.cu"
+                      if f32 else
+                      "small_vision_tpu_torch/csrc/attention_packed_bwd.cu"),
               replaces="small_vision_tpu/ops/attention.py:411",
               max_abs_err=max_err, **by_len[TRAIN_SEQS[-1]],
               by_len=by_len)
@@ -1365,6 +1427,21 @@ WIDER_CHECK_SHAPES = ((4, 65), (2, 257))
 # One head of 1,024 and one of 2,048 at batch 1 from one key to the limit,
 # every attention kernel, checked: (head dim, lengths).
 WIDER_LONG = ((1024, (1, 65, 1024, 4096)), (2048, (1, 65, 1024, 4096)))
+# K1 and K2 at the widths that the bf16 instances do not take (phase
+# kernels), in bf16 and f32: (width, timed). One column, 36 (the narrow
+# model of the CPU tests), 100 (4-element vectors), 1,000 (not a multiple
+# of 32), 2,080 (two warps a row), 4,096 and 8,192 (eight warps a row,
+# MAX_WIDTH); timed at 36, 2,080 and 4,096. K1 at the sampler's (64, 260)
+# and the decoder's training shape (128, 257), K2 at the latter.
+NEW_LN_WIDTHS = ((1, False), (36, True), (100, False), (1000, False),
+                 (2080, True), (4096, True), (8192, False))
+NEW_WIDTH_SHAPES = ((BATCH, SEQ_ENC), (TRAIN_BATCH // 2, SEQ_DEC))
+# K3 and K4 in f32 at head dims other than 64, checked: (width, heads,
+# (batch, length)s). `heads=32`'s 12 at UMD-S's 384 and `heads=4`'s 192 at
+# the sampler's and the decoder's training shape, `heads=1`'s 768 (twelve
+# column chunks a head, each recomputing the scores) at WIDER_CHECK_SHAPES.
+F32_HEAD_DIMS = ((384, 32, NEW_WIDTH_SHAPES), (768, 4, NEW_WIDTH_SHAPES),
+                 (768, 1, WIDER_CHECK_SHAPES))
 
 
 def _wide_head_entries(attn, fb, card, width, heads, timed_shapes,
@@ -1482,12 +1559,25 @@ def _dropout_masks(rng, config, n, rate):
   return masks
 
 
+# phase_model's bounds (forward, loss, gradients), relative to the largest
+# prediction, the CPU's loss and each leaf's largest gradient. bf16: a few
+# bf16 roundings (2^-8 each) that the two devices' summation orders place
+# differently, through three blocks and the head. f32 (dtype_mm="float32",
+# TF32 off on the card): the same f32 arithmetic in another summation
+# order, nothing rounded to bf16; 1e-3 leaves room for the orders of the
+# card's and the CPU's matmuls over 768 and 3,072 terms in three blocks and
+# their backward.
+MODEL_BOUNDS = (3e-2, 1e-2, 5e-2)
+MODEL_BOUNDS_F32 = (1e-3, 1e-4, 1e-3)
+
+
 def phase_model(build, card, attn_impl, setting="", extra="", model=None,
-                per_block=None, dropout=0.0):
+                per_block=None, dropout=0.0, bounds=MODEL_BOUNDS):
   """Full-width model at depth 2 + 1 under `attn_impl` (and the config
   string `extra`, the model's fields `model`): card (kernels) against CPU
   (plain), the sampler's forward and one training step's loss and
-  gradients, with `per_block` the launches a block makes in the step."""
+  gradients, with `per_block` the launches a block makes in the step,
+  within `bounds` (MODEL_BOUNDS, or MODEL_BOUNDS_F32 in f32)."""
   from small_vision_tpu_torch import convert
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.train import train_ae
@@ -1513,9 +1603,10 @@ def phase_model(build, card, attn_impl, setting="", extra="", model=None,
   print(f"[model] {label}: forward (3, 64, 64, 3) of {variant} at full "
         f"width, depth 2+1, t = {t.tolist()}: max abs err {err:.3e} of max "
         f"|pred| {scale:.3e}", flush=True)
-  # bf16 matmuls summed in another order on the two devices: a few bf16
-  # roundings (2^-8 relative each) through three blocks and the head.
-  if not err <= 3e-2 * scale:
+  # MODEL_BOUNDS: bf16 matmuls summed in another order on the two devices:
+  # a few bf16 roundings (2^-8 relative each) through three blocks and the
+  # head (f32: MODEL_BOUNDS_F32).
+  if not err <= bounds[0] * scale:
     fail(f"model forward on the card differs from the CPU by {err:.3e}")
 
   # One training step at batch 8 (4 + 4), with draws made here.
@@ -1559,21 +1650,22 @@ def phase_model(build, card, attn_impl, setting="", extra="", model=None,
         f"{worst:.3e} ({worst_name}); launches {launches} on {card}",
         flush=True)
   # The loss is an f32 mean over bf16 predictions (see the forward above).
-  if not loss_rel <= 1e-2:
+  if not loss_rel <= bounds[1]:
     fail(f"training loss on the card differs from the CPU by {loss_rel:.2e}")
-  if not worst <= 5e-2:
+  if not worst <= bounds[2]:
     fail(f"training gradients on the card differ from the CPU: {worst:.3e} "
          f"of leaf max at {worst_name}")
 
 
 def phase_train(build, card, attn_impl, quant="", tag="train", extra="",
-                per_block=None, variant="B/4", windows=False):
+                per_block=None, variant="B/4", windows=False, model=None):
   """The full UMD-<variant>@64 training step at batch 256 through
   `train_and_evaluate`, on synthetic data from `init_train_params`, under
   `attn_impl` (and the model's `quant`, phase quant; the config string
-  `extra` and a block's launches `per_block`, phase settings); with its
-  peak memory. With `windows` the run is `window_run_steps()` long and its
-  img/s the requalified median of its windows (`qualified_steps`)."""
+  `extra` and a block's launches `per_block`, phase settings; the model's
+  fields `model`, phase f32); with its peak memory. With `windows` the
+  run is `window_run_steps()` long and its img/s the requalified median of
+  its windows (`qualified_steps`)."""
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.train import train_ae
 
@@ -1582,7 +1674,9 @@ def phase_train(build, card, attn_impl, quant="", tag="train", extra="",
       f"variant={variant},size=64,data=synthetic,batch_size={TRAIN_BATCH},"
       f"total_steps={steps},log_steps=1,eval_steps=-1,"
       f"attn_impl={attn_impl},quant={quant}{extra}")
-  what = f"{attn_impl}{', ' + quant if quant else ''}{extra}"
+  config["model"].update(model or {})
+  what = f"{attn_impl}{', ' + quant if quant else ''}{extra}" + "".join(
+      f", {k}={v}" for k, v in (model or {}).items())
   if variant != "B/4":
     what = f"UMD-{variant} {what}"
   torch.cuda.empty_cache()
@@ -1671,10 +1765,12 @@ def _warm_sampler(config, params):
 
 
 def phase_sample_call(build, card, attn_impl, quant="", tag="serve",
-                      extra="", windows=False, steps=125):
+                      extra="", windows=False, steps=125, model=None,
+                      per_block=None):
   """One sampler call of `steps` DDIM steps (the config's 125, or
   SIDE_SAMPLER_STEPS) at batch 64 under `attn_impl` (and the model's
-  `quant`, phase quant; the config string `extra`, phase settings),
+  `quant`, phase quant; the config string `extra`, phase settings; the
+  model's fields `model` and a block's launches `per_block`, phase f32),
   through `build_sample_callable` (what the server calls), with its ms a
   forward; with `windows`, then the requalified median of single
   calls."""
@@ -1683,9 +1779,11 @@ def phase_sample_call(build, card, attn_impl, quant="", tag="serve",
 
   config = ae_i1k.get_config(f"variant=B/4,size=64,samples_per_call={BATCH},"
                              f"attn_impl={attn_impl},quant={quant}{extra}")
+  config["model"].update(model or {})
   config["diff_schedule"] = dict(config["diff_schedule"],
                                  sampling_timesteps=steps)
-  what = f"{attn_impl}{', ' + quant if quant else ''}{extra}"
+  what = f"{attn_impl}{', ' + quant if quant else ''}{extra}" + "".join(
+      f", {k}={v}" for k, v in (model or {}).items())
   params = _card_params(config, seed=0)
   sample = export_sampler.build_sample_callable(
       config, params, fn="uncond_eps", batch_size=BATCH, device="cuda")
@@ -1700,8 +1798,8 @@ def phase_sample_call(build, card, attn_impl, quant="", tag="serve",
         f"= {BATCH / sampler_s:.2f} img/s at batch {BATCH}, {fwd_ms:.2f} ms "
         f"a forward on {card}", flush=True)
   _check_images(images, BATCH)
-  per_block = (BLOCK_SAMPLE_LAUNCHES_INT8 if quant else
-               BLOCK_SAMPLE_LAUNCHES)[attn_impl]
+  per_block = per_block or (BLOCK_SAMPLE_LAUNCHES_INT8 if quant else
+                            BLOCK_SAMPLE_LAUNCHES)[attn_impl]
   want = _times(per_block, BLOCKS * (steps + 1))
   print(f"[{tag}] {what}: kernel launches in the call: {launches}, "
         f"model says {want} and no other kernel", flush=True)
@@ -3643,6 +3741,78 @@ def phase_shapes(build, card, settings):
 
 
 # ---------------------------------------------------------------------------
+# Phase f32: UMD-B/4@64 under `dtype_mm="float32"` (the upstream
+# reference's precision) and "pallas": K1-K4 in f32, on the card in f32
+# (TF32 off).
+
+F32_MODEL = {"dtype_mm": "float32"}
+# A block's launches under "pallas" in f32: the f32 instances of K1-K4.
+BLOCK_TRAIN_LAUNCHES_F32 = {_named(k, torch.float32): v for k, v in
+                            BLOCK_TRAIN_LAUNCHES["pallas"].items()}
+BLOCK_SAMPLE_LAUNCHES_F32 = {_named(k, torch.float32): v for k, v in
+                             BLOCK_SAMPLE_LAUNCHES["pallas"].items()}
+
+
+def _f32_fused_refused(build, card):
+  """The depth-2+1 model under "pallas_fused" in f32 on the card: its
+  forward raises K6's or K5's named ValueError (they take bf16 only), with
+  no K5 or K6 launch."""
+  from small_vision_tpu_torch import convert
+  from small_vision_tpu_torch.configs import ae_i1k
+  from small_vision_tpu_torch.train import train_ae
+
+  config = ae_i1k.get_config("batch_size=8,attn_impl=pallas_fused")
+  config["model"].update(depth=2, dec_depth=1, **F32_MODEL)
+  model = train_ae.build_model(config, device="cuda")
+  model.load_state_dict(convert.params_from_jax(_card_params(config, 1),
+                                                model))
+  x = torch.randn(3, 64, 64, 3, device="cuda")
+  t = torch.tensor([1, 500, 1000], device="cuda")
+  build.reset_launches()
+  try:
+    with torch.inference_mode():
+      model(x, t=t)
+  except ValueError as e:
+    if not re.match(r"(fused_mha_fwd|fused_mlp_fwd): ", str(e)):
+      fail(f"pallas_fused in f32 raised another error: {e}")
+    said = str(e)
+  else:
+    fail("pallas_fused in f32 ran on the card")
+  fused = {k: n for k, n in build.LAUNCHES.items() if k.startswith("fused")}
+  if fused:
+    fail(f"pallas_fused in f32 launched {fused}")
+  print(f"[f32] pallas_fused, dtype_mm=float32: the forward raises "
+        f"ValueError \"{said[:120]}\" (K5 and K6 take bf16 only), no K5 or "
+        f"K6 launch, on {card}", flush=True)
+
+
+def phase_f32(build, card):
+  """UMD-B/4@64 under `dtype_mm="float32"` and "pallas", on the card with
+  TF32 off (held: it must be off when the phase runs): (a) the depth-2+1
+  model and one training step on the card against the CPU's plain f32
+  path within MODEL_BOUNDS_F32, the launches exact (the f32 instances of
+  K1-K4 only); (b) full-depth training at batch 256 through
+  `train_and_evaluate` (finite, falling losses, requalified img/s, peak
+  memory, K1 64, K3 32, K2 64, K4 32 launches a step, all in f32); (c)
+  one 25-step sampler call at batch 64 (K1 832, K3 416, in f32); (d)
+  "pallas_fused" in f32 raises K6's or K5's named error."""
+  if (torch.backends.cuda.matmul.allow_tf32
+      or torch.backends.cudnn.allow_tf32
+      or torch.get_float32_matmul_precision() != "highest"):
+    fail("TF32 is on: the f32 model's products would not be f32")
+  phase_model(build, card, "pallas", "dtype_mm=float32", model=F32_MODEL,
+              per_block=BLOCK_TRAIN_LAUNCHES_F32, bounds=MODEL_BOUNDS_F32)
+  out = {"train": phase_train(build, card, "pallas", tag="f32",
+                              per_block=BLOCK_TRAIN_LAUNCHES_F32,
+                              windows=True, model=F32_MODEL)}
+  out["sampler"] = phase_sample_call(
+      build, card, "pallas", tag="f32", steps=SIDE_SAMPLER_STEPS,
+      model=F32_MODEL, per_block=BLOCK_SAMPLE_LAUNCHES_F32)
+  _f32_fused_refused(build, card)
+  return out
+
+
+# ---------------------------------------------------------------------------
 # Phase classifier: the ViT classifier (models/vit.py's `_ViT`) at 224 px
 # and at the ViT paper's fine-tuning resolutions.
 
@@ -4812,6 +4982,35 @@ def main():
     more[f"long_1x{head_dim}"] = _wide_head_entries(
         attn, fb, card, head_dim, 1, (), tuple((1, l) for l in lens),
         ("prod", "exp2"))
+  mark("kernels past head dim 256")
+  # K1-K4 in f32 at the main path's shapes (phase f32's), timed beside
+  # their bounds (f32: 67 TFLOP/s or 3.35 TB/s), plain versions and
+  # library calls in f32: "*_f32" in the kernels line.
+  f32 = torch.float32
+  kernels += [check_ln(ln, card, dtype=f32),
+              check_attention(attn, card, dtype=f32),
+              check_ln_bwd(ln, card, dtype=f32),
+              check_attention_bwd(attn, card, dtype=f32)]
+  # K1 and K2 at the widths the bf16 instances do not take, in bf16 and
+  # f32 ("width_<D>" in the kernels line), and f32 K3/K4 at head dims 12,
+  # 192 and 768 ("head_dim_<D>").
+  for width, timed in NEW_LN_WIDTHS:
+    for dtype in (torch.bfloat16, f32):
+      more.setdefault(f"width_{width}", {}).update({
+          _named(ln.NAME, dtype): check_ln(ln, card, width, timed=timed,
+                                           dtype=dtype,
+                                           shapes=NEW_WIDTH_SHAPES),
+          _named(ln.BWD_NAME, dtype): check_ln_bwd(
+              ln, card, width, timed=timed, dtype=dtype,
+              seqs=(SEQ_DEC,))})
+  for width, heads, shapes in F32_HEAD_DIMS:
+    more.setdefault(f"head_dim_{width // heads}", {}).update({
+        attn.NAME_F32: check_attention(attn, card, width, heads,
+                                       timed=False, shapes=shapes,
+                                       dtype=f32),
+        attn.BWD_NAME_F32: check_attention_bwd(attn, card, width, heads,
+                                               timed=False, shapes=shapes,
+                                               dtype=f32)})
   gc.collect()
   torch.cuda.empty_cache()  # the plain versions' (B, H, L, L) scores
   check_refused_head_dims(attn, fb, build)
@@ -4841,6 +5040,8 @@ def main():
   mark("heads")
   shapes = phase_shapes(build, card, settings)
   mark("shapes")
+  by_f32 = phase_f32(build, card)
+  mark("f32")
   data = phase_data(build, card, train["pallas"])
   mark("data")
   unpacked = phase_unpacked(build, attn, card)
@@ -4939,6 +5140,9 @@ def main():
            shapes[a]["launches"].get(name, 0) for a in ATTN_IMPLS},
         "shapes_vit_mu_forward_pallas_fused":
             shapes["cls"]["launches"].get(name, 0),
+        f"f32_train_pallas_{by_f32['train']['steps']}_steps":
+            by_f32["train"]["launches"].get(name, 0),
+        "f32_sampler_pallas": by_f32["sampler"]["launches"].get(name, 0),
         f"parallel_a_nccl_{PARALLEL_STEPS}_steps":
             parallel["a"]["launch"]["launches"].get(name, 0),
         **{f"parallel_b_fsdp2_process{r}_{PARALLEL_STEPS}_steps":
@@ -5069,6 +5273,18 @@ def main():
         f"{settings['c']['img_per_s']:.2f} img/s); (b) ViT-{VIT_MU}@{CLS_SIZE}"
         f" forward under pallas_fused {qual_text(cm['qual'])} at batch "
         f"{CLS_BATCH}, launches {cm['launches']}; on {card}", flush=True)
+
+  ft, fs = by_f32["train"], by_f32["sampler"]
+  print(f"[result] f32: UMD-B/4@64 dtype_mm=float32 under pallas: training "
+        f"{qual_text(ft['qual'])}, {ft['ms']:.2f} ms/step, peak "
+        f"{ft['peak_gb']:.2f} GB (bf16, phase train: "
+        f"{train['pallas']['img_per_s']:.2f} img/s, "
+        f"peak {train['pallas']['peak_gb']:.2f} GB); sampler "
+        f"{fs['fwd_ms']:.2f} ms a forward, {fs['s']:.3f} s a "
+        f"{SIDE_SAMPLER_STEPS}-step call (bf16, phase serve: "
+        f"{_fwd_ms(serve['pallas']):.2f}); launches a training step "
+        + str({k: v // ft["steps"] for k, v in ft["launches"].items()})
+        + f"; on {card}", flush=True)
 
   pa, pf, pp = parallel["a"], parallel["fsdp"], parallel["pipe"]
   print(f"[result] parallel: (a) fsdp=True on NCCL, one rank "

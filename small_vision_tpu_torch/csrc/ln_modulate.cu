@@ -25,10 +25,27 @@
 // values stay in registers for the variance pass, as the TPU kernel's
 // two-pass mean((x - mean)^2) does. D is any multiple of 32 up to 2,048:
 // every width of the ViT and UMD variant tables.
+//
+// Every other input runs `ln_modulate_fwd_any_kernel` (the entry point
+// `ln_modulate_fwd_any`): x, y, shift and scale in f32 (the TPU kernel is
+// generic in x's dtype: `dtype_mm="float32"` runs it in f32), and bf16 rows
+// of any other width, from 1 to 8,192. Its element type E is a template
+// parameter; gamma, beta and the statistics stay f32. A row's width need
+// not be a multiple of the 16-byte vector, so the caller gives the vector
+// VEC (1, 2, 4 or 8 elements, at most 16 bytes) that divides the width and
+// the modulation's row stride and to which every pointer is aligned: rows
+// then start on VEC-element boundaries, and no tensor is padded. Past
+// 1,024 columns a row no longer fits one warp's registers (32 values a
+// lane), so kW = 2, 4 or 8 warps share it, and its two sums cross the
+// warps through shared memory (added in warp order, so two launches give
+// the same bits). Both the f32 kernel and the narrow-vector ones stay
+// bound by memory: f32 doubles the bytes and changes nothing else.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sv_vec.cuh"
 
 namespace {
 
@@ -163,10 +180,194 @@ cudaError_t launch(const __nv_bfloat16* x, const float* gamma,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Any dtype and width (the entry point `ln_modulate_fwd_any`).
+// ---------------------------------------------------------------------------
+
+using sv_vec::kAnyMaxWidth;
+using sv_vec::kLaneValues;
+using sv_vec::load_vec;
+using sv_vec::store_vec;
+
+// The sum of v over the kW warps of a row (the warp's shuffles, then, for
+// kW > 1, the warps' sums through `partial` in warp order). Every thread of
+// the block calls it (the rows of a block run in step).
+template <int kW>
+__device__ __forceinline__ float row_sum(float v, float* partial) {
+  v = team_sum<32>(v);
+  if (kW == 1) return v;
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) partial[warp] = v;
+  __syncthreads();
+  const int first = warp / kW * kW;
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kW; ++w) s += partial[first + w];
+  return s;
+}
+
+// kW warps a row, kWarpsPerBlock / kW rows a block; lane q of a row's
+// kW * 32 threads owns its vectors q, q + 32 kW, ... (kNV of them at most,
+// kNV * VEC = kLaneValues), the last masked where they do not divide the
+// row's d / VEC vectors.
+template <typename E, int VEC, int kW>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ln_modulate_fwd_any_kernel(const E* __restrict__ x,
+                           const float* __restrict__ gamma,
+                           const float* __restrict__ beta,
+                           const E* __restrict__ shift,
+                           const E* __restrict__ scale, int mod_stride,
+                           E* __restrict__ y, float* __restrict__ mean_out,
+                           float* __restrict__ rstd_out, int rows,
+                           int seq_len, int d, float eps) {
+  constexpr int kTeam = kW * 32;
+  constexpr int kNV = kLaneValues / VEC;
+  constexpr int kRowsPerBlock = kWarpsPerBlock / kW;
+  __shared__ float partial[2][kWarpsPerBlock];
+  const int q = threadIdx.x % kTeam;
+  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kTeam;
+  const bool live = row < rows;  // dead rows still join the sums
+  const int nvec = d / VEC;
+
+  const E* xr = x + static_cast<size_t>(live ? row : 0) * d;
+  float v[kNV][VEC];
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < kNV; ++i) {
+    const int vec = q + i * kTeam;
+    if (live && vec < nvec) {
+      load_vec<E, VEC>(xr + vec * VEC, v[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) v[i][j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) sum += v[i][j];
+  }
+  const float mean = row_sum<kW>(sum, partial[0]) / d;
+
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < kNV; ++i) {
+    const bool valid = q + i * kTeam < nvec;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      v[i][j] = valid ? v[i][j] - mean : 0.f;
+      sq += v[i][j] * v[i][j];
+    }
+  }
+  const float var = row_sum<kW>(sq, partial[1]) / d;
+  const float rstd = rsqrtf(var + eps);
+  if (!live) return;
+  if (mean_out != nullptr && q == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
+
+  const int b = row / seq_len;
+  E* yr = y + static_cast<size_t>(row) * d;
+#pragma unroll
+  for (int i = 0; i < kNV; ++i) {
+    const int vec = q + i * kTeam;
+    if (vec >= nvec) continue;
+    const int col = vec * VEC;
+    float out[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      out[j] = v[i][j] * rstd * gamma[col + j] + beta[col + j];
+    }
+    if (shift != nullptr) {
+      float sh[VEC], sc[VEC];
+      load_vec<E, VEC>(shift + static_cast<size_t>(b) * mod_stride + col, sh);
+      load_vec<E, VEC>(scale + static_cast<size_t>(b) * mod_stride + col, sc);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) out[j] = out[j] * (1.f + sc[j]) + sh[j];
+    }
+    store_vec<E, VEC>(yr + col, out);
+  }
+}
+
+template <typename E, int VEC, int kW>
+cudaError_t launch_any(const void* x, const void* gamma, const void* beta,
+                       const void* shift, const void* scale, int mod_stride,
+                       void* y, void* mean, void* rstd, int rows,
+                       int seq_len, int d, float eps, cudaStream_t s) {
+  constexpr int kRowsPerBlock = kWarpsPerBlock / kW;
+  const dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+  ln_modulate_fwd_any_kernel<E, VEC, kW><<<grid, kWarpsPerBlock * 32, 0, s>>>(
+      static_cast<const E*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const E*>(shift),
+      static_cast<const E*>(scale), mod_stride, static_cast<E*>(y),
+      static_cast<float*>(mean), static_cast<float*>(rstd), rows, seq_len, d,
+      eps);
+  return cudaGetLastError();
+}
+
+template <typename E, int VEC>
+cudaError_t launch_any_width(const void* x, const void* gamma,
+                             const void* beta, const void* shift,
+                             const void* scale, int mod_stride, void* y,
+                             void* mean, void* rstd, int rows, int seq_len,
+                             int d, float eps, cudaStream_t s) {
+  const int w = sv_vec::warps_a_row(d);
+#define SV_LN_ANY_CASE(W)                                                   \
+  if (w == W) {                                                             \
+    return launch_any<E, VEC, W>(x, gamma, beta, shift, scale, mod_stride, \
+                                 y, mean, rstd, rows, seq_len, d, eps, s); \
+  }
+  SV_LN_ANY_CASE(1)
+  SV_LN_ANY_CASE(2)
+  SV_LN_ANY_CASE(4)
+  SV_LN_ANY_CASE(8)
+#undef SV_LN_ANY_CASE
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Widest row the kernel takes; any multiple of 32 up to it.
 extern "C" int ln_modulate_max_width() { return kMaxWidth; }
+
+// Widest row `ln_modulate_fwd_any` takes; every width from 1 up to it.
+extern "C" int ln_modulate_any_max_width() { return kAnyMaxWidth; }
+
+// K1 at any width from 1 to 8,192, in bf16 (f32 == 0) or f32 (f32 == 1):
+// x, y: (rows = B*L, d) contiguous, and shift, scale: (B, d) rows
+// `mod_stride` elements apart or both null, all in that dtype; gamma,
+// beta: (d,) f32; mean, rstd: (rows,) f32 or both null. vec: the elements
+// of a load (1, 2, 4, or 8 in bf16), which divides d and mod_stride and to
+// which every pointer of x's dtype is aligned. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for another width or vector.
+extern "C" int ln_modulate_fwd_any(const void* x, const void* gamma,
+                                   const void* beta, const void* shift,
+                                   const void* scale, int mod_stride, void* y,
+                                   void* mean, void* rstd, int rows,
+                                   int seq_len, int d, float eps, int f32,
+                                   int vec, void* stream) {
+  if (d < 1 || d > kAnyMaxWidth || vec < 1 || d % vec != 0 ||
+      vec * (f32 ? 4 : 2) > 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SV_LN_ANY_VEC(E, V)                                                 \
+  if (vec == V) {                                                           \
+    return static_cast<int>(launch_any_width<E, V>(                         \
+        x, gamma, beta, shift, scale, mod_stride, y, mean, rstd, rows,      \
+        seq_len, d, eps, s));                                               \
+  }
+  if (f32) {
+    SV_LN_ANY_VEC(float, 1)
+    SV_LN_ANY_VEC(float, 2)
+    SV_LN_ANY_VEC(float, 4)
+  } else {
+    SV_LN_ANY_VEC(__nv_bfloat16, 1)
+    SV_LN_ANY_VEC(__nv_bfloat16, 2)
+    SV_LN_ANY_VEC(__nv_bfloat16, 4)
+    SV_LN_ANY_VEC(__nv_bfloat16, 8)
+  }
+#undef SV_LN_ANY_VEC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // x, y: (rows = B*L, d) bf16, contiguous. gamma, beta: (d,) f32.
 // shift, scale: (B, d) bf16 rows `mod_stride` elements apart, or both null.

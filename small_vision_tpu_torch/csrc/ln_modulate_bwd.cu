@@ -59,10 +59,30 @@
 // keep the serial tail short: one CTA summing all 128 partials would read
 // 786 KB through one SM after every other CTA has finished; a group's last
 // CTA reads 98 KB while other CTAs still run, the very last 49 KB.
+//
+// Every other input runs `ln_modulate_bwd_any_kernel` (the entry point
+// `ln_modulate_bwd_any`): x, dy, dx and scale in f32 (the TPU kernel is
+// generic in x's dtype), and bf16 rows of any other width, from 1 to
+// 8,192. Its element type E is a template parameter; the statistics,
+// gamma, beta and every sum stay f32. The caller gives the vector VEC (1,
+// 2, 4 or 8 elements, at most 16 bytes) that divides the width and the
+// modulation's row stride and to which every pointer is aligned, so rows
+// of any width are read and written in place, unpadded. It keeps this
+// kernel's plan (one CTA per batch row, the same partials, tickets and
+// fixed-order sums over the batch in the same work buffer, so two launches
+// give the same bits) with a simpler pipe: the lanes load their row from
+// device memory, no bulk copies (whose spans must be multiples of 16 bytes
+// at 16-byte aligned addresses, which a row of another width is not). A
+// row of up to 1,024 columns is one warp's (32 values a lane); past that
+// kW = 2, 4 or 8 warps share it, and its two sums cross the warps through
+// shared memory in warp order. The teams' column sums are added in team
+// order through shared memory (2 d f32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sv_vec.cuh"
 
 #include "sm90.cuh"
 
@@ -449,10 +469,255 @@ cudaError_t launch(const void* x, const void* dy, const void* mean,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Any dtype and width (the entry point `ln_modulate_bwd_any`).
+// ---------------------------------------------------------------------------
+
+using sv_vec::kAnyMaxWidth;
+using sv_vec::kLaneValues;
+using sv_vec::load_vec;
+using sv_vec::store_vec;
+using sv_vec::to_f32;
+
+// out[idx] = the sum over k < count, in the order of k, of base[k * 2 d +
+// idx], for every idx < 2 d (a loop over columns: any width).
+__device__ __forceinline__ void sum_partials_any(const float* base,
+                                                 int count, int d,
+                                                 float* out) {
+  for (int idx = threadIdx.x; idx < 2 * d; idx += kThreads) {
+    float s = 0.f;
+    for (int k = 0; k < count; ++k) {
+      s += __ldcg(base + static_cast<size_t>(k) * 2 * d + idx);
+    }
+    out[idx] = s;
+  }
+}
+
+// One CTA per batch row b; teams of kW warps take the rows k, k + kTeams,
+// ... of b, lane q of a team owning the vectors q, q + 32 kW, ... of VEC
+// columns (kNV at most, kNV * VEC = kLaneValues), the last masked. work
+// and tickets as the kernel above. Dynamic shared memory: 2 d f32.
+template <typename E, int VEC, int kW>
+__global__ void __launch_bounds__(kThreads, 1)
+ln_modulate_bwd_any_kernel(const E* __restrict__ x, const E* __restrict__ dy,
+                           const float* __restrict__ mean,
+                           const float* __restrict__ rstd,
+                           const float* __restrict__ gamma,
+                           const float* __restrict__ beta,
+                           const E* __restrict__ scale, int mod_stride,
+                           E* __restrict__ dx, float* __restrict__ dgamma,
+                           float* __restrict__ dbeta,
+                           float* __restrict__ dshift,
+                           float* __restrict__ dscale,
+                           float* __restrict__ work,
+                           unsigned int* __restrict__ tickets, int batch,
+                           int seq_len, int d) {
+  constexpr int kTeam = kW * 32;
+  constexpr int kTeams = kThreads / kTeam;
+  constexpr int kNV = kLaneValues / VEC;
+  extern __shared__ __align__(16) float red[];  // [2][d]: A, then C
+  __shared__ float exchange[2][kWarps][2];      // [parity][warp][s1, s2]
+  __shared__ unsigned int ticket;
+  const int b = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int q = threadIdx.x % kTeam;
+  const int team = threadIdx.x / kTeam;
+  const int nvec = d / VEC;
+  const size_t batch_row0 = static_cast<size_t>(b) * seq_len;
+
+  float g[kNV][VEC], ops[kNV][VEC], acc_a[kNV][VEC], acc_c[kNV][VEC];
+#pragma unroll
+  for (int i = 0; i < kNV; ++i) {
+    const int vec = q + i * kTeam;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      g[i][e] = ops[i][e] = 1.f;
+      acc_a[i][e] = acc_c[i][e] = 0.f;
+    }
+    if (vec < nvec) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) g[i][e] = gamma[vec * VEC + e];
+      if (scale != nullptr) {
+        load_vec<E, VEC>(scale + static_cast<size_t>(b) * mod_stride +
+                             vec * VEC, ops[i]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) ops[i][e] = 1.f + ops[i][e];
+      }
+    }
+  }
+
+  const int steps = (seq_len + kTeams - 1) / kTeams;
+  for (int j = 0; j < steps; ++j) {
+    const int row = j * kTeams + team;
+    const bool live = row < seq_len;
+    const size_t off = (batch_row0 + (live ? row : 0)) * d;
+    const float mu = live ? mean[batch_row0 + row] : 0.f;
+    const float rs = live ? rstd[batch_row0 + row] : 0.f;
+    float xh[kNV][VEC], dv[kNV][VEC];
+#pragma unroll
+    for (int i = 0; i < kNV; ++i) {
+      const int vec = q + i * kTeam;
+      if (live && vec < nvec) {
+        load_vec<E, VEC>(x + off + vec * VEC, xh[i]);
+        load_vec<E, VEC>(dy + off + vec * VEC, dv[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) xh[i][e] = dv[i][e] = 0.f;
+      }
+    }
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kNV; ++i) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        xh[i][e] = (xh[i][e] - mu) * rs;
+        acc_a[i][e] += dv[i][e];
+        acc_c[i][e] += dv[i][e] * xh[i][e];
+        dv[i][e] = dv[i][e] * ops[i][e] * g[i][e];  // dxhat
+        s1 += dv[i][e];
+        s2 += dv[i][e] * xh[i][e];
+      }
+    }
+    s1 = team_sum<32>(s1);
+    s2 = team_sum<32>(s2);
+    if (kW > 1) {  // the team's warps' sums, added in warp order
+      if (threadIdx.x % 32 == 0) {
+        exchange[j & 1][warp][0] = s1;
+        exchange[j & 1][warp][1] = s2;
+      }
+      __syncthreads();
+      const int first = warp / kW * kW;
+      s1 = s2 = 0.f;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        s1 += exchange[j & 1][first + w][0];
+        s2 += exchange[j & 1][first + w][1];
+      }
+    }
+    if (!live) continue;
+    const float m1 = s1 / d;
+    const float m2 = s2 / d;
+#pragma unroll
+    for (int i = 0; i < kNV; ++i) {
+      const int vec = q + i * kTeam;
+      if (vec >= nvec) continue;
+      float out[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        out[e] = rs * (dv[i][e] - m1 - xh[i][e] * m2);
+      }
+      store_vec<E, VEC>(dx + off + vec * VEC, out);
+    }
+  }
+
+  // The teams' A and C, added in team order into red.
+  for (int t = 0; t < kTeams; ++t) {
+    __syncthreads();
+    if (team != t) continue;
+#pragma unroll
+    for (int i = 0; i < kNV; ++i) {
+      const int vec = q + i * kTeam;
+      if (vec >= nvec) continue;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int col = vec * VEC + e;
+        red[col] = t == 0 ? acc_a[i][e] : red[col] + acc_a[i][e];
+        red[d + col] = t == 0 ? acc_c[i][e] : red[d + col] + acc_c[i][e];
+      }
+    }
+  }
+  __syncthreads();
+  float* part = work + static_cast<size_t>(b) * 2 * d;
+  for (int col = threadIdx.x; col < d; col += kThreads) {
+    const float a = red[col], c = red[d + col];
+    float op = 1.f;
+    if (scale != nullptr) {
+      op += to_f32(scale[static_cast<size_t>(b) * mod_stride + col]);
+      dshift[static_cast<size_t>(b) * d + col] = a;
+      dscale[static_cast<size_t>(b) * d + col] = gamma[col] * c + beta[col] * a;
+    }
+    part[col] = op * c;
+    part[d + col] = op * a;
+  }
+
+  const int group = b / kGroup;
+  const int g0 = group * kGroup;
+  const int in_group = min(kGroup, batch - g0);
+  if (!last_to_arrive(tickets + group, in_group, &ticket)) return;
+  sum_partials_any(work + static_cast<size_t>(g0) * 2 * d, in_group, d,
+                   work + (static_cast<size_t>(batch) + group) * 2 * d);
+  const int groups = num_groups(batch);
+  if (!last_to_arrive(tickets + groups, groups, &ticket)) return;
+  // The group partials in group order: row 0 into dgamma, row 1 into
+  // dbeta.
+  for (int idx = threadIdx.x; idx < 2 * d; idx += kThreads) {
+    float s = 0.f;
+    for (int k = 0; k < groups; ++k) {
+      s += __ldcg(work + (static_cast<size_t>(batch) + k) * 2 * d + idx);
+    }
+    (idx < d ? dgamma : dbeta)[idx % d] = s;
+  }
+}
+
+template <typename E, int VEC, int kW>
+cudaError_t launch_any(const void* x, const void* dy, const void* mean,
+                       const void* rstd, const void* gamma, const void* beta,
+                       const void* scale, int mod_stride, void* dx,
+                       void* dgamma, void* dbeta, void* dshift, void* dscale,
+                       void* work, int batch, int seq_len, int d,
+                       cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(2) * d * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_modulate_bwd_any_kernel<E, VEC, kW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  unsigned int* tickets = reinterpret_cast<unsigned int*>(
+      static_cast<float*>(work) +
+      static_cast<size_t>(batch + num_groups(batch)) * 2 * d);
+  err = cudaMemsetAsync(tickets, 0,
+                        (num_groups(batch) + 1) * sizeof(unsigned int), s);
+  if (err != cudaSuccess) return err;
+  ln_modulate_bwd_any_kernel<E, VEC, kW><<<batch, kThreads, smem, s>>>(
+      static_cast<const E*>(x), static_cast<const E*>(dy),
+      static_cast<const float*>(mean), static_cast<const float*>(rstd),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const E*>(scale), mod_stride, static_cast<E*>(dx),
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+      static_cast<float*>(dshift), static_cast<float*>(dscale),
+      static_cast<float*>(work), tickets, batch, seq_len, d);
+  return cudaGetLastError();
+}
+
+template <typename E, int VEC>
+cudaError_t launch_any_width(const void* x, const void* dy, const void* mean,
+                             const void* rstd, const void* gamma,
+                             const void* beta, const void* scale,
+                             int mod_stride, void* dx, void* dgamma,
+                             void* dbeta, void* dshift, void* dscale,
+                             void* work, int batch, int seq_len, int d,
+                             cudaStream_t s) {
+  const int w = sv_vec::warps_a_row(d);
+#define SV_LN_BWD_ANY_CASE(W)                                               \
+  if (w == W) {                                                             \
+    return launch_any<E, VEC, W>(x, dy, mean, rstd, gamma, beta, scale,     \
+                                 mod_stride, dx, dgamma, dbeta, dshift,     \
+                                 dscale, work, batch, seq_len, d, s);       \
+  }
+  SV_LN_BWD_ANY_CASE(1)
+  SV_LN_BWD_ANY_CASE(2)
+  SV_LN_BWD_ANY_CASE(4)
+  SV_LN_BWD_ANY_CASE(8)
+#undef SV_LN_BWD_ANY_CASE
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Widest row the kernel takes; any multiple of 32 up to it.
 extern "C" int ln_modulate_bwd_max_width() { return kMaxWidth; }
+
+// Widest row `ln_modulate_bwd_any` takes; every width from 1 up to it.
+extern "C" int ln_modulate_bwd_any_max_width() { return kAnyMaxWidth; }
 
 // Number of 4-byte words the caller allocates in `work`: the (2, d) f32
 // partials of the batch rows and of the groups, then the ticket counters.
@@ -512,5 +777,45 @@ extern "C" int ln_modulate_bwd(const void* x, const void* dy,
   SV_LN_BWD_CASE(64, 3)
   SV_LN_BWD_CASE(64, 4)
 #undef SV_LN_BWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2 at any width from 1 to 8,192, in bf16 (f32 == 0) or f32 (f32 == 1):
+// the arguments of `ln_modulate_bwd`, with x, dy, dx and scale in that
+// dtype, and vec: the elements of a load (1, 2, 4, or 8 in bf16), which
+// divides d and mod_stride and to which every pointer of x's dtype is
+// aligned. work: ln_modulate_bwd_work_words(batch, seq_len, d) words.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for another width
+// or vector or more than 65,536 batch rows.
+extern "C" int ln_modulate_bwd_any(const void* x, const void* dy,
+                                   const void* mean, const void* rstd,
+                                   const void* gamma, const void* beta,
+                                   const void* scale, int mod_stride,
+                                   void* dx, void* dgamma, void* dbeta,
+                                   void* dshift, void* dscale, void* work,
+                                   int batch, int seq_len, int d, int f32,
+                                   int vec, void* stream) {
+  if (num_groups(batch) > kMaxGroups || d < 1 || d > kAnyMaxWidth ||
+      vec < 1 || d % vec != 0 || vec * (f32 ? 4 : 2) > 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SV_LN_BWD_ANY_VEC(E, V)                                             \
+  if (vec == V) {                                                           \
+    return static_cast<int>(launch_any_width<E, V>(                         \
+        x, dy, mean, rstd, gamma, beta, scale, mod_stride, dx, dgamma,      \
+        dbeta, dshift, dscale, work, batch, seq_len, d, s));                \
+  }
+  if (f32) {
+    SV_LN_BWD_ANY_VEC(float, 1)
+    SV_LN_BWD_ANY_VEC(float, 2)
+    SV_LN_BWD_ANY_VEC(float, 4)
+  } else {
+    SV_LN_BWD_ANY_VEC(__nv_bfloat16, 1)
+    SV_LN_BWD_ANY_VEC(__nv_bfloat16, 2)
+    SV_LN_BWD_ANY_VEC(__nv_bfloat16, 4)
+    SV_LN_BWD_ANY_VEC(__nv_bfloat16, 8)
+  }
+#undef SV_LN_BWD_ANY_VEC
   return static_cast<int>(cudaErrorInvalidValue);
 }

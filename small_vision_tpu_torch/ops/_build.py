@@ -43,13 +43,28 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # {source stem: {C entry point: its argument types}}. Every entry point
 # returns an int: a cudaError_t, a length limit or a count.
 SIGNATURES = {
+    # `*_any`: every other dtype (f32) and width, with the dtype (1 for
+    # f32) and the elements of a load.
     "ln_modulate": {
         "ln_modulate_fwd": [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _I, _F, _P],
-        "ln_modulate_max_width": []},
+        "ln_modulate_fwd_any": [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _I, _F,
+                                                             _I, _I, _P],
+        "ln_modulate_max_width": [],
+        "ln_modulate_any_max_width": []},
     "ln_modulate_bwd": {
         "ln_modulate_bwd": [_P] * 7 + [_I] + [_P] * 6 + [_I, _I, _I, _P],
+        "ln_modulate_bwd_any": [_P] * 7 + [_I] + [_P] * 6 + [_I, _I, _I, _I,
+                                                             _I, _P],
         "ln_modulate_bwd_work_words": [_I, _I, _I],
-        "ln_modulate_bwd_max_width": []},
+        "ln_modulate_bwd_max_width": [],
+        "ln_modulate_bwd_any_max_width": []},
+    # K3 and K4 in f32 (SIMT): the forward, and the backward's three
+    # kernels with the r and c scratch.
+    "attention_packed_f32": {
+        "attention_packed_f32_fwd": [_P] * 4 + [_I, _I, _I, _I, _F, _P],
+        "attention_packed_f32_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P],
+        "attention_packed_f32_max_len": [],
+        "attention_packed_f32_max_head_dim": []},
     # `*_fwd_streamed`: K and V streamed at every length (tests and
     # measurement; a tree from before it has no such entry point).
     # `*_chunked`: past head dim 256, fewer output column tiles a CTA than

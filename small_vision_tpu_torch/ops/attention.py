@@ -11,8 +11,14 @@ The forward is K3 (`csrc/attention_packed.cu`), the backward K4
 `attention_packed` runs the plain versions for tensors on the CPU and the
 kernels for CUDA tensors, and raises for a CUDA tensor a kernel does not
 take. Without gradients (the sampler) it is K3 alone; with gradients it
-goes through `AttentionPacked`. Every kernel here takes any head dim from 1
-to 2,048 (`MAX_HEAD_DIM`; `heads=4` at width 768 gives 192, `heads=3` 256,
+goes through `AttentionPacked`. K3 and K4 take bf16 and f32 (the TPU
+kernels are generic in the dtype; `dtype_mm="float32"` runs them in f32):
+f32 inputs run their f32 instances (`csrc/attention_packed_f32.cu`, plain
+f32 FMA, no TF32), at every head dim from 1 to 2,048 and L up to 4,096
+with no padding, and count under `NAME_F32` / `BWD_NAME_F32`; what
+follows is of the bf16 kernels. K7, K8 and K9 (and K5 and K6) take bf16
+only. Every kernel here takes any head dim from 1 to 2,048
+(`MAX_HEAD_DIM`; `heads=4` at width 768 gives 192, `heads=3` 256,
 `heads=2` 384, `heads=1` 768, `heads=32` at UMD-S's 384 gives 12): the
 kernels run multiples of 8, so the wrappers lay the heads of any other out
 at the next multiple of 8 with zero columns (`pad_heads`), launch at that
@@ -61,6 +67,9 @@ BWD_NAME = "attention_packed_bwd"
 UNPACKED_NAME = "attention_unpacked_fwd"
 UNPACKED_BWD_NAME = "attention_unpacked_bwd"
 ABLATE_NAME = "attention_ablate"
+# Launch counts of K3's and K4's f32 instances.
+NAME_F32 = "attention_packed_fwd_f32"
+BWD_NAME_F32 = "attention_packed_bwd_f32"
 # The arms of K9, in the order of the kernel's `variant` argument.
 ABLATE_VARIANTS = ("prod", "nosoftmax", "nomm", "bf16exp", "exp2", "mulmask",
                    "nomax")
@@ -185,6 +194,13 @@ def _bwd_lib():
   return lib, lib.attention_packed_bwd_max_len()
 
 
+@functools.cache
+def _f32_lib():
+  """K3's and K4's f32 library and its length limit."""
+  lib = _build.library("attention_packed_f32")
+  return lib, lib.attention_packed_f32_max_len()
+
+
 def _chunk_args(chunk_tiles, name):
   """The trailing argument of a `_chunked` entry point: `chunk_tiles`, the
   output column tiles a CTA stores past head dim 256 (from 1)."""
@@ -197,16 +213,19 @@ def _require(cond, msg, name=NAME):
     raise ValueError(f"{name}: {msg}")
 
 
-def _check_each(name, first, tensors):
-  """Each of `tensors` a contiguous bf16 tensor of `first`'s shape on its
-  device, at a 16-byte aligned address: the kernels read their inputs
-  through TMA tensor maps, whose base must be so aligned."""
+def _check_each(name, first, tensors, dtypes=(torch.bfloat16,)):
+  """Each of `tensors` a contiguous tensor of `first`'s shape, dtype and
+  device, that dtype one of `dtypes`; a bf16 one at a 16-byte aligned
+  address: the bf16 kernels read their inputs through TMA tensor maps,
+  whose base must be so aligned."""
+  what = " or ".join(str(d).replace("torch.", "") for d in dtypes)
   for n, t in tensors.items():
-    _require(t.device == first.device and t.dtype == torch.bfloat16
+    _require(t.dtype in dtypes, f"{n} must be {what}, got {t.dtype}", name)
+    _require(t.device == first.device and t.dtype == first.dtype
              and t.shape == first.shape and t.is_contiguous(),
-             f"{n} must be a contiguous bfloat16 {tuple(first.shape)} on "
-             f"{first.device}", name)
-    _require(t.data_ptr() % 16 == 0,
+             f"{n} must be a contiguous {first.dtype} "
+             f"{tuple(first.shape)} on {first.device}", name)
+    _require(t.dtype != torch.bfloat16 or t.data_ptr() % 16 == 0,
              f"{n} must be 16-byte aligned (a TMA tensor map's base)", name)
 
 
@@ -218,12 +237,15 @@ def check_head_dim(d, name):
            f"head dim {d}: the kernels take 1 to {MAX_HEAD_DIM}", name)
 
 
-def _check(name, num_heads, **tensors):
-  """Checks the (B, L, H*D) bf16 inputs of K3, K4 or K9, D from 1 to
-  MAX_HEAD_DIM; returns B, L, D."""
+# K3 and K4 take both; K9 (and K6, K7, K8) bf16 only.
+PACKED_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def check_packed(name, num_heads, dtypes=(torch.bfloat16,), **tensors):
+  """Checks (B, L, H*D) inputs as K3, K4 or K9 take them (`dtypes`:
+  PACKED_DTYPES for K3 and K4, bf16 for K9), D from 1 to MAX_HEAD_DIM;
+  returns B, L, D. Needs no card: the tests run it on CPU tensors."""
   first = next(iter(tensors.values()))
-  _require(first.is_cuda, f"{next(iter(tensors))} must be a CUDA tensor",
-           name)
   _require(first.dim() == 3,
            f"inputs must be (B, L, H*D), got {tuple(first.shape)}", name)
   b, l, hd = first.shape
@@ -231,8 +253,21 @@ def _check(name, num_heads, **tensors):
            f"width {hd} is not num_heads {num_heads} heads", name)
   d = hd // num_heads
   check_head_dim(d, name)
-  _check_each(name, first, tensors)
+  _check_each(name, first, tensors, dtypes)
   return b, l, d
+
+
+def _check(name, num_heads, dtypes=(torch.bfloat16,), **tensors):
+  """`check_packed` of CUDA tensors."""
+  first = next(iter(tensors.values()))
+  _require(first.is_cuda, f"{next(iter(tensors))} must be a CUDA tensor",
+           name)
+  return check_packed(name, num_heads, dtypes, **tensors)
+
+
+def _bf16_options_only(name, streamed=False, chunk_tiles=None):
+  _require(not streamed and chunk_tiles is None,
+           "streamed and chunk_tiles are options of the bf16 kernels", name)
 
 
 def attention_packed_fwd(q, k, v, num_heads, streamed=False,
@@ -247,8 +282,21 @@ def attention_packed_fwd(q, k, v, num_heads, streamed=False,
   tiles; past four, O's columns four tiles a CTA). `streamed`: stream
   them at every length (for tests and measurement; the same bits).
   `chunk_tiles` (1 to 4, tests only): O's column tiles a CTA past D = 256
-  (the same bits)."""
-  b, l, d = _check(NAME, num_heads, q=q, k=k, v=v)
+  (the same bits). f32 q, k, v run K3's f32 instance, unpadded, with
+  neither option."""
+  b, l, d = _check(NAME, num_heads, PACKED_DTYPES, q=q, k=k, v=v)
+  if q.dtype == torch.float32:
+    _bf16_options_only(NAME, streamed, chunk_tiles)
+    lib, max_len = _f32_lib()
+    _require(l <= max_len, f"sequence length {l} > {max_len}")
+    o = torch.empty_like(q)
+    if q.numel() == 0:
+      return o
+    _build.launch(NAME, q.device, lib.attention_packed_f32_fwd, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l, num_heads,
+                  d, scale_log2(d))
+    _build.LAUNCHES[NAME_F32] += 1
+    return o
   dp = padded_head_dim(d)
   lib, max_len = _lib()
   _require(l <= max_len(dp), f"sequence length {l} > {max_len(dp)} at head "
@@ -279,8 +327,26 @@ def attention_packed_bwd(q, k, v, do, num_heads, chunk_tiles=None):
   not grow with L (the limit was 384 before K4 moved to wgmma and streamed
   tiles), and 4096 is the longest length the card's tests hold it at.
   `chunk_tiles` (from 1, tests only): at most this many of the outputs'
-  column tiles a CTA past D = 256 (the same bits)."""
-  b, l, d = _check(BWD_NAME, num_heads, q=q, k=k, v=v, do=do)
+  column tiles a CTA past D = 256 (the same bits). f32 inputs run K4's f32
+  instance (three kernels: the row statistics, dQ, then dK and dV, each
+  sum in a fixed order), unpadded, without `chunk_tiles`."""
+  b, l, d = _check(BWD_NAME, num_heads, PACKED_DTYPES, q=q, k=k, v=v, do=do)
+  if q.dtype == torch.float32:
+    _bf16_options_only(BWD_NAME, chunk_tiles=chunk_tiles)
+    lib, max_len = _f32_lib()
+    _require(l <= max_len, f"sequence length {l} > {max_len}", BWD_NAME)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if q.numel() == 0:
+      return dq, dk, dv
+    r, c = (torch.empty(b, num_heads, l, dtype=torch.float32,
+                        device=q.device) for _ in range(2))
+    _build.launch(BWD_NAME, q.device, lib.attention_packed_f32_bwd,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), r.data_ptr(),
+                  c.data_ptr(), b, l, num_heads, d, scale_log2(d),
+                  scale_f32(d))
+    _build.LAUNCHES[BWD_NAME_F32] += 1
+    return dq, dk, dv
   dp = padded_head_dim(d)
   lib, max_len = _bwd_lib()
   _require(l <= max_len, f"sequence length {l} > {max_len}", BWD_NAME)

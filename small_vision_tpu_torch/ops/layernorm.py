@@ -7,9 +7,18 @@ with statistics in f32 and eps 1e-6; shift = scale = None gives a plain
 LayerNorm. The forward is K1 (`csrc/ln_modulate.cu`), the backward K2
 (`csrc/ln_modulate_bwd.cu`). `ln_modulate` runs the plain versions for a
 tensor on the CPU and the kernels for a CUDA tensor, and raises for a CUDA
-tensor a kernel does not take. Without gradients (the sampler) it is K1
-alone, writing no statistics; with gradients it goes through `LNModulate`,
-whose forward is K1 with its mean/rstd buffers and whose backward is K2.
+tensor a kernel does not take. The kernels take x in bf16 or f32 (shift,
+scale, dy and dx in x's dtype; gamma, beta and the statistics f32, as the
+JAX kernels take them) at every width from 1 to MAX_WIDTH: bf16 rows of a
+multiple of 32 columns up to 2,048 (every width of the ViT and UMD variant
+tables) run the bf16 kernels' own instances (`ln_modulate_fwd`,
+`ln_modulate_bwd`), and every other input their instances of any dtype
+and width (`ln_modulate_fwd_any`, `ln_modulate_bwd_any`), which load
+vectors of `load_vector` elements, so that rows of any width are read in
+place. A launch in f32 counts under `NAME_F32` / `BWD_NAME_F32`. Without
+gradients (the sampler) it is K1 alone, writing no statistics; with
+gradients it goes through `LNModulate`, whose forward is K1 with its
+mean/rstd buffers and whose backward is K2.
 
 K1's forward is also the operator `torch.ops.svt.ln_modulate_fwd`
 (`torch.library.custom_op`: the CUDA implementation is `ln_modulate_fwd`,
@@ -29,9 +38,16 @@ from small_vision_tpu_torch.ops import _build
 
 NAME = "ln_modulate_fwd"
 BWD_NAME = "ln_modulate_bwd"
-# The kernels take every width that is a multiple of 32 up to MAX_WIDTH:
-# every width of the ViT and UMD variant tables (mu 32 ... G 1,664).
-MAX_WIDTH = 2048
+# Launch counts of the kernels' f32 instances.
+NAME_F32 = "ln_modulate_fwd_f32"
+BWD_NAME_F32 = "ln_modulate_bwd_f32"
+# The kernels take every width from 1 up to MAX_WIDTH (past ViT-22B's
+# 6,144), in these dtypes.
+MAX_WIDTH = 8192
+DTYPES = (torch.bfloat16, torch.float32)
+# The bf16 instances' rows: multiples of 32 up to this (every width of the
+# ViT and UMD variant tables, mu 32 ... G 1,664).
+BF16_ROW_MAX = 2048
 
 
 def _acc(t):
@@ -90,13 +106,15 @@ def ln_modulate_bwd_plain(x, dy, mean, rstd, gamma, beta, scale=None):
 
 @functools.cache
 def _lib():
-  return _build.library("ln_modulate").ln_modulate_fwd
+  lib = _build.library("ln_modulate")
+  return lib.ln_modulate_fwd, lib.ln_modulate_fwd_any
 
 
 @functools.cache
 def _bwd_lib():
   lib = _build.library("ln_modulate_bwd")
-  return lib.ln_modulate_bwd, lib.ln_modulate_bwd_work_words
+  return (lib.ln_modulate_bwd, lib.ln_modulate_bwd_any,
+          lib.ln_modulate_bwd_work_words)
 
 
 def _require(cond, msg, name=NAME):
@@ -104,9 +122,11 @@ def _require(cond, msg, name=NAME):
     raise ValueError(f"{name}: {msg}")
 
 
-def _check_modulation(x, shift, scale, name):
-  """Checks shift/scale as the kernels read them; returns their row
-  stride (0 without modulation)."""
+def check_modulation(x, shift, scale, name):
+  """Checks shift/scale as the kernels read them (on the device of x, in
+  x's dtype, (B, D) with unit column stride and one row stride); returns
+  their row stride (0 without modulation). Needs no card: the tests run it
+  on CPU tensors."""
   b, _, d = x.shape
   if shift is None and scale is None:
     return 0
@@ -114,26 +134,57 @@ def _check_modulation(x, shift, scale, name):
            "shift and scale must be given together", name)
   stride = scale.stride(0)
   for n, t in (("shift", shift), ("scale", scale)):
-    _require(t.device == x.device and t.dtype == torch.bfloat16
+    _require(t.device == x.device and t.dtype == x.dtype
              and tuple(t.shape) == (b, d) and t.stride(1) == 1
-             and t.stride(0) == stride and stride % 8 == 0
-             and t.data_ptr() % 16 == 0,
-             f"{n} must be a ({b}, {d}) bfloat16 on {x.device} with "
-             "unit column stride and 16-byte aligned rows", name)
+             and t.stride(0) == stride,
+             f"{n} must be a ({b}, {d}) {x.dtype} on {x.device} with unit "
+             "column stride and the row stride of scale", name)
   return stride
+
+
+def check_input(x, name, what="x"):
+  """Checks x (or dy) as the kernels take it: bf16 or f32, a contiguous
+  (B, L, D) tensor, D from 1 to MAX_WIDTH. Needs no card: the tests run it
+  on CPU tensors."""
+  _require(x.dtype in DTYPES,
+           f"{what} must be bfloat16 or float32, got {x.dtype}", name)
+  _require(x.dim() == 3 and x.is_contiguous(),
+           f"{what} must be a contiguous (B, L, D) tensor, got "
+           f"{tuple(x.shape)}", name)
+  d = x.shape[-1]
+  _require(1 <= d <= MAX_WIDTH,
+           f"width {d}: the kernels take 1 to {MAX_WIDTH}", name)
 
 
 def _check_x(x, name, what="x"):
   _require(x.is_cuda, f"{what} must be a CUDA tensor", name)
-  _require(x.dtype == torch.bfloat16,
-           f"{what} must be bfloat16, got {x.dtype}", name)
-  _require(x.dim() == 3 and x.is_contiguous() and x.data_ptr() % 16 == 0,
-           f"{what} must be a contiguous, 16-byte aligned (B, L, D) tensor, "
-           f"got {tuple(x.shape)}", name)
+  check_input(x, name, what)
+
+
+def load_vector(x, mod_stride, *tensors):
+  """The elements of a load of the kernels' any-width instances: the
+  largest power of two up to 16 bytes of x's dtype that divides the width
+  and the modulation's row stride, and to whose bytes the address of every
+  tensor of `tensors` (x's dtype) is aligned."""
+  size = x.element_size()
+  vec, d = 16 // size, x.shape[-1]
+  while vec > 1 and (d % vec or mod_stride % vec or any(
+      t.data_ptr() % (vec * size) for t in tensors if t is not None)):
+    vec //= 2
+  return vec
+
+
+def bf16_rows(x, mod_stride, *tensors):
+  """Whether the bf16 instances take x: bf16, a multiple of 32 columns up
+  to BF16_ROW_MAX, and 16-byte vectors everywhere (`load_vector` 8)."""
   d = x.shape[-1]
-  _require(d % 32 == 0 and 32 <= d <= MAX_WIDTH,
-           f"width {d}: the kernel takes multiples of 32 up to {MAX_WIDTH}",
-           name)
+  return (x.dtype == torch.bfloat16 and d % 32 == 0 and d <= BF16_ROW_MAX
+          and load_vector(x, mod_stride, x, *tensors) == 8)
+
+
+def launch_name(base, x):
+  """The launch count a launch on x adds to: `base`, or its f32 name."""
+  return base + "_f32" if x.dtype == torch.float32 else base
 
 
 def _check_vectors(x, name, **vectors):
@@ -155,15 +206,14 @@ def _check_stats(x, name, **stats):
 def ln_modulate_fwd(x, gamma, beta, shift=None, scale=None, eps=1e-6, *,
                     mean: Optional[torch.Tensor] = None,
                     rstd: Optional[torch.Tensor] = None):
-  """Launches K1. x: (B, L, D) bf16 contiguous, D a multiple of 32 up to
-  MAX_WIDTH;
-  gamma/beta: (D,) f32; shift/scale: (B, D) bf16 with unit column stride,
-  or both None; mean/rstd: (B, L) f32 buffers the kernel fills, or both
-  None. Returns y (B, L, D) bf16."""
+  """Launches K1. x: (B, L, D) bf16 or f32 contiguous, D from 1 to
+  MAX_WIDTH; gamma/beta: (D,) f32; shift/scale: (B, D) in x's dtype with
+  unit column stride, or both None; mean/rstd: (B, L) f32 buffers the
+  kernel fills, or both None. Returns y (B, L, D) in x's dtype."""
   _check_x(x, NAME)
   b, l, d = x.shape
   _check_vectors(x, NAME, gamma=gamma, beta=beta)
-  mod_stride = _check_modulation(x, shift, scale, NAME)
+  mod_stride = check_modulation(x, shift, scale, NAME)
   _require((mean is None) == (rstd is None),
            "mean and rstd must be given together")
   if mean is not None:
@@ -173,10 +223,17 @@ def ln_modulate_fwd(x, gamma, beta, shift=None, scale=None, eps=1e-6, *,
   if x.numel() == 0:
     return y
   ptr = lambda t: None if t is None else t.data_ptr()
-  _build.launch(NAME, x.device, _lib(), x.data_ptr(), gamma.data_ptr(),
-                beta.data_ptr(), ptr(shift), ptr(scale), mod_stride,
-                y.data_ptr(), ptr(mean), ptr(rstd), b * l, l, d, float(eps))
-  _build.LAUNCHES[NAME] += 1
+  args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(shift),
+          ptr(scale), mod_stride, y.data_ptr(), ptr(mean), ptr(rstd), b * l,
+          l, d, float(eps))
+  fast, fn_any = _lib()
+  if bf16_rows(x, mod_stride, y, shift, scale):
+    _build.launch(NAME, x.device, fast, *args)
+  else:
+    vec = load_vector(x, mod_stride, x, y, shift, scale)
+    _build.launch(NAME, x.device, fn_any, *args,
+                  int(x.dtype == torch.float32), vec)
+  _build.LAUNCHES[launch_name(NAME, x)] += 1
   return y
 
 
@@ -187,14 +244,15 @@ def _bwd_launch(x, dy, mean, rstd, gamma, beta, scale):
   zeroes on its stream) are made here, once."""
   _check_x(x, BWD_NAME)
   _check_x(dy, BWD_NAME, "dy")
-  _require(dy.shape == x.shape and dy.device == x.device,
-           f"dy must match x {tuple(x.shape)}", BWD_NAME)
+  _require(dy.shape == x.shape and dy.device == x.device
+           and dy.dtype == x.dtype,
+           f"dy must match x {tuple(x.shape)} {x.dtype}", BWD_NAME)
   b, l, d = x.shape
   _check_stats(x, BWD_NAME, mean=mean, rstd=rstd)
   _check_vectors(x, BWD_NAME, gamma=gamma, beta=beta)
-  mod_stride = _check_modulation(x, scale, scale, BWD_NAME)
+  mod_stride = check_modulation(x, scale, scale, BWD_NAME)
 
-  fn, work_words = _bwd_lib()
+  fast, fn_any, work_words = _bwd_lib()
   dx = torch.empty_like(x)
   f32 = dict(dtype=torch.float32, device=x.device)
   dgamma, dbeta = torch.empty(d, **f32), torch.empty(d, **f32)
@@ -203,18 +261,24 @@ def _bwd_launch(x, dy, mean, rstd, gamma, beta, scale):
     dshift, dscale = torch.empty(b, d, **f32), torch.empty(b, d, **f32)
   work = torch.empty(work_words(b, l, d), **f32)
   ptr = lambda t: None if t is None else t.data_ptr()
-  launch = lambda: _build.launch(
-      BWD_NAME, x.device, fn, x.data_ptr(), dy.data_ptr(), mean.data_ptr(),
-      rstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(scale),
-      mod_stride, dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-      ptr(dshift), ptr(dscale), work.data_ptr(), b, l, d)
+  args = (x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+          gamma.data_ptr(), beta.data_ptr(), ptr(scale), mod_stride,
+          dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), ptr(dshift),
+          ptr(dscale), work.data_ptr(), b, l, d)
+  if bf16_rows(x, mod_stride, dy, dx, scale):
+    launch = lambda: _build.launch(BWD_NAME, x.device, fast, *args)
+  else:
+    extra = (int(x.dtype == torch.float32),
+             load_vector(x, mod_stride, x, dy, dx, scale))
+    launch = lambda: _build.launch(BWD_NAME, x.device, fn_any, *args, *extra)
   return launch, (dx, dgamma, dbeta, dshift, dscale)
 
 
 def ln_modulate_bwd(x, dy, mean, rstd, gamma, beta, scale=None):
   """Launches K2: the arguments and results of `ln_modulate_bwd_plain`.
-  x, dy: (B, L, D) bf16 contiguous; mean, rstd: (B, L) f32 from K1;
-  gamma, beta: (D,) f32; scale: (B, D) bf16 as K1 reads it, or None.
+  x, dy: (B, L, D) bf16 or f32 contiguous (dy in x's dtype), D from 1 to
+  MAX_WIDTH; mean, rstd: (B, L) f32 from K1; gamma, beta: (D,) f32;
+  scale: (B, D) in x's dtype as K1 reads it, or None.
   One kernel launch: one CTA per batch row, whose last CTA sums dgamma and
   dbeta over the batch in a fixed order (only the tickets that find it are
   atomic), so two launches on the same inputs give the same bits. The
@@ -226,7 +290,7 @@ def ln_modulate_bwd(x, dy, mean, rstd, gamma, beta, scale=None):
         t.zero_()
     return grads
   launch()
-  _build.LAUNCHES[BWD_NAME] += 1
+  _build.LAUNCHES[launch_name(BWD_NAME, x)] += 1
   return grads
 
 

@@ -35,12 +35,11 @@ and loads them beside this tree's libraries. Then, on inputs from a
   - K8 on [128, L, 12, 64] and K2 on (128, L, 768) with modulation, at the
     training lengths L = 68, 164, 257, beside SDPA's backward and the
     autograd backward of `F.layer_norm` and the modulation. K8's dq, dk
-    and dv must be the other tree's bits; K2's may differ between the
-    trees (its sums may be regrouped), so only its times are held.
+    and dv must be the other tree's bits, and so must K2's five outputs.
   - K1, K2, K3 and K4 at `--width` and `--heads` (head dim width / heads)
     at the training lengths L = 68, 164, 257 and batch 128, modulated,
     beside `F.layer_norm` + modulate, its autograd backward, SDPA and its
-    backward; K3's and K4's outputs must be the other tree's bits.
+    backward; K1's, K3's and K4's outputs must be the other tree's bits.
   - This tree alone: K3, K7, K6 (call and attention launch) and K9's seven
     arms at (64, 1,024) and (64, 1,025) with 16 heads of 64 (ViT-L/16@512,
     "map" and "tok"), (64, 1,369) with 16 heads of 80 (ViT-H/14@518) and
@@ -203,8 +202,8 @@ def bwd_bound_ms(b, l, heads, hd):
 def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library,
              outputs):
   """K1-K4 of each side and their library calls, at (b, l, width) with
-  `heads` heads, into `pairs` and `library`; K3's and K4's outputs of each
-  side into `outputs` ({name: {side: tensors}})."""
+  `heads` heads, into `pairs` and `library`; K1's, K3's and K4's outputs
+  of each side into `outputs` ({name: {side: tensors}})."""
   hd = width // heads
   stream = lambda: torch.cuda.current_stream().cuda_stream
   x, dy = randn(b, l, width), randn(b, l, width)
@@ -223,6 +222,7 @@ def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library,
     rc = [torch.empty(b, heads, l, device="cuda") for _ in range(2)]
     keep += [y, *o3, *rc]
     k1 = [t.data_ptr() for t in (x, gamma, beta, shift, mod)]
+    outputs.setdefault(f"K1 {tag}", {})[side] = [y]
     pairs.setdefault(f"K1 {tag}", {})[side] = (
         lambda lib=libs["ln_modulate"], p=k1, y=y: _check(
             lib.ln_modulate_fwd(*p, mod.stride(0), y.data_ptr(), None, None,
@@ -470,6 +470,7 @@ def main(argv=None):
             for shape in ((WIDTH,), (WIDTH,), (b, WIDTH), (b, WIDTH),
                           (lib.ln_modulate_bwd_work_words(b, l, WIDTH),))]
         keep += outs
+        outputs.setdefault(f"K2 {b}x{l}", {})[side] = outs[:5]
         ptrs = [t.data_ptr() for t in (x, dy, mean, rstd, gamma, beta, mod)]
         pairs.setdefault(f"K2 {b}x{l}", {})[side] = (
             lambda lib=lib, p=ptrs + [mod.stride(0)] + [
@@ -488,7 +489,7 @@ def main(argv=None):
     for b, l in TRAIN_SHAPES:
       k1_to_k4(sides, args.width, args.heads, b, l, randn, keep, pairs,
                library, outputs)
-    # Each side of K3, K4 and K8 there once; their outputs compared.
+    # Each side of K1-K4 and K8 there once; their outputs compared.
     for name, by_side in outputs.items():
       for side in by_side:
         pairs[name][side]()

@@ -41,9 +41,10 @@ the variant tables and the narrow widths of the quick configs (32 ... 2,048,
 modulated or not, K2 three launches in a row and on two streams), and K3
 and K4 at head dims 8, 16, 80, 104, 128, 136, 192, 200, 248 and 256 (and
 24, 40, 72, 96, 120), against the plain versions, two launches giving the
-same bits; a width of 2,080 and a head dim of 2,056 raise the named error,
-with no plain route. K6, K7, K8 and each arm of K9 at head dims 8, 16, 80,
-88, 104, 128, 136, 192, 200 and 256 (L = 20, 68, 257 and 260) against
+same bits; a width past MAX_WIDTH (8,192) and a head dim of 2,056 raise
+the named error, with no plain route. K6, K7, K8 and each arm of K9 at
+head dims 8, 16, 80, 88, 104, 128, 136, 192, 200 and 256 (L = 20, 68, 257
+and 260) against
 their plain versions in the tests of each at head dim 64, two launches
 giving the same bits; K3, K6, K7 and K9 past the lengths whose K and V
 they keep resident (320 keys at head dims up to 64, 384 up to 128, none
@@ -64,7 +65,18 @@ launch. Past 256 (`WIDER_HEAD_DIMS`: 264, 384, 520, 768, 1,024, 1,664 and
 arms at L = 20 and 65, all seven arms at 520, every kernel at 1,024 and
 2,048 from one key to 4,096, two launches of each giving the same bits,
 and every chunk count of the outputs' columns (`chunk_tiles`) giving the
-same bits at 264 and 768.
+same bits at 264 and 768. K1-K4 in f32 (their f32 instances): K1 and K2
+at width 768 and the training and sampler lengths, y and dx within 1e-5
+of their largest value and the sums within 1e-4, K2 three launches in a
+row and two on two streams at once giving the same bits; K1 and K2 in
+bf16 and f32 at widths 1, 36, 100, 1,000, 2,080, 4,096 and 8,192, and on
+rows off a 16-byte boundary (2- and 1-element loads); K3 and K4 at 12
+heads of 64, at L = 1, 63, 65 and 4,096 and at head dims 1, 12, 192, 768
+and 2,048, within 1e-4 of each output's largest value, two launches
+giving the same bits; the f32 wrappers refusing the bf16 kernels'
+options, L = 4,097 and head dim 2,056, and K7, K8 and K9 refusing f32;
+an f32 block under "pallas" on the card against the CPU, and under
+"pallas_fused" raising K6's named error.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -178,10 +190,16 @@ def test_ln_kernel_writes_stats(cuda):
 @pytest.mark.cuda
 def test_ln_wrapper_refuses_what_the_kernel_does_not_take(cuda):
   x, gamma, beta, shift, scale = _ln_args(cuda, 4, True, b=2)
-  with pytest.raises(ValueError, match="bfloat16"):
-    ln.ln_modulate_fwd(x.float(), gamma, beta)
-  with pytest.raises(ValueError, match="width"):
-    ln.ln_modulate_fwd(x[..., :100].contiguous(), gamma[:100], beta[:100])
+  # bf16 and f32 run (test_f32_ln_kernels_match_plain); float16 does not.
+  with pytest.raises(ValueError, match="got torch.float16"):
+    ln.ln_modulate_fwd(x.half(), gamma, beta)
+  # Every width from 1 up to MAX_WIDTH runs (test_ln_kernels_at_new_widths);
+  # one past it does not.
+  wide = ln.MAX_WIDTH + 1
+  with pytest.raises(ValueError, match=f"width {wide}"):
+    ln.ln_modulate_fwd(torch.zeros(1, 2, wide, dtype=x.dtype, device=cuda),
+                       torch.ones(wide, device=cuda),
+                       torch.zeros(wide, device=cuda))
   with pytest.raises(ValueError, match="together"):
     ln.ln_modulate_fwd(x, gamma, beta, shift, None)
   with pytest.raises(ValueError, match="contiguous"):
@@ -385,9 +403,11 @@ def test_ln_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                        scale)
   with pytest.raises(ValueError, match="float32"):
     ln.ln_modulate_bwd(x, dy, mean.half(), rstd, gamma, beta, scale)
-  with pytest.raises(ValueError, match="width"):
-    small = x[..., :100].contiguous()
-    ln.ln_modulate_bwd(small, small, mean, rstd, gamma[:100], beta[:100])
+  wide = ln.MAX_WIDTH + 8
+  with pytest.raises(ValueError, match=f"width {wide}"):
+    big = torch.zeros(2, 4, wide, dtype=x.dtype, device=cuda)
+    ln.ln_modulate_bwd(big, big, mean, rstd, torch.ones(wide, device=cuda),
+                       torch.zeros(wide, device=cuda))
 
 
 def _qkv_do(device, l, b=4, h=2, seed=0, scale=1.0):
@@ -1358,19 +1378,20 @@ def test_max_shift_wrappers_refuse_head_dims_they_do_not_take(cuda, hd,
 
 @pytest.mark.cuda
 def test_wrappers_name_the_shapes_the_kernels_refuse(cuda):
-  """A head dim of 2,056 and a width of 2,080 raise the named error on
-  the card: there is no plain route for a CUDA tensor."""
+  """A head dim of 2,056 and a width past MAX_WIDTH (8,224) raise the
+  named error on the card: there is no plain route for a CUDA tensor."""
   q = torch.zeros(1, 8, 2 * 2056, dtype=torch.bfloat16, device=cuda,
                   requires_grad=True)
   for fn in (lambda: attn.attention_packed(q, q, q, 2),
              lambda: attn.attention_packed_bwd(q, q, q, q, 2)):
     with pytest.raises(ValueError, match="head dim 2056"):
       fn()
-  x, gamma, beta, shift, scale = _ln_args(cuda, 4, True, b=2, d=2080)
-  with pytest.raises(ValueError, match="width 2080"):
+  wide = ln.MAX_WIDTH + 32
+  x, gamma, beta, shift, scale = _ln_args(cuda, 4, True, b=2, d=wide)
+  with pytest.raises(ValueError, match=f"width {wide}"):
     ln.ln_modulate(x, gamma, beta, shift, scale)
   xg = x.requires_grad_()
-  with pytest.raises(ValueError, match="width 2080"):
+  with pytest.raises(ValueError, match=f"width {wide}"):
     ln.ln_modulate(xg, gamma, beta, shift, scale)
 
 
@@ -1491,3 +1512,230 @@ def test_wide_head_chunks_give_the_same_bits(cuda, hd):
     for a, b in zip(g8, attn.attention_unpacked_bwd(q4, k4, v4, do4,
                                                     chunk_tiles=ct)):
       assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K1-K4 in f32 (`dtype_mm="float32"`), and K1/K2 at every width.
+# ---------------------------------------------------------------------------
+
+
+def _ln_args_dtype(device, l, modulate, b, d, dtype, seed=0):
+  """K1's and K2's inputs in `dtype` (x, shift, scale, dy), with K1's
+  statistics: (forward args, backward args)."""
+  x = _randn((b, l, d), seed, device, dtype, 2.0, 0.5)
+  gamma = _randn((d,), seed + 1, device, torch.float32, 0.1, 1.0)
+  beta = _randn((d,), seed + 2, device, torch.float32, 0.1)
+  shift = scale = None
+  if modulate:
+    shift, scale = _randn((b, 6 * d), seed + 3, device, dtype,
+                          0.3).chunk(6, dim=-1)[:2]
+  xf = x.float()
+  mean = xf.mean(-1)
+  rstd = torch.rsqrt((xf - mean[..., None]).square().mean(-1) + 1e-6)
+  dy = _randn((b, l, d), seed + 4, device, dtype)
+  return ((x, gamma, beta, shift, scale),
+          (x, dy, mean, rstd, gamma, beta, scale))
+
+
+def _hold_ln(fwd, bwd, dtype):
+  """K1 and K2 on `fwd` / `bwd` against their plain versions: K1 two
+  launches and K2 three giving the same bits. f32: y and dx within 1e-5
+  of their largest value (f32 sums of a row in another order), dgamma,
+  dbeta, dshift and dscale within 1e-4 of theirs (f32 sums over B*L rows
+  in another order and grouping). bf16: the bounds of
+  test_ln_kernels_at_every_width (one bf16 ulp of y and dx)."""
+  got = ln.ln_modulate_fwd(*fwd)
+  assert torch.equal(got, ln.ln_modulate_fwd(*fwd))
+  want = ln.ln_modulate_plain(*fwd).float()
+  got = got.float()
+  if dtype == torch.float32:
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+  else:
+    assert torch.all((got - want).abs() <= 2.0**-7 * want.abs() + 1e-5)
+  first = ln.ln_modulate_bwd(*bwd)
+  for _ in range(2):
+    for a, again in zip(first, ln.ln_modulate_bwd(*bwd)):
+      assert (a is None and again is None) or torch.equal(a, again)
+  want = ln.ln_modulate_bwd_plain(*bwd)
+  dx, dx_want = first[0].float(), want[0].float()
+  assert first[0].dtype == dtype
+  if dtype == torch.float32:
+    assert (dx - dx_want).abs().max() <= 1e-5 * dx_want.abs().max()
+  else:
+    assert torch.all((dx - dx_want).abs() <= 2.0**-7 * dx_want.abs() + 1e-3)
+  for g, w in zip(first[1:], want[1:]):
+    if w is not None:
+      assert g.dtype == torch.float32
+      torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [68, 257, 260])
+@pytest.mark.parametrize("modulate", [False, True])
+def test_f32_ln_kernels_match_plain(cuda, l, modulate):
+  """K1 and K2 in f32 at width 768 (the main path's) at the training and
+  sampler lengths, counted under their f32 names (`_hold_ln`)."""
+  fwd, bwd = _ln_args_dtype(cuda, l, modulate, 8, 768, torch.float32)
+  _build.reset_launches()
+  _hold_ln(fwd, bwd, torch.float32)
+  assert dict(_build.LAUNCHES) == {ln.NAME_F32: 2, ln.BWD_NAME_F32: 3}
+
+
+# Widths the bf16 instances do not take (a multiple of 32 up to 2,048):
+# one column, the narrow model's 36, 100 (4-element vectors), 1,000 (8,
+# not a multiple of 32), 2,080 (two warps a row), 4,096 and 8,192 (the
+# limit, eight warps a row); and 768 in f32.
+NEW_LN_WIDTHS = (1, 36, 100, 1000, 2080, 4096, 8192)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", NEW_LN_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("modulate", [False, True])
+def test_ln_kernels_at_new_widths(cuda, d, dtype, modulate):
+  """K1 and K2 at width d in bf16 and f32 (`_hold_ln`), L = 67 at batch
+  5 (a ragged last step of every team)."""
+  fwd, bwd = _ln_args_dtype(cuda, 67, modulate, 5, d, dtype, seed=d)
+  _hold_ln(fwd, bwd, dtype)
+
+
+@pytest.mark.cuda
+def test_ln_kernels_take_unaligned_rows(cuda):
+  """bf16 at width 768 whose x starts 2 bytes off a 16-byte boundary, and
+  modulation rows 770 elements apart: the any-width instances, with
+  2-element (4-byte) and 1-element loads, against the plain versions."""
+  fwd, bwd = _ln_args_dtype(cuda, 20, True, 3, 768, torch.bfloat16)
+  buf = torch.empty(fwd[0].numel() + 1, dtype=torch.bfloat16, device=cuda)
+  x = buf[1:].view(fwd[0].shape)
+  x.copy_(fwd[0])
+  mods = _randn((3, 770 * 2), 9, cuda, torch.bfloat16, 0.3).view(3, 1540)
+  shift, scale = mods[:, :768], mods[:, 770:770 + 768]
+  assert ln.load_vector(x, 1540, x) == 1 and ln.load_vector(
+      fwd[0], 1540, fwd[0], shift, scale) == 2
+  _hold_ln((x, *fwd[1:3], shift, scale), (x, *bwd[1:6], scale),
+           torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_ln_bwd_f32_on_two_streams_matches_launches_in_turn(cuda):
+  """Two f32 K2 launches in flight at once on two streams give the bits
+  of the same launches in turn (the any-width instance's tickets are the
+  launch's own, as the bf16 one's)."""
+  cases = [_ln_args_dtype(cuda, 257, True, 40, 768, torch.float32)[1],
+           _ln_args_dtype(cuda, 68, False, 24, 36, torch.float32, 9)[1]]
+  in_turn = [ln.ln_modulate_bwd(*args) for args in cases]
+  streams = [torch.cuda.Stream(cuda) for _ in cases]
+  start = torch.cuda.current_stream(cuda)
+  got = []
+  for stream, args in zip(streams, cases):
+    stream.wait_stream(start)
+    with torch.cuda.stream(stream):
+      got.append(ln.ln_modulate_bwd(*args))
+  for stream in streams:
+    start.wait_stream(stream)
+  torch.cuda.synchronize(cuda)
+  for want, outs in zip(in_turn, got):
+    for w, g in zip(want, outs):
+      assert (w is None and g is None) or torch.equal(w, g)
+
+
+# K3 and K4 in f32: (batch, length, heads, head dim). The main path's 12
+# heads of 64 at a training length, the tile edges (1, 63, 65), head dims
+# 12 (`heads=32`), 192, 768 (`heads=1`) and 2,048 (the limit), one head
+# dim of 1, and the length limit 4,096.
+F32_ATTN_CASES = [(4, 257, 12, 64), (2, 1, 3, 64), (3, 63, 2, 64),
+                  (3, 65, 2, 64), (2, 68, 32, 12), (2, 164, 4, 192),
+                  (1, 257, 1, 768), (1, 65, 1, 2048), (2, 20, 2, 1),
+                  (1, 4096, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,heads,hd", F32_ATTN_CASES)
+def test_f32_attention_kernels_match_plain(cuda, b, l, heads, hd):
+  """K3's and K4's f32 instances against the plain versions: o, dq, dk
+  and dv within 1e-4 of each output's largest value (f32 sums over L and
+  D in another order, through exp2 of scores of a few units), two
+  launches giving the same bits, counted under the f32 names."""
+  q, k, v, do = (_randn((b, l, heads * hd), 90 + i, cuda, torch.float32)
+                 for i in range(4))
+  _build.reset_launches()
+  got = attn.attention_packed_fwd(q, k, v, heads)
+  assert torch.equal(got, attn.attention_packed_fwd(q, k, v, heads))
+  want = attn.attention_packed_plain(q, k, v, heads)
+  assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+  grads = attn.attention_packed_bwd(q, k, v, do, heads)
+  again = attn.attention_packed_bwd(q, k, v, do, heads)
+  want = attn.attention_packed_bwd_plain(q, k, v, do, heads)
+  top = max(w.abs().max().item() for w in want)
+  for g, a, w in zip(grads, again, want):
+    assert g.dtype == torch.float32 and torch.equal(g, a)
+    # dq and dk vanish at L = 1 (one key: dS = e (dP - c) with c = dP
+    # but for roundings, which leave f32 round-off of dP, up to ~25 for
+    # unit inputs at D = 64, in dq and dk), so each output's scale is
+    # floored at 1e-2 of the largest of the three.
+    err = (g - w).abs().max().item()
+    assert err <= 1e-4 * max(w.abs().max().item(), 1e-2 * top), err
+  assert dict(_build.LAUNCHES) == {attn.NAME_F32: 2, attn.BWD_NAME_F32: 2}
+
+
+@pytest.mark.cuda
+def test_f32_attention_refuses_what_the_kernels_do_not_take(cuda):
+  q = torch.zeros(1, 8, 128, device=cuda)
+  with pytest.raises(ValueError, match="options of the bf16 kernels"):
+    attn.attention_packed_fwd(q, q, q, 2, streamed=True)
+  with pytest.raises(ValueError, match="options of the bf16 kernels"):
+    attn.attention_packed_bwd(q, q, q, q, 2, chunk_tiles=1)
+  assert attn._f32_lib()[1] == MAX_ATTN_LEN
+  long = torch.zeros(1, MAX_ATTN_LEN + 1, 64, device=cuda)
+  with pytest.raises(ValueError, match="sequence length"):
+    attn.attention_packed_fwd(long, long, long, 1)
+  with pytest.raises(ValueError, match="sequence length"):
+    attn.attention_packed_bwd(long, long, long, long, 1)
+  wide = torch.zeros(1, 8, 2056, device=cuda)
+  with pytest.raises(ValueError, match="head dim 2056"):
+    attn.attention_packed_fwd(wide, wide, wide, 1)
+  # K7, K8 and K9 take bf16 only.
+  q4 = q.view(1, 8, 2, 64)
+  for call in (lambda: attn.attention_unpacked_fwd(q4, q4, q4),
+               lambda: attn.attention_unpacked_bwd(q4, q4, q4, q4),
+               lambda: attn.attention_ablate(q, q, q, 2, "prod")):
+    with pytest.raises(ValueError, match="must be bfloat16, got"):
+      call()
+
+
+@pytest.mark.cuda
+def test_f32_block_under_pallas_fused_raises_the_named_error(cuda):
+  """Under "pallas_fused" an f32 block reaches K6 (or K5) after its first
+  LayerNorm (K1 in f32); they take bf16 only: their named error, and no
+  launch of either."""
+  from small_vision_tpu_torch.models import vit
+  block = vit.Block(64, None, 2, True, torch.float32, "pallas_fused")
+  for p in block.parameters():
+    p.data = torch.randn(p.shape) * 0.1
+  block = block.to(cuda).requires_grad_(False)
+  _build.reset_launches()
+  with pytest.raises(ValueError, match="^(fused_mha_fwd|fused_mlp_fwd): "):
+    block(torch.randn(2, 20, 64, device=cuda), torch.randn(2, 64,
+                                                           device=cuda))
+  assert not any(n.startswith("fused") for n in _build.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_f32_block_on_the_card_matches_the_cpu(cuda):
+  """An f32 block under "pallas" (K1 and K3 in f32) on the card against
+  the CPU (plain versions), within 1e-4 of the output's largest value:
+  f32 on both sides, sums in another order."""
+  from small_vision_tpu_torch.models import vit
+  block = vit.Block(768, None, 12, True, torch.float32, "pallas")
+  gen = torch.Generator().manual_seed(0)
+  for name, p in block.named_parameters():
+    std = 0.1 if name.endswith("bias") else p.shape[0] ** -0.5
+    p.data = torch.randn(p.shape, generator=gen) * std
+  block.requires_grad_(False)
+  x = _randn((2, 37, 768), 1, "cpu", torch.float32)
+  cond = _randn((2, 768), 2, "cpu", torch.float32)
+  want = block(x, cond)
+  _build.reset_launches()
+  got = block.to(cuda)(x.to(cuda), cond.to(cuda)).cpu()
+  assert dict(_build.LAUNCHES) == {ln.NAME_F32: 2, attn.NAME_F32: 1}
+  assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
