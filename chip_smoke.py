@@ -60,8 +60,20 @@ Phases, each fatal on failure:
                and dv within 1e-4; K1 and K3 two launches, K2 three and
                two on two streams at once, K4 two, giving equal bits); K1
                and K2 in bf16 and f32 at widths 1, 36, 100, 1,000, 2,080,
-               4,096 and 8,192 (timed at 36, 2,080 and 4,096) and f32 K3
-               and K4 at head dims 12, 192 and 768, checked.
+               4,096 and 8,192 (timed at 36, 2,080 and 4,096) and f32 K3,
+               K4, K7 and K8 at head dims 12, 192 and 768, checked. K5-K8
+               in f32 (their f32 instances) at the sampler's (64, 260) and
+               the training shapes (128, L = 68, 164, 257), timed beside
+               their f32 bounds, plain versions and library calls (K5:
+               F.linear, tanh gelu, F.linear; K6: SDPA between F.linear
+               projections; K7, K8: SDPA and its backward; f32, TF32
+               off): K5, K6 and K7 within 1e-5 of the output's largest
+               value, K8 within 1e-4 of each gradient's, two launches
+               giving equal bits, each with the time of each of its
+               kernels; K5 also at 36 -> 150 (unpadded), K8 also at (128,
+               65) and (8, 1,024), K6 also at head dim 12 (`heads=32` at
+               384), 384 (`heads=2`) and on a tensor rank's 6 of 12 heads,
+               checked.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
@@ -126,8 +138,8 @@ Phases, each fatal on failure:
                phase classifier times, with its K5 and K6 launches. It
                runs after phase heads.
   4f. f32      UMD-B/4@64 under `dtype_mm="float32"` (the upstream
-               reference's precision) and "pallas", TF32 off (held): (a)
-               the depth-2+1 model and one training step on the card
+               reference's precision), TF32 off (held), under "pallas":
+               (a) the depth-2+1 model and one training step on the card
                against the CPU's plain f32 path within 1e-3 of the largest
                prediction and of each gradient leaf's largest value (loss
                1e-4), the launches exact (K1-K4's f32 instances); (b)
@@ -136,8 +148,11 @@ Phases, each fatal on failure:
                img/s, peak memory, K1 64, K3 32, K2 64, K4 32 a step, all
                in f32) beside phase train's bf16 reading; (c) one 25-step
                sampler call at batch 64 (K1 832, K3 416 in f32); (d)
-               "pallas_fused" in f32 raises K6's (or K5's) named error
-               (they take bf16 only). It runs after phase shapes.
+               under "pallas_fused" the same: the depth-2+1 check, 1
+               warm-up and 3 timed full-depth training steps (K1 64, K6
+               32, K5 32, K2 64, K3 32, K4 32 a step, all in f32), one
+               25-step sampler call (K1 832, K6 416, K5 416 in f32). It
+               runs after phase shapes.
   4c. classifier the ViT classifier (`models.vit._ViT`) built by name,
                `models.get_model_module("vit").Model(variant=...,
                num_classes=1000, head_zeroinit=False)`, at 224 px, every
@@ -166,8 +181,9 @@ Phases, each fatal on failure:
                same way.
   6. unpacked  `ops.attention.fused_attention`, the [B, L, H, D] entry
                point that no module of the model calls, forward and
-               backward through autograd at the decoder's training shape:
-               one K7 and one K8 launch, against the CPU.
+               backward through autograd at the decoder's training shape,
+               in bf16 and in f32: one K7 and one K8 launch each, against
+               the CPU.
   7. ablate    the attention-ablation tool
                (`tools/ablate_attention_kernel.py::main`) at its two shapes:
                the seven arms of K9, 21 launches each, beside K3 and SDPA.
@@ -978,17 +994,24 @@ FUSED_SHAPES_MLP = tuple((b, l, WIDTH, MLP_DIM) for b, l in FUSED_SHAPES) + (
     (BATCH, SEQ_DEC, 1024, 4096),) + tuple(
         (b, l, 32, 128) for b, l in VIT_MU_SHAPES) + (
             (BATCH, 256, 1152, 4304), (BATCH, 197, 36, 150))
+# K5 in f32: the sampler's and the training shapes at width 768, and 36 ->
+# 150 (no multiple of 4: scalar loads, nothing padded).
+FUSED_SHAPES_MLP_F32 = tuple((b, l, WIDTH, MLP_DIM) for b, l in
+                             FUSED_SHAPES) + ((BATCH, 197, 36, 150),)
 
 
-def check_fused_mlp(fb, card):
-  """K5 against its plain version at the sampler's and training shapes, two
-  launches giving equal bits, with the time of each of its two launches;
-  and at the other widths of FUSED_SHAPES_MLP (UMD-L/2's, ViT-mu's,
-  So400m's and a padded one), the same."""
+def check_fused_mlp(fb, card, dtype=torch.bfloat16, shapes=FUSED_SHAPES_MLP):
+  """K5 in `dtype` against its plain version at `shapes`: by default the
+  sampler's and training shapes, two launches giving equal bits, with the
+  time of each of its two launches, and the other widths of
+  FUSED_SHAPES_MLP (UMD-L/2's, ViT-mu's, So400m's and a padded one), the
+  same."""
   gen = torch.Generator(device="cuda").manual_seed(4)
   randn = lambda *s, std=1.0: (torch.randn(*s, generator=gen, device="cuda")
-                               * std).to(torch.bfloat16)
+                               * std).to(dtype)
   lin = torch.nn.functional.linear
+  f32 = dtype == torch.float32
+  name = _named(fb.MLP_NAME, dtype)
 
   def weights(width, hidden):
     return (randn(width, hidden, std=width**-0.5), randn(hidden, std=0.1),
@@ -996,7 +1019,7 @@ def check_fused_mlp(fb, card):
 
   params = {}
   max_err, by_shape = 0.0, {}
-  for b, seq, width, hidden in FUSED_SHAPES_MLP:
+  for b, seq, width, hidden in shapes:
     if (width, hidden) not in params:
       params[(width, hidden)] = weights(width, hidden)
     w1, b1, w2, b2 = params[(width, hidden)]
@@ -1007,24 +1030,32 @@ def check_fused_mlp(fb, card):
     want = fb.fused_mlp_plain(*args)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-      fail(f"fused_mlp_fwd B={b} L={seq} D={width}: two launches differ")
-    # bf16 hidden activations and outputs on both sides; f32 sums over the
-    # width and the hidden width in another order may flip the rounding of
-    # a hidden value, which moves an output by about one bf16 ulp: allow
-    # two ulps of the largest output.
-    err, ok = _close_to_max(got, want, 2)
+      fail(f"{name} B={b} L={seq} D={width}: two launches differ")
+    if f32:
+      # f32 throughout; the sums over the width and the hidden width in
+      # another order: 1e-5 of the largest output.
+      err = (got - want).abs().max().item()
+      ok, what = err <= 1e-5 * want.abs().max().item(), "1e-5 of the max"
+    else:
+      # bf16 hidden activations and outputs on both sides; f32 sums over
+      # the width and the hidden width in another order may flip the
+      # rounding of a hidden value, which moves an output by about one
+      # bf16 ulp: allow two ulps of the largest output.
+      err, ok = _close_to_max(got, want, 2)
+      what = "2 bf16 ulps of the max"
     max_err = max(max_err, err)
-    print(f"[kernels] fused_mlp_fwd B={b} L={seq} D={width}: max abs err "
+    print(f"[kernels] {name} B={b} L={seq} D={width}: max abs err "
           f"{err:.3e} of max {want.float().abs().max().item():.3e} (tolerance "
-          "2 bf16 ulps of the max), two launches equal", flush=True)
+          f"{what}), two launches equal", flush=True)
     if not ok:
-      fail(f"fused_mlp_fwd disagrees with its plain version ({err:.3e})")
+      fail(f"{name} disagrees with its plain version ({err:.3e})")
     rows = b * seq
     w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     bytes_moved = (2 * rows * width + 2 * width * hidden + hidden
-                   + width) * 2
+                   + width) * x.element_size()
     flops = 4 * rows * width * hidden
-    bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
+    bound_ms, bound_by = _bound(bytes_moved, flops,
+                                F32_FLOPS if f32 else BF16_FLOPS)
     # The model width's shapes by (batch, length), the others' by their
     # width (and hidden width, where it is not four times the width).
     key = f"{b}x{seq}" if width == WIDTH else f"{b}x{seq}_D{width}" + (
@@ -1039,27 +1070,31 @@ def check_fused_mlp(fb, card):
     # The two launches of one call, each timed alone.
     stages = fb.fused_mlp_stages(*args)
     by_shape[key]["stage_ms"] = {
-        name: time_ms(launch, iters=20) for name, launch in stages.items()}
-    print(f"[kernels] fused_mlp_fwd B={b} L={seq} D={width} hidden="
+        stage: time_ms(launch, iters=20) for stage, launch in stages.items()}
+    print(f"[kernels] {name} B={b} L={seq} D={width} hidden="
           f"{hidden}: {_fmt(by_shape[key])} ({bytes_moved} bytes, "
           f"{flops} flops) on {card}", flush=True)
-  return dict(name=fb.MLP_NAME, route="cuda",
-              source="small_vision_tpu_torch/csrc/fused_mlp.cu",
+  return dict(name=name, route="cuda",
+              source=("small_vision_tpu_torch/csrc/fused_mlp_f32.cu" if f32
+                      else "small_vision_tpu_torch/csrc/fused_mlp.cu"),
               replaces="small_vision_tpu/ops/fused_block.py:185",
               max_abs_err=max_err, **by_shape[f"{BATCH}x{SEQ_ENC}"],
               by_shape=by_shape)
 
 
 def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
-                    shapes=FUSED_SHAPES, rank_heads=None, timed=True):
-  """K6 against its plain version at `shapes` (by default the sampler's
-  and training shapes); two launches must give equal bits; timed beside
-  its library call and bound where `timed`. `rank_heads`: a tensor rank's
-  heads of `heads` (phase tensor's entry, non-square projections (width,
-  rank_heads * head dim) and back)."""
+                    shapes=FUSED_SHAPES, rank_heads=None, timed=True,
+                    dtype=torch.bfloat16):
+  """K6 in `dtype` against its plain version at `shapes` (by default the
+  sampler's and training shapes); two launches must give equal bits; timed
+  beside its library call and bound where `timed`. `rank_heads`: a tensor
+  rank's heads of `heads` (phase tensor's entry, non-square projections
+  (width, rank_heads * head dim) and back)."""
   gen = torch.Generator(device="cuda").manual_seed(5)
   randn = lambda *s, std=1.0: (torch.randn(*s, generator=gen, device="cuda")
-                               * std).to(torch.bfloat16)
+                               * std).to(dtype)
+  f32 = dtype == torch.float32
+  name = _named(fb.MHA_NAME, dtype)
   head_dim = width // heads
   heads = rank_heads or heads
   hd = heads * head_dim
@@ -1071,7 +1106,7 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
   lin = torch.nn.functional.linear
   wts = [w.t().contiguous() for w in (wq, wk, wv, wo)]
   max_err, by_shape = 0.0, {}
-  max_len = fb.fused_mha_max_len(head_dim)
+  max_len = fb.fused_mha_max_len(head_dim, f32)
   for b, seq in shapes:
     x = randn(b, seq, width)
     args = (x, *params, heads)
@@ -1080,20 +1115,27 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
     want = fb.fused_mha_plain(*args)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-      fail(f"fused_mha_fwd B={b} L={seq} D={width}: two launches differ")
-    # q, k, v, the probabilities, the head outputs and the output round to
-    # bf16 on both sides; sums in another order may flip an inner rounding,
-    # which moves an output by about one bf16 ulp: allow two ulps of the
-    # largest output.
-    err, ok = _close_to_max(got, want, 2)
+      fail(f"{name} B={b} L={seq} D={width}: two launches differ")
+    if f32:
+      # f32 throughout (the max-shift softmax on both sides); sums over the
+      # width, D and L in another order: 1e-5 of the largest output.
+      err = (got - want).abs().max().item()
+      ok, what = err <= 1e-5 * want.abs().max().item(), "1e-5 of the max"
+    else:
+      # q, k, v, the probabilities, the head outputs and the output round
+      # to bf16 on both sides; sums in another order may flip an inner
+      # rounding, which moves an output by about one bf16 ulp: allow two
+      # ulps of the largest output.
+      err, ok = _close_to_max(got, want, 2)
+      what = "2 bf16 ulps of the max"
     max_err = max(max_err, err)
-    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={width} H={heads}x"
+    print(f"[kernels] {name} B={b} L={seq} D={width} H={heads}x"
           f"{head_dim}: max abs err "
           f"{err:.3e} of max {want.float().abs().max().item():.3e} "
-          "(tolerance 2 bf16 ulps of the max), two launches equal; L up to "
+          f"(tolerance {what}), two launches equal; L up to "
           f"{max_len} at head dim {head_dim}", flush=True)
     if not ok:
-      fail(f"fused_mha_fwd disagrees with its plain version ({err:.3e})")
+      fail(f"{name} disagrees with its plain version ({err:.3e})")
     if not timed:
       continue
 
@@ -1105,10 +1147,11 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
       return lin(o.transpose(1, 2).reshape(b, seq, hd), wts[3], bo)
 
     bytes_moved = (2 * b * seq * width + 4 * width * hd + 3 * hd
-                   + width) * 2
+                   + width) * x.element_size()
     flops = (8 * b * seq * width * hd
              + 4 * b * heads * seq * seq * head_dim)
-    bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
+    bound_ms, bound_by = _bound(bytes_moved, flops,
+                                F32_FLOPS if f32 else BF16_FLOPS)
     by_shape[f"{b}x{seq}"] = dict(
         ms=time_ms(lambda: fb.fused_mha_fwd(*args), iters=20),
         plain_ms=time_ms(lambda: fb.fused_mha_plain(*args), iters=3,
@@ -1120,12 +1163,13 @@ def check_fused_mha(fb, card, width=WIDTH, heads=HEADS,
     # The three launches of one call, each timed alone.
     stages = fb.fused_mha_stages(*args)
     by_shape[f"{b}x{seq}"]["stage_ms"] = {
-        name: time_ms(launch, iters=20) for name, launch in stages.items()}
-    print(f"[kernels] fused_mha_fwd B={b} L={seq} D={width} H={heads}x"
+        stage: time_ms(launch, iters=20) for stage, launch in stages.items()}
+    print(f"[kernels] {name} B={b} L={seq} D={width} H={heads}x"
           f"{head_dim}: {_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} bytes, {flops} "
           f"flops) on {card}", flush=True)
-  return dict(name=fb.MHA_NAME, route="cuda",
-              source="small_vision_tpu_torch/csrc/fused_mha.cu",
+  return dict(name=name, route="cuda",
+              source=("small_vision_tpu_torch/csrc/fused_mha_f32.cu" if f32
+                      else "small_vision_tpu_torch/csrc/fused_mha.cu"),
               replaces="small_vision_tpu/ops/fused_block.py:68",
               max_abs_err=max_err, max_len=max_len,
               **by_shape.get("{}x{}".format(*shapes[0]), {}),
@@ -1138,43 +1182,58 @@ UNPACKED_SHAPES = ((BATCH, SEQ_ENC), (BATCH, SEQ_DEC),
                    (TRAIN_BATCH // 2, TRAIN_SEQS[-1]))
 
 
+# K7 and K8 in f32: the sampler's shape and the training shapes.
+UNPACKED_SHAPES_F32 = ((BATCH, SEQ_ENC),) + tuple(
+    (TRAIN_BATCH // 2, l) for l in TRAIN_SEQS)
+
+
 def check_attention_unpacked(attn, card, width=WIDTH, heads=HEADS,
-                             shapes=UNPACKED_SHAPES, timed=True):
-  """K7 on [B, L, heads, width / heads] against its plain version at
-  `shapes`, two launches giving equal bits; where `timed`, timed at each
-  but the decoder's sampler shape."""
+                             shapes=UNPACKED_SHAPES, timed=True,
+                             dtype=torch.bfloat16):
+  """K7 in `dtype` on [B, L, heads, width / heads] against its plain
+  version at `shapes`, two launches giving equal bits; where `timed`,
+  timed at each but the decoder's sampler shape."""
   gen = torch.Generator(device="cuda").manual_seed(6)
   head_dim = width // heads
+  f32 = dtype == torch.float32
+  name = _named(attn.UNPACKED_NAME, dtype)
   max_err, by_shape = 0.0, {}
-  max_len = attn._unpacked_lib()[1](head_dim)
+  max_len = (attn._unpacked_f32_lib()[1] if f32
+             else attn._unpacked_lib()[1](head_dim))
   for b, seq in shapes:
     q, k, v = (torch.randn(b, seq, heads, head_dim, generator=gen,
-                           device="cuda").to(torch.bfloat16)
+                           device="cuda").to(dtype)
                for _ in range(3))
     got = attn.attention_unpacked_fwd(q, k, v)
     again = attn.attention_unpacked_fwd(q, k, v)
     ref = attn.attention_plain(q, k, v).float()
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-      fail(f"attention_unpacked_fwd B={b} L={seq}: two launches differ")
+      fail(f"{name} B={b} L={seq}: two launches differ")
     err = (got.float() - ref).abs()
-    # Two bf16 ulps at unit magnitude (outputs are convex mixes of N(0,1)
-    # values): the f32 score sums run in another order, which may round a
-    # probability to the neighbouring bf16 value, and o itself is bf16.
-    bad = (err > 1e-2 + 1e-2 * ref.abs()).sum().item()
+    if f32:
+      # f32 throughout, the max-shift softmax on both sides; score and
+      # value sums in another order: 1e-5 of the largest output.
+      bad = (err > 1e-5 * ref.abs().max()).sum().item()
+    else:
+      # Two bf16 ulps at unit magnitude (outputs are convex mixes of N(0,1)
+      # values): the f32 score sums run in another order, which may round
+      # a probability to the neighbouring bf16 value, and o itself is bf16.
+      bad = (err > 1e-2 + 1e-2 * ref.abs()).sum().item()
     max_err = max(max_err, err.max().item())
-    print(f"[kernels] attention_unpacked_fwd B={b} L={seq} H={heads} "
+    print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: max abs err {err.max().item():.3e}, {bad} elements "
           f"over tolerance, two launches equal; L up to {max_len}",
           flush=True)
     if bad:
-      fail(f"attention_unpacked_fwd disagrees with its plain version ({bad})")
+      fail(f"{name} disagrees with its plain version ({bad})")
     if not timed or (seq == SEQ_DEC and b == BATCH):
       continue
     heads_first = lambda t: t.transpose(1, 2)
-    bytes_moved = 4 * b * seq * width * 2
+    bytes_moved = 4 * b * seq * width * q.element_size()
     flops = 4 * b * heads * seq * seq * head_dim
-    bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
+    bound_ms, bound_by = _bound(bytes_moved, flops,
+                                F32_FLOPS if f32 else BF16_FLOPS)
     by_shape[f"{b}x{seq}"] = dict(
         ms=time_ms(lambda: attn.attention_unpacked_fwd(q, k, v)),
         plain_ms=time_ms(lambda: attn.attention_plain(q, k, v), iters=10),
@@ -1184,11 +1243,13 @@ def check_attention_unpacked(attn, card, width=WIDTH, heads=HEADS,
         library_backend=sdpa_backend(heads_first(q), heads_first(k),
                                      heads_first(v)),
         bound_ms=bound_ms, bound_by=bound_by)
-    print(f"[kernels] attention_unpacked_fwd B={b} L={seq} H={heads} "
+    print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: {_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} "
           f"bytes, {flops} flops) on {card}", flush=True)
-  return dict(name=attn.UNPACKED_NAME, route="cuda",
-              source="small_vision_tpu_torch/csrc/attention_unpacked.cu",
+  return dict(name=name, route="cuda",
+              source=("small_vision_tpu_torch/csrc/attention_unpacked_f32.cu"
+                      if f32 else
+                      "small_vision_tpu_torch/csrc/attention_unpacked.cu"),
               replaces="small_vision_tpu/ops/attention.py:79",
               max_abs_err=max_err, max_len=max_len,
               **by_shape.get(f"{BATCH}x{SEQ_ENC}", {}),
@@ -1204,51 +1265,57 @@ K8_SHAPES = tuple((TRAIN_BATCH // 2, l) for l in TRAIN_SEQS) + K8_EDGE_SHAPES
 
 
 def check_attention_unpacked_bwd(attn, card, width=WIDTH, heads=HEADS,
-                                 shapes=K8_SHAPES, timed=True):
-  """K8 on [B, L, heads, width / heads] against its plain version at
-  `shapes` (by default the training shapes, a ragged length and one past
-  its old length limit), two launches giving equal bits; where `timed`,
-  timed at the training shapes, with the time of each of its two
-  kernels."""
+                                 shapes=K8_SHAPES, timed=True,
+                                 dtype=torch.bfloat16):
+  """K8 in `dtype` on [B, L, heads, width / heads] against its plain
+  version at `shapes` (by default the training shapes, a ragged length and
+  one past its old length limit), two launches giving equal bits; where
+  `timed`, timed at the training shapes, with the time of each of its
+  kernels (two, f32 three)."""
   gen = torch.Generator(device="cuda").manual_seed(7)
   head_dim = width // heads
+  f32 = dtype == torch.float32
+  name = _named(attn.UNPACKED_BWD_NAME, dtype)
   max_err, by_len = 0.0, {}
-  max_len = attn._unpacked_bwd_lib()[1]
+  max_len = (attn._unpacked_f32_lib() if f32 else attn._unpacked_bwd_lib())[1]
   for b, seq in shapes:
     q, k, v, do = (torch.randn(b, seq, heads, head_dim, generator=gen,
-                               device="cuda").to(torch.bfloat16)
+                               device="cuda").to(dtype)
                    for _ in range(4))
     got = attn.attention_unpacked_bwd(q, k, v, do)
     again = attn.attention_unpacked_bwd(q, k, v, do)
     want = attn.attention_bwd_plain(q, k, v, do)
     torch.cuda.synchronize()
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
-      fail(f"attention_unpacked_bwd B={b} L={seq}: two launches differ")
+      fail(f"{name} B={b} L={seq}: two launches differ")
     worst, bad = 0.0, 0
     top = max(w.float().abs().max().item() for w in want)
     for g, w in zip(got, want):
       # bf16 outputs of f32 sums over L; a sum in another order may flip
       # the bf16 rounding of a P or dS input of a product: a few bf16 ulps
       # of the largest output, floored at 1e-3 of the largest of the three
-      # (dq and dk vanish at L = 1), as in check_attention_bwd.
+      # (dq and dk vanish at L = 1), as in check_attention_bwd. f32: the
+      # same sums in another order, nothing rounded to bf16: 1e-4 of each
+      # gradient's largest value (K4 f32's bound).
       e = (g.float() - w.float()).abs().max().item()
       worst = max(worst, e)
-      bad += int(e > 2.0**-6 * max(w.float().abs().max().item(), 1e-3 * top))
+      bad += int(e > (1e-4 if f32 else 2.0**-6) * max(
+          w.float().abs().max().item(), 1e-3 * top))
     max_err = max(max_err, worst)
-    print(f"[kernels] attention_unpacked_bwd B={b} L={seq} H={heads} "
+    print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: max abs err {worst:.3e}, {bad} outputs over "
           f"tolerance, two launches equal; L up to {max_len}", flush=True)
     if bad:
-      fail(f"attention_unpacked_bwd disagrees with its plain version ({bad})")
+      fail(f"{name} disagrees with its plain version ({bad})")
     if not timed or b != TRAIN_BATCH // 2 or seq not in TRAIN_SEQS:
       continue
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
     dos = do.transpose(1, 2)
-    bound_ms, bound_by = _bound(7 * b * seq * width * 2,
+    bound_ms, bound_by = _bound(7 * b * seq * width * q.element_size(),
                                 5 * 2 * b * heads * seq * seq * head_dim,
-                                BF16_FLOPS)
+                                F32_FLOPS if f32 else BF16_FLOPS)
     by_len[seq] = dict(
         ms=time_ms(lambda: attn.attention_unpacked_bwd(q, k, v, do)),
         plain_ms=time_ms(lambda: attn.attention_bwd_plain(q, k, v, do),
@@ -1257,15 +1324,17 @@ def check_attention_unpacked_bwd(attn, card, width=WIDTH, heads=HEADS,
             o, (qs, ks, vs), dos, retain_graph=True)),
         library_backend=sdpa_backend(qs, ks, vs),
         bound_ms=bound_ms, bound_by=bound_by)
-    # The two kernels of one call, each timed alone ("dkdv" reads the m, r,
-    # c that "dq" wrote in its warm-up).
+    # The kernels of one call, each timed alone, in order (each reads the
+    # statistics an earlier one wrote in its warm-up).
     stages = attn.attention_unpacked_bwd_stages(q, k, v, do)
     by_len[seq]["stage_ms"] = {
-        name: time_ms(launch) for name, launch in stages.items()}
-    print(f"[kernels] attention_unpacked_bwd B={b} L={seq} H={heads} "
+        stage: time_ms(launch) for stage, launch in stages.items()}
+    print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: {_fmt(by_len[seq])} on {card}", flush=True)
-  return dict(name=attn.UNPACKED_BWD_NAME, route="cuda",
-              source="small_vision_tpu_torch/csrc/attention_unpacked_bwd.cu",
+  return dict(name=name, route="cuda",
+              source=("small_vision_tpu_torch/csrc/attention_unpacked_f32.cu"
+                      if f32 else
+                      "small_vision_tpu_torch/csrc/attention_unpacked_bwd.cu"),
               replaces="small_vision_tpu/ops/attention.py:162",
               max_abs_err=max_err, max_len=max_len,
               **by_len.get(TRAIN_SEQS[-1], {}),
@@ -1658,18 +1727,19 @@ def phase_model(build, card, attn_impl, setting="", extra="", model=None,
 
 
 def phase_train(build, card, attn_impl, quant="", tag="train", extra="",
-                per_block=None, variant="B/4", windows=False, model=None):
+                per_block=None, variant="B/4", windows=False, model=None,
+                steps=TRAIN_STEPS):
   """The full UMD-<variant>@64 training step at batch 256 through
   `train_and_evaluate`, on synthetic data from `init_train_params`, under
   `attn_impl` (and the model's `quant`, phase quant; the config string
   `extra` and a block's launches `per_block`, phase settings; the model's
   fields `model`, phase f32); with its peak memory. With `windows` the
   run is `window_run_steps()` long and its img/s the requalified median of
-  its windows (`qualified_steps`)."""
+  its windows (`qualified_steps`); without, `steps` long (1 warm-up)."""
   from small_vision_tpu_torch.configs import ae_i1k
   from small_vision_tpu_torch.train import train_ae
 
-  steps = window_run_steps() if windows else TRAIN_STEPS
+  steps = window_run_steps() if windows else steps
   config = ae_i1k.get_config(
       f"variant={variant},size=64,data=synthetic,batch_size={TRAIN_BATCH},"
       f"total_steps={steps},log_steps=1,eval_steps=-1,"
@@ -1815,14 +1885,14 @@ def phase_sample_call(build, card, attn_impl, quant="", tag="serve",
   return out
 
 
-def phase_unpacked(build, attn, card):
-  """`fused_attention` on [B, L, H, D], which no module of the model calls:
-  forward and backward through autograd at the decoder's training shape,
-  against the plain versions on the CPU."""
+def phase_unpacked(build, attn, card, dtype=torch.bfloat16):
+  """`fused_attention` on [B, L, H, D] in `dtype`, which no module of the
+  model calls: forward and backward through autograd at the decoder's
+  training shape, against the plain versions on the CPU."""
   gen = torch.Generator().manual_seed(8)
   b, seq, head_dim = TRAIN_BATCH // 2, TRAIN_SEQS[-1], WIDTH // HEADS
   q, k, v, do = (torch.randn(b, seq, HEADS, head_dim, generator=gen)
-                 .to(torch.bfloat16) for _ in range(4))
+                 .to(dtype) for _ in range(4))
   results = {}
   for dev in ("cpu", "cuda"):
     args = [t.to(dev).clone().requires_grad_() for t in (q, k, v)]
@@ -1835,17 +1905,21 @@ def phase_unpacked(build, attn, card):
       launches = dict(build.LAUNCHES)
     results[dev] = [out.detach().float().cpu()] + [a.grad.float().cpu()
                                                    for a in args]
-  want = {attn.UNPACKED_NAME: 1, attn.UNPACKED_BWD_NAME: 1}
+  want = {_named(attn.UNPACKED_NAME, dtype): 1,
+          _named(attn.UNPACKED_BWD_NAME, dtype): 1}
   worst = 0.0
   for c, g in zip(results["cpu"], results["cuda"]):
-    # As in the kernels phase: a few bf16 ulps of the largest value.
+    # As in the kernels phase: a few bf16 ulps of the largest value (f32:
+    # 1e-4 of it, the backward's bound).
     worst = max(worst, (c - g).abs().max().item() / c.abs().max().item())
+  tol = 1e-4 if dtype == torch.float32 else 2.0**-6
   print(f"[unpacked] fused_attention ({b}, {seq}, {HEADS}, {head_dim}) "
-        f"forward and backward: worst error {worst:.3e} of each tensor's "
-        f"max against the CPU; launches {launches} on {card}", flush=True)
+        f"{str(dtype).replace('torch.', '')} forward and backward: worst "
+        f"error {worst:.3e} of each tensor's max against the CPU (tolerance "
+        f"{tol:g}); launches {launches} on {card}", flush=True)
   if launches != want:
     fail(f"fused_attention launches {launches} != {want}")
-  if not worst <= 2.0**-6:
+  if not worst <= tol:
     fail(f"fused_attention on the card differs from the CPU by {worst:.3e}")
   return launches
 
@@ -3742,73 +3816,55 @@ def phase_shapes(build, card, settings):
 
 # ---------------------------------------------------------------------------
 # Phase f32: UMD-B/4@64 under `dtype_mm="float32"` (the upstream
-# reference's precision) and "pallas": K1-K4 in f32, on the card in f32
-# (TF32 off).
+# reference's precision), "pallas" and "pallas_fused": K1-K6 in f32, on
+# the card in f32 (TF32 off).
 
 F32_MODEL = {"dtype_mm": "float32"}
-# A block's launches under "pallas" in f32: the f32 instances of K1-K4.
-BLOCK_TRAIN_LAUNCHES_F32 = {_named(k, torch.float32): v for k, v in
-                            BLOCK_TRAIN_LAUNCHES["pallas"].items()}
-BLOCK_SAMPLE_LAUNCHES_F32 = {_named(k, torch.float32): v for k, v in
-                             BLOCK_SAMPLE_LAUNCHES["pallas"].items()}
-
-
-def _f32_fused_refused(build, card):
-  """The depth-2+1 model under "pallas_fused" in f32 on the card: its
-  forward raises K6's or K5's named ValueError (they take bf16 only), with
-  no K5 or K6 launch."""
-  from small_vision_tpu_torch import convert
-  from small_vision_tpu_torch.configs import ae_i1k
-  from small_vision_tpu_torch.train import train_ae
-
-  config = ae_i1k.get_config("batch_size=8,attn_impl=pallas_fused")
-  config["model"].update(depth=2, dec_depth=1, **F32_MODEL)
-  model = train_ae.build_model(config, device="cuda")
-  model.load_state_dict(convert.params_from_jax(_card_params(config, 1),
-                                                model))
-  x = torch.randn(3, 64, 64, 3, device="cuda")
-  t = torch.tensor([1, 500, 1000], device="cuda")
-  build.reset_launches()
-  try:
-    with torch.inference_mode():
-      model(x, t=t)
-  except ValueError as e:
-    if not re.match(r"(fused_mha_fwd|fused_mlp_fwd): ", str(e)):
-      fail(f"pallas_fused in f32 raised another error: {e}")
-    said = str(e)
-  else:
-    fail("pallas_fused in f32 ran on the card")
-  fused = {k: n for k, n in build.LAUNCHES.items() if k.startswith("fused")}
-  if fused:
-    fail(f"pallas_fused in f32 launched {fused}")
-  print(f"[f32] pallas_fused, dtype_mm=float32: the forward raises "
-        f"ValueError \"{said[:120]}\" (K5 and K6 take bf16 only), no K5 or "
-        f"K6 launch, on {card}", flush=True)
+# A block's launches in f32: the f32 instances of the bf16 ones, under
+# each setting ("pallas": K1-K4; "pallas_fused": K1, K2, K5, K6 and the
+# backward's K3 and K4).
+BLOCK_TRAIN_LAUNCHES_F32 = {
+    a: {_named(k, torch.float32): v for k, v in per.items()}
+    for a, per in BLOCK_TRAIN_LAUNCHES.items()}
+BLOCK_SAMPLE_LAUNCHES_F32 = {
+    a: {_named(k, torch.float32): v for k, v in per.items()}
+    for a, per in BLOCK_SAMPLE_LAUNCHES.items()}
+# The fused f32 training run: 1 warm-up and 3 timed steps (each a window
+# of one step), as phase latent's fused UMD-L/2 reading.
+F32_FUSED_STEPS = 4
 
 
 def phase_f32(build, card):
-  """UMD-B/4@64 under `dtype_mm="float32"` and "pallas", on the card with
-  TF32 off (held: it must be off when the phase runs): (a) the depth-2+1
-  model and one training step on the card against the CPU's plain f32
-  path within MODEL_BOUNDS_F32, the launches exact (the f32 instances of
-  K1-K4 only); (b) full-depth training at batch 256 through
+  """UMD-B/4@64 under `dtype_mm="float32"`, on the card with TF32 off
+  (held: it must be off when the phase runs). Under "pallas": (a) the
+  depth-2+1 model and one training step on the card against the CPU's
+  plain f32 path within MODEL_BOUNDS_F32, the launches exact (the f32
+  instances of K1-K4 only); (b) full-depth training at batch 256 through
   `train_and_evaluate` (finite, falling losses, requalified img/s, peak
   memory, K1 64, K3 32, K2 64, K4 32 launches a step, all in f32); (c)
-  one 25-step sampler call at batch 64 (K1 832, K3 416, in f32); (d)
-  "pallas_fused" in f32 raises K6's or K5's named error."""
+  one 25-step sampler call at batch 64 (K1 832, K3 416, in f32). (d) Under
+  "pallas_fused" the same three: the depth-2+1 check, F32_FUSED_STEPS
+  full-depth training steps (K1 64, K6 32, K5 32, K2 64, K3 32, K4 32 a
+  step, all in f32) and one 25-step sampler call (K1 832, K6 416, K5 416,
+  in f32)."""
   if (torch.backends.cuda.matmul.allow_tf32
       or torch.backends.cudnn.allow_tf32
       or torch.get_float32_matmul_precision() != "highest"):
     fail("TF32 is on: the f32 model's products would not be f32")
-  phase_model(build, card, "pallas", "dtype_mm=float32", model=F32_MODEL,
-              per_block=BLOCK_TRAIN_LAUNCHES_F32, bounds=MODEL_BOUNDS_F32)
-  out = {"train": phase_train(build, card, "pallas", tag="f32",
-                              per_block=BLOCK_TRAIN_LAUNCHES_F32,
-                              windows=True, model=F32_MODEL)}
-  out["sampler"] = phase_sample_call(
-      build, card, "pallas", tag="f32", steps=SIDE_SAMPLER_STEPS,
-      model=F32_MODEL, per_block=BLOCK_SAMPLE_LAUNCHES_F32)
-  _f32_fused_refused(build, card)
+  out = {}
+  for attn_impl in ATTN_IMPLS:
+    per_block = BLOCK_TRAIN_LAUNCHES_F32[attn_impl]
+    phase_model(build, card, attn_impl, "dtype_mm=float32", model=F32_MODEL,
+                per_block=per_block, bounds=MODEL_BOUNDS_F32)
+    fused = attn_impl == "pallas_fused"
+    out[attn_impl] = {
+        "train": phase_train(build, card, attn_impl, tag="f32",
+                             per_block=per_block, windows=not fused,
+                             model=F32_MODEL, steps=F32_FUSED_STEPS),
+        "sampler": phase_sample_call(
+            build, card, attn_impl, tag="f32", steps=SIDE_SAMPLER_STEPS,
+            model=F32_MODEL,
+            per_block=BLOCK_SAMPLE_LAUNCHES_F32[attn_impl])}
   return out
 
 
@@ -5010,7 +5066,31 @@ def main():
                                        dtype=f32),
         attn.BWD_NAME_F32: check_attention_bwd(attn, card, width, heads,
                                                timed=False, shapes=shapes,
-                                               dtype=f32)})
+                                               dtype=f32),
+        attn.UNPACKED_NAME_F32: check_attention_unpacked(
+            attn, card, width, heads, shapes, False, f32),
+        attn.UNPACKED_BWD_NAME_F32: check_attention_unpacked_bwd(
+            attn, card, width, heads, shapes, False, f32)})
+  mark("kernels K1-K4 in f32")
+  # K5-K8 in f32 at the main path's shapes (phase f32's "pallas_fused"
+  # and phase unpacked's f32 call), timed beside their f32 bounds, plain
+  # versions and library calls (F.linear, tanh gelu, F.linear; SDPA
+  # between F.linear projections; SDPA and its backward; all in f32, TF32
+  # off); K5 also at 36 -> 150, unpadded. K6 in f32 at `heads=32`'s head
+  # dim 12 at UMD-S's 384, at `heads=2`'s 384 (past 256) and on a tensor
+  # rank's 6 of 12 heads (non-square projections), checked.
+  kernels += [check_fused_mlp(fb, card, f32, FUSED_SHAPES_MLP_F32),
+              check_fused_mha(fb, card, shapes=WIDE_SHAPES, dtype=f32),
+              check_attention_unpacked(attn, card, shapes=UNPACKED_SHAPES_F32,
+                                       dtype=f32),
+              check_attention_unpacked_bwd(attn, card, dtype=f32)]
+  for key, width, heads, rank in (("head_dim_12", 384, 32, None),
+                                  ("head_dim_384", WIDTH, 2, None),
+                                  (f"tensor_rank_{HEADS // 2}_heads", WIDTH,
+                                   HEADS, HEADS // 2)):
+    more.setdefault(key, {})[fb.MHA_NAME_F32] = check_fused_mha(
+        fb, card, width, heads, NEW_WIDTH_SHAPES, rank_heads=rank,
+        timed=False, dtype=f32)
   gc.collect()
   torch.cuda.empty_cache()  # the plain versions' (B, H, L, L) scores
   check_refused_head_dims(attn, fb, build)
@@ -5045,6 +5125,7 @@ def main():
   data = phase_data(build, card, train["pallas"])
   mark("data")
   unpacked = phase_unpacked(build, attn, card)
+  unpacked_f32 = phase_unpacked(build, attn, card, torch.float32)
   ablate = phase_ablate(build, attn, card)
   mark("unpacked, ablate")
   backbone = tempfile.mkdtemp(prefix="sv_backbone_")
@@ -5096,6 +5177,7 @@ def main():
            train[a]["launches"].get(name, 0) for a in ATTN_IMPLS},
         "data": data["launches"].get(name, 0),
         "fused_attention": unpacked.get(name, 0),
+        "fused_attention_f32": unpacked_f32.get(name, 0),
         "ablate": ablate.get(name, 0),
         "resume": resume["launches"].get(name, 0),
         **{f"quant_train_{a}_{QUANT_TRAIN}":
@@ -5140,9 +5222,10 @@ def main():
            shapes[a]["launches"].get(name, 0) for a in ATTN_IMPLS},
         "shapes_vit_mu_forward_pallas_fused":
             shapes["cls"]["launches"].get(name, 0),
-        f"f32_train_pallas_{by_f32['train']['steps']}_steps":
-            by_f32["train"]["launches"].get(name, 0),
-        "f32_sampler_pallas": by_f32["sampler"]["launches"].get(name, 0),
+        **{f"f32_train_{a}_{by_f32[a]['train']['steps']}_steps":
+           by_f32[a]["train"]["launches"].get(name, 0) for a in ATTN_IMPLS},
+        **{f"f32_sampler_{a}": by_f32[a]["sampler"]["launches"].get(name, 0)
+           for a in ATTN_IMPLS},
         f"parallel_a_nccl_{PARALLEL_STEPS}_steps":
             parallel["a"]["launch"]["launches"].get(name, 0),
         **{f"parallel_b_fsdp2_process{r}_{PARALLEL_STEPS}_steps":
@@ -5274,7 +5357,8 @@ def main():
         f" forward under pallas_fused {qual_text(cm['qual'])} at batch "
         f"{CLS_BATCH}, launches {cm['launches']}; on {card}", flush=True)
 
-  ft, fs = by_f32["train"], by_f32["sampler"]
+  ft, fs = by_f32["pallas"]["train"], by_f32["pallas"]["sampler"]
+  fft, ffs = by_f32["pallas_fused"]["train"], by_f32["pallas_fused"]["sampler"]
   print(f"[result] f32: UMD-B/4@64 dtype_mm=float32 under pallas: training "
         f"{qual_text(ft['qual'])}, {ft['ms']:.2f} ms/step, peak "
         f"{ft['peak_gb']:.2f} GB (bf16, phase train: "
@@ -5284,6 +5368,14 @@ def main():
         f"{SIDE_SAMPLER_STEPS}-step call (bf16, phase serve: "
         f"{_fwd_ms(serve['pallas']):.2f}); launches a training step "
         + str({k: v // ft["steps"] for k, v in ft["launches"].items()})
+        + f"; under pallas_fused: training {fft['img_per_s']:.2f} img/s, "
+        f"{fft['ms']:.2f} ms/step ({fft['steps'] - 1} timed), peak "
+        f"{fft['peak_gb']:.2f} GB (bf16, phase train: "
+        f"{train['pallas_fused']['img_per_s']:.2f} img/s); sampler "
+        f"{ffs['fwd_ms']:.2f} ms a forward, {ffs['s']:.3f} s a "
+        f"{SIDE_SAMPLER_STEPS}-step call (bf16, phase serve: "
+        f"{_fwd_ms(serve['pallas_fused']):.2f}); launches a training step "
+        + str({k: v // fft["steps"] for k, v in fft["launches"].items()})
         + f"; on {card}", flush=True)
 
   pa, pf, pp = parallel["a"], parallel["fsdp"], parallel["pipe"]

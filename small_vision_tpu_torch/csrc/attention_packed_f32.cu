@@ -20,451 +20,22 @@
 // 4 B H L^2 D operations (13.3 GFLOP at the sampler's (64, 260), 768 wide:
 // 0.20 ms at 67 TFLOP/s of f32 FMA) against 16 B H L D bytes.
 //
-// Design: plain f32 FMA on the CUDA cores (SIMT), no tensor cores: a TF32
-// product keeps about three decimal digits, and the point of f32 is f32. A
-// CTA of 256 threads (16 x 16) owns a tile of 64 query rows (or key rows)
-// of one (b, h) and 64 output columns of the head; each thread holds a
-// 4 x 4 tile of the scores or outputs, on rows ty + 16 i and columns
-// tx + 16 j, so its shared-memory reads of both operands are free of bank
-// conflicts. The score product walks the head's D columns in chunks of
-// 32, staging both operands' chunks in shared memory, and so takes every
-// head dim from 1 to 2,048 in registers of a fixed size; past 64 columns
-// the outputs' columns are split across CTAs (gridDim.y), each recomputing
-// the scores, as the wide bf16 path does. The clamp bounds e, so the
-// forward needs no max and no rescaling pass: it adds e v and e over the
-// key tiles in a fixed order. The backward runs three kernels, each with
-// every sum in a fixed order (no atomics), so two launches give the same
-// bits: the row statistics r and c per query (its scores and dP over all
-// keys), then dQ per query tile (over the key tiles), then dK and dV per
-// key tile (over the query tiles, with the transposed scores K Q^T and
-// V dO^T, so that the outputs' rows are the thread's rows). Rows past L
-// read as zeros, and nothing past L or D is stored.
+// Design: simt_f32_attention.cuh (plain f32 FMA on 64-row tiles, D in
+// chunks of 32, three backward kernels with every sum in a fixed order)
+// under its `ClampExp2` policy. The clamp bounds e, so the forward needs no
+// max and no rescaling pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
-
-constexpr int kTile = 64;    // query or key rows of a tile
-constexpr int kChunk = 32;   // depth of a staged chunk of a score product
-constexpr int kCols = 64;    // output columns of a CTA
-constexpr int kThreads = 256;
-constexpr int kMaxLen = 4096;
-constexpr int kMaxHeadDim = 2048;
-constexpr float kClamp = 80.f;
-
-constexpr int kChunkStride = kChunk + 1;  // shared rows, padded
-constexpr int kTileStride = kTile + 1;
-constexpr int kChunkFloats = kTile * kChunkStride;
-constexpr int kTileFloats = kTile * kTileStride;
-
-// rows [row0, row0 + 64) x columns [col0, col0 + kChunk) of a head whose
-// rows are `stride` floats apart (zeros past L and past D) into dst
-// [64][kChunkStride].
-__device__ __forceinline__ void load_chunk(float* dst, const float* src,
-                                           int row0, int len, int stride,
-                                           int col0, int d) {
-#pragma unroll
-  for (int it = 0; it < kTile * kChunk / kThreads; ++it) {
-    const int idx = threadIdx.x + it * kThreads;
-    const int r = idx / kChunk, c = idx % kChunk;
-    const int row = row0 + r, col = col0 + c;
-    dst[r * kChunkStride + c] =
-        row < len && col < d ? src[static_cast<size_t>(row) * stride + col]
-                             : 0.f;
-  }
-}
-
-// rows [row0, row0 + 64) x columns [col0, col0 + 64) (zeros past L and D)
-// into dst [64][kTileStride], each row times `row_scale[r]` where given.
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int len, int stride,
-                                          int col0, int d,
-                                          const float* row_scale) {
-#pragma unroll
-  for (int it = 0; it < kTile * kCols / kThreads; ++it) {
-    const int idx = threadIdx.x + it * kThreads;
-    const int r = idx / kCols, c = idx % kCols;
-    const int row = row0 + r, col = col0 + c;
-    float v = row < len && col < d
-                  ? src[static_cast<size_t>(row) * stride + col]
-                  : 0.f;
-    if (row_scale != nullptr) v *= row_scale[r];
-    dst[r * kTileStride + c] = v;
-  }
-}
-
-// acc0[i][j] = sum over the head's d columns of a0[arow0 + ty + 16 i] .
-// b0[brow0 + tx + 16 j] (and acc1 of a1, b1 where kTwo), summed column by
-// column in order. stage: 2 (or 4) chunks of kChunkFloats. Starts and ends
-// with a block barrier, so the caller may reuse `stage` on either side.
-template <bool kTwo>
-__device__ __forceinline__ void score_tiles(
-    const float* a0, const float* b0, const float* a1, const float* b1,
-    int arow0, int brow0, int len, int stride, int d, float* stage,
-    float (&acc0)[4][4], float (&acc1)[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc0[i][j] = acc1[i][j] = 0.f;
-  }
-  float* sa0 = stage;
-  float* sb0 = stage + kChunkFloats;
-  float* sa1 = stage + 2 * kChunkFloats;
-  float* sb1 = stage + 3 * kChunkFloats;
-  for (int c0 = 0; c0 < d; c0 += kChunk) {
-    __syncthreads();
-    load_chunk(sa0, a0, arow0, len, stride, c0, d);
-    load_chunk(sb0, b0, brow0, len, stride, c0, d);
-    if (kTwo) {
-      load_chunk(sa1, a1, arow0, len, stride, c0, d);
-      load_chunk(sb1, b1, brow0, len, stride, c0, d);
-    }
-    __syncthreads();
-    const int cols = min(kChunk, d - c0);
-    for (int c = 0; c < cols; ++c) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sa0[(ty + 16 * i) * kChunkStride + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sb0[(tx + 16 * j) * kChunkStride + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc0[i][j] = fmaf(a[i], b[j], acc0[i][j]);
-      }
-      if (kTwo) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = sa1[(ty + 16 * i) * kChunkStride + c];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          b[j] = sb1[(tx + 16 * j) * kChunkStride + c];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc1[i][j] = fmaf(a[i], b[j], acc1[i][j]);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// out[i][j] += sum over k < 64, in order, of p[ty + 16 i][k] *
-// t[k][tx + 16 j] (both [64][kTileStride] in shared memory).
-__device__ __forceinline__ void tile_product(const float* p, const float* t,
-                                             float (&out)[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int k = 0; k < kTile; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = p[(ty + 16 * i) * kTileStride + k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = t[k * kTileStride + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][j] = fmaf(a[i], b[j], out[i][j]);
-    }
-  }
-}
-
-// The sum of v over the 16 threads of a row of the thread grid (lanes that
-// share ty: half a warp).
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-__device__ __forceinline__ float clamped_exp2(float s, float scale2) {
-  return exp2f(fminf(fmaxf(s * scale2, -kClamp), kClamp));
-}
-
-// Grid (query tiles, H * column chunks, B). o = (e v) / rowsum(e).
-__global__ void __launch_bounds__(kThreads)
-attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
-                    int len, int heads, int d, float scale2) {
-  __shared__ __align__(16) float smem[4 * kChunkFloats];
-  float* e_tile = smem;                  // [64][65], over the chunks
-  float* v_tile = smem + kTileFloats;    // [64][65]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int chunks = (d + kCols - 1) / kCols;
-  const int h = blockIdx.y / chunks;
-  const int col0 = (blockIdx.y % chunks) * kCols;
-  const int q0 = blockIdx.x * kTile;
-  const int stride = heads * d;
-  const size_t base = static_cast<size_t>(blockIdx.z) * len * stride +
-                      static_cast<size_t>(h) * d;
-
-  float acc[4][4], unused[4][4], out[4][4], sum[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    sum[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < len; k0 += kTile) {
-    score_tiles<false>(q + base, k + base, nullptr, nullptr, q0, k0, len,
-                       stride, d, smem, acc, unused);
-    // The stage is free (score_tiles ends at a barrier): e and V there.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool key = k0 + tx + 16 * j < len;
-        const float e = key ? clamped_exp2(acc[i][j], scale2) : 0.f;
-        e_tile[(ty + 16 * i) * kTileStride + tx + 16 * j] = e;
-        part += e;
-      }
-      sum[i] += row_sum16(part);
-    }
-    load_tile(v_tile, v + base, k0, len, stride, col0, d, nullptr);
-    __syncthreads();
-    tile_product(e_tile, v_tile, out);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= len) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col < d) {
-        o[base + static_cast<size_t>(row) * stride + col] = out[i][j] / sum[i];
-      }
-    }
-  }
-}
-
-// Grid (query tiles, H, B). Per query: r = 1 / rowsum(e) and c = rowsum(dP
-// e) r into (B, H, L); a query past L has none.
-__global__ void __launch_bounds__(kThreads)
-attn_f32_bwd_stats_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ dout,
-                          float* __restrict__ r_out,
-                          float* __restrict__ c_out, int len, int heads,
-                          int d, float scale2) {
-  __shared__ __align__(16) float smem[4 * kChunkFloats];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const int stride = heads * d;
-  const size_t base = static_cast<size_t>(blockIdx.z) * len * stride +
-                      static_cast<size_t>(h) * d;
-  float s[4][4], dp[4][4], sum_e[4], sum_dpe[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) sum_e[i] = sum_dpe[i] = 0.f;
-  for (int k0 = 0; k0 < len; k0 += kTile) {
-    score_tiles<true>(q + base, k + base, dout + base, v + base, q0, k0, len,
-                      stride, d, smem, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float pe = 0.f, pd = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool key = k0 + tx + 16 * j < len;
-        const float e = key ? clamped_exp2(s[i][j], scale2) : 0.f;
-        pe += e;
-        pd += dp[i][j] * e;
-      }
-      sum_e[i] += row_sum16(pe);
-      sum_dpe[i] += row_sum16(pd);
-    }
-  }
-  if (tx != 0) return;
-  const size_t stat0 =
-      (static_cast<size_t>(blockIdx.z) * heads + h) * len;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= len) continue;
-    const float r = 1.f / sum_e[i];
-    r_out[stat0 + row] = r;
-    c_out[stat0 + row] = sum_dpe[i] * r;
-  }
-}
-
-// Grid (query tiles, H * column chunks, B). dQ = (dS k) r scale over the key
-// tiles, dS = e (dP - c).
-__global__ void __launch_bounds__(kThreads)
-attn_f32_bwd_dq_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ r_in,
-                       const float* __restrict__ c_in,
-                       float* __restrict__ dq, int len, int heads, int d,
-                       float scale2, float scale) {
-  __shared__ __align__(16) float smem[4 * kChunkFloats];
-  float* ds_tile = smem;
-  float* k_tile = smem + kTileFloats;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int chunks = (d + kCols - 1) / kCols;
-  const int h = blockIdx.y / chunks;
-  const int col0 = (blockIdx.y % chunks) * kCols;
-  const int q0 = blockIdx.x * kTile;
-  const int stride = heads * d;
-  const size_t base = static_cast<size_t>(blockIdx.z) * len * stride +
-                      static_cast<size_t>(h) * d;
-  const size_t stat0 =
-      (static_cast<size_t>(blockIdx.z) * heads + h) * len;
-  float r[4], c[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    r[i] = row < len ? r_in[stat0 + row] : 0.f;
-    c[i] = row < len ? c_in[stat0 + row] : 0.f;
-  }
-  float s[4][4], dp[4][4], out[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < len; k0 += kTile) {
-    score_tiles<true>(q + base, k + base, dout + base, v + base, q0, k0, len,
-                      stride, d, smem, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool key = k0 + tx + 16 * j < len;
-        const float e = key ? clamped_exp2(s[i][j], scale2) : 0.f;
-        ds_tile[(ty + 16 * i) * kTileStride + tx + 16 * j] =
-            e * (dp[i][j] - c[i]);
-      }
-    }
-    load_tile(k_tile, k + base, k0, len, stride, col0, d, nullptr);
-    __syncthreads();
-    tile_product(ds_tile, k_tile, out);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= len) continue;
-    const float rs = r[i] * scale;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col < d) {
-        dq[base + static_cast<size_t>(row) * stride + col] = out[i][j] * rs;
-      }
-    }
-  }
-}
-
-// Grid (key tiles, H * column chunks, B). Over the query tiles: dV += e^T
-// (dO r), dK += dS^T (q r scale), from the transposed scores k q^T and
-// v dO^T (rows: keys, columns: queries). Dynamic shared memory:
-// kDkdvSmemBytes.
-constexpr int kDkdvSmemFloats = 4 * kTileFloats + 2 * kTile;
-constexpr size_t kDkdvSmemBytes = kDkdvSmemFloats * sizeof(float);
-
-__global__ void __launch_bounds__(kThreads)
-attn_f32_bwd_dkdv_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ r_in,
-                         const float* __restrict__ c_in,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int len, int heads, int d, float scale2,
-                         float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* et_tile = smem;                       // e^T  [key][query]
-  float* dst_tile = smem + kTileFloats;        // dS^T [key][query]
-  float* dor_tile = smem + 2 * kTileFloats;    // dO r [query][col]
-  float* qr_tile = smem + 3 * kTileFloats;     // q r scale [query][col]
-  float* r_tile = smem + 4 * kTileFloats;      // r of the query tile
-  float* rs_tile = r_tile + kTile;             // r scale of the query tile
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int chunks = (d + kCols - 1) / kCols;
-  const int h = blockIdx.y / chunks;
-  const int col0 = (blockIdx.y % chunks) * kCols;
-  const int key0 = blockIdx.x * kTile;
-  const int stride = heads * d;
-  const size_t base = static_cast<size_t>(blockIdx.z) * len * stride +
-                      static_cast<size_t>(h) * d;
-  const size_t stat0 =
-      (static_cast<size_t>(blockIdx.z) * heads + h) * len;
-  bool key[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) key[i] = key0 + ty + 16 * i < len;
-  float st[4][4], dpt[4][4], acc_k[4][4], acc_v[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-  }
-  for (int q0 = 0; q0 < len; q0 += kTile) {
-    score_tiles<true>(k + base, q + base, v + base, dout + base, key0, q0,
-                      len, stride, d, smem, st, dpt);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      const float r = row < len ? r_in[stat0 + row] : 0.f;
-      r_tile[threadIdx.x] = r;
-      rs_tile[threadIdx.x] = r * scale;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qrow = q0 + tx + 16 * j;
-      const float c = qrow < len ? c_in[stat0 + qrow] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float e = key[i] ? clamped_exp2(st[i][j], scale2) : 0.f;
-        et_tile[(ty + 16 * i) * kTileStride + tx + 16 * j] = e;
-        dst_tile[(ty + 16 * i) * kTileStride + tx + 16 * j] =
-            e * (dpt[i][j] - c);
-      }
-    }
-    __syncthreads();  // r_tile, rs_tile
-    load_tile(dor_tile, dout + base, q0, len, stride, col0, d, r_tile);
-    load_tile(qr_tile, q + base, q0, len, stride, col0, d, rs_tile);
-    __syncthreads();
-    tile_product(et_tile, dor_tile, acc_v);
-    tile_product(dst_tile, qr_tile, acc_k);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!key[i]) continue;
-    const size_t row = static_cast<size_t>(key0 + ty + 16 * i);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col < d) {
-        dk[base + row * stride + col] = acc_k[i][j];
-        dv[base + row * stride + col] = acc_v[i][j];
-      }
-    }
-  }
-}
-
-bool takes(int batch, int len, int heads, int d) {
-  return batch >= 1 && batch <= 65535 && len >= 1 && len <= kMaxLen &&
-         heads >= 1 && d >= 1 && d <= kMaxHeadDim &&
-         static_cast<long long>(heads) * ((d + kCols - 1) / kCols) <= 65535;
-}
-
-}  // namespace
+#include "simt_f32_attention.cuh"
 
 // Longest sequence and widest head the f32 kernels take (every length and
 // head dim from 1 up to them).
-extern "C" int attention_packed_f32_max_len() { return kMaxLen; }
-extern "C" int attention_packed_f32_max_head_dim() { return kMaxHeadDim; }
+extern "C" int attention_packed_f32_max_len() { return simt_f32::kMaxLen; }
+extern "C" int attention_packed_f32_max_head_dim() {
+  return simt_f32::kMaxHeadDim;
+}
 
 // K3 in f32. q, k, v, o: (B, L, H*D) f32, contiguous. scale2: D**-0.5 *
 // log2(e), rounded to f32. Returns cudaGetLastError(), or
@@ -473,17 +44,11 @@ extern "C" int attention_packed_f32_fwd(const void* q, const void* k,
                                         const void* v, void* o, int batch,
                                         int len, int heads, int d,
                                         float scale2, void* stream) {
-  if (!takes(batch, len, heads, d)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((len + kTile - 1) / kTile,
-                  heads * ((d + kCols - 1) / kCols), batch);
-  attn_f32_fwd_kernel<<<grid, kThreads, 0, s>>>(
+  return simt_f32::attn_f32_forward<simt_f32::ClampExp2>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), len, heads, d,
-      scale2);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(v), static_cast<float*>(o), batch, len,
+      heads, d, heads * d, heads * d, scale2,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K4 in f32: three kernels on `stream`, the row statistics (into r and c,
@@ -497,35 +62,11 @@ extern "C" int attention_packed_f32_bwd(const void* q, const void* k,
                                         void* r, void* c, int batch, int len,
                                         int heads, int d, float scale2,
                                         float scale, void* stream) {
-  if (!takes(batch, len, heads, d)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* df = static_cast<const float*>(dout);
-  auto* rf = static_cast<float*>(r);
-  auto* cf = static_cast<float*>(c);
-  const int tiles = (len + kTile - 1) / kTile;
-  const int chunks = (d + kCols - 1) / kCols;
-  attn_f32_bwd_stats_kernel<<<dim3(tiles, heads, batch), kThreads, 0, s>>>(
-      qf, kf, vf, df, rf, cf, len, heads, d, scale2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_f32_bwd_dq_kernel<<<dim3(tiles, heads * chunks, batch), kThreads, 0,
-                           s>>>(qf, kf, vf, df, rf, cf,
-                                static_cast<float*>(dq), len, heads, d,
-                                scale2, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_f32_bwd_dkdv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kDkdvSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_f32_bwd_dkdv_kernel<<<dim3(tiles, heads * chunks, batch), kThreads,
-                             kDkdvSmemBytes, s>>>(
-      qf, kf, vf, df, rf, cf, static_cast<float*>(dk),
-      static_cast<float*>(dv), len, heads, d, scale2, scale);
-  return static_cast<int>(cudaGetLastError());
+  return simt_f32::attn_f32_backward<simt_f32::ClampExp2>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), nullptr, static_cast<float*>(r),
+      static_cast<float*>(c), batch, len, heads, d, scale2, scale,
+      simt_f32::kBwdAll, static_cast<cudaStream_t>(stream));
 }

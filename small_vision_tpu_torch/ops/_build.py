@@ -65,6 +65,27 @@ SIGNATURES = {
         "attention_packed_f32_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P],
         "attention_packed_f32_max_len": [],
         "attention_packed_f32_max_head_dim": []},
+    # K5-K8 in f32 (SIMT): the same arguments as their bf16 entry points
+    # (K7's and K8's scale that of K3's and K4's f32 ones: scale2, then
+    # K8's scale); K8's stage: 0 statistics, 1 dQ, 2 dK and dV.
+    "fused_mlp_f32": {
+        "fused_mlp_f32_fwd": [_P] * 7 + [_I, _I, _I, _P],
+        "fused_mlp_f32_up": [_P] * 4 + [_I, _I, _I, _P],
+        "fused_mlp_f32_down": [_P] * 4 + [_I, _I, _I, _P]},
+    "fused_mha_f32": {
+        "fused_mha_f32_fwd": [_P] * 12 + [_I, _I, _I, _I, _I, _F, _P],
+        "fused_mha_f32_proj": [_P] * 8 + [_I, _I, _I, _I, _P],
+        "fused_mha_f32_attention": [_P, _P, _I, _I, _I, _I, _F, _P],
+        "fused_mha_f32_max_len": [],
+        "fused_mha_f32_max_head_dim": []},
+    "attention_unpacked_f32": {
+        "attention_unpacked_f32_fwd": [_P] * 4 + [_I, _I, _I, _I, _F, _P],
+        "attention_unpacked_f32_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _F,
+                                                   _P],
+        "attention_unpacked_f32_bwd_stage": [_P] * 10 + [_I, _I, _I, _I, _F,
+                                                         _F, _I, _P],
+        "attention_unpacked_f32_max_len": [],
+        "attention_unpacked_f32_max_head_dim": []},
     # `*_fwd_streamed`: K and V streamed at every length (tests and
     # measurement; a tree from before it has no such entry point).
     # `*_chunked`: past head dim 256, fewer output column tiles a CTA than

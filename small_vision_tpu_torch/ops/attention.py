@@ -15,9 +15,11 @@ goes through `AttentionPacked`. K3 and K4 take bf16 and f32 (the TPU
 kernels are generic in the dtype; `dtype_mm="float32"` runs them in f32):
 f32 inputs run their f32 instances (`csrc/attention_packed_f32.cu`, plain
 f32 FMA, no TF32), at every head dim from 1 to 2,048 and L up to 4,096
-with no padding, and count under `NAME_F32` / `BWD_NAME_F32`; what
-follows is of the bf16 kernels. K7, K8 and K9 (and K5 and K6) take bf16
-only. Every kernel here takes any head dim from 1 to 2,048
+with no padding, and count under `NAME_F32` / `BWD_NAME_F32`; so do K7
+and K8 (`csrc/attention_unpacked_f32.cu`, the same f32 library under the
+max-shift policy, `UNPACKED_NAME_F32` / `UNPACKED_BWD_NAME_F32`), and K5
+and K6 (`ops.fused_block`); what follows is of the bf16 kernels. K9 takes
+bf16 only. Every kernel here takes any head dim from 1 to 2,048
 (`MAX_HEAD_DIM`; `heads=4` at width 768 gives 192, `heads=3` 256,
 `heads=2` 384, `heads=1` 768, `heads=32` at UMD-S's 384 gives 12): the
 kernels run multiples of 8, so the wrappers lay the heads of any other out
@@ -67,9 +69,11 @@ BWD_NAME = "attention_packed_bwd"
 UNPACKED_NAME = "attention_unpacked_fwd"
 UNPACKED_BWD_NAME = "attention_unpacked_bwd"
 ABLATE_NAME = "attention_ablate"
-# Launch counts of K3's and K4's f32 instances.
+# Launch counts of K3's, K4's, K7's and K8's f32 instances.
 NAME_F32 = "attention_packed_fwd_f32"
 BWD_NAME_F32 = "attention_packed_bwd_f32"
+UNPACKED_NAME_F32 = "attention_unpacked_fwd_f32"
+UNPACKED_BWD_NAME_F32 = "attention_unpacked_bwd_f32"
 # The arms of K9, in the order of the kernel's `variant` argument.
 ABLATE_VARIANTS = ("prod", "nosoftmax", "nomm", "bf16exp", "exp2", "mulmask",
                    "nomax")
@@ -237,7 +241,7 @@ def check_head_dim(d, name):
            f"head dim {d}: the kernels take 1 to {MAX_HEAD_DIM}", name)
 
 
-# K3 and K4 take both; K9 (and K6, K7, K8) bf16 only.
+# K3, K4, K7 and K8 (and K5 and K6) take both; K9 bf16 only.
 PACKED_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -492,26 +496,47 @@ def _unpacked_bwd_lib():
   return lib, lib.attention_unpacked_bwd_max_len()
 
 
-def _check_unpacked(name, **tensors):
-  """Checks the [B, L, H, D] bf16 inputs of a kernel, D from 1 to
-  MAX_HEAD_DIM; returns B, L, H, D."""
+@functools.cache
+def _unpacked_f32_lib():
+  """K7's and K8's f32 library and its length limit."""
+  lib = _build.library("attention_unpacked_f32")
+  return lib, lib.attention_unpacked_f32_max_len()
+
+
+def check_unpacked(name, **tensors):
+  """Checks the [B, L, H, D] bf16 or f32 inputs of K7 or K8, D from 1 to
+  MAX_HEAD_DIM; returns B, L, H, D. Needs no card: the tests run it on
+  CPU tensors."""
   first = next(iter(tensors.values()))
-  _require(first.is_cuda, f"{next(iter(tensors))} must be a CUDA tensor",
-           name)
   _require(first.dim() == 4,
            f"inputs must be [B, L, H, D], got {tuple(first.shape)}", name)
   b, l, h, d = first.shape
   check_head_dim(d, name)
-  _check_each(name, first, tensors)
+  _check_each(name, first, tensors, PACKED_DTYPES)
   return b, l, h, d
+
+
+def _check_unpacked(name, **tensors):
+  """`check_unpacked` of CUDA tensors."""
+  first = next(iter(tensors.values()))
+  _require(first.is_cuda, f"{next(iter(tensors))} must be a CUDA tensor",
+           name)
+  return check_unpacked(name, **tensors)
+
+
+def unpacked_head_dim(dtype, d):
+  """The head dim K7 and K8 run a head of `d` columns at: `d` for f32 (the
+  f32 kernels take every head dim), `padded_head_dim(d)` for bf16."""
+  return d if dtype == torch.float32 else padded_head_dim(d)
 
 
 def attention_unpacked_fwd(q, k, v, streamed=False, chunk_tiles=None):
   """Launches K7 on [B, L, H, D] bf16 contiguous, 16-byte aligned q, k,
-  v, D from 1 to 2,048 (padded as K3's, `attention_packed_fwd`). No
-  atomics: two launches give the same bits. L up to the kernel's
-  `attention_unpacked_max_len(D)`, 4,096 at
-  every head dim: a head's K and V stay resident in shared memory up to
+  v, D from 1 to 2,048 (padded as K3's, `attention_packed_fwd`), or on f32
+  ones (K7's f32 instance, unpadded, with neither option; counted under
+  UNPACKED_NAME_F32). No atomics: two launches give the same bits. L up
+  to the kernel's `attention_unpacked_max_len(D)`, 4,096 at every head
+  dim: a head's K and V stay resident in shared memory up to
   320 keys at D <= 64 (one 64-column tile a head) and 384 at 64 < D <=
   128 (two), and stream through a ring of stages past that, every pass
   walking the keys again, and at every length at D > 128 (past 256, O's
@@ -519,6 +544,19 @@ def attention_unpacked_fwd(q, k, v, streamed=False, chunk_tiles=None):
   (for tests and measurement; the same bits). `chunk_tiles` (1 to 4,
   tests only): O's column tiles a CTA past D = 256 (the same bits)."""
   b, l, h, d = _check_unpacked(UNPACKED_NAME, q=q, k=k, v=v)
+  if q.dtype == torch.float32:
+    _bf16_options_only(UNPACKED_NAME, streamed, chunk_tiles)
+    lib, max_len = _unpacked_f32_lib()
+    _require(l <= max_len, f"sequence length {l} > {max_len}",
+             UNPACKED_NAME)
+    o = torch.empty_like(q)
+    if q.numel() == 0:
+      return o
+    _build.launch(UNPACKED_NAME, q.device, lib.attention_unpacked_f32_fwd,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
+                  l, h, d, scale_log2(d))
+    _build.LAUNCHES[UNPACKED_NAME_F32] += 1
+    return o
   dp = padded_head_dim(d)
   lib, max_len = _unpacked_lib()
   _require(l <= max_len(dp), f"sequence length {l} > {max_len(dp)} at head "
@@ -542,12 +580,13 @@ def attention_unpacked_fwd(q, k, v, streamed=False, chunk_tiles=None):
 
 def _unpacked_bwd_buffers(q, k, v, do):
   """(library, (B, L, H, D, the head dim it runs at), and the tensors of
-  K8's C entry points in their order: q, k, v, do (padded, `pad_heads`),
-  the outputs dq, dk, dv and the scratch m, r, c) once the inputs are
-  what K8 takes."""
+  K8's C entry points in their order: q, k, v, do (bf16 padded,
+  `pad_heads`), the outputs dq, dk, dv and the scratch m, r, c) once the
+  inputs are what K8 takes; the f32 instance's library for f32."""
   b, l, h, d = _check_unpacked(UNPACKED_BWD_NAME, q=q, k=k, v=v, do=do)
-  dp = padded_head_dim(d)
-  lib, max_len = _unpacked_bwd_lib()
+  dp = unpacked_head_dim(q.dtype, d)
+  lib, max_len = (_unpacked_f32_lib() if q.dtype == torch.float32
+                  else _unpacked_bwd_lib())
   _require(l <= max_len, f"sequence length {l} > {max_len}",
            UNPACKED_BWD_NAME)
   q, k, v, do = (pad_heads(t, 1, dp) for t in (q, k, v, do))
@@ -569,9 +608,20 @@ def attention_unpacked_bwd(q, k, v, do, chunk_tiles=None):
   dim: keys and queries stream through shared memory in 64-row blocks, so
   nothing there grows with L. `chunk_tiles` (from 1, tests only): at most
   this many of the outputs' column tiles a CTA past D = 256 (the same
-  bits)."""
+  bits). f32 inputs run K8's f32 instance (three kernels: the max-shift
+  row statistics, dQ, then dK and dV, each sum in a fixed order),
+  unpadded, without `chunk_tiles`, counted under UNPACKED_BWD_NAME_F32."""
   lib, (b, l, h, d, dp), bufs = _unpacked_bwd_buffers(q, k, v, do)
   grads = tuple(bufs[4:7])
+  if q.dtype == torch.float32:
+    _bf16_options_only(UNPACKED_BWD_NAME, chunk_tiles=chunk_tiles)
+    if q.numel():
+      _build.launch(UNPACKED_BWD_NAME, q.device,
+                    lib.attention_unpacked_f32_bwd,
+                    *(t.data_ptr() for t in bufs), b, l, h, d, scale_log2(d),
+                    scale_f32(d))
+      _build.LAUNCHES[UNPACKED_BWD_NAME_F32] += 1
+    return grads
   if q.numel() == 0:
     return tuple(unpad_heads(t, 1, d) for t in grads)
   fn, extra = lib.attention_unpacked_bwd, ()
@@ -588,9 +638,17 @@ def attention_unpacked_bwd(q, k, v, do, chunk_tiles=None):
 def attention_unpacked_bwd_stages(q, k, v, do):
   """K8's two kernels one by one, to time each: {"dq", "dkdv": a function
   that launches that kernel}, on buffers made here ("dkdv" reads the m, r,
-  c that "dq" wrote: launch "dq" first). For measurement only: they count
-  no launch."""
+  c that "dq" wrote: launch "dq" first); for f32 its three, {"stats",
+  "dq", "dkdv"}, in that order. For measurement only: they count no
+  launch."""
   lib, (b, l, h, d, dp), bufs = _unpacked_bwd_buffers(q, k, v, do)
+  if q.dtype == torch.float32:
+    launch = lambda stage: _build.launch(
+        UNPACKED_BWD_NAME, q.device, lib.attention_unpacked_f32_bwd_stage,
+        *(t.data_ptr() for t in bufs), b, l, h, d, scale_log2(d),
+        scale_f32(d), stage)
+    return {"stats": lambda: launch(0), "dq": lambda: launch(1),
+            "dkdv": lambda: launch(2)}
   launch = lambda stage: _build.launch(
       UNPACKED_BWD_NAME, q.device, lib.attention_unpacked_bwd_stage,
       *(t.data_ptr() for t in bufs), b, l, h, dp, scale_f32(d), stage)

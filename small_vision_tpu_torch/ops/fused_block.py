@@ -25,6 +25,14 @@ round the product and the bias add separately. `fused_mlp` and `fused_mha`
 run the plain versions for tensors on the CPU and the kernels for CUDA
 tensors, and raise for a CUDA tensor a kernel does not take.
 
+Both take bf16 and f32, as the TPU kernels are generic in the dtype
+(`dtype_mm="float32"` runs them in f32, where every rounding above is the
+identity). f32 inputs run the f32 instances (`csrc/fused_mlp_f32.cu`,
+`csrc/fused_mha_f32.cu`: a SIMT GEMM in plain f32 FMA, no TF32, and K6's
+attention the max-shift policy of `csrc/simt_f32_attention.cuh`), at every
+width and head dim from 1 to 2,048 with nothing padded, and count under
+`MLP_NAME_F32` / `MHA_NAME_F32`; what follows is of the bf16 kernels.
+
 Both take every width, hidden width and H*D, as the JAX kernels do. The
 kernels' GEMM takes any K and N that are multiples of 8 (TMA zero-fills
 the tails: ViT-mu's width 32 and MLP 128 run as they are); the wrappers
@@ -54,6 +62,11 @@ from small_vision_tpu_torch.ops import attention as attn_lib
 
 MLP_NAME = "fused_mlp_fwd"
 MHA_NAME = "fused_mha_fwd"
+# Launch counts of K5's and K6's f32 instances.
+MLP_NAME_F32 = "fused_mlp_fwd_f32"
+MHA_NAME_F32 = "fused_mha_fwd_f32"
+# K5 and K6 take both.
+FUSED_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _f32(t):
@@ -107,13 +120,23 @@ def _require(cond, msg, name):
     raise ValueError(f"{name}: {msg}")
 
 
-def _check_bf16(name, device, **tensors):
+def _check_tensors(name, **tensors):
+  """Each of `tensors` ({name: (tensor, shape)}) a contiguous tensor of its
+  shape on the first one's device and of its dtype, bf16 or f32; a bf16
+  one at a 16-byte aligned address (the bf16 kernels' TMA bases)."""
+  first = next(iter(tensors.values()))[0]
+  dtype, device = first.dtype, first.device
+  what = " or ".join(str(d).replace("torch.", "") for d in FUSED_DTYPES)
+  _require(dtype in FUSED_DTYPES,
+           f"{next(iter(tensors))} must be {what}, got {dtype}", name)
+  bf16 = dtype == torch.bfloat16
   for n, (t, shape) in tensors.items():
-    _require(t.device == device and t.dtype == torch.bfloat16
+    _require(t.device == device and t.dtype == dtype
              and tuple(t.shape) == shape and t.is_contiguous()
-             and t.data_ptr() % 16 == 0,
-             f"{n} must be a contiguous, 16-byte aligned bfloat16 {shape} "
-             f"on {device}, got {t.dtype} {tuple(t.shape)}", name)
+             and (not bf16 or t.data_ptr() % 16 == 0),
+             f"{n} must be a contiguous{', 16-byte aligned' if bf16 else ''} "
+             f"{str(dtype).replace('torch.', '')} {shape} on {device}, got "
+             f"{t.dtype} {tuple(t.shape)}", name)
 
 
 # K5's and K6's GEMM takes widths that are multiples of this (a TMA row
@@ -189,46 +212,65 @@ def pad_mha(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
 
 
 @functools.cache
-def _mlp_lib():
-  return _build.library("fused_mlp")
+def _mlp_lib(f32=False):
+  return _build.library("fused_mlp_f32" if f32 else "fused_mlp")
 
 
 @functools.cache
-def _mha_lib():
-  return _build.library("fused_mha")
+def _mha_lib(f32=False):
+  return _build.library("fused_mha_f32" if f32 else "fused_mha")
 
 
-def _mlp_checked(x, w1, b1, w2, b2):
-  """(library, rows, width) once the arguments are what K5 takes: any
-  width and hidden width (`pad_mlp` pads them to multiples of 8)."""
-  _require(x.is_cuda, "x must be a CUDA tensor", MLP_NAME)
+def check_mlp(x, w1, b1, w2, b2):
+  """(rows, width) once the arguments are what K5 takes: bf16 or f32, any
+  width and hidden width (for bf16 `pad_mlp` pads them to multiples of 8).
+  Needs no card: the tests run it on CPU tensors."""
   d, hidden = x.shape[-1], w1.shape[-1]
   _require(d > 0, f"width {d}: the kernel takes widths from 1", MLP_NAME)
   _require(hidden > 0, f"hidden width {hidden}: the kernel takes widths "
            "from 1", MLP_NAME)
-  _check_bf16(MLP_NAME, x.device, x=(x, tuple(x.shape)), w1=(w1, (d, hidden)),
-              b1=(b1, (hidden,)), w2=(w2, (hidden, d)), b2=(b2, (d,)))
-  return _mlp_lib(), x.numel() // d, d
+  _check_tensors(MLP_NAME, x=(x, tuple(x.shape)), w1=(w1, (d, hidden)),
+                 b1=(b1, (hidden,)), w2=(w2, (hidden, d)), b2=(b2, (d,)))
+  return x.numel() // d, d
+
+
+def mlp_operands(x, w1, b1, w2, b2):
+  """The operands K5 launches on: `pad_mlp`'s for bf16, the arguments
+  themselves for f32 (the f32 GEMM takes every width)."""
+  if x.dtype == torch.float32:
+    return x, w1, b1, w2, b2
+  return pad_mlp(x, w1, b1, w2, b2)
+
+
+def _mlp_checked(x, w1, b1, w2, b2):
+  """(library, rows, width) once the arguments are what K5 takes
+  (`check_mlp`) on the card: the f32 instance's library for f32."""
+  _require(x.is_cuda, "x must be a CUDA tensor", MLP_NAME)
+  rows, d = check_mlp(x, w1, b1, w2, b2)
+  return _mlp_lib(x.dtype == torch.float32), rows, d
 
 
 def fused_mlp_fwd(x, w1, b1, w2, b2):
-  """Launches K5 on bf16 contiguous x (..., D), w1 (D, hidden), b1
-  (hidden,), w2 (hidden, D), b2 (D,), any D and hidden (on copies padded
-  to multiples of 8 where they are not, `pad_mlp`): the up-projection with
-  gelu into a (rows, hidden) scratch, then the down-projection, two kernel
-  launches. Sums run in a fixed order (no atomics), so two launches give
-  the same bits."""
+  """Launches K5 on bf16 or f32 contiguous x (..., D), w1 (D, hidden), b1
+  (hidden,), w2 (hidden, D), b2 (D,), any D and hidden (bf16 on copies
+  padded to multiples of 8 where they are not, `pad_mlp`; f32 as they
+  are): the up-projection with gelu into a (rows, hidden) scratch of x's
+  dtype, then the down-projection, two kernel launches. Sums run in a
+  fixed order (no atomics), so two launches give the same bits. f32
+  launches count under MLP_NAME_F32."""
   lib, rows, d = _mlp_checked(x, w1, b1, w2, b2)
   if rows == 0:
     return torch.empty_like(x)
-  x, w1, b1, w2, b2 = pad_mlp(x, w1, b1, w2, b2)
+  f32 = x.dtype == torch.float32
+  x, w1, b1, w2, b2 = mlp_operands(x, w1, b1, w2, b2)
   dp, hidden = w1.shape
   h = torch.empty(rows, hidden, dtype=x.dtype, device=x.device)
   y = torch.empty_like(x)
-  _build.launch(MLP_NAME, x.device, lib.fused_mlp_fwd,
+  _build.launch(MLP_NAME, x.device,
+                lib.fused_mlp_f32_fwd if f32 else lib.fused_mlp_fwd,
                 *(t.data_ptr() for t in (x, w1, b1, w2, b2, h, y)), rows, dp,
                 hidden)
-  _build.LAUNCHES[MLP_NAME] += 1
+  _build.LAUNCHES[MLP_NAME_F32 if f32 else MLP_NAME] += 1
   return unpad_cols(y, d)
 
 
@@ -236,28 +278,31 @@ def fused_mlp_stages(x, w1, b1, w2, b2):
   """K5's two launches one by one, to time each: {"up", "down": a function
   that launches that kernel}, on buffers made here (the down-projection
   reads the h the first one wrote), at the padded widths where `pad_mlp`
-  pads. For measurement only: they count no launch."""
+  pads (bf16). For measurement only: they count no launch."""
   lib, rows, _ = _mlp_checked(x, w1, b1, w2, b2)
-  x, w1, b1, w2, b2 = pad_mlp(x, w1, b1, w2, b2)
+  pre = "fused_mlp_f32" if x.dtype == torch.float32 else "fused_mlp"
+  x, w1, b1, w2, b2 = mlp_operands(x, w1, b1, w2, b2)
   d, hidden = w1.shape
   h = torch.empty(rows, hidden, dtype=x.dtype, device=x.device)
   y = torch.empty_like(x)
   ptr = lambda *ts: [t.data_ptr() for t in ts]
   return {
-      "up": lambda: _build.launch(MLP_NAME, x.device, lib.fused_mlp_up,
+      "up": lambda: _build.launch(MLP_NAME, x.device,
+                                  getattr(lib, f"{pre}_up"),
                                   *ptr(x, w1, b1, h), rows, d, hidden),
-      "down": lambda: _build.launch(MLP_NAME, x.device, lib.fused_mlp_down,
+      "down": lambda: _build.launch(MLP_NAME, x.device,
+                                    getattr(lib, f"{pre}_down"),
                                     *ptr(h, w2, b2, y), rows, d, hidden),
   }
 
 
-def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
-  """(library, (b, l, d, head_dim)) once the arguments are what K6
-  takes: x (B, L, d), q, k, v weights (d, hd) and biases (hd,), the
-  out-projection (hd, d) and its bias (d,), hd = num_heads * head_dim, the
-  head dim from 1 to 2,048, any d (`pad_mha` pads the widths and head dims
-  the kernels' tiles do not take)."""
-  _require(x.is_cuda, "x must be a CUDA tensor", MHA_NAME)
+def check_mha(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """(b, l, d, head_dim) once the arguments are what K6 takes, but for
+  the length limit: x (B, L, d), q, k, v weights (d, hd) and biases (hd,),
+  the out-projection (hd, d) and its bias (d,), hd = num_heads *
+  head_dim, bf16 or f32, the head dim from 1 to 2,048, any d (for bf16
+  `pad_mha` pads the widths and head dims the kernels' tiles do not take).
+  Needs no card: the tests run it on CPU tensors."""
   _require(x.dim() == 3, f"x must be (B, L, d), got {tuple(x.shape)}",
            MHA_NAME)
   b, l, d = x.shape
@@ -268,49 +313,76 @@ def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   head_dim = hd // num_heads
   attn_lib.check_head_dim(head_dim, MHA_NAME)
   _require(d > 0, f"width {d}: the kernel takes widths from 1", MHA_NAME)
-  max_len = fused_mha_max_len(head_dim)
-  _require(l <= max_len, f"sequence length {l} > {max_len} at head dim "
-           f"{head_dim}", MHA_NAME)
   mats = {n: (t, (d, hd)) for n, t in (("wq", wq), ("wk", wk), ("wv", wv))}
   vecs = {n: (t, (hd,)) for n, t in (("bq", bq), ("bk", bk), ("bv", bv))}
-  _check_bf16(MHA_NAME, x.device, x=(x, (b, l, d)), **mats, **vecs,
-              wo=(wo, (hd, d)), bo=(bo, (d,)))
-  return _mha_lib(), (b, l, d, head_dim)
+  _check_tensors(MHA_NAME, x=(x, (b, l, d)), **mats, **vecs,
+                 wo=(wo, (hd, d)), bo=(bo, (d,)))
+  return b, l, d, head_dim
 
 
-def fused_mha_max_len(head_dim: int) -> int:
+def mha_operands(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """The operands K6 launches on: `pad_mha`'s for bf16, the arguments
+  themselves for f32 (its GEMM and attention take every width and head
+  dim)."""
+  args = (x, wq, bq, wk, bk, wv, bv, wo, bo)
+  if x.dtype == torch.float32:
+    return args
+  return pad_mha(*args, num_heads)
+
+
+def _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+  """(library, (b, l, d, head_dim)) once the arguments are what K6 takes
+  (`check_mha`, and L up to `fused_mha_max_len`) on the card: the f32
+  instance's library for f32."""
+  _require(x.is_cuda, "x must be a CUDA tensor", MHA_NAME)
+  b, l, d, head_dim = check_mha(x, wq, bq, wk, bk, wv, bv, wo, bo,
+                                num_heads)
+  f32 = x.dtype == torch.float32
+  max_len = fused_mha_max_len(head_dim, f32)
+  _require(l <= max_len, f"sequence length {l} > {max_len} at head dim "
+           f"{head_dim}", MHA_NAME)
+  return _mha_lib(f32), (b, l, d, head_dim)
+
+
+def fused_mha_max_len(head_dim: int, f32: bool = False) -> int:
   """The longest sequence K6 takes at a head dim (builds the kernels):
   4,096 at every one (its attention's K and V stream through a ring of
   stages past 320 keys at head dims up to 64 and 384 up to 128, and at
   every length above); a head dim that is not a multiple of 8 runs at the
-  next one."""
+  next one. `f32`: that of the f32 instance, 4,096 at every head dim."""
+  if f32:
+    return _mha_lib(True).fused_mha_f32_max_len()
   return _mha_lib().fused_mha_max_len(attn_lib.padded_head_dim(head_dim))
 
 
 def fused_mha_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
-  """Launches K6 on bf16 contiguous x (B, L, d), three (d, H*D) weights
-  with (H*D,) biases and the (H*D, d) out-projection with its (d,)
+  """Launches K6 on bf16 or f32 contiguous x (B, L, d), three (d, H*D)
+  weights with (H*D,) biases and the (H*D, d) out-projection with its (d,)
   bias, D from 1 to 2,048, any d (d = H*D in one process; a tensor rank's H
-  heads of a wider model under the Megatron block; on copies padded by
-  `pad_mha` where d or D is not a multiple of 8): the q, k, v projection,
-  the attention (at the true head dim's scale) and the out-projection,
-  three kernel launches through q, k, v and head outputs in device
-  memory. L up to `fused_mha_max_len`, 4,096. Sums run in a fixed order
-  (no atomics), so two launches give the same bits."""
+  heads of a wider model under the Megatron block; bf16 on copies padded
+  by `pad_mha` where d or D is not a multiple of 8, f32 as they are): the
+  q, k, v projection, the attention (at the true head dim's scale) and the
+  out-projection, three kernel launches through q, k, v and head outputs
+  in device memory. L up to `fused_mha_max_len`, 4,096. Sums run in a
+  fixed order (no atomics), so two launches give the same bits. f32
+  launches count under MHA_NAME_F32."""
   lib, (b, l, d, head_dim) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
                                           num_heads)
   if x.numel() == 0:
     return torch.empty_like(x)
-  x, *params = pad_mha(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
+  f32 = x.dtype == torch.float32
+  x, *params = mha_operands(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
   dm, hd = x.shape[-1], params[0].shape[-1]
   qkv = torch.empty(b, l, 3 * hd, dtype=x.dtype, device=x.device)
   heads_out = torch.empty(b, l, hd, dtype=x.dtype, device=x.device)
   o = torch.empty_like(x)
-  _build.launch(MHA_NAME, x.device, lib.fused_mha_fwd,
+  _build.launch(MHA_NAME, x.device,
+                lib.fused_mha_f32_fwd if f32 else lib.fused_mha_fwd,
                 *(t.data_ptr() for t in (x, *params, qkv, heads_out, o)),
                 b, l, dm, num_heads, hd // num_heads,
-                attn_lib.scale_f32(head_dim))
-  _build.LAUNCHES[MHA_NAME] += 1
+                (attn_lib.scale_log2 if f32 else attn_lib.scale_f32)(
+                    head_dim))
+  _build.LAUNCHES[MHA_NAME_F32 if f32 else MHA_NAME] += 1
   return unpad_cols(o, d)
 
 
@@ -318,13 +390,15 @@ def fused_mha_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   """K6's three launches one by one, to time each: {"qkv_proj",
   "attention", "out_proj": a function that launches that kernel}, on
   buffers made here (the attention reads the q, k, v the first one
-  wrote), at the padded widths where `pad_mha` pads. For measurement
-  only: they count no launch."""
+  wrote), at the padded widths where `pad_mha` pads (bf16). For
+  measurement only: they count no launch."""
   lib, (b, l, _, head_dim) = _mha_checked(x, wq, bq, wk, bk, wv, bv, wo, bo,
                                           num_heads)
-  scale = attn_lib.scale_f32(head_dim)
-  x, wq, bq, wk, bk, wv, bv, wo, bo = pad_mha(x, wq, bq, wk, bk, wv, bv, wo,
-                                              bo, num_heads)
+  f32 = x.dtype == torch.float32
+  pre = "fused_mha_f32" if f32 else "fused_mha"
+  scale = (attn_lib.scale_log2 if f32 else attn_lib.scale_f32)(head_dim)
+  x, wq, bq, wk, bk, wv, bv, wo, bo = mha_operands(
+      x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
   d, hd = x.shape[-1], wq.shape[-1]
   qkv = torch.empty(b, l, 3 * hd, dtype=x.dtype, device=x.device)
   heads_out = torch.empty(b, l, hd, dtype=x.dtype, device=x.device)
@@ -333,13 +407,13 @@ def fused_mha_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
   launch = lambda entry, *args: _build.launch(MHA_NAME, x.device, entry,
                                               *args)
   return {
-      "qkv_proj": lambda: launch(lib.fused_mha_proj,
+      "qkv_proj": lambda: launch(getattr(lib, f"{pre}_proj"),
                                  *ptr(x, wq, wk, wv, bq, bk, bv, qkv),
                                  b * l, hd, d, 3),
-      "attention": lambda: launch(lib.fused_mha_attention, qkv.data_ptr(),
-                                  heads_out.data_ptr(), b, l, num_heads,
-                                  hd // num_heads, scale),
-      "out_proj": lambda: launch(lib.fused_mha_proj,
+      "attention": lambda: launch(getattr(lib, f"{pre}_attention"),
+                                  qkv.data_ptr(), heads_out.data_ptr(), b,
+                                  l, num_heads, hd // num_heads, scale),
+      "out_proj": lambda: launch(getattr(lib, f"{pre}_proj"),
                                  *ptr(heads_out, wo, wo, wo, bo, bo, bo, o),
                                  b * l, d, hd, 1),
   }

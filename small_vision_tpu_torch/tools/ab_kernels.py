@@ -40,6 +40,10 @@ and loads them beside this tree's libraries. Then, on inputs from a
     at the training lengths L = 68, 164, 257 and batch 128, modulated,
     beside `F.layer_norm` + modulate, its autograd backward, SDPA and its
     backward; K1's, K3's and K4's outputs must be the other tree's bits.
+  - K3's and K4's f32 instances (`attention_packed_f32.cu`) on (B, L,
+    768) f32 in 12 heads of 64 at the sampler's (64, 260) and the training
+    shapes (128, L = 68, 164, 257): their outputs must be the other tree's
+    bits, and each is timed in turns.
   - This tree alone: K3, K7, K6 (call and attention launch) and K9's seven
     arms at (64, 1,024) and (64, 1,025) with 16 heads of 64 (ViT-L/16@512,
     "map" and "tok"), (64, 1,369) with 16 heads of 80 (ViT-H/14@518) and
@@ -94,7 +98,8 @@ WIDE_HEADS = ((4, 192), (3, 256))
 SOURCES = ("fused_mlp", "fused_mha", "attention_unpacked",
            "attention_ablate",
            "attention_unpacked_bwd", "ln_modulate_bwd", "ln_modulate",
-           "attention_packed", "attention_packed_bwd")
+           "attention_packed", "attention_packed_bwd", "attention_packed_f32")
+K3_F32_SHAPES = ((64, 260), (128, 68), (128, 164), (128, 257))
 
 
 def dev_ms(fn, iters) -> float:
@@ -254,6 +259,31 @@ def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library,
   library[f"K4 {tag}"] = (
       lambda g=do.view(b, l, heads, hd).transpose(1, 2):
       torch.autograd.grad(o, split, g, retain_graph=True))
+
+
+def k3_k4_f32(sides, b, l, randn32, keep, pairs, outputs):
+  """K3's and K4's f32 instances of each side at (b, l, 768) in 12 heads of
+  64 into `pairs`; their outputs of each side into `outputs`."""
+  stream = lambda: torch.cuda.current_stream().cuda_stream
+  hd = WIDTH // HEADS
+  q, k, v, do = (randn32(b, l, WIDTH) for _ in range(4))
+  keep += [q, k, v, do]
+  for side, libs in sides.items():
+    lib = libs["attention_packed_f32"]
+    o = torch.empty_like(q)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    rc = [torch.empty(b, HEADS, l, device="cuda") for _ in range(2)]
+    keep += [o, *grads, *rc]
+    pairs.setdefault(f"K3 f32 {b}x{l}", {})[side] = (
+        lambda lib=lib, o=o: _check(lib.attention_packed_f32_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l,
+            HEADS, hd, attn.scale_log2(hd), stream())))
+    pairs.setdefault(f"K4 f32 {b}x{l}", {})[side] = (
+        lambda lib=lib, g=grads, rc=rc: _check(lib.attention_packed_f32_bwd(
+            *[t.data_ptr() for t in (q, k, v, do, *g, *rc)], b, l, HEADS,
+            hd, attn.scale_log2(hd), attn.scale_f32(hd), stream())))
+    outputs.setdefault(f"K3 f32 {b}x{l}", {})[side] = [o]
+    outputs.setdefault(f"K4 f32 {b}x{l}", {})[side] = grads
 
 
 def wide_heads(this, heads, hd, randn, keep, alone, bounds, library):
@@ -489,7 +519,11 @@ def main(argv=None):
     for b, l in TRAIN_SHAPES:
       k1_to_k4(sides, args.width, args.heads, b, l, randn, keep, pairs,
                library, outputs)
-    # Each side of K1-K4 and K8 there once; their outputs compared.
+    randn32 = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    for b, l in K3_F32_SHAPES:
+      k3_k4_f32(sides, b, l, randn32, keep, pairs, outputs)
+    # Each side of K1-K4 (and K3, K4 in f32) and K8 there once; their
+    # outputs compared.
     for name, by_side in outputs.items():
       for side in by_side:
         pairs[name][side]()

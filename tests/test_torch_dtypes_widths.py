@@ -15,6 +15,14 @@ multiple of 32 or are over 2,048.
     width from 1 to MAX_WIDTH, still name float16 and a width past
     MAX_WIDTH, pick the bf16 kernels' instances only where those take the
     rows, and load vectors that divide the width and the pointers.
+  - K5's, K6's, K7's and K8's checks, which take f32 beside bf16 at every
+    width and head dim from 1 to 2,048 (K9 still bf16 only), name float16,
+    mixed dtypes and a head dim of 2,056, and launch f32 on the operands
+    as they are (only bf16 ones are padded).
+The training step under "pallas_fused" in f32 at depth 2 + 1 (K5 and K6
+in f32 forward; K3, K4 in the backward) is held against the JAX
+package's `pallas_fused_interpret` step by
+tests/test_torch_train_step_variants.py (its `pallas_fused` case).
 """
 
 import jax.numpy as jnp
@@ -33,6 +41,7 @@ from test_torch_train_step import captured  # noqa: F401 (a fixture)
 from small_vision_tpu_torch import convert
 from small_vision_tpu_torch.configs import ae_i1k
 from small_vision_tpu_torch.ops import attention as attn
+from small_vision_tpu_torch.ops import fused_block as fb
 from small_vision_tpu_torch.ops import layernorm as ln
 
 # Beside the variant tables' multiples of 32 up to 2,048: one column, the
@@ -203,13 +212,18 @@ def test_ln_load_vector(dtype, d, stride, offset, want):
 @pytest.mark.parametrize("heads,hd", [(3, 12), (12, 64), (1, 768),
                                       (1, 2048), (2, 1)])
 def test_attention_checks_take_f32(dtype, heads, hd):
-  """K3 and K4 take bf16 and f32 at every head dim from 1 to 2,048; K9
-  (and K6-K8) bf16 only."""
+  """K3 and K4 take bf16 and f32 at every head dim from 1 to 2,048, and so
+  do K7 and K8 (on [B, L, H, D]); K9 bf16 only."""
   q = torch.zeros(2, 5, heads * hd, dtype=dtype)
   assert attn.check_packed(attn.NAME, heads, attn.PACKED_DTYPES, q=q, k=q,
                            v=q) == (2, 5, hd)
   assert attn.check_packed(attn.BWD_NAME, heads, attn.PACKED_DTYPES, q=q,
                            k=q, v=q, do=q) == (2, 5, hd)
+  q4 = q.view(2, 5, heads, hd)
+  assert attn.check_unpacked(attn.UNPACKED_NAME, q=q4, k=q4, v=q4) == (
+      2, 5, heads, hd)
+  assert attn.check_unpacked(attn.UNPACKED_BWD_NAME, q=q4, k=q4, v=q4,
+                             do=q4) == (2, 5, heads, hd)
   if dtype == torch.float32:
     with pytest.raises(ValueError, match="must be bfloat16, got"):
       attn.check_packed(attn.ABLATE_NAME, heads, q=q, k=q, v=q)
@@ -226,3 +240,82 @@ def test_attention_checks_name_what_the_kernels_do_not_take():
   f, b = torch.zeros(1, 4, 128), torch.zeros(1, 4, 128, dtype=torch.bfloat16)
   with pytest.raises(ValueError, match="contiguous"):
     attn.check_packed(attn.NAME, 2, attn.PACKED_DTYPES, q=f, k=b, v=f)
+
+
+# K5's and K6's widths and head dims: (width, heads, head dim); square
+# (the model's 768 in 12 heads of 64, one column, the narrow model's 36 in
+# 3 heads of 12, UMD-S's 384 in `heads=32`'s 32 heads of 12, `heads=1`'s
+# 768, the limit 2,048) and not (a tensor rank's 6 of 12 heads of 64; 100
+# columns in 3 heads of 1).
+FUSED_CASES = ((768, 12, 64), (1, 1, 1), (36, 3, 12), (384, 32, 12),
+               (768, 1, 768), (2048, 1, 2048), (768, 6, 64), (100, 3, 1))
+
+
+def _mlp(d, hidden, dtype):
+  return (torch.zeros(2, 3, d, dtype=dtype),
+          torch.zeros(d, hidden, dtype=dtype), torch.zeros(hidden, dtype=dtype),
+          torch.zeros(hidden, d, dtype=dtype), torch.zeros(d, dtype=dtype))
+
+
+def _mha(d, heads, hd, dtype):
+  z = lambda *s: torch.zeros(*s, dtype=dtype)
+  return (z(2, 3, d), z(d, heads * hd), z(heads * hd), z(d, heads * hd),
+          z(heads * hd), z(d, heads * hd), z(heads * hd), z(heads * hd, d),
+          z(d), heads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,heads,hd", FUSED_CASES)
+def test_fused_checks_take_f32(dtype, d, heads, hd):
+  """K5 and K6 take bf16 and f32 at every width and head dim from 1 to
+  2,048, square or not (their wrappers' checks, which need no card)."""
+  assert fb.check_mlp(*_mlp(d, 4 * d + 3, dtype)) == (6, d)
+  assert fb.check_mha(*_mha(d, heads, hd, dtype)) == (2, 3, d, hd)
+
+
+def test_fused_checks_name_what_the_kernels_do_not_take():
+  with pytest.raises(ValueError, match="got torch.float16"):
+    fb.check_mlp(*_mlp(36, 150, torch.float16))
+  with pytest.raises(ValueError, match="got torch.float16"):
+    fb.check_mha(*_mha(36, 3, 12, torch.float16))
+  x, *rest = _mlp(36, 150, torch.float32)
+  with pytest.raises(ValueError, match="w1 must be a contiguous float32"):
+    fb.check_mlp(x, rest[0].to(torch.bfloat16), *rest[1:])
+  x, *rest = _mha(36, 3, 12, torch.bfloat16)
+  with pytest.raises(ValueError, match="x must be bfloat16 or float32"):
+    fb.check_mha(x.half(), *rest)
+  with pytest.raises(ValueError, match="head dim 2056"):
+    fb.check_mha(*_mha(2056, 1, 2056, torch.float32))
+  x, *rest = _mha(64, 2, 32, torch.float32)
+  with pytest.raises(ValueError, match="contiguous"):
+    fb.check_mha(x.transpose(0, 1), *rest)
+  q4 = torch.zeros(1, 4, 2, 12, dtype=torch.float16)
+  with pytest.raises(ValueError, match="got torch.float16"):
+    attn.check_unpacked(attn.UNPACKED_NAME, q=q4, k=q4, v=q4)
+  f, b = torch.zeros(1, 4, 2, 12), torch.zeros(1, 4, 2, 12,
+                                               dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="contiguous"):
+    attn.check_unpacked(attn.UNPACKED_BWD_NAME, q=f, k=f, v=b, do=f)
+  with pytest.raises(ValueError, match="head dim 2056"):
+    attn.check_unpacked(attn.UNPACKED_NAME,
+                        **dict.fromkeys("qkv", torch.zeros(1, 4, 1, 2056)))
+
+
+@pytest.mark.parametrize("d,heads,hd", [(36, 3, 12), (100, 3, 1),
+                                        (768, 12, 64)])
+def test_f32_operands_are_not_padded(d, heads, hd):
+  """f32 runs K5 and K6 on their arguments themselves and K7 and K8 at the
+  true head dim (the f32 kernels take every width and head dim); bf16 on
+  copies padded to multiples of 8 where a width or head dim is not one."""
+  mlp = _mlp(d, 150, torch.float32)
+  assert all(a is b for a, b in zip(fb.mlp_operands(*mlp), mlp))
+  mha = _mha(d, heads, hd, torch.float32)
+  assert all(a is b for a, b in zip(fb.mha_operands(*mha), mha[:-1]))
+  assert attn.unpacked_head_dim(torch.float32, hd) == hd
+  mlp16 = fb.mlp_operands(*_mlp(d, 150, torch.bfloat16))
+  assert mlp16[1].shape == (-(-d // 8) * 8, 152)
+  mha16 = fb.mha_operands(*_mha(d, heads, hd, torch.bfloat16))
+  assert mha16[0].shape[-1] == -(-d // 8) * 8
+  assert mha16[1].shape[-1] == heads * attn.padded_head_dim(hd)
+  assert attn.unpacked_head_dim(torch.bfloat16, hd) == (
+      attn.padded_head_dim(hd))

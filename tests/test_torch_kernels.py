@@ -29,9 +29,9 @@ and the seven arms of the ablation kernel (K9) at lengths that are not a
 multiple of 16, at 80 and 144 (multiples of 16 but not of its 64-row
 tiles) and at 257, two launches of each giving the same bits, and
 `mulmask` with scores near -300, where a zero key of the tile past L would
-change the max; and each of the nine wrappers launching its kernel from a
-thread that has run no CUDA work yet, with the same bits as from the main
-thread; and the input pipeline's copy onto the card giving the bytes of
+change the max; and each of the thirteen wrappers (K5-K8 in f32 among
+them) launching its kernel from a thread that has run no CUDA work yet,
+with the same bits as from the main thread; and the input pipeline's copy onto the card giving the bytes of
 the same batches on the CPU; and the int8 matmul (`torch._int_mm`, a
 library call) against the CPU's exact integer product, and refusing the
 shapes `_int_mm` does not take; K3 and K4 at UMD-L/2's 16 heads of 64
@@ -74,9 +74,15 @@ rows off a 16-byte boundary (2- and 1-element loads); K3 and K4 at 12
 heads of 64, at L = 1, 63, 65 and 4,096 and at head dims 1, 12, 192, 768
 and 2,048, within 1e-4 of each output's largest value, two launches
 giving the same bits; the f32 wrappers refusing the bf16 kernels'
-options, L = 4,097 and head dim 2,056, and K7, K8 and K9 refusing f32;
-an f32 block under "pallas" on the card against the CPU, and under
-"pallas_fused" raising K6's named error.
+options, L = 4,097 and head dim 2,056, and K9 refusing f32; an f32
+block under "pallas" and under "pallas_fused" on the card against the
+CPU. K5-K8 in f32 (their f32 instances): K5 at widths 1, 36, 768 and
+1,024, K6 at head dims 1, 12, 64, 384 and 2,048 and on non-square
+projections, K7 and K8 at those head dims, each at L = 1, 257 and 4,096,
+within 1e-5 of the output's largest value (K8: 1e-4 of each gradient's),
+two launches giving the same bits, counted under the f32 names; their
+stage timers; K3 and K4 in f32 giving the bits they gave before their
+kernels moved into the shared header (a digest of their outputs).
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -870,6 +876,14 @@ _WRAPPER_CALLS = {
                              lambda d: _qkv_do_4d(d, 20)),
     attn.ABLATE_NAME: (attn.attention_ablate_fwd,
                        lambda d: (*_qkv_do(d, 20)[:3], 2, "prod")),
+    fb.MLP_NAME_F32: (fb.fused_mlp_fwd,
+                      lambda d: _f32(_mlp_args(d, (2, 20)))),
+    fb.MHA_NAME_F32: (fb.fused_mha_fwd,
+                      lambda d: _f32(_mha_args(d, 3, 20, 12)) + [12]),
+    attn.UNPACKED_NAME_F32: (attn.attention_unpacked_fwd,
+                             lambda d: _f32(_qkv_do_4d(d, 20)[:3])),
+    attn.UNPACKED_BWD_NAME_F32: (attn.attention_unpacked_bwd,
+                                 lambda d: _f32(_qkv_do_4d(d, 20))),
 }
 
 
@@ -1694,30 +1708,55 @@ def test_f32_attention_refuses_what_the_kernels_do_not_take(cuda):
   wide = torch.zeros(1, 8, 2056, device=cuda)
   with pytest.raises(ValueError, match="head dim 2056"):
     attn.attention_packed_fwd(wide, wide, wide, 1)
-  # K7, K8 and K9 take bf16 only.
+  # K7 and K8 in f32 refuse the bf16 kernels' options and what K3's f32
+  # instance refuses; K9 takes bf16 only.
   q4 = q.view(1, 8, 2, 64)
-  for call in (lambda: attn.attention_unpacked_fwd(q4, q4, q4),
-               lambda: attn.attention_unpacked_bwd(q4, q4, q4, q4),
-               lambda: attn.attention_ablate(q, q, q, 2, "prod")):
-    with pytest.raises(ValueError, match="must be bfloat16, got"):
-      call()
+  with pytest.raises(ValueError, match="options of the bf16 kernels"):
+    attn.attention_unpacked_fwd(q4, q4, q4, streamed=True)
+  with pytest.raises(ValueError, match="options of the bf16 kernels"):
+    attn.attention_unpacked_bwd(q4, q4, q4, q4, chunk_tiles=1)
+  long4 = long.view(1, MAX_ATTN_LEN + 1, 1, 64)
+  with pytest.raises(ValueError, match="sequence length"):
+    attn.attention_unpacked_fwd(long4, long4, long4)
+  with pytest.raises(ValueError, match="sequence length"):
+    attn.attention_unpacked_bwd(long4, long4, long4, long4)
+  wide4 = wide.view(1, 8, 1, 2056)
+  with pytest.raises(ValueError, match="head dim 2056"):
+    attn.attention_unpacked_bwd(wide4, wide4, wide4, wide4)
+  with pytest.raises(ValueError, match="must be bfloat16, got"):
+    attn.attention_ablate(q, q, q, 2, "prod")
 
 
 @pytest.mark.cuda
-def test_f32_block_under_pallas_fused_raises_the_named_error(cuda):
-  """Under "pallas_fused" an f32 block reaches K6 (or K5) after its first
-  LayerNorm (K1 in f32); they take bf16 only: their named error, and no
-  launch of either."""
+def test_f32_block_under_pallas_fused_matches_the_cpu(cuda):
+  """An f32 block under "pallas_fused" (K1, K6 and K5 in f32) on the card
+  against the CPU (plain versions), within 1e-4 of the output's largest
+  value, and its input gradient (the reference composition's backward:
+  K3, K4 and K2 in f32) within 1e-3 of its largest: f32 on both sides,
+  sums in another order."""
   from small_vision_tpu_torch.models import vit
-  block = vit.Block(64, None, 2, True, torch.float32, "pallas_fused")
-  for p in block.parameters():
-    p.data = torch.randn(p.shape) * 0.1
-  block = block.to(cuda).requires_grad_(False)
-  _build.reset_launches()
-  with pytest.raises(ValueError, match="^(fused_mha_fwd|fused_mlp_fwd): "):
-    block(torch.randn(2, 20, 64, device=cuda), torch.randn(2, 64,
-                                                           device=cuda))
-  assert not any(n.startswith("fused") for n in _build.LAUNCHES)
+  block = vit.Block(768, None, 12, True, torch.float32, "pallas_fused")
+  gen = torch.Generator().manual_seed(0)
+  for name, p in block.named_parameters():
+    std = 0.1 if name.endswith("bias") else p.shape[0] ** -0.5
+    p.data = torch.randn(p.shape, generator=gen) * std
+  x = _randn((2, 37, 768), 1, "cpu", torch.float32)
+  cond = _randn((2, 768), 2, "cpu", torch.float32)
+  got = {}
+  for dev in ("cpu", "cuda"):
+    xi = x.to(dev).clone().requires_grad_()
+    _build.reset_launches()
+    with torch.no_grad():
+      y = block.to(dev)(xi, cond.to(dev))
+    launches = dict(_build.LAUNCHES)
+    block.to(dev)(xi, cond.to(dev)).square().sum().backward()
+    got[dev] = (y.cpu(), xi.grad.cpu(), launches)
+  assert got["cuda"][2] == {ln.NAME_F32: 2, fb.MHA_NAME_F32: 1,
+                            fb.MLP_NAME_F32: 1}
+  for i, tol in ((0, 1e-4), (1, 1e-3)):
+    want = got["cpu"][i]
+    err = (got["cuda"][i] - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), (i, err)
 
 
 @pytest.mark.cuda
@@ -1739,3 +1778,218 @@ def test_f32_block_on_the_card_matches_the_cpu(cuda):
   got = block.to(cuda)(x.to(cuda), cond.to(cuda)).cpu()
   assert dict(_build.LAUNCHES) == {ln.NAME_F32: 2, attn.NAME_F32: 1}
   assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# K5-K8 in f32: the SIMT instances (fused_mlp_f32.cu, fused_mha_f32.cu,
+# attention_unpacked_f32.cu).
+# ---------------------------------------------------------------------------
+
+
+def _f32(args):
+  return [t.float() if torch.is_tensor(t) else t for t in args]
+
+
+def _f32_weights(cuda, width, hd, seed):
+  """The q, k, v weights and biases and the out-projection of K6 on
+  (width, hd) projections, f32."""
+  args = []
+  for i in range(3):
+    args += [_randn((width, hd), seed + 2 * i, cuda, torch.float32,
+                    width**-0.5),
+             _randn((hd,), seed + 2 * i + 1, cuda, torch.float32, 0.1)]
+  return args + [_randn((hd, width), seed + 6, cuda, torch.float32,
+                        hd**-0.5),
+                 _randn((width,), seed + 7, cuda, torch.float32, 0.1)]
+
+
+def _close_f32(got, want, tol):
+  err = (got - want).abs().max().item()
+  assert err <= tol * want.abs().max().item(), (err, want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_shape,d,hidden", [
+    ((64, 260), 768, 3072), ((128, 257), 768, 3072), ((1, 1), 768, 3072),
+    ((3, 65), 1024, 4096), ((2, 37), 36, 150), ((4, 257), 1, 1),
+    ((2, 20), 1, 4), ((1, 4096), 36, 144)])
+def test_f32_fused_mlp_kernel_matches_plain(cuda, rows_shape, d, hidden):
+  """K5's f32 instance at widths 1, 36, 768 and 1,024 and rows of 1 to
+  4,096 a batch row, unpadded (36 and 150 are not multiples of 4: scalar
+  loads): within 1e-5 of the output's largest value (f32 on both sides,
+  sums in another order), two launches giving the same bits, counted
+  under MLP_NAME_F32."""
+  args = _f32(_mlp_args(cuda, rows_shape, d, hidden))
+  _build.reset_launches()
+  got = fb.fused_mlp_fwd(*args)
+  assert got.dtype == torch.float32 and got.shape == args[0].shape
+  _close_f32(got, fb.fused_mlp_plain(*args), 1e-5)
+  assert torch.equal(got, fb.fused_mlp_fwd(*args))  # no atomics
+  assert dict(_build.LAUNCHES) == {fb.MLP_NAME_F32: 2}
+
+
+# K6, K7 and K8 in f32: (batch, length, heads, head dim). The main path's
+# 12 heads of 64 at the sampler's and a training shape, head dims 1, 12
+# (`heads=32`), 384 (`heads=2`) and 2,048 (the limit), and L = 1, 257 and
+# 4,096 (the limit).
+F32_MAX_SHIFT_CASES = [(64, 260, 12, 64), (4, 257, 12, 64), (2, 1, 3, 64),
+                       (2, 20, 2, 1), (2, 68, 32, 12), (2, 257, 2, 384),
+                       (1, 65, 1, 2048), (1, 1, 1, 2048),
+                       (1, 4096, 1, 64), (1, 4096, 2, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,heads,hd", F32_MAX_SHIFT_CASES)
+def test_f32_fused_mha_kernel_matches_plain(cuda, b, l, heads, hd):
+  """K6's f32 instance (the q, k, v projections and the out-projection on
+  the SIMT GEMM, the max-shift attention between) against its plain
+  version: within 1e-5 of the output's largest value, two launches giving
+  the same bits, counted under MHA_NAME_F32."""
+  width = heads * hd
+  args = [_randn((b, l, width), 7, cuda, torch.float32),
+          *_f32_weights(cuda, width, width, 8), heads]
+  _build.reset_launches()
+  got = fb.fused_mha_fwd(*args)
+  _close_f32(got, fb.fused_mha_plain(*args), 1e-5)
+  assert torch.equal(got, fb.fused_mha_fwd(*args))  # no atomics
+  assert dict(_build.LAUNCHES) == {fb.MHA_NAME_F32: 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,width,heads,hd", [
+    (64, 260, 768, 6, 64), (3, 65, 384, 3, 12), (2, 37, 36, 2, 32),
+    (2, 20, 100, 3, 1)])
+def test_f32_fused_mha_kernel_non_square_matches_plain(cuda, b, l, width,
+                                                       heads, hd):
+  """K6's f32 instance on (width, heads * hd) projections (a tensor rank's
+  6 of 12 heads; a rank's 3 of `heads=32`'s heads of 12; wider and
+  narrower than square), unpadded: within 1e-5 of the output's largest
+  value, two launches giving the same bits."""
+  args = [_randn((b, l, width), 17, cuda, torch.float32),
+          *_f32_weights(cuda, width, heads * hd, 18), heads]
+  got = fb.fused_mha_fwd(*args)
+  assert got.shape == (b, l, width)
+  _close_f32(got, fb.fused_mha_plain(*args), 1e-5)
+  assert torch.equal(got, fb.fused_mha_fwd(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,heads,hd", F32_MAX_SHIFT_CASES)
+def test_f32_unpacked_attention_kernels_match_plain(cuda, b, l, heads, hd):
+  """K7's and K8's f32 instances against the plain versions: o within
+  1e-5 of its largest value, dq, dk and dv within 1e-4 of each one's
+  (floored at 1e-2 of the largest of the three: dq and dk vanish at L =
+  1, as in test_f32_attention_kernels_match_plain), two launches giving
+  the same bits, counted under the f32 names."""
+  q, k, v, do = (_randn((b, l, heads, hd), 30 + i, cuda, torch.float32)
+                 for i in range(4))
+  _build.reset_launches()
+  got = attn.attention_unpacked_fwd(q, k, v)
+  assert torch.equal(got, attn.attention_unpacked_fwd(q, k, v))
+  _close_f32(got, attn.attention_plain(q, k, v), 1e-5)
+  grads = attn.attention_unpacked_bwd(q, k, v, do)
+  again = attn.attention_unpacked_bwd(q, k, v, do)
+  want = attn.attention_bwd_plain(q, k, v, do)
+  top = max(w.abs().max().item() for w in want)
+  for g, a, w in zip(grads, again, want):
+    assert g.dtype == torch.float32 and torch.equal(g, a)
+    err = (g - w).abs().max().item()
+    assert err <= 1e-4 * max(w.abs().max().item(), 1e-2 * top), err
+  assert dict(_build.LAUNCHES) == {attn.UNPACKED_NAME_F32: 2,
+                                   attn.UNPACKED_BWD_NAME_F32: 2}
+
+
+@pytest.mark.cuda
+def test_f32_unpacked_attention_takes_large_logits(cuda):
+  """The max shift in f32: logits of several hundred neither overflow nor
+  lose the row's largest key, forward and dV."""
+  q, k, v, do = (_randn((2, 65, 3, 64), 40 + i, cuda, torch.float32,
+                        30.0 if i < 2 else 1.0) for i in range(4))
+  got = attn.attention_unpacked_fwd(q, k, v)
+  assert torch.isfinite(got).all()
+  _close_f32(got, attn.attention_plain(q, k, v), 1e-5)
+  grads = attn.attention_unpacked_bwd(q, k, v, do)
+  assert all(torch.isfinite(g).all() for g in grads)
+  _close_f32(grads[2], attn.attention_bwd_plain(q, k, v, do)[2], 1e-4)
+
+
+def _device_ms(fn, n=5):
+  """Mean device time of one call of `fn` over `n` calls, by CUDA events,
+  after one warm-up call."""
+  fn()
+  torch.cuda.synchronize()
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  for _ in range(n):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / n
+
+
+@pytest.mark.cuda
+def test_f32_stage_timers_launch_their_kernels_and_count_nothing(cuda):
+  """K5's, K6's and K8's f32 stage timers (K8's three in order:
+  statistics, dQ, dK and dV) count no launch, and launch the call's
+  kernels one by one: each stage takes device time, and together they take
+  that of one call (device times by CUDA events; a CUPTI trace of these
+  eight launches lost some kernels' records in a process that had run the
+  rest of this file)."""
+  f32 = torch.float32
+  mlp = _f32(_mlp_args(cuda, (8, 257)))
+  mha = [_randn((8, 257, 768), 50, cuda, f32),
+         *_f32_weights(cuda, 768, 768, 51), 12]
+  q, k, v, do = (_randn((8, 257, 12, 64), 60 + i, cuda, f32)
+                 for i in range(4))
+  cases = ((fb.fused_mlp_stages(*mlp), lambda: fb.fused_mlp_fwd(*mlp),
+            ["up", "down"]),
+           (fb.fused_mha_stages(*mha), lambda: fb.fused_mha_fwd(*mha),
+            ["qkv_proj", "attention", "out_proj"]),
+           (attn.attention_unpacked_bwd_stages(q, k, v, do),
+            lambda: attn.attention_unpacked_bwd(q, k, v, do),
+            ["stats", "dq", "dkdv"]))
+  for stages, call, names in cases:
+    assert list(stages) == names
+    _build.reset_launches()
+    times = [_device_ms(launch) for launch in stages.values()]
+    assert not _build.LAUNCHES
+    whole = _device_ms(call)
+    assert min(times) >= 0.05 * whole, (names, times, whole)
+    assert 0.8 <= sum(times) / whole <= 1.25, (names, times, whole)
+
+
+# sha256 of K3's f32 output and K4's f32 dq, dk, dv bytes on
+# `_f32_digest_inputs`, as `attention_packed_f32.cu` gave them before its
+# kernels moved into simt_f32_attention.cuh under a softmax policy (built
+# by nvcc 12.8 for sm_90a, -O3, on an H100; the moved kernels give the
+# same).
+F32_PACKED_DIGESTS = {
+    "fwd": "798dfcaf803ca81c1557126dd7a992f6467656abb322791934dfb2559b47c1d4",
+    "bwd": "2d83a76c05d3ffd6df9831cd1841d35b92cc6ce4b07e0334e0640b53a539cd9c",
+}
+
+
+def _f32_digest_inputs(cuda):
+  return [_randn((2, 70, 3 * 64), 70 + i, cuda, torch.float32)
+          for i in range(4)]
+
+
+def _digest(tensors):
+  import hashlib
+  h = hashlib.sha256()
+  for t in tensors:
+    h.update(t.cpu().numpy().tobytes())
+  return h.hexdigest()
+
+
+@pytest.mark.cuda
+def test_f32_packed_attention_keeps_its_bits(cuda):
+  """K3's and K4's f32 instances, now run under the shared header's
+  `ClampExp2` policy, give the bits they gave before the policy existed
+  (`tools/ab_kernels.py` holds the same against another tree's library
+  at the model's shapes)."""
+  q, k, v, do = _f32_digest_inputs(cuda)
+  assert _digest([attn.attention_packed_fwd(q, k, v, 3)]) == (
+      F32_PACKED_DIGESTS["fwd"])
+  assert _digest(attn.attention_packed_bwd(q, k, v, do, 3)) == (
+      F32_PACKED_DIGESTS["bwd"])
