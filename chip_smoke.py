@@ -73,7 +73,13 @@ Phases, each fatal on failure:
                kernels; K5 also at 36 -> 150 (unpadded), K8 also at (128,
                65) and (8, 1,024), K6 also at head dim 12 (`heads=32` at
                384), 384 (`heads=2`) and on a tensor rank's 6 of 12 heads,
-               checked.
+               checked. K4 and K8 in f32 (3xTF32 on the tensor cores)
+               also against the float64 plain version at every shape
+               they are checked at: the run fails past 1e-5 of each
+               output's largest value (floored at 1e-2 of the largest of
+               the three); their entries carry that error, the plain f32
+               version's, and `bound_tf32x3_ms` (their five products 3x
+               over 495 TFLOP/s) beside the f32 FMA bound.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
@@ -376,6 +382,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12         # dense tensor-core bf16
 F32_FLOPS = 67e12           # f32 outside the tensor cores
+TF32_FLOPS = 495e12         # dense tensor-core TF32 (K4's, K8's f32 3xTF32)
 
 BATCH = 64
 WIDTH, HEADS = 768, 12
@@ -536,6 +543,17 @@ def phase_build(build):
               f"spill stores {r['spill_stores']} B, loads "
               f"{r['spill_loads']} B, notes {r['notes'] or 'none'}",
               flush=True)
+  # K4's and K8's f32 backwards (3xTF32 on wgmma), an instance a key
+  # chunk width N: those of the training shapes (40 at L = 68, 56 at 164
+  # and 257).
+  for stem in ("attention_packed_f32", "attention_unpacked_f32"):
+    for name, r in build.ptxas_report(build.build_log(stem)).items():
+      m = re.search(r"(attn_f32x3_[a-z]+_kernel)I.*?ELi(\d+)E", name)
+      if m and m.group(2) in ("40", "56"):
+        print(f"[build] {stem}: {m.group(1)}<N={m.group(2)}>: "
+              f"{r['registers']} registers, spill stores "
+              f"{r['spill_stores']} B, loads {r['spill_loads']} B, notes "
+              f"{r['notes'] or 'none'}", flush=True)
 
 
 def _kernel_instance(mangled):
@@ -893,6 +911,33 @@ def _check_ln_bwd_two_streams(ln, cases):
         "bits of the same launches in turn, 5 rounds", flush=True)
 
 
+# K4's and K8's f32 instances against the float64 plain version: within
+# F64_TOL of each output's largest value (floored at 1e-2 of the largest
+# of the three), their products 3xTF32 on the tensor cores.
+F64_TOL = 1e-5
+
+
+def _f64_errors(got, plain, exact):
+  """(the kernel's, the plain f32 version's) worst error against `exact`,
+  the float64 plain version's outputs, each relative to the output's
+  largest value floored at 1e-2 of the largest of the three."""
+  top = max(x.abs().max().item() for x in exact)
+  rel = lambda outs: max(
+      (o.double() - x).abs().max().item() / max(x.abs().max().item(),
+                                                1e-2 * top)
+      for o, x in zip(outs, exact))
+  return rel(got), rel(plain)
+
+
+def _tf32x3_bound_ms(b, seq, width, heads):
+  """The least ms of an f32 backward whose five products run 3xTF32: q,
+  k, v, dO, dq, dk, dv once over 3.35 TB/s or three times 10 B H L^2 D
+  operations over 495 TFLOP/s, the larger."""
+  return _bound(7 * b * seq * width * 4,
+                3 * 5 * 2 * b * heads * seq * seq * (width // heads),
+                TF32_FLOPS)[0]
+
+
 def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
                         b=TRAIN_BATCH // 2, timed=True, shapes=None,
                         dtype=torch.bfloat16):
@@ -903,7 +948,7 @@ def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
   head_dim = width // heads
   name = _named(attn.BWD_NAME, dtype)
   f32 = dtype == torch.float32
-  max_err, by_len = 0.0, {}
+  max_err, by_len, f64 = 0.0, {}, [0.0, 0.0]
   for b, seq in shapes or tuple((b, l) for l in TRAIN_SEQS):
     q, k, v, do = (torch.randn(b, seq, width, generator=gen,
                                device="cuda").to(dtype)
@@ -929,11 +974,21 @@ def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
       bad += int(e > (1e-4 if f32 else 2.0**-6) * max(
           w.float().abs().max().item(), 1e-3 * top))
     max_err = max(max_err, worst)
+    exact = ""
+    if f32:
+      errs = _f64_errors(got, want, attn.attention_packed_bwd_plain(
+          *(t.double() for t in (q, k, v, do)), heads))
+      f64 = [max(a, e) for a, e in zip(f64, errs)]
+      exact = (f"; against f64 {errs[0]:.3e} of each output's largest "
+               f"(the plain f32 version {errs[1]:.3e}; tolerance {F64_TOL})")
     print(f"[kernels] {name} B={b} L={seq} H={heads}: max "
           f"abs err {worst:.3e}, {bad} outputs over tolerance, two launches "
-          "equal", flush=True)
+          f"equal{exact}", flush=True)
     if bad:
       fail(f"{name} disagrees with its plain version ({bad})")
+    if f32 and f64[0] > F64_TOL:
+      fail(f"{name} B={b} L={seq} H={heads} is {f64[0]:.3e} off the f64 "
+           "plain version")
     if not timed:
       continue
     split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
@@ -951,18 +1006,21 @@ def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
             o, (qs, ks, vs), dos, retain_graph=True)),
         library_backend=sdpa_backend(qs, ks, vs),
         bound_ms=bound_ms, bound_by=bound_by)
+    if f32:
+      by_len[seq]["bound_tf32x3_ms"] = _tf32x3_bound_ms(b, seq, width, heads)
     print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: " + ", ".join(
               f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
               for k, v in by_len[seq].items()) + f" on {card}", flush=True)
+  exact = dict(f64_err=f64[0], plain_f64_err=f64[1]) if f32 else {}
   if not timed:
-    return dict(max_abs_err=max_err)
+    return dict(max_abs_err=max_err, **exact)
   return dict(name=name, route="cuda",
               source=("small_vision_tpu_torch/csrc/attention_packed_f32.cu"
                       if f32 else
                       "small_vision_tpu_torch/csrc/attention_packed_bwd.cu"),
               replaces="small_vision_tpu/ops/attention.py:411",
-              max_abs_err=max_err, **by_len[TRAIN_SEQS[-1]],
+              max_abs_err=max_err, **exact, **by_len[TRAIN_SEQS[-1]],
               by_len=by_len)
 
 
@@ -1276,7 +1334,7 @@ def check_attention_unpacked_bwd(attn, card, width=WIDTH, heads=HEADS,
   head_dim = width // heads
   f32 = dtype == torch.float32
   name = _named(attn.UNPACKED_BWD_NAME, dtype)
-  max_err, by_len = 0.0, {}
+  max_err, by_len, f64 = 0.0, {}, [0.0, 0.0]
   max_len = (attn._unpacked_f32_lib() if f32 else attn._unpacked_bwd_lib())[1]
   for b, seq in shapes:
     q, k, v, do = (torch.randn(b, seq, heads, head_dim, generator=gen,
@@ -1302,11 +1360,22 @@ def check_attention_unpacked_bwd(attn, card, width=WIDTH, heads=HEADS,
       bad += int(e > (1e-4 if f32 else 2.0**-6) * max(
           w.float().abs().max().item(), 1e-3 * top))
     max_err = max(max_err, worst)
+    exact = ""
+    if f32:
+      errs = _f64_errors(got, want, attn.attention_bwd_plain(
+          *(t.double() for t in (q, k, v, do))))
+      f64 = [max(a, e) for a, e in zip(f64, errs)]
+      exact = (f"; against f64 {errs[0]:.3e} of each output's largest "
+               f"(the plain f32 version {errs[1]:.3e}; tolerance {F64_TOL})")
     print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: max abs err {worst:.3e}, {bad} outputs over "
-          f"tolerance, two launches equal; L up to {max_len}", flush=True)
+          f"tolerance, two launches equal; L up to {max_len}{exact}",
+          flush=True)
     if bad:
       fail(f"{name} disagrees with its plain version ({bad})")
+    if f32 and f64[0] > F64_TOL:
+      fail(f"{name} B={b} L={seq} H={heads} is {f64[0]:.3e} off the f64 "
+           "plain version")
     if not timed or b != TRAIN_BATCH // 2 or seq not in TRAIN_SEQS:
       continue
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
@@ -1324,6 +1393,8 @@ def check_attention_unpacked_bwd(attn, card, width=WIDTH, heads=HEADS,
             o, (qs, ks, vs), dos, retain_graph=True)),
         library_backend=sdpa_backend(qs, ks, vs),
         bound_ms=bound_ms, bound_by=bound_by)
+    if f32:
+      by_len[seq]["bound_tf32x3_ms"] = _tf32x3_bound_ms(b, seq, width, heads)
     # The kernels of one call, each timed alone, in order (each reads the
     # statistics an earlier one wrote in its warm-up).
     stages = attn.attention_unpacked_bwd_stages(q, k, v, do)
@@ -1337,6 +1408,7 @@ def check_attention_unpacked_bwd(attn, card, width=WIDTH, heads=HEADS,
                       "small_vision_tpu_torch/csrc/attention_unpacked_bwd.cu"),
               replaces="small_vision_tpu/ops/attention.py:162",
               max_abs_err=max_err, max_len=max_len,
+              **(dict(f64_err=f64[0], plain_f64_err=f64[1]) if f32 else {}),
               **by_len.get(TRAIN_SEQS[-1], {}),
               **({"by_len": by_len} if timed else {}))
 

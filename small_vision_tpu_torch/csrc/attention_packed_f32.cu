@@ -18,17 +18,22 @@
 //
 // Bound on this card: operations. A score product and a value product are
 // 4 B H L^2 D operations (13.3 GFLOP at the sampler's (64, 260), 768 wide:
-// 0.20 ms at 67 TFLOP/s of f32 FMA) against 16 B H L D bytes.
+// 0.20 ms at 67 TFLOP/s of f32 FMA) against 16 B H L D bytes. The
+// backward's five products are 10 B H L^2 D, on the TF32 tensor cores three
+// times that (0.39 ms at (128, 257) at 495 TFLOP/s).
 //
-// Design: simt_f32_attention.cuh (plain f32 FMA on 64-row tiles, D in
-// chunks of 32, three backward kernels with every sum in a fixed order)
-// under its `ClampExp2` policy. The clamp bounds e, so the forward needs no
-// max and no rescaling pass.
+// Design: the forward is simt_f32_attention.cuh (plain f32 FMA on 64-row
+// tiles, D in chunks of 32) under its `ClampExp2` policy; the clamp bounds
+// e, so it needs no max and no rescaling pass. The backward is
+// sm90_f32x3_attention_bwd.cuh under the same policy: three kernels (row
+// statistics, dQ, dK with dV), every product in three TF32 passes on
+// wgmma (3xTF32, as accurate as f32 FMA), every sum in a fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "simt_f32_attention.cuh"
+#include "sm90_f32x3_attention_bwd.cuh"
 
 // Longest sequence and widest head the f32 kernels take (every length and
 // head dim from 1 up to them).
@@ -62,11 +67,11 @@ extern "C" int attention_packed_f32_bwd(const void* q, const void* k,
                                         void* r, void* c, int batch, int len,
                                         int heads, int d, float scale2,
                                         float scale, void* stream) {
-  return simt_f32::attn_f32_backward<simt_f32::ClampExp2>(
+  return f32x3::attn_backward<simt_f32::ClampExp2>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<float*>(dq), static_cast<float*>(dk),
       static_cast<float*>(dv), nullptr, static_cast<float*>(r),
       static_cast<float*>(c), batch, len, heads, d, scale2, scale,
-      simt_f32::kBwdAll, static_cast<cudaStream_t>(stream));
+      f32x3::kBwdAll, static_cast<cudaStream_t>(stream));
 }

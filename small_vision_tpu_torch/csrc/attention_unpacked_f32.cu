@@ -13,24 +13,28 @@
 //   dV = p^T dO; dP = dO v^T; dS = p (dP - rowsum(dP p))
 //   dQ = dS k scale; dK = dS^T q scale
 // computed as exp2 of the log2(e)-scaled scores less their row max, with p
-// = e r, r = 1 / rowsum(e) (simt_f32_attention.cuh's formulas).
+// = e r, r = 1 / rowsum(e) (sm90_f32x3_attention_bwd.cuh's formulas).
 //
 // A contiguous [B, L, H, D] tensor is the packed (B, L, H*D) one in
 // memory, so the kernels read heads in place.
 //
 // Bound on this card: operations. A forward's two products are 4 B H L^2 D
 // operations (13.3 GFLOP at (64, 260) with 12 heads of 64: 0.20 ms at 67
-// TFLOP/s of f32 FMA), a backward's five products 10 B H L^2 D.
+// TFLOP/s of f32 FMA), a backward's five products 10 B H L^2 D, on the
+// TF32 tensor cores three times that (0.39 ms at (128, 257) at 495
+// TFLOP/s).
 //
-// Design: simt_f32_attention.cuh under its `MaxShift` policy: the forward
-// keeps a running row max and rescales (online softmax), in a fixed order;
-// the backward's three kernels are K4 f32's, with the max-shift
-// statistics m and r (and c) from the first.
+// Design: the forward is simt_f32_attention.cuh under its `MaxShift`
+// policy: a running row max and rescaled sums (online softmax), in a fixed
+// order. The backward is sm90_f32x3_attention_bwd.cuh under the same
+// policy (K4 f32's three kernels, 3xTF32 products on wgmma), with the
+// max-shift statistics m and r (and c) from the first.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "simt_f32_attention.cuh"
+#include "sm90_f32x3_attention_bwd.cuh"
 
 // Longest sequence and widest head the f32 kernels take (every length and
 // head dim from 1 up to them).
@@ -64,7 +68,7 @@ extern "C" int attention_unpacked_f32_bwd_stage(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, void* m, void* r, void* c, int batch, int len,
     int heads, int d, float scale2, float scale, int stage, void* stream) {
-  return simt_f32::attn_f32_backward<simt_f32::MaxShift>(
+  return f32x3::attn_backward<simt_f32::MaxShift>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<float*>(dq), static_cast<float*>(dk),
@@ -82,5 +86,5 @@ extern "C" int attention_unpacked_f32_bwd(const void* q, const void* k,
                                           void* stream) {
   return attention_unpacked_f32_bwd_stage(q, k, v, dout, dq, dk, dv, m, r,
                                           c, batch, len, heads, d, scale2,
-                                          scale, simt_f32::kBwdAll, stream);
+                                          scale, f32x3::kBwdAll, stream);
 }

@@ -1,46 +1,35 @@
-// Attention in plain f32 on the CUDA cores (SIMT FMA), forward and
-// backward, under a compile-time softmax policy: K3's and K4's f32
-// instances (attention_packed_f32.cu) under `ClampExp2`, K6's attention
-// stage (fused_mha_f32.cu), K7 and K8 (attention_unpacked_f32.cu) under
-// `MaxShift`. On rows of heads (B, L, H*D) (or [B, L, H, D], the same
-// memory), per batch row and head, with scale2 = D**-0.5 log2(e):
+// Attention in plain f32 on the CUDA cores (SIMT FMA), the forward,
+// under a compile-time softmax policy: K3's f32 instance
+// (attention_packed_f32.cu) under `ClampExp2`, K6's attention stage
+// (fused_mha_f32.cu) and K7 (attention_unpacked_f32.cu) under `MaxShift`.
+// The f32 backwards (K4's and K8's instances) run on the TF32 tensor cores
+// in sm90_f32x3_attention_bwd.cuh, under the same policies. On rows of
+// heads (B, L, H*D) (or [B, L, H, D], the same memory), per batch row and
+// head, with scale2 = D**-0.5 log2(e):
 //   t = (q k^T) scale2
 //   ClampExp2: e = exp2(clamp(t, -80, 80))       (no max: the clamp bounds e)
 //   MaxShift:  e = exp2(t - m), m = the row max of t over the valid keys
 //   e = 0 for keys past L; o = (e v) / rowsum(e)
-// and the backward, with r = 1 / rowsum(e) (0 for queries past L):
-//   dV = e^T (dO r); dP = dO v^T; c = rowsum(dP e) r; dS = e (dP - c)
-//   dQ = (dS k) r scale; dK = dS^T (q r scale)
-// which under MaxShift (p = e r) is the max-shift softmax's backward, dV =
-// p^T dO, dS' = p (dP - rowsum(dP p)), dQ = dS' k scale, dK = dS'^T q
-// scale.
 //
 // Bound on this card: operations. A score product and a value product are
 // 4 B H L^2 D operations (13.3 GFLOP at the sampler's (64, 260), 768 wide:
 // 0.20 ms at 67 TFLOP/s of f32 FMA) against 16 B H L D bytes.
 //
-// Design: plain f32 FMA, no tensor cores: a TF32 product keeps about three
-// decimal digits, and the point of f32 is f32. A CTA of 256 threads (16 x
-// 16) owns a tile of 64 query rows (or key rows) of one (b, h) and 64
-// output columns of the head; each thread holds a 4 x 4 tile of the scores
-// or outputs, on rows ty + 16 i and columns tx + 16 j, so its shared-memory
-// reads of both operands are free of bank conflicts. The score product
-// walks the head's D columns in chunks of 32, staging both operands' chunks
-// in shared memory, and so takes every head dim from 1 to 2,048 in
-// registers of a fixed size; past 64 columns the outputs' columns are split
-// across CTAs (gridDim.y), each recomputing the scores, as the wide bf16
-// path does. The forward adds e v and e over the key tiles in a fixed
-// order; under MaxShift it keeps a running row max and rescales the sums
-// when it grows (online softmax), so the scores are computed once. The
-// backward runs three kernels, each with every sum in a fixed order (no
-// atomics), so two launches give the same bits: the row statistics r and c
-// (and m, MaxShift) per query (its scores and dP over all keys), then dQ
-// per query tile (over the key tiles), then dK and dV per key tile (over
-// the query tiles, with the transposed scores K Q^T and V dO^T, so that the
-// outputs' rows are the thread's rows). Rows past L read as zeros, and
-// nothing past L or D is stored. q, k and v rows are `in_stride` floats
-// apart and the forward's output rows `out_stride` (K6 reads its q, k, v
-// side by side in one buffer); the backward's tensors are all (B, L, H*D).
+// Design: plain f32 FMA, no tensor cores. A CTA of 256 threads (16 x 16)
+// owns a tile of 64 query rows of one (b, h) and 64 output columns of the
+// head; each thread holds a 4 x 4 tile of the scores or outputs, on rows
+// ty + 16 i and columns tx + 16 j, so its shared-memory reads of both
+// operands are free of bank conflicts. The score product walks the head's
+// D columns in chunks of 32, staging both operands' chunks in shared
+// memory, and so takes every head dim from 1 to 2,048 in registers of a
+// fixed size; past 64 columns the outputs' columns are split across CTAs
+// (gridDim.y), each recomputing the scores, as the wide bf16 path does.
+// The forward adds e v and e over the key tiles in a fixed order; under
+// MaxShift it keeps a running row max and rescales the sums when it grows
+// (online softmax), so the scores are computed once. Rows past L read as
+// zeros, and nothing past L or D is stored. q, k and v rows are
+// `in_stride` floats apart and the output rows `out_stride` (K6 reads its
+// q, k, v side by side in one buffer).
 
 #pragma once
 
@@ -314,225 +303,6 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Grid (query tiles, H, B). Per query: r = 1 / rowsum(e) and c = rowsum(dP
-// e) r into (B, H, L), and under MaxShift the row max m; a query past L
-// has none.
-template <class P>
-__global__ void __launch_bounds__(kThreads)
-attn_f32_bwd_stats_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ dout,
-                          float* __restrict__ m_out,
-                          float* __restrict__ r_out,
-                          float* __restrict__ c_out, int len, int heads,
-                          int d, float scale2) {
-  __shared__ __align__(16) float smem[4 * kChunkFloats];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const int stride = heads * d;
-  const size_t base = static_cast<size_t>(blockIdx.z) * len * stride +
-                      static_cast<size_t>(h) * d;
-  float s[4][4], dp[4][4], sums[2][4], m[4];  // sums: e, dP e
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    sums[0][i] = sums[1][i] = 0.f;
-    m[i] = -INFINITY;
-  }
-  for (int k0 = 0; k0 < len; k0 += kTile) {
-    score_tiles<true>(q + base, k + base, dout + base, v + base, q0, k0, len,
-                      stride, d, smem, s, dp);
-    if (P::kShift) shift_rows<2>(s, scale2, k0, len, m, sums, nullptr);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float pe = 0.f, pd = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool key = k0 + tx + 16 * j < len;
-        const float e = key ? P::e(s[i][j], scale2, m[i]) : 0.f;
-        pe += e;
-        pd += dp[i][j] * e;
-      }
-      sums[0][i] += row_sum16(pe);
-      sums[1][i] += row_sum16(pd);
-    }
-  }
-  if (tx != 0) return;
-  const size_t stat0 =
-      (static_cast<size_t>(blockIdx.z) * heads + h) * len;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= len) continue;
-    const float r = 1.f / sums[0][i];
-    r_out[stat0 + row] = r;
-    c_out[stat0 + row] = sums[1][i] * r;
-    if (P::kShift) m_out[stat0 + row] = m[i];
-  }
-}
-
-// Grid (query tiles, H * column chunks, B). dQ = (dS k) r scale over the key
-// tiles, dS = e (dP - c).
-template <class P>
-__global__ void __launch_bounds__(kThreads)
-attn_f32_bwd_dq_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ m_in,
-                       const float* __restrict__ r_in,
-                       const float* __restrict__ c_in,
-                       float* __restrict__ dq, int len, int heads, int d,
-                       float scale2, float scale) {
-  __shared__ __align__(16) float smem[4 * kChunkFloats];
-  float* ds_tile = smem;
-  float* k_tile = smem + kTileFloats;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int chunks = (d + kCols - 1) / kCols;
-  const int h = blockIdx.y / chunks;
-  const int col0 = (blockIdx.y % chunks) * kCols;
-  const int q0 = blockIdx.x * kTile;
-  const int stride = heads * d;
-  const size_t base = static_cast<size_t>(blockIdx.z) * len * stride +
-                      static_cast<size_t>(h) * d;
-  const size_t stat0 =
-      (static_cast<size_t>(blockIdx.z) * heads + h) * len;
-  float r[4], c[4], m[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    r[i] = row < len ? r_in[stat0 + row] : 0.f;
-    c[i] = row < len ? c_in[stat0 + row] : 0.f;
-    m[i] = P::kShift && row < len ? m_in[stat0 + row] : 0.f;
-  }
-  float s[4][4], dp[4][4], out[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < len; k0 += kTile) {
-    score_tiles<true>(q + base, k + base, dout + base, v + base, q0, k0, len,
-                      stride, d, smem, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool key = k0 + tx + 16 * j < len;
-        const float e = key ? P::e(s[i][j], scale2, m[i]) : 0.f;
-        ds_tile[(ty + 16 * i) * kTileStride + tx + 16 * j] =
-            e * (dp[i][j] - c[i]);
-      }
-    }
-    load_tile(k_tile, k + base, k0, len, stride, col0, d, nullptr);
-    __syncthreads();
-    tile_product(ds_tile, k_tile, out);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= len) continue;
-    const float rs = r[i] * scale;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col < d) {
-        dq[base + static_cast<size_t>(row) * stride + col] = out[i][j] * rs;
-      }
-    }
-  }
-}
-
-// Grid (key tiles, H * column chunks, B). Over the query tiles: dV += e^T
-// (dO r), dK += dS^T (q r scale), from the transposed scores k q^T and
-// v dO^T (rows: keys, columns: queries). Dynamic shared memory:
-// kDkdvSmemBytes.
-constexpr int kDkdvSmemFloats = 4 * kTileFloats + 2 * kTile;
-constexpr size_t kDkdvSmemBytes = kDkdvSmemFloats * sizeof(float);
-
-template <class P>
-__global__ void __launch_bounds__(kThreads)
-attn_f32_bwd_dkdv_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ m_in,
-                         const float* __restrict__ r_in,
-                         const float* __restrict__ c_in,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int len, int heads, int d, float scale2,
-                         float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* et_tile = smem;                       // e^T  [key][query]
-  float* dst_tile = smem + kTileFloats;        // dS^T [key][query]
-  float* dor_tile = smem + 2 * kTileFloats;    // dO r [query][col]
-  float* qr_tile = smem + 3 * kTileFloats;     // q r scale [query][col]
-  float* r_tile = smem + 4 * kTileFloats;      // r of the query tile
-  float* rs_tile = r_tile + kTile;             // r scale of the query tile
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int chunks = (d + kCols - 1) / kCols;
-  const int h = blockIdx.y / chunks;
-  const int col0 = (blockIdx.y % chunks) * kCols;
-  const int key0 = blockIdx.x * kTile;
-  const int stride = heads * d;
-  const size_t base = static_cast<size_t>(blockIdx.z) * len * stride +
-                      static_cast<size_t>(h) * d;
-  const size_t stat0 =
-      (static_cast<size_t>(blockIdx.z) * heads + h) * len;
-  bool key[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) key[i] = key0 + ty + 16 * i < len;
-  float st[4][4], dpt[4][4], acc_k[4][4], acc_v[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-  }
-  for (int q0 = 0; q0 < len; q0 += kTile) {
-    score_tiles<true>(k + base, q + base, v + base, dout + base, key0, q0,
-                      len, stride, d, smem, st, dpt);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      const float r = row < len ? r_in[stat0 + row] : 0.f;
-      r_tile[threadIdx.x] = r;
-      rs_tile[threadIdx.x] = r * scale;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qrow = q0 + tx + 16 * j;
-      const float c = qrow < len ? c_in[stat0 + qrow] : 0.f;
-      const float m = P::kShift && qrow < len ? m_in[stat0 + qrow] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float e = key[i] ? P::e(st[i][j], scale2, m) : 0.f;
-        et_tile[(ty + 16 * i) * kTileStride + tx + 16 * j] = e;
-        dst_tile[(ty + 16 * i) * kTileStride + tx + 16 * j] =
-            e * (dpt[i][j] - c);
-      }
-    }
-    __syncthreads();  // r_tile, rs_tile
-    load_tile(dor_tile, dout + base, q0, len, stride, col0, d, r_tile);
-    load_tile(qr_tile, q + base, q0, len, stride, col0, d, rs_tile);
-    __syncthreads();
-    tile_product(et_tile, dor_tile, acc_v);
-    tile_product(dst_tile, qr_tile, acc_k);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!key[i]) continue;
-    const size_t row = static_cast<size_t>(key0 + ty + 16 * i);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col < d) {
-        dk[base + row * stride + col] = acc_k[i][j];
-        dv[base + row * stride + col] = acc_v[i][j];
-      }
-    }
-  }
-}
-
 inline bool attn_takes(int batch, int len, int heads, int d) {
   return batch >= 1 && batch <= 65535 && len >= 1 && len <= kMaxLen &&
          heads >= 1 && d >= 1 && d <= kMaxHeadDim &&
@@ -555,56 +325,6 @@ int attn_f32_forward(const float* q, const float* k, const float* v,
   attn_f32_fwd_kernel<P><<<grid, kThreads, 0, stream>>>(
       q, k, v, o, len, heads, d, in_stride, out_stride, scale2);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Kernels of the backward, launched by `attn_f32_backward`: -1 all three in
-// turn, or one of them (measurement).
-enum BwdStage { kBwdAll = -1, kBwdStats = 0, kBwdDq = 1, kBwdDkdv = 2 };
-
-// The backward's three kernels on `stream` (or the one `stage` names): the
-// row statistics into m (MaxShift only; may be null under ClampExp2), r and
-// c ((B, H, L) f32 scratch), dQ, and dK with dV. Returns cudaGetLastError()
-// after each launch, or cudaErrorInvalidValue for a shape the kernels do
-// not take.
-template <class P>
-int attn_f32_backward(const float* q, const float* k, const float* v,
-                      const float* dout, float* dq, float* dk, float* dv,
-                      float* m, float* r, float* c, int batch, int len,
-                      int heads, int d, float scale2, float scale, int stage,
-                      cudaStream_t stream) {
-  if (!attn_takes(batch, len, heads, d) || stage < kBwdAll ||
-      stage > kBwdDkdv) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int tiles = (len + kTile - 1) / kTile;
-  const int chunks = (d + kCols - 1) / kCols;
-  cudaError_t err = cudaSuccess;
-  if (stage == kBwdAll || stage == kBwdStats) {
-    attn_f32_bwd_stats_kernel<P>
-        <<<dim3(tiles, heads, batch), kThreads, 0, stream>>>(
-            q, k, v, dout, m, r, c, len, heads, d, scale2);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (stage == kBwdAll || stage == kBwdDq) {
-    attn_f32_bwd_dq_kernel<P>
-        <<<dim3(tiles, heads * chunks, batch), kThreads, 0, stream>>>(
-            q, k, v, dout, m, r, c, dq, len, heads, d, scale2, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (stage == kBwdAll || stage == kBwdDkdv) {
-    err = cudaFuncSetAttribute(attn_f32_bwd_dkdv_kernel<P>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kDkdvSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_f32_bwd_dkdv_kernel<P>
-        <<<dim3(tiles, heads * chunks, batch), kThreads, kDkdvSmemBytes,
-           stream>>>(q, k, v, dout, m, r, c, dk, dv, len, heads, d, scale2,
-                     scale);
-    err = cudaGetLastError();
-  }
-  return static_cast<int>(err);
 }
 
 }  // namespace simt_f32

@@ -13,11 +13,13 @@ kernels for CUDA tensors, and raises for a CUDA tensor a kernel does not
 take. Without gradients (the sampler) it is K3 alone; with gradients it
 goes through `AttentionPacked`. K3 and K4 take bf16 and f32 (the TPU
 kernels are generic in the dtype; `dtype_mm="float32"` runs them in f32):
-f32 inputs run their f32 instances (`csrc/attention_packed_f32.cu`, plain
-f32 FMA, no TF32), at every head dim from 1 to 2,048 and L up to 4,096
-with no padding, and count under `NAME_F32` / `BWD_NAME_F32`; so do K7
-and K8 (`csrc/attention_unpacked_f32.cu`, the same f32 library under the
-max-shift policy, `UNPACKED_NAME_F32` / `UNPACKED_BWD_NAME_F32`), and K5
+f32 inputs run their f32 instances (`csrc/attention_packed_f32.cu`: the
+forward in plain f32 FMA, the backward's products in three TF32 passes on
+the tensor cores, 3xTF32, as accurate as f32 FMA), at every head dim from
+1 to 2,048 and L up to 4,096 with no padding, and count under `NAME_F32`
+/ `BWD_NAME_F32`; so do K7 and K8 (`csrc/attention_unpacked_f32.cu`, the
+same f32 kernels under the max-shift policy, `UNPACKED_NAME_F32` /
+`UNPACKED_BWD_NAME_F32`), and K5
 and K6 (`ops.fused_block`); what follows is of the bf16 kernels. K9 takes
 bf16 only. Every kernel here takes any head dim from 1 to 2,048
 (`MAX_HEAD_DIM`; `heads=4` at width 768 gives 192, `heads=3` 256,
@@ -92,6 +94,19 @@ def scale_log2(head_dim: int) -> float:
   """head_dim**-0.5 * log2(e), rounded as the JAX kernel rounds it (f32)."""
   return float(np.float32(
       (1.0 / np.sqrt(head_dim)) * np.float64(np.float32(np.log2(np.e)))))
+
+
+def split_tf32(x):
+  """(hi, lo) of an f32 tensor as K4's and K8's f32 backwards split their
+  operands for 3xTF32 products (`csrc/sm90_f32x3_attention_bwd.cuh`): hi
+  is x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero,
+  as `cvt.rna.tf32.f32` rounds), lo is x - hi (exact in f32) rounded the
+  same way, so hi + lo is x to within 2^-22 of it. A product a b is taken
+  as a_lo b_hi + a_hi b_lo + a_hi b_hi."""
+  rna = lambda t: ((t.contiguous().view(torch.int32) + 0x1000)
+                   & ~0x1FFF).view(torch.float32)
+  hi = rna(x.to(torch.float32))
+  return hi, rna(x.to(torch.float32) - hi)
 
 
 def _split(t, num_heads):
@@ -332,8 +347,9 @@ def attention_packed_bwd(q, k, v, do, num_heads, chunk_tiles=None):
   tiles), and 4096 is the longest length the card's tests hold it at.
   `chunk_tiles` (from 1, tests only): at most this many of the outputs'
   column tiles a CTA past D = 256 (the same bits). f32 inputs run K4's f32
-  instance (three kernels: the row statistics, dQ, then dK and dV, each
-  sum in a fixed order), unpadded, without `chunk_tiles`."""
+  instance (three kernels: the row statistics, dQ, then dK and dV, their
+  products 3xTF32 on wgmma, each sum in a fixed order), unpadded, without
+  `chunk_tiles`."""
   b, l, d = _check(BWD_NAME, num_heads, PACKED_DTYPES, q=q, k=k, v=v, do=do)
   if q.dtype == torch.float32:
     _bf16_options_only(BWD_NAME, chunk_tiles=chunk_tiles)
@@ -609,8 +625,9 @@ def attention_unpacked_bwd(q, k, v, do, chunk_tiles=None):
   nothing there grows with L. `chunk_tiles` (from 1, tests only): at most
   this many of the outputs' column tiles a CTA past D = 256 (the same
   bits). f32 inputs run K8's f32 instance (three kernels: the max-shift
-  row statistics, dQ, then dK and dV, each sum in a fixed order),
-  unpadded, without `chunk_tiles`, counted under UNPACKED_BWD_NAME_F32."""
+  row statistics, dQ, then dK and dV, their products 3xTF32 on wgmma, each
+  sum in a fixed order), unpadded, without `chunk_tiles`, counted under
+  UNPACKED_BWD_NAME_F32."""
   lib, (b, l, h, d, dp), bufs = _unpacked_bwd_buffers(q, k, v, do)
   grads = tuple(bufs[4:7])
   if q.dtype == torch.float32:

@@ -98,7 +98,8 @@ WIDE_HEADS = ((4, 192), (3, 256))
 SOURCES = ("fused_mlp", "fused_mha", "attention_unpacked",
            "attention_ablate",
            "attention_unpacked_bwd", "ln_modulate_bwd", "ln_modulate",
-           "attention_packed", "attention_packed_bwd", "attention_packed_f32")
+           "attention_packed", "attention_packed_bwd", "attention_packed_f32",
+           "attention_unpacked_f32", "fused_mha_f32")
 K3_F32_SHAPES = ((64, 260), (128, 68), (128, 164), (128, 257))
 
 
@@ -261,29 +262,68 @@ def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library,
       torch.autograd.grad(o, split, g, retain_graph=True))
 
 
-def k3_k4_f32(sides, b, l, randn32, keep, pairs, outputs):
-  """K3's and K4's f32 instances of each side at (b, l, 768) in 12 heads of
-  64 into `pairs`; their outputs of each side into `outputs`."""
+def f32_attention(sides, b, l, randn32, keep, pairs, outputs, changed):
+  """The f32 instances of each side at (b, l, 768) in 12 heads of 64 into
+  `pairs`: K3 and K7, whose outputs of each side go into `outputs` (the
+  same bits expected), and K4 and K8, whose backwards this tree runs
+  3xTF32 on the tensor cores (other arithmetic: their outputs of each side
+  go into `changed`, held to 1e-4 of each other and to the same bits launch
+  to launch)."""
   stream = lambda: torch.cuda.current_stream().cuda_stream
   hd = WIDTH // HEADS
   q, k, v, do = (randn32(b, l, WIDTH) for _ in range(4))
   keep += [q, k, v, do]
+  scales = (b, l, HEADS, hd, attn.scale_log2(hd))
   for side, libs in sides.items():
-    lib = libs["attention_packed_f32"]
-    o = torch.empty_like(q)
-    grads = [torch.empty_like(q) for _ in range(3)]
-    rc = [torch.empty(b, HEADS, l, device="cuda") for _ in range(2)]
-    keep += [o, *grads, *rc]
-    pairs.setdefault(f"K3 f32 {b}x{l}", {})[side] = (
-        lambda lib=lib, o=o: _check(lib.attention_packed_f32_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l,
-            HEADS, hd, attn.scale_log2(hd), stream())))
+    packed, unpacked = (libs["attention_packed_f32"],
+                        libs["attention_unpacked_f32"])
+    o3, o7 = torch.empty_like(q), torch.empty_like(q)
+    g4, g8 = ([torch.empty_like(q) for _ in range(3)] for _ in range(2))
+    s4, s8 = ([torch.empty(b, HEADS, l, device="cuda") for _ in range(n)]
+              for n in (2, 3))
+    keep += [o3, o7, *g4, *g8, *s4, *s8]
+    fwd = lambda lib, entry, o: (lambda: _check(getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *scales,
+        stream())))
+    pairs.setdefault(f"K3 f32 {b}x{l}", {})[side] = fwd(
+        packed, "attention_packed_f32_fwd", o3)
+    pairs.setdefault(f"K7 f32 {b}x{l}", {})[side] = fwd(
+        unpacked, "attention_unpacked_f32_fwd", o7)
     pairs.setdefault(f"K4 f32 {b}x{l}", {})[side] = (
-        lambda lib=lib, g=grads, rc=rc: _check(lib.attention_packed_f32_bwd(
-            *[t.data_ptr() for t in (q, k, v, do, *g, *rc)], b, l, HEADS,
-            hd, attn.scale_log2(hd), attn.scale_f32(hd), stream())))
-    outputs.setdefault(f"K3 f32 {b}x{l}", {})[side] = [o]
-    outputs.setdefault(f"K4 f32 {b}x{l}", {})[side] = grads
+        lambda lib=packed, g=g4, st=s4: _check(lib.attention_packed_f32_bwd(
+            *[t.data_ptr() for t in (q, k, v, do, *g, *st)], *scales,
+            attn.scale_f32(hd), stream())))
+    pairs.setdefault(f"K8 f32 {b}x{l}", {})[side] = (
+        lambda lib=unpacked, g=g8, st=s8: _check(
+            lib.attention_unpacked_f32_bwd(
+                *[t.data_ptr() for t in (q, k, v, do, *g, *st)], *scales,
+                attn.scale_f32(hd), stream())))
+    outputs.setdefault(f"K3 f32 {b}x{l}", {})[side] = [o3]
+    outputs.setdefault(f"K7 f32 {b}x{l}", {})[side] = [o7]
+    changed.setdefault(f"K4 f32 {b}x{l}", {})[side] = g4
+    changed.setdefault(f"K8 f32 {b}x{l}", {})[side] = g8
+
+
+def k6_f32(sides, b, l, randn32, keep, pairs, outputs):
+  """K6's f32 instance of each side (the whole fused MHA forward, 768
+  wide, 12 heads of 64) at (b, l) into `pairs`, its output into
+  `outputs`."""
+  stream = lambda: torch.cuda.current_stream().cuda_stream
+  x = randn32(b, l, WIDTH)
+  params = []
+  for _ in range(4):
+    params += [randn32(WIDTH, WIDTH) * WIDTH**-0.5, randn32(WIDTH) * 0.1]
+  keep += [x, *params]
+  for side, libs in sides.items():
+    qkv = torch.empty(b, l, 3 * WIDTH, device="cuda")
+    heads_out, o = torch.empty_like(x), torch.empty_like(x)
+    keep += [qkv, heads_out, o]
+    ptrs = [t.data_ptr() for t in (x, *params, qkv, heads_out, o)]
+    pairs.setdefault(f"K6 f32 call {b}x{l}", {})[side] = (
+        lambda lib=libs["fused_mha_f32"], p=ptrs: _check(lib.fused_mha_f32_fwd(
+            *p, b, l, WIDTH, HEADS, WIDTH // HEADS,
+            attn.scale_log2(WIDTH // HEADS), stream())))
+    outputs.setdefault(f"K6 f32 call {b}x{l}", {})[side] = [o]
 
 
 def wide_heads(this, heads, hd, randn, keep, alone, bounds, library):
@@ -520,9 +560,12 @@ def main(argv=None):
       k1_to_k4(sides, args.width, args.heads, b, l, randn, keep, pairs,
                library, outputs)
     randn32 = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    changed = {}
     for b, l in K3_F32_SHAPES:
-      k3_k4_f32(sides, b, l, randn32, keep, pairs, outputs)
-    # Each side of K1-K4 (and K3, K4 in f32) and K8 there once; their
+      f32_attention(sides, b, l, randn32, keep, pairs, outputs, changed)
+    for b, l in K6_SHAPES:
+      k6_f32(sides, b, l, randn32, keep, pairs, outputs)
+    # Each side of K1-K4 (and K3, K7, K6 in f32) and K8 there once; their
     # outputs compared.
     for name, by_side in outputs.items():
       for side in by_side:
@@ -531,6 +574,21 @@ def main(argv=None):
       first, second = by_side.values()
       same_bits[name] = all(torch.equal(a, b)
                             for a, b in zip(first, second))
+    # K4 and K8 in f32: each side once, this tree's again (the same bits
+    # launch to launch), and the largest difference of the two sides'
+    # outputs, relative to each output's largest value.
+    close = {}
+    for name, by_side in changed.items():
+      for side in by_side:
+        pairs[name][side]()
+      first = [t.clone() for t in by_side["this"]]
+      pairs[name]["this"]()
+      torch.cuda.synchronize()
+      same_bits[f"{name} this, two launches"] = all(
+          torch.equal(a, b) for a, b in zip(first, by_side["this"]))
+      close[name] = max(
+          ((a - b).abs().max() / b.abs().max()).item()
+          for a, b in zip(by_side["this"], by_side["other"]))
 
     # This tree alone at three and four 64-column tiles a head.
     for heads, hd in WIDE_HEADS:
@@ -582,13 +640,16 @@ def main(argv=None):
 
   summary = lambda v: dict(median=statistics.median(v), min=min(v),
                            max=max(v))
-  result = {"card": card, "same_bits": same_bits,
+  result = {"card": card, "same_bits": same_bits, "f32_bwd_vs_other": close,
             "times": {name: {side: summary(v) for side, v in t.items()}
                       for name, t in times.items()},
             "alone": {name: summary(v) for name, v in alone_times.items()},
             "library": {name: summary(v) for name, v in lib_times.items()},
             "bound_ms": bounds}
   print(f"[ab_kernels] bit-equal: {same_bits}; on {card}", flush=True)
+  print(f"[ab_kernels] K4 and K8 in f32 (3xTF32 here), this against other, "
+        f"the largest difference of each output's largest value: {close}",
+        flush=True)
   for name, t in result["times"].items():
     (a, ta), (b, tb) = t.items()
     print(f"[ab_kernels] {name}: {b} {tb['median']:.4f} ms "
@@ -608,6 +669,10 @@ def main(argv=None):
   if not all(same_bits.values()):
     raise SystemExit("ab_kernels: bits differ: " + ", ".join(
         name for name, same in same_bits.items() if not same))
+  far = {name: d for name, d in close.items() if not d <= 1e-4}
+  if far:
+    raise SystemExit(f"ab_kernels: the f32 backwards differ by more than "
+                     f"1e-4 of their outputs: {far}")
   return result
 
 

@@ -81,8 +81,12 @@ CPU. K5-K8 in f32 (their f32 instances): K5 at widths 1, 36, 768 and
 projections, K7 and K8 at those head dims, each at L = 1, 257 and 4,096,
 within 1e-5 of the output's largest value (K8: 1e-4 of each gradient's),
 two launches giving the same bits, counted under the f32 names; their
-stage timers; K3 and K4 in f32 giving the bits they gave before their
-kernels moved into the shared header (a digest of their outputs).
+stage timers; K3 in f32 giving the bits it gave before its kernel moved
+into the shared header, and K4 in f32 those of its 3xTF32 backward (a
+digest of their outputs); K4 and K8 in f32 within 1e-5 of the float64
+plain versions at 12 heads of 64 (L = 257), 32 of 12 (L = 68) and 1 of
+768, and six launches of each giving the same bits at every key-chunk
+width the backward takes (L = 68, 257, 4,096, 1) and at head dim 13.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -1692,6 +1696,56 @@ def test_f32_attention_kernels_match_plain(cuda, b, l, heads, hd):
   assert dict(_build.LAUNCHES) == {attn.NAME_F32: 2, attn.BWD_NAME_F32: 2}
 
 
+# K4's and K8's f32 backwards run their products 3xTF32 on the tensor
+# cores (csrc/sm90_f32x3_attention_bwd.cuh): the main path's 12 heads of
+# 64 at a training length, `heads=32`'s 12 at L = 68 and `heads=1`'s 768.
+F64_ATTN_CASES = [(4, 257, 12, 64), (2, 68, 32, 12), (1, 257, 1, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,heads,hd", F64_ATTN_CASES)
+def test_f32_attention_backwards_match_f64(cuda, b, l, heads, hd):
+  """K4's and K8's f32 instances within 1e-5 of each output's largest
+  value (floored at 1e-2 of the largest of the three) of the float64 plain
+  versions: 3xTF32 products are as accurate as f32 FMA sums."""
+  q, k, v, do = (_randn((b, l, heads * hd), 110 + i, cuda, torch.float32)
+                 for i in range(4))
+  as4 = lambda t: t.view(b, l, heads, hd)
+  f64 = [t.double() for t in (q, k, v, do)]
+  for got, want in (
+      (attn.attention_packed_bwd(q, k, v, do, heads),
+       attn.attention_packed_bwd_plain(*f64, heads)),
+      (attn.attention_unpacked_bwd(*map(as4, (q, k, v, do))),
+       attn.attention_bwd_plain(*map(as4, f64)))):
+    top = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+      err = (g.double() - w.view(g.shape)).abs().max().item()
+      assert err <= 1e-5 * max(w.abs().max().item(), 1e-2 * top), err
+
+
+# One shape at each key-chunk width class of the f32 backwards (N = 40,
+# 56, 64, 8) and a head dim that takes scalar loads (13).
+F32_REPEAT_CASES = [(2, 68, 32, 12), (128, 257, 12, 64), (1, 4096, 1, 64),
+                    (2, 1, 3, 64), (2, 37, 3, 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,heads,hd", F32_REPEAT_CASES)
+def test_f32_attention_backwards_give_the_same_bits_launch_to_launch(
+    cuda, b, l, heads, hd):
+  """Six launches each of K4's and K8's f32 instances on the same inputs
+  and buffers give the same bits (every sum in a fixed order, no
+  atomics)."""
+  q, k, v, do = (_randn((b, l, heads * hd), 120 + i, cuda, torch.float32)
+                 for i in range(4))
+  as4 = lambda t: t.view(b, l, heads, hd)
+  for call in (lambda: attn.attention_packed_bwd(q, k, v, do, heads),
+               lambda: attn.attention_unpacked_bwd(*map(as4, (q, k, v, do)))):
+    first = call()
+    for _ in range(5):
+      assert all(torch.equal(a, g) for a, g in zip(first, call()))
+
+
 @pytest.mark.cuda
 def test_f32_attention_refuses_what_the_kernels_do_not_take(cuda):
   q = torch.zeros(1, 8, 128, device=cuda)
@@ -1958,14 +2012,15 @@ def test_f32_stage_timers_launch_their_kernels_and_count_nothing(cuda):
     assert 0.8 <= sum(times) / whole <= 1.25, (names, times, whole)
 
 
-# sha256 of K3's f32 output and K4's f32 dq, dk, dv bytes on
-# `_f32_digest_inputs`, as `attention_packed_f32.cu` gave them before its
-# kernels moved into simt_f32_attention.cuh under a softmax policy (built
-# by nvcc 12.8 for sm_90a, -O3, on an H100; the moved kernels give the
-# same).
+# sha256 of K3's f32 output bytes on `_f32_digest_inputs`, as
+# `attention_packed_f32.cu` gave them before its kernels moved into
+# simt_f32_attention.cuh under a softmax policy (built by nvcc 12.8 for
+# sm_90a, -O3, on an H100; the moved kernels give the same), and of K4's
+# f32 dq, dk, dv bytes as its 3xTF32 backward gives them
+# (sm90_f32x3_attention_bwd.cuh, the same toolchain).
 F32_PACKED_DIGESTS = {
     "fwd": "798dfcaf803ca81c1557126dd7a992f6467656abb322791934dfb2559b47c1d4",
-    "bwd": "2d83a76c05d3ffd6df9831cd1841d35b92cc6ce4b07e0334e0640b53a539cd9c",
+    "bwd": "b1fa057fc1c1e8fa3a00142a4b9760ec94fdae595a1d680103cebd395e02f512",
 }
 
 
@@ -1984,12 +2039,12 @@ def _digest(tensors):
 
 @pytest.mark.cuda
 def test_f32_packed_attention_keeps_its_bits(cuda):
-  """K3's and K4's f32 instances, now run under the shared header's
-  `ClampExp2` policy, give the bits they gave before the policy existed
-  (`tools/ab_kernels.py` holds the same against another tree's library
-  at the model's shapes)."""
+  """K3's f32 instance, run under the shared header's `ClampExp2` policy,
+  gives the bits it gave before the policy existed, and K4's the bits of
+  its 3xTF32 backward (`tools/ab_kernels.py` holds K3 against another
+  tree's library at the model's shapes)."""
   q, k, v, do = _f32_digest_inputs(cuda)
   assert _digest([attn.attention_packed_fwd(q, k, v, 3)]) == (
       F32_PACKED_DIGESTS["fwd"])
-  assert _digest(attn.attention_packed_bwd(q, k, v, do, 3)) == (
-      F32_PACKED_DIGESTS["bwd"])
+  got = _digest(attn.attention_packed_bwd(q, k, v, do, 3))
+  assert got == F32_PACKED_DIGESTS["bwd"], got
