@@ -7,7 +7,8 @@ Phases, each fatal on failure:
                (refused where ptxas serialised wgmma products for a
                divergent path, C7520), with its seconds and ptxas's
                registers, spills and notes of each attention kernel at
-               three and four 64-column tiles a head.
+               three and four 64-column tiles a head, and of the f32
+               attention kernels on 3xTF32 wgmma at N = 40 and 56.
   2. kernels   each kernel against its plain PyTorch version on the card,
                with its time, the plain version's, one library call's and
                the bound: the forwards K1, K3, K7 at the shapes of the
@@ -73,13 +74,16 @@ Phases, each fatal on failure:
                kernels; K5 also at 36 -> 150 (unpadded), K8 also at (128,
                65) and (8, 1,024), K6 also at head dim 12 (`heads=32` at
                384), 384 (`heads=2`) and on a tensor rank's 6 of 12 heads,
-               checked. K4 and K8 in f32 (3xTF32 on the tensor cores)
-               also against the float64 plain version at every shape
-               they are checked at: the run fails past 1e-5 of each
-               output's largest value (floored at 1e-2 of the largest of
-               the three); their entries carry that error, the plain f32
-               version's, and `bound_tf32x3_ms` (their five products 3x
-               over 495 TFLOP/s) beside the f32 FMA bound.
+               checked. K3, K4, K7 and K8 in f32 (on the TF32 tensor
+               cores) also against the float64 plain version at every
+               shape they are checked at: the run fails past 1e-5 of each
+               output's largest value (the backwards': floored at 1e-2 of
+               the largest of the three); their entries carry that error,
+               the plain f32 version's, and as `bound_ms` the bound of the
+               TF32 passes they take (a forward's scores six, its e V
+               three; a backward's five products three each) at 495
+               TFLOP/s, with the f32 FMA bound of the same products as
+               `bound_f32_fma_ms`.
   3. model     at full width (depth cut to 2 + 1), on the card (kernels)
                against the CPU (plain versions), same weights and inputs,
                under attn_impl "pallas" and "pallas_fused": the sampler's
@@ -382,7 +386,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12         # dense tensor-core bf16
 F32_FLOPS = 67e12           # f32 outside the tensor cores
-TF32_FLOPS = 495e12         # dense tensor-core TF32 (K4's, K8's f32 3xTF32)
+TF32_FLOPS = 495e12         # dense tensor-core TF32 (K3, K4, K7, K8 in f32)
+# TF32 passes of the f32 attention kernels, each 2 B H L^2 D operations:
+# the forwards' two products take nine (the scores six, e V three), the
+# backwards' five take three each (3xTF32).
+F32_FWD_PASSES, F32_BWD_PASSES = 9, 15
 
 BATCH = 64
 WIDTH, HEADS = 768, 12
@@ -543,9 +551,10 @@ def phase_build(build):
               f"spill stores {r['spill_stores']} B, loads "
               f"{r['spill_loads']} B, notes {r['notes'] or 'none'}",
               flush=True)
-  # K4's and K8's f32 backwards (3xTF32 on wgmma), an instance a key
-  # chunk width N: those of the training shapes (40 at L = 68, 56 at 164
-  # and 257).
+  # The f32 attention kernels on 3xTF32 wgmma (K3's and K7's forward,
+  # K4's and K8's backwards), an instance a key chunk width N: those of
+  # the training and sampler shapes (40 at L = 68, 56 at 164, 257 and
+  # 260).
   for stem in ("attention_packed_f32", "attention_unpacked_f32"):
     for name, r in build.ptxas_report(build.build_log(stem)).items():
       m = re.search(r"(attn_f32x3_[a-z]+_kernel)I.*?ELi(\d+)E", name)
@@ -705,7 +714,7 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
   head_dim = width // heads
   name = _named(attn.NAME, dtype)
   f32 = dtype == torch.float32
-  max_err, timing, by_len = 0.0, None, {}
+  max_err, timing, by_len, f64 = 0.0, None, {}, [0.0, 0.0]
   for b, seq in shapes or model_shapes(train_batch):
     q, k, v = (torch.randn(b, seq, width, generator=gen,
                            device="cuda").to(dtype)
@@ -717,11 +726,15 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
     if not torch.equal(got, again):
       fail(f"{name} B={b} L={seq} H={heads}: two launches differ")
     err = (got.float() - ref).abs()
+    exact = ""
     if f32:
       # f32 throughout: score and value sums over D and L in another
       # order, through exp2 of scores of a few units: 1e-4 of the largest
-      # output.
+      # output; and the 3xTF32 products within F64_TOL of float64.
       bad = (err > 1e-4 * ref.abs().max()).sum().item()
+      exact = _f64_forward(name, b, seq, heads, got, ref,
+                           attn.attention_packed_plain(
+                               *(t.double() for t in (q, k, v)), heads), f64)
     else:
       # Two bf16 ulps at unit magnitude (outputs are convex mixes of N(0,1)
       # values): the f32 score sums run in another order, which may round a
@@ -730,15 +743,16 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
     max_err = max(max_err, err.max().item())
     print(f"[kernels] {name} B={b} L={seq} H={heads}: max abs "
           f"err {err.max().item():.3e}, {bad} elements over tolerance, two "
-          "launches equal", flush=True)
+          f"launches equal{exact}", flush=True)
     if bad:
       fail(f"{name} disagrees with its plain version ({bad})")
     if (b, seq) == (BATCH, SEQ_DEC) or not timed:
       continue  # the decoder's sampler shape is checked, not timed
     split = lambda t: t.view(b, seq, heads, head_dim).transpose(1, 2)
-    bound_ms, bound_by = _bound(4 * b * seq * width * q.element_size(),
-                                4 * b * heads * seq * seq * head_dim,
-                                F32_FLOPS if f32 else BF16_FLOPS)
+    one_pass = 2 * b * heads * seq * seq * head_dim
+    bound_ms, bound_by, extra = _attn_bound(
+        4 * b * seq * width * q.element_size(), 2 * one_pass, f32,
+        F32_FWD_PASSES * one_pass)
     # 200 launches: at L=68 a launch takes 0.05 ms, and 50 of them read
     # two clock states apart from call to call.
     entry = dict(
@@ -750,7 +764,7 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 split(q), split(k), split(v)), iters=200),
         library_backend=sdpa_backend(split(q), split(k), split(v)),
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by, **extra)
     print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: {_fmt(entry)} (sdpa as library) on {card}",
           flush=True)
@@ -758,13 +772,14 @@ def check_attention(attn, card, width=WIDTH, heads=HEADS,
       timing = entry
     else:
       by_len[seq] = entry
+  exact = dict(f64_err=f64[0], plain_f64_err=f64[1]) if f32 else {}
   if not timed:
-    return dict(max_abs_err=max_err)
+    return dict(max_abs_err=max_err, **exact)
   if f32:
     return dict(name=name, route="cuda",
                 source="small_vision_tpu_torch/csrc/attention_packed_f32.cu",
                 replaces="small_vision_tpu/ops/attention.py:312",
-                max_abs_err=max_err, **timing, by_len=by_len)
+                max_abs_err=max_err, **exact, **timing, by_len=by_len)
   # Host time of one call at a shape the card finishes at once (one batch
   # element, 64 tokens): the wrapper's checks, the encoding of the three
   # tensor maps and the launch, best of 5 runs of 500 calls.
@@ -929,13 +944,30 @@ def _f64_errors(got, plain, exact):
   return rel(got), rel(plain)
 
 
-def _tf32x3_bound_ms(b, seq, width, heads):
-  """The least ms of an f32 backward whose five products run 3xTF32: q,
-  k, v, dO, dq, dk, dv once over 3.35 TB/s or three times 10 B H L^2 D
-  operations over 495 TFLOP/s, the larger."""
-  return _bound(7 * b * seq * width * 4,
-                3 * 5 * 2 * b * heads * seq * seq * (width // heads),
-                TF32_FLOPS)[0]
+def _attn_bound(bytes_moved, products, f32, tf32_ops):
+  """(bound_ms, bound_by, extra fields) of an attention kernel that moves
+  `bytes_moved` and whose products are `products` operations: in bf16 at
+  the bf16 tensor cores' peak; in f32 at the TF32 tensor cores' peak for
+  the `tf32_ops` operations of the TF32 passes it takes, with the f32 FMA
+  bound of the products beside it as `bound_f32_fma_ms`."""
+  if not f32:
+    return (*_bound(bytes_moved, products, BF16_FLOPS), {})
+  return (*_bound(bytes_moved, tf32_ops, TF32_FLOPS),
+          {"bound_f32_fma_ms": _bound(bytes_moved, products, F32_FLOPS)[0]})
+
+
+def _f64_forward(name, b, seq, heads, got, ref, exact, f64):
+  """Holds an f32 forward (K3's, K7's: 3xTF32) against the float64 plain
+  version's output `exact`, within F64_TOL of its largest value (the plain
+  f32 version `ref` beside it); f64 keeps the worst [kernel, plain] so
+  far. Returns the text of the reading."""
+  errs = _f64_errors([got], [ref], [exact])
+  f64[:] = [max(a, e) for a, e in zip(f64, errs)]
+  if errs[0] > F64_TOL:
+    fail(f"{name} B={b} L={seq} H={heads} is {errs[0]:.3e} off the f64 "
+         "plain version")
+  return (f"; against f64 {errs[0]:.3e} of the output's largest (the plain "
+          f"f32 version {errs[1]:.3e}; tolerance {F64_TOL})")
 
 
 def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
@@ -995,9 +1027,10 @@ def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
     qs, ks, vs = (split(t).detach().requires_grad_() for t in (q, k, v))
     o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
     dos = split(do)
-    bound_ms, bound_by = _bound(7 * b * seq * width * q.element_size(),
-                                5 * 2 * b * heads * seq * seq * head_dim,
-                                F32_FLOPS if f32 else BF16_FLOPS)
+    one_pass = 2 * b * heads * seq * seq * head_dim
+    bound_ms, bound_by, extra = _attn_bound(
+        7 * b * seq * width * q.element_size(), 5 * one_pass, f32,
+        F32_BWD_PASSES * one_pass)
     by_len[seq] = dict(
         ms=time_ms(lambda: attn.attention_packed_bwd(q, k, v, do, heads)),
         plain_ms=time_ms(lambda: attn.attention_packed_bwd_plain(
@@ -1005,9 +1038,7 @@ def check_attention_bwd(attn, card, width=WIDTH, heads=HEADS,
         library_ms=time_ms(lambda: torch.autograd.grad(
             o, (qs, ks, vs), dos, retain_graph=True)),
         library_backend=sdpa_backend(qs, ks, vs),
-        bound_ms=bound_ms, bound_by=bound_by)
-    if f32:
-      by_len[seq]["bound_tf32x3_ms"] = _tf32x3_bound_ms(b, seq, width, heads)
+        bound_ms=bound_ms, bound_by=bound_by, **extra)
     print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: " + ", ".join(
               f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
@@ -1255,7 +1286,7 @@ def check_attention_unpacked(attn, card, width=WIDTH, heads=HEADS,
   head_dim = width // heads
   f32 = dtype == torch.float32
   name = _named(attn.UNPACKED_NAME, dtype)
-  max_err, by_shape = 0.0, {}
+  max_err, by_shape, f64 = 0.0, {}, [0.0, 0.0]
   max_len = (attn._unpacked_f32_lib()[1] if f32
              else attn._unpacked_lib()[1](head_dim))
   for b, seq in shapes:
@@ -1269,10 +1300,14 @@ def check_attention_unpacked(attn, card, width=WIDTH, heads=HEADS,
     if not torch.equal(got, again):
       fail(f"{name} B={b} L={seq}: two launches differ")
     err = (got.float() - ref).abs()
+    exact = ""
     if f32:
       # f32 throughout, the max-shift softmax on both sides; score and
-      # value sums in another order: 1e-5 of the largest output.
+      # value sums in another order: 1e-5 of the largest output; and the
+      # 3xTF32 products within F64_TOL of float64.
       bad = (err > 1e-5 * ref.abs().max()).sum().item()
+      exact = _f64_forward(name, b, seq, heads, got, ref, attn.attention_plain(
+          *(t.double() for t in (q, k, v))), f64)
     else:
       # Two bf16 ulps at unit magnitude (outputs are convex mixes of N(0,1)
       # values): the f32 score sums run in another order, which may round
@@ -1281,7 +1316,7 @@ def check_attention_unpacked(attn, card, width=WIDTH, heads=HEADS,
     max_err = max(max_err, err.max().item())
     print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: max abs err {err.max().item():.3e}, {bad} elements "
-          f"over tolerance, two launches equal; L up to {max_len}",
+          f"over tolerance, two launches equal; L up to {max_len}{exact}",
           flush=True)
     if bad:
       fail(f"{name} disagrees with its plain version ({bad})")
@@ -1289,9 +1324,10 @@ def check_attention_unpacked(attn, card, width=WIDTH, heads=HEADS,
       continue
     heads_first = lambda t: t.transpose(1, 2)
     bytes_moved = 4 * b * seq * width * q.element_size()
-    flops = 4 * b * heads * seq * seq * head_dim
-    bound_ms, bound_by = _bound(bytes_moved, flops,
-                                F32_FLOPS if f32 else BF16_FLOPS)
+    one_pass = 2 * b * heads * seq * seq * head_dim
+    flops = 2 * one_pass
+    bound_ms, bound_by, extra = _attn_bound(bytes_moved, flops, f32,
+                                            F32_FWD_PASSES * one_pass)
     by_shape[f"{b}x{seq}"] = dict(
         ms=time_ms(lambda: attn.attention_unpacked_fwd(q, k, v)),
         plain_ms=time_ms(lambda: attn.attention_plain(q, k, v), iters=10),
@@ -1300,16 +1336,17 @@ def check_attention_unpacked(attn, card, width=WIDTH, heads=HEADS,
                 heads_first(q), heads_first(k), heads_first(v))),
         library_backend=sdpa_backend(heads_first(q), heads_first(k),
                                      heads_first(v)),
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by, **extra)
     print(f"[kernels] {name} B={b} L={seq} H={heads} "
           f"D={head_dim}: {_fmt(by_shape[f'{b}x{seq}'])} ({bytes_moved} "
           f"bytes, {flops} flops) on {card}", flush=True)
+  exact = dict(f64_err=f64[0], plain_f64_err=f64[1]) if f32 else {}
   return dict(name=name, route="cuda",
               source=("small_vision_tpu_torch/csrc/attention_unpacked_f32.cu"
                       if f32 else
                       "small_vision_tpu_torch/csrc/attention_unpacked.cu"),
               replaces="small_vision_tpu/ops/attention.py:79",
-              max_abs_err=max_err, max_len=max_len,
+              max_abs_err=max_err, max_len=max_len, **exact,
               **by_shape.get(f"{BATCH}x{SEQ_ENC}", {}),
               **({"by_shape": by_shape} if timed else {}))
 
@@ -1382,9 +1419,10 @@ def check_attention_unpacked_bwd(attn, card, width=WIDTH, heads=HEADS,
                   for t in (q, k, v))
     o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
     dos = do.transpose(1, 2)
-    bound_ms, bound_by = _bound(7 * b * seq * width * q.element_size(),
-                                5 * 2 * b * heads * seq * seq * head_dim,
-                                F32_FLOPS if f32 else BF16_FLOPS)
+    one_pass = 2 * b * heads * seq * seq * head_dim
+    bound_ms, bound_by, extra = _attn_bound(
+        7 * b * seq * width * q.element_size(), 5 * one_pass, f32,
+        F32_BWD_PASSES * one_pass)
     by_len[seq] = dict(
         ms=time_ms(lambda: attn.attention_unpacked_bwd(q, k, v, do)),
         plain_ms=time_ms(lambda: attn.attention_bwd_plain(q, k, v, do),
@@ -1392,9 +1430,7 @@ def check_attention_unpacked_bwd(attn, card, width=WIDTH, heads=HEADS,
         library_ms=time_ms(lambda: torch.autograd.grad(
             o, (qs, ks, vs), dos, retain_graph=True)),
         library_backend=sdpa_backend(qs, ks, vs),
-        bound_ms=bound_ms, bound_by=bound_by)
-    if f32:
-      by_len[seq]["bound_tf32x3_ms"] = _tf32x3_bound_ms(b, seq, width, heads)
+        bound_ms=bound_ms, bound_by=bound_by, **extra)
     # The kernels of one call, each timed alone, in order (each reads the
     # statistics an earlier one wrote in its warm-up).
     stages = attn.attention_unpacked_bwd_stages(q, k, v, do)

@@ -16,30 +16,32 @@
 //   dP = dO v^T; c = rowsum(dP e) r; dS = e (dP - c)
 //   dQ = (dS k) r scale; dK = dS^T (q r scale)
 //
-// Bound on this card: operations. A score product and a value product are
-// 4 B H L^2 D operations (13.3 GFLOP at the sampler's (64, 260), 768 wide:
-// 0.20 ms at 67 TFLOP/s of f32 FMA) against 16 B H L D bytes. The
-// backward's five products are 10 B H L^2 D, on the TF32 tensor cores three
-// times that (0.39 ms at (128, 257) at 495 TFLOP/s).
+// Bound on this card: operations. The forward's two products are 4 B H
+// L^2 D operations, taken as nine TF32 passes of 2 B H L^2 D on the tensor
+// cores (the scores six, e V three), the backward's five 10 B H L^2 D,
+// three passes each (3xTF32): 0.121 ms for the forward at the sampler's
+// (64, 260), 768 wide, and 0.39 ms for the backward at (128, 257), at 495
+// TFLOP/s.
 //
-// Design: the forward is simt_f32_attention.cuh (plain f32 FMA on 64-row
-// tiles, D in chunks of 32) under its `ClampExp2` policy; the clamp bounds
-// e, so it needs no max and no rescaling pass. The backward is
-// sm90_f32x3_attention_bwd.cuh under the same policy: three kernels (row
-// statistics, dQ, dK with dV), every product in three TF32 passes on
-// wgmma (3xTF32, as accurate as f32 FMA), every sum in a fixed order.
+// Design: the forward is sm90_f32x3_attention.cuh under the `ClampExp2`
+// policy (the clamp bounds e, so it needs no max and no rescaling), the
+// backward sm90_f32x3_attention_bwd.cuh under the same policy (three
+// kernels: row statistics, dQ, dK with dV). Both take their products on
+// wgmma in TF32 passes (the backward's and the forward's e V 3xTF32, the
+// forward's scores finer) and every sum in a fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "simt_f32_attention.cuh"
+#include "sm90_f32x3.cuh"
+#include "sm90_f32x3_attention.cuh"
 #include "sm90_f32x3_attention_bwd.cuh"
 
 // Longest sequence and widest head the f32 kernels take (every length and
 // head dim from 1 up to them).
-extern "C" int attention_packed_f32_max_len() { return simt_f32::kMaxLen; }
+extern "C" int attention_packed_f32_max_len() { return f32x3::kMaxLen; }
 extern "C" int attention_packed_f32_max_head_dim() {
-  return simt_f32::kMaxHeadDim;
+  return f32x3::kMaxHeadDim;
 }
 
 // K3 in f32. q, k, v, o: (B, L, H*D) f32, contiguous. scale2: D**-0.5 *
@@ -49,11 +51,10 @@ extern "C" int attention_packed_f32_fwd(const void* q, const void* k,
                                         const void* v, void* o, int batch,
                                         int len, int heads, int d,
                                         float scale2, void* stream) {
-  return simt_f32::attn_f32_forward<simt_f32::ClampExp2>(
+  return f32x3::attn_forward<f32x3::ClampExp2>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), batch, len,
-      heads, d, heads * d, heads * d, scale2,
-      static_cast<cudaStream_t>(stream));
+      heads, d, scale2, static_cast<cudaStream_t>(stream));
 }
 
 // K4 in f32: three kernels on `stream`, the row statistics (into r and c,
@@ -67,7 +68,7 @@ extern "C" int attention_packed_f32_bwd(const void* q, const void* k,
                                         void* r, void* c, int batch, int len,
                                         int heads, int d, float scale2,
                                         float scale, void* stream) {
-  return f32x3::attn_backward<simt_f32::ClampExp2>(
+  return f32x3::attn_backward<f32x3::ClampExp2>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<float*>(dq), static_cast<float*>(dk),

@@ -19,28 +19,31 @@
 // memory, so the kernels read heads in place.
 //
 // Bound on this card: operations. A forward's two products are 4 B H L^2 D
-// operations (13.3 GFLOP at (64, 260) with 12 heads of 64: 0.20 ms at 67
-// TFLOP/s of f32 FMA), a backward's five products 10 B H L^2 D, on the
-// TF32 tensor cores three times that (0.39 ms at (128, 257) at 495
-// TFLOP/s).
+// operations, taken as nine TF32 passes of 2 B H L^2 D on the tensor
+// cores (the scores six, e V three), a backward's five 10 B H L^2 D, three
+// passes each (3xTF32): 0.121 ms for the forward at (64, 260) with 12
+// heads of 64, 0.39 ms for the backward at (128, 257), at 495 TFLOP/s.
 //
-// Design: the forward is simt_f32_attention.cuh under its `MaxShift`
-// policy: a running row max and rescaled sums (online softmax), in a fixed
-// order. The backward is sm90_f32x3_attention_bwd.cuh under the same
-// policy (K4 f32's three kernels, 3xTF32 products on wgmma), with the
-// max-shift statistics m and r (and c) from the first.
+// Design: the forward is sm90_f32x3_attention.cuh under the `MaxShift`
+// policy (a running row max, the sums rescaled: online softmax; the
+// scores a pair finer than f32, so t - m is rounded once, near 0, where
+// a key nears the max), the backward sm90_f32x3_attention_bwd.cuh under
+// the same policy (K4 f32's three kernels), with the max-shift
+// statistics m and r (and c) from the first. Both take their products
+// on wgmma in TF32 passes and every sum in a fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "simt_f32_attention.cuh"
+#include "sm90_f32x3.cuh"
+#include "sm90_f32x3_attention.cuh"
 #include "sm90_f32x3_attention_bwd.cuh"
 
 // Longest sequence and widest head the f32 kernels take (every length and
 // head dim from 1 up to them).
-extern "C" int attention_unpacked_f32_max_len() { return simt_f32::kMaxLen; }
+extern "C" int attention_unpacked_f32_max_len() { return f32x3::kMaxLen; }
 extern "C" int attention_unpacked_f32_max_head_dim() {
-  return simt_f32::kMaxHeadDim;
+  return f32x3::kMaxHeadDim;
 }
 
 // K7 in f32. q, k, v, o: [B, L, H, D] f32, contiguous. scale2: D**-0.5 *
@@ -50,11 +53,10 @@ extern "C" int attention_unpacked_f32_fwd(const void* q, const void* k,
                                           const void* v, void* o, int batch,
                                           int len, int heads, int d,
                                           float scale2, void* stream) {
-  return simt_f32::attn_f32_forward<simt_f32::MaxShift>(
+  return f32x3::attn_forward<f32x3::MaxShift>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), batch, len,
-      heads, d, heads * d, heads * d, scale2,
-      static_cast<cudaStream_t>(stream));
+      heads, d, scale2, static_cast<cudaStream_t>(stream));
 }
 
 // K8 in f32: three kernels on `stream` (or the one `stage` names: 0 the row
@@ -68,7 +70,7 @@ extern "C" int attention_unpacked_f32_bwd_stage(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, void* m, void* r, void* c, int batch, int len,
     int heads, int d, float scale2, float scale, int stage, void* stream) {
-  return f32x3::attn_backward<simt_f32::MaxShift>(
+  return f32x3::attn_backward<f32x3::MaxShift>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<float*>(dq), static_cast<float*>(dk),

@@ -21,7 +21,7 @@
 // Design: three launches, as the bf16 K6: (a) the q, k, v projections, one
 // launch of simt_f32_gemm.cuh's SIMT GEMM over three weights (gridDim.z)
 // into one (B, L, 3 H*D) buffer, q, k and v side by side; (b) the
-// attention of simt_f32_attention.cuh under its `MaxShift` policy (online
+// attention of simt_f32_attention.cuh under the `MaxShift` policy (online
 // softmax, D in chunks of 32, every head dim from 1 to 2,048, L up to
 // 4,096), reading q, k and v in place at their row stride 3 H*D, into the
 // (B, L, H*D) head outputs; (c) the out-projection, the same GEMM. The
@@ -33,13 +33,14 @@
 
 #include "simt_f32_attention.cuh"
 #include "simt_f32_gemm.cuh"
+#include "sm90_f32x3.cuh"
 
 using simt_f32::Epilogue;
 
 // Longest sequence and widest head the attention takes (every length and
 // head dim from 1 up to them).
-extern "C" int fused_mha_f32_max_len() { return simt_f32::kMaxLen; }
-extern "C" int fused_mha_f32_max_head_dim() { return simt_f32::kMaxHeadDim; }
+extern "C" int fused_mha_f32_max_len() { return f32x3::kMaxLen; }
+extern "C" int fused_mha_f32_max_head_dim() { return f32x3::kMaxHeadDim; }
 
 // (a) and (c): c (m, num_w * n) = [a w_i + b_i for i < num_w] side by side;
 // a (m, k), each w_i (k, n), b_i (n,); f32, contiguous; num_w 1 to 3
@@ -56,7 +57,7 @@ extern "C" int fused_mha_f32_proj(const void* a, const void* w0,
                       static_cast<const float*>(b1),
                       static_cast<const float*>(b2)};
   if (num_w < 1 || num_w > 3) return static_cast<int>(cudaErrorInvalidValue);
-  return simt_f32::gemm_f32<Epilogue::kBias>(
+  return simt_f32::gemm_f32<Epilogue::kBias, simt_f32::FusedMha>(
       static_cast<const float*>(a), k, w, b, num_w, static_cast<float*>(c),
       num_w * n, n, m, n, k, static_cast<cudaStream_t>(stream));
 }
@@ -69,7 +70,7 @@ extern "C" int fused_mha_f32_attention(const void* qkv, void* heads,
                                        void* stream) {
   const int hd = num_heads * head_dim;
   const float* q = static_cast<const float*>(qkv);
-  return simt_f32::attn_f32_forward<simt_f32::MaxShift>(
+  return simt_f32::attn_f32_forward<f32x3::MaxShift>(
       q, q + hd, q + 2 * hd, static_cast<float*>(heads), batch, seq_len,
       num_heads, head_dim, 3 * hd, hd, scale2,
       static_cast<cudaStream_t>(stream));
@@ -88,7 +89,7 @@ extern "C" int fused_mha_f32_fwd(const void* x, const void* wq,
                                  void* o, int batch, int seq_len, int width,
                                  int num_heads, int head_dim, float scale2,
                                  void* stream) {
-  if (!simt_f32::attn_takes(batch, seq_len, num_heads, head_dim)) {
+  if (!f32x3::attn_takes(batch, seq_len, num_heads, head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rows = batch * seq_len, hd = num_heads * head_dim;

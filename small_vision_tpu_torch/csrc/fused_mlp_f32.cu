@@ -38,7 +38,7 @@ extern "C" int fused_mlp_f32_up(const void* x, const void* w1,
                                 int hidden, void* stream) {
   const float* w[] = {static_cast<const float*>(w1)};
   const float* b[] = {static_cast<const float*>(b1)};
-  return simt_f32::gemm_f32<Epilogue::kBiasGeluTanh>(
+  return simt_f32::gemm_f32<Epilogue::kBiasGeluTanh, simt_f32::FusedMlp>(
       static_cast<const float*>(x), width, w, b, 1, static_cast<float*>(h),
       hidden, 0, rows, hidden, width, static_cast<cudaStream_t>(stream));
 }
@@ -49,7 +49,7 @@ extern "C" int fused_mlp_f32_down(const void* h, const void* w2,
                                   int width, int hidden, void* stream) {
   const float* w[] = {static_cast<const float*>(w2)};
   const float* b[] = {static_cast<const float*>(b2)};
-  return simt_f32::gemm_f32<Epilogue::kBias>(
+  return simt_f32::gemm_f32<Epilogue::kBias, simt_f32::FusedMlp>(
       static_cast<const float*>(h), hidden, w, b, 1, static_cast<float*>(y),
       width, 0, rows, width, hidden, static_cast<cudaStream_t>(stream));
 }

@@ -1,13 +1,11 @@
-// Attention in plain f32 on the CUDA cores (SIMT FMA), the forward,
-// under a compile-time softmax policy: K3's f32 instance
-// (attention_packed_f32.cu) under `ClampExp2`, K6's attention stage
-// (fused_mha_f32.cu) and K7 (attention_unpacked_f32.cu) under `MaxShift`.
-// The f32 backwards (K4's and K8's instances) run on the TF32 tensor cores
-// in sm90_f32x3_attention_bwd.cuh, under the same policies. On rows of
-// heads (B, L, H*D) (or [B, L, H, D], the same memory), per batch row and
-// head, with scale2 = D**-0.5 log2(e):
+// Attention in plain f32 on the CUDA cores (SIMT FMA), the forward under
+// a compile-time softmax policy (sm90_f32x3.cuh's): K6's f32 attention
+// stage (fused_mha_f32.cu) under `MaxShift`, the one kernel that still
+// launches it. K3's and K7's f32 forwards (sm90_f32x3_attention.cuh) and
+// K4's and K8's f32 backwards (sm90_f32x3_attention_bwd.cuh) run on the
+// TF32 tensor cores, under the same policies. On rows of heads (B, L,
+// H*D), per batch row and head, with scale2 = D**-0.5 log2(e):
 //   t = (q k^T) scale2
-//   ClampExp2: e = exp2(clamp(t, -80, 80))       (no max: the clamp bounds e)
 //   MaxShift:  e = exp2(t - m), m = the row max of t over the valid keys
 //   e = 0 for keys past L; o = (e v) / rowsum(e)
 //
@@ -38,38 +36,19 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "sm90_f32x3.cuh"
+
 namespace simt_f32 {
 
 constexpr int kTile = 64;    // query or key rows of a tile
 constexpr int kChunk = 32;   // depth of a staged chunk of a score product
 constexpr int kCols = 64;    // output columns of a CTA
 constexpr int kThreads = 256;
-constexpr int kMaxLen = 4096;
-constexpr int kMaxHeadDim = 2048;
-constexpr float kClamp = 80.f;
 
 constexpr int kChunkStride = kChunk + 1;  // shared rows, padded
 constexpr int kTileStride = kTile + 1;
 constexpr int kChunkFloats = kTile * kChunkStride;
 constexpr int kTileFloats = kTile * kTileStride;
-
-// The clamped exp2 softmax of the packed TPU kernels (K3, K4): no max.
-struct ClampExp2 {
-  static constexpr bool kShift = false;
-  static __device__ __forceinline__ float e(float s, float scale2, float) {
-    return exp2f(fminf(fmaxf(s * scale2, -kClamp), kClamp));
-  }
-};
-
-// The max-shift softmax (K6, K7, K8): exp2 of the log2(e)-scaled scores
-// less their row max m.
-struct MaxShift {
-  static constexpr bool kShift = true;
-  static __device__ __forceinline__ float e(float s, float scale2,
-                                            float m) {
-    return exp2f(s * scale2 - m);
-  }
-};
 
 // rows [row0, row0 + 64) x columns [col0, col0 + kChunk) of a head whose
 // rows are `stride` floats apart (zeros past L and past D) into dst
@@ -89,80 +68,53 @@ __device__ __forceinline__ void load_chunk(float* dst, const float* src,
 }
 
 // rows [row0, row0 + 64) x columns [col0, col0 + 64) (zeros past L and D)
-// into dst [64][kTileStride], each row times `row_scale[r]` where given.
+// into dst [64][kTileStride].
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int row0, int len, int stride,
-                                          int col0, int d,
-                                          const float* row_scale) {
+                                          int col0, int d) {
 #pragma unroll
   for (int it = 0; it < kTile * kCols / kThreads; ++it) {
     const int idx = threadIdx.x + it * kThreads;
     const int r = idx / kCols, c = idx % kCols;
     const int row = row0 + r, col = col0 + c;
-    float v = row < len && col < d
-                  ? src[static_cast<size_t>(row) * stride + col]
-                  : 0.f;
-    if (row_scale != nullptr) v *= row_scale[r];
-    dst[r * kTileStride + c] = v;
+    dst[r * kTileStride + c] =
+        row < len && col < d ? src[static_cast<size_t>(row) * stride + col]
+                             : 0.f;
   }
 }
 
-// acc0[i][j] = sum over the head's d columns of a0[arow0 + ty + 16 i] .
-// b0[brow0 + tx + 16 j] (and acc1 of a1, b1 where kTwo), summed column by
-// column in order. stage: 2 (or 4) chunks of kChunkFloats. Starts and ends
-// with a block barrier, so the caller may reuse `stage` on either side.
-template <bool kTwo>
-__device__ __forceinline__ void score_tiles(
-    const float* a0, const float* b0, const float* a1, const float* b1,
-    int arow0, int brow0, int len, int stride, int d, float* stage,
-    float (&acc0)[4][4], float (&acc1)[4][4]) {
+// acc[i][j] = sum over the head's d columns of a[arow0 + ty + 16 i] .
+// b[brow0 + tx + 16 j], summed column by column in order. stage: 2 chunks
+// of kChunkFloats. Starts and ends with a block barrier, so the caller may
+// reuse `stage` on either side.
+__device__ __forceinline__ void score_tiles(const float* a, const float* b,
+                                            int arow0, int brow0, int len,
+                                            int stride, int d, float* stage,
+                                            float (&acc)[4][4]) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc0[i][j] = acc1[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   }
-  float* sa0 = stage;
-  float* sb0 = stage + kChunkFloats;
-  float* sa1 = stage + 2 * kChunkFloats;
-  float* sb1 = stage + 3 * kChunkFloats;
+  float* sa = stage;
+  float* sb = stage + kChunkFloats;
   for (int c0 = 0; c0 < d; c0 += kChunk) {
     __syncthreads();
-    load_chunk(sa0, a0, arow0, len, stride, c0, d);
-    load_chunk(sb0, b0, brow0, len, stride, c0, d);
-    if (kTwo) {
-      load_chunk(sa1, a1, arow0, len, stride, c0, d);
-      load_chunk(sb1, b1, brow0, len, stride, c0, d);
-    }
+    load_chunk(sa, a, arow0, len, stride, c0, d);
+    load_chunk(sb, b, brow0, len, stride, c0, d);
     __syncthreads();
     const int cols = min(kChunk, d - c0);
     for (int c = 0; c < cols; ++c) {
-      float a[4], b[4];
+      float av[4], bv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sa0[(ty + 16 * i) * kChunkStride + c];
+      for (int i = 0; i < 4; ++i) av[i] = sa[(ty + 16 * i) * kChunkStride + c];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sb0[(tx + 16 * j) * kChunkStride + c];
+      for (int j = 0; j < 4; ++j) bv[j] = sb[(tx + 16 * j) * kChunkStride + c];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc0[i][j] = fmaf(a[i], b[j], acc0[i][j]);
-      }
-      if (kTwo) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = sa1[(ty + 16 * i) * kChunkStride + c];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          b[j] = sb1[(tx + 16 * j) * kChunkStride + c];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc1[i][j] = fmaf(a[i], b[j], acc1[i][j]);
-          }
-        }
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
     }
   }
@@ -208,16 +160,14 @@ __device__ __forceinline__ float row_max16(float v) {
 }
 
 // MaxShift's running statistics of a thread's 4 rows over one key tile:
-// the new row max of t = s scale2 over the tile's valid keys; the sums
-// kept so far (`sums`, each of `n` per row) and `out` (may be null) are
-// rescaled to it. A tile holds at least one valid key, so the max is
-// finite after the first one (whose rescale factor is exp2(-inf) = 0).
-template <int kN>
+// the new row max of t = s scale2 over the tile's valid keys; the row sums
+// kept so far and `out` are rescaled to it. A tile holds at least one
+// valid key, so the max is finite after the first one (whose rescale
+// factor is exp2(-inf) = 0).
 __device__ __forceinline__ void shift_rows(const float (&s)[4][4],
                                            float scale2, int k0, int len,
-                                           float (&m)[4],
-                                           float (&sums)[kN][4],
-                                           float (*out)[4]) {
+                                           float (&m)[4], float (&sum)[4],
+                                           float (&out)[4][4]) {
   const int tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -229,12 +179,9 @@ __device__ __forceinline__ void shift_rows(const float (&s)[4][4],
     const float m_new = fmaxf(m[i], row_max16(mt));
     const float alpha = exp2f(m[i] - m_new);
     m[i] = m_new;
+    sum[i] *= alpha;
 #pragma unroll
-    for (int n = 0; n < kN; ++n) sums[n][i] *= alpha;
-    if (out != nullptr) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][j] *= alpha;
-    }
+    for (int j = 0; j < 4; ++j) out[i][j] *= alpha;
   }
 }
 
@@ -245,7 +192,9 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
                     int len, int heads, int d, int in_stride, int out_stride,
                     float scale2) {
-  __shared__ __align__(16) float smem[4 * kChunkFloats];
+  // score_tiles' two chunks, then e and V.
+  static_assert(2 * kChunkFloats <= 2 * kTileFloats, "the stage");
+  __shared__ __align__(16) float smem[2 * kTileFloats];
   float* e_tile = smem;                  // [64][65], over the chunks
   float* v_tile = smem + kTileFloats;    // [64][65]
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -259,18 +208,17 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       static_cast<size_t>(blockIdx.z) * len * out_stride +
       static_cast<size_t>(h) * d;
 
-  float acc[4][4], unused[4][4], out[4][4], sum[1][4], m[4];
+  float acc[4][4], out[4][4], sum[4], m[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    sum[0][i] = 0.f;
+    sum[i] = 0.f;
     m[i] = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
   }
   for (int k0 = 0; k0 < len; k0 += kTile) {
-    score_tiles<false>(q + base, k + base, nullptr, nullptr, q0, k0, len,
-                       in_stride, d, smem, acc, unused);
-    if (P::kShift) shift_rows<1>(acc, scale2, k0, len, m, sum, out);
+    score_tiles(q + base, k + base, q0, k0, len, in_stride, d, smem, acc);
+    if (P::kShift) shift_rows(acc, scale2, k0, len, m, sum, out);
     // The stage is free (score_tiles ends at a barrier): e and V there.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -282,9 +230,9 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         e_tile[(ty + 16 * i) * kTileStride + tx + 16 * j] = e;
         part += e;
       }
-      sum[0][i] += row_sum16(part);
+      sum[i] += row_sum16(part);
     }
-    load_tile(v_tile, v + base, k0, len, in_stride, col0, d, nullptr);
+    load_tile(v_tile, v + base, k0, len, in_stride, col0, d);
     __syncthreads();
     tile_product(e_tile, v_tile, out);
   }
@@ -297,16 +245,10 @@ attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int col = col0 + tx + 16 * j;
       if (col < d) {
         o[out_base + static_cast<size_t>(row) * out_stride + col] =
-            out[i][j] / sum[0][i];
+            out[i][j] / sum[i];
       }
     }
   }
-}
-
-inline bool attn_takes(int batch, int len, int heads, int d) {
-  return batch >= 1 && batch <= 65535 && len >= 1 && len <= kMaxLen &&
-         heads >= 1 && d >= 1 && d <= kMaxHeadDim &&
-         static_cast<long long>(heads) * ((d + kCols - 1) / kCols) <= 65535;
 }
 
 // The forward on `stream`. Returns cudaGetLastError(), or
@@ -316,7 +258,7 @@ int attn_f32_forward(const float* q, const float* k, const float* v,
                      float* o, int batch, int len, int heads, int d,
                      int in_stride, int out_stride, float scale2,
                      cudaStream_t stream) {
-  if (!attn_takes(batch, len, heads, d) || in_stride < heads * d ||
+  if (!f32x3::attn_takes(batch, len, heads, d) || in_stride < heads * d ||
       out_stride < heads * d) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

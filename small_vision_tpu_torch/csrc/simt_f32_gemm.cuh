@@ -46,6 +46,12 @@ constexpr int kGemmMaxW = 3;
 
 enum class Epilogue { kBias, kBiasGeluTanh };
 
+// The callers' tags: K5's launches (fused_mlp_f32.cu) and K6's
+// (fused_mha_f32.cu) instantiate the kernel under names of their own, so
+// that a profiler's trace tells them apart; the code is the same.
+struct FusedMlp {};
+struct FusedMha {};
+
 // F.gelu(x, approximate="tanh") (flax's default gelu), in f32:
 // 0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3))).
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -82,7 +88,7 @@ __device__ __forceinline__ void load4(const float* p, int col, int limit,
   for (int j = 0; j < 4; ++j) out[j] = col + j < limit ? p[j] : 0.f;
 }
 
-template <Epilogue kEpi>
+template <Epilogue kEpi, class Caller>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 gemm_f32_kernel(const GemmArgs p) {
   __shared__ __align__(16) float as[2][kGemmDepth][kGemmAStride];
@@ -193,7 +199,7 @@ inline bool aligned16(const void* ptr) {
 // Launches the GEMM on `stream`: w and bias hold num_w (1 to 3) pointers.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape it does
 // not take.
-template <Epilogue kEpi>
+template <Epilogue kEpi, class Caller>
 int gemm_f32(const float* a, int lda, const float* const* w,
              const float* const* bias, int num_w, float* c, int ldc,
              int c_step, int m, int n, int k, cudaStream_t stream) {
@@ -222,7 +228,7 @@ int gemm_f32(const float* a, int lda, const float* const* w,
   }
   const dim3 grid((n + kGemmTile - 1) / kGemmTile,
                   static_cast<unsigned>(m_tiles), num_w);
-  gemm_f32_kernel<kEpi><<<grid, kGemmThreads, 0, stream>>>(p);
+  gemm_f32_kernel<kEpi, Caller><<<grid, kGemmThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

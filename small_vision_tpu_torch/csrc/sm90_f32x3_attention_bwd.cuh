@@ -1,7 +1,7 @@
 // The f32 attention backwards for Hopper (sm_90a), their products on the
 // TF32 tensor cores in three passes (3xTF32): K4's f32 instance
-// (attention_packed_f32.cu) under simt_f32's `ClampExp2` policy and K8's
-// (attention_unpacked_f32.cu) under `MaxShift`.
+// (attention_packed_f32.cu) under the `ClampExp2` policy and K8's
+// (attention_unpacked_f32.cu) under `MaxShift` (sm90_f32x3.cuh).
 //
 // Replaces, for f32 inputs: small_vision_tpu/ops/attention.py::
 // _pallas_attention_packed_bwd_impl (`_attn_bwd_kernel_packed`) and
@@ -14,19 +14,8 @@
 //   dP = dO v^T; c = rowsum(dP e) r; dS = e (dP - c)
 //   dQ = (dS k) r scale; dK = dS^T (q r scale)
 //
-// 3xTF32. Each operand x is split into hi = tf32(x) (10 mantissa bits, to
-// nearest, ties away from zero, as cvt.rna.tf32.f32 rounds) and lo =
-// tf32(x - hi), and a product is a_lo b_hi + a_hi b_lo + a_hi b_hi (the
-// small terms first), three wgmma.m64nNk8.f32.tf32.tf32 into one f32
-// accumulator: hi + lo is x to within 2^-22 of it and the dropped a_lo
-// b_lo is 2^-22 of the product, so the result is as close to the exact
-// one as an f32 FMA sum (one TF32 pass keeps about three decimal digits).
-// The tensor core adds into its accumulator with its own rounding, whose
-// error grows with the number of products it adds (a score summed over D =
-// 768 in one accumulator came out further from float64 than f32 FMA's),
-// so no accumulator runs long: each 32-column chunk of D, and each key or
-// query chunk of the products over L, is summed in a fresh accumulator
-// and added to the running f32 sum with an ordinary add.
+// The 3xTF32 products, their accumulators and the staging by cp.async are
+// sm90_f32x3.cuh's (shared with the forward, sm90_f32x3_attention.cuh).
 //
 // Bound on this card: operations. The five products the backward needs
 // are 10 B H L^2 D operations, 3x that on the TF32 tensor cores: 0.39 ms
@@ -54,29 +43,20 @@
 //      (dS^T r scale) Q.
 // A CTA is one warpgroup, two CTAs an SM, and walks a fixed sequence of
 // steps: per key (query) chunk, a score step for each 32-column chunk of
-// D, then one (a) or two (b) product steps. A step's operands arrive as
-// raw f32 rows by cp.async (16-byte copies where D and the pointers allow
-// them, 4-byte ones elsewhere; zero-filled past L and D, so D rounds up to
-// a k8 step with no padded copy) into a 32 KB landing area; the threads
-// split them into K-major tf32 tiles of 32 floats a row with the 128-byte
-// swizzle (sm90.cuh's descriptors; a k8 step is 32 bytes, as bf16's k16),
-// issue the next step's copies, and then run the step's wgmma, so each
-// step's global reads are in flight behind the previous step's products.
-// TMA is not used: it copies bytes and cannot split them, and its 16-byte
-// strides refuse rows of H D floats that are not a multiple of 4, which
-// these kernels take. TF32 wgmma reads K-major operands only, so the
-// operands whose contraction runs along L (K for dQ, dO for dV, Q for dK)
-// are split transposed from their landed rows, and the score-side A
-// operands (dS, p^T, dS^T) go from the accumulators through shared memory,
-// split. Key and query chunks are N = the length split into as few chunks
-// of at most 64 as it takes, evened out and rounded up to 8 (wgmma's N
-// takes any multiple of 8): 40 at L = 68, 56 at 164 and 257, so a short
-// length computes few rows past L. Shared memory: the score steps' four
-// split tiles (16 KB each) and the product steps' A and B operands (32 KB
-// each) share 64 KB, beside the 32 KB landing area and 1 KB of query
-// statistics. A producer warpgroup filling a ring of stages through
-// mbarriers was measured slower here: its consumer warpgroup spilled and
-// ran the softmax between its own products, one CTA an SM. Head dims 1 to
+// D, then one (a) or two (b) product steps. A step's operands land as raw
+// f32 rows by cp.async in a 32 KB landing area; the threads split them
+// into the step's tiles, issue the next step's copies, and then run the
+// step's wgmma, so each step's global reads are in flight behind the
+// previous step's products. The operands whose contraction runs along L
+// (K for dQ, dO for dV, Q for dK) are split transposed from their landed
+// rows, and the score-side A operands (dS, p^T, dS^T) go from the
+// accumulators through shared memory, split. Key and query chunks are
+// `chunk_width(L)`. Shared memory: the score steps' four split tiles (16
+// KB each) and the product steps' A and B operands (32 KB each) share 64
+// KB, beside the 32 KB landing area and 1 KB of query statistics. A
+// producer warpgroup filling a ring of stages through mbarriers was
+// measured slower here: its consumer warpgroup spilled and ran the
+// softmax between its own products, one CTA an SM. Head dims 1 to
 // 2,048: the score products loop over D in 32-column chunks, and past 64
 // columns the outputs' columns are split across CTAs (gridDim.y), each
 // recomputing the scores.
@@ -88,19 +68,10 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "simt_f32_attention.cuh"
 #include "sm90.cuh"
+#include "sm90_f32x3.cuh"
 
 namespace f32x3 {
-
-using simt_f32::ClampExp2;
-using simt_f32::MaxShift;
-
-constexpr int kRows = 64;       // a CTA's rows: queries (r, a), keys (b)
-constexpr int kChunkCols = 32;  // f32 columns of a tile row (128 bytes)
-constexpr int kCols = 64;       // output columns of a CTA
-constexpr int kMaxN = 64;       // widest key or query chunk
-constexpr int kThreads = 128;   // one warpgroup
 
 // Shared memory, from the 1024-byte aligned base. A split tile is a hi
 // tile and, kSub further, its lo tile, each up to 64 rows of 128 bytes.
@@ -111,7 +82,6 @@ constexpr int kThreads = 128;   // one warpgroup
 // score step's A0, B0, A1, B1 rows of 32 floats (8 KB each), or a product
 // step's kN rows of 64 floats kRawStride apart. (b) keeps a query chunk's
 // statistics (m, r, r scale, c) at kStats.
-constexpr int kSub = kRows * 128;  // 8 KB
 constexpr int kA0 = 0, kB0 = 2 * kSub, kA1 = 4 * kSub, kB1 = 6 * kSub;
 constexpr int kProdA = 0, kProdB = 4 * kSub;
 constexpr int kRaw = 8 * kSub;
@@ -121,152 +91,7 @@ constexpr size_t kSmemBytes = 1024 + kStats + 4 * kMaxN * sizeof(float);
 static_assert(kMaxN * kRawStride * 4 <= 4 * kSub, "a product step's rows");
 static_assert(2 * (kSmemBytes + 1024) <= 233472, "two CTAs an SM");
 
-// ---- tf32 -------------------------------------------------------------------
-
-// x = hi + lo: hi is x rounded to tf32 (10 mantissa bits, to nearest, ties
-// away from zero, as cvt.rna.tf32.f32 rounds) and lo the rest, x - hi
-// (exact in f32), rounded the same way. Integer and f32 adds at the full
-// rate; cvt.rna runs on the conversion pipe, 16 a clock an SM.
-__device__ __forceinline__ float rna_tf32(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
-}
-
-__device__ __forceinline__ void split(float x, float& hi, float& lo) {
-  hi = rna_tf32(x);
-  lo = rna_tf32(x - hi);
-}
-
-// Byte offset of element (r, c) of a tile of 32-float rows, 128-byte
-// swizzled: 16-byte chunk j of row r at chunk j ^ (r % 8).
-__device__ __forceinline__ int swizzled(int r, int c) {
-  return r * 128 + (((c >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
-}
-
-// D (64 x N, f32) [+]= A B^T over one k8 step, A (64 x 8) and B (N x 8)
-// tf32 from K-major shared tiles; scale_d 0 overwrites D.
-template <int N>
-__device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da,
-                                    uint64_t db, int scale_d);
-
-#define F32X3_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define F32X3_MMA(N, A, B, P, REGS, ...)                                  \
-  template <>                                                             \
-  __device__ __forceinline__ void mma<N>(float (&d)[N / 2], uint64_t da,  \
-                                         uint64_t db, int scale_d) {      \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"           \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " \
-                 REGS ", " A ", " B ", p, 1, 1;\n}\n"                      \
-                 : __VA_ARGS__                                            \
-                 : "l"(da), "l"(db), "r"(scale_d));                       \
-  }
-
-F32X3_MMA(8, "%4", "%5", "%6",
-    "{%0, %1, %2, %3}",
-    F32X3_D4(0))
-F32X3_MMA(16, "%8", "%9", "%10",
-    "{%0, %1, %2, %3, %4, %5, %6, %7}",
-    F32X3_D4(0), F32X3_D4(4))
-F32X3_MMA(24, "%12", "%13", "%14",
-    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}",
-    F32X3_D4(0), F32X3_D4(4), F32X3_D4(8))
-F32X3_MMA(32, "%16", "%17", "%18",
-    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-    "%13, %14, %15}",
-    F32X3_D4(0), F32X3_D4(4), F32X3_D4(8), F32X3_D4(12))
-F32X3_MMA(40, "%20", "%21", "%22",
-    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-    "%13, %14, %15, %16, %17, %18, %19}",
-    F32X3_D4(0), F32X3_D4(4), F32X3_D4(8), F32X3_D4(12), F32X3_D4(16))
-F32X3_MMA(48, "%24", "%25", "%26",
-    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-    "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}",
-    F32X3_D4(0), F32X3_D4(4), F32X3_D4(8), F32X3_D4(12), F32X3_D4(16),
-    F32X3_D4(20))
-F32X3_MMA(56, "%28", "%29", "%30",
-    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-    "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-    "%24, %25, %26, %27}",
-    F32X3_D4(0), F32X3_D4(4), F32X3_D4(8), F32X3_D4(12), F32X3_D4(16),
-    F32X3_D4(20), F32X3_D4(24))
-F32X3_MMA(64, "%32", "%33", "%34",
-    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-    "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-    "%24, %25, %26, %27, %28, %29, %30, %31}",
-    F32X3_D4(0), F32X3_D4(4), F32X3_D4(8), F32X3_D4(12), F32X3_D4(16),
-    F32X3_D4(20), F32X3_D4(24), F32X3_D4(28))
-
-#undef F32X3_MMA
-#undef F32X3_D4
-
-// One k8 step in three passes, the small terms first; `first` overwrites D.
-template <int N>
-__device__ __forceinline__ void mma3(float (&d)[N / 2], uint64_t a_hi,
-                                     uint64_t a_lo, uint64_t b_hi,
-                                     uint64_t b_lo, bool first) {
-  mma<N>(d, a_lo, b_hi, first ? 0 : 1);
-  mma<N>(d, a_hi, b_lo, 1);
-  mma<N>(d, a_hi, b_hi, 1);
-}
-
 // ---- staging: raw rows by cp.async, then split in shared memory -----------
-
-// 16 (or 4) bytes from global src to shared dst, zero-filled where `valid`
-// fails (nothing is read then; src stays a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const float* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   sm90::smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const float* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   sm90::smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Issues the copies of rows [row0, row0 + kR) x columns [col0, col0 +
-// kW) of a head (rows `stride` floats apart; zeros past L and D) into dst,
-// rows `ld` floats apart. `vec`: 16-byte copies (D and the rows' starts
-// are multiples of 4 floats, 16-byte aligned, so a group is whole or past
-// D); else one float a copy.
-template <int kR, int kW>
-__device__ __forceinline__ void copy_rows(float* dst, int ld,
-                                          const float* src, int row0,
-                                          int len, int stride, int col0,
-                                          int d, bool vec) {
-  constexpr int kGroups = kR * kW / 4;
-#pragma unroll
-  for (int it = 0; it < (kGroups + kThreads - 1) / kThreads; ++it) {
-    const int idx = threadIdx.x + it * kThreads;
-    if (kGroups % kThreads != 0 && idx >= kGroups) break;
-    const int r = idx / (kW / 4), c = 4 * (idx % (kW / 4));
-    const int row = row0 + r, col = col0 + c;
-    const float* p = src + static_cast<size_t>(row) * stride + col;
-    float* q = dst + r * ld + c;
-    if (vec) {
-      const bool ok = row < len && col < d;
-      cp_async16(q, ok ? p : src, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = row < len && col + e < d;
-        cp_async4(q + e, ok ? p + e : src, ok);
-      }
-    }
-  }
-}
 
 // kR raw rows of 32 floats at raw, split into the hi tile at dst and the lo
 // tile kSub further, a raw row a tile row, 128-byte swizzled.
@@ -341,21 +166,6 @@ __device__ __forceinline__ void store_a(uint8_t* dst,
 
 // ---- products -----------------------------------------------------------------
 
-// acc = A B^T over a score step's 32 columns: A the split tile of 64 rows
-// at a, B that of kN rows at b.
-template <int kN>
-__device__ __forceinline__ void chunk_product(float (&acc)[kN / 2],
-                                              const uint8_t* a,
-                                              const uint8_t* b) {
-  const uint64_t ah = sm90::desc_k_major(a), al = sm90::desc_k_major(a + kSub);
-  const uint64_t bh = sm90::desc_k_major(b), bl = sm90::desc_k_major(b + kSub);
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const uint64_t s = ks * sm90::kKMajorStep;
-    mma3<kN>(acc, ah + s, al + s, bh + s, bl + s, ks == 0);
-  }
-}
-
 // acc (64 x 64) = A B^T over the product operands' kN contraction columns.
 template <int kN>
 __device__ __forceinline__ void operand_product(float (&acc)[32],
@@ -402,19 +212,23 @@ __device__ __forceinline__ void issue_step(uint8_t* smem, const Plan& p,
   if (n < total) {
     const int j = n / p.per, u = n % p.per;
     float* raw = reinterpret_cast<float*>(smem + kRaw);
+    // Rows ld floats apart from raw + off.
+    auto rows = [raw](int off, int ld) {
+      return [=](int r, int c) { return raw + off + r * ld + c; };
+    };
     if (u < p.nd) {
       const int c0 = u * kChunkCols;
-      copy_rows<kRows, kChunkCols>(raw, kChunkCols, p.a0, p.row0, len,
+      copy_rows<kRows, kChunkCols>(rows(0, kChunkCols), p.a0, p.row0, len,
                                    stride, c0, d, vec);
-      copy_rows<kN, kChunkCols>(raw + kRows * kChunkCols, kChunkCols, p.b0,
+      copy_rows<kN, kChunkCols>(rows(kRows * kChunkCols, kChunkCols), p.b0,
                                 j * kN, len, stride, c0, d, vec);
-      copy_rows<kRows, kChunkCols>(raw + 2 * kRows * kChunkCols, kChunkCols,
+      copy_rows<kRows, kChunkCols>(rows(2 * kRows * kChunkCols, kChunkCols),
                                    p.a1, p.row0, len, stride, c0, d, vec);
-      copy_rows<kN, kChunkCols>(raw + 3 * kRows * kChunkCols, kChunkCols,
+      copy_rows<kN, kChunkCols>(rows(3 * kRows * kChunkCols, kChunkCols),
                                 p.b1, j * kN, len, stride, c0, d, vec);
     } else {
-      copy_rows<kN, kCols>(raw, kRawStride, u == p.nd ? p.p0 : p.p1, j * kN,
-                           len, stride, p.col0, d, vec);
+      copy_rows<kN, kCols>(rows(0, kRawStride), u == p.nd ? p.p0 : p.p1,
+                           j * kN, len, stride, p.col0, d, vec);
     }
   }
   cp_async_commit();
@@ -495,36 +309,6 @@ __device__ __forceinline__ void product_step(uint8_t* smem, const Plan& p,
   sm90::fence(t);
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] += t[i];
-}
-
-// Rows row0 + 16 w + g (times f[0]) and + 8 (times f[1]) of a warpgroup's
-// 64 x 64 accumulator into columns [col0, col0 + 64) of a head, nothing
-// past L or D.
-__device__ __forceinline__ void store_out(float* out, int stride, int row0,
-                                          int len, int col0, int d,
-                                          const float (&acc)[32],
-                                          const float (&f)[2], bool vec) {
-  const int lane = threadIdx.x % 32;
-  const int r0 = row0 + 16 * (threadIdx.x / 32) + lane / 4;
-  const int t4 = lane % 4;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + 8 * h;
-    if (row >= len) continue;
-    float* o = out + static_cast<size_t>(row) * stride;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int col = col0 + 8 * n + 2 * t4;
-      const float x0 = acc[4 * n + 2 * h] * f[h];
-      const float x1 = acc[4 * n + 2 * h + 1] * f[h];
-      if (vec && col < d) {
-        *reinterpret_cast<float2*>(o + col) = make_float2(x0, x1);
-      } else {
-        if (col < d) o[col] = x0;
-        if (col + 1 < d) o[col + 1] = x1;
-      }
-    }
-  }
 }
 
 // ---- kernels ------------------------------------------------------------------
@@ -757,24 +541,6 @@ attn_f32x3_dkdv_kernel(const Args a) {
 // (measurement).
 enum BwdStage { kBwdAll = -1, kBwdStats = 0, kBwdDq = 1, kBwdDkdv = 2 };
 
-// The key (query) chunk: the length split into as few chunks of at most
-// kMaxN as it takes, evened out, rounded up to a multiple of 8.
-inline int chunk_width(int len) {
-  const int chunks = (len + kMaxN - 1) / kMaxN;
-  return ((len + chunks - 1) / chunks + 7) / 8 * 8;
-}
-
-template <class Kernel>
-cudaError_t launch_one(Kernel kernel, dim3 grid, const Args& a,
-                       cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
 template <class P, int kN>
 int backward_n(const Args& a, int batch, int stage, cudaStream_t stream) {
   const int tiles = (a.len + kRows - 1) / kRows;
@@ -782,23 +548,21 @@ int backward_n(const Args& a, int batch, int stage, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
   if (stage == kBwdAll || stage == kBwdStats) {
     err = launch_one(attn_f32x3_stats_kernel<P, kN>,
-                     dim3(tiles, a.heads, batch), a, stream);
+                     dim3(tiles, a.heads, batch), kSmemBytes, a, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (stage == kBwdAll || stage == kBwdDq) {
     err = launch_one(attn_f32x3_dq_kernel<P, kN>,
-                     dim3(tiles, a.heads * chunks, batch), a, stream);
+                     dim3(tiles, a.heads * chunks, batch), kSmemBytes, a,
+                     stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (stage == kBwdAll || stage == kBwdDkdv) {
     err = launch_one(attn_f32x3_dkdv_kernel<P, kN>,
-                     dim3(tiles, a.heads * chunks, batch), a, stream);
+                     dim3(tiles, a.heads * chunks, batch), kSmemBytes, a,
+                     stream);
   }
   return static_cast<int>(err);
-}
-
-inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // The backward's three kernels on `stream` (or the one `stage` names): the
@@ -812,7 +576,7 @@ int attn_backward(const float* q, const float* k, const float* v,
                   float* m, float* r, float* c, int batch, int len, int heads,
                   int d, float scale2, float scale, int stage,
                   cudaStream_t stream) {
-  if (!simt_f32::attn_takes(batch, len, heads, d) || stage < kBwdAll ||
+  if (!attn_takes(batch, len, heads, d) || stage < kBwdAll ||
       stage > kBwdDkdv) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

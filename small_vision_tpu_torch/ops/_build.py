@@ -58,18 +58,17 @@ SIGNATURES = {
         "ln_modulate_bwd_work_words": [_I, _I, _I],
         "ln_modulate_bwd_max_width": [],
         "ln_modulate_bwd_any_max_width": []},
-    # K3 and K4 in f32 (the forward SIMT, the backward 3xTF32 on wgmma):
-    # the forward, and the backward's three kernels with the r and c
-    # scratch.
+    # K3 and K4 in f32 (3xTF32 on wgmma): the forward, and the backward's
+    # three kernels with the r and c scratch.
     "attention_packed_f32": {
         "attention_packed_f32_fwd": [_P] * 4 + [_I, _I, _I, _I, _F, _P],
         "attention_packed_f32_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P],
         "attention_packed_f32_max_len": [],
         "attention_packed_f32_max_head_dim": []},
-    # K5-K8 in f32 (SIMT; K8 3xTF32 on wgmma): the same arguments as their
-    # bf16 entry points (K7's and K8's scale that of K3's and K4's f32
-    # ones: scale2, then K8's scale); K8's stage: 0 statistics, 1 dQ, 2 dK
-    # and dV.
+    # K5-K8 in f32 (K5, K6 SIMT; K7, K8 3xTF32 on wgmma): the same
+    # arguments as their bf16 entry points (K7's and K8's scale that of
+    # K3's and K4's f32 ones: scale2, then K8's scale); K8's stage: 0
+    # statistics, 1 dQ, 2 dK and dV.
     "fused_mlp_f32": {
         "fused_mlp_f32_fwd": [_P] * 7 + [_I, _I, _I, _P],
         "fused_mlp_f32_up": [_P] * 4 + [_I, _I, _I, _P],

@@ -14,8 +14,9 @@ take. Without gradients (the sampler) it is K3 alone; with gradients it
 goes through `AttentionPacked`. K3 and K4 take bf16 and f32 (the TPU
 kernels are generic in the dtype; `dtype_mm="float32"` runs them in f32):
 f32 inputs run their f32 instances (`csrc/attention_packed_f32.cu`: the
-forward in plain f32 FMA, the backward's products in three TF32 passes on
-the tensor cores, 3xTF32, as accurate as f32 FMA), at every head dim from
+backward's products and the forward's e V in three TF32 passes on the
+tensor cores, 3xTF32; the forward's scores in six, on a grid of each row
+(`split_grid`), as a pair of f32 values), at every head dim from
 1 to 2,048 and L up to 4,096 with no padding, and count under `NAME_F32`
 / `BWD_NAME_F32`; so do K7 and K8 (`csrc/attention_unpacked_f32.cu`, the
 same f32 kernels under the max-shift policy, `UNPACKED_NAME_F32` /
@@ -97,8 +98,8 @@ def scale_log2(head_dim: int) -> float:
 
 
 def split_tf32(x):
-  """(hi, lo) of an f32 tensor as K4's and K8's f32 backwards split their
-  operands for 3xTF32 products (`csrc/sm90_f32x3_attention_bwd.cuh`): hi
+  """(hi, lo) of an f32 tensor as the f32 attention kernels (K3, K4, K7,
+  K8) split their operands for 3xTF32 products (`csrc/sm90_f32x3.cuh`): hi
   is x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero,
   as `cvt.rna.tf32.f32` rounds), lo is x - hi (exact in f32) rounded the
   same way, so hi + lo is x to within 2^-22 of it. A product a b is taken
@@ -107,6 +108,27 @@ def split_tf32(x):
                    & ~0x1FFF).view(torch.float32)
   hi = rna(x.to(torch.float32))
   return hi, rna(x.to(torch.float32) - hi)
+
+
+GRID_BITS = 7   # a row's grid below its largest power of two
+
+
+def split_grid(x):
+  """(p0, p1, p2) of an f32 tensor as the f32 forwards (K3, K7) split the
+  rows (the last dim) of Q's and K's 32 columns of a score step
+  (`csrc/sm90_f32x3_attention.cuh`'s `split_row`): with 2^E the power of
+  two at or below the row's largest |x|, p0 is x rounded to a multiple of
+  2^(E - 7) (to nearest, ties to even, as `rintf`), a tf32 value of at
+  most 9 bits; (p1, p2) is `split_tf32` of the rest x - p0 (exact in
+  f32). A row below 2^-119 keeps no p0. The products of two rows' p0 are
+  multiples of one unit, so their sum over 32 columns is exact in f32."""
+  x = x.to(torch.float32)
+  e = x.abs().amax(-1, keepdim=True).view(torch.int32) >> 23  # biased E
+  as_f32 = lambda bits: (bits.clamp(1, 254) << 23).view(torch.float32)
+  unit, inv = as_f32(e - GRID_BITS), as_f32(254 + GRID_BITS - e)
+  p0 = torch.where(e > GRID_BITS, torch.round(x * inv) * unit,
+                   torch.zeros_like(x))
+  return (p0, *split_tf32(x - p0))
 
 
 def _split(t, num_heads):

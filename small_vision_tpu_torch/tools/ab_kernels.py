@@ -40,10 +40,13 @@ and loads them beside this tree's libraries. Then, on inputs from a
     at the training lengths L = 68, 164, 257 and batch 128, modulated,
     beside `F.layer_norm` + modulate, its autograd backward, SDPA and its
     backward; K1's, K3's and K4's outputs must be the other tree's bits.
-  - K3's and K4's f32 instances (`attention_packed_f32.cu`) on (B, L,
-    768) f32 in 12 heads of 64 at the sampler's (64, 260) and the training
-    shapes (128, L = 68, 164, 257): their outputs must be the other tree's
-    bits, and each is timed in turns.
+  - The f32 instances of K3, K4, K7 and K8 (`attention_packed_f32.cu`,
+    `attention_unpacked_f32.cu`) on (B, L, 768) f32 in 12 heads of 64 at
+    the sampler's (64, 260) and the training shapes (128, L = 68, 164,
+    257), and K6's (`fused_mha_f32.cu`) at (64, 260) and (128, 257): K4's,
+    K8's and K6's outputs must be the other tree's bits; K3's and K7's
+    (3xTF32 forwards in this tree) within 1e-4 of the other's output, and
+    this tree's the same bits launch to launch. Each is timed in turns.
   - This tree alone: K3, K7, K6 (call and attention launch) and K9's seven
     arms at (64, 1,024) and (64, 1,025) with 16 heads of 64 (ViT-L/16@512,
     "map" and "tok"), (64, 1,369) with 16 heads of 80 (ViT-H/14@518) and
@@ -264,10 +267,10 @@ def k1_to_k4(sides, width, heads, b, l, randn, keep, pairs, library,
 
 def f32_attention(sides, b, l, randn32, keep, pairs, outputs, changed):
   """The f32 instances of each side at (b, l, 768) in 12 heads of 64 into
-  `pairs`: K3 and K7, whose outputs of each side go into `outputs` (the
-  same bits expected), and K4 and K8, whose backwards this tree runs
-  3xTF32 on the tensor cores (other arithmetic: their outputs of each side
-  go into `changed`, held to 1e-4 of each other and to the same bits launch
+  `pairs`: K4 and K8, whose outputs of each side go into `outputs` (the
+  same bits expected), and K3 and K7, whose forwards this tree runs 3xTF32
+  on the tensor cores (other arithmetic: their outputs of each side go
+  into `changed`, held to 1e-4 of each other and to the same bits launch
   to launch)."""
   stream = lambda: torch.cuda.current_stream().cuda_stream
   hd = WIDTH // HEADS
@@ -298,10 +301,10 @@ def f32_attention(sides, b, l, randn32, keep, pairs, outputs, changed):
             lib.attention_unpacked_f32_bwd(
                 *[t.data_ptr() for t in (q, k, v, do, *g, *st)], *scales,
                 attn.scale_f32(hd), stream())))
-    outputs.setdefault(f"K3 f32 {b}x{l}", {})[side] = [o3]
-    outputs.setdefault(f"K7 f32 {b}x{l}", {})[side] = [o7]
-    changed.setdefault(f"K4 f32 {b}x{l}", {})[side] = g4
-    changed.setdefault(f"K8 f32 {b}x{l}", {})[side] = g8
+    changed.setdefault(f"K3 f32 {b}x{l}", {})[side] = [o3]
+    changed.setdefault(f"K7 f32 {b}x{l}", {})[side] = [o7]
+    outputs.setdefault(f"K4 f32 {b}x{l}", {})[side] = g4
+    outputs.setdefault(f"K8 f32 {b}x{l}", {})[side] = g8
 
 
 def k6_f32(sides, b, l, randn32, keep, pairs, outputs):
@@ -565,7 +568,7 @@ def main(argv=None):
       f32_attention(sides, b, l, randn32, keep, pairs, outputs, changed)
     for b, l in K6_SHAPES:
       k6_f32(sides, b, l, randn32, keep, pairs, outputs)
-    # Each side of K1-K4 (and K3, K7, K6 in f32) and K8 there once; their
+    # Each side of K1-K4 (and K4, K6, K8 in f32) and K8 there once; their
     # outputs compared.
     for name, by_side in outputs.items():
       for side in by_side:
@@ -574,7 +577,7 @@ def main(argv=None):
       first, second = by_side.values()
       same_bits[name] = all(torch.equal(a, b)
                             for a, b in zip(first, second))
-    # K4 and K8 in f32: each side once, this tree's again (the same bits
+    # K3 and K7 in f32: each side once, this tree's again (the same bits
     # launch to launch), and the largest difference of the two sides'
     # outputs, relative to each output's largest value.
     close = {}
@@ -640,14 +643,14 @@ def main(argv=None):
 
   summary = lambda v: dict(median=statistics.median(v), min=min(v),
                            max=max(v))
-  result = {"card": card, "same_bits": same_bits, "f32_bwd_vs_other": close,
+  result = {"card": card, "same_bits": same_bits, "f32_fwd_vs_other": close,
             "times": {name: {side: summary(v) for side, v in t.items()}
                       for name, t in times.items()},
             "alone": {name: summary(v) for name, v in alone_times.items()},
             "library": {name: summary(v) for name, v in lib_times.items()},
             "bound_ms": bounds}
   print(f"[ab_kernels] bit-equal: {same_bits}; on {card}", flush=True)
-  print(f"[ab_kernels] K4 and K8 in f32 (3xTF32 here), this against other, "
+  print(f"[ab_kernels] K3 and K7 in f32 (3xTF32 here), this against other, "
         f"the largest difference of each output's largest value: {close}",
         flush=True)
   for name, t in result["times"].items():
@@ -671,7 +674,7 @@ def main(argv=None):
         name for name, same in same_bits.items() if not same))
   far = {name: d for name, d in close.items() if not d <= 1e-4}
   if far:
-    raise SystemExit(f"ab_kernels: the f32 backwards differ by more than "
+    raise SystemExit(f"ab_kernels: the f32 forwards differ by more than "
                      f"1e-4 of their outputs: {far}")
   return result
 

@@ -9,8 +9,9 @@ torch.profiler and prints, with the card's name and power limit:
   - the wall time and img/s of one call without the profiler;
   - the device-busy time of the traced call (the union of kernel
     intervals), and its share of the untraced call's wall time;
-  - device time by class: the port's forward kernels (K1, K3, or K1, K5,
-    K6 under attn_impl=pallas_fused), matmuls, the rest;
+  - device time by class (`classify`): the port's forward kernels (K1, K3,
+    or K1, K5, K6 under attn_impl=pallas_fused; bf16, f32 and wide
+    instances alike), matmuls, the rest;
   - the ten kernels that take the most device time.
 The trace is parsed from the profiler's Chrome-trace export, written to a
 temporary file and deleted.
@@ -27,16 +28,41 @@ import time
 
 import torch
 
+# Device-time classes by kernel name, as the trace gives it (demangled) or
+# mangled: the port's kernels by their K number, their bf16, f32 and wide
+# instances alike, then cuBLAS's matmuls; the rest is "other". K3's and K7's
+# f32 forward is one kernel under two softmax policies, and so are K4's and
+# K8's f32 backwards (and K4's and K8's wide bf16 ones, under a bool): the
+# policy tells them apart. K5's and K6's f32 launches of the one SIMT GEMM
+# carry their caller's tag (`FusedMlp`, `FusedMha`).
 CLASSES = (
-    ("ln_modulate_fwd", re.compile(r"ln_modulate_fwd_kernel")),
-    ("attention_packed_fwd", re.compile(r"attention_packed_fwd_kernel")),
-    ("fused_mlp_fwd", re.compile(r"fused_mlp_(up|down)_kernel")),
-    ("fused_mha_fwd", re.compile(r"fused_mha_(proj|attn)_kernel")),
+    ("K1 ln_modulate_fwd", re.compile(r"ln_modulate_fwd(_any)?_kernel")),
+    ("K2 ln_modulate_bwd", re.compile(r"ln_modulate_bwd(_any)?_kernel")),
+    ("K3 attention_packed_fwd", re.compile(
+        r"attention_packed_(fwd|wide)_kernel"
+        r"|attn_f32x3_fwd_kernel.{0,16}ClampExp2")),
+    ("K4 attention_packed_bwd", re.compile(
+        r"attn_bwd_(dq|dkdv)|attn_bwd_wide_(rows|dq|dkdv)(<false>|ILb0E)"
+        r"|attn_f32x3_(stats|dq|dkdv)_kernel.{0,16}ClampExp2")),
+    ("K5 fused_mlp_fwd", re.compile(
+        r"fused_mlp_(up|down)_kernel|gemm_f32_kernel.{0,40}FusedMlp")),
+    ("K6 fused_mha_fwd", re.compile(
+        r"fused_mha_(proj|attn|attn_wide)_kernel|attn_f32_fwd_kernel"
+        r"|gemm_f32_kernel.{0,40}FusedMha")),
+    ("K7 attention_unpacked_fwd", re.compile(
+        r"attention_unpacked_(fwd|wide)_kernel"
+        r"|attn_f32x3_fwd_kernel.{0,16}MaxShift")),
+    ("K8 attention_unpacked_bwd", re.compile(
+        r"attn_unpacked_bwd_(dq|dkdv)_sm90"
+        r"|attn_bwd_wide_(rows|dq|dkdv)(<true>|ILb1E)"
+        r"|attn_f32x3_(stats|dq|dkdv)_kernel.{0,16}MaxShift")),
+    ("K9 attention_ablate", re.compile(r"attention_ablate(_wide)?_kernel")),
     ("matmul", re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)),
 )
 
 
 def classify(name: str) -> str:
+  """The class of the kernel `name`."""
   for cls, pattern in CLASSES:
     if pattern.search(name):
       return cls
@@ -119,9 +145,10 @@ def main(argv=None):
   by_name = collections.Counter()
   count = collections.Counter()
   for e in events:
-    by_class[classify(e["name"])] += e["dur"]
+    cls = classify(e["name"])
+    by_class[cls] += e["dur"]
     by_name[e["name"]] += e["dur"]
-    count[classify(e["name"])] += 1
+    count[cls] += 1
   busy = busy_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e6
   kernel_s = sum(by_class.values()) / 1e6
   summary = {

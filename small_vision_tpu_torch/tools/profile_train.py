@@ -13,7 +13,8 @@ step with torch.profiler and prints, with the card's name and power limit:
   - the mean wall time of a step and img/s without the profiler;
   - the device-busy time of the traced step (the union of kernel
     intervals), and its share of the untraced step's wall time;
-  - device time by class: matmuls, the port's kernels K1-K6 (and K8), the
+  - device time by class: matmuls, the port's kernels K1-K9 (bf16, f32
+    and wide instances alike; `profile_sampler.classify`), the
     optimizer (every kernel launched inside the step's "optimizer" range:
     the clip, AdamW and EMA), on the latent path the VAE encode (every
     kernel inside the step's "vae_encode" range), and the other
@@ -30,7 +31,6 @@ launched inside an evaluator's run, whatever its own class would be).
 import argparse
 import collections
 import json
-import re
 import shutil
 import tempfile
 import time
@@ -38,29 +38,9 @@ import time
 import torch
 
 from small_vision_tpu_torch.tools.profile_sampler import (busy_us, card_line,
+                                                          classify,
                                                           kernel_events,
                                                           trace_events)
-
-CLASSES = (
-    ("K1 ln_modulate_fwd", re.compile(r"ln_modulate_fwd_kernel")),
-    ("K2 ln_modulate_bwd", re.compile(r"ln_modulate_bwd_kernel")),
-    ("K3 attention_packed_fwd", re.compile(r"attention_packed_fwd_kernel")),
-    ("K4 attention_packed_bwd", re.compile(r"attn_bwd_dq|attn_bwd_dkdv")),
-    ("K5 fused_mlp_fwd", re.compile(r"fused_mlp_(up|down)_kernel")),
-    ("K6 fused_mha_fwd", re.compile(r"fused_mha_(proj|attn)_kernel")),
-    # No module of the model calls K8; its names stay apart from K4's.
-    ("K8 attention_unpacked_bwd",
-     re.compile(r"attn_unpacked_bwd_(dq|dkdv)_sm90")),
-    ("matmul", re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)),
-)
-
-
-def classify(name: str, in_optimizer: bool) -> str:
-  for cls, pattern in CLASSES:
-    if pattern.search(name):
-      return cls
-  return "optimizer" if in_optimizer else "other elementwise"
-
 
 def range_correlations(events, range_name: str) -> set:
   """Correlation ids of the launches (kernels and copies) made inside a host
@@ -176,14 +156,17 @@ def main(argv=None):
   count = collections.Counter()
   by_name = collections.Counter()
   for e in kernels:
+    named = classify(e["name"])
     if correlation(e) in in_ckpt:
       cls = "checkpoint"
     elif correlation(e) in in_eval:
       cls = "evaluator"
     elif correlation(e) in in_vae:
       cls = "VAE encode"
+    elif named != "other":
+      cls = named
     else:
-      cls = classify(e["name"], correlation(e) in in_opt)
+      cls = "optimizer" if correlation(e) in in_opt else "other elementwise"
     by_class[cls] += e["dur"]
     count[cls] += 1
     by_name[e["name"]] += e["dur"]

@@ -2,7 +2,9 @@
 
 The port's plain `attention_packed` is held against the JAX package's
 packed Pallas kernel run in interpret mode and against `xla_attention` (the
-max-shifted softmax), on packed (B, L, H*64) inputs drawn with numpy.
+max-shifted softmax), on packed (B, L, H*64) inputs drawn with numpy; so
+are K3's and K7's f32 forwards as the card takes them (3xTF32 products,
+emulated on the CPU), against the JAX kernels in f32.
 """
 
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import torch
 
 from small_vision_tpu.ops import attention as jattn
 from small_vision_tpu_torch.ops import attention as tattn
+from tests.test_torch_tf32x3 import HEADS, emulated, inputs
 
 B, H, D = 2, 2, 64  # D = 64: the head dim the kernel takes.
 
@@ -227,3 +230,25 @@ def test_plain_matches_jax_at_long_lengths(l, hd, dtype):
   np.testing.assert_allclose(got.float().numpy(),
                              np.asarray(want.astype(jnp.float32)),
                              rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K7"])
+def test_3xtf32_forward_matches_jax_f32(kernel):
+  """K3's and K7's f32 forwards as the card computes them (3xTF32
+  products over the kernel's chunks, emulated on the CPU by
+  tests/test_torch_tf32x3.py) against the JAX kernels in f32
+  (`pallas_attention_packed`, `pallas_attention`, interpreted) on the same
+  numpy inputs at (L, D) = (68, 64), two heads: within 1e-5 of the
+  output's largest value."""
+  l, d = 68, 64
+  q, k, v, _ = inputs(l, d)
+  got = emulated(kernel, q, k, v, None, passes=3)[0].numpy()
+  qkv = [jnp.asarray(t.numpy()) for t in (q, k, v)]
+  if kernel == "K3":
+    want = jattn.pallas_attention_packed(*qkv, HEADS, interpret=True)
+  else:
+    want = jattn.pallas_attention(
+        *(t.reshape(1, l, HEADS, d) for t in qkv), interpret=True)
+  want = np.asarray(want).reshape(got.shape)
+  assert want.dtype == np.float32
+  assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

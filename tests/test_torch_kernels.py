@@ -81,12 +81,13 @@ CPU. K5-K8 in f32 (their f32 instances): K5 at widths 1, 36, 768 and
 projections, K7 and K8 at those head dims, each at L = 1, 257 and 4,096,
 within 1e-5 of the output's largest value (K8: 1e-4 of each gradient's),
 two launches giving the same bits, counted under the f32 names; their
-stage timers; K3 in f32 giving the bits it gave before its kernel moved
-into the shared header, and K4 in f32 those of its 3xTF32 backward (a
-digest of their outputs); K4 and K8 in f32 within 1e-5 of the float64
-plain versions at 12 heads of 64 (L = 257), 32 of 12 (L = 68) and 1 of
-768, and six launches of each giving the same bits at every key-chunk
-width the backward takes (L = 68, 257, 4,096, 1) and at head dim 13.
+stage timers; K3 and K4 in f32 giving the bits of their 3xTF32 kernels,
+and K6 in f32 those of its SIMT kernels (a digest of their outputs); K3,
+K4, K7 and K8 in f32 within 1e-5 of the float64 plain versions at 12
+heads of 64 (L = 257), 32 of 12 (L = 68) and 1 of 768 (the forwards also
+at head dim 13), and six launches of each giving the same bits at every
+key-chunk width the kernels take (L = 68, 257, 4,096, 1) and at head dim
+13.
 The others check, on the CPU, that the wrappers refuse CPU tensors and
 that CPU tensors take the plain versions.
 """
@@ -1707,7 +1708,8 @@ F64_ATTN_CASES = [(4, 257, 12, 64), (2, 68, 32, 12), (1, 257, 1, 768)]
 def test_f32_attention_backwards_match_f64(cuda, b, l, heads, hd):
   """K4's and K8's f32 instances within 1e-5 of each output's largest
   value (floored at 1e-2 of the largest of the three) of the float64 plain
-  versions: 3xTF32 products are as accurate as f32 FMA sums."""
+  versions: at these unit-scale inputs 3xTF32 products (each operand to
+  2^-22) land as close to float64 as f32 FMA sums do."""
   q, k, v, do = (_randn((b, l, heads * hd), 110 + i, cuda, torch.float32)
                  for i in range(4))
   as4 = lambda t: t.view(b, l, heads, hd)
@@ -1723,8 +1725,34 @@ def test_f32_attention_backwards_match_f64(cuda, b, l, heads, hd):
       assert err <= 1e-5 * max(w.abs().max().item(), 1e-2 * top), err
 
 
-# One shape at each key-chunk width class of the f32 backwards (N = 40,
-# 56, 64, 8) and a head dim that takes scalar loads (13).
+# K3's and K7's f32 forwards also run their products on the TF32 tensor
+# cores (csrc/sm90_f32x3_attention.cuh): F64_ATTN_CASES and head dim 13,
+# which takes scalar loads.
+F64_FWD_CASES = F64_ATTN_CASES + [(2, 37, 3, 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,heads,hd", F64_FWD_CASES)
+def test_f32_attention_forwards_match_f64(cuda, b, l, heads, hd):
+  """K3's and K7's f32 instances within 1e-5 of the output's largest value
+  of the float64 plain versions: their scores are a pair finer than f32,
+  their e V product 3xTF32."""
+  q, k, v = (_randn((b, l, heads * hd), 130 + i, cuda, torch.float32)
+             for i in range(3))
+  as4 = lambda t: t.view(b, l, heads, hd)
+  f64 = [t.double() for t in (q, k, v)]
+  for got, want in (
+      (attn.attention_packed_fwd(q, k, v, heads),
+       attn.attention_packed_plain(*f64, heads)),
+      (attn.attention_unpacked_fwd(*map(as4, (q, k, v))),
+       attn.attention_plain(*map(as4, f64)))):
+    assert got.dtype == torch.float32 and want.dtype == torch.float64
+    err = (got.double() - want.reshape(got.shape)).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+# One shape at each key-chunk width class of the f32 kernels (N = 40, 56,
+# 64, 8) and a head dim that takes scalar loads (13).
 F32_REPEAT_CASES = [(2, 68, 32, 12), (128, 257, 12, 64), (1, 4096, 1, 64),
                     (2, 1, 3, 64), (2, 37, 3, 13)]
 
@@ -1733,14 +1761,16 @@ F32_REPEAT_CASES = [(2, 68, 32, 12), (128, 257, 12, 64), (1, 4096, 1, 64),
 @pytest.mark.parametrize("b,l,heads,hd", F32_REPEAT_CASES)
 def test_f32_attention_backwards_give_the_same_bits_launch_to_launch(
     cuda, b, l, heads, hd):
-  """Six launches each of K4's and K8's f32 instances on the same inputs
-  and buffers give the same bits (every sum in a fixed order, no
-  atomics)."""
+  """Six launches each of K4's and K8's f32 instances, and of K3's and
+  K7's f32 forwards, on the same inputs and buffers give the same bits
+  (every sum in a fixed order, no atomics)."""
   q, k, v, do = (_randn((b, l, heads * hd), 120 + i, cuda, torch.float32)
                  for i in range(4))
   as4 = lambda t: t.view(b, l, heads, hd)
   for call in (lambda: attn.attention_packed_bwd(q, k, v, do, heads),
-               lambda: attn.attention_unpacked_bwd(*map(as4, (q, k, v, do)))):
+               lambda: attn.attention_unpacked_bwd(*map(as4, (q, k, v, do))),
+               lambda: [attn.attention_packed_fwd(q, k, v, heads)],
+               lambda: [attn.attention_unpacked_fwd(*map(as4, (q, k, v)))]):
     first = call()
     for _ in range(5):
       assert all(torch.equal(a, g) for a, g in zip(first, call()))
@@ -2012,21 +2042,28 @@ def test_f32_stage_timers_launch_their_kernels_and_count_nothing(cuda):
     assert 0.8 <= sum(times) / whole <= 1.25, (names, times, whole)
 
 
-# sha256 of K3's f32 output bytes on `_f32_digest_inputs`, as
-# `attention_packed_f32.cu` gave them before its kernels moved into
-# simt_f32_attention.cuh under a softmax policy (built by nvcc 12.8 for
-# sm_90a, -O3, on an H100; the moved kernels give the same), and of K4's
-# f32 dq, dk, dv bytes as its 3xTF32 backward gives them
-# (sm90_f32x3_attention_bwd.cuh, the same toolchain).
+# sha256 of K3's f32 output bytes on `_f32_digest_inputs` as its forward
+# gives them (sm90_f32x3_attention.cuh: the scores a pair on each row's
+# grid, e V 3xTF32; built by nvcc 12.8 for sm_90a, -O3, on an H100), of
+# K4's f32 dq, dk, dv bytes as its 3xTF32 backward gives them
+# (sm90_f32x3_attention_bwd.cuh, the same toolchain),
+# and of K6's f32 output on `_f32_mha_digest_inputs` as its SIMT kernels
+# give it (simt_f32_gemm.cuh, simt_f32_attention.cuh).
 F32_PACKED_DIGESTS = {
-    "fwd": "798dfcaf803ca81c1557126dd7a992f6467656abb322791934dfb2559b47c1d4",
+    "fwd": "119a91342a3b3167b4582b6db83cc9af635f21dbc21481a9892ec60503c41cfd",
     "bwd": "b1fa057fc1c1e8fa3a00142a4b9760ec94fdae595a1d680103cebd395e02f512",
+    "mha": "742fcc1749b698102147c9928204ce77355c67abdc7a6dc86917f62bc3f53753",
 }
 
 
 def _f32_digest_inputs(cuda):
   return [_randn((2, 70, 3 * 64), 70 + i, cuda, torch.float32)
           for i in range(4)]
+
+
+def _f32_mha_digest_inputs(cuda):
+  return [_randn((2, 70, 3 * 64), 80, cuda, torch.float32),
+          *_f32_weights(cuda, 3 * 64, 3 * 64, 81), 3]
 
 
 def _digest(tensors):
@@ -2039,12 +2076,22 @@ def _digest(tensors):
 
 @pytest.mark.cuda
 def test_f32_packed_attention_keeps_its_bits(cuda):
-  """K3's f32 instance, run under the shared header's `ClampExp2` policy,
-  gives the bits it gave before the policy existed, and K4's the bits of
-  its 3xTF32 backward (`tools/ab_kernels.py` holds K3 against another
-  tree's library at the model's shapes)."""
+  """K3's f32 instance gives the bits of its forward (the scores a pair
+  on each row's grid), and K4's those of its 3xTF32 backward, whose
+  helpers the forward shares
+  (`tools/ab_kernels.py` holds K4 against another tree's library at the
+  model's shapes)."""
   q, k, v, do = _f32_digest_inputs(cuda)
-  assert _digest([attn.attention_packed_fwd(q, k, v, 3)]) == (
-      F32_PACKED_DIGESTS["fwd"])
+  got = _digest([attn.attention_packed_fwd(q, k, v, 3)])
+  assert got == F32_PACKED_DIGESTS["fwd"], got
   got = _digest(attn.attention_packed_bwd(q, k, v, do, 3))
   assert got == F32_PACKED_DIGESTS["bwd"], got
+
+
+@pytest.mark.cuda
+def test_f32_fused_mha_keeps_its_bits(cuda):
+  """K6's f32 instance gives the bits of its SIMT kernels as they were
+  before K3's and K7's f32 forwards left the SIMT attention header, which
+  K6's attention stage still runs."""
+  got = _digest([fb.fused_mha_fwd(*_f32_mha_digest_inputs(cuda))])
+  assert got == F32_PACKED_DIGESTS["mha"], got
